@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the two
+Run it from a checkout: it imports the package beside it and builds the five
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -21,9 +21,28 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              float64 truth; then its per-solve time and peak memory, and each
              kernel timed and checked against its twin at these shapes;
 6. fitzhugh  the kernel path (800 steps x 128 lanes) and the torch-op
-             solve_mv in float64, against the cached FitzHugh-Nagumo truth.
+             solve_mv in float64, against the cached FitzHugh-Nagumo truth;
+7. k6_twin, k7_twin, k8_twin
+             kernels K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
+             (dalton_filter_batch) against their twins on the same CUDA
+             inputs, 1000 steps x 256 lanes: Lorenz63 EK1, and for K8 also
+             FitzHugh-Nagumo EK0, with and without data;
+8. likelihood  bench.py's likelihood fixture at full width: Lorenz63 EK1,
+             4000 steps x 2048 lanes, 21 observations, through
+             fenrir_fused_batch, dalton_fused_batch and basic_fused_batch.
+             Each must launch exactly its kernels, stay finite, and pass the
+             audit of lane 0 against the cached float64 truth; then its time
+             per call and peak memory, and K7b and K8 timed and checked
+             against their twins at these shapes;
+9. sim       solve_sim_fused_batch at the main path's shapes (launches,
+             finite, time, K6 against its twin), and the draws' lane mean
+             and variance against solve_mv_fused_batch's posterior on
+             FitzHugh-Nagumo, 800 steps x 2048 lanes.
 
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]} with each kernel's launches on its path,
+error against its twin, time, its plain twin's time and its bound (the
+larger of its bytes over 3.35 TB/s and its float32 operations, counted
+from its twin, over 67 TFLOP/s), and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
 """
@@ -46,6 +65,31 @@ TWIN_TOL = 1e-5
 AUDIT_FLOOR = 0.05
 # The float64 torch-op solve against the float64 truth.
 F64_ATOL = 1e-8
+# The likelihood audit: |lane 0 - float64 truth| <= max(3 x |float32-CPU
+# control - truth|, LL_REL_FLOOR x |truth|).  The floor is needed because a
+# control can land closer to the truth than float32 resolves a sum of
+# ~12 000 terms: DALTON's lands 0.012 from a truth of -1.39e5, where one
+# float32 ulp is 0.0156.
+LL_REL_FLOOR = 1e-4
+# The draws' check: the lane mean within SIM_Z standard errors (the
+# posterior variance / B) of the posterior mean, and the lane variance
+# within SIM_VAR_RATIO of the posterior variance, on entries whose
+# posterior variance exceeds SIM_VAR_MIN.  Below it are derivatives that
+# the ODE pins to ~3e-6 of their value (variance ~1e-10 at |x'| ~ 3), some
+# 40 float32 ulps, where the sampler's and the smoother's float32 rounding
+# (~1e-5 apart) decide the comparison, not the draws' distribution.
+SIM_Z = 6.0
+SIM_VAR_RATIO = (0.8, 1.25)
+SIM_VAR_MIN = 1e-8
+# The card's published peaks (H100 SXM, at a 700 W limit): device memory
+# bandwidth and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Arithmetic operations, by name, that count towards a kernel's bound when
+# its plain twin performs them (one per output element).
+_ARITH = {"add", "sub", "mul", "div", "truediv", "neg", "rsub", "sqrt",
+          "log", "clamp", "maximum", "minimum", "abs", "where", "gt", "lt",
+          "ge", "le", "reciprocal", "exp"}
 
 
 def emit(obj):
@@ -66,11 +110,16 @@ def main():
               "CPU", file=sys.stderr)
         return 1
 
+    from torch.overrides import TorchFunctionMode
+
     import rodeo_tpu_torch
     from rodeo_tpu_torch.interrogate import interrogate_kramer
     from rodeo_tpu_torch.models import fitzhugh, lorenz
     from rodeo_tpu_torch.ops import _build
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
+    from rodeo_tpu_torch.ops import fused_sim as fs
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -79,6 +128,63 @@ def main():
         if not ok:
             failures.append(f"{phase}: {name}")
         return bool(ok)
+
+    counters = (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES)
+
+    def reset_counts():
+        for counts in counters:
+            for name in counts:
+                counts[name] = 0
+
+    def read_counts():
+        return {k: v for counts in counters for k, v in counts.items()}
+
+    def expect(**launched):
+        """Every kernel's count: those named, and 0 for the others."""
+        return {k: launched.get(k, 0) for k in read_counts()}
+
+    class OpCounter(TorchFunctionMode):
+        """Counts the elements produced by arithmetic torch operations."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "").strip("_")
+            if name[:1] in ("r", "i") and name[1:] in _ARITH:
+                name = name[1:]
+            if name in _ARITH and isinstance(out, torch.Tensor):
+                self.ops += out.numel()
+            return out
+
+    def ops_per_step_lane(twin_at):
+        """Float32 operations per step and lane of a kernel, counted from
+        its plain twin run on the CPU on one lane: twin_at(n) runs n steps,
+        and the difference of 3 and 2 steps is one step's work."""
+        counts = []
+        for n in (2, 3):
+            with OpCounter() as counter:
+                twin_at(n)
+            counts.append(counter.ops)
+        return counts[1] - counts[0]
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def bound(n_bytes, n_ops):
+        """Least time on the card (ms) for n_bytes moved and n_ops float32
+        operations, and which of the two limits it."""
+        t_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        t_ops = 1e3 * n_ops / PEAK_F32_PER_S
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations",
+                {"bytes": n_bytes, "operations": n_ops})
+
+    def cpu_lane(t, axis=-1):
+        """The first lane of a tensor, on the CPU."""
+        return t.narrow(axis, 0, 1).cpu().contiguous()
 
     def cuda_ms(fn, repeats):
         """Median milliseconds of fn() by CUDA events, after one warm-up."""
@@ -236,16 +342,15 @@ def main():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in fk.LAUNCHES:
-        fk.LAUNCHES[k] = 0
+    reset_counts()
     t0 = time.perf_counter()
     mean, var = solve()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(fk.LAUNCHES)
+    launches = read_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     check("main", "one launch per kernel",
-          launches == {"filter_batch": 1, "smoother_batch": 1})
+          launches == expect(filter_batch=1, smoother_batch=1))
     shapes_ok = check("main", "shapes",
                       tuple(mean.shape) == (n_steps + 1, 3, 3, n_lane)
                       and tuple(var.shape) == (n_steps + 1, 3, 6, n_lane))
@@ -274,6 +379,19 @@ def main():
     ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
                               n_steps, cfg["prior_pars"])
     fused = fk.resolve_model("lorenz")
+    kernels = {}
+
+    def kernel_entry(name, source, replaces, path_launches, errs, ms,
+                     plain_ms, bound_of):
+        bound_ms, bound_by, work = bound_of
+        kernels[name] = {
+            "name": name, "route": "cuda",
+            "source": f"rodeo_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": path_launches[name],
+            "max_abs_err": worst(errs)[0], "max_scaled_err": worst(errs)[1],
+            "tol_scaled": TWIN_TOL, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
+            "library_ms": None}
 
     def k1():
         return fk.fused_filter_batch(fused, n_steps, **ops, mode="kramer")
@@ -284,20 +402,38 @@ def main():
         lambda: fk._filter_batch_plain(fused, n_steps, **ops, mode="kramer"))
     k1_errs = compare(k1_names, out_k, out_p)
     del out_p
+    cpu_ops = {k: (cpu_lane(v) if k in ("x0_lanes", "theta_lanes")
+                   else v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in ops.items()}
+    k1_step_ops = ops_per_step_lane(lambda n: fk._filter_batch_plain(
+        fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
+        mode="kramer"))
+    k1_bound = bound(nbytes(*[v for v in ops.values()
+                              if isinstance(v, torch.Tensor)], *out_k),
+                     k1_step_ops * n_steps * n_lane)
     G, g, L, mN, pN = out_k
     k2_args = (g[1:], G[1:], L[1:], mN, pN)
     k2_ms = cuda_ms(lambda: fk.smoother_recursion_batch(*k2_args), repeats=3)
     sm_k = fk.smoother_recursion_batch(*k2_args)
     sm_p, k2_plain_ms = cuda_once(lambda: fk._smoother_batch_plain(*k2_args))
     k2_errs = compare(["ms", "ps"], sm_k, sm_p)
+    k2_cpu = [cpu_lane(a) for a in k2_args]
+    k2_step_ops = ops_per_step_lane(lambda n: fk._smoother_batch_plain(
+        *[a[:n] for a in k2_cpu[:3]], *k2_cpu[3:]))
+    k2_bound = bound(nbytes(*k2_args, *sm_k),
+                     k2_step_ops * (n_steps - 1) * n_lane)
     del sm_p, sm_k, out_k, G, g, L, mN, pN, k2_args
     k1_ok = check("main", "K1 vs twin", worst(k1_errs)[1] <= TWIN_TOL)
     k2_ok = check("main", "K2 vs twin", worst(k2_errs)[1] <= TWIN_TOL)
+    kernel_entry("filter_batch", "filter_batch.cu",
+                 "rodeo_tpu/ops/pallas_kalman.py:1141", launches, k1_errs,
+                 k1_ms, k1_plain_ms, k1_bound)
+    kernel_entry("smoother_batch", "smoother_batch.cu",
+                 "rodeo_tpu/ops/pallas_kalman.py:1516", launches, k2_errs,
+                 k2_ms, k2_plain_ms, k2_bound)
     emit({"phase": "main_kernels", "n_steps": n_steps, "n_lane": n_lane,
-          "filter_batch": {"ms": k1_ms, "plain_ms": k1_plain_ms,
-                           "errors": k1_errs, "ok": k1_ok},
-          "smoother_batch": {"ms": k2_ms, "plain_ms": k2_plain_ms,
-                             "errors": k2_errs, "ok": k2_ok}})
+          "filter_batch": {**kernels["filter_batch"], "ok": k1_ok},
+          "smoother_batch": {**kernels["smoother_batch"], "ok": k2_ok}})
 
     # ---- 6. FitzHugh-Nagumo --------------------------------------------
     n_fh = 800
@@ -326,23 +462,285 @@ def main():
           "torch_op_f64_max_abs_err": err64, "atol": F64_ATOL,
           "torch_op_f64_ok": f64_ok})
 
+    # ---- 7. K6, K7b and K8 against their twins ---------------------------
+    def bench_obs(model_mod, t_max, n_obs, seed):
+        """bench.py's observation model: the 0th derivative of every
+        variable at n_obs evenly spaced times, variance 0.005, data
+        rng(seed).normal * 5."""
+        nb = model_mod.N_VARS
+        weight = torch.zeros((n_obs, nb, 1, 3), device=dev)
+        weight[..., 0] = 1.0
+        data = np.random.default_rng(seed).normal(size=(n_obs, nb, 1)) * 5
+        return dict(
+            obs_data=torch.tensor(data, dtype=torch.float32, device=dev),
+            obs_times=torch.tensor(np.linspace(0.0, t_max, n_obs),
+                                   dtype=torch.float32),
+            obs_weight=weight,
+            obs_var=torch.full((n_obs, nb, 1, 1), 0.005, device=dev))
+
+    def fenrir_chain(n, t_max_m, ops_m, obs):
+        """K7b's operands on the fenrir path (Lorenz63 EK1)."""
+        return ff._fenrir_operands(fused, n, 0.0, t_max_m, ops_m,
+                                   *obs.values(), "kramer")
+
+    def fenrir_plain(*chain):
+        return chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
+            *chain[:-1]))
+
+    n_tw, b_tw = 1000, 256
+    cfg_tw, thetas_tw, inits_tw = lane_setup(lorenz, n_tw, 2.0, b_tw,
+                                             seeded_thetas(3))
+    ops_tw = fk._kernel_operands(thetas_tw, cfg_tw["ode_weight"], inits_tw,
+                                 0.0, 2.0, n_tw, cfg_tw["prior_pars"])
+    obs_tw = bench_obs(lorenz, 2.0, 11, 0)
+    gen = torch.Generator(dev).manual_seed(4)
+    eps = torch.randn((n_tw - 1, 3, 3, b_tw), generator=gen, device=dev)
+    eps_term = torch.randn((3, 3, b_tw), generator=gen, device=dev)
+    k6_args = fs._draw_operands(fused, n_tw, ops_tw, "kramer", eps,
+                                eps_term)
+    errs = compare(["xs"], [fs.sampler_batch(*k6_args)],
+                   [fs._sampler_batch_plain(*k6_args)])
+    ok = check("k6_twin", "lorenz/kramer", worst(errs)[1] <= TWIN_TOL)
+    emit({"phase": "k6_twin", "model": "lorenz", "mode": "kramer",
+          "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
+          "errors": errs, "ok": ok})
+    chain = fenrir_chain(n_tw, 2.0, ops_tw, obs_tw)
+    errs = compare(["ld"], [ff.fenrir_backward_batch(*chain)],
+                   [fenrir_plain(*chain)])
+    ok = check("k7_twin", "lorenz/kramer", worst(errs)[1] <= TWIN_TOL)
+    emit({"phase": "k7_twin", "model": "lorenz", "mode": "kramer",
+          "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
+          "errors": errs, "ok": ok})
+    del k6_args, chain, eps, eps_term
+    for model, mode, t_max_tw in (("lorenz", "kramer", 2.0),
+                                  ("fitzhugh", "rodeo", 10.0)):
+        mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
+        cfg_m, thetas_m, inits_m = lane_setup(mod, n_tw, t_max_tw, b_tw,
+                                              seeded_thetas(5))
+        ops_m, obs_m, ld0_m = fd._dalton_prepare(
+            thetas_m, cfg_m["ode_weight"], inits_m, 0.0, t_max_tw, n_tw,
+            cfg_m["prior_pars"], *bench_obs(mod, t_max_tw, 11, 0).values())
+        fused_m = fk.resolve_model(model)
+        for with_obs in (True, False):
+            args = dict(**ops_m, **obs_m, ld0=ld0_m, mode=mode,
+                        with_obs=with_obs)
+            errs = compare(["ld"],
+                           [fd.dalton_filter_batch(fused_m, n_tw, **args)],
+                           [fd._dalton_filter_plain(fused_m, n_tw, **args)])
+            ok = check("k8_twin", f"{model}/{mode}/with_obs={with_obs}",
+                       worst(errs)[1] <= TWIN_TOL)
+            emit({"phase": "k8_twin", "model": model, "mode": mode,
+                  "with_obs": with_obs, "n_steps": n_tw, "n_lane": b_tw,
+                  "tol_scaled": TWIN_TOL, "errors": errs, "ok": ok})
+
+    # ---- 8. the likelihoods at full width ---------------------------------
+    n_ll, b_ll, t_ll = 4000, 2048, 20.0
+    cfg_ll, thetas_ll, inits_ll = lane_setup(lorenz, n_ll, t_ll, b_ll,
+                                             bench_thetas)
+    lanes_ll = dict(thetas=thetas_ll, ode_weight=cfg_ll["ode_weight"],
+                    ode_inits=inits_ll, t_min=0.0, t_max=t_ll, n_steps=n_ll,
+                    prior_pars=cfg_ll["prior_pars"], model="lorenz",
+                    interrogation="kramer")
+    obs_f = bench_obs(lorenz, t_ll, 21, 0)        # fenrir and dalton
+    obs_b = bench_obs(lorenz, t_ll, 21, 1)        # basic
+
+    def b_loglik(obs_data, ode_data):
+        return torch.sum(-0.5 * (obs_data[..., 0] - ode_data[..., 0]) ** 2)
+
+    paths = {
+        "fenrir": (lambda: ff.fenrir_fused_batch(**lanes_ll, **obs_f),
+                   expect(filter_batch=1, fenrir_backward_batch=1)),
+        "dalton": (lambda: fd.dalton_fused_batch(**lanes_ll, **obs_f),
+                   expect(dalton_filter_batch=2)),
+        "basic": (lambda: fk.basic_fused_batch(
+            **lanes_ll, obs_data=obs_b["obs_data"],
+            obs_times=obs_b["obs_times"], obs_loglik=b_loglik)[0],
+            expect(filter_batch=1, smoother_batch=1)),
+    }
+    path_launches = {}
+    for name, (call, expected) in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ll = call()
+        torch.cuda.synchronize()
+        got = read_counts()
+        path_launches[name] = got
+        peak = torch.cuda.max_memory_allocated()
+        check("likelihood", f"{name} launches", got == expected)
+        finite = check("likelihood", f"{name} finite",
+                       tuple(ll.shape) == (b_ll,)
+                       and torch.isfinite(ll).all().item())
+        ref = float(truth[f"{name}_ll"])
+        control = abs(float(truth[f"{name}_ll_f32cpu"]) - ref)
+        lane0 = float(ll[0])
+        err = abs(lane0 - ref)
+        tol = max(3 * control, LL_REL_FLOOR * abs(ref))
+        audit_ok = check("likelihood", f"{name} audit", err <= tol)
+        del ll
+        call_ms = cuda_ms(call, repeats=5)
+        emit({"phase": "likelihood", "likelihood": name, "model": "lorenz",
+              "interrogation": "kramer", "n_steps": n_ll, "n_lane": b_ll,
+              "n_obs": 21, "launches": {k: v for k, v in got.items() if v},
+              "finite": finite, "lane0": lane0,
+              "audit_abs_err": err, "audit_ref": ref,
+              "audit_control_abs_err": control, "audit_tol": tol,
+              "audit_ok": audit_ok, "call_ms": call_ms,
+              "per_eval_us": 1e3 * call_ms / b_ll, "peak_mem_bytes": peak})
+
+    # K7b and K8 alone at these shapes, timed and checked against their twins
+    ops_ll = fk._kernel_operands(thetas_ll, cfg_ll["ode_weight"], inits_ll,
+                                 0.0, t_ll, n_ll, cfg_ll["prior_pars"])
+    chain = fenrir_chain(n_ll, t_ll, ops_ll, obs_f)
+    k7_ms = cuda_ms(lambda: ff.fenrir_backward_batch(*chain), repeats=5)
+    k7_out = ff.fenrir_backward_batch(*chain)
+    k7_plain, k7_plain_ms = cuda_once(lambda: fenrir_plain(*chain))
+    k7_errs = compare(["ld"], [k7_out], [k7_plain])
+    A, b, C, d, y, om, mask, m_seed, p_seed, _ = chain
+    chain_cpu = [cpu_lane(A), cpu_lane(b), cpu_lane(C), d.cpu(), y.cpu(),
+                 om.cpu(), mask.cpu(), cpu_lane(m_seed), cpu_lane(p_seed)]
+    del A, b, C, d, y, om, mask, m_seed, p_seed
+    k7_step_ops = ops_per_step_lane(lambda n: ff._fenrir_backward_plain(
+        *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:]))
+    k7_bound = bound(nbytes(*chain) + 4 * 3 * b_ll,
+                     k7_step_ops * n_ll * b_ll)
+    check("likelihood", "K7b vs twin", worst(k7_errs)[1] <= TWIN_TOL)
+    kernel_entry("fenrir_backward_batch", "fenrir_backward_batch.cu",
+                 "rodeo_tpu/ops/pallas_fenrir.py:291",
+                 path_launches["fenrir"], k7_errs, k7_ms, k7_plain_ms,
+                 k7_bound)
+    del chain, k7_out, k7_plain
+    ops_d, obs_d, ld0_d = fd._dalton_prepare(
+        thetas_ll, cfg_ll["ode_weight"], inits_ll, 0.0, t_ll, n_ll,
+        cfg_ll["prior_pars"], *obs_f.values())
+    k8_args = dict(**ops_d, **obs_d, ld0=ld0_d, mode="kramer",
+                   with_obs=True)
+    k8_ms = cuda_ms(lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
+                    repeats=5)
+    k8_out = fd.dalton_filter_batch(fused, n_ll, **k8_args)
+    k8_plain, k8_plain_ms = cuda_once(
+        lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args))
+    k8_errs = compare(["ld"], [k8_out], [k8_plain])
+    k8_cpu = {k: (cpu_lane(v) if k in ("x0_lanes", "theta_lanes", "ld0")
+                  else v.cpu() if isinstance(v, torch.Tensor) else v)
+              for k, v in k8_args.items()}
+    k8_step_ops = ops_per_step_lane(lambda n: fd._dalton_filter_plain(
+        fused, n, **{k: (v[:n] if k in ("tgrid", "d", "y", "om", "mask")
+                         else v) for k, v in k8_cpu.items()}))
+    k8_bound = bound(nbytes(*[v for v in k8_args.values()
+                              if isinstance(v, torch.Tensor)], k8_out),
+                     k8_step_ops * n_ll * b_ll)
+    check("likelihood", "K8 vs twin", worst(k8_errs)[1] <= TWIN_TOL)
+    kernel_entry("dalton_filter_batch", "dalton_filter_batch.cu",
+                 "rodeo_tpu/ops/pallas_dalton.py:41",
+                 path_launches["dalton"], k8_errs, k8_ms, k8_plain_ms,
+                 k8_bound)
+    del k8_args, k8_out, k8_plain, ops_d, obs_d
+    # K1 and K2 at these shapes, for the breakdown of the fenrir and basic
+    # calls
+    k1_ll_ms = cuda_ms(lambda: fk.fused_filter_batch(
+        fused, n_ll, **ops_ll, mode="kramer"), repeats=5)
+    G, g, L, mN, pN = fk.fused_filter_batch(fused, n_ll, **ops_ll,
+                                            mode="kramer")
+    k2_ll_ms = cuda_ms(lambda: fk.smoother_recursion_batch(
+        g[1:], G[1:], L[1:], mN, pN), repeats=5)
+    del G, g, L, mN, pN, ops_ll
+    emit({"phase": "likelihood_kernels", "n_steps": n_ll, "n_lane": b_ll,
+          "fenrir_backward_batch": kernels["fenrir_backward_batch"],
+          "dalton_filter_batch": kernels["dalton_filter_batch"],
+          "filter_batch_ms": k1_ll_ms, "smoother_batch_ms": k2_ll_ms})
+
+    # ---- 9. posterior path sampling ---------------------------------------
+    n_sim, b_sim = 10000, 2048
+    cfg_s, thetas_s, inits_s = lane_setup(lorenz, n_sim, 20.0, b_sim,
+                                          bench_thetas)
+    gen = torch.Generator(dev).manual_seed(6)
+
+    def sim():
+        return fs.solve_sim_fused_batch(
+            thetas_s, cfg_s["ode_weight"], inits_s, 0.0, 20.0, n_sim,
+            cfg_s["prior_pars"], model="lorenz", interrogation="kramer",
+            generator=gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    path = sim()
+    torch.cuda.synchronize()
+    sim_launches = read_counts()
+    sim_peak = torch.cuda.max_memory_allocated()
+    check("sim", "launches",
+          sim_launches == expect(filter_batch=1, sampler_batch=1))
+    sim_shape = check("sim", "shape",
+                      tuple(path.shape) == (n_sim + 1, 3, 3, b_sim))
+    sim_finite = check("sim", "finite", torch.isfinite(path).all().item())
+    del path
+    sim_ms = cuda_ms(sim, repeats=3)
+    # K6 alone at these shapes
+    ops_s = fk._kernel_operands(thetas_s, cfg_s["ode_weight"], inits_s, 0.0,
+                                20.0, n_sim, cfg_s["prior_pars"])
+    eps = torch.randn((n_sim - 1, 3, 3, b_sim), generator=gen, device=dev)
+    eps_term = torch.randn((3, 3, b_sim), generator=gen, device=dev)
+    k6_args = fs._draw_operands(fused, n_sim, ops_s, "kramer", eps,
+                                eps_term)
+    del eps, eps_term, ops_s
+    k6_ms = cuda_ms(lambda: fs.sampler_batch(*k6_args), repeats=5)
+    k6_out = fs.sampler_batch(*k6_args)
+    k6_plain, k6_plain_ms = cuda_once(
+        lambda: fs._sampler_batch_plain(*k6_args))
+    k6_errs = compare(["xs"], [k6_out], [k6_plain])
+    k6_cpu = [cpu_lane(t) for t in k6_args]
+    k6_step_ops = ops_per_step_lane(lambda n: fs._sampler_batch_plain(
+        k6_cpu[0][:n], k6_cpu[1][:n], k6_cpu[2]))
+    k6_bound = bound(nbytes(*k6_args, k6_out),
+                     k6_step_ops * (n_sim - 1) * b_sim)
+    check("sim", "K6 vs twin", worst(k6_errs)[1] <= TWIN_TOL)
+    kernel_entry("sampler_batch", "sampler_batch.cu",
+                 "rodeo_tpu/ops/pallas_sim.py:51", sim_launches, k6_errs,
+                 k6_ms, k6_plain_ms, k6_bound)
+    del k6_args, k6_out, k6_plain
+    # the draws against the posterior: FitzHugh-Nagumo, one theta
+    n_d, b_d = 800, 2048
+    cfg_d, thetas_d, inits_d = lane_setup(
+        fitzhugh, n_d, 10.0, b_d,
+        lambda theta, n_lane: theta.expand(n_lane, 3).contiguous())
+    args_d = (thetas_d, cfg_d["ode_weight"], inits_d, 0.0, 10.0, n_d,
+              cfg_d["prior_pars"])
+    draws = fs.solve_sim_fused_batch(
+        *args_d, model="fitzhugh", interrogation="kramer",
+        generator=torch.Generator(dev).manual_seed(7)).double()
+    mean_d, var_d = fk.solve_mv_fused_batch(*args_d, model="fitzhugh",
+                                            interrogation="kramer")
+    _, where = fk._tri_idx(3)
+    post_mean = mean_d[1:, ..., 0].double()
+    post_var = var_d[1:, :, [where[(j, j)] for j in range(3)], 0].double()
+    lane_mean = draws[1:].mean(-1)
+    lane_var = draws[1:].var(-1)
+    keep = post_var > SIM_VAR_MIN
+    z = ((lane_mean - post_mean).abs() / (post_var / b_d).sqrt())[keep]
+    ratio = (lane_var / post_var)[keep]
+    z_max = z.max().item()
+    ratio_range = (ratio.min().item(), ratio.max().item())
+    dist_ok = check("sim", "draws against the posterior",
+                    z_max <= SIM_Z and SIM_VAR_RATIO[0] <= ratio_range[0]
+                    and ratio_range[1] <= SIM_VAR_RATIO[1])
+    emit({"phase": "sim", "model": "lorenz", "interrogation": "kramer",
+          "n_steps": n_sim, "n_lane": b_sim,
+          "launches": {k: v for k, v in sim_launches.items() if v},
+          "shape_ok": sim_shape, "finite": sim_finite, "call_ms": sim_ms,
+          "per_draw_us": 1e3 * sim_ms / b_sim, "peak_mem_bytes": sim_peak,
+          "sampler_batch": kernels["sampler_batch"],
+          "distribution": {
+              "model": "fitzhugh", "n_steps": n_d, "n_lane": b_d,
+              "entries_checked": int(keep.sum().item()),
+              "entries": int(keep.numel()), "var_min": SIM_VAR_MIN,
+              "max_z": z_max, "z_tol": SIM_Z, "var_ratio": ratio_range,
+              "var_ratio_tol": SIM_VAR_RATIO, "ok": dist_ok}})
+
     # ---- summary --------------------------------------------------------
-    emit({"kernels": [
-        {"name": "filter_batch", "route": "cuda",
-         "source": "rodeo_tpu_torch/ops/csrc/filter_batch.cu",
-         "replaces": "rodeo_tpu/ops/pallas_kalman.py:1141",
-         "launches": launches["filter_batch"],
-         "max_abs_err": worst(k1_errs)[0],
-         "max_scaled_err": worst(k1_errs)[1], "tol_scaled": TWIN_TOL,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "smoother_batch", "route": "cuda",
-         "source": "rodeo_tpu_torch/ops/csrc/smoother_batch.cu",
-         "replaces": "rodeo_tpu/ops/pallas_kalman.py:1516",
-         "launches": launches["smoother_batch"],
-         "max_abs_err": worst(k2_errs)[0],
-         "max_scaled_err": worst(k2_errs)[1], "tol_scaled": TWIN_TOL,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]})
+    emit({"kernels": [kernels[name] for name in (
+        "filter_batch", "smoother_batch", "sampler_batch",
+        "fenrir_backward_batch", "dalton_filter_batch")]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

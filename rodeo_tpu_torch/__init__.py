@@ -7,7 +7,8 @@ module names so that every function has an obvious counterpart, and holds
 itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
-Ported so far (the ``solve_mv`` slice):
+Ported so far (the ``solve_mv`` slice and the lane-batched inference
+path):
 
 - :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
   :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
@@ -15,13 +16,26 @@ Ported so far (the ``solve_mv`` slice):
 - :mod:`rodeo_tpu_torch.ops.precond` (Taylor preconditioning);
 - :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`, the
   lane-batched solve carried by two hand-written CUDA kernels
-  (``ops/csrc/filter_batch.cu``, ``ops/csrc/smoother_batch.cu``).
+  (``ops/csrc/filter_batch.cu``, ``ops/csrc/smoother_batch.cu``);
+- the lane-batched likelihoods :func:`fenrir_fused_batch` (kernels K1 and
+  ``ops/csrc/fenrir_backward_batch.cu``), :func:`dalton_fused_batch`
+  (``ops/csrc/dalton_filter_batch.cu``) and :func:`basic_fused_batch`
+  (K1, K2), and posterior path sampling :func:`solve_sim_fused_batch` (K1
+  and ``ops/csrc/sampler_batch.cu``).
+
+The fused entry points and the model setups run on the CUDA card unless
+they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
 """
 
 __version__ = "0.1.0"
 
 from rodeo_tpu_torch import interrogate
 from rodeo_tpu_torch import prior
+from rodeo_tpu_torch.ops import (basic_fused_batch, dalton_fused_batch,
+                                 fenrir_fused_batch, solve_mv_fused_batch,
+                                 solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv
 
-__all__ = ["interrogate", "prior", "solve_mv"]
+__all__ = ["interrogate", "prior", "solve_mv", "solve_mv_fused_batch",
+           "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
+           "solve_sim_fused_batch"]

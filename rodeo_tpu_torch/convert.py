@@ -9,6 +9,8 @@ without this one importing JAX.
 import numpy as np
 import torch
 
+from rodeo_tpu_torch.device import resolve_device
+
 __all__ = ["from_numpy"]
 
 
@@ -19,13 +21,15 @@ def from_numpy(tree, *, device=None, dtype=torch.float32):
     Args:
         tree: A numpy array, or dicts / tuples / lists of them; Python
             scalars (``t_min``, ``n_steps``, ...) and ``None`` pass through.
-        device: Device of the tensors.
+        device: Device of the tensors; ``None`` means the CUDA card
+            (:func:`rodeo_tpu_torch.device.resolve_device`).
         dtype: dtype of the floating-point tensors; other arrays keep
             theirs.
 
     Returns:
         ``tree`` with every array replaced by a tensor.
     """
+    device = resolve_device(device)
     if isinstance(tree, (np.ndarray, np.generic)):
         arr = np.asarray(tree)
         if np.issubdtype(arr.dtype, np.floating):

@@ -10,6 +10,7 @@ with :math:`\theta = (a, b, c) = (0.2, 0.2, 3)` and :math:`x_0 = (-1, 1)`.
 """
 import torch
 
+from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.prior import ibm_init
 from rodeo_tpu_torch.utils import first_order_pad
@@ -58,7 +59,8 @@ FUSED = FusedModel(flat=fitzhugh_flat, jac_flat=fitzhugh_jac_flat,
 def setup(n_steps=250, t_min=0.0, t_max=10.0, prior_sigma=0.1,
           dtype=torch.float64, device=None):
     """Solver configuration of the FitzHugh-Nagumo benchmark, built on the
-    CPU in ``dtype`` and moved to ``device``."""
+    CPU in ``dtype`` and moved to ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
     theta = torch.tensor(THETA, dtype=dtype)
     W, pad = first_order_pad(fitzhugh_fun, N_VARS, N_DERIV, dtype=dtype)
     x0 = pad(torch.tensor(X0, dtype=dtype), t_min, theta=theta)

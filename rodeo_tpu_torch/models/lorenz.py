@@ -12,6 +12,7 @@ with :math:`(\rho, \sigma, \beta) = (28, 10, 8/3)` and
 """
 import torch
 
+from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.prior import ibm_init
 from rodeo_tpu_torch.utils import first_order_pad
@@ -64,13 +65,15 @@ def setup(n_steps=10000, t_min=0.0, t_max=20.0, prior_sigma=5e7,
           dtype=torch.float32, device=None):
     """
     Solver configuration of the Lorenz63 benchmark.  Built on the CPU in
-    ``dtype``, then moved to ``device``, so that every device gets the same
-    numbers.
+    ``dtype``, then moved to ``device`` (``None``: the CUDA card, see
+    :func:`rodeo_tpu_torch.device.resolve_device`), so that every device
+    gets the same numbers.
 
     Returns:
         dict with ``ode_fun, ode_weight, ode_init, theta, t_min, t_max,
         n_steps, prior_pars``, ready to splat into ``solve_mv``.
     """
+    device = resolve_device(device)
     theta = torch.tensor(THETA, dtype=dtype)
     W, pad = first_order_pad(lorenz_fun, N_VARS, N_DERIV, dtype=dtype)
     x0 = pad(torch.tensor(X0, dtype=dtype), t_min, theta=theta)

@@ -2,11 +2,12 @@ r"""
 Build and load the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` of this package for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, into ``build/rodeo_tpu_torch/`` beside the package; ``ctypes`` loads
-it.  The library's name carries a hash of the sources and flags, so an
-edited source is rebuilt and never mixed up with an old build.  A failed
-build raises.
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use,
+into ``build/rodeo_tpu_torch/`` beside the package; ``ctypes`` loads it.
+The library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and never mixed up with an old build.  A failed build
+raises.
 """
 import ctypes
 import functools
@@ -24,8 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rodeo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so each kernel rounds exactly as
 # its plain PyTorch twin does, operation for operation
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +35,14 @@ _SIGNATURES = {
     "rodeo_filter_batch": [_I, _I, _I, _I] + [_P] * 13,
     # n_steps, n_col, g, G, L, mN, pN, ms, ps, stream
     "rodeo_smoother_batch": [_I, _I] + [_P] * 8,
+    # n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
+    # ld_blocks, stream
+    "rodeo_fenrir_backward_batch": [_I] * 3 + [_P] * 11,
+    # model, mode, with_obs, n_steps, n_lane, q_const (host), R, W, t_vec,
+    # x0, theta, tgrid, d, y, om, mask, ld0, ld, stream
+    "rodeo_dalton_filter_batch": [_I] * 5 + [_P] * 14,
+    # n_steps, n_col, c, G, xN, xs, stream
+    "rodeo_sampler_batch": [_I, _I] + [_P] * 5,
 }
 
 
@@ -68,14 +76,31 @@ def load():
     lib_path = _library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.parent / f"{lib_path.stem}.{os.getpid()}.tmp"
+        stem = f"{lib_path.stem}.{os.getpid()}"
         cus, _ = _sources()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        objs = [BUILD_DIR / f"{stem}.{cu.stem}.o" for cu in cus]
+        compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)]
+                    for cu, obj in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(" ".join(cmd) + "\n" + out
+                      for cmd, out in zip(compiles, outs))
+        failed = [proc.returncode for proc in procs if proc.returncode]
+        tmp = BUILD_DIR / f"{stem}.tmp"
+        if not failed:
+            link = [_nvcc(), "-shared", "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                    *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            failed = [proc.returncode] if proc.returncode else []
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         lib_path.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

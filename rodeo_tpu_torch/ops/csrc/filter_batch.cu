@@ -14,9 +14,10 @@
 // adds the process noise, forms the smoothing gain of the transition n-1 ->
 // n from the carry and the fresh prediction, evaluates the ODE (and column 0
 // of its Jacobian) at the predicted mean, and does the scalar-innovation
-// Joseph update.  Outputs are laid out (N, d, NB, B) with lanes innermost,
-// so the threads of a warp store 32 neighbouring floats.  The arithmetic is
-// float32 throughout, as on the TPU.
+// Joseph update; predict, interrogate and update are the step that K8 shares
+// (filter_step.cuh).  Outputs are laid out (N, d, NB, B) with lanes
+// innermost, so the threads of a warp store 32 neighbouring floats.  The
+// arithmetic is float32 throughout, as on the TPU.
 //
 // What bounds it on the card.  A step is ~1e3 dependent float operations
 // per lane against 18 * NB floats stored, so the kernel is bound by the
@@ -29,19 +30,13 @@
 
 #include <cuda_runtime.h>
 
+#include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
 
 namespace rodeo {
 
 constexpr int kFilterThreads = 32;
-constexpr int kKramer = 0;  // EK1, zero measurement noise
-constexpr int kRodeo = 1;   // EK0, measurement noise W Sigma_pred W'
-
-template <int Q>
-struct QConst {
-  float q[Q * Q];  // scaled transition, row-major
-};
 
 // G, g and the Joseph-form noise L of the backward kernel of the transition
 // n-1 -> n (_gain_cols_batched): G = Pf Q' Pp^{-1}, g = mf - G mp,
@@ -122,20 +117,9 @@ __global__ void __launch_bounds__(kFilterThreads)
   const size_t col = static_cast<size_t>(NB) * n_lane;
   const size_t off = lane;
 
-  float Qm[Q][Q], R[NB][NT], W[NB][Q], tv[Q], th[NTH];
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-#pragma unroll
-    for (int j = 0; j < Q; ++j) Qm[i][j] = qc.q[i * Q + j];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) R[b][k] = R_in[b * NT + k];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) W[b][j] = W_in[b * Q + j];
-  }
-#pragma unroll
-  for (int j = 0; j < Q; ++j) tv[j] = tv_in[j];
+  FilterConsts<Model, Q> c;
+  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  float th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k) th[k] = theta[k * static_cast<size_t>(n_lane) + off];
 
@@ -152,14 +136,11 @@ __global__ void __launch_bounds__(kFilterThreads)
     float mp[NB][Q], pp[NB][NT];
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      matvec<Q>(Qm, m[b], mp[b]);
-      sym_quadform<Q>(Qm, P[b], pp[b]);
-#pragma unroll
-      for (int k = 0; k < NT; ++k) pp[b][k] = pp[b][k] + R[b][k];
+      predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
       // the gain of the transition n-1 -> n needs only the carry (filtered
       // n-1) and the fresh prediction (n)
       float G[Q][Q], g[Q], L[NT];
-      gain_cols<Q>(Qm, R[b], m[b], P[b], mp[b], pp[b], G, g, L);
+      gain_cols<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b], G, g, L);
       const size_t base = b * static_cast<size_t>(n_lane) + off;
 #pragma unroll
       for (int i = 0; i < Q; ++i)
@@ -173,62 +154,9 @@ __global__ void __launch_bounds__(kFilterThreads)
       for (int k = 0; k < NT; ++k)
         L_out[(static_cast<size_t>(n) * NT + k) * col + base] = L[k];
     }
-
-    // interrogate the ODE at the predicted mean, in original coordinates
-    float x[NB][Q], fx[NB], jd[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int j = 0; j < Q; ++j) x[b][j] = mp[b][j] * tv[j];
-    const float t = tgrid[n];
-    Model::template f<Q>(x, th, t, fx);
-    if (MODE == kKramer) Model::template jac0<Q>(x, th, t, jd);
-
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float H[Q];
-#pragma unroll
-      for (int j = 0; j < Q; ++j) H[j] = W[b][j];
-      if (MODE == kKramer) H[0] = W[b][0] - jd[b] * tv[0];
-      float hm = H[0] * mp[b][0];
-#pragma unroll
-      for (int j = 1; j < Q; ++j) hm = hm + H[j] * mp[b][j];
-      float mm = -fx[b];
-      if (MODE == kKramer) mm = mm + jd[b] * x[b][0];
-      const float z = -(hm + mm);
-      float PH[Q];
-#pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        float acc = pp[b][Tri<Q>::at(i, 0)] * H[0];
-#pragma unroll
-        for (int j = 1; j < Q; ++j) acc = acc + pp[b][Tri<Q>::at(i, j)] * H[j];
-        PH[i] = acc;
-      }
-      float S = H[0] * PH[0];
-#pragma unroll
-      for (int i = 1; i < Q; ++i) S = S + H[i] * PH[i];
-      if (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
-      const float inv_S = 1.0f / S;
-      float gain[Q], IKW[Q][Q];
-#pragma unroll
-      for (int i = 0; i < Q; ++i) gain[i] = PH[i] * inv_S;
-#pragma unroll
-      for (int i = 0; i < Q; ++i) m[b][i] = mp[b][i] + gain[i] * z;
-#pragma unroll
-      for (int i = 0; i < Q; ++i)
-#pragma unroll
-        for (int j = 0; j < Q; ++j)
-          IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * H[j];
-      sym_quadform<Q>(IKW, pp[b], P[b]);
-      if (MODE == kRodeo) {
-        const float V = S * 0.5f;
-        int k = 0;
-#pragma unroll
-        for (int i = 0; i < Q; ++i)
-#pragma unroll
-          for (int j = i; j < Q; ++j, ++k) P[b][k] = P[b][k] + gain[i] * gain[j] * V;
-      }
-    }
+    float z[NB], S[NB], inv_S[NB];
+    interrogate_update<Model, Q, MODE>(c, th, tgrid[n], mp, pp, m, P, z, S,
+                                       inv_S);
   }
 
 #pragma unroll

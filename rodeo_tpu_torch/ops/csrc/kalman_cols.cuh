@@ -12,6 +12,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace rodeo {
 
@@ -94,6 +95,55 @@ __device__ __forceinline__ void sym_inv(const float (&p)[Tri<Q>::N],
   out[3] = co11 * inv_det;
   out[4] = co12 * inv_det;
   out[5] = co22 * inv_det;
+}
+
+// log(2 pi), rounded to float32 as PyTorch rounds the Python float
+constexpr float kLog2Pi = static_cast<float>(1.8378770664093453);
+
+// Masked scalar observation update of one block (_masked_obs_update_cols of
+// ops/fused_kalman.py): S = om + D P D', z = y - D m, K = P D' / S * mask,
+// m += K z, P = (I - K D) P (I - K D)' + K K' om.  At a step without data
+// (D = 0, y = 0, om = 1, mask = 0) it leaves m and P exactly as they were.
+// Returns the block's log-density term z^2 / S + log S + log 2 pi, which
+// the caller scales by -0.5 * mask.
+template <int Q>
+__device__ __forceinline__ float masked_obs_update(const float (&D)[Q],
+                                                   float y, float om,
+                                                   float mask, float (&m)[Q],
+                                                   float (&P)[Tri<Q>::N]) {
+  float PD[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    float acc = P[Tri<Q>::at(i, 0)] * D[0];
+#pragma unroll
+    for (int j = 1; j < Q; ++j) acc = acc + P[Tri<Q>::at(i, j)] * D[j];
+    PD[i] = acc;
+  }
+  float S = om;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) S = S + D[i] * PD[i];
+  float z = y;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) z = z - D[i] * m[i];
+  const float inv_S = 1.0f / S;
+  const float term = z * z * inv_S + logf(S) + kLog2Pi;
+  float K[Q], IKD[Q][Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) K[i] = PD[i] * inv_S * mask;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) m[i] = m[i] + K[i] * z;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) IKD[i][j] = (i == j ? 1.0f : 0.0f) - K[i] * D[j];
+  float pj[Tri<Q>::N];
+  sym_quadform<Q>(IKD, P, pj);
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = i; j < Q; ++j, ++k) P[k] = pj[k] + K[i] * K[j] * om;
+  return term;
 }
 
 }  // namespace rodeo

@@ -1,7 +1,9 @@
 r"""
 Lane-batched fused solve on the GPU (port of the batch path of
 :mod:`rodeo_tpu.ops.pallas_kalman`: ``fused_filter_batch(emit="gains")``,
-``smoother_recursion_batch`` and ``solve_mv_fused_batch``).
+``smoother_recursion_batch``, ``solve_mv_fused_batch`` and
+``basic_fused_batch``), and the column algebra that the likelihood and
+sampling modules beside it share.
 
 ``B`` independent solves (parameter candidates, MCMC chains) ride one pair
 of kernels, batched along a trailing lane axis:
@@ -31,13 +33,15 @@ import math
 import numpy as np
 import torch
 
+from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.ops import _build
+from rodeo_tpu_torch.ops.obs_grid import obs_indices
 from rodeo_tpu_torch.ops.precond import taylor_scale, scale_prior
 
 __all__ = ["fused_filter_batch", "smoother_recursion_batch",
-           "solve_mv_fused_batch", "resolve_kalman_type", "unpack_cov",
-           "LAUNCHES"]
+           "solve_mv_fused_batch", "basic_fused_batch",
+           "resolve_kalman_type", "unpack_cov", "LAUNCHES"]
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"filter_batch": 0, "smoother_batch": 0}
@@ -47,6 +51,7 @@ LAUNCHES = {"filter_batch": 0, "smoother_batch": 0}
 _MODES = {"kramer": 0, "rodeo": 1}
 _FUNCTORS = {"Lorenz63": 0, "FitzHughNagumo": 1}
 _KERNEL_Q = 3   # the state size per block the kernels are instantiated for
+_LOG2PI = 1.8378770664093453
 
 
 def _tri_idx(q):
@@ -192,6 +197,89 @@ def _sym_inv(q, p_cols):
     raise NotImplementedError("the fused solve supports q <= 5")
 
 
+def _chol_cols(q, p_cols, where, floor=1e-12):
+    """Closed-form lower Cholesky factor of a packed symmetric matrix in
+    column layout: returns ``L[i][j]`` for ``j <= i``.
+
+    Float32-stable as in the JAX package: normalised to correlation form
+    (unit diagonal), factored with a *relative* pivot floor, rows scaled
+    back.  A floored pivot marks a numerically null direction, and the
+    entries below it are set to zero rather than divided by the floor,
+    which would blow the remaining columns up by ~1/floor."""
+    d = [torch.sqrt(torch.clamp(p_cols[where[(i, i)]], min=1e-38))
+         for i in range(q)]
+    rd = [1.0 / di for di in d]
+    L = [[None] * (i + 1) for i in range(q)]
+    ok = [None] * q     # pivot genuinely positive (not floored)?
+    for i in range(q):
+        for j in range(i + 1):
+            s = p_cols[where[(i, j)]] * (rd[i] * rd[j])
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                ok[i] = s > floor
+                L[i][i] = torch.sqrt(torch.clamp(s, min=floor))
+            else:
+                L[i][j] = torch.where(ok[j], s / L[j][j],
+                                      torch.zeros_like(s))
+    return [[L[i][j] * d[i] for j in range(i + 1)] for i in range(q)]
+
+
+def _chol_matvec(q, L, eps_cols):
+    """Columns of ``L @ eps`` for a lower-triangular column factor."""
+    return [sum(L[i][j] * eps_cols[j] for j in range(i + 1))
+            for i in range(q)]
+
+
+def _block_sum(x):
+    """Sum of the rows of ``x (n_block, ...)`` in block order, as the
+    kernels add them."""
+    acc = x[0]
+    for b in range(1, x.shape[0]):
+        acc = acc + x[b]
+    return acc
+
+
+def _masked_obs_update_cols(q, pairs, where, m_cols, p_cols, D, y, om, mask):
+    """
+    Masked scalar observation update of every block in column arithmetic
+    (``masked_obs_update`` of ``csrc/kalman_cols.cuh``):
+    ``S = om + D P D'``, ``z = y - D m``, ``K = P D' / S * mask``, then
+    ``m + K z`` and the Joseph form ``(I - K D) P (I - K D)' + K K' om``.
+
+    Args:
+        m_cols, p_cols: Mean and packed covariance columns ``(n_block,
+            B)``.
+        D: ``q`` weight columns; ``y``, ``om``: data and variance; each
+            ``(n_block, 1)``.  ``mask``: 0-d, 1.0 where the step has data.
+
+    Returns:
+        (tuple): The updated mean and covariance columns, and each block's
+        log-density term ``z^2 / S + log S + log 2 pi`` ``(n_block, B)``.
+    """
+    PD = []
+    for i in range(q):
+        acc = p_cols[where[(i, 0)]] * D[0]
+        for j in range(1, q):
+            acc = acc + p_cols[where[(i, j)]] * D[j]
+        PD.append(acc)
+    S = om
+    for i in range(q):
+        S = S + D[i] * PD[i]
+    z = y
+    for i in range(q):
+        z = z - D[i] * m_cols[i]
+    inv_S = 1.0 / S
+    term = z * z * inv_S + torch.log(S) + _LOG2PI
+    K = [PD[i] * inv_S * mask for i in range(q)]
+    m_out = [m_cols[i] + K[i] * z for i in range(q)]
+    IKD = [[(1.0 if i == j else 0.0) - K[i] * D[j] for j in range(q)]
+           for i in range(q)]
+    pj = _sym_quadform(q, IKD, p_cols, where)
+    p_out = [pj[k] + K[i] * K[j] * om for k, (i, j) in enumerate(pairs)]
+    return m_out, p_out, term
+
+
 def _static_scaled_qconst(prior_weight_raw, dt, q):
     """Entries of the Taylor-scaled transition as Python floats holding
     float32 values, computed in float64 from the raw (unscaled) prior and
@@ -330,6 +418,61 @@ def _raise_on_error(kernel, err):
 # --- K1: forward filter emitting smoothing gains ------------------------------
 
 
+def _predict_cols(q, where, q_const, R_cols, m_cols, p_cols):
+    """Prediction of every block: ``mp = Q m``, ``pp = Q P Q' + R``
+    (``predict_block`` of ``csrc/filter_step.cuh``)."""
+    mp_cols = _matvec(q, q_const, m_cols)
+    pp_cols = _sym_quadform(q, q_const, p_cols, where)
+    return mp_cols, [pp_cols[k] + R_cols[k] for k in range(len(pp_cols))]
+
+
+def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
+                             mp_cols, pp_cols, theta_lanes, t, mode):
+    """Interrogate the ODE at the predicted mean and do the scalar-innovation
+    Joseph update of every block (``interrogate_update`` of
+    ``csrc/filter_step.cuh``, the step that kernels K1 and K8 share).
+
+    Returns the updated mean and packed covariance columns, and the
+    innovation ``z``, its variance ``S`` (doubled under EK0) and ``1 / S``,
+    each ``(n_block, B)``."""
+    x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
+    f0 = model.flat(x_cols, theta_lanes, t)
+    jd_cols = model.jac_flat(x_cols, theta_lanes, t) \
+        if mode == "kramer" else [None] * q
+    H_cols = [W_cols[j] if jd_cols[j] is None
+              else W_cols[j] - jd_cols[j] * tv_cols[j] for j in range(q)]
+    hm = None
+    for j in range(q):
+        hm = _acc(hm, H_cols[j] * mp_cols[j])
+    mm = -f0
+    for j in range(q):
+        if jd_cols[j] is not None:
+            mm = mm + jd_cols[j] * x_cols[j]
+    z = -(hm + mm)
+    PH_cols = []
+    for i in range(q):
+        acc = None
+        for j in range(q):
+            acc = _acc(acc, pp_cols[where[(i, j)]] * H_cols[j])
+        PH_cols.append(acc)
+    S = None
+    for i in range(q):
+        S = _acc(S, H_cols[i] * PH_cols[i])
+    if mode == "rodeo":
+        S = S + S                    # V = W Sigma_p W' doubles S
+    inv_S = 1.0 / S
+    gain = [PH_cols[i] * inv_S for i in range(q)]
+    m_cols = [mp_cols[i] + gain[i] * z for i in range(q)]
+    IKW = [[(1.0 if i == j else 0.0) - gain[i] * H_cols[j]
+            for j in range(q)] for i in range(q)]
+    p_cols = _sym_quadform(q, IKW, pp_cols, where)
+    if mode == "rodeo":
+        V = S * 0.5
+        p_cols = [p_cols[k] + gain[i] * gain[j] * V
+                  for k, (i, j) in enumerate(pairs)]
+    return m_cols, p_cols, z, S, inv_S
+
+
 def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
                         t_vec, x0_lanes, theta_lanes, tgrid, mode):
     """Plain PyTorch twin of ``csrc/filter_batch.cu``: the same arithmetic
@@ -349,9 +492,8 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
     m_cols = list(x0_lanes)
     p_cols = [torch.zeros_like(x0_lanes[0]) for _ in range(n_tri)]
     for n in range(n_steps):
-        mp_cols = _matvec(q, q_const, m_cols)
-        pp_cols = _sym_quadform(q, q_const, p_cols, where)
-        pp_cols = [pp_cols[k] + R_cols[k] for k in range(n_tri)]
+        mp_cols, pp_cols = _predict_cols(q, where, q_const, R_cols, m_cols,
+                                         p_cols)
         # the gain of the transition n-1 -> n needs only the carry
         # (filtered n-1) and the fresh prediction (n)
         G, g, L = _gain_cols_batched(q, n_tri, q_const, R_cols, m_cols,
@@ -360,41 +502,9 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
                                 for j in range(q)])
         g_out[n] = torch.stack(g)
         L_out[n] = torch.stack(L)
-        x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        f0 = model.flat(x_cols, theta_lanes, tgrid[n])
-        jd_cols = model.jac_flat(x_cols, theta_lanes, tgrid[n]) \
-            if mode == "kramer" else [None] * q
-        H_cols = [W_cols[j] if jd_cols[j] is None
-                  else W_cols[j] - jd_cols[j] * tv_cols[j] for j in range(q)]
-        hm = None
-        for j in range(q):
-            hm = _acc(hm, H_cols[j] * mp_cols[j])
-        mm = -f0
-        for j in range(q):
-            if jd_cols[j] is not None:
-                mm = mm + jd_cols[j] * x_cols[j]
-        z = -(hm + mm)
-        PH_cols = []
-        for i in range(q):
-            acc = None
-            for j in range(q):
-                acc = _acc(acc, pp_cols[where[(i, j)]] * H_cols[j])
-            PH_cols.append(acc)
-        S = None
-        for i in range(q):
-            S = _acc(S, H_cols[i] * PH_cols[i])
-        if mode == "rodeo":
-            S = S + S                    # V = W Sigma_p W' doubles S
-        inv_S = 1.0 / S
-        gain = [PH_cols[i] * inv_S for i in range(q)]
-        m_cols = [mp_cols[i] + gain[i] * z for i in range(q)]
-        IKW = [[(1.0 if i == j else 0.0) - gain[i] * H_cols[j]
-                for j in range(q)] for i in range(q)]
-        p_cols = _sym_quadform(q, IKW, pp_cols, where)
-        if mode == "rodeo":
-            V = S * 0.5
-            p_cols = [p_cols[k] + gain[i] * gain[j] * V
-                      for k, (i, j) in enumerate(pairs)]
+        m_cols, p_cols, _, _, _ = _interrogate_update_cols(
+            model, q, pairs, where, W_cols, tv_cols, mp_cols, pp_cols,
+            theta_lanes, tgrid[n], mode)
     return G_out, g_out, L_out, torch.stack(m_cols), torch.stack(p_cols)
 
 
@@ -573,13 +683,38 @@ def _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                 tgrid=tgrid.to(device, torch.float32))
 
 
+def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
+                  interrogation, kalman_type, device):
+    """Validate the arguments shared by the fused entry points and move the
+    tensor ones to ``device`` (``None``: the CUDA card).  Returns ``(fused
+    model, device, thetas, ode_weight, ode_inits, prior_pars)``."""
+    fused = resolve_model(model)
+    n_block, n_bmeas, q = ode_weight.shape
+    if resolve_kalman_type(kalman_type) == "sqrt":
+        raise NotImplementedError(
+            "kalman_type='sqrt' is not ported to the fused path yet")
+    if interrogation not in _MODES:
+        raise NotImplementedError(
+            f"fused interrogation {interrogation!r} is not ported; expected "
+            f"one of {sorted(_MODES)}")
+    if n_bmeas != 1:
+        raise NotImplementedError("the fused kernels require n_bmeas == 1")
+    if q != _KERNEL_Q:
+        raise NotImplementedError(
+            f"the fused kernels are instantiated for q={_KERNEL_Q}, got {q}")
+    device = resolve_device(device)
+    move = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (fused, device, move(thetas), move(ode_weight), move(ode_inits),
+            tuple(move(p) for p in prior_pars))
+
+
 def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
                          n_steps, prior_pars, model, interrogation="kramer",
-                         kalman_type="standard"):
+                         kalman_type="standard", device=None):
     r"""
     Lane-batched fused solve: ``B`` independent solves of one model with
-    per-lane parameters and initial states, through kernels K1 and K2 on a
-    CUDA device (their plain twins on the CPU).
+    per-lane parameters and initial states, through kernels K1 and K2 on the
+    CUDA card (their plain twins with ``device="cpu"``).
 
     Args:
         thetas (Tensor(B, n_theta)): Per-lane parameters.
@@ -596,6 +731,8 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
             plain right-hand side and the CUDA functor.
         interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
         kalman_type (str): ``"standard"`` (packed covariances).
+        device: Where to run; ``None`` is the CUDA card, and raises without
+            one.  The tensor arguments are moved there.
 
     Returns:
         (tuple): float32 **mean** ``(N+1, n_block, q, B)`` and packed
@@ -603,16 +740,10 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         coordinates, upper triangles in :func:`_tri_idx` order (expand a
         lane with :func:`unpack_cov`).
     """
-    fused = resolve_model(model)
-    n_block, n_bmeas, q = ode_weight.shape
-    if resolve_kalman_type(kalman_type) == "sqrt":
-        raise NotImplementedError(
-            "kalman_type='sqrt' is not ported to the fused solve yet")
-    if n_bmeas != 1:
-        raise NotImplementedError("the fused kernels require n_bmeas == 1")
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the fused kernels are instantiated for q={_KERNEL_Q}, got {q}")
+    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+        thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
+        kalman_type, device)
+    n_block, _, q = ode_weight.shape
     n_lane = thetas.shape[0]
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
@@ -639,3 +770,36 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     tri_scale = torch.stack([t_vec[i] * t_vec[j] for (i, j) in pairs])
     packed_rows *= tri_scale[:, None]
     return mean_rows, packed_rows
+
+
+def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
+                      prior_pars, obs_data, obs_times, obs_loglik, model,
+                      interrogation="kramer", kalman_type="standard",
+                      device=None, **params):
+    r"""
+    Lane-batched basic likelihood: the fused solve
+    (:func:`solve_mv_fused_batch`, kernels K1 and K2), then the user's
+    ``obs_loglik`` at the posterior mean of the observed grid steps, mapped
+    over the lane axis.
+
+    Args:
+        obs_data (Tensor(n_obs, ...)): Observations.
+        obs_times (Tensor(n_obs,)): Observation times, on grid points.
+        obs_loglik (Callable): ``obs_loglik(obs_data, ode_data, **params)``
+            with ``ode_data (n_obs, n_block, q)`` one lane's posterior mean
+            at the observation times; it must be vmappable.
+        (other args as :func:`solve_mv_fused_batch`)
+
+    Returns:
+        (tuple): **loglik** ``(B,)`` and **mean** ``(N+1, n_block, q, B)``.
+    """
+    mean_rows, _ = solve_mv_fused_batch(
+        thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
+        model, interrogation=interrogation, kalman_type=kalman_type,
+        device=device)
+    obs_ind = obs_indices(t_min, t_max, n_steps, obs_times)
+    obs_data = torch.as_tensor(obs_data, device=mean_rows.device)
+    ode_obs = mean_rows[obs_ind.to(mean_rows.device)]   # (n_obs, nb, q, B)
+    lls = torch.vmap(lambda od: obs_loglik(obs_data, od, **params),
+                     in_dims=-1)(ode_obs)
+    return lls, mean_rows

@@ -247,15 +247,16 @@ def test_from_numpy_round_trips_a_jax_setup():
         np.testing.assert_array_equal(port[key].numpy(), exported[key])
     assert port["n_steps"] == 100 and port["t_max"] == 1.0
     # ... and holds the same configuration as the port's own setup
-    own = tlorenz.setup(n_steps=100, t_max=1.0, dtype=torch.float64)
+    own = tlorenz.setup(n_steps=100, t_max=1.0, dtype=torch.float64,
+                        device="cpu")
     for key in ("ode_weight", "ode_init", "theta"):
         _close(own[key], port[key])
     for a, b in zip(own["prior_pars"], port["prior_pars"]):
         _close(a, b)
-    f32 = from_numpy(exported, dtype=torch.float32)
+    f32 = from_numpy(exported, device="cpu", dtype=torch.float32)
     assert f32["ode_init"].dtype == torch.float32
     with pytest.raises(TypeError):
-        from_numpy({"ode_fun": jlorenz.lorenz_fun})
+        from_numpy({"ode_fun": jlorenz.lorenz_fun}, device="cpu")
 
 
 def test_full_matmul_precision_turns_tf32_off_and_restores():
@@ -298,3 +299,46 @@ def test_port_imports_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in banned, f"{path}: imports {name}"
+
+
+def _entry_point_calls():
+    """Each public entry point that takes ``device``, called without it on
+    a small Lorenz63 problem built on the CPU."""
+    import rodeo_tpu_torch as rt
+    cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
+    lanes = dict(thetas=cfg["theta"].expand(2, 3).contiguous(),
+                 ode_weight=cfg["ode_weight"],
+                 ode_inits=cfg["ode_init"].expand(2, 3, 3).contiguous(),
+                 t_min=0.0, t_max=0.1, n_steps=8,
+                 prior_pars=cfg["prior_pars"], model="lorenz")
+    obs_w = torch.zeros((3, 3, 1, 3))
+    obs_w[..., 0] = 1.0
+    obs = dict(obs_data=torch.zeros((3, 3, 1)),
+               obs_times=torch.tensor([0.0, 0.05, 0.1]),
+               obs_weight=obs_w, obs_var=torch.full((3, 3, 1, 1), 0.005))
+    return {
+        "lorenz.setup": lambda: tlorenz.setup(n_steps=8, t_max=0.1),
+        "fitzhugh.setup": lambda: tfitzhugh.setup(n_steps=8),
+        "from_numpy": lambda: from_numpy(np.zeros(3)),
+        "solve_mv_fused_batch": lambda: rt.solve_mv_fused_batch(**lanes),
+        "basic_fused_batch": lambda: rt.basic_fused_batch(
+            **lanes, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+            obs_loglik=lambda o, x: torch.sum(x)),
+        "fenrir_fused_batch": lambda: rt.fenrir_fused_batch(**lanes, **obs),
+        "dalton_fused_batch": lambda: rt.dalton_fused_batch(**lanes, **obs),
+        "solve_sim_fused_batch": lambda: rt.solve_sim_fused_batch(**lanes),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "lorenz.setup", "fitzhugh.setup", "from_numpy", "solve_mv_fused_batch",
+    "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
+    "solve_sim_fused_batch"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without ``device`` an entry point runs on CUDA; with no CUDA device
+    it raises rather than fall back to the CPU, which only
+    ``device="cpu"`` selects."""
+    call = _entry_point_calls()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -1,7 +1,8 @@
 """
-The port's CUDA kernels on the card: kernel K1 (filter_batch) and K2
-(smoother_batch) against their plain PyTorch twins on the same CUDA
-inputs, and the fused solve's launch contract.
+The port's CUDA kernels on the card: K1 (filter_batch), K2
+(smoother_batch), K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
+(dalton_filter_batch) against their plain PyTorch twins on the same CUDA
+inputs, and the launch contract of each fused entry point.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -15,7 +16,10 @@ import pytest
 import torch
 
 from rodeo_tpu_torch.models import fitzhugh, lorenz
+from rodeo_tpu_torch.ops import fused_dalton as fd
+from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import fused_sim as fs
 
 pytestmark = pytest.mark.cuda
 
@@ -83,7 +87,7 @@ def test_fused_solve_launches_each_kernel_once(cuda_device):
         cfg, thetas, inits = _lanes("lorenz", n_steps, t_max, 64, 5, device)
         return fk.solve_mv_fused_batch(
             thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
-            cfg["prior_pars"], model="lorenz")
+            cfg["prior_pars"], model="lorenz", device=device)
 
     fk.LAUNCHES.update(filter_batch=0, smoother_batch=0)
     mean, var = solve(cuda_device)
@@ -119,3 +123,111 @@ def test_cuda_tensors_never_take_the_twin(cuda_device):
         fk.smoother_recursion_batch(t(T, 3, nb, B), t(T, 9, nb, B).cpu(),
                                     t(T, 6, nb, B), t(3, nb, B), t(6, nb, B))
     assert fk.LAUNCHES == {"filter_batch": 0, "smoother_batch": 0}
+
+
+def _obs(model, n_obs, t_max, device):
+    """The 0th derivative of every variable observed at n_obs evenly spaced
+    times, variance 0.005, seeded data."""
+    nb = MODELS[model].N_VARS
+    rng = np.random.default_rng(8)
+    weight = torch.zeros((n_obs, nb, 1, 3), device=device)
+    weight[..., 0] = 1.0
+    return dict(
+        obs_data=torch.tensor(rng.standard_normal((n_obs, nb, 1)) * 5,
+                              dtype=torch.float32, device=device),
+        obs_times=torch.linspace(0.0, t_max, n_obs, dtype=torch.float64),
+        obs_weight=weight,
+        obs_var=torch.full((n_obs, nb, 1, 1), 0.005, device=device))
+
+
+def _reset_launches():
+    for counts in (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launches():
+    return {**fk.LAUNCHES, **ff.LAUNCHES, **fd.LAUNCHES, **fs.LAUNCHES}
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
+                                              ("fitzhugh", "rodeo", 3.0)])
+def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
+                                                   t_max):
+    """K7b, K8 (with and without data) and K6 against their twins, on the
+    operands their entry points give them."""
+    n_steps = 300
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
+    obs = _obs(model, 11, t_max, cuda_device)
+    ops, obs_k, ld0 = fd._dalton_prepare(
+        thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
+        cfg["prior_pars"], *obs.values())
+    fused = fk.resolve_model(model)
+    for with_obs in (True, False):
+        k8 = fd.dalton_filter_batch(fused, n_steps, **ops, **obs_k, ld0=ld0,
+                                    mode=mode, with_obs=with_obs)
+        p8 = fd._dalton_filter_plain(fused, n_steps, **ops, **obs_k,
+                                     ld0=ld0, mode=mode, with_obs=with_obs)
+        assert torch.isfinite(k8).all()
+        assert _scaled_err(k8, p8) <= TWIN_TOL, with_obs
+    chain = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
+                                *obs.values(), mode)
+    k7 = ff.fenrir_backward_batch(*chain)
+    p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_plain(*chain[:-1]))
+    assert torch.isfinite(k7).all()
+    assert _scaled_err(k7, p7) <= TWIN_TOL
+    A, b, _, _, _, _, _, m_seed, _, _ = chain
+    c = b[1:] + 0.1 * torch.randn(b[1:].shape, device=cuda_device,
+                                  generator=torch.Generator(cuda_device)
+                                  .manual_seed(9))
+    k6 = fs.sampler_batch(c, A[1:], m_seed)
+    p6 = fs._sampler_batch_plain(c, A[1:], m_seed)
+    assert _scaled_err(k6, p6) <= TWIN_TOL
+
+
+def test_inference_entry_points_launch_their_kernels(cuda_device):
+    """One call of each entry point on the card launches exactly its
+    kernels, and agrees with the same call on the CPU (the plain twins)."""
+    n_steps, t_max, B = 200, 2.0, 64
+    obs = _obs("lorenz", 21, t_max, cuda_device)
+
+    def lanes(device, model="lorenz"):
+        cfg, thetas, inits = _lanes(model, n_steps, t_max, B, 5, device)
+        return dict(thetas=thetas, ode_weight=cfg["ode_weight"],
+                    ode_inits=inits, t_min=0.0, t_max=t_max,
+                    n_steps=n_steps, prior_pars=cfg["prior_pars"],
+                    model=model, device=device)
+
+    # the sampler on FitzHugh-Nagumo: Lorenz63's per-step covariances are
+    # numerically singular in float32, so its draws move by ~1e-3 under
+    # rounding differences of ~1e-7 (tests/test_torch_sim.py)
+    gen = np.random.default_rng(10)
+    eps = torch.tensor(gen.standard_normal((n_steps - 1, 3, 2, B)),
+                       dtype=torch.float32)
+    eps_term = torch.tensor(gen.standard_normal((3, 2, B)),
+                            dtype=torch.float32)
+    calls = {
+        "fenrir": (lambda dev: ff.fenrir_fused_batch(**lanes(dev), **obs),
+                   {"filter_batch": 1, "fenrir_backward_batch": 1}),
+        "dalton": (lambda dev: fd.dalton_fused_batch(**lanes(dev), **obs),
+                   {"dalton_filter_batch": 2}),
+        "basic": (lambda dev: fk.basic_fused_batch(
+            **lanes(dev), obs_data=obs["obs_data"],
+            obs_times=obs["obs_times"],
+            obs_loglik=lambda o, x: torch.sum(-0.5 * (o[..., 0]
+                                                      - x[..., 0]) ** 2))[0],
+            {"filter_batch": 1, "smoother_batch": 1}),
+        "sim": (lambda dev: fs.solve_sim_fused_batch(
+            **lanes(dev, "fitzhugh"), eps=eps, eps_term=eps_term),
+            {"filter_batch": 1, "sampler_batch": 1}),
+    }
+    for name, (call, expected) in calls.items():
+        _reset_launches()
+        out = call(cuda_device)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _launches().items() if v}
+        assert launched == expected, name
+        assert out.is_cuda and torch.isfinite(out).all(), name
+        cpu = call(torch.device("cpu"))
+        assert {k: v for k, v in _launches().items() if v} == expected, name
+        assert _scaled_err(out, cpu) <= TWIN_TOL, name

@@ -125,11 +125,11 @@ def test_solve_mv_fused_batch_matches_jax(model, mode, t_max):
     mean_j, var_j = fn(jnp.asarray(thetas), jnp.asarray(inits))
     fk.LAUNCHES.update(filter_batch=0, smoother_batch=0)
     tcfg = TMODELS[model].setup(n_steps=n_steps, t_max=t_max,
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     mean_t, var_t = fk.solve_mv_fused_batch(
         torch.from_numpy(thetas), tcfg["ode_weight"],
         torch.from_numpy(inits.copy()), 0.0, t_max, n_steps,
-        tcfg["prior_pars"], model=model, interrogation=mode)
+        tcfg["prior_pars"], model=model, interrogation=mode, device="cpu")
     # the CPU path runs the plain twins and launches no kernel
     assert fk.LAUNCHES == {"filter_batch": 0, "smoother_batch": 0}
     assert mean_t.shape == mean_j.shape and var_t.shape == var_j.shape
@@ -170,13 +170,13 @@ def test_static_scaled_qconst_is_the_jax_numbers():
 
 @pytest.fixture
 def small_lorenz():
-    cfg = tlorenz.setup(n_steps=8, t_max=0.1)
+    cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
     B = 2
     return dict(thetas=cfg["theta"].expand(B, 3).contiguous(),
                 ode_weight=cfg["ode_weight"],
                 ode_inits=cfg["ode_init"].expand(B, 3, 3).contiguous(),
                 t_min=0.0, t_max=0.1, n_steps=8,
-                prior_pars=cfg["prior_pars"], model="lorenz")
+                prior_pars=cfg["prior_pars"], model="lorenz", device="cpu")
 
 
 @pytest.mark.parametrize("override", [

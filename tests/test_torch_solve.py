@@ -90,7 +90,8 @@ def test_precond_solve_mv_matches_jax_on_lorenz():
     mu_j, var_j = jprecond.solve_mv(
         key=None, interrogate=jinterrogate.interrogate_kramer, theta=th_j,
         **cfg_j)
-    cfg_t = tlorenz.setup(n_steps=200, t_max=2.0, dtype=torch.float64)
+    cfg_t = tlorenz.setup(n_steps=200, t_max=2.0, dtype=torch.float64,
+                          device="cpu")
     th_t = cfg_t.pop("theta")
     mu_t, var_t = tprecond.solve_mv(
         interrogate=tinterrogate.interrogate_kramer, theta=th_t, **cfg_t)
@@ -107,7 +108,8 @@ def test_precond_solve_mv_matches_jax_on_lorenz():
                                     {"temporal": "bogus"},
                                     {"kalman_type": "square-root"}])
 def test_solve_mv_raises_for_unported_options(kwargs):
-    cfg = tlorenz.setup(n_steps=4, t_max=0.1, dtype=torch.float64)
+    cfg = tlorenz.setup(n_steps=4, t_max=0.1, dtype=torch.float64,
+                        device="cpu")
     th = cfg.pop("theta")
     with pytest.raises(NotImplementedError):
         tprecond.solve_mv(interrogate=tinterrogate.interrogate_rodeo,
