@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the five
+Run it from a checkout: it imports the package beside it and builds the nine
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -27,14 +27,37 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (dalton_filter_batch) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes: Lorenz63 EK1, and for K8 also
              FitzHugh-Nagumo EK0, with and without data;
-8. likelihood  bench.py's likelihood fixture at full width: Lorenz63 EK1,
+8. k11_twin  the tangent kernels K11a (filter_batch_tan), K11b
+             (fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and
+             K11e (smoother_mean_batch_tan) against their twins on the same
+             CUDA inputs, 1000 steps x 256 lanes: Lorenz63 EK1 for all four,
+             FitzHugh-Nagumo EK0 for K11a and K11c; the scaled error of each
+             output's values and of each tangent direction, and whether the
+             two agree bitwise;
+9. likelihood  bench.py's likelihood fixture at full width: Lorenz63 EK1,
              4000 steps x 2048 lanes, 21 observations, through
              fenrir_fused_batch, dalton_fused_batch and basic_fused_batch.
              Each must launch exactly its kernels, stay finite, and pass the
              audit of lane 0 against the cached float64 truth; then its time
              per call and peak memory, and K7b and K8 timed and checked
              against their twins at these shapes;
-9. sim       solve_sim_fused_batch at the main path's shapes (launches,
+10. grad     the gradients at full width: the likelihood fixture through
+             fenrir_fused_batch_grad, dalton_fused_batch_grad and
+             basic_fused_batch_grad, and bench.py's FitzHugh-Nagumo fixture
+             (200 steps, 21 observations of y_fitz_mcmc) through
+             fenrir_fused_batch_grad, 2048 lanes each.  Each must launch
+             exactly its tangent kernels, stay finite, return its value
+             entry point's values bitwise on every lane, and pass the value
+             audit of lane 0; the gradient of lane 0 is audited as bench.py
+             does (relative L2 error against the cached float64 gradient,
+             pass within 3x the float32-CPU control, or recorded as unusable
+             in float32 when that control, or the move of the exact
+             gradient under float32 rounding of theta, exceeds 0.1), and
+             FitzHugh-Nagumo's within GRAD_FITZ_TOL; then the time per call
+             against the value call's, peak memory, and each tangent kernel
+             timed and checked against its twin at its path's shapes (K11a
+             and K11b on both fixtures, K11c with and without data);
+11. sim      solve_sim_fused_batch at the main path's shapes (launches,
              finite, time, K6 against its twin), and the draws' lane mean
              and variance against solve_mv_fused_batch's posterior on
              FitzHugh-Nagumo, 800 steps x 2048 lanes.
@@ -56,9 +79,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # A kernel and its twin do the same float32 operations in the same order
-# (the kernels are built without multiply-add contraction); a division by a
-# constant, which PyTorch on CUDA may take through its reciprocal, can still
-# round differently.  Bound on max|kernel - twin| / max|twin| per output.
+# (the kernels are built without multiply-add contraction), the tangent
+# kernels' Dual rules included; a library function (PyTorch's CUDA log
+# against logf) could still round differently.  Bound on max|kernel - twin|
+# / max|twin| per output, and per tangent direction.
 TWIN_TOL = 1e-5
 # The solve audit of bench.py: max abs error of the solution path against
 # the float64 truth <= max(3 x the same error of float32 on the CPU, 0.05).
@@ -71,6 +95,30 @@ F64_ATOL = 1e-8
 # ~12 000 terms: DALTON's lands 0.012 from a truth of -1.39e5, where one
 # float32 ulp is 0.0156.
 LL_REL_FLOOR = 1e-4
+# The gradient audit of bench.py (audit_grad): the relative L2 error of lane
+# 0's gradient against the float64 truth passes within max(3 x the same
+# error of the float32-CPU control, GRAD_FLOOR); a control above
+# GRAD_CONTROL_MAX marks the gradient unusable in float32 on any hardware
+# (chaotic configurations), recorded and not judged.
+GRAD_FLOOR = 1e-6
+GRAD_CONTROL_MAX = 0.1
+# The float32 condition of a gradient, apart from any float32 arithmetic:
+# the exact (float64) gradient at lane 0's theta rounded to float32, against
+# the truth at theta, relative L2.  Where it exceeds GRAD_CONTROL_MAX, no
+# float32 evaluation can be held to the truth, whatever its control says,
+# and the gradient is recorded as unusable too.  Measured by the float64
+# tangent twins, which give the truth at theta to 1e-6
+# (tests/test_torch_grad.py::test_dalton_gradient_in_float64_is_the_truth
+# recomputes it): DALTON on Lorenz63, whose float32-CPU control lands at
+# 0.038 by the draw of its rounding.
+GRAD_THETA_ROUNDING = {"dalton": 0.1129397}
+# FitzHugh-Nagumo's float32-CPU control (2.54) is not a control: on a
+# float32 grid the JAX package places 19 of its 21 observations one step
+# late, and its value misses the truth by 11 %.  That gradient is held to
+# GRAD_FITZ_TOL instead: the port's float32 twins on the CPU land 1.4e-5
+# from the truth (tests/test_torch_grad.py::
+# test_fitzhugh_gradient_in_float32_is_the_truth).
+GRAD_FITZ_TOL = 1e-4
 # The draws' check: the lane mean within SIM_Z standard errors (the
 # posterior variance / B) of the posterior mean, and the lane variance
 # within SIM_VAR_RATIO of the posterior variance, on entries whose
@@ -90,6 +138,9 @@ PEAK_F32_PER_S = 67e12
 _ARITH = {"add", "sub", "mul", "div", "truediv", "neg", "rsub", "sqrt",
           "log", "clamp", "maximum", "minimum", "abs", "where", "gt", "lt",
           "ge", "le", "reciprocal", "exp"}
+# The tangent kernels: K11a, K11b, K11c, K11e.
+TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
+               "dalton_filter_batch_tan", "smoother_mean_batch_tan")
 
 
 def emit(obj):
@@ -110,7 +161,7 @@ def main():
               "CPU", file=sys.stderr)
         return 1
 
-    from torch.overrides import TorchFunctionMode
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     import rodeo_tpu_torch
     from rodeo_tpu_torch.interrogate import interrogate_kramer
@@ -143,18 +194,17 @@ def main():
         """Every kernel's count: those named, and 0 for the others."""
         return {k: launched.get(k, 0) for k in read_counts()}
 
-    class OpCounter(TorchFunctionMode):
-        """Counts the elements produced by arithmetic torch operations."""
+    class OpCounter(TorchDispatchMode):
+        """Counts the elements produced by arithmetic ATen operations,
+        those that the Dual numbers of the tangent twins issue included."""
 
         def __init__(self):
             super().__init__()
             self.ops = 0
 
-        def __torch_function__(self, func, types, args=(), kwargs=None):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            name = getattr(func, "__name__", "").strip("_")
-            if name[:1] in ("r", "i") and name[1:] in _ARITH:
-                name = name[1:]
+            name = func.overloadpacket.__name__.strip("_")
             if name in _ARITH and isinstance(out, torch.Tensor):
                 self.ops += out.numel()
             return out
@@ -220,6 +270,25 @@ def main():
                           "scaled_err": diff / scale if scale else diff}
         return errs
 
+    def slices(tensor, k, axis):
+        """The values and each tangent direction of an augmented output."""
+        return [tensor.narrow(axis, a * k, k)
+                for a in range(tensor.shape[axis] // k)]
+
+    def twin_errors(names, kernel, plain, split=None):
+        """compare(), and where split gives each output's entries per slice
+        and its axis (a tangent kernel's), per output and slice: the
+        values, then each tangent direction."""
+        if split is None:
+            return compare(names, kernel, plain)
+        errs = {}
+        for name, a, b, (k, axis) in zip(names, kernel, plain, split):
+            parts = ["value"] + [f"tangent{j}"
+                                 for j in range(a.shape[axis] // k - 1)]
+            errs.update(compare([f"{name}/{p}" for p in parts],
+                                slices(a, k, axis), slices(b, k, axis)))
+        return errs
+
     def worst(errs):
         return (max(e["max_abs_err"] for e in errs.values()),
                 max(e["scaled_err"] for e in errs.values()))
@@ -229,6 +298,57 @@ def main():
         first n_prefix rows."""
         return float(np.max(np.abs(np.asarray(mu)[:n_prefix, :, 0]
                                    - np.asarray(ref)[:n_prefix, :, 0])))
+
+    def as_tuple(out):
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    def tensors(operands):
+        return [v for v in operands.values() if isinstance(v, torch.Tensor)]
+
+    def cpu_lanes(operands, lane_keys):
+        """A kernel's keyword operands with those in lane_keys cut to the
+        first lane, all on the CPU."""
+        return {k: (cpu_lane(v) if k in lane_keys
+                    else v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in operands.items()}
+
+    kernels = {}
+
+    def at_path_shapes(phase, name, replaces, launches, launch, twin, names,
+                       count_ops, n_work, inputs, split=None, out_bytes=None,
+                       repeats=5, register=True, config="", **extra):
+        """A kernel alone at its path's shapes: its median time, its twin's
+        time and outputs on the same CUDA inputs, the error of each output
+        (twin_errors; checked against TWIN_TOL), and its bound from the
+        bytes of its inputs and outputs and from count_ops(n), which runs
+        the twin for n steps of one lane on the CPU, times n_work (steps x
+        lanes).  Registers the kernel's entry of the kernels line; returns
+        the kernel's outputs and the entry."""
+        ms = cuda_ms(launch, repeats)
+        out = as_tuple(launch())
+        plain, plain_ms = cuda_once(lambda: as_tuple(twin()))
+        errs = twin_errors(names, out, plain, split)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, plain))
+        del plain
+        n_bytes = nbytes(*inputs) + (nbytes(*out) if out_bytes is None
+                                     else out_bytes)
+        bound_ms, bound_by, work = bound(
+            n_bytes, ops_per_step_lane(count_ops) * n_work)
+        max_abs, max_scaled = worst(errs)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"rodeo_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"rodeo_tpu/ops/{replaces}",
+            "launches": launches[name], "max_abs_err": max_abs,
+            "max_scaled_err": max_scaled, "tol_scaled": TWIN_TOL,
+            "bitwise": bitwise, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
+            "library_ms": None, **extra}
+        label = f"{name} {config}".strip()
+        entry["ok"] = check(phase, f"{label} vs twin", max_scaled <= TWIN_TOL)
+        if register:
+            kernels[name] = entry
+        return out, entry
 
     def lane_setup(mod, n_steps, t_max, n_lane, thetas_of):
         cfg = mod.setup(n_steps=n_steps, t_max=t_max, dtype=torch.float32,
@@ -379,61 +499,28 @@ def main():
     ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
                               n_steps, cfg["prior_pars"])
     fused = fk.resolve_model("lorenz")
-    kernels = {}
-
-    def kernel_entry(name, source, replaces, path_launches, errs, ms,
-                     plain_ms, bound_of):
-        bound_ms, bound_by, work = bound_of
-        kernels[name] = {
-            "name": name, "route": "cuda",
-            "source": f"rodeo_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": path_launches[name],
-            "max_abs_err": worst(errs)[0], "max_scaled_err": worst(errs)[1],
-            "tol_scaled": TWIN_TOL, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
-            "library_ms": None}
-
-    def k1():
-        return fk.fused_filter_batch(fused, n_steps, **ops, mode="kramer")
-
-    k1_ms = cuda_ms(k1, repeats=3)
-    out_k = k1()
-    out_p, k1_plain_ms = cuda_once(
-        lambda: fk._filter_batch_plain(fused, n_steps, **ops, mode="kramer"))
-    k1_errs = compare(k1_names, out_k, out_p)
-    del out_p
-    cpu_ops = {k: (cpu_lane(v) if k in ("x0_lanes", "theta_lanes")
-                   else v.cpu() if isinstance(v, torch.Tensor) else v)
-               for k, v in ops.items()}
-    k1_step_ops = ops_per_step_lane(lambda n: fk._filter_batch_plain(
-        fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
-        mode="kramer"))
-    k1_bound = bound(nbytes(*[v for v in ops.values()
-                              if isinstance(v, torch.Tensor)], *out_k),
-                     k1_step_ops * n_steps * n_lane)
-    G, g, L, mN, pN = out_k
+    cpu_ops = cpu_lanes(ops, ("x0_lanes", "theta_lanes"))
+    (G, g, L, mN, pN), _ = at_path_shapes(
+        "main", "filter_batch", "pallas_kalman.py:1141", launches,
+        lambda: fk.fused_filter_batch(fused, n_steps, **ops, mode="kramer"),
+        lambda: fk._filter_batch_plain(fused, n_steps, **ops, mode="kramer"),
+        k1_names, lambda n: fk._filter_batch_plain(
+            fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
+            mode="kramer"),
+        n_steps * n_lane, tensors(ops), repeats=3)
     k2_args = (g[1:], G[1:], L[1:], mN, pN)
-    k2_ms = cuda_ms(lambda: fk.smoother_recursion_batch(*k2_args), repeats=3)
-    sm_k = fk.smoother_recursion_batch(*k2_args)
-    sm_p, k2_plain_ms = cuda_once(lambda: fk._smoother_batch_plain(*k2_args))
-    k2_errs = compare(["ms", "ps"], sm_k, sm_p)
     k2_cpu = [cpu_lane(a) for a in k2_args]
-    k2_step_ops = ops_per_step_lane(lambda n: fk._smoother_batch_plain(
-        *[a[:n] for a in k2_cpu[:3]], *k2_cpu[3:]))
-    k2_bound = bound(nbytes(*k2_args, *sm_k),
-                     k2_step_ops * (n_steps - 1) * n_lane)
-    del sm_p, sm_k, out_k, G, g, L, mN, pN, k2_args
-    k1_ok = check("main", "K1 vs twin", worst(k1_errs)[1] <= TWIN_TOL)
-    k2_ok = check("main", "K2 vs twin", worst(k2_errs)[1] <= TWIN_TOL)
-    kernel_entry("filter_batch", "filter_batch.cu",
-                 "rodeo_tpu/ops/pallas_kalman.py:1141", launches, k1_errs,
-                 k1_ms, k1_plain_ms, k1_bound)
-    kernel_entry("smoother_batch", "smoother_batch.cu",
-                 "rodeo_tpu/ops/pallas_kalman.py:1516", launches, k2_errs,
-                 k2_ms, k2_plain_ms, k2_bound)
+    at_path_shapes(
+        "main", "smoother_batch", "pallas_kalman.py:1516", launches,
+        lambda: fk.smoother_recursion_batch(*k2_args),
+        lambda: fk._smoother_batch_plain(*k2_args), ["ms", "ps"],
+        lambda n: fk._smoother_batch_plain(*[a[:n] for a in k2_cpu[:3]],
+                                           *k2_cpu[3:]),
+        (n_steps - 1) * n_lane, k2_args, repeats=3)
+    del G, g, L, mN, pN, k2_args
     emit({"phase": "main_kernels", "n_steps": n_steps, "n_lane": n_lane,
-          "filter_batch": {**kernels["filter_batch"], "ok": k1_ok},
-          "smoother_batch": {**kernels["smoother_batch"], "ok": k2_ok}})
+          "filter_batch": kernels["filter_batch"],
+          "smoother_batch": kernels["smoother_batch"]})
 
     # ---- 6. FitzHugh-Nagumo --------------------------------------------
     n_fh = 800
@@ -533,7 +620,73 @@ def main():
                   "with_obs": with_obs, "n_steps": n_tw, "n_lane": b_tw,
                   "tol_scaled": TWIN_TOL, "errors": errs, "ok": ok})
 
-    # ---- 8. the likelihoods at full width ---------------------------------
+    # ---- 8. the tangent kernels against their twins -----------------------
+    n_tan = 3
+    # the outputs of K11a (A, b, C, last m, last p), K11b and K11c (ld) and
+    # K11e (ms): entries per slice and the axis of the slices
+    k11a_split = [(9, 1), (3, 1), (6, 1), (3, 0), (6, 0)]
+    ld_split, k11e_split = [(1, 0)], [(3, 1)]
+
+    def tan_report(kernel, config, names, kernel_out, twin_out, split):
+        kernel_out, twin_out = as_tuple(kernel_out), as_tuple(twin_out)
+        errs = twin_errors(names, kernel_out, twin_out, split)
+        ok = check("k11_twin", f"{kernel} {config}",
+                   worst(errs)[1] <= TWIN_TOL
+                   and all(torch.isfinite(a).all().item()
+                           for a in kernel_out))
+        emit({"phase": "k11_twin", "kernel": kernel, "config": config,
+              "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
+              "bitwise": all(torch.equal(a, b)
+                             for a, b in zip(kernel_out, twin_out)),
+              "errors": errs, "ok": ok})
+
+    def fenrir_tan_plain(*chain):
+        return chain[-1] + fd._block_sum(ff._fenrir_backward_tan_plain(
+            *chain[:-1], n_tan).movedim(-2, 0))
+
+    def dalton_seed(ld0, with_obs):
+        """K11c's seed: ld0 in the value row with data, zero otherwise."""
+        seed = torch.cat([ld0[None], ld0.new_zeros((n_tan, ld0.shape[0]))])
+        return seed if with_obs else torch.zeros_like(seed)
+
+    for model, mode, t_max_tw in (("lorenz", "kramer", 2.0),
+                                  ("fitzhugh", "rodeo", 10.0)):
+        mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
+        cfg_m, thetas_m, inits_m = lane_setup(mod, n_tw, t_max_tw, b_tw,
+                                              seeded_thetas(8))
+        obs_m = bench_obs(mod, t_max_tw, 11, 0)
+        ops_m, grid_m, ld0_m = fd._dalton_prepare(
+            thetas_m, cfg_m["ode_weight"], inits_m, 0.0, t_max_tw, n_tw,
+            cfg_m["prior_pars"], *obs_m.values())
+        fused_m = fk.resolve_model(model)
+        config = f"{model}/{mode}"
+        out_k = fk.fused_filter_batch_tan(fused_m, n_tw, **ops_m, mode=mode)
+        tan_report("filter_batch_tan", config, k1_names, out_k,
+                   fk._filter_batch_tan_plain(fused_m, n_tw, **ops_m,
+                                              mode=mode), k11a_split)
+        for with_obs in (True, False):
+            args = dict(**ops_m, **grid_m, mode=mode, with_obs=with_obs,
+                        ld0=dalton_seed(ld0_m, with_obs))
+            tan_report("dalton_filter_batch_tan",
+                       f"{config}/with_obs={with_obs}", ["ld"],
+                       fd.dalton_filter_batch_tan(fused_m, n_tw, **args),
+                       fd._dalton_filter_tan_plain(fused_m, n_tw, **args),
+                       ld_split)
+        if model == "lorenz":
+            A, b, _, m_last, _ = out_k
+            e_args = (b[1:], A[1:], m_last, n_tan)
+            tan_report("smoother_mean_batch_tan", config, ["ms"],
+                       fk.smoother_mean_recursion_batch_tan(*e_args),
+                       fk._smoother_mean_tan_plain(*e_args), k11e_split)
+            chain = ff._fenrir_operands(fused_m, n_tw, 0.0, t_max_tw, ops_m,
+                                        *obs_m.values(), mode, tangent=True)
+            tan_report("fenrir_backward_batch_tan", config, ["ld"],
+                       ff.fenrir_backward_batch_tan(*chain),
+                       fenrir_tan_plain(*chain), ld_split)
+            del A, b, m_last, e_args, chain
+        del out_k
+
+    # ---- 9. the likelihoods at full width ---------------------------------
     n_ll, b_ll, t_ll = 4000, 2048, 20.0
     cfg_ll, thetas_ll, inits_ll = lane_setup(lorenz, n_ll, t_ll, b_ll,
                                              bench_thetas)
@@ -591,51 +744,44 @@ def main():
     # K7b and K8 alone at these shapes, timed and checked against their twins
     ops_ll = fk._kernel_operands(thetas_ll, cfg_ll["ode_weight"], inits_ll,
                                  0.0, t_ll, n_ll, cfg_ll["prior_pars"])
+    def chain_on_cpu(chain):
+        """fenrir's backward operands (K7b's or K11b's) cut to one lane,
+        on the CPU, for their twin's operation count."""
+        A, b, C, d, y, om, mask, m_seed, p_seed, _ = chain
+        return [cpu_lane(A), cpu_lane(b), cpu_lane(C), d.cpu(), y.cpu(),
+                om.cpu(), mask.cpu(), cpu_lane(m_seed), cpu_lane(p_seed)]
+
+    def dalton_steps(args_cpu, n):
+        """K8's or K11c's operands on the CPU cut to n steps."""
+        return {k: (v[:n] if k in ("tgrid", "d", "y", "om", "mask") else v)
+                for k, v in args_cpu.items()}
+
     chain = fenrir_chain(n_ll, t_ll, ops_ll, obs_f)
-    k7_ms = cuda_ms(lambda: ff.fenrir_backward_batch(*chain), repeats=5)
-    k7_out = ff.fenrir_backward_batch(*chain)
-    k7_plain, k7_plain_ms = cuda_once(lambda: fenrir_plain(*chain))
-    k7_errs = compare(["ld"], [k7_out], [k7_plain])
-    A, b, C, d, y, om, mask, m_seed, p_seed, _ = chain
-    chain_cpu = [cpu_lane(A), cpu_lane(b), cpu_lane(C), d.cpu(), y.cpu(),
-                 om.cpu(), mask.cpu(), cpu_lane(m_seed), cpu_lane(p_seed)]
-    del A, b, C, d, y, om, mask, m_seed, p_seed
-    k7_step_ops = ops_per_step_lane(lambda n: ff._fenrir_backward_plain(
-        *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:]))
-    k7_bound = bound(nbytes(*chain) + 4 * 3 * b_ll,
-                     k7_step_ops * n_ll * b_ll)
-    check("likelihood", "K7b vs twin", worst(k7_errs)[1] <= TWIN_TOL)
-    kernel_entry("fenrir_backward_batch", "fenrir_backward_batch.cu",
-                 "rodeo_tpu/ops/pallas_fenrir.py:291",
-                 path_launches["fenrir"], k7_errs, k7_ms, k7_plain_ms,
-                 k7_bound)
-    del chain, k7_out, k7_plain
+    chain_cpu = chain_on_cpu(chain)
+    at_path_shapes(
+        "likelihood", "fenrir_backward_batch", "pallas_fenrir.py:291",
+        path_launches["fenrir"], lambda: ff.fenrir_backward_batch(*chain),
+        lambda: fenrir_plain(*chain), ["ld"],
+        lambda n: ff._fenrir_backward_plain(*[t[:n] for t in chain_cpu[:7]],
+                                            *chain_cpu[7:]),
+        n_ll * b_ll, chain, out_bytes=4 * 3 * b_ll)
+    del chain, chain_cpu
     ops_d, obs_d, ld0_d = fd._dalton_prepare(
         thetas_ll, cfg_ll["ode_weight"], inits_ll, 0.0, t_ll, n_ll,
         cfg_ll["prior_pars"], *obs_f.values())
+    lane_keys = ("x0_lanes", "theta_lanes", "ld0")
     k8_args = dict(**ops_d, **obs_d, ld0=ld0_d, mode="kramer",
                    with_obs=True)
-    k8_ms = cuda_ms(lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
-                    repeats=5)
-    k8_out = fd.dalton_filter_batch(fused, n_ll, **k8_args)
-    k8_plain, k8_plain_ms = cuda_once(
-        lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args))
-    k8_errs = compare(["ld"], [k8_out], [k8_plain])
-    k8_cpu = {k: (cpu_lane(v) if k in ("x0_lanes", "theta_lanes", "ld0")
-                  else v.cpu() if isinstance(v, torch.Tensor) else v)
-              for k, v in k8_args.items()}
-    k8_step_ops = ops_per_step_lane(lambda n: fd._dalton_filter_plain(
-        fused, n, **{k: (v[:n] if k in ("tgrid", "d", "y", "om", "mask")
-                         else v) for k, v in k8_cpu.items()}))
-    k8_bound = bound(nbytes(*[v for v in k8_args.values()
-                              if isinstance(v, torch.Tensor)], k8_out),
-                     k8_step_ops * n_ll * b_ll)
-    check("likelihood", "K8 vs twin", worst(k8_errs)[1] <= TWIN_TOL)
-    kernel_entry("dalton_filter_batch", "dalton_filter_batch.cu",
-                 "rodeo_tpu/ops/pallas_dalton.py:41",
-                 path_launches["dalton"], k8_errs, k8_ms, k8_plain_ms,
-                 k8_bound)
-    del k8_args, k8_out, k8_plain, ops_d, obs_d
+    k8_cpu = cpu_lanes(k8_args, lane_keys)
+    at_path_shapes(
+        "likelihood", "dalton_filter_batch", "pallas_dalton.py:41",
+        path_launches["dalton"],
+        lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
+        lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args), ["ld"],
+        lambda n: fd._dalton_filter_plain(fused, n, **dalton_steps(k8_cpu,
+                                                                   n)),
+        n_ll * b_ll, tensors(k8_args))
+    del k8_args, k8_cpu
     # K1 and K2 at these shapes, for the breakdown of the fenrir and basic
     # calls
     k1_ll_ms = cuda_ms(lambda: fk.fused_filter_batch(
@@ -650,7 +796,186 @@ def main():
           "dalton_filter_batch": kernels["dalton_filter_batch"],
           "filter_batch_ms": k1_ll_ms, "smoother_batch_ms": k2_ll_ms})
 
-    # ---- 9. posterior path sampling ---------------------------------------
+    # ---- 10. the gradients at full width ---------------------------------
+    cfg_fz, thetas_fz, inits_fz = lane_setup(fitzhugh, 200, 10.0, b_ll,
+                                             bench_thetas)
+    w_fz = torch.zeros((21, 2, 1, 3), device=dev)
+    w_fz[..., 0] = 1.0
+    # bench.py's MCMC fixture: every 10th of 200 steps, sigma 0.2
+    obs_fz = dict(
+        obs_data=torch.tensor(truth["y_fitz_mcmc"], dtype=torch.float32,
+                              device=dev)[:, :, None],
+        obs_times=torch.tensor((10.0 * np.arange(0, 201, 10) / 200)
+                               .astype(np.float32)),
+        obs_weight=w_fz,
+        obs_var=torch.full((21, 2, 1, 1), np.float32(0.2 ** 2), device=dev))
+    lanes_fz = dict(thetas=thetas_fz, ode_weight=cfg_fz["ode_weight"],
+                    ode_inits=inits_fz, t_min=0.0, t_max=10.0, n_steps=200,
+                    prior_pars=cfg_fz["prior_pars"], model="fitzhugh",
+                    interrogation="kramer")
+    basic_obs = dict(obs_data=obs_b["obs_data"], obs_times=obs_b["obs_times"],
+                     obs_loglik=b_loglik)
+    grad_paths = {
+        # name: (grad call, value call, launches, truth key, steps)
+        "fenrir": (lambda: ff.fenrir_fused_batch_grad(**lanes_ll, **obs_f),
+                   lambda: ff.fenrir_fused_batch(**lanes_ll, **obs_f),
+                   expect(filter_batch_tan=1, fenrir_backward_batch_tan=1),
+                   n_ll),
+        "dalton": (lambda: fd.dalton_fused_batch_grad(**lanes_ll, **obs_f),
+                   lambda: fd.dalton_fused_batch(**lanes_ll, **obs_f),
+                   expect(dalton_filter_batch_tan=2), n_ll),
+        "basic": (lambda: fk.basic_fused_batch_grad(**lanes_ll, **basic_obs),
+                  lambda: fk.basic_fused_batch(**lanes_ll, **basic_obs),
+                  expect(filter_batch_tan=1, smoother_mean_batch_tan=1),
+                  n_ll),
+        "fenrir_fitz": (
+            lambda: ff.fenrir_fused_batch_grad(**lanes_fz, **obs_fz),
+            lambda: ff.fenrir_fused_batch(**lanes_fz, **obs_fz),
+            expect(filter_batch_tan=1, fenrir_backward_batch_tan=1), 200),
+    }
+    grad_launches = {}
+    for name, (call, value_call, expected, n_g) in grad_paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        got = read_counts()
+        grad_launches[name] = got
+        peak = torch.cuda.max_memory_allocated()
+        check("grad", f"{name} launches", got == expected)
+        ll, grad = out[0], out[1]
+        finite = check("grad", f"{name} finite",
+                       tuple(ll.shape) == (b_ll,)
+                       and tuple(grad.shape) == (b_ll, 3)
+                       and torch.isfinite(ll).all().item()
+                       and torch.isfinite(grad).all().item())
+        values = value_call()
+        if name == "basic":     # (loglik, mean) against (loglik, grad, mean)
+            same = torch.equal(ll, values[0]) and torch.equal(out[2],
+                                                              values[1])
+        else:
+            same = torch.equal(ll, values)
+        same = check("grad", f"{name} values bitwise", same)
+        del out, values
+        ref = float(truth[f"{name}_ll"])
+        control = abs(float(truth[f"{name}_ll_f32cpu"]) - ref)
+        lane0 = float(ll[0])
+        err = abs(lane0 - ref)
+        tol = max(3 * control, LL_REL_FLOOR * abs(ref))
+        ll_ok = check("grad", f"{name} value audit", err <= tol)
+        g64 = np.asarray(truth[f"{name}_grad"], np.float64)
+        g_ctrl = np.asarray(truth[f"{name}_grad_f32cpu"], np.float64)
+        g_lane0 = grad[0].double().cpu().numpy()
+        grad_rel = float(np.linalg.norm(g_lane0 - g64) / np.linalg.norm(g64))
+        grad_control = float(np.linalg.norm(g_ctrl - g64)
+                             / np.linalg.norm(g64))
+        rounding = GRAD_THETA_ROUNDING.get(name)
+        bench_tol = max(3 * grad_control, GRAD_FLOOR)
+        if name == "fenrir_fitz":
+            grad_tol = GRAD_FITZ_TOL
+        elif max(grad_control, rounding or 0.0) > GRAD_CONTROL_MAX:
+            grad_tol = None                 # unusable in float32
+        else:
+            grad_tol = bench_tol
+        grad_ok = None if grad_tol is None else check(
+            "grad", f"{name} gradient audit", grad_rel <= grad_tol)
+        del ll, grad
+        call_ms = cuda_ms(call, repeats=5)
+        value_ms = cuda_ms(value_call, repeats=5)
+        emit({"phase": "grad", "path": name,
+              "model": "fitzhugh" if name == "fenrir_fitz" else "lorenz",
+              "interrogation": "kramer", "n_steps": n_g, "n_lane": b_ll,
+              "launches": {k: v for k, v in got.items() if v},
+              "finite": finite, "values_bitwise": same,
+              "lane0": lane0, "audit_abs_err": err, "audit_ref": ref,
+              "audit_control_abs_err": control, "audit_tol": tol,
+              "audit_ok": ll_ok, "grad_lane0": g_lane0.tolist(),
+              "grad_ref": g64.tolist(), "grad_rel_err": grad_rel,
+              "grad_control_rel_err": grad_control,
+              "grad_theta_rounding_rel": rounding,
+              "grad_bench_rule_tol": bench_tol,
+              "grad_within_bench_rule": grad_rel <= bench_tol,
+              "f32_unusable_on_any_hw": grad_tol is None,
+              "grad_tol": grad_tol, "grad_ok": grad_ok, "call_ms": call_ms,
+              "per_eval_us": 1e3 * call_ms / b_ll, "value_call_ms": value_ms,
+              "ratio_to_value_call": call_ms / value_ms,
+              "peak_mem_bytes": peak})
+
+    # each tangent kernel alone at its path's shapes, timed and checked
+    # against its twin there: Lorenz63 EK1 at 4000 steps x 2048 lanes, and
+    # K11a and K11b on FitzHugh-Nagumo EK1 at 200 steps x 2048 lanes (these
+    # launches come after the counts above were read)
+    at_grad = {}                    # configuration -> entry, for this phase
+    for model, n_g, lanes, obs in (("lorenz", n_ll, lanes_ll, obs_f),
+                                   ("fitzhugh", 200, lanes_fz, obs_fz)):
+        on_path = model == "lorenz"
+        path = "fenrir" if on_path else "fenrir_fitz"
+        fused_g = fk.resolve_model(model)
+        ops_g = fk._kernel_operands(
+            lanes["thetas"], lanes["ode_weight"], lanes["ode_inits"], 0.0,
+            lanes["t_max"], n_g, lanes["prior_pars"])
+        cpu_g = cpu_lanes(ops_g, ("x0_lanes", "theta_lanes"))
+        out_a, at_grad[f"filter_batch_tan/{model}"] = at_path_shapes(
+            "grad_kernels", "filter_batch_tan", "pallas_fenrir.py:614",
+            grad_launches[path], lambda: fk.fused_filter_batch_tan(
+                fused_g, n_g, **ops_g, mode="kramer"),
+            lambda: fk._filter_batch_tan_plain(fused_g, n_g, **ops_g,
+                                               mode="kramer"),
+            k1_names, lambda n: fk._filter_batch_tan_plain(
+                fused_g, n, **{**cpu_g, "tgrid": cpu_g["tgrid"][:n]},
+                mode="kramer"),
+            n_g * b_ll, tensors(ops_g), split=k11a_split,
+            register=on_path, config=model, shape=f"{n_g} x {b_ll}")
+        if on_path:
+            A, b, _, mN, _ = out_a
+            e_args = (b[1:], A[1:], mN)
+            e_cpu = [cpu_lane(t) for t in e_args]
+            _, at_grad["smoother_mean_batch_tan/lorenz"] = at_path_shapes(
+                "grad_kernels", "smoother_mean_batch_tan",
+                "pallas_kalman.py:1963", grad_launches["basic"],
+                lambda: fk.smoother_mean_recursion_batch_tan(*e_args, n_tan),
+                lambda: fk._smoother_mean_tan_plain(*e_args, n_tan), ["ms"],
+                lambda n: fk._smoother_mean_tan_plain(
+                    e_cpu[0][:n], e_cpu[1][:n], e_cpu[2], n_tan),
+                (n_g - 1) * b_ll, e_args, split=k11e_split, config=model,
+                shape=f"{n_g - 1} x {b_ll}")
+            del A, b, mN, e_args, e_cpu
+        del out_a
+        chain = ff._fenrir_operands(fused_g, n_g, 0.0, lanes["t_max"], ops_g,
+                                    *obs.values(), "kramer", tangent=True)
+        chain_cpu = chain_on_cpu(chain)
+        _, at_grad[f"fenrir_backward_batch_tan/{model}"] = at_path_shapes(
+            "grad_kernels", "fenrir_backward_batch_tan",
+            "pallas_fenrir.py:772", grad_launches[path],
+            lambda: ff.fenrir_backward_batch_tan(*chain),
+            lambda: fenrir_tan_plain(*chain), ["ld"],
+            lambda n: ff._fenrir_backward_tan_plain(
+                *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:], n_tan),
+            n_g * b_ll, chain, split=ld_split,
+            out_bytes=4 * (1 + n_tan) * fused_g.n_block * b_ll,
+            register=on_path, config=model, shape=f"{n_g} x {b_ll}")
+        del chain, chain_cpu, ops_g, cpu_g
+    for with_obs in (True, False):
+        k11c_args = dict(**ops_d, **obs_d, mode="kramer", with_obs=with_obs,
+                         ld0=dalton_seed(ld0_d, with_obs))
+        k11c_cpu = cpu_lanes(k11c_args, lane_keys)
+        _, at_grad[f"dalton_filter_batch_tan/lorenz/with_obs={with_obs}"] = \
+            at_path_shapes(
+                "grad_kernels", "dalton_filter_batch_tan",
+                "pallas_dalton.py:246", grad_launches["dalton"],
+                lambda: fd.dalton_filter_batch_tan(fused, n_ll, **k11c_args),
+                lambda: fd._dalton_filter_tan_plain(fused, n_ll,
+                                                    **k11c_args),
+                ["ld"], lambda n: fd._dalton_filter_tan_plain(
+                    fused, n, **dalton_steps(k11c_cpu, n)),
+                n_ll * b_ll, tensors(k11c_args), split=ld_split,
+                register=with_obs, config=f"lorenz with_obs={with_obs}",
+                shape=f"{n_ll} x {b_ll}")
+    del k11c_args, k11c_cpu, ops_d, obs_d, ld0_d
+    emit({"phase": "grad_kernels", "n_lane": b_ll, "kernels": at_grad})
+
+    # ---- 11. posterior path sampling ---------------------------------------
     n_sim, b_sim = 10000, 2048
     cfg_s, thetas_s, inits_s = lane_setup(lorenz, n_sim, 20.0, b_sim,
                                           bench_thetas)
@@ -684,21 +1009,15 @@ def main():
     k6_args = fs._draw_operands(fused, n_sim, ops_s, "kramer", eps,
                                 eps_term)
     del eps, eps_term, ops_s
-    k6_ms = cuda_ms(lambda: fs.sampler_batch(*k6_args), repeats=5)
-    k6_out = fs.sampler_batch(*k6_args)
-    k6_plain, k6_plain_ms = cuda_once(
-        lambda: fs._sampler_batch_plain(*k6_args))
-    k6_errs = compare(["xs"], [k6_out], [k6_plain])
     k6_cpu = [cpu_lane(t) for t in k6_args]
-    k6_step_ops = ops_per_step_lane(lambda n: fs._sampler_batch_plain(
-        k6_cpu[0][:n], k6_cpu[1][:n], k6_cpu[2]))
-    k6_bound = bound(nbytes(*k6_args, k6_out),
-                     k6_step_ops * (n_sim - 1) * b_sim)
-    check("sim", "K6 vs twin", worst(k6_errs)[1] <= TWIN_TOL)
-    kernel_entry("sampler_batch", "sampler_batch.cu",
-                 "rodeo_tpu/ops/pallas_sim.py:51", sim_launches, k6_errs,
-                 k6_ms, k6_plain_ms, k6_bound)
-    del k6_args, k6_out, k6_plain
+    at_path_shapes(
+        "sim", "sampler_batch", "pallas_sim.py:51", sim_launches,
+        lambda: fs.sampler_batch(*k6_args),
+        lambda: fs._sampler_batch_plain(*k6_args), ["xs"],
+        lambda n: fs._sampler_batch_plain(k6_cpu[0][:n], k6_cpu[1][:n],
+                                          k6_cpu[2]),
+        (n_sim - 1) * b_sim, k6_args)
+    del k6_args, k6_cpu
     # the draws against the posterior: FitzHugh-Nagumo, one theta
     n_d, b_d = 800, 2048
     cfg_d, thetas_d, inits_d = lane_setup(
@@ -740,7 +1059,7 @@ def main():
     # ---- summary --------------------------------------------------------
     emit({"kernels": [kernels[name] for name in (
         "filter_batch", "smoother_batch", "sampler_batch",
-        "fenrir_backward_batch", "dalton_filter_batch")]})
+        "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

@@ -7,8 +7,8 @@ module names so that every function has an obvious counterpart, and holds
 itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
-Ported so far (the ``solve_mv`` slice and the lane-batched inference
-path):
+Ported so far (the ``solve_mv`` slice, the lane-batched inference
+path and its gradients):
 
 - :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
   :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
@@ -21,7 +21,12 @@ path):
   ``ops/csrc/fenrir_backward_batch.cu``), :func:`dalton_fused_batch`
   (``ops/csrc/dalton_filter_batch.cu``) and :func:`basic_fused_batch`
   (K1, K2), and posterior path sampling :func:`solve_sim_fused_batch` (K1
-  and ``ops/csrc/sampler_batch.cu``).
+  and ``ops/csrc/sampler_batch.cu``);
+- their gradients in theta, forward mode through four tangent kernels:
+  :func:`fenrir_fused_batch_grad`, :func:`dalton_fused_batch_grad`,
+  :func:`basic_fused_batch_grad` and the solve's sensitivities
+  :func:`solve_mv_fused_batch_grad`, and :func:`fused_loglik`, which makes
+  any of the three likelihoods a ``torch.autograd.Function``.
 
 The fused entry points and the model setups run on the CUDA card unless
 they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
@@ -31,11 +36,16 @@ __version__ = "0.1.0"
 
 from rodeo_tpu_torch import interrogate
 from rodeo_tpu_torch import prior
-from rodeo_tpu_torch.ops import (basic_fused_batch, dalton_fused_batch,
-                                 fenrir_fused_batch, solve_mv_fused_batch,
+from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
+                                 dalton_fused_batch, dalton_fused_batch_grad,
+                                 fenrir_fused_batch, fenrir_fused_batch_grad,
+                                 fused_loglik, solve_mv_fused_batch,
+                                 solve_mv_fused_batch_grad,
                                  solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv
 
 __all__ = ["interrogate", "prior", "solve_mv", "solve_mv_fused_batch",
            "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
-           "solve_sim_fused_batch"]
+           "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
+           "basic_fused_batch_grad", "fenrir_fused_batch_grad",
+           "dalton_fused_batch_grad", "fused_loglik"]

@@ -34,11 +34,13 @@ def fitzhugh_fun(X_t, t, theta):
 
 def fitzhugh_flat(x_cols, th, t):
     """Right-hand side in column form; the same arithmetic, in the same
-    order, as the ``FitzHughNagumo`` CUDA functor."""
+    order, as the ``FitzHughNagumo`` CUDA functor.  ``V^3 / 3`` is a product
+    with the float32 ``1/3``, which PyTorch on CUDA also takes for a division
+    by 3, so the CPU, the card and the kernel round alike."""
     x0 = x_cols[0]
     V, R = x0[0:1], x0[1:2]
     a, b, c = th[0:1], th[1:2], th[2:3]
-    f0 = c * (V - V * V * V / 3.0 + R)
+    f0 = c * (V - V * V * V * (1.0 / 3.0) + R)
     f1 = -(V - a + b * R) / c
     return torch.cat([f0, f1])
 

@@ -43,6 +43,15 @@ _SIGNATURES = {
     "rodeo_dalton_filter_batch": [_I] * 5 + [_P] * 14,
     # n_steps, n_col, c, G, xN, xs, stream
     "rodeo_sampler_batch": [_I, _I] + [_P] * 5,
+    # the tangent kernels, with augmented (value + tangents) operands:
+    # as rodeo_filter_batch
+    "rodeo_filter_batch_tan": [_I, _I, _I, _I] + [_P] * 13,
+    # n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
+    "rodeo_fenrir_backward_batch_tan": [_I] * 4 + [_P] * 11,
+    # as rodeo_dalton_filter_batch
+    "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
+    # n_steps, n_col, n_tan, g, G, mN, ms, stream
+    "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
 }
 
 

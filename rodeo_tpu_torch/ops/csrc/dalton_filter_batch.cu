@@ -10,9 +10,9 @@
 // Design.  As K1 (filter_batch.cu), one thread carries one lane through all
 // N steps with all NB blocks of its state in registers, because the ODE
 // right-hand side couples the blocks; each step is K1's predict, interrogate
-// and update (filter_step.cuh), without K1's gains.  The log-density is
-// summed in a register, the blocks of a step added in block order as the
-// twin adds them.  The observation grid (N, .., NB) is shared by all lanes
+// and update without K1's gains (dalton_step of filter_step.cuh, which the
+// tangent kernel K11c shares).  The log-density is summed in a register,
+// the blocks of a step added in block order as the twin adds them.  The observation grid (N, .., NB) is shared by all lanes
 // and comes from cache; nothing is streamed per lane, and one float per lane
 // is written at the end.  WITH_OBS is a template parameter, so the launch
 // without data carries no observation code.
@@ -74,33 +74,9 @@ __global__ void __launch_bounds__(kDaltonThreads)
   }
   float ld = ld0[off];
 
-  for (int n = 0; n < n_steps; ++n) {
-    float mp[NB][Q], pp[NB][NT];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-    float z[NB], S[NB], inv_S[NB];
-    interrogate_update<Model, Q, MODE>(c, th, tgrid[n], mp, pp, m, P, z, S,
-                                       inv_S);
-    // the forecast log-density of the ODE's pseudo-observation
-    float acc = z[0] * z[0] * inv_S[0] + logf(S[0]) + kLog2Pi;
-#pragma unroll
-    for (int b = 1; b < NB; ++b) acc = acc + (z[b] * z[b] * inv_S[b] + logf(S[b]) + kLog2Pi);
-    ld = ld - 0.5f * acc;
-    if (WITH_OBS) {
-      const float mk = mask[n];
-      float obs_acc = 0.0f;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float D[Q];
-#pragma unroll
-        for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
-        const size_t o = static_cast<size_t>(n) * NB + b;
-        const float term = masked_obs_update<Q>(D, y[o], om[o], mk, m[b], P[b]);
-        obs_acc = (b == 0) ? term : obs_acc + term;
-      }
-      ld = ld + mk * (-0.5f * obs_acc);
-    }
-  }
+  for (int n = 0; n < n_steps; ++n)
+    dalton_step<Model, Q, MODE, WITH_OBS>(c, th, n, tgrid[n], d, y, om, mask,
+                                          m, P, ld);
   ld_out[off] = ld;
 }
 

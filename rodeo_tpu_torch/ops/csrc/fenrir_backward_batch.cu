@@ -14,7 +14,8 @@
 // all N steps of one launch, as K2 (smoother_batch.cu) does.  That gives
 // NB x B threads (6144 at 3 blocks x 2048 lanes) where one thread per lane
 // would give B.  Each thread writes its block's sum to (NB, B); the wrapper
-// adds the blocks in block order.  The chain (A, b, C) is (N, d, NB, B) with
+// adds the blocks in block order.  The step (fenrir_step.cuh) is shared with
+// the tangent kernel K11b.  The chain (A, b, C) is (N, d, NB, B) with
 // lanes innermost, so a warp reads 32 neighbouring floats; the observation
 // grid (N, .., NB) is shared by all lanes and comes from cache.  The TPU
 // kernel's chunk grid and lane fold are gone.
@@ -27,75 +28,13 @@
 // computes them, which keeps kUnroll steps of loads in flight per thread.
 #include <cuda_runtime.h>
 
+#include "fenrir_step.cuh"
 #include "kalman_cols.cuh"
 
 namespace rodeo {
 
 constexpr int kFenrirThreads = 64;
 constexpr int kFenrirUnroll = 8;
-
-template <int Q>
-struct ChainRow {
-  float A[Q][Q];
-  float b[Q];
-  float C[Tri<Q>::N];
-};
-
-template <int Q>
-__device__ __forceinline__ void load_chain_row(int n, size_t n_col, size_t c,
-                                               const float* __restrict__ A,
-                                               const float* __restrict__ b,
-                                               const float* __restrict__ C,
-                                               ChainRow<Q>& row) {
-  constexpr int NT = Tri<Q>::N;
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-#pragma unroll
-    for (int j = 0; j < Q; ++j)
-      row.A[i][j] = __ldg(A + (static_cast<size_t>(n) * Q * Q + i * Q + j) * n_col + c);
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-    row.b[i] = __ldg(b + (static_cast<size_t>(n) * Q + i) * n_col + c);
-#pragma unroll
-  for (int k = 0; k < NT; ++k)
-    row.C[k] = __ldg(C + (static_cast<size_t>(n) * NT + k) * n_col + c);
-}
-
-// One backward step of one column: predict, then the masked observation
-// update of step n of block blk.
-template <int Q>
-__device__ __forceinline__ void fenrir_step(int n, int n_block, int blk,
-                                            const ChainRow<Q>& row,
-                                            const float* __restrict__ d,
-                                            const float* __restrict__ y,
-                                            const float* __restrict__ om,
-                                            const float* __restrict__ mask,
-                                            float (&m)[Q],
-                                            float (&P)[Tri<Q>::N],
-                                            float& ld) {
-  constexpr int NT = Tri<Q>::N;
-  float mp[Q];
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    float acc = row.b[i];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) acc = acc + row.A[i][j] * m[j];
-    mp[i] = acc;
-  }
-  float app[NT];
-  sym_quadform<Q>(row.A, P, app);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) P[k] = row.C[k] + app[k];
-#pragma unroll
-  for (int i = 0; i < Q; ++i) m[i] = mp[i];
-  float D[Q];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) D[j] = __ldg(d + (static_cast<size_t>(n) * Q + j) * n_block + blk);
-  const size_t o = static_cast<size_t>(n) * n_block + blk;
-  const float mk = __ldg(mask + n);
-  const float term = masked_obs_update<Q>(D, __ldg(y + o), __ldg(om + o), mk, m, P);
-  ld = ld + mk * (-0.5f * term);
-}
 
 template <int Q>
 __global__ void __launch_bounds__(kFenrirThreads)
@@ -125,7 +64,7 @@ __global__ void __launch_bounds__(kFenrirThreads)
 
   int n = n_steps - 1;
   for (; n >= kFenrirUnroll - 1; n -= kFenrirUnroll) {
-    ChainRow<Q> rows[kFenrirUnroll];
+    ChainRow<float, Q> rows[kFenrirUnroll];
 #pragma unroll
     for (int u = 0; u < kFenrirUnroll; ++u) load_chain_row<Q>(n - u, n_col, c, A, b, C, rows[u]);
 #pragma unroll
@@ -133,7 +72,7 @@ __global__ void __launch_bounds__(kFenrirThreads)
       fenrir_step<Q>(n - u, n_block, blk, rows[u], d, y, om, mask, m, P, ld);
   }
   for (; n >= 0; --n) {
-    ChainRow<Q> row;
+    ChainRow<float, Q> row;
     load_chain_row<Q>(n, n_col, c, A, b, C, row);
     fenrir_step<Q>(n, n_block, blk, row, d, y, om, mask, m, P, ld);
   }

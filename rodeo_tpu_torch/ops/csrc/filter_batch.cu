@@ -14,10 +14,11 @@
 // adds the process noise, forms the smoothing gain of the transition n-1 ->
 // n from the carry and the fresh prediction, evaluates the ODE (and column 0
 // of its Jacobian) at the predicted mean, and does the scalar-innovation
-// Joseph update; predict, interrogate and update are the step that K8 shares
-// (filter_step.cuh).  Outputs are laid out (N, d, NB, B) with lanes
-// innermost, so the threads of a warp store 32 neighbouring floats.  The
-// arithmetic is float32 throughout, as on the TPU.
+// Joseph update; predict, interrogate, update and the gains are the step
+// that K8 and the tangent kernel K11a share (filter_step.cuh).  Outputs are
+// laid out (N, d, NB, B) with lanes innermost, so the threads of a warp
+// store 32 neighbouring floats.  The arithmetic is float32 throughout, as on
+// the TPU.
 //
 // What bounds it on the card.  A step is ~1e3 dependent float operations
 // per lane against 18 * NB floats stored, so the kernel is bound by the
@@ -37,64 +38,6 @@
 namespace rodeo {
 
 constexpr int kFilterThreads = 32;
-
-// G, g and the Joseph-form noise L of the backward kernel of the transition
-// n-1 -> n (_gain_cols_batched): G = Pf Q' Pp^{-1}, g = mf - G mp,
-// L = (I - G Q) Pf (I - G Q)' + G R G'.
-template <int Q>
-__device__ __forceinline__ void gain_cols(
-    const float (&Qm)[Q][Q], const float (&R)[Tri<Q>::N],
-    const float (&mf)[Q], const float (&Pf)[Tri<Q>::N], const float (&mp)[Q],
-    const float (&Pp)[Tri<Q>::N], float (&G)[Q][Q], float (&g)[Q],
-    float (&L)[Tri<Q>::N]) {
-  constexpr int NT = Tri<Q>::N;
-  float ppinv[NT];
-  sym_inv<Q>(Pp, ppinv);
-  float T1[Q][Q];  // Pf Q'
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-#pragma unroll
-    for (int l = 0; l < Q; ++l) {
-      float acc = Qm[l][0] * Pf[Tri<Q>::at(i, 0)];
-#pragma unroll
-      for (int j = 1; j < Q; ++j) acc = acc + Qm[l][j] * Pf[Tri<Q>::at(i, j)];
-      T1[i][l] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-#pragma unroll
-    for (int l = 0; l < Q; ++l) {
-      float acc = T1[i][0] * ppinv[Tri<Q>::at(0, l)];
-#pragma unroll
-      for (int j = 1; j < Q; ++j) acc = acc + T1[i][j] * ppinv[Tri<Q>::at(j, l)];
-      G[i][l] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    float acc = mf[i];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) acc = acc - G[i][j] * mp[j];
-    g[i] = acc;
-  }
-  float IGQ[Q][Q];
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      float s = Qm[0][j] * G[i][0];
-#pragma unroll
-      for (int k = 1; k < Q; ++k) s = s + Qm[k][j] * G[i][k];
-      IGQ[i][j] = (i == j) ? 1.0f - s : -s;
-    }
-  }
-  float GR[NT];
-  sym_quadform<Q>(IGQ, Pf, L);
-  sym_quadform<Q>(G, R, GR);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) L[k] = L[k] + GR[k];
-}
 
 template <class Model, int Q, int MODE>
 __global__ void __launch_bounds__(kFilterThreads)

@@ -1,15 +1,21 @@
 // One step of the lane-batched EK filter for a thread that carries one lane
 // with all NB blocks of its state in registers: predict, interrogate the ODE
-// at the predicted mean, and the scalar-innovation Joseph update.
+// at the predicted mean, and the scalar-innovation Joseph update; the
+// smoothing gains of a step (gain_cols) and DALTON's step (dalton_step).
 //
 // Shared by K1 (filter_batch.cu), which also forms the smoothing gains
 // between predict and update, and K8 (dalton_filter_batch.cu), which also
 // sums the forecast log-density and adds a masked observation update, so
-// that both kernels run the same arithmetic.  The plain PyTorch versions of
-// this step are _filter_batch_plain (ops/fused_kalman.py) and
-// _dalton_filter_plain (ops/fused_dalton.py); the order of every sum
+// that both kernels run the same arithmetic; and, on the scalar type Dual
+// (dual.cuh), by their tangent twins K11a (filter_batch_tan.cu) and K11c
+// (dalton_filter_batch_tan.cu), whose values are then K1's and K8's
+// bitwise.  The plain PyTorch versions of this step are _filter_batch_plain
+// (ops/fused_kalman.py) and _dalton_filter_plain (ops/fused_dalton.py),
+// which run on Duals for the tangent kernels; the order of every sum
 // follows them (see kalman_cols.cuh).
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -58,13 +64,12 @@ __device__ __forceinline__ void load_consts(const QConst<Q>& qc,
 }
 
 // Prediction of one block: mp = Q m, pp = Q P Q' + R.
-template <int Q>
+template <int Q, class T>
 __device__ __forceinline__ void predict_block(const float (&Qm)[Q][Q],
                                               const float (&R)[Tri<Q>::N],
-                                              const float (&m)[Q],
-                                              const float (&P)[Tri<Q>::N],
-                                              float (&mp)[Q],
-                                              float (&pp)[Tri<Q>::N]) {
+                                              const T (&m)[Q],
+                                              const T (&P)[Tri<Q>::N],
+                                              T (&mp)[Q], T (&pp)[Tri<Q>::N]) {
   matvec<Q>(Qm, m, mp);
   sym_quadform<Q>(Qm, P, pp);
 #pragma unroll
@@ -74,61 +79,67 @@ __device__ __forceinline__ void predict_block(const float (&Qm)[Q][Q],
 // Interrogate the ODE at the predicted mean (original coordinates) of all
 // blocks and update each block from (mp, pp) into (m, P).  Returns each
 // block's innovation z, its variance S (doubled under EK0) and 1 / S, the
-// terms of the forecast log-density.
-template <class Model, int Q, int MODE>
+// terms of the forecast log-density.  The measurement row is
+// H = W - J diag(tv), where the block-diagonal Jacobian J has only column 0:
+// its entries j > 0 are W's constants, and H[0] depends on theta under EK1
+// (type T) and is W's constant under EK0, as in the twin.
+template <class Model, int Q, int MODE, class T>
 __device__ __forceinline__ void interrogate_update(
-    const FilterConsts<Model, Q>& c, const float (&th)[Model::NTHETA],
-    float t, const float (&mp)[Model::NB][Q],
-    const float (&pp)[Model::NB][Tri<Q>::N], float (&m)[Model::NB][Q],
-    float (&P)[Model::NB][Tri<Q>::N], float (&z_out)[Model::NB],
-    float (&S_out)[Model::NB], float (&inv_S_out)[Model::NB]) {
+    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], float t,
+    const T (&mp)[Model::NB][Q], const T (&pp)[Model::NB][Tri<Q>::N],
+    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N],
+    T (&z_out)[Model::NB], T (&S_out)[Model::NB],
+    T (&inv_S_out)[Model::NB]) {
   constexpr int NB = Model::NB;
-  float x[NB][Q], fx[NB], jd[NB];
+  using TH = std::conditional_t<MODE == kKramer, T, float>;
+  T x[NB][Q], fx[NB], jd[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int j = 0; j < Q; ++j) x[b][j] = mp[b][j] * c.tv[j];
   Model::template f<Q>(x, th, t, fx);
-  if (MODE == kKramer) Model::template jac0<Q>(x, th, t, jd);
+  if constexpr (MODE == kKramer) Model::template jac0<Q>(x, th, t, jd);
 
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    float H[Q];
+    const float (&W)[Q] = c.W[b];  // H[j] for j > 0
+    TH H0;                          // H[0]
+    if constexpr (MODE == kKramer) H0 = W[0] - jd[b] * c.tv[0];
+    else H0 = W[0];
+    T hm = H0 * mp[b][0];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) H[j] = c.W[b][j];
-    if (MODE == kKramer) H[0] = c.W[b][0] - jd[b] * c.tv[0];
-    float hm = H[0] * mp[b][0];
-#pragma unroll
-    for (int j = 1; j < Q; ++j) hm = hm + H[j] * mp[b][j];
-    float mm = -fx[b];
-    if (MODE == kKramer) mm = mm + jd[b] * x[b][0];
-    const float z = -(hm + mm);
-    float PH[Q];
+    for (int j = 1; j < Q; ++j) hm = hm + W[j] * mp[b][j];
+    T mm = -fx[b];
+    if constexpr (MODE == kKramer) mm = mm + jd[b] * x[b][0];
+    const T z = -(hm + mm);
+    T PH[Q];
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
-      float acc = pp[b][Tri<Q>::at(i, 0)] * H[0];
+      T acc = pp[b][Tri<Q>::at(i, 0)] * H0;
 #pragma unroll
-      for (int j = 1; j < Q; ++j) acc = acc + pp[b][Tri<Q>::at(i, j)] * H[j];
+      for (int j = 1; j < Q; ++j) acc = acc + pp[b][Tri<Q>::at(i, j)] * W[j];
       PH[i] = acc;
     }
-    float S = H[0] * PH[0];
+    T S = H0 * PH[0];
 #pragma unroll
-    for (int i = 1; i < Q; ++i) S = S + H[i] * PH[i];
-    if (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
-    const float inv_S = 1.0f / S;
-    float gain[Q], IKW[Q][Q];
+    for (int i = 1; i < Q; ++i) S = S + W[i] * PH[i];
+    if constexpr (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
+    const T inv_S = 1.0f / S;
+    T gain[Q], IKW[Q][Q];
 #pragma unroll
     for (int i = 0; i < Q; ++i) gain[i] = PH[i] * inv_S;
 #pragma unroll
     for (int i = 0; i < Q; ++i) m[b][i] = mp[b][i] + gain[i] * z;
 #pragma unroll
-    for (int i = 0; i < Q; ++i)
+    for (int i = 0; i < Q; ++i) {
+      IKW[i][0] = (i == 0 ? 1.0f : 0.0f) - gain[i] * H0;
 #pragma unroll
-      for (int j = 0; j < Q; ++j)
-        IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * H[j];
+      for (int j = 1; j < Q; ++j)
+        IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * W[j];
+    }
     sym_quadform<Q>(IKW, pp[b], P[b]);
-    if (MODE == kRodeo) {
-      const float V = S * 0.5f;
+    if constexpr (MODE == kRodeo) {
+      const T V = S * 0.5f;
       int k = 0;
 #pragma unroll
       for (int i = 0; i < Q; ++i)
@@ -138,6 +149,103 @@ __device__ __forceinline__ void interrogate_update(
     z_out[b] = z;
     S_out[b] = S;
     inv_S_out[b] = inv_S;
+  }
+}
+
+// G, g and the Joseph-form noise L of the backward kernel of the transition
+// n-1 -> n (_gain_cols_batched of ops/fused_kalman.py), from the filtered
+// moments at n-1 and the predicted ones at n: G = Pf Q' Pp^{-1},
+// g = mf - G mp, L = (I - G Q) Pf (I - G Q)' + G R G'.
+template <int Q, class T>
+__device__ __forceinline__ void gain_cols(
+    const float (&Qm)[Q][Q], const float (&R)[Tri<Q>::N], const T (&mf)[Q],
+    const T (&Pf)[Tri<Q>::N], const T (&mp)[Q], const T (&Pp)[Tri<Q>::N],
+    T (&G)[Q][Q], T (&g)[Q], T (&L)[Tri<Q>::N]) {
+  constexpr int NT = Tri<Q>::N;
+  T ppinv[NT];
+  sym_inv<Q>(Pp, ppinv);
+  T T1[Q][Q];  // Pf Q'
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+#pragma unroll
+    for (int l = 0; l < Q; ++l) {
+      T acc = Qm[l][0] * Pf[Tri<Q>::at(i, 0)];
+#pragma unroll
+      for (int j = 1; j < Q; ++j) acc = acc + Qm[l][j] * Pf[Tri<Q>::at(i, j)];
+      T1[i][l] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+#pragma unroll
+    for (int l = 0; l < Q; ++l) {
+      T acc = T1[i][0] * ppinv[Tri<Q>::at(0, l)];
+#pragma unroll
+      for (int j = 1; j < Q; ++j) acc = acc + T1[i][j] * ppinv[Tri<Q>::at(j, l)];
+      G[i][l] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    T acc = mf[i];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) acc = acc - G[i][j] * mp[j];
+    g[i] = acc;
+  }
+  T IGQ[Q][Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      T s = Qm[0][j] * G[i][0];
+#pragma unroll
+      for (int k = 1; k < Q; ++k) s = s + Qm[k][j] * G[i][k];
+      IGQ[i][j] = (i == j) ? 1.0f - s : -s;
+    }
+  }
+  T GR[NT];
+  sym_quadform<Q>(IGQ, Pf, L);
+  sym_quadform<Q>(G, R, GR);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) L[k] = L[k] + GR[k];
+}
+
+// One step n of DALTON's filter (_dalton_filter_plain of
+// ops/fused_dalton.py): predict, interrogate and update, add the forecast
+// log-density of the ODE's pseudo-observation to ld, the blocks in block
+// order, and with WITH_OBS the masked observation update of the data.  The
+// observation grid (d, y, om, mask; N x .. x NB) is shared by all lanes.
+template <class Model, int Q, int MODE, bool WITH_OBS, class T>
+__device__ __forceinline__ void dalton_step(
+    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], int n,
+    float t, const float* __restrict__ d, const float* __restrict__ y,
+    const float* __restrict__ om, const float* __restrict__ mask,
+    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N], T& ld) {
+  constexpr int NB = Model::NB;
+  constexpr int NT = Tri<Q>::N;
+  T mp[NB][Q], pp[NB][NT];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
+  T z[NB], S[NB], inv_S[NB];
+  interrogate_update<Model, Q, MODE>(c, th, t, mp, pp, m, P, z, S, inv_S);
+  // the forecast log-density of the ODE's pseudo-observation
+  T acc = z[0] * z[0] * inv_S[0] + log_of(S[0]) + kLog2Pi;
+#pragma unroll
+  for (int b = 1; b < NB; ++b) acc = acc + (z[b] * z[b] * inv_S[b] + log_of(S[b]) + kLog2Pi);
+  ld = ld - 0.5f * acc;
+  if constexpr (WITH_OBS) {
+    const float mk = mask[n];
+    T obs_acc{};
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float D[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
+      const size_t o = static_cast<size_t>(n) * NB + b;
+      const T term = masked_obs_update<Q>(D, y[o], om[o], mk, m[b], P[b]);
+      obs_acc = (b == 0) ? term : obs_acc + term;
+    }
+    ld = ld + mk * (-0.5f * obs_acc);
   }
 }
 

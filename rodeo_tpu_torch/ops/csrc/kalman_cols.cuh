@@ -9,12 +9,22 @@
 // twin skips a coefficient that is exactly 0 or multiplies by exactly 1,
 // the dense sum here adds an exact zero or multiplies exactly, which
 // changes no finite result.
+//
+// Every helper is templated on its scalar types: float in the plain kernels,
+// Dual (dual.cuh) in the tangent kernels, where a term mixes the two types
+// as the twin mixes constants with Duals.  The result type of a product is
+// that of the operator: Dual if either factor is.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dual.cuh"
+
 namespace rodeo {
+
+template <class A, class B>
+using Prod = decltype(A() * B());
 
 template <int Q>
 struct Tri {
@@ -27,12 +37,12 @@ struct Tri {
 };
 
 // out = A v
-template <int Q>
-__device__ __forceinline__ void matvec(const float (&A)[Q][Q],
-                                       const float (&v)[Q], float (&out)[Q]) {
+template <int Q, class TA, class TV>
+__device__ __forceinline__ void matvec(const TA (&A)[Q][Q], const TV (&v)[Q],
+                                       Prod<TA, TV> (&out)[Q]) {
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
-    float acc = A[i][0] * v[0];
+    Prod<TA, TV> acc = A[i][0] * v[0];
 #pragma unroll
     for (int j = 1; j < Q; ++j) acc = acc + A[i][j] * v[j];
     out[i] = acc;
@@ -41,16 +51,17 @@ __device__ __forceinline__ void matvec(const float (&A)[Q][Q],
 
 // Upper triangle of A P A' for packed symmetric P: T = A P (sum over j),
 // then entry (i, l) = sum over k of A[l][k] T[i][k].
-template <int Q>
-__device__ __forceinline__ void sym_quadform(const float (&A)[Q][Q],
-                                             const float (&P)[Tri<Q>::N],
-                                             float (&out)[Tri<Q>::N]) {
-  float T[Q][Q];
+template <int Q, class TA, class TP>
+__device__ __forceinline__ void sym_quadform(const TA (&A)[Q][Q],
+                                             const TP (&P)[Tri<Q>::N],
+                                             Prod<TA, TP> (&out)[Tri<Q>::N]) {
+  using TT = Prod<TA, TP>;
+  TT T[Q][Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
 #pragma unroll
     for (int k = 0; k < Q; ++k) {
-      float acc = A[i][0] * P[Tri<Q>::at(0, k)];
+      TT acc = A[i][0] * P[Tri<Q>::at(0, k)];
 #pragma unroll
       for (int j = 1; j < Q; ++j) acc = acc + A[i][j] * P[Tri<Q>::at(j, k)];
       T[i][k] = acc;
@@ -61,7 +72,7 @@ __device__ __forceinline__ void sym_quadform(const float (&A)[Q][Q],
   for (int i = 0; i < Q; ++i) {
 #pragma unroll
     for (int l = i; l < Q; ++l) {
-      float acc = A[l][0] * T[i][0];
+      Prod<TA, TT> acc = A[l][0] * T[i][0];
 #pragma unroll
       for (int k = 1; k < Q; ++k) acc = acc + A[l][k] * T[i][k];
       out[idx++] = acc;
@@ -72,23 +83,25 @@ __device__ __forceinline__ void sym_quadform(const float (&A)[Q][Q],
 // Closed-form inverse of a packed symmetric matrix, scale-normalised
 // against float32 determinant overflow (_sym_inv of ops/fused_kalman.py,
 // the cofactor form).  q = 4 and 5 need the Schur-split form of _sym_inv
-// ported first.
-template <int Q>
-__device__ __forceinline__ void sym_inv(const float (&p)[Tri<Q>::N],
-                                        float (&out)[Tri<Q>::N]) {
+// ported first.  The scale rs is taken from the values alone: the inverse
+// does not depend on it, so it is a constant with a zero tangent, as in the
+// twin (differentiating fmaxf would split the tangent at ties).
+template <int Q, class T>
+__device__ __forceinline__ void sym_inv(const T (&p)[Tri<Q>::N],
+                                        T (&out)[Tri<Q>::N]) {
   static_assert(Q == 3, "sym_inv: only the q = 3 cofactor form is ported");
-  float a = p[0], b = p[1], c = p[2], d = p[3], e = p[4], f = p[5];
-  const float s = fmaxf(fabsf(a), fmaxf(fabsf(d), fabsf(f)));
+  T a = p[0], b = p[1], c = p[2], d = p[3], e = p[4], f = p[5];
+  const float s = fmaxf(fabsf(value(a)), fmaxf(fabsf(value(d)), fabsf(value(f))));
   const float rs = 1.0f / fmaxf(s, 1e-30f);
   a = a * rs; b = b * rs; c = c * rs; d = d * rs; e = e * rs; f = f * rs;
-  const float co00 = d * f - e * e;
-  const float co01 = c * e - b * f;
-  const float co02 = b * e - c * d;
-  const float co11 = a * f - c * c;
-  const float co12 = b * c - a * e;
-  const float co22 = a * d - b * b;
-  const float det = a * co00 + b * co01 + c * co02;
-  const float inv_det = rs / det;
+  const T co00 = d * f - e * e;
+  const T co01 = c * e - b * f;
+  const T co02 = b * e - c * d;
+  const T co11 = a * f - c * c;
+  const T co12 = b * c - a * e;
+  const T co22 = a * d - b * b;
+  const T det = a * co00 + b * co01 + c * co02;
+  const T inv_det = rs / det;
   out[0] = co00 * inv_det;
   out[1] = co01 * inv_det;
   out[2] = co02 * inv_det;
@@ -105,29 +118,30 @@ constexpr float kLog2Pi = static_cast<float>(1.8378770664093453);
 // m += K z, P = (I - K D) P (I - K D)' + K K' om.  At a step without data
 // (D = 0, y = 0, om = 1, mask = 0) it leaves m and P exactly as they were.
 // Returns the block's log-density term z^2 / S + log S + log 2 pi, which
-// the caller scales by -0.5 * mask.
-template <int Q>
-__device__ __forceinline__ float masked_obs_update(const float (&D)[Q],
-                                                   float y, float om,
-                                                   float mask, float (&m)[Q],
-                                                   float (&P)[Tri<Q>::N]) {
-  float PD[Q];
+// the caller scales by -0.5 * mask.  The data (D, y, om, mask) are
+// constants; m and P are float or Dual.
+template <int Q, class T>
+__device__ __forceinline__ T masked_obs_update(const float (&D)[Q], float y,
+                                               float om, float mask,
+                                               T (&m)[Q], T (&P)[Tri<Q>::N]) {
+  T PD[Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
-    float acc = P[Tri<Q>::at(i, 0)] * D[0];
+    T acc = P[Tri<Q>::at(i, 0)] * D[0];
 #pragma unroll
     for (int j = 1; j < Q; ++j) acc = acc + P[Tri<Q>::at(i, j)] * D[j];
     PD[i] = acc;
   }
-  float S = om;
+  // S = om, then its terms; z = y, then its terms (the twin's order)
+  T S = om + D[0] * PD[0];
 #pragma unroll
-  for (int i = 0; i < Q; ++i) S = S + D[i] * PD[i];
-  float z = y;
+  for (int i = 1; i < Q; ++i) S = S + D[i] * PD[i];
+  T z = y - D[0] * m[0];
 #pragma unroll
-  for (int i = 0; i < Q; ++i) z = z - D[i] * m[i];
-  const float inv_S = 1.0f / S;
-  const float term = z * z * inv_S + logf(S) + kLog2Pi;
-  float K[Q], IKD[Q][Q];
+  for (int i = 1; i < Q; ++i) z = z - D[i] * m[i];
+  const T inv_S = 1.0f / S;
+  const T term = z * z * inv_S + log_of(S) + kLog2Pi;
+  T K[Q], IKD[Q][Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) K[i] = PD[i] * inv_S * mask;
 #pragma unroll
@@ -136,7 +150,7 @@ __device__ __forceinline__ float masked_obs_update(const float (&D)[Q],
   for (int i = 0; i < Q; ++i)
 #pragma unroll
     for (int j = 0; j < Q; ++j) IKD[i][j] = (i == j ? 1.0f : 0.0f) - K[i] * D[j];
-  float pj[Tri<Q>::N];
+  T pj[Tri<Q>::N];
   sym_quadform<Q>(IKD, P, pj);
   int k = 0;
 #pragma unroll

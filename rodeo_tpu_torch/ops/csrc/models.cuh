@@ -9,10 +9,14 @@
 //                        for these first-order systems, and the kernel
 //                        skips them as the plain path's jac_flat does.
 // Each one does the arithmetic of its *_flat counterpart in
-// rodeo_tpu_torch/models/, in the same order.
+// rodeo_tpu_torch/models/, in the same order, on the scalar type T of its
+// arguments: float, or Dual (dual.cuh) in the tangent kernels, where theta
+// carries the tangent of its direction.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "dual.cuh"
 
 namespace rodeo {
 
@@ -21,23 +25,23 @@ struct Lorenz63 {
   static constexpr int NB = 3;
   static constexpr int NTHETA = 3;
 
-  template <int Q>
-  __device__ __forceinline__ static void f(const float (&x)[NB][Q],
-                                           const float (&th)[NTHETA], float t,
-                                           float (&out)[NB]) {
-    const float X = x[0][0], Y = x[1][0], Z = x[2][0];
-    const float rho = th[0], sigma = th[1], beta = th[2];
+  template <int Q, class T>
+  __device__ __forceinline__ static void f(const T (&x)[NB][Q],
+                                           const T (&th)[NTHETA], float t,
+                                           T (&out)[NB]) {
+    const T X = x[0][0], Y = x[1][0], Z = x[2][0];
+    const T rho = th[0], sigma = th[1], beta = th[2];
     out[0] = -sigma * X + sigma * Y;
     out[1] = rho * X - Y - X * Z;
     out[2] = -beta * Z + X * Y;
   }
 
-  template <int Q>
-  __device__ __forceinline__ static void jac0(const float (&x)[NB][Q],
-                                              const float (&th)[NTHETA],
-                                              float t, float (&out)[NB]) {
+  template <int Q, class T>
+  __device__ __forceinline__ static void jac0(const T (&x)[NB][Q],
+                                              const T (&th)[NTHETA], float t,
+                                              T (&out)[NB]) {
     out[0] = -th[1];
-    out[1] = -1.0f;
+    out[1] = -T(1.0f);
     out[2] = -th[2];
   }
 };
@@ -47,21 +51,21 @@ struct FitzHughNagumo {
   static constexpr int NB = 2;
   static constexpr int NTHETA = 3;
 
-  template <int Q>
-  __device__ __forceinline__ static void f(const float (&x)[NB][Q],
-                                           const float (&th)[NTHETA], float t,
-                                           float (&out)[NB]) {
-    const float V = x[0][0], R = x[1][0];
-    const float a = th[0], b = th[1], c = th[2];
-    out[0] = c * (V - V * V * V / 3.0f + R);
+  template <int Q, class T>
+  __device__ __forceinline__ static void f(const T (&x)[NB][Q],
+                                           const T (&th)[NTHETA], float t,
+                                           T (&out)[NB]) {
+    const T V = x[0][0], R = x[1][0];
+    const T a = th[0], b = th[1], c = th[2];
+    out[0] = c * (V - V * V * V * (1.0f / 3.0f) + R);
     out[1] = -(V - a + b * R) / c;
   }
 
-  template <int Q>
-  __device__ __forceinline__ static void jac0(const float (&x)[NB][Q],
-                                              const float (&th)[NTHETA],
-                                              float t, float (&out)[NB]) {
-    const float V = x[0][0];
+  template <int Q, class T>
+  __device__ __forceinline__ static void jac0(const T (&x)[NB][Q],
+                                              const T (&th)[NTHETA], float t,
+                                              T (&out)[NB]) {
+    const T V = x[0][0];
     out[0] = th[2] * (1.0f - V * V);
     out[1] = -th[1] / th[2];
   }

@@ -1,0 +1,185 @@
+r"""
+Forward-mode numbers for the plain PyTorch twins of the tangent kernels
+(the CUDA side is ``csrc/dual.cuh``).
+
+A :class:`Dual` holds a value ``v`` and its tangents ``d`` along ``n_dir``
+directions at once, ``d`` having one leading axis more than ``v``.  Its
+rules are written once here and once in ``csrc/dual.cuh``, with their
+operations in the same order, and the value part of every rule is exactly
+the plain operation.  So the column functions of
+:mod:`rodeo_tpu_torch.ops.fused_kalman` and the plain twins run on Duals
+unchanged (operator overloads, ``__getitem__`` and ``__torch_function__``
+for the few torch functions they call), their values equal the plain twins'
+bitwise, and each tangent rounds as the kernel's thread of that direction
+rounds.  A plain tensor or Python number mixed with a Dual is a constant:
+its tangent is zero and is not materialised.
+
+The rules (value ``a``, tangent ``da``; ``q = a / b``):
+
+- ``a +- b``: ``da +- db``;  ``-a``: ``-da``;
+- ``a * b``: ``da * b + a * db``;
+- ``a / b``: ``(da - q * db) / b``;  ``c / b`` for a constant ``c``:
+  ``-(q * db) / b``;
+- ``log a``: ``da / a``.
+"""
+import torch
+
+__all__ = ["Dual", "primal", "seed_directions", "constant", "rows", "stack",
+           "split"]
+
+
+class Dual:
+    """A value ``v`` with tangents ``d`` of shape ``(n_dir,) + v.shape``
+    (or broadcastable to it)."""
+
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v = v
+        self.d = d
+
+    @property
+    def shape(self):
+        return self.v.shape
+
+    @property
+    def n_dir(self):
+        return self.d.shape[0]
+
+    def __len__(self):
+        return self.v.shape[0]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __getitem__(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        return Dual(self.v[idx], self.d[(slice(None),) + idx])
+
+    def __add__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v + o.v, self.d + o.d)
+        return Dual(self.v + o, self.d)
+
+    def __radd__(self, o):
+        return Dual(o + self.v, self.d)
+
+    def __sub__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v - o.v, self.d - o.d)
+        return Dual(self.v - o, self.d)
+
+    def __rsub__(self, o):
+        return Dual(o - self.v, -self.d)
+
+    def __neg__(self):
+        return Dual(-self.v, -self.d)
+
+    def __mul__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v * o.v, self.d * o.v + self.v * o.d)
+        return Dual(self.v * o, self.d * o)
+
+    def __rmul__(self, o):
+        return Dual(o * self.v, o * self.d)
+
+    def __truediv__(self, o):
+        if isinstance(o, Dual):
+            q = self.v / o.v
+            return Dual(q, (self.d - q * o.d) / o.v)
+        return Dual(self.v / o, self.d / o)
+
+    def __rtruediv__(self, o):
+        q = o / self.v
+        return Dual(q, -(q * self.d) / self.v)
+
+    def log(self):
+        return Dual(torch.log(self.v), self.d / self.v)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.cat:
+            return _cat(*args, **kwargs)
+        if func is torch.log:
+            return args[0].log()
+        if func in (torch.ones_like, torch.zeros_like):
+            x = args[0]
+            return Dual(func(x.v), torch.zeros_like(x.d))
+        # a plain tensor on the left of an operator: the Dual's reflected
+        # rule
+        reflected = _REFLECTED.get(getattr(func, "__name__", ""))
+        if reflected and len(args) == 2 and isinstance(args[1], Dual):
+            return getattr(args[1], reflected)(args[0])
+        return NotImplemented
+
+
+# Tensor methods that meet a Dual as their second operand, and the Dual's
+# reflected rule for each
+_REFLECTED = {"add": "__radd__", "sub": "__rsub__", "mul": "__rmul__",
+              "div": "__rtruediv__"}
+
+
+def _cat(tensors, dim=0):
+    """``torch.cat`` of Duals and constants along a value axis."""
+    n_dir = next(x.n_dir for x in tensors if isinstance(x, Dual))
+    vs = [primal(x) for x in tensors]
+    ds = [torch.broadcast_to(x.d, (n_dir,) + x.v.shape) if isinstance(x, Dual)
+          else x.new_zeros((n_dir,) + x.shape) for x in tensors]
+    return Dual(torch.cat(vs, dim), torch.cat(ds, dim + 1 if dim >= 0
+                                              else dim))
+
+
+def primal(x):
+    """The value of a Dual; anything else as it is."""
+    return x.v if isinstance(x, Dual) else x
+
+
+def seed_directions(theta_lanes):
+    """``theta_lanes (n_theta, B)`` as a Dual along the ``n_theta`` basis
+    directions: direction ``k`` moves ``theta_k`` alone."""
+    n_theta = theta_lanes.shape[0]
+    eye = torch.eye(n_theta, dtype=theta_lanes.dtype,
+                    device=theta_lanes.device)
+    return Dual(theta_lanes, eye[:, :, None].expand(
+        (n_theta,) + tuple(theta_lanes.shape)))
+
+
+def constant(x, n_dir):
+    """``x`` as a Dual with zero tangents along ``n_dir`` directions."""
+    return Dual(x, x.new_zeros((n_dir,) + tuple(x.shape)))
+
+
+def rows(x):
+    """A Dual as ``(1 + n_dir, ...)``: its value, then its tangent along
+    each direction; anything else as it is."""
+    if not isinstance(x, Dual):
+        return x
+    d = torch.broadcast_to(x.d, (x.n_dir,) + tuple(x.v.shape))
+    return torch.cat([x.v[None], d])
+
+
+def stack(cols):
+    """Stack columns on a new leading axis: ``torch.stack`` of plain
+    tensors, and for Duals the layout of the tangent kernels, the values
+    ``(K, ...)`` followed by each direction's ``(K, ...)``, i.e.
+    ``(n_aug K, ...)`` with ``n_aug = 1 + n_dir``."""
+    if not any(isinstance(c, Dual) for c in cols):
+        return torch.stack(cols)
+    n_dir = next(c.n_dir for c in cols if isinstance(c, Dual))
+    v = torch.stack([primal(c) for c in cols])
+    d = torch.stack([torch.broadcast_to(c.d, (n_dir,) + c.v.shape)
+                     if isinstance(c, Dual)
+                     else c.new_zeros((n_dir,) + c.shape) for c in cols],
+                    dim=1)
+    return torch.cat([v, d.reshape((n_dir * len(cols),) + v.shape[1:])])
+
+
+def split(aug, k, axis=0):
+    """The inverse of :func:`stack` along ``axis``: ``aug`` with
+    ``n_aug k`` entries there becomes one Dual whose value has ``k``."""
+    aug = aug.movedim(axis, 0)
+    n_dir = aug.shape[0] // k - 1
+    v = aug[:k]
+    d = aug[k:].reshape((n_dir, k) + tuple(aug.shape[1:]))
+    return Dual(v.movedim(0, axis), d.movedim(1, axis + 1))

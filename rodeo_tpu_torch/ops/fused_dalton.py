@@ -1,7 +1,7 @@
 r"""
-Lane-batched DALTON likelihood on the GPU (port of the batch path of
-:mod:`rodeo_tpu.ops.pallas_dalton`: ``_dalton_prepare`` and
-``dalton_fused_batch``).
+Lane-batched DALTON likelihood and its gradient on the GPU (port of the
+batch path of :mod:`rodeo_tpu.ops.pallas_dalton`: ``_dalton_prepare``,
+``dalton_fused_batch`` and ``dalton_fused_batch_grad``).
 
 DALTON's log-likelihood is the difference of two forward-filter
 log-densities, :math:`\log p(Z, Y) - \log p(Z)`.  Each is one launch of
@@ -12,15 +12,22 @@ plus the forecast log-density of the ODE's pseudo-observation and, with
 (sequential processing of the independent ODE and data noises).  Only the
 ``(B,)`` log-density leaves the kernel.
 
-The plain PyTorch twin of K8 is :func:`_dalton_filter_plain`; the wrapper
-:func:`dalton_filter_batch` takes it only for CPU tensors.  ``LAUNCHES``
-counts K8's launches.
+The gradient runs two launches of **K11c**
+``csrc/dalton_filter_batch_tan.cu`` (replacing ``_dalton_filter_kernel_tan``):
+K8 carrying the tangents of its state and log-density along each parameter
+(forward mode).
+
+The plain PyTorch twin of K8 is :func:`_dalton_filter_plain`, and run on
+:class:`~rodeo_tpu_torch.ops.dual.Dual` numbers it is K11c's
+(:func:`_dalton_filter_tan_plain`); the wrappers take them only for CPU
+tensors.  ``LAUNCHES`` counts the launches.
 """
 import ctypes
 
 import torch
 
 from rodeo_tpu_torch.ops import _build
+from rodeo_tpu_torch.ops.dual import Dual, constant, rows, seed_directions
 from rodeo_tpu_torch.ops.fused_kalman import (
     _FUNCTORS, _KERNEL_Q, _LOG2PI, _MODES, _block_sum, _check, _cuda_device,
     _fused_inputs, _interrogate_update_cols, _kernel_operands,
@@ -28,10 +35,11 @@ from rodeo_tpu_torch.ops.fused_kalman import (
     _tri_idx, resolve_model)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
-__all__ = ["dalton_fused_batch", "dalton_filter_batch", "LAUNCHES"]
+__all__ = ["dalton_fused_batch", "dalton_fused_batch_grad",
+           "dalton_filter_batch", "dalton_filter_batch_tan", "LAUNCHES"]
 
 # kernel launches since the last reset
-LAUNCHES = {"dalton_filter_batch": 0}
+LAUNCHES = {"dalton_filter_batch": 0, "dalton_filter_batch_tan": 0}
 
 
 # --- K8: forward filter summing the log-density ------------------------------------
@@ -44,7 +52,8 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
     (:func:`~rodeo_tpu_torch.ops.fused_kalman._interrogate_update_cols`),
     the forecast log-density and the masked observation update, in the
     kernel's order.  Arguments and returns as :func:`dalton_filter_batch`
-    (``model`` resolved)."""
+    (``model`` resolved); on Duals (``x0_lanes``, ``theta_lanes``, ``ld0``)
+    it returns a Dual."""
     q, n_block, n_lane = x0_lanes.shape
     pairs, where = _tri_idx(q)
     n_tri = len(pairs)
@@ -72,6 +81,21 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
     return ld
 
 
+def _dalton_filter_tan_plain(model, n_steps, q_const, prior_var, ode_weight,
+                             t_vec, x0_lanes, theta_lanes, tgrid, d, y, om,
+                             mask, ld0, mode, with_obs):
+    """Plain PyTorch twin of ``csrc/dalton_filter_batch_tan.cu``: K8's twin
+    on Duals, theta seeded along its ``n_theta`` basis directions, the
+    initial state exact, the seed's tangents the rows ``ld0[1:]``.
+    Arguments and returns as :func:`dalton_filter_batch_tan`."""
+    theta = seed_directions(theta_lanes)
+    ld = _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
+                              t_vec, constant(x0_lanes, theta.n_dir), theta,
+                              tgrid, d, y, om, mask, Dual(ld0[0], ld0[1:]),
+                              mode, with_obs)
+    return rows(ld)
+
+
 def dalton_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
                         t_vec, x0_lanes, theta_lanes, tgrid, d, y, om, mask,
                         ld0, mode="kramer", with_obs=True):
@@ -95,6 +119,35 @@ def dalton_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
     Returns:
         (Tensor(B,)): ``ld0`` plus the log-density of steps 1..N.
     """
+    return _dalton_filter(False, model, n_steps, q_const, prior_var,
+                          ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d,
+                          y, om, mask, ld0, mode, with_obs)
+
+
+def dalton_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
+                            t_vec, x0_lanes, theta_lanes, tgrid, d, y, om,
+                            mask, ld0, mode="kramer", with_obs=True):
+    r"""
+    Tangent-augmented forward filter of DALTON (kernel K11c): K8 and the
+    derivative of its log-density along each of the ``n_theta`` theta
+    basis directions, the initial state held fixed.  Arguments as
+    :func:`dalton_filter_batch`, but ``ld0 (Tensor(n_aug, B))``, the seed
+    and its tangents (``n_aug = 1 + n_theta``).
+
+    Returns:
+        (Tensor(n_aug, B)): ``ld0`` plus the log-density of steps 1..N, and
+        its tangents.
+    """
+    return _dalton_filter(True, model, n_steps, q_const, prior_var,
+                          ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d,
+                          y, om, mask, ld0, mode, with_obs)
+
+
+def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
+                   t_vec, x0_lanes, theta_lanes, tgrid, d, y, om, mask, ld0,
+                   mode, with_obs):
+    """K8 (``tangent`` False) or K11c: check the operands, take the twin
+    for CPU tensors, else launch the kernel."""
     model = resolve_model(model)
     if mode not in _MODES:
         raise NotImplementedError(
@@ -116,13 +169,14 @@ def dalton_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
             ("y", y, (n_steps, n_block)),
             ("om", om, (n_steps, n_block)),
             ("mask", mask, (n_steps,)),
-            ("ld0", ld0, (n_lane,))):
+            ("ld0", ld0, (1 + model.n_theta, n_lane) if tangent
+             else (n_lane,))):
         _check(name, t, shape, device)
+    args = (model, n_steps, q_const, prior_var, ode_weight, t_vec, x0_lanes,
+            theta_lanes, tgrid, d, y, om, mask, ld0, mode, with_obs)
     if device.type == "cpu":
-        return _dalton_filter_plain(model, n_steps, q_const, prior_var,
-                                    ode_weight, t_vec, x0_lanes, theta_lanes,
-                                    tgrid, d, y, om, mask, ld0, mode,
-                                    with_obs)
+        return (_dalton_filter_tan_plain if tangent
+                else _dalton_filter_plain)(*args)
     _cuda_device(device)
     if q != _KERNEL_Q:
         raise NotImplementedError(
@@ -130,16 +184,17 @@ def dalton_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
     lib = _build.load()
     ld = torch.empty_like(ld0)
     qc = (ctypes.c_float * (q * q))(*[v for row in q_const for v in row])
+    name = "dalton_filter_batch_tan" if tangent else "dalton_filter_batch"
     with torch.cuda.device(device):
-        err = lib.rodeo_dalton_filter_batch(
+        err = getattr(lib, f"rodeo_{name}")(
             _FUNCTORS[model.cuda_functor], _MODES[mode], int(with_obs),
             n_steps, n_lane, ctypes.addressof(qc), R_packed.data_ptr(),
             ode_weight.data_ptr(), t_vec.data_ptr(), x0_lanes.data_ptr(),
             theta_lanes.data_ptr(), tgrid.data_ptr(), d.data_ptr(),
             y.data_ptr(), om.data_ptr(), mask.data_ptr(), ld0.data_ptr(),
             ld.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error("dalton_filter_batch", err)
-    LAUNCHES["dalton_filter_batch"] += 1
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return ld
 
 
@@ -202,3 +257,38 @@ def dalton_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                                   ld0=torch.zeros_like(ld0),
                                   mode=interrogation, with_obs=False)
     return ld_joint - ld_marg
+
+
+def dalton_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
+                            n_steps, prior_pars, obs_data, obs_times,
+                            obs_weight, obs_var, model,
+                            interrogation="kramer", kalman_type="standard",
+                            device=None):
+    r"""
+    Lane-batched DALTON log-likelihood and its gradient in theta, forward
+    mode: two launches of kernel K11c on the CUDA card (its plain twin with
+    ``device="cpu"``).  ``ode_inits`` must not depend on theta: its
+    tangents, and those of the seed log-density at t_min, are zero.
+
+    Args as :func:`dalton_fused_batch`.
+
+    Returns:
+        (tuple): **loglik** ``(B,)``, equal to :func:`dalton_fused_batch`'s
+        bitwise, and **grad** ``(B, n_theta)``.
+    """
+    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+        thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
+        kalman_type, device)
+    ops, obs, ld0 = _dalton_prepare(
+        thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
+        obs_data, obs_times, obs_weight, obs_var)
+    zeros = ld0.new_zeros((fused.n_theta + 1, ld0.shape[0]))
+    seed = torch.cat([ld0[None], zeros[1:]])
+    ld_joint = dalton_filter_batch_tan(fused, n_steps, **ops, **obs,
+                                       ld0=seed, mode=interrogation,
+                                       with_obs=True)
+    ld_marg = dalton_filter_batch_tan(fused, n_steps, **ops, **obs,
+                                      ld0=zeros, mode=interrogation,
+                                      with_obs=False)
+    diff = ld_joint - ld_marg
+    return diff[0], diff[1:].T.contiguous()

@@ -1,6 +1,7 @@
 r"""
-Lane-batched fenrir likelihood on the GPU (port of the batch path of
-:mod:`rodeo_tpu.ops.pallas_fenrir`: ``fenrir_fused_batch``).
+Lane-batched fenrir likelihood and its gradient on the GPU (port of the
+batch path of :mod:`rodeo_tpu.ops.pallas_fenrir`: ``fenrir_fused_batch``
+and ``fenrir_fused_batch_grad``).
 
 Fenrir's log-likelihood is a Kalman filter run backwards in time over the
 affine Markov chain that the forward filter leaves behind, with a masked
@@ -17,23 +18,33 @@ exact), and fenrir's chain ends there with the observation at t_min.
   ``_fenrir_backward_kernel_batch``: the reverse recursion over steps
   N-1..0, predict through ``(A, b, C)``, masked update, log-density sum.
 
-The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`; the
-wrapper :func:`fenrir_backward_batch` takes it only for CPU tensors.
-``LAUNCHES`` counts K7b's launches.
+The gradient runs the same stages forward-mode: K11a
+(:func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter_batch_tan`) emits
+the chain with its tangents along each parameter, the terminal update runs
+on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers in torch, and **K11b**
+``csrc/fenrir_backward_batch_tan.cu`` (replacing
+``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents.
+
+The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`, and run
+on Duals it is K11b's (:func:`_fenrir_backward_tan_plain`); the wrappers
+take them only for CPU tensors.  ``LAUNCHES`` counts the launches.
 """
 import torch
 
 from rodeo_tpu_torch.ops import _build
+from rodeo_tpu_torch.ops.dual import rows, split
+from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
     _KERNEL_Q, _block_sum, _check, _cuda_device, _fused_inputs,
     _kernel_operands, _masked_obs_update_cols, _raise_on_error, _sym_quadform,
-    _tri_idx, fused_filter_batch)
+    _tri_idx, fused_filter_batch, fused_filter_batch_tan)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
-__all__ = ["fenrir_fused_batch", "fenrir_backward_batch", "LAUNCHES"]
+__all__ = ["fenrir_fused_batch", "fenrir_fused_batch_grad",
+           "fenrir_backward_batch", "fenrir_backward_batch_tan", "LAUNCHES"]
 
 # kernel launches since the last reset
-LAUNCHES = {"fenrir_backward_batch": 0}
+LAUNCHES = {"fenrir_backward_batch": 0, "fenrir_backward_batch_tan": 0}
 
 
 # --- K7b: reverse filter over the backward chain ------------------------------------
@@ -42,7 +53,8 @@ LAUNCHES = {"fenrir_backward_batch": 0}
 def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
     """Plain PyTorch twin of ``csrc/fenrir_backward_batch.cu``: the same
     float32 operations in the same order, one Python iteration per step.
-    Returns each block's log-density sum ``(n_block, B)``."""
+    Returns each block's log-density sum ``(n_block, B)``; on a chain and
+    seeds of Duals, a Dual."""
     n_steps, q, n_block, n_lane = b.shape
     pairs, where = _tri_idx(q)
     m_cols, p_cols = list(m_seed), list(p_seed)
@@ -63,6 +75,20 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
             mask[r])
         ld = ld + mask[r] * (-0.5 * term)
     return ld
+
+
+def _fenrir_backward_tan_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
+                               n_tan):
+    """Plain PyTorch twin of ``csrc/fenrir_backward_batch_tan.cu``: K7b's
+    twin on the augmented chain and seeds read as Duals.  Returns each
+    block's log-density sum and its tangents ``(n_aug, n_block, B)``."""
+    n_aug = 1 + n_tan
+    q = b.shape[1] // n_aug
+    n_tri = C.shape[1] // n_aug
+    ld = _fenrir_backward_plain(
+        split(A, q * q, axis=1), split(b, q, axis=1), split(C, n_tri, axis=1),
+        d, y, om, mask, split(m_seed, q), split(p_seed, n_tri))
+    return rows(ld)
 
 
 def fenrir_backward_batch(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
@@ -87,24 +113,61 @@ def fenrir_backward_batch(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
     Returns:
         (Tensor(B,)): ``ld0`` plus the log-density of steps 0..N-1.
     """
-    n_steps, q, n_block, n_lane = b.shape
+    return _fenrir_backward(0, A, b, C, d, y, om, mask, m_seed, p_seed, ld0)
+
+
+def fenrir_backward_batch_tan(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
+    r"""
+    Tangent-augmented backward filter of fenrir (kernel K11b): K7b on the
+    chain that :func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter_batch_tan`
+    emits, carrying the tangents of the state and the log-density along
+    each of its ``n_tan`` directions.
+
+    Args:
+        A (Tensor(N, n_aug*q*q, n_block, B)), b (Tensor(N, n_aug*q, ...)),
+            C (Tensor(N, n_aug*n_tri, ...)): The chain and its tangents
+            (``n_aug = 1 + n_tan``, the layout of ``fused_filter_batch_tan``).
+        d, y, om, mask: As :func:`fenrir_backward_batch` (constants).
+        m_seed (Tensor(n_aug*q, n_block, B)), p_seed (Tensor(n_aug*n_tri,
+            n_block, B)): The state at step N and its tangents.
+        ld0 (Tensor(n_aug, B)): The log-density of step N's observation
+            and its tangents.
+
+    Returns:
+        (Tensor(n_aug, B)): ``ld0`` plus the log-density of steps 0..N-1,
+        and its tangents.
+    """
+    return _fenrir_backward(ld0.shape[0] - 1, A, b, C, d, y, om, mask,
+                            m_seed, p_seed, ld0)
+
+
+def _fenrir_backward(n_tan, A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
+    """K7b (``n_tan`` 0) or K11b: check the operands, take the twin for
+    CPU tensors, else launch the kernel; add the blocks' sums to ld0."""
+    n_aug = 1 + n_tan
+    n_steps, d_aug, n_block, n_lane = b.shape
+    q = d_aug // n_aug
     n_tri = q * (q + 1) // 2
     device = b.device
     for name, t, shape in (
-            ("A", A, (n_steps, q * q, n_block, n_lane)),
-            ("b", b, (n_steps, q, n_block, n_lane)),
-            ("C", C, (n_steps, n_tri, n_block, n_lane)),
+            ("A", A, (n_steps, n_aug * q * q, n_block, n_lane)),
+            ("b", b, (n_steps, n_aug * q, n_block, n_lane)),
+            ("C", C, (n_steps, n_aug * n_tri, n_block, n_lane)),
             ("d", d, (n_steps, q, n_block)),
             ("y", y, (n_steps, n_block)),
             ("om", om, (n_steps, n_block)),
             ("mask", mask, (n_steps,)),
-            ("m_seed", m_seed, (q, n_block, n_lane)),
-            ("p_seed", p_seed, (n_tri, n_block, n_lane)),
-            ("ld0", ld0, (n_lane,))):
+            ("m_seed", m_seed, (n_aug * q, n_block, n_lane)),
+            ("p_seed", p_seed, (n_aug * n_tri, n_block, n_lane)),
+            ("ld0", ld0, (n_aug, n_lane) if n_tan else (n_lane,))):
         _check(name, t, shape, device)
     if device.type == "cpu":
-        ld_blocks = _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed,
-                                           p_seed)
+        if n_tan:
+            ld_blocks = _fenrir_backward_tan_plain(A, b, C, d, y, om, mask,
+                                                   m_seed, p_seed, n_tan)
+        else:
+            ld_blocks = _fenrir_backward_plain(A, b, C, d, y, om, mask,
+                                               m_seed, p_seed)
     else:
         _cuda_device(device)
         if q != _KERNEL_Q:
@@ -112,36 +175,43 @@ def fenrir_backward_batch(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
                 f"the fenrir kernel is instantiated for q={_KERNEL_Q}, "
                 f"got {q}")
         lib = _build.load()
-        ld_blocks = torch.empty_like(m_seed[0])
+        kernel = "fenrir_backward_batch_tan" if n_tan \
+            else "fenrir_backward_batch"
+        ld_blocks = m_seed.new_empty(
+            (n_aug, n_block, n_lane) if n_tan else (n_block, n_lane))
+        sizes = (n_steps, n_block, n_lane) + ((n_tan,) if n_tan else ())
         with torch.cuda.device(device):
-            err = lib.rodeo_fenrir_backward_batch(
-                n_steps, n_block, n_lane, A.data_ptr(), b.data_ptr(),
-                C.data_ptr(), d.data_ptr(), y.data_ptr(), om.data_ptr(),
-                mask.data_ptr(), m_seed.data_ptr(), p_seed.data_ptr(),
-                ld_blocks.data_ptr(),
+            err = getattr(lib, f"rodeo_{kernel}")(
+                *sizes, A.data_ptr(), b.data_ptr(), C.data_ptr(),
+                d.data_ptr(), y.data_ptr(), om.data_ptr(), mask.data_ptr(),
+                m_seed.data_ptr(), p_seed.data_ptr(), ld_blocks.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
-        _raise_on_error("fenrir_backward_batch", err)
-        LAUNCHES["fenrir_backward_batch"] += 1
+        _raise_on_error(kernel, err)
+        LAUNCHES[kernel] += 1
     # one thread per (block, lane) column sums its block; the blocks are
     # added here, in block order
-    return ld0 + _block_sum(ld_blocks)
+    return ld0 + _block_sum(ld_blocks.movedim(-2, 0))
 
 
 # --- the likelihood -----------------------------------------------------------------
 
 
 def _fenrir_operands(fused, n_steps, t_min, t_max, ops, obs_data, obs_times,
-                     obs_weight, obs_var, mode):
+                     obs_weight, obs_var, mode, tangent=False):
     """The operands of K7b for one evaluation: the forward filter (K1) on
     ``ops`` (:func:`~rodeo_tpu_torch.ops.fused_kalman._kernel_operands`),
     the observation grid of steps 0..N-1, and the masked observation update
     at step N that seeds the chain.  Returns the arguments of
-    :func:`fenrir_backward_batch` in order."""
+    :func:`fenrir_backward_batch` in order; with ``tangent``, those of
+    :func:`fenrir_backward_batch_tan`, through K11a and the update on
+    Duals."""
     q = ops["x0_lanes"].shape[0]
     pairs, where = _tri_idx(q)
     # all N gains: entry 0 is the zero-gain, zero-noise step onto x0
-    A, b, C, m_last, p_last = fused_filter_batch(fused, n_steps, **ops,
-                                                 mode=mode)
+    filt = fused_filter_batch_tan if tangent else fused_filter_batch
+    A, b, C, m_last, p_last = filt(fused, n_steps, **ops, mode=mode)
+    if tangent:
+        m_last, p_last = split(m_last, q), split(p_last, len(pairs))
     obs_ind = obs_indices(t_min, t_max, n_steps, obs_times)
     d, y, om, mask = dense_obs_grid(
         obs_ind, n_steps, ops["t_vec"], torch.as_tensor(obs_data),
@@ -154,7 +224,7 @@ def _fenrir_operands(fused, n_steps, t_min, t_max, ops, obs_data, obs_times,
     # fenrir's mask covers steps 0..N-1; step N was the update above
     return (A, b, C, d[:n_steps].contiguous(), y[:n_steps].contiguous(),
             om[:n_steps].contiguous(), mask[:n_steps].contiguous(),
-            torch.stack(m_seed), torch.stack(p_seed), ld0.contiguous())
+            dual_stack(m_seed), dual_stack(p_seed), rows(ld0).contiguous())
 
 
 def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
@@ -187,3 +257,34 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     return fenrir_backward_batch(*_fenrir_operands(
         fused, n_steps, t_min, t_max, ops, obs_data, obs_times, obs_weight,
         obs_var, interrogation))
+
+
+def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
+                            n_steps, prior_pars, obs_data, obs_times,
+                            obs_weight, obs_var, model,
+                            interrogation="kramer", kalman_type="standard",
+                            device=None):
+    r"""
+    Lane-batched fenrir log-likelihood and its gradient in theta, forward
+    mode: kernels K11a and K11b on the CUDA card (their plain twins with
+    ``device="cpu"``), the terminal update on Duals in between.
+    ``ode_inits`` must not depend on theta: its tangents are zero.
+
+    Args as :func:`fenrir_fused_batch`.
+
+    Returns:
+        (tuple): **loglik** ``(B,)``, equal to :func:`fenrir_fused_batch`'s
+        bitwise, and **grad** ``(B, n_theta)``.
+    """
+    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+        thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
+        kalman_type, device)
+    if obs_weight.shape[2] != 1:
+        raise NotImplementedError(
+            "fenrir_fused_batch_grad requires n_bobs == 1")
+    ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
+                           n_steps, prior_pars)
+    ld = fenrir_backward_batch_tan(*_fenrir_operands(
+        fused, n_steps, t_min, t_max, ops, obs_data, obs_times, obs_weight,
+        obs_var, interrogation, tangent=True))
+    return ld[0], ld[1:].T.contiguous()

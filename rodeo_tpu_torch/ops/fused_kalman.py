@@ -2,7 +2,8 @@ r"""
 Lane-batched fused solve on the GPU (port of the batch path of
 :mod:`rodeo_tpu.ops.pallas_kalman`: ``fused_filter_batch(emit="gains")``,
 ``smoother_recursion_batch``, ``solve_mv_fused_batch`` and
-``basic_fused_batch``), and the column algebra that the likelihood and
+``basic_fused_batch``, and their gradients ``solve_mv_fused_batch_grad`` and
+``basic_fused_batch_grad``), and the column algebra that the likelihood and
 sampling modules beside it share.
 
 ``B`` independent solves (parameter candidates, MCMC chains) ride one pair
@@ -13,11 +14,19 @@ of kernels, batched along a trailing lane axis:
   the kernel, emitting the per-step smoothing gains ``(G, g, L)``;
 - **K2** ``csrc/smoother_batch.cu`` replaces ``_smoother_kernel_batch``:
   the reverse affine recursion ``m_n = g_n + G_n m_{n+1}``,
-  ``P_n = L_n + G_n P_{n+1} G_n'``.
+  ``P_n = L_n + G_n P_{n+1} G_n'``;
+- **K11a** ``csrc/filter_batch_tan.cu`` replaces
+  ``pallas_fenrir._filter_kernel_batch_tan`` (``emit="gains"``): K1 carrying
+  the tangents of its state along each theta direction (forward mode);
+- **K11e** ``csrc/smoother_mean_batch_tan.cu`` replaces
+  ``_smoother_mean_kernel_batch_tan``: K2's mean recursion with tangents.
 
 Each kernel has a plain PyTorch twin here (``_filter_batch_plain``,
-``_smoother_batch_plain``): the same algebra, operation for operation, on
-``(n_block, B)`` columns with a Python loop over steps.  A wrapper takes
+``_smoother_batch_plain``, ``_filter_batch_tan_plain``,
+``_smoother_mean_tan_plain``): the same algebra, operation for operation,
+on ``(n_block, B)`` columns with a Python loop over steps.  K11a's twin is
+K1's run on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers, whose rules
+the kernel applies in the same order (``csrc/dual.cuh``).  A wrapper takes
 the twin only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.  ``LAUNCHES`` counts the kernel launches.
 
@@ -36,15 +45,20 @@ import torch
 from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.ops import _build
+from rodeo_tpu_torch.ops.dual import Dual, constant, primal, seed_directions
+from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 from rodeo_tpu_torch.ops.precond import taylor_scale, scale_prior
 
 __all__ = ["fused_filter_batch", "smoother_recursion_batch",
+           "fused_filter_batch_tan", "smoother_mean_recursion_batch_tan",
            "solve_mv_fused_batch", "basic_fused_batch",
+           "solve_mv_fused_batch_grad", "basic_fused_batch_grad",
            "resolve_kalman_type", "unpack_cov", "LAUNCHES"]
 
 # kernel launches since the last reset, by kernel
-LAUNCHES = {"filter_batch": 0, "smoother_batch": 0}
+LAUNCHES = {"filter_batch": 0, "smoother_batch": 0, "filter_batch_tan": 0,
+            "smoother_mean_batch_tan": 0}
 
 # interrogation modes and model functors, numbered as the C entry point
 # rodeo_filter_batch (csrc/filter_batch.cu) numbers them
@@ -126,8 +140,11 @@ def _sym_inv(q, p_cols):
         return [d * inv_det, -b * inv_det, a * inv_det]
     if q == 3:
         a, b, c, d, e, f = p_cols  # [00,01,02,11,12,22]
-        s = torch.maximum(torch.abs(a),
-                          torch.maximum(torch.abs(d), torch.abs(f)))
+        # the inverse does not depend on the scale rs: on Duals it is a
+        # constant (zero tangent), as in the kernels
+        s = torch.maximum(torch.abs(primal(a)),
+                          torch.maximum(torch.abs(primal(d)),
+                                        torch.abs(primal(f))))
         rs = 1.0 / torch.clamp(s, min=1e-30)
         a, b, c, d, e, f = a * rs, b * rs, c * rs, d * rs, e * rs, f * rs
         co00 = d * f - e * e
@@ -142,7 +159,7 @@ def _sym_inv(q, p_cols):
                 co11 * inv_det, co12 * inv_det, co22 * inv_det]
     if q in (4, 5):
         pairs, where = _tri_idx(q)
-        diag = [p_cols[where[(i, i)]] for i in range(q)]
+        diag = [primal(p_cols[where[(i, i)]]) for i in range(q)]
         s = diag[0]
         for dcol in diag[1:]:
             s = torch.maximum(torch.abs(s), torch.abs(dcol))
@@ -478,7 +495,8 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
     """Plain PyTorch twin of ``csrc/filter_batch.cu``: the same arithmetic
     in the same order on ``(n_block, B)`` columns, one Python iteration per
     step.  Arguments and returns as :func:`fused_filter_batch` (``model``
-    resolved)."""
+    resolved).  With ``x0_lanes`` and ``theta_lanes`` as Duals it is the
+    twin of K11a, and returns its augmented outputs."""
     q, n_block, n_lane = x0_lanes.shape
     pairs, where = _tri_idx(q)
     n_tri = len(pairs)
@@ -486,9 +504,11 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
     R_cols = [R_packed[:, k:k + 1] for k in range(n_tri)]  # (nb, 1) bcast
     W_cols = [ode_weight[:, j:j + 1] for j in range(q)]
     tv_cols = [t_vec[j] for j in range(q)]
-    G_out = x0_lanes.new_empty((n_steps, q * q, n_block, n_lane))
-    g_out = x0_lanes.new_empty((n_steps, q, n_block, n_lane))
-    L_out = x0_lanes.new_empty((n_steps, n_tri, n_block, n_lane))
+    n_aug = 1 + theta_lanes.n_dir if isinstance(theta_lanes, Dual) else 1
+    new = primal(x0_lanes).new_empty
+    G_out = new((n_steps, n_aug * q * q, n_block, n_lane))
+    g_out = new((n_steps, n_aug * q, n_block, n_lane))
+    L_out = new((n_steps, n_aug * n_tri, n_block, n_lane))
     m_cols = list(x0_lanes)
     p_cols = [torch.zeros_like(x0_lanes[0]) for _ in range(n_tri)]
     for n in range(n_steps):
@@ -498,14 +518,27 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
         # (filtered n-1) and the fresh prediction (n)
         G, g, L = _gain_cols_batched(q, n_tri, q_const, R_cols, m_cols,
                                      p_cols, mp_cols, pp_cols)
-        G_out[n] = torch.stack([G[i][j] for i in range(q)
-                                for j in range(q)])
-        g_out[n] = torch.stack(g)
-        L_out[n] = torch.stack(L)
+        G_out[n] = dual_stack([G[i][j] for i in range(q)
+                               for j in range(q)])
+        g_out[n] = dual_stack(g)
+        L_out[n] = dual_stack(L)
         m_cols, p_cols, _, _, _ = _interrogate_update_cols(
             model, q, pairs, where, W_cols, tv_cols, mp_cols, pp_cols,
             theta_lanes, tgrid[n], mode)
-    return G_out, g_out, L_out, torch.stack(m_cols), torch.stack(p_cols)
+    return G_out, g_out, L_out, dual_stack(m_cols), dual_stack(p_cols)
+
+
+def _filter_batch_tan_plain(model, n_steps, q_const, prior_var, ode_weight,
+                            t_vec, x0_lanes, theta_lanes, tgrid, mode):
+    """Plain PyTorch twin of ``csrc/filter_batch_tan.cu``: K1's twin on
+    Duals, theta seeded along its ``n_theta`` basis directions and the
+    initial state exact.  Arguments as :func:`fused_filter_batch`; returns
+    as :func:`fused_filter_batch_tan`."""
+    theta = seed_directions(theta_lanes)
+    return _filter_batch_plain(model, n_steps, q_const, prior_var,
+                               ode_weight, t_vec,
+                               constant(x0_lanes, theta.n_dir), theta, tgrid,
+                               mode)
 
 
 def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
@@ -536,6 +569,36 @@ def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
         ``n-1``; entry 0 (conditioning on the exact initial state) is
         written but the smoother does not use it.
     """
+    return _filter(False, model, n_steps, q_const, prior_var, ode_weight,
+                   t_vec, x0_lanes, theta_lanes, tgrid, mode)
+
+
+def fused_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
+                           t_vec, x0_lanes, theta_lanes, tgrid,
+                           mode="kramer"):
+    r"""
+    Tangent-augmented lane-batched forward filter (kernel K11a): K1 and the
+    derivative of everything it emits along each of the ``n_theta`` theta
+    basis directions, the initial state held fixed.  Arguments as
+    :func:`fused_filter_batch`.
+
+    Returns:
+        (tuple): As :func:`fused_filter_batch`, each output with its
+        tangents stacked on the ``d`` axis (``n_aug = 1 + n_theta``):
+        ``A (N, n_aug*q*q, n_block, B)``, ``b (N, n_aug*q, ...)``,
+        ``C (N, n_aug*n_tri, ...)``, ``m_last (n_aug*q, n_block, B)``,
+        ``p_last (n_aug*n_tri, n_block, B)``; entries ``0..K-1`` of an
+        output of ``K`` entries are the values, entries ``(1+k)K ..`` the
+        tangents along direction ``k``.
+    """
+    return _filter(True, model, n_steps, q_const, prior_var, ode_weight,
+                   t_vec, x0_lanes, theta_lanes, tgrid, mode)
+
+
+def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
+            x0_lanes, theta_lanes, tgrid, mode):
+    """K1 (``tangent`` False) or K11a: check the operands, take the twin
+    for CPU tensors, else launch the kernel."""
     model = resolve_model(model)
     if mode not in _MODES:
         raise NotImplementedError(
@@ -554,31 +617,34 @@ def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
             ("theta_lanes", theta_lanes, (model.n_theta, n_lane)),
             ("tgrid", tgrid, (n_steps,))):
         _check(name, t, shape, device)
+    args = (model, n_steps, q_const, prior_var, ode_weight, t_vec, x0_lanes,
+            theta_lanes, tgrid, mode)
     if device.type == "cpu":
-        return _filter_batch_plain(model, n_steps, q_const, prior_var,
-                                   ode_weight, t_vec, x0_lanes, theta_lanes,
-                                   tgrid, mode)
+        return (_filter_batch_tan_plain if tangent
+                else _filter_batch_plain)(*args)
     _cuda_device(device)
     if q != _KERNEL_Q:
         raise NotImplementedError(
             f"the filter kernel is instantiated for q={_KERNEL_Q}, got {q}")
     lib = _build.load()
-    G = x0_lanes.new_empty((n_steps, q * q, n_block, n_lane))
-    g = x0_lanes.new_empty((n_steps, q, n_block, n_lane))
-    L = x0_lanes.new_empty((n_steps, n_tri, n_block, n_lane))
-    m_last = torch.empty_like(x0_lanes)
-    p_last = x0_lanes.new_empty((n_tri, n_block, n_lane))
+    n_aug = 1 + model.n_theta if tangent else 1
+    G = x0_lanes.new_empty((n_steps, n_aug * q * q, n_block, n_lane))
+    g = x0_lanes.new_empty((n_steps, n_aug * q, n_block, n_lane))
+    L = x0_lanes.new_empty((n_steps, n_aug * n_tri, n_block, n_lane))
+    m_last = x0_lanes.new_empty((n_aug * q, n_block, n_lane))
+    p_last = x0_lanes.new_empty((n_aug * n_tri, n_block, n_lane))
     qc = (ctypes.c_float * (q * q))(*[v for row in q_const for v in row])
+    name = "filter_batch_tan" if tangent else "filter_batch"
     with torch.cuda.device(device):
-        err = lib.rodeo_filter_batch(
+        err = getattr(lib, f"rodeo_{name}")(
             _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps, n_lane,
             ctypes.addressof(qc), R_packed.data_ptr(), ode_weight.data_ptr(),
             t_vec.data_ptr(), x0_lanes.data_ptr(), theta_lanes.data_ptr(),
             tgrid.data_ptr(), G.data_ptr(), g.data_ptr(), L.data_ptr(),
             m_last.data_ptr(), p_last.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error("filter_batch", err)
-    LAUNCHES["filter_batch"] += 1
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return G, g, L, m_last, p_last
 
 
@@ -652,6 +718,85 @@ def smoother_recursion_batch(g_k, G_k, L_k, mN, pN):
     _raise_on_error("smoother_batch", err)
     LAUNCHES["smoother_batch"] += 1
     return ms, ps
+
+
+# --- K11e: the mean recursion with tangents ------------------------------------------
+
+
+def _smoother_mean_tan_plain(g_aug, G_aug, mN_aug, n_tan):
+    """Plain PyTorch twin of ``csrc/smoother_mean_batch_tan.cu``: the value
+    as in K2, each tangent ``dg + dG m + G dm`` in the kernel's order, all
+    directions at once along a leading axis.  Arguments and returns as
+    :func:`smoother_mean_recursion_batch_tan`."""
+    n_len, d_aug, n_block, n_lane = g_aug.shape
+    q = d_aug // (1 + n_tan)
+    ms = torch.empty_like(g_aug)
+    m = list(mN_aug[:q])
+    dm = mN_aug[q:].reshape(n_tan, q, n_block, n_lane)
+    for r in range(n_len - 1, -1, -1):
+        G = [[G_aug[r, i * q + j] for j in range(q)] for i in range(q)]
+        dG = G_aug[r, q * q:].reshape(n_tan, q * q, n_block, n_lane)
+        dg = g_aug[r, q:].reshape(n_tan, q, n_block, n_lane)
+        m_out, dm_out = [], []
+        for i in range(q):
+            acc = g_aug[r, i]
+            for j in range(q):
+                acc = acc + G[i][j] * m[j]
+            m_out.append(acc)
+        for i in range(q):
+            acc = dg[:, i]
+            for j in range(q):
+                acc = acc + dG[:, i * q + j] * m[j] + G[i][j] * dm[:, j]
+            dm_out.append(acc)
+        m, dm = m_out, torch.stack(dm_out, dim=1)
+        ms[r, :q] = torch.stack(m)
+        ms[r, q:] = dm.reshape(n_tan * q, n_block, n_lane)
+    return ms
+
+
+def smoother_mean_recursion_batch_tan(g_aug, G_aug, mN_aug, n_tan):
+    r"""
+    Tangent-augmented lane-batched backward mean recursion (kernel K11e):
+    ``m = g + G m+`` and, along each of ``n_tan`` directions,
+    ``dm = dg + dG m+ + G dm+``, from the terminal values down to row 0.
+
+    Args:
+        g_aug (Tensor(T, n_aug*q, n_block, B)): Offsets and their tangents
+            (``n_aug = 1 + n_tan``, the layout of
+            :func:`fused_filter_batch_tan`).
+        G_aug (Tensor(T, n_aug*q*q, n_block, B)): Gains, row-major, and
+            their tangents.
+        mN_aug (Tensor(n_aug*q, n_block, B)): Terminal values and tangents.
+        n_tan (int): Number of tangent directions.
+
+    Returns:
+        (Tensor(T, n_aug*q, n_block, B)): The means and their tangents.
+    """
+    n_len, d_aug, n_block, n_lane = g_aug.shape
+    n_aug = 1 + n_tan
+    q = d_aug // n_aug
+    device = g_aug.device
+    for name, t, shape in (
+            ("g_aug", g_aug, (n_len, n_aug * q, n_block, n_lane)),
+            ("G_aug", G_aug, (n_len, n_aug * q * q, n_block, n_lane)),
+            ("mN_aug", mN_aug, (n_aug * q, n_block, n_lane))):
+        _check(name, t, shape, device)
+    if device.type == "cpu":
+        return _smoother_mean_tan_plain(g_aug, G_aug, mN_aug, n_tan)
+    _cuda_device(device)
+    if q != _KERNEL_Q:
+        raise NotImplementedError(
+            f"the smoother kernel is instantiated for q={_KERNEL_Q}, got {q}")
+    lib = _build.load()
+    ms = torch.empty_like(g_aug)
+    with torch.cuda.device(device):
+        err = lib.rodeo_smoother_mean_batch_tan(
+            n_len, n_block * n_lane, n_tan, g_aug.data_ptr(),
+            G_aug.data_ptr(), mN_aug.data_ptr(), ms.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error("smoother_mean_batch_tan", err)
+    LAUNCHES["smoother_mean_batch_tan"] += 1
+    return ms
 
 
 # --- the fused solve ----------------------------------------------------------------
@@ -797,9 +942,99 @@ def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
         model, interrogation=interrogation, kalman_type=kalman_type,
         device=device)
-    obs_ind = obs_indices(t_min, t_max, n_steps, obs_times)
-    obs_data = torch.as_tensor(obs_data, device=mean_rows.device)
-    ode_obs = mean_rows[obs_ind.to(mean_rows.device)]   # (n_obs, nb, q, B)
-    lls = torch.vmap(lambda od: obs_loglik(obs_data, od, **params),
-                     in_dims=-1)(ode_obs)
-    return lls, mean_rows
+    lls_of = _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times,
+                          obs_loglik, params, mean_rows.device)
+    return lls_of(mean_rows), mean_rows
+
+
+def _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times, obs_loglik,
+                 params, device):
+    """``mean (N+1, n_block, q, B) -> loglik (B,)``: the user's
+    ``obs_loglik`` at the observed grid steps, mapped over the lanes."""
+    obs_ind = obs_indices(t_min, t_max, n_steps, obs_times).to(device)
+    obs_data = torch.as_tensor(obs_data, device=device)
+
+    def lls_of(mean_rows):
+        ode_obs = mean_rows[obs_ind]                # (n_obs, nb, q, B)
+        return torch.vmap(lambda od: obs_loglik(obs_data, od, **params),
+                          in_dims=-1)(ode_obs)
+
+    return lls_of
+
+
+# --- the gradients (forward mode) ---------------------------------------------------
+
+
+def solve_mv_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
+                              n_steps, prior_pars, model,
+                              interrogation="kramer",
+                              kalman_type="standard", device=None):
+    r"""
+    Lane-batched fused solve's posterior mean and its derivatives in each
+    parameter, through the tangent kernels K11a (the filter and its gains)
+    and K11e (the mean recursion) on the CUDA card (their plain twins with
+    ``device="cpu"``).  ``ode_inits`` must not depend on theta: its tangents
+    are zero.
+
+    Args as :func:`solve_mv_fused_batch`.
+
+    Returns:
+        (tuple): **mean** ``(N+1, n_block, q, B)``, equal to
+        :func:`solve_mv_fused_batch`'s bitwise, and **dmean** ``(n_theta,
+        N+1, n_block, q, B)``, its derivative along each parameter.
+    """
+    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+        thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
+        kalman_type, device)
+    n_block, _, q = ode_weight.shape
+    n_lane, n_tan = thetas.shape
+    ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
+                           n_steps, prior_pars)
+    A_aug, b_aug, _, m_last, _ = fused_filter_batch_tan(
+        fused, n_steps, **ops, mode=interrogation)
+    # entry 0 of the gains conditions on the exact initial state: unused
+    ms = smoother_mean_recursion_batch_tan(b_aug[1:], A_aug[1:], m_last,
+                                           n_tan)
+    del A_aug, b_aug
+    t_vec = ops["t_vec"]
+    # the values as solve_mv_fused_batch assembles them
+    mean_rows = torch.cat([ops["x0_lanes"].permute(1, 0, 2)[None],
+                           ms[:, :q].permute(0, 2, 1, 3),
+                           m_last[:q].permute(1, 0, 2)[None]])
+    mean_rows *= t_vec[:, None]
+    # the tangents: row 0 (the initial state) has none
+    n_len = ms.shape[0]
+    dmean = torch.cat([
+        ms.new_zeros((n_tan, 1, n_block, q, n_lane)),
+        ms[:, q:].reshape(n_len, n_tan, q, n_block, n_lane)
+        .permute(1, 0, 3, 2, 4),
+        m_last[q:].reshape(n_tan, q, n_block, n_lane)
+        .permute(0, 2, 1, 3)[:, None]], dim=1)
+    dmean *= t_vec[:, None]
+    return mean_rows, dmean
+
+
+def basic_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
+                           n_steps, prior_pars, obs_data, obs_times,
+                           obs_loglik, model, interrogation="kramer",
+                           kalman_type="standard", device=None, **params):
+    r"""
+    Lane-batched basic likelihood and its gradient: the tangent solve
+    (:func:`solve_mv_fused_batch_grad`, kernels K11a and K11e), then
+    ``torch.func.jvp`` of the lane-mapped ``obs_loglik`` along each
+    parameter's ``dmean``.  Args as :func:`basic_fused_batch`.
+
+    Returns:
+        (tuple): **loglik** ``(B,)`` and **mean** ``(N+1, n_block, q, B)``,
+        equal to :func:`basic_fused_batch`'s bitwise, between them **grad**
+        ``(B, n_theta)``.
+    """
+    mean_rows, dmean = solve_mv_fused_batch_grad(
+        thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
+        model, interrogation=interrogation, kalman_type=kalman_type,
+        device=device)
+    lls_of = _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times,
+                          obs_loglik, params, mean_rows.device)
+    grads = [torch.func.jvp(lls_of, (mean_rows,), (dmean[k],))[1]
+             for k in range(dmean.shape[0])]
+    return lls_of(mean_rows), torch.stack(grads, dim=-1), mean_rows

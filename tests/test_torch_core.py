@@ -327,13 +327,24 @@ def _entry_point_calls():
         "fenrir_fused_batch": lambda: rt.fenrir_fused_batch(**lanes, **obs),
         "dalton_fused_batch": lambda: rt.dalton_fused_batch(**lanes, **obs),
         "solve_sim_fused_batch": lambda: rt.solve_sim_fused_batch(**lanes),
+        "solve_mv_fused_batch_grad": lambda: rt.solve_mv_fused_batch_grad(
+            **lanes),
+        "basic_fused_batch_grad": lambda: rt.basic_fused_batch_grad(
+            **lanes, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+            obs_loglik=lambda o, x: torch.sum(x)),
+        "fenrir_fused_batch_grad": lambda: rt.fenrir_fused_batch_grad(
+            **lanes, **obs),
+        "dalton_fused_batch_grad": lambda: rt.dalton_fused_batch_grad(
+            **lanes, **obs),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "lorenz.setup", "fitzhugh.setup", "from_numpy", "solve_mv_fused_batch",
     "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
-    "solve_sim_fused_batch"])
+    "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
+    "basic_fused_batch_grad", "fenrir_fused_batch_grad",
+    "dalton_fused_batch_grad"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without ``device`` an entry point runs on CUDA; with no CUDA device
     it raises rather than fall back to the CPU, which only

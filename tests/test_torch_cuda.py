@@ -1,8 +1,10 @@
 """
 The port's CUDA kernels on the card: K1 (filter_batch), K2
-(smoother_batch), K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
-(dalton_filter_batch) against their plain PyTorch twins on the same CUDA
-inputs, and the launch contract of each fused entry point.
+(smoother_batch), K6 (sampler_batch), K7b (fenrir_backward_batch), K8
+(dalton_filter_batch) and the tangent kernels K11a (filter_batch_tan), K11b
+(fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and K11e
+(smoother_mean_batch_tan) against their plain PyTorch twins on the same
+CUDA inputs, and the launch contract of each fused entry point.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -25,9 +27,10 @@ pytestmark = pytest.mark.cuda
 
 MODELS = {"lorenz": lorenz, "fitzhugh": fitzhugh}
 # Built without multiply-add contraction, a kernel does its twin's float32
-# operations in the same order; a division by a constant, which PyTorch on
-# CUDA takes through its reciprocal, still rounds differently (measured
-# 3.4e-6 of the largest entry on FitzHugh-Nagumo over 1000 steps on an H100).
+# operations in the same order, a tangent kernel's Dual rules included; the
+# tolerance allows for a library function (PyTorch's CUDA log against logf)
+# rounding differently.  Bound on the scaled error per output and per
+# tangent direction.
 TWIN_TOL = 1e-5
 
 
@@ -89,15 +92,15 @@ def test_fused_solve_launches_each_kernel_once(cuda_device):
             thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
             cfg["prior_pars"], model="lorenz", device=device)
 
-    fk.LAUNCHES.update(filter_batch=0, smoother_batch=0)
+    _reset_launches()
     mean, var = solve(cuda_device)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"filter_batch": 1, "smoother_batch": 1}
+    assert _launched() == {"filter_batch": 1, "smoother_batch": 1}
     assert mean.shape == (n_steps + 1, 3, 3, 64) and mean.is_cuda
     assert var.shape == (n_steps + 1, 3, 6, 64)
     assert torch.isfinite(mean).all() and torch.isfinite(var).all()
     mean_c, var_c = solve(torch.device("cpu"))
-    assert fk.LAUNCHES == {"filter_batch": 1, "smoother_batch": 1}
+    assert _launched() == {"filter_batch": 1, "smoother_batch": 1}
     for d in range(3):
         assert _scaled_err(mean[..., d, :], mean_c[..., d, :]) <= TWIN_TOL, d
     assert _scaled_err(var, var_c) <= TWIN_TOL
@@ -114,7 +117,7 @@ def test_cuda_tensors_never_take_the_twin(cuda_device):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device=cuda_device)
 
-    fk.LAUNCHES.update(filter_batch=0, smoother_batch=0)
+    _reset_launches()
     with pytest.raises(NotImplementedError):
         fk.smoother_recursion_batch(t(T, q, nb, B), t(T, q * q, nb, B),
                                     t(T, n_tri, nb, B), t(q, nb, B),
@@ -122,7 +125,7 @@ def test_cuda_tensors_never_take_the_twin(cuda_device):
     with pytest.raises(ValueError):    # operands on two devices
         fk.smoother_recursion_batch(t(T, 3, nb, B), t(T, 9, nb, B).cpu(),
                                     t(T, 6, nb, B), t(3, nb, B), t(6, nb, B))
-    assert fk.LAUNCHES == {"filter_batch": 0, "smoother_batch": 0}
+    assert _launched() == {}
 
 
 def _obs(model, n_obs, t_max, device):
@@ -148,6 +151,11 @@ def _reset_launches():
 
 def _launches():
     return {**fk.LAUNCHES, **ff.LAUNCHES, **fd.LAUNCHES, **fs.LAUNCHES}
+
+
+def _launched():
+    """The kernels launched since the last reset, with their counts."""
+    return {k: v for k, v in _launches().items() if v}
 
 
 @pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
@@ -225,9 +233,119 @@ def test_inference_entry_points_launch_their_kernels(cuda_device):
         _reset_launches()
         out = call(cuda_device)
         torch.cuda.synchronize()
-        launched = {k: v for k, v in _launches().items() if v}
-        assert launched == expected, name
+        assert _launched() == expected, name
         assert out.is_cuda and torch.isfinite(out).all(), name
         cpu = call(torch.device("cpu"))
-        assert {k: v for k, v in _launches().items() if v} == expected, name
+        assert _launched() == expected, name
         assert _scaled_err(out, cpu) <= TWIN_TOL, name
+
+
+def _split_err(kernel, twin, k):
+    """Scaled error of each of the n_aug slices of k entries on axis 1 (or
+    0 for a 3-d output): the values, then each tangent direction."""
+    axis = 1 if kernel.dim() == 4 else 0
+    n_aug = kernel.shape[axis] // k
+    return [_scaled_err(kernel.narrow(axis, a * k, k),
+                        twin.narrow(axis, a * k, k)) for a in range(n_aug)]
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
+                                              ("fitzhugh", "rodeo", 3.0)])
+def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
+                                                       mode, t_max):
+    """K11a, K11e, K11b and K11c against their twins, the values and each
+    tangent direction on their own; and their values against the kernels
+    they extend, K1, K2, K7b and K8, which must agree bitwise."""
+    n_steps = 300
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
+    obs = _obs(model, 11, t_max, cuda_device)
+    ops, obs_k, ld0 = fd._dalton_prepare(
+        thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
+        cfg["prior_pars"], *obs.values())
+    fused = fk.resolve_model(model)
+    q, n_tri, n_tan = 3, 6, 3
+    out_k = fk.fused_filter_batch_tan(fused, n_steps, **ops, mode=mode)
+    out_p = fk._filter_batch_tan_plain(fused, n_steps, **ops, mode=mode)
+    prim = fk.fused_filter_batch(fused, n_steps, **ops, mode=mode)
+    for name, a, b, k, v in zip(["A", "b", "C", "m_last", "p_last"], out_k,
+                                out_p, [9, 3, 6, 3, 6], prim):
+        assert torch.isfinite(a).all(), name
+        assert max(_split_err(a, b, k)) <= TWIN_TOL, name
+        assert torch.equal(a.narrow(a.dim() - 3, 0, k), v), name
+    A, b, _, m_last, _ = out_k
+    ms_k = fk.smoother_mean_recursion_batch_tan(b[1:], A[1:], m_last, n_tan)
+    ms_p = fk._smoother_mean_tan_plain(b[1:], A[1:], m_last, n_tan)
+    assert max(_split_err(ms_k, ms_p, q)) <= TWIN_TOL
+    G1, g1, L1, mN, pN = prim
+    assert torch.equal(ms_k[:, :q],
+                       fk.smoother_recursion_batch(g1[1:], G1[1:], L1[1:],
+                                                   mN, pN)[0])
+    chain = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
+                                *obs.values(), mode, tangent=True)
+    k7 = ff.fenrir_backward_batch_tan(*chain)
+    p7 = chain[-1] + fd._block_sum(
+        ff._fenrir_backward_tan_plain(*chain[:-1], n_tan).movedim(1, 0))
+    assert torch.isfinite(k7).all()
+    assert max(_split_err(k7, p7, 1)) <= TWIN_TOL
+    chain0 = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
+                                 *obs.values(), mode)
+    assert torch.equal(k7[0], ff.fenrir_backward_batch(*chain0))
+    seed = torch.cat([ld0[None], ld0.new_zeros((n_tan, ld0.shape[0]))])
+    for with_obs in (True, False):
+        k8 = fd.dalton_filter_batch_tan(fused, n_steps, **ops, **obs_k,
+                                        ld0=seed, mode=mode,
+                                        with_obs=with_obs)
+        p8 = fd._dalton_filter_tan_plain(fused, n_steps, **ops, **obs_k,
+                                         ld0=seed, mode=mode,
+                                         with_obs=with_obs)
+        assert torch.isfinite(k8).all()
+        assert max(_split_err(k8, p8, 1)) <= TWIN_TOL, with_obs
+        assert torch.equal(k8[0], fd.dalton_filter_batch(
+            fused, n_steps, **ops, **obs_k, ld0=ld0, mode=mode,
+            with_obs=with_obs)), with_obs
+
+
+def test_gradient_entry_points_launch_their_kernels(cuda_device):
+    """One call of each gradient entry point on the card launches exactly
+    its tangent kernels, returns its value entry point's values bitwise,
+    and agrees with the same call on the CPU (the plain twins)."""
+    n_steps, t_max, B = 200, 2.0, 64
+    obs = _obs("lorenz", 21, t_max, cuda_device)
+
+    def lanes(device):
+        cfg, thetas, inits = _lanes("lorenz", n_steps, t_max, B, 5, device)
+        return dict(thetas=thetas, ode_weight=cfg["ode_weight"],
+                    ode_inits=inits, t_min=0.0, t_max=t_max,
+                    n_steps=n_steps, prior_pars=cfg["prior_pars"],
+                    model="lorenz", device=device)
+
+    def b_loglik(o, x):
+        return torch.sum(-0.5 * (o[..., 0] - x[..., 0]) ** 2)
+
+    basic = dict(obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+                 obs_loglik=b_loglik)
+    calls = {
+        "fenrir": (lambda dev: ff.fenrir_fused_batch_grad(**lanes(dev),
+                                                          **obs),
+                   lambda dev: ff.fenrir_fused_batch(**lanes(dev), **obs),
+                   {"filter_batch_tan": 1, "fenrir_backward_batch_tan": 1}),
+        "dalton": (lambda dev: fd.dalton_fused_batch_grad(**lanes(dev),
+                                                          **obs),
+                   lambda dev: fd.dalton_fused_batch(**lanes(dev), **obs),
+                   {"dalton_filter_batch_tan": 2}),
+        "basic": (lambda dev: fk.basic_fused_batch_grad(**lanes(dev),
+                                                        **basic)[:2],
+                  lambda dev: fk.basic_fused_batch(**lanes(dev), **basic)[0],
+                  {"filter_batch_tan": 1, "smoother_mean_batch_tan": 1}),
+    }
+    for name, (call, value, expected) in calls.items():
+        _reset_launches()
+        ll, grad = call(cuda_device)
+        torch.cuda.synchronize()
+        assert _launched() == expected, name
+        assert ll.shape == (B,) and grad.shape == (B, 3), name
+        assert torch.isfinite(ll).all() and torch.isfinite(grad).all(), name
+        assert torch.equal(ll, value(cuda_device)), name
+        ll_c, grad_c = call(torch.device("cpu"))
+        assert _scaled_err(ll, ll_c) <= TWIN_TOL, name
+        assert _scaled_err(grad, grad_c) <= TWIN_TOL, name

@@ -123,7 +123,7 @@ def test_solve_mv_fused_batch_matches_jax(model, mode, t_max):
         ode_flat=getattr(jmod, f"{model}_flat"),
         jac_flat=getattr(jmod, f"{model}_jac_flat"), interrogation=mode))
     mean_j, var_j = fn(jnp.asarray(thetas), jnp.asarray(inits))
-    fk.LAUNCHES.update(filter_batch=0, smoother_batch=0)
+    fk.LAUNCHES.update(dict.fromkeys(fk.LAUNCHES, 0))
     tcfg = TMODELS[model].setup(n_steps=n_steps, t_max=t_max,
                                 dtype=torch.float32, device="cpu")
     mean_t, var_t = fk.solve_mv_fused_batch(
@@ -131,7 +131,7 @@ def test_solve_mv_fused_batch_matches_jax(model, mode, t_max):
         torch.from_numpy(inits.copy()), 0.0, t_max, n_steps,
         tcfg["prior_pars"], model=model, interrogation=mode, device="cpu")
     # the CPU path runs the plain twins and launches no kernel
-    assert fk.LAUNCHES == {"filter_batch": 0, "smoother_batch": 0}
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
     assert mean_t.shape == mean_j.shape and var_t.shape == var_j.shape
     assert torch.isfinite(mean_t).all() and torch.isfinite(var_t).all()
     for d in range(3):
