@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the nine
+Run it from a checkout: it imports the package beside it and builds the 12
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -13,13 +13,14 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 3. k1_twin   kernel K1 (filter_batch) against its plain PyTorch twin on the
              same CUDA inputs: Lorenz63 EK1 and FitzHugh-Nagumo EK0, 1000
              steps x 256 lanes;
-4. k2_twin   kernel K2 (smoother_batch) against its twin, on seeded inputs
-             and on the gains of phase 3;
+4. k2r_twin  kernel K2r (smoother_batch_rows) against its twin, on seeded
+             inputs and on the gains of phase 3;
 5. main      the main path: Lorenz63 EK1, 10 000 steps x 2048 lanes through
-             solve_mv_fused_batch.  It must launch each kernel once, stay
-             finite, and pass the t <= 4 audit of lane 0 against the cached
-             float64 truth; then its per-solve time and peak memory, and each
-             kernel timed and checked against its twin at these shapes;
+             solve_mv_fused_batch (K1, then K2r writing the rows).  It must
+             launch each kernel once, stay finite, and pass the t <= 4 audit
+             of lane 0 against the cached float64 truth; then its per-solve
+             time and peak memory, and each kernel timed and checked against
+             its twin at these shapes;
 6. fitzhugh  the kernel path (800 steps x 128 lanes) and the torch-op
              solve_mv in float64, against the cached FitzHugh-Nagumo truth;
 7. k6_twin, k7_twin, k8_twin
@@ -60,9 +61,25 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 11. sim      solve_sim_fused_batch at the main path's shapes (launches,
              finite, time, K6 against its twin), and the draws' lane mean
              and variance against solve_mv_fused_batch's posterior on
-             FitzHugh-Nagumo, 800 steps x 2048 lanes.
+             FitzHugh-Nagumo, 800 steps x 2048 lanes;
+12. k3_twin, k4_twin, k7a_twin
+             the single-solve kernels K3 (filter_single), K4 (smoother_single)
+             and K7a (fenrir_backward_single) against their twins on the same
+             CUDA inputs at 1000 steps: K3 on Lorenz63 EK1 and FitzHugh-Nagumo
+             EK0, K4 on seeded gains and on K3's, K7a on K3's chain with
+             observations;
+13. single   the single-solve path: solve_mv_fused on Lorenz63 EK1, 10 000
+             steps, with the default plain smoother (it must launch K3 and K4
+             once, stay finite and pass the t <= 4 audit), its time and peak
+             memory, and the same with the 16-step composed smoother
+             (k_compose=16, the JAX package's default); fenrir_fused on the
+             likelihood fixture (K3 and K7a once, the audit against the
+             float64 truth); each kernel timed and checked against its twin
+             at its path's shapes, K4 also on the composed smoother's
+             boundary groups;
 
-Then one line {"kernels": [...]} with each kernel's launches on its path,
+Then the script's total seconds, one line {"kernels": [...]} with each
+kernel's launches on its path,
 error against its twin, time, its plain twin's time and its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
 from its twin, over 67 TFLOP/s), and, last, {"ok": true, "device": {...}}.
@@ -141,6 +158,9 @@ _ARITH = {"add", "sub", "mul", "div", "truediv", "neg", "rsub", "sqrt",
 # The tangent kernels: K11a, K11b, K11c, K11e.
 TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan", "smoother_mean_batch_tan")
+# The single-solve kernels K3, K4, K7a.
+SINGLE_KERNELS = ("filter_single", "smoother_single",
+                  "fenrir_backward_single")
 
 
 def emit(obj):
@@ -148,6 +168,7 @@ def emit(obj):
 
 
 def main():
+    t_start = time.perf_counter()
     if not (REPO / "rodeo_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: rodeo_tpu_torch not found beside the script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -208,6 +229,23 @@ def main():
             if name in _ARITH and isinstance(out, torch.Tensor):
                 self.ops += out.numel()
             return out
+
+    class CallCounter(TorchDispatchMode):
+        """Counts the ATen operations a call dispatches: on the card, each
+        is a kernel launch of PyTorch's or a host-side operation."""
+
+        def __init__(self):
+            super().__init__()
+            self.calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    def aten_calls(fn):
+        with CallCounter() as counter:
+            fn()
+        return counter.calls
 
     def ops_per_step_lane(twin_at):
         """Float32 operations per step and lane of a kernel, counted from
@@ -423,9 +461,9 @@ def main():
               "n_steps": n_steps, "n_lane": n_lane, "tol_scaled": TWIN_TOL,
               "errors": errs, "ok": ok})
         if gains is None:
-            gains = out_k
+            gains, k1_x0, k1_tv = out_k, ops["x0_lanes"], ops["t_vec"]
 
-    # ---- 4. K2 against its twin ---------------------------------------------
+    # ---- 4. K2r against its twin --------------------------------------------
     rng = np.random.default_rng(2)
     T, q, nb, B = 1000, 3, 3, 256
     G = np.eye(q).reshape(1, q * q, 1, 1) * 0.5 + \
@@ -434,21 +472,26 @@ def main():
     Lfull = A @ np.swapaxes(A, -1, -2)
     pairs, _ = fk._tri_idx(q)
     L = np.stack([Lfull[..., i, j] for i, j in pairs], axis=1)
+    m_sc = np.array([1.0, 0.5, 0.25])
     seeded = [torch.tensor(a, dtype=torch.float32, device=dev).contiguous()
               for a in (rng.standard_normal((T, q, nb, B)), G, L,
                         rng.standard_normal((q, nb, B)),
-                        np.abs(rng.standard_normal((len(pairs), nb, B))))]
+                        np.abs(rng.standard_normal((len(pairs), nb, B))),
+                        rng.standard_normal((q, nb, B)), m_sc,
+                        [m_sc[i] * m_sc[j] for i, j in pairs])]
     G1, g1, L1, m1, p1 = gains
     for source, args in (("seeded", seeded),
-                         ("k1_gains", (g1[1:], G1[1:], L1[1:], m1, p1))):
-        out_k = fk.smoother_recursion_batch(*args)
-        out_p = fk._smoother_batch_plain(*args)
+                         ("k1_gains", (g1[1:], G1[1:], L1[1:], m1, p1,
+                                       k1_x0, k1_tv, fk._tri_scale(k1_tv)))):
+        out_k = fk.smoother_recursion_batch_rows(*args)
+        out_p = fk._smoother_batch_rows_plain(*args)
         torch.cuda.synchronize()
-        errs = compare(["ms", "ps"], out_k, out_p)
-        ok = check("k2_twin", source, worst(errs)[1] <= TWIN_TOL)
-        emit({"phase": "k2_twin", "inputs": source, "tol_scaled": TWIN_TOL,
+        errs = compare(["mean", "cov"], out_k, out_p)
+        ok = check("k2r_twin", source, worst(errs)[1] <= TWIN_TOL)
+        emit({"phase": "k2r_twin", "inputs": source, "tol_scaled": TWIN_TOL,
+              "bitwise": all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
               "errors": errs, "ok": ok})
-    del gains, G1, g1, L1, m1, p1, seeded
+    del gains, G1, g1, L1, m1, p1, seeded, k1_x0, k1_tv
 
     # ---- 5. the main path --------------------------------------------------
     n_steps, n_lane, t_max = 10000, 2048, 20.0
@@ -470,7 +513,7 @@ def main():
     launches = read_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     check("main", "one launch per kernel",
-          launches == expect(filter_batch=1, smoother_batch=1))
+          launches == expect(filter_batch=1, smoother_batch_rows=1))
     shapes_ok = check("main", "shapes",
                       tuple(mean.shape) == (n_steps + 1, 3, 3, n_lane)
                       and tuple(var.shape) == (n_steps + 1, 3, 6, n_lane))
@@ -508,19 +551,24 @@ def main():
             fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
             mode="kramer"),
         n_steps * n_lane, tensors(ops), repeats=3)
-    k2_args = (g[1:], G[1:], L[1:], mN, pN)
-    k2_cpu = [cpu_lane(a) for a in k2_args]
+    t_vec = ops["t_vec"]
+    rows_args = (g[1:], G[1:], L[1:], mN, pN, ops["x0_lanes"], t_vec,
+                 fk._tri_scale(t_vec))
+    del G, g, L, mN, pN
+    rows_cpu = ([cpu_lane(a) for a in rows_args[:6]]
+                + [a.cpu() for a in rows_args[6:]])
     at_path_shapes(
-        "main", "smoother_batch", "pallas_kalman.py:1516", launches,
-        lambda: fk.smoother_recursion_batch(*k2_args),
-        lambda: fk._smoother_batch_plain(*k2_args), ["ms", "ps"],
-        lambda n: fk._smoother_batch_plain(*[a[:n] for a in k2_cpu[:3]],
-                                           *k2_cpu[3:]),
-        (n_steps - 1) * n_lane, k2_args, repeats=3)
-    del G, g, L, mN, pN, k2_args
+        "main", "smoother_batch_rows", "pallas_kalman.py:1609", launches,
+        lambda: fk.smoother_recursion_batch_rows(*rows_args),
+        lambda: fk._smoother_batch_rows_plain(*rows_args), ["mean", "cov"],
+        lambda n: fk._smoother_batch_rows_plain(
+            *[a[:n] for a in rows_cpu[:3]], *rows_cpu[3:]),
+        (n_steps - 1) * n_lane, rows_args, repeats=3,
+        also_replaces="rodeo_tpu/ops/pallas_kalman.py:1516")
+    del rows_args, rows_cpu
     emit({"phase": "main_kernels", "n_steps": n_steps, "n_lane": n_lane,
           "filter_batch": kernels["filter_batch"],
-          "smoother_batch": kernels["smoother_batch"]})
+          "smoother_batch_rows": kernels["smoother_batch_rows"]})
 
     # ---- 6. FitzHugh-Nagumo --------------------------------------------
     n_fh = 800
@@ -708,7 +756,7 @@ def main():
         "basic": (lambda: fk.basic_fused_batch(
             **lanes_ll, obs_data=obs_b["obs_data"],
             obs_times=obs_b["obs_times"], obs_loglik=b_loglik)[0],
-            expect(filter_batch=1, smoother_batch=1)),
+            expect(filter_batch=1, smoother_batch_rows=1)),
     }
     path_launches = {}
     for name, (call, expected) in paths.items():
@@ -782,19 +830,20 @@ def main():
                                                                    n)),
         n_ll * b_ll, tensors(k8_args))
     del k8_args, k8_cpu
-    # K1 and K2 at these shapes, for the breakdown of the fenrir and basic
+    # K1 and K2r at these shapes, for the breakdown of the fenrir and basic
     # calls
     k1_ll_ms = cuda_ms(lambda: fk.fused_filter_batch(
         fused, n_ll, **ops_ll, mode="kramer"), repeats=5)
     G, g, L, mN, pN = fk.fused_filter_batch(fused, n_ll, **ops_ll,
                                             mode="kramer")
-    k2_ll_ms = cuda_ms(lambda: fk.smoother_recursion_batch(
-        g[1:], G[1:], L[1:], mN, pN), repeats=5)
+    k2r_ll_ms = cuda_ms(lambda: fk.smoother_recursion_batch_rows(
+        g[1:], G[1:], L[1:], mN, pN, ops_ll["x0_lanes"], ops_ll["t_vec"],
+        fk._tri_scale(ops_ll["t_vec"])), repeats=5)
     del G, g, L, mN, pN, ops_ll
     emit({"phase": "likelihood_kernels", "n_steps": n_ll, "n_lane": b_ll,
           "fenrir_backward_batch": kernels["fenrir_backward_batch"],
           "dalton_filter_batch": kernels["dalton_filter_batch"],
-          "filter_batch_ms": k1_ll_ms, "smoother_batch_ms": k2_ll_ms})
+          "filter_batch_ms": k1_ll_ms, "smoother_batch_rows_ms": k2r_ll_ms})
 
     # ---- 10. the gradients at full width ---------------------------------
     cfg_fz, thetas_fz, inits_fz = lane_setup(fitzhugh, 200, 10.0, b_ll,
@@ -1055,11 +1104,248 @@ def main():
               "entries": int(keep.numel()), "var_min": SIM_VAR_MIN,
               "max_z": z_max, "z_tol": SIM_Z, "var_ratio": ratio_range,
               "var_ratio_tol": SIM_VAR_RATIO, "ok": dist_ok}})
+    del draws, mean_d, var_d, post_mean, post_var, lane_mean, lane_var
+
+    # ---- 12. the single-solve kernels and K2r against their twins ---------
+    k3_names = ["mf", "pf", "mp", "pp"]
+
+    def single_setup(mod, n, t_max_s, theta_of):
+        """One solve's K3 operands and its float32 scaled transition."""
+        cfg_s1 = mod.setup(n_steps=n, t_max=t_max_s, dtype=torch.float32,
+                           device=dev)
+        return fk._single_operands(theta_of(cfg_s1["theta"]),
+                                   cfg_s1["ode_weight"], cfg_s1["ode_init"],
+                                   0.0, t_max_s, n, cfg_s1["prior_pars"])
+
+    def twin_report(phase, config, names, kernel_out, twin_out, **info):
+        kernel_out, twin_out = as_tuple(kernel_out), as_tuple(twin_out)
+        errs = compare(names, kernel_out, twin_out)
+        ok = check(phase, config, worst(errs)[1] <= TWIN_TOL
+                   and all(torch.isfinite(a).all().item()
+                           for a in kernel_out))
+        emit({"phase": phase, "config": config, "n_steps": n_tw,
+              "tol_scaled": TWIN_TOL, **info,
+              "bitwise": all(torch.equal(a, b)
+                             for a, b in zip(kernel_out, twin_out)),
+              "errors": errs, "ok": ok})
+
+    def one_theta(seed):
+        return lambda theta: seeded_thetas(seed)(theta, 1)[0]
+
+    k3_states = None
+    for model, mode, t_max_tw, seed in (("lorenz", "kramer", 2.0, 10),
+                                        ("fitzhugh", "rodeo", 10.0, 11)):
+        mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
+        ops_m, Qs_m = single_setup(mod, n_tw, t_max_tw, one_theta(seed))
+        fused_m = fk.resolve_model(model)
+        out_k = fk.fused_filter(fused_m, n_tw, **ops_m, mode=mode)
+        twin_report("k3_twin", f"{model}/{mode}", k3_names, out_k,
+                    fk._filter_single_plain(fused_m, n_tw, **ops_m,
+                                            mode=mode))
+        if k3_states is None:
+            k3_states = (ops_m, Qs_m, out_k)
+    ops_k3, Qs_k3, (mf, pf, mp, pp) = k3_states
+    states = (mf[:-1], pf[:-1], mp[1:], pp[1:])
+    rng = np.random.default_rng(13)
+    G_s = np.eye(3).reshape(1, 1, 9) * 0.5 + \
+        0.1 * rng.standard_normal((n_tw, 3, 9))
+    A_s = rng.standard_normal((n_tw, 3, 3, 3))
+    L_s = A_s @ np.swapaxes(A_s, -1, -2)
+    seeded = [torch.tensor(a, dtype=torch.float32, device=dev).contiguous()
+              for a in (rng.standard_normal((n_tw, 3, 3)), G_s,
+                        np.stack([L_s[..., i, j] for i, j in pairs], -1),
+                        rng.standard_normal((3, 3)),
+                        np.abs(rng.standard_normal((3, len(pairs)))))]
+    for source, args in (
+            ("seeded", seeded),
+            ("k3_gains", (*fk._smoother_gains(Qs_k3, ops_k3["prior_var"],
+                                              *states), mf[-1], pf[-1]))):
+        twin_report("k4_twin", source, ["ms", "ps"],
+                    fk.smoother_recursion(*args),
+                    fk._smoother_single_plain(*args))
+    ops_k3["q_const"] = ff._const_coefs(Qs_k3)
+    chain_1 = ff._fenrir_single_operands(
+        fused, n_tw, 0.0, 2.0, ops_k3, Qs_k3,
+        *bench_obs(lorenz, 2.0, 11, 0).values(), "kramer")
+    twin_report("k7a_twin", "lorenz/kramer", ["ld"],
+                ff.fenrir_backward_single(*chain_1),
+                chain_1[-1] + fd._block_sum(
+                    ff._fenrir_backward_single_plain(*chain_1[:-1])))
+    del k3_states, ops_k3, mf, pf, mp, pp, states, seeded, chain_1
+
+    # ---- 13. the single-solve path ------------------------------------------
+    cfg_1 = lorenz.setup(n_steps=n_steps, t_max=t_max, dtype=torch.float32,
+                         device=dev)
+    single = dict(theta=cfg_1["theta"], ode_weight=cfg_1["ode_weight"],
+                  ode_init=cfg_1["ode_init"], t_min=0.0, t_max=t_max,
+                  n_steps=n_steps, prior_pars=cfg_1["prior_pars"],
+                  model="lorenz", interrogation="kramer")
+
+    def solve_1(**kw):
+        return fk.solve_mv_fused(**single, **kw)
+
+    def audit_10k(mean_1):
+        return max_err_prefix(mean_1.cpu().numpy(), truth["solve_mu_10k"],
+                              n_prefix)
+
+    # phase 5's audit rule for the 10 000-step solve
+    control_1 = max_err_prefix(truth["solve_mu_10k_f32cpu"],
+                               truth["solve_mu_10k"], n_prefix)
+    tol_1 = max(3 * control_1, AUDIT_FLOOR)
+
+    def peak_above_base(fn):
+        """fn() and the most device memory it held at once beyond what
+        was allocated before it (earlier phases' tensors)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    reset_counts()
+    (mean_1, var_1), single_peak = peak_above_base(solve_1)
+    single_launches = read_counts()
+    check("single", "solve launches",
+          single_launches == expect(filter_single=1, smoother_single=1))
+    shape_1 = check("single", "solve shapes",
+                    tuple(mean_1.shape) == (n_steps + 1, 3, 3)
+                    and tuple(var_1.shape) == (n_steps + 1, 3, 3, 3))
+    finite_1 = check("single", "solve finite",
+                     torch.isfinite(mean_1).all().item()
+                     and torch.isfinite(var_1).all().item())
+    err_1 = audit_10k(mean_1)
+    audit_1 = check("single", "solve audit", err_1 <= tol_1)
+    del mean_1, var_1
+    solve_1_ms = cuda_ms(solve_1, repeats=5)
+    # the 16-step composed smoother: K4 over the groups' boundary steps
+    reset_counts()
+    mean_c = solve_1(k_compose=16)[0]
+    composed_launches = read_counts()
+    check("single", "composed solve launches",
+          composed_launches == expect(filter_single=1, smoother_single=1))
+    err_c = audit_10k(mean_c)
+    audit_c = check("single", "composed solve audit", err_c <= tol_1)
+    del mean_c
+    composed_ms = cuda_ms(lambda: solve_1(k_compose=16), repeats=5)
+    cfg_f1 = lorenz.setup(n_steps=n_ll, t_max=t_ll, dtype=torch.float32,
+                          device=dev)
+    fenrir_1 = dict(single, n_steps=n_ll, t_max=t_ll,
+                    prior_pars=cfg_f1["prior_pars"], **obs_f)
+    reset_counts()
+    ll_1, fenrir_peak = peak_above_base(lambda: ff.fenrir_fused(**fenrir_1))
+    fenrir_launches = read_counts()
+    check("single", "fenrir launches", fenrir_launches == expect(
+        filter_single=1, fenrir_backward_single=1))
+    ll_ref = float(truth["fenrir_ll"])
+    ll_control = abs(float(truth["fenrir_ll_f32cpu"]) - ll_ref)
+    ll_err = abs(float(ll_1) - ll_ref)
+    ll_tol = max(3 * ll_control, LL_REL_FLOOR * abs(ll_ref))
+    ll_finite = check("single", "fenrir finite",
+                      tuple(ll_1.shape) == () and bool(torch.isfinite(ll_1)))
+    ll_ok = check("single", "fenrir audit", ll_err <= ll_tol)
+    fenrir_1_ms = cuda_ms(lambda: ff.fenrir_fused(**fenrir_1), repeats=5)
+    # the torch work around the kernels, in ATen operations per call
+    calls_1 = {"solve": aten_calls(solve_1),
+               "solve_k_compose_16": aten_calls(
+                   lambda: solve_1(k_compose=16)),
+               "fenrir": aten_calls(lambda: ff.fenrir_fused(**fenrir_1))}
+    emit({"phase": "single", "model": "lorenz", "interrogation": "kramer",
+          "solve": {"n_steps": n_steps, "t_max": t_max, "k_compose": 1,
+                    "launches": {k: v for k, v in single_launches.items()
+                                 if v},
+                    "shapes_ok": shape_1, "finite": finite_1,
+                    "audit_max_abs_err_t4": err_1,
+                    "audit_control_f32cpu": control_1, "audit_tol": tol_1,
+                    "audit_ok": audit_1, "call_ms": solve_1_ms,
+                    "peak_mem_bytes_above_base": single_peak,
+                    "k_compose_16": {
+                        "launches": {k: v for k, v in
+                                     composed_launches.items() if v},
+                        "audit_max_abs_err_t4": err_c, "audit_ok": audit_c,
+                        "call_ms": composed_ms}},
+          "fenrir": {"n_steps": n_ll, "t_max": t_ll, "n_obs": 21,
+                     "launches": {k: v for k, v in fenrir_launches.items()
+                                  if v},
+                     "finite": ll_finite, "value": float(ll_1),
+                     "audit_abs_err": ll_err, "audit_ref": ll_ref,
+                     "audit_control_abs_err": ll_control,
+                     "audit_tol": ll_tol, "audit_ok": ll_ok,
+                     "call_ms": fenrir_1_ms,
+                     "peak_mem_bytes_above_base": fenrir_peak},
+          "aten_calls_per_call": calls_1})
+
+    # each kernel at its path's shapes (these launches come after the
+    # counts above were read): K3 at 10 000 and at 4000 steps, K4 over the
+    # plain smoother's 9999 rows and the composed one's boundary groups,
+    # K7a at 4000 steps
+    at_single = {}
+    for n_1, t_1, on_path, launches_1 in (
+            (n_steps, t_max, True, single_launches),
+            (n_ll, t_ll, False, fenrir_launches)):
+        ops_1, Qs_1 = single_setup(lorenz, n_1, t_1, lambda th: th)
+        if not on_path:      # fenrir_fused takes the float32 transition
+            ops_1["q_const"] = ff._const_coefs(Qs_1)
+        cpu_1 = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in ops_1.items()}
+        out_3, at_single[f"filter_single/{n_1}"] = at_path_shapes(
+            "single", "filter_single", "pallas_kalman.py:333", launches_1,
+            lambda: fk.fused_filter(fused, n_1, **ops_1, mode="kramer"),
+            lambda: fk._filter_single_plain(fused, n_1, **ops_1,
+                                            mode="kramer"),
+            k3_names, lambda n: fk._filter_single_plain(
+                fused, n, **{**cpu_1, "tgrid": cpu_1["tgrid"][:n]},
+                mode="kramer"),
+            n_1, tensors(ops_1), register=on_path, config=f"{n_1} steps",
+            shape=f"{n_1} steps")
+        mf, pf, mp, pp = out_3
+        if on_path:
+            states_1 = (mf[:-1], pf[:-1], mp[1:], pp[1:])
+            comp, _ = fk._composed_suffixes(ops_1["q_const"],
+                                            ops_1["prior_var"], *states_1,
+                                            16)
+            for gains, label, register in (
+                    (fk._smoother_gains(Qs_1, ops_1["prior_var"], *states_1),
+                     "rows", True),
+                    (fk._boundary_operands(comp), "boundary groups of 16",
+                     False)):
+                k4_args = (*gains, mf[-1], pf[-1])
+                k4_cpu = [a.cpu() for a in k4_args]
+                n_rows = k4_args[0].shape[0]
+                _, at_single[f"smoother_single/{n_rows}"] = at_path_shapes(
+                    "single", "smoother_single", "pallas_kalman.py:763",
+                    launches_1, lambda: fk.smoother_recursion(*k4_args),
+                    lambda: fk._smoother_single_plain(*k4_args),
+                    ["ms", "ps"], lambda n: fk._smoother_single_plain(
+                        *[a[:n] for a in k4_cpu[:3]], *k4_cpu[3:]),
+                    n_rows, k4_args, register=register,
+                    config=f"{n_rows} {label}",
+                    shape=f"{n_rows} {label}")
+            del states_1, comp, gains, k4_args, k4_cpu
+        else:
+            chain_1 = ff._fenrir_single_operands(
+                fused, n_1, 0.0, t_1, ops_1, Qs_1, *obs_f.values(), "kramer")
+            chain_cpu = [t.cpu() for t in chain_1[:9]]
+            _, at_single["fenrir_backward_single"] = at_path_shapes(
+                "single", "fenrir_backward_single", "pallas_fenrir.py:214",
+                launches_1, lambda: ff.fenrir_backward_single(*chain_1),
+                lambda: chain_1[-1] + fd._block_sum(
+                    ff._fenrir_backward_single_plain(*chain_1[:-1])),
+                ["ld"], lambda n: ff._fenrir_backward_single_plain(
+                    *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:]),
+                n_1, chain_1, out_bytes=4 * 3, shape=f"{n_1} steps")
+            del chain_1, chain_cpu
+        del out_3, mf, pf, mp, pp, ops_1, Qs_1, cpu_1
+    emit({"phase": "single_kernels", "kernels": at_single})
 
     # ---- summary --------------------------------------------------------
+    # the card and its power limit again, beside the numbers at the end
+    print(smi, flush=True)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [kernels[name] for name in (
-        "filter_batch", "smoother_batch", "sampler_batch",
-        "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS]})
+        "filter_batch", "smoother_batch_rows", "sampler_batch",
+        "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS
+        + SINGLE_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

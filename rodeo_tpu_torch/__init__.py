@@ -8,7 +8,7 @@ itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
 Ported so far (the ``solve_mv`` slice, the lane-batched inference
-path and its gradients):
+path and its gradients, and the single-solve fused path):
 
 - :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
   :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
@@ -16,17 +16,23 @@ path and its gradients):
 - :mod:`rodeo_tpu_torch.ops.precond` (Taylor preconditioning);
 - :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`, the
   lane-batched solve carried by two hand-written CUDA kernels
-  (``ops/csrc/filter_batch.cu``, ``ops/csrc/smoother_batch.cu``);
+  (``ops/csrc/filter_batch.cu``, ``ops/csrc/smoother_batch_rows.cu``);
 - the lane-batched likelihoods :func:`fenrir_fused_batch` (kernels K1 and
   ``ops/csrc/fenrir_backward_batch.cu``), :func:`dalton_fused_batch`
   (``ops/csrc/dalton_filter_batch.cu``) and :func:`basic_fused_batch`
-  (K1, K2), and posterior path sampling :func:`solve_sim_fused_batch` (K1
+  (K1, K2r), and posterior path sampling :func:`solve_sim_fused_batch` (K1
   and ``ops/csrc/sampler_batch.cu``);
 - their gradients in theta, forward mode through four tangent kernels:
   :func:`fenrir_fused_batch_grad`, :func:`dalton_fused_batch_grad`,
   :func:`basic_fused_batch_grad` and the solve's sensitivities
   :func:`solve_mv_fused_batch_grad`, and :func:`fused_loglik`, which makes
-  any of the three likelihoods a ``torch.autograd.Function``.
+  any of the three likelihoods a ``torch.autograd.Function``;
+- the single solve :func:`solve_mv_fused` (``ops/csrc/filter_single.cu``
+  and ``ops/csrc/smoother_single.cu``, with the k-step composed smoother)
+  and the single fenrir evaluation :func:`fenrir_fused` (the same filter
+  and ``ops/csrc/fenrir_backward_single.cu``); and
+  :func:`smoother_recursion_batch_rows`, the batched solve's smoother,
+  which writes its rows in one pass.
 
 The fused entry points and the model setups run on the CUDA card unless
 they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
@@ -38,8 +44,10 @@ from rodeo_tpu_torch import interrogate
 from rodeo_tpu_torch import prior
 from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  dalton_fused_batch, dalton_fused_batch_grad,
-                                 fenrir_fused_batch, fenrir_fused_batch_grad,
-                                 fused_loglik, solve_mv_fused_batch,
+                                 fenrir_fused, fenrir_fused_batch,
+                                 fenrir_fused_batch_grad, fused_loglik,
+                                 smoother_recursion_batch_rows,
+                                 solve_mv_fused, solve_mv_fused_batch,
                                  solve_mv_fused_batch_grad,
                                  solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv
@@ -48,4 +56,5 @@ __all__ = ["interrogate", "prior", "solve_mv", "solve_mv_fused_batch",
            "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
            "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fenrir_fused_batch_grad",
-           "dalton_fused_batch_grad", "fused_loglik"]
+           "dalton_fused_batch_grad", "fused_loglik", "solve_mv_fused",
+           "fenrir_fused", "smoother_recursion_batch_rows"]

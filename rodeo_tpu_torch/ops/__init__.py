@@ -4,10 +4,11 @@ guard (:mod:`.linalg`), the observation grid (:mod:`.obs_grid`) and the
 lane-batched fused paths with their CUDA kernels (sources in ``csrc/``,
 built by :mod:`._build`):
 
-- :mod:`.fused_kalman`: the solve and the basic likelihood (K1, K2), and
-  their gradients (K11a, K11e);
+- :mod:`.fused_kalman`: the solve and the basic likelihood (K1, K2r, which
+  writes the solve's rows in one pass), their gradients (K11a, K11e), and
+  the single solve (K3, K4);
 - :mod:`.fused_fenrir`: the fenrir likelihood (K1, K7b) and its gradient
-  (K11a, K11b);
+  (K11a, K11b), and one evaluation of it (K3, K7a);
 - :mod:`.fused_dalton`: the DALTON likelihood (K8) and its gradient (K11c);
 - :mod:`.fused_sim`: posterior path sampling (K1, K6);
 - :mod:`.dual`: the forward-mode numbers of the tangent kernels' twins;
@@ -16,10 +17,13 @@ built by :mod:`._build`):
 from rodeo_tpu_torch.ops.autograd import fused_loglik
 from rodeo_tpu_torch.ops.fused_dalton import (dalton_fused_batch,
                                               dalton_fused_batch_grad)
-from rodeo_tpu_torch.ops.fused_fenrir import (fenrir_fused_batch,
+from rodeo_tpu_torch.ops.fused_fenrir import (fenrir_fused,
+                                              fenrir_fused_batch,
                                               fenrir_fused_batch_grad)
 from rodeo_tpu_torch.ops.fused_kalman import (basic_fused_batch,
                                               basic_fused_batch_grad,
+                                              smoother_recursion_batch_rows,
+                                              solve_mv_fused,
                                               solve_mv_fused_batch,
                                               solve_mv_fused_batch_grad)
 from rodeo_tpu_torch.ops.fused_sim import solve_sim_fused_batch
@@ -28,4 +32,5 @@ __all__ = ["basic_fused_batch", "dalton_fused_batch", "fenrir_fused_batch",
            "solve_mv_fused_batch", "solve_sim_fused_batch",
            "basic_fused_batch_grad", "dalton_fused_batch_grad",
            "fenrir_fused_batch_grad", "solve_mv_fused_batch_grad",
-           "fused_loglik"]
+           "fused_loglik", "solve_mv_fused", "fenrir_fused",
+           "smoother_recursion_batch_rows"]

@@ -33,8 +33,6 @@ _SIGNATURES = {
     # model, mode, n_steps, n_lane, q_const (host), R, W, t_vec, x0, theta,
     # tgrid, G, g, L, m_last, p_last, stream
     "rodeo_filter_batch": [_I, _I, _I, _I] + [_P] * 13,
-    # n_steps, n_col, g, G, L, mN, pN, ms, ps, stream
-    "rodeo_smoother_batch": [_I, _I] + [_P] * 8,
     # n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
     # ld_blocks, stream
     "rodeo_fenrir_backward_batch": [_I] * 3 + [_P] * 11,
@@ -52,6 +50,18 @@ _SIGNATURES = {
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
+    # the single-solve kernels and the rows-emitting smoother:
+    # model, mode, n_steps, q_const (host), R, W, t_vec, x0, theta, tgrid,
+    # mf, pf, mp, pp, stream
+    "rodeo_filter_single": [_I] * 3 + [_P] * 12,
+    # n_steps, n_block, g, G, L, mN, pN, ms, ps, stream
+    "rodeo_smoother_single": [_I, _I] + [_P] * 8,
+    # n_steps, n_block, A, b, C, d, y, om, mask, m_seed, p_seed, ld_blocks,
+    # stream
+    "rodeo_fenrir_backward_single": [_I, _I] + [_P] * 11,
+    # n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov,
+    # stream
+    "rodeo_smoother_batch_rows": [_I] * 3 + [_P] * 10,
 }
 
 

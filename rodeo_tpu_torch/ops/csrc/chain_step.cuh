@@ -1,0 +1,116 @@
+// The backward chain of the reverse recursions, for a thread that carries one
+// (block, lane) column: a row (A_n, b_n, C_n) of the chain -- the smoothing
+// gains (G_n, g_n, L_n) -- maps the state at step n+1 onto step n,
+//   m = b_n + A_n m,   P = C_n + A_n P A_n'.
+// Shared by the smoothers K2r (smoother_batch_rows.cu) and K4
+// (smoother_single.cu), and by fenrir's backward filters K7b,
+// K7a and K11b through fenrir_step.cuh, so that all of them do the same
+// arithmetic as their plain twins (_smoother_batch_plain of
+// ops/fused_kalman.py, _fenrir_backward_plain of ops/fused_fenrir.py).
+//
+// The lane-batched kernels read the chain as (T, D, NB, B), columns
+// innermost (BatchLayout); the single-solve kernels read the JAX package's
+// (T, NB, D), entries innermost (SingleLayout).  A kernel is instantiated
+// on its layout, so that no host code transposes the chain for it.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "kalman_cols.cuh"
+
+namespace rodeo {
+
+// Entry i of D at step n of column c in a (T, D, n_col) array.
+struct BatchLayout {
+  size_t n_col;
+  __device__ __forceinline__ size_t operator()(int n, int i, size_t c, int D) const {
+    return (static_cast<size_t>(n) * D + i) * n_col + c;
+  }
+};
+
+// Entry i of D at step n of column c in a (T, n_col, D) array.
+struct SingleLayout {
+  size_t n_col;
+  __device__ __forceinline__ size_t operator()(int n, int i, size_t c, int D) const {
+    return (static_cast<size_t>(n) * n_col + c) * D + i;
+  }
+};
+
+// One row of the chain, as float or Dual.
+template <class T, int Q>
+struct ChainRow {
+  T A[Q][Q];
+  T b[Q];
+  T C[Tri<Q>::N];
+};
+
+// Row n of the chain for column c: A row-major (Q*Q entries), b, packed C.
+template <int Q, class Layout>
+__device__ __forceinline__ void load_chain_row(int n, const Layout& lay, size_t c,
+                                               const float* __restrict__ A,
+                                               const float* __restrict__ b,
+                                               const float* __restrict__ C,
+                                               ChainRow<float, Q>& row) {
+  constexpr int NT = Tri<Q>::N;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) row.A[i][j] = __ldg(A + lay(n, i * Q + j, c, Q * Q));
+#pragma unroll
+  for (int i = 0; i < Q; ++i) row.b[i] = __ldg(b + lay(n, i, c, Q));
+#pragma unroll
+  for (int k = 0; k < NT; ++k) row.C[k] = __ldg(C + lay(n, k, c, NT));
+}
+
+// m = b + A m, P = C + A P A', each sum in the twin's order.
+template <int Q, class T>
+__device__ __forceinline__ void chain_step(const ChainRow<T, Q>& row, T (&m)[Q],
+                                           T (&P)[Tri<Q>::N]) {
+  constexpr int NT = Tri<Q>::N;
+  T m_out[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    T acc = row.b[i];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) acc = acc + row.A[i][j] * m[j];
+    m_out[i] = acc;
+  }
+  T apa[NT];
+  sym_quadform<Q>(row.A, P, apa);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) P[k] = row.C[k] + apa[k];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) m[i] = m_out[i];
+}
+
+// The smoother's recursion from the carry (m, P), the seed, down through
+// rows n_steps-1 .. 0, calling store(n, m, P) after each row.  The loads of
+// a row do not depend on the carry, so the loop issues the loads of UNROLL
+// rows before it computes them, which keeps UNROLL rows in flight.
+template <int Q, int UNROLL, class Layout, class Store>
+__device__ __forceinline__ void smoother_recursion(int n_steps, const Layout& lay, size_t c,
+                                                   const float* __restrict__ g,
+                                                   const float* __restrict__ G,
+                                                   const float* __restrict__ L,
+                                                   float (&m)[Q], float (&P)[Tri<Q>::N],
+                                                   Store store) {
+  int n = n_steps - 1;
+  for (; n >= UNROLL - 1; n -= UNROLL) {
+    ChainRow<float, Q> rows[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) load_chain_row<Q>(n - u, lay, c, G, g, L, rows[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      chain_step<Q>(rows[u], m, P);
+      store(n - u, m, P);
+    }
+  }
+  for (; n >= 0; --n) {
+    ChainRow<float, Q> row;
+    load_chain_row<Q>(n, lay, c, G, g, L, row);
+    chain_step<Q>(row, m, P);
+    store(n, m, P);
+  }
+}
+
+}  // namespace rodeo

@@ -11,23 +11,25 @@
 // Design.  The backward chain and the observation model are block-diagonal,
 // so one thread carries one (block, lane) column: m (Q floats), the packed
 // P (Tri<Q>::N floats) and its block's log-density sum, in registers through
-// all N steps of one launch, as K2 (smoother_batch.cu) does.  That gives
+// all N steps of one launch, as K2r (smoother_batch_rows.cu) does.  That gives
 // NB x B threads (6144 at 3 blocks x 2048 lanes) where one thread per lane
 // would give B.  Each thread writes its block's sum to (NB, B); the wrapper
-// adds the blocks in block order.  The step (fenrir_step.cuh) is shared with
-// the tangent kernel K11b.  The chain (A, b, C) is (N, d, NB, B) with
-// lanes innermost, so a warp reads 32 neighbouring floats; the observation
-// grid (N, .., NB) is shared by all lanes and comes from cache.  The TPU
-// kernel's chunk grid and lane fold are gone.
+// adds the blocks in block order.  The step and the loop (fenrir_step.cuh)
+// are shared with the single-solve K7a and, the step, with the tangent
+// kernel K11b.  The chain (A, b, C) is (N, d, NB, B) with lanes innermost,
+// so a warp reads 32 neighbouring floats; the observation grid (N, .., NB)
+// is shared by all lanes and comes from cache.  The TPU kernel's chunk grid
+// and lane fold are gone.
 //
 // What bounds it on the card.  Each step reads 18 floats per column (A 9,
 // b 3, C 6) for ~200 float operations, and writes nothing: a streaming
 // kernel bound by device-memory bandwidth (18 x 4 B x N x NB x B, 1.77 GB at
 // 4000 steps x 3 blocks x 2048 lanes).  The loads of a step do not depend on
-// the carry, so the loop issues the loads of kUnroll steps before it
-// computes them, which keeps kUnroll steps of loads in flight per thread.
+// the carry, so the loop issues the loads of kFenrirUnroll steps before it
+// computes them, which keeps that many steps of loads in flight per thread.
 #include <cuda_runtime.h>
 
+#include "chain_step.cuh"
 #include "fenrir_step.cuh"
 #include "kalman_cols.cuh"
 
@@ -61,21 +63,8 @@ __global__ void __launch_bounds__(kFenrirThreads)
 #pragma unroll
   for (int k = 0; k < NT; ++k) P[k] = p_seed[k * n_col + c];
   float ld = 0.0f;
-
-  int n = n_steps - 1;
-  for (; n >= kFenrirUnroll - 1; n -= kFenrirUnroll) {
-    ChainRow<float, Q> rows[kFenrirUnroll];
-#pragma unroll
-    for (int u = 0; u < kFenrirUnroll; ++u) load_chain_row<Q>(n - u, n_col, c, A, b, C, rows[u]);
-#pragma unroll
-    for (int u = 0; u < kFenrirUnroll; ++u)
-      fenrir_step<Q>(n - u, n_block, blk, rows[u], d, y, om, mask, m, P, ld);
-  }
-  for (; n >= 0; --n) {
-    ChainRow<float, Q> row;
-    load_chain_row<Q>(n, n_col, c, A, b, C, row);
-    fenrir_step<Q>(n, n_block, blk, row, d, y, om, mask, m, P, ld);
-  }
+  fenrir_recursion<Q, kFenrirUnroll>(n_steps, BatchLayout{n_col}, c, n_block, blk, A, b, C,
+                                     d, y, om, mask, m, P, ld);
   ld_blocks[c] = ld;
 }
 

@@ -1,4 +1,4 @@
-// K11e: the tangent twin of K2's mean recursion,
+// K11e: the tangent twin of the smoother's mean recursion (K2r's),
 //   m_n = g_n + G_n m_{n+1},
 //   dm_n = dg_n + dG_n m_{n+1} + G_n dm_{n+1}  (each tangent direction),
 // from the terminal values down to row 0.  Covariances are not carried: the
@@ -8,7 +8,7 @@
 // _smoother_mean_kernel_batch_tan.  Plain PyTorch twin:
 // _smoother_mean_tan_plain in ops/fused_kalman.py.
 //
-// Design.  K2's design: one thread per (block, lane) column and tangent
+// Design.  K2r's design: one thread per (block, lane) column and tangent
 // direction carries the mean and its tangent (2 Q floats) in registers
 // through all T steps of one launch.  A CTA holds kTanCols columns x n_tan
 // directions, so the threads of one column read the same value rows (the
@@ -22,7 +22,7 @@
 // column at NAUG = 4 (values and tangents of g, G, m): a streaming kernel
 // bound by device-memory bandwidth (5.9 GB at 3999 steps x 3 blocks x 2048
 // lanes, 1.76 ms at 3.35 TB/s).  The loads of kTanUnroll steps are issued
-// before they are used, as in K2.
+// before they are used, as in K2r.
 #include <cuda_runtime.h>
 
 namespace rodeo {

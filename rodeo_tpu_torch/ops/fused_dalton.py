@@ -26,13 +26,12 @@ import ctypes
 
 import torch
 
-from rodeo_tpu_torch.ops import _build
 from rodeo_tpu_torch.ops.dual import Dual, constant, rows, seed_directions
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _FUNCTORS, _KERNEL_Q, _LOG2PI, _MODES, _block_sum, _check, _cuda_device,
-    _fused_inputs, _interrogate_update_cols, _kernel_operands,
-    _masked_obs_update_cols, _pack_tri, _predict_cols, _raise_on_error,
-    _tri_idx, resolve_model)
+    _FUNCTORS, _LOG2PI, _MODES, _block_sum, _check, _check_mode,
+    _fused_inputs, _host_qconst, _interrogate_update_cols, _kernel_operands,
+    _launch, _masked_obs_update_cols, _pack_tri, _predict_cols, _tri_idx,
+    resolve_model)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
 __all__ = ["dalton_fused_batch", "dalton_fused_batch_grad",
@@ -149,10 +148,7 @@ def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
     """K8 (``tangent`` False) or K11c: check the operands, take the twin
     for CPU tensors, else launch the kernel."""
     model = resolve_model(model)
-    if mode not in _MODES:
-        raise NotImplementedError(
-            f"fused interrogation {mode!r} is not ported; expected one of "
-            f"{sorted(_MODES)}")
+    _check_mode(mode)
     q, n_block, n_lane = x0_lanes.shape
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
@@ -177,24 +173,14 @@ def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
     if device.type == "cpu":
         return (_dalton_filter_tan_plain if tangent
                 else _dalton_filter_plain)(*args)
-    _cuda_device(device)
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the DALTON kernel is instantiated for q={_KERNEL_Q}, got {q}")
-    lib = _build.load()
     ld = torch.empty_like(ld0)
-    qc = (ctypes.c_float * (q * q))(*[v for row in q_const for v in row])
-    name = "dalton_filter_batch_tan" if tangent else "dalton_filter_batch"
-    with torch.cuda.device(device):
-        err = getattr(lib, f"rodeo_{name}")(
-            _FUNCTORS[model.cuda_functor], _MODES[mode], int(with_obs),
-            n_steps, n_lane, ctypes.addressof(qc), R_packed.data_ptr(),
-            ode_weight.data_ptr(), t_vec.data_ptr(), x0_lanes.data_ptr(),
-            theta_lanes.data_ptr(), tgrid.data_ptr(), d.data_ptr(),
-            y.data_ptr(), om.data_ptr(), mask.data_ptr(), ld0.data_ptr(),
-            ld.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES,
+            "dalton_filter_batch_tan" if tangent else "dalton_filter_batch",
+            q, device, _FUNCTORS[model.cuda_functor], _MODES[mode],
+            int(with_obs), n_steps, n_lane, ctypes.addressof(qc), R_packed,
+            ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d, y, om, mask,
+            ld0, ld)
     return ld
 
 

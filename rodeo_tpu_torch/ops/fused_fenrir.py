@@ -1,7 +1,7 @@
 r"""
-Lane-batched fenrir likelihood and its gradient on the GPU (port of the
-batch path of :mod:`rodeo_tpu.ops.pallas_fenrir`: ``fenrir_fused_batch``
-and ``fenrir_fused_batch_grad``).
+Fenrir likelihood on the GPU (port of :mod:`rodeo_tpu.ops.pallas_fenrir`:
+the lane-batched ``fenrir_fused_batch`` and ``fenrir_fused_batch_grad``, and
+the single evaluation ``fenrir_fused``).
 
 Fenrir's log-likelihood is a Kalman filter run backwards in time over the
 affine Markov chain that the forward filter leaves behind, with a masked
@@ -25,26 +25,38 @@ on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers in torch, and **K11b**
 ``csrc/fenrir_backward_batch_tan.cu`` (replacing
 ``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents.
 
-The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`, and run
-on Duals it is K11b's (:func:`_fenrir_backward_tan_plain`); the wrappers
-take them only for CPU tensors.  ``LAUNCHES`` counts the launches.
+One evaluation (:func:`fenrir_fused`) follows the JAX package's
+single-solve path: the filter K3
+(:func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter`), the chain and the
+terminal update in dense batched torch, and **K7a**
+``csrc/fenrir_backward_single.cu`` (replacing
+``_backward_kernel_global_mask``), K7b's step on one solve.
+
+The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`, run on
+Duals it is K11b's (:func:`_fenrir_backward_tan_plain`), and on the
+single-solve layout K7a's (:func:`_fenrir_backward_single_plain`); the
+wrappers take them only for CPU tensors.  ``LAUNCHES`` counts the launches.
 """
+import numpy as np
 import torch
 
-from rodeo_tpu_torch.ops import _build
 from rodeo_tpu_torch.ops.dual import rows, split
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _KERNEL_Q, _block_sum, _check, _cuda_device, _fused_inputs,
-    _kernel_operands, _masked_obs_update_cols, _raise_on_error, _sym_quadform,
-    _tri_idx, fused_filter_batch, fused_filter_batch_tan)
+    _LOG2PI, _block_sum, _check, _fused_inputs, _kernel_operands, _launch,
+    _masked_obs_update_cols, _pack_tri, _single_operands, _sym_quadform,
+    _tri_idx, fused_filter, fused_filter_batch, fused_filter_batch_tan,
+    unpack_cov)
+from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
-__all__ = ["fenrir_fused_batch", "fenrir_fused_batch_grad",
-           "fenrir_backward_batch", "fenrir_backward_batch_tan", "LAUNCHES"]
+__all__ = ["fenrir_fused_batch", "fenrir_fused_batch_grad", "fenrir_fused",
+           "fenrir_backward_batch", "fenrir_backward_batch_tan",
+           "fenrir_backward_single", "LAUNCHES"]
 
 # kernel launches since the last reset
-LAUNCHES = {"fenrir_backward_batch": 0, "fenrir_backward_batch_tan": 0}
+LAUNCHES = {"fenrir_backward_batch": 0, "fenrir_backward_batch_tan": 0,
+            "fenrir_backward_single": 0}
 
 
 # --- K7b: reverse filter over the backward chain ------------------------------------
@@ -169,28 +181,76 @@ def _fenrir_backward(n_tan, A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
             ld_blocks = _fenrir_backward_plain(A, b, C, d, y, om, mask,
                                                m_seed, p_seed)
     else:
-        _cuda_device(device)
-        if q != _KERNEL_Q:
-            raise NotImplementedError(
-                f"the fenrir kernel is instantiated for q={_KERNEL_Q}, "
-                f"got {q}")
-        lib = _build.load()
-        kernel = "fenrir_backward_batch_tan" if n_tan \
-            else "fenrir_backward_batch"
         ld_blocks = m_seed.new_empty(
             (n_aug, n_block, n_lane) if n_tan else (n_block, n_lane))
         sizes = (n_steps, n_block, n_lane) + ((n_tan,) if n_tan else ())
-        with torch.cuda.device(device):
-            err = getattr(lib, f"rodeo_{kernel}")(
-                *sizes, A.data_ptr(), b.data_ptr(), C.data_ptr(),
-                d.data_ptr(), y.data_ptr(), om.data_ptr(), mask.data_ptr(),
-                m_seed.data_ptr(), p_seed.data_ptr(), ld_blocks.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
-        _raise_on_error(kernel, err)
-        LAUNCHES[kernel] += 1
+        _launch(LAUNCHES, "fenrir_backward_batch_tan" if n_tan
+                else "fenrir_backward_batch", q, device, *sizes, A, b, C, d,
+                y, om, mask, m_seed, p_seed, ld_blocks)
     # one thread per (block, lane) column sums its block; the blocks are
     # added here, in block order
     return ld0 + _block_sum(ld_blocks.movedim(-2, 0))
+
+
+# --- K7a: the single-solve reverse filter ------------------------------------------
+
+
+def _fenrir_backward_single_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
+    """Plain PyTorch twin of ``csrc/fenrir_backward_single.cu``: K7b's twin
+    with each block a column, on transposed views.  Returns each block's
+    log-density sum ``(n_block,)``."""
+    def lanes(a):
+        return a.permute(0, 2, 1)[..., None]
+
+    return _fenrir_backward_plain(lanes(A), lanes(b), lanes(C), d, y, om,
+                                  mask, m_seed.T[..., None],
+                                  p_seed.T[..., None])[:, 0]
+
+
+def fenrir_backward_single(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
+    r"""
+    Single-solve backward filter of fenrir (kernel K7a): as
+    :func:`fenrir_backward_batch` on one solve, the chain in the JAX
+    package's layout.
+
+    Args:
+        A (Tensor(N, n_block, q*q)), b (Tensor(N, n_block, q)),
+            C (Tensor(N, n_block, n_tri)): The backward chain of steps
+            0..N-1.
+        d (Tensor(N, q, n_block)), y (Tensor(N, n_block)),
+            om (Tensor(N, n_block)), mask (Tensor(N,)): The observation
+            grid of steps 0..N-1.
+        m_seed (Tensor(n_block, q)), p_seed (Tensor(n_block, n_tri)): The
+            state at step N after its observation update.
+        ld0 (Tensor()): The log-density of step N's observation.
+
+    Returns:
+        (Tensor()): ``ld0`` plus the log-density of steps 0..N-1, each
+        block summed over the steps, then the blocks added in block order.
+    """
+    n_steps, n_block, q = b.shape
+    n_tri = q * (q + 1) // 2
+    device = b.device
+    for name, t, shape in (
+            ("A", A, (n_steps, n_block, q * q)),
+            ("b", b, (n_steps, n_block, q)),
+            ("C", C, (n_steps, n_block, n_tri)),
+            ("d", d, (n_steps, q, n_block)),
+            ("y", y, (n_steps, n_block)),
+            ("om", om, (n_steps, n_block)),
+            ("mask", mask, (n_steps,)),
+            ("m_seed", m_seed, (n_block, q)),
+            ("p_seed", p_seed, (n_block, n_tri)),
+            ("ld0", ld0, ())):
+        _check(name, t, shape, device)
+    if device.type == "cpu":
+        ld_blocks = _fenrir_backward_single_plain(A, b, C, d, y, om, mask,
+                                                  m_seed, p_seed)
+    else:
+        ld_blocks = m_seed.new_empty((n_block,))
+        _launch(LAUNCHES, "fenrir_backward_single", q, device, n_steps,
+                n_block, A, b, C, d, y, om, mask, m_seed, p_seed, ld_blocks)
+    return ld0 + _block_sum(ld_blocks)
 
 
 # --- the likelihood -----------------------------------------------------------------
@@ -288,3 +348,101 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
         fused, n_steps, t_min, t_max, ops, obs_data, obs_times, obs_weight,
         obs_var, interrogation, tangent=True))
     return ld[0], ld[1:].T.contiguous()
+
+
+# --- one evaluation ---------------------------------------------------------------
+
+
+def _const_coefs(prior_weight):
+    """The entries of a transition that is the same for every block, as
+    Python floats holding its float32 values; None otherwise."""
+    qw = prior_weight.detach().cpu().numpy()
+    if not np.all(qw == qw[0]):
+        return None
+    q = qw.shape[-1]
+    return [[float(qw[0, i, j]) for j in range(q)] for i in range(q)]
+
+
+@full_matmul_precision
+def _fenrir_single_operands(fused, n_steps, t_min, t_max, ops, Qs, obs_data,
+                            obs_times, obs_weight, obs_var, mode):
+    """The operands of K7a for one evaluation, as ``pallas_fenrir.
+    fenrir_fused`` builds them: the forward filter (K3) on ``ops``
+    (:func:`~rodeo_tpu_torch.ops.fused_kalman._single_operands`); the chain
+    of steps 0..N-1 in dense torch, ``A = Pf Q' Pp^{-1}``, ``b = mf - A mp``
+    and the Joseph-form ``C``, symmetrised, step 0 from the exact initial
+    state; the observation grid; and the masked update at step N.  TF32
+    stays off.  Returns the arguments of :func:`fenrir_backward_single` in
+    order."""
+    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=mode)
+    n_block, q = ops["x0"].shape
+    pairs, _ = _tri_idx(q)
+    Rs = ops["prior_var"]
+    eye = torch.eye(q, dtype=mf.dtype, device=mf.device)
+    mf_full = torch.cat([ops["x0"][None], mf[:-1]])        # steps 0..N-1
+    Pf = unpack_cov(torch.cat([pf.new_zeros((1,) + pf.shape[1:]), pf[:-1]]))
+    Pp = unpack_cov(pp)                                     # steps 1..N
+    A = (Pf @ Qs.mT) @ inv_small(Pp)
+    b = mf_full - torch.einsum("...ij,...j->...i", A, mp)
+    IAQ = eye - A @ Qs
+    C = IAQ @ Pf @ IAQ.mT + A @ Rs @ A.mT
+    C = 0.5 * (C + C.mT)
+    obs_ind = obs_indices(t_min, t_max, n_steps, obs_times)
+    d, y, om, mask = dense_obs_grid(
+        obs_ind, n_steps, ops["t_vec"], torch.as_tensor(obs_data),
+        torch.as_tensor(obs_weight), torch.as_tensor(obs_var))
+    # the masked update at step N, whose result seeds the chain
+    mN, PN = mf[-1], unpack_cov(pf[-1])
+    DN, omN, maskN = d[n_steps].T, om[n_steps][:, None], mask[n_steps]
+    PD = (PN @ DN[..., None])[..., 0]
+    SN = torch.sum(DN * PD, dim=-1, keepdim=True) + omN
+    zN = y[n_steps][:, None] - torch.sum(DN * mN, dim=-1, keepdim=True)
+    ld0 = maskN * (-0.5) * torch.sum(zN * zN / SN + torch.log(SN) + _LOG2PI)
+    KN = PD / SN * maskN
+    IKD = eye - KN[..., None] * DN[:, None, :]
+    P_seed = IKD @ PN @ IKD.mT + (KN[..., None] * omN[..., None]) \
+        * KN[:, None, :]
+    return (A.reshape(n_steps, n_block, q * q).contiguous(), b.contiguous(),
+            _pack_tri(C, pairs).contiguous(), d[:n_steps].contiguous(),
+            y[:n_steps].contiguous(), om[:n_steps].contiguous(),
+            mask[:n_steps].contiguous(), (mN + KN * zN).contiguous(),
+            _pack_tri(0.5 * (P_seed + P_seed.mT), pairs).contiguous(), ld0)
+
+
+def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
+                 prior_pars, obs_data, obs_times, obs_weight, obs_var, model,
+                 interrogation="kramer", kalman_type="standard", device=None):
+    r"""
+    Fenrir log-likelihood of one parameter vector (the latency path),
+    through kernels K3 (the filter) and K7a (the backward filter) on the
+    CUDA card, their plain twins with ``device="cpu"``.  As the JAX
+    package's ``fenrir_fused``, the filter takes its transition from the
+    float32 scaled prior.
+
+    Args:
+        theta (Tensor(n_theta,)): Parameters.
+        ode_init (Tensor(n_block, q)): Initial state (original
+            coordinates).
+        obs_data, obs_times, obs_weight, obs_var: As
+            :func:`fenrir_fused_batch`.
+        (other args as
+        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused`)
+
+    Returns:
+        (Tensor()): The log-likelihood, float32.
+    """
+    fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
+        theta, ode_weight, ode_init, prior_pars, model, interrogation,
+        kalman_type, device)
+    if obs_weight.shape[2] != 1:
+        raise NotImplementedError("fenrir_fused requires n_bobs == 1")
+    ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
+                               n_steps, prior_pars)
+    ops["q_const"] = _const_coefs(Qs)
+    if ops["q_const"] is None:
+        raise NotImplementedError(
+            "fenrir_fused requires the same transition for every block "
+            "(e.g. ibm_init)")
+    return fenrir_backward_single(*_fenrir_single_operands(
+        fused, n_steps, t_min, t_max, ops, Qs, obs_data, obs_times,
+        obs_weight, obs_var, interrogation))

@@ -1,10 +1,12 @@
 r"""
-Lane-batched fused solve on the GPU (port of the batch path of
-:mod:`rodeo_tpu.ops.pallas_kalman`: ``fused_filter_batch(emit="gains")``,
-``smoother_recursion_batch``, ``solve_mv_fused_batch`` and
-``basic_fused_batch``, and their gradients ``solve_mv_fused_batch_grad`` and
-``basic_fused_batch_grad``), and the column algebra that the likelihood and
-sampling modules beside it share.
+Fused solve on the GPU (port of :mod:`rodeo_tpu.ops.pallas_kalman`): the
+lane-batched path (``fused_filter_batch(emit="gains")``,
+``smoother_recursion_batch_rows``, ``solve_mv_fused_batch`` and
+``basic_fused_batch``, and their gradients ``solve_mv_fused_batch_grad``
+and ``basic_fused_batch_grad``), the single-solve path (``fused_filter``,
+``fused_smoother``, ``fused_smoother_composed`` and ``solve_mv_fused``),
+and the column algebra that the likelihood and sampling modules beside it
+share.
 
 ``B`` independent solves (parameter candidates, MCMC chains) ride one pair
 of kernels, batched along a trailing lane axis:
@@ -12,23 +14,44 @@ of kernels, batched along a trailing lane axis:
 - **K1** ``csrc/filter_batch.cu`` replaces ``_filter_kernel_batch``: the
   whole forward EK1 / EK0 filter, the ODE right-hand side evaluated inside
   the kernel, emitting the per-step smoothing gains ``(G, g, L)``;
-- **K2** ``csrc/smoother_batch.cu`` replaces ``_smoother_kernel_batch``:
-  the reverse affine recursion ``m_n = g_n + G_n m_{n+1}``,
-  ``P_n = L_n + G_n P_{n+1} G_n'``;
+- **K2r** ``csrc/smoother_batch_rows.cu`` replaces
+  ``_smoother_kernel_batch`` and ``_smoother_kernel_batch_rows``: the
+  reverse affine recursion ``m_n = g_n + G_n m_{n+1}``,
+  ``P_n = L_n + G_n P_{n+1} G_n'``, writing the public rows, scaled, with
+  the boundary rows as synthetic elements.  The JAX package runs the bare
+  recursion and assembles the rows in XLA, because its rows kernel does
+  not lower well on the TPU; on the card one kernel does both;
 - **K11a** ``csrc/filter_batch_tan.cu`` replaces
   ``pallas_fenrir._filter_kernel_batch_tan`` (``emit="gains"``): K1 carrying
   the tangents of its state along each theta direction (forward mode);
 - **K11e** ``csrc/smoother_mean_batch_tan.cu`` replaces
-  ``_smoother_mean_kernel_batch_tan``: K2's mean recursion with tangents.
+  ``_smoother_mean_kernel_batch_tan``: the mean recursion with tangents.
+
+One solve (the latency path) runs two kernels in the JAX package's
+``(N, n_block, d)`` layout:
+
+- **K3** ``csrc/filter_single.cu`` replaces ``_filter_kernel``: K1's step
+  on one solve, storing the filtered and predicted moments of every step;
+- **K4** ``csrc/smoother_single.cu`` replaces
+  ``_smoother_recursion_kernel``: the reverse recursion over gains computed
+  in batched torch, over every step (``fused_smoother``) or over the
+  boundary steps of exact k-step compositions
+  (``fused_smoother_composed``).
+
+The TPU entry points' ``chunk=`` and ``unroll=`` set the size of the TPU's
+grid steps and its loop unrolling; a CUDA kernel loops over all steps
+inside a thread, so the port does not take them.
 
 Each kernel has a plain PyTorch twin here (``_filter_batch_plain``,
-``_smoother_batch_plain``, ``_filter_batch_tan_plain``,
-``_smoother_mean_tan_plain``): the same algebra, operation for operation,
-on ``(n_block, B)`` columns with a Python loop over steps.  K11a's twin is
-K1's run on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers, whose rules
-the kernel applies in the same order (``csrc/dual.cuh``).  A wrapper takes
-the twin only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises.  ``LAUNCHES`` counts the kernel launches.
+``_smoother_batch_rows_plain``, ``_filter_batch_tan_plain``,
+``_smoother_mean_tan_plain``, ``_filter_single_plain``,
+``_smoother_single_plain``): the same algebra,
+operation for operation, on ``(n_block, B)`` columns with a Python loop
+over steps.  K11a's twin is K1's run on
+:class:`~rodeo_tpu_torch.ops.dual.Dual` numbers, whose rules the kernel
+applies in the same order (``csrc/dual.cuh``).  A wrapper takes the twin
+only for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises.  ``LAUNCHES`` counts the kernel launches.
 
 The kernels work in float32 in the Taylor-scaled coordinates of
 :mod:`rodeo_tpu_torch.ops.precond`, with the Joseph-form update, as the
@@ -47,18 +70,22 @@ from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.ops import _build
 from rodeo_tpu_torch.ops.dual import Dual, constant, primal, seed_directions
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
+from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 from rodeo_tpu_torch.ops.precond import taylor_scale, scale_prior
 
-__all__ = ["fused_filter_batch", "smoother_recursion_batch",
+__all__ = ["fused_filter_batch", "smoother_recursion_batch_rows",
            "fused_filter_batch_tan", "smoother_mean_recursion_batch_tan",
-           "solve_mv_fused_batch", "basic_fused_batch",
-           "solve_mv_fused_batch_grad", "basic_fused_batch_grad",
+           "solve_mv_fused_batch",
+           "basic_fused_batch", "solve_mv_fused_batch_grad",
+           "basic_fused_batch_grad", "fused_filter", "smoother_recursion",
+           "fused_smoother", "fused_smoother_composed", "solve_mv_fused",
            "resolve_kalman_type", "unpack_cov", "LAUNCHES"]
 
 # kernel launches since the last reset, by kernel
-LAUNCHES = {"filter_batch": 0, "smoother_batch": 0, "filter_batch_tan": 0,
-            "smoother_mean_batch_tan": 0}
+LAUNCHES = {"filter_batch": 0, "smoother_batch_rows": 0,
+            "filter_batch_tan": 0, "smoother_mean_batch_tan": 0,
+            "filter_single": 0, "smoother_single": 0}
 
 # interrogation modes and model functors, numbered as the C entry point
 # rodeo_filter_batch (csrc/filter_batch.cu) numbers them
@@ -418,18 +445,33 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _cuda_device(device):
+def _launch(counts, kernel, q, device, *args):
+    """Launch the C entry point ``rodeo_<kernel>`` on ``device``'s current
+    stream, a tensor argument passed as its data pointer; raise if the
+    launch failed, else add one to ``counts[kernel]``."""
     if device.type != "cuda":
         raise NotImplementedError(
             f"the fused kernels run on CUDA tensors (plain PyTorch on CPU "
             f"tensors); got a tensor on {device}")
-    return device
-
-
-def _raise_on_error(kernel, err):
+    if q != _KERNEL_Q:
+        raise NotImplementedError(
+            f"the {kernel} kernel is instantiated for q={_KERNEL_Q}, got {q}")
+    lib = _build.load()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, f"rodeo_{kernel}")(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{_build.error_string(err)} (code {err})")
+    counts[kernel] += 1
+
+
+def _check_mode(mode):
+    if mode not in _MODES:
+        raise NotImplementedError(
+            f"fused interrogation {mode!r} is not ported; expected one of "
+            f"{sorted(_MODES)}")
 
 
 # --- K1: forward filter emitting smoothing gains ------------------------------
@@ -600,10 +642,7 @@ def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
     """K1 (``tangent`` False) or K11a: check the operands, take the twin
     for CPU tensors, else launch the kernel."""
     model = resolve_model(model)
-    if mode not in _MODES:
-        raise NotImplementedError(
-            f"fused interrogation {mode!r} is not ported; expected one of "
-            f"{sorted(_MODES)}")
+    _check_mode(mode)
     q, n_block, n_lane = x0_lanes.shape
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
@@ -622,38 +661,46 @@ def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
     if device.type == "cpu":
         return (_filter_batch_tan_plain if tangent
                 else _filter_batch_plain)(*args)
-    _cuda_device(device)
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the filter kernel is instantiated for q={_KERNEL_Q}, got {q}")
-    lib = _build.load()
     n_aug = 1 + model.n_theta if tangent else 1
     G = x0_lanes.new_empty((n_steps, n_aug * q * q, n_block, n_lane))
     g = x0_lanes.new_empty((n_steps, n_aug * q, n_block, n_lane))
     L = x0_lanes.new_empty((n_steps, n_aug * n_tri, n_block, n_lane))
     m_last = x0_lanes.new_empty((n_aug * q, n_block, n_lane))
     p_last = x0_lanes.new_empty((n_aug * n_tri, n_block, n_lane))
-    qc = (ctypes.c_float * (q * q))(*[v for row in q_const for v in row])
-    name = "filter_batch_tan" if tangent else "filter_batch"
-    with torch.cuda.device(device):
-        err = getattr(lib, f"rodeo_{name}")(
-            _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps, n_lane,
-            ctypes.addressof(qc), R_packed.data_ptr(), ode_weight.data_ptr(),
-            t_vec.data_ptr(), x0_lanes.data_ptr(), theta_lanes.data_ptr(),
-            tgrid.data_ptr(), G.data_ptr(), g.data_ptr(), L.data_ptr(),
-            m_last.data_ptr(), p_last.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES, "filter_batch_tan" if tangent else "filter_batch", q,
+            device, _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps,
+            n_lane, ctypes.addressof(qc), R_packed, ode_weight, t_vec,
+            x0_lanes, theta_lanes, tgrid, G, g, L, m_last, p_last)
     return G, g, L, m_last, p_last
 
 
-# --- K2: reverse affine recursion ------------------------------------------------
+def _host_qconst(q_const):
+    """The scaled transition as a row-major float32 array in host memory,
+    as the filter kernels take it."""
+    flat = [v for row in q_const for v in row]
+    return (ctypes.c_float * len(flat))(*flat)
+
+
+# --- the reverse recursion in columns --------------------------------------------
 
 
 def _smoother_batch_plain(g_k, G_k, L_k, mN, pN):
-    """Plain PyTorch twin of ``csrc/smoother_batch.cu``.  Arguments and
-    returns as :func:`smoother_recursion_batch`."""
+    """The reverse recursion ``m_n = g_n + G_n m_{n+1}``, ``P_n = L_n + G_n
+    P_{n+1} G_n'`` on lane-batched columns, from the terminal ``(mN, pN)``
+    down to row 0, one Python iteration per row: the arithmetic of
+    ``csrc/chain_step.cuh``'s loop, which the twins of K2r and K4 run.
+
+    Args:
+        g_k (Tensor(T, q, n_block, B)): Offsets.
+        G_k (Tensor(T, q*q, n_block, B)): Gains, row-major.
+        L_k (Tensor(T, n_tri, n_block, B)): Packed noise terms.
+        mN, pN: Terminal values ``(q, n_block, B)`` / ``(n_tri, n_block,
+            B)``.
+
+    Returns:
+        (tuple): ``ms (T, q, n_block, B)``, ``ps (T, n_tri, n_block, B)``.
+    """
     n_len, q = g_k.shape[:2]
     _, where = _tri_idx(q)
     ms = torch.empty_like(g_k)
@@ -675,21 +722,52 @@ def _smoother_batch_plain(g_k, G_k, L_k, mN, pN):
     return ms, ps
 
 
-def smoother_recursion_batch(g_k, G_k, L_k, mN, pN):
+# --- K2r: the reverse recursion writing the public rows ------------------------------
+
+
+def _smoother_batch_rows_plain(g_k, G_k, L_k, mN, pN, m0, m_scales,
+                               p_scales):
+    """Plain PyTorch twin of ``csrc/smoother_batch_rows.cu``: the recursion
+    (:func:`_smoother_batch_plain`) over the gains with the synthetic
+    boundary elements, a trailing ``(G=0, g=mN, L=pN)`` and a leading
+    ``(G=0, g=m0, L=0)``, from a zero carry; then each row scaled and laid
+    out as the public rows.  Arguments and returns as
+    :func:`smoother_recursion_batch_rows`."""
+    zero_G = G_k.new_zeros((1,) + G_k.shape[1:])
+    zero_L = L_k.new_zeros((1,) + L_k.shape[1:])
+    ms, ps = _smoother_batch_plain(
+        torch.cat([m0[None], g_k, mN[None]]),
+        torch.cat([zero_G, G_k, zero_G]),
+        torch.cat([zero_L, L_k, pN[None]]),
+        torch.zeros_like(mN), torch.zeros_like(pN))
+    return ((ms * m_scales[:, None, None]).permute(0, 2, 1, 3).contiguous(),
+            (ps * p_scales[:, None, None]).permute(0, 2, 1, 3).contiguous())
+
+
+def smoother_recursion_batch_rows(g_k, G_k, L_k, mN, pN, m0, m_scales,
+                                  p_scales):
     r"""
-    Lane-batched backward affine recursion (kernel K2)
-    ``m_n = g_n + G_n m_{n+1}``, ``P_n = L_n + G_n P_{n+1} G_n'``, from the
-    terminal ``(mN, pN)`` down to row 0.
+    Lane-batched backward affine recursion emitting the public rows of the
+    solve (kernel K2r): rows ``0 .. N`` of ``solve_mv_fused_batch``'s
+    output in one pass, scaled to original coordinates.  The terminal row
+    is ``(mN, pN)``, the initial one ``(m0, 0)``; the rows between are the
+    reverse recursion ``m_n = g_n + G_n m_{n+1}``, ``P_n = L_n + G_n P_{n+1}
+    G_n'`` over the gains, each multiplied by its scale.
 
     Args:
-        g_k (Tensor(T, q, n_block, B)): Offsets.
-        G_k (Tensor(T, q*q, n_block, B)): Gains, row-major.
-        L_k (Tensor(T, n_tri, n_block, B)): Packed noise terms.
-        mN, pN: Terminal values ``(q, n_block, B)`` / ``(n_tri, n_block,
-            B)``.
+        g_k (Tensor(T, q, n_block, B)), G_k (Tensor(T, q*q, n_block, B)),
+            L_k (Tensor(T, n_tri, n_block, B)): The offsets, row-major gains
+            and packed noise terms of rows ``1 .. N-1`` (``T = N - 1``).
+        mN (Tensor(q, n_block, B)), pN (Tensor(n_tri, n_block, B)): The
+            last filtered state.
+        m0 (Tensor(q, n_block, B)): The initial state.
+        m_scales (Tensor(q,)): Mean scale of each derivative (``t_vec``).
+        p_scales (Tensor(n_tri,)): Scale of each packed covariance entry
+            (``t_vec[i] * t_vec[j]``).
 
     Returns:
-        (tuple): ``ms (T, q, n_block, B)``, ``ps (T, n_tri, n_block, B)``.
+        (tuple): **mean** ``(T+2, n_block, q, B)`` and packed **cov**
+        ``(T+2, n_block, n_tri, B)``, lanes innermost.
     """
     n_len, q, n_block, n_lane = g_k.shape
     n_tri = q * (q + 1) // 2
@@ -699,25 +777,20 @@ def smoother_recursion_batch(g_k, G_k, L_k, mN, pN):
             ("G_k", G_k, (n_len, q * q, n_block, n_lane)),
             ("L_k", L_k, (n_len, n_tri, n_block, n_lane)),
             ("mN", mN, (q, n_block, n_lane)),
-            ("pN", pN, (n_tri, n_block, n_lane))):
+            ("pN", pN, (n_tri, n_block, n_lane)),
+            ("m0", m0, (q, n_block, n_lane)),
+            ("m_scales", m_scales, (q,)),
+            ("p_scales", p_scales, (n_tri,))):
         _check(name, t, shape, device)
     if device.type == "cpu":
-        return _smoother_batch_plain(g_k, G_k, L_k, mN, pN)
-    _cuda_device(device)
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the smoother kernel is instantiated for q={_KERNEL_Q}, got {q}")
-    lib = _build.load()
-    ms = torch.empty_like(g_k)
-    ps = torch.empty_like(L_k)
-    with torch.cuda.device(device):
-        err = lib.rodeo_smoother_batch(
-            n_len, n_block * n_lane, g_k.data_ptr(), G_k.data_ptr(),
-            L_k.data_ptr(), mN.data_ptr(), pN.data_ptr(), ms.data_ptr(),
-            ps.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error("smoother_batch", err)
-    LAUNCHES["smoother_batch"] += 1
-    return ms, ps
+        return _smoother_batch_rows_plain(g_k, G_k, L_k, mN, pN, m0,
+                                          m_scales, p_scales)
+    mean = g_k.new_empty((n_len + 2, n_block, q, n_lane))
+    cov = g_k.new_empty((n_len + 2, n_block, n_tri, n_lane))
+    _launch(LAUNCHES, "smoother_batch_rows", q, device, n_len, n_block,
+            n_lane, g_k, G_k, L_k, mN, pN, m0,
+            torch.cat([m_scales, p_scales]), mean, cov)
+    return mean, cov
 
 
 # --- K11e: the mean recursion with tangents ------------------------------------------
@@ -725,7 +798,7 @@ def smoother_recursion_batch(g_k, G_k, L_k, mN, pN):
 
 def _smoother_mean_tan_plain(g_aug, G_aug, mN_aug, n_tan):
     """Plain PyTorch twin of ``csrc/smoother_mean_batch_tan.cu``: the value
-    as in K2, each tangent ``dg + dG m + G dm`` in the kernel's order, all
+    as in K2r, each tangent ``dg + dG m + G dm`` in the kernel's order, all
     directions at once along a leading axis.  Arguments and returns as
     :func:`smoother_mean_recursion_batch_tan`."""
     n_len, d_aug, n_block, n_lane = g_aug.shape
@@ -783,19 +856,9 @@ def smoother_mean_recursion_batch_tan(g_aug, G_aug, mN_aug, n_tan):
         _check(name, t, shape, device)
     if device.type == "cpu":
         return _smoother_mean_tan_plain(g_aug, G_aug, mN_aug, n_tan)
-    _cuda_device(device)
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the smoother kernel is instantiated for q={_KERNEL_Q}, got {q}")
-    lib = _build.load()
     ms = torch.empty_like(g_aug)
-    with torch.cuda.device(device):
-        err = lib.rodeo_smoother_mean_batch_tan(
-            n_len, n_block * n_lane, n_tan, g_aug.data_ptr(),
-            G_aug.data_ptr(), mN_aug.data_ptr(), ms.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error("smoother_mean_batch_tan", err)
-    LAUNCHES["smoother_mean_batch_tan"] += 1
+    _launch(LAUNCHES, "smoother_mean_batch_tan", q, device, n_len,
+            n_block * n_lane, n_tan, g_aug, G_aug, mN_aug, ms)
     return ms
 
 
@@ -838,10 +901,7 @@ def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
     if resolve_kalman_type(kalman_type) == "sqrt":
         raise NotImplementedError(
             "kalman_type='sqrt' is not ported to the fused path yet")
-    if interrogation not in _MODES:
-        raise NotImplementedError(
-            f"fused interrogation {interrogation!r} is not ported; expected "
-            f"one of {sorted(_MODES)}")
+    _check_mode(interrogation)
     if n_bmeas != 1:
         raise NotImplementedError("the fused kernels require n_bmeas == 1")
     if q != _KERNEL_Q:
@@ -858,8 +918,8 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
                          kalman_type="standard", device=None):
     r"""
     Lane-batched fused solve: ``B`` independent solves of one model with
-    per-lane parameters and initial states, through kernels K1 and K2 on the
-    CUDA card (their plain twins with ``device="cpu"``).
+    per-lane parameters and initial states, through kernels K1 and K2r on
+    the CUDA card (their plain twins with ``device="cpu"``).
 
     Args:
         thetas (Tensor(B, n_theta)): Per-lane parameters.
@@ -888,33 +948,23 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
         kalman_type, device)
-    n_block, _, q = ode_weight.shape
-    n_lane = thetas.shape[0]
-    pairs, _ = _tri_idx(q)
-    n_tri = len(pairs)
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
                            n_steps, prior_pars)
     A_k, b_k, C_k, m_last, p_last = fused_filter_batch(
         fused, n_steps, **ops, mode=interrogation)
     # entry 0 of the gains conditions on the exact initial state, which
     # the smoother does not need: its seed is the last filtered state
-    ms, ps = smoother_recursion_batch(b_k[1:], A_k[1:], C_k[1:], m_last,
-                                      p_last)
-    del A_k, b_k, C_k
-    # assemble (N+1, nb, q | n_tri, B) in original coordinates, lanes last;
-    # scaled in place to save one buffer of the output's size
     t_vec = ops["t_vec"]
-    mean_rows = torch.cat([ops["x0_lanes"].permute(1, 0, 2)[None],
-                           ms.permute(0, 2, 1, 3),
-                           m_last.permute(1, 0, 2)[None]])
-    mean_rows *= t_vec[:, None]
-    packed_rows = torch.cat([
-        ps.new_zeros((1, n_block, n_tri, n_lane)),
-        ps.permute(0, 2, 1, 3),
-        p_last.permute(1, 0, 2)[None]])
-    tri_scale = torch.stack([t_vec[i] * t_vec[j] for (i, j) in pairs])
-    packed_rows *= tri_scale[:, None]
-    return mean_rows, packed_rows
+    return smoother_recursion_batch_rows(
+        b_k[1:], A_k[1:], C_k[1:], m_last, p_last, ops["x0_lanes"], t_vec,
+        _tri_scale(t_vec))
+
+
+def _tri_scale(t_vec):
+    """The scale of each packed covariance entry (i, j): the float32
+    product ``t_vec[i] * t_vec[j]``."""
+    pairs, _ = _tri_idx(t_vec.shape[0])
+    return torch.stack([t_vec[i] * t_vec[j] for (i, j) in pairs])
 
 
 def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
@@ -923,7 +973,7 @@ def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                       device=None, **params):
     r"""
     Lane-batched basic likelihood: the fused solve
-    (:func:`solve_mv_fused_batch`, kernels K1 and K2), then the user's
+    (:func:`solve_mv_fused_batch`, kernels K1 and K2r), then the user's
     ``obs_loglik`` at the posterior mean of the observed grid steps, mapped
     over the lane axis.
 
@@ -997,7 +1047,7 @@ def solve_mv_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
                                            n_tan)
     del A_aug, b_aug
     t_vec = ops["t_vec"]
-    # the values as solve_mv_fused_batch assembles them
+    # the values, scaled as K2r scales solve_mv_fused_batch's rows
     mean_rows = torch.cat([ops["x0_lanes"].permute(1, 0, 2)[None],
                            ms[:, :q].permute(0, 2, 1, 3),
                            m_last[:q].permute(1, 0, 2)[None]])
@@ -1038,3 +1088,378 @@ def basic_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     grads = [torch.func.jvp(lls_of, (mean_rows,), (dmean[k],))[1]
              for k in range(dmean.shape[0])]
     return lls_of(mean_rows), torch.stack(grads, dim=-1), mean_rows
+
+
+# --- the single-solve path: K3, K4, the smoothers and solve_mv_fused -------------------
+
+
+def _filter_single_plain(model, n_steps, q_const, prior_var, ode_weight,
+                         t_vec, x0, theta, tgrid, mode):
+    """Plain PyTorch twin of ``csrc/filter_single.cu``: K1's twin step
+    (:func:`_predict_cols`, :func:`_interrogate_update_cols`) on ``(n_block,
+    1)`` columns, one Python iteration per step.  Arguments and returns as
+    :func:`fused_filter` (``model`` resolved)."""
+    n_block, q = x0.shape
+    pairs, where = _tri_idx(q)
+    n_tri = len(pairs)
+    R_packed = _pack_tri(prior_var, pairs)
+    R_cols = [R_packed[:, k:k + 1] for k in range(n_tri)]
+    W_cols = [ode_weight[:, j:j + 1] for j in range(q)]
+    tv_cols = [t_vec[j] for j in range(q)]
+    theta_col = theta[:, None]
+    mf, mp = (x0.new_empty((n_steps, n_block, q)) for _ in range(2))
+    pf, pp = (x0.new_empty((n_steps, n_block, n_tri)) for _ in range(2))
+    m_cols = [x0[:, j:j + 1] for j in range(q)]
+    p_cols = [torch.zeros_like(m_cols[0]) for _ in range(n_tri)]
+    for n in range(n_steps):
+        mp_cols, pp_cols = _predict_cols(q, where, q_const, R_cols, m_cols,
+                                         p_cols)
+        m_cols, p_cols, _, _, _ = _interrogate_update_cols(
+            model, q, pairs, where, W_cols, tv_cols, mp_cols, pp_cols,
+            theta_col, tgrid[n], mode)
+        mp[n] = torch.cat(mp_cols, dim=1)
+        pp[n] = torch.cat(pp_cols, dim=1)
+        mf[n] = torch.cat(m_cols, dim=1)
+        pf[n] = torch.cat(p_cols, dim=1)
+    return mf, pf, mp, pp
+
+
+def fused_filter(model, n_steps, q_const, prior_var, ode_weight, t_vec, x0,
+                 theta, tgrid, mode="kramer"):
+    r"""
+    Single-solve forward filter (kernel K3): the filtered and predicted
+    moments of steps ``1..N``.  All tensors float32, in Taylor-scaled
+    coordinates.
+
+    Args:
+        model, n_steps, q_const, prior_var, ode_weight, t_vec, tgrid, mode:
+            As :func:`fused_filter_batch`.
+        x0 (Tensor(n_block, q)): Scaled initial state.
+        theta (Tensor(n_theta,)): Parameters.
+
+    Returns:
+        (tuple): ``mf (N, n_block, q)``, packed ``pf (N, n_block, n_tri)``,
+        ``mp``, ``pp`` likewise: row ``n`` holds step ``n + 1``.
+    """
+    model = resolve_model(model)
+    _check_mode(mode)
+    n_block, q = x0.shape
+    pairs, _ = _tri_idx(q)
+    n_tri = len(pairs)
+    device = x0.device
+    R_packed = _pack_tri(prior_var, pairs).contiguous()
+    for name, t, shape in (
+            ("prior_var", R_packed, (n_block, n_tri)),
+            ("ode_weight", ode_weight, (n_block, q)),
+            ("t_vec", t_vec, (q,)),
+            ("x0", x0, (model.n_block, q)),
+            ("theta", theta, (model.n_theta,)),
+            ("tgrid", tgrid, (n_steps,))):
+        _check(name, t, shape, device)
+    if device.type == "cpu":
+        return _filter_single_plain(model, n_steps, q_const, prior_var,
+                                    ode_weight, t_vec, x0, theta, tgrid, mode)
+    mf, mp = (x0.new_empty((n_steps, n_block, q)) for _ in range(2))
+    pf, pp = (x0.new_empty((n_steps, n_block, n_tri)) for _ in range(2))
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES, "filter_single", q, device,
+            _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps,
+            ctypes.addressof(qc), R_packed, ode_weight, t_vec, x0, theta,
+            tgrid, mf, pf, mp, pp)
+    return mf, pf, mp, pp
+
+
+def _smoother_single_plain(g, G, L, mN, pN):
+    """Plain PyTorch twin of ``csrc/smoother_single.cu``: the recursion
+    (:func:`_smoother_batch_plain`) with each block a column, on transposed
+    views.  Arguments and returns as
+    :func:`smoother_recursion`."""
+    ms, ps = _smoother_batch_plain(
+        *(a.permute(0, 2, 1)[..., None] for a in (g, G, L)),
+        mN.T[..., None], pN.T[..., None])
+    return (ms[..., 0].permute(0, 2, 1).contiguous(),
+            ps[..., 0].permute(0, 2, 1).contiguous())
+
+
+def smoother_recursion(g, G, L, mN, pN):
+    r"""
+    Single-solve backward affine recursion (kernel K4)
+    ``m_n = g_n + G_n m_{n+1}``, ``P_n = L_n + G_n P_{n+1} G_n'``, from the
+    terminal ``(mN, pN)`` down to row 0, in the JAX package's layout.
+
+    Args:
+        g (Tensor(T, n_block, q)): Offsets.
+        G (Tensor(T, n_block, q*q)): Gains, row-major.
+        L (Tensor(T, n_block, n_tri)): Packed noise terms.
+        mN, pN: Terminal values ``(n_block, q)`` / ``(n_block, n_tri)``.
+
+    Returns:
+        (tuple): ``ms (T, n_block, q)``, ``ps (T, n_block, n_tri)``.
+    """
+    n_len, n_block, q = g.shape
+    n_tri = q * (q + 1) // 2
+    device = g.device
+    for name, t, shape in (
+            ("g", g, (n_len, n_block, q)),
+            ("G", G, (n_len, n_block, q * q)),
+            ("L", L, (n_len, n_block, n_tri)),
+            ("mN", mN, (n_block, q)),
+            ("pN", pN, (n_block, n_tri))):
+        _check(name, t, shape, device)
+    if device.type == "cpu":
+        return _smoother_single_plain(g, G, L, mN, pN)
+    ms = torch.empty_like(g)
+    ps = torch.empty_like(L)
+    _launch(LAUNCHES, "smoother_single", q, device, n_len, n_block, g, G, L,
+            mN, pN, ms, ps)
+    return ms, ps
+
+
+def fused_smoother(prior_weight, prior_var, mf, pf, mp, pp, mfN, pfN):
+    r"""
+    Single-solve smoother over every step (kernel K4): the gains in dense
+    batched torch, ``G = (Pf Q') Pp^{-1}`` (:func:`inv_small`),
+    ``g = mf - G mp`` and the Joseph-form ``L = (I - G Q) Pf (I - G Q)' +
+    G R G'``, symmetrised, then the recursion.  TF32 stays off.
+
+    Args:
+        prior_weight, prior_var (Tensor(n_block, q, q)): Scaled transition
+            ``Q`` and noise ``R``, float32.
+        mf, pf: Filtered moments of steps ``1..N-1`` (``(T, n_block, q)``,
+            packed ``(T, n_block, n_tri)``).
+        mp, pp: Predicted moments of steps ``2..N`` (same shapes).
+        mfN, pfN: The last filtered state, the seed.
+
+    Returns:
+        (tuple): Smoothed ``ms (T, n_block, q)``, packed ``ps (T, n_block,
+        n_tri)`` of steps ``1..N-1``.
+    """
+    return smoother_recursion(
+        *_smoother_gains(prior_weight, prior_var, mf, pf, mp, pp), mfN, pfN)
+
+
+@full_matmul_precision
+def _smoother_gains(prior_weight, prior_var, mf, pf, mp, pp):
+    """K4's operands ``(g, G, L)`` in :func:`fused_smoother`: the gains in
+    dense batched torch, TF32 off."""
+    n_len, n_block, q = mf.shape
+    pairs, _ = _tri_idx(q)
+    Pf, Pp = unpack_cov(pf), unpack_cov(pp)
+    G = (Pf @ prior_weight.mT) @ inv_small(Pp)
+    g = mf - torch.einsum("...ij,...j->...i", G, mp)
+    IGQ = torch.eye(q, dtype=Pf.dtype, device=Pf.device) - G @ prior_weight
+    L = IGQ @ Pf @ IGQ.mT + G @ prior_var @ G.mT
+    L = 0.5 * (L + L.mT)
+    return (g.contiguous(), G.reshape(n_len, n_block, q * q).contiguous(),
+            _pack_tri(L, pairs).contiguous())
+
+
+def _affine_cov_compose(q, n_tri, where, early, late):
+    """Compose two elements ``(G, g, L)`` of the recursion in column
+    layout, ``early`` then ``late`` (to its right in time):
+    ``(G_e G_l, g_e + G_e g_l, L_e + G_e L_l G_e')``."""
+    G_i, g_i, L_i = early
+    G_j, g_j, L_j = late
+    G = [[None] * q for _ in range(q)]
+    for i in range(q):
+        for j in range(q):
+            acc = None
+            for k in range(q):
+                acc = _acc(acc, G_i[i][k] * G_j[k][j])
+            G[i][j] = acc
+    g = [g_i[i] + sum(G_i[i][k] * g_j[k] for k in range(q))
+         for i in range(q)]
+    GLG = _sym_quadform(q, G_i, L_j, where)
+    L = [L_i[k] + GLG[k] for k in range(n_tri)]
+    return G, g, L
+
+
+def _composed_groups(n_len, k):
+    """The JAX package's grouping of ``n_len`` rows into k-row groups: the
+    number of groups (rounded up to a multiple of 8 once there are 16 or
+    more) and the number of identity rows padded in front.  It decides at
+    which rows the composed smoother rounds, so it is kept as it is."""
+    n_groups = -(-n_len // k)
+    if n_groups >= 16:
+        n_groups = -(-n_groups // 8) * 8
+    return n_groups, n_groups * k - n_len
+
+
+def _composed_suffixes(q_const, prior_var, mf, pf, mp, pp, k_compose):
+    """The per-step gains in column arithmetic, identity-padded in front
+    and grouped by ``k_compose`` rows as the JAX package groups them, and
+    the suffix composites within each group: ``comp[i]`` composes offsets
+    ``i .. k-1`` (each entry ``(n_groups, n_block)``), ``comp[0]`` the whole
+    group.  Returns ``comp`` and the number of padded rows."""
+    n_len, n_block, q = mf.shape
+    pairs, where = _tri_idx(q)
+    n_tri = len(pairs)
+    R_packed = _pack_tri(prior_var, pairs)
+    G, g, L = _gain_cols_batched(
+        q, n_tri, q_const, [R_packed[None, :, k] for k in range(n_tri)],
+        [mf[:, :, j] for j in range(q)], [pf[:, :, k] for k in range(n_tri)],
+        [mp[:, :, j] for j in range(q)], [pp[:, :, k] for k in range(n_tri)])
+    k = max(1, int(k_compose))
+    n_groups, pad = _composed_groups(n_len, k)
+
+    def grouped(col, fill):
+        """Identity-padded in front, then ``(n_groups, k, n_block)``."""
+        col = torch.cat([col.new_full((pad, n_block), fill), col])
+        return col.reshape(n_groups, k, n_block)
+
+    Gg = [[grouped(G[i][j], float(i == j)) for j in range(q)]
+          for i in range(q)]
+    gg = [grouped(g[i], 0.0) for i in range(q)]
+    Lg = [grouped(L[kk], 0.0) for kk in range(n_tri)]
+
+    def element(i):
+        return ([[Gg[a][b][:, i] for b in range(q)] for a in range(q)],
+                [gg[a][:, i] for a in range(q)],
+                [Lg[kk][:, i] for kk in range(n_tri)])
+
+    comp = [None] * k
+    comp[k - 1] = element(k - 1)
+    for i in range(k - 2, -1, -1):
+        comp[i] = _affine_cov_compose(q, n_tri, where, element(i),
+                                      comp[i + 1])
+    return comp, pad
+
+
+def _boundary_operands(comp):
+    """K4's operands ``(g, G, L)`` over the groups' boundary steps in
+    :func:`fused_smoother_composed`: the whole groups' composites."""
+    Gc, gc, Lc = comp[0]
+    q = len(gc)
+    return (torch.stack(gc, dim=-1),
+            torch.stack([Gc[i][j] for i in range(q) for j in range(q)],
+                        dim=-1),
+            torch.stack(Lc, dim=-1))
+
+
+def fused_smoother_composed(q_const, prior_var, mf, pf, mp, pp, mfN, pfN,
+                            k_compose=8):
+    r"""
+    As :func:`fused_smoother`, with the sequential recursion shortened
+    ``k_compose``-fold by exact k-step composition: the per-step gains in
+    column arithmetic (:func:`_gain_cols_batched`), the suffix composites
+    within each group, kernel K4 over the groups' boundary steps, and the
+    interior rows of every group in one batched pass.  Exact in exact
+    arithmetic; in float32 the recursion's rounding enters at ``N/k``
+    boundary steps instead of ``N`` (the JAX package's guard against its
+    plain recursion's drift over long horizons on the TPU).
+
+    Args:
+        q_const (list of lists of float): Scaled transition, from
+            :func:`_static_scaled_qconst`.
+        prior_var (Tensor(n_block, q, q)): Scaled noise ``R``.
+        mf, pf, mp, pp, mfN, pfN: As :func:`fused_smoother`.
+        k_compose (int): Steps per group.
+
+    Returns:
+        (tuple): As :func:`fused_smoother`.
+    """
+    n_block, q = mfN.shape
+    pairs, where = _tri_idx(q)
+    n_tri = len(pairs)
+    comp, pad = _composed_suffixes(q_const, prior_var, mf, pf, mp, pp,
+                                   k_compose)
+    k = len(comp)
+    # the boundary recursion over the groups (K4): mb[g] is the smoothed
+    # state at offset 0 of group g
+    mb, pb = smoother_recursion(*_boundary_operands(comp), mfN, pfN)
+    # each group's right boundary: the next group's offset 0, or the seed
+    mb_right = torch.cat([mb[1:], mfN[None]])
+    pb_right = torch.cat([pb[1:], pfN[None]])
+    m_r = [mb_right[:, :, j] for j in range(q)]
+    p_r = [pb_right[:, :, kk] for kk in range(n_tri)]
+    rows_m, rows_p = [mb], [pb]
+    for i in range(1, k):
+        Gi, gi, Li = comp[i]
+        m_i = []
+        for a in range(q):
+            acc = gi[a]
+            for b in range(q):
+                acc = acc + Gi[a][b] * m_r[b]
+            m_i.append(acc)
+        GP = _sym_quadform(q, Gi, p_r, where)
+        rows_m.append(torch.stack(m_i, dim=-1))
+        rows_p.append(torch.stack([Li[kk] + GP[kk] for kk in range(n_tri)],
+                                  dim=-1))
+    # interleave the offsets back into the time axis
+    ms = torch.stack(rows_m, dim=1).reshape(-1, n_block, q)
+    ps = torch.stack(rows_p, dim=1).reshape(-1, n_block, n_tri)
+    return ms[pad:], ps[pad:]
+
+
+def _single_operands(theta, ode_weight, ode_init, t_min, t_max, n_steps,
+                     prior_pars):
+    """The operands of :func:`fused_filter` for one solve (those of
+    :func:`_kernel_operands` on one lane), and the scaled float32
+    transition ``Qs``."""
+    ops = _kernel_operands(theta[None], ode_weight, ode_init[None], t_min,
+                           t_max, n_steps, prior_pars)
+    ops["x0"] = ops.pop("x0_lanes")[..., 0].T.contiguous()
+    ops["theta"] = ops.pop("theta_lanes")[:, 0].contiguous()
+    Qs, _ = scale_prior(prior_pars, ops["t_vec"])
+    return ops, Qs.to(torch.float32)
+
+
+def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
+                   prior_pars, model, interrogation="kramer", k_compose=None,
+                   kalman_type="standard", device=None):
+    r"""
+    Posterior mean and variance of one ODE solve (the latency path),
+    through kernels K3 (the filter) and K4 (the smoother) on the CUDA card,
+    their plain twins with ``device="cpu"``.
+
+    Args:
+        theta (Tensor(n_theta,)): Parameters.
+        ode_weight (Tensor(n_block, 1, q)): Weight matrix ``W``.
+        ode_init (Tensor(n_block, q)): Initial state (original
+            coordinates).
+        t_min, t_max (float): Time interval.
+        n_steps (int): Number of steps ``N``.
+        prior_pars (tuple): ``(prior_weight, prior_var)``, each
+            ``(n_block, q, q)``; the transition must be the same for every
+            block (the IBM prior).
+        model: Model name (``"lorenz"``, ``"fitzhugh"``), model module or
+            :class:`~rodeo_tpu_torch.models.FusedModel`.
+        interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
+        k_compose (int or None): Steps per group of the composed smoother
+            (:func:`fused_smoother_composed`); ``None`` or 1 runs the plain
+            recursion (:func:`fused_smoother`).  The JAX package composes 16
+            steps from ``N = 512`` on, against a drift of its plain
+            recursion on the TPU.  On the card the plain float32 recursion
+            lands as close to a float64 smoother on the same filter states
+            as the composed one, up to 50 000 steps
+            (``tools/torch_smoother_drift.py``), at a tenth of its time, so
+            it is the default here.
+        kalman_type (str): ``"standard"``.
+        device: Where to run; ``None`` is the CUDA card, and raises without
+            one.  The tensor arguments are moved there.
+
+    Returns:
+        (tuple): float32 **mean** ``(N+1, n_block, q)`` and dense **var**
+        ``(N+1, n_block, q, q)`` in original coordinates: row 0 the exact
+        initial state with zero variance, rows ``1..N-1`` smoothed, row
+        ``N`` filtered.
+    """
+    fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
+        theta, ode_weight, ode_init, prior_pars, model, interrogation,
+        kalman_type, device)
+    n_block, _, q = ode_weight.shape
+    ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
+                               n_steps, prior_pars)
+    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=interrogation)
+    args = (ops["prior_var"], mf[:-1], pf[:-1], mp[1:], pp[1:], mf[-1],
+            pf[-1])
+    if k_compose is not None and k_compose > 1:
+        ms, ps = fused_smoother_composed(ops["q_const"], *args,
+                                         k_compose=k_compose)
+    else:
+        ms, ps = fused_smoother(Qs, *args)
+    # rows 0..N: the exact initial state, smoothed 1..N-1, filtered N
+    t_vec = ops["t_vec"]
+    mean = torch.cat([ops["x0"][None], ms, mf[-1:]]) * t_vec
+    packed = torch.cat([ps.new_zeros((1,) + ps.shape[1:]), ps, pf[-1:]])
+    return mean, unpack_cov(packed) * (t_vec[:, None] * t_vec[None, :])

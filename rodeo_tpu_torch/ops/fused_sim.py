@@ -21,10 +21,9 @@ K6's launches.
 """
 import torch
 
-from rodeo_tpu_torch.ops import _build
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _KERNEL_Q, _check, _chol_cols, _chol_matvec, _cuda_device, _fused_inputs,
-    _kernel_operands, _raise_on_error, _tri_idx, fused_filter_batch)
+    _check, _chol_cols, _chol_matvec, _fused_inputs, _kernel_operands,
+    _launch, _tri_idx, fused_filter_batch)
 
 __all__ = ["solve_sim_fused_batch", "sampler_batch", "LAUNCHES"]
 
@@ -75,19 +74,9 @@ def sampler_batch(c, G, xN):
         _check(name, t, shape, device)
     if device.type == "cpu":
         return _sampler_batch_plain(c, G, xN)
-    _cuda_device(device)
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the sampler kernel is instantiated for q={_KERNEL_Q}, got {q}")
-    lib = _build.load()
     xs = torch.empty_like(c)
-    with torch.cuda.device(device):
-        err = lib.rodeo_sampler_batch(
-            n_len, n_block * n_lane, c.data_ptr(), G.data_ptr(),
-            xN.data_ptr(), xs.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error("sampler_batch", err)
-    LAUNCHES["sampler_batch"] += 1
+    _launch(LAUNCHES, "sampler_batch", q, device, n_len, n_block * n_lane,
+            c, G, xN, xs)
     return xs
 
 

@@ -311,6 +311,9 @@ def _entry_point_calls():
                  ode_inits=cfg["ode_init"].expand(2, 3, 3).contiguous(),
                  t_min=0.0, t_max=0.1, n_steps=8,
                  prior_pars=cfg["prior_pars"], model="lorenz")
+    single = dict(theta=cfg["theta"], ode_weight=cfg["ode_weight"],
+                  ode_init=cfg["ode_init"], t_min=0.0, t_max=0.1, n_steps=8,
+                  prior_pars=cfg["prior_pars"], model="lorenz")
     obs_w = torch.zeros((3, 3, 1, 3))
     obs_w[..., 0] = 1.0
     obs = dict(obs_data=torch.zeros((3, 3, 1)),
@@ -336,6 +339,8 @@ def _entry_point_calls():
             **lanes, **obs),
         "dalton_fused_batch_grad": lambda: rt.dalton_fused_batch_grad(
             **lanes, **obs),
+        "solve_mv_fused": lambda: rt.solve_mv_fused(**single),
+        "fenrir_fused": lambda: rt.fenrir_fused(**single, **obs),
     }
 
 
@@ -344,7 +349,7 @@ def _entry_point_calls():
     "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
     "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
     "basic_fused_batch_grad", "fenrir_fused_batch_grad",
-    "dalton_fused_batch_grad"])
+    "dalton_fused_batch_grad", "solve_mv_fused", "fenrir_fused"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without ``device`` an entry point runs on CUDA; with no CUDA device
     it raises rather than fall back to the CPU, which only

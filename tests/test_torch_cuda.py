@@ -1,10 +1,12 @@
 """
-The port's CUDA kernels on the card: K1 (filter_batch), K2
-(smoother_batch), K6 (sampler_batch), K7b (fenrir_backward_batch), K8
-(dalton_filter_batch) and the tangent kernels K11a (filter_batch_tan), K11b
-(fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and K11e
-(smoother_mean_batch_tan) against their plain PyTorch twins on the same
-CUDA inputs, and the launch contract of each fused entry point.
+The port's CUDA kernels on the card: K1 (filter_batch), K2r
+(smoother_batch_rows), K6 (sampler_batch), K7b
+(fenrir_backward_batch), K8 (dalton_filter_batch), the tangent kernels K11a
+(filter_batch_tan), K11b (fenrir_backward_batch_tan), K11c
+(dalton_filter_batch_tan) and K11e (smoother_mean_batch_tan), and the
+single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
+(fenrir_backward_single) against their plain PyTorch twins on the same CUDA
+inputs, and the launch contract of each fused entry point.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -32,6 +34,10 @@ MODELS = {"lorenz": lorenz, "fitzhugh": fitzhugh}
 # rounding differently.  Bound on the scaled error per output and per
 # tangent direction.
 TWIN_TOL = 1e-5
+# An entry point on the card against the same call on the CPU, where the
+# dense products of the single-solve path's gains are cuBLAS's on one side
+# and the CPU's on the other, summed in other orders.
+ENTRY_TOL = 1e-4
 
 
 @pytest.fixture
@@ -75,9 +81,11 @@ def test_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
         assert a.is_cuda and torch.isfinite(a).all(), name
         assert _scaled_err(a, b) <= TWIN_TOL, name
     G, g, L, mN, pN = out_k
-    sm_k = fk.smoother_recursion_batch(g[1:], G[1:], L[1:], mN, pN)
-    sm_p = fk._smoother_batch_plain(g[1:], G[1:], L[1:], mN, pN)
-    for name, a, b in zip(["ms", "ps"], sm_k, sm_p):
+    rows_args = (g[1:], G[1:], L[1:], mN, pN, ops["x0_lanes"],
+                 ops["t_vec"], fk._tri_scale(ops["t_vec"]))
+    sm_k = fk.smoother_recursion_batch_rows(*rows_args)
+    sm_p = fk._smoother_batch_rows_plain(*rows_args)
+    for name, a, b in zip(["mean", "cov"], sm_k, sm_p):
         assert _scaled_err(a, b) <= TWIN_TOL, name
 
 
@@ -95,12 +103,12 @@ def test_fused_solve_launches_each_kernel_once(cuda_device):
     _reset_launches()
     mean, var = solve(cuda_device)
     torch.cuda.synchronize()
-    assert _launched() == {"filter_batch": 1, "smoother_batch": 1}
+    assert _launched() == {"filter_batch": 1, "smoother_batch_rows": 1}
     assert mean.shape == (n_steps + 1, 3, 3, 64) and mean.is_cuda
     assert var.shape == (n_steps + 1, 3, 6, 64)
     assert torch.isfinite(mean).all() and torch.isfinite(var).all()
     mean_c, var_c = solve(torch.device("cpu"))
-    assert _launched() == {"filter_batch": 1, "smoother_batch": 1}
+    assert _launched() == {"filter_batch": 1, "smoother_batch_rows": 1}
     for d in range(3):
         assert _scaled_err(mean[..., d, :], mean_c[..., d, :]) <= TWIN_TOL, d
     assert _scaled_err(var, var_c) <= TWIN_TOL
@@ -119,12 +127,13 @@ def test_cuda_tensors_never_take_the_twin(cuda_device):
 
     _reset_launches()
     with pytest.raises(NotImplementedError):
-        fk.smoother_recursion_batch(t(T, q, nb, B), t(T, q * q, nb, B),
-                                    t(T, n_tri, nb, B), t(q, nb, B),
-                                    t(n_tri, nb, B))
+        fk.smoother_recursion_batch_rows(
+            t(T, q, nb, B), t(T, q * q, nb, B), t(T, n_tri, nb, B),
+            t(q, nb, B), t(n_tri, nb, B), t(q, nb, B), t(q), t(n_tri))
     with pytest.raises(ValueError):    # operands on two devices
-        fk.smoother_recursion_batch(t(T, 3, nb, B), t(T, 9, nb, B).cpu(),
-                                    t(T, 6, nb, B), t(3, nb, B), t(6, nb, B))
+        fk.smoother_recursion_batch_rows(
+            t(T, 3, nb, B), t(T, 9, nb, B).cpu(), t(T, 6, nb, B),
+            t(3, nb, B), t(6, nb, B), t(3, nb, B), t(3), t(6))
     assert _launched() == {}
 
 
@@ -224,7 +233,7 @@ def test_inference_entry_points_launch_their_kernels(cuda_device):
             obs_times=obs["obs_times"],
             obs_loglik=lambda o, x: torch.sum(-0.5 * (o[..., 0]
                                                       - x[..., 0]) ** 2))[0],
-            {"filter_batch": 1, "smoother_batch": 1}),
+            {"filter_batch": 1, "smoother_batch_rows": 1}),
         "sim": (lambda dev: fs.solve_sim_fused_batch(
             **lanes(dev, "fitzhugh"), eps=eps, eps_term=eps_term),
             {"filter_batch": 1, "sampler_batch": 1}),
@@ -255,7 +264,7 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
                                                        mode, t_max):
     """K11a, K11e, K11b and K11c against their twins, the values and each
     tangent direction on their own; and their values against the kernels
-    they extend, K1, K2, K7b and K8, which must agree bitwise."""
+    they extend, K1, K2r, K7b and K8, which must agree bitwise."""
     n_steps = 300
     cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
     obs = _obs(model, 11, t_max, cuda_device)
@@ -277,9 +286,11 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
     ms_p = fk._smoother_mean_tan_plain(b[1:], A[1:], m_last, n_tan)
     assert max(_split_err(ms_k, ms_p, q)) <= TWIN_TOL
     G1, g1, L1, mN, pN = prim
-    assert torch.equal(ms_k[:, :q],
-                       fk.smoother_recursion_batch(g1[1:], G1[1:], L1[1:],
-                                                   mN, pN)[0])
+    ones = torch.ones(q + n_tri, device=cuda_device)
+    rows = fk.smoother_recursion_batch_rows(
+        g1[1:], G1[1:], L1[1:], mN, pN, ops["x0_lanes"], ones[:q],
+        ones[q:])[0]
+    assert torch.equal(ms_k[:, :q], rows[1:-1].permute(0, 2, 1, 3))
     chain = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
                                 *obs.values(), mode, tangent=True)
     k7 = ff.fenrir_backward_batch_tan(*chain)
@@ -349,3 +360,78 @@ def test_gradient_entry_points_launch_their_kernels(cuda_device):
         ll_c, grad_c = call(torch.device("cpu"))
         assert _scaled_err(ll, ll_c) <= TWIN_TOL, name
         assert _scaled_err(grad, grad_c) <= TWIN_TOL, name
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
+                                              ("fitzhugh", "rodeo", 3.0)])
+def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
+                                                      mode, t_max):
+    """K3, K4 (on K3's gains, over every step and over the composed
+    boundary steps) and K7a (on fenrir's chain) against their twins."""
+    n_steps = 300
+    cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
+                              dtype=torch.float32, device=cuda_device)
+    ops, Qs = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                  cfg["ode_init"], 0.0, t_max, n_steps,
+                                  cfg["prior_pars"])
+    fused = fk.resolve_model(model)
+    out_k = fk.fused_filter(fused, n_steps, **ops, mode=mode)
+    out_p = fk._filter_single_plain(fused, n_steps, **ops, mode=mode)
+    for name, a, b in zip(["mf", "pf", "mp", "pp"], out_k, out_p):
+        assert a.is_cuda and torch.isfinite(a).all(), name
+        assert _scaled_err(a, b) <= TWIN_TOL, name
+    mf, pf, mp, pp = out_k
+    states = (mf[:-1], pf[:-1], mp[1:], pp[1:])
+    comp, _ = fk._composed_suffixes(ops["q_const"], ops["prior_var"],
+                                    *states, 16)
+    for gains in (fk._smoother_gains(Qs, ops["prior_var"], *states),
+                  fk._boundary_operands(comp)):
+        args = (*gains, mf[-1], pf[-1])
+        for a, b in zip(fk.smoother_recursion(*args),
+                        fk._smoother_single_plain(*args)):
+            assert torch.isfinite(a).all()
+            assert _scaled_err(a, b) <= TWIN_TOL
+    obs = _obs(model, 11, t_max, cuda_device)
+    ops["q_const"] = ff._const_coefs(Qs)
+    chain = ff._fenrir_single_operands(fused, n_steps, 0.0, t_max, ops, Qs,
+                                       *obs.values(), mode)
+    k7 = ff.fenrir_backward_single(*chain)
+    p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_single_plain(
+        *chain[:-1]))
+    assert torch.isfinite(k7)
+    assert _scaled_err(k7, p7) <= TWIN_TOL
+
+
+def test_single_entry_points_launch_their_kernels(cuda_device):
+    """solve_mv_fused (plain smoother, the default, and composed) and
+    fenrir_fused on the card launch exactly their kernels, and agree with the same calls on the
+    CPU (the plain twins)."""
+    n_steps, t_max = 600, 1.2
+    obs = _obs("lorenz", 13, t_max, cuda_device)
+
+    def single(device):
+        cfg = lorenz.setup(n_steps=n_steps, t_max=t_max, device=device)
+        return dict(theta=cfg["theta"], ode_weight=cfg["ode_weight"],
+                    ode_init=cfg["ode_init"], t_min=0.0, t_max=t_max,
+                    n_steps=n_steps, prior_pars=cfg["prior_pars"],
+                    model="lorenz", device=device)
+
+    calls = {
+        "plain": (lambda dev: fk.solve_mv_fused(**single(dev)),
+                  {"filter_single": 1, "smoother_single": 1}),
+        "composed": (lambda dev: fk.solve_mv_fused(**single(dev),
+                                                   k_compose=16),
+                     {"filter_single": 1, "smoother_single": 1}),
+        "fenrir": (lambda dev: (ff.fenrir_fused(**single(dev), **obs),),
+                   {"filter_single": 1, "fenrir_backward_single": 1}),
+    }
+    for name, (call, expected) in calls.items():
+        _reset_launches()
+        out = call(cuda_device)
+        torch.cuda.synchronize()
+        assert _launched() == expected, name
+        cpu = call(torch.device("cpu"))
+        assert _launched() == expected, name
+        for a, b in zip(out, cpu):
+            assert a.is_cuda and torch.isfinite(a).all(), name
+            assert _scaled_err(a, b) <= ENTRY_TOL, name

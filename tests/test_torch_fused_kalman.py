@@ -83,6 +83,8 @@ def test_filter_twin_matches_pallas(model, mode):
 
 
 def test_smoother_twin_matches_pallas():
+    """The JAX package's bare recursion (its K2) against the rows between
+    the boundary rows of the port's K2r twin, at unit scales."""
     rng = np.random.default_rng(1)
     T, q, nb, B = 60, 3, 3, 4
     n_tri = 6
@@ -97,7 +99,12 @@ def test_smoother_twin_matches_pallas():
     args = [np.ascontiguousarray(a, dtype=np.float32)
             for a in (g, G, L, mN, pN)]
     ms_j, ps_j = pk.smoother_recursion_batch(*map(jnp.asarray, args))
-    ms_t, ps_t = fk.smoother_recursion_batch(*map(torch.from_numpy, args))
+    mean_t, cov_t = fk.smoother_recursion_batch_rows(
+        *map(torch.from_numpy, args), torch.zeros((q, nb, B)),
+        torch.ones(q), torch.ones(n_tri))
+    ms_t = mean_t[1:-1].permute(0, 2, 1, 3)
+    ps_t = cov_t[1:-1].permute(0, 2, 1, 3)
+    assert ms_t.shape == ms_j.shape and ps_t.shape == ps_j.shape
     assert _scaled_err(ms_t, ms_j) <= SCALED_TOL
     assert _scaled_err(ps_t, ps_j) <= SCALED_TOL
 
