@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the 12
+Run it from a checkout: it imports the package beside it and builds the 14
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -77,6 +77,28 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              float64 truth); each kernel timed and checked against its twin
              at its path's shapes, K4 also on the composed smoother's
              boundary groups;
+14. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
+             and K10b (magi_adjoint_batch, on K10a's streams) against their
+             twins on the same CUDA inputs, 1000 steps x 256 lanes of the
+             cached Lorenz63 path plus seeded noise, the prior's process
+             noise x 1e-5: n_active 1, 2 and 3, and 2 with a per-lane
+             sig2_lanes;
+15. magi     bench.py's MAGI fixture at full width: the cached float64
+             Lorenz63 path (4000 steps, dt 0.005) plus 1e-4 x lane, 2048
+             lanes, n_active 2.  magi_fused_batch must launch K10a once,
+             stay finite and pass the audit of lane 0 against the cached
+             float64 value (bench.py's rule); magi_fused_batch_grad must
+             launch K10a and K10b once each and return the value call's
+             values bitwise; lane 1's gradient is audited as bench.py does
+             and recorded as unusable in float32 (its float32-CPU control is
+             5.06 from the truth); the informative check holds 4 lanes of
+             the path plus 0.1 (i + 1) rng(3) normals, at the prior's process
+             noise x 1e-5, to the float64 torch-op ops.precond.magi_logdens
+             and its torch.autograd gradient (MAGI_F64_TOL); then the time
+             per call of each and the gradient's ratio to the value call,
+             and peak memory;
+16. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
+             timed and checked against their twins there;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
@@ -146,6 +168,11 @@ GRAD_FITZ_TOL = 1e-4
 SIM_Z = 6.0
 SIM_VAR_RATIO = (0.8, 1.25)
 SIM_VAR_MIN = 1e-8
+# MAGI's informative check (phase magi): the kernel path in float32 against
+# the float64 torch-op, value relative and gradient by the JAX package's
+# rule max|g - g_ref| / (max|g_ref| + 1) (tests/test_pallas_magi.py); the
+# twins meet it on the CPU at 4000 steps (tests/test_torch_magi.py).
+MAGI_F64_TOL = 2e-4
 # The card's published peaks (H100 SXM, at a 700 W limit): device memory
 # bandwidth and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -161,6 +188,8 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
+# The MAGI kernels K10a, K10b.
+MAGI_KERNELS = ("magi_batch", "magi_adjoint_batch")
 
 
 def emit(obj):
@@ -191,7 +220,9 @@ def main():
     from rodeo_tpu_torch.ops import fused_dalton as fd
     from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
+    from rodeo_tpu_torch.ops import fused_magi as fm
     from rodeo_tpu_torch.ops import fused_sim as fs
+    from rodeo_tpu_torch.ops import precond as tprecond
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -201,7 +232,8 @@ def main():
             failures.append(f"{phase}: {name}")
         return bool(ok)
 
-    counters = (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES)
+    counters = (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES,
+                fm.LAUNCHES)
 
     def reset_counts():
         for counts in counters:
@@ -1338,6 +1370,217 @@ def main():
         del out_3, mf, pf, mp, pp, ops_1, Qs_1, cpu_1
     emit({"phase": "single_kernels", "kernels": at_single})
 
+    # ---- 14. the MAGI kernels against their twins -------------------------
+    mu4k = torch.tensor(truth["solve_mu_4k"], dtype=torch.float32,
+                        device=dev)
+    dt_mg = 20.0 / 4000
+    cfg_mg = lorenz.setup(n_steps=4000, t_max=20.0, dtype=torch.float32,
+                          device=dev)
+
+    def magi_expand(u):
+        return torch.cat([u, torch.zeros_like(u[..., :1])], -1)
+
+    def magi_twin(x, R, m0, q_const, mode):
+        """K10a's twin, its blocks' sums added as the wrapper adds them."""
+        out = fm._magi_batch_plain(x, R, m0, q_const, mode)
+        if mode == "ld":
+            return fd._block_sum(out)
+        return (fd._block_sum(out[0]),) + tuple(
+            a for a in out[1:] if a is not None)
+
+    def magi_streams(out, act):
+        """K10b's stream operands from K10a's adjoint outputs."""
+        return out[1:] if act < 3 else (*out[1:], None)
+
+    k10a_names = ["ld", "z", "s_inv", "G"]
+    rng = np.random.default_rng(14)
+    subs_tw = mu4k[:n_tw + 1, :, :2][None] + torch.tensor(
+        0.1 * rng.standard_normal((b_tw, n_tw + 1, 3, 2)),
+        dtype=torch.float32, device=dev)
+    sig2_tw = torch.tensor(rng.uniform(0.5, 2.0, b_tw), dtype=torch.float32,
+                           device=dev)
+    # the prior's process noise x 1e-5: at the Lorenz63 prior's own scale
+    # (sigma 5e7) the determinant of a 3 x 3 forecast variance overflows
+    # float32, in the kernel, its twin and the JAX package alike
+    wgt_mg, var_mg = cfg_mg["prior_pars"]
+    prior_tight = (wgt_mg, var_mg * 1e-5)
+    for act, sig2 in ((1, None), (2, None), (3, None), (2, sig2_tw)):
+        q_mg, _, R_tw, x_tw, m0_tw = fm._magi_operands(
+            magi_expand(subs_tw), act, prior_tight, dt_mg, sig2)
+        config = f"n_active={act}" + ("/sig2_lanes" if sig2 is not None
+                                      else "")
+        for mode in ("ld", "adjoint"):
+            out_k = as_tuple(fm.magi_filter_batch(x_tw, R_tw, m0_tw, q_mg,
+                                                  emit=mode))
+            out_p = as_tuple(magi_twin(x_tw, R_tw, m0_tw, q_mg, mode))
+            twin_report("k10_twin", f"magi_batch {config} emit={mode}",
+                        k10a_names[:len(out_k)], out_k, out_p,
+                        n_lane=b_tw)
+        streams = magi_streams(out_k, act)
+        twin_report("k10_twin", f"magi_adjoint_batch {config}",
+                    ["gx", "lam0"], fm.magi_adjoint_batch(*streams, q_mg),
+                    fm._magi_adjoint_batch_plain(*streams, q_mg),
+                    n_lane=b_tw)
+    del subs_tw, sig2_tw, R_tw, x_tw, m0_tw, out_k, out_p, streams
+
+    # ---- 15. MAGI at full width --------------------------------------------
+    n_mg, b_mg = 4000, 2048
+    lanes_mg = torch.arange(b_mg, dtype=torch.float32, device=dev)
+    # bench.py's lane batch: the cached path + 1e-4 x lane index
+    subs_mg = mu4k[None, :n_mg + 1, :, :2] + \
+        1e-4 * lanes_mg[:, None, None, None]
+    magi_args = (subs_mg, magi_expand, 2, cfg_mg["prior_pars"], dt_mg)
+
+    def magi_value():
+        return fm.magi_fused_batch(*magi_args)
+
+    def magi_grad():
+        return fm.magi_fused_batch_grad(*magi_args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ld_mg = magi_value()
+    torch.cuda.synchronize()
+    magi_launches = read_counts()
+    magi_peak = torch.cuda.max_memory_allocated()
+    check("magi", "value launches", magi_launches == expect(magi_batch=1))
+    mg_finite = check("magi", "value finite",
+                      tuple(ld_mg.shape) == (b_mg,)
+                      and torch.isfinite(ld_mg).all().item())
+    mg_ref = float(truth["magi_ll"])
+    mg_control = abs(float(truth["magi_ll_f32cpu"]) - mg_ref)
+    mg_lane0 = float(ld_mg[0])
+    mg_err = abs(mg_lane0 - mg_ref)
+    mg_tol = max(3 * mg_control, LL_REL_FLOOR * abs(mg_ref))
+    mg_audit = check("magi", "value audit", mg_err <= mg_tol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ld_g, g_mg = magi_grad()
+    torch.cuda.synchronize()
+    magi_grad_launches = read_counts()
+    magi_grad_peak = torch.cuda.max_memory_allocated()
+    check("magi", "gradient launches", magi_grad_launches == expect(
+        magi_batch=1, magi_adjoint_batch=1))
+    g_finite = check("magi", "gradient finite",
+                     tuple(g_mg.shape) == tuple(subs_mg.shape)
+                     and torch.isfinite(g_mg).all().item())
+    mg_same = check("magi", "values bitwise", torch.equal(ld_g, ld_mg))
+    # bench.py's gradient audit at lane 1 (the path + 1e-4)
+    g64 = np.asarray(truth["magi_grad"], np.float64)
+    g_ctrl = np.asarray(truth["magi_grad_f32cpu"], np.float64)
+    g_lane1 = g_mg[1].double().cpu().numpy()
+    mg_grad_rel = float(np.linalg.norm(g_lane1 - g64) / np.linalg.norm(g64))
+    mg_grad_control = float(np.linalg.norm(g_ctrl - g64)
+                            / np.linalg.norm(g64))
+    mg_bench_tol = max(3 * mg_grad_control, GRAD_FLOOR)
+    mg_unusable = mg_grad_control > GRAD_CONTROL_MAX
+    mg_grad_ok = None if mg_unusable else check(
+        "magi", "gradient audit", mg_grad_rel <= mg_bench_tol)
+    del ld_mg, ld_g, g_mg, g_lane1
+    value_mg_ms = cuda_ms(magi_value, repeats=5)
+    grad_mg_ms = cuda_ms(magi_grad, repeats=5)
+    # the informative check: rough lanes at a tight prior, against the
+    # float64 torch-op on the CPU (one thread: its operations are tiny)
+    cfg64 = lorenz.setup(n_steps=n_mg, t_max=20.0, dtype=torch.float64,
+                         device="cpu")
+    wgt64, var64 = cfg64["prior_pars"]
+    prior_inf = (wgt64, var64 * 1e-5)
+    rng = np.random.default_rng(3)
+    base = truth["solve_mu_4k"][:, :, :2]
+    subs_inf = torch.tensor(np.stack([
+        base + 0.1 * (i + 1) * rng.normal(size=base.shape)
+        for i in range(4)]))
+    ld_inf, g_inf = fm.magi_fused_batch_grad(
+        subs_inf.to(dev, torch.float32), magi_expand, 2, prior_inf, dt_mg)
+    ld_inf, g_inf = ld_inf.double().cpu(), g_inf.double().cpu()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    try:
+        g_ref, ld_ref = torch.func.vmap(torch.func.grad_and_value(
+            lambda u: tprecond.magi_logdens(u, magi_expand, 2, prior_inf,
+                                            dt_mg)))(subs_inf)
+    finally:
+        torch.set_num_threads(threads)
+    ref_s = time.perf_counter() - t0
+    inf_value_rel = ((ld_inf - ld_ref) / ld_ref).abs().max().item()
+    inf_grad_err = max(
+        ((g_inf[i] - g_ref[i]).abs().max()
+         / (g_ref[i].abs().max() + 1.0)).item() for i in range(4))
+    inf_ok = check("magi", "informative check against float64",
+                   inf_value_rel <= MAGI_F64_TOL
+                   and inf_grad_err <= MAGI_F64_TOL)
+    emit({"phase": "magi", "model": "lorenz", "n_steps": n_mg,
+          "n_lane": b_mg, "n_active": 2, "dt": dt_mg,
+          "value": {"launches": {k: v for k, v in magi_launches.items()
+                                 if v},
+                    "finite": mg_finite, "lane0": mg_lane0,
+                    "audit_abs_err": mg_err, "audit_ref": mg_ref,
+                    "audit_control_abs_err": mg_control,
+                    "audit_tol": mg_tol, "audit_ok": mg_audit,
+                    "call_ms": value_mg_ms,
+                    "per_eval_us": 1e3 * value_mg_ms / b_mg,
+                    "peak_mem_bytes": magi_peak},
+          "grad": {"launches": {k: v for k, v in magi_grad_launches.items()
+                                if v},
+                   "finite": g_finite, "values_bitwise": mg_same,
+                   "grad_lane": 1, "grad_rel_err": mg_grad_rel,
+                   "grad_control_rel_err": mg_grad_control,
+                   "grad_bench_rule_tol": mg_bench_tol,
+                   "grad_within_bench_rule": mg_grad_rel <= mg_bench_tol,
+                   "f32_unusable_on_any_hw": mg_unusable,
+                   "grad_ok": mg_grad_ok, "call_ms": grad_mg_ms,
+                   "per_eval_us": 1e3 * grad_mg_ms / b_mg,
+                   "ratio_to_value_call": grad_mg_ms / value_mg_ms,
+                   "peak_mem_bytes": magi_grad_peak},
+          "informative": {"n_lane": 4, "prior_var_scale": 1e-5,
+                          "value_rel_err": inf_value_rel,
+                          "grad_err": inf_grad_err, "tol": MAGI_F64_TOL,
+                          "ok": inf_ok, "lane_values": ld_inf.tolist(),
+                          "f64_reference_s": ref_s}})
+    del subs_inf, ld_inf, g_inf, g_ref, ld_ref
+
+    # ---- 16. the MAGI kernels at the path's shapes ------------------------
+    # (these launches come after the counts above were read)
+    q_mg, _, R_mg, x_mg, m0_mg = fm._magi_operands(
+        magi_expand(subs_mg), 2, cfg_mg["prior_pars"], dt_mg, None)
+    mg_cpu = (cpu_lane(x_mg), R_mg.cpu(), cpu_lane(m0_mg))
+    at_magi = {}
+    for mode, launches_mg in (("adjoint", magi_grad_launches),
+                              ("ld", magi_launches)):
+        out_mg, entry = at_path_shapes(
+            "magi_kernels", "magi_batch", "pallas_magi.py:62", launches_mg,
+            lambda: fm.magi_filter_batch(x_mg, R_mg, m0_mg, q_mg, emit=mode),
+            lambda: magi_twin(x_mg, R_mg, m0_mg, q_mg, mode),
+            k10a_names[:4 if mode == "adjoint" else 1],
+            lambda n: fm._magi_batch_plain(mg_cpu[0][:n], *mg_cpu[1:], q_mg,
+                                           mode),
+            n_mg * b_mg, (x_mg, R_mg, m0_mg), register=mode == "ld",
+            config=f"emit={mode}", emit=mode, shape=f"{n_mg} x {b_mg}")
+        at_magi[f"magi_batch/{mode}"] = entry
+        if mode == "adjoint":
+            streams_mg = magi_streams(out_mg, 2)
+    kernels["magi_batch"]["emit_adjoint"] = {
+        k: at_magi["magi_batch/adjoint"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "work",
+                  "max_abs_err", "max_scaled_err", "bitwise", "launches")}
+    del out_mg
+    streams_cpu = [cpu_lane(t) for t in streams_mg]
+    _, at_magi["magi_adjoint_batch"] = at_path_shapes(
+        "magi_kernels", "magi_adjoint_batch", "pallas_magi.py:319",
+        magi_grad_launches,
+        lambda: fm.magi_adjoint_batch(*streams_mg, q_mg),
+        lambda: fm._magi_adjoint_batch_plain(*streams_mg, q_mg),
+        ["gx", "lam0"],
+        lambda n: fm._magi_adjoint_batch_plain(
+            *[t[:n] for t in streams_cpu], q_mg),
+        n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}")
+    del streams_mg, streams_cpu, x_mg, R_mg, m0_mg, subs_mg
+    emit({"phase": "magi_kernels", "n_steps": n_mg, "n_lane": b_mg,
+          "kernels": at_magi})
+
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end
     print(smi, flush=True)
@@ -1345,7 +1588,7 @@ def main():
     emit({"kernels": [kernels[name] for name in (
         "filter_batch", "smoother_batch_rows", "sampler_batch",
         "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS
-        + SINGLE_KERNELS]})
+        + SINGLE_KERNELS + MAGI_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

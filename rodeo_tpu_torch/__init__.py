@@ -8,7 +8,7 @@ itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
 Ported so far (the ``solve_mv`` slice, the lane-batched inference
-path and its gradients, and the single-solve fused path):
+path and its gradients, the single-solve fused path, and MAGI):
 
 - :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
   :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
@@ -32,7 +32,13 @@ path and its gradients, and the single-solve fused path):
   and the single fenrir evaluation :func:`fenrir_fused` (the same filter
   and ``ops/csrc/fenrir_backward_single.cu``); and
   :func:`smoother_recursion_batch_rows`, the batched solve's smoother,
-  which writes its rows in one pass.
+  which writes its rows in one pass;
+- MAGI: the float64 torch-op :func:`rodeo_tpu_torch.inference.magi_logdens`
+  (and :func:`rodeo_tpu_torch.ops.precond.magi_logdens`), and the
+  lane-batched :func:`magi_fused_batch` (``ops/csrc/magi_batch.cu``) with
+  its reverse-mode path gradient :func:`magi_fused_batch_grad` (the same
+  filter and ``ops/csrc/magi_adjoint_batch.cu``), whose
+  ``torch.autograd.Function`` also serves ``.backward()``.
 
 The fused entry points and the model setups run on the CUDA card unless
 they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
@@ -40,21 +46,24 @@ they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
 
 __version__ = "0.1.0"
 
+from rodeo_tpu_torch import inference
 from rodeo_tpu_torch import interrogate
 from rodeo_tpu_torch import prior
 from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  dalton_fused_batch, dalton_fused_batch_grad,
                                  fenrir_fused, fenrir_fused_batch,
                                  fenrir_fused_batch_grad, fused_loglik,
+                                 magi_fused_batch, magi_fused_batch_grad,
                                  smoother_recursion_batch_rows,
                                  solve_mv_fused, solve_mv_fused_batch,
                                  solve_mv_fused_batch_grad,
                                  solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv
 
-__all__ = ["interrogate", "prior", "solve_mv", "solve_mv_fused_batch",
-           "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
+__all__ = ["inference", "interrogate", "prior", "solve_mv",
+           "solve_mv_fused_batch", "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
            "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fenrir_fused_batch_grad",
            "dalton_fused_batch_grad", "fused_loglik", "solve_mv_fused",
-           "fenrir_fused", "smoother_recursion_batch_rows"]
+           "fenrir_fused", "smoother_recursion_batch_rows",
+           "magi_fused_batch", "magi_fused_batch_grad"]

@@ -11,6 +11,8 @@ built by :mod:`._build`):
   (K11a, K11b), and one evaluation of it (K3, K7a);
 - :mod:`.fused_dalton`: the DALTON likelihood (K8) and its gradient (K11c);
 - :mod:`.fused_sim`: posterior path sampling (K1, K6);
+- :mod:`.fused_magi`: the MAGI log-density (K10a) and its reverse-mode path
+  gradient (K10b);
 - :mod:`.dual`: the forward-mode numbers of the tangent kernels' twins;
 - :mod:`.autograd`: the likelihoods as ``torch.autograd.Function``\ s.
 """
@@ -26,6 +28,8 @@ from rodeo_tpu_torch.ops.fused_kalman import (basic_fused_batch,
                                               solve_mv_fused,
                                               solve_mv_fused_batch,
                                               solve_mv_fused_batch_grad)
+from rodeo_tpu_torch.ops.fused_magi import (magi_fused_batch,
+                                            magi_fused_batch_grad)
 from rodeo_tpu_torch.ops.fused_sim import solve_sim_fused_batch
 
 __all__ = ["basic_fused_batch", "dalton_fused_batch", "fenrir_fused_batch",
@@ -33,4 +37,5 @@ __all__ = ["basic_fused_batch", "dalton_fused_batch", "fenrir_fused_batch",
            "basic_fused_batch_grad", "dalton_fused_batch_grad",
            "fenrir_fused_batch_grad", "solve_mv_fused_batch_grad",
            "fused_loglik", "solve_mv_fused", "fenrir_fused",
-           "smoother_recursion_batch_rows"]
+           "smoother_recursion_batch_rows", "magi_fused_batch",
+           "magi_fused_batch_grad"]

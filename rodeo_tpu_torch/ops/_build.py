@@ -62,6 +62,12 @@ _SIGNATURES = {
     # n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov,
     # stream
     "rodeo_smoother_batch_rows": [_I] * 3 + [_P] * 10,
+    # the MAGI kernels: act, emit_adjoint, n_steps, n_block, n_lane,
+    # r_lane_stride, q_const (host), x, R, m0, ld_blocks, z, s_inv, G, stream
+    "rodeo_magi_batch": [_I] * 6 + [_P] * 9,
+    # act, n_steps, n_block, n_lane, q_const (host), z, s_inv, G, gx, lam0,
+    # stream
+    "rodeo_magi_adjoint_batch": [_I] * 4 + [_P] * 7,
 }
 
 

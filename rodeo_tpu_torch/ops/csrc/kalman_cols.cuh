@@ -80,34 +80,60 @@ __device__ __forceinline__ void sym_quadform(const TA (&A)[Q][Q],
   }
 }
 
-// Closed-form inverse of a packed symmetric matrix, scale-normalised
-// against float32 determinant overflow (_sym_inv of ops/fused_kalman.py,
-// the cofactor form).  q = 4 and 5 need the Schur-split form of _sym_inv
+// Closed-form inverse of a packed symmetric matrix (_sym_inv of
+// ops/fused_kalman.py): 1 / p for Q = 1; the adjugate over the determinant
+// for Q = 2; for Q = 3 the cofactor form, scale-normalised against float32
+// determinant overflow.  q = 4 and 5 need the Schur-split form of _sym_inv
 // ported first.  The scale rs is taken from the values alone: the inverse
 // does not depend on it, so it is a constant with a zero tangent, as in the
 // twin (differentiating fmaxf would split the tangent at ties).
 template <int Q, class T>
 __device__ __forceinline__ void sym_inv(const T (&p)[Tri<Q>::N],
                                         T (&out)[Tri<Q>::N]) {
-  static_assert(Q == 3, "sym_inv: only the q = 3 cofactor form is ported");
-  T a = p[0], b = p[1], c = p[2], d = p[3], e = p[4], f = p[5];
-  const float s = fmaxf(fabsf(value(a)), fmaxf(fabsf(value(d)), fabsf(value(f))));
-  const float rs = 1.0f / fmaxf(s, 1e-30f);
-  a = a * rs; b = b * rs; c = c * rs; d = d * rs; e = e * rs; f = f * rs;
-  const T co00 = d * f - e * e;
-  const T co01 = c * e - b * f;
-  const T co02 = b * e - c * d;
-  const T co11 = a * f - c * c;
-  const T co12 = b * c - a * e;
-  const T co22 = a * d - b * b;
-  const T det = a * co00 + b * co01 + c * co02;
-  const T inv_det = rs / det;
-  out[0] = co00 * inv_det;
-  out[1] = co01 * inv_det;
-  out[2] = co02 * inv_det;
-  out[3] = co11 * inv_det;
-  out[4] = co12 * inv_det;
-  out[5] = co22 * inv_det;
+  static_assert(Q >= 1 && Q <= 3, "sym_inv: only q <= 3 is ported");
+  if constexpr (Q == 1) {
+    out[0] = 1.0f / p[0];
+  } else if constexpr (Q == 2) {
+    const T inv_det = 1.0f / (p[0] * p[2] - p[1] * p[1]);
+    out[0] = p[2] * inv_det;
+    out[1] = (-p[1]) * inv_det;
+    out[2] = p[0] * inv_det;
+  } else {
+    T a = p[0], b = p[1], c = p[2], d = p[3], e = p[4], f = p[5];
+    const float s = fmaxf(fabsf(value(a)), fmaxf(fabsf(value(d)), fabsf(value(f))));
+    const float rs = 1.0f / fmaxf(s, 1e-30f);
+    a = a * rs; b = b * rs; c = c * rs; d = d * rs; e = e * rs; f = f * rs;
+    const T co00 = d * f - e * e;
+    const T co01 = c * e - b * f;
+    const T co02 = b * e - c * d;
+    const T co11 = a * f - c * c;
+    const T co12 = b * c - a * e;
+    const T co22 = a * d - b * b;
+    const T det = a * co00 + b * co01 + c * co02;
+    const T inv_det = rs / det;
+    out[0] = co00 * inv_det;
+    out[1] = co01 * inv_det;
+    out[2] = co02 * inv_det;
+    out[3] = co11 * inv_det;
+    out[4] = co12 * inv_det;
+    out[5] = co22 * inv_det;
+  }
+}
+
+// Determinant of a packed symmetric matrix, Q <= 3 (_sym_det of
+// ops/fused_magi.py; not scale-normalised, as in the JAX package: in the
+// Taylor-scaled coordinates the entries are O(1)).
+template <int Q, class T>
+__device__ __forceinline__ T sym_det(const T (&s)[Tri<Q>::N]) {
+  static_assert(Q >= 1 && Q <= 3, "sym_det: only q <= 3 is ported");
+  if constexpr (Q == 1) {
+    return s[0];
+  } else if constexpr (Q == 2) {
+    return s[0] * s[2] - s[1] * s[1];
+  } else {
+    return s[0] * (s[3] * s[5] - s[4] * s[4]) - s[1] * (s[1] * s[5] - s[4] * s[2]) +
+           s[2] * (s[1] * s[4] - s[3] * s[2]);
+  }
 }
 
 // log(2 pi), rounded to float32 as PyTorch rounds the Python float

@@ -1,6 +1,6 @@
 r"""
 Taylor-mode preconditioning of the solver state (port of
-:mod:`rodeo_tpu.ops.precond`, ``solve_mv`` only).
+:mod:`rodeo_tpu.ops.precond`: ``solve_mv`` and ``magi_logdens``).
 
 The IBM prior over ``(x, x', ..., x^{(q)})`` with step ``dt`` has entries
 spanning :math:`dt^{\pm q}`, beyond float32's range of precision on fine
@@ -18,8 +18,9 @@ import math
 import torch
 
 import rodeo_tpu_torch.solve as _solve
+from rodeo_tpu_torch.inference import magi as _magi
 
-__all__ = ["taylor_scale", "scale_prior", "solve_mv"]
+__all__ = ["taylor_scale", "scale_prior", "solve_mv", "magi_logdens"]
 
 
 def taylor_scale(dt, n_deriv, dtype, device=None):
@@ -111,3 +112,37 @@ def solve_mv(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
         **params)
     t_v = t_vec.to(mean_s.dtype)
     return mean_s * t_v, var_s * (t_v[:, None] * t_v[None, :])
+
+
+def magi_logdens(ode_data_subset, ode_expand, n_active, prior_pars, dt,
+                 kalman_type="standard", **params):
+    r"""
+    Preconditioned :func:`rodeo_tpu_torch.inference.magi.magi_logdens`.
+
+    The MAGI filter runs on the Taylor-scaled state; since the observed
+    pseudo-data are the scaled first ``n_active`` derivatives, the scaled
+    log-density differs from the original by the exact change-of-variables
+    Jacobian :math:`N\,n_{block}\sum_{i<n_{active}}\log t_i`, which is
+    subtracted, so the value matches the plain implementation.
+
+    Args:
+        dt (float): Solver step size (needed to build the Taylor scaling;
+            the plain API encodes it only implicitly in ``prior_pars``).
+        (other arguments as
+        :func:`rodeo_tpu_torch.inference.magi.magi_logdens`)
+    """
+    probe = ode_expand(ode_data_subset, **params)
+    n_steps_p1, n_block, n_deriv = probe.shape
+    t_vec = taylor_scale(dt, n_deriv, dtype=probe.dtype, device=probe.device)
+    prior_s = scale_prior(prior_pars, t_vec)
+
+    def ode_expand_s(subset, **p):
+        return ode_expand(subset, **p) / t_vec
+
+    logdens_s = _magi.magi_logdens(
+        ode_data_subset=ode_data_subset, ode_expand=ode_expand_s,
+        n_active=n_active, prior_pars=prior_s, kalman_type=kalman_type,
+        **params)
+    jacobian = (n_steps_p1 - 1) * n_block * torch.sum(
+        torch.log(t_vec[:n_active]))
+    return logdens_s - jacobian

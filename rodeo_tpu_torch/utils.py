@@ -21,8 +21,12 @@ def mvdot(mat, vec):
 
 
 def quadform(wgt, var):
-    """Batched quadratic form ``wgt @ var @ wgt.T`` on trailing dims."""
-    return torch.einsum("...ij,...jk,...lk->...il", wgt, var, wgt)
+    """Batched quadratic form ``wgt @ var @ wgt.T`` on trailing dims, as two
+    two-operand contractions: a three-operand ``torch.einsum`` asks
+    opt_einsum for a contraction path on every call, which costs more than
+    the product at these sizes."""
+    return torch.einsum("...ik,...lk->...il",
+                        torch.einsum("...ij,...jk->...ik", wgt, var), wgt)
 
 
 def solve_var(V, B):

@@ -319,6 +319,10 @@ def _entry_point_calls():
     obs = dict(obs_data=torch.zeros((3, 3, 1)),
                obs_times=torch.tensor([0.0, 0.05, 0.1]),
                obs_weight=obs_w, obs_var=torch.full((3, 3, 1, 1), 0.005))
+    magi = dict(ode_data_subsets=torch.zeros((2, 9, 3, 2)),
+                ode_expand=lambda u: torch.cat(
+                    [u, torch.zeros_like(u[..., :1])], -1),
+                n_active=2, prior_pars=cfg["prior_pars"], dt=0.1 / 8)
     return {
         "lorenz.setup": lambda: tlorenz.setup(n_steps=8, t_max=0.1),
         "fitzhugh.setup": lambda: tfitzhugh.setup(n_steps=8),
@@ -341,6 +345,8 @@ def _entry_point_calls():
             **lanes, **obs),
         "solve_mv_fused": lambda: rt.solve_mv_fused(**single),
         "fenrir_fused": lambda: rt.fenrir_fused(**single, **obs),
+        "magi_fused_batch": lambda: rt.magi_fused_batch(**magi),
+        "magi_fused_batch_grad": lambda: rt.magi_fused_batch_grad(**magi),
     }
 
 
@@ -349,7 +355,8 @@ def _entry_point_calls():
     "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
     "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
     "basic_fused_batch_grad", "fenrir_fused_batch_grad",
-    "dalton_fused_batch_grad", "solve_mv_fused", "fenrir_fused"])
+    "dalton_fused_batch_grad", "solve_mv_fused", "fenrir_fused",
+    "magi_fused_batch", "magi_fused_batch_grad"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without ``device`` an entry point runs on CUDA; with no CUDA device
     it raises rather than fall back to the CPU, which only

@@ -5,7 +5,8 @@ The port's CUDA kernels on the card: K1 (filter_batch), K2r
 (filter_batch_tan), K11b (fenrir_backward_batch_tan), K11c
 (dalton_filter_batch_tan) and K11e (smoother_mean_batch_tan), and the
 single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
-(fenrir_backward_single) against their plain PyTorch twins on the same CUDA
+(fenrir_backward_single), and the MAGI kernels K10a (magi_batch) and K10b
+(magi_adjoint_batch) against their plain PyTorch twins on the same CUDA
 inputs, and the launch contract of each fused entry point.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
@@ -15,6 +16,8 @@ imports no JAX, so that it runs where only the port is installed:
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from rodeo_tpu_torch.models import fitzhugh, lorenz
 from rodeo_tpu_torch.ops import fused_dalton as fd
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import fused_magi as fm
 from rodeo_tpu_torch.ops import fused_sim as fs
 
 pytestmark = pytest.mark.cuda
@@ -153,13 +157,15 @@ def _obs(model, n_obs, t_max, device):
 
 
 def _reset_launches():
-    for counts in (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES):
+    for counts in (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES,
+                   fm.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _launches():
-    return {**fk.LAUNCHES, **ff.LAUNCHES, **fd.LAUNCHES, **fs.LAUNCHES}
+    return {**fk.LAUNCHES, **ff.LAUNCHES, **fd.LAUNCHES, **fs.LAUNCHES,
+            **fm.LAUNCHES}
 
 
 def _launched():
@@ -435,3 +441,74 @@ def test_single_entry_points_launch_their_kernels(cuda_device):
         for a, b in zip(out, cpu):
             assert a.is_cuda and torch.isfinite(a).all(), name
             assert _scaled_err(a, b) <= ENTRY_TOL, name
+
+
+def _magi_lanes(n_steps, n_lane, act, device, sig2=False):
+    """MAGI's operands on the cached Lorenz63 truth path plus seeded
+    roughness, its prior's process noise scaled by 1e-5 (a discriminating
+    density), dt = 0.005: the lane-batched subsets and the call's
+    arguments."""
+    truth = np.load(Path(__file__).resolve().parents[1]
+                    / ".bench_ref_v8.npz")["solve_mu_4k"][:n_steps + 1]
+    rng = np.random.default_rng(12)
+    base = truth[:, :, :2]
+    subs = np.stack([base + 0.1 * rng.standard_normal(base.shape)
+                     for _ in range(n_lane)])
+    cfg = lorenz.setup(n_steps=n_steps, t_max=0.005 * n_steps,
+                       dtype=torch.float32, device=device)
+    wgt, var = cfg["prior_pars"]
+    sig2_lanes = torch.tensor(rng.uniform(0.5, 2.0, n_lane),
+                              dtype=torch.float32) if sig2 else None
+    return torch.tensor(subs, dtype=torch.float32, device=device), dict(
+        ode_expand=lambda u: torch.cat([u, torch.zeros_like(u[..., :1])],
+                                       -1),
+        n_active=act, prior_pars=(wgt, var * 1e-5), dt=0.005,
+        sig2_lanes=sig2_lanes)
+
+
+@pytest.mark.parametrize("act,sig2", [(1, False), (2, False), (3, False),
+                                      (2, True)])
+def test_magi_kernels_match_their_twins_on_the_card(cuda_device, act, sig2):
+    """K10a (both emits) and K10b on K10a's streams against their twins."""
+    subs, kw = _magi_lanes(300, 96, act, cuda_device, sig2)
+    paths = kw["ode_expand"](subs)
+    q_const, _, R, x, m0 = fm._magi_operands(
+        paths, act, kw["prior_pars"], kw["dt"], kw["sig2_lanes"])
+    ld = fm.magi_filter_batch(x, R, m0, q_const, emit="ld")
+    out = fm.magi_filter_batch(x, R, m0, q_const, emit="adjoint")
+    plain = fm._magi_batch_plain(x, R, m0, q_const, "adjoint")
+    assert torch.isfinite(ld).all()
+    assert torch.equal(ld, out[0])
+    assert _scaled_err(ld, fd._block_sum(plain[0])) <= TWIN_TOL
+    for a, b in zip(out[1:], plain[1:]):
+        assert _scaled_err(a, b) <= TWIN_TOL
+    streams = out[1:] if act < 3 else (*out[1:], None)
+    for a, b in zip(fm.magi_adjoint_batch(*streams, q_const),
+                    fm._magi_adjoint_batch_plain(*streams, q_const)):
+        assert torch.isfinite(a).all()
+        assert _scaled_err(a, b) <= TWIN_TOL
+
+
+def test_magi_entry_points_launch_their_kernels(cuda_device):
+    """magi_fused_batch launches K10a once and magi_fused_batch_grad K10a and
+    K10b once each, with the value call's values bitwise; both agree with
+    the same calls on the CPU (the plain twins)."""
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        subs, kw = _magi_lanes(300, 64, 2, device)
+        _reset_launches()
+        ld = fm.magi_fused_batch(subs, **kw, device=device)
+        torch.cuda.synchronize()
+        assert _launched() == ({"magi_batch": 1} if device.type == "cuda"
+                               else {})
+        _reset_launches()
+        ld_g, g = fm.magi_fused_batch_grad(subs, **kw, device=device)
+        torch.cuda.synchronize()
+        assert _launched() == ({"magi_batch": 1, "magi_adjoint_batch": 1}
+                               if device.type == "cuda" else {})
+        assert torch.equal(ld, ld_g)
+        assert torch.isfinite(g).all() and g.shape == subs.shape
+        out[device.type] = (ld, g)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.is_cuda
+        assert _scaled_err(a, b) <= TWIN_TOL
