@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the 14
+Run it from a checkout: it imports the package beside it and builds the 17
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -77,13 +77,28 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              float64 truth); each kernel timed and checked against its twin
              at its path's shapes, K4 also on the composed smoother's
              boundary groups;
-14. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
+14. k5_twin  the stationary solve's mean-chain kernels K5a
+             (mean_gain_single), K5b (mean_boundary_single) and K5c
+             (mean_recovery_single) against their twins on the same CUDA
+             inputs at 1000 steps, Lorenz63 EK1 and FitzHugh-Nagumo EK0, on
+             K3's exact prefix and its gains; and K5b + K5c against K5a with
+             the frozen gain from the same start, which must agree bitwise;
+15. stationary  solve_mv_fused_stationary on the single phase's Lorenz63
+             EK1 10 000-step solve: it must launch K3, K5b, K5c and K4 once
+             each, stay finite and pass the t <= 4 audit; its time beside
+             solve_mv_fused's, in turns on the card, and peak memory; one
+             call with the JAX package's 64-step composed smoother; and a
+             150-step horizon at the same step, which must launch K3, K5a
+             and K4 once each and pass the audit on its rows;
+16. stationary_kernels  K5a, K5b and K5c alone at their paths' shapes,
+             timed and checked against their twins there;
+17. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
              and K10b (magi_adjoint_batch, on K10a's streams) against their
              twins on the same CUDA inputs, 1000 steps x 256 lanes of the
              cached Lorenz63 path plus seeded noise, the prior's process
              noise x 1e-5: n_active 1, 2 and 3, and 2 with a per-lane
              sig2_lanes;
-15. magi     bench.py's MAGI fixture at full width: the cached float64
+18. magi     bench.py's MAGI fixture at full width: the cached float64
              Lorenz63 path (4000 steps, dt 0.005) plus 1e-4 x lane, 2048
              lanes, n_active 2.  magi_fused_batch must launch K10a once,
              stay finite and pass the audit of lane 0 against the cached
@@ -97,12 +112,13 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              and its torch.autograd gradient (MAGI_F64_TOL); then the time
              per call of each and the gradient's ratio to the value call,
              and peak memory;
-16. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
+19. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
              timed and checked against their twins there;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
-error against its twin, time, its plain twin's time and its bound (the
+error against its twin, time on the device (ms) and of its wrapper's call
+(call_ms), its plain twin's time and its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
 from its twin, over 67 TFLOP/s), and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
@@ -173,6 +189,10 @@ SIM_VAR_MIN = 1e-8
 # rule max|g - g_ref| / (max|g_ref| + 1) (tests/test_pallas_magi.py); the
 # twins meet it on the CPU at 4000 steps (tests/test_torch_magi.py).
 MAGI_F64_TOL = 2e-4
+# Clock cycles of the sleep that holds the stream while the host enqueues a
+# timed kernel (device_ms): ~10 ms at the H100's clocks, longer than any
+# wrapper's host work.
+HOLD_CYCLES = 20_000_000
 # The card's published peaks (H100 SXM, at a 700 W limit): device memory
 # bandwidth and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -188,6 +208,9 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
+# The stationary solve's mean chain K5a, K5b, K5c.
+MEAN_KERNELS = ("mean_gain_single", "mean_boundary_single",
+                "mean_recovery_single")
 # The MAGI kernels K10a, K10b.
 MAGI_KERNELS = ("magi_batch", "magi_adjoint_batch")
 
@@ -320,6 +343,24 @@ def main():
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def device_ms(fn, repeats):
+        """Median milliseconds of the device work that fn() enqueues, by
+        CUDA events, after one warm-up: a sleep on the stream holds the
+        start event back while the host enqueues fn, so that the wrapper's
+        host time, which exceeds a short kernel's, is not counted."""
+        fn()
+        times = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
     def cuda_once(fn):
         """fn() and its milliseconds by CUDA events, one run."""
         start = torch.cuda.Event(enable_timing=True)
@@ -386,15 +427,19 @@ def main():
 
     def at_path_shapes(phase, name, replaces, launches, launch, twin, names,
                        count_ops, n_work, inputs, split=None, out_bytes=None,
-                       repeats=5, register=True, config="", **extra):
-        """A kernel alone at its path's shapes: its median time, its twin's
-        time and outputs on the same CUDA inputs, the error of each output
-        (twin_errors; checked against TWIN_TOL), and its bound from the
-        bytes of its inputs and outputs and from count_ops(n), which runs
-        the twin for n steps of one lane on the CPU, times n_work (steps x
-        lanes).  Registers the kernel's entry of the kernels line; returns
-        the kernel's outputs and the entry."""
-        ms = cuda_ms(launch, repeats)
+                       repeats=5, register=True, config="", source=None,
+                       **extra):
+        """A kernel alone at its path's shapes: its median time on the
+        device (device_ms) and that of its wrapper's call (cuda_ms), its
+        twin's time and outputs on the same CUDA inputs, the error of each
+        output (twin_errors; checked against TWIN_TOL), and its bound from
+        the bytes of its inputs and outputs and from count_ops(n), which
+        runs the twin for n steps of one lane on the CPU, times n_work
+        (steps x lanes).  Registers the kernel's entry of the kernels line;
+        returns the kernel's outputs and the entry.  The source is
+        csrc/<name>.cu unless named."""
+        ms = device_ms(launch, repeats)
+        call_ms = cuda_ms(launch, repeats)
         out = as_tuple(launch())
         plain, plain_ms = cuda_once(lambda: as_tuple(twin()))
         errs = twin_errors(names, out, plain, split)
@@ -407,11 +452,12 @@ def main():
         max_abs, max_scaled = worst(errs)
         entry = {
             "name": name, "route": "cuda",
-            "source": f"rodeo_tpu_torch/ops/csrc/{name}.cu",
+            "source": f"rodeo_tpu_torch/ops/csrc/{source or name}.cu",
             "replaces": f"rodeo_tpu/ops/{replaces}",
             "launches": launches[name], "max_abs_err": max_abs,
             "max_scaled_err": max_scaled, "tol_scaled": TWIN_TOL,
-            "bitwise": bitwise, "ms": ms, "plain_ms": plain_ms,
+            "bitwise": bitwise, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
             "library_ms": None, **extra}
         label = f"{name} {config}".strip()
@@ -618,7 +664,8 @@ def main():
     cfg64 = fitzhugh.setup(n_steps=n_fh, t_max=10.0, dtype=torch.float64,
                            device=dev)
     theta64 = cfg64.pop("theta")
-    mu64, _ = rodeo_tpu_torch.solve_mv(interrogate=interrogate_kramer,
+    mu64, _ = rodeo_tpu_torch.solve_mv(key=None,
+                                       interrogate=interrogate_kramer,
                                        theta=theta64, **cfg64)
     err64 = float(np.max(np.abs(mu64.cpu().numpy()
                                 - truth["solve_mu_fitz"])))
@@ -1370,7 +1417,181 @@ def main():
         del out_3, mf, pf, mp, pp, ops_1, Qs_1, cpu_1
     emit({"phase": "single_kernels", "kernels": at_single})
 
-    # ---- 14. the MAGI kernels against their twins -------------------------
+    # ---- 14. the stationary solve's mean chain against its twins ---------
+    def mean_chain_operands(mod, model, mode, n, t_max_s, theta_of):
+        """The operands of K5a, K5b and K5c as solve_mv_fused_stationary
+        builds them at n steps (K3's exact prefix and its gains, the tail
+        after it), and K5a's with the frozen gain from the prefix's end over
+        the tail."""
+        ops_m, _ = single_setup(mod, n, t_max_s, theta_of)
+        fused_m = fk.resolve_model(model)
+        n_warm, _ = fk._stationary_schedule(n, 64, True)
+        mfw, _, _, ppw = fk.fused_filter(
+            fused_m, n_warm, **{**ops_m, "tgrid": ops_m["tgrid"][:n_warm]},
+            mode=mode)
+        k_pre = fk._stationary_gains(fused_m, ops_m, ppw, mode, 0.0)
+        k_star, tail = k_pre[-1], ops_m["tgrid"][n_warm:]
+        chain = (fused_m, ops_m["q_const"], ops_m["ode_weight"],
+                 ops_m["t_vec"])
+        frozen = k_star.expand(n - n_warm, *k_star.shape)
+        return dict(
+            gain=(*chain, ops_m["x0"], ops_m["theta"], ops_m["tgrid"],
+                  torch.cat([k_pre, frozen])),
+            boundary=(*chain, mfw[-1], ops_m["theta"], tail, k_star),
+            constant=(*chain, mfw[-1], ops_m["theta"], tail,
+                      frozen.contiguous()))
+
+    def recovery_args(boundary, bnd):
+        """K5c's operands: K5b's, its output in place of the start."""
+        return (*boundary[:4], bnd, *boundary[5:])
+
+    for model, mode, t_max_tw, seed in (("lorenz", "kramer", 2.0, 10),
+                                        ("fitzhugh", "rodeo", 10.0, 11)):
+        mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
+        args_5 = mean_chain_operands(mod, model, mode, n_tw, t_max_tw,
+                                     one_theta(seed))
+        twin_report("k5_twin", f"{model}/{mode} mean_gain_single", ["mf"],
+                    fk.mean_gain_chain(*args_5["gain"]),
+                    fk._mean_gain_plain(*args_5["gain"]))
+        bnd = fk.mean_boundary_chain(*args_5["boundary"])
+        twin_report("k5_twin", f"{model}/{mode} mean_boundary_single",
+                    ["bnd"], bnd,
+                    fk._mean_boundary_plain(*args_5["boundary"], 64))
+        rec = recovery_args(args_5["boundary"], bnd)
+        rows = fk.mean_recovery_chain(*rec)
+        twin_report("k5_twin", f"{model}/{mode} mean_recovery_single",
+                    ["mf"], rows, fk._mean_recovery_plain(*rec))
+        # K5b + K5c are K5a with the frozen gain from the same start
+        ref_5 = fk.mean_gain_chain(*args_5["constant"])
+        twin_report("k5_twin", f"{model}/{mode} K5b + K5c against K5a",
+                    ["mf"], rows, ref_5, n_group=bnd.shape[0])
+        check("k5_twin", f"{model}/{mode} K5b + K5c bitwise K5a",
+              torch.equal(rows, ref_5))
+    del args_5, bnd, rec, rows, ref_5
+
+    # ---- 15. the stationary-gain single solve ------------------------------
+    def stationary_1(**kw):
+        return fk.solve_mv_fused_stationary(**single, **kw)
+
+    path_5 = expect(filter_single=1, mean_boundary_single=1,
+                    mean_recovery_single=1, smoother_single=1)
+    reset_counts()
+    (mean_s, var_s), stat_peak = peak_above_base(stationary_1)
+    stat_launches = read_counts()
+    check("stationary", "launches", stat_launches == path_5)
+    shape_s = check("stationary", "shapes",
+                    tuple(mean_s.shape) == (n_steps + 1, 3, 3)
+                    and tuple(var_s.shape) == (n_steps + 1, 3, 3, 3))
+    finite_s = check("stationary", "finite",
+                     torch.isfinite(mean_s).all().item()
+                     and torch.isfinite(var_s).all().item())
+    err_s = audit_10k(mean_s)
+    audit_s = check("stationary", "audit", err_s <= tol_1)
+    del mean_s, var_s
+    # the two paths in turns, on the same card
+    exact_ms = cuda_ms(solve_1, repeats=5)
+    stat_ms = cuda_ms(stationary_1, repeats=5)
+    stat_ms_2 = cuda_ms(stationary_1, repeats=5)
+    exact_ms_2 = cuda_ms(solve_1, repeats=5)
+    # the JAX package's smoother, the 64-step composition, once
+    reset_counts()
+    mean_c64, c64_ms = cuda_once(lambda: stationary_1(k_compose=64)[0])
+    c64_launches = read_counts()
+    check("stationary", "k_compose=64 launches", c64_launches == path_5)
+    err_c64 = audit_10k(mean_c64)
+    audit_c64 = check("stationary", "k_compose=64 audit", err_c64 <= tol_1)
+    del mean_c64
+    # a short horizon at the same step: one 64-step group, so K5a
+    n_short = 150
+    t_short = t_max * n_short / n_steps
+    cfg_sh = lorenz.setup(n_steps=n_short, t_max=t_short,
+                          dtype=torch.float32, device=dev)
+    short = dict(single, n_steps=n_short, t_max=t_short,
+                 prior_pars=cfg_sh["prior_pars"])
+    reset_counts()
+    mean_sh = fk.solve_mv_fused_stationary(**short)[0]
+    short_launches = read_counts()
+    check("stationary", "short launches", short_launches == expect(
+        filter_single=1, mean_gain_single=1, smoother_single=1))
+    finite_sh = check("stationary", "short finite",
+                      torch.isfinite(mean_sh).all().item())
+    # the audit rule on the truth's first rows, which lie on this grid
+    err_sh = max_err_prefix(mean_sh.cpu().numpy(), truth["solve_mu_10k"],
+                            n_short + 1)
+    tol_sh = max(3 * max_err_prefix(truth["solve_mu_10k_f32cpu"],
+                                    truth["solve_mu_10k"], n_short + 1),
+                 AUDIT_FLOOR)
+    audit_sh = check("stationary", "short audit", err_sh <= tol_sh)
+    del mean_sh
+    short_ms = cuda_ms(lambda: fk.solve_mv_fused_stationary(**short),
+                       repeats=5)
+    emit({"phase": "stationary", "model": "lorenz", "interrogation": "kramer",
+          "n_steps": n_steps, "t_max": t_max,
+          "schedule": fk._stationary_schedule(n_steps, 64, True),
+          "launches": {k: v for k, v in stat_launches.items() if v},
+          "shapes_ok": shape_s, "finite": finite_s,
+          "audit_max_abs_err_t4": err_s, "audit_tol": tol_1,
+          "audit_ok": audit_s, "call_ms": [stat_ms, stat_ms_2],
+          "solve_mv_fused_call_ms": [exact_ms, exact_ms_2],
+          "ratio_to_solve_mv_fused": (stat_ms + stat_ms_2)
+          / (exact_ms + exact_ms_2),
+          "peak_mem_bytes_above_base": stat_peak,
+          "aten_calls_per_call": aten_calls(stationary_1),
+          "k_compose_64": {
+              "launches": {k: v for k, v in c64_launches.items() if v},
+              "audit_max_abs_err_t4": err_c64, "audit_ok": audit_c64,
+              "one_call_ms": c64_ms},
+          "short": {"n_steps": n_short, "t_max": t_short,
+                    "launches": {k: v for k, v in short_launches.items()
+                                 if v},
+                    "finite": finite_sh, "audit_max_abs_err": err_sh,
+                    "audit_tol": tol_sh, "audit_ok": audit_sh,
+                    "call_ms": short_ms}})
+
+    # ---- 16. the mean-chain kernels at their paths' shapes ----------------
+    # (these launches come after the counts above were read): K5b and K5c on
+    # the 10 000-step solve's tail, K5a on the short horizon's 150 steps
+    at_stat = {}
+    long_5 = mean_chain_operands(lorenz, "lorenz", "kramer", n_steps, t_max,
+                                 lambda th: th)["boundary"]
+    short_5 = mean_chain_operands(lorenz, "lorenz", "kramer", n_short,
+                                  t_short, lambda th: th)["gain"]
+    long_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in long_5]
+    short_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in short_5]
+    n_tail = long_5[6].shape[0]
+    bnd, at_stat["mean_boundary_single"] = at_path_shapes(
+        "stationary_kernels", "mean_boundary_single", "pallas_kalman.py:2234",
+        stat_launches, lambda: fk.mean_boundary_chain(*long_5),
+        lambda: fk._mean_boundary_plain(*long_5, 64), ["bnd"],
+        lambda n: fk._mean_boundary_plain(*long_cpu[:6], long_cpu[6][:n],
+                                          long_cpu[7], 1),
+        n_tail, tensors(dict(enumerate(long_5))),
+        source="mean_chain_single", shape=f"{n_tail} steps")
+    rec_5 = recovery_args(long_5, bnd[0])
+    rec_cpu = recovery_args(long_cpu, bnd[0][:1].cpu())
+    _, at_stat["mean_recovery_single"] = at_path_shapes(
+        "stationary_kernels", "mean_recovery_single", "pallas_kalman.py:2271",
+        stat_launches, lambda: fk.mean_recovery_chain(*rec_5),
+        lambda: fk._mean_recovery_plain(*rec_5), ["mf"],
+        lambda n: fk._mean_recovery_plain(*rec_cpu[:6], rec_cpu[6][:n],
+                                          rec_cpu[7]),
+        n_tail, tensors(dict(enumerate(rec_5))),
+        source="mean_chain_single",
+        shape=f"{bnd[0].shape[0]} groups of 64")
+    _, at_stat["mean_gain_single"] = at_path_shapes(
+        "stationary_kernels", "mean_gain_single", "pallas_kalman.py:2197",
+        short_launches, lambda: fk.mean_gain_chain(*short_5),
+        lambda: fk._mean_gain_plain(*short_5), ["mf"],
+        lambda n: fk._mean_gain_plain(*short_cpu[:6], short_cpu[6][:n],
+                                      short_cpu[7][:n]),
+        n_short, tensors(dict(enumerate(short_5))),
+        source="mean_chain_single", shape=f"{n_short} steps")
+    del long_5, short_5, long_cpu, short_cpu, bnd, rec_5, rec_cpu
+    emit({"phase": "stationary_kernels", "kernels": at_stat})
+
+    # ---- 17. the MAGI kernels against their twins -------------------------
     mu4k = torch.tensor(truth["solve_mu_4k"], dtype=torch.float32,
                         device=dev)
     dt_mg = 20.0 / 4000
@@ -1423,7 +1644,7 @@ def main():
                     n_lane=b_tw)
     del subs_tw, sig2_tw, R_tw, x_tw, m0_tw, out_k, out_p, streams
 
-    # ---- 15. MAGI at full width --------------------------------------------
+    # ---- 18. MAGI at full width --------------------------------------------
     n_mg, b_mg = 4000, 2048
     lanes_mg = torch.arange(b_mg, dtype=torch.float32, device=dev)
     # bench.py's lane batch: the cached path + 1e-4 x lane index
@@ -1542,7 +1763,7 @@ def main():
                           "f64_reference_s": ref_s}})
     del subs_inf, ld_inf, g_inf, g_ref, ld_ref
 
-    # ---- 16. the MAGI kernels at the path's shapes ------------------------
+    # ---- 19. the MAGI kernels at the path's shapes ------------------------
     # (these launches come after the counts above were read)
     q_mg, _, R_mg, x_mg, m0_mg = fm._magi_operands(
         magi_expand(subs_mg), 2, cfg_mg["prior_pars"], dt_mg, None)
@@ -1564,8 +1785,9 @@ def main():
             streams_mg = magi_streams(out_mg, 2)
     kernels["magi_batch"]["emit_adjoint"] = {
         k: at_magi["magi_batch/adjoint"][k]
-        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "work",
-                  "max_abs_err", "max_scaled_err", "bitwise", "launches")}
+        for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                  "work", "max_abs_err", "max_scaled_err", "bitwise",
+                  "launches")}
     del out_mg
     streams_cpu = [cpu_lane(t) for t in streams_mg]
     _, at_magi["magi_adjoint_batch"] = at_path_shapes(
@@ -1588,7 +1810,7 @@ def main():
     emit({"kernels": [kernels[name] for name in (
         "filter_batch", "smoother_batch_rows", "sampler_batch",
         "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS
-        + SINGLE_KERNELS + MAGI_KERNELS]})
+        + SINGLE_KERNELS + MEAN_KERNELS + MAGI_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

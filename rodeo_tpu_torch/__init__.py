@@ -30,7 +30,10 @@ path and its gradients, the single-solve fused path, and MAGI):
 - the single solve :func:`solve_mv_fused` (``ops/csrc/filter_single.cu``
   and ``ops/csrc/smoother_single.cu``, with the k-step composed smoother)
   and the single fenrir evaluation :func:`fenrir_fused` (the same filter
-  and ``ops/csrc/fenrir_backward_single.cu``); and
+  and ``ops/csrc/fenrir_backward_single.cu``); the stationary-gain
+  single solve :func:`solve_mv_fused_stationary` (an exact prefix on the
+  same filter, then the mean chain of ``ops/csrc/mean_chain_single.cu``);
+  and
   :func:`smoother_recursion_batch_rows`, the batched solve's smoother,
   which writes its rows in one pass;
 - MAGI: the float64 torch-op :func:`rodeo_tpu_torch.inference.magi_logdens`
@@ -57,6 +60,7 @@ from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  smoother_recursion_batch_rows,
                                  solve_mv_fused, solve_mv_fused_batch,
                                  solve_mv_fused_batch_grad,
+                                 solve_mv_fused_stationary,
                                  solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv
 
@@ -65,5 +69,6 @@ __all__ = ["inference", "interrogate", "prior", "solve_mv",
            "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fenrir_fused_batch_grad",
            "dalton_fused_batch_grad", "fused_loglik", "solve_mv_fused",
+           "solve_mv_fused_stationary",
            "fenrir_fused", "smoother_recursion_batch_rows",
            "magi_fused_batch", "magi_fused_batch_grad"]

@@ -98,5 +98,5 @@ def magi_logdens(ode_data_subset, ode_expand, n_active, prior_pars,
         mean_past, var_past = kalman_funs.update(
             mean_state_pred=mean_pred, var_state_pred=var_pred,
             x_meas=x_meas, mean_meas=mean_meas, wgt_meas=wgt_meas,
-            var_meas=var_meas)
+            var_meas=var_meas, joseph=True)
     return logdens

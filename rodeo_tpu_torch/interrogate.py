@@ -9,11 +9,11 @@ pseudo-observation :math:`Z_n = 0`:
 
     Z_n \approx (W + B_n) X_n + a_n + V_n^{1/2} \eta_n.
 
-The signature is ``(ode_fun, ode_weight, t, mean_state_pred,
+The signature is ``(key, ode_fun, ode_weight, t, mean_state_pred,
 var_state_pred, **params) -> (wgt_meas, mean_meas, var_meas)`` with stacked
-block shapes.  The JAX package's leading ``key`` argument is gone: none of
-the ported schemes is random (the stochastic Chkrebtii scheme is not ported
-yet).
+block shapes, the JAX package's.  None of the ported schemes is random, so
+each accepts ``key`` and ignores it; the stochastic Chkrebtii scheme, when
+it is ported, will take a ``torch.Generator`` there.
 """
 import torch
 
@@ -22,13 +22,15 @@ from rodeo_tpu_torch.utils import mvdot, quadform
 __all__ = ["interrogate_rodeo", "interrogate_schober", "interrogate_kramer"]
 
 
-def interrogate_rodeo(ode_fun, ode_weight, t, mean_state_pred,
+def interrogate_rodeo(key, ode_fun, ode_weight, t, mean_state_pred,
                       var_state_pred, **params):
     r"""
     Zero-order linearisation at the predicted mean with measurement variance
     :math:`V_n = W \Sigma_{n|n-1} W'`.
 
     Args:
+        key: Unused (no ported scheme draws); the JAX package's PRNG key
+            position, kept so that its callers run unchanged.
         ode_fun (Callable): Block-form ODE function ``f(X, t, **params)``.
         ode_weight (Tensor(n_block, n_bmeas, n_bstate)): Weight matrix ``W``.
         t (float): Time point.
@@ -46,7 +48,7 @@ def interrogate_rodeo(ode_fun, ode_weight, t, mean_state_pred,
     return torch.zeros_like(ode_weight), mean_meas, var_meas
 
 
-def interrogate_schober(ode_fun, ode_weight, t, mean_state_pred,
+def interrogate_schober(key, ode_fun, ode_weight, t, mean_state_pred,
                         var_state_pred, **params):
     r"""Zero-order linearisation with :math:`V_n = 0` (Schober et al 2019).
     Same arguments and returns as :func:`interrogate_rodeo`."""
@@ -56,7 +58,7 @@ def interrogate_schober(ode_fun, ode_weight, t, mean_state_pred,
     return torch.zeros_like(ode_weight), mean_meas, var_meas
 
 
-def interrogate_kramer(ode_fun, ode_weight, t, mean_state_pred,
+def interrogate_kramer(key, ode_fun, ode_weight, t, mean_state_pred,
                        var_state_pred, **params):
     r"""
     First-order (EK1) linearisation at the predicted mean with the

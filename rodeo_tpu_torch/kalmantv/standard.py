@@ -10,9 +10,10 @@ The state-space model is
     y_n = d_n + W_n x_n + V_n^{1/2} \eta_n.
 
 Every function is batch polymorphic over leading dimensions.  The
-covariance updates use the Joseph form throughout: it stays positive
-semi-definite under float32 cancellation, where the subtractive form is a
-measured failure of the JAX package (``docs/design.md``, "rank-1 update").
+covariance updates use the Joseph form unless ``update`` is asked for the
+subtractive one (``joseph=False``): it stays positive semi-definite under
+float32 cancellation, where the subtractive form is a measured failure of
+the JAX package (``docs/design.md``, "rank-1 update").
 """
 import torch
 
@@ -36,11 +37,18 @@ def predict(mean_state_past, var_state_past, mean_state, wgt_state,
 
 
 def update(mean_state_pred, var_state_pred, x_meas, mean_meas, wgt_meas,
-           var_meas):
+           var_meas, *, joseph=None):
     r"""
     Update step: moments of :math:`p(X_n \mid Z_{0:n})` from those of
-    :math:`p(X_n \mid Z_{0:n-1})`, with the Joseph-form covariance
-    :math:`(I - K W)\Sigma(I - K W)' + K V K'`.
+    :math:`p(X_n \mid Z_{0:n-1})`.
+
+    Args:
+        joseph (bool | None): ``True`` or ``None``: the Joseph-form
+            covariance :math:`(I - K W)\Sigma(I - K W)' + K V K'`;
+            ``False``: the subtractive form :math:`\Sigma - K W \Sigma`.
+            The JAX package's ``None`` defers to its ``fast_linalg_enabled``
+            switch, which the port does not have; here ``None`` means the
+            Joseph form.
 
     Returns:
         (tuple): ``mean_state_filt`` and ``var_state_filt``.
@@ -51,6 +59,8 @@ def update(mean_state_pred, var_state_pred, x_meas, mean_meas, wgt_meas,
     # Kalman gain K = Sigma W' S^{-1} = (S^{-1} W Sigma)'
     gain = mtt(solve_var(var_meas_meas_pred, var_meas_state_pred))
     mean_state_filt = mean_state_pred + mvdot(gain, x_meas - mean_meas_pred)
+    if joseph is not None and not joseph:
+        return mean_state_filt, var_state_pred - gain @ var_meas_state_pred
     eye = torch.eye(var_state_pred.shape[-1], dtype=var_state_pred.dtype,
                     device=var_state_pred.device)
     ikw = eye - gain @ wgt_meas

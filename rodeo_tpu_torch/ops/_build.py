@@ -68,6 +68,13 @@ _SIGNATURES = {
     # act, n_steps, n_block, n_lane, q_const (host), z, s_inv, G, gx, lam0,
     # stream
     "rodeo_magi_adjoint_batch": [_I] * 4 + [_P] * 7,
+    # the stationary solve's mean chain: model, n_steps, q_const (host), W,
+    # t_vec, x0, theta, tgrid, gains, mf, stream
+    "rodeo_mean_gain_single": [_I] * 2 + [_P] * 9,
+    # model, n_group, k_group, q_const (host), W, t_vec, m0 (K5b) or bnd
+    # (K5c), theta, tgrid of the tail, K*, bnd (K5b) or mf (K5c), stream
+    "rodeo_mean_boundary_single": [_I] * 3 + [_P] * 9,
+    "rodeo_mean_recovery_single": [_I] * 3 + [_P] * 9,
 }
 
 

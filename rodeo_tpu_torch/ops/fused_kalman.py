@@ -5,8 +5,8 @@ lane-batched path (``fused_filter_batch(emit="gains")``,
 ``basic_fused_batch``, and their gradients ``solve_mv_fused_batch_grad``
 and ``basic_fused_batch_grad``), the single-solve path (``fused_filter``,
 ``fused_smoother``, ``fused_smoother_composed`` and ``solve_mv_fused``),
-and the column algebra that the likelihood and sampling modules beside it
-share.
+its stationary-gain form ``solve_mv_fused_stationary``, and the column
+algebra that the likelihood and sampling modules beside it share.
 
 ``B`` independent solves (parameter candidates, MCMC chains) ride one pair
 of kernels, batched along a trailing lane axis:
@@ -38,6 +38,17 @@ One solve (the latency path) runs two kernels in the JAX package's
   boundary steps of exact k-step compositions
   (``fused_smoother_composed``).
 
+Where the measurement row is constant in time, the stationary-gain solve
+runs K3 on an exact prefix only and the mean chain beyond it, in
+``csrc/mean_chain_single.cu``:
+
+- **K5a** ``mean_gain_chain`` replaces ``_mean_gain_kernel``: the chain
+  with a gain per step;
+- **K5b** ``mean_boundary_chain`` replaces ``_mean_boundary_kernel``: the
+  chain with the frozen gain, storing each 64-step group's entry state;
+- **K5c** ``mean_recovery_chain`` replaces ``_mean_recovery_kernel``: the
+  groups re-run from their entry states in parallel.
+
 The TPU entry points' ``chunk=`` and ``unroll=`` set the size of the TPU's
 grid steps and its loop unrolling; a CUDA kernel loops over all steps
 inside a thread, so the port does not take them.
@@ -45,7 +56,8 @@ inside a thread, so the port does not take them.
 Each kernel has a plain PyTorch twin here (``_filter_batch_plain``,
 ``_smoother_batch_rows_plain``, ``_filter_batch_tan_plain``,
 ``_smoother_mean_tan_plain``, ``_filter_single_plain``,
-``_smoother_single_plain``): the same algebra,
+``_smoother_single_plain``, ``_mean_gain_plain``, ``_mean_boundary_plain``,
+``_mean_recovery_plain``): the same algebra,
 operation for operation, on ``(n_block, B)`` columns with a Python loop
 over steps.  K11a's twin is K1's run on
 :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers, whose rules the kernel
@@ -80,12 +92,16 @@ __all__ = ["fused_filter_batch", "smoother_recursion_batch_rows",
            "basic_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fused_filter", "smoother_recursion",
            "fused_smoother", "fused_smoother_composed", "solve_mv_fused",
-           "resolve_kalman_type", "unpack_cov", "LAUNCHES"]
+           "mean_gain_chain", "mean_boundary_chain", "mean_recovery_chain",
+           "solve_mv_fused_stationary", "resolve_kalman_type", "unpack_cov",
+           "LAUNCHES"]
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"filter_batch": 0, "smoother_batch_rows": 0,
             "filter_batch_tan": 0, "smoother_mean_batch_tan": 0,
-            "filter_single": 0, "smoother_single": 0}
+            "filter_single": 0, "smoother_single": 0,
+            "mean_gain_single": 0, "mean_boundary_single": 0,
+            "mean_recovery_single": 0}
 
 # interrogation modes and model functors, numbered as the C entry point
 # rodeo_filter_batch (csrc/filter_batch.cu) numbers them
@@ -1443,14 +1459,26 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
         ``(N+1, n_block, q, q)`` in original coordinates: row 0 the exact
         initial state with zero variance, rows ``1..N-1`` smoothed, row
         ``N`` filtered.
+
+    The JAX package's entry takes ``(key, ode_fun, ...)`` and the model as
+    the callables ``ode_flat`` / ``jac_flat``; the port's takes ``theta``
+    first and names a model with a CUDA functor (``model=``), a departure
+    that stands until the fused kernels compile a user's functor.
     """
     fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
         theta, ode_weight, ode_init, prior_pars, model, interrogation,
         kalman_type, device)
-    n_block, _, q = ode_weight.shape
     ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
                                n_steps, prior_pars)
     mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=interrogation)
+    return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose)
+
+
+def _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose):
+    """Rows ``0..N`` of one solve from the filtered and predicted moments
+    of its steps ``1..N``: the exact initial state with zero variance,
+    rows ``1..N-1`` smoothed (K4, plain or ``k_compose``-step composed),
+    row ``N`` filtered, in original coordinates."""
     args = (ops["prior_var"], mf[:-1], pf[:-1], mp[1:], pp[1:], mf[-1],
             pf[-1])
     if k_compose is not None and k_compose > 1:
@@ -1458,8 +1486,338 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
                                          k_compose=k_compose)
     else:
         ms, ps = fused_smoother(Qs, *args)
-    # rows 0..N: the exact initial state, smoothed 1..N-1, filtered N
     t_vec = ops["t_vec"]
     mean = torch.cat([ops["x0"][None], ms, mf[-1:]]) * t_vec
     packed = torch.cat([ps.new_zeros((1,) + ps.shape[1:]), ps, pf[-1:]])
     return mean, unpack_cov(packed) * (t_vec[:, None] * t_vec[None, :])
+
+
+# --- the stationary-gain single solve: K5a, K5b, K5c -----------------------
+#
+# Where the measurement row H is constant in time (EK0 always, EK1 when the
+# block Jacobian does not depend on the state, as Lorenz63's), the Riccati
+# recursion of the covariances is autonomous and its gain converges within
+# a few tens of steps.  solve_mv_fused_stationary runs an exact n_warm-step
+# prefix through K3, freezes the gain, and runs only the mean chain beyond
+# it: K5a on short horizons, otherwise K5b over 64-step groups with K5c
+# recovering the groups' interiors.
+
+# steps per group of the two-phase mean chain, the JAX package's
+_K_GROUP = 64
+
+
+def _mean_step_cols(model, q, q_const, W_cols, tv_cols, theta_col, K_cols,
+                    m_cols, t):
+    """One step of the mean chain on columns ``(n_block, B)`` (``mean_step``
+    of ``csrc/mean_chain_single.cu``): ``mp = Q m``, ``z = f(mp tv) - W
+    mp``, ``m = mp + K z``.  The Jacobian terms of EK1's innovation cancel,
+    so EK0 and EK1 share the step."""
+    mp_cols = _matvec(q, q_const, m_cols)
+    x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
+    f0 = model.flat(x_cols, theta_col, t)
+    wm = None
+    for j in range(q):
+        wm = _acc(wm, W_cols[j] * mp_cols[j])
+    z = f0 - wm
+    return [mp_cols[i] + K_cols[i] * z for i in range(q)]
+
+
+def _mean_cols(ode_weight, t_vec, theta):
+    """``q`` and the operands of :func:`_mean_step_cols` that every step
+    shares, in columns."""
+    q = ode_weight.shape[1]
+    return (q, [ode_weight[:, j:j + 1] for j in range(q)],
+            [t_vec[j] for j in range(q)], theta[:, None])
+
+
+def _mean_gain_plain(model, q_const, ode_weight, t_vec, x0, theta, tgrid,
+                     gains):
+    """Plain PyTorch twin of K5a (``mean_gain_single``): one Python
+    iteration per step on ``(n_block, 1)`` columns.  Arguments and returns
+    as :func:`mean_gain_chain` (``model`` resolved)."""
+    q, W_cols, tv_cols, theta_col = _mean_cols(ode_weight, t_vec, theta)
+    mf = x0.new_empty((tgrid.shape[0],) + x0.shape)
+    m_cols = [x0[:, j:j + 1] for j in range(q)]
+    for n in range(tgrid.shape[0]):
+        m_cols = _mean_step_cols(
+            model, q, q_const, W_cols, tv_cols, theta_col,
+            [gains[n, :, i:i + 1] for i in range(q)], m_cols, tgrid[n])
+        mf[n] = torch.cat(m_cols, dim=1)
+    return mf
+
+
+def _mean_boundary_plain(model, q_const, ode_weight, t_vec, m0, theta,
+                         tgrid, k_star, k_group):
+    """Plain PyTorch twin of K5b (``mean_boundary_single``): the chain with
+    the frozen gain on ``(n_block, 1)`` columns, storing each group's entry
+    state.  Arguments and returns as :func:`mean_boundary_chain`."""
+    q, W_cols, tv_cols, theta_col = _mean_cols(ode_weight, t_vec, theta)
+    K_cols = [k_star[:, i:i + 1] for i in range(q)]
+    n_group = tgrid.shape[0] // k_group
+    bnd = m0.new_empty((n_group,) + m0.shape)
+    m_cols = [m0[:, j:j + 1] for j in range(q)]
+    for g in range(n_group):
+        bnd[g] = torch.cat(m_cols, dim=1)
+        for r in range(k_group):
+            m_cols = _mean_step_cols(model, q, q_const, W_cols, tv_cols,
+                                     theta_col, K_cols, m_cols,
+                                     tgrid[g * k_group + r])
+    return bnd
+
+
+def _mean_recovery_plain(model, q_const, ode_weight, t_vec, bnd, theta,
+                         tgrid, k_star):
+    """Plain PyTorch twin of K5c (``mean_recovery_single``): every group's
+    chain at once on ``(n_block, n_group)`` columns, one Python iteration
+    per step of a group.  Arguments and returns as
+    :func:`mean_recovery_chain`."""
+    q, W_cols, tv_cols, theta_col = _mean_cols(ode_weight, t_vec, theta)
+    n_group, n_block, _ = bnd.shape
+    k_group = tgrid.shape[0] // n_group
+    t_rows = tgrid.reshape(n_group, k_group)
+    K_cols = [k_star[:, i:i + 1] for i in range(q)]
+    mf = bnd.new_empty((n_group, k_group, n_block, q))
+    m_cols = [bnd[:, :, j].T for j in range(q)]
+    for r in range(k_group):
+        m_cols = _mean_step_cols(model, q, q_const, W_cols, tv_cols,
+                                 theta_col, K_cols, m_cols,
+                                 t_rows[None, :, r])
+        mf[:, r] = torch.stack(m_cols, dim=-1).transpose(0, 1)
+    return mf.reshape(n_group * k_group, n_block, q)
+
+
+def _check_mean_operands(model, ode_weight, t_vec, theta, tgrid, **named):
+    """Validate the operands of a mean-chain kernel: those every one takes,
+    and ``named`` as ``name=(tensor, shape)``."""
+    n_block, q = ode_weight.shape
+    device = ode_weight.device
+    for name, t, shape in (
+            ("ode_weight", ode_weight, (model.n_block, q)),
+            ("t_vec", t_vec, (q,)),
+            ("theta", theta, (model.n_theta,)),
+            ("tgrid", tgrid, (tgrid.shape[0],)),
+            *((k, t, shape) for k, (t, shape) in named.items())):
+        _check(name, t, shape, device)
+    return n_block, q, device
+
+
+def mean_gain_chain(model, q_const, ode_weight, t_vec, x0, theta, tgrid,
+                    gains):
+    r"""
+    The mean chain with a gain per step (kernel K5a): from ``x0``, step
+    ``n`` at time ``tgrid[n]`` with gain ``gains[n]``.  All tensors float32,
+    in Taylor-scaled coordinates.
+
+    Args:
+        model: Model name, module or
+            :class:`~rodeo_tpu_torch.models.FusedModel`.
+        q_const (list of lists of float): Scaled transition, from
+            :func:`_static_scaled_qconst`.
+        ode_weight (Tensor(n_block, q)): Scaled weight ``W``.
+        t_vec (Tensor(q,)): Taylor scales.
+        x0 (Tensor(n_block, q)): Scaled initial state.
+        theta (Tensor(n_theta,)): Parameters.
+        tgrid (Tensor(N,)): Time of each step.
+        gains (Tensor(N, n_block, q)): Gain of each step.
+
+    Returns:
+        (Tensor(N, n_block, q)): The filtered mean of each step.
+    """
+    model = resolve_model(model)
+    n_steps = tgrid.shape[0]
+    n_block, q, device = _check_mean_operands(
+        model, ode_weight, t_vec, theta, tgrid,
+        x0=(x0, ode_weight.shape), gains=(gains, (n_steps,) + x0.shape))
+    if device.type == "cpu":
+        return _mean_gain_plain(model, q_const, ode_weight, t_vec, x0, theta,
+                                tgrid, gains)
+    mf = x0.new_empty((n_steps, n_block, q))
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES, "mean_gain_single", q, device,
+            _FUNCTORS[model.cuda_functor], n_steps, ctypes.addressof(qc),
+            ode_weight, t_vec, x0, theta, tgrid, gains, mf)
+    return mf
+
+
+def _whole_groups(n_len, n_group):
+    """The steps per group of ``n_len`` steps in ``n_group`` groups."""
+    if n_group < 1 or n_len % n_group:
+        raise ValueError(f"{n_len} steps do not make {n_group} whole groups")
+    return n_len // n_group
+
+
+def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
+                        k_star):
+    r"""
+    The mean chain with the frozen gain ``k_star`` over groups of 64 steps
+    (kernel K5b), storing only each group's entry state.  Arguments as
+    :func:`mean_gain_chain`, with ``m0 (n_block, q)`` the state before the
+    first step, ``tgrid`` the times of ``64 n_group`` steps and ``k_star
+    (n_block, q)``.
+
+    Returns:
+        (Tensor(n_group, n_block, q)): Each group's entry state.
+    """
+    model = resolve_model(model)
+    n_group = tgrid.shape[0] // _K_GROUP
+    k_group = _whole_groups(tgrid.shape[0], n_group)
+    n_block, q, device = _check_mean_operands(
+        model, ode_weight, t_vec, theta, tgrid, m0=(m0, ode_weight.shape),
+        k_star=(k_star, ode_weight.shape))
+    if device.type == "cpu":
+        return _mean_boundary_plain(model, q_const, ode_weight, t_vec, m0,
+                                    theta, tgrid, k_star, k_group)
+    bnd = m0.new_empty((n_group, n_block, q))
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES, "mean_boundary_single", q, device,
+            _FUNCTORS[model.cuda_functor], n_group, k_group,
+            ctypes.addressof(qc), ode_weight, t_vec, m0, theta, tgrid, k_star,
+            bnd)
+    return bnd
+
+
+def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,
+                        k_star):
+    r"""
+    Every group's steps re-run from its entry state ``bnd`` with the frozen
+    gain, the groups in parallel (kernel K5c).  Arguments as
+    :func:`mean_boundary_chain`, with ``bnd (n_group, n_block, q)`` its
+    output.
+
+    Returns:
+        (Tensor(n_group * k_group, n_block, q)): The filtered mean of each
+        step of ``tgrid``: :func:`mean_gain_chain` from the same start with
+        the gain ``k_star`` at every step, bitwise.
+    """
+    model = resolve_model(model)
+    n_group = bnd.shape[0]
+    k_group = _whole_groups(tgrid.shape[0], n_group)
+    n_block, q, device = _check_mean_operands(
+        model, ode_weight, t_vec, theta, tgrid,
+        bnd=(bnd, (n_group,) + ode_weight.shape),
+        k_star=(k_star, ode_weight.shape))
+    if device.type == "cpu":
+        return _mean_recovery_plain(model, q_const, ode_weight, t_vec, bnd,
+                                    theta, tgrid, k_star)
+    mf = bnd.new_empty((n_group * k_group, n_block, q))
+    qc = _host_qconst(q_const)
+    _launch(LAUNCHES, "mean_recovery_single", q, device,
+            _FUNCTORS[model.cuda_functor], n_group, k_group,
+            ctypes.addressof(qc), ode_weight, t_vec, bnd, theta, tgrid,
+            k_star, mf)
+    return mf
+
+
+def _stationary_schedule(n_steps, n_warm, two_phase):
+    """The JAX package's schedule: the exact prefix's length and the number
+    of ``_K_GROUP``-step groups of the tail (two-phase from 2 groups on,
+    the prefix absorbing the remainder)."""
+    n_warm = min(n_warm, n_steps)
+    n_group = max((n_steps - n_warm) // _K_GROUP, 0) if two_phase else 0
+    if n_group >= 2:
+        n_warm = n_steps - n_group * _K_GROUP
+    return n_warm, n_group
+
+
+def _stationary_gains(fused, ops, ppw, interrogation, t_min):
+    """The gain of each prefix step from its predicted covariance and the
+    constant measurement row ``H`` (``W``; under EK1 ``W - J tv``, the
+    Jacobian taken at a zero state): ``K = Pp H / (H Pp H)``, the variance
+    doubled under EK0.  Returns ``(n_warm, n_block, q)``."""
+    W_s, t_vec = ops["ode_weight"], ops["t_vec"]
+    n_block, q = W_s.shape
+    H = W_s
+    if interrogation == "kramer":
+        zero = W_s.new_zeros((n_block, 1))
+        jd = fused.jac_flat([zero] * q, ops["theta"][:, None],
+                            W_s.new_tensor(t_min))
+        H = W_s - torch.cat([(zero if c is None else c) * t_vec[j]
+                             for j, c in enumerate(jd)], dim=1)
+    Pp = unpack_cov(ppw)
+    PH = Pp[..., 0] * H[:, None, 0]
+    for j in range(1, q):
+        PH = PH + Pp[..., j] * H[:, None, j]
+    S = H[:, 0] * PH[..., 0]
+    for i in range(1, q):
+        S = S + H[:, i] * PH[..., i]
+    if interrogation == "rodeo":
+        S = 2.0 * S
+    return PH / S[..., None]
+
+
+def solve_mv_fused_stationary(theta, ode_weight, ode_init, t_min, t_max,
+                              n_steps, prior_pars, model,
+                              interrogation="kramer", k_compose=None,
+                              n_warm=64, two_phase=True,
+                              kalman_type="standard", device=None):
+    r"""
+    :func:`solve_mv_fused` for a measurement row that is constant in time:
+    an exact ``n_warm``-step Riccati prefix (kernel K3), the gain frozen
+    beyond it and only the mean chain run there (kernels K5b and K5c, or K5a
+    on short horizons), and the smoother (K4) over the prefix's covariances
+    followed by their last row.  On the CUDA card; the plain twins with
+    ``device="cpu"``.
+
+    Valid for EK0 (``interrogation="rodeo"``) on any model, and for EK1
+    (``"kramer"``) only where the Jacobian does not depend on the state, as
+    Lorenz63's; the caller asserts this, as with the JAX package.
+
+    Args:
+        n_warm (int): Steps of the exact prefix (at most ``N``); from two
+            64-step groups of the tail on, the prefix takes the remainder,
+            ``N - 64 n_group``.
+        two_phase (bool): Run the tail as K5b and K5c (the JAX package's
+            two-phase schedule); ``False``, or fewer than two groups, runs
+            K5a over all ``N`` steps from the initial state with the
+            prefix's gains and then the frozen one, whose means replace the
+            prefix's.
+        k_compose (int or None): As :func:`solve_mv_fused`: ``None`` runs
+            the plain recursion; 64 is the JAX package's composition.
+        (other arguments as :func:`solve_mv_fused`)
+
+    Returns:
+        (tuple): As :func:`solve_mv_fused`.
+
+    As :func:`solve_mv_fused`, the entry takes ``theta`` first and
+    ``model=`` where the JAX package's takes ``(key, ode_fun, ...)`` and
+    the callables ``ode_flat`` / ``jac_flat``; its TPU schedule knobs
+    ``chunk=``, ``unroll=`` and ``interpret=`` have no counterpart.
+    """
+    if interrogation not in ("kramer", "rodeo"):
+        raise NotImplementedError(
+            "stationary gains require a deterministic time-constant "
+            "interrogation (kramer with state-independent Jacobian, or "
+            "rodeo)")
+    fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
+        theta, ode_weight, ode_init, prior_pars, model, interrogation,
+        kalman_type, device)
+    ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
+                               n_steps, prior_pars)
+    n_block, q = ops["x0"].shape
+    n_warm, n_group = _stationary_schedule(n_steps, n_warm, two_phase)
+    # the exact Riccati prefix, on the raw prior's transition constants
+    tgrid = ops["tgrid"]
+    mfw, pfw, _, ppw = fused_filter(fused, n_warm, **{**ops,
+                                                     "tgrid": tgrid[:n_warm]},
+                                    mode=interrogation)
+    K_pre = _stationary_gains(fused, ops, ppw, interrogation, t_min)
+    K_star = K_pre[-1]
+    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+    if n_group >= 2:
+        tail = tgrid[n_warm:]
+        bnd = mean_boundary_chain(*chain, mfw[-1], ops["theta"], tail, K_star)
+        mf = torch.cat([mfw, mean_recovery_chain(*chain, bnd, ops["theta"],
+                                                 tail, K_star)])
+    else:
+        gains = torch.cat([K_pre,
+                           K_star.expand(n_steps - n_warm, n_block, q)])
+        mf = mean_gain_chain(*chain, ops["x0"], ops["theta"], tgrid, gains)
+    # the predicted means mp_n = Q mf_{n-1} (mp_1 = Q x0), and the prefix's
+    # covariances followed by their frozen last row
+    prev = torch.cat([ops["x0"][None], mf[:-1]])
+    mp = torch.stack(_matvec(q, ops["q_const"], list(prev.unbind(-1))),
+                     dim=-1)
+    frozen = (n_steps - n_warm,) + pfw.shape[1:]
+    pf = torch.cat([pfw, pfw[-1].expand(frozen)])
+    pp = torch.cat([ppw, ppw[-1].expand(frozen)])
+    return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose)

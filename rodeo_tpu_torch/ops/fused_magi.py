@@ -46,6 +46,7 @@ import math
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.ops.fused_kalman import (
@@ -438,31 +439,36 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active, prior_pars,
     ``torch.autograd``'s.
 
     Args:
-        theta_lanes (Tensor(B, ...) | None): Optional per-lane parameters;
-            when given, ``ode_expand`` is called as ``ode_expand(subset,
-            theta=theta_lane, **params)`` and the gradient in
-            ``theta_lanes`` is returned as well.
+        theta_lanes (Tensor(B, ...) | pytree | None): Optional per-lane
+            parameters: a tensor, or a pytree (dicts, lists, tuples) of
+            tensors, each with leading dimension ``B``.  When given,
+            ``ode_expand`` is called as ``ode_expand(subset,
+            theta=theta_lane, **params)``, ``theta_lane`` of the same
+            structure, and the gradient in ``theta_lanes`` is returned as
+            well, in that structure.
         sig2_lanes: As in :func:`magi_fused_batch`; it scales the value and
             the gradients, but no gradient in ``sig2_lanes`` is returned.
         (other arguments as :func:`magi_fused_batch`)
 
     Returns:
-        (tuple): ``(ld (B,), grad_subsets)``, plus ``grad_theta`` when
-        ``theta_lanes`` is given; ``ld`` equals :func:`magi_fused_batch`'s
-        bitwise.
+        (tuple): ``(ld (B,), grad_subsets)``, plus ``grad_theta`` (the
+        structure of ``theta_lanes``) when ``theta_lanes`` is given; ``ld``
+        equals :func:`magi_fused_batch`'s bitwise.
     """
     U, prior_pars, sig2, device = _lane_inputs(ode_data_subsets, prior_pars,
                                                sig2_lanes, device)
     inputs = [U.detach().requires_grad_(True)]
     if theta_lanes is not None:
-        inputs.append(torch.as_tensor(theta_lanes, device=device).detach()
-                      .requires_grad_(True))
+        leaves, spec = tree_flatten(theta_lanes)
+        inputs += [torch.as_tensor(leaf, device=device).detach()
+                   .requires_grad_(True) for leaf in leaves]
     with torch.enable_grad():
         if theta_lanes is None:
             paths = torch.vmap(lambda u: ode_expand(u, **params))(*inputs)
         else:
             paths = torch.vmap(lambda u, th: ode_expand(u, theta=th,
-                                                        **params))(*inputs)
+                                                        **params))(
+                inputs[0], tree_unflatten(inputs[1:], spec))
         ld = MagiLogdens.apply(paths, int(n_active), prior_pars, float(dt),
                                sig2)
         grads = torch.autograd.grad(ld, inputs,
@@ -470,4 +476,6 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active, prior_pars,
                                     allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, inputs)]
-    return (ld.detach(), *grads)
+    if theta_lanes is None:
+        return ld.detach(), grads[0]
+    return ld.detach(), grads[0], tree_unflatten(grads[1:], spec)

@@ -64,7 +64,7 @@ def _wrap_interrogate(interrogate, ode_weight_orig, t_vec):
     """Adapter between the scaled solver state and an interrogation written
     for original coordinates; the returned ``wgt_meas`` is scaled back."""
 
-    def wrapped(ode_fun, ode_weight, t, mean_state_pred, var_state_pred,
+    def wrapped(key, ode_fun, ode_weight, t, mean_state_pred, var_state_pred,
                 **params):
         t_v = t_vec.to(mean_state_pred.dtype)
         mean_orig = mean_state_pred * t_v
@@ -73,7 +73,7 @@ def _wrap_interrogate(interrogate, ode_weight_orig, t_vec):
             mean_orig = torch.clamp(torch.nan_to_num(mean_orig), -1e10, 1e10)
         var_orig = var_state_pred * (t_v[:, None] * t_v[None, :])
         wgt_meas, mean_meas, var_meas = interrogate(
-            ode_fun=ode_fun, ode_weight=ode_weight_orig, t=t,
+            key=key, ode_fun=ode_fun, ode_weight=ode_weight_orig, t=t,
             mean_state_pred=mean_orig, var_state_pred=var_orig, **params)
         return wgt_meas * t_v, mean_meas, var_meas
 
@@ -92,7 +92,7 @@ def _scaled_inputs(ode_weight, ode_init, prior_pars, t_min, t_max, n_steps):
             scale_prior(prior_pars, t_vec))
 
 
-def solve_mv(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
+def solve_mv(key, ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
              interrogate, prior_pars, kalman_type="standard",
              temporal="sequential", **params):
     r"""
@@ -105,7 +105,7 @@ def solve_mv(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
     t_vec, W_s, x0_s, prior_s = _scaled_inputs(
         ode_weight, ode_init, prior_pars, t_min, t_max, n_steps)
     mean_s, var_s = _solve.solve_mv(
-        ode_fun=ode_fun, ode_weight=W_s, ode_init=x0_s, t_min=t_min,
+        key=key, ode_fun=ode_fun, ode_weight=W_s, ode_init=x0_s, t_min=t_min,
         t_max=t_max, n_steps=n_steps,
         interrogate=_wrap_interrogate(interrogate, ode_weight, t_vec),
         prior_pars=prior_s, kalman_type=kalman_type, temporal=temporal,

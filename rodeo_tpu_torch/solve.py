@@ -26,7 +26,7 @@ __all__ = ["solve_mv"]
 
 
 @full_matmul_precision
-def _solve_filter(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
+def _solve_filter(key, ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
                   interrogate, prior_weight, prior_var, kalman_funs,
                   **params):
     r"""
@@ -49,7 +49,7 @@ def _solve_filter(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
             mean_state=mean_state, wgt_state=prior_weight,
             var_state=prior_var)
         wgt_meas, mean_meas, var_meas = interrogate(
-            ode_fun=ode_fun, ode_weight=ode_weight,
+            key=key, ode_fun=ode_fun, ode_weight=ode_weight,
             t=t_min + (t_max - t_min) * (n + 1) / n_steps,
             mean_state_pred=mp, var_state_pred=vp, **params)
         mf, vf = kalman_funs.update(
@@ -65,13 +65,18 @@ def _solve_filter(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
 
 
 @full_matmul_precision
-def solve_mv(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
+def solve_mv(key, ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
              interrogate, prior_pars, kalman_type="standard",
              temporal="sequential", **params):
     r"""
     Posterior mean and variance of the probabilistic ODE solver.
 
     Args:
+        key: Passed to ``interrogate`` at every step; the ported
+            interrogations draw nothing and ignore it (``None`` will do).
+            It stands where the JAX package takes its PRNG key; the
+            stochastic Chkrebtii scheme and ``solve_sim``, when ported,
+            will take a ``torch.Generator`` there.
         ode_fun (Callable): Block-form ODE function
             ``f(X_t, t, **params)``, written in torch ops.
         ode_weight (Tensor(n_block, n_bmeas, n_bstate)): Weight matrix ``W``.
@@ -103,7 +108,7 @@ def solve_mv(ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
             f"unknown temporal mode {temporal!r}; expected 'sequential'")
     prior_weight, prior_var = prior_pars
     mean_filt, var_filt, mean_pred, var_pred = _solve_filter(
-        ode_fun=ode_fun, ode_weight=ode_weight, ode_init=ode_init,
+        key=key, ode_fun=ode_fun, ode_weight=ode_weight, ode_init=ode_init,
         t_min=t_min, t_max=t_max, n_steps=n_steps, interrogate=interrogate,
         prior_weight=prior_weight, prior_var=prior_var,
         kalman_funs=kalman_funs, **params)

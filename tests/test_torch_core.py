@@ -158,6 +158,39 @@ def test_kalman_predict_update_forecast_match_jax(kalman_inputs):
         _close(a, b)
 
 
+@pytest.mark.parametrize("joseph", [True, False, None])
+def test_update_joseph_forms_match_jax(kalman_inputs, joseph):
+    """``update`` with the JAX package's ``joseph=`` keyword, called with the
+    argument list of the JAX package's MAGI filter: True and False select
+    the Joseph and the subtractive form as there; the port's None is the
+    Joseph form (the JAX package's None defers to its fast-linalg switch).
+    Both solve the same float64 system: 1e-10."""
+    k = kalman_inputs
+    kt = {n: _t(a) for n, a in k.items()}
+    pred_t = tstandard.predict(kt["mean_past"], kt["var_past"],
+                               kt["mean_state"], kt["wgt_state"],
+                               kt["var_state"])
+    pred_j = jstandard.predict(k["mean_past"], k["var_past"],
+                               k["mean_state"], k["wgt_state"],
+                               k["var_state"])
+    upd_t = tstandard.update(
+        mean_state_pred=pred_t[0], var_state_pred=pred_t[1],
+        x_meas=kt["x_meas"], mean_meas=kt["mean_meas"],
+        wgt_meas=kt["wgt_meas"], var_meas=kt["var_meas"], joseph=joseph)
+    upd_j = jstandard.update(
+        mean_state_pred=pred_j[0], var_state_pred=pred_j[1],
+        x_meas=k["x_meas"], mean_meas=k["mean_meas"],
+        wgt_meas=k["wgt_meas"], var_meas=k["var_meas"],
+        joseph=True if joseph is None else joseph)
+    for a, b in zip(upd_t, upd_j):
+        _close(a, b, rtol=1e-10)
+    if joseph is False:     # the two forms differ by rounding only
+        joseph_t = tstandard.update(*pred_t, kt["x_meas"], kt["mean_meas"],
+                                    kt["wgt_meas"], kt["var_meas"])
+        assert not torch.equal(upd_t[1], joseph_t[1])
+        _close(upd_t[1], joseph_t[1], rtol=1e-10)
+
+
 def test_kalman_smoothers_match_jax(kalman_inputs):
     k = kalman_inputs
     kt = {n: _t(a) for n, a in k.items()}
@@ -206,10 +239,31 @@ def test_interrogations_match_jax(name, model):
         key=None, ode_fun=jfun, ode_weight=W, t=0.5, mean_state_pred=mean,
         var_state_pred=var, theta=theta)
     out_t = getattr(tinterrogate, f"interrogate_{name}")(
-        ode_fun=tfun, ode_weight=_t(W), t=0.5, mean_state_pred=_t(mean),
+        key=None, ode_fun=tfun, ode_weight=_t(W), t=0.5, mean_state_pred=_t(mean),
         var_state_pred=_t(var), theta=_t(theta))
     for a, b in zip(out_t, out_j):
         _close(a, b, atol=1e-14)
+
+
+@pytest.mark.parametrize("name", ["rodeo", "schober", "kramer"])
+def test_interrogations_take_a_leading_key(name):
+    """The JAX package's positional argument list, ``(key, ode_fun,
+    ode_weight, t, mean, var)``: the port accepts the key in the same place
+    and, drawing nothing, ignores it (None or a torch.Generator)."""
+    rng = np.random.default_rng(4)
+    W = np.zeros((3, 1, 3))
+    W[:, :, 1] = 1.0
+    args = (W, 0.5, rng.standard_normal((3, 3)), _psd(rng, 3, 3))
+    theta = np.array(jlorenz.THETA)
+    out_j = getattr(jinterrogate, f"interrogate_{name}")(
+        None, jlorenz.lorenz_fun, *args, theta=theta)
+    fun_t = getattr(tinterrogate, f"interrogate_{name}")
+    out_t = fun_t(None, tlorenz.lorenz_fun, *map(_t, args), theta=_t(theta))
+    out_g = fun_t(torch.Generator().manual_seed(0), tlorenz.lorenz_fun,
+                  *map(_t, args), theta=_t(theta))
+    for a, b, c in zip(out_t, out_g, out_j):
+        assert torch.equal(a, b)
+        _close(a, c, atol=1e-14)
 
 
 @pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
@@ -344,6 +398,8 @@ def _entry_point_calls():
         "dalton_fused_batch_grad": lambda: rt.dalton_fused_batch_grad(
             **lanes, **obs),
         "solve_mv_fused": lambda: rt.solve_mv_fused(**single),
+        "solve_mv_fused_stationary": lambda: rt.solve_mv_fused_stationary(
+            **single),
         "fenrir_fused": lambda: rt.fenrir_fused(**single, **obs),
         "magi_fused_batch": lambda: rt.magi_fused_batch(**magi),
         "magi_fused_batch_grad": lambda: rt.magi_fused_batch_grad(**magi),
@@ -355,8 +411,8 @@ def _entry_point_calls():
     "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
     "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
     "basic_fused_batch_grad", "fenrir_fused_batch_grad",
-    "dalton_fused_batch_grad", "solve_mv_fused", "fenrir_fused",
-    "magi_fused_batch", "magi_fused_batch_grad"])
+    "dalton_fused_batch_grad", "solve_mv_fused", "solve_mv_fused_stationary",
+    "fenrir_fused", "magi_fused_batch", "magi_fused_batch_grad"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without ``device`` an entry point runs on CUDA; with no CUDA device
     it raises rather than fall back to the CPU, which only

@@ -5,7 +5,9 @@ The port's CUDA kernels on the card: K1 (filter_batch), K2r
 (filter_batch_tan), K11b (fenrir_backward_batch_tan), K11c
 (dalton_filter_batch_tan) and K11e (smoother_mean_batch_tan), and the
 single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
-(fenrir_backward_single), and the MAGI kernels K10a (magi_batch) and K10b
+(fenrir_backward_single), the stationary solve's mean chain K5a
+(mean_gain_single), K5b (mean_boundary_single) and K5c
+(mean_recovery_single), and the MAGI kernels K10a (magi_batch) and K10b
 (magi_adjoint_batch) against their plain PyTorch twins on the same CUDA
 inputs, and the launch contract of each fused entry point.
 
@@ -441,6 +443,72 @@ def test_single_entry_points_launch_their_kernels(cuda_device):
         for a, b in zip(out, cpu):
             assert a.is_cuda and torch.isfinite(a).all(), name
             assert _scaled_err(a, b) <= ENTRY_TOL, name
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 1.92),
+                                              ("fitzhugh", "rodeo", 9.6)])
+def test_mean_chain_kernels_match_their_twins_on_the_card(cuda_device, model,
+                                                          mode, t_max):
+    """K5a, K5b and K5c against their twins, bitwise, on the operands the
+    stationary path builds (a 64-step K3 prefix and its gains, a 128-step
+    tail of two groups); and K5b + K5c equal K5a with the frozen gain from
+    the same start, bitwise."""
+    n_steps = 192
+    cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
+                              dtype=torch.float32, device=cuda_device)
+    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                 cfg["ode_init"], 0.0, t_max, n_steps,
+                                 cfg["prior_pars"])
+    fused = fk.resolve_model(model)
+    mfw, _, _, ppw = fk.fused_filter(
+        fused, 64, **{**ops, "tgrid": ops["tgrid"][:64]}, mode=mode)
+    gains = fk._stationary_gains(fused, ops, ppw, mode, 0.0)
+    k_star, tail = gains[-1], ops["tgrid"][64:]
+    all_gains = torch.cat([gains, k_star.expand(128, *k_star.shape)])
+    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+    a = (*chain, ops["x0"], ops["theta"], ops["tgrid"], all_gains)
+    b = (*chain, mfw[-1], ops["theta"], tail, k_star)
+    bnd = fk.mean_boundary_chain(*b)
+    c = (*chain, bnd, ops["theta"], tail, k_star)
+    for kernel, twin, args in ((fk.mean_gain_chain, fk._mean_gain_plain, a),
+                               (fk.mean_boundary_chain,
+                                fk._mean_boundary_plain, b + (64,)),
+                               (fk.mean_recovery_chain,
+                                fk._mean_recovery_plain, c)):
+        out = kernel(*args[:8])
+        assert out.is_cuda and torch.isfinite(out).all()
+        assert torch.equal(out, twin(*args)), kernel.__name__
+    rows = fk.mean_recovery_chain(*c)
+    ref = fk.mean_gain_chain(*chain, mfw[-1], ops["theta"], tail,
+                             k_star.expand(128, *k_star.shape).contiguous())
+    assert torch.equal(rows, ref)
+
+
+def test_stationary_entry_point_launches_its_kernels(cuda_device):
+    """solve_mv_fused_stationary on both schedules launches exactly its
+    kernels, and agrees with the same call on the CPU (the twins)."""
+    for n_steps, expected in (
+            (600, {"filter_single": 1, "mean_boundary_single": 1,
+                   "mean_recovery_single": 1, "smoother_single": 1}),
+            (150, {"filter_single": 1, "mean_gain_single": 1,
+                   "smoother_single": 1})):
+        def call(device):
+            cfg = lorenz.setup(n_steps=n_steps, t_max=0.002 * n_steps,
+                               device=device)
+            return fk.solve_mv_fused_stationary(
+                cfg["theta"], cfg["ode_weight"], cfg["ode_init"], 0.0,
+                0.002 * n_steps, n_steps, cfg["prior_pars"], model="lorenz",
+                device=device)
+
+        _reset_launches()
+        out = call(cuda_device)
+        torch.cuda.synchronize()
+        assert _launched() == expected, n_steps
+        cpu = call(torch.device("cpu"))
+        assert _launched() == expected, n_steps
+        for a, b in zip(out, cpu):
+            assert a.is_cuda and torch.isfinite(a).all(), n_steps
+            assert _scaled_err(a, b) <= ENTRY_TOL, n_steps
 
 
 def _magi_lanes(n_steps, n_lane, act, device, sig2=False):

@@ -260,6 +260,58 @@ def test_fused_grad_theta_lanes(truth_path):
         assert abs(g_th[i].item() - g_ref.item()) < 1e-2 * (mass + 1.0)
 
 
+def test_fused_grad_theta_lanes_pytree(truth_path):
+    """theta_lanes as a pytree, as the JAX package takes it: a dict of
+    per-lane leaves reaches ode_expand as a dict, and grad_theta comes back
+    as a dict.  Its values are those of the same function of one stacked
+    tensor, bitwise, and the JAX package's pytree gradient within the rule
+    of test_fused_grad_theta_lanes (each leaf's uncancelled mass)."""
+    prior = _prior(N_STEPS)
+    base = truth_path[:N_STEPS + 1, :, :2]
+    subs = np.broadcast_to(base, (3,) + base.shape).copy()
+    lanes = {"scale": np.array([0.5, 1.0, 1.5]),
+             "shift": np.array([0.0, 0.05, -0.05])}
+
+    def t_expand_ab(u, theta, **p):
+        return torch.cat([u[..., :1] + theta["shift"],
+                          theta["scale"] * u[..., 1:2],
+                          torch.zeros_like(u[..., :1])], -1)
+
+    def t_expand_stacked(u, theta, **p):
+        return t_expand_ab(u, {"scale": theta[0], "shift": theta[1]})
+
+    def j_expand_ab(u, theta, **p):
+        return jnp.concatenate([u[..., :1] + theta["shift"],
+                                theta["scale"] * u[..., 1:2],
+                                jnp.zeros_like(u[..., :1])], -1)
+
+    args = (torch.tensor(subs), 2, _t_prior(prior), DT)
+    ld, g_u, g_th = rt.magi_fused_batch_grad(
+        args[0], t_expand_ab, *args[1:],
+        theta_lanes={k: torch.tensor(v) for k, v in lanes.items()},
+        device="cpu")
+    assert isinstance(g_th, dict) and sorted(g_th) == ["scale", "shift"]
+    ld_s, g_u_s, g_th_s = rt.magi_fused_batch_grad(
+        args[0], t_expand_stacked, *args[1:],
+        theta_lanes=torch.tensor(np.stack([lanes["scale"], lanes["shift"]],
+                                          -1)), device="cpu")
+    assert torch.equal(ld, ld_s) and torch.equal(g_u, g_u_s)
+    assert torch.equal(g_th["scale"], g_th_s[:, 0])
+    assert torch.equal(g_th["shift"], g_th_s[:, 1])
+    ld_j, g_u_j, g_th_j = jm.magi_fused_batch_grad(
+        jnp.asarray(subs), j_expand_ab, 2, _j_prior(prior), DT,
+        theta_lanes={k: jnp.asarray(v) for k, v in lanes.items()})
+    assert _rel_err(ld, ld_j) <= F32_RTOL
+    assert _grad_err(g_u, g_u_j) <= F32_RTOL
+    for i in range(3):
+        masses = {"scale": (g_u[i][..., 1] * torch.tensor(subs[i][..., 1]))
+                  .abs().sum().item() / lanes["scale"][i],
+                  "shift": g_u[i][..., 0].abs().sum().item()}
+        for name, mass in masses.items():
+            err = abs(g_th[name][i].item() - float(g_th_j[name][i]))
+            assert err < 1e-2 * (mass + 1.0), (name, i)
+
+
 @pytest.mark.parametrize("act", [1, 2, 3])
 def test_grad_values_equal_value_call(truth_path, act):
     """The gradient call's log-density is the value call's, bitwise: K10a

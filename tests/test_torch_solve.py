@@ -64,7 +64,7 @@ def test_solve_mv_matches_jax_on_the_readme_fitzhugh(scheme):
                                 dtype=torch.float64)
     tht = torch.tensor(theta, dtype=torch.float64)
     mu_t, var_t = rodeo_tpu_torch.solve_mv(
-        ode_fun=_fitz_torch, ode_weight=Wt,
+        key=None, ode_fun=_fitz_torch, ode_weight=Wt,
         ode_init=padt(torch.tensor(x0, dtype=torch.float64), 0.0,
                       theta=tht),
         t_min=0.0, t_max=10.0, n_steps=n_steps,
@@ -94,7 +94,8 @@ def test_precond_solve_mv_matches_jax_on_lorenz():
                           device="cpu")
     th_t = cfg_t.pop("theta")
     mu_t, var_t = tprecond.solve_mv(
-        interrogate=tinterrogate.interrogate_kramer, theta=th_t, **cfg_t)
+        key=None, interrogate=tinterrogate.interrogate_kramer, theta=th_t,
+        **cfg_t)
     mu_j, var_j = np.asarray(mu_j), np.asarray(var_j)
     for d in range(3):
         np.testing.assert_allclose(mu_t[..., d].numpy(), mu_j[..., d],
@@ -102,6 +103,31 @@ def test_precond_solve_mv_matches_jax_on_lorenz():
                                    atol=1e-8 * np.abs(mu_j[..., d]).max())
     np.testing.assert_allclose(var_t.numpy(), var_j, rtol=0,
                                atol=1e-8 * np.abs(var_j).max())
+
+
+@pytest.mark.parametrize("solver", ["solve", "precond"])
+def test_solve_mv_takes_a_leading_key(solver):
+    """The JAX package's positional order, ``solve_mv(key, ode_fun,
+    ode_weight, ode_init, t_min, t_max, n_steps, interrogate,
+    prior_pars)``: the key goes to every interrogation, which draws nothing
+    and ignores it, so a torch.Generator gives the key=None result."""
+    jfun, tfun = {"solve": (rodeo_tpu.solve_mv, rodeo_tpu_torch.solve_mv),
+                  "precond": (jprecond.solve_mv, tprecond.solve_mv)}[solver]
+    cfg_j = jlorenz.setup(n_steps=40, t_max=0.4, dtype=jnp.float64)
+    cfg_t = tlorenz.setup(n_steps=40, t_max=0.4, dtype=torch.float64,
+                          device="cpu")
+    order = ("ode_fun", "ode_weight", "ode_init", "t_min", "t_max",
+             "n_steps")
+    mu_j, _ = jfun(None, *(cfg_j[k] for k in order),
+                   jinterrogate.interrogate_rodeo, cfg_j["prior_pars"],
+                   theta=cfg_j["theta"])
+    out = [tfun(key, *(cfg_t[k] for k in order),
+                tinterrogate.interrogate_rodeo, cfg_t["prior_pars"],
+                theta=cfg_t["theta"])
+           for key in (None, torch.Generator().manual_seed(0))]
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    np.testing.assert_allclose(out[0][0].numpy(), np.asarray(mu_j), rtol=0,
+                               atol=1e-8 * np.abs(np.asarray(mu_j)).max())
 
 
 @pytest.mark.parametrize("kwargs", [{"temporal": "parallel"},
@@ -112,7 +138,8 @@ def test_solve_mv_raises_for_unported_options(kwargs):
                         device="cpu")
     th = cfg.pop("theta")
     with pytest.raises(NotImplementedError):
-        tprecond.solve_mv(interrogate=tinterrogate.interrogate_rodeo,
+        tprecond.solve_mv(key=None,
+                          interrogate=tinterrogate.interrogate_rodeo,
                           theta=th, **cfg, **kwargs)
 
 
