@@ -4,7 +4,7 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run it from a checkout: it imports the package beside it and builds the 17
+Run it from a checkout: it imports the package beside it and builds the 19
 CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 
 1. device    the card, its power limit, TF32 off;
@@ -114,6 +114,31 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              and peak memory;
 19. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
              timed and checked against their twins there;
+20. k9_twin  non-Gaussian DALTON's kernels K9 (filter_nn_batch) and K11d
+             (filter_nn_batch_tan) against their twins on the same CUDA
+             inputs, 1000 steps x 256 lanes, 21 observations (every 50th
+             step): Lorenz63 EK1 with Gaussian data and FitzHugh-Nagumo EK0
+             with Poisson counts; per output and tangent direction, and
+             K11d's values against K9's bitwise;
+21. daltonng bench.py's non-Gaussian DALTON fixture at full width:
+             Lorenz63 EK1, 4000 steps to t = 20, 21 observations of
+             rng(1).normal x 5 with Gaussian variance 0.005, 2048 lanes.
+             daltonng_fused_batch must launch K9, K2r and K1 once each, stay
+             finite and pass the audit of lane 0 against the cached float64
+             value (the likelihood rule); daltonng_fused_batch_grad (at 2048
+             lanes, or the largest power of two that fits) must launch K11d,
+             K11e and K11a once each and return the value call's values
+             bitwise; lane 0's gradient is recorded as unusable in float32
+             (its float32-CPU control is NaN, and GRAD_THETA_ROUNDING); the
+             informative check holds bench.py's FitzHugh-Nagumo gradient
+             fixture at 4 lanes to the float64 torch-op
+             ops.precond.daltonng and its torch.autograd gradient
+             (DALTONNG_FITZ_VALUE_TOL, DALTONNG_FITZ_TOL); then the time per
+             call of each, their ratio and peak memory;
+22. daltonng_kernels  K9 and K11d alone at the path's shapes, timed and
+             checked against their twins there, and the other kernels of
+             the two calls (K2r, K1, K11a, K11e) timed there, for the time
+             each call spends outside its kernels;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
@@ -165,8 +190,11 @@ GRAD_CONTROL_MAX = 0.1
 # tangent twins, which give the truth at theta to 1e-6
 # (tests/test_torch_grad.py::test_dalton_gradient_in_float64_is_the_truth
 # recomputes it): DALTON on Lorenz63, whose float32-CPU control lands at
-# 0.038 by the draw of its rounding.
-GRAD_THETA_ROUNDING = {"dalton": 0.1129397}
+# 0.038 by the draw of its rounding.  Non-Gaussian DALTON on Lorenz63: the
+# float64 torch-op ops.precond.daltonng gives the truth at theta to 2.4e-7
+# and moves 1.18 away from it at theta rounded to float32
+# (tools/daltonng_theta_rounding.py).
+GRAD_THETA_ROUNDING = {"dalton": 0.1129397, "daltonng": 1.1840516}
 # FitzHugh-Nagumo's float32-CPU control (2.54) is not a control: on a
 # float32 grid the JAX package places 19 of its 21 observations one step
 # late, and its value misses the truth by 11 %.  That gradient is held to
@@ -189,6 +217,19 @@ SIM_VAR_MIN = 1e-8
 # rule max|g - g_ref| / (max|g_ref| + 1) (tests/test_pallas_magi.py); the
 # twins meet it on the CPU at 4000 steps (tests/test_torch_magi.py).
 MAGI_F64_TOL = 2e-4
+# Non-Gaussian DALTON's informative check (phase daltonng): bench.py's
+# FitzHugh-Nagumo fixture (y_fitz_mcmc, Gaussian data of variance
+# DALTONNG_FITZ_VAR = 0.2^2) at the lanes theta x DALTONNG_FITZ_LANES, in
+# float32 on the card against the float64 torch-op ops.precond.daltonng.
+# Each limit is 3 x the float32 twins' largest error on the CPU
+# (tests/test_torch_daltonng.py::
+# test_fitzhugh_float32_error_sets_the_card_tolerance): values 1.745e-2
+# relative (the float32 value is rounding-bound on this fixture: the JAX
+# package's fused path misses by 2.2 %), gradients 2.896e-3 relative L2.
+DALTONNG_FITZ_LANES = (1.0, 1.05, 0.95, 1.1)
+DALTONNG_FITZ_VAR = 0.04
+DALTONNG_FITZ_VALUE_TOL = 5.3e-2
+DALTONNG_FITZ_TOL = 8.7e-3
 # Clock cycles of the sleep that holds the stream while the host enqueues a
 # timed kernel (device_ms): ~10 ms at the H100's clocks, longer than any
 # wrapper's host work.
@@ -213,6 +254,8 @@ MEAN_KERNELS = ("mean_gain_single", "mean_boundary_single",
                 "mean_recovery_single")
 # The MAGI kernels K10a, K10b.
 MAGI_KERNELS = ("magi_batch", "magi_adjoint_batch")
+# Non-Gaussian DALTON's Laplace filter K9 and its tangent twin K11d.
+NN_KERNELS = ("filter_nn_batch", "filter_nn_batch_tan")
 
 
 def emit(obj):
@@ -239,8 +282,10 @@ def main():
     import rodeo_tpu_torch
     from rodeo_tpu_torch.interrogate import interrogate_kramer
     from rodeo_tpu_torch.models import fitzhugh, lorenz
+    from rodeo_tpu_torch.models import obs as obs_models
     from rodeo_tpu_torch.ops import _build
     from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
     from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
     from rodeo_tpu_torch.ops import fused_magi as fm
@@ -256,7 +301,7 @@ def main():
         return bool(ok)
 
     counters = (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES,
-                fm.LAUNCHES)
+                fm.LAUNCHES, fdn.LAUNCHES)
 
     def reset_counts():
         for counts in counters:
@@ -1803,6 +1848,279 @@ def main():
     emit({"phase": "magi_kernels", "n_steps": n_mg, "n_lane": b_mg,
           "kernels": at_magi})
 
+
+    # ---- 20. K9 and K11d against their twins -----------------------------
+    nn_names = ["mf", "pf", "mp", "pp"]
+    nn_split = [(3, 1), (6, 1), (3, 1), (6, 1)]
+    for model, mode, t_max_nn, obs_nn in (
+            ("lorenz", "kramer", 2.0, obs_models.gauss(0.005)),
+            ("fitzhugh", "rodeo", 10.0, obs_models.poisson(0.1, 0.05))):
+        mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
+        cfg_nn, thetas_nn, inits_nn = lane_setup(mod, n_tw, t_max_nn, b_tw,
+                                                 seeded_thetas(15))
+        rng = np.random.default_rng(16)
+        nb_nn = mod.N_VARS
+        # 21 observations: every 50th step
+        y_nn = (rng.normal(size=(21, nb_nn, 1)) * 5 if model == "lorenz"
+                else rng.poisson(2.0, size=(21, nb_nn, 1)))
+        ops_nn, grid_nn, _, _ = fdn._daltonng_prepare(
+            thetas_nn, cfg_nn["ode_weight"], inits_nn, 0.0, t_max_nn, n_tw,
+            cfg_nn["prior_pars"], torch.tensor(y_nn, dtype=torch.float32),
+            torch.tensor(np.linspace(0.0, t_max_nn, 21)))
+        fused_nn = fk.resolve_model(model)
+        args_nn = (fused_nn, obs_nn, (0,), n_tw)
+        kw_nn = dict(**ops_nn, **grid_nn, mode=mode)
+        config = f"{model}/{mode}/{obs_nn.cuda_functor}"
+        out_k = fdn.filter_nn_batch(*args_nn, **kw_nn)
+        twin_report("k9_twin", f"filter_nn_batch {config}", nn_names, out_k,
+                    fdn._filter_nn_batch_plain(*args_nn, **kw_nn),
+                    n_lane=b_tw)
+        tan_k = fdn.filter_nn_batch_tan(*args_nn, **kw_nn)
+        tan_p = fdn._filter_nn_batch_tan_plain(*args_nn, **kw_nn)
+        torch.cuda.synchronize()
+        errs = twin_errors(nn_names, tan_k, tan_p, nn_split)
+        values_k9 = all(torch.equal(a[:, :k], v)
+                        for a, v, (k, _) in zip(tan_k, out_k, nn_split))
+        ok = check("k9_twin", f"filter_nn_batch_tan {config}",
+                   worst(errs)[1] <= TWIN_TOL and values_k9
+                   and all(torch.isfinite(a).all().item() for a in tan_k))
+        emit({"phase": "k9_twin", "config": f"filter_nn_batch_tan {config}",
+              "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
+              "bitwise": all(torch.equal(a, b) for a, b in zip(tan_k, tan_p)),
+              "values_bitwise_k9": values_k9, "errors": errs, "ok": ok})
+        del out_k, tan_k, tan_p, ops_nn, grid_nn
+    torch.cuda.empty_cache()
+
+    # ---- 21. non-Gaussian DALTON at full width ---------------------------
+    n_ng, b_ng, t_ng = 4000, 2048, 20.0
+    cfg_ng, thetas_ng, inits_ng = lane_setup(lorenz, n_ng, t_ng, b_ng,
+                                             bench_thetas)
+    obs_ng = bench_obs(lorenz, t_ng, 21, 1)     # bench.py's rng(1) data
+    gauss_ng = obs_models.gauss(0.005)
+
+    def ng_args(n_lane):
+        return (thetas_ng[:n_lane], cfg_ng["ode_weight"], inits_ng[:n_lane],
+                0.0, t_ng, n_ng, cfg_ng["prior_pars"], obs_ng["obs_data"],
+                obs_ng["obs_times"], gauss_ng, (0,), "lorenz")
+
+    def ng_value(n_lane=b_ng):
+        return fdn.daltonng_fused_batch(*ng_args(n_lane))
+
+    def ng_grad(n_lane=b_ng):
+        return fdn.daltonng_fused_batch_grad(*ng_args(n_lane))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ll_ng = ng_value()
+    torch.cuda.synchronize()
+    ng_launches = read_counts()
+    ng_peak = torch.cuda.max_memory_allocated()
+    check("daltonng", "value launches", ng_launches == expect(
+        filter_nn_batch=1, smoother_batch_rows=1, filter_batch=1))
+    ng_finite = check("daltonng", "value finite",
+                      tuple(ll_ng.shape) == (b_ng,)
+                      and torch.isfinite(ll_ng).all().item())
+    ng_ref = float(truth["daltonng_ll"])
+    ng_control = abs(float(truth["daltonng_ll_f32cpu"]) - ng_ref)
+    ng_lane0 = float(ll_ng[0])
+    ng_err = abs(ng_lane0 - ng_ref)
+    ng_tol = max(3 * ng_control, LL_REL_FLOOR * abs(ng_ref))
+    ng_audit = check("daltonng", "value audit", ng_err <= ng_tol)
+    # the gradient at the largest power of two of lanes that fits
+    b_grad = b_ng
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            ll_g, g_ng = ng_grad(b_grad)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b_grad == 1:
+                raise
+            b_grad //= 2
+    ng_grad_launches = read_counts()
+    ng_grad_peak = torch.cuda.max_memory_allocated()
+    check("daltonng", "gradient launches", ng_grad_launches == expect(
+        filter_nn_batch_tan=1, smoother_mean_batch_tan=1,
+        filter_batch_tan=1))
+    g_finite = check("daltonng", "gradient finite",
+                     tuple(g_ng.shape) == (b_grad, 3)
+                     and torch.isfinite(g_ng).all().item())
+    # the values of the same lanes from a value call of the same width
+    same_ll = ll_ng if b_grad == b_ng else ng_value(b_grad)
+    ng_same = check("daltonng", "values bitwise", torch.equal(ll_g, same_ll))
+    g64 = np.asarray(truth["daltonng_grad"], np.float64)
+    g_ctrl = np.asarray(truth["daltonng_grad_f32cpu"], np.float64)
+    g_lane0 = g_ng[0].double().cpu().numpy()
+    ng_grad_rel = float(np.linalg.norm(g_lane0 - g64) / np.linalg.norm(g64))
+    # the control is NaN: the gradient is recorded, not judged
+    ng_grad_control = float(np.linalg.norm(g_ctrl - g64)
+                            / np.linalg.norm(g64))
+    ng_unusable = not ng_grad_control <= GRAD_CONTROL_MAX or \
+        GRAD_THETA_ROUNDING["daltonng"] > GRAD_CONTROL_MAX
+    ng_grad_ok = None if ng_unusable else check(
+        "daltonng", "gradient audit",
+        ng_grad_rel <= max(3 * ng_grad_control, GRAD_FLOOR))
+    del ll_ng, ll_g, g_ng, same_ll
+    torch.cuda.empty_cache()
+    value_ng_ms = cuda_ms(ng_value, repeats=3)
+    grad_ng_ms = cuda_ms(lambda: ng_grad(b_grad), repeats=3)
+    # the informative check: FitzHugh-Nagumo EK1 at bench.py's gradient
+    # fixture, 4 lanes, against the float64 torch-op on the CPU
+    n_fi, t_fi = 200, 10.0
+    idx_fi = np.arange(0, n_fi + 1, 10)
+    y_fi = torch.tensor(truth["y_fitz_mcmc"])[:, :, None]
+    times_fi = torch.tensor(t_fi * idx_fi / n_fi)
+    cfg_fi = fitzhugh.setup(n_steps=n_fi, t_max=t_fi, dtype=torch.float32,
+                            device=dev)
+    thetas_fi = cfg_fi["theta"] * torch.tensor(
+        DALTONNG_FITZ_LANES, dtype=torch.float32, device=dev)[:, None]
+    n_fi_lane = thetas_fi.shape[0]
+    ll_fi, g_fi = fdn.daltonng_fused_batch_grad(
+        thetas_fi, cfg_fi["ode_weight"],
+        cfg_fi["ode_init"].expand(n_fi_lane, 2, 3), 0.0, t_fi, n_fi,
+        cfg_fi["prior_pars"], y_fi.float(), times_fi.float(),
+        obs_models.gauss(DALTONNG_FITZ_VAR), (0,), "fitzhugh")
+    ll_fi, g_fi = ll_fi.double().cpu(), g_fi.double().cpu()
+    cfg64_fi = fitzhugh.setup(n_steps=n_fi, t_max=t_fi, device="cpu")
+    cfg64_fi.pop("theta")
+
+    def fitz_loglik(o, x, i, **p):
+        return torch.sum(-0.5 * (o[:, 0] - x[:, 0]) ** 2 / DALTONNG_FITZ_VAR)
+
+    t0 = time.perf_counter()
+    fi_value_rel, fi_grad_rel, fi_ref = [], [], []
+    for i in range(n_fi_lane):
+        th = thetas_fi[i].double().cpu().requires_grad_(True)
+        ref_i = tprecond.daltonng(
+            key=None, interrogate=interrogate_kramer, theta=th,
+            obs_data=y_fi, obs_times=times_fi, obs_loglik_i=fitz_loglik,
+            **cfg64_fi)
+        (g_ref,) = torch.autograd.grad(ref_i, th)
+        fi_ref.append(ref_i.item())
+        fi_value_rel.append(abs(ll_fi[i].item() - ref_i.item())
+                            / abs(ref_i.item()))
+        fi_grad_rel.append(((g_fi[i] - g_ref).norm() / g_ref.norm()).item())
+    fi_ref_s = time.perf_counter() - t0
+    fi_ok = check("daltonng", "informative check against float64",
+                  max(fi_value_rel) <= DALTONNG_FITZ_VALUE_TOL
+                  and max(fi_grad_rel) <= DALTONNG_FITZ_TOL)
+    emit({"phase": "daltonng", "model": "lorenz", "interrogation": "kramer",
+          "obs_model": "gauss", "obs_var": 0.005, "n_steps": n_ng,
+          "n_lane": b_ng, "n_obs": 21,
+          "value": {"launches": {k: v for k, v in ng_launches.items() if v},
+                    "finite": ng_finite, "lane0": ng_lane0,
+                    "audit_abs_err": ng_err, "audit_ref": ng_ref,
+                    "audit_control_abs_err": ng_control,
+                    "audit_tol": ng_tol, "audit_ok": ng_audit,
+                    "call_ms": value_ng_ms,
+                    "per_eval_us": 1e3 * value_ng_ms / b_ng,
+                    "peak_mem_bytes": ng_peak},
+          "grad": {"n_lane": b_grad,
+                   "n_lane_note": None if b_grad == b_ng else
+                   f"{b_ng} lanes do not fit in device memory",
+                   "launches": {k: v for k, v in ng_grad_launches.items()
+                                if v},
+                   "finite": g_finite, "values_bitwise": ng_same,
+                   "grad_lane0": g_lane0.tolist(), "grad_ref": g64.tolist(),
+                   "grad_rel_err": ng_grad_rel,
+                   "grad_control_rel_err": ng_grad_control,
+                   "grad_theta_rounding_rel":
+                   GRAD_THETA_ROUNDING["daltonng"],
+                   "f32_unusable_on_any_hw": ng_unusable,
+                   "grad_ok": ng_grad_ok, "call_ms": grad_ng_ms,
+                   "per_eval_us": 1e3 * grad_ng_ms / b_grad,
+                   "ratio_to_value_call": grad_ng_ms / value_ng_ms
+                   * b_ng / b_grad,
+                   "peak_mem_bytes": ng_grad_peak},
+          "informative": {"model": "fitzhugh", "n_steps": n_fi,
+                          "n_lane": n_fi_lane, "obs_var": DALTONNG_FITZ_VAR,
+                          "lanes": list(DALTONNG_FITZ_LANES),
+                          "lane_values": ll_fi.tolist(),
+                          "f64_values": fi_ref,
+                          "value_rel_err": fi_value_rel,
+                          "value_tol": DALTONNG_FITZ_VALUE_TOL,
+                          "grad_rel_err": fi_grad_rel,
+                          "grad_tol": DALTONNG_FITZ_TOL, "ok": fi_ok,
+                          "f64_reference_s": fi_ref_s}})
+    del ll_fi, g_fi
+
+    # ---- 22. K9 and K11d at the path's shapes ----------------------------
+    # (these launches come after the counts above were read)
+    ops_ng, grid_ng, _, _ = fdn._daltonng_prepare(
+        thetas_ng, cfg_ng["ode_weight"], inits_ng, 0.0, t_ng, n_ng,
+        cfg_ng["prior_pars"], obs_ng["obs_data"], obs_ng["obs_times"])
+    fused_ng = fk.resolve_model("lorenz")
+    nn_args = (fused_ng, gauss_ng, (0,), n_ng)
+    nn_kw = dict(**ops_ng, **grid_ng, mode="kramer")
+    nn_cpu = cpu_lanes({**ops_ng, **grid_ng}, ("x0_lanes", "theta_lanes"))
+
+    def nn_steps(n):
+        """K9's CPU operands of one lane cut to the first n steps."""
+        return {k: (v[:n] if k in ("tgrid", "y", "iobs", "mask") else v)
+                for k, v in nn_cpu.items()}
+
+    at_ng = {}
+    out9, at_ng["filter_nn_batch"] = at_path_shapes(
+        "daltonng_kernels", "filter_nn_batch", "pallas_daltonng.py:77",
+        ng_launches, lambda: fdn.filter_nn_batch(*nn_args, **nn_kw),
+        lambda: fdn._filter_nn_batch_plain(*nn_args, **nn_kw), nn_names,
+        lambda n: fdn._filter_nn_batch_plain(fused_ng, gauss_ng, (0,), n,
+                                             **nn_steps(n), mode="kramer"),
+        n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), repeats=3,
+        shape=f"{n_ng} x {b_ng}")
+    # the other kernels of the two paths at these shapes, for the time the
+    # calls spend outside kernels
+    G9, b9, C9 = fdn._cond_params_cols(ops_ng, *out9)
+    rows9 = (b9, G9, C9, out9[0][-1].clone(), out9[1][-1].clone(),
+             ops_ng["x0_lanes"], torch.ones(3, device=dev),
+             torch.ones(6, device=dev))
+    del out9, G9, b9, C9
+    path_ms = {"smoother_batch_rows": device_ms(
+        lambda: fk.smoother_recursion_batch_rows(*rows9), 3)}
+    del rows9
+    path_ms["filter_batch"] = device_ms(
+        lambda: fk.fused_filter_batch(fused_ng, n_ng, **ops_ng,
+                                      mode="kramer"), 3)
+    path_ms["filter_batch_tan"] = device_ms(
+        lambda: fk.fused_filter_batch_tan(fused_ng, n_ng, **ops_ng,
+                                          mode="kramer"), 3)
+    A11, b11, _, m11, _ = fk.fused_filter_batch_tan(fused_ng, n_ng, **ops_ng,
+                                                    mode="kramer")
+    e11 = (b11[1:].contiguous(), A11[1:].contiguous(), m11)
+    del A11, b11
+    path_ms["smoother_mean_batch_tan"] = device_ms(
+        lambda: fk.smoother_mean_recursion_batch_tan(*e11, n_tan), 3)
+    del e11, m11
+    torch.cuda.empty_cache()
+    _, at_ng["filter_nn_batch_tan"] = at_path_shapes(
+        "daltonng_kernels", "filter_nn_batch_tan", "pallas_daltonng.py:269",
+        ng_grad_launches, lambda: fdn.filter_nn_batch_tan(*nn_args, **nn_kw),
+        lambda: fdn._filter_nn_batch_tan_plain(*nn_args, **nn_kw), nn_names,
+        lambda n: fdn._filter_nn_batch_tan_plain(
+            fused_ng, gauss_ng, (0,), n, **nn_steps(n), mode="kramer"),
+        n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), split=nn_split,
+        repeats=3, shape=f"{n_ng} x {b_ng}")
+    value_kernels_ms = (at_ng["filter_nn_batch"]["ms"]
+                        + path_ms["smoother_batch_rows"]
+                        + path_ms["filter_batch"])
+    grad_kernels_ms = (at_ng["filter_nn_batch_tan"]["ms"]
+                       + path_ms["smoother_mean_batch_tan"]
+                       + path_ms["filter_batch_tan"])
+    emit({"phase": "daltonng_kernels", "n_steps": n_ng, "n_lane": b_ng,
+          "kernels": at_ng, "other_kernels_ms": path_ms,
+          "value": {"call_ms": value_ng_ms, "kernels_ms": value_kernels_ms,
+                    "rest_ms": value_ng_ms - value_kernels_ms},
+          "grad": {"n_lane": b_grad, "call_ms": grad_ng_ms,
+                   "kernels_ms_at_2048": grad_kernels_ms,
+                   "rest_ms": grad_ng_ms - grad_kernels_ms
+                   if b_grad == b_ng else None}})
+    del ops_ng, grid_ng, nn_cpu
+
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end
     print(smi, flush=True)
@@ -1810,7 +2128,7 @@ def main():
     emit({"kernels": [kernels[name] for name in (
         "filter_batch", "smoother_batch_rows", "sampler_batch",
         "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS
-        + SINGLE_KERNELS + MEAN_KERNELS + MAGI_KERNELS]})
+        + SINGLE_KERNELS + MEAN_KERNELS + MAGI_KERNELS + NN_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

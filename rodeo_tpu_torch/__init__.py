@@ -8,7 +8,8 @@ itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
 Ported so far (the ``solve_mv`` slice, the lane-batched inference
-path and its gradients, the single-solve fused path, and MAGI):
+path and its gradients, the single-solve fused path, MAGI and
+non-Gaussian DALTON):
 
 - :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
   :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
@@ -41,7 +42,15 @@ path and its gradients, the single-solve fused path, and MAGI):
   lane-batched :func:`magi_fused_batch` (``ops/csrc/magi_batch.cu``) with
   its reverse-mode path gradient :func:`magi_fused_batch_grad` (the same
   filter and ``ops/csrc/magi_adjoint_batch.cu``), whose
-  ``torch.autograd.Function`` also serves ``.backward()``.
+  ``torch.autograd.Function`` also serves ``.backward()``;
+- non-Gaussian DALTON: the float64 torch-op
+  :func:`rodeo_tpu_torch.inference.daltonng` (and
+  :func:`rodeo_tpu_torch.ops.precond.daltonng`), and the lane-batched
+  :func:`daltonng_fused_batch` (the Laplace-linearised filter
+  ``ops/csrc/filter_nn_batch.cu``, K2r and K1) with its forward-mode
+  gradient :func:`daltonng_fused_batch_grad` (``ops/csrc/
+  filter_nn_batch_tan.cu``, K11e and K11a), for the observation models of
+  :mod:`rodeo_tpu_torch.models.obs`.
 
 The fused entry points and the model setups run on the CUDA card unless
 they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
@@ -54,6 +63,8 @@ from rodeo_tpu_torch import interrogate
 from rodeo_tpu_torch import prior
 from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  dalton_fused_batch, dalton_fused_batch_grad,
+                                 daltonng_fused_batch,
+                                 daltonng_fused_batch_grad,
                                  fenrir_fused, fenrir_fused_batch,
                                  fenrir_fused_batch_grad, fused_loglik,
                                  magi_fused_batch, magi_fused_batch_grad,
@@ -71,4 +82,5 @@ __all__ = ["inference", "interrogate", "prior", "solve_mv",
            "dalton_fused_batch_grad", "fused_loglik", "solve_mv_fused",
            "solve_mv_fused_stationary",
            "fenrir_fused", "smoother_recursion_batch_rows",
-           "magi_fused_batch", "magi_fused_batch_grad"]
+           "magi_fused_batch", "magi_fused_batch_grad",
+           "daltonng_fused_batch", "daltonng_fused_batch_grad"]

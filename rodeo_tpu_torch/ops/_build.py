@@ -75,6 +75,12 @@ _SIGNATURES = {
     # (K5c), theta, tgrid of the tail, K*, bnd (K5b) or mf (K5c), stream
     "rodeo_mean_boundary_single": [_I] * 3 + [_P] * 9,
     "rodeo_mean_recovery_single": [_I] * 3 + [_P] * 9,
+    # non-Gaussian DALTON's Laplace-linearised filter and its tangent twin:
+    # model, obs_model, mode, obs_dims, n_steps, n_lane, q_const (host),
+    # obs_pars (host), R, W, t_vec, x0, theta, tgrid, y, iobs, mask, mf, pf,
+    # mp, pp, stream
+    "rodeo_filter_nn_batch": [_I] * 6 + [_P] * 16,
+    "rodeo_filter_nn_batch_tan": [_I] * 6 + [_P] * 16,
 }
 
 

@@ -5,12 +5,13 @@
 // their operations in the same order (value a, tangent da; q = a / b):
 //   a +- b: da +- db;   -a: -da;   a * b: da * b + a * db;
 //   a / b: (da - q * db) / b;   c / b for a float c: -(q * db) / b;
-//   log a: da / a.
+//   log a: da / a;   exp a: da * exp(a).
 // The value part of every rule is exactly the float operation, so a kernel
 // templated on the scalar type computes, in the value of its Duals, what its
 // float instantiation computes, bitwise.  A float mixed with a Dual is a
 // constant (zero tangent).  The overloads for float keep the plain
-// kernels' code as it was: value(x), log_of(x) and the operators of float.
+// kernels' code as it was: value(x), log_of(x), exp_of(x) and the operators
+// of float.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +54,12 @@ __device__ __forceinline__ float value(Dual x) { return x.v; }
 
 __device__ __forceinline__ float log_of(float x) { return logf(x); }
 __device__ __forceinline__ Dual log_of(Dual x) { return {logf(x.v), x.d / x.v}; }
+
+__device__ __forceinline__ float exp_of(float x) { return expf(x); }
+__device__ __forceinline__ Dual exp_of(Dual x) {
+  const float e = expf(x.v);
+  return {e, x.d * e};
+}
 
 // The output layout of the tangent kernels (that of the TPU kernels they
 // replace): an output of K entries per row is (rows, NAUG K, ...), the

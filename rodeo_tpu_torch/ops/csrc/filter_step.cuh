@@ -1,7 +1,8 @@
 // One step of the lane-batched EK filter for a thread that carries one lane
 // with all NB blocks of its state in registers: predict, interrogate the ODE
 // at the predicted mean, and the scalar-innovation Joseph update; the
-// smoothing gains of a step (gain_cols) and DALTON's step (dalton_step).
+// smoothing gains of a step (gain_cols), DALTON's step (dalton_step) and
+// non-Gaussian DALTON's Laplace-linearised step (filter_nn_step).
 //
 // Shared by K1 (filter_batch.cu), which also forms the smoothing gains
 // between predict and update, and K8 (dalton_filter_batch.cu), which also
@@ -9,7 +10,9 @@
 // that both kernels run the same arithmetic; and, on the scalar type Dual
 // (dual.cuh), by their tangent twins K11a (filter_batch_tan.cu) and K11c
 // (dalton_filter_batch_tan.cu), whose values are then K1's and K8's
-// bitwise.  The plain PyTorch versions of this step are _filter_batch_plain
+// bitwise.  K9 (filter_nn_batch.cu) and its tangent twin K11d
+// (filter_nn_batch_tan.cu) run filter_nn_step, the same predict and
+// update followed by masked pseudo-observation updates.  The plain PyTorch versions of this step are _filter_batch_plain
 // (ops/fused_kalman.py) and _dalton_filter_plain (ops/fused_dalton.py),
 // which run on Duals for the tangent kernels; the order of every sum
 // follows them (see kalman_cols.cuh).
@@ -20,6 +23,7 @@
 #include <cuda_runtime.h>
 
 #include "kalman_cols.cuh"
+#include "obs_models.cuh"
 
 namespace rodeo {
 
@@ -246,6 +250,86 @@ __device__ __forceinline__ void dalton_step(
       obs_acc = (b == 0) ? term : obs_acc + term;
     }
     ld = ld + mk * (-0.5f * obs_acc);
+  }
+}
+
+// The masked Laplace pseudo-observation update of component j of one block
+// (_laplace_update_cols of ops/fused_daltonng.py), after the ODE update.
+// The observation log-likelihood is linearised at x, the component's
+// predicted mean in original coordinates: its gradient g and Hessian h come
+// from the functor evaluated on the Jet2 (x, 1, 0), the pseudo-observation
+// variance is vhat = -1 / h and the pseudo-datum x + vhat g, observed
+// through the scaled row D = tv[j] e_j: zo = (x + vhat g) - tv[j] m[j],
+// So = vhat + D P D', K = P D' (mask / So), m += K zo and the Joseph form
+// P = (I - K D) P (I - K D)' + K K' vhat.
+template <class Obs, int Q, class T, int NTH>
+__device__ __forceinline__ void laplace_update(
+    const float (&tv)[Q], int j, const T& x, float y, float iobs,
+    float mask, const T (&th)[NTH], const ObsPars& pars, T (&m)[Q],
+    T (&P)[Tri<Q>::N]) {
+  constexpr int NT = Tri<Q>::N;
+  const Jet2<T> ll =
+      Obs::template f<Jet2<T>, T, NTH>(y, jet_variable(x), j, th, iobs, pars);
+  const T& g = ll.d1;
+  const T& h = ll.d2;
+  const T vhat = -1.0f / h;
+  const T zo = (x + vhat * g) - tv[j] * m[j];
+  T PD[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) PD[i] = P[Tri<Q>::at(i, j)] * tv[j];
+  const T So = vhat + tv[j] * PD[j];
+  const T ratio = mask / So;
+  T K[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) K[i] = PD[i] * ratio;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) m[i] = m[i] + K[i] * zo;
+  T IKD[Q][Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int l = 0; l < Q; ++l)
+      IKD[i][l] = (i == l ? 1.0f : 0.0f) - (l == j ? K[i] * tv[j] : T(0.0f));
+  T pj[NT];
+  sym_quadform<Q>(IKD, P, pj);
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int l = i; l < Q; ++l, ++k) P[k] = pj[k] + K[i] * K[l] * vhat;
+}
+
+// One step n of the Laplace-linearised filter of non-Gaussian DALTON
+// (_filter_nn_batch_plain of ops/fused_daltonng.py): predict, interrogate
+// and update every block from (m, P) into (mp, pp) and (m, P), then, at a
+// step with data (mask[n] != 0), the pseudo-observation update of each
+// component j in obs_dims (a bit mask), in ascending order.  A step
+// without data skips them: there the masked update is an exact identity
+// (K = 0), and the twin skips it too.  The observation grid (y: N x NB,
+// iobs, mask: N) is shared by all lanes.
+template <class Model, class Obs, int Q, int MODE, class T>
+__device__ __forceinline__ void filter_nn_step(
+    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], int n,
+    float t, int obs_dims, const ObsPars& pars, const float* __restrict__ y,
+    const float* __restrict__ iobs, const float* __restrict__ mask,
+    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N],
+    T (&mp)[Model::NB][Q], T (&pp)[Model::NB][Tri<Q>::N]) {
+  constexpr int NB = Model::NB;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
+  T z[NB], S[NB], inv_S[NB];
+  interrogate_update<Model, Q, MODE>(c, th, t, mp, pp, m, P, z, S, inv_S);
+  const float mk = mask[n];
+  if (mk == 0.0f) return;
+  const float io = iobs[n];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    if (!(obs_dims & (1 << j))) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      laplace_update<Obs, Q>(c.tv, j, mp[b][j] * c.tv[j],
+                             y[static_cast<size_t>(n) * NB + b], io, mk, th,
+                             pars, m[b], P[b]);
   }
 }
 

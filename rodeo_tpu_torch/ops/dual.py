@@ -1,6 +1,7 @@
 r"""
 Forward-mode numbers for the plain PyTorch twins of the tangent kernels
-(the CUDA side is ``csrc/dual.cuh``).
+(the CUDA side is ``csrc/dual.cuh``), and the second-order number
+:class:`Jet2` of the Laplace derivatives (``csrc/jet.cuh``).
 
 A :class:`Dual` holds a value ``v`` and its tangents ``d`` along ``n_dir``
 directions at once, ``d`` having one leading axis more than ``v``.  Its
@@ -20,12 +21,12 @@ The rules (value ``a``, tangent ``da``; ``q = a / b``):
 - ``a * b``: ``da * b + a * db``;
 - ``a / b``: ``(da - q * db) / b``;  ``c / b`` for a constant ``c``:
   ``-(q * db) / b``;
-- ``log a``: ``da / a``.
+- ``log a``: ``da / a``;  ``exp a``: ``da * exp(a)``.
 """
 import torch
 
-__all__ = ["Dual", "primal", "seed_directions", "constant", "rows", "stack",
-           "split"]
+__all__ = ["Dual", "Jet2", "primal", "seed_directions", "constant", "rows",
+           "stack", "split"]
 
 
 class Dual:
@@ -96,6 +97,10 @@ class Dual:
     def log(self):
         return Dual(torch.log(self.v), self.d / self.v)
 
+    def exp(self):
+        e = torch.exp(self.v)
+        return Dual(e, self.d * e)
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -128,6 +133,87 @@ def _cat(tensors, dim=0):
           else x.new_zeros((n_dir,) + x.shape) for x in tensors]
     return Dual(torch.cat(vs, dim), torch.cat(ds, dim + 1 if dim >= 0
                                               else dim))
+
+
+class Jet2:
+    r"""
+    A second-order forward number along one direction: a value ``v``, its
+    first derivative ``d1`` and its second ``d2``.  Evaluating a function on
+    ``Jet2(x, 1, 0)`` gives ``f(x)``, ``f'(x)`` and ``f''(x)``: the gradient
+    and Hessian of an observation model's Laplace linearisation.
+
+    The components are plain tensors, or :class:`Dual`\ s in the tangent
+    kernel's twin, where the tangent of ``f''`` carries the third
+    derivative.  Anything that is not a Jet2 is a constant.  The rules are
+    written once here and once in ``csrc/jet.cuh``, in the same order
+    (``a``, ``b`` Jet2s with components ``a0, a1, a2``; ``c`` a constant;
+    ``q = a0 / b0``, ``q1`` the first component of a quotient):
+
+    - ``a +- b``, ``-a``: componentwise;  ``a +- c``: ``(a0 +- c, a1, a2)``;
+    - ``a * b``: ``(a0 b0, a1 b0 + a0 b1, (a2 b0 + a0 b2) + (a1 b1 + a1
+      b1))``;  ``a * c``: each component times ``c``;
+    - ``a / b``: ``(q, (a1 - q b1) / b0, (a2 - (q1 b1 + q1 b1) - q b2) /
+      b0)``;  ``a / c``: each component over ``c``;  ``c / b``: ``(q,
+      -(q b1) / b0, -((q1 b1 + q1 b1) + q b2) / b0)``;
+    - ``exp a``: ``(e, e a1, e (a2 + a1 a1))``, ``e = exp(a0)``;
+    - ``log a``: ``(log a0, q1, (a2 - q1 a1) / a0)``, ``q1 = a1 / a0``.
+    """
+
+    __slots__ = ("v", "d1", "d2")
+
+    def __init__(self, v, d1, d2):
+        self.v, self.d1, self.d2 = v, d1, d2
+
+    def __add__(self, o):
+        if isinstance(o, Jet2):
+            return Jet2(self.v + o.v, self.d1 + o.d1, self.d2 + o.d2)
+        return Jet2(self.v + o, self.d1, self.d2)
+
+    def __radd__(self, o):
+        return Jet2(o + self.v, self.d1, self.d2)
+
+    def __sub__(self, o):
+        if isinstance(o, Jet2):
+            return Jet2(self.v - o.v, self.d1 - o.d1, self.d2 - o.d2)
+        return Jet2(self.v - o, self.d1, self.d2)
+
+    def __rsub__(self, o):
+        return Jet2(o - self.v, -self.d1, -self.d2)
+
+    def __neg__(self):
+        return Jet2(-self.v, -self.d1, -self.d2)
+
+    def __mul__(self, o):
+        if isinstance(o, Jet2):
+            return Jet2(self.v * o.v, self.d1 * o.v + self.v * o.d1,
+                        (self.d2 * o.v + self.v * o.d2)
+                        + (self.d1 * o.d1 + self.d1 * o.d1))
+        return Jet2(self.v * o, self.d1 * o, self.d2 * o)
+
+    def __rmul__(self, o):
+        return Jet2(o * self.v, o * self.d1, o * self.d2)
+
+    def __truediv__(self, o):
+        if isinstance(o, Jet2):
+            q = self.v / o.v
+            q1 = (self.d1 - q * o.d1) / o.v
+            q2 = (self.d2 - (q1 * o.d1 + q1 * o.d1) - q * o.d2) / o.v
+            return Jet2(q, q1, q2)
+        return Jet2(self.v / o, self.d1 / o, self.d2 / o)
+
+    def __rtruediv__(self, o):
+        q = o / self.v
+        q1 = -(q * self.d1) / self.v
+        q2 = -((q1 * self.d1 + q1 * self.d1) + q * self.d2) / self.v
+        return Jet2(q, q1, q2)
+
+    def exp(self):
+        e = self.v.exp()
+        return Jet2(e, e * self.d1, e * (self.d2 + self.d1 * self.d1))
+
+    def log(self):
+        q1 = self.d1 / self.v
+        return Jet2(self.v.log(), q1, (self.d2 - q1 * self.d1) / self.v)
 
 
 def primal(x):

@@ -1,7 +1,9 @@
 r"""
 Matmul precision guard (the port of
-:func:`rodeo_tpu.ops.linalg.full_matmul_precision`) and the closed-form
-inverse of tiny matrices (:func:`inv_small`).
+:func:`rodeo_tpu.ops.linalg.full_matmul_precision`) and closed forms for
+tiny matrices: the inverse (:func:`inv_small`), the determinant
+(:func:`_det_small_normed`) and the symmetric eigendecomposition
+(:func:`sym_eigh_small`).
 
 On a TPU the JAX package forces "highest" matmul precision because the
 default float32 ``dot_general`` runs bfloat16 passes, whose rounding the
@@ -11,10 +13,11 @@ side) and convolutions (cuDNN) with 10-bit mantissas.  The guard switches
 both off for the duration of a call and checks that they are off.
 """
 import functools
+import math
 
 import torch
 
-__all__ = ["full_matmul_precision", "inv_small"]
+__all__ = ["full_matmul_precision", "inv_small", "sym_eigh_small"]
 
 
 def full_matmul_precision(fn):
@@ -105,3 +108,139 @@ def _inv_small_normed(a):
         bot = torch.cat([LL, Sinv], dim=-1)
         return torch.cat([top, bot], dim=-2)
     raise ValueError(f"inv_small supports n in (1, ..., 5), got {n}")
+
+
+def _det_small_normed(a):
+    """Closed-form determinant over the trailing dims, up to 5 x 5
+    (batched); n = 4, 5 by the Schur split det(M) = det(A) det(D - C A^{-1}
+    B).  Not scale-normalised: the caller passes an equilibrated matrix."""
+    n = a.shape[-1]
+    if n == 1:
+        return a[..., 0, 0]
+    if n == 2:
+        return _det2(a)
+    if n == 3:
+        m00, m01, m02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+        m10, m11, m12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
+        m20, m21, m22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
+        return (m00 * (m11 * m22 - m12 * m21)
+                + m01 * (m12 * m20 - m10 * m22)
+                + m02 * (m10 * m21 - m11 * m20))
+    if n in (4, 5):
+        k = 2
+        A, B = a[..., :k, :k], a[..., :k, k:]
+        Cc, D = a[..., k:, :k], a[..., k:, k:]
+        return _det2(A) * _det_small_normed(D - Cc @ _inv_small_normed(A) @ B)
+    raise ValueError(f"_det_small_normed supports n <= 5, got {n}")
+
+
+def sym_eigh_small(a):
+    r"""
+    Closed-form symmetric eigendecomposition over the trailing dims, up to
+    3 x 3 (batched, elementwise operations only), formula for formula as
+    :func:`rodeo_tpu.ops.linalg.sym_eigh_small`: which directions a masked
+    log-density keeps depends on this rounding.
+
+    Eigenvalues by the trigonometric solution of the characteristic cubic;
+    eigenvectors by the Cayley-Hamilton construction (the image of two
+    fixed probe vectors under :math:`\prod_{j \ne i}(A - \lambda_j I)`,
+    the larger kept), completed to an orthonormal triple from the
+    better-separated end of the spectrum.  Scale-normalised.
+
+    Returns:
+        (tuple): ``(w, v)``, the eigenvalues ascending and the eigenvectors
+        as columns, as ``torch.linalg.eigh`` returns them.
+    """
+    n = a.shape[-1]
+    if n == 1:
+        return a[..., 0], torch.ones_like(a)
+    scale = torch.amax(torch.abs(a), dim=(-1, -2), keepdim=True)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    A = a / scale
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    if n == 2:
+        a00, a01, a11 = A[..., 0, 0], A[..., 0, 1], A[..., 1, 1]
+        tr2 = 0.5 * (a00 + a11)
+        d = torch.sqrt(torch.clamp((0.5 * (a00 - a11)) ** 2 + a01 * a01,
+                                   min=0.0))
+        w = torch.stack([tr2 - d, tr2 + d], dim=-1)
+        B = A - w[..., 1, None, None] * eye
+        c0, c1 = B[..., :, 0], B[..., :, 1]
+        pick = (torch.sum(c0 * c0, -1, keepdim=True)
+                >= torch.sum(c1 * c1, -1, keepdim=True))
+        v0 = torch.where(pick, c0, c1)
+        v0 = v0 / torch.sqrt(torch.clamp(
+            torch.sum(v0 * v0, -1, keepdim=True), min=1e-38))
+        v1 = torch.stack([-v0[..., 1], v0[..., 0]], dim=-1)
+        return w * scale[..., 0], torch.stack([v0, v1], dim=-1)
+    if n != 3:
+        raise ValueError("sym_eigh_small supports n <= 3")
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    qm = (a00 + a11 + a22) / 3.0
+    p2 = ((a00 - qm) ** 2 + (a11 - qm) ** 2 + (a22 - qm) ** 2
+          + 2.0 * p1)
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=1e-38))
+    B = (A - qm[..., None, None] * eye) / p[..., None, None]
+    detB = (B[..., 0, 0] * (B[..., 1, 1] * B[..., 2, 2]
+                            - B[..., 1, 2] * B[..., 2, 1])
+            - B[..., 0, 1] * (B[..., 1, 0] * B[..., 2, 2]
+                              - B[..., 1, 2] * B[..., 2, 0])
+            + B[..., 0, 2] * (B[..., 1, 0] * B[..., 2, 1]
+                              - B[..., 1, 1] * B[..., 2, 0]))
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    w_hi = qm + 2.0 * p * torch.cos(phi)
+    w_lo = qm + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    w_mid = 3.0 * qm - w_hi - w_lo
+    w = torch.stack([w_lo, w_mid, w_hi], dim=-1)           # ascending
+    u1 = torch.tensor([1.0, 0.62, 0.29], dtype=a.dtype, device=a.device)
+    u2 = torch.tensor([-0.33, 0.81, 1.0], dtype=a.dtype, device=a.device)
+
+    def eigvec(wj, wk):
+        # v_i spans the column space of (A - wj I)(A - wk I); the image of
+        # a probe u, as broadcast sums (no batched 3 x 3 matmuls)
+        B1 = A - wj[..., None, None] * eye
+        B2 = A - wk[..., None, None] * eye
+
+        def image(u):
+            b2u = torch.sum(B2 * u, dim=-1)
+            return torch.sum(B1 * b2u[..., None, :], dim=-1)
+
+        c1, c2 = image(u1), image(u2)
+        n1 = torch.sum(c1 * c1, -1, keepdim=True)
+        n2 = torch.sum(c2 * c2, -1, keepdim=True)
+        v = torch.where(n1 >= n2, c1, c2)
+        return v / torch.sqrt(torch.clamp(
+            torch.sum(v * v, -1, keepdim=True), min=1e-38))
+
+    v0c = eigvec(w[..., 1], w[..., 2])
+    v2c = eigvec(w[..., 0], w[..., 1])
+    low_sep = (w[..., 1] - w[..., 0]) >= (w[..., 2] - w[..., 1])
+    anchor = torch.where(low_sep[..., None], v0c, v2c)
+    # exact-isotropic input: both candidates vanish; seed with an axis
+    a2 = torch.sum(anchor * anchor, -1, keepdim=True)
+    anchor = torch.where(a2 > 0.5, anchor, eye[2].expand(anchor.shape))
+    other = torch.where(low_sep[..., None], v2c, v0c)
+    other = other - torch.sum(other * anchor, -1, keepdim=True) * anchor
+    onorm = torch.sqrt(torch.clamp(
+        torch.sum(other * other, -1, keepdim=True), min=1e-38))
+    # the secondary collapsed onto the anchor (isotropic): the anchor's
+    # least-aligned axis, re-projected
+    fallback = eye[0] - anchor * anchor[..., 0:1]
+    fb2 = eye[1] - anchor * anchor[..., 1:2]
+    fa = torch.where(
+        torch.abs(anchor[..., 0:1]) <= torch.abs(anchor[..., 1:2]),
+        fallback, fb2)
+    other = torch.where(onorm > 1e-6, other / onorm,
+                        fa / torch.sqrt(torch.clamp(
+                            torch.sum(fa * fa, -1, keepdim=True),
+                            min=1e-38)))
+    mid = torch.linalg.cross(anchor, other)
+    mid = mid / torch.sqrt(torch.clamp(
+        torch.sum(mid * mid, -1, keepdim=True), min=1e-38))
+    v0 = torch.where(low_sep[..., None], anchor, other)
+    v2 = torch.where(low_sep[..., None], other, anchor)
+    v = torch.stack([v0, mid, v2], dim=-1)
+    return w * scale[..., 0], v

@@ -1,6 +1,7 @@
 r"""
 Taylor-mode preconditioning of the solver state (port of
-:mod:`rodeo_tpu.ops.precond`: ``solve_mv`` and ``magi_logdens``).
+:mod:`rodeo_tpu.ops.precond`: ``solve_mv``, ``daltonng`` and
+``magi_logdens``).
 
 The IBM prior over ``(x, x', ..., x^{(q)})`` with step ``dt`` has entries
 spanning :math:`dt^{\pm q}`, beyond float32's range of precision on fine
@@ -18,9 +19,11 @@ import math
 import torch
 
 import rodeo_tpu_torch.solve as _solve
+from rodeo_tpu_torch.inference import dalton as _dalton
 from rodeo_tpu_torch.inference import magi as _magi
 
-__all__ = ["taylor_scale", "scale_prior", "solve_mv", "magi_logdens"]
+__all__ = ["taylor_scale", "scale_prior", "solve_mv", "daltonng",
+           "magi_logdens"]
 
 
 def taylor_scale(dt, n_deriv, dtype, device=None):
@@ -112,6 +115,40 @@ def solve_mv(key, ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
         **params)
     t_v = t_vec.to(mean_s.dtype)
     return mean_s * t_v, var_s * (t_v[:, None] * t_v[None, :])
+
+
+def _wrap_obs_loglik(obs_loglik_i, t_vec):
+    """Adapter so that an observation log-likelihood written for original
+    coordinates sees the unscaled state; its gradient and Hessian in the
+    scaled state then follow by the chain rule."""
+
+    def wrapped(obs_i, state_scaled, i, **params):
+        return obs_loglik_i(obs_i, state_scaled * t_vec.to(state_scaled.dtype),
+                            i, **params)
+
+    return wrapped
+
+
+def daltonng(key, ode_fun, ode_weight, ode_init, t_min, t_max, n_steps,
+             interrogate, prior_pars, obs_data, obs_times, obs_loglik_i,
+             kalman_type="standard", **params):
+    r"""
+    Preconditioned :func:`rodeo_tpu_torch.inference.dalton.daltonng`
+    (non-Gaussian DALTON).  The two state-path log-densities (``logx_z`` and
+    ``logx_yhat``) pick up the same change-of-variables Jacobian, which
+    cancels in ``logy_x + logx_z - logx_yhat``, so the value is that of the
+    plain implementation; the Laplace linearisation is chain-ruled through
+    the scaling by :func:`_wrap_obs_loglik`.  Same signature and return.
+    """
+    t_vec, W_s, x0_s, prior_s = _scaled_inputs(
+        ode_weight, ode_init, prior_pars, t_min, t_max, n_steps)
+    return _dalton.daltonng(
+        key=key, ode_fun=ode_fun, ode_weight=W_s, ode_init=x0_s,
+        t_min=t_min, t_max=t_max, n_steps=n_steps,
+        interrogate=_wrap_interrogate(interrogate, ode_weight, t_vec),
+        prior_pars=prior_s, obs_data=obs_data, obs_times=obs_times,
+        obs_loglik_i=_wrap_obs_loglik(obs_loglik_i, t_vec),
+        kalman_type=kalman_type, **params)
 
 
 def magi_logdens(ode_data_subset, ode_expand, n_active, prior_pars, dt,

@@ -359,6 +359,7 @@ def _entry_point_calls():
     """Each public entry point that takes ``device``, called without it on
     a small Lorenz63 problem built on the CPU."""
     import rodeo_tpu_torch as rt
+    from rodeo_tpu_torch.models.obs import gauss
     cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
     lanes = dict(thetas=cfg["theta"].expand(2, 3).contiguous(),
                  ode_weight=cfg["ode_weight"],
@@ -403,6 +404,12 @@ def _entry_point_calls():
         "fenrir_fused": lambda: rt.fenrir_fused(**single, **obs),
         "magi_fused_batch": lambda: rt.magi_fused_batch(**magi),
         "magi_fused_batch_grad": lambda: rt.magi_fused_batch_grad(**magi),
+        "daltonng_fused_batch": lambda: rt.daltonng_fused_batch(
+            **lanes, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+            obs_model=gauss(0.005), obs_dims=(0,)),
+        "daltonng_fused_batch_grad": lambda: rt.daltonng_fused_batch_grad(
+            **lanes, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+            obs_model=gauss(0.005), obs_dims=(0,)),
     }
 
 
@@ -412,7 +419,8 @@ def _entry_point_calls():
     "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
     "basic_fused_batch_grad", "fenrir_fused_batch_grad",
     "dalton_fused_batch_grad", "solve_mv_fused", "solve_mv_fused_stationary",
-    "fenrir_fused", "magi_fused_batch", "magi_fused_batch_grad"])
+    "fenrir_fused", "magi_fused_batch", "magi_fused_batch_grad",
+    "daltonng_fused_batch", "daltonng_fused_batch_grad"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without ``device`` an entry point runs on CUDA; with no CUDA device
     it raises rather than fall back to the CPU, which only

@@ -7,9 +7,10 @@ The port's CUDA kernels on the card: K1 (filter_batch), K2r
 single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (fenrir_backward_single), the stationary solve's mean chain K5a
 (mean_gain_single), K5b (mean_boundary_single) and K5c
-(mean_recovery_single), and the MAGI kernels K10a (magi_batch) and K10b
-(magi_adjoint_batch) against their plain PyTorch twins on the same CUDA
-inputs, and the launch contract of each fused entry point.
+(mean_recovery_single), the MAGI kernels K10a (magi_batch) and K10b
+(magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
+K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
+CUDA inputs, and the launch contract of each fused entry point.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -25,7 +26,9 @@ import pytest
 import torch
 
 from rodeo_tpu_torch.models import fitzhugh, lorenz
+from rodeo_tpu_torch.models import obs as obs_models
 from rodeo_tpu_torch.ops import fused_dalton as fd
+from rodeo_tpu_torch.ops import fused_daltonng as fdn
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 from rodeo_tpu_torch.ops import fused_magi as fm
@@ -160,13 +163,14 @@ def _obs(model, n_obs, t_max, device):
 
 def _reset_launches():
     for counts in (fk.LAUNCHES, ff.LAUNCHES, fd.LAUNCHES, fs.LAUNCHES,
-                   fm.LAUNCHES):
+                   fm.LAUNCHES, fdn.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _launches():
     return {**fk.LAUNCHES, **ff.LAUNCHES, **fd.LAUNCHES, **fs.LAUNCHES,
+            **fdn.LAUNCHES,
             **fm.LAUNCHES}
 
 
@@ -580,3 +584,85 @@ def test_magi_entry_points_launch_their_kernels(cuda_device):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.is_cuda
         assert _scaled_err(a, b) <= TWIN_TOL
+
+
+_NN_MODELS = {"lorenz": ("kramer", 2.0, obs_models.gauss(0.005)),
+              "fitzhugh": ("rodeo", 10.0, obs_models.poisson(0.1, 0.05))}
+
+
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model):
+    """K9 and K11d (Lorenz63 EK1 with Gaussian data, FitzHugh-Nagumo EK0
+    with Poisson counts, data every 10th step) against their twins on the
+    same CUDA inputs, per output and tangent direction; K11d's values are
+    K9's bitwise."""
+    mode, t_max, obs = _NN_MODELS[model]
+    n_steps = 300
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, 64, 6, cuda_device)
+    ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
+                              n_steps, cfg["prior_pars"])
+    n_block = cfg["ode_weight"].shape[0]
+    rng = np.random.default_rng(7)
+    mask = torch.zeros(n_steps, device=cuda_device)
+    mask[9::10] = 1.0
+    y = torch.tensor(rng.poisson(3.0, size=(n_steps, n_block)),
+                     dtype=torch.float32, device=cuda_device)
+    grid = dict(y=y * mask[:, None], iobs=torch.cumsum(mask, 0) * mask,
+                mask=mask)
+    fused = fk.resolve_model(model)
+    value = fdn.filter_nn_batch(fused, obs, (0,), n_steps, **ops, **grid,
+                                mode=mode)
+    twin = fdn._filter_nn_batch_plain(fused, obs, (0,), n_steps, **ops,
+                                      **grid, mode=mode)
+    for a, b in zip(value, twin):
+        assert a.is_cuda and torch.isfinite(a).all()
+        assert _scaled_err(a, b) <= TWIN_TOL
+    tan = fdn.filter_nn_batch_tan(fused, obs, (0,), n_steps, **ops, **grid,
+                                  mode=mode)
+    tan_twin = fdn._filter_nn_batch_tan_plain(fused, obs, (0,), n_steps,
+                                              **ops, **grid, mode=mode)
+    for a, b, v, k in zip(tan, tan_twin, value, (3, 6, 3, 6)):
+        assert torch.equal(a[:, :k], v)
+        assert max(_split_err(a, b, k)) <= TWIN_TOL
+
+
+def test_daltonng_entry_points_launch_their_kernels(cuda_device):
+    """daltonng_fused_batch launches K9, K2r and K1 once each, and its
+    gradient K11d, K11e and K11a once each, with the value call's values
+    bitwise; both agree with the same calls on the CPU (the plain twins)
+    by the JAX package's rules for its fused float32 path (value 5e-3
+    relative; gradient cosine > 0.99, norm ratio 0.9-1.1).  The kernels
+    match their twins bitwise, but the masked log-densities' keep rule
+    turns the different rounding of PyTorch's elementwise functions on the
+    two devices into whole flipped directions (measured 2.9e-4 in value)."""
+    n_steps, t_max, B = 200, 2.0, 32
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        cfg, thetas, inits = _lanes("lorenz", n_steps, t_max, B, 8, device)
+        rng = np.random.default_rng(9)
+        args = (thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
+                cfg["prior_pars"],
+                torch.tensor(rng.normal(size=(5, 3, 1)) * 5,
+                             dtype=torch.float32),
+                torch.linspace(0.0, t_max, 5), obs_models.gauss(0.005), (0,),
+                "lorenz")
+        cuda = device.type == "cuda"
+        _reset_launches()
+        ll = fdn.daltonng_fused_batch(*args, device=device)
+        torch.cuda.synchronize()
+        assert _launched() == ({"filter_nn_batch": 1, "smoother_batch_rows": 1,
+                                "filter_batch": 1} if cuda else {})
+        _reset_launches()
+        ll_g, grad = fdn.daltonng_fused_batch_grad(*args, device=device)
+        torch.cuda.synchronize()
+        assert _launched() == ({"filter_nn_batch_tan": 1,
+                                "smoother_mean_batch_tan": 1,
+                                "filter_batch_tan": 1} if cuda else {})
+        assert torch.equal(ll, ll_g)
+        assert torch.isfinite(grad).all() and grad.shape == (B, 3)
+        out[device.type] = (ll.double().cpu(), grad.double().cpu())
+    (ll, grad), (ll_c, grad_c) = out["cuda"], out["cpu"]
+    assert ((ll - ll_c).abs() / ll_c.abs()).max() <= 5e-3
+    cos = (grad * grad_c).sum(1) / (grad.norm(dim=1) * grad_c.norm(dim=1))
+    ratio = grad.norm(dim=1) / grad_c.norm(dim=1)
+    assert (cos > 0.99).all() and ((ratio > 0.9) & (ratio < 1.1)).all()
