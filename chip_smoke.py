@@ -34,7 +34,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              CUDA inputs, 1000 steps x 256 lanes: Lorenz63 EK1 for all four,
              FitzHugh-Nagumo EK0 for K11a and K11c; the scaled error of each
              output's values and of each tangent direction, and whether the
-             two agree bitwise;
+             two agree bitwise, which K11a and K11c (one thread per lane,
+             direction and block) must, their values also with K1's and
+             K8's;
 9. likelihood  bench.py's likelihood fixture at full width: Lorenz63 EK1,
              4000 steps x 2048 lanes, 21 observations, through
              fenrir_fused_batch, dalton_fused_batch and basic_fused_batch.
@@ -57,7 +59,13 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              FitzHugh-Nagumo's within GRAD_FITZ_TOL; then the time per call
              against the value call's, peak memory, and each tangent kernel
              timed and checked against its twin at its path's shapes (K11a
-             and K11b on both fixtures, K11c with and without data);
+             and K11b on both fixtures, K11c with and without data, each
+             launch an entry of the kernels line with its launches on the
+             DALTON gradient); K11a and K11c bitwise against their twins,
+             their values against K1's and K8's, and their launch as the
+             card reports it (CTA shape, CTAs, threads, registers, local
+             memory, CTAs an SM holds) with ptxas' registers and spills:
+             at least one CTA per SM, all resident, no spills;
 11. sim      solve_sim_fused_batch at the main path's shapes (launches,
              finite, time, K6 against its twin), and the draws' lane mean
              and variance against solve_mv_fused_batch's posterior on
@@ -145,11 +153,14 @@ kernel's launches on its path,
 error against its twin, time on the device (ms) and of its wrapper's call
 (call_ms), its plain twin's time and its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
-from its twin, over 67 TFLOP/s), and, last, {"ok": true, "device": {...}}.
+from its twin, over 67 TFLOP/s; K8's and K11c's from the steps without and
+with data of their grid, since the twin skips the observation update where
+there is none), and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -243,9 +254,17 @@ PEAK_F32_PER_S = 67e12
 _ARITH = {"add", "sub", "mul", "div", "truediv", "neg", "rsub", "sqrt",
           "log", "clamp", "maximum", "minimum", "abs", "where", "gt", "lt",
           "ge", "le", "reciprocal", "exp"}
-# The tangent kernels: K11a, K11b, K11c, K11e.
+# The tangent kernels: K11a, K11b, K11c, K11e; K11c's entries in the
+# kernels line are its two launches on the DALTON gradient, with data and
+# without.
 TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
-               "dalton_filter_batch_tan", "smoother_mean_batch_tan")
+               "dalton_filter_batch_tan/with_obs",
+               "dalton_filter_batch_tan/without_obs",
+               "smoother_mean_batch_tan")
+# The tangent kernels that run one thread per (lane, direction, block),
+# bitwise against their twins, and the mangled names of their kernels.
+SPLIT_KERNELS = {"filter_batch_tan": "23filter_batch_tan_kernel",
+                 "dalton_filter_batch_tan": "24dalton_filter_tan_kernel"}
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
@@ -347,16 +366,17 @@ def main():
             fn()
         return counter.calls
 
+    def op_count(fn):
+        """The float32 operations of fn(), as OpCounter counts them."""
+        with OpCounter() as counter:
+            fn()
+        return counter.ops
+
     def ops_per_step_lane(twin_at):
         """Float32 operations per step and lane of a kernel, counted from
         its plain twin run on the CPU on one lane: twin_at(n) runs n steps,
         and the difference of 3 and 2 steps is one step's work."""
-        counts = []
-        for n in (2, 3):
-            with OpCounter() as counter:
-                twin_at(n)
-            counts.append(counter.ops)
-        return counts[1] - counts[0]
+        return op_count(lambda: twin_at(3)) - op_count(lambda: twin_at(2))
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -473,15 +493,16 @@ def main():
     def at_path_shapes(phase, name, replaces, launches, launch, twin, names,
                        count_ops, n_work, inputs, split=None, out_bytes=None,
                        repeats=5, register=True, config="", source=None,
-                       **extra):
+                       n_ops=None, key=None, **extra):
         """A kernel alone at its path's shapes: its median time on the
         device (device_ms) and that of its wrapper's call (cuda_ms), its
         twin's time and outputs on the same CUDA inputs, the error of each
         output (twin_errors; checked against TWIN_TOL), and its bound from
         the bytes of its inputs and outputs and from count_ops(n), which
         runs the twin for n steps of one lane on the CPU, times n_work
-        (steps x lanes).  Registers the kernel's entry of the kernels line;
-        returns the kernel's outputs and the entry.  The source is
+        (steps x lanes), or from n_ops operations where given.  Registers
+        the kernel's entry of the kernels line under key (its name unless
+        given); returns the kernel's outputs and the entry.  The source is
         csrc/<name>.cu unless named."""
         ms = device_ms(launch, repeats)
         call_ms = cuda_ms(launch, repeats)
@@ -493,7 +514,8 @@ def main():
         n_bytes = nbytes(*inputs) + (nbytes(*out) if out_bytes is None
                                      else out_bytes)
         bound_ms, bound_by, work = bound(
-            n_bytes, ops_per_step_lane(count_ops) * n_work)
+            n_bytes, n_ops if n_ops is not None
+            else ops_per_step_lane(count_ops) * n_work)
         max_abs, max_scaled = worst(errs)
         entry = {
             "name": name, "route": "cuda",
@@ -508,7 +530,7 @@ def main():
         label = f"{name} {config}".strip()
         entry["ok"] = check(phase, f"{label} vs twin", max_scaled <= TWIN_TOL)
         if register:
-            kernels[name] = entry
+            kernels[key or name] = entry
         return out, entry
 
     def lane_setup(mod, n_steps, t_max, n_lane, thetas_of):
@@ -560,6 +582,47 @@ def main():
              if "Compiling entry" in line or "registers" in line
              or "spill" in line]
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+
+    def ptxas_report(symbol):
+        """ptxas' registers, stack and spill bytes for each instantiation
+        of the kernel whose mangled name holds symbol, from the build's
+        log (a Compiling line, then its stack and spill line, then its
+        registers)."""
+        rows, entry = [], None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = None
+                if symbol in line:
+                    args = re.search(r"(Lorenz63|FitzHughNagumo)ELi(\d+)"
+                                     r"ELi(\d+)E(?:Lb(\d)E)?", line)
+                    entry = {"model": args[1], "q": int(args[2]),
+                             "mode": int(args[3]),
+                             "with_obs": None if args[4] is None
+                             else bool(int(args[4]))}
+                    rows.append(entry)
+            elif entry is not None and "spill stores" in line:
+                stack, stores, loads = map(int, re.findall(r"(\d+) bytes",
+                                                           line))
+                entry.update(stack_bytes=stack, spill_stores=stores,
+                             spill_loads=loads)
+            elif entry is not None and "registers" in line:
+                entry["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line)[1])
+        return rows
+
+    def split_record(kernel, label, geometry):
+        """The launch of a split tangent kernel at its path's lanes as the
+        card reports it (CTA shape, CTAs, threads, registers, local memory,
+        CTAs an SM holds) and ptxas' report of each instantiation; checks
+        that the CTAs are at least the SMs and all resident at once, and
+        that no instantiation spills."""
+        report = ptxas_report(SPLIT_KERNELS[kernel])
+        check("grad_kernels", f"{label} fills the card",
+              geometry["ctas_at_least_sms"] and geometry["all_resident"])
+        check("grad_kernels", f"{label} spills nothing",
+              report and all(r.get("spill_stores") == 0
+                             and r.get("spill_loads") == 0 for r in report))
+        return {"geometry": geometry, "ptxas": report}
 
     # ---- 3. K1 against its twin ---------------------------------------------
     k1_names = ["G", "g", "L", "m_last", "p_last"]
@@ -799,17 +862,26 @@ def main():
     k11a_split = [(9, 1), (3, 1), (6, 1), (3, 0), (6, 0)]
     ld_split, k11e_split = [(1, 0)], [(3, 1)]
 
-    def tan_report(kernel, config, names, kernel_out, twin_out, split):
+    def tan_report(kernel, config, names, kernel_out, twin_out, split,
+                   value_out=None):
+        """A tangent kernel against its twin; the split kernels (K11a,
+        K11c) must agree with it bitwise, and their values (the first
+        slice of each output) with value_out, the value kernel's."""
         kernel_out, twin_out = as_tuple(kernel_out), as_tuple(twin_out)
         errs = twin_errors(names, kernel_out, twin_out, split)
+        bitwise = all(torch.equal(a, b) for a, b in zip(kernel_out, twin_out))
         ok = check("k11_twin", f"{kernel} {config}",
                    worst(errs)[1] <= TWIN_TOL
                    and all(torch.isfinite(a).all().item()
-                           for a in kernel_out))
+                           for a in kernel_out)
+                   and (bitwise or kernel not in SPLIT_KERNELS))
+        values = None if value_out is None else check(
+            "k11_twin", f"{kernel} {config} values",
+            all(torch.equal(slices(a, k, axis)[0], v) for a, v, (k, axis)
+                in zip(kernel_out, as_tuple(value_out), split)))
         emit({"phase": "k11_twin", "kernel": kernel, "config": config,
               "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
-              "bitwise": all(torch.equal(a, b)
-                             for a, b in zip(kernel_out, twin_out)),
+              "bitwise": bitwise, "values_bitwise": values,
               "errors": errs, "ok": ok})
 
     def fenrir_tan_plain(*chain):
@@ -835,7 +907,8 @@ def main():
         out_k = fk.fused_filter_batch_tan(fused_m, n_tw, **ops_m, mode=mode)
         tan_report("filter_batch_tan", config, k1_names, out_k,
                    fk._filter_batch_tan_plain(fused_m, n_tw, **ops_m,
-                                              mode=mode), k11a_split)
+                                              mode=mode), k11a_split,
+                   fk.fused_filter_batch(fused_m, n_tw, **ops_m, mode=mode))
         for with_obs in (True, False):
             args = dict(**ops_m, **grid_m, mode=mode, with_obs=with_obs,
                         ld0=dalton_seed(ld0_m, with_obs))
@@ -843,7 +916,9 @@ def main():
                        f"{config}/with_obs={with_obs}", ["ld"],
                        fd.dalton_filter_batch_tan(fused_m, n_tw, **args),
                        fd._dalton_filter_tan_plain(fused_m, n_tw, **args),
-                       ld_split)
+                       ld_split, fd.dalton_filter_batch(
+                           fused_m, n_tw, **{**args, "ld0": args["ld0"][0]}
+                       )[None])
         if model == "lorenz":
             A, b, _, m_last, _ = out_k
             e_args = (b[1:], A[1:], m_last, n_tan)
@@ -923,10 +998,26 @@ def main():
         return [cpu_lane(A), cpu_lane(b), cpu_lane(C), d.cpu(), y.cpu(),
                 om.cpu(), mask.cpu(), cpu_lane(m_seed), cpu_lane(p_seed)]
 
-    def dalton_steps(args_cpu, n):
-        """K8's or K11c's operands on the CPU cut to n steps."""
-        return {k: (v[:n] if k in ("tgrid", "d", "y", "om", "mask") else v)
-                for k, v in args_cpu.items()}
+    def dalton_ops(args_cpu, twin):
+        """K8's or K11c's float32 operations per lane over the grid of
+        args_cpu (its operands cut to one lane, on the CPU), as its twin,
+        twin(n, operands), does them: it skips the observation update at a
+        step without data.  A step of each kind is the twin's operations
+        on three steps less those on two, the third a step without data or
+        the first with data; weighted by the grid's steps of each kind."""
+        mask = args_cpu["mask"]
+        free = int((mask == 0).nonzero()[0])
+        data = (mask != 0).nonzero().flatten().tolist()
+
+        def at(idx):
+            rows = {k: (v[idx] if k in ("tgrid", "d", "y", "om", "mask")
+                        else v) for k, v in args_cpu.items()}
+            return op_count(lambda: twin(len(idx), rows))
+
+        base = at([free, free])
+        per_free = at([free] * 3) - base
+        per_data = at([free, free, data[0]]) - base if data else 0
+        return per_free * (len(mask) - len(data)) + per_data * len(data)
 
     chain = fenrir_chain(n_ll, t_ll, ops_ll, obs_f)
     chain_cpu = chain_on_cpu(chain)
@@ -950,9 +1041,8 @@ def main():
         path_launches["dalton"],
         lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
         lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args), ["ld"],
-        lambda n: fd._dalton_filter_plain(fused, n, **dalton_steps(k8_cpu,
-                                                                   n)),
-        n_ll * b_ll, tensors(k8_args))
+        None, None, tensors(k8_args), n_ops=b_ll * dalton_ops(
+            k8_cpu, lambda n, a: fd._dalton_filter_plain(fused, n, **a)))
     del k8_args, k8_cpu
     # K1 and K2r at these shapes, for the breakdown of the fenrir and basic
     # calls
@@ -1007,14 +1097,36 @@ def main():
             expect(filter_batch_tan=1, fenrir_backward_batch_tan=1), 200),
     }
     grad_launches = {}
+    # K11c's launches on each gradient path by with_obs, set to 0 with the
+    # other counts: the wrapper's count, split by the argument of each call
+    # that raised it
+    k11c_by_obs = {}
+    k11c_wrapper = fd.dalton_filter_batch_tan
+
+    def k11c_counted(*args, **kw):
+        before = fd.LAUNCHES["dalton_filter_batch_tan"]
+        out = k11c_wrapper(*args, **kw)
+        k11c_by_obs[bool(kw["with_obs"])] += (
+            fd.LAUNCHES["dalton_filter_batch_tan"] - before)
+        return out
+
     for name, (call, value_call, expected, n_g) in grad_paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        out = call()
+        k11c_by_obs.update({True: 0, False: 0})
+        fd.dalton_filter_batch_tan = k11c_counted
+        try:
+            out = call()
+        finally:
+            fd.dalton_filter_batch_tan = k11c_wrapper
         torch.cuda.synchronize()
         got = read_counts()
         grad_launches[name] = got
+        if name == "dalton":
+            k11c_dalton = dict(k11c_by_obs)
+            check("grad", "dalton launches by with_obs",
+                  k11c_dalton == {True: 1, False: 1})
         peak = torch.cuda.max_memory_allocated()
         check("grad", f"{name} launches", got == expected)
         ll, grad = out[0], out[1]
@@ -1099,7 +1211,17 @@ def main():
                 fused_g, n, **{**cpu_g, "tgrid": cpu_g["tgrid"][:n]},
                 mode="kramer"),
             n_g * b_ll, tensors(ops_g), split=k11a_split,
-            register=on_path, config=model, shape=f"{n_g} x {b_ll}")
+            register=on_path, config=model, shape=f"{n_g} x {b_ll}",
+            **split_record("filter_batch_tan", f"filter_batch_tan {model}",
+                           fk._filter_batch_tan_geometry(model, b_ll)))
+        k1_out = fk.fused_filter_batch(fused_g, n_g, **ops_g, mode="kramer")
+        entry = at_grad[f"filter_batch_tan/{model}"]
+        entry["values_bitwise"] = all(
+            torch.equal(a.narrow(a.dim() - 3, 0, k), v)
+            for a, v, k in zip(out_a, k1_out, (9, 3, 6, 3, 6)))
+        check("grad_kernels", f"filter_batch_tan {model} bitwise, values "
+              "K1's", entry["bitwise"] and entry["values_bitwise"])
+        del k1_out
         if on_path:
             A, b, _, mN, _ = out_a
             e_args = (b[1:], A[1:], mN)
@@ -1133,18 +1255,35 @@ def main():
         k11c_args = dict(**ops_d, **obs_d, mode="kramer", with_obs=with_obs,
                          ld0=dalton_seed(ld0_d, with_obs))
         k11c_cpu = cpu_lanes(k11c_args, lane_keys)
-        _, at_grad[f"dalton_filter_batch_tan/lorenz/with_obs={with_obs}"] = \
-            at_path_shapes(
-                "grad_kernels", "dalton_filter_batch_tan",
-                "pallas_dalton.py:246", grad_launches["dalton"],
-                lambda: fd.dalton_filter_batch_tan(fused, n_ll, **k11c_args),
-                lambda: fd._dalton_filter_tan_plain(fused, n_ll,
-                                                    **k11c_args),
-                ["ld"], lambda n: fd._dalton_filter_tan_plain(
-                    fused, n, **dalton_steps(k11c_cpu, n)),
-                n_ll * b_ll, tensors(k11c_args), split=ld_split,
-                register=with_obs, config=f"lorenz with_obs={with_obs}",
-                shape=f"{n_ll} x {b_ll}")
+        variant = "with_obs" if with_obs else "without_obs"
+        # each launch of the DALTON gradient is an entry of its own, with
+        # its launches of the gradient call, its time and its bound
+        out_c, entry = at_path_shapes(
+            "grad_kernels", "dalton_filter_batch_tan",
+            "pallas_dalton.py:246",
+            {"dalton_filter_batch_tan": k11c_dalton[with_obs]},
+            lambda: fd.dalton_filter_batch_tan(fused, n_ll, **k11c_args),
+            lambda: fd._dalton_filter_tan_plain(fused, n_ll, **k11c_args),
+            ["ld"], None, None, tensors(k11c_args), split=ld_split,
+            n_ops=b_ll * dalton_ops(
+                k11c_cpu,
+                lambda n, a: fd._dalton_filter_tan_plain(fused, n, **a)),
+            key=f"dalton_filter_batch_tan/{variant}",
+            config=f"lorenz with_obs={with_obs}", shape=f"{n_ll} x {b_ll}",
+            variant=variant, kernel_launches=grad_launches["dalton"][
+                "dalton_filter_batch_tan"],
+            **split_record(
+                "dalton_filter_batch_tan",
+                f"dalton_filter_batch_tan {variant}",
+                fd._dalton_filter_batch_tan_geometry("lorenz", b_ll,
+                                                    with_obs=with_obs)))
+        k8_ld = fd.dalton_filter_batch(
+            fused, n_ll, **{**k11c_args, "ld0": k11c_args["ld0"][0]})
+        entry["values_bitwise"] = torch.equal(out_c[0][0], k8_ld)
+        check("grad_kernels", f"dalton_filter_batch_tan {variant} bitwise, "
+              "values K8's", entry["bitwise"] and entry["values_bitwise"])
+        at_grad[f"dalton_filter_batch_tan/lorenz/{variant}"] = entry
+        del out_c, k8_ld
     del k11c_args, k11c_cpu, ops_d, obs_d, ld0_d
     emit({"phase": "grad_kernels", "n_lane": b_ll, "kernels": at_grad})
 

@@ -1,0 +1,210 @@
+// The filter step split over the blocks of a lane: one thread per (lane,
+// direction, block), the threads of one (lane, direction) meeting once a
+// step in shared memory.  Run by the tangent kernels K11a
+// (filter_batch_tan.cu) and K11c (dalton_filter_batch_tan.cu).
+//
+// The blocks of a lane's state are independent in every part of the step
+// but one: the ODE is evaluated at the predicted mean of all blocks
+// (Model::f and jac0 read every block).  So each thread predicts its own
+// block (predict_block), publishes its predicted mean in original
+// coordinates to shared memory, and after a barrier evaluates f and jac0 on
+// the gathered means -- the same arithmetic in every thread of the lane, so
+// the same bits -- keeping its own block's entries; the rest of the update
+// (interrogate_update_block) is interrogate_update's loop body for that
+// block, operation for operation.  The values are therefore those of the
+// one-thread-per-lane step of filter_step.cuh bitwise, which K1, K8, K9 and
+// K11d still run.
+//
+// A thread's block number is a runtime value: its constants are loaded once
+// by that index from device memory (BlockConsts), and an entry of a
+// per-block register array is picked by a chain of selects (own_block),
+// never by indexing the array, which would put it in local memory.
+#pragma once
+
+#include <type_traits>
+
+#include <cuda_runtime.h>
+
+#include "filter_step.cuh"
+#include "kalman_cols.cuh"
+
+namespace rodeo {
+
+// Lanes per CTA of the split kernels (16 was slower for both; PERF.md)
+constexpr int kTanLanes = 32;
+
+// The launch of a split kernel: CTA (kTanLanes lanes, NB blocks), grid
+// (lane groups, directions).  A warp is 32 consecutive lanes of one (block,
+// direction), so the stores of a step are coalesced on the lane axis.  The
+// threads of lanes >= n_lane in the last lane group run masked.
+struct TanGeometry {
+  dim3 grid, block;
+};
+
+template <class Model>
+TanGeometry tan_geometry(int n_lane) {
+  return {dim3((n_lane + kTanLanes - 1) / kTanLanes, Model::NTHETA),
+          dim3(kTanLanes, Model::NB)};
+}
+
+// What the card makes of a split kernel's launch, for the record: out =
+// CTA x and y, grid x and y, registers per thread, local memory bytes per
+// thread, static shared memory bytes per CTA, CTAs resident per SM at most,
+// SMs of the current device.
+template <class Kernel>
+cudaError_t report_geometry(Kernel* kernel, const TanGeometry& g, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, g.block.x * g.block.y, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int vals[] = {static_cast<int>(g.block.x), static_cast<int>(g.block.y),
+                      static_cast<int>(g.grid.x), static_cast<int>(g.grid.y),
+                      attr.numRegs, static_cast<int>(attr.localSizeBytes),
+                      static_cast<int>(attr.sharedSizeBytes), per_sm, sms};
+  for (int k = 0; k < 9; ++k) out[k] = vals[k];
+  return cudaSuccess;
+}
+
+// The operands of one block, in registers: the scaled transition, the
+// block's process noise and weight, and the Taylor scales.
+template <int Q>
+struct BlockConsts {
+  float Qm[Q][Q];
+  float R[Tri<Q>::N];
+  float W[Q];
+  float tv[Q];
+};
+
+template <int Q>
+__device__ __forceinline__ void load_block_consts(
+    const QConst<Q>& qc, const float* __restrict__ R_in,
+    const float* __restrict__ W_in, const float* __restrict__ tv_in, int b,
+    BlockConsts<Q>& c) {
+  constexpr int NT = Tri<Q>::N;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) c.Qm[i][j] = qc.q[i * Q + j];
+#pragma unroll
+  for (int k = 0; k < NT; ++k) c.R[k] = R_in[b * NT + k];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) c.W[j] = W_in[b * Q + j];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) c.tv[j] = tv_in[j];
+}
+
+// a[b] for a runtime b, by selects
+template <int NB, class T>
+__device__ __forceinline__ T own_block(const T (&a)[NB], int b) {
+  T r = a[0];
+#pragma unroll
+  for (int k = 1; k < NB; ++k)
+    if (b == k) r = a[k];
+  return r;
+}
+
+// The predicted means of one step in original coordinates, (NB, Q) per
+// lane of the CTA; two buffers, by the parity of the step, so that one
+// barrier a step suffices: a buffer is written again only after every
+// thread has passed the next step's barrier, and so has read it.
+template <class T, int NB, int Q>
+using SharedMeans = T[2][NB][Q][kTanLanes];
+
+template <int NB, int Q, class T>
+__device__ __forceinline__ void publish_mean(SharedMeans<T, NB, Q>& xs,
+                                             int n, int b, int tx,
+                                             const T (&mp)[Q],
+                                             const float (&tv)[Q]) {
+#pragma unroll
+  for (int j = 0; j < Q; ++j) xs[n & 1][b][j][tx] = mp[j] * tv[j];
+}
+
+template <int NB, int Q, class T>
+__device__ __forceinline__ void gather_means(const SharedMeans<T, NB, Q>& xs,
+                                             int n, int tx,
+                                             T (&x)[NB][Q]) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) x[b][j] = xs[n & 1][b][j][tx];
+}
+
+// interrogate_update (filter_step.cuh) for block b alone, from the gathered
+// predicted means x of all blocks: the ODE and its Jacobian at x, then the
+// loop body of interrogate_update for b, operation for operation (x[b][0]
+// is recomputed from mp, as the gathered value was).  Returns the block's
+// innovation z, its variance S and 1 / S.
+template <class Model, int Q, int MODE, class T>
+__device__ __forceinline__ void interrogate_update_block(
+    const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], float t,
+    const T (&x)[Model::NB][Q], int b, const T (&mp)[Q],
+    const T (&pp)[Tri<Q>::N], T (&m)[Q], T (&P)[Tri<Q>::N], T& z_out,
+    T& S_out, T& inv_S_out) {
+  constexpr int NB = Model::NB;
+  using TH = std::conditional_t<MODE == kKramer, T, float>;
+  T fx_all[NB];
+  Model::template f<Q>(x, th, t, fx_all);
+  const T fx = own_block(fx_all, b);
+  const float (&W)[Q] = c.W;  // H[j] for j > 0
+  TH H0;                       // H[0]
+  T mm = -fx;
+  if constexpr (MODE == kKramer) {
+    T jd_all[NB];
+    Model::template jac0<Q>(x, th, t, jd_all);
+    const T jd = own_block(jd_all, b);
+    H0 = W[0] - jd * c.tv[0];
+    mm = mm + jd * (mp[0] * c.tv[0]);
+  } else {
+    H0 = W[0];
+  }
+  T hm = H0 * mp[0];
+#pragma unroll
+  for (int j = 1; j < Q; ++j) hm = hm + W[j] * mp[j];
+  const T z = -(hm + mm);
+  T PH[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    T acc = pp[Tri<Q>::at(i, 0)] * H0;
+#pragma unroll
+    for (int j = 1; j < Q; ++j) acc = acc + pp[Tri<Q>::at(i, j)] * W[j];
+    PH[i] = acc;
+  }
+  T S = H0 * PH[0];
+#pragma unroll
+  for (int i = 1; i < Q; ++i) S = S + W[i] * PH[i];
+  if constexpr (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
+  const T inv_S = 1.0f / S;
+  T gain[Q], IKW[Q][Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) gain[i] = PH[i] * inv_S;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) m[i] = mp[i] + gain[i] * z;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    IKW[i][0] = (i == 0 ? 1.0f : 0.0f) - gain[i] * H0;
+#pragma unroll
+    for (int j = 1; j < Q; ++j)
+      IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * W[j];
+  }
+  sym_quadform<Q>(IKW, pp, P);
+  if constexpr (MODE == kRodeo) {
+    const T V = S * 0.5f;
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+#pragma unroll
+      for (int j = i; j < Q; ++j, ++k) P[k] = P[k] + gain[i] * gain[j] * V;
+  }
+  z_out = z;
+  S_out = S;
+  inv_S_out = inv_S;
+}
+
+}  // namespace rodeo

@@ -6,22 +6,33 @@
 // _dalton_filter_kernel_tan.  Plain PyTorch twin: _dalton_filter_tan_plain
 // in ops/fused_dalton.py, which runs K8's twin on Duals (ops/dual.py).
 //
-// Design.  K8's step (dalton_step of filter_step.cuh) instantiated on the
-// forward-mode number Dual (dual.cuh), as K11a does with K1: one thread per
-// (lane, direction), theta seeded along the thread's direction, the initial
-// state exact (zero tangent), the seed log-density's tangent read from ld0.
-// The values are K8's bitwise; the thread of direction 0 stores them.  A CTA
-// holds kTanLanes lanes x NTHETA directions, NTHETA times K8's threads.
-// WITH_OBS is a template parameter as in K8.
+// Design.  K8's step (dalton_step of filter_step.cuh) on the forward-mode
+// number Dual (dual.cuh), theta seeded along the thread's direction, the
+// initial state exact (zero tangent), the seed log-density's tangent read
+// from ld0, split over the blocks of a lane as K11a is (block_step.cuh):
+// one thread per (lane, direction, block) predicts, interrogates and
+// updates its block, and with WITH_OBS runs its block's masked observation
+// update.  Each thread leaves its block's log-density terms in shared
+// memory; the thread of block 0 adds them in block order, as dalton_step
+// does, one step late, after the next step's barrier (the terms are double
+// buffered), and holds ld.  At a step without data (mask 0) the masked
+// update is an exact identity (K = 0, and ld gains 0 x a finite term), so
+// the kernel skips it and its term, as K9 does; the twin skips it too.  The
+// values are K8's bitwise; the threads of direction 0 store them.  The
+// earlier design ran one thread per (lane, direction) with all NB blocks in
+// registers (64 CTAs of 96 threads at 2048 lanes) and ran the observation
+// update at every step.
 //
 // What bounds it on the card.  Nothing is streamed per lane; a step is K8's
-// serial chain of float operations and its tangent (about three times as
-// many, counted from the twin by chip_smoke.py), so the kernel is bound by
-// the latency of each thread's chain, as K8 is.
+// chain of float operations on one block and its tangent, with the ODE at
+// the gathered means, so the kernel is bound by the latency of that chain.
+// At 2048 lanes Lorenz63 runs grid (64, 3) = 192 CTAs of 32 x 3 = 96
+// threads, every CTA resident at once and every SM with one or two.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "dual.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
@@ -29,10 +40,33 @@
 
 namespace rodeo {
 
-constexpr int kTanLanes = 32;
+// ld plus step n's log-density terms of all blocks, in block order:
+// dalton_step's sums of the ODE terms, then, at a step with data, of the
+// observation terms.
+template <int NB, bool WITH_OBS>
+__device__ __forceinline__ Dual add_step_terms(
+    Dual ld, const Dual (&ode)[2][NB][kTanLanes],
+    const Dual (&obs)[2][NB][kTanLanes], int n, int tx,
+    const float* __restrict__ mask) {
+  const int p = n & 1;
+  Dual acc = ode[p][0][tx];
+#pragma unroll
+  for (int b = 1; b < NB; ++b) acc = acc + ode[p][b][tx];
+  ld = ld - 0.5f * acc;
+  if constexpr (WITH_OBS) {
+    const float mk = mask[n];
+    if (mk != 0.0f) {
+      Dual obs_acc = obs[p][0][tx];
+#pragma unroll
+      for (int b = 1; b < NB; ++b) obs_acc = obs_acc + obs[p][b][tx];
+      ld = ld + mk * (-0.5f * obs_acc);
+    }
+  }
+  return ld;
+}
 
 template <class Model, int Q, int MODE, bool WITH_OBS>
-__global__ void __launch_bounds__(kTanLanes * Model::NTHETA)
+__global__ void __launch_bounds__(kTanLanes * Model::NB)
     dalton_filter_tan_kernel(QConst<Q> qc, int n_steps, int n_lane,
                              const float* __restrict__ R_in,
                              const float* __restrict__ W_in,
@@ -50,33 +84,63 @@ __global__ void __launch_bounds__(kTanLanes * Model::NTHETA)
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
   constexpr int NAUG = 1 + NTH;
-  const int lane = blockIdx.x * kTanLanes + threadIdx.x;
-  const int dir = threadIdx.y;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<Dual, NB, Q> xs;
+  // each block's terms of a step, by its parity: the ODE's and the data's
+  __shared__ Dual ode_terms[2][NB][kTanLanes];
+  __shared__ Dual obs_terms[2][NB][kTanLanes];
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int dir = blockIdx.y;
+  const int lane = blockIdx.x * kTanLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no store
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   Dual th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k)
     th[k] = Dual(theta[k * static_cast<size_t>(n_lane) + off], k == dir ? 1.0f : 0.0f);
 
-  Dual m[NB][Q], P[NB][NT];
+  Dual m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = Dual(x0[j * col + b * static_cast<size_t>(n_lane) + off]);
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = Dual(x0[j * col + b * n_lane + off]);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = Dual(0.0f);
-  }
+  for (int k = 0; k < NT; ++k) P[k] = Dual(0.0f);
   Dual ld(ld0[off], ld0[(1 + dir) * static_cast<size_t>(n_lane) + off]);
 
-  for (int n = 0; n < n_steps; ++n)
-    dalton_step<Model, Q, MODE, WITH_OBS>(c, th, n, tgrid[n], d, y, om, mask,
-                                          m, P, ld);
-  store_aug(ld_out, 0, 1, NAUG, 0, n_lane, off, dir, ld);
+  for (int n = 0; n < n_steps; ++n) {
+    Dual mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
+    __syncthreads();
+    if (b == 0 && n > 0)
+      ld = add_step_terms<NB, WITH_OBS>(ld, ode_terms, obs_terms, n - 1, tx, mask);
+    Dual x[NB][Q], z, S, inv_S;
+    gather_means<NB, Q>(xs, n, tx, x);
+    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
+                                             P, z, S, inv_S);
+    // the forecast log-density term of the ODE's pseudo-observation
+    ode_terms[n & 1][b][tx] = z * z * inv_S + log_of(S) + kLog2Pi;
+    if constexpr (WITH_OBS) {
+      const float mk = mask[n];
+      if (mk != 0.0f) {
+        float D[Q];
+#pragma unroll
+        for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
+        const size_t o = static_cast<size_t>(n) * NB + b;
+        obs_terms[n & 1][b][tx] = masked_obs_update<Q>(D, y[o], om[o], mk, m, P);
+      }
+    }
+  }
+  __syncthreads();
+  if (b == 0) {
+    ld = add_step_terms<NB, WITH_OBS>(ld, ode_terms, obs_terms, n_steps - 1, tx, mask);
+    if (live) store_aug(ld_out, 0, 1, NAUG, 0, n_lane, off, dir, ld);
+  }
 }
 
 template <class Model, int MODE, bool WITH_OBS>
@@ -87,9 +151,9 @@ cudaError_t dalton_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
                               const float* d, const float* y, const float* om,
                               const float* mask, const float* ld0, float* ld,
                               cudaStream_t stream) {
-  const dim3 block(kTanLanes, Model::NTHETA);
-  const dim3 grid((n_lane + kTanLanes - 1) / kTanLanes);
-  dalton_filter_tan_kernel<Model, 3, MODE, WITH_OBS><<<grid, block, 0, stream>>>(
+  const TanGeometry g = tan_geometry<Model>(n_lane);
+  dalton_filter_tan_kernel<Model, 3, MODE, WITH_OBS><<<g.grid, g.block, 0,
+                                                       stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, d, y, om, mask, ld0,
       ld);
   return cudaGetLastError();
@@ -111,6 +175,16 @@ cudaError_t dalton_tan_launch_obs(bool with_obs, const QConst<3>& qc,
   return dalton_tan_launch<Model, MODE, false>(qc, n_steps, n_lane, R, W, tv,
                                                x0, theta, tgrid, d, y, om,
                                                mask, ld0, ld, stream);
+}
+
+template <class Model, int MODE>
+cudaError_t dalton_tan_geometry(bool with_obs, int n_lane, int* out) {
+  const TanGeometry g = tan_geometry<Model>(n_lane);
+  if (with_obs)
+    return report_geometry(dalton_filter_tan_kernel<Model, 3, MODE, true>, g,
+                           out);
+  return report_geometry(dalton_filter_tan_kernel<Model, 3, MODE, false>, g,
+                         out);
 }
 
 }  // namespace rodeo
@@ -161,5 +235,24 @@ extern "C" int rodeo_dalton_filter_batch_tan(
           lp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_dalton_filter_batch_tan makes for (model, mode,
+// with_obs, n_lane) on the current device, as nine ints in out
+// (report_geometry in block_step.cuh).  Returns a cudaError_t.
+extern "C" int rodeo_dalton_filter_batch_tan_geometry(int model, int mode,
+                                                      int with_obs,
+                                                      int n_lane, void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  const bool obs = with_obs != 0;
+  switch (model * 2 + mode) {
+    case 0: return dalton_tan_geometry<Lorenz63, kKramer>(obs, n_lane, o);
+    case 1: return dalton_tan_geometry<Lorenz63, kRodeo>(obs, n_lane, o);
+    case 2: return dalton_tan_geometry<FitzHughNagumo, kKramer>(obs, n_lane, o);
+    case 3: return dalton_tan_geometry<FitzHughNagumo, kRodeo>(obs, n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }

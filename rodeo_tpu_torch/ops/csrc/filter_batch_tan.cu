@@ -10,26 +10,32 @@
 // Plain PyTorch twin: _filter_batch_tan_plain in ops/fused_kalman.py, which
 // runs K1's twin on Duals (ops/dual.py).
 //
-// Design.  One thread carries one (lane, direction): K1's step
-// (filter_step.cuh) instantiated on the forward-mode number Dual (dual.cuh),
-// a value and one tangent, with theta seeded along the thread's direction
-// and the initial state exact (zero tangent).  The value part of each Dual
-// is K1's float arithmetic, so the values equal K1's bitwise; the thread of
-// direction 0 stores them.  A CTA holds kTanLanes lanes x NTHETA directions,
-// which gives NTHETA times K1's threads (6144 at 2048 lanes), each holding
-// one tangent's registers rather than all NTHETA.  The TPU kernel's chunk
-// grid, lane fold and re-traced primal per tangent are gone (each thread
-// recomputes the value, which costs arithmetic, not memory).
+// Design.  K1's step on the forward-mode number Dual (dual.cuh), a value
+// and one tangent, with theta seeded along the thread's direction and the
+// initial state exact (zero tangent), split over the blocks of a lane
+// (block_step.cuh): one thread per (lane, direction, block), which predicts
+// its block, forms and stores its block's gains, and, after one barrier a
+// step with the other blocks of its (lane, direction), evaluates the ODE at
+// their gathered predicted means and updates its block.  The value part of
+// each Dual is K1's float arithmetic, so the values equal K1's bitwise; the
+// threads of direction 0 store them.  The earlier design ran one thread per
+// (lane, direction) with all NB blocks in its registers: at 2048 lanes 64
+// CTAs of 96 threads on 64 of the 132 SMs, 168 registers, and a chain of
+// ~3e3 dependent operations a step; the split gives NB times the threads,
+// each with a chain about 1/NB as long.
 //
 // What bounds it on the card.  A step stores 72 floats per (block, lane) at
 // NAUG = 4 (A 36, b 12, C 24): 7.08 GB at 4000 steps x 3 blocks x 2048
-// lanes, 2.11 ms at 3.35 TB/s.  Each thread's step is a serial chain of
-// ~3e3 dependent float operations (K1's and its tangent), so the kernel is
-// latency-bound as K1 is, with three times as many threads in flight.
+// lanes, 2.11 ms at 3.35 TB/s.  The kernel is still bound by the latency of
+// each thread's chain (K1's step on one block and its tangent, and the ODE
+// at the gathered means): at 2048 lanes Lorenz63 runs grid (64, 3) = 192
+// CTAs of 32 x 3 = 96 threads, 18 432 threads, every CTA resident at once
+// and every SM with one or two.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "dual.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
@@ -37,10 +43,8 @@
 
 namespace rodeo {
 
-constexpr int kTanLanes = 32;
-
 template <class Model, int Q, int MODE>
-__global__ void __launch_bounds__(kTanLanes * Model::NTHETA)
+__global__ void __launch_bounds__(kTanLanes * Model::NB)
     filter_batch_tan_kernel(QConst<Q> qc, int n_steps, int n_lane,
                             const float* __restrict__ R_in,
                             const float* __restrict__ W_in,
@@ -57,36 +61,38 @@ __global__ void __launch_bounds__(kTanLanes * Model::NTHETA)
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
   constexpr int NAUG = 1 + NTH;
-  const int lane = blockIdx.x * kTanLanes + threadIdx.x;
-  const int dir = threadIdx.y;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<Dual, NB, Q> xs;
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int dir = blockIdx.y;
+  const int lane = blockIdx.x * kTanLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no stores
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
+  const size_t base = b * static_cast<size_t>(n_lane) + off;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   Dual th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k)
     th[k] = Dual(theta[k * static_cast<size_t>(n_lane) + off], k == dir ? 1.0f : 0.0f);
 
-  Dual m[NB][Q], P[NB][NT];
+  Dual m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = Dual(x0[j * col + base]);
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = Dual(x0[j * col + b * n_lane + off]);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = Dual(0.0f);
-  }
+  for (int k = 0; k < NT; ++k) P[k] = Dual(0.0f);
 
   for (int n = 0; n < n_steps; ++n) {
-    Dual mp[NB][Q], pp[NB][NT];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-      Dual G[Q][Q], g[Q], L[NT];
-      gain_cols<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b], G, g, L);
-      const size_t base = b * static_cast<size_t>(n_lane) + off;
+    Dual mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
+    Dual G[Q][Q], g[Q], L[NT];
+    gain_cols<Q>(c.Qm, c.R, m, P, mp, pp, G, g, L);
+    if (live) {
 #pragma unroll
       for (int i = 0; i < Q; ++i)
 #pragma unroll
@@ -97,18 +103,18 @@ __global__ void __launch_bounds__(kTanLanes * Model::NTHETA)
 #pragma unroll
       for (int k = 0; k < NT; ++k) store_aug(C_out, n, NT, NAUG, k, col, base, dir, L[k]);
     }
-    Dual z[NB], S[NB], inv_S[NB];
-    interrogate_update<Model, Q, MODE>(c, th, tgrid[n], mp, pp, m, P, z, S,
-                                       inv_S);
+    __syncthreads();
+    Dual x[NB][Q], z, S, inv_S;
+    gather_means<NB, Q>(xs, n, tx, x);
+    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
+                                             P, z, S, inv_S);
   }
 
+  if (live) {
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const size_t base = b * static_cast<size_t>(n_lane) + off;
+    for (int j = 0; j < Q; ++j) store_aug(m_last, 0, Q, NAUG, j, col, base, dir, m[j]);
 #pragma unroll
-    for (int j = 0; j < Q; ++j) store_aug(m_last, 0, Q, NAUG, j, col, base, dir, m[b][j]);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) store_aug(p_last, 0, NT, NAUG, k, col, base, dir, P[b][k]);
+    for (int k = 0; k < NT; ++k) store_aug(p_last, 0, NT, NAUG, k, col, base, dir, P[k]);
   }
 }
 
@@ -119,12 +125,17 @@ cudaError_t filter_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
                               const float* tgrid, float* A, float* b,
                               float* C, float* m_last, float* p_last,
                               cudaStream_t stream) {
-  const dim3 block(kTanLanes, Model::NTHETA);
-  const dim3 grid((n_lane + kTanLanes - 1) / kTanLanes);
-  filter_batch_tan_kernel<Model, 3, MODE><<<grid, block, 0, stream>>>(
+  const TanGeometry g = tan_geometry<Model>(n_lane);
+  filter_batch_tan_kernel<Model, 3, MODE><<<g.grid, g.block, 0, stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, A, b, C, m_last,
       p_last);
   return cudaGetLastError();
+}
+
+template <class Model, int MODE>
+cudaError_t filter_tan_geometry(int n_lane, int* out) {
+  return report_geometry(filter_batch_tan_kernel<Model, 3, MODE>,
+                         tan_geometry<Model>(n_lane), out);
 }
 
 }  // namespace rodeo
@@ -172,5 +183,22 @@ extern "C" int rodeo_filter_batch_tan(int model, int mode, int n_steps,
           qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_filter_batch_tan makes for (model, mode, n_lane) on the
+// current device, as nine ints in out (report_geometry in block_step.cuh).
+// Returns a cudaError_t.
+extern "C" int rodeo_filter_batch_tan_geometry(int model, int mode,
+                                               int n_lane, void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  switch (model * 2 + mode) {
+    case 0: return filter_tan_geometry<Lorenz63, kKramer>(n_lane, o);
+    case 1: return filter_tan_geometry<Lorenz63, kRodeo>(n_lane, o);
+    case 2: return filter_tan_geometry<FitzHughNagumo, kKramer>(n_lane, o);
+    case 3: return filter_tan_geometry<FitzHughNagumo, kRodeo>(n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }

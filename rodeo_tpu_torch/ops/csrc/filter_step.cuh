@@ -7,10 +7,12 @@
 // Shared by K1 (filter_batch.cu), which also forms the smoothing gains
 // between predict and update, and K8 (dalton_filter_batch.cu), which also
 // sums the forecast log-density and adds a masked observation update, so
-// that both kernels run the same arithmetic; and, on the scalar type Dual
-// (dual.cuh), by their tangent twins K11a (filter_batch_tan.cu) and K11c
-// (dalton_filter_batch_tan.cu), whose values are then K1's and K8's
-// bitwise.  K9 (filter_nn_batch.cu) and its tangent twin K11d
+// that both kernels run the same arithmetic.  Their tangent twins K11a
+// (filter_batch_tan.cu) and K11c (dalton_filter_batch_tan.cu) run the same
+// step on the scalar type Dual (dual.cuh) split over the blocks of a lane
+// (block_step.cuh: predict_block, gain_cols and a per-block copy of
+// interrogate_update), so their values are K1's and K8's bitwise.  K9
+// (filter_nn_batch.cu) and its tangent twin K11d
 // (filter_nn_batch_tan.cu) run filter_nn_step, the same predict and
 // update followed by masked pseudo-observation updates.  The plain PyTorch versions of this step are _filter_batch_plain
 // (ops/fused_kalman.py) and _dalton_filter_plain (ops/fused_dalton.py),

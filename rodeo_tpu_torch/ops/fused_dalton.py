@@ -15,7 +15,8 @@ plus the forecast log-density of the ODE's pseudo-observation and, with
 The gradient runs two launches of **K11c**
 ``csrc/dalton_filter_batch_tan.cu`` (replacing ``_dalton_filter_kernel_tan``):
 K8 carrying the tangents of its state and log-density along each parameter
-(forward mode).
+(forward mode), one thread per (lane, direction, block), which skips the
+observation update at steps without data, where it is an exact identity.
 
 The plain PyTorch twin of K8 is :func:`_dalton_filter_plain`, and run on
 :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers it is K11c's
@@ -30,8 +31,8 @@ from rodeo_tpu_torch.ops.dual import Dual, constant, rows, seed_directions
 from rodeo_tpu_torch.ops.fused_kalman import (
     _FUNCTORS, _LOG2PI, _MODES, _block_sum, _check, _check_mode,
     _fused_inputs, _host_qconst, _interrogate_update_cols, _kernel_operands,
-    _launch, _masked_obs_update_cols, _pack_tri, _predict_cols, _tri_idx,
-    resolve_model)
+    _launch, _launch_geometry, _masked_obs_update_cols, _pack_tri,
+    _predict_cols, _tri_idx, resolve_model)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
 __all__ = ["dalton_fused_batch", "dalton_fused_batch_grad",
@@ -46,13 +47,18 @@ LAUNCHES = {"dalton_filter_batch": 0, "dalton_filter_batch_tan": 0}
 
 def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
                          t_vec, x0_lanes, theta_lanes, tgrid, d, y, om, mask,
-                         ld0, mode, with_obs):
+                         ld0, mode, with_obs, skip_unobserved=True):
     """Plain PyTorch twin of ``csrc/dalton_filter_batch.cu``: K1's twin step
     (:func:`~rodeo_tpu_torch.ops.fused_kalman._interrogate_update_cols`),
     the forecast log-density and the masked observation update, in the
     kernel's order.  Arguments and returns as :func:`dalton_filter_batch`
     (``model`` resolved); on Duals (``x0_lanes``, ``theta_lanes``, ``ld0``)
-    it returns a Dual."""
+    it returns a Dual.
+
+    Like K11c it skips the observation update and its term at a step
+    without data, where they are an exact identity; K8 runs them there, as
+    does this twin with ``skip_unobserved=False`` (a test holds the two to
+    each other bitwise)."""
     q, n_block, n_lane = x0_lanes.shape
     pairs, where = _tri_idx(q)
     n_tri = len(pairs)
@@ -63,6 +69,7 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
     m_cols = list(x0_lanes)
     p_cols = [torch.zeros_like(x0_lanes[0]) for _ in range(n_tri)]
     ld = ld0
+    masks = mask.tolist()
     for n in range(n_steps):
         mp_cols, pp_cols = _predict_cols(q, where, q_const, R_cols, m_cols,
                                          p_cols)
@@ -71,7 +78,7 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
             theta_lanes, tgrid[n], mode)
         # the ODE pseudo-observation's forecast log-density
         ld = ld - 0.5 * _block_sum(z * z * inv_S + torch.log(S) + _LOG2PI)
-        if with_obs:
+        if with_obs and (masks[n] != 0.0 or not skip_unobserved):
             D = [d[n, j][:, None] for j in range(q)]
             m_cols, p_cols, term = _masked_obs_update_cols(
                 q, pairs, where, m_cols, p_cols, D, y[n][:, None],
@@ -82,16 +89,17 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
 
 def _dalton_filter_tan_plain(model, n_steps, q_const, prior_var, ode_weight,
                              t_vec, x0_lanes, theta_lanes, tgrid, d, y, om,
-                             mask, ld0, mode, with_obs):
+                             mask, ld0, mode, with_obs, skip_unobserved=True):
     """Plain PyTorch twin of ``csrc/dalton_filter_batch_tan.cu``: K8's twin
     on Duals, theta seeded along its ``n_theta`` basis directions, the
     initial state exact, the seed's tangents the rows ``ld0[1:]``.
-    Arguments and returns as :func:`dalton_filter_batch_tan`."""
+    Arguments and returns as :func:`dalton_filter_batch_tan`;
+    ``skip_unobserved`` as :func:`_dalton_filter_plain`."""
     theta = seed_directions(theta_lanes)
     ld = _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
                               t_vec, constant(x0_lanes, theta.n_dir), theta,
                               tgrid, d, y, om, mask, Dual(ld0[0], ld0[1:]),
-                              mode, with_obs)
+                              mode, with_obs, skip_unobserved)
     return rows(ld)
 
 
@@ -140,6 +148,19 @@ def dalton_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
     return _dalton_filter(True, model, n_steps, q_const, prior_var,
                           ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d,
                           y, om, mask, ld0, mode, with_obs)
+
+
+def _dalton_filter_batch_tan_geometry(model, n_lane, mode="kramer",
+                                     with_obs=True, device=None):
+    """The launch of kernel K11c (:func:`dalton_filter_batch_tan`) at
+    ``n_lane`` lanes on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    it."""
+    model = resolve_model(model)
+    _check_mode(mode)
+    return _launch_geometry("dalton_filter_batch_tan", device,
+                            _FUNCTORS[model.cuda_functor], _MODES[mode],
+                            int(with_obs), n_lane)
 
 
 def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,

@@ -10,7 +10,9 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (mean_recovery_single), the MAGI kernels K10a (magi_batch) and K10b
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
-CUDA inputs, and the launch contract of each fused entry point.
+CUDA inputs, the launch contract of each fused entry point, and the launch
+geometry of K11a and K11c, which run one thread per (lane, direction,
+block).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -270,15 +272,20 @@ def _split_err(kernel, twin, k):
                         twin.narrow(axis, a * k, k)) for a in range(n_aug)]
 
 
+@pytest.mark.parametrize("n_lane", [96, 37, 100])
 @pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
-                                                       mode, t_max):
+                                                       mode, t_max, n_lane):
     """K11a, K11e, K11b and K11c against their twins, the values and each
     tangent direction on their own; and their values against the kernels
-    they extend, K1, K2r, K7b and K8, which must agree bitwise."""
+    they extend, K1, K2r, K7b and K8, which must agree bitwise.  K11a and
+    K11c, one thread per (lane, direction, block) with a barrier a step,
+    agree with their twins bitwise too, also where the lanes end inside a
+    CTA of 32 (37 and 100 lanes)."""
     n_steps = 300
-    cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
+                                cuda_device)
     obs = _obs(model, 11, t_max, cuda_device)
     ops, obs_k, ld0 = fd._dalton_prepare(
         thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
@@ -292,6 +299,7 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
                                 out_p, [9, 3, 6, 3, 6], prim):
         assert torch.isfinite(a).all(), name
         assert max(_split_err(a, b, k)) <= TWIN_TOL, name
+        assert torch.equal(a, b), name
         assert torch.equal(a.narrow(a.dim() - 3, 0, k), v), name
     A, b, _, m_last, _ = out_k
     ms_k = fk.smoother_mean_recursion_batch_tan(b[1:], A[1:], m_last, n_tan)
@@ -323,9 +331,28 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
                                          with_obs=with_obs)
         assert torch.isfinite(k8).all()
         assert max(_split_err(k8, p8, 1)) <= TWIN_TOL, with_obs
+        assert torch.equal(k8, p8), with_obs
         assert torch.equal(k8[0], fd.dalton_filter_batch(
             fused, n_steps, **ops, **obs_k, ld0=ld0, mode=mode,
             with_obs=with_obs)), with_obs
+
+
+@pytest.mark.parametrize("n_lane", [1, 37, 2048])
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_split_tangent_kernels_launch_geometry(cuda_device, model, n_lane):
+    """K11a's and K11c's launches as the card reports them: a CTA of 32
+    lanes x the model's blocks, one grid row per direction and
+    ceil(n_lane / 32) lane groups, nothing in local memory, every CTA
+    resident at once, and at 2048 lanes at least one CTA per SM."""
+    n_block = MODELS[model].N_VARS
+    geos = [fk._filter_batch_tan_geometry(model, n_lane, device=cuda_device)]
+    geos += [fd._dalton_filter_batch_tan_geometry(
+        model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
+    for geo in geos:
+        assert (geo["cta_x"], geo["cta_y"]) == (32, n_block), geo
+        assert (geo["grid_x"], geo["grid_y"]) == (-(-n_lane // 32), 3), geo
+        assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+        assert geo["ctas_at_least_sms"] == (n_lane == 2048), geo
 
 
 def test_gradient_entry_points_launch_their_kernels(cuda_device):

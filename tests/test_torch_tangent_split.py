@@ -1,0 +1,136 @@
+"""
+DALTON's filter twins skip the observation update at steps without data,
+and the launch of the split tangent kernels K11a and K11c is the card's.
+
+Kernel K11c (``csrc/dalton_filter_batch_tan.cu``) skips the masked
+observation update, and its log-density term, where the step's mask is 0,
+and so do its plain twin ``_dalton_filter_tan_plain`` and K8's twin
+``_dalton_filter_plain`` by default; kernel K8 still runs the update there.
+At such a step the update is an exact identity (the gain is 0 and the term
+enters as 0 x a finite number), so skipping it must change no bit: the
+tests hold each twin with the skip to the same twin running the full
+update, bitwise, on Lorenz63 EK1 and FitzHugh-Nagumo EK0 with data, the
+values, the log-density and every tangent direction.  Sizes: 300 steps x 3
+lanes, 11 observations (every 30th step), float32 on the CPU.  The launch
+geometry of K11a and K11c comes from the card alone (the card tests check
+it at 1, 37 and 2048 lanes); here its queries must raise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from rodeo_tpu_torch.models import fitzhugh, lorenz
+from rodeo_tpu_torch.ops import fused_dalton as fd
+from rodeo_tpu_torch.ops import fused_kalman as fk
+
+N_STEPS, N_LANE, N_OBS = 300, 3, 11
+# (model module, interrogation, t_max)
+CASES = {"lorenz": (lorenz, "kramer", 3.0),
+         "fitzhugh": (fitzhugh, "rodeo", 15.0)}
+
+
+def _call(model):
+    """The DALTON entry points' arguments for a seeded lane batch of
+    ``model`` with data, on the CPU: the observation model of the
+    likelihood tests (the 0th derivative of every variable, variance
+    0.005), data rng(0).normal x 5, thetas perturbed by 1 % per lane."""
+    mod, mode, t_max = CASES[model]
+    cfg = mod.setup(n_steps=N_STEPS, t_max=t_max, dtype=torch.float32,
+                    device="cpu")
+    rng = np.random.default_rng(0)
+    thetas = cfg["theta"] * (1 + 0.01 * torch.tensor(
+        rng.standard_normal((N_LANE, 3)), dtype=torch.float32))
+    nb = mod.N_VARS
+    weight = torch.zeros((N_OBS, nb, 1, 3))
+    weight[..., 0] = 1.0
+    return dict(
+        thetas=thetas, ode_weight=cfg["ode_weight"],
+        ode_inits=cfg["ode_init"].expand((N_LANE,) + cfg["ode_init"].shape),
+        t_min=0.0, t_max=t_max, n_steps=N_STEPS,
+        prior_pars=cfg["prior_pars"],
+        obs_data=torch.tensor(rng.normal(size=(N_OBS, nb, 1)) * 5,
+                              dtype=torch.float32),
+        obs_times=torch.tensor(np.linspace(0.0, t_max, N_OBS),
+                               dtype=torch.float32),
+        obs_weight=weight, obs_var=torch.full((N_OBS, nb, 1, 1), 0.005),
+        model=model, interrogation=mode, device="cpu")
+
+
+def _operands(model):
+    """K8's keyword operands for :func:`_call`'s batch (the seed ``ld0``
+    left out), the resolved model and the seed."""
+    c = _call(model)
+    ops, grid, ld0 = fd._dalton_prepare(
+        c["thetas"], c["ode_weight"], c["ode_inits"], 0.0, c["t_max"],
+        N_STEPS, c["prior_pars"], c["obs_data"], c["obs_times"],
+        c["obs_weight"], c["obs_var"])
+    return (fk.resolve_model(model),
+            dict(**ops, **grid, mode=c["interrogation"]), ld0)
+
+
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_dalton_twin_skip_is_the_full_update(model, with_obs):
+    """K8's twin: the log-density with the skip equals the full update's
+    bitwise."""
+    fused, ops, ld0 = _operands(model)
+    n_data = int((ops["mask"] != 0).sum())
+    assert 0 < n_data < N_STEPS                     # steps of both kinds
+    args = dict(**ops, ld0=ld0, with_obs=with_obs)
+    skip = fd._dalton_filter_plain(fused, N_STEPS, **args)
+    full = fd._dalton_filter_plain(fused, N_STEPS, **args,
+                                   skip_unobserved=False)
+    assert torch.isfinite(skip).all()
+    assert torch.equal(skip, full)
+
+
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_dalton_tan_twin_skip_is_the_full_update(model, with_obs):
+    """K11c's twin: the values and each tangent direction with the skip
+    equal the full update's bitwise, and the values equal K8's twin's; the
+    seed's tangents are nonzero."""
+    fused, ops, ld0 = _operands(model)
+    tangents = torch.tensor(np.random.default_rng(1).standard_normal(
+        (3, N_LANE)), dtype=torch.float32)
+    args = dict(**ops, ld0=torch.cat([ld0[None], tangents]),
+                with_obs=with_obs)
+    skip = fd._dalton_filter_tan_plain(fused, N_STEPS, **args)
+    full = fd._dalton_filter_tan_plain(fused, N_STEPS, **args,
+                                       skip_unobserved=False)
+    assert skip.shape == (4, N_LANE) and torch.isfinite(skip).all()
+    assert all(torch.equal(skip[a], full[a]) for a in range(4))
+    value = fd._dalton_filter_plain(fused, N_STEPS, **ops, ld0=ld0,
+                                    with_obs=with_obs, skip_unobserved=False)
+    assert torch.equal(skip[0], value)
+    # the tangents carry the data: they differ from the seed's
+    assert not torch.equal(skip[1:], tangents)
+
+
+def test_dalton_entry_points_take_the_skip():
+    """The CPU wrappers take the skipping twins: the value and gradient
+    entry points give the full update's log-likelihood bitwise."""
+    fused, ops, ld0 = _operands("lorenz")
+    full = (fd._dalton_filter_plain(fused, N_STEPS, **ops, ld0=ld0,
+                                    with_obs=True, skip_unobserved=False)
+            - fd._dalton_filter_plain(fused, N_STEPS, **ops,
+                                      ld0=torch.zeros_like(ld0),
+                                      with_obs=False, skip_unobserved=False))
+    assert torch.equal(fd.dalton_fused_batch(**_call("lorenz")), full)
+    ll, grad = fd.dalton_fused_batch_grad(**_call("lorenz"))
+    assert torch.equal(ll, full)
+    assert grad.shape == (N_LANE, 3) and torch.isfinite(grad).all()
+
+
+@pytest.mark.parametrize("query", [
+    lambda **kw: fk._filter_batch_tan_geometry("lorenz", 37, **kw),
+    lambda **kw: fd._dalton_filter_batch_tan_geometry("fitzhugh", 37, **kw)],
+    ids=["K11a", "K11c"])
+def test_launch_geometry_is_the_cards(query):
+    """K11a's and K11c's launch geometry comes from the card's report of
+    the kernel: on the CPU the query raises, as it does for a mode the
+    kernels do not take, and nothing answers in the card's place."""
+    with pytest.raises(NotImplementedError):
+        query(device="cpu")
+    with pytest.raises(NotImplementedError):
+        query(mode="schober", device="cpu")
