@@ -12,7 +12,7 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              registers and spills per kernel;
 3. k1_twin   kernel K1 (filter_batch) against its plain PyTorch twin on the
              same CUDA inputs: Lorenz63 EK1 and FitzHugh-Nagumo EK0, 1000
-             steps x 256 lanes;
+             steps x 256 lanes, bitwise;
 4. k2r_twin  kernel K2r (smoother_batch_rows) against its twin, on seeded
              inputs and on the gains of phase 3;
 5. main      the main path: Lorenz63 EK1, 10 000 steps x 2048 lanes through
@@ -20,14 +20,15 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              launch each kernel once, stay finite, and pass the t <= 4 audit
              of lane 0 against the cached float64 truth; then its per-solve
              time and peak memory, and each kernel timed and checked against
-             its twin at these shapes;
+             its twin at these shapes, K1 bitwise, with its launch as the
+             card reports it and ptxas' registers and spills;
 6. fitzhugh  the kernel path (800 steps x 128 lanes) and the torch-op
              solve_mv in float64, against the cached FitzHugh-Nagumo truth;
 7. k6_twin, k7_twin, k8_twin
              kernels K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
              (dalton_filter_batch) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes: Lorenz63 EK1, and for K8 also
-             FitzHugh-Nagumo EK0, with and without data;
+             FitzHugh-Nagumo EK0, with and without data, K8 bitwise;
 8. k11_twin  the tangent kernels K11a (filter_batch_tan), K11b
              (fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and
              K11e (smoother_mean_batch_tan) against their twins on the same
@@ -41,9 +42,12 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              4000 steps x 2048 lanes, 21 observations, through
              fenrir_fused_batch, dalton_fused_batch and basic_fused_batch.
              Each must launch exactly its kernels, stay finite, and pass the
-             audit of lane 0 against the cached float64 truth; then its time
-             per call and peak memory, and K7b and K8 timed and checked
-             against their twins at these shapes;
+             audit of lane 0 against the cached float64 truth, DALTON's two
+             K8 launches counted by with_obs; then its time per call and
+             peak memory, and K7b and K8 timed and checked against their
+             twins at these shapes, K8's launch with data and without each
+             alone and bitwise, with its launch as the card reports it and
+             ptxas' registers and spills;
 10. grad     the gradients at full width: the likelihood fixture through
              fenrir_fused_batch_grad, dalton_fused_batch_grad and
              basic_fused_batch_grad, and bench.py's FitzHugh-Nagumo fixture
@@ -63,9 +67,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              launch an entry of the kernels line with its launches on the
              DALTON gradient); K11a and K11c bitwise against their twins,
              their values against K1's and K8's, and their launch as the
-             card reports it (CTA shape, CTAs, threads, registers, local
-             memory, CTAs an SM holds) with ptxas' registers and spills:
-             at least one CTA per SM, all resident, no spills;
+             card reports it (split_record) with ptxas' registers and
+             spills;
 11. sim      solve_sim_fused_batch at the main path's shapes (launches,
              finite, time, K6 against its twin), and the draws' lane mean
              and variance against solve_mv_fused_batch's posterior on
@@ -155,10 +158,12 @@ error against its twin, time on the device (ms) and of its wrapper's call
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
 from its twin, over 67 TFLOP/s; K8's and K11c's from the steps without and
 with data of their grid, since the twin skips the observation update where
-there is none), and, last, {"ok": true, "device": {...}}.
+there is none; K8's and K11c's two launches are two entries each), and,
+last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
 """
+import contextlib
 import json
 import re
 import statistics
@@ -254,16 +259,24 @@ PEAK_F32_PER_S = 67e12
 _ARITH = {"add", "sub", "mul", "div", "truediv", "neg", "rsub", "sqrt",
           "log", "clamp", "maximum", "minimum", "abs", "where", "gt", "lt",
           "ge", "le", "reciprocal", "exp"}
-# The tangent kernels: K11a, K11b, K11c, K11e; K11c's entries in the
-# kernels line are its two launches on the DALTON gradient, with data and
+# The lane-batched value kernels K1, K2r, K6, K7b, K8; K8's entries in the
+# kernels line are its two launches on the DALTON value call, with data and
 # without.
+VALUE_KERNELS = ("filter_batch", "smoother_batch_rows", "sampler_batch",
+                 "fenrir_backward_batch", "dalton_filter_batch/with_obs",
+                 "dalton_filter_batch/without_obs")
+# The tangent kernels: K11a, K11b, K11c, K11e; K11c's entries are its two
+# launches on the DALTON gradient, with data and without.
 TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/with_obs",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
-# The tangent kernels that run one thread per (lane, direction, block),
-# bitwise against their twins, and the mangled names of their kernels.
-SPLIT_KERNELS = {"filter_batch_tan": "23filter_batch_tan_kernel",
+# The kernels that run one thread per (lane, block), K1 and K8, or per
+# (lane, direction, block), K11a and K11c, bitwise against their twins, and
+# the mangled names of their kernels.
+SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
+                 "dalton_filter_batch": "20dalton_filter_kernel",
+                 "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel"}
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
@@ -610,19 +623,45 @@ def main():
                                                    line)[1])
         return rows
 
-    def split_record(kernel, label, geometry):
-        """The launch of a split tangent kernel at its path's lanes as the
-        card reports it (CTA shape, CTAs, threads, registers, local memory,
-        CTAs an SM holds) and ptxas' report of each instantiation; checks
-        that the CTAs are at least the SMs and all resident at once, and
-        that no instantiation spills."""
+    def split_record(phase, kernel, label, geometry):
+        """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes
+        as the card reports it (CTA shape, CTAs, threads, registers, local
+        memory, CTAs an SM holds) and ptxas' report of each instantiation;
+        checks, under phase, that its CTAs are all resident at once and
+        that no instantiation spills.  A tangent kernel (a grid row per
+        direction) must also have at least one CTA per SM.  A value kernel
+        (K1, K8) has no direction axis: at 2048 lanes it runs 128 CTAs of
+        16 lanes (K1) or 64 of 32 (K8), fewer than the card's 132 SMs, so
+        it is not held to that."""
         report = ptxas_report(SPLIT_KERNELS[kernel])
-        check("grad_kernels", f"{label} fills the card",
-              geometry["ctas_at_least_sms"] and geometry["all_resident"])
-        check("grad_kernels", f"{label} spills nothing",
+        check(phase, f"{label} all resident", geometry["all_resident"])
+        if geometry["grid_y"] > 1:
+            check(phase, f"{label} at least one CTA per SM",
+                  geometry["ctas_at_least_sms"])
+        check(phase, f"{label} spills nothing",
               report and all(r.get("spill_stores") == 0
                              and r.get("spill_loads") == 0 for r in report))
         return {"geometry": geometry, "ptxas": report}
+
+    @contextlib.contextmanager
+    def split_by_obs(name, by_obs):
+        """Inside the block, the launches of fd.<name> (K8 or K11c) are also
+        counted by the with_obs argument of the call that made them, in
+        by_obs, set to 0 here as reset_counts sets the other counts."""
+        wrapper = getattr(fd, name)
+        by_obs.update({True: 0, False: 0})
+
+        def counted(*args, **kw):
+            before = fd.LAUNCHES[name]
+            out = wrapper(*args, **kw)
+            by_obs[bool(kw["with_obs"])] += fd.LAUNCHES[name] - before
+            return out
+
+        setattr(fd, name, counted)
+        try:
+            yield
+        finally:
+            setattr(fd, name, wrapper)
 
     # ---- 3. K1 against its twin ---------------------------------------------
     k1_names = ["G", "g", "L", "m_last", "p_last"]
@@ -640,12 +679,13 @@ def main():
         out_p = fk._filter_batch_plain(fused, n_steps, **ops, mode=mode)
         torch.cuda.synchronize()
         errs = compare(k1_names, out_k, out_p)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
         ok = check("k1_twin", f"{model}/{mode}",
-                   worst(errs)[1] <= TWIN_TOL
+                   worst(errs)[1] <= TWIN_TOL and bitwise
                    and all(torch.isfinite(a).all().item() for a in out_k))
         emit({"phase": "k1_twin", "model": model, "mode": mode,
               "n_steps": n_steps, "n_lane": n_lane, "tol_scaled": TWIN_TOL,
-              "errors": errs, "ok": ok})
+              "bitwise": bitwise, "errors": errs, "ok": ok})
         if gains is None:
             gains, k1_x0, k1_tv = out_k, ops["x0_lanes"], ops["t_vec"]
 
@@ -729,14 +769,18 @@ def main():
                               n_steps, cfg["prior_pars"])
     fused = fk.resolve_model("lorenz")
     cpu_ops = cpu_lanes(ops, ("x0_lanes", "theta_lanes"))
-    (G, g, L, mN, pN), _ = at_path_shapes(
+    (G, g, L, mN, pN), entry = at_path_shapes(
         "main", "filter_batch", "pallas_kalman.py:1141", launches,
         lambda: fk.fused_filter_batch(fused, n_steps, **ops, mode="kramer"),
         lambda: fk._filter_batch_plain(fused, n_steps, **ops, mode="kramer"),
         k1_names, lambda n: fk._filter_batch_plain(
             fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
             mode="kramer"),
-        n_steps * n_lane, tensors(ops), repeats=3)
+        n_steps * n_lane, tensors(ops), repeats=3,
+        shape=f"{n_steps} x {n_lane}",
+        **split_record("main", "filter_batch", "filter_batch lorenz",
+                       fk._filter_batch_geometry("lorenz", n_lane)))
+    check("main", "filter_batch bitwise", entry["bitwise"])
     t_vec = ops["t_vec"]
     rows_args = (g[1:], G[1:], L[1:], mN, pN, ops["x0_lanes"], t_vec,
                  fk._tri_scale(t_vec))
@@ -846,14 +890,16 @@ def main():
         for with_obs in (True, False):
             args = dict(**ops_m, **obs_m, ld0=ld0_m, mode=mode,
                         with_obs=with_obs)
-            errs = compare(["ld"],
-                           [fd.dalton_filter_batch(fused_m, n_tw, **args)],
-                           [fd._dalton_filter_plain(fused_m, n_tw, **args)])
+            out_k = fd.dalton_filter_batch(fused_m, n_tw, **args)
+            out_p = fd._dalton_filter_plain(fused_m, n_tw, **args)
+            errs = compare(["ld"], [out_k], [out_p])
+            bitwise = torch.equal(out_k, out_p)
             ok = check("k8_twin", f"{model}/{mode}/with_obs={with_obs}",
-                       worst(errs)[1] <= TWIN_TOL)
+                       worst(errs)[1] <= TWIN_TOL and bitwise)
             emit({"phase": "k8_twin", "model": model, "mode": mode,
                   "with_obs": with_obs, "n_steps": n_tw, "n_lane": b_tw,
-                  "tol_scaled": TWIN_TOL, "errors": errs, "ok": ok})
+                  "tol_scaled": TWIN_TOL, "bitwise": bitwise,
+                  "errors": errs, "ok": ok})
 
     # ---- 8. the tangent kernels against their twins -----------------------
     n_tan = 3
@@ -958,14 +1004,21 @@ def main():
             expect(filter_batch=1, smoother_batch_rows=1)),
     }
     path_launches = {}
+    # K8's launches on each path by with_obs, set to 0 with the other counts
+    k8_by_obs = {}
     for name, (call, expected) in paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        ll = call()
+        with split_by_obs("dalton_filter_batch", k8_by_obs):
+            ll = call()
         torch.cuda.synchronize()
         got = read_counts()
         path_launches[name] = got
+        if name == "dalton":
+            k8_dalton = dict(k8_by_obs)
+            check("likelihood", "dalton launches by with_obs",
+                  k8_dalton == {True: 1, False: 1})
         peak = torch.cuda.max_memory_allocated()
         check("likelihood", f"{name} launches", got == expected)
         finite = check("likelihood", f"{name} finite",
@@ -1033,30 +1086,47 @@ def main():
         thetas_ll, cfg_ll["ode_weight"], inits_ll, 0.0, t_ll, n_ll,
         cfg_ll["prior_pars"], *obs_f.values())
     lane_keys = ("x0_lanes", "theta_lanes", "ld0")
-    k8_args = dict(**ops_d, **obs_d, ld0=ld0_d, mode="kramer",
-                   with_obs=True)
-    k8_cpu = cpu_lanes(k8_args, lane_keys)
-    at_path_shapes(
-        "likelihood", "dalton_filter_batch", "pallas_dalton.py:41",
-        path_launches["dalton"],
-        lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
-        lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args), ["ld"],
-        None, None, tensors(k8_args), n_ops=b_ll * dalton_ops(
-            k8_cpu, lambda n, a: fd._dalton_filter_plain(fused, n, **a)))
+    for with_obs in (True, False):
+        k8_args = dict(**ops_d, **obs_d, mode="kramer", with_obs=with_obs,
+                       ld0=ld0_d if with_obs else torch.zeros_like(ld0_d))
+        k8_cpu = cpu_lanes(k8_args, lane_keys)
+        variant = "with_obs" if with_obs else "without_obs"
+        # each launch of the DALTON value call is an entry of its own, with
+        # its launches of the call, its time and its bound
+        _, entry = at_path_shapes(
+            "likelihood", "dalton_filter_batch", "pallas_dalton.py:41",
+            {"dalton_filter_batch": k8_dalton[with_obs]},
+            lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
+            lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args), ["ld"],
+            None, None, tensors(k8_args), n_ops=b_ll * dalton_ops(
+                k8_cpu, lambda n, a: fd._dalton_filter_plain(fused, n, **a)),
+            key=f"dalton_filter_batch/{variant}",
+            config=f"lorenz with_obs={with_obs}", shape=f"{n_ll} x {b_ll}",
+            variant=variant, kernel_launches=path_launches["dalton"][
+                "dalton_filter_batch"],
+            **split_record(
+                "likelihood", "dalton_filter_batch",
+                f"dalton_filter_batch {variant}",
+                fd._dalton_filter_batch_geometry("lorenz", b_ll,
+                                                 with_obs=with_obs)))
+        check("likelihood", f"dalton_filter_batch {variant} bitwise",
+              entry["bitwise"])
     del k8_args, k8_cpu
     # K1 and K2r at these shapes, for the breakdown of the fenrir and basic
     # calls
-    k1_ll_ms = cuda_ms(lambda: fk.fused_filter_batch(
+    k1_ll_ms = device_ms(lambda: fk.fused_filter_batch(
         fused, n_ll, **ops_ll, mode="kramer"), repeats=5)
     G, g, L, mN, pN = fk.fused_filter_batch(fused, n_ll, **ops_ll,
                                             mode="kramer")
-    k2r_ll_ms = cuda_ms(lambda: fk.smoother_recursion_batch_rows(
+    k2r_ll_ms = device_ms(lambda: fk.smoother_recursion_batch_rows(
         g[1:], G[1:], L[1:], mN, pN, ops_ll["x0_lanes"], ops_ll["t_vec"],
         fk._tri_scale(ops_ll["t_vec"])), repeats=5)
     del G, g, L, mN, pN, ops_ll
     emit({"phase": "likelihood_kernels", "n_steps": n_ll, "n_lane": b_ll,
           "fenrir_backward_batch": kernels["fenrir_backward_batch"],
-          "dalton_filter_batch": kernels["dalton_filter_batch"],
+          "dalton_filter_batch": {
+              v: kernels[f"dalton_filter_batch/{v}"]
+              for v in ("with_obs", "without_obs")},
           "filter_batch_ms": k1_ll_ms, "smoother_batch_rows_ms": k2r_ll_ms})
 
     # ---- 10. the gradients at full width ---------------------------------
@@ -1098,28 +1168,14 @@ def main():
     }
     grad_launches = {}
     # K11c's launches on each gradient path by with_obs, set to 0 with the
-    # other counts: the wrapper's count, split by the argument of each call
-    # that raised it
+    # other counts
     k11c_by_obs = {}
-    k11c_wrapper = fd.dalton_filter_batch_tan
-
-    def k11c_counted(*args, **kw):
-        before = fd.LAUNCHES["dalton_filter_batch_tan"]
-        out = k11c_wrapper(*args, **kw)
-        k11c_by_obs[bool(kw["with_obs"])] += (
-            fd.LAUNCHES["dalton_filter_batch_tan"] - before)
-        return out
-
     for name, (call, value_call, expected, n_g) in grad_paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        k11c_by_obs.update({True: 0, False: 0})
-        fd.dalton_filter_batch_tan = k11c_counted
-        try:
+        with split_by_obs("dalton_filter_batch_tan", k11c_by_obs):
             out = call()
-        finally:
-            fd.dalton_filter_batch_tan = k11c_wrapper
         torch.cuda.synchronize()
         got = read_counts()
         grad_launches[name] = got
@@ -1212,7 +1268,8 @@ def main():
                 mode="kramer"),
             n_g * b_ll, tensors(ops_g), split=k11a_split,
             register=on_path, config=model, shape=f"{n_g} x {b_ll}",
-            **split_record("filter_batch_tan", f"filter_batch_tan {model}",
+            **split_record("grad_kernels", "filter_batch_tan",
+                           f"filter_batch_tan {model}",
                            fk._filter_batch_tan_geometry(model, b_ll)))
         k1_out = fk.fused_filter_batch(fused_g, n_g, **ops_g, mode="kramer")
         entry = at_grad[f"filter_batch_tan/{model}"]
@@ -1273,7 +1330,7 @@ def main():
             variant=variant, kernel_launches=grad_launches["dalton"][
                 "dalton_filter_batch_tan"],
             **split_record(
-                "dalton_filter_batch_tan",
+                "grad_kernels", "dalton_filter_batch_tan",
                 f"dalton_filter_batch_tan {variant}",
                 fd._dalton_filter_batch_tan_geometry("lorenz", b_ll,
                                                     with_obs=with_obs)))
@@ -2264,10 +2321,9 @@ def main():
     # the card and its power limit again, beside the numbers at the end
     print(smi, flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [kernels[name] for name in (
-        "filter_batch", "smoother_batch_rows", "sampler_batch",
-        "fenrir_backward_batch", "dalton_filter_batch") + TAN_KERNELS
-        + SINGLE_KERNELS + MEAN_KERNELS + MAGI_KERNELS + NN_KERNELS]})
+    emit({"kernels": [kernels[name] for name in
+                      VALUE_KERNELS + TAN_KERNELS + SINGLE_KERNELS
+                      + MEAN_KERNELS + MAGI_KERNELS + NN_KERNELS]})
     if failures:
         print("chip_smoke.py: failed: " + "; ".join(failures),
               file=sys.stderr)

@@ -48,7 +48,10 @@ _SIGNATURES = {
     "rodeo_fenrir_backward_batch_tan": [_I] * 4 + [_P] * 11,
     # as rodeo_dalton_filter_batch
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
-    # the launches of K11a and K11c: model, mode, (with_obs,) n_lane, out
+    # the launches of K1, K8, K11a and K11c: model, mode, (with_obs,)
+    # n_lane, out
+    "rodeo_filter_batch_geometry": [_I] * 3 + [_P],
+    "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
     # n_steps, n_col, n_tan, g, G, mN, ms, stream

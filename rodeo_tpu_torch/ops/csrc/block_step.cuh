@@ -1,7 +1,9 @@
 // The filter step split over the blocks of a lane: one thread per (lane,
-// direction, block), the threads of one (lane, direction) meeting once a
-// step in shared memory.  Run by the tangent kernels K11a
-// (filter_batch_tan.cu) and K11c (dalton_filter_batch_tan.cu).
+// block), or per (lane, direction, block) in a tangent kernel, the threads of
+// one (lane, direction) meeting once a step in shared memory.  Run by the
+// value kernels K1 (filter_batch.cu) and K8 (dalton_filter_batch.cu) on
+// float, and by their tangent twins K11a (filter_batch_tan.cu) and K11c
+// (dalton_filter_batch_tan.cu) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
 // but one: the ODE is evaluated at the predicted mean of all blocks
@@ -12,8 +14,9 @@
 // the same bits -- keeping its own block's entries; the rest of the update
 // (interrogate_update_block) is interrogate_update's loop body for that
 // block, operation for operation.  The values are therefore those of the
-// one-thread-per-lane step of filter_step.cuh bitwise, which K1, K8, K9 and
-// K11d still run.
+// one-thread-per-lane step of filter_step.cuh bitwise.  That step stays,
+// because K3, K9 and K11d still run it; the copy in interrogate_update_block
+// goes when they move onto this split.
 //
 // A thread's block number is a runtime value: its constants are loaded once
 // by that index from device memory (BlockConsts), and an entry of a
@@ -30,21 +33,20 @@
 
 namespace rodeo {
 
-// Lanes per CTA of the split kernels (16 was slower for both; PERF.md)
-constexpr int kTanLanes = 32;
-
-// The launch of a split kernel: CTA (kTanLanes lanes, NB blocks), grid
-// (lane groups, directions).  A warp is 32 consecutive lanes of one (block,
-// direction), so the stores of a step are coalesced on the lane axis.  The
-// threads of lanes >= n_lane in the last lane group run masked.
-struct TanGeometry {
+// The launch of a split kernel: CTA (LANES lanes, NB blocks), grid (lane
+// groups, n_dir), n_dir the tangent directions of a tangent kernel and 1
+// for a value kernel.  Each kernel file fixes its LANES, the faster of 16
+// and 32 on the card (PERF.md).  At 32 a warp is 32 consecutive lanes of
+// one (block, direction), at 16 two blocks' 16; either way the stores of
+// a step are coalesced on the lane axis.  The threads of lanes >= n_lane
+// in the last lane group run masked.
+struct SplitGeometry {
   dim3 grid, block;
 };
 
-template <class Model>
-TanGeometry tan_geometry(int n_lane) {
-  return {dim3((n_lane + kTanLanes - 1) / kTanLanes, Model::NTHETA),
-          dim3(kTanLanes, Model::NB)};
+template <class Model, int LANES>
+SplitGeometry split_geometry(int n_lane, int n_dir) {
+  return {dim3((n_lane + LANES - 1) / LANES, n_dir), dim3(LANES, Model::NB)};
 }
 
 // What the card makes of a split kernel's launch, for the record: out =
@@ -52,7 +54,8 @@ TanGeometry tan_geometry(int n_lane) {
 // thread, static shared memory bytes per CTA, CTAs resident per SM at most,
 // SMs of the current device.
 template <class Kernel>
-cudaError_t report_geometry(Kernel* kernel, const TanGeometry& g, int* out) {
+cudaError_t report_geometry(Kernel* kernel, const SplitGeometry& g,
+                            int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
@@ -114,22 +117,20 @@ __device__ __forceinline__ T own_block(const T (&a)[NB], int b) {
 // lane of the CTA; two buffers, by the parity of the step, so that one
 // barrier a step suffices: a buffer is written again only after every
 // thread has passed the next step's barrier, and so has read it.
-template <class T, int NB, int Q>
-using SharedMeans = T[2][NB][Q][kTanLanes];
+template <class T, int NB, int Q, int LANES>
+using SharedMeans = T[2][NB][Q][LANES];
 
-template <int NB, int Q, class T>
-__device__ __forceinline__ void publish_mean(SharedMeans<T, NB, Q>& xs,
-                                             int n, int b, int tx,
-                                             const T (&mp)[Q],
-                                             const float (&tv)[Q]) {
+template <int NB, int Q, class T, int LANES>
+__device__ __forceinline__ void publish_mean(
+    SharedMeans<T, NB, Q, LANES>& xs, int n, int b, int tx, const T (&mp)[Q],
+    const float (&tv)[Q]) {
 #pragma unroll
   for (int j = 0; j < Q; ++j) xs[n & 1][b][j][tx] = mp[j] * tv[j];
 }
 
-template <int NB, int Q, class T>
-__device__ __forceinline__ void gather_means(const SharedMeans<T, NB, Q>& xs,
-                                             int n, int tx,
-                                             T (&x)[NB][Q]) {
+template <int NB, int Q, class T, int LANES>
+__device__ __forceinline__ void gather_means(
+    const SharedMeans<T, NB, Q, LANES>& xs, int n, int tx, T (&x)[NB][Q]) {
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -205,6 +206,73 @@ __device__ __forceinline__ void interrogate_update_block(
   z_out = z;
   S_out = S;
   inv_S_out = inv_S;
+}
+
+// Each block's log-density terms of one step, by the parity of the step:
+// written by the block's thread after the step's barrier, read by block 0's
+// thread after the next step's barrier.
+template <class T, int NB, int LANES>
+using StepTerms = T[2][NB][LANES];
+
+// DALTON's ld plus step n's log-density terms of all blocks, in block order
+// as _dalton_filter_plain (ops/fused_dalton.py) sums them: the ODE's
+// pseudo-observation terms, then, at a step with data, the observation
+// terms; a step without data adds none (its update was skipped).
+template <int NB, bool WITH_OBS, class T, int LANES>
+__device__ __forceinline__ T add_step_terms(
+    T ld, const StepTerms<T, NB, LANES>& ode,
+    const StepTerms<T, NB, LANES>& obs, int n, int tx,
+    const float* __restrict__ mask) {
+  const int p = n & 1;
+  T acc = ode[p][0][tx];
+#pragma unroll
+  for (int b = 1; b < NB; ++b) acc = acc + ode[p][b][tx];
+  ld = ld - 0.5f * acc;
+  if constexpr (WITH_OBS) {
+    const float mk = mask[n];
+    if (mk != 0.0f) {
+      T obs_acc = obs[p][0][tx];
+#pragma unroll
+      for (int b = 1; b < NB; ++b) obs_acc = obs_acc + obs[p][b][tx];
+      ld = ld + mk * (-0.5f * obs_acc);
+    }
+  }
+  return ld;
+}
+
+// DALTON's update of block b at step n, after the step's barrier:
+// interrogate_update_block on the gathered means x, the forecast
+// log-density term of the ODE's pseudo-observation, and with WITH_OBS, at a
+// step with data, the block's masked observation update and its term; each
+// term goes to the step's slot of ode or obs, for block 0's thread to add
+// (add_step_terms).  At a step without data (mask 0) the masked update is
+// an exact identity (K = 0, and ld gains 0 x a finite term), so it is
+// skipped, as the twin skips it.  The observation grid (d, y, om, mask; N x
+// .. x NB) is shared by all lanes.
+template <class Model, int Q, int MODE, bool WITH_OBS, class T, int LANES>
+__device__ __forceinline__ void dalton_update_block(
+    const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], int n, float t,
+    const T (&x)[Model::NB][Q], int b, int tx, const T (&mp)[Q],
+    const T (&pp)[Tri<Q>::N], const float* __restrict__ d,
+    const float* __restrict__ y, const float* __restrict__ om,
+    const float* __restrict__ mask, T (&m)[Q], T (&P)[Tri<Q>::N],
+    StepTerms<T, Model::NB, LANES>& ode,
+    StepTerms<T, Model::NB, LANES>& obs) {
+  constexpr int NB = Model::NB;
+  T z, S, inv_S;
+  interrogate_update_block<Model, Q, MODE>(c, th, t, x, b, mp, pp, m, P, z,
+                                           S, inv_S);
+  ode[n & 1][b][tx] = z * z * inv_S + log_of(S) + kLog2Pi;
+  if constexpr (WITH_OBS) {
+    const float mk = mask[n];
+    if (mk != 0.0f) {
+      float D[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
+      const size_t o = static_cast<size_t>(n) * NB + b;
+      obs[n & 1][b][tx] = masked_obs_update<Q>(D, y[o], om[o], mk, m, P);
+    }
+  }
 }
 
 }  // namespace rodeo

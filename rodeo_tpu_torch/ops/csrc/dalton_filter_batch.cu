@@ -7,36 +7,46 @@
 // _dalton_filter_kernel.  Plain PyTorch twin: _dalton_filter_plain in
 // ops/fused_dalton.py.
 //
-// Design.  As K1 (filter_batch.cu), one thread carries one lane through all
-// N steps with all NB blocks of its state in registers, because the ODE
-// right-hand side couples the blocks; each step is K1's predict, interrogate
-// and update without K1's gains (dalton_step of filter_step.cuh, which the
-// tangent kernel K11c shares).  The log-density is summed in a register,
-// the blocks of a step added in block order as the twin adds them.  The observation grid (N, .., NB) is shared by all lanes
-// and comes from cache; nothing is streamed per lane, and one float per lane
-// is written at the end.  WITH_OBS is a template parameter, so the launch
-// without data carries no observation code.
+// Design.  As K1 (filter_batch.cu), one thread per (lane, block), the
+// threads of a lane meeting once a step in shared memory (block_step.cuh),
+// because the ODE right-hand side couples the blocks; each step is K1's
+// predict, interrogate and update without K1's gains
+// (dalton_update_block).  Each thread leaves its block's log-density terms
+// in shared memory, and the thread of block 0 adds them in block order as
+// the twin adds them, one step late, after the next step's barrier
+// (add_step_terms; the terms are double buffered), and holds ld.  With
+// WITH_OBS each thread runs its block's masked observation update at a step
+// with data and skips it at a step without (mask 0), where it is an exact
+// identity; the twin skips it too.  The observation grid (N, .., NB) is
+// shared by all lanes and comes from cache; nothing is streamed per lane,
+// and one float per lane is written at the end.  WITH_OBS is a template
+// parameter, so the launch without data carries no observation code.  The
+// tangent kernel K11c runs the same step on Dual numbers.
 //
-// What bounds it on the card.  A step is ~700 dependent float operations
-// per lane and no per-lane memory traffic, so the kernel is bound by the
-// latency of each thread's serial chain; B lanes give only B threads (2048
-// at the benchmark's width).  Small CTAs (kDaltonThreads) spread the lanes
-// over as many SMs as possible; splitting a lane's blocks over threads is
-// left to a later change, as for K1.
+// What bounds it on the card.  Nothing is streamed per lane; a step is a
+// chain of dependent float operations on one block, with the ODE at the
+// gathered means, so the kernel is bound by the latency of that chain.  At
+// 2048 lanes Lorenz63 runs 64 CTAs of 32 x 3 = 96 threads, one on each of
+// 64 of the card's 132 SMs; 128 CTAs of 16 lanes were slower.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
 
 namespace rodeo {
 
-constexpr int kDaltonThreads = 32;
+// Lanes per CTA: 32, faster than 16 on the card (PERF.md)
+constexpr int kDaltonLanes = 32;
 
+// At 2048 lanes the launch has 64 CTAs, fewer than the SMs, so an SM never
+// holds a second one: the launch bounds ask for one CTA per SM, and ptxas
+// spends registers on the chain instead of spilling to fit more CTAs.
 template <class Model, int Q, int MODE, bool WITH_OBS>
-__global__ void __launch_bounds__(kDaltonThreads)
+__global__ void __launch_bounds__(kDaltonLanes * Model::NB, 1)
     dalton_filter_kernel(QConst<Q> qc, int n_steps, int n_lane,
                          const float* __restrict__ R_in,
                          const float* __restrict__ W_in,
@@ -53,31 +63,49 @@ __global__ void __launch_bounds__(kDaltonThreads)
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<float, NB, Q, kDaltonLanes> xs;
+  // each block's terms of a step: the ODE's and the data's
+  __shared__ StepTerms<float, NB, kDaltonLanes> ode_terms, obs_terms;
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int lane = blockIdx.x * kDaltonLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no store
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   float th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k) th[k] = theta[k * static_cast<size_t>(n_lane) + off];
 
-  float m[NB][Q], P[NB][NT];
+  float m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = x0[j * col + b * static_cast<size_t>(n_lane) + off];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = x0[j * col + b * n_lane + off];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = 0.0f;
-  }
+  for (int k = 0; k < NT; ++k) P[k] = 0.0f;
   float ld = ld0[off];
 
-  for (int n = 0; n < n_steps; ++n)
-    dalton_step<Model, Q, MODE, WITH_OBS>(c, th, n, tgrid[n], d, y, om, mask,
-                                          m, P, ld);
-  ld_out[off] = ld;
+  for (int n = 0; n < n_steps; ++n) {
+    float mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
+    __syncthreads();
+    if (b == 0 && n > 0)
+      ld = add_step_terms<NB, WITH_OBS>(ld, ode_terms, obs_terms, n - 1, tx, mask);
+    float x[NB][Q];
+    gather_means<NB, Q>(xs, n, tx, x);
+    dalton_update_block<Model, Q, MODE, WITH_OBS>(c, th, n, tgrid[n], x, b,
+                                                  tx, mp, pp, d, y, om, mask,
+                                                  m, P, ode_terms, obs_terms);
+  }
+  __syncthreads();
+  if (b == 0) {
+    ld = add_step_terms<NB, WITH_OBS>(ld, ode_terms, obs_terms, n_steps - 1, tx, mask);
+    if (live) ld_out[off] = ld;
+  }
 }
 
 template <class Model, int MODE, bool WITH_OBS>
@@ -87,9 +115,9 @@ cudaError_t dalton_launch(const QConst<3>& qc, int n_steps, int n_lane,
                           const float* tgrid, const float* d, const float* y,
                           const float* om, const float* mask,
                           const float* ld0, float* ld, cudaStream_t stream) {
-  const dim3 block(kDaltonThreads);
-  const dim3 grid((n_lane + kDaltonThreads - 1) / kDaltonThreads);
-  dalton_filter_kernel<Model, 3, MODE, WITH_OBS><<<grid, block, 0, stream>>>(
+  const SplitGeometry g = split_geometry<Model, kDaltonLanes>(n_lane, 1);
+  dalton_filter_kernel<Model, 3, MODE, WITH_OBS><<<g.grid, g.block, 0,
+                                                   stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, d, y, om, mask, ld0,
       ld);
   return cudaGetLastError();
@@ -111,6 +139,14 @@ cudaError_t dalton_launch_obs(bool with_obs, const QConst<3>& qc,
   return dalton_launch<Model, MODE, false>(qc, n_steps, n_lane, R, W, tv, x0,
                                            theta, tgrid, d, y, om, mask, ld0,
                                            ld, stream);
+}
+
+template <class Model, int MODE>
+cudaError_t dalton_geometry(bool with_obs, int n_lane, int* out) {
+  const SplitGeometry g = split_geometry<Model, kDaltonLanes>(n_lane, 1);
+  if (with_obs)
+    return report_geometry(dalton_filter_kernel<Model, 3, MODE, true>, g, out);
+  return report_geometry(dalton_filter_kernel<Model, 3, MODE, false>, g, out);
 }
 
 }  // namespace rodeo
@@ -163,5 +199,24 @@ extern "C" int rodeo_dalton_filter_batch(
           lp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_dalton_filter_batch makes for (model, mode, with_obs,
+// n_lane) on the current device, as nine ints in out (report_geometry in
+// block_step.cuh).  Returns a cudaError_t.
+extern "C" int rodeo_dalton_filter_batch_geometry(int model, int mode,
+                                                  int with_obs, int n_lane,
+                                                  void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  const bool obs = with_obs != 0;
+  switch (model * 2 + mode) {
+    case 0: return dalton_geometry<Lorenz63, kKramer>(obs, n_lane, o);
+    case 1: return dalton_geometry<Lorenz63, kRodeo>(obs, n_lane, o);
+    case 2: return dalton_geometry<FitzHughNagumo, kKramer>(obs, n_lane, o);
+    case 3: return dalton_geometry<FitzHughNagumo, kRodeo>(obs, n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }

@@ -6,22 +6,18 @@
 // _dalton_filter_kernel_tan.  Plain PyTorch twin: _dalton_filter_tan_plain
 // in ops/fused_dalton.py, which runs K8's twin on Duals (ops/dual.py).
 //
-// Design.  K8's step (dalton_step of filter_step.cuh) on the forward-mode
-// number Dual (dual.cuh), theta seeded along the thread's direction, the
-// initial state exact (zero tangent), the seed log-density's tangent read
-// from ld0, split over the blocks of a lane as K11a is (block_step.cuh):
-// one thread per (lane, direction, block) predicts, interrogates and
-// updates its block, and with WITH_OBS runs its block's masked observation
-// update.  Each thread leaves its block's log-density terms in shared
-// memory; the thread of block 0 adds them in block order, as dalton_step
-// does, one step late, after the next step's barrier (the terms are double
-// buffered), and holds ld.  At a step without data (mask 0) the masked
-// update is an exact identity (K = 0, and ld gains 0 x a finite term), so
-// the kernel skips it and its term, as K9 does; the twin skips it too.  The
-// values are K8's bitwise; the threads of direction 0 store them.  The
-// earlier design ran one thread per (lane, direction) with all NB blocks in
-// registers (64 CTAs of 96 threads at 2048 lanes) and ran the observation
-// update at every step.
+// Design.  K8's step on the forward-mode number Dual (dual.cuh), theta
+// seeded along the thread's direction, the initial state exact (zero
+// tangent), the seed log-density's tangent read from ld0, split over the
+// blocks of a lane as K8 is (block_step.cuh), with a grid row per
+// direction: one thread per (lane, direction, block) predicts, interrogates
+// and updates its block, and with WITH_OBS runs its block's masked
+// observation update at a step with data (dalton_update_block).  Each
+// thread leaves its block's log-density terms in shared memory; the thread
+// of block 0 adds them in block order, one step late, after the next
+// step's barrier (add_step_terms; the terms are double buffered), and
+// holds ld.  The values are K8's bitwise; the threads of direction 0 store
+// them.
 //
 // What bounds it on the card.  Nothing is streamed per lane; a step is K8's
 // chain of float operations on one block and its tangent, with the ODE at
@@ -40,33 +36,11 @@
 
 namespace rodeo {
 
-// ld plus step n's log-density terms of all blocks, in block order:
-// dalton_step's sums of the ODE terms, then, at a step with data, of the
-// observation terms.
-template <int NB, bool WITH_OBS>
-__device__ __forceinline__ Dual add_step_terms(
-    Dual ld, const Dual (&ode)[2][NB][kTanLanes],
-    const Dual (&obs)[2][NB][kTanLanes], int n, int tx,
-    const float* __restrict__ mask) {
-  const int p = n & 1;
-  Dual acc = ode[p][0][tx];
-#pragma unroll
-  for (int b = 1; b < NB; ++b) acc = acc + ode[p][b][tx];
-  ld = ld - 0.5f * acc;
-  if constexpr (WITH_OBS) {
-    const float mk = mask[n];
-    if (mk != 0.0f) {
-      Dual obs_acc = obs[p][0][tx];
-#pragma unroll
-      for (int b = 1; b < NB; ++b) obs_acc = obs_acc + obs[p][b][tx];
-      ld = ld + mk * (-0.5f * obs_acc);
-    }
-  }
-  return ld;
-}
+// Lanes per CTA: 32, faster than 16 on the card (PERF.md)
+constexpr int kDaltonTanLanes = 32;
 
 template <class Model, int Q, int MODE, bool WITH_OBS>
-__global__ void __launch_bounds__(kTanLanes * Model::NB)
+__global__ void __launch_bounds__(kDaltonTanLanes * Model::NB)
     dalton_filter_tan_kernel(QConst<Q> qc, int n_steps, int n_lane,
                              const float* __restrict__ R_in,
                              const float* __restrict__ W_in,
@@ -84,14 +58,13 @@ __global__ void __launch_bounds__(kTanLanes * Model::NB)
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
   constexpr int NAUG = 1 + NTH;
-  __shared__ SharedMeans<Dual, NB, Q> xs;
-  // each block's terms of a step, by its parity: the ODE's and the data's
-  __shared__ Dual ode_terms[2][NB][kTanLanes];
-  __shared__ Dual obs_terms[2][NB][kTanLanes];
+  __shared__ SharedMeans<Dual, NB, Q, kDaltonTanLanes> xs;
+  // each block's terms of a step: the ODE's and the data's
+  __shared__ StepTerms<Dual, NB, kDaltonTanLanes> ode_terms, obs_terms;
   const int tx = threadIdx.x;
   const int b = threadIdx.y;
   const int dir = blockIdx.y;
-  const int lane = blockIdx.x * kTanLanes + tx;
+  const int lane = blockIdx.x * kDaltonTanLanes + tx;
   // a lane beyond n_lane runs masked (it must reach every barrier): loads
   // of the last lane, no store
   const bool live = lane < n_lane;
@@ -119,22 +92,11 @@ __global__ void __launch_bounds__(kTanLanes * Model::NB)
     __syncthreads();
     if (b == 0 && n > 0)
       ld = add_step_terms<NB, WITH_OBS>(ld, ode_terms, obs_terms, n - 1, tx, mask);
-    Dual x[NB][Q], z, S, inv_S;
+    Dual x[NB][Q];
     gather_means<NB, Q>(xs, n, tx, x);
-    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
-                                             P, z, S, inv_S);
-    // the forecast log-density term of the ODE's pseudo-observation
-    ode_terms[n & 1][b][tx] = z * z * inv_S + log_of(S) + kLog2Pi;
-    if constexpr (WITH_OBS) {
-      const float mk = mask[n];
-      if (mk != 0.0f) {
-        float D[Q];
-#pragma unroll
-        for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
-        const size_t o = static_cast<size_t>(n) * NB + b;
-        obs_terms[n & 1][b][tx] = masked_obs_update<Q>(D, y[o], om[o], mk, m, P);
-      }
-    }
+    dalton_update_block<Model, Q, MODE, WITH_OBS>(c, th, n, tgrid[n], x, b,
+                                                  tx, mp, pp, d, y, om, mask,
+                                                  m, P, ode_terms, obs_terms);
   }
   __syncthreads();
   if (b == 0) {
@@ -151,7 +113,8 @@ cudaError_t dalton_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
                               const float* d, const float* y, const float* om,
                               const float* mask, const float* ld0, float* ld,
                               cudaStream_t stream) {
-  const TanGeometry g = tan_geometry<Model>(n_lane);
+  const SplitGeometry g =
+      split_geometry<Model, kDaltonTanLanes>(n_lane, Model::NTHETA);
   dalton_filter_tan_kernel<Model, 3, MODE, WITH_OBS><<<g.grid, g.block, 0,
                                                        stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, d, y, om, mask, ld0,
@@ -179,7 +142,8 @@ cudaError_t dalton_tan_launch_obs(bool with_obs, const QConst<3>& qc,
 
 template <class Model, int MODE>
 cudaError_t dalton_tan_geometry(bool with_obs, int n_lane, int* out) {
-  const TanGeometry g = tan_geometry<Model>(n_lane);
+  const SplitGeometry g =
+      split_geometry<Model, kDaltonTanLanes>(n_lane, Model::NTHETA);
   if (with_obs)
     return report_geometry(dalton_filter_tan_kernel<Model, 3, MODE, true>, g,
                            out);

@@ -5,42 +5,50 @@
 // _filter_kernel_batch (emit="gains", interrogations kramer and rodeo).
 // Plain PyTorch twin: _filter_batch_plain in ops/fused_kalman.py.
 //
-// Design.  One thread carries one lane (one independent solve) through all
-// N steps in a single launch, with all NB blocks of its state in registers:
-// the ODE right-hand side couples the blocks (Lorenz's f_y needs x and z),
-// while the EK1 Jacobian is block-diagonal, so the Kalman update itself runs
-// block by block.  Each step predicts through the constant scaled Pascal
-// transition (kernel arguments, the float32 values the wrapper computed),
-// adds the process noise, forms the smoothing gain of the transition n-1 ->
-// n from the carry and the fresh prediction, evaluates the ODE (and column 0
-// of its Jacobian) at the predicted mean, and does the scalar-innovation
-// Joseph update; predict, interrogate, update and the gains are the step
-// that K8 and the tangent kernel K11a share (filter_step.cuh).  Outputs are
-// laid out (N, d, NB, B) with lanes innermost, so the threads of a warp
-// store 32 neighbouring floats.  The arithmetic is float32 throughout, as on
-// the TPU.
+// Design.  One thread per (lane, block) carries its block of one lane (one
+// independent solve) through all N steps in a single launch, split over the
+// blocks as the tangent kernel K11a is (block_step.cuh).  The ODE
+// right-hand side couples the blocks (Lorenz's f_y needs x and z), while the
+// EK1 Jacobian is block-diagonal, so everything but the ODE evaluation runs
+// block by block.  Each step a thread predicts its block through the
+// constant scaled Pascal transition (kernel arguments, the float32 values
+// the wrapper computed) plus the process noise, publishes its predicted mean
+// to shared memory, forms and stores its block's smoothing gain of the
+// transition n-1 -> n from the carry and the fresh prediction, and, after
+// one barrier a step with the other blocks of its lane, evaluates the ODE
+// (and column 0 of its Jacobian) at their gathered predicted means and does
+// its block's scalar-innovation Joseph update.  The arithmetic is
+// filter_step.cuh's one-thread-per-lane step, operation for operation, so
+// the outputs are those of the twin bitwise.  Outputs are laid out (N, d,
+// NB, B) with lanes innermost: a CTA holds 16 lanes, so a warp is 16
+// consecutive lanes of each of two blocks, and each store is two coalesced
+// 64-byte segments.  The arithmetic is float32 throughout, as on the TPU.
 //
-// What bounds it on the card.  A step is ~1e3 dependent float operations
-// per lane against 18 * NB floats stored, so the kernel is bound by the
-// latency of each thread's serial chain, not by device memory; and B lanes
-// give only B threads (2048 at the benchmark's width), far fewer than the
-// card can keep in flight.  The design takes small CTAs (kFilterThreads) so
-// that the lanes spread over as many SMs as possible; splitting a lane's
-// blocks over threads to raise occupancy is left to a later change.
+// What bounds it on the card.  A step is a chain of dependent float
+// operations on one block, with the ODE at the gathered means, against 18
+// floats stored per (block, lane), so the kernel is bound by the latency of
+// that chain, not by device memory (its bound is the 18 x NB floats a step
+// written per lane).  At 2048 lanes Lorenz63 runs 128 CTAs of 16 x 3 = 48
+// threads, one on each of 128 of the card's 132 SMs.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
 
 namespace rodeo {
 
-constexpr int kFilterThreads = 32;
+// Lanes per CTA: 16, faster than 32 on the card (PERF.md)
+constexpr int kFilterLanes = 16;
 
+// At 2048 lanes the launch has 128 CTAs, fewer than the SMs, so an SM never
+// holds a second one: the launch bounds ask for one CTA per SM, and ptxas
+// spends registers on the chain instead of spilling to fit more CTAs.
 template <class Model, int Q, int MODE>
-__global__ void __launch_bounds__(kFilterThreads)
+__global__ void __launch_bounds__(kFilterLanes * Model::NB, 1)
     filter_batch_kernel(QConst<Q> qc, int n_steps, int n_lane,
                         const float* __restrict__ R_in,
                         const float* __restrict__ W_in,
@@ -54,37 +62,39 @@ __global__ void __launch_bounds__(kFilterThreads)
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<float, NB, Q, kFilterLanes> xs;
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int lane = blockIdx.x * kFilterLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no stores
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
   // stride between consecutive rows of one (step, d) slab: NB blocks x B
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
+  const size_t base = b * static_cast<size_t>(n_lane) + off;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   float th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k) th[k] = theta[k * static_cast<size_t>(n_lane) + off];
 
-  float m[NB][Q], P[NB][NT];
+  float m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = x0[j * col + base];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = x0[j * col + b * n_lane + off];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = 0.0f;
-  }
+  for (int k = 0; k < NT; ++k) P[k] = 0.0f;
 
   for (int n = 0; n < n_steps; ++n) {
-    float mp[NB][Q], pp[NB][NT];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-      // the gain of the transition n-1 -> n needs only the carry (filtered
-      // n-1) and the fresh prediction (n)
-      float G[Q][Q], g[Q], L[NT];
-      gain_cols<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b], G, g, L);
-      const size_t base = b * static_cast<size_t>(n_lane) + off;
+    float mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
+    // the gain of the transition n-1 -> n needs only the carry (filtered
+    // n-1) and the fresh prediction (n)
+    float G[Q][Q], g[Q], L[NT];
+    gain_cols<Q>(c.Qm, c.R, m, P, mp, pp, G, g, L);
+    if (live) {
 #pragma unroll
       for (int i = 0; i < Q; ++i)
 #pragma unroll
@@ -97,18 +107,18 @@ __global__ void __launch_bounds__(kFilterThreads)
       for (int k = 0; k < NT; ++k)
         L_out[(static_cast<size_t>(n) * NT + k) * col + base] = L[k];
     }
-    float z[NB], S[NB], inv_S[NB];
-    interrogate_update<Model, Q, MODE>(c, th, tgrid[n], mp, pp, m, P, z, S,
-                                       inv_S);
+    __syncthreads();
+    float x[NB][Q], z, S, inv_S;
+    gather_means<NB, Q>(xs, n, tx, x);
+    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
+                                             P, z, S, inv_S);
   }
 
+  if (live) {
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const size_t base = b * static_cast<size_t>(n_lane) + off;
+    for (int j = 0; j < Q; ++j) m_last[j * col + base] = m[j];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m_last[j * col + base] = m[b][j];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) p_last[k * col + base] = P[b][k];
+    for (int k = 0; k < NT; ++k) p_last[k * col + base] = P[k];
   }
 }
 
@@ -118,12 +128,17 @@ cudaError_t launch(const QConst<3>& qc, int n_steps, int n_lane,
                    const float* x0, const float* theta, const float* tgrid,
                    float* G, float* g, float* L, float* m_last, float* p_last,
                    cudaStream_t stream) {
-  const dim3 block(kFilterThreads);
-  const dim3 grid((n_lane + kFilterThreads - 1) / kFilterThreads);
-  filter_batch_kernel<Model, 3, MODE><<<grid, block, 0, stream>>>(
+  const SplitGeometry geo = split_geometry<Model, kFilterLanes>(n_lane, 1);
+  filter_batch_kernel<Model, 3, MODE><<<geo.grid, geo.block, 0, stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, G, g, L, m_last,
       p_last);
   return cudaGetLastError();
+}
+
+template <class Model, int MODE>
+cudaError_t filter_geometry(int n_lane, int* out) {
+  return report_geometry(filter_batch_kernel<Model, 3, MODE>,
+                         split_geometry<Model, kFilterLanes>(n_lane, 1), out);
 }
 
 }  // namespace rodeo
@@ -171,6 +186,23 @@ extern "C" int rodeo_filter_batch(int model, int mode, int n_steps,
                                             th, tg, Gp, gp, Lp, mp, pp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_filter_batch makes for (model, mode, n_lane) on the
+// current device, as nine ints in out (report_geometry in block_step.cuh).
+// Returns a cudaError_t.
+extern "C" int rodeo_filter_batch_geometry(int model, int mode, int n_lane,
+                                           void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  switch (model * 2 + mode) {
+    case 0: return filter_geometry<Lorenz63, kKramer>(n_lane, o);
+    case 1: return filter_geometry<Lorenz63, kRodeo>(n_lane, o);
+    case 2: return filter_geometry<FitzHughNagumo, kKramer>(n_lane, o);
+    case 3: return filter_geometry<FitzHughNagumo, kRodeo>(n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }
 

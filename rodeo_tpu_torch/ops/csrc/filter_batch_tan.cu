@@ -43,8 +43,11 @@
 
 namespace rodeo {
 
+// Lanes per CTA: 32, faster than 16 on the card (PERF.md)
+constexpr int kFilterTanLanes = 32;
+
 template <class Model, int Q, int MODE>
-__global__ void __launch_bounds__(kTanLanes * Model::NB)
+__global__ void __launch_bounds__(kFilterTanLanes * Model::NB)
     filter_batch_tan_kernel(QConst<Q> qc, int n_steps, int n_lane,
                             const float* __restrict__ R_in,
                             const float* __restrict__ W_in,
@@ -61,11 +64,11 @@ __global__ void __launch_bounds__(kTanLanes * Model::NB)
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
   constexpr int NAUG = 1 + NTH;
-  __shared__ SharedMeans<Dual, NB, Q> xs;
+  __shared__ SharedMeans<Dual, NB, Q, kFilterTanLanes> xs;
   const int tx = threadIdx.x;
   const int b = threadIdx.y;
   const int dir = blockIdx.y;
-  const int lane = blockIdx.x * kTanLanes + tx;
+  const int lane = blockIdx.x * kFilterTanLanes + tx;
   // a lane beyond n_lane runs masked (it must reach every barrier): loads
   // of the last lane, no stores
   const bool live = lane < n_lane;
@@ -125,7 +128,8 @@ cudaError_t filter_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
                               const float* tgrid, float* A, float* b,
                               float* C, float* m_last, float* p_last,
                               cudaStream_t stream) {
-  const TanGeometry g = tan_geometry<Model>(n_lane);
+  const SplitGeometry g =
+      split_geometry<Model, kFilterTanLanes>(n_lane, Model::NTHETA);
   filter_batch_tan_kernel<Model, 3, MODE><<<g.grid, g.block, 0, stream>>>(
       qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, A, b, C, m_last,
       p_last);
@@ -134,8 +138,9 @@ cudaError_t filter_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
 
 template <class Model, int MODE>
 cudaError_t filter_tan_geometry(int n_lane, int* out) {
-  return report_geometry(filter_batch_tan_kernel<Model, 3, MODE>,
-                         tan_geometry<Model>(n_lane), out);
+  return report_geometry(
+      filter_batch_tan_kernel<Model, 3, MODE>,
+      split_geometry<Model, kFilterTanLanes>(n_lane, Model::NTHETA), out);
 }
 
 }  // namespace rodeo

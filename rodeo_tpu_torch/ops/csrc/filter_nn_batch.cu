@@ -5,10 +5,11 @@
 // _filter_nn_kernel_batch (interrogations kramer and rodeo).
 // Plain PyTorch twin: _filter_nn_batch_plain in ops/fused_daltonng.py.
 //
-// Design.  K1's layout: one thread carries one lane (one parameter
-// candidate) through all N steps in a single launch, with all NB blocks of
-// its state in registers.  A step is K1's predict and ODE update
-// (filter_step.cuh, the step K1, K8 and their tangent twins share), then,
+// Design.  One thread carries one lane (one parameter candidate) through
+// all N steps in a single launch, with all NB blocks of its state in
+// registers (K1 ran so before it was split over the blocks of a lane).  A
+// step is K1's predict and ODE update (filter_step.cuh's
+// interrogate_update, whose loop body K1 runs per block), then,
 // at a step with data, one masked scalar pseudo-observation update per
 // observed component and block: the user's observation log-likelihood,
 // compiled in as a functor (obs_models.cuh), linearised at the predicted
@@ -24,7 +25,7 @@
 // per lane against 18 floats stored per block, as in K1: 1.77 GB at 4000
 // steps x 3 blocks x 2048 lanes, 0.53 ms at 3.35 TB/s, far below the
 // latency of each thread's serial chain.  B lanes give B threads, so the
-// design takes small CTAs to spread the lanes over the SMs, as K1 does.
+// design takes small CTAs to spread the lanes over the SMs.
 #include <cstring>
 
 #include <cuda_runtime.h>

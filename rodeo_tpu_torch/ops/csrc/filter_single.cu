@@ -7,14 +7,14 @@
 // _filter_single_plain in ops/fused_kalman.py.
 //
 // Design.  K1's step, not a copy: predict_block and interrogate_update of
-// filter_step.cuh, as K1 and K8 run them, on one solve.  The ODE's right-hand
-// side couples the blocks (Lorenz's f_y needs x and z), so one thread
-// carries all NB blocks of the state in registers through all N steps of a
-// single launch, and stores the four moments of each step in the JAX
-// package's (N, NB, d) layout instead of K1's gains.  The TPU kernel's chunk
-// grid (which streamed VMEM blocks to HBM) and its unroll option have no
-// counterpart here: the loop runs inside the thread, and the stores drain
-// while the next step computes.
+// filter_step.cuh (whose loop body K1 and K8 run per block), on one solve.
+// The ODE's right-hand side couples the blocks (Lorenz's f_y needs x and
+// z), so one thread carries all NB blocks of the state in registers through
+// all N steps of a single launch, and stores the four moments of each step
+// in the JAX package's (N, NB, d) layout instead of K1's gains.  The TPU
+// kernel's chunk grid (which streamed VMEM blocks to HBM) and its unroll
+// option have no counterpart here: the loop runs inside the thread, and
+// the stores drain while the next step computes.
 //
 // What bounds it on the card.  One thread: each step is ~1e3 dependent float
 // operations, so the kernel runs at the latency of that chain, far above its

@@ -1,23 +1,21 @@
 // One step of the lane-batched EK filter for a thread that carries one lane
 // with all NB blocks of its state in registers: predict, interrogate the ODE
 // at the predicted mean, and the scalar-innovation Joseph update; the
-// smoothing gains of a step (gain_cols), DALTON's step (dalton_step) and
-// non-Gaussian DALTON's Laplace-linearised step (filter_nn_step).
+// smoothing gains of a step (gain_cols) and non-Gaussian DALTON's
+// Laplace-linearised step (filter_nn_step).
 //
-// Shared by K1 (filter_batch.cu), which also forms the smoothing gains
-// between predict and update, and K8 (dalton_filter_batch.cu), which also
-// sums the forecast log-density and adds a masked observation update, so
-// that both kernels run the same arithmetic.  Their tangent twins K11a
-// (filter_batch_tan.cu) and K11c (dalton_filter_batch_tan.cu) run the same
-// step on the scalar type Dual (dual.cuh) split over the blocks of a lane
-// (block_step.cuh: predict_block, gain_cols and a per-block copy of
-// interrogate_update), so their values are K1's and K8's bitwise.  K9
-// (filter_nn_batch.cu) and its tangent twin K11d
-// (filter_nn_batch_tan.cu) run filter_nn_step, the same predict and
-// update followed by masked pseudo-observation updates.  The plain PyTorch versions of this step are _filter_batch_plain
-// (ops/fused_kalman.py) and _dalton_filter_plain (ops/fused_dalton.py),
-// which run on Duals for the tangent kernels; the order of every sum
-// follows them (see kalman_cols.cuh).
+// The one-thread-per-lane step (interrogate_update, FilterConsts,
+// load_consts) is run by K3 (filter_single.cu), K9 (filter_nn_batch.cu) and
+// its tangent twin K11d (filter_nn_batch_tan.cu), whose filter_nn_step adds
+// masked pseudo-observation updates to it.  K1 (filter_batch.cu) and K8
+// (dalton_filter_batch.cu), and their tangent twins K11a and K11c on the
+// scalar type Dual (dual.cuh), run the same step split over the blocks of a
+// lane (block_step.cuh): predict_block and gain_cols from here, and a
+// per-block copy of interrogate_update's loop body, so their values are
+// this step's bitwise.  The plain PyTorch versions of this step are
+// _filter_batch_plain (ops/fused_kalman.py) and _dalton_filter_plain
+// (ops/fused_dalton.py), which run on Duals for the tangent kernels; the
+// order of every sum follows them (see kalman_cols.cuh).
 #pragma once
 
 #include <type_traits>
@@ -214,45 +212,6 @@ __device__ __forceinline__ void gain_cols(
   sym_quadform<Q>(G, R, GR);
 #pragma unroll
   for (int k = 0; k < NT; ++k) L[k] = L[k] + GR[k];
-}
-
-// One step n of DALTON's filter (_dalton_filter_plain of
-// ops/fused_dalton.py): predict, interrogate and update, add the forecast
-// log-density of the ODE's pseudo-observation to ld, the blocks in block
-// order, and with WITH_OBS the masked observation update of the data.  The
-// observation grid (d, y, om, mask; N x .. x NB) is shared by all lanes.
-template <class Model, int Q, int MODE, bool WITH_OBS, class T>
-__device__ __forceinline__ void dalton_step(
-    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], int n,
-    float t, const float* __restrict__ d, const float* __restrict__ y,
-    const float* __restrict__ om, const float* __restrict__ mask,
-    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N], T& ld) {
-  constexpr int NB = Model::NB;
-  constexpr int NT = Tri<Q>::N;
-  T mp[NB][Q], pp[NB][NT];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-  T z[NB], S[NB], inv_S[NB];
-  interrogate_update<Model, Q, MODE>(c, th, t, mp, pp, m, P, z, S, inv_S);
-  // the forecast log-density of the ODE's pseudo-observation
-  T acc = z[0] * z[0] * inv_S[0] + log_of(S[0]) + kLog2Pi;
-#pragma unroll
-  for (int b = 1; b < NB; ++b) acc = acc + (z[b] * z[b] * inv_S[b] + log_of(S[b]) + kLog2Pi);
-  ld = ld - 0.5f * acc;
-  if constexpr (WITH_OBS) {
-    const float mk = mask[n];
-    T obs_acc{};
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float D[Q];
-#pragma unroll
-      for (int j = 0; j < Q; ++j) D[j] = d[(static_cast<size_t>(n) * Q + j) * NB + b];
-      const size_t o = static_cast<size_t>(n) * NB + b;
-      const T term = masked_obs_update<Q>(D, y[o], om[o], mk, m[b], P[b]);
-      obs_acc = (b == 0) ? term : obs_acc + term;
-    }
-    ld = ld + mk * (-0.5f * obs_acc);
-  }
 }
 
 // The masked Laplace pseudo-observation update of component j of one block

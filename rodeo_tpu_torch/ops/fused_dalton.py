@@ -6,17 +6,18 @@ batch path of :mod:`rodeo_tpu.ops.pallas_dalton`: ``_dalton_prepare``,
 DALTON's log-likelihood is the difference of two forward-filter
 log-densities, :math:`\log p(Z, Y) - \log p(Z)`.  Each is one launch of
 **K8** ``csrc/dalton_filter_batch.cu``, which replaces
-``_dalton_filter_kernel``: K1's filter step (``csrc/filter_step.cuh``),
-plus the forecast log-density of the ODE's pseudo-observation and, with
-``with_obs``, a masked scalar observation update after the ODE update
-(sequential processing of the independent ODE and data noises).  Only the
-``(B,)`` log-density leaves the kernel.
+``_dalton_filter_kernel``: K1's filter step, plus the forecast log-density
+of the ODE's pseudo-observation and, with ``with_obs``, a masked scalar
+observation update after the ODE update (sequential processing of the
+independent ODE and data noises), skipped at steps without data, where it
+is an exact identity.  One thread per (lane, block), the blocks of a lane
+meeting once a step in shared memory (``csrc/block_step.cuh``, as K1).
+Only the ``(B,)`` log-density leaves the kernel.
 
 The gradient runs two launches of **K11c**
 ``csrc/dalton_filter_batch_tan.cu`` (replacing ``_dalton_filter_kernel_tan``):
 K8 carrying the tangents of its state and log-density along each parameter
-(forward mode), one thread per (lane, direction, block), which skips the
-observation update at steps without data, where it is an exact identity.
+(forward mode), one thread per (lane, direction, block).
 
 The plain PyTorch twin of K8 is :func:`_dalton_filter_plain`, and run on
 :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers it is K11c's
@@ -55,9 +56,9 @@ def _dalton_filter_plain(model, n_steps, q_const, prior_var, ode_weight,
     (``model`` resolved); on Duals (``x0_lanes``, ``theta_lanes``, ``ld0``)
     it returns a Dual.
 
-    Like K11c it skips the observation update and its term at a step
-    without data, where they are an exact identity; K8 runs them there, as
-    does this twin with ``skip_unobserved=False`` (a test holds the two to
+    Like K8 and K11c it skips the observation update and its term at a
+    step without data, where they are an exact identity; with
+    ``skip_unobserved=False`` it runs them there (a test holds the two to
     each other bitwise)."""
     q, n_block, n_lane = x0_lanes.shape
     pairs, where = _tri_idx(q)
@@ -148,6 +149,19 @@ def dalton_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
     return _dalton_filter(True, model, n_steps, q_const, prior_var,
                           ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d,
                           y, om, mask, ld0, mode, with_obs)
+
+
+def _dalton_filter_batch_geometry(model, n_lane, mode="kramer",
+                                 with_obs=True, device=None):
+    """The launch of kernel K8 (:func:`dalton_filter_batch`) at ``n_lane``
+    lanes on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    it."""
+    model = resolve_model(model)
+    _check_mode(mode)
+    return _launch_geometry("dalton_filter_batch", device,
+                            _FUNCTORS[model.cuda_functor], _MODES[mode],
+                            int(with_obs), n_lane)
 
 
 def _dalton_filter_batch_tan_geometry(model, n_lane, mode="kramer",

@@ -13,7 +13,9 @@ of kernels, batched along a trailing lane axis:
 
 - **K1** ``csrc/filter_batch.cu`` replaces ``_filter_kernel_batch``: the
   whole forward EK1 / EK0 filter, the ODE right-hand side evaluated inside
-  the kernel, emitting the per-step smoothing gains ``(G, g, L)``;
+  the kernel, emitting the per-step smoothing gains ``(G, g, L)``; one
+  thread per (lane, block), the blocks of a lane meeting once a step in
+  shared memory (``csrc/block_step.cuh``);
 - **K2r** ``csrc/smoother_batch_rows.cu`` replaces
   ``_smoother_kernel_batch`` and ``_smoother_kernel_batch_rows``: the
   reverse affine recursion ``m_n = g_n + G_n m_{n+1}``,
@@ -511,6 +513,16 @@ def _launch_geometry(kernel, device, *args):
     return geo
 
 
+def _filter_batch_geometry(model, n_lane, mode="kramer", device=None):
+    """The launch of kernel K1 (:func:`fused_filter_batch`) at ``n_lane``
+    lanes on the card, as :func:`_launch_geometry` reports it."""
+    model = resolve_model(model)
+    _check_mode(mode)
+    return _launch_geometry("filter_batch", device,
+                            _FUNCTORS[model.cuda_functor], _MODES[mode],
+                            n_lane)
+
+
 def _filter_batch_tan_geometry(model, n_lane, mode="kramer", device=None):
     """The launch of kernel K11a (:func:`fused_filter_batch_tan`) at
     ``n_lane`` lanes on the card, as :func:`_launch_geometry` reports it."""
@@ -543,7 +555,8 @@ def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
                              mp_cols, pp_cols, theta_lanes, t, mode):
     """Interrogate the ODE at the predicted mean and do the scalar-innovation
     Joseph update of every block (``interrogate_update`` of
-    ``csrc/filter_step.cuh``, the step that kernels K1 and K8 share).
+    ``csrc/filter_step.cuh``, whose loop body kernels K1 and K8 run per
+    block).
 
     Returns the updated mean and packed covariance columns, and the
     innovation ``z``, its variance ``S`` (doubled under EK0) and ``1 / S``,

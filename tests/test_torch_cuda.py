@@ -11,8 +11,8 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
-geometry of K11a and K11c, which run one thread per (lane, direction,
-block).
+geometry of K1 and K8, which run one thread per (lane, block), and of K11a
+and K11c, which run one thread per (lane, direction, block).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -77,12 +77,17 @@ def _lanes(model, n_steps, t_max, n_lane, seed, device):
     return cfg, thetas.contiguous(), inits.contiguous()
 
 
+@pytest.mark.parametrize("n_lane", [96, 37, 100])
 @pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
-                                               t_max):
+                                               t_max, n_lane):
+    """K1 against its twin, bitwise (one thread per (lane, block) with a
+    barrier a step), also where the lanes end inside a CTA of 16 (37 and
+    100 lanes); and K2r on its gains."""
     n_steps = 300
-    cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
+                                cuda_device)
     ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
                               n_steps, cfg["prior_pars"])
     fused = fk.resolve_model(model)
@@ -91,6 +96,7 @@ def test_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     for name, a, b in zip(["G", "g", "L", "m_last", "p_last"], out_k, out_p):
         assert a.is_cuda and torch.isfinite(a).all(), name
         assert _scaled_err(a, b) <= TWIN_TOL, name
+        assert torch.equal(a, b), name
     G, g, L, mN, pN = out_k
     rows_args = (g[1:], G[1:], L[1:], mN, pN, ops["x0_lanes"],
                  ops["t_vec"], fk._tri_scale(ops["t_vec"]))
@@ -181,14 +187,18 @@ def _launched():
     return {k: v for k, v in _launches().items() if v}
 
 
+@pytest.mark.parametrize("n_lane", [96, 37, 100])
 @pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 0.6),
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
-                                                   t_max):
+                                                   t_max, n_lane):
     """K7b, K8 (with and without data) and K6 against their twins, on the
-    operands their entry points give them."""
+    operands their entry points give them; K8, one thread per (lane, block)
+    with a barrier a step, bitwise, also where the lanes end inside a CTA
+    of 32 (37 and 100 lanes)."""
     n_steps = 300
-    cfg, thetas, inits = _lanes(model, n_steps, t_max, 96, 4, cuda_device)
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
+                                cuda_device)
     obs = _obs(model, 11, t_max, cuda_device)
     ops, obs_k, ld0 = fd._dalton_prepare(
         thetas, cfg["ode_weight"], inits, 0.0, t_max, n_steps,
@@ -201,6 +211,7 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
                                      ld0=ld0, mode=mode, with_obs=with_obs)
         assert torch.isfinite(k8).all()
         assert _scaled_err(k8, p8) <= TWIN_TOL, with_obs
+        assert torch.equal(k8, p8), with_obs
     chain = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
                                 *obs.values(), mode)
     k7 = ff.fenrir_backward_batch(*chain)
@@ -340,18 +351,26 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
 @pytest.mark.parametrize("n_lane", [1, 37, 2048])
 @pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
 def test_split_tangent_kernels_launch_geometry(cuda_device, model, n_lane):
-    """K11a's and K11c's launches as the card reports them: a CTA of 32
-    lanes x the model's blocks, one grid row per direction and
-    ceil(n_lane / 32) lane groups, nothing in local memory, every CTA
-    resident at once, and at 2048 lanes at least one CTA per SM."""
+    """The split kernels' launches as the card reports them: a CTA of the
+    kernel's lanes (16 for K1, 32 for the others) x the model's blocks and
+    ceil(n_lane / lanes) lane groups, nothing in local memory, every CTA
+    resident at once; K11a and K11c with one grid row per direction, and
+    at 2048 lanes at least one CTA per SM; K1 and K8, with no direction
+    axis, one grid row."""
     n_block = MODELS[model].N_VARS
-    geos = [fk._filter_batch_tan_geometry(model, n_lane, device=cuda_device)]
-    geos += [fd._dalton_filter_batch_tan_geometry(
+    tan = [fk._filter_batch_tan_geometry(model, n_lane, device=cuda_device)]
+    tan += [fd._dalton_filter_batch_tan_geometry(
         model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
-    for geo in geos:
-        assert (geo["cta_x"], geo["cta_y"]) == (32, n_block), geo
-        assert (geo["grid_x"], geo["grid_y"]) == (-(-n_lane // 32), 3), geo
-        assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    k8 = [fd._dalton_filter_batch_geometry(
+        model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
+    k1 = [fk._filter_batch_geometry(model, n_lane, device=cuda_device)]
+    for geos, lanes, n_dir in ((tan, 32, 3), (k8, 32, 1), (k1, 16, 1)):
+        for geo in geos:
+            assert (geo["cta_x"], geo["cta_y"]) == (lanes, n_block), geo
+            assert (geo["grid_x"], geo["grid_y"]) == (-(-n_lane // lanes),
+                                                      n_dir), geo
+            assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    for geo in tan:
         assert geo["ctas_at_least_sms"] == (n_lane == 2048), geo
 
 

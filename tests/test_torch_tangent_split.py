@@ -1,19 +1,19 @@
 """
 DALTON's filter twins skip the observation update at steps without data,
-and the launch of the split tangent kernels K11a and K11c is the card's.
+and the launch of the split kernels K1, K8, K11a and K11c is the card's.
 
-Kernel K11c (``csrc/dalton_filter_batch_tan.cu``) skips the masked
-observation update, and its log-density term, where the step's mask is 0,
-and so do its plain twin ``_dalton_filter_tan_plain`` and K8's twin
-``_dalton_filter_plain`` by default; kernel K8 still runs the update there.
+Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
+(``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
+and its log-density term, where the step's mask is 0, and so do their plain
+twins ``_dalton_filter_plain`` and ``_dalton_filter_tan_plain`` by default.
 At such a step the update is an exact identity (the gain is 0 and the term
 enters as 0 x a finite number), so skipping it must change no bit: the
 tests hold each twin with the skip to the same twin running the full
 update, bitwise, on Lorenz63 EK1 and FitzHugh-Nagumo EK0 with data, the
 values, the log-density and every tangent direction.  Sizes: 300 steps x 3
 lanes, 11 observations (every 30th step), float32 on the CPU.  The launch
-geometry of K11a and K11c comes from the card alone (the card tests check
-it at 1, 37 and 2048 lanes); here its queries must raise.
+geometry of K1, K8, K11a and K11c comes from the card alone (the card tests
+check it at 1, 37 and 2048 lanes); here its queries must raise.
 """
 import numpy as np
 import pytest
@@ -123,11 +123,13 @@ def test_dalton_entry_points_take_the_skip():
 
 
 @pytest.mark.parametrize("query", [
+    lambda **kw: fk._filter_batch_geometry("lorenz", 37, **kw),
+    lambda **kw: fd._dalton_filter_batch_geometry("fitzhugh", 37, **kw),
     lambda **kw: fk._filter_batch_tan_geometry("lorenz", 37, **kw),
     lambda **kw: fd._dalton_filter_batch_tan_geometry("fitzhugh", 37, **kw)],
-    ids=["K11a", "K11c"])
+    ids=["K1", "K8", "K11a", "K11c"])
 def test_launch_geometry_is_the_cards(query):
-    """K11a's and K11c's launch geometry comes from the card's report of
+    """The split kernels' launch geometry comes from the card's report of
     the kernel: on the CPU the query raises, as it does for a mode the
     kernels do not take, and nothing answers in the card's place."""
     with pytest.raises(NotImplementedError):
