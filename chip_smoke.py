@@ -28,7 +28,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              kernels K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
              (dalton_filter_batch) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes: Lorenz63 EK1, and for K8 also
-             FitzHugh-Nagumo EK0, with and without data, K8 bitwise;
+             FitzHugh-Nagumo EK0, with and without data, K6 and K8
+             bitwise;
 8. k11_twin  the tangent kernels K11a (filter_batch_tan), K11b
              (fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and
              K11e (smoother_mean_batch_tan) against their twins on the same
@@ -70,9 +71,11 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              card reports it (split_record) with ptxas' registers and
              spills;
 11. sim      solve_sim_fused_batch at the main path's shapes (launches,
-             finite, time, K6 against its twin), and the draws' lane mean
-             and variance against solve_mv_fused_batch's posterior on
-             FitzHugh-Nagumo, 800 steps x 2048 lanes;
+             finite, time, K6 against its twin, bitwise, with its launch as
+             the card reports it, ptxas' registers and spills and its
+             achieved bytes/s), and the draws' lane mean and variance
+             against solve_mv_fused_batch's posterior on FitzHugh-Nagumo,
+             800 steps x 2048 lanes;
 12. k3_twin, k4_twin, k7a_twin
              the single-solve kernels K3 (filter_single), K4 (smoother_single)
              and K7a (fenrir_backward_single) against their twins on the same
@@ -129,8 +132,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (filter_nn_batch_tan) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes, 21 observations (every 50th
              step): Lorenz63 EK1 with Gaussian data and FitzHugh-Nagumo EK0
-             with Poisson counts; per output and tangent direction, and
-             K11d's values against K9's bitwise;
+             with Poisson counts; per output and tangent direction, K11d
+             bitwise and its values K9's;
 21. daltonng bench.py's non-Gaussian DALTON fixture at full width:
              Lorenz63 EK1, 4000 steps to t = 20, 21 observations of
              rng(1).normal x 5 with Gaussian variance 0.005, 2048 lanes.
@@ -147,7 +150,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (DALTONNG_FITZ_VALUE_TOL, DALTONNG_FITZ_TOL); then the time per
              call of each, their ratio and peak memory;
 22. daltonng_kernels  K9 and K11d alone at the path's shapes, timed and
-             checked against their twins there, and the other kernels of
+             checked against their twins there (K11d bitwise, its values
+             K9's, with its launch as the card reports it, ptxas' registers
+             and spills and its achieved bytes/s), and the other kernels of
              the two calls (K2r, K1, K11a, K11e) timed there, for the time
              each call spends outside its kernels;
 
@@ -272,12 +277,16 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
 # The kernels that run one thread per (lane, block), K1 and K8, or per
-# (lane, direction, block), K11a and K11c, bitwise against their twins, and
-# the mangled names of their kernels.
+# (lane, direction, block), K11a, K11c and K11d, bitwise against their
+# twins, and the mangled names of their kernels.
 SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "dalton_filter_batch": "20dalton_filter_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
-                 "dalton_filter_batch_tan": "24dalton_filter_tan_kernel"}
+                 "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
+                 "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
+# K6, a stream through a ring of shared-memory stages, bitwise against its
+# twin, and the mangled name of its kernel.
+STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel"}
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
@@ -539,6 +548,9 @@ def main():
             "bitwise": bitwise, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
+            "achieved_bytes_per_s": 1e3 * n_bytes / ms,
+            "share_of_peak_bytes_per_s": 1e3 * n_bytes / ms
+            / PEAK_BYTES_PER_S,
             "library_ms": None, **extra}
         label = f"{name} {config}".strip()
         entry["ok"] = check(phase, f"{label} vs twin", max_scaled <= TWIN_TOL)
@@ -600,18 +612,26 @@ def main():
         """ptxas' registers, stack and spill bytes for each instantiation
         of the kernel whose mangled name holds symbol, from the build's
         log (a Compiling line, then its stack and spill line, then its
-        registers)."""
+        registers).  A filter's instantiation is named by its model,
+        observation model, q, mode and with_obs; K6's by q and the floats
+        a copy moves."""
         rows, entry = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = None
                 if symbol in line:
-                    args = re.search(r"(Lorenz63|FitzHughNagumo)ELi(\d+)"
+                    args = re.search(r"(Lorenz63|FitzHughNagumo)E"
+                                     r"(?:NS_\d+(Gauss|Poisson)E)?Li(\d+)"
                                      r"ELi(\d+)E(?:Lb(\d)E)?", line)
-                    entry = {"model": args[1], "q": int(args[2]),
-                             "mode": int(args[3]),
-                             "with_obs": None if args[4] is None
-                             else bool(int(args[4]))}
+                    if args is None:
+                        args = re.search(r"ILi(\d+)ELi(\d+)EE", line)
+                        entry = {"q": int(args[1]),
+                                 "floats_per_copy": int(args[2])}
+                    else:
+                        entry = {"model": args[1], "obs": args[2],
+                                 "q": int(args[3]), "mode": int(args[4]),
+                                 "with_obs": None if args[5] is None
+                                 else bool(int(args[5]))}
                     rows.append(entry)
             elif entry is not None and "spill stores" in line:
                 stack, stores, loads = map(int, re.findall(r"(\d+) bytes",
@@ -624,18 +644,19 @@ def main():
         return rows
 
     def split_record(phase, kernel, label, geometry):
-        """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes
-        as the card reports it (CTA shape, CTAs, threads, registers, local
-        memory, CTAs an SM holds) and ptxas' report of each instantiation;
+        """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
+        or of K6 (STREAM_KERNELS) at its path's columns, as the card
+        reports it (CTA shape, CTAs, threads, registers, local memory, CTAs
+        an SM holds; K6's stages) and ptxas' report of each instantiation;
         checks, under phase, that its CTAs are all resident at once and
         that no instantiation spills.  A tangent kernel (a grid row per
-        direction) must also have at least one CTA per SM.  A value kernel
-        (K1, K8) has no direction axis: at 2048 lanes it runs 128 CTAs of
-        16 lanes (K1) or 64 of 32 (K8), fewer than the card's 132 SMs, so
-        it is not held to that."""
-        report = ptxas_report(SPLIT_KERNELS[kernel])
+        direction) and K6 must also have at least one CTA per SM.  A value
+        filter (K1, K8) has no direction axis: at 2048 lanes it runs 128
+        CTAs of 16 lanes (K1) or 64 of 32 (K8), fewer than the card's 132
+        SMs, so it is not held to that."""
+        report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS}[kernel])
         check(phase, f"{label} all resident", geometry["all_resident"])
-        if geometry["grid_y"] > 1:
+        if geometry["grid_y"] > 1 or kernel in STREAM_KERNELS:
             check(phase, f"{label} at least one CTA per SM",
                   geometry["ctas_at_least_sms"])
         check(phase, f"{label} spills nothing",
@@ -864,12 +885,16 @@ def main():
     eps_term = torch.randn((3, 3, b_tw), generator=gen, device=dev)
     k6_args = fs._draw_operands(fused, n_tw, ops_tw, "kramer", eps,
                                 eps_term)
-    errs = compare(["xs"], [fs.sampler_batch(*k6_args)],
-                   [fs._sampler_batch_plain(*k6_args)])
-    ok = check("k6_twin", "lorenz/kramer", worst(errs)[1] <= TWIN_TOL)
+    out_k = fs.sampler_batch(*k6_args)
+    out_p = fs._sampler_batch_plain(*k6_args)
+    errs = compare(["xs"], [out_k], [out_p])
+    bitwise = torch.equal(out_k, out_p)
+    ok = check("k6_twin", "lorenz/kramer",
+               worst(errs)[1] <= TWIN_TOL and bitwise)
     emit({"phase": "k6_twin", "model": "lorenz", "mode": "kramer",
           "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
-          "errors": errs, "ok": ok})
+          "bitwise": bitwise, "errors": errs, "ok": ok})
+    del out_k, out_p
     chain = fenrir_chain(n_tw, 2.0, ops_tw, obs_tw)
     errs = compare(["ld"], [ff.fenrir_backward_batch(*chain)],
                    [fenrir_plain(*chain)])
@@ -1379,13 +1404,17 @@ def main():
                                 eps_term)
     del eps, eps_term, ops_s
     k6_cpu = [cpu_lane(t) for t in k6_args]
-    at_path_shapes(
+    n_col_s = k6_args[2].shape[1] * b_sim
+    _, entry = at_path_shapes(
         "sim", "sampler_batch", "pallas_sim.py:51", sim_launches,
         lambda: fs.sampler_batch(*k6_args),
         lambda: fs._sampler_batch_plain(*k6_args), ["xs"],
         lambda n: fs._sampler_batch_plain(k6_cpu[0][:n], k6_cpu[1][:n],
                                           k6_cpu[2]),
-        (n_sim - 1) * b_sim, k6_args)
+        (n_sim - 1) * b_sim, k6_args,
+        **split_record("sim", "sampler_batch", "sampler_batch",
+                       fs._sampler_batch_geometry(n_col_s)))
+    check("sim", "sampler_batch bitwise", entry["bitwise"])
     del k6_args, k6_cpu
     # the draws against the posterior: FitzHugh-Nagumo, one theta
     n_d, b_d = 800, 2048
@@ -2077,13 +2106,14 @@ def main():
         errs = twin_errors(nn_names, tan_k, tan_p, nn_split)
         values_k9 = all(torch.equal(a[:, :k], v)
                         for a, v, (k, _) in zip(tan_k, out_k, nn_split))
+        bitwise = all(torch.equal(a, b) for a, b in zip(tan_k, tan_p))
         ok = check("k9_twin", f"filter_nn_batch_tan {config}",
-                   worst(errs)[1] <= TWIN_TOL and values_k9
+                   worst(errs)[1] <= TWIN_TOL and bitwise and values_k9
                    and all(torch.isfinite(a).all().item() for a in tan_k))
         emit({"phase": "k9_twin", "config": f"filter_nn_batch_tan {config}",
               "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
-              "bitwise": all(torch.equal(a, b) for a, b in zip(tan_k, tan_p)),
-              "values_bitwise_k9": values_k9, "errors": errs, "ok": ok})
+              "bitwise": bitwise, "values_bitwise_k9": values_k9,
+              "errors": errs, "ok": ok})
         del out_k, tan_k, tan_p, ops_nn, grid_nn
     torch.cuda.empty_cache()
 
@@ -2275,7 +2305,7 @@ def main():
     rows9 = (b9, G9, C9, out9[0][-1].clone(), out9[1][-1].clone(),
              ops_ng["x0_lanes"], torch.ones(3, device=dev),
              torch.ones(6, device=dev))
-    del out9, G9, b9, C9
+    del G9, b9, C9
     path_ms = {"smoother_batch_rows": device_ms(
         lambda: fk.smoother_recursion_batch_rows(*rows9), 3)}
     del rows9
@@ -2293,14 +2323,25 @@ def main():
         lambda: fk.smoother_mean_recursion_batch_tan(*e11, n_tan), 3)
     del e11, m11
     torch.cuda.empty_cache()
-    _, at_ng["filter_nn_batch_tan"] = at_path_shapes(
+    out11, at_ng["filter_nn_batch_tan"] = at_path_shapes(
         "daltonng_kernels", "filter_nn_batch_tan", "pallas_daltonng.py:269",
         ng_grad_launches, lambda: fdn.filter_nn_batch_tan(*nn_args, **nn_kw),
         lambda: fdn._filter_nn_batch_tan_plain(*nn_args, **nn_kw), nn_names,
         lambda n: fdn._filter_nn_batch_tan_plain(
             fused_ng, gauss_ng, (0,), n, **nn_steps(n), mode="kramer"),
         n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), split=nn_split,
-        repeats=3, shape=f"{n_ng} x {b_ng}")
+        repeats=3, shape=f"{n_ng} x {b_ng}",
+        **split_record("daltonng_kernels", "filter_nn_batch_tan",
+                       "filter_nn_batch_tan",
+                       fdn._filter_nn_batch_tan_geometry(
+                           "lorenz", gauss_ng, b_ng)))
+    entry = at_ng["filter_nn_batch_tan"]
+    entry["values_bitwise"] = all(
+        torch.equal(a[:, :k], v)
+        for a, v, (k, _) in zip(out11, out9, nn_split))
+    check("daltonng_kernels", "filter_nn_batch_tan bitwise, values K9's",
+          entry["bitwise"] and entry["values_bitwise"])
+    del out9, out11
     value_kernels_ms = (at_ng["filter_nn_batch"]["ms"]
                         + path_ms["smoother_batch_rows"]
                         + path_ms["filter_batch"])

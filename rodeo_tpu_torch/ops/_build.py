@@ -49,11 +49,14 @@ _SIGNATURES = {
     # as rodeo_dalton_filter_batch
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
     # the launches of K1, K8, K11a and K11c: model, mode, (with_obs,)
-    # n_lane, out
+    # n_lane, out; of K11d: model, obs_model, mode, n_lane, out; of K6:
+    # n_col, out
     "rodeo_filter_batch_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_sampler_batch_geometry": [_I, _P],
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:

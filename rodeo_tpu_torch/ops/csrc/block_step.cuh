@@ -2,8 +2,8 @@
 // block), or per (lane, direction, block) in a tangent kernel, the threads of
 // one (lane, direction) meeting once a step in shared memory.  Run by the
 // value kernels K1 (filter_batch.cu) and K8 (dalton_filter_batch.cu) on
-// float, and by their tangent twins K11a (filter_batch_tan.cu) and K11c
-// (dalton_filter_batch_tan.cu) on Dual.
+// float, and by the tangent kernels K11a (filter_batch_tan.cu), K11c
+// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
 // but one: the ODE is evaluated at the predicted mean of all blocks
@@ -15,8 +15,8 @@
 // (interrogate_update_block) is interrogate_update's loop body for that
 // block, operation for operation.  The values are therefore those of the
 // one-thread-per-lane step of filter_step.cuh bitwise.  That step stays,
-// because K3, K9 and K11d still run it; the copy in interrogate_update_block
-// goes when they move onto this split.
+// because K3 and K9 still run it; the copy in interrogate_update_block goes
+// when they move onto this split (K9 onto filter_nn_update_block).
 //
 // A thread's block number is a runtime value: its constants are loaded once
 // by that index from device memory (BlockConsts), and an entry of a
@@ -272,6 +272,37 @@ __device__ __forceinline__ void dalton_update_block(
       const size_t o = static_cast<size_t>(n) * NB + b;
       obs[n & 1][b][tx] = masked_obs_update<Q>(D, y[o], om[o], mk, m, P);
     }
+  }
+}
+
+// Non-Gaussian DALTON's update of block b at step n (filter_nn_step of
+// filter_step.cuh for one block), after the step's barrier:
+// interrogate_update_block on the gathered means x, then, at a step with
+// data (mask[n] != 0), the block's masked Laplace pseudo-observation update
+// (laplace_update) of each component j in obs_dims, in ascending j.  The
+// Laplace updates read only the block's own moments and data, so the
+// blocks stay independent there and the values are filter_nn_step's
+// bitwise.  A step without data skips them, as filter_nn_step does.
+template <class Model, class Obs, int Q, int MODE, class T>
+__device__ __forceinline__ void filter_nn_update_block(
+    const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], int n, float t,
+    const T (&x)[Model::NB][Q], int b, int obs_dims, const ObsPars& pars,
+    const float* __restrict__ y, const float* __restrict__ iobs,
+    const float* __restrict__ mask, const T (&mp)[Q],
+    const T (&pp)[Tri<Q>::N], T (&m)[Q], T (&P)[Tri<Q>::N]) {
+  constexpr int NB = Model::NB;
+  T z, S, inv_S;
+  interrogate_update_block<Model, Q, MODE>(c, th, t, x, b, mp, pp, m, P, z,
+                                           S, inv_S);
+  const float mk = mask[n];
+  if (mk == 0.0f) return;
+  const float io = iobs[n];
+  const float yb = y[static_cast<size_t>(n) * NB + b];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    if (!(obs_dims & (1 << j))) continue;
+    laplace_update<Obs, Q>(c.tv, j, mp[j] * c.tv[j], yb, io, mk, th, pars, m,
+                           P);
   }
 }
 

@@ -10,26 +10,37 @@
 // Plain PyTorch twin: _filter_nn_batch_tan_plain in ops/fused_daltonng.py,
 // which runs K9's twin on Duals (ops/dual.py).
 //
-// Design.  One thread carries one (lane, direction): K9's step
-// (filter_step.cuh's filter_nn_step) instantiated on the forward-mode
-// number Dual (dual.cuh), with theta seeded along the thread's direction
-// and the initial state exact (zero tangent), as K11a does for K1.  The
+// Design.  K9's step on the forward-mode number Dual (dual.cuh), with theta
+// seeded along the thread's direction and the initial state exact (zero
+// tangent), split over the blocks of a lane (block_step.cuh) as K11a splits
+// K1's: one thread per (lane, direction, block), which predicts its block,
+// publishes its predicted mean to shared memory, and after one barrier a
+// step with the other blocks of its (lane, direction) evaluates the ODE at
+// the gathered means, updates its block and, at a step with data, runs its
+// block's Laplace pseudo-observation updates (filter_nn_update_block).  The
 // Laplace derivatives come from the observation functor evaluated on a
 // Jet2 of Duals (jet.cuh), so the tangent of the Hessian -- the third
 // derivative of the observation log-likelihood -- needs no code of its
-// own.  The value part of each Dual is K9's float arithmetic, so the
-// values equal K9's bitwise; the thread of direction 0 stores them.  A CTA
-// holds kNnTanLanes lanes x NTHETA directions.
+// own.  The value part of each Dual is K9's float arithmetic, so the values
+// equal K9's bitwise; the threads of direction 0 store them.  One thread
+// per (lane, direction) with all NB blocks in its registers (K9's
+// filter_nn_step) would put 64 CTAs of 96 threads on 64 of the 132 SMs at
+// 2048 lanes, with a chain of ~3e3 dependent operations a step in 254
+// registers; the split gives NB times the threads, each with a chain about
+// 1/NB as long.
 //
-// What bounds it on the card.  A step stores 72 floats per (block, lane)
-// at NAUG = 4: 7.08 GB at 4000 steps x 3 blocks x 2048 lanes, 2.11 ms at
-// 3.35 TB/s.  Each thread's step is a serial chain of some 3e3 dependent
-// float operations (K9's and its tangent), so the kernel is latency-bound
-// as K9 is, with three times as many threads in flight.
+// What bounds it on the card.  A step stores 72 floats per (block, lane) at
+// NAUG = 4 (mf 12, pf 24, mp 12, pp 24): 7.08 GB at 4000 steps x 3 blocks x
+// 2048 lanes, 2.11 ms at 3.35 TB/s.  The kernel is still bound by the
+// latency of each thread's chain (K9's step on one block and its tangent,
+// and the ODE at the gathered means): at 2048 lanes Lorenz63 runs grid (64,
+// 3) = 192 CTAs of 32 x 3 = 96 threads, every CTA resident at once and
+// every SM with one or two.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "dual.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
@@ -38,10 +49,11 @@
 
 namespace rodeo {
 
+// Lanes per CTA: 32, faster than 16 for every split tangent kernel (PERF.md)
 constexpr int kNnTanLanes = 32;
 
 template <class Model, class Obs, int Q, int MODE>
-__global__ void __launch_bounds__(kNnTanLanes * Model::NTHETA)
+__global__ void __launch_bounds__(kNnTanLanes * Model::NB)
     filter_nn_batch_tan_kernel(QConst<Q> qc, ObsPars pars, int obs_dims,
                                int n_steps, int n_lane,
                                const float* __restrict__ R_in,
@@ -61,44 +73,51 @@ __global__ void __launch_bounds__(kNnTanLanes * Model::NTHETA)
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
   constexpr int NAUG = 1 + NTH;
-  const int lane = blockIdx.x * kNnTanLanes + threadIdx.x;
-  const int dir = threadIdx.y;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<Dual, NB, Q, kNnTanLanes> xs;
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int dir = blockIdx.y;
+  const int lane = blockIdx.x * kNnTanLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no stores
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
+  const size_t base = b * static_cast<size_t>(n_lane) + off;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   Dual th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k)
     th[k] = Dual(theta[k * static_cast<size_t>(n_lane) + off], k == dir ? 1.0f : 0.0f);
 
-  Dual m[NB][Q], P[NB][NT];
+  Dual m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = Dual(x0[j * col + base]);
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = Dual(x0[j * col + b * n_lane + off]);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = Dual(0.0f);
-  }
+  for (int k = 0; k < NT; ++k) P[k] = Dual(0.0f);
 
   for (int n = 0; n < n_steps; ++n) {
-    Dual mp[NB][Q], pp[NB][NT];
-    filter_nn_step<Model, Obs, Q, MODE>(c, th, n, tgrid[n], obs_dims, pars, y,
-                                        iobs, mask, m, P, mp, pp);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const size_t base = b * static_cast<size_t>(n_lane) + off;
+    Dual mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
+    __syncthreads();
+    Dual x[NB][Q];
+    gather_means<NB, Q>(xs, n, tx, x);
+    filter_nn_update_block<Model, Obs, Q, MODE>(c, th, n, tgrid[n], x, b,
+                                                obs_dims, pars, y, iobs, mask,
+                                                mp, pp, m, P);
+    if (live) {
 #pragma unroll
       for (int i = 0; i < Q; ++i) {
-        store_aug(mf_out, n, Q, NAUG, i, col, base, dir, m[b][i]);
-        store_aug(mp_out, n, Q, NAUG, i, col, base, dir, mp[b][i]);
+        store_aug(mf_out, n, Q, NAUG, i, col, base, dir, m[i]);
+        store_aug(mp_out, n, Q, NAUG, i, col, base, dir, mp[i]);
       }
 #pragma unroll
       for (int k = 0; k < NT; ++k) {
-        store_aug(pf_out, n, NT, NAUG, k, col, base, dir, P[b][k]);
-        store_aug(pp_out, n, NT, NAUG, k, col, base, dir, pp[b][k]);
+        store_aug(pf_out, n, NT, NAUG, k, col, base, dir, P[k]);
+        store_aug(pp_out, n, NT, NAUG, k, col, base, dir, pp[k]);
       }
     }
   }
@@ -113,12 +132,26 @@ cudaError_t nn_tan_launch(const QConst<3>& qc, const ObsPars& pars,
                           const float* iobs, const float* mask, float* mf,
                           float* pf, float* mp, float* pp,
                           cudaStream_t stream) {
-  const dim3 block(kNnTanLanes, Model::NTHETA);
-  const dim3 grid((n_lane + kNnTanLanes - 1) / kNnTanLanes);
-  filter_nn_batch_tan_kernel<Model, Obs, 3, MODE><<<grid, block, 0, stream>>>(
+  const SplitGeometry g =
+      split_geometry<Model, kNnTanLanes>(n_lane, Model::NTHETA);
+  filter_nn_batch_tan_kernel<Model, Obs, 3, MODE><<<g.grid, g.block, 0,
+                                                    stream>>>(
       qc, pars, obs_dims, n_steps, n_lane, R, W, tv, x0, theta, tgrid, y,
       iobs, mask, mf, pf, mp, pp);
   return cudaGetLastError();
+}
+
+template <class Model, class Obs>
+cudaError_t nn_tan_geometry(int mode, int n_lane, int* out) {
+  const SplitGeometry g =
+      split_geometry<Model, kNnTanLanes>(n_lane, Model::NTHETA);
+  if (mode == kKramer)
+    return report_geometry(filter_nn_batch_tan_kernel<Model, Obs, 3, kKramer>,
+                           g, out);
+  if (mode == kRodeo)
+    return report_geometry(filter_nn_batch_tan_kernel<Model, Obs, 3, kRodeo>,
+                           g, out);
+  return cudaErrorInvalidValue;
 }
 
 template <class Model, class Obs>
@@ -200,5 +233,23 @@ extern "C" int rodeo_filter_nn_batch_tan(int model, int obs_model, int mode,
           io, mk, mfp, pfp, mpp, ppp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_filter_nn_batch_tan makes for (model, obs_model, mode,
+// n_lane) on the current device, as nine ints in out (report_geometry in
+// block_step.cuh).  Returns a cudaError_t.
+extern "C" int rodeo_filter_nn_batch_tan_geometry(int model, int obs_model,
+                                                  int mode, int n_lane,
+                                                  void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  switch (model * 2 + obs_model) {
+    case 0: return nn_tan_geometry<Lorenz63, Gauss>(mode, n_lane, o);
+    case 1: return nn_tan_geometry<Lorenz63, Poisson>(mode, n_lane, o);
+    case 2: return nn_tan_geometry<FitzHughNagumo, Gauss>(mode, n_lane, o);
+    case 3: return nn_tan_geometry<FitzHughNagumo, Poisson>(mode, n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }

@@ -5,16 +5,18 @@
 // Laplace-linearised step (filter_nn_step).
 //
 // The one-thread-per-lane step (interrogate_update, FilterConsts,
-// load_consts) is run by K3 (filter_single.cu), K9 (filter_nn_batch.cu) and
-// its tangent twin K11d (filter_nn_batch_tan.cu), whose filter_nn_step adds
-// masked pseudo-observation updates to it.  K1 (filter_batch.cu) and K8
-// (dalton_filter_batch.cu), and their tangent twins K11a and K11c on the
+// load_consts) is run by K3 (filter_single.cu) and K9 (filter_nn_batch.cu),
+// whose filter_nn_step adds masked pseudo-observation updates to it.  K1
+// (filter_batch.cu) and K8 (dalton_filter_batch.cu) on float, and the
+// tangent kernels K11a (filter_batch_tan.cu), K11c
+// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on the
 // scalar type Dual (dual.cuh), run the same step split over the blocks of a
-// lane (block_step.cuh): predict_block and gain_cols from here, and a
-// per-block copy of interrogate_update's loop body, so their values are
-// this step's bitwise.  The plain PyTorch versions of this step are
-// _filter_batch_plain (ops/fused_kalman.py) and _dalton_filter_plain
-// (ops/fused_dalton.py), which run on Duals for the tangent kernels; the
+// lane (block_step.cuh): predict_block, gain_cols and laplace_update from
+// here, and a per-block copy of interrogate_update's loop body, so their
+// values are this step's bitwise.  The plain PyTorch versions of this step
+// are _filter_batch_plain (ops/fused_kalman.py), _dalton_filter_plain
+// (ops/fused_dalton.py) and _filter_nn_batch_plain
+// (ops/fused_daltonng.py), which run on Duals for the tangent kernels; the
 // order of every sum follows them (see kalman_cols.cuh).
 #pragma once
 

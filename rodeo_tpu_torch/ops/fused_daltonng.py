@@ -27,9 +27,10 @@ cancel):
   observation model at the smoothed means of the observed steps.
 
 The gradient, forward mode, runs **K11d** ``csrc/filter_nn_batch_tan.cu``
-(replacing ``_filter_nn_kernel_batch_tan``: K9 on Dual numbers) for the
-Laplace filter and **K11a** with ``emit="gains"`` for the marginal one, the
-mean recursion **K11e** over the augmented ``(G, b)``, and
+(replacing ``_filter_nn_kernel_batch_tan``: K9's step on Dual numbers,
+split over the blocks of a lane, one thread per lane, direction and block)
+for the Laplace filter and **K11a** with ``emit="gains"`` for the marginal
+one, the mean recursion **K11e** over the augmented ``(G, b)``, and
 ``torch.func.jvp`` of the torch stages along each parameter, the masked
 log-densities with their analytic tangents (:class:`_LogdetPacked`,
 :class:`_LogpdfPacked`).  Its values are the value call's, bitwise.
@@ -55,10 +56,10 @@ from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
     _FUNCTORS, _LOG2PI, _MODES, _check, _check_mode, _fused_inputs,
     _gain_cols_batched, _host_qconst, _interrogate_update_cols,
-    _kernel_operands, _launch, _pack_tri, _predict_cols, _sym_quadform,
-    _tri_idx, fused_filter_batch, fused_filter_batch_tan, resolve_model,
-    smoother_mean_recursion_batch_tan, smoother_recursion_batch_rows,
-    unpack_cov)
+    _kernel_operands, _launch, _launch_geometry, _pack_tri, _predict_cols,
+    _sym_quadform, _tri_idx, fused_filter_batch, fused_filter_batch_tan,
+    resolve_model, smoother_mean_recursion_batch_tan,
+    smoother_recursion_batch_rows, unpack_cov)
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision, sym_eigh_small
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 
@@ -245,6 +246,21 @@ def filter_nn_batch_tan(model, obs_model, obs_dims, n_steps, q_const,
     return _filter_nn(True, model, obs_model, obs_dims, n_steps, q_const,
                       prior_var, ode_weight, t_vec, x0_lanes, theta_lanes,
                       tgrid, y, iobs, mask, mode)
+
+
+def _filter_nn_batch_tan_geometry(model, obs_model, n_lane, mode="kramer",
+                                  device=None):
+    """The launch of kernel K11d (:func:`filter_nn_batch_tan`) at ``n_lane``
+    lanes on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    it."""
+    model = resolve_model(model)
+    obs = resolve_obs_model(obs_model)
+    _check_mode(mode)
+    return _launch_geometry("filter_nn_batch_tan", device,
+                            _FUNCTORS[model.cuda_functor],
+                            _OBS_FUNCTORS[obs.cuda_functor], _MODES[mode],
+                            n_lane)
 
 
 def _filter_nn(tangent, model, obs_model, obs_dims, n_steps, q_const,

@@ -489,23 +489,25 @@ _GEOMETRY = ("cta_x", "cta_y", "grid_x", "grid_y", "registers",
              "local_bytes", "shared_bytes", "ctas_per_sm", "sms")
 
 
-def _launch_geometry(kernel, device, *args):
+def _launch_geometry(kernel, device, *args, extra=()):
     """The launch of ``rodeo_<kernel>`` for these leading arguments, as its
     C query ``rodeo_<kernel>_geometry`` reports it on ``device``: the CTA
     shape and grid, registers and local memory bytes per thread, static
     shared memory bytes per CTA, the CTAs an SM can hold, and the card's
-    SMs; with the CTAs, threads per CTA, and whether the CTAs are at least
-    the SMs and all resident at once."""
+    SMs, then the kernel's own fields named in ``extra``; with the CTAs,
+    threads per CTA, and whether the CTAs are at least the SMs and all
+    resident at once."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise NotImplementedError(f"{kernel} runs on the CUDA card only")
-    out = (ctypes.c_int * len(_GEOMETRY))()
+    names = _GEOMETRY + tuple(extra)
+    out = (ctypes.c_int * len(names))()
     with torch.cuda.device(device):
         err = getattr(_build.load(), f"rodeo_{kernel}_geometry")(*args, out)
     if err != 0:
         raise RuntimeError(f"{kernel} geometry query failed: "
                            f"{_build.error_string(err)} (code {err})")
-    geo = dict(zip(_GEOMETRY, out))
+    geo = dict(zip(names, out))
     geo["ctas"] = geo["grid_x"] * geo["grid_y"]
     geo["threads_per_cta"] = geo["cta_x"] * geo["cta_y"]
     geo["ctas_at_least_sms"] = geo["ctas"] >= geo["sms"]

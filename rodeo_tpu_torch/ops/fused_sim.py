@@ -13,7 +13,8 @@ part left is the affine recursion :math:`x_n = c_n + G_n x_{n+1}`:
 - the terminal draw from the last filtered state and the noise are formed
   here in torch;
 - **K6** ``csrc/sampler_batch.cu`` replaces ``_sampler_kernel_batch``: the
-  reverse recursion over steps N-1..1.
+  reverse recursion over steps N-1..1, a stream whose loads go through a
+  ring of shared-memory stages filled asynchronously.
 
 The plain PyTorch twin of K6 is :func:`_sampler_batch_plain`; the wrapper
 :func:`sampler_batch` takes it only for CPU tensors.  ``LAUNCHES`` counts
@@ -23,7 +24,7 @@ import torch
 
 from rodeo_tpu_torch.ops.fused_kalman import (
     _check, _chol_cols, _chol_matvec, _fused_inputs, _kernel_operands,
-    _launch, _tri_idx, fused_filter_batch)
+    _launch, _launch_geometry, _tri_idx, fused_filter_batch)
 
 __all__ = ["solve_sim_fused_batch", "sampler_batch", "LAUNCHES"]
 
@@ -78,6 +79,16 @@ def sampler_batch(c, G, xN):
     _launch(LAUNCHES, "sampler_batch", q, device, n_len, n_block * n_lane,
             c, G, xN, xs)
     return xs
+
+
+def _sampler_batch_geometry(n_col, device=None):
+    """The launch of kernel K6 (:func:`sampler_batch`) over ``n_col = n_block
+    x B`` columns on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it,
+    with the stages of its shared-memory ring and the steps a stage
+    holds."""
+    return _launch_geometry("sampler_batch", device, n_col,
+                            extra=("stages", "steps_per_stage"))
 
 
 # --- the sampler ---------------------------------------------------------------------

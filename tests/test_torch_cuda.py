@@ -11,8 +11,9 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
-geometry of K1 and K8, which run one thread per (lane, block), and of K11a
-and K11c, which run one thread per (lane, direction, block).
+geometry of K1 and K8, which run one thread per (lane, block), of K11a,
+K11c and K11d, which run one thread per (lane, direction, block), and of
+K6, a stream through a ring of shared-memory stages.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -39,6 +40,10 @@ from rodeo_tpu_torch.ops import fused_sim as fs
 pytestmark = pytest.mark.cuda
 
 MODELS = {"lorenz": lorenz, "fitzhugh": fitzhugh}
+# non-Gaussian DALTON's fixtures: interrogation, horizon and observation
+# model
+_NN_MODELS = {"lorenz": ("kramer", 2.0, obs_models.gauss(0.005)),
+              "fitzhugh": ("rodeo", 10.0, obs_models.poisson(0.1, 0.05))}
 # Built without multiply-add contraction, a kernel does its twin's float32
 # operations in the same order, a tangent kernel's Dual rules included; the
 # tolerance allows for a library function (PyTorch's CUDA log against logf)
@@ -195,7 +200,11 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     """K7b, K8 (with and without data) and K6 against their twins, on the
     operands their entry points give them; K8, one thread per (lane, block)
     with a barrier a step, bitwise, also where the lanes end inside a CTA
-    of 32 (37 and 100 lanes)."""
+    of 32 (37 and 100 lanes).  K6 bitwise, also where its columns end
+    inside a CTA and its rows are not 16-byte aligned (37 and 100 lanes:
+    111 and 300 columns), and over step counts that are no multiple of its
+    stage (one step, two stages and one step, the ring and one step); its
+    launch as the card reports it."""
     n_steps = 300
     cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
                                 cuda_device)
@@ -222,9 +231,19 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     c = b[1:] + 0.1 * torch.randn(b[1:].shape, device=cuda_device,
                                   generator=torch.Generator(cuda_device)
                                   .manual_seed(9))
-    k6 = fs.sampler_batch(c, A[1:], m_seed)
-    p6 = fs._sampler_batch_plain(c, A[1:], m_seed)
-    assert _scaled_err(k6, p6) <= TWIN_TOL
+    n_col = m_seed.shape[1] * n_lane
+    geo = fs._sampler_batch_geometry(n_col, device=cuda_device)
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (32, 1, 1), geo
+    assert geo["grid_x"] == -(-n_col // 32), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    assert geo["stages"] >= 4, geo
+    step = geo["steps_per_stage"]
+    for n_len in (c.shape[0], 1, 2 * step + 1, geo["stages"] * step + 1):
+        k6 = fs.sampler_batch(c[:n_len], A[1:n_len + 1], m_seed)
+        p6 = fs._sampler_batch_plain(c[:n_len], A[1:n_len + 1], m_seed)
+        assert torch.isfinite(k6).all(), n_len
+        assert _scaled_err(k6, p6) <= TWIN_TOL, n_len
+        assert torch.equal(k6, p6), n_len
 
 
 def test_inference_entry_points_launch_their_kernels(cuda_device):
@@ -354,13 +373,16 @@ def test_split_tangent_kernels_launch_geometry(cuda_device, model, n_lane):
     """The split kernels' launches as the card reports them: a CTA of the
     kernel's lanes (16 for K1, 32 for the others) x the model's blocks and
     ceil(n_lane / lanes) lane groups, nothing in local memory, every CTA
-    resident at once; K11a and K11c with one grid row per direction, and
-    at 2048 lanes at least one CTA per SM; K1 and K8, with no direction
+    resident at once; K11a, K11c and K11d with one grid row per direction,
+    and at 2048 lanes at least one CTA per SM; K1 and K8, with no direction
     axis, one grid row."""
     n_block = MODELS[model].N_VARS
     tan = [fk._filter_batch_tan_geometry(model, n_lane, device=cuda_device)]
     tan += [fd._dalton_filter_batch_tan_geometry(
         model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
+    tan += [fdn._filter_nn_batch_tan_geometry(
+        model, obs, n_lane, mode=mode, device=cuda_device)
+        for _, _, obs in _NN_MODELS.values() for mode in ("kramer", "rodeo")]
     k8 = [fd._dalton_filter_batch_geometry(
         model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
     k1 = [fk._filter_batch_geometry(model, n_lane, device=cuda_device)]
@@ -632,19 +654,20 @@ def test_magi_entry_points_launch_their_kernels(cuda_device):
         assert _scaled_err(a, b) <= TWIN_TOL
 
 
-_NN_MODELS = {"lorenz": ("kramer", 2.0, obs_models.gauss(0.005)),
-              "fitzhugh": ("rodeo", 10.0, obs_models.poisson(0.1, 0.05))}
-
-
+@pytest.mark.parametrize("n_lane", [64, 37, 100])
 @pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
-def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model):
+def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model,
+                                                        n_lane):
     """K9 and K11d (Lorenz63 EK1 with Gaussian data, FitzHugh-Nagumo EK0
     with Poisson counts, data every 10th step) against their twins on the
-    same CUDA inputs, per output and tangent direction; K11d's values are
+    same CUDA inputs, per output and tangent direction; K11d, one thread
+    per (lane, direction, block) with a barrier a step, bitwise, also where
+    the lanes end inside a CTA of 32 (37 and 100 lanes), and its values
     K9's bitwise."""
     mode, t_max, obs = _NN_MODELS[model]
     n_steps = 300
-    cfg, thetas, inits = _lanes(model, n_steps, t_max, 64, 6, cuda_device)
+    cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 6,
+                                cuda_device)
     ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
                               n_steps, cfg["prior_pars"])
     n_block = cfg["ode_weight"].shape[0]
@@ -670,6 +693,7 @@ def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model):
     for a, b, v, k in zip(tan, tan_twin, value, (3, 6, 3, 6)):
         assert torch.equal(a[:, :k], v)
         assert max(_split_err(a, b, k)) <= TWIN_TOL
+        assert torch.equal(a, b)
 
 
 def test_daltonng_entry_points_launch_their_kernels(cuda_device):

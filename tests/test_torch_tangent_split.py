@@ -1,6 +1,7 @@
 """
 DALTON's filter twins skip the observation update at steps without data,
-and the launch of the split kernels K1, K8, K11a and K11c is the card's.
+and the launch of the split kernels K1, K8, K11a, K11c and K11d, and of
+the sampler's stream K6, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
@@ -12,16 +13,19 @@ tests hold each twin with the skip to the same twin running the full
 update, bitwise, on Lorenz63 EK1 and FitzHugh-Nagumo EK0 with data, the
 values, the log-density and every tangent direction.  Sizes: 300 steps x 3
 lanes, 11 observations (every 30th step), float32 on the CPU.  The launch
-geometry of K1, K8, K11a and K11c comes from the card alone (the card tests
-check it at 1, 37 and 2048 lanes); here its queries must raise.
+geometry of K1, K8, K11a, K11c, K11d and K6 comes from the card alone (the
+card tests check it); here its queries must raise.
 """
 import numpy as np
 import pytest
 import torch
 
 from rodeo_tpu_torch.models import fitzhugh, lorenz
+from rodeo_tpu_torch.models import obs as obs_models
 from rodeo_tpu_torch.ops import fused_dalton as fd
+from rodeo_tpu_torch.ops import fused_daltonng as fdn
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import fused_sim as fs
 
 N_STEPS, N_LANE, N_OBS = 300, 3, 11
 # (model module, interrogation, t_max)
@@ -122,17 +126,23 @@ def test_dalton_entry_points_take_the_skip():
     assert grad.shape == (N_LANE, 3) and torch.isfinite(grad).all()
 
 
-@pytest.mark.parametrize("query", [
-    lambda **kw: fk._filter_batch_geometry("lorenz", 37, **kw),
-    lambda **kw: fd._dalton_filter_batch_geometry("fitzhugh", 37, **kw),
-    lambda **kw: fk._filter_batch_tan_geometry("lorenz", 37, **kw),
-    lambda **kw: fd._dalton_filter_batch_tan_geometry("fitzhugh", 37, **kw)],
-    ids=["K1", "K8", "K11a", "K11c"])
-def test_launch_geometry_is_the_cards(query):
-    """The split kernels' launch geometry comes from the card's report of
-    the kernel: on the CPU the query raises, as it does for a mode the
-    kernels do not take, and nothing answers in the card's place."""
+@pytest.mark.parametrize("query,takes_mode", [
+    (lambda **kw: fk._filter_batch_geometry("lorenz", 37, **kw), True),
+    (lambda **kw: fd._dalton_filter_batch_geometry("fitzhugh", 37, **kw),
+     True),
+    (lambda **kw: fk._filter_batch_tan_geometry("lorenz", 37, **kw), True),
+    (lambda **kw: fd._dalton_filter_batch_tan_geometry("fitzhugh", 37, **kw),
+     True),
+    (lambda **kw: fdn._filter_nn_batch_tan_geometry(
+        "fitzhugh", obs_models.poisson(0.1, 0.05), 37, **kw), True),
+    (lambda **kw: fs._sampler_batch_geometry(111, **kw), False)],
+    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6"])
+def test_launch_geometry_is_the_cards(query, takes_mode):
+    """The kernels' launch geometry comes from the card's report of the
+    kernel: on the CPU the query raises, as it does for a mode the filters
+    do not take, and nothing answers in the card's place."""
     with pytest.raises(NotImplementedError):
         query(device="cpu")
-    with pytest.raises(NotImplementedError):
-        query(mode="schober", device="cpu")
+    if takes_mode:
+        with pytest.raises(NotImplementedError):
+            query(mode="schober", device="cpu")
