@@ -13,15 +13,16 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
 3. k1_twin   kernel K1 (filter_batch) against its plain PyTorch twin on the
              same CUDA inputs: Lorenz63 EK1 and FitzHugh-Nagumo EK0, 1000
              steps x 256 lanes, bitwise;
-4. k2r_twin  kernel K2r (smoother_batch_rows) against its twin, on seeded
-             inputs and on the gains of phase 3;
+4. k2r_twin  kernel K2r (smoother_batch_rows) against its twin, bitwise,
+             on seeded inputs and on the gains of phase 3;
 5. main      the main path: Lorenz63 EK1, 10 000 steps x 2048 lanes through
              solve_mv_fused_batch (K1, then K2r writing the rows).  It must
              launch each kernel once, stay finite, and pass the t <= 4 audit
              of lane 0 against the cached float64 truth; then its per-solve
              time and peak memory, and each kernel timed and checked against
-             its twin at these shapes, K1 bitwise, with its launch as the
-             card reports it and ptxas' registers and spills;
+             its twin at these shapes, both bitwise, with its launch as the
+             card reports it and ptxas' registers and spills (K2r's
+             achieved bytes/s beside them);
 6. fitzhugh  the kernel path (800 steps x 128 lanes) and the torch-op
              solve_mv in float64, against the cached FitzHugh-Nagumo truth;
 7. k6_twin, k7_twin, k8_twin
@@ -80,8 +81,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              the single-solve kernels K3 (filter_single), K4 (smoother_single)
              and K7a (fenrir_backward_single) against their twins on the same
              CUDA inputs at 1000 steps: K3 on Lorenz63 EK1 and FitzHugh-Nagumo
-             EK0, K4 on seeded gains and on K3's, K7a on K3's chain with
-             observations;
+             EK0, bitwise, K4 on seeded gains and on K3's, K7a on K3's chain
+             with observations;
 13. single   the single-solve path: solve_mv_fused on Lorenz63 EK1, 10 000
              steps, with the default plain smoother (it must launch K3 and K4
              once, stay finite and pass the t <= 4 audit), its time and peak
@@ -89,8 +90,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (k_compose=16, the JAX package's default); fenrir_fused on the
              likelihood fixture (K3 and K7a once, the audit against the
              float64 truth); each kernel timed and checked against its twin
-             at its path's shapes, K4 also on the composed smoother's
-             boundary groups;
+             at its path's shapes, K3 bitwise with its time per step, the
+             SASS instructions of its step loop (cuobjdump) and its launch
+             as the card reports it with ptxas' registers and spills, K4
+             also on the composed smoother's boundary groups;
 14. k5_twin  the stationary solve's mean-chain kernels K5a
              (mean_gain_single), K5b (mean_boundary_single) and K5c
              (mean_recovery_single) against their twins on the same CUDA
@@ -276,17 +279,19 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/with_obs",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
-# The kernels that run one thread per (lane, block), K1 and K8, or per
-# (lane, direction, block), K11a, K11c and K11d, bitwise against their
-# twins, and the mangled names of their kernels.
+# The kernels that run one thread per (lane, block), K1 and K8, per block
+# of one solve, K3, or per (lane, direction, block), K11a, K11c and K11d,
+# bitwise against their twins, and the mangled names of their kernels.
 SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
+                 "filter_single": "20filter_single_kernel",
                  "dalton_filter_batch": "20dalton_filter_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
                  "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
-# K6, a stream through a ring of shared-memory stages, bitwise against its
-# twin, and the mangled name of its kernel.
-STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel"}
+# K6 and K2r, streams through a ring of shared-memory stages, bitwise
+# against their twins, and the mangled names of their kernels.
+STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
+                  "smoother_batch_rows": "26smoother_batch_rows_kernel"}
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
@@ -645,15 +650,16 @@ def main():
 
     def split_record(phase, kernel, label, geometry):
         """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
-        or of K6 (STREAM_KERNELS) at its path's columns, as the card
+        or of a stream (STREAM_KERNELS) at its path's columns, as the card
         reports it (CTA shape, CTAs, threads, registers, local memory, CTAs
-        an SM holds; K6's stages) and ptxas' report of each instantiation;
-        checks, under phase, that its CTAs are all resident at once and
-        that no instantiation spills.  A tangent kernel (a grid row per
-        direction) and K6 must also have at least one CTA per SM.  A value
-        filter (K1, K8) has no direction axis: at 2048 lanes it runs 128
-        CTAs of 16 lanes (K1) or 64 of 32 (K8), fewer than the card's 132
-        SMs, so it is not held to that."""
+        an SM holds; a stream's stages) and ptxas' report of each
+        instantiation; checks, under phase, that its CTAs are all resident
+        at once and that no instantiation spills.  A tangent kernel (a grid
+        row per direction) and a stream (K6, K2r) must also have at least
+        one CTA per SM.  A value filter (K1, K8) has no direction axis: at
+        2048 lanes it runs 128 CTAs of 16 lanes (K1) or 64 of 32 (K8),
+        fewer than the card's 132 SMs, so it is not held to that; nor is
+        K3, one CTA for its one solve."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS}[kernel])
         check(phase, f"{label} all resident", geometry["all_resident"])
         if geometry["grid_y"] > 1 or kernel in STREAM_KERNELS:
@@ -734,10 +740,10 @@ def main():
         out_p = fk._smoother_batch_rows_plain(*args)
         torch.cuda.synchronize()
         errs = compare(["mean", "cov"], out_k, out_p)
-        ok = check("k2r_twin", source, worst(errs)[1] <= TWIN_TOL)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+        ok = check("k2r_twin", source, worst(errs)[1] <= TWIN_TOL and bitwise)
         emit({"phase": "k2r_twin", "inputs": source, "tol_scaled": TWIN_TOL,
-              "bitwise": all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
-              "errors": errs, "ok": ok})
+              "bitwise": bitwise, "errors": errs, "ok": ok})
     del gains, G1, g1, L1, m1, p1, seeded, k1_x0, k1_tv
 
     # ---- 5. the main path --------------------------------------------------
@@ -808,14 +814,17 @@ def main():
     del G, g, L, mN, pN
     rows_cpu = ([cpu_lane(a) for a in rows_args[:6]]
                 + [a.cpu() for a in rows_args[6:]])
-    at_path_shapes(
+    _, entry = at_path_shapes(
         "main", "smoother_batch_rows", "pallas_kalman.py:1609", launches,
         lambda: fk.smoother_recursion_batch_rows(*rows_args),
         lambda: fk._smoother_batch_rows_plain(*rows_args), ["mean", "cov"],
         lambda n: fk._smoother_batch_rows_plain(
             *[a[:n] for a in rows_cpu[:3]], *rows_cpu[3:]),
         (n_steps - 1) * n_lane, rows_args, repeats=3,
-        also_replaces="rodeo_tpu/ops/pallas_kalman.py:1516")
+        also_replaces="rodeo_tpu/ops/pallas_kalman.py:1516",
+        **split_record("main", "smoother_batch_rows", "smoother_batch_rows",
+                       fk._smoother_batch_rows_geometry(3, n_lane)))
+    check("main", "smoother_batch_rows bitwise", entry["bitwise"])
     del rows_args, rows_cpu
     emit({"phase": "main_kernels", "n_steps": n_steps, "n_lane": n_lane,
           "filter_batch": kernels["filter_batch"],
@@ -1466,16 +1475,17 @@ def main():
                                    cfg_s1["ode_weight"], cfg_s1["ode_init"],
                                    0.0, t_max_s, n, cfg_s1["prior_pars"])
 
-    def twin_report(phase, config, names, kernel_out, twin_out, **info):
+    def twin_report(phase, config, names, kernel_out, twin_out,
+                    need_bitwise=False, **info):
         kernel_out, twin_out = as_tuple(kernel_out), as_tuple(twin_out)
         errs = compare(names, kernel_out, twin_out)
+        bitwise = all(torch.equal(a, b) for a, b in zip(kernel_out, twin_out))
         ok = check(phase, config, worst(errs)[1] <= TWIN_TOL
+                   and (bitwise or not need_bitwise)
                    and all(torch.isfinite(a).all().item()
                            for a in kernel_out))
         emit({"phase": phase, "config": config, "n_steps": n_tw,
-              "tol_scaled": TWIN_TOL, **info,
-              "bitwise": all(torch.equal(a, b)
-                             for a, b in zip(kernel_out, twin_out)),
+              "tol_scaled": TWIN_TOL, **info, "bitwise": bitwise,
               "errors": errs, "ok": ok})
 
     def one_theta(seed):
@@ -1490,7 +1500,7 @@ def main():
         out_k = fk.fused_filter(fused_m, n_tw, **ops_m, mode=mode)
         twin_report("k3_twin", f"{model}/{mode}", k3_names, out_k,
                     fk._filter_single_plain(fused_m, n_tw, **ops_m,
-                                            mode=mode))
+                                            mode=mode), need_bitwise=True)
         if k3_states is None:
             k3_states = (ops_m, Qs_m, out_k)
     ops_k3, Qs_k3, (mf, pf, mp, pp) = k3_states
@@ -1627,7 +1637,15 @@ def main():
     # each kernel at its path's shapes (these launches come after the
     # counts above were read): K3 at 10 000 and at 4000 steps, K4 over the
     # plain smoother's 9999 rows and the composed one's boundary groups,
-    # K7a at 4000 steps
+    # K7a at 4000 steps.  K3's record adds its launch, its time per step
+    # and the SASS instructions of its step loop (the largest loop of each
+    # instantiation, cuobjdump), which say whether the issue of the step's
+    # instructions or their latency holds it.
+    sass_3 = _build.sass_loops(SPLIT_KERNELS["filter_single"])
+    k3_record = {
+        **split_record("single", "filter_single", "filter_single lorenz",
+                       fk._filter_single_geometry("lorenz", "kramer")),
+        "sass_loop": "not measured" if sass_3 is None else sass_3}
     at_single = {}
     for n_1, t_1, on_path, launches_1 in (
             (n_steps, t_max, True, single_launches),
@@ -1646,7 +1664,11 @@ def main():
                 fused, n, **{**cpu_1, "tgrid": cpu_1["tgrid"][:n]},
                 mode="kramer"),
             n_1, tensors(ops_1), register=on_path, config=f"{n_1} steps",
-            shape=f"{n_1} steps")
+            shape=f"{n_1} steps", **k3_record)
+        entry_3 = at_single[f"filter_single/{n_1}"]
+        entry_3["us_per_step"] = 1e3 * entry_3["ms"] / n_1
+        check("single", f"filter_single {n_1} steps bitwise",
+              entry_3["bitwise"])
         mf, pf, mp, pp = out_3
         if on_path:
             states_1 = (mf[:-1], pf[:-1], mp[1:], pp[1:])

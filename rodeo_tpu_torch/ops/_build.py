@@ -13,11 +13,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load", "build_log", "error_string", "BUILD_DIR"]
+__all__ = ["load", "build_log", "error_string", "sass_loops", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rodeo_tpu_torch"
@@ -50,13 +51,15 @@ _SIGNATURES = {
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
     # the launches of K1, K8, K11a and K11c: model, mode, (with_obs,)
     # n_lane, out; of K11d: model, obs_model, mode, n_lane, out; of K6:
-    # n_col, out
+    # n_col, out; of K3: model, mode, out; of K2r: n_block, n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_sampler_batch_geometry": [_I, _P],
+    "rodeo_filter_single_geometry": [_I, _I, _P],
+    "rodeo_smoother_batch_rows_geometry": [_I, _I, _P],
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:
@@ -169,3 +172,57 @@ def build_log():
 def error_string(code):
     """CUDA's description of an error code returned by a C entry point."""
     return load().rodeo_error_string(code).decode()
+
+
+def sass_loops(symbol, lib_path=None):
+    """For each kernel of the library (this source tree's by default) whose
+    mangled name holds ``symbol``: its name, its SASS instructions, and the
+    instructions of its largest loop, the span of its longest backward
+    branch, as ``cuobjdump -sass`` shows them.  None where the toolkit has
+    no ``cuobjdump``."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    lib_path = _library_path() if lib_path is None else Path(lib_path)
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, name = [], None
+    for line in text.splitlines() + ["Function : "]:
+        head = re.search(r"Function : (\S*)", line)
+        if head:
+            if name is not None and symbol in name:
+                kernels.append(_largest_loop(name, body))
+            name, body = head[1], []
+        elif name is not None:
+            body.append(line)
+    return kernels
+
+
+def _largest_loop(name, lines):
+    """A kernel's SASS instruction count and the span, in instructions, of
+    its longest backward branch (to a label or to an address)."""
+    labels, pending, branches, addr = {}, [], [], None
+    for line in lines:
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label[1])
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if not ins:
+            continue
+        addr = int(ins[1], 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        if re.search(r"\bBRA\b", ins[2]):
+            target = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", ins[2])
+            if target:
+                branches.append((addr, target[1] or int(target[2], 16)))
+    loop = 0
+    for at, target in branches:
+        target = labels.get(target) if isinstance(target, str) else target
+        if target is not None and target <= at:
+            loop = max(loop, (at - target) // 16 + 1)
+    return {"kernel": name,
+            "instructions": 0 if addr is None else addr // 16 + 1,
+            "loop_instructions": loop}

@@ -1,22 +1,24 @@
-// The filter step split over the blocks of a lane: one thread per (lane,
+// The filter step split over the blocks of a solve: one thread per (lane,
 // block), or per (lane, direction, block) in a tangent kernel, the threads of
-// one (lane, direction) meeting once a step in shared memory.  Run by the
-// value kernels K1 (filter_batch.cu) and K8 (dalton_filter_batch.cu) on
-// float, and by the tangent kernels K11a (filter_batch_tan.cu), K11c
-// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on Dual.
+// one (lane, direction) meeting once a step.  Run by the value kernels K1
+// (filter_batch.cu), K3 (filter_single.cu, one lane) and K8
+// (dalton_filter_batch.cu) on float, and by the tangent kernels K11a
+// (filter_batch_tan.cu), K11c (dalton_filter_batch_tan.cu) and K11d
+// (filter_nn_batch_tan.cu) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
 // but one: the ODE is evaluated at the predicted mean of all blocks
 // (Model::f and jac0 read every block).  So each thread predicts its own
 // block (predict_block), publishes its predicted mean in original
-// coordinates to shared memory, and after a barrier evaluates f and jac0 on
-// the gathered means -- the same arithmetic in every thread of the lane, so
-// the same bits -- keeping its own block's entries; the rest of the update
-// (interrogate_update_block) is interrogate_update's loop body for that
-// block, operation for operation.  The values are therefore those of the
-// one-thread-per-lane step of filter_step.cuh bitwise.  That step stays,
-// because K3 and K9 still run it; the copy in interrogate_update_block goes
-// when they move onto this split (K9 onto filter_nn_update_block).
+// coordinates to the other threads of its lane, and after a barrier
+// evaluates f and jac0 on the gathered means -- the same arithmetic in every
+// thread of the lane, so the same bits -- keeping its own block's entries;
+// the rest of the update (interrogate_update_block) is interrogate_update's
+// loop body for that block, operation for operation.  The values are
+// therefore those of the one-thread-per-lane step of filter_step.cuh
+// bitwise.  That step stays because K9 alone still runs it (its
+// filter_nn_step); the copy in interrogate_update_block goes when K9 moves
+// onto filter_nn_update_block.
 //
 // A thread's block number is a runtime value: its constants are loaded once
 // by that index from device memory (BlockConsts), and an entry of a
@@ -49,19 +51,20 @@ SplitGeometry split_geometry(int n_lane, int n_dir) {
   return {dim3((n_lane + LANES - 1) / LANES, n_dir), dim3(LANES, Model::NB)};
 }
 
-// What the card makes of a split kernel's launch, for the record: out =
-// CTA x and y, grid x and y, registers per thread, local memory bytes per
-// thread, static shared memory bytes per CTA, CTAs resident per SM at most,
-// SMs of the current device.
+// What the card makes of a kernel's launch, for the record: out = CTA x and
+// y, grid x and y, registers per thread, local memory bytes per thread,
+// shared memory bytes per CTA (static, plus dyn_smem bytes of dynamic shared
+// memory that the launch asks for), CTAs resident per SM at most, SMs of the
+// current device.
 template <class Kernel>
-cudaError_t report_geometry(Kernel* kernel, const SplitGeometry& g,
-                            int* out) {
+cudaError_t report_geometry(Kernel* kernel, const SplitGeometry& g, int* out,
+                            size_t dyn_smem = 0) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, g.block.x * g.block.y, 0);
+      &per_sm, kernel, g.block.x * g.block.y, dyn_smem);
   if (err != cudaSuccess) return err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -70,7 +73,8 @@ cudaError_t report_geometry(Kernel* kernel, const SplitGeometry& g,
   const int vals[] = {static_cast<int>(g.block.x), static_cast<int>(g.block.y),
                       static_cast<int>(g.grid.x), static_cast<int>(g.grid.y),
                       attr.numRegs, static_cast<int>(attr.localSizeBytes),
-                      static_cast<int>(attr.sharedSizeBytes), per_sm, sms};
+                      static_cast<int>(attr.sharedSizeBytes + dyn_smem),
+                      per_sm, sms};
   for (int k = 0; k < 9; ++k) out[k] = vals[k];
   return cudaSuccess;
 }
@@ -206,6 +210,73 @@ __device__ __forceinline__ void interrogate_update_block(
   z_out = z;
   S_out = S;
   inv_S_out = inv_S;
+}
+
+// The exchange of a step's predicted means between the threads of a lane,
+// for split_filter_steps: publish(n, b, mp, tv) puts block b's mean, then
+// gather(n, x) waits for the lane's other threads and reads all blocks'.
+// Through shared memory (SharedMeans) behind the CTA's barrier, for lanes
+// whose threads span warps (K1).
+template <int NB, int Q, int LANES>
+struct SharedExchange {
+  SharedMeans<float, NB, Q, LANES>& xs;
+  int tx;
+  __device__ __forceinline__ void publish(int n, int b, const float (&mp)[Q],
+                                          const float (&tv)[Q]) {
+    publish_mean<NB, Q>(xs, n, b, tx, mp, tv);
+  }
+  __device__ __forceinline__ void gather(int n, float (&x)[NB][Q]) {
+    __syncthreads();
+    gather_means<NB, Q>(xs, n, tx, x);
+  }
+};
+
+// The same exchange by warp shuffles, for a lane whose NB threads are lanes
+// 0 .. NB-1 of one warp (K3): no shared memory and no barrier of its own.
+// On K3, shared memory behind __syncwarp took 16 % longer (PERF.md).
+template <int NB, int Q>
+struct ShuffleExchange {
+  float xv[Q];
+  __device__ __forceinline__ void publish(int, int, const float (&mp)[Q],
+                                          const float (&tv)[Q]) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) xv[j] = mp[j] * tv[j];
+  }
+  __device__ __forceinline__ void gather(int, float (&x)[NB][Q]) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < Q; ++j)
+        x[b][j] = __shfl_sync((1u << NB) - 1, xv[j], b);
+  }
+};
+
+// The split filter's steps for block b of one lane, from the carry (m, P)
+// through n_steps steps: predict the block, publish its predicted mean,
+// predicted(n, m, P, mp, pp) with the carry (step n-1 filtered) and the
+// fresh prediction, gather all blocks' means (the step's one barrier), the
+// block's update into (m, P), then filtered(n, m, P).  K1 stores the step's
+// smoothing gains from predicted, K3 the predicted and filtered moments.
+template <class Model, int Q, int MODE, class Exchange, class Predicted,
+          class Filtered>
+__device__ __forceinline__ void split_filter_steps(
+    const BlockConsts<Q>& c, const float (&th)[Model::NTHETA],
+    const float* __restrict__ tgrid, int n_steps, int b, Exchange& ex,
+    float (&m)[Q], float (&P)[Tri<Q>::N], Predicted&& predicted,
+    Filtered&& filtered) {
+  constexpr int NB = Model::NB;
+  constexpr int NT = Tri<Q>::N;
+  for (int n = 0; n < n_steps; ++n) {
+    float mp[Q], pp[NT];
+    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
+    ex.publish(n, b, mp, c.tv);
+    predicted(n, m, P, mp, pp);
+    float x[NB][Q], z, S, inv_S;
+    ex.gather(n, x);
+    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
+                                             P, z, S, inv_S);
+    filtered(n, m, P);
+  }
 }
 
 // Each block's log-density terms of one step, by the parity of the step:

@@ -2,9 +2,10 @@
 // (block, lane) column: a row (A_n, b_n, C_n) of the chain -- the smoothing
 // gains (G_n, g_n, L_n) -- maps the state at step n+1 onto step n,
 //   m = b_n + A_n m,   P = C_n + A_n P A_n'.
-// Shared by the smoothers K2r (smoother_batch_rows.cu) and K4
-// (smoother_single.cu), and by fenrir's backward filters K7b,
-// K7a and K11b through fenrir_step.cuh, so that all of them do the same
+// The step is shared by the smoothers K2r (smoother_batch_rows.cu, which
+// streams the chain through stream_ring.cuh) and K4 (smoother_single.cu,
+// which runs smoother_recursion below), and by fenrir's backward filters
+// K7b, K7a and K11b through fenrir_step.cuh, so that all of them do the same
 // arithmetic as their plain twins (_smoother_batch_plain of
 // ops/fused_kalman.py, _fenrir_backward_plain of ops/fused_fenrir.py).
 //

@@ -7,7 +7,8 @@
 //
 // Design.  One thread per (lane, block) carries its block of one lane (one
 // independent solve) through all N steps in a single launch, split over the
-// blocks as the tangent kernel K11a is (block_step.cuh).  The ODE
+// blocks as the tangent kernel K11a is, on block_step.cuh's step loop
+// (split_filter_steps, which K3 runs on one lane).  The ODE
 // right-hand side couples the blocks (Lorenz's f_y needs x and z), while the
 // EK1 Jacobian is block-diagonal, so everything but the ODE evaluation runs
 // block by block.  Each step a thread predicts its block through the
@@ -86,33 +87,30 @@ __global__ void __launch_bounds__(kFilterLanes * Model::NB, 1)
 #pragma unroll
   for (int k = 0; k < NT; ++k) P[k] = 0.0f;
 
-  for (int n = 0; n < n_steps; ++n) {
-    float mp[Q], pp[NT];
-    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
-    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
-    // the gain of the transition n-1 -> n needs only the carry (filtered
-    // n-1) and the fresh prediction (n)
-    float G[Q][Q], g[Q], L[NT];
-    gain_cols<Q>(c.Qm, c.R, m, P, mp, pp, G, g, L);
-    if (live) {
+  SharedExchange<NB, Q, kFilterLanes> ex{xs, tx};
+  split_filter_steps<Model, Q, MODE>(
+      c, th, tgrid, n_steps, b, ex, m, P,
+      // the gain of the transition n-1 -> n needs only the carry (filtered
+      // n-1) and the fresh prediction (n)
+      [&](int n, const float (&mc)[Q], const float (&Pc)[NT],
+          const float (&mp)[Q], const float (&pp)[NT]) {
+        float G[Q][Q], g[Q], L[NT];
+        gain_cols<Q>(c.Qm, c.R, mc, Pc, mp, pp, G, g, L);
+        if (live) {
 #pragma unroll
-      for (int i = 0; i < Q; ++i)
+          for (int i = 0; i < Q; ++i)
 #pragma unroll
-        for (int j = 0; j < Q; ++j)
-          G_out[(static_cast<size_t>(n) * Q * Q + i * Q + j) * col + base] = G[i][j];
+            for (int j = 0; j < Q; ++j)
+              G_out[(static_cast<size_t>(n) * Q * Q + i * Q + j) * col + base] = G[i][j];
 #pragma unroll
-      for (int i = 0; i < Q; ++i)
-        g_out[(static_cast<size_t>(n) * Q + i) * col + base] = g[i];
+          for (int i = 0; i < Q; ++i)
+            g_out[(static_cast<size_t>(n) * Q + i) * col + base] = g[i];
 #pragma unroll
-      for (int k = 0; k < NT; ++k)
-        L_out[(static_cast<size_t>(n) * NT + k) * col + base] = L[k];
-    }
-    __syncthreads();
-    float x[NB][Q], z, S, inv_S;
-    gather_means<NB, Q>(xs, n, tx, x);
-    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
-                                             P, z, S, inv_S);
-  }
+          for (int k = 0; k < NT; ++k)
+            L_out[(static_cast<size_t>(n) * NT + k) * col + base] = L[k];
+        }
+      },
+      [](int, const float (&)[Q], const float (&)[NT]) {});
 
   if (live) {
 #pragma unroll

@@ -6,25 +6,32 @@
 // (interrogations kramer and rodeo).  Plain PyTorch twin:
 // _filter_single_plain in ops/fused_kalman.py.
 //
-// Design.  K1's step, not a copy: predict_block and interrogate_update of
-// filter_step.cuh (whose loop body K1 and K8 run per block), on one solve.
-// The ODE's right-hand side couples the blocks (Lorenz's f_y needs x and
-// z), so one thread carries all NB blocks of the state in registers through
-// all N steps of a single launch, and stores the four moments of each step
-// in the JAX package's (N, NB, d) layout instead of K1's gains.  The TPU
-// kernel's chunk grid (which streamed VMEM blocks to HBM) and its unroll
-// option have no counterpart here: the loop runs inside the thread, and
-// the stores drain while the next step computes.
+// What bounds it on the card.  One solve is one chain of ~1e3 float
+// operations a step through N steps, far above its byte bound (54 floats
+// stored per step at 3 blocks, 2.2 MB at 10 000 steps, 0.65 us at 3.35
+// TB/s): nothing in one solve runs beside the chain, so the kernel runs at
+// the pace at which one warp issues the step's instructions and waits on
+// their latencies.  Many solves at once are the lane-batched K1's work.
 //
-// What bounds it on the card.  One thread: each step is ~1e3 dependent float
-// operations, so the kernel runs at the latency of that chain, far above its
-// byte bound (54 floats stored per step at 3 blocks, 2.2 MB at 10 000 steps,
-// 0.65 us at 3.35 TB/s).  Nothing in one solve can run beside the chain;
-// many solves at once are the lane-batched K1's work.
+// Design.  K1's step split over the blocks (block_step.cuh's
+// split_filter_steps) at a single lane: one CTA of NB threads (3 for
+// Lorenz63), one per block of the solve, all in one warp.  Each thread
+// predicts its own block, publishes its predicted mean, and after the
+// step's one exchange evaluates the ODE on the gathered means (identical
+// bits in every thread) and updates its own block
+// (interrogate_update_block), so a thread's stream of instructions is
+// about a third of the one thread's that carried all blocks; each thread
+// stores its block's four moments of each step in the JAX package's (N,
+// NB, d) layout, which the stores drain while the next step computes.  The
+// means go from thread to thread by warp shuffles (ShuffleExchange): on the
+// card, shared memory behind __syncwarp took 16 % longer (PERF.md).  The
+// values are those of the one-thread step bitwise.  The TPU kernel's chunk grid (which streamed
+// VMEM blocks to HBM) and its unroll option have no counterpart here.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
@@ -32,7 +39,7 @@
 namespace rodeo {
 
 template <class Model, int Q, int MODE>
-__global__ void __launch_bounds__(1)
+__global__ void __launch_bounds__(Model::NB, 1)
     filter_single_kernel(QConst<Q> qc, int n_steps,
                          const float* __restrict__ R_in,
                          const float* __restrict__ W_in,
@@ -45,42 +52,44 @@ __global__ void __launch_bounds__(1)
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  const int b = threadIdx.x;
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   float th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k) th[k] = theta[k];
 
-  float m[NB][Q], P[NB][NT];
+  float m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = x0[b * Q + j];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = x0[b * Q + j];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = 0.0f;
-  }
+  for (int k = 0; k < NT; ++k) P[k] = 0.0f;
 
-  for (int n = 0; n < n_steps; ++n) {
-    float mp[NB][Q], pp[NB][NT];
+  // block b's moments of step n (row n of the outputs)
+  auto store = [&](float* mo, float* po, int n,
+                   const float (&mv)[Q], const float (&Pv)[NT]) {
+    const size_t row = static_cast<size_t>(n) * NB + b;
 #pragma unroll
-    for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-    float z[NB], S[NB], inv_S[NB];
-    interrogate_update<Model, Q, MODE>(c, th, tgrid[n], mp, pp, m, P, z, S, inv_S);
-    const size_t row = static_cast<size_t>(n) * NB;
+    for (int j = 0; j < Q; ++j) mo[row * Q + j] = mv[j];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-#pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        mp_out[(row + b) * Q + j] = mp[b][j];
-        mf[(row + b) * Q + j] = m[b][j];
-      }
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        pp_out[(row + b) * NT + k] = pp[b][k];
-        pf[(row + b) * NT + k] = P[b][k];
-      }
-    }
-  }
+    for (int k = 0; k < NT; ++k) po[row * NT + k] = Pv[k];
+  };
+  auto predicted = [&](int n, const float (&)[Q], const float (&)[NT],
+                       const float (&mp)[Q], const float (&pp)[NT]) {
+    store(mp_out, pp_out, n, mp, pp);
+  };
+  auto filtered = [&](int n, const float (&mv)[Q], const float (&Pv)[NT]) {
+    store(mf, pf, n, mv, Pv);
+  };
+  ShuffleExchange<NB, Q> ex;
+  split_filter_steps<Model, Q, MODE>(c, th, tgrid, n_steps, b, ex, m, P,
+                                     predicted, filtered);
+}
+
+// one CTA of NB threads, a thread per block
+template <class Model>
+SplitGeometry single_geometry() {
+  return {dim3(1), dim3(Model::NB)};
 }
 
 template <class Model, int MODE>
@@ -88,9 +97,16 @@ cudaError_t launch_single(const QConst<3>& qc, int n_steps, const float* R,
                           const float* W, const float* tv, const float* x0,
                           const float* theta, const float* tgrid, float* mf,
                           float* pf, float* mp, float* pp, cudaStream_t stream) {
-  filter_single_kernel<Model, 3, MODE><<<1, 1, 0, stream>>>(
+  const SplitGeometry geo = single_geometry<Model>();
+  filter_single_kernel<Model, 3, MODE><<<geo.grid, geo.block, 0, stream>>>(
       qc, n_steps, R, W, tv, x0, theta, tgrid, mf, pf, mp, pp);
   return cudaGetLastError();
+}
+
+template <class Model, int MODE>
+cudaError_t single_geometry_report(int* out) {
+  return report_geometry(filter_single_kernel<Model, 3, MODE>,
+                         single_geometry<Model>(), out);
 }
 
 }  // namespace rodeo
@@ -137,5 +153,20 @@ extern "C" int rodeo_filter_single(int model, int mode, int n_steps,
                                                    ppp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_filter_single makes for (model, mode) on the current
+// device, as nine ints in out (report_geometry in block_step.cuh).
+// Returns a cudaError_t.
+extern "C" int rodeo_filter_single_geometry(int model, int mode, void* out) {
+  using namespace rodeo;
+  auto* o = static_cast<int*>(out);
+  switch (model * 2 + mode) {
+    case 0: return single_geometry_report<Lorenz63, kKramer>(o);
+    case 1: return single_geometry_report<Lorenz63, kRodeo>(o);
+    case 2: return single_geometry_report<FitzHughNagumo, kKramer>(o);
+    case 3: return single_geometry_report<FitzHughNagumo, kRodeo>(o);
+    default: return cudaErrorInvalidValue;
   }
 }

@@ -5,9 +5,9 @@
 // Laplace-linearised step (filter_nn_step).
 //
 // The one-thread-per-lane step (interrogate_update, FilterConsts,
-// load_consts) is run by K3 (filter_single.cu) and K9 (filter_nn_batch.cu),
-// whose filter_nn_step adds masked pseudo-observation updates to it.  K1
-// (filter_batch.cu) and K8 (dalton_filter_batch.cu) on float, and the
+// load_consts) is run by K9 (filter_nn_batch.cu) alone, whose filter_nn_step
+// adds masked pseudo-observation updates to it.  K1 (filter_batch.cu), K3
+// (filter_single.cu) and K8 (dalton_filter_batch.cu) on float, and the
 // tangent kernels K11a (filter_batch_tan.cu), K11c
 // (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on the
 // scalar type Dual (dual.cuh), run the same step split over the blocks of a

@@ -8,8 +8,8 @@
 // _smoother_mean_kernel_batch_tan.  Plain PyTorch twin:
 // _smoother_mean_tan_plain in ops/fused_kalman.py.
 //
-// Design.  K2r's design: one thread per (block, lane) column and tangent
-// direction carries the mean and its tangent (2 Q floats) in registers
+// Design.  One thread per (block, lane) column and tangent direction
+// carries the mean and its tangent (2 Q floats) in registers
 // through all T steps of one launch.  A CTA holds kTanCols columns x n_tan
 // directions, so the threads of one column read the same value rows (the
 // first brings them into L1) and each its own direction's tangent rows.
@@ -22,7 +22,7 @@
 // column at NAUG = 4 (values and tangents of g, G, m): a streaming kernel
 // bound by device-memory bandwidth (5.9 GB at 3999 steps x 3 blocks x 2048
 // lanes, 1.76 ms at 3.35 TB/s).  The loads of kTanUnroll steps are issued
-// before they are used, as in K2r.
+// before they are used, as in K4.
 #include <cuda_runtime.h>
 
 namespace rodeo {

@@ -9,10 +9,11 @@
 // _smoother_recursion_kernel.  Plain PyTorch twin: _smoother_single_plain
 // in ops/fused_kalman.py.
 //
-// Design.  K2r's step and loop (chain_step.cuh) on the single-solve layout:
-// one thread per block carries m and the packed P in registers through all
-// T rows of one launch, reading and writing (T, NB, D) with the entries of a
-// block innermost, so the host makes no transposed copy.  The TPU kernel's
+// Design.  The smoother's step and loop (chain_step.cuh) on the
+// single-solve layout: one thread per block carries m and the packed P in
+// registers through all T rows of one launch, reading and writing (T, NB,
+// D) with the entries of a block innermost, so the host makes no
+// transposed copy.  The TPU kernel's
 // reverse-streamed chunk grid is a loop inside the thread.
 //
 // What bounds it on the card.  NB threads (3 for Lorenz63) on one SM: the

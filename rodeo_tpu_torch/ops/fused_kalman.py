@@ -492,11 +492,11 @@ _GEOMETRY = ("cta_x", "cta_y", "grid_x", "grid_y", "registers",
 def _launch_geometry(kernel, device, *args, extra=()):
     """The launch of ``rodeo_<kernel>`` for these leading arguments, as its
     C query ``rodeo_<kernel>_geometry`` reports it on ``device``: the CTA
-    shape and grid, registers and local memory bytes per thread, static
-    shared memory bytes per CTA, the CTAs an SM can hold, and the card's
-    SMs, then the kernel's own fields named in ``extra``; with the CTAs,
-    threads per CTA, and whether the CTAs are at least the SMs and all
-    resident at once."""
+    shape and grid, registers and local memory bytes per thread, shared
+    memory bytes per CTA (static, and dynamic where the launch asks for
+    it), the CTAs an SM can hold, and the card's SMs, then the kernel's own
+    fields named in ``extra``; with the CTAs, threads per CTA, and whether
+    the CTAs are at least the SMs and all resident at once."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise NotImplementedError(f"{kernel} runs on the CUDA card only")
@@ -533,6 +533,24 @@ def _filter_batch_tan_geometry(model, n_lane, mode="kramer", device=None):
     return _launch_geometry("filter_batch_tan", device,
                             _FUNCTORS[model.cuda_functor], _MODES[mode],
                             n_lane)
+
+
+def _filter_single_geometry(model, mode="kramer", device=None):
+    """The launch of kernel K3 (:func:`fused_filter`) on the card, one CTA
+    of a thread per block, as :func:`_launch_geometry` reports it."""
+    model = resolve_model(model)
+    _check_mode(mode)
+    return _launch_geometry("filter_single", device,
+                            _FUNCTORS[model.cuda_functor], _MODES[mode])
+
+
+def _smoother_batch_rows_geometry(n_block, n_lane, device=None):
+    """The launch of kernel K2r (:func:`smoother_recursion_batch_rows`)
+    over ``n_block x n_lane`` columns with aligned operands on the card, as
+    :func:`_launch_geometry` reports it (its shared memory dynamic), with
+    the stages of its shared-memory ring and the steps a stage holds."""
+    return _launch_geometry("smoother_batch_rows", device, n_block, n_lane,
+                            extra=("stages", "steps_per_stage"))
 
 
 def _check_mode(mode):

@@ -11,9 +11,10 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
-geometry of K1 and K8, which run one thread per (lane, block), of K11a,
-K11c and K11d, which run one thread per (lane, direction, block), and of
-K6, a stream through a ring of shared-memory stages.
+geometry of K1 and K8, which run one thread per (lane, block), of K3,
+which runs one thread per block of its one solve, of K11a, K11c and K11d,
+which run one thread per (lane, direction, block), and of K6 and K2r,
+streams through a ring of shared-memory stages (``csrc/stream_ring.cuh``).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -89,7 +90,7 @@ def test_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
                                                t_max, n_lane):
     """K1 against its twin, bitwise (one thread per (lane, block) with a
     barrier a step), also where the lanes end inside a CTA of 16 (37 and
-    100 lanes); and K2r on its gains."""
+    100 lanes); and K2r on its gains, bitwise."""
     n_steps = 300
     cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
                                 cuda_device)
@@ -109,6 +110,73 @@ def test_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     sm_p = fk._smoother_batch_rows_plain(*rows_args)
     for name, a, b in zip(["mean", "cov"], sm_k, sm_p):
         assert _scaled_err(a, b) <= TWIN_TOL, name
+        assert torch.equal(a, b), name
+
+
+def _rows_operands(n_len, n_block, n_lane, seed, device, offset=0):
+    """Seeded operands of K2r, each in a buffer of its own that starts
+    ``offset`` floats past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    q = 3
+    pairs, _ = fk._tri_idx(q)
+    G = np.eye(q).reshape(1, q * q, 1, 1) * 0.5 + \
+        0.1 * rng.standard_normal((n_len, q * q, n_block, n_lane))
+    A = rng.standard_normal((n_len, n_block, n_lane, q, q))
+    Lfull = A @ np.swapaxes(A, -1, -2)
+    m_sc = np.array([1.0, 0.5, 0.25])
+
+    def put(a):
+        a = np.asarray(a, np.float32)
+        buf = torch.empty(a.size + offset, dtype=torch.float32,
+                          device=device)
+        t = buf[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return t
+
+    return [put(a) for a in (
+        rng.standard_normal((n_len, q, n_block, n_lane)), G,
+        np.stack([Lfull[..., i, j] for i, j in pairs], axis=1),
+        rng.standard_normal((q, n_block, n_lane)),
+        np.abs(rng.standard_normal((len(pairs), n_block, n_lane))),
+        rng.standard_normal((q, n_block, n_lane)), m_sc,
+        [m_sc[i] * m_sc[j] for i, j in pairs])]
+
+
+@pytest.mark.parametrize("n_lane,offset", [(64, 0), (37, 0), (100, 0),
+                                           (64, 1)])
+def test_smoother_rows_stream_matches_its_twin_on_the_card(cuda_device,
+                                                           n_lane, offset):
+    """K2r, a stream through a ring of shared-memory stages, bitwise
+    against its twin over step counts that are no multiple of its stage (no
+    interior step, one, two stages and one step, the ring and one step,
+    300), where the columns end inside a CTA of 32 (37 and 100 lanes of 3
+    blocks), where n_lane is no multiple of 4 (37) and where every operand
+    starts 4 bytes past a 16-byte boundary (offset 1): the last two run its
+    4-byte copies and stores.  Its launch as the card reports it: CTAs of
+    32 columns (a consumer and a producer warp), all resident, no local
+    memory."""
+    n_block = 3
+    geo = fk._smoother_batch_rows_geometry(n_block, n_lane,
+                                           device=cuda_device)
+    n_col = n_block * n_lane
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+    assert geo["grid_x"] == -(-n_col // 32), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    assert geo["shared_bytes"] > 48 * 1024, geo
+    assert fk._smoother_batch_rows_geometry(
+        n_block, 2048, device=cuda_device)["ctas_at_least_sms"]
+    step, stages = geo["steps_per_stage"], geo["stages"]
+    for n_len in (0, 1, 2 * step + 1, stages * step + 1, 300):
+        args = _rows_operands(n_len, n_block, n_lane, 40 + n_len,
+                              cuda_device, offset)
+        _reset_launches()
+        out_k = fk.smoother_recursion_batch_rows(*args)
+        assert _launched() == {"smoother_batch_rows": 1}, n_len
+        out_p = fk._smoother_batch_rows_plain(*args)
+        for name, a, b in zip(["mean", "cov"], out_k, out_p):
+            assert a.shape[0] == n_len + 2, name
+            assert torch.isfinite(a).all(), (name, n_len)
+            assert torch.equal(a, b), (name, n_len)
 
 
 def test_fused_solve_launches_each_kernel_once(cuda_device):
@@ -233,7 +301,7 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
                                   .manual_seed(9))
     n_col = m_seed.shape[1] * n_lane
     geo = fs._sampler_batch_geometry(n_col, device=cuda_device)
-    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (32, 1, 1), geo
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
     assert geo["grid_x"] == -(-n_col // 32), geo
     assert geo["local_bytes"] == 0 and geo["all_resident"], geo
     assert geo["stages"] >= 4, geo
@@ -446,8 +514,9 @@ def test_gradient_entry_points_launch_their_kernels(cuda_device):
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
                                                       mode, t_max):
-    """K3, K4 (on K3's gains, over every step and over the composed
-    boundary steps) and K7a (on fenrir's chain) against their twins."""
+    """K3 (bitwise), K4 (on K3's gains, over every step and over the
+    composed boundary steps) and K7a (on fenrir's chain) against their
+    twins."""
     n_steps = 300
     cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
                               dtype=torch.float32, device=cuda_device)
@@ -460,6 +529,7 @@ def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
     for name, a, b in zip(["mf", "pf", "mp", "pp"], out_k, out_p):
         assert a.is_cuda and torch.isfinite(a).all(), name
         assert _scaled_err(a, b) <= TWIN_TOL, name
+        assert torch.equal(a, b), name
     mf, pf, mp, pp = out_k
     states = (mf[:-1], pf[:-1], mp[1:], pp[1:])
     comp, _ = fk._composed_suffixes(ops["q_const"], ops["prior_var"],
@@ -480,6 +550,39 @@ def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
         *chain[:-1]))
     assert torch.isfinite(k7)
     assert _scaled_err(k7, p7) <= TWIN_TOL
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 37, 10000])
+@pytest.mark.parametrize("model,mode", [("lorenz", "kramer"),
+                                        ("lorenz", "rodeo"),
+                                        ("fitzhugh", "kramer"),
+                                        ("fitzhugh", "rodeo")])
+def test_single_filter_is_bitwise_its_twin_on_the_card(cuda_device, model,
+                                                       mode, n_steps):
+    """K3, one thread per block of the solve meeting once a step, bitwise
+    against its twin for both models and interrogations, from one step to
+    the single-solve path's 10 000 (at the path's step, dt = 0.002 for
+    Lorenz63 and 0.001 for FitzHugh-Nagumo); its launch as the card
+    reports it: one CTA of a thread per block, no local memory."""
+    t_max = {"lorenz": 0.002, "fitzhugh": 0.001}[model] * n_steps
+    cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
+                              dtype=torch.float32, device=cuda_device)
+    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                 cfg["ode_init"], 0.0, t_max, n_steps,
+                                 cfg["prior_pars"])
+    fused = fk.resolve_model(model)
+    _reset_launches()
+    out_k = fk.fused_filter(fused, n_steps, **ops, mode=mode)
+    assert _launched() == {"filter_single": 1}
+    out_p = fk._filter_single_plain(fused, n_steps, **ops, mode=mode)
+    for name, a, b in zip(["mf", "pf", "mp", "pp"], out_k, out_p):
+        assert a.is_cuda and torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+    geo = fk._filter_single_geometry(model, mode, device=cuda_device)
+    n_block = MODELS[model].N_VARS
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_x"], geo["grid_y"]) == \
+        (n_block, 1, 1, 1), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
 
 
 def test_single_entry_points_launch_their_kernels(cuda_device):

@@ -1,7 +1,7 @@
 """
 DALTON's filter twins skip the observation update at steps without data,
-and the launch of the split kernels K1, K8, K11a, K11c and K11d, and of
-the sampler's stream K6, is the card's.
+and the launch of the split kernels K1, K3, K8, K11a, K11c and K11d, and of
+the streams K6 and K2r, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
@@ -13,8 +13,8 @@ tests hold each twin with the skip to the same twin running the full
 update, bitwise, on Lorenz63 EK1 and FitzHugh-Nagumo EK0 with data, the
 values, the log-density and every tangent direction.  Sizes: 300 steps x 3
 lanes, 11 observations (every 30th step), float32 on the CPU.  The launch
-geometry of K1, K8, K11a, K11c, K11d and K6 comes from the card alone (the
-card tests check it); here its queries must raise.
+geometry of K1, K3, K8, K11a, K11c, K11d, K6 and K2r comes from the card
+alone (the card tests check it); here its queries must raise.
 """
 import numpy as np
 import pytest
@@ -135,8 +135,10 @@ def test_dalton_entry_points_take_the_skip():
      True),
     (lambda **kw: fdn._filter_nn_batch_tan_geometry(
         "fitzhugh", obs_models.poisson(0.1, 0.05), 37, **kw), True),
-    (lambda **kw: fs._sampler_batch_geometry(111, **kw), False)],
-    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6"])
+    (lambda **kw: fs._sampler_batch_geometry(111, **kw), False),
+    (lambda **kw: fk._filter_single_geometry("fitzhugh", **kw), True),
+    (lambda **kw: fk._smoother_batch_rows_geometry(3, 37, **kw), False)],
+    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6", "K3", "K2r"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

@@ -1,28 +1,35 @@
 #!/usr/bin/env python3
 """
-Time kernels K6 (sampler_batch) and K11d (filter_nn_batch_tan) of
-rodeo_tpu_torch against the same kernels built from other checkouts'
-sources, on one NVIDIA GPU, in turns, on the same inputs.
+Time kernels of rodeo_tpu_torch against the same kernels built from other
+checkouts' sources, on one NVIDIA GPU, in turns, on the same inputs: K1
+(filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K6
+(sampler_batch) and K11d (filter_nn_batch_tan).
 
     python3 tools/torch_kernel_turns.py --other DIR [DIR ...]
-        [--kernels {sampler_batch,filter_nn_batch_tan} ...] [--out PATH]
+        [--kernels {filter_batch,smoother_batch_rows,filter_single,
+                    sampler_batch,filter_nn_batch_tan} ...] [--out PATH]
 
 Each DIR is the root of another checkout of the repository (for example the
-parent commit unpacked with ``git archive``) whose kernels keep the C entry
-points ``rodeo_sampler_batch`` and ``rodeo_filter_nn_batch_tan``.  All
-kernel libraries are built with ``nvcc`` and loaded into one process; the
-wrappers of this checkout launch any of them.  Inputs are the main paths'
-of ``chip_smoke.py``: K6 on the draw operands of Lorenz63 EK1, 10 000 steps
-x 2048 lanes (phase ``sim``), K11d on non-Gaussian DALTON's fixture,
-Lorenz63 EK1, 4000 steps x 2048 lanes, 21 observations of rng(1).normal x
-5, Gaussian variance 0.005 (phase ``daltonng_kernels``).  Each kernel is
-timed in three rounds of this checkout's library, then each other's, each
-time the median device time of 5 launches by CUDA events (a sleep holds the
-stream while the host enqueues the wrapper), and every library's output
-must agree bitwise with this checkout's.  Prints the card's name and power
-limit, ptxas' report of both kernels in every library, and one JSON line
-per kernel, also written to ``--out`` (default build/kernel_turns.jsonl).
-Exits non-zero without a CUDA device, or if two outputs differ.
+parent commit unpacked with ``git archive``, or a copy with a kernel's
+constants changed) whose kernels keep the C entry points of the kernels
+timed.  All kernel libraries are built with ``nvcc`` and loaded into one
+process; the wrappers of this checkout launch any of them.  Inputs are the
+main paths' of ``chip_smoke.py``, Lorenz63 EK1: K1 on the batched solve,
+10 000 steps x 2048 lanes (phase ``main``); K2r on K1's gains there and at
+4000 steps x 2048 lanes (``likelihood``); K3 on one solve of 10 000 and
+4000 steps (``single``); K6 on the draw operands of the solve
+(``sim``); K11d on non-Gaussian DALTON's fixture, 4000 steps x 2048
+lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
+(``daltonng_kernels``).  Each kernel is timed in three rounds of this
+checkout's library, then each other's, each time the median device time
+of 5 launches by CUDA events (a sleep holds the stream while the host
+enqueues the wrapper), and every library's output must agree bitwise with
+this checkout's.  Prints the card's name and power limit, ptxas' report of
+the timed kernels in every library, the SASS instructions of K3's step
+loop in every library (``cuobjdump``, where the toolkit has it), and one
+JSON line per kernel and shape, also written to ``--out`` (default
+build/kernel_turns.jsonl).  Exits non-zero without a CUDA device, or if
+two outputs differ.
 """
 import argparse
 import json
@@ -38,14 +45,19 @@ TURNS = 3
 REPEATS = 5
 HOLD_CYCLES = 20_000_000       # ~10 ms of sleep at the H100's clocks
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+# each kernel's C entry point and the mangled name of its kernel
+KERNELS = {"filter_batch": "19filter_batch_kernel",
+           "smoother_batch_rows": "26smoother_batch_rows_kernel",
+           "filter_single": "20filter_single_kernel",
+           "sampler_batch": "20sampler_batch_kernel",
+           "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, nargs="+")
-    parser.add_argument("--kernels", nargs="+",
-                        choices=["sampler_batch", "filter_nn_batch_tan"],
-                        default=["sampler_batch", "filter_nn_batch_tan"])
+    parser.add_argument("--kernels", nargs="+", choices=list(KERNELS),
+                        default=list(KERNELS))
     parser.add_argument("--out", default=str(REPO / "build"
                                              / "kernel_turns.jsonl"))
     args = parser.parse_args()
@@ -69,12 +81,13 @@ def main():
 
     # the libraries: this checkout's, then each other's (_build.load
     # pointed at the other sources and a build directory of their own,
-    # declaring only the two entry points timed here), named by directory
+    # declaring only the entry points timed here), named by directory
     libs = {"this": _build.load()}
     logs = {"this": _build.build_log() or ""}
+    paths = {"this": _build._library_path()}
     here = (_build.CSRC, _build.BUILD_DIR, _build._SIGNATURES)
-    _build._SIGNATURES = {k: here[2][k] for k in (
-        "rodeo_sampler_batch", "rodeo_filter_nn_batch_tan")}
+    _build._SIGNATURES = {f"rodeo_{k}": here[2][f"rodeo_{k}"]
+                          for k in args.kernels}
     for other in args.other:
         root = Path(other).resolve()
         _build.CSRC = root / "rodeo_tpu_torch" / "ops" / "csrc"
@@ -82,19 +95,23 @@ def main():
         _build.load.cache_clear()
         libs[root.name] = _build.load()
         logs[root.name] = _build.build_log() or ""
+        paths[root.name] = _build._library_path()
     _build.CSRC, _build.BUILD_DIR, _build._SIGNATURES = here
     _build.load.cache_clear()
     assert _build.load() is not None
     loader = _build.load
+    symbols = [KERNELS[k] for k in args.kernels]
     for name, log in logs.items():
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and (
-                    "sampler_batch_kernel" in line
-                    or "filter_nn_batch_tan" in line):
+            if "Compiling entry" in line and any(s in line for s in symbols):
                 print(name, " | ".join(x.strip() for x in lines[i:i + 4]
                                        if "Compiling" in x or "spill" in x
                                        or "registers" in x), flush=True)
+    if "filter_single" in args.kernels:
+        for name, path in paths.items():
+            print(json.dumps({"library": name, "sass": _build.sass_loops(
+                KERNELS["filter_single"], path)}), flush=True)
 
     def device_ms(fn):
         fn()
@@ -110,7 +127,7 @@ def main():
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def turns(name, fn, n_bytes):
+    def turns(name, fn, n_bytes, **info):
         times, equal, first = [], {}, None
         try:
             for _ in range(TURNS):
@@ -129,7 +146,7 @@ def main():
         torch.cuda.synchronize()
         ms = {w: statistics.median(t for v, t in times if v == w)
               for w in libs}
-        line = {"kernel": name, "card": smi, "turns": times,
+        line = {"kernel": name, "card": smi, **info, "turns": times,
                 "median_ms": ms, "bytes": n_bytes,
                 "bytes_per_s": {w: 1e3 * n_bytes / t for w, t in ms.items()},
                 "share_of_3.35TB/s": {w: 1e3 * n_bytes / t / PEAK_BYTES_PER_S
@@ -187,9 +204,74 @@ def main():
                                             mode="kramer"),
             nbytes(*operands) + out_bytes)
 
-    timed = {"sampler_batch": time_sampler,
-             "filter_nn_batch_tan": time_nn_tan}
-    lines = [timed[name]() for name in args.kernels]
+    def solve_operands(n_s, b_s):
+        """The batched solve's kernel operands."""
+        cfg, thetas, inits = lanes(n_s, b_s)
+        return fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0,
+                                   20.0, n_s, cfg["prior_pars"])
+
+    def time_filter_batch():
+        """K1 on the batched solve, 10 000 x 2048."""
+        n_s, b_s = 10000, 2048
+        ops = solve_operands(n_s, b_s)
+        fused = fk.resolve_model("lorenz")
+        out_bytes = n_s * (9 + 3 + 6) * 3 * b_s * 4 + (3 + 6) * 3 * b_s * 4
+        return [turns("filter_batch", lambda: fk.fused_filter_batch(
+            fused, n_s, **ops, mode="kramer"),
+            nbytes(*[v for v in ops.values() if isinstance(v, torch.Tensor)])
+            + out_bytes, shape=f"{n_s} x {b_s}")]
+
+    def time_rows():
+        """K2r on K1's gains, 10 000 and 4000 steps x 2048 lanes."""
+        out = []
+        for n_s in (10000, 4000):
+            ops = solve_operands(n_s, 2048)
+            G, g, L, mN, pN = fk.fused_filter_batch(
+                fk.resolve_model("lorenz"), n_s, **ops, mode="kramer")
+            t_vec = ops["t_vec"]
+            rows_args = (g[1:], G[1:], L[1:], mN, pN, ops["x0_lanes"],
+                         t_vec, fk._tri_scale(t_vec))
+            del G, g, L, mN, pN, ops
+            out_bytes = (n_s + 1) * (3 + 6) * 3 * 2048 * 4
+            out.append(turns(
+                "smoother_batch_rows",
+                lambda: fk.smoother_recursion_batch_rows(*rows_args),
+                nbytes(*rows_args) + out_bytes, shape=f"{n_s} x 2048"))
+            del rows_args
+            torch.cuda.empty_cache()
+        return out
+
+    def time_single():
+        """K3 on one solve of 10 000 and 4000 steps."""
+        out = []
+        for n_s in (10000, 4000):
+            cfg = lorenz.setup(n_steps=n_s, t_max=20.0, dtype=torch.float32,
+                               device=dev)
+            ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                         cfg["ode_init"], 0.0, 20.0, n_s,
+                                         cfg["prior_pars"])
+            fused = fk.resolve_model("lorenz")
+            out_bytes = n_s * 3 * (3 + 6) * 2 * 4
+            line = turns("filter_single", lambda: fk.fused_filter(
+                fused, n_s, **ops, mode="kramer"),
+                nbytes(*[v for v in ops.values()
+                         if isinstance(v, torch.Tensor)]) + out_bytes,
+                shape=f"{n_s} steps")
+            line["us_per_step"] = {w: 1e3 * t / n_s
+                                   for w, t in line["median_ms"].items()}
+            print(json.dumps({"kernel": "filter_single",
+                              "shape": f"{n_s} steps",
+                              "us_per_step": line["us_per_step"]}),
+                  flush=True)
+            out.append(line)
+        return out
+
+    timed = {"filter_batch": time_filter_batch,
+             "smoother_batch_rows": time_rows,
+             "filter_single": time_single,
+             "sampler_batch": lambda: [time_sampler()],
+             "filter_nn_batch_tan": lambda: [time_nn_tan()]}
+    lines = [line for name in args.kernels for line in timed[name]()]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
         for line in lines:
