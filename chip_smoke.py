@@ -38,8 +38,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              FitzHugh-Nagumo EK0 for K11a and K11c; the scaled error of each
              output's values and of each tangent direction, and whether the
              two agree bitwise, which K11a and K11c (one thread per lane,
-             direction and block) must, their values also with K1's and
-             K8's;
+             direction and block) and K11b (a stream with a consumer warp
+             per direction) must, the values of K11a and K11c also with
+             K1's and K8's;
 9. likelihood  bench.py's likelihood fixture at full width: Lorenz63 EK1,
              4000 steps x 2048 lanes, 21 observations, through
              fenrir_fused_batch, dalton_fused_batch and basic_fused_batch.
@@ -67,10 +68,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              timed and checked against its twin at its path's shapes (K11a
              and K11b on both fixtures, K11c with and without data, each
              launch an entry of the kernels line with its launches on the
-             DALTON gradient); K11a and K11c bitwise against their twins,
-             their values against K1's and K8's, and their launch as the
-             card reports it (split_record) with ptxas' registers and
-             spills;
+             DALTON gradient); K11a, K11b and K11c bitwise against their
+             twins, the values of K11a and K11c against K1's and K8's, and
+             their launch as the card reports it (split_record) with
+             ptxas' registers and spills;
 11. sim      solve_sim_fused_batch at the main path's shapes (launches,
              finite, time, K6 against its twin, bitwise, with its launch as
              the card reports it, ptxas' registers and spills and its
@@ -81,8 +82,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              the single-solve kernels K3 (filter_single), K4 (smoother_single)
              and K7a (fenrir_backward_single) against their twins on the same
              CUDA inputs at 1000 steps: K3 on Lorenz63 EK1 and FitzHugh-Nagumo
-             EK0, bitwise, K4 on seeded gains and on K3's, K7a on K3's chain
-             with observations;
+             EK0, bitwise, K4 on seeded gains and on K3's, bitwise, K7a on
+             K3's chain with observations;
 13. single   the single-solve path: solve_mv_fused on Lorenz63 EK1, 10 000
              steps, with the default plain smoother (it must launch K3 and K4
              once, stay finite and pass the t <= 4 audit), its time and peak
@@ -93,7 +94,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              at its path's shapes, K3 bitwise with its time per step, the
              SASS instructions of its step loop (cuobjdump) and its launch
              as the card reports it with ptxas' registers and spills, K4
-             also on the composed smoother's boundary groups;
+             bitwise with the same records (its stage loop), also on the
+             composed smoother's boundary groups, and K3, K4 and K7a each
+             with its dependent-chain bound (CHAIN_OPS at the SM clock's
+             maximum);
 14. k5_twin  the stationary solve's mean-chain kernels K5a
              (mean_gain_single), K5b (mean_boundary_single) and K5c
              (mean_recovery_single) against their twins on the same CUDA
@@ -288,10 +292,30 @@ SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
                  "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
-# K6 and K2r, streams through a ring of shared-memory stages, bitwise
-# against their twins, and the mangled names of their kernels.
+# K6, K2r and K11b, streams of 32 columns a CTA through a ring of
+# shared-memory stages, bitwise against their twins, and the mangled names
+# of their kernels.
 STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
-                  "smoother_batch_rows": "26smoother_batch_rows_kernel"}
+                  "smoother_batch_rows": "26smoother_batch_rows_kernel",
+                  "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel"}
+# K4, a stream of slabs of the single-solve layout through the same ring,
+# one CTA for its one solve's blocks, bitwise against its twin.
+SLAB_KERNELS = {"smoother_single": "22smoother_single_kernel"}
+# The dependent chain of the single-solve kernels: float32 operations on
+# the critical path of one step's (or row's) carry, counted from the code,
+# each at FP32_LATENCY_CYCLES, so that rows x ops x cycles / clock is the
+# least time of the recursion however its instructions are issued.  K4 (a
+# row of chain_step.cuh): P's A P product (a multiply, two adds), its
+# (A P) A' product (a multiply, two adds), + C: 7; m's chain is 4.  K3
+# (Lorenz63 EK1, block_step.cuh): the predicted covariance (7), then P H'
+# (3, H0 waiting on the shuffled means), S (3), 1 / S (1), the gain (1),
+# I - K H (2), the Joseph product (6): 23.  K7a (fenrir_step.cuh): the
+# chain row (7), then P D' (3), S (4), 1 / S (1), K (2), I - K D (2), the
+# Joseph product (6), + K K' om (1): 26.  A division and a logarithm count
+# as one operation and a shuffle as none, so the bound is a floor.
+CHAIN_OPS = {"filter_single": 23, "smoother_single": 7,
+             "fenrir_backward_single": 26}
+FP32_LATENCY_CYCLES = 4
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
                   "fenrir_backward_single")
@@ -599,8 +623,14 @@ def main():
                      and not torch.backends.cudnn.allow_tf32)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    # the SM clock's maximum (MHz), for the dependent-chain bounds
+    max_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     emit({"phase": "device", "kind": kind, "count": count,
-          "nvidia_smi": smi, "tf32_off": tf32_off,
+          "nvidia_smi": smi, "max_sm_clock_mhz": max_clock_mhz,
+          "tf32_off": tf32_off,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # ---- 2. build -------------------------------------------------------------
@@ -618,8 +648,8 @@ def main():
         of the kernel whose mangled name holds symbol, from the build's
         log (a Compiling line, then its stack and spill line, then its
         registers).  A filter's instantiation is named by its model,
-        observation model, q, mode and with_obs; K6's by q and the floats
-        a copy moves."""
+        observation model, q, mode and with_obs; a stream's (K6, K2r, K4,
+        K11b) by q, K11b's directions and the floats a copy moves."""
         rows, entry = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -629,9 +659,12 @@ def main():
                                      r"(?:NS_\d+(Gauss|Poisson)E)?Li(\d+)"
                                      r"ELi(\d+)E(?:Lb(\d)E)?", line)
                     if args is None:
-                        args = re.search(r"ILi(\d+)ELi(\d+)EE", line)
+                        args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?Li(\d+)EE",
+                                         line)
                         entry = {"q": int(args[1]),
-                                 "floats_per_copy": int(args[2])}
+                                 "floats_per_copy": int(args[3])}
+                        if args[2] is not None:
+                            entry["n_tan"] = int(args[2])
                     else:
                         entry = {"model": args[1], "obs": args[2],
                                  "q": int(args[3]), "mode": int(args[4]),
@@ -648,21 +681,24 @@ def main():
                                                    line)[1])
         return rows
 
-    def split_record(phase, kernel, label, geometry):
+    def split_record(phase, kernel, label, geometry, per_sm=True):
         """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
         or of a stream (STREAM_KERNELS) at its path's columns, as the card
         reports it (CTA shape, CTAs, threads, registers, local memory, CTAs
         an SM holds; a stream's stages) and ptxas' report of each
         instantiation; checks, under phase, that its CTAs are all resident
         at once and that no instantiation spills.  A tangent kernel (a grid
-        row per direction) and a stream (K6, K2r) must also have at least
-        one CTA per SM.  A value filter (K1, K8) has no direction axis: at
-        2048 lanes it runs 128 CTAs of 16 lanes (K1) or 64 of 32 (K8),
-        fewer than the card's 132 SMs, so it is not held to that; nor is
-        K3, one CTA for its one solve."""
-        report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS}[kernel])
+        row per direction) and a stream of columns (K6, K2r, K11b) must
+        also have at least one CTA per SM.  A value filter (K1, K8) has no
+        direction axis: at 2048 lanes it runs 128 CTAs of 16 lanes (K1) or
+        64 of 32 (K8), fewer than the card's 132 SMs, so it is not held to
+        that; nor are K3 and K4 (SLAB_KERNELS), one CTA for one solve, nor
+        a stream at fewer columns than 32 a CTA on every SM (per_sm
+        False: K11b on FitzHugh-Nagumo's 2 x 2048 columns, 128 CTAs)."""
+        report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
+                               **SLAB_KERNELS}[kernel])
         check(phase, f"{label} all resident", geometry["all_resident"])
-        if geometry["grid_y"] > 1 or kernel in STREAM_KERNELS:
+        if per_sm and (geometry["grid_y"] > 1 or kernel in STREAM_KERNELS):
             check(phase, f"{label} at least one CTA per SM",
                   geometry["ctas_at_least_sms"])
         check(phase, f"{label} spills nothing",
@@ -945,8 +981,9 @@ def main():
     def tan_report(kernel, config, names, kernel_out, twin_out, split,
                    value_out=None):
         """A tangent kernel against its twin; the split kernels (K11a,
-        K11c) must agree with it bitwise, and their values (the first
-        slice of each output) with value_out, the value kernel's."""
+        K11c) and the stream K11b must agree with it bitwise, and the
+        values of the split kernels (the first slice of each output) with
+        value_out, the value kernel's."""
         kernel_out, twin_out = as_tuple(kernel_out), as_tuple(twin_out)
         errs = twin_errors(names, kernel_out, twin_out, split)
         bitwise = all(torch.equal(a, b) for a, b in zip(kernel_out, twin_out))
@@ -954,7 +991,8 @@ def main():
                    worst(errs)[1] <= TWIN_TOL
                    and all(torch.isfinite(a).all().item()
                            for a in kernel_out)
-                   and (bitwise or kernel not in SPLIT_KERNELS))
+                   and (bitwise or kernel not in {**SPLIT_KERNELS,
+                                                  **STREAM_KERNELS}))
         values = None if value_out is None else check(
             "k11_twin", f"{kernel} {config} values",
             all(torch.equal(slices(a, k, axis)[0], v) for a, v, (k, axis)
@@ -1085,26 +1123,38 @@ def main():
         return [cpu_lane(A), cpu_lane(b), cpu_lane(C), d.cpu(), y.cpu(),
                 om.cpu(), mask.cpu(), cpu_lane(m_seed), cpu_lane(p_seed)]
 
+    def grid_ops(mask, ops_at):
+        """A kernel's float32 operations per lane over the steps of a grid
+        whose mask is mask, as its twin does them: the twins of K8, K11c
+        and K11b skip the observation update at a step without data.
+        ops_at(idx) counts the twin's operations on the grid's steps idx.
+        A step of each kind is the twin's operations on three steps less
+        those on two, the third a step without data or the first with
+        data; weighted by the grid's steps of each kind."""
+        free = int((mask == 0).nonzero()[0])
+        data = (mask != 0).nonzero().flatten().tolist()
+        base = ops_at([free, free])
+        per_free = ops_at([free] * 3) - base
+        per_data = ops_at([free, free, data[0]]) - base if data else 0
+        return per_free * (len(mask) - len(data)) + per_data * len(data)
+
     def dalton_ops(args_cpu, twin):
         """K8's or K11c's float32 operations per lane over the grid of
         args_cpu (its operands cut to one lane, on the CPU), as its twin,
-        twin(n, operands), does them: it skips the observation update at a
-        step without data.  A step of each kind is the twin's operations
-        on three steps less those on two, the third a step without data or
-        the first with data; weighted by the grid's steps of each kind."""
-        mask = args_cpu["mask"]
-        free = int((mask == 0).nonzero()[0])
-        data = (mask != 0).nonzero().flatten().tolist()
-
+        twin(n, operands), does them (grid_ops)."""
         def at(idx):
             rows = {k: (v[idx] if k in ("tgrid", "d", "y", "om", "mask")
                         else v) for k, v in args_cpu.items()}
             return op_count(lambda: twin(len(idx), rows))
 
-        base = at([free, free])
-        per_free = at([free] * 3) - base
-        per_data = at([free, free, data[0]]) - base if data else 0
-        return per_free * (len(mask) - len(data)) + per_data * len(data)
+        return grid_ops(args_cpu["mask"], at)
+
+    def fenrir_tan_ops(chain_cpu):
+        """K11b's float32 operations per lane over its grid (chain_on_cpu's
+        operands), as its twin does them (grid_ops)."""
+        return grid_ops(chain_cpu[6], lambda idx: op_count(
+            lambda: ff._fenrir_backward_tan_plain(
+                *[t[idx] for t in chain_cpu[:7]], *chain_cpu[7:], n_tan)))
 
     chain = fenrir_chain(n_ll, t_ll, ops_ll, obs_f)
     chain_cpu = chain_on_cpu(chain)
@@ -1331,16 +1381,24 @@ def main():
         chain = ff._fenrir_operands(fused_g, n_g, 0.0, lanes["t_max"], ops_g,
                                     *obs.values(), "kramer", tangent=True)
         chain_cpu = chain_on_cpu(chain)
-        _, at_grad[f"fenrir_backward_batch_tan/{model}"] = at_path_shapes(
+        # K11b's operations from its twin, which skips the update at steps
+        # without data (as K11b does), weighted by the grid's steps
+        _, entry = at_path_shapes(
             "grad_kernels", "fenrir_backward_batch_tan",
             "pallas_fenrir.py:772", grad_launches[path],
             lambda: ff.fenrir_backward_batch_tan(*chain),
-            lambda: fenrir_tan_plain(*chain), ["ld"],
-            lambda n: ff._fenrir_backward_tan_plain(
-                *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:], n_tan),
-            n_g * b_ll, chain, split=ld_split,
+            lambda: fenrir_tan_plain(*chain), ["ld"], None, None, chain,
+            n_ops=b_ll * fenrir_tan_ops(chain_cpu), split=ld_split,
             out_bytes=4 * (1 + n_tan) * fused_g.n_block * b_ll,
-            register=on_path, config=model, shape=f"{n_g} x {b_ll}")
+            register=on_path, config=model, shape=f"{n_g} x {b_ll}",
+            **split_record("grad_kernels", "fenrir_backward_batch_tan",
+                           f"fenrir_backward_batch_tan {model}",
+                           ff._fenrir_backward_batch_tan_geometry(
+                               fused_g.n_block, b_ll, n_tan),
+                           per_sm=on_path))
+        at_grad[f"fenrir_backward_batch_tan/{model}"] = entry
+        check("grad_kernels", f"fenrir_backward_batch_tan {model} bitwise",
+              entry["bitwise"])
         del chain, chain_cpu, ops_g, cpu_g
     for with_obs in (True, False):
         k11c_args = dict(**ops_d, **obs_d, mode="kramer", with_obs=with_obs,
@@ -1521,7 +1579,7 @@ def main():
                                               *states), mf[-1], pf[-1]))):
         twin_report("k4_twin", source, ["ms", "ps"],
                     fk.smoother_recursion(*args),
-                    fk._smoother_single_plain(*args))
+                    fk._smoother_single_plain(*args), need_bitwise=True)
     ops_k3["q_const"] = ff._const_coefs(Qs_k3)
     chain_1 = ff._fenrir_single_operands(
         fused, n_tw, 0.0, 2.0, ops_k3, Qs_k3,
@@ -1646,6 +1704,22 @@ def main():
         **split_record("single", "filter_single", "filter_single lorenz",
                        fk._filter_single_geometry("lorenz", "kramer")),
         "sass_loop": "not measured" if sass_3 is None else sass_3}
+    # K4's launch (a consumer and a producer warp, the blocks of the solve's
+    # rows spread over lanes) and the SASS instructions of its stage loop
+    sass_4 = _build.sass_loops(SLAB_KERNELS["smoother_single"])
+    k4_record = {
+        **split_record("single", "smoother_single", "smoother_single lorenz",
+                       fk._smoother_single_geometry(lorenz.N_VARS)),
+        "sass_loop": "not measured" if sass_4 is None else sass_4}
+
+    def chain_bound(entry, kernel, n_rows):
+        """A single-solve kernel's dependent-chain bound, beside its byte
+        bound in entry: n_rows x CHAIN_OPS x FP32_LATENCY_CYCLES cycles at
+        the SM clock's maximum, and the share of it the kernel reaches."""
+        cycles = CHAIN_OPS[kernel] * FP32_LATENCY_CYCLES
+        chain_ms = 1e3 * n_rows * cycles / (max_clock_mhz * 1e6)
+        entry.update(chain_cycles_per_step=cycles, chain_bound_ms=chain_ms,
+                     share_of_chain_bound=chain_ms / entry["ms"])
     at_single = {}
     for n_1, t_1, on_path, launches_1 in (
             (n_steps, t_max, True, single_launches),
@@ -1667,6 +1741,7 @@ def main():
             shape=f"{n_1} steps", **k3_record)
         entry_3 = at_single[f"filter_single/{n_1}"]
         entry_3["us_per_step"] = 1e3 * entry_3["ms"] / n_1
+        chain_bound(entry_3, "filter_single", n_1)
         check("single", f"filter_single {n_1} steps bitwise",
               entry_3["bitwise"])
         mf, pf, mp, pp = out_3
@@ -1683,7 +1758,7 @@ def main():
                 k4_args = (*gains, mf[-1], pf[-1])
                 k4_cpu = [a.cpu() for a in k4_args]
                 n_rows = k4_args[0].shape[0]
-                _, at_single[f"smoother_single/{n_rows}"] = at_path_shapes(
+                _, entry_4 = at_path_shapes(
                     "single", "smoother_single", "pallas_kalman.py:763",
                     launches_1, lambda: fk.smoother_recursion(*k4_args),
                     lambda: fk._smoother_single_plain(*k4_args),
@@ -1691,13 +1766,18 @@ def main():
                         *[a[:n] for a in k4_cpu[:3]], *k4_cpu[3:]),
                     n_rows, k4_args, register=register,
                     config=f"{n_rows} {label}",
-                    shape=f"{n_rows} {label}")
-            del states_1, comp, gains, k4_args, k4_cpu
+                    shape=f"{n_rows} {label}", **k4_record)
+                at_single[f"smoother_single/{n_rows}"] = entry_4
+                entry_4["us_per_row"] = 1e3 * entry_4["ms"] / n_rows
+                chain_bound(entry_4, "smoother_single", n_rows)
+                check("single", f"smoother_single {n_rows} {label} bitwise",
+                      entry_4["bitwise"])
+            del states_1, comp, gains, k4_args, k4_cpu, entry_4
         else:
             chain_1 = ff._fenrir_single_operands(
                 fused, n_1, 0.0, t_1, ops_1, Qs_1, *obs_f.values(), "kramer")
             chain_cpu = [t.cpu() for t in chain_1[:9]]
-            _, at_single["fenrir_backward_single"] = at_path_shapes(
+            _, entry_7 = at_path_shapes(
                 "single", "fenrir_backward_single", "pallas_fenrir.py:214",
                 launches_1, lambda: ff.fenrir_backward_single(*chain_1),
                 lambda: chain_1[-1] + fd._block_sum(
@@ -1705,6 +1785,8 @@ def main():
                 ["ld"], lambda n: ff._fenrir_backward_single_plain(
                     *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:]),
                 n_1, chain_1, out_bytes=4 * 3, shape=f"{n_1} steps")
+            at_single["fenrir_backward_single"] = entry_7
+            chain_bound(entry_7, "fenrir_backward_single", n_1)
             del chain_1, chain_cpu
         del out_3, mf, pf, mp, pp, ops_1, Qs_1, cpu_1
     emit({"phase": "single_kernels", "kernels": at_single})

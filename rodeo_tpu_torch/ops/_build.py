@@ -60,6 +60,9 @@ _SIGNATURES = {
     "rodeo_sampler_batch_geometry": [_I, _P],
     "rodeo_filter_single_geometry": [_I, _I, _P],
     "rodeo_smoother_batch_rows_geometry": [_I, _I, _P],
+    # of K4: n_block, out; of K11b: n_block, n_lane, n_tan, out
+    "rodeo_smoother_single_geometry": [_I, _P],
+    "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:

@@ -3,9 +3,10 @@
 // the masked scalar observation update of step n, adding the observation's
 // log-density.  Shared by K7b (fenrir_backward_batch.cu, on float), its
 // single-solve counterpart K7a (fenrir_backward_single.cu) and its tangent
-// twin K11b (fenrir_backward_batch_tan.cu, on Dual), so the values of K11b
-// are K7b's bitwise.  The plain PyTorch version is _fenrir_backward_plain of
-// ops/fused_fenrir.py, in the same order.
+// twin K11b (fenrir_backward_batch_tan.cu, on Dual, skipping the update at
+// steps without data), so the values of K11b are K7b's bitwise.  The plain
+// PyTorch version is _fenrir_backward_plain of ops/fused_fenrir.py, in the
+// same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,8 +18,11 @@ namespace rodeo {
 
 // One backward step of one column: predict, then the masked observation
 // update of step n of block blk.  The observation grid (d, y, om, mask;
-// N x .. x n_block) is shared by all lanes.
-template <int Q, class T>
+// N x .. x n_block) is shared by all lanes.  With SKIP (K11b) a step whose
+// mask is 0 stops after the prediction: there (D = 0, y = 0, om = 1) the
+// update and its term leave m, P and ld as they were (kalman_cols.cuh), and
+// the branch is the same for every thread.
+template <int Q, bool SKIP = false, class T>
 __device__ __forceinline__ void fenrir_step(int n, int n_block, int blk,
                                             const ChainRow<T, Q>& row,
                                             const float* __restrict__ d,
@@ -28,6 +32,9 @@ __device__ __forceinline__ void fenrir_step(int n, int n_block, int blk,
                                             T (&m)[Q], T (&P)[Tri<Q>::N],
                                             T& ld) {
   chain_step<Q>(row, m, P);
+  if constexpr (SKIP) {
+    if (__ldg(mask + n) == 0.0f) return;
+  }
   float D[Q];
 #pragma unroll
   for (int j = 0; j < Q; ++j) D[j] = __ldg(d + (static_cast<size_t>(n) * Q + j) * n_block + blk);

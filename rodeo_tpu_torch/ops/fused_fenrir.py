@@ -23,7 +23,9 @@ The gradient runs the same stages forward-mode: K11a
 the chain with its tangents along each parameter, the terminal update runs
 on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers in torch, and **K11b**
 ``csrc/fenrir_backward_batch_tan.cu`` (replacing
-``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents.
+``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents; it
+skips the observation update at steps without data, an exact identity
+there.
 
 One evaluation (:func:`fenrir_fused`) follows the JAX package's
 single-solve path: the filter K3
@@ -33,9 +35,10 @@ terminal update in dense batched torch, and **K7a**
 ``_backward_kernel_global_mask``), K7b's step on one solve.
 
 The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`, run on
-Duals it is K11b's (:func:`_fenrir_backward_tan_plain`), and on the
-single-solve layout K7a's (:func:`_fenrir_backward_single_plain`); the
-wrappers take them only for CPU tensors.  ``LAUNCHES`` counts the launches.
+Duals with the same skip it is K11b's (:func:`_fenrir_backward_tan_plain`),
+and on the single-solve layout K7a's
+(:func:`_fenrir_backward_single_plain`); the wrappers take them only for
+CPU tensors.  ``LAUNCHES`` counts the launches.
 """
 import numpy as np
 import torch
@@ -44,7 +47,7 @@ from rodeo_tpu_torch.ops.dual import rows, split
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
     _LOG2PI, _block_sum, _check, _fused_inputs, _kernel_operands, _launch,
-    _masked_obs_update_cols, _pack_tri, _single_operands, _sym_quadform,
+    _launch_geometry, _masked_obs_update_cols, _pack_tri, _single_operands, _sym_quadform,
     _tri_idx, fused_filter, fused_filter_batch, fused_filter_batch_tan,
     unpack_cov)
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
@@ -62,15 +65,21 @@ LAUNCHES = {"fenrir_backward_batch": 0, "fenrir_backward_batch_tan": 0,
 # --- K7b: reverse filter over the backward chain ------------------------------------
 
 
-def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
+def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
+                           skip_unobserved=False):
     """Plain PyTorch twin of ``csrc/fenrir_backward_batch.cu``: the same
     float32 operations in the same order, one Python iteration per step.
     Returns each block's log-density sum ``(n_block, B)``; on a chain and
-    seeds of Duals, a Dual."""
+    seeds of Duals, a Dual.
+
+    With ``skip_unobserved`` it skips the observation update and its term at
+    a step without data, where they are an exact identity, as K11b does (a
+    test holds the two to each other bitwise); K7b and K7a run them."""
     n_steps, q, n_block, n_lane = b.shape
     pairs, where = _tri_idx(q)
     m_cols, p_cols = list(m_seed), list(p_seed)
     ld = torch.zeros_like(m_seed[0])
+    masks = mask.tolist()
     for r in range(n_steps - 1, -1, -1):
         Ar = [[A[r, i * q + j] for j in range(q)] for i in range(q)]
         mp = []
@@ -81,6 +90,9 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
             mp.append(acc)
         app = _sym_quadform(q, Ar, p_cols, where)
         pp = [C[r, k] + app[k] for k in range(len(pairs))]
+        if skip_unobserved and masks[r] == 0.0:
+            m_cols, p_cols = mp, pp
+            continue
         D = [d[r, j][:, None] for j in range(q)]
         m_cols, p_cols, term = _masked_obs_update_cols(
             q, pairs, where, mp, pp, D, y[r][:, None], om[r][:, None],
@@ -90,17 +102,33 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
 
 
 def _fenrir_backward_tan_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
-                               n_tan):
+                               n_tan, skip_unobserved=True):
     """Plain PyTorch twin of ``csrc/fenrir_backward_batch_tan.cu``: K7b's
-    twin on the augmented chain and seeds read as Duals.  Returns each
-    block's log-density sum and its tangents ``(n_aug, n_block, B)``."""
+    twin on the augmented chain and seeds read as Duals, skipping the
+    observation update at steps without data as K11b does (unless
+    ``skip_unobserved=False``).  Returns each block's log-density sum and
+    its tangents ``(n_aug, n_block, B)``."""
     n_aug = 1 + n_tan
     q = b.shape[1] // n_aug
     n_tri = C.shape[1] // n_aug
     ld = _fenrir_backward_plain(
         split(A, q * q, axis=1), split(b, q, axis=1), split(C, n_tri, axis=1),
-        d, y, om, mask, split(m_seed, q), split(p_seed, n_tri))
+        d, y, om, mask, split(m_seed, q), split(p_seed, n_tri),
+        skip_unobserved)
     return rows(ld)
+
+
+def _fenrir_backward_batch_tan_geometry(n_block, n_lane, n_tan,
+                                        device=None):
+    """The launch of kernel K11b (:func:`fenrir_backward_batch_tan`) over
+    ``n_block x n_lane`` columns and ``n_tan`` directions with aligned
+    operands on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
+    (its shared memory dynamic), with the stages of its shared-memory ring
+    and the steps a stage holds."""
+    return _launch_geometry("fenrir_backward_batch_tan", device, n_block,
+                            n_lane, n_tan,
+                            extra=("stages", "steps_per_stage"))
 
 
 def fenrir_backward_batch(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):

@@ -553,6 +553,17 @@ def _smoother_batch_rows_geometry(n_block, n_lane, device=None):
                             extra=("stages", "steps_per_stage"))
 
 
+def _smoother_single_geometry(n_block, device=None):
+    """The launch of kernel K4 (:func:`smoother_recursion`) over
+    ``n_block`` blocks with aligned operands on the card, as
+    :func:`_launch_geometry` reports it (its shared memory dynamic), with
+    the stages of its shared-memory ring, the rows a stage holds, the
+    blocks a CTA holds and the lanes of a block's row."""
+    return _launch_geometry("smoother_single", device, n_block,
+                            extra=("stages", "rows_per_stage",
+                                   "blocks_per_cta", "lanes_per_block"))
+
+
 def _check_mode(mode):
     if mode not in _MODES:
         raise NotImplementedError(

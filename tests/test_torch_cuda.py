@@ -13,8 +13,9 @@ K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
 geometry of K1 and K8, which run one thread per (lane, block), of K3,
 which runs one thread per block of its one solve, of K11a, K11c and K11d,
-which run one thread per (lane, direction, block), and of K6 and K2r,
-streams through a ring of shared-memory stages (``csrc/stream_ring.cuh``).
+which run one thread per (lane, direction, block), and of K6, K2r, K11b
+and K4, streams through a ring of shared-memory stages
+(``csrc/stream_ring.cuh``).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -379,8 +380,9 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
     tangent direction on their own; and their values against the kernels
     they extend, K1, K2r, K7b and K8, which must agree bitwise.  K11a and
     K11c, one thread per (lane, direction, block) with a barrier a step,
-    agree with their twins bitwise too, also where the lanes end inside a
-    CTA of 32 (37 and 100 lanes)."""
+    and K11b, a stream with a consumer warp per direction, agree with their
+    twins bitwise too, also where the lanes end inside a CTA of 32 (37 and
+    100 lanes)."""
     n_steps = 300
     cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 4,
                                 cuda_device)
@@ -416,6 +418,7 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
         ff._fenrir_backward_tan_plain(*chain[:-1], n_tan).movedim(1, 0))
     assert torch.isfinite(k7).all()
     assert max(_split_err(k7, p7, 1)) <= TWIN_TOL
+    assert torch.equal(k7, p7)
     chain0 = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
                                  *obs.values(), mode)
     assert torch.equal(k7[0], ff.fenrir_backward_batch(*chain0))
@@ -514,8 +517,8 @@ def test_gradient_entry_points_launch_their_kernels(cuda_device):
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
                                                       mode, t_max):
-    """K3 (bitwise), K4 (on K3's gains, over every step and over the
-    composed boundary steps) and K7a (on fenrir's chain) against their
+    """K3 (bitwise), K4 (bitwise, on K3's gains, over every step and over
+    the composed boundary steps) and K7a (on fenrir's chain) against their
     twins."""
     n_steps = 300
     cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
@@ -541,6 +544,7 @@ def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
                         fk._smoother_single_plain(*args)):
             assert torch.isfinite(a).all()
             assert _scaled_err(a, b) <= TWIN_TOL
+            assert torch.equal(a, b)
     obs = _obs(model, 11, t_max, cuda_device)
     ops["q_const"] = ff._const_coefs(Qs)
     chain = ff._fenrir_single_operands(fused, n_steps, 0.0, t_max, ops, Qs,
@@ -550,6 +554,122 @@ def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
         *chain[:-1]))
     assert torch.isfinite(k7)
     assert _scaled_err(k7, p7) <= TWIN_TOL
+
+
+def _put(a, device, offset):
+    """``a`` as float32 on the card, in a buffer of its own that starts
+    ``offset`` floats past a 16-byte boundary."""
+    a = np.ascontiguousarray(a, np.float32)
+    buf = torch.empty(a.size + offset, dtype=torch.float32, device=device)
+    t = buf[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+def _packed_psd(rng, shape, q, scale=1.0):
+    pairs, _ = fk._tri_idx(q)
+    M = scale * rng.standard_normal(shape + (q, q))
+    full = M @ np.swapaxes(M, -1, -2)
+    return np.stack([full[..., i, j] for i, j in pairs], axis=-1)
+
+
+@pytest.mark.parametrize("n_block", [1, 3, 7])
+def test_single_smoother_stream_is_bitwise_its_twin_on_the_card(cuda_device,
+                                                                n_block):
+    """K4, a stream of slabs through a ring of shared-memory stages (a
+    consumer and a producer warp), bitwise against its twin from 1 to 9999
+    rows: within a stage, one stage, a stage and one row, the ring and one
+    row, 9999; with 16-byte copies and with every operand 4 bytes past a
+    16-byte boundary (4-byte copies); at 7 blocks over two CTAs (4-byte
+    copies, run by run).  Its launch as the card reports it: CTAs of a
+    consumer and a producer warp, each block's row over 6 lanes or one,
+    all resident, no local memory."""
+    q = 3
+    geo = fk._smoother_single_geometry(n_block, device=cuda_device)
+    per = geo["blocks_per_cta"]
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+    assert geo["grid_x"] == -(-n_block // per), geo
+    assert per * geo["lanes_per_block"] <= 32, geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    rows, stages = geo["rows_per_stage"], geo["stages"]
+    for offset in (0, 1):
+        for n_len in (1, 2, rows - 1, rows, rows + 1, stages * rows + 1,
+                      9999):
+            if offset and n_len == 9999:
+                continue
+            rng = np.random.default_rng(60 + n_len + offset)
+            G = np.eye(q).reshape(1, 1, q * q) * 0.5 + \
+                0.1 * rng.standard_normal((n_len, n_block, q * q))
+            args = [_put(a, cuda_device, offset) for a in (
+                rng.standard_normal((n_len, n_block, q)), G,
+                _packed_psd(rng, (n_len, n_block), q),
+                rng.standard_normal((n_block, q)),
+                _packed_psd(rng, (n_block,), q))]
+            _reset_launches()
+            out_k = fk.smoother_recursion(*args)
+            assert _launched() == {"smoother_single": 1}, n_len
+            out_p = fk._smoother_single_plain(*args)
+            for name, a, b in zip(["ms", "ps"], out_k, out_p):
+                assert torch.isfinite(a).all(), (name, n_len, offset)
+                assert torch.equal(a, b), (name, n_len, offset)
+
+
+@pytest.mark.parametrize("n_lane,offset", [(37, 0), (100, 0), (64, 1)])
+@pytest.mark.parametrize("n_tan", [1, 2, 3, 4])
+def test_fenrir_tangent_stream_is_bitwise_its_twin_on_the_card(cuda_device,
+                                                               n_tan, n_lane,
+                                                               offset):
+    """K11b, a stream with a consumer warp per direction, bitwise against
+    its twin (which skips the update at steps without data, as K11b does)
+    over step counts that are no multiple of its stage (one step, a stage,
+    a stage and one step, the ring and one step, 301), where the columns
+    end inside a CTA of 32 (37 and 100 lanes of 3 blocks), where n_lane x 3
+    is no multiple of 4 (37) and where every operand starts 4 bytes past a
+    16-byte boundary (offset 1): the last two copy 4 bytes at a time.  Data
+    at every third step.  Its launch as the card reports it: CTAs of 32
+    columns, n_tan consumer warps and a producer warp, all resident, no
+    local memory, at 2048 lanes at least one CTA per SM."""
+    q, nb = 3, 3
+    n_tri, n_aug = 6, 1 + n_tan
+    geo = ff._fenrir_backward_batch_tan_geometry(nb, n_lane, n_tan,
+                                                  device=cuda_device)
+    n_col = nb * n_lane
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (32 * n_aug, 1,
+                                                           1), geo
+    assert geo["grid_x"] == -(-n_col // 32), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    assert ff._fenrir_backward_batch_tan_geometry(
+        nb, 2048, n_tan, device=cuda_device)["ctas_at_least_sms"]
+    step, stages = geo["steps_per_stage"], geo["stages"]
+    for n_steps in (1, step, step + 1, stages * step + 1, 301):
+        rng = np.random.default_rng(80 + n_steps + n_tan)
+
+        def aug(v, axis):
+            return np.concatenate([v] + [0.1 * rng.standard_normal(v.shape)
+                                         for _ in range(n_tan)], axis=axis)
+
+        mask = (np.arange(n_steps) % 3 == 0).astype(np.float64)
+        A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+            0.1 * rng.standard_normal((n_steps, q * q, nb, n_lane))
+        chain = [_put(a, cuda_device, offset) for a in (
+            aug(A, 1), aug(rng.standard_normal((n_steps, q, nb, n_lane)), 1),
+            aug(np.moveaxis(_packed_psd(rng, (n_steps, nb, n_lane), q, 0.3),
+                            -1, 1), 1),
+            rng.standard_normal((n_steps, q, nb)) * mask[:, None, None],
+            rng.standard_normal((n_steps, nb)) * mask[:, None],
+            np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, nb)),
+                     1.0),
+            mask, aug(rng.standard_normal((q, nb, n_lane)), 0),
+            aug(np.moveaxis(_packed_psd(rng, (nb, n_lane), q), -1, 0), 0),
+            rng.standard_normal((n_aug, n_lane)))]
+        _reset_launches()
+        k11 = ff.fenrir_backward_batch_tan(*chain)
+        assert _launched() == {"fenrir_backward_batch_tan": 1}, n_steps
+        p11 = chain[-1] + fd._block_sum(ff._fenrir_backward_tan_plain(
+            *chain[:-1], n_tan).movedim(1, 0))
+        assert k11.shape == (n_aug, n_lane), n_steps
+        assert torch.isfinite(k11).all(), n_steps
+        assert torch.equal(k11, p11), n_steps
 
 
 @pytest.mark.parametrize("n_steps", [1, 2, 37, 10000])

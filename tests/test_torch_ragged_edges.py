@@ -1,32 +1,48 @@
 """
-The twins of the single-solve filter K3 and of the smoother rows K2r
+The twins of the single-solve filter K3, of the smoother rows K2r, of the
+single-solve smoother K4 and of fenrir's tangent backward filter K11b
 against the JAX package at the edges that the kernels' designs have to
 mask, with the JAX package's Pallas kernels in interpret mode.
 
-K2r streams its operands through a ring of shared-memory stages of a few
-steps each (``csrc/stream_ring.cuh``), in CTAs of 32 columns: its last stage
-holds fewer steps than the others when the step count is no multiple of the
-stage's, and its last CTA fewer columns than 32 when the (block, lane)
-columns are no multiple of 32.  So ``_smoother_batch_rows_plain`` is held
-to ``_smoother_kernel_batch_rows`` at 1, 2, 5 and 9 interior steps over 3
-blocks of 37 lanes (111 columns).  K3 runs one thread per block, the
-threads meeting once a step; ``_filter_single_plain`` is held to
+K2r and K11b stream their operands through a ring of shared-memory stages
+of a few steps each (``csrc/stream_ring.cuh``), in CTAs of 32 columns:
+their last stage holds fewer steps than the others when the step count is
+no multiple of the stage's, and their last CTA fewer columns than 32 when
+the (block, lane) columns are no multiple of 32.  So
+``_smoother_batch_rows_plain`` is held to ``_smoother_kernel_batch_rows``
+at 1, 2, 5 and 9 interior steps over 3 blocks of 37 lanes (111 columns),
+and ``_fenrir_backward_tan_plain`` to ``_fenrir_backward_kernel_batch_tan``
+at 1, 2, 5 and 9 steps over the same 111 columns, with 1 and 3 tangent
+directions (one consumer warp each), on a grid with steps with data and
+without (the twin, like K11b, skips the update at the latter).  K4 streams
+slabs of 16 rows of the single layout (T, NB, D) through the same ring, the
+top stage holding the rows left over, in CTAs of 5 blocks, each block's row
+spread over 6 lanes; ``_smoother_single_plain`` is held to
+``_smoother_recursion_kernel`` at 1, 2, 5, 9 and 17 rows for 1, 3 and 7
+blocks (7: two CTAs, the second of 2 blocks).  K3 runs one thread per
+block, the threads meeting once a step; ``_filter_single_plain`` is held to
 ``_filter_kernel`` at 1 and 2 steps, Lorenz63 EK1 and FitzHugh-Nagumo EK0.
 The card then runs the kernels at the same shapes against these twins
 (``tests/test_torch_cuda.py``).  Both sides work in float32 and round
 differently (XLA contracts and reorders), so arrays are held to SCALED_TOL
 = 1e-4 of their largest entry, as in ``tests/test_torch_single.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from rodeo_tpu.models import fitzhugh as jfitzhugh, lorenz as jlorenz
+from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
 
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
+from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 
 SCALED_TOL = 1e-4
@@ -37,6 +53,24 @@ TMODELS = {"lorenz": tlorenz, "fitzhugh": tfitzhugh}
 def _scaled_err(port, ref):
     port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
     return np.abs(port - ref).max() / np.abs(ref).max()
+
+
+def _f32(a):
+    return np.ascontiguousarray(a, np.float32)
+
+
+def _vmem(shape):
+    return pl.BlockSpec(shape, lambda i: tuple([0] * len(shape)),
+                        memory_space=pltpu.VMEM)
+
+
+def _psd(rng, shape, q, scale=1.0):
+    """Packed symmetric positive semi-definite matrices M M' of ``shape``,
+    packed on a new last axis."""
+    pairs, _ = fk._tri_idx(q)
+    M = scale * rng.standard_normal(shape + (q, q))
+    full = M @ np.swapaxes(M, -1, -2)
+    return np.stack([full[..., i, j] for i, j in pairs], axis=-1)
 
 
 @pytest.mark.parametrize("n_len", [1, 2, 5, 9])
@@ -101,3 +135,97 @@ def test_filter_single_twin_matches_pallas_at_few_steps(model, mode, t_max,
         assert a.shape == b.shape == (n_steps, jmod.N_VARS, a.shape[-1]), name
         assert torch.isfinite(a).all(), name
         assert _scaled_err(a, b) <= SCALED_TOL, name
+
+
+@pytest.mark.parametrize("n_block", [1, 3, 7])
+@pytest.mark.parametrize("n_len", [1, 2, 5, 9, 17])
+def test_smoother_single_twin_matches_pallas_at_ragged_shapes(n_len,
+                                                              n_block):
+    """Seeded gains in the single layout (T, NB, D); n_len rows."""
+    rng = np.random.default_rng(50 + 3 * n_len + n_block)
+    q = 3
+    n_tri = q * (q + 1) // 2
+    G = np.eye(q).reshape(1, 1, q * q) * 0.5 + \
+        0.1 * rng.standard_normal((n_len, n_block, q * q))
+    args = [_f32(a) for a in (
+        rng.standard_normal((n_len, n_block, q)), G,
+        _psd(rng, (n_len, n_block), q), rng.standard_normal((n_block, q)),
+        _psd(rng, (n_block,), q))]
+    kern = functools.partial(pk._smoother_recursion_kernel, n_len, q,
+                             n_block, n_tri)
+    ms_j, ps_j = pl.pallas_call(
+        kern, out_shape=[
+            jax.ShapeDtypeStruct((n_len, n_block, q), jnp.float32),
+            jax.ShapeDtypeStruct((n_len, n_block, n_tri), jnp.float32)],
+        grid=(1,), in_specs=[_vmem(a.shape) for a in args],
+        out_specs=[_vmem((n_len, n_block, q)),
+                   _vmem((n_len, n_block, n_tri))],
+        scratch_shapes=[pltpu.VMEM((n_block, q), jnp.float32),
+                        pltpu.VMEM((n_block, n_tri), jnp.float32)],
+        interpret=True)(*args)
+    fk.LAUNCHES["smoother_single"] = 0
+    ms_t, ps_t = fk.smoother_recursion(*map(torch.from_numpy, args))
+    assert fk.LAUNCHES["smoother_single"] == 0    # the CPU takes the twin
+    assert ms_t.shape == ms_j.shape and ps_t.shape == ps_j.shape
+    assert torch.isfinite(ms_t).all() and torch.isfinite(ps_t).all()
+    assert _scaled_err(ms_t, ms_j) <= SCALED_TOL
+    assert _scaled_err(ps_t, ps_j) <= SCALED_TOL
+
+
+@pytest.mark.parametrize("n_tan", [1, 3])
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 9])
+def test_fenrir_backward_tan_twin_matches_pallas_at_ragged_shapes(n_steps,
+                                                                  n_tan):
+    """A seeded augmented chain over 3 blocks x 37 lanes, data at steps 0,
+    3, 6, ..; the values and each tangent direction on their own."""
+    rng = np.random.default_rng(70 + 2 * n_steps + n_tan)
+    q, nb, B = 3, 3, 37
+    n_tri = q * (q + 1) // 2
+    n_aug = 1 + n_tan
+
+    def aug(v, axis):
+        return np.concatenate(
+            [v] + [0.1 * rng.standard_normal(v.shape) for _ in range(n_tan)],
+            axis=axis)
+
+    mask = (np.arange(n_steps) % 3 == 0).astype(np.float64)
+    A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+        0.1 * rng.standard_normal((n_steps, q * q, nb, B))
+    ch = dict(
+        A=aug(A, 1), b=aug(rng.standard_normal((n_steps, q, nb, B)), 1),
+        C=aug(np.moveaxis(_psd(rng, (n_steps, nb, B), q, 0.3), -1, 1), 1),
+        d=rng.standard_normal((n_steps, q, nb)) * mask[:, None, None],
+        y=rng.standard_normal((n_steps, nb)) * mask[:, None],
+        om=np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, nb)),
+                    1.0),
+        mask=mask, m_seed=aug(rng.standard_normal((q, nb, B)), 0),
+        p_seed=aug(np.moveaxis(_psd(rng, (nb, B), q), -1, 0), 0),
+        ld0=rng.standard_normal((n_aug, B)))
+    ch = {k: _f32(v) for k, v in ch.items()}
+    kern = functools.partial(pf._fenrir_backward_kernel_batch_tan, n_tan,
+                             n_steps, q, nb, n_tri, B)
+    ref = pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct((n_aug, B), jnp.float32),
+        grid=(1,),
+        in_specs=[_vmem((n_steps, n_aug * q * q, nb, B)),
+                  _vmem((n_steps, n_aug * q, nb, B)),
+                  _vmem((n_steps, n_aug * n_tri, nb, B)),
+                  _vmem((n_steps, q, nb, 1)), _vmem((n_steps, 1, nb, 1)),
+                  _vmem((n_steps, 1, nb, 1)), _vmem((n_steps, 1)),
+                  _vmem((n_aug * q, nb, B)), _vmem((n_aug * n_tri, nb, B)),
+                  _vmem((n_aug, B))],
+        out_specs=_vmem((n_aug, B)),
+        scratch_shapes=[pltpu.VMEM((n_aug * q, nb, B), jnp.float32),
+                        pltpu.VMEM((n_aug * n_tri, nb, B), jnp.float32),
+                        pltpu.VMEM((n_aug, B), jnp.float32)],
+        interpret=True,
+    )(ch["A"], ch["b"], ch["C"], ch["d"][..., None],
+      ch["y"][:, None, :, None], ch["om"][:, None, :, None],
+      ch["mask"][:, None], ch["m_seed"], ch["p_seed"], ch["ld0"])
+    ff.LAUNCHES["fenrir_backward_batch_tan"] = 0
+    port = ff.fenrir_backward_batch_tan(*[torch.from_numpy(ch[k]) for k in (
+        "A", "b", "C", "d", "y", "om", "mask", "m_seed", "p_seed", "ld0")])
+    assert ff.LAUNCHES["fenrir_backward_batch_tan"] == 0
+    assert port.shape == (n_aug, B) and torch.isfinite(port).all()
+    for a in range(n_aug):
+        assert _scaled_err(port[a], ref[a]) <= SCALED_TOL, a

@@ -1,20 +1,26 @@
 """
-DALTON's filter twins skip the observation update at steps without data,
-and the launch of the split kernels K1, K3, K8, K11a, K11c and K11d, and of
-the streams K6 and K2r, is the card's.
+The filter twins of DALTON and fenrir's tangent backward twin skip the
+observation update at steps without data, and the launch of the split
+kernels K1, K3, K8, K11a, K11c and K11d, and of the streams K6, K2r, K4 and
+K11b, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
 and its log-density term, where the step's mask is 0, and so do their plain
-twins ``_dalton_filter_plain`` and ``_dalton_filter_tan_plain`` by default.
-At such a step the update is an exact identity (the gain is 0 and the term
-enters as 0 x a finite number), so skipping it must change no bit: the
-tests hold each twin with the skip to the same twin running the full
-update, bitwise, on Lorenz63 EK1 and FitzHugh-Nagumo EK0 with data, the
-values, the log-density and every tangent direction.  Sizes: 300 steps x 3
-lanes, 11 observations (every 30th step), float32 on the CPU.  The launch
-geometry of K1, K3, K8, K11a, K11c, K11d, K6 and K2r comes from the card
-alone (the card tests check it); here its queries must raise.
+twins ``_dalton_filter_plain`` and ``_dalton_filter_tan_plain`` by default;
+K11b (``csrc/fenrir_backward_batch_tan.cu``) and its twin
+``_fenrir_backward_tan_plain`` do the same in fenrir's backward filter,
+which they share with K7b's twin ``_fenrir_backward_plain``
+(``skip_unobserved``, off for K7b and K7a).  At such a step the update is
+an exact identity (the gain is 0 and the term enters as 0 x a finite
+number), so skipping it must change no bit: the tests hold each twin with
+the skip to the same twin running the full update, bitwise, on Lorenz63
+EK1 and FitzHugh-Nagumo EK0 with data (and fenrir's also on a grid without
+any), the values, the log-density and every tangent direction.  Sizes: 300
+steps x 3 lanes, 11 observations (every 30th step), float32 on the CPU.
+The launch geometry of K1, K3, K8, K11a, K11c, K11d, K6, K2r, K4 and K11b
+comes from the card alone (the card tests check it); here its queries must
+raise.
 """
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from rodeo_tpu_torch.models import fitzhugh, lorenz
 from rodeo_tpu_torch.models import obs as obs_models
 from rodeo_tpu_torch.ops import fused_dalton as fd
 from rodeo_tpu_torch.ops import fused_daltonng as fdn
+from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 from rodeo_tpu_torch.ops import fused_sim as fs
 
@@ -126,6 +133,51 @@ def test_dalton_entry_points_take_the_skip():
     assert grad.shape == (N_LANE, 3) and torch.isfinite(grad).all()
 
 
+def _fenrir_chains(model, with_obs):
+    """The operands of K11b and of K7b (the seed ``ld0`` last) for
+    :func:`_call`'s batch; without data, on a grid with none (d = 0, y =
+    0, om = 1, mask = 0)."""
+    c = _call(model)
+    ops = fk._kernel_operands(c["thetas"], c["ode_weight"], c["ode_inits"],
+                              0.0, c["t_max"], N_STEPS, c["prior_pars"])
+    obs = [c[k] for k in ("obs_data", "obs_times", "obs_weight", "obs_var")]
+    chains = [ff._fenrir_operands(fk.resolve_model(model), N_STEPS, 0.0,
+                                  c["t_max"], ops, *obs, c["interrogation"],
+                                  tangent=tangent) for tangent in (True, False)]
+    if not with_obs:
+        chains = [(*ch[:3], torch.zeros_like(ch[3]), torch.zeros_like(ch[4]),
+                   torch.ones_like(ch[5]), torch.zeros_like(ch[6]), *ch[7:])
+                  for ch in chains]
+    return chains
+
+
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_fenrir_tan_twin_skip_is_the_full_update(model, with_obs):
+    """K11b's twin: the values and each tangent direction with the skip
+    equal the full update's bitwise; the shared twin of K7b with the skip
+    equals its full update, and K11b's values equal it.  Without data both
+    sum nothing."""
+    tan, val = _fenrir_chains(model, with_obs)
+    n_data = int((tan[6] != 0).sum())
+    assert 0 < n_data < N_STEPS if with_obs else n_data == 0
+    skip = ff._fenrir_backward_tan_plain(*tan[:-1], 3)
+    full = ff._fenrir_backward_tan_plain(*tan[:-1], 3, skip_unobserved=False)
+    n_block = CASES[model][0].N_VARS
+    assert skip.shape == (4, n_block, N_LANE)
+    assert torch.isfinite(skip).all()
+    assert all(torch.equal(skip[a], full[a]) for a in range(4))
+    value = ff._fenrir_backward_plain(*val[:-1])
+    assert torch.equal(ff._fenrir_backward_plain(*val[:-1],
+                                                 skip_unobserved=True), value)
+    assert torch.equal(skip[0], value)
+    if with_obs:
+        # the tangents are carried: some direction moves every block's sum
+        assert (skip[1:] != 0).any(dim=0).all()
+    else:
+        assert not skip.any()       # no data, no log-density
+
+
 @pytest.mark.parametrize("query,takes_mode", [
     (lambda **kw: fk._filter_batch_geometry("lorenz", 37, **kw), True),
     (lambda **kw: fd._dalton_filter_batch_geometry("fitzhugh", 37, **kw),
@@ -137,8 +189,12 @@ def test_dalton_entry_points_take_the_skip():
         "fitzhugh", obs_models.poisson(0.1, 0.05), 37, **kw), True),
     (lambda **kw: fs._sampler_batch_geometry(111, **kw), False),
     (lambda **kw: fk._filter_single_geometry("fitzhugh", **kw), True),
-    (lambda **kw: fk._smoother_batch_rows_geometry(3, 37, **kw), False)],
-    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6", "K3", "K2r"])
+    (lambda **kw: fk._smoother_batch_rows_geometry(3, 37, **kw), False),
+    (lambda **kw: fk._smoother_single_geometry(7, **kw), False),
+    (lambda **kw: ff._fenrir_backward_batch_tan_geometry(3, 37, 3, **kw),
+     False)],
+    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6", "K3", "K2r", "K4",
+         "K11b"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

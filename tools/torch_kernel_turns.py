@@ -2,12 +2,16 @@
 """
 Time kernels of rodeo_tpu_torch against the same kernels built from other
 checkouts' sources, on one NVIDIA GPU, in turns, on the same inputs: K1
-(filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K6
-(sampler_batch) and K11d (filter_nn_batch_tan).
+(filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K4
+(smoother_single), K6 (sampler_batch), K7b (fenrir_backward_batch), K7a
+(fenrir_backward_single), K11b (fenrir_backward_batch_tan) and K11d
+(filter_nn_batch_tan).
 
     python3 tools/torch_kernel_turns.py --other DIR [DIR ...]
         [--kernels {filter_batch,smoother_batch_rows,filter_single,
-                    sampler_batch,filter_nn_batch_tan} ...] [--out PATH]
+                    smoother_single,sampler_batch,fenrir_backward_batch,
+                    fenrir_backward_single,fenrir_backward_batch_tan,
+                    filter_nn_batch_tan} ...] [--out PATH]
 
 Each DIR is the root of another checkout of the repository (for example the
 parent commit unpacked with ``git archive``, or a copy with a kernel's
@@ -17,17 +21,21 @@ process; the wrappers of this checkout launch any of them.  Inputs are the
 main paths' of ``chip_smoke.py``, Lorenz63 EK1: K1 on the batched solve,
 10 000 steps x 2048 lanes (phase ``main``); K2r on K1's gains there and at
 4000 steps x 2048 lanes (``likelihood``); K3 on one solve of 10 000 and
-4000 steps (``single``); K6 on the draw operands of the solve
-(``sim``); K11d on non-Gaussian DALTON's fixture, 4000 steps x 2048
+4000 steps (``single``); K4 on that solve's gains, 9999 rows, and on the
+boundary steps of its 16-step groups (``single``); K6 on the draw operands
+of the solve (``sim``); K7b and K11b on fenrir's chain at 4000 steps x
+2048 lanes, 21 observations of rng(0).normal x 5, variance 0.005
+(``likelihood``, ``grad``); K7a on one fenrir evaluation of that fixture
+(``single``); K11d on non-Gaussian DALTON's fixture, 4000 steps x 2048
 lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
 (``daltonng_kernels``).  Each kernel is timed in three rounds of this
 checkout's library, then each other's, each time the median device time
 of 5 launches by CUDA events (a sleep holds the stream while the host
 enqueues the wrapper), and every library's output must agree bitwise with
 this checkout's.  Prints the card's name and power limit, ptxas' report of
-the timed kernels in every library, the SASS instructions of K3's step
-loop in every library (``cuobjdump``, where the toolkit has it), and one
-JSON line per kernel and shape, also written to ``--out`` (default
+the timed kernels in every library, the SASS instructions of K3's and K4's
+step loops in every library (``cuobjdump``, where the toolkit has it), and
+one JSON line per kernel and shape, also written to ``--out`` (default
 build/kernel_turns.jsonl).  Exits non-zero without a CUDA device, or if
 two outputs differ.
 """
@@ -49,8 +57,14 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 KERNELS = {"filter_batch": "19filter_batch_kernel",
            "smoother_batch_rows": "26smoother_batch_rows_kernel",
            "filter_single": "20filter_single_kernel",
+           "smoother_single": "22smoother_single_kernel",
            "sampler_batch": "20sampler_batch_kernel",
+           "fenrir_backward_batch": "22fenrir_backward_kernel",
+           "fenrir_backward_single": "29fenrir_backward_single_kernel",
+           "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
            "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
+# the kernels whose step loop is printed
+SASS_KERNELS = ("filter_single", "smoother_single")
 
 
 def main():
@@ -70,6 +84,7 @@ def main():
     from rodeo_tpu_torch.models import obs as obs_models
     from rodeo_tpu_torch.ops import _build
     from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
     from rodeo_tpu_torch.ops import fused_sim as fs
 
@@ -108,10 +123,13 @@ def main():
                 print(name, " | ".join(x.strip() for x in lines[i:i + 4]
                                        if "Compiling" in x or "spill" in x
                                        or "registers" in x), flush=True)
-    if "filter_single" in args.kernels:
-        for name, path in paths.items():
-            print(json.dumps({"library": name, "sass": _build.sass_loops(
-                KERNELS["filter_single"], path)}), flush=True)
+    for kernel in SASS_KERNELS:
+        if kernel in args.kernels:
+            for name, path in paths.items():
+                print(json.dumps({"library": name, "kernel": kernel,
+                                  "sass": _build.sass_loops(KERNELS[kernel],
+                                                            path)}),
+                      flush=True)
 
     def device_ms(fn):
         fn()
@@ -266,10 +284,83 @@ def main():
             out.append(line)
         return out
 
+    def single_states(n_s):
+        """One solve of n_s steps through K3: its operands, the float32
+        transition and the filter's moments."""
+        cfg = lorenz.setup(n_steps=n_s, t_max=20.0, dtype=torch.float32,
+                           device=dev)
+        ops, Qs = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                      cfg["ode_init"], 0.0, 20.0, n_s,
+                                      cfg["prior_pars"])
+        return ops, Qs, fk.fused_filter(fk.resolve_model("lorenz"), n_s,
+                                        **ops, mode="kramer")
+
+    def time_smoother_single():
+        """K4 on one solve's gains, 9999 rows, and on the boundary steps of
+        its 16-step groups."""
+        ops, Qs, (mf, pf, mp, pp) = single_states(10000)
+        states = (mf[:-1], pf[:-1], mp[1:], pp[1:])
+        comp, _ = fk._composed_suffixes(ops["q_const"], ops["prior_var"],
+                                        *states, 16)
+        out = []
+        for gains, label in (
+                (fk._smoother_gains(Qs, ops["prior_var"], *states), "rows"),
+                (fk._boundary_operands(comp), "boundary groups of 16")):
+            k4_args = (*gains, mf[-1], pf[-1])
+            n_rows = k4_args[0].shape[0]
+            out.append(turns(
+                "smoother_single", lambda: fk.smoother_recursion(*k4_args),
+                nbytes(*k4_args) + nbytes(k4_args[0], k4_args[2]),
+                shape=f"{n_rows} {label}"))
+        return out
+
+    def fenrir_obs(n_obs, seed):
+        """bench.py's observation model on Lorenz63 to t = 20."""
+        weight = torch.zeros((n_obs, 3, 1, 3), device=dev)
+        weight[..., 0] = 1.0
+        data = np.random.default_rng(seed).normal(size=(n_obs, 3, 1)) * 5
+        return (torch.tensor(data, dtype=torch.float32, device=dev),
+                torch.tensor(np.linspace(0.0, 20.0, n_obs),
+                             dtype=torch.float32),
+                weight, torch.full((n_obs, 3, 1, 1), 0.005, device=dev))
+
+    def time_fenrir(tangent):
+        """K7b (or K11b) on fenrir's chain, 4000 steps x 2048 lanes."""
+        n_f, b_f = 4000, 2048
+        ops = solve_operands(n_f, b_f)
+        chain = ff._fenrir_operands(fk.resolve_model("lorenz"), n_f, 0.0,
+                                    20.0, ops, *fenrir_obs(21, 0), "kramer",
+                                    tangent=tangent)
+        del ops
+        wrapper = (ff.fenrir_backward_batch_tan if tangent
+                   else ff.fenrir_backward_batch)
+        n_aug = chain[-1].shape[0] if tangent else 1
+        line = turns(wrapper.__name__, lambda: wrapper(*chain),
+                     nbytes(*chain) + 4 * n_aug * 3 * b_f,
+                     shape=f"{n_f} x {b_f}")
+        del chain
+        torch.cuda.empty_cache()
+        return [line]
+
+    def time_fenrir_single():
+        """K7a on one fenrir evaluation, 4000 steps."""
+        ops, Qs, _ = single_states(4000)
+        ops["q_const"] = ff._const_coefs(Qs)
+        chain = ff._fenrir_single_operands(
+            fk.resolve_model("lorenz"), 4000, 0.0, 20.0, ops, Qs,
+            *fenrir_obs(21, 0), "kramer")
+        return [turns("fenrir_backward_single",
+                      lambda: ff.fenrir_backward_single(*chain),
+                      nbytes(*chain) + 4 * 3, shape="4000 steps")]
+
     timed = {"filter_batch": time_filter_batch,
              "smoother_batch_rows": time_rows,
              "filter_single": time_single,
+             "smoother_single": time_smoother_single,
              "sampler_batch": lambda: [time_sampler()],
+             "fenrir_backward_batch": lambda: time_fenrir(False),
+             "fenrir_backward_single": time_fenrir_single,
+             "fenrir_backward_batch_tan": lambda: time_fenrir(True),
              "filter_nn_batch_tan": lambda: [time_nn_tan()]}
     lines = [line for name in args.kernels for line in timed[name]()]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
