@@ -29,7 +29,7 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              kernels K6 (sampler_batch), K7b (fenrir_backward_batch) and K8
              (dalton_filter_batch) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes: Lorenz63 EK1, and for K8 also
-             FitzHugh-Nagumo EK0, with and without data, K6 and K8
+             FitzHugh-Nagumo EK0, with and without data, all three
              bitwise;
 8. k11_twin  the tangent kernels K11a (filter_batch_tan), K11b
              (fenrir_backward_batch_tan), K11c (dalton_filter_batch_tan) and
@@ -48,9 +48,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              audit of lane 0 against the cached float64 truth, DALTON's two
              K8 launches counted by with_obs; then its time per call and
              peak memory, and K7b and K8 timed and checked against their
-             twins at these shapes, K8's launch with data and without each
-             alone and bitwise, with its launch as the card reports it and
-             ptxas' registers and spills;
+             twins at these shapes, both bitwise, K8's launch with data and
+             without each alone, each with its launch as the card reports
+             it and ptxas' registers and spills (K7b's achieved bytes/s
+             beside them, its operations counted from the skipping twin);
 10. grad     the gradients at full width: the likelihood fixture through
              fenrir_fused_batch_grad, dalton_fused_batch_grad and
              basic_fused_batch_grad, and bench.py's FitzHugh-Nagumo fixture
@@ -139,8 +140,8 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (filter_nn_batch_tan) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes, 21 observations (every 50th
              step): Lorenz63 EK1 with Gaussian data and FitzHugh-Nagumo EK0
-             with Poisson counts; per output and tangent direction, K11d
-             bitwise and its values K9's;
+             with Poisson counts; per output and tangent direction, K9 and
+             K11d bitwise and K11d's values K9's;
 21. daltonng bench.py's non-Gaussian DALTON fixture at full width:
              Lorenz63 EK1, 4000 steps to t = 20, 21 observations of
              rng(1).normal x 5 with Gaussian variance 0.005, 2048 lanes.
@@ -157,9 +158,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (DALTONNG_FITZ_VALUE_TOL, DALTONNG_FITZ_TOL); then the time per
              call of each, their ratio and peak memory;
 22. daltonng_kernels  K9 and K11d alone at the path's shapes, timed and
-             checked against their twins there (K11d bitwise, its values
-             K9's, with its launch as the card reports it, ptxas' registers
-             and spills and its achieved bytes/s), and the other kernels of
+             checked against their twins there (both bitwise, K11d's values
+             K9's, each with its launch as the card reports it, ptxas'
+             registers and spills and its achieved bytes/s), and the other
+             kernels of
              the two calls (K2r, K1, K11a, K11e) timed there, for the time
              each call spends outside its kernels;
 
@@ -168,9 +170,10 @@ kernel's launches on its path,
 error against its twin, time on the device (ms) and of its wrapper's call
 (call_ms), its plain twin's time and its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
-from its twin, over 67 TFLOP/s; K8's and K11c's from the steps without and
-with data of their grid, since the twin skips the observation update where
-there is none; K8's and K11c's two launches are two entries each), and,
+from its twin, over 67 TFLOP/s; K7b's, K8's, K11b's and K11c's from the
+steps without and with data of their grid, since the twin skips the
+observation update where there is none; K8's and K11c's two launches are
+two entries each), and,
 last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
@@ -283,20 +286,22 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/with_obs",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
-# The kernels that run one thread per (lane, block), K1 and K8, per block
-# of one solve, K3, or per (lane, direction, block), K11a, K11c and K11d,
-# bitwise against their twins, and the mangled names of their kernels.
+# The kernels that run one thread per (lane, block), K1, K8 and K9, per
+# block of one solve, K3, or per (lane, direction, block), K11a, K11c and
+# K11d, bitwise against their twins, and the mangled names of their kernels.
 SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "filter_single": "20filter_single_kernel",
                  "dalton_filter_batch": "20dalton_filter_kernel",
+                 "filter_nn_batch": "22filter_nn_batch_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
                  "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
-# K6, K2r and K11b, streams of 32 columns a CTA through a ring of
+# K6, K2r, K7b and K11b, streams of 32 columns a CTA through a ring of
 # shared-memory stages, bitwise against their twins, and the mangled names
 # of their kernels.
 STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
                   "smoother_batch_rows": "26smoother_batch_rows_kernel",
+                  "fenrir_backward_batch": "22fenrir_backward_kernel",
                   "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel"}
 # K4, a stream of slabs of the single-solve layout through the same ring,
 # one CTA for its one solve's blocks, bitwise against its twin.
@@ -649,7 +654,7 @@ def main():
         log (a Compiling line, then its stack and spill line, then its
         registers).  A filter's instantiation is named by its model,
         observation model, q, mode and with_obs; a stream's (K6, K2r, K4,
-        K11b) by q, K11b's directions and the floats a copy moves."""
+        K7b, K11b) by q, K11b's directions and the floats a copy moves."""
         rows, entry = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -689,10 +694,10 @@ def main():
         instantiation; checks, under phase, that its CTAs are all resident
         at once and that no instantiation spills.  A tangent kernel (a grid
         row per direction) and a stream of columns (K6, K2r, K11b) must
-        also have at least one CTA per SM.  A value filter (K1, K8) has no
-        direction axis: at 2048 lanes it runs 128 CTAs of 16 lanes (K1) or
-        64 of 32 (K8), fewer than the card's 132 SMs, so it is not held to
-        that; nor are K3 and K4 (SLAB_KERNELS), one CTA for one solve, nor
+        also have at least one CTA per SM.  A value filter (K1, K8, K9) has
+        no direction axis: at 2048 lanes it runs 128 CTAs of 16 lanes (K1)
+        or 64 of 32 (K8, K9), fewer than the card's 132 SMs, so it is not held
+        to that; nor are K3 and K4 (SLAB_KERNELS), one CTA for one solve, nor
         a stream at fewer columns than 32 a CTA on every SM (per_sm
         False: K11b on FitzHugh-Nagumo's 2 x 2048 columns, 128 CTAs)."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
@@ -916,8 +921,9 @@ def main():
                                    *obs.values(), "kramer")
 
     def fenrir_plain(*chain):
+        """K7b's twin, which skips the update at steps without data."""
         return chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
-            *chain[:-1]))
+            *chain[:-1], skip_unobserved=True))
 
     n_tw, b_tw = 1000, 256
     cfg_tw, thetas_tw, inits_tw = lane_setup(lorenz, n_tw, 2.0, b_tw,
@@ -941,12 +947,15 @@ def main():
           "bitwise": bitwise, "errors": errs, "ok": ok})
     del out_k, out_p
     chain = fenrir_chain(n_tw, 2.0, ops_tw, obs_tw)
-    errs = compare(["ld"], [ff.fenrir_backward_batch(*chain)],
-                   [fenrir_plain(*chain)])
-    ok = check("k7_twin", "lorenz/kramer", worst(errs)[1] <= TWIN_TOL)
+    out_k, out_p = ff.fenrir_backward_batch(*chain), fenrir_plain(*chain)
+    errs = compare(["ld"], [out_k], [out_p])
+    bitwise = torch.equal(out_k, out_p)
+    ok = check("k7_twin", "lorenz/kramer",
+               worst(errs)[1] <= TWIN_TOL and bitwise)
     emit({"phase": "k7_twin", "model": "lorenz", "mode": "kramer",
           "n_steps": n_tw, "n_lane": b_tw, "tol_scaled": TWIN_TOL,
-          "errors": errs, "ok": ok})
+          "bitwise": bitwise, "errors": errs, "ok": ok})
+    del out_k, out_p
     del k6_args, chain, eps, eps_term
     for model, mode, t_max_tw in (("lorenz", "kramer", 2.0),
                                   ("fitzhugh", "rodeo", 10.0)):
@@ -1149,6 +1158,15 @@ def main():
 
         return grid_ops(args_cpu["mask"], at)
 
+    def fenrir_ops(chain_cpu):
+        """K7b's float32 operations per lane over its grid (chain_on_cpu's
+        operands), as its twin, which skips the update at steps without
+        data, does them (grid_ops)."""
+        return grid_ops(chain_cpu[6], lambda idx: op_count(
+            lambda: ff._fenrir_backward_plain(
+                *[t[idx] for t in chain_cpu[:7]], *chain_cpu[7:],
+                skip_unobserved=True)))
+
     def fenrir_tan_ops(chain_cpu):
         """K11b's float32 operations per lane over its grid (chain_on_cpu's
         operands), as its twin does them (grid_ops)."""
@@ -1158,13 +1176,16 @@ def main():
 
     chain = fenrir_chain(n_ll, t_ll, ops_ll, obs_f)
     chain_cpu = chain_on_cpu(chain)
-    at_path_shapes(
+    _, entry = at_path_shapes(
         "likelihood", "fenrir_backward_batch", "pallas_fenrir.py:291",
         path_launches["fenrir"], lambda: ff.fenrir_backward_batch(*chain),
-        lambda: fenrir_plain(*chain), ["ld"],
-        lambda n: ff._fenrir_backward_plain(*[t[:n] for t in chain_cpu[:7]],
-                                            *chain_cpu[7:]),
-        n_ll * b_ll, chain, out_bytes=4 * 3 * b_ll)
+        lambda: fenrir_plain(*chain), ["ld"], None, None, chain,
+        n_ops=b_ll * fenrir_ops(chain_cpu), out_bytes=4 * 3 * b_ll,
+        shape=f"{n_ll} x {b_ll}",
+        **split_record("likelihood", "fenrir_backward_batch",
+                       "fenrir_backward_batch",
+                       ff._fenrir_backward_batch_geometry(3, b_ll)))
+    check("likelihood", "fenrir_backward_batch bitwise", entry["bitwise"])
     del chain, chain_cpu
     ops_d, obs_d, ld0_d = fd._dalton_prepare(
         thetas_ll, cfg_ll["ode_weight"], inits_ll, 0.0, t_ll, n_ll,
@@ -2203,7 +2224,7 @@ def main():
         out_k = fdn.filter_nn_batch(*args_nn, **kw_nn)
         twin_report("k9_twin", f"filter_nn_batch {config}", nn_names, out_k,
                     fdn._filter_nn_batch_plain(*args_nn, **kw_nn),
-                    n_lane=b_tw)
+                    need_bitwise=True, n_lane=b_tw)
         tan_k = fdn.filter_nn_batch_tan(*args_nn, **kw_nn)
         tan_p = fdn._filter_nn_batch_tan_plain(*args_nn, **kw_nn)
         torch.cuda.synchronize()
@@ -2402,7 +2423,13 @@ def main():
         lambda n: fdn._filter_nn_batch_plain(fused_ng, gauss_ng, (0,), n,
                                              **nn_steps(n), mode="kramer"),
         n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), repeats=3,
-        shape=f"{n_ng} x {b_ng}")
+        shape=f"{n_ng} x {b_ng}",
+        **split_record("daltonng_kernels", "filter_nn_batch",
+                       "filter_nn_batch",
+                       fdn._filter_nn_batch_geometry(
+                           "lorenz", gauss_ng, b_ng)))
+    check("daltonng_kernels", "filter_nn_batch bitwise",
+          at_ng["filter_nn_batch"]["bitwise"])
     # the other kernels of the two paths at these shapes, for the time the
     # calls spend outside kernels
     G9, b9, C9 = fdn._cond_params_cols(ops_ng, *out9)

@@ -50,16 +50,19 @@ _SIGNATURES = {
     # as rodeo_dalton_filter_batch
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
     # the launches of K1, K8, K11a and K11c: model, mode, (with_obs,)
-    # n_lane, out; of K11d: model, obs_model, mode, n_lane, out; of K6:
-    # n_col, out; of K3: model, mode, out; of K2r: n_block, n_lane, out
+    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
+    # K6: n_col, out; of K3: model, mode, out; of K2r and K7b: n_block,
+    # n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_sampler_batch_geometry": [_I, _P],
     "rodeo_filter_single_geometry": [_I, _I, _P],
     "rodeo_smoother_batch_rows_geometry": [_I, _I, _P],
+    "rodeo_fenrir_backward_batch_geometry": [_I, _I, _P],
     # of K4: n_block, out; of K11b: n_block, n_lane, n_tan, out
     "rodeo_smoother_single_geometry": [_I, _P],
     "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],

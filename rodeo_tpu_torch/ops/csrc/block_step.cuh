@@ -1,24 +1,21 @@
 // The filter step split over the blocks of a solve: one thread per (lane,
 // block), or per (lane, direction, block) in a tangent kernel, the threads of
 // one (lane, direction) meeting once a step.  Run by the value kernels K1
-// (filter_batch.cu), K3 (filter_single.cu, one lane) and K8
-// (dalton_filter_batch.cu) on float, and by the tangent kernels K11a
-// (filter_batch_tan.cu), K11c (dalton_filter_batch_tan.cu) and K11d
-// (filter_nn_batch_tan.cu) on Dual.
+// (filter_batch.cu), K3 (filter_single.cu, one lane), K8
+// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and by the
+// tangent kernels K11a (filter_batch_tan.cu), K11c
+// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
 // but one: the ODE is evaluated at the predicted mean of all blocks
 // (Model::f and jac0 read every block).  So each thread predicts its own
-// block (predict_block), publishes its predicted mean in original
-// coordinates to the other threads of its lane, and after a barrier
-// evaluates f and jac0 on the gathered means -- the same arithmetic in every
-// thread of the lane, so the same bits -- keeping its own block's entries;
-// the rest of the update (interrogate_update_block) is interrogate_update's
-// loop body for that block, operation for operation.  The values are
-// therefore those of the one-thread-per-lane step of filter_step.cuh
-// bitwise.  That step stays because K9 alone still runs it (its
-// filter_nn_step); the copy in interrogate_update_block goes when K9 moves
-// onto filter_nn_update_block.
+// block (predict_block of filter_step.cuh), publishes its predicted mean in
+// original coordinates to the other threads of its lane, and after a
+// barrier evaluates f and jac0 on the gathered means -- the same arithmetic
+// in every thread of the lane, so the same bits -- keeping its own block's
+// entries, and updates its block (interrogate_update_block).  The
+// arithmetic follows the plain PyTorch twins operation for operation, so
+// the kernels' outputs are theirs bitwise.
 //
 // A thread's block number is a runtime value: its constants are loaded once
 // by that index from device memory (BlockConsts), and an entry of a
@@ -37,10 +34,11 @@ namespace rodeo {
 
 // The launch of a split kernel: CTA (LANES lanes, NB blocks), grid (lane
 // groups, n_dir), n_dir the tangent directions of a tangent kernel and 1
-// for a value kernel.  Each kernel file fixes its LANES, the faster of 16
-// and 32 on the card (PERF.md).  At 32 a warp is 32 consecutive lanes of
-// one (block, direction), at 16 two blocks' 16; either way the stores of
-// a step are coalesced on the lane axis.  The threads of lanes >= n_lane
+// for a value kernel.  Each kernel file fixes its LANES, the fastest of
+// those measured on the card (PERF.md).  At 32 a warp is 32 consecutive
+// lanes of one (block, direction), at 16 two blocks' 16, at 8 three
+// blocks' (or four) 8; either way the stores of a step are coalesced on
+// the lane axis.  The threads of lanes >= n_lane
 // in the last lane group run masked.
 struct SplitGeometry {
   dim3 grid, block;
@@ -141,11 +139,15 @@ __device__ __forceinline__ void gather_means(
     for (int j = 0; j < Q; ++j) x[b][j] = xs[n & 1][b][j][tx];
 }
 
-// interrogate_update (filter_step.cuh) for block b alone, from the gathered
-// predicted means x of all blocks: the ODE and its Jacobian at x, then the
-// loop body of interrogate_update for b, operation for operation (x[b][0]
-// is recomputed from mp, as the gathered value was).  Returns the block's
-// innovation z, its variance S and 1 / S.
+// Interrogate the ODE at the gathered predicted means x of all blocks and
+// update block b from (mp, pp) into (m, P) (the column step of
+// _interrogate_update_cols, ops/fused_kalman.py): x[b][0] is recomputed
+// from mp, as the gathered value was.  Returns the block's innovation z,
+// its variance S (doubled under EK0) and 1 / S, the terms of the forecast
+// log-density.  The measurement row is H = W - J diag(tv), where the
+// block-diagonal Jacobian J has only column 0: its entries j > 0 are W's
+// constants, and H[0] depends on theta under EK1 (type T) and is W's
+// constant under EK0, as in the twin.
 template <class Model, int Q, int MODE, class T>
 __device__ __forceinline__ void interrogate_update_block(
     const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], float t,
@@ -251,19 +253,35 @@ struct ShuffleExchange {
   }
 };
 
+// The update of K1 and K3 at step n: the ODE's alone
+// (interrogate_update_block), for split_filter_steps.
+template <class Model, int Q, int MODE>
+__device__ __forceinline__ auto ode_update(const BlockConsts<Q>& c,
+                                           const float (&th)[Model::NTHETA],
+                                           int b) {
+  return [&c, &th, b](int, float t, const float (&x)[Model::NB][Q],
+                      const float (&mp)[Q], const float (&pp)[Tri<Q>::N],
+                      float (&m)[Q], float (&P)[Tri<Q>::N]) {
+    float z, S, inv_S;
+    interrogate_update_block<Model, Q, MODE>(c, th, t, x, b, mp, pp, m, P, z,
+                                             S, inv_S);
+  };
+}
+
 // The split filter's steps for block b of one lane, from the carry (m, P)
 // through n_steps steps: predict the block, publish its predicted mean,
 // predicted(n, m, P, mp, pp) with the carry (step n-1 filtered) and the
-// fresh prediction, gather all blocks' means (the step's one barrier), the
-// block's update into (m, P), then filtered(n, m, P).  K1 stores the step's
-// smoothing gains from predicted, K3 the predicted and filtered moments.
-template <class Model, int Q, int MODE, class Exchange, class Predicted,
+// fresh prediction, gather all blocks' means (the step's one barrier),
+// update(n, t, x, mp, pp, m, P) of the block into (m, P) from the gathered
+// means x, then filtered(n, m, P).  K1 and K3 update by ode_update, K9 by
+// filter_nn_update_block; K1 stores the step's smoothing gains from
+// predicted, K3 and K9 the predicted and filtered moments.
+template <class Model, int Q, class Exchange, class Update, class Predicted,
           class Filtered>
 __device__ __forceinline__ void split_filter_steps(
-    const BlockConsts<Q>& c, const float (&th)[Model::NTHETA],
-    const float* __restrict__ tgrid, int n_steps, int b, Exchange& ex,
-    float (&m)[Q], float (&P)[Tri<Q>::N], Predicted&& predicted,
-    Filtered&& filtered) {
+    const BlockConsts<Q>& c, const float* __restrict__ tgrid, int n_steps,
+    int b, Exchange& ex, float (&m)[Q], float (&P)[Tri<Q>::N],
+    Update&& update, Predicted&& predicted, Filtered&& filtered) {
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   for (int n = 0; n < n_steps; ++n) {
@@ -271,10 +289,9 @@ __device__ __forceinline__ void split_filter_steps(
     predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
     ex.publish(n, b, mp, c.tv);
     predicted(n, m, P, mp, pp);
-    float x[NB][Q], z, S, inv_S;
+    float x[NB][Q];
     ex.gather(n, x);
-    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
-                                             P, z, S, inv_S);
+    update(n, tgrid[n], x, mp, pp, m, P);
     filtered(n, m, P);
   }
 }
@@ -346,14 +363,17 @@ __device__ __forceinline__ void dalton_update_block(
   }
 }
 
-// Non-Gaussian DALTON's update of block b at step n (filter_nn_step of
-// filter_step.cuh for one block), after the step's barrier:
-// interrogate_update_block on the gathered means x, then, at a step with
-// data (mask[n] != 0), the block's masked Laplace pseudo-observation update
-// (laplace_update) of each component j in obs_dims, in ascending j.  The
-// Laplace updates read only the block's own moments and data, so the
-// blocks stay independent there and the values are filter_nn_step's
-// bitwise.  A step without data skips them, as filter_nn_step does.
+// Non-Gaussian DALTON's update of block b at step n (the step of
+// _filter_nn_batch_plain, ops/fused_daltonng.py, for one block), after the
+// step's barrier: interrogate_update_block on the gathered means x, then,
+// at a step with data (mask[n] != 0), the block's masked Laplace
+// pseudo-observation update (laplace_update of filter_step.cuh) of each
+// component j in obs_dims, in ascending j.  The Laplace updates read only
+// the block's own moments and data, so the blocks stay independent there.
+// A step without data skips them: there the masked update is an exact
+// identity (K = 0), and the twin skips it too.  The observation grid (y: N
+// x NB, iobs, mask: N) is shared by all lanes.  K9 runs it on float, K11d
+// on Dual.
 template <class Model, class Obs, int Q, int MODE, class T>
 __device__ __forceinline__ void filter_nn_update_block(
     const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], int n, float t,

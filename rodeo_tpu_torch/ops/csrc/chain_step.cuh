@@ -2,17 +2,18 @@
 // (block, lane) column: a row (A_n, b_n, C_n) of the chain -- the smoothing
 // gains (G_n, g_n, L_n) -- maps the state at step n+1 onto step n,
 //   m = b_n + A_n m,   P = C_n + A_n P A_n'.
-// The step is shared by the smoothers K2r (smoother_batch_rows.cu, which
-// streams the chain through stream_ring.cuh) and K4 (smoother_single.cu,
-// which runs smoother_recursion below), and by fenrir's backward filters
-// K7b, K7a and K11b through fenrir_step.cuh, so that all of them do the same
-// arithmetic as their plain twins (_smoother_batch_plain of
-// ops/fused_kalman.py, _fenrir_backward_plain of ops/fused_fenrir.py).
+// The step is shared by the smoothers K2r (smoother_batch_rows.cu) and K4
+// (smoother_single.cu), which stream the chain through stream_ring.cuh,
+// and by fenrir's backward filters K7b, K7a and K11b through
+// fenrir_step.cuh, so that all of them do the same arithmetic as their
+// plain twins (_smoother_batch_plain of ops/fused_kalman.py,
+// _fenrir_backward_plain of ops/fused_fenrir.py).
 //
-// The lane-batched kernels read the chain as (T, D, NB, B), columns
-// innermost (BatchLayout); the single-solve kernels read the JAX package's
-// (T, NB, D), entries innermost (SingleLayout).  A kernel is instantiated
-// on its layout, so that no host code transposes the chain for it.
+// The kernels that read their operands from device memory themselves index
+// them through a layout, so that no host code transposes them: the
+// lane-batched MAGI kernels read (T, D, NB, B), columns innermost
+// (BatchLayout); K7a reads the chain in the JAX package's (T, NB, D),
+// entries innermost (SingleLayout, load_chain_row).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,36 +83,6 @@ __device__ __forceinline__ void chain_step(const ChainRow<T, Q>& row, T (&m)[Q],
   for (int k = 0; k < NT; ++k) P[k] = row.C[k] + apa[k];
 #pragma unroll
   for (int i = 0; i < Q; ++i) m[i] = m_out[i];
-}
-
-// The smoother's recursion from the carry (m, P), the seed, down through
-// rows n_steps-1 .. 0, calling store(n, m, P) after each row.  The loads of
-// a row do not depend on the carry, so the loop issues the loads of UNROLL
-// rows before it computes them, which keeps UNROLL rows in flight.
-template <int Q, int UNROLL, class Layout, class Store>
-__device__ __forceinline__ void smoother_recursion(int n_steps, const Layout& lay, size_t c,
-                                                   const float* __restrict__ g,
-                                                   const float* __restrict__ G,
-                                                   const float* __restrict__ L,
-                                                   float (&m)[Q], float (&P)[Tri<Q>::N],
-                                                   Store store) {
-  int n = n_steps - 1;
-  for (; n >= UNROLL - 1; n -= UNROLL) {
-    ChainRow<float, Q> rows[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) load_chain_row<Q>(n - u, lay, c, G, g, L, rows[u]);
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      chain_step<Q>(rows[u], m, P);
-      store(n - u, m, P);
-    }
-  }
-  for (; n >= 0; --n) {
-    ChainRow<float, Q> row;
-    load_chain_row<Q>(n, lay, c, G, g, L, row);
-    chain_step<Q>(row, m, P);
-    store(n, m, P);
-  }
 }
 
 }  // namespace rodeo

@@ -8,7 +8,7 @@
 // _backward_kernel_global_mask.  Plain PyTorch twin:
 // _fenrir_backward_single_plain in ops/fused_fenrir.py.
 //
-// Design.  K7b's step and loop (fenrir_step.cuh) on one solve: the chain and
+// Design.  K7b's step (fenrir_step.cuh) and its loop on one solve: the chain and
 // the observation model are block-diagonal, so one thread per block carries
 // that block's m, packed P and log-density sum through all N steps, reading
 // the chain (A, b, C) in the JAX package's (N, NB, D) layout (no transposed

@@ -3,10 +3,10 @@
 // the masked scalar observation update of step n, adding the observation's
 // log-density.  Shared by K7b (fenrir_backward_batch.cu, on float), its
 // single-solve counterpart K7a (fenrir_backward_single.cu) and its tangent
-// twin K11b (fenrir_backward_batch_tan.cu, on Dual, skipping the update at
-// steps without data), so the values of K11b are K7b's bitwise.  The plain
-// PyTorch version is _fenrir_backward_plain of ops/fused_fenrir.py, in the
-// same order.
+// twin K11b (fenrir_backward_batch_tan.cu, on Dual); K7b and K11b skip the
+// update at steps without data, so the values of K11b are K7b's bitwise.
+// The plain PyTorch version is _fenrir_backward_plain of
+// ops/fused_fenrir.py, in the same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +18,7 @@ namespace rodeo {
 
 // One backward step of one column: predict, then the masked observation
 // update of step n of block blk.  The observation grid (d, y, om, mask;
-// N x .. x n_block) is shared by all lanes.  With SKIP (K11b) a step whose
+// N x .. x n_block) is shared by all lanes.  With SKIP (K7b, K11b) a step whose
 // mask is 0 stops after the prediction: there (D = 0, y = 0, om = 1) the
 // update and its term leave m, P and ld as they were (kalman_cols.cuh), and
 // the branch is the same for every thread.
@@ -45,9 +45,9 @@ __device__ __forceinline__ void fenrir_step(int n, int n_block, int blk,
 }
 
 // The backward filter of one column from the seed (m, P) down through steps
-// n_steps-1 .. 0, adding the log-densities to ld.  The chain's loads do not
-// depend on the carry, so the loop issues those of UNROLL steps before it
-// computes them.
+// n_steps-1 .. 0, adding the log-densities to ld, for K7a.  The chain's
+// loads do not depend on the carry, so the loop issues those of UNROLL
+// steps before it computes them.
 template <int Q, int UNROLL, class Layout>
 __device__ __forceinline__ void fenrir_recursion(int n_steps, const Layout& lay, size_t c,
                                                  int n_block, int blk,

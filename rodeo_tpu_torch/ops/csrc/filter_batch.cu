@@ -18,9 +18,8 @@
 // transition n-1 -> n from the carry and the fresh prediction, and, after
 // one barrier a step with the other blocks of its lane, evaluates the ODE
 // (and column 0 of its Jacobian) at their gathered predicted means and does
-// its block's scalar-innovation Joseph update.  The arithmetic is
-// filter_step.cuh's one-thread-per-lane step, operation for operation, so
-// the outputs are those of the twin bitwise.  Outputs are laid out (N, d,
+// its block's scalar-innovation Joseph update.  The arithmetic is the
+// twin's, operation for operation, so the outputs are the twin's bitwise.  Outputs are laid out (N, d,
 // NB, B) with lanes innermost: a CTA holds 16 lanes, so a warp is 16
 // consecutive lanes of each of two blocks, and each store is two coalesced
 // 64-byte segments.  The arithmetic is float32 throughout, as on the TPU.
@@ -88,8 +87,8 @@ __global__ void __launch_bounds__(kFilterLanes * Model::NB, 1)
   for (int k = 0; k < NT; ++k) P[k] = 0.0f;
 
   SharedExchange<NB, Q, kFilterLanes> ex{xs, tx};
-  split_filter_steps<Model, Q, MODE>(
-      c, th, tgrid, n_steps, b, ex, m, P,
+  split_filter_steps<Model, Q>(
+      c, tgrid, n_steps, b, ex, m, P, ode_update<Model, Q, MODE>(c, th, b),
       // the gain of the transition n-1 -> n needs only the carry (filtered
       // n-1) and the fresh prediction (n)
       [&](int n, const float (&mc)[Q], const float (&Pc)[NT],

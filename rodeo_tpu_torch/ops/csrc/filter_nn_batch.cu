@@ -5,31 +5,40 @@
 // _filter_nn_kernel_batch (interrogations kramer and rodeo).
 // Plain PyTorch twin: _filter_nn_batch_plain in ops/fused_daltonng.py.
 //
-// Design.  One thread carries one lane (one parameter candidate) through
-// all N steps in a single launch, with all NB blocks of its state in
-// registers (K1 ran so before it was split over the blocks of a lane).  A
-// step is K1's predict and ODE update (filter_step.cuh's
-// interrogate_update, whose loop body K1 runs per block), then,
-// at a step with data, one masked scalar pseudo-observation update per
-// observed component and block: the user's observation log-likelihood,
-// compiled in as a functor (obs_models.cuh), linearised at the predicted
+// Design.  One thread per (lane, block) carries its block of one lane (one
+// parameter candidate) through all N steps in a single launch, on
+// block_step.cuh's step loop (split_filter_steps), as K1 and K3 are.  Each
+// step a thread predicts its block, stores its predicted moments, publishes
+// its predicted mean to shared memory and, after one barrier a step with
+// the other blocks of its lane, evaluates the ODE at their gathered means
+// and updates its block (filter_nn_update_block): K1's scalar-innovation
+// update, then, at a step with data, one masked scalar pseudo-observation
+// update per observed component.  The user's observation log-likelihood is
+// compiled in as a functor (obs_models.cuh) and linearised at the predicted
 // mean in original coordinates by evaluating it on a second-order forward
 // number (jet.cuh) -- the nested jax.jvp of the TPU kernel.  The TPU kernel
-// runs the masked update at every step; this one skips it where the mask
-// is 0, where it is an exact identity, and so does its twin.  Outputs are
+// runs the masked update at every step; this one skips it where the mask is
+// 0, where it is an exact identity, and so does its twin.  The arithmetic
+// is the twin's operation for operation, so the outputs are the twin's
+// bitwise, and the tangent twin K11d (filter_nn_batch_tan.cu), which runs
+// the same block update on Duals, has K9's values bitwise.  Outputs are
 // laid out (N, d, NB, B) with lanes innermost: mf (N, Q, ..), pf (N, Tri,
 // ..), mp (N, Q, ..), pp (N, Tri, ..), the four streams the smoothing
-// passes read.  Float32 throughout.
+// passes read; each thread stores its block's entries, coalesced on the
+// lane axis.  Float32 throughout.
 //
-// What bounds it on the card.  A step is ~1e3 dependent float operations
-// per lane against 18 floats stored per block, as in K1: 1.77 GB at 4000
-// steps x 3 blocks x 2048 lanes, 0.53 ms at 3.35 TB/s, far below the
-// latency of each thread's serial chain.  B lanes give B threads, so the
-// design takes small CTAs to spread the lanes over the SMs.
+// What bounds it on the card.  A step is a chain of dependent float
+// operations on one block, with the ODE at the gathered means, against 18
+// floats stored per (block, lane): 1.77 GB at 4000 steps x 3 blocks x 2048
+// lanes, 0.53 ms at 3.35 TB/s, below the latency of the chain.  One thread
+// per lane with all NB blocks in its registers would pay the latency of
+// every block's chain (1.8x the time on the card, PERF.md); the split
+// gives NB times the threads, each with a chain about 1/NB as long.
 #include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "block_step.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
@@ -37,10 +46,16 @@
 
 namespace rodeo {
 
-constexpr int kNnThreads = 32;
+// Lanes per CTA: 32, the fastest of 8, 16 and 32 on the card, by 1 %
+// (PERF.md): the time is each thread's chain through the steps, whether
+// its warps share SMs (64 CTAs of 96 threads at 2048 lanes) or not (256
+// of 24 at 8 lanes).
+constexpr int kNnLanes = 32;
 
+// One CTA per SM in the launch bounds, as K1's: ptxas spends registers on
+// the chain instead of spilling to fit more CTAs.
 template <class Model, class Obs, int Q, int MODE>
-__global__ void __launch_bounds__(kNnThreads)
+__global__ void __launch_bounds__(kNnLanes * Model::NB, 1)
     filter_nn_batch_kernel(QConst<Q> qc, ObsPars pars, int obs_dims,
                            int n_steps, int n_lane,
                            const float* __restrict__ R_in,
@@ -59,45 +74,57 @@ __global__ void __launch_bounds__(kNnThreads)
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   constexpr int NTH = Model::NTHETA;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lane) return;
+  __shared__ SharedMeans<float, NB, Q, kNnLanes> xs;
+  const int tx = threadIdx.x;
+  const int b = threadIdx.y;
+  const int lane = blockIdx.x * kNnLanes + tx;
+  // a lane beyond n_lane runs masked (it must reach every barrier): loads
+  // of the last lane, no stores
+  const bool live = lane < n_lane;
+  const size_t off = live ? lane : n_lane - 1;
+  // stride between consecutive rows of one (step, d) slab: NB blocks x B
   const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t off = lane;
+  const size_t base = b * static_cast<size_t>(n_lane) + off;
 
-  FilterConsts<Model, Q> c;
-  load_consts<Model, Q>(qc, R_in, W_in, tv_in, c);
+  BlockConsts<Q> c;
+  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
   float th[NTH];
 #pragma unroll
   for (int k = 0; k < NTH; ++k) th[k] = theta[k * static_cast<size_t>(n_lane) + off];
 
-  float m[NB][Q], P[NB][NT];
+  float m[Q], P[NT];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
+  for (int j = 0; j < Q; ++j) m[j] = x0[j * col + base];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) m[b][j] = x0[j * col + b * n_lane + off];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) P[b][k] = 0.0f;
-  }
+  for (int k = 0; k < NT; ++k) P[k] = 0.0f;
 
-  for (int n = 0; n < n_steps; ++n) {
-    float mp[NB][Q], pp[NB][NT];
-    filter_nn_step<Model, Obs, Q, MODE>(c, th, n, tgrid[n], obs_dims, pars, y,
-                                        iobs, mask, m, P, mp, pp);
+  // block b's moments of step n
+  auto store = [&](float* mo, float* po, int n, const float (&mv)[Q],
+                   const float (&Pv)[NT]) {
+    if (!live) return;
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const size_t base = b * static_cast<size_t>(n_lane) + off;
+    for (int i = 0; i < Q; ++i)
+      mo[(static_cast<size_t>(n) * Q + i) * col + base] = mv[i];
 #pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        mf_out[(static_cast<size_t>(n) * Q + i) * col + base] = m[b][i];
-        mp_out[(static_cast<size_t>(n) * Q + i) * col + base] = mp[b][i];
-      }
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        pf_out[(static_cast<size_t>(n) * NT + k) * col + base] = P[b][k];
-        pp_out[(static_cast<size_t>(n) * NT + k) * col + base] = pp[b][k];
-      }
-    }
-  }
+    for (int k = 0; k < NT; ++k)
+      po[(static_cast<size_t>(n) * NT + k) * col + base] = Pv[k];
+  };
+  SharedExchange<NB, Q, kNnLanes> ex{xs, tx};
+  split_filter_steps<Model, Q>(
+      c, tgrid, n_steps, b, ex, m, P,
+      [&](int n, float t, const float (&x)[NB][Q], const float (&mp)[Q],
+          const float (&pp)[NT], float (&mv)[Q], float (&Pv)[NT]) {
+        filter_nn_update_block<Model, Obs, Q, MODE>(c, th, n, t, x, b,
+                                                    obs_dims, pars, y, iobs,
+                                                    mask, mp, pp, mv, Pv);
+      },
+      [&](int n, const float (&)[Q], const float (&)[NT],
+          const float (&mp)[Q], const float (&pp)[NT]) {
+        store(mp_out, pp_out, n, mp, pp);
+      },
+      [&](int n, const float (&mv)[Q], const float (&Pv)[NT]) {
+        store(mf_out, pf_out, n, mv, Pv);
+      });
 }
 
 template <class Model, class Obs, int MODE>
@@ -107,12 +134,23 @@ cudaError_t nn_launch(const QConst<3>& qc, const ObsPars& pars, int obs_dims,
                       const float* tgrid, const float* y, const float* iobs,
                       const float* mask, float* mf, float* pf, float* mp,
                       float* pp, cudaStream_t stream) {
-  const dim3 block(kNnThreads);
-  const dim3 grid((n_lane + kNnThreads - 1) / kNnThreads);
-  filter_nn_batch_kernel<Model, Obs, 3, MODE><<<grid, block, 0, stream>>>(
+  const SplitGeometry g = split_geometry<Model, kNnLanes>(n_lane, 1);
+  filter_nn_batch_kernel<Model, Obs, 3, MODE><<<g.grid, g.block, 0, stream>>>(
       qc, pars, obs_dims, n_steps, n_lane, R, W, tv, x0, theta, tgrid, y,
       iobs, mask, mf, pf, mp, pp);
   return cudaGetLastError();
+}
+
+template <class Model, class Obs>
+cudaError_t nn_geometry(int mode, int n_lane, int* out) {
+  const SplitGeometry g = split_geometry<Model, kNnLanes>(n_lane, 1);
+  if (mode == kKramer)
+    return report_geometry(filter_nn_batch_kernel<Model, Obs, 3, kKramer>, g,
+                           out);
+  if (mode == kRodeo)
+    return report_geometry(filter_nn_batch_kernel<Model, Obs, 3, kRodeo>, g,
+                           out);
+  return cudaErrorInvalidValue;
 }
 
 template <class Model, class Obs>
@@ -197,5 +235,23 @@ extern "C" int rodeo_filter_nn_batch(int model, int obs_model, int mode,
                                                      mfp, pfp, mpp, ppp, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The launch rodeo_filter_nn_batch makes for (model, obs_model, mode,
+// n_lane) on the current device, as nine ints in out (report_geometry in
+// block_step.cuh).  Returns a cudaError_t.
+extern "C" int rodeo_filter_nn_batch_geometry(int model, int obs_model,
+                                              int mode, int n_lane,
+                                              void* out) {
+  using namespace rodeo;
+  if (n_lane < 1) return cudaErrorInvalidValue;
+  auto* o = static_cast<int*>(out);
+  switch (model * 2 + obs_model) {
+    case 0: return nn_geometry<Lorenz63, Gauss>(mode, n_lane, o);
+    case 1: return nn_geometry<Lorenz63, Poisson>(mode, n_lane, o);
+    case 2: return nn_geometry<FitzHughNagumo, Gauss>(mode, n_lane, o);
+    case 3: return nn_geometry<FitzHughNagumo, Poisson>(mode, n_lane, o);
+    default: return cudaErrorInvalidValue;
   }
 }

@@ -21,13 +21,13 @@
 // Laplace derivatives come from the observation functor evaluated on a
 // Jet2 of Duals (jet.cuh), so the tangent of the Hessian -- the third
 // derivative of the observation log-likelihood -- needs no code of its
-// own.  The value part of each Dual is K9's float arithmetic, so the values
-// equal K9's bitwise; the threads of direction 0 store them.  One thread
-// per (lane, direction) with all NB blocks in its registers (K9's
-// filter_nn_step) would put 64 CTAs of 96 threads on 64 of the 132 SMs at
-// 2048 lanes, with a chain of ~3e3 dependent operations a step in 254
-// registers; the split gives NB times the threads, each with a chain about
-// 1/NB as long.
+// own.  The value part of each Dual is K9's float arithmetic on the same
+// split step, so the values equal K9's bitwise; the threads of direction 0
+// store them.  One thread per (lane, direction) with all NB blocks in its
+// registers (the design of both before each was split) put 64 CTAs of 96
+// threads on 64 of the 132 SMs at 2048 lanes, with a chain of ~3e3
+// dependent operations a step in 254 registers; the split gives NB times
+// the threads, each with a chain about 1/NB as long.
 //
 // What bounds it on the card.  A step stores 72 floats per (block, lane) at
 // NAUG = 4 (mf 12, pf 24, mp 12, pp 24): 7.08 GB at 4000 steps x 3 blocks x

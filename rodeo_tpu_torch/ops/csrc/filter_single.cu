@@ -25,7 +25,7 @@
 // NB, d) layout, which the stores drain while the next step computes.  The
 // means go from thread to thread by warp shuffles (ShuffleExchange): on the
 // card, shared memory behind __syncwarp took 16 % longer (PERF.md).  The
-// values are those of the one-thread step bitwise.  The TPU kernel's chunk grid (which streamed
+// values are the twin's bitwise.  The TPU kernel's chunk grid (which streamed
 // VMEM blocks to HBM) and its unroll option have no counterpart here.
 #include <cstring>
 
@@ -82,8 +82,9 @@ __global__ void __launch_bounds__(Model::NB, 1)
     store(mf, pf, n, mv, Pv);
   };
   ShuffleExchange<NB, Q> ex;
-  split_filter_steps<Model, Q, MODE>(c, th, tgrid, n_steps, b, ex, m, P,
-                                     predicted, filtered);
+  split_filter_steps<Model, Q>(c, tgrid, n_steps, b, ex, m, P,
+                               ode_update<Model, Q, MODE>(c, th, b),
+                               predicted, filtered);
 }
 
 // one CTA of NB threads, a thread per block

@@ -1,26 +1,21 @@
-// One step of the lane-batched EK filter for a thread that carries one lane
-// with all NB blocks of its state in registers: predict, interrogate the ODE
-// at the predicted mean, and the scalar-innovation Joseph update; the
-// smoothing gains of a step (gain_cols) and non-Gaussian DALTON's
-// Laplace-linearised step (filter_nn_step).
+// The pieces of the lane-batched EK filter's step that act on one block:
+// the prediction (predict_block), the smoothing gains of a step
+// (gain_cols) and non-Gaussian DALTON's masked Laplace pseudo-observation
+// update (laplace_update), with the interrogation modes and the scaled
+// transition (QConst) that the filters take as a kernel argument.
 //
-// The one-thread-per-lane step (interrogate_update, FilterConsts,
-// load_consts) is run by K9 (filter_nn_batch.cu) alone, whose filter_nn_step
-// adds masked pseudo-observation updates to it.  K1 (filter_batch.cu), K3
-// (filter_single.cu) and K8 (dalton_filter_batch.cu) on float, and the
+// The filters K1 (filter_batch.cu), K3 (filter_single.cu), K8
+// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and the
 // tangent kernels K11a (filter_batch_tan.cu), K11c
 // (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on the
-// scalar type Dual (dual.cuh), run the same step split over the blocks of a
-// lane (block_step.cuh): predict_block, gain_cols and laplace_update from
-// here, and a per-block copy of interrogate_update's loop body, so their
-// values are this step's bitwise.  The plain PyTorch versions of this step
-// are _filter_batch_plain (ops/fused_kalman.py), _dalton_filter_plain
-// (ops/fused_dalton.py) and _filter_nn_batch_plain
-// (ops/fused_daltonng.py), which run on Duals for the tangent kernels; the
-// order of every sum follows them (see kalman_cols.cuh).
+// scalar type Dual (dual.cuh), run them inside the step split over the
+// blocks of a lane (block_step.cuh), which adds the ODE's update of a
+// block.  The plain PyTorch versions of the step are _filter_batch_plain
+// (ops/fused_kalman.py), _dalton_filter_plain (ops/fused_dalton.py) and
+// _filter_nn_batch_plain (ops/fused_daltonng.py), which run on Duals for
+// the tangent kernels; the order of every sum follows them (see
+// kalman_cols.cuh).
 #pragma once
-
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -37,38 +32,6 @@ struct QConst {
   float q[Q * Q];  // scaled transition, row-major
 };
 
-// The lane-shared operands of the filter, held in registers.
-template <class Model, int Q>
-struct FilterConsts {
-  float Qm[Q][Q];
-  float R[Model::NB][Tri<Q>::N];
-  float W[Model::NB][Q];
-  float tv[Q];
-};
-
-template <class Model, int Q>
-__device__ __forceinline__ void load_consts(const QConst<Q>& qc,
-                                            const float* __restrict__ R_in,
-                                            const float* __restrict__ W_in,
-                                            const float* __restrict__ tv_in,
-                                            FilterConsts<Model, Q>& c) {
-  constexpr int NB = Model::NB;
-  constexpr int NT = Tri<Q>::N;
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-#pragma unroll
-    for (int j = 0; j < Q; ++j) c.Qm[i][j] = qc.q[i * Q + j];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) c.R[b][k] = R_in[b * NT + k];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) c.W[b][j] = W_in[b * Q + j];
-  }
-#pragma unroll
-  for (int j = 0; j < Q; ++j) c.tv[j] = tv_in[j];
-}
-
 // Prediction of one block: mp = Q m, pp = Q P Q' + R.
 template <int Q, class T>
 __device__ __forceinline__ void predict_block(const float (&Qm)[Q][Q],
@@ -80,82 +43,6 @@ __device__ __forceinline__ void predict_block(const float (&Qm)[Q][Q],
   sym_quadform<Q>(Qm, P, pp);
 #pragma unroll
   for (int k = 0; k < Tri<Q>::N; ++k) pp[k] = pp[k] + R[k];
-}
-
-// Interrogate the ODE at the predicted mean (original coordinates) of all
-// blocks and update each block from (mp, pp) into (m, P).  Returns each
-// block's innovation z, its variance S (doubled under EK0) and 1 / S, the
-// terms of the forecast log-density.  The measurement row is
-// H = W - J diag(tv), where the block-diagonal Jacobian J has only column 0:
-// its entries j > 0 are W's constants, and H[0] depends on theta under EK1
-// (type T) and is W's constant under EK0, as in the twin.
-template <class Model, int Q, int MODE, class T>
-__device__ __forceinline__ void interrogate_update(
-    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], float t,
-    const T (&mp)[Model::NB][Q], const T (&pp)[Model::NB][Tri<Q>::N],
-    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N],
-    T (&z_out)[Model::NB], T (&S_out)[Model::NB],
-    T (&inv_S_out)[Model::NB]) {
-  constexpr int NB = Model::NB;
-  using TH = std::conditional_t<MODE == kKramer, T, float>;
-  T x[NB][Q], fx[NB], jd[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int j = 0; j < Q; ++j) x[b][j] = mp[b][j] * c.tv[j];
-  Model::template f<Q>(x, th, t, fx);
-  if constexpr (MODE == kKramer) Model::template jac0<Q>(x, th, t, jd);
-
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const float (&W)[Q] = c.W[b];  // H[j] for j > 0
-    TH H0;                          // H[0]
-    if constexpr (MODE == kKramer) H0 = W[0] - jd[b] * c.tv[0];
-    else H0 = W[0];
-    T hm = H0 * mp[b][0];
-#pragma unroll
-    for (int j = 1; j < Q; ++j) hm = hm + W[j] * mp[b][j];
-    T mm = -fx[b];
-    if constexpr (MODE == kKramer) mm = mm + jd[b] * x[b][0];
-    const T z = -(hm + mm);
-    T PH[Q];
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      T acc = pp[b][Tri<Q>::at(i, 0)] * H0;
-#pragma unroll
-      for (int j = 1; j < Q; ++j) acc = acc + pp[b][Tri<Q>::at(i, j)] * W[j];
-      PH[i] = acc;
-    }
-    T S = H0 * PH[0];
-#pragma unroll
-    for (int i = 1; i < Q; ++i) S = S + W[i] * PH[i];
-    if constexpr (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
-    const T inv_S = 1.0f / S;
-    T gain[Q], IKW[Q][Q];
-#pragma unroll
-    for (int i = 0; i < Q; ++i) gain[i] = PH[i] * inv_S;
-#pragma unroll
-    for (int i = 0; i < Q; ++i) m[b][i] = mp[b][i] + gain[i] * z;
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      IKW[i][0] = (i == 0 ? 1.0f : 0.0f) - gain[i] * H0;
-#pragma unroll
-      for (int j = 1; j < Q; ++j)
-        IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * W[j];
-    }
-    sym_quadform<Q>(IKW, pp[b], P[b]);
-    if constexpr (MODE == kRodeo) {
-      const T V = S * 0.5f;
-      int k = 0;
-#pragma unroll
-      for (int i = 0; i < Q; ++i)
-#pragma unroll
-        for (int j = i; j < Q; ++j, ++k) P[b][k] = P[b][k] + gain[i] * gain[j] * V;
-    }
-    z_out[b] = z;
-    S_out[b] = S;
-    inv_S_out[b] = inv_S;
-  }
 }
 
 // G, g and the Joseph-form noise L of the backward kernel of the transition
@@ -260,40 +147,6 @@ __device__ __forceinline__ void laplace_update(
   for (int i = 0; i < Q; ++i)
 #pragma unroll
     for (int l = i; l < Q; ++l, ++k) P[k] = pj[k] + K[i] * K[l] * vhat;
-}
-
-// One step n of the Laplace-linearised filter of non-Gaussian DALTON
-// (_filter_nn_batch_plain of ops/fused_daltonng.py): predict, interrogate
-// and update every block from (m, P) into (mp, pp) and (m, P), then, at a
-// step with data (mask[n] != 0), the pseudo-observation update of each
-// component j in obs_dims (a bit mask), in ascending order.  A step
-// without data skips them: there the masked update is an exact identity
-// (K = 0), and the twin skips it too.  The observation grid (y: N x NB,
-// iobs, mask: N) is shared by all lanes.
-template <class Model, class Obs, int Q, int MODE, class T>
-__device__ __forceinline__ void filter_nn_step(
-    const FilterConsts<Model, Q>& c, const T (&th)[Model::NTHETA], int n,
-    float t, int obs_dims, const ObsPars& pars, const float* __restrict__ y,
-    const float* __restrict__ iobs, const float* __restrict__ mask,
-    T (&m)[Model::NB][Q], T (&P)[Model::NB][Tri<Q>::N],
-    T (&mp)[Model::NB][Q], T (&pp)[Model::NB][Tri<Q>::N]) {
-  constexpr int NB = Model::NB;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) predict_block<Q>(c.Qm, c.R[b], m[b], P[b], mp[b], pp[b]);
-  T z[NB], S[NB], inv_S[NB];
-  interrogate_update<Model, Q, MODE>(c, th, t, mp, pp, m, P, z, S, inv_S);
-  const float mk = mask[n];
-  if (mk == 0.0f) return;
-  const float io = iobs[n];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) {
-    if (!(obs_dims & (1 << j))) continue;
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      laplace_update<Obs, Q>(c.tv, j, mp[b][j] * c.tv[j],
-                             y[static_cast<size_t>(n) * NB + b], io, mk, th,
-                             pars, m[b], P[b]);
-  }
 }
 
 }  // namespace rodeo

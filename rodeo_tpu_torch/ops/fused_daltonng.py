@@ -13,6 +13,8 @@ cancel):
   the Laplace-linearised filter, K1's predict and ODE update followed, at a
   step with data, by masked pseudo-observation updates of the observed
   components, storing the filtered and predicted moments of every step;
+  split over the blocks of a lane as K1 is, one thread per lane and
+  block;
 - the backward kernels ``(G, b, C)`` of those moments in batched torch
   (:func:`_cond_params_cols`), and the smoothed means through **K2r**
   (:func:`~rodeo_tpu_torch.ops.fused_kalman.smoother_recursion_batch_rows`
@@ -248,19 +250,33 @@ def filter_nn_batch_tan(model, obs_model, obs_dims, n_steps, q_const,
                       tgrid, y, iobs, mask, mode)
 
 
+def _filter_nn_geometry(kernel, model, obs_model, n_lane, mode, device):
+    model = resolve_model(model)
+    obs = resolve_obs_model(obs_model)
+    _check_mode(mode)
+    return _launch_geometry(kernel, device, _FUNCTORS[model.cuda_functor],
+                            _OBS_FUNCTORS[obs.cuda_functor], _MODES[mode],
+                            n_lane)
+
+
+def _filter_nn_batch_geometry(model, obs_model, n_lane, mode="kramer",
+                              device=None):
+    """The launch of kernel K9 (:func:`filter_nn_batch`) at ``n_lane`` lanes
+    on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    it."""
+    return _filter_nn_geometry("filter_nn_batch", model, obs_model, n_lane,
+                               mode, device)
+
+
 def _filter_nn_batch_tan_geometry(model, obs_model, n_lane, mode="kramer",
                                   device=None):
     """The launch of kernel K11d (:func:`filter_nn_batch_tan`) at ``n_lane``
     lanes on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
-    model = resolve_model(model)
-    obs = resolve_obs_model(obs_model)
-    _check_mode(mode)
-    return _launch_geometry("filter_nn_batch_tan", device,
-                            _FUNCTORS[model.cuda_functor],
-                            _OBS_FUNCTORS[obs.cuda_functor], _MODES[mode],
-                            n_lane)
+    return _filter_nn_geometry("filter_nn_batch_tan", model, obs_model,
+                               n_lane, mode, device)
 
 
 def _filter_nn(tangent, model, obs_model, obs_dims, n_steps, q_const,

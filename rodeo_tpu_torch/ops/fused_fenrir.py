@@ -16,16 +16,16 @@ exact), and fenrir's chain ends there with the observation at t_min.
   with the column algebra of the kernel;
 - **K7b** ``csrc/fenrir_backward_batch.cu`` replaces
   ``_fenrir_backward_kernel_batch``: the reverse recursion over steps
-  N-1..0, predict through ``(A, b, C)``, masked update, log-density sum.
+  N-1..0, predict through ``(A, b, C)``, masked update, log-density sum; it
+  skips the update at steps without data, an exact identity there.
 
 The gradient runs the same stages forward-mode: K11a
 (:func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter_batch_tan`) emits
 the chain with its tangents along each parameter, the terminal update runs
 on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers in torch, and **K11b**
 ``csrc/fenrir_backward_batch_tan.cu`` (replacing
-``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents; it
-skips the observation update at steps without data, an exact identity
-there.
+``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents, with
+the same skip.
 
 One evaluation (:func:`fenrir_fused`) follows the JAX package's
 single-solve path: the filter K3
@@ -34,11 +34,12 @@ terminal update in dense batched torch, and **K7a**
 ``csrc/fenrir_backward_single.cu`` (replacing
 ``_backward_kernel_global_mask``), K7b's step on one solve.
 
-The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain`, run on
-Duals with the same skip it is K11b's (:func:`_fenrir_backward_tan_plain`),
-and on the single-solve layout K7a's
-(:func:`_fenrir_backward_single_plain`); the wrappers take them only for
-CPU tensors.  ``LAUNCHES`` counts the launches.
+The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain` with
+``skip_unobserved``; run on Duals it is K11b's
+(:func:`_fenrir_backward_tan_plain`), and on the single-solve layout,
+without the skip, K7a's (:func:`_fenrir_backward_single_plain`); the
+wrappers take them only for CPU tensors.  ``LAUNCHES`` counts the
+launches.
 """
 import numpy as np
 import torch
@@ -73,8 +74,8 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
     seeds of Duals, a Dual.
 
     With ``skip_unobserved`` it skips the observation update and its term at
-    a step without data, where they are an exact identity, as K11b does (a
-    test holds the two to each other bitwise); K7b and K7a run them."""
+    a step without data, where they are an exact identity, as K7b and K11b
+    do (a test holds the two to each other bitwise); K7a runs them."""
     n_steps, q, n_block, n_lane = b.shape
     pairs, where = _tri_idx(q)
     m_cols, p_cols = list(m_seed), list(p_seed)
@@ -116,6 +117,16 @@ def _fenrir_backward_tan_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
         d, y, om, mask, split(m_seed, q), split(p_seed, n_tri),
         skip_unobserved)
     return rows(ld)
+
+
+def _fenrir_backward_batch_geometry(n_block, n_lane, device=None):
+    """The launch of kernel K7b (:func:`fenrir_backward_batch`) over
+    ``n_block x n_lane`` columns with aligned operands on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it,
+    with the stages of its shared-memory ring and the steps a stage
+    holds."""
+    return _launch_geometry("fenrir_backward_batch", device, n_block, n_lane,
+                            extra=("stages", "steps_per_stage"))
 
 
 def _fenrir_backward_batch_tan_geometry(n_block, n_lane, n_tan,
@@ -207,7 +218,8 @@ def _fenrir_backward(n_tan, A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
                                                    m_seed, p_seed, n_tan)
         else:
             ld_blocks = _fenrir_backward_plain(A, b, C, d, y, om, mask,
-                                               m_seed, p_seed)
+                                               m_seed, p_seed,
+                                               skip_unobserved=True)
     else:
         ld_blocks = m_seed.new_empty(
             (n_aug, n_block, n_lane) if n_tan else (n_block, n_lane))

@@ -585,8 +585,8 @@ def _predict_cols(q, where, q_const, R_cols, m_cols, p_cols):
 def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
                              mp_cols, pp_cols, theta_lanes, t, mode):
     """Interrogate the ODE at the predicted mean and do the scalar-innovation
-    Joseph update of every block (``interrogate_update`` of
-    ``csrc/filter_step.cuh``, whose loop body kernels K1 and K8 run per
+    Joseph update of every block (``interrogate_update_block`` of
+    ``csrc/block_step.cuh``, which the kernels K1, K3, K8 and K9 run per
     block).
 
     Returns the updated mean and packed covariance columns, and the

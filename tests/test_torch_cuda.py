@@ -11,10 +11,10 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
-geometry of K1 and K8, which run one thread per (lane, block), of K3,
+geometry of K1, K8 and K9, which run one thread per (lane, block), of K3,
 which runs one thread per block of its one solve, of K11a, K11c and K11d,
-which run one thread per (lane, direction, block), and of K6, K2r, K11b
-and K4, streams through a ring of shared-memory stages
+which run one thread per (lane, direction, block), and of K6, K2r, K7b,
+K11b and K4, streams through a ring of shared-memory stages
 (``csrc/stream_ring.cuh``).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
@@ -52,6 +52,8 @@ _NN_MODELS = {"lorenz": ("kramer", 2.0, obs_models.gauss(0.005)),
 # rounding differently.  Bound on the scaled error per output and per
 # tangent direction.
 TWIN_TOL = 1e-5
+# Lanes per CTA of K9 (kNnLanes of csrc/filter_nn_batch.cu).
+K9_LANES = 32
 # An entry point on the card against the same call on the CPU, where the
 # dense products of the single-solve path's gains are cuBLAS's on one side
 # and the CPU's on the other, summed in other orders.
@@ -269,7 +271,9 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     """K7b, K8 (with and without data) and K6 against their twins, on the
     operands their entry points give them; K8, one thread per (lane, block)
     with a barrier a step, bitwise, also where the lanes end inside a CTA
-    of 32 (37 and 100 lanes).  K6 bitwise, also where its columns end
+    of 32 (37 and 100 lanes); K7b, a stream of 32 columns a CTA, bitwise
+    against its twin, which skips the update at steps without data as K7b
+    does.  K6 bitwise, also where its columns end
     inside a CTA and its rows are not 16-byte aligned (37 and 100 lanes:
     111 and 300 columns), and over step counts that are no multiple of its
     stage (one step, two stages and one step, the ring and one step); its
@@ -293,9 +297,11 @@ def test_new_kernels_match_their_twins_on_the_card(cuda_device, model, mode,
     chain = ff._fenrir_operands(fused, n_steps, 0.0, t_max, ops,
                                 *obs.values(), mode)
     k7 = ff.fenrir_backward_batch(*chain)
-    p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_plain(*chain[:-1]))
+    p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
+        *chain[:-1], skip_unobserved=True))
     assert torch.isfinite(k7).all()
     assert _scaled_err(k7, p7) <= TWIN_TOL
+    assert torch.equal(k7, p7)
     A, b, _, _, _, _, _, m_seed, _, _ = chain
     c = b[1:] + 0.1 * torch.randn(b[1:].shape, device=cuda_device,
                                   generator=torch.Generator(cuda_device)
@@ -442,11 +448,11 @@ def test_tangent_kernels_match_their_twins_on_the_card(cuda_device, model,
 @pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
 def test_split_tangent_kernels_launch_geometry(cuda_device, model, n_lane):
     """The split kernels' launches as the card reports them: a CTA of the
-    kernel's lanes (16 for K1, 32 for the others) x the model's blocks and
-    ceil(n_lane / lanes) lane groups, nothing in local memory, every CTA
-    resident at once; K11a, K11c and K11d with one grid row per direction,
-    and at 2048 lanes at least one CTA per SM; K1 and K8, with no direction
-    axis, one grid row."""
+    kernel's lanes (16 for K1, K9_LANES for K9, 32 for the others) x the
+    model's blocks and ceil(n_lane / lanes) lane groups, nothing in local
+    memory, every CTA resident at once; K11a, K11c and K11d with one grid
+    row per direction, and at 2048 lanes at least one CTA per SM; K1, K8
+    and K9, with no direction axis, one grid row."""
     n_block = MODELS[model].N_VARS
     tan = [fk._filter_batch_tan_geometry(model, n_lane, device=cuda_device)]
     tan += [fd._dalton_filter_batch_tan_geometry(
@@ -457,7 +463,12 @@ def test_split_tangent_kernels_launch_geometry(cuda_device, model, n_lane):
     k8 = [fd._dalton_filter_batch_geometry(
         model, n_lane, with_obs=w, device=cuda_device) for w in (True, False)]
     k1 = [fk._filter_batch_geometry(model, n_lane, device=cuda_device)]
-    for geos, lanes, n_dir in ((tan, 32, 3), (k8, 32, 1), (k1, 16, 1)):
+    k9 = [fdn._filter_nn_batch_geometry(model, obs, n_lane, mode=mode,
+                                        device=cuda_device)
+          for _, _, obs in _NN_MODELS.values()
+          for mode in ("kramer", "rodeo")]
+    for geos, lanes, n_dir in ((tan, 32, 3), (k8, 32, 1), (k1, 16, 1),
+                               (k9, K9_LANES, 1)):
         for geo in geos:
             assert (geo["cta_x"], geo["cta_y"]) == (lanes, n_block), geo
             assert (geo["grid_x"], geo["grid_y"]) == (-(-n_lane // lanes),
@@ -672,6 +683,57 @@ def test_fenrir_tangent_stream_is_bitwise_its_twin_on_the_card(cuda_device,
         assert torch.equal(k11, p11), n_steps
 
 
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("n_lane,offset", [(37, 0), (100, 0), (64, 1)])
+def test_fenrir_stream_is_bitwise_its_twin_on_the_card(cuda_device, n_lane,
+                                                       offset, with_obs):
+    """K7b, a stream with one consumer warp, bitwise against its twin (which
+    skips the update at steps without data, as K7b does) over step counts
+    that are no multiple of its stage (one step, two, the ring and one step,
+    300), where the columns end inside a CTA of 32 (37 and 100 lanes of 3
+    blocks), where n_lane x 3 is no multiple of 4 (37) and where every
+    operand starts 4 bytes past a 16-byte boundary (offset 1): the last two
+    copy 4 bytes at a time.  Data at every third step, or at none.  Its
+    launch as the card reports it: CTAs of 32 columns, a consumer and a
+    producer warp, all resident, no local memory, at 2048 lanes at least
+    one CTA per SM."""
+    q, nb = 3, 3
+    geo = ff._fenrir_backward_batch_geometry(nb, n_lane, device=cuda_device)
+    n_col = nb * n_lane
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+    assert geo["grid_x"] == -(-n_col // 32), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    assert ff._fenrir_backward_batch_geometry(
+        nb, 2048, device=cuda_device)["ctas_at_least_sms"]
+    step, stages = geo["steps_per_stage"], geo["stages"]
+    for n_steps in (1, 2, stages * step + 1, 300):
+        rng = np.random.default_rng(110 + n_steps + with_obs)
+        mask = (np.arange(n_steps) % 3 == 0).astype(np.float64) * with_obs
+        A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+            0.1 * rng.standard_normal((n_steps, q * q, nb, n_lane))
+        chain = [_put(a, cuda_device, offset) for a in (
+            A, rng.standard_normal((n_steps, q, nb, n_lane)),
+            np.moveaxis(_packed_psd(rng, (n_steps, nb, n_lane), q, 0.3),
+                        -1, 1),
+            rng.standard_normal((n_steps, q, nb)) * mask[:, None, None],
+            rng.standard_normal((n_steps, nb)) * mask[:, None],
+            np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, nb)),
+                     1.0),
+            mask, rng.standard_normal((q, nb, n_lane)),
+            np.moveaxis(_packed_psd(rng, (nb, n_lane), q), -1, 0),
+            rng.standard_normal(n_lane))]
+        _reset_launches()
+        k7 = ff.fenrir_backward_batch(*chain)
+        assert _launched() == {"fenrir_backward_batch": 1}, n_steps
+        p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
+            *chain[:-1], skip_unobserved=True))
+        assert k7.shape == (n_lane,), n_steps
+        assert torch.isfinite(k7).all(), n_steps
+        assert torch.equal(k7, p7), n_steps
+        if not with_obs:
+            assert torch.equal(k7, chain[-1]), n_steps
+
+
 @pytest.mark.parametrize("n_steps", [1, 2, 37, 10000])
 @pytest.mark.parametrize("model,mode", [("lorenz", "kramer"),
                                         ("lorenz", "rodeo"),
@@ -883,10 +945,10 @@ def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model,
                                                         n_lane):
     """K9 and K11d (Lorenz63 EK1 with Gaussian data, FitzHugh-Nagumo EK0
     with Poisson counts, data every 10th step) against their twins on the
-    same CUDA inputs, per output and tangent direction; K11d, one thread
-    per (lane, direction, block) with a barrier a step, bitwise, also where
-    the lanes end inside a CTA of 32 (37 and 100 lanes), and its values
-    K9's bitwise."""
+    same CUDA inputs, per output and tangent direction; K9, one thread per
+    (lane, block), and K11d, one thread per (lane, direction, block), with
+    a barrier a step, bitwise, also where the lanes end inside a CTA (37
+    and 100 lanes), and K11d's values K9's bitwise."""
     mode, t_max, obs = _NN_MODELS[model]
     n_steps = 300
     cfg, thetas, inits = _lanes(model, n_steps, t_max, n_lane, 6,
@@ -909,6 +971,7 @@ def test_daltonng_kernels_match_their_twins_on_the_card(cuda_device, model,
     for a, b in zip(value, twin):
         assert a.is_cuda and torch.isfinite(a).all()
         assert _scaled_err(a, b) <= TWIN_TOL
+        assert torch.equal(a, b)
     tan = fdn.filter_nn_batch_tan(fused, obs, (0,), n_steps, **ops, **grid,
                                   mode=mode)
     tan_twin = fdn._filter_nn_batch_tan_plain(fused, obs, (0,), n_steps,

@@ -1,20 +1,28 @@
 """
 The twins of the single-solve filter K3, of the smoother rows K2r, of the
-single-solve smoother K4 and of fenrir's tangent backward filter K11b
-against the JAX package at the edges that the kernels' designs have to
-mask, with the JAX package's Pallas kernels in interpret mode.
+single-solve smoother K4, of fenrir's backward filter K7b and its tangent
+twin K11b, and of non-Gaussian DALTON's filter K9 against the JAX package
+at the edges that the kernels' designs have to mask, with the JAX
+package's Pallas kernels in interpret mode.
 
-K2r and K11b stream their operands through a ring of shared-memory stages
-of a few steps each (``csrc/stream_ring.cuh``), in CTAs of 32 columns:
-their last stage holds fewer steps than the others when the step count is
-no multiple of the stage's, and their last CTA fewer columns than 32 when
-the (block, lane) columns are no multiple of 32.  So
+K2r, K7b and K11b stream their operands through a ring of shared-memory
+stages of a few steps each (``csrc/stream_ring.cuh``), in CTAs of 32
+columns: their last stage holds fewer steps than the others when the step
+count is no multiple of the stage's, and their last CTA fewer columns than
+32 when the (block, lane) columns are no multiple of 32.  So
 ``_smoother_batch_rows_plain`` is held to ``_smoother_kernel_batch_rows``
 at 1, 2, 5 and 9 interior steps over 3 blocks of 37 lanes (111 columns),
-and ``_fenrir_backward_tan_plain`` to ``_fenrir_backward_kernel_batch_tan``
+``_fenrir_backward_plain`` with its skip (K7b's twin) to
+``_fenrir_backward_kernel_batch`` at 1, 2, 5 and 9 steps over the same 111
+columns, with data at some steps and at none, and
+``_fenrir_backward_tan_plain`` to ``_fenrir_backward_kernel_batch_tan``
 at 1, 2, 5 and 9 steps over the same 111 columns, with 1 and 3 tangent
 directions (one consumer warp each), on a grid with steps with data and
-without (the twin, like K11b, skips the update at the latter).  K4 streams
+without (the twins, like K7b and K11b, skip the update at the latter).  K9
+runs one thread per (lane, block) in CTAs of a few lanes, the last lanes
+masked; ``_filter_nn_batch_plain`` is held to ``_filter_nn_kernel_batch``
+at 1 and 2 steps over 37 lanes, Lorenz63 with Gaussian data and
+FitzHugh-Nagumo with Poisson counts, EK1 and EK0 each.  K4 streams
 slabs of 16 rows of the single layout (T, NB, D) through the same ring, the
 top stage holding the rows left over, in CTAs of 5 blocks, each block's row
 spread over 6 lanes; ``_smoother_single_plain`` is held to
@@ -38,10 +46,13 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from rodeo_tpu.models import fitzhugh as jfitzhugh, lorenz as jlorenz
+from rodeo_tpu.ops import pallas_daltonng as jd
 from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
 
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
+from rodeo_tpu_torch.models import obs as tobs
+from rodeo_tpu_torch.ops import fused_daltonng as fdn
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 
@@ -229,3 +240,111 @@ def test_fenrir_backward_tan_twin_matches_pallas_at_ragged_shapes(n_steps,
     assert port.shape == (n_aug, B) and torch.isfinite(port).all()
     for a in range(n_aug):
         assert _scaled_err(port[a], ref[a]) <= SCALED_TOL, a
+
+
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 9])
+def test_fenrir_backward_twin_matches_pallas_at_ragged_shapes(n_steps,
+                                                              with_obs):
+    """K7b's twin, which skips the update at steps without data as K7b does,
+    on a seeded chain over 3 blocks x 37 lanes, data at steps 0, 3, 6, ..
+    or at none."""
+    rng = np.random.default_rng(90 + 2 * n_steps + with_obs)
+    q, nb, B = 3, 3, 37
+    n_tri = q * (q + 1) // 2
+    mask = (np.arange(n_steps) % 3 == 0).astype(np.float64) * with_obs
+    A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+        0.1 * rng.standard_normal((n_steps, q * q, nb, B))
+    ch = dict(
+        A=A, b=rng.standard_normal((n_steps, q, nb, B)),
+        C=np.moveaxis(_psd(rng, (n_steps, nb, B), q, 0.3), -1, 1),
+        d=rng.standard_normal((n_steps, q, nb)) * mask[:, None, None],
+        y=rng.standard_normal((n_steps, nb)) * mask[:, None],
+        om=np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, nb)),
+                    1.0),
+        mask=mask, m_seed=rng.standard_normal((q, nb, B)),
+        p_seed=np.moveaxis(_psd(rng, (nb, B), q), -1, 0),
+        ld0=rng.standard_normal(B))
+    ch = {k: _f32(v) for k, v in ch.items()}
+    kern = functools.partial(pf._fenrir_backward_kernel_batch, n_steps, q,
+                             nb, n_tri, B, 1)
+    ref = pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct((1, B), jnp.float32),
+        grid=(1,),
+        in_specs=[_vmem((n_steps, q * q, nb, B)), _vmem((n_steps, q, nb, B)),
+                  _vmem((n_steps, n_tri, nb, B)), _vmem((n_steps, q, nb, 1)),
+                  _vmem((n_steps, 1, nb, 1)), _vmem((n_steps, 1, nb, 1)),
+                  _vmem((n_steps, 1)), _vmem((q, nb, B)),
+                  _vmem((n_tri, nb, B)), _vmem((1, B))],
+        out_specs=_vmem((1, B)),
+        scratch_shapes=[pltpu.VMEM((q, nb, B), jnp.float32),
+                        pltpu.VMEM((n_tri, nb, B), jnp.float32),
+                        pltpu.VMEM((1, B), jnp.float32)],
+        interpret=True,
+    )(ch["A"], ch["b"], ch["C"], ch["d"][..., None],
+      ch["y"][:, None, :, None], ch["om"][:, None, :, None],
+      ch["mask"][:, None], ch["m_seed"], ch["p_seed"], ch["ld0"][None])[0]
+    ff.LAUNCHES["fenrir_backward_batch"] = 0
+    port = ff.fenrir_backward_batch(*[torch.from_numpy(ch[k]) for k in (
+        "A", "b", "C", "d", "y", "om", "mask", "m_seed", "p_seed", "ld0")])
+    assert ff.LAUNCHES["fenrir_backward_batch"] == 0
+    assert port.shape == (B,) and torch.isfinite(port).all()
+    if not with_obs:
+        # no data, no log-density: the seed's term alone
+        assert torch.equal(port, torch.from_numpy(ch["ld0"]))
+    assert _scaled_err(port, ref) <= SCALED_TOL
+
+
+# non-Gaussian DALTON's observation models: the port's and the JAX
+# package's log-likelihood of one component
+_NN_VAR, _NN_B0, _NN_B1 = 0.005, 0.1, 0.05
+_NN_OBS = {
+    "lorenz": (tobs.gauss(_NN_VAR),
+               lambda y, x, j, th, i: -0.5 * (y[0] - x) ** 2 / _NN_VAR),
+    "fitzhugh": (tobs.poisson(_NN_B0, _NN_B1),
+                 lambda y, x, j, th, i: y[0] * (_NN_B0 + _NN_B1 * x)
+                 - jnp.exp(_NN_B0 + _NN_B1 * x)),
+}
+
+
+@pytest.mark.parametrize("n_steps", [1, 2])
+@pytest.mark.parametrize("mode", ["kramer", "rodeo"])
+@pytest.mark.parametrize("model,t_max", [("lorenz", 0.02),
+                                         ("fitzhugh", 0.1)])
+def test_filter_nn_twin_matches_pallas_at_few_steps(model, t_max, mode,
+                                                    n_steps):
+    """K9's twin over 37 lanes of the model's theta perturbed by 1 %, data
+    at the last step (so at 2 steps one step without data and one with)."""
+    jmod = JMODELS[model]
+    obs, comp = _NN_OBS[model]
+    cfg = TMODELS[model].setup(n_steps=n_steps, t_max=t_max,
+                               dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(100 + n_steps)
+    n_lane, nb = 37, jmod.N_VARS
+    thetas = cfg["theta"] * (1 + 0.01 * torch.tensor(
+        rng.standard_normal((n_lane, 3)), dtype=torch.float32))
+    inits = cfg["ode_init"].expand((n_lane,) + cfg["ode_init"].shape)
+    ops = fk._kernel_operands(thetas, cfg["ode_weight"], inits, 0.0, t_max,
+                              n_steps, cfg["prior_pars"])
+    mask = torch.zeros(n_steps)
+    mask[-1] = 1.0
+    y = (rng.normal(size=(n_steps, nb)) * 5 if model == "lorenz"
+         else rng.poisson(2.0, size=(n_steps, nb)))
+    grid = dict(y=torch.tensor(y, dtype=torch.float32) * mask[:, None],
+                iobs=torch.cumsum(mask, 0) * mask, mask=mask)
+    j = {k: jnp.asarray(v.numpy()) for k, v in {**ops, **grid}.items()
+         if isinstance(v, torch.Tensor)}
+    jac = getattr(jmod, f"{model}_jac_flat") if mode == "kramer" else None
+    ref = jd._filter_nn_batch(
+        getattr(jmod, f"{model}_flat"), jac, comp, (0,), mode, n_steps, None,
+        j["prior_var"], j["ode_weight"], j["x0_lanes"], j["theta_lanes"],
+        j["tgrid"], j["t_vec"], j["y"][:, None, :, None], j["iobs"][:, None],
+        j["mask"][:, None], ops["q_const"], interpret=True)
+    fdn.LAUNCHES["filter_nn_batch"] = 0
+    port = fdn.filter_nn_batch(model, obs, (0,), n_steps, **ops, **grid,
+                               mode=mode)
+    assert fdn.LAUNCHES["filter_nn_batch"] == 0
+    for name, a, b in zip(["mf", "pf", "mp", "pp"], port, ref):
+        assert a.shape == b.shape == (n_steps, a.shape[1], nb, n_lane), name
+        assert torch.isfinite(a).all(), name
+        assert _scaled_err(a, b) <= SCALED_TOL, name

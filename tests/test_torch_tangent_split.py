@@ -1,26 +1,27 @@
 """
-The filter twins of DALTON and fenrir's tangent backward twin skip the
+The filter twins of DALTON and fenrir's backward twins skip the
 observation update at steps without data, and the launch of the split
-kernels K1, K3, K8, K11a, K11c and K11d, and of the streams K6, K2r, K4 and
-K11b, is the card's.
+kernels K1, K3, K8, K9, K11a, K11c and K11d, and of the streams K6, K2r,
+K4, K7b and K11b, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
 and its log-density term, where the step's mask is 0, and so do their plain
 twins ``_dalton_filter_plain`` and ``_dalton_filter_tan_plain`` by default;
-K11b (``csrc/fenrir_backward_batch_tan.cu``) and its twin
-``_fenrir_backward_tan_plain`` do the same in fenrir's backward filter,
-which they share with K7b's twin ``_fenrir_backward_plain``
-(``skip_unobserved``, off for K7b and K7a).  At such a step the update is
+K7b (``csrc/fenrir_backward_batch.cu``) and K11b
+(``csrc/fenrir_backward_batch_tan.cu``) and their twins
+``_fenrir_backward_plain`` (with ``skip_unobserved``, which K7b's wrapper
+passes; off for K7a) and ``_fenrir_backward_tan_plain`` do the same in
+fenrir's backward filter.  At such a step the update is
 an exact identity (the gain is 0 and the term enters as 0 x a finite
 number), so skipping it must change no bit: the tests hold each twin with
 the skip to the same twin running the full update, bitwise, on Lorenz63
 EK1 and FitzHugh-Nagumo EK0 with data (and fenrir's also on a grid without
 any), the values, the log-density and every tangent direction.  Sizes: 300
 steps x 3 lanes, 11 observations (every 30th step), float32 on the CPU.
-The launch geometry of K1, K3, K8, K11a, K11c, K11d, K6, K2r, K4 and K11b
-comes from the card alone (the card tests check it); here its queries must
-raise.
+The launch geometry of K1, K3, K8, K9, K11a, K11c, K11d, K6, K2r, K4, K7b
+and K11b comes from the card alone (the card tests check it); here its
+queries must raise.
 """
 import numpy as np
 import pytest
@@ -187,14 +188,17 @@ def test_fenrir_tan_twin_skip_is_the_full_update(model, with_obs):
      True),
     (lambda **kw: fdn._filter_nn_batch_tan_geometry(
         "fitzhugh", obs_models.poisson(0.1, 0.05), 37, **kw), True),
+    (lambda **kw: fdn._filter_nn_batch_geometry(
+        "lorenz", obs_models.gauss(0.005), 37, **kw), True),
     (lambda **kw: fs._sampler_batch_geometry(111, **kw), False),
     (lambda **kw: fk._filter_single_geometry("fitzhugh", **kw), True),
     (lambda **kw: fk._smoother_batch_rows_geometry(3, 37, **kw), False),
     (lambda **kw: fk._smoother_single_geometry(7, **kw), False),
     (lambda **kw: ff._fenrir_backward_batch_tan_geometry(3, 37, 3, **kw),
-     False)],
-    ids=["K1", "K8", "K11a", "K11c", "K11d", "K6", "K3", "K2r", "K4",
-         "K11b"])
+     False),
+    (lambda **kw: ff._fenrir_backward_batch_geometry(3, 37, **kw), False)],
+    ids=["K1", "K8", "K11a", "K11c", "K11d", "K9", "K6", "K3", "K2r", "K4",
+         "K11b", "K7b"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

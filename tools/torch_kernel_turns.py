@@ -4,14 +4,15 @@ Time kernels of rodeo_tpu_torch against the same kernels built from other
 checkouts' sources, on one NVIDIA GPU, in turns, on the same inputs: K1
 (filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K4
 (smoother_single), K6 (sampler_batch), K7b (fenrir_backward_batch), K7a
-(fenrir_backward_single), K11b (fenrir_backward_batch_tan) and K11d
-(filter_nn_batch_tan).
+(fenrir_backward_single), K9 (filter_nn_batch), K11b
+(fenrir_backward_batch_tan) and K11d (filter_nn_batch_tan).
 
     python3 tools/torch_kernel_turns.py --other DIR [DIR ...]
         [--kernels {filter_batch,smoother_batch_rows,filter_single,
                     smoother_single,sampler_batch,fenrir_backward_batch,
-                    fenrir_backward_single,fenrir_backward_batch_tan,
-                    filter_nn_batch_tan} ...] [--out PATH]
+                    fenrir_backward_single,filter_nn_batch,
+                    fenrir_backward_batch_tan,filter_nn_batch_tan} ...]
+        [--out PATH]
 
 Each DIR is the root of another checkout of the repository (for example the
 parent commit unpacked with ``git archive``, or a copy with a kernel's
@@ -26,8 +27,8 @@ boundary steps of its 16-step groups (``single``); K6 on the draw operands
 of the solve (``sim``); K7b and K11b on fenrir's chain at 4000 steps x
 2048 lanes, 21 observations of rng(0).normal x 5, variance 0.005
 (``likelihood``, ``grad``); K7a on one fenrir evaluation of that fixture
-(``single``); K11d on non-Gaussian DALTON's fixture, 4000 steps x 2048
-lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
+(``single``); K9 and K11d on non-Gaussian DALTON's fixture, 4000 steps x
+2048 lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
 (``daltonng_kernels``).  Each kernel is timed in three rounds of this
 checkout's library, then each other's, each time the median device time
 of 5 launches by CUDA events (a sleep holds the stream while the host
@@ -61,6 +62,7 @@ KERNELS = {"filter_batch": "19filter_batch_kernel",
            "sampler_batch": "20sampler_batch_kernel",
            "fenrir_backward_batch": "22fenrir_backward_kernel",
            "fenrir_backward_single": "29fenrir_backward_single_kernel",
+           "filter_nn_batch": "22filter_nn_batch_kernel",
            "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
            "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
 # the kernels whose step loop is printed
@@ -202,8 +204,8 @@ def main():
         torch.cuda.empty_cache()
         return line
 
-    def time_nn_tan():
-        """K11d on non-Gaussian DALTON's fixture."""
+    def time_nn(tangent):
+        """K9 (or K11d) on non-Gaussian DALTON's fixture."""
         n_ng, b_ng = 4000, 2048
         cfg, thetas, inits = lanes(n_ng, b_ng)
         data = np.random.default_rng(1).normal(size=(21, 3, 1)) * 5
@@ -215,12 +217,13 @@ def main():
                    (0,), n_ng)
         operands = [v for v in {**ops_ng, **grid_ng}.values()
                     if isinstance(v, torch.Tensor)]
-        out_bytes = n_ng * 4 * (3 + 6 + 3 + 6) * 3 * b_ng * 4
+        n_aug = 4 if tangent else 1
+        out_bytes = n_ng * n_aug * (3 + 6 + 3 + 6) * 3 * b_ng * 4
+        wrapper = fdn.filter_nn_batch_tan if tangent else fdn.filter_nn_batch
         return turns(
-            "filter_nn_batch_tan",
-            lambda: fdn.filter_nn_batch_tan(*nn_args, **ops_ng, **grid_ng,
-                                            mode="kramer"),
-            nbytes(*operands) + out_bytes)
+            wrapper.__name__,
+            lambda: wrapper(*nn_args, **ops_ng, **grid_ng, mode="kramer"),
+            nbytes(*operands) + out_bytes, shape=f"{n_ng} x {b_ng}")
 
     def solve_operands(n_s, b_s):
         """The batched solve's kernel operands."""
@@ -361,7 +364,8 @@ def main():
              "fenrir_backward_batch": lambda: time_fenrir(False),
              "fenrir_backward_single": time_fenrir_single,
              "fenrir_backward_batch_tan": lambda: time_fenrir(True),
-             "filter_nn_batch_tan": lambda: [time_nn_tan()]}
+             "filter_nn_batch": lambda: [time_nn(False)],
+             "filter_nn_batch_tan": lambda: [time_nn(True)]}
     lines = [line for name in args.kernels for line in timed[name]()]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
