@@ -84,7 +84,7 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              and K7a (fenrir_backward_single) against their twins on the same
              CUDA inputs at 1000 steps: K3 on Lorenz63 EK1 and FitzHugh-Nagumo
              EK0, bitwise, K4 on seeded gains and on K3's, bitwise, K7a on
-             K3's chain with observations;
+             K3's chain with observations, bitwise;
 13. single   the single-solve path: solve_mv_fused on Lorenz63 EK1, 10 000
              steps, with the default plain smoother (it must launch K3 and K4
              once, stay finite and pass the t <= 4 audit), its time and peak
@@ -96,9 +96,10 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              SASS instructions of its step loop (cuobjdump) and its launch
              as the card reports it with ptxas' registers and spills, K4
              bitwise with the same records (its stage loop), also on the
-             composed smoother's boundary groups, and K3, K4 and K7a each
-             with its dependent-chain bound (CHAIN_OPS at the SM clock's
-             maximum);
+             composed smoother's boundary groups, K7a bitwise with its
+             launch and ptxas' report, and K3, K4 and K7a each with its
+             dependent-chain bound (CHAIN_OPS at the SM clock's maximum;
+             K7a's weighted over its steps with data and without);
 14. k5_twin  the stationary solve's mean-chain kernels K5a
              (mean_gain_single), K5b (mean_boundary_single) and K5c
              (mean_recovery_single) against their twins on the same CUDA
@@ -113,13 +114,14 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              150-step horizon at the same step, which must launch K3, K5a
              and K4 once each and pass the audit on its rows;
 16. stationary_kernels  K5a, K5b and K5c alone at their paths' shapes,
-             timed and checked against their twins there;
+             timed and checked against their twins there, each with its
+             dependent-chain bound;
 17. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
              and K10b (magi_adjoint_batch, on K10a's streams) against their
              twins on the same CUDA inputs, 1000 steps x 256 lanes of the
              cached Lorenz63 path plus seeded noise, the prior's process
              noise x 1e-5: n_active 1, 2 and 3, and 2 with a per-lane
-             sig2_lanes;
+             sig2_lanes, all bitwise;
 18. magi     bench.py's MAGI fixture at full width: the cached float64
              Lorenz63 path (4000 steps, dt 0.005) plus 1e-4 x lane, 2048
              lanes, n_active 2.  magi_fused_batch must launch K10a once,
@@ -135,7 +137,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              per call of each and the gradient's ratio to the value call,
              and peak memory;
 19. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
-             timed and checked against their twins there;
+             timed and checked against their twins there, K10a bitwise with
+             its launch in each emit as the card reports it and ptxas'
+             report, each with its dependent-chain bound;
 20. k9_twin  non-Gaussian DALTON's kernels K9 (filter_nn_batch) and K11d
              (filter_nn_batch_tan) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes, 21 observations (every 50th
@@ -296,30 +300,44 @@ SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
                  "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
-# K6, K2r, K7b and K11b, streams of 32 columns a CTA through a ring of
-# shared-memory stages, bitwise against their twins, and the mangled names
-# of their kernels.
+# K6, K2r, K7b, K11b and K10a, streams of 32 columns a CTA through a ring
+# of shared-memory stages, bitwise against their twins, and the mangled
+# names of their kernels.
 STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
                   "smoother_batch_rows": "26smoother_batch_rows_kernel",
                   "fenrir_backward_batch": "22fenrir_backward_kernel",
-                  "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel"}
-# K4, a stream of slabs of the single-solve layout through the same ring,
-# one CTA for its one solve's blocks, bitwise against its twin.
-SLAB_KERNELS = {"smoother_single": "22smoother_single_kernel"}
-# The dependent chain of the single-solve kernels: float32 operations on
-# the critical path of one step's (or row's) carry, counted from the code,
-# each at FP32_LATENCY_CYCLES, so that rows x ops x cycles / clock is the
-# least time of the recursion however its instructions are issued.  K4 (a
-# row of chain_step.cuh): P's A P product (a multiply, two adds), its
-# (A P) A' product (a multiply, two adds), + C: 7; m's chain is 4.  K3
-# (Lorenz63 EK1, block_step.cuh): the predicted covariance (7), then P H'
-# (3, H0 waiting on the shuffled means), S (3), 1 / S (1), the gain (1),
-# I - K H (2), the Joseph product (6): 23.  K7a (fenrir_step.cuh): the
-# chain row (7), then P D' (3), S (4), 1 / S (1), K (2), I - K D (2), the
-# Joseph product (6), + K K' om (1): 26.  A division and a logarithm count
-# as one operation and a shuffle as none, so the bound is a floor.
+                  "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
+                  "magi_batch": "11magi_kernel"}
+# K4 and K7a, streams of slabs of the single-solve layout through the same
+# ring, one CTA for their one solve's blocks, bitwise against their twins.
+SLAB_KERNELS = {"smoother_single": "22smoother_single_kernel",
+                "fenrir_backward_single": "29fenrir_backward_single_kernel"}
+# The dependent chain of the serial kernels: float32 operations on the
+# critical path of one step's (or row's) carry, counted from the code, each
+# at FP32_LATENCY_CYCLES, so that rows x ops x cycles / clock is the least
+# time of the recursion however its instructions are issued.  K4 (a row of
+# chain_step.cuh): P's A P product (a multiply, two adds), its (A P) A'
+# product (a multiply, two adds), + C: 7; m's chain is 4.  K3 (Lorenz63
+# EK1, block_step.cuh): the predicted covariance (7), then P H' (3, H0
+# waiting on the shuffled means), S (3), 1 / S (1), the gain (1), I - K H
+# (2), the Joseph product (6): 23.  K7a, a pair (a step without data, a
+# step with data) weighted by the grid's steps of each kind: the chain row
+# (7), and at a step with data P D' (3), S (4), 1 / S (1), K (2), I - K D
+# (2), the Joseph product (6), + K K' om (1): 26.  K10a at n_active 2, both
+# emits (magi_batch.cu; the one carried entry of P, P[2][2], the others
+# exact zeros): Q P Q' (a multiply and an add each way) + R (5), S's
+# determinant, its reciprocal and S^{-1} (4), G (a multiply, an add: 2),
+# P[2][2] - G P_a2 (a multiply, two subtractions: 3): 14.  K10b at n_active
+# 2 (magi_adjoint_batch.cu): t = G lam[2] (1), u = v - t (1), lam = Q' u (a
+# multiply, two adds: 3): 5.  K5a, K5b, K5c (Lorenz63, mean_chain_single.cu):
+# Q m (3), x = mp tv (1), the vector field (3), z = f - W mp (1), m = mp + K
+# z (2): 10; K5c's groups run in parallel, so its rows are a group's.  A
+# division and a logarithm count as one operation and a shuffle as none, so
+# the bound is a floor.
 CHAIN_OPS = {"filter_single": 23, "smoother_single": 7,
-             "fenrir_backward_single": 26}
+             "fenrir_backward_single": (7, 26), "magi_batch": 14,
+             "magi_adjoint_batch": 5, "mean_gain_single": 10,
+             "mean_boundary_single": 10, "mean_recovery_single": 10}
 FP32_LATENCY_CYCLES = 4
 # The single-solve kernels K3, K4, K7a.
 SINGLE_KERNELS = ("filter_single", "smoother_single",
@@ -654,7 +672,9 @@ def main():
         log (a Compiling line, then its stack and spill line, then its
         registers).  A filter's instantiation is named by its model,
         observation model, q, mode and with_obs; a stream's (K6, K2r, K4,
-        K7b, K11b) by q, K11b's directions and the floats a copy moves."""
+        K7b, K11b, K7a) by q, K11b's directions and the floats a copy
+        moves; K10a's by q, n_active, the emit and the floats a copy
+        moves."""
         rows, entry = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -663,7 +683,13 @@ def main():
                     args = re.search(r"(Lorenz63|FitzHughNagumo)E"
                                      r"(?:NS_\d+(Gauss|Poisson)E)?Li(\d+)"
                                      r"ELi(\d+)E(?:Lb(\d)E)?", line)
-                    if args is None:
+                    magi = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)EE",
+                                     line)
+                    if magi is not None:
+                        entry = {"q": int(magi[1]), "n_active": int(magi[2]),
+                                 "emit_adjoint": bool(int(magi[3])),
+                                 "floats_per_copy": int(magi[4])}
+                    elif args is None:
                         args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?Li(\d+)EE",
                                          line)
                         entry = {"q": int(args[1]),
@@ -693,13 +719,14 @@ def main():
         an SM holds; a stream's stages) and ptxas' report of each
         instantiation; checks, under phase, that its CTAs are all resident
         at once and that no instantiation spills.  A tangent kernel (a grid
-        row per direction) and a stream of columns (K6, K2r, K11b) must
-        also have at least one CTA per SM.  A value filter (K1, K8, K9) has
-        no direction axis: at 2048 lanes it runs 128 CTAs of 16 lanes (K1)
-        or 64 of 32 (K8, K9), fewer than the card's 132 SMs, so it is not held
-        to that; nor are K3 and K4 (SLAB_KERNELS), one CTA for one solve, nor
-        a stream at fewer columns than 32 a CTA on every SM (per_sm
-        False: K11b on FitzHugh-Nagumo's 2 x 2048 columns, 128 CTAs)."""
+        row per direction) and a stream of columns (K6, K2r, K7b, K11b,
+        K10a) must also have at least one CTA per SM.  A value filter (K1,
+        K8, K9) has no direction axis: at 2048 lanes it runs 128 CTAs of 16
+        lanes (K1) or 64 of 32 (K8, K9), fewer than the card's 132 SMs, so
+        it is not held to that; nor are K3 and the slab streams K4 and K7a
+        (SLAB_KERNELS), one CTA for one solve, nor a stream at fewer columns
+        than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
+        x 2048 columns, 128 CTAs)."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
                                **SLAB_KERNELS}[kernel])
         check(phase, f"{label} all resident", geometry["all_resident"])
@@ -1608,7 +1635,8 @@ def main():
     twin_report("k7a_twin", "lorenz/kramer", ["ld"],
                 ff.fenrir_backward_single(*chain_1),
                 chain_1[-1] + fd._block_sum(
-                    ff._fenrir_backward_single_plain(*chain_1[:-1])))
+                    ff._fenrir_backward_single_plain(*chain_1[:-1])),
+                need_bitwise=True)
     del k3_states, ops_k3, mf, pf, mp, pp, states, seeded, chain_1
 
     # ---- 13. the single-solve path ------------------------------------------
@@ -1733,13 +1761,19 @@ def main():
                        fk._smoother_single_geometry(lorenz.N_VARS)),
         "sass_loop": "not measured" if sass_4 is None else sass_4}
 
-    def chain_bound(entry, kernel, n_rows):
-        """A single-solve kernel's dependent-chain bound, beside its byte
-        bound in entry: n_rows x CHAIN_OPS x FP32_LATENCY_CYCLES cycles at
-        the SM clock's maximum, and the share of it the kernel reaches."""
-        cycles = CHAIN_OPS[kernel] * FP32_LATENCY_CYCLES
-        chain_ms = 1e3 * n_rows * cycles / (max_clock_mhz * 1e6)
-        entry.update(chain_cycles_per_step=cycles, chain_bound_ms=chain_ms,
+    def chain_bound(entry, kernel, n_rows, n_data=0):
+        """A serial kernel's dependent-chain bound, beside its byte bound
+        in entry: n_rows x CHAIN_OPS x FP32_LATENCY_CYCLES cycles at the SM
+        clock's maximum (K7a's n_data steps with data at its second count,
+        the others at its first), and the share of it the kernel
+        reaches."""
+        ops = CHAIN_OPS[kernel]
+        free, data = ops if isinstance(ops, tuple) else (ops, ops)
+        cycles = ((n_rows - n_data) * free + n_data * data) \
+            * FP32_LATENCY_CYCLES
+        chain_ms = 1e3 * cycles / (max_clock_mhz * 1e6)
+        entry.update(chain_cycles_per_step=cycles / n_rows,
+                     chain_bound_ms=chain_ms,
                      share_of_chain_bound=chain_ms / entry["ms"])
     at_single = {}
     for n_1, t_1, on_path, launches_1 in (
@@ -1798,16 +1832,28 @@ def main():
             chain_1 = ff._fenrir_single_operands(
                 fused, n_1, 0.0, t_1, ops_1, Qs_1, *obs_f.values(), "kramer")
             chain_cpu = [t.cpu() for t in chain_1[:9]]
+            # the skipping twin's operations over the grid's steps with
+            # data and without (grid_ops)
+            ops_7 = grid_ops(chain_cpu[6], lambda idx: op_count(
+                lambda: ff._fenrir_backward_single_plain(
+                    *[t[idx] for t in chain_cpu[:7]], *chain_cpu[7:])))
             _, entry_7 = at_path_shapes(
                 "single", "fenrir_backward_single", "pallas_fenrir.py:214",
                 launches_1, lambda: ff.fenrir_backward_single(*chain_1),
                 lambda: chain_1[-1] + fd._block_sum(
                     ff._fenrir_backward_single_plain(*chain_1[:-1])),
-                ["ld"], lambda n: ff._fenrir_backward_single_plain(
-                    *[t[:n] for t in chain_cpu[:7]], *chain_cpu[7:]),
-                n_1, chain_1, out_bytes=4 * 3, shape=f"{n_1} steps")
+                ["ld"], None, None, chain_1, n_ops=ops_7, out_bytes=4 * 3,
+                shape=f"{n_1} steps",
+                **split_record("single", "fenrir_backward_single",
+                               "fenrir_backward_single lorenz",
+                               ff._fenrir_backward_single_geometry(
+                                   lorenz.N_VARS)))
             at_single["fenrir_backward_single"] = entry_7
-            chain_bound(entry_7, "fenrir_backward_single", n_1)
+            entry_7["us_per_step"] = 1e3 * entry_7["ms"] / n_1
+            chain_bound(entry_7, "fenrir_backward_single", n_1,
+                        int((chain_cpu[6] != 0).sum()))
+            check("single", f"fenrir_backward_single {n_1} steps bitwise",
+                  entry_7["bitwise"])
             del chain_1, chain_cpu
         del out_3, mf, pf, mp, pp, ops_1, Qs_1, cpu_1
     emit({"phase": "single_kernels", "kernels": at_single})
@@ -1983,6 +2029,12 @@ def main():
                                       short_cpu[7][:n]),
         n_short, tensors(dict(enumerate(short_5))),
         source="mean_chain_single", shape=f"{n_short} steps")
+    # K5c's groups run in parallel: its chain is one group's steps
+    k_group = n_tail // bnd[0].shape[0]
+    for kernel, n_rows in (("mean_boundary_single", n_tail),
+                           ("mean_recovery_single", k_group),
+                           ("mean_gain_single", n_short)):
+        chain_bound(at_stat[kernel], kernel, n_rows)
     del long_5, short_5, long_cpu, short_cpu, bnd, rec_5, rec_cpu
     emit({"phase": "stationary_kernels", "kernels": at_stat})
 
@@ -2031,12 +2083,12 @@ def main():
             out_p = as_tuple(magi_twin(x_tw, R_tw, m0_tw, q_mg, mode))
             twin_report("k10_twin", f"magi_batch {config} emit={mode}",
                         k10a_names[:len(out_k)], out_k, out_p,
-                        n_lane=b_tw)
+                        need_bitwise=True, n_lane=b_tw)
         streams = magi_streams(out_k, act)
         twin_report("k10_twin", f"magi_adjoint_batch {config}",
                     ["gx", "lam0"], fm.magi_adjoint_batch(*streams, q_mg),
                     fm._magi_adjoint_batch_plain(*streams, q_mg),
-                    n_lane=b_tw)
+                    need_bitwise=True, n_lane=b_tw)
     del subs_tw, sig2_tw, R_tw, x_tw, m0_tw, out_k, out_p, streams
 
     # ---- 18. MAGI at full width --------------------------------------------
@@ -2174,15 +2226,23 @@ def main():
             lambda n: fm._magi_batch_plain(mg_cpu[0][:n], *mg_cpu[1:], q_mg,
                                            mode),
             n_mg * b_mg, (x_mg, R_mg, m0_mg), register=mode == "ld",
-            config=f"emit={mode}", emit=mode, shape=f"{n_mg} x {b_mg}")
+            config=f"emit={mode}", emit=mode, shape=f"{n_mg} x {b_mg}",
+            **split_record("magi_kernels", "magi_batch",
+                           f"magi_batch emit={mode}",
+                           fm._magi_batch_geometry(3, b_mg, 2, mode)))
         at_magi[f"magi_batch/{mode}"] = entry
+        entry["us_per_step"] = 1e3 * entry["ms"] / n_mg
+        chain_bound(entry, "magi_batch", n_mg)
+        check("magi_kernels", f"magi_batch emit={mode} bitwise",
+              entry["bitwise"])
         if mode == "adjoint":
             streams_mg = magi_streams(out_mg, 2)
     kernels["magi_batch"]["emit_adjoint"] = {
         k: at_magi["magi_batch/adjoint"][k]
         for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                   "work", "max_abs_err", "max_scaled_err", "bitwise",
-                  "launches")}
+                  "launches", "chain_bound_ms", "share_of_chain_bound",
+                  "geometry")}
     del out_mg
     streams_cpu = [cpu_lane(t) for t in streams_mg]
     _, at_magi["magi_adjoint_batch"] = at_path_shapes(
@@ -2194,6 +2254,7 @@ def main():
         lambda n: fm._magi_adjoint_batch_plain(
             *[t[:n] for t in streams_cpu], q_mg),
         n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}")
+    chain_bound(at_magi["magi_adjoint_batch"], "magi_adjoint_batch", n_mg)
     del streams_mg, streams_cpu, x_mg, R_mg, m0_mg, subs_mg
     emit({"phase": "magi_kernels", "n_steps": n_mg, "n_lane": b_mg,
           "kernels": at_magi})

@@ -2,18 +2,18 @@
 // (block, lane) column: a row (A_n, b_n, C_n) of the chain -- the smoothing
 // gains (G_n, g_n, L_n) -- maps the state at step n+1 onto step n,
 //   m = b_n + A_n m,   P = C_n + A_n P A_n'.
-// The step is shared by the smoothers K2r (smoother_batch_rows.cu) and K4
-// (smoother_single.cu), which stream the chain through stream_ring.cuh,
-// and by fenrir's backward filters K7b, K7a and K11b through
-// fenrir_step.cuh, so that all of them do the same arithmetic as their
-// plain twins (_smoother_batch_plain of ops/fused_kalman.py,
-// _fenrir_backward_plain of ops/fused_fenrir.py).
+// The step is shared by the smoother rows K2r (smoother_batch_rows.cu) and
+// fenrir's single-solve backward filter K7a (fenrir_backward_single.cu),
+// which stream the chain through stream_ring.cuh, and by fenrir's backward
+// filters K7b and K11b through fenrir_step.cuh, so that all of them do the
+// same arithmetic as their plain twins (_smoother_batch_plain of
+// ops/fused_kalman.py, _fenrir_backward_plain of ops/fused_fenrir.py); K4
+// (smoother_single.cu) spreads it over the lanes of a warp in the same
+// order.
 //
-// The kernels that read their operands from device memory themselves index
-// them through a layout, so that no host code transposes them: the
-// lane-batched MAGI kernels read (T, D, NB, B), columns innermost
-// (BatchLayout); K7a reads the chain in the JAX package's (T, NB, D),
-// entries innermost (SingleLayout, load_chain_row).
+// K10b, which reads its operands from device memory itself, indexes them
+// through a layout, so that no host code transposes them: (T, D, NB, B),
+// columns innermost (BatchLayout).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,14 +30,6 @@ struct BatchLayout {
   }
 };
 
-// Entry i of D at step n of column c in a (T, n_col, D) array.
-struct SingleLayout {
-  size_t n_col;
-  __device__ __forceinline__ size_t operator()(int n, int i, size_t c, int D) const {
-    return (static_cast<size_t>(n) * n_col + c) * D + i;
-  }
-};
-
 // One row of the chain, as float or Dual.
 template <class T, int Q>
 struct ChainRow {
@@ -45,24 +37,6 @@ struct ChainRow {
   T b[Q];
   T C[Tri<Q>::N];
 };
-
-// Row n of the chain for column c: A row-major (Q*Q entries), b, packed C.
-template <int Q, class Layout>
-__device__ __forceinline__ void load_chain_row(int n, const Layout& lay, size_t c,
-                                               const float* __restrict__ A,
-                                               const float* __restrict__ b,
-                                               const float* __restrict__ C,
-                                               ChainRow<float, Q>& row) {
-  constexpr int NT = Tri<Q>::N;
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-#pragma unroll
-    for (int j = 0; j < Q; ++j) row.A[i][j] = __ldg(A + lay(n, i * Q + j, c, Q * Q));
-#pragma unroll
-  for (int i = 0; i < Q; ++i) row.b[i] = __ldg(b + lay(n, i, c, Q));
-#pragma unroll
-  for (int k = 0; k < NT; ++k) row.C[k] = __ldg(C + lay(n, k, c, NT));
-}
 
 // m = b + A m, P = C + A P A', each sum in the twin's order.
 template <int Q, class T>

@@ -25,7 +25,7 @@
 // (StageCopies).  The consumer thread of column t carries m, the packed P
 // and its block's log-density sum in registers from step N-1 down to 0,
 // reading each step's row from shared memory, and runs fenrir_step
-// (fenrir_step.cuh), the step K7a and K11b run.  It skips the observation
+// (fenrir_step.cuh), the step K11b runs.  It skips the observation
 // update at a step whose mask is 0, an exact identity there, as the twin
 // with skip_unobserved and K11b do (on the likelihood fixture 21 of 4000
 // steps carry data); the branch is the same for every thread.  The
@@ -105,8 +105,7 @@ __global__ void __launch_bounds__(2 * kStreamCols)
         for (int i = 0; i < Q; ++i) row.b[i] = in[s][rb + i][t];
 #pragma unroll
         for (int i = 0; i < NT; ++i) row.C[i] = in[s][rC + i][t];
-        fenrir_step<Q, true>(top - s, n_block, blk, row, d, y, om, mask, m, P,
-                             ld);
+        fenrir_step<Q>(top - s, n_block, blk, row, d, y, om, mask, m, P, ld);
       }
     });
     if (live) ld_blocks[c] = ld;

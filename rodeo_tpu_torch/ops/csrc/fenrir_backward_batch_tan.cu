@@ -123,8 +123,7 @@ __global__ void __launch_bounds__((NTAN + 1) * kStreamCols, 2)
 #pragma unroll
         for (int i = 0; i < NT; ++i)
           row.C[i] = Dual(in[s][rC + i][t], in[s][rC + (1 + dir) * NT + i][t]);
-        fenrir_step<Q, true>(top - s, n_block, blk, row, d, y, om, mask, m, P,
-                             ld);
+        fenrir_step<Q>(top - s, n_block, blk, row, d, y, om, mask, m, P, ld);
       }
     });
     if (live) store_aug(ld_blocks, 0, 1, NAUG, 0, n_col, c, dir, ld);

@@ -1,11 +1,13 @@
-// A reverse recursion as a stream: the ring of shared-memory stages filled
-// by cp.async that the draw K6 (sampler_batch.cu), the smoother rows K2r
-// (smoother_batch_rows.cu), fenrir's tangent backward filter K11b
-// (fenrir_backward_batch_tan.cu) and the single-solve smoother K4
-// (smoother_single.cu) run.
+// A recursion as a stream: the ring of shared-memory stages filled by
+// cp.async that the draw K6 (sampler_batch.cu), the smoother rows K2r
+// (smoother_batch_rows.cu), fenrir's backward filters K7b
+// (fenrir_backward_batch.cu), K11b (fenrir_backward_batch_tan.cu) and K7a
+// (fenrir_backward_single.cu), the single-solve smoother K4
+// (smoother_single.cu) and MAGI's filter K10a (magi_batch.cu) run.
 //
 // A CTA has W consumer warps, which carry the recursion's state in
-// registers from step T-1 down to 0, and a producer warp, which feeds them
+// registers from step T-1 down to 0 (K10a, a forward recursion: from step 0
+// up to T-1; FWD below), and a producer warp, which feeds them
 // (ring_consume, ring_produce).  The loads go through a ring of K
 // shared-memory stages of S steps each, and the producer refills the stage
 // the consumers have just consumed while they work on the next, keeping K
@@ -20,17 +22,17 @@
 // the drain's at0 and step_of) and a copy or a store costs a multiply-add
 // (PERF.md).
 //
-// The column streams (K6, K2r, K11b): the recursion is block-diagonal, so
-// the n_col = NB x B (block, lane) columns run independently; every operand
-// is (T, D, n_col), columns innermost.  A CTA owns kStreamCols = 32
-// neighbouring columns, a consumer thread each (a warp per theta direction
-// in K11b); one step of the CTA is R runs of 32 floats (128 B each), R the
-// rows of all operands (StreamRows).  Where the rows are not 16-byte
-// aligned the same pipeline copies and stores 4 bytes at a time (V = 1,
-// chosen at launch); the last CTA masks the columns past n_col, and the
-// last stage the steps before row 0, so any n_steps >= 0 and n_col >= 1
-// run.  The slab stream (K4) reads the single-solve layout (T, NB, D) in
-// slabs of consecutive rows (SlabRuns).
+// The column streams (K6, K2r, K7b, K11b, K10a): the recursion is
+// block-diagonal, so the n_col = NB x B (block, lane) columns run
+// independently; every operand is (T, D, n_col), columns innermost.  A CTA
+// owns kStreamCols = 32 neighbouring columns, a consumer thread each (a warp
+// per theta direction in K11b); one step of the CTA is R runs of 32 floats
+// (128 B each), R the rows of all operands (StreamRows).  Where the rows are
+// not 16-byte aligned the same pipeline copies and stores 4 bytes at a time
+// (V = 1, chosen at launch); the last CTA masks the columns past n_col, and
+// the last stage the steps past the last, so any n_steps >= 0 and n_col >= 1
+// run.  The slab streams (K4, K7a) read the single-solve layout (T, NB, D)
+// in slabs of consecutive rows (SlabRuns).
 #pragma once
 
 #include <cstdint>
@@ -201,11 +203,19 @@ struct StageCopies {
   }
 };
 
-// Issue the copies of stage k (steps top, top - 1, .., down to row 0 at
-// most, top = n_steps - 1 - k S) into ring slot `slot`, and commit them as
-// one group; past the last stage, commit an empty group, so that the count
-// of groups stays the count of stages.
-template <class Rows, int V, int S>
+// Step s of stage k of a column stream, top = n_steps - 1 - k S: stage k
+// holds its steps s = 0 .. min(S - 1, top), the last stage the steps left
+// over.  A reverse stream counts them down from step top, a forward one (FWD)
+// up from step k S.
+template <bool FWD>
+__device__ __forceinline__ int stage_step(int n_steps, int top, int s) {
+  return FWD ? n_steps - 1 - top + s : top - s;
+}
+
+// Issue the copies of stage k (its steps, stage_step) into ring slot
+// `slot`, and commit them as one group; past the last stage, commit an empty
+// group, so that the count of groups stays the count of stages.
+template <class Rows, int V, int S, bool FWD = false>
 __device__ __forceinline__ void fill_stage(
     float (&slot)[S][Rows::R][kStreamCols], int k, int n_stage, int n_steps,
     int width, const StageCopies<Rows, V>& w) {
@@ -213,8 +223,8 @@ __device__ __forceinline__ void fill_stage(
     const int top = n_steps - 1 - k * S;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      if (s > top) break;  // before row 0
-      w.copy_step(slot[s], top - s);
+      if (s > top) break;  // past the last step
+      w.copy_step(slot[s], stage_step<FWD>(n_steps, top, s));
     }
   }
   commit_async();
@@ -301,8 +311,8 @@ __device__ __forceinline__ void ring_arrive(int id) {
 }
 
 // The ring's two sides, one ring for every stream of the port: the column
-// streams K6 and K2r (stream_stages below) and K11b, and the slab stream
-// K4.  The W consumer warps
+// streams K6, K2r and K10a (stream_stages below), K7b, K11b and K10a's
+// "ld" emit, and the slab streams K4 and K7a.  The W consumer warps
 // (threads 0 .. 32 W - 1) call ring_consume, the producer warp (the next
 // 32 threads) ring_produce, with the same n_stage stages and K slots.
 //
@@ -346,7 +356,8 @@ __device__ __forceinline__ void ring_produce(int n_stage, Fill&& fill,
 inline dim3 stream_cta() { return dim3(2 * kStreamCols); }
 
 // The stream of one CTA: columns col0 .. col0 + width - 1 of n_col, steps
-// n_steps - 1 down to 0, operand arrays ops (T, D_k, n_col) in the order of
+// n_steps - 1 down to 0 (FWD: 0 up to n_steps - 1), operand arrays ops (T,
+// D_k, n_col) in the order of
 // Rows, on the ring (ring_consume, ring_produce) with one consumer warp.
 // The consumer thread of each live column t calls step(n, v, out, t) for
 // each step n, with its column's R operands of the step in v (in
@@ -361,7 +372,8 @@ inline dim3 stream_cta() { return dim3(2 * kStreamCols); }
 // stages, out two stages of output rows (the consumer stages one while the
 // producer stores the other); both 16-byte aligned.  Every thread of the
 // CTA must call this (it holds barriers).
-template <class Rows, int O, int V, int S, int K, class Step, class Dest>
+template <class Rows, int O, int V, int S, int K, bool FWD = false,
+          class Step, class Dest>
 __device__ __forceinline__ void stream_stages(
     float (*ring)[S][Rows::R][kStreamCols],
     float (&out)[2][S][O][kStreamCols], int n_steps, size_t n_col,
@@ -381,7 +393,7 @@ __device__ __forceinline__ void stream_stages(
           float v[Rows::R];  // column t's operands of the step
 #pragma unroll
           for (int r = 0; r < Rows::R; ++r) v[r] = in[s][r][t];
-          step(top - s, v, out[k & 1][s], t);
+          step(stage_step<FWD>(n_steps, top, s), v, out[k & 1][s], t);
         }
       }
     });
@@ -410,7 +422,8 @@ __device__ __forceinline__ void stream_stages(
   ring_produce<1, K>(
       n_stage,
       [&](int k, int slot) {
-        fill_stage<Rows, V, S>(ring[slot], k, n_stage, n_steps, width, w);
+        fill_stage<Rows, V, S, FWD>(ring[slot], k, n_stage, n_steps, width,
+                                    w);
       },
       [&](int k) {  // the output rows of stage k
         if (w.col >= width) return;
@@ -421,12 +434,13 @@ __device__ __forceinline__ void stream_stages(
           const int s = s_of[p];
           if (s > top) continue;
           const float* src = &out[k & 1][s][f % O][w.col];
+          const int n = stage_step<FWD>(n_steps, top, s);
           if constexpr (V == 4) {
-            float* dst = at0[p] + static_cast<long long>(top - s) * step_of[p];
+            float* dst = at0[p] + static_cast<long long>(n) * step_of[p];
             *reinterpret_cast<float4*>(dst) =
                 *reinterpret_cast<const float4*>(src);
           } else {
-            *dest(top - s, f % O) = *src;
+            *dest(n, f % O) = *src;
           }
         }
       });

@@ -32,14 +32,14 @@ single-solve path: the filter K3
 (:func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter`), the chain and the
 terminal update in dense batched torch, and **K7a**
 ``csrc/fenrir_backward_single.cu`` (replacing
-``_backward_kernel_global_mask``), K7b's step on one solve.
+``_backward_kernel_global_mask``), K7b's step on one solve, with the same
+skip.
 
 The plain PyTorch twin of K7b is :func:`_fenrir_backward_plain` with
 ``skip_unobserved``; run on Duals it is K11b's
-(:func:`_fenrir_backward_tan_plain`), and on the single-solve layout,
-without the skip, K7a's (:func:`_fenrir_backward_single_plain`); the
-wrappers take them only for CPU tensors.  ``LAUNCHES`` counts the
-launches.
+(:func:`_fenrir_backward_tan_plain`), and on the single-solve layout K7a's
+(:func:`_fenrir_backward_single_plain`); the wrappers take them only for
+CPU tensors.  ``LAUNCHES`` counts the launches.
 """
 import numpy as np
 import torch
@@ -74,8 +74,8 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
     seeds of Duals, a Dual.
 
     With ``skip_unobserved`` it skips the observation update and its term at
-    a step without data, where they are an exact identity, as K7b and K11b
-    do (a test holds the two to each other bitwise); K7a runs them."""
+    a step without data, where they are an exact identity, as K7b, K11b and
+    K7a do (a test holds the two to each other bitwise)."""
     n_steps, q, n_block, n_lane = b.shape
     pairs, where = _tri_idx(q)
     m_cols, p_cols = list(m_seed), list(p_seed)
@@ -235,16 +235,32 @@ def _fenrir_backward(n_tan, A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
 # --- K7a: the single-solve reverse filter ------------------------------------------
 
 
-def _fenrir_backward_single_plain(A, b, C, d, y, om, mask, m_seed, p_seed):
+def _fenrir_backward_single_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
+                                  skip_unobserved=True):
     """Plain PyTorch twin of ``csrc/fenrir_backward_single.cu``: K7b's twin
-    with each block a column, on transposed views.  Returns each block's
-    log-density sum ``(n_block,)``."""
+    with each block a column, on transposed views, skipping the observation
+    update at steps without data as K7a does (unless
+    ``skip_unobserved=False``).  Returns each block's log-density sum
+    ``(n_block,)``."""
     def lanes(a):
         return a.permute(0, 2, 1)[..., None]
 
     return _fenrir_backward_plain(lanes(A), lanes(b), lanes(C), d, y, om,
                                   mask, m_seed.T[..., None],
-                                  p_seed.T[..., None])[:, 0]
+                                  p_seed.T[..., None],
+                                  skip_unobserved)[:, 0]
+
+
+def _fenrir_backward_single_geometry(n_block, device=None):
+    """The launch of kernel K7a (:func:`fenrir_backward_single`) over
+    ``n_block`` blocks with aligned operands on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
+    (its shared memory dynamic), with the stages of its shared-memory ring,
+    the steps a stage holds and the blocks a CTA holds (a consumer thread
+    each)."""
+    return _launch_geometry("fenrir_backward_single", device, n_block,
+                            extra=("stages", "rows_per_stage",
+                                   "blocks_per_cta"))
 
 
 def fenrir_backward_single(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):

@@ -14,9 +14,10 @@ is a linear backward recursion with the coefficients the forward pass
 stores.
 
 - **K10a** ``csrc/magi_batch.cu`` replaces ``_magi_kernel_batch``: the
-  filter, one thread per (block, lane), summing each block's log-density;
-  with ``emit="adjoint"`` it also streams each step's innovation ``z``,
-  packed ``S^{-1}`` and gain ``G``;
+  filter, a forward stream of one thread per (block, lane) fed by a producer
+  warp, summing each block's log-density; with ``emit="adjoint"`` it also
+  streams out each step's innovation ``z``, packed ``S^{-1}`` and gain
+  ``G``;
 - **K10b** ``csrc/magi_adjoint_batch.cu`` replaces
   ``_magi_adjoint_kernel_batch``: the exact reverse adjoint over those
   streams, giving the gradient in the active rows of steps 1..N and in the
@@ -50,8 +51,9 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _LOG2PI, _acc, _block_sum, _check, _host_qconst, _launch, _matvec,
-    _pack_tri, _static_scaled_qconst, _sym_inv, _sym_quadform, _tri_idx)
+    _LOG2PI, _acc, _block_sum, _check, _host_qconst, _launch,
+    _launch_geometry, _matvec, _pack_tri, _static_scaled_qconst, _sym_inv,
+    _sym_quadform, _tri_idx)
 from rodeo_tpu_torch.ops.precond import scale_prior, taylor_scale
 
 __all__ = ["magi_fused_batch", "magi_fused_batch_grad", "MagiLogdens",
@@ -152,6 +154,22 @@ def _magi_batch_plain(x, R, m0, q_const, emit):
     if emit == "adjoint":
         return ld, z_out, s_out, g_out
     return ld
+
+
+def _magi_batch_geometry(n_block, n_lane, n_active=2, emit="ld",
+                         device=None):
+    """The launch of kernel K10a (:func:`magi_filter_batch`) for
+    ``n_active`` and ``emit`` over ``n_block x n_lane`` columns with aligned
+    operands on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it,
+    with the stages of the emit's shared-memory ring, the steps a stage
+    holds and the columns a CTA holds."""
+    if emit not in _EMITS:
+        raise ValueError(f"emit must be 'ld' or 'adjoint', got {emit!r}")
+    return _launch_geometry("magi_batch", device, n_active, _EMITS[emit],
+                            n_block, n_lane,
+                            extra=("stages", "steps_per_stage",
+                                   "columns_per_cta"))
 
 
 def magi_filter_batch(x, R, m0, q_const, emit="ld"):

@@ -14,7 +14,7 @@ CUDA inputs, the launch contract of each fused entry point, and the launch
 geometry of K1, K8 and K9, which run one thread per (lane, block), of K3,
 which runs one thread per block of its one solve, of K11a, K11c and K11d,
 which run one thread per (lane, direction, block), and of K6, K2r, K7b,
-K11b and K4, streams through a ring of shared-memory stages
+K11b, K10a, K4 and K7a, streams through a ring of shared-memory stages
 (``csrc/stream_ring.cuh``).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
@@ -528,8 +528,8 @@ def test_gradient_entry_points_launch_their_kernels(cuda_device):
                                               ("fitzhugh", "rodeo", 3.0)])
 def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
                                                       mode, t_max):
-    """K3 (bitwise), K4 (bitwise, on K3's gains, over every step and over
-    the composed boundary steps) and K7a (on fenrir's chain) against their
+    """K3, K4 (on K3's gains, over every step and over the composed
+    boundary steps) and K7a (on fenrir's chain) bitwise against their
     twins."""
     n_steps = 300
     cfg = MODELS[model].setup(n_steps=n_steps, t_max=t_max,
@@ -565,6 +565,7 @@ def test_single_kernels_match_their_twins_on_the_card(cuda_device, model,
         *chain[:-1]))
     assert torch.isfinite(k7)
     assert _scaled_err(k7, p7) <= TWIN_TOL
+    assert torch.equal(k7, p7)
 
 
 def _put(a, device, offset):
@@ -734,6 +735,105 @@ def test_fenrir_stream_is_bitwise_its_twin_on_the_card(cuda_device, n_lane,
             assert torch.equal(k7, chain[-1]), n_steps
 
 
+@pytest.mark.parametrize("n_block", [1, 3, 7])
+def test_fenrir_single_stream_is_bitwise_its_twin_on_the_card(cuda_device,
+                                                              n_block):
+    """K7a, a stream of slabs through a ring of shared-memory stages (a
+    consumer and a producer warp), bitwise against its twin (which skips
+    the update at steps without data, as K7a does) at 1, 2, 9, 64, 65 and
+    4000 steps: within a stage, at its end and past it, and the likelihood
+    fixture's length; with 16-byte copies and with every operand 4 bytes
+    past a 16-byte boundary (4-byte copies); at 7 blocks over two CTAs (4-byte
+    copies, run by run: 4 blocks a CTA); with no data, and with data on
+    the first and last step.  Its launch as the card reports it: CTAs of a consumer and a
+    producer warp, a consumer thread per block, all resident, no local
+    memory."""
+    q = 3
+    geo = ff._fenrir_backward_single_geometry(n_block, device=cuda_device)
+    per = geo["blocks_per_cta"]
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+    assert geo["grid_x"] == -(-n_block // per), geo
+    assert 1 <= per <= 32, geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    for offset in (0, 1):
+        for n_steps in (1, 2, 9, 64, 65, 4000):
+            for with_obs in (False, True):
+                rng = np.random.default_rng(140 + n_steps + offset)
+                mask = np.zeros(n_steps)
+                if with_obs:
+                    mask[0] = mask[-1] = 1.0
+                A = np.eye(q).reshape(1, 1, q * q) * 0.8 + \
+                    0.1 * rng.standard_normal((n_steps, n_block, q * q))
+                chain = [_put(a, cuda_device, offset) for a in (
+                    A, rng.standard_normal((n_steps, n_block, q)),
+                    _packed_psd(rng, (n_steps, n_block), q, 0.3),
+                    rng.standard_normal((n_steps, q, n_block))
+                    * mask[:, None, None],
+                    rng.standard_normal((n_steps, n_block)) * mask[:, None],
+                    np.where(mask[:, None] > 0,
+                             0.1 + rng.random((n_steps, n_block)), 1.0),
+                    mask, rng.standard_normal((n_block, q)),
+                    _packed_psd(rng, (n_block,), q),
+                    rng.standard_normal(1))]
+                chain[-1] = chain[-1][0]    # the seed's term, a scalar
+                _reset_launches()
+                k7 = ff.fenrir_backward_single(*chain)
+                assert _launched() == {"fenrir_backward_single": 1}
+                p7 = chain[-1] + fd._block_sum(
+                    ff._fenrir_backward_single_plain(*chain[:-1]))
+                label = (n_steps, offset, with_obs)
+                assert k7.shape == () and torch.isfinite(k7), label
+                assert torch.equal(k7, p7), label
+                if not with_obs:
+                    assert torch.equal(k7, chain[-1]), label
+
+
+@pytest.mark.parametrize("n_lane,offset,sig2", [(37, 0, False),
+                                                (64, 1, True),
+                                                (100, 0, True)])
+@pytest.mark.parametrize("act", [1, 2, 3])
+def test_magi_stream_is_bitwise_its_twin_on_the_card(cuda_device, act,
+                                                     n_lane, offset, sig2):
+    """K10a, a forward stream with a consumer and a producer warp, bitwise
+    against its twin in both emits at 1, 5 and 300 steps (within a stage,
+    past one, many stages and a ragged last one), and at 4000 at 64 lanes;
+    where the columns end inside a CTA (37 and 100 lanes of 3 blocks),
+    where n_lane x 3 is no multiple of 4 (37) and where every operand starts
+    4 bytes past a 16-byte boundary (offset 1): the last two copy and store
+    4 bytes at a time; R shared by the lanes, or one per lane (sig2).  Its
+    launch as the card reports it in each emit: CTAs of 64 threads, all
+    resident, no local memory, at 2048 lanes at least one CTA per SM."""
+    nb = 3
+    for emit in ("ld", "adjoint"):
+        geo = fm._magi_batch_geometry(nb, n_lane, act, emit,
+                                      device=cuda_device)
+        assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+        assert geo["grid_x"] == -(-nb * n_lane // geo["columns_per_cta"]), geo
+        assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+        assert fm._magi_batch_geometry(nb, 2048, act, emit,
+                                       device=cuda_device)[
+            "ctas_at_least_sms"]
+    for n_steps in (1, 5, 300) + ((4000,) if n_lane == 64 else ()):
+        subs, kw = _magi_lanes(n_steps, n_lane, act, cuda_device, sig2)
+        q_const, _, R, x, m0 = fm._magi_operands(
+            kw["ode_expand"](subs), act, kw["prior_pars"], kw["dt"],
+            kw["sig2_lanes"])
+        x, R, m0 = (_put(a.cpu().numpy(), cuda_device, offset)
+                    for a in (x, R, m0))
+        plain = fm._magi_batch_plain(x, R, m0, q_const, "adjoint")
+        ld_p = fd._block_sum(plain[0])
+        _reset_launches()
+        ld = fm.magi_filter_batch(x, R, m0, q_const, emit="ld")
+        out = fm.magi_filter_batch(x, R, m0, q_const, emit="adjoint")
+        assert _launched() == {"magi_batch": 2}, n_steps
+        assert torch.isfinite(ld).all(), n_steps
+        assert torch.equal(ld, ld_p), n_steps
+        assert torch.equal(out[0], ld_p), n_steps
+        assert len(out) == len([a for a in plain if a is not None])
+        for a, b in zip(out[1:], plain[1:]):
+            assert torch.equal(a, b), n_steps
+
+
 @pytest.mark.parametrize("n_steps", [1, 2, 37, 10000])
 @pytest.mark.parametrize("model,mode", [("lorenz", "kramer"),
                                         ("lorenz", "rodeo"),
@@ -894,7 +994,8 @@ def _magi_lanes(n_steps, n_lane, act, device, sig2=False):
 @pytest.mark.parametrize("act,sig2", [(1, False), (2, False), (3, False),
                                       (2, True)])
 def test_magi_kernels_match_their_twins_on_the_card(cuda_device, act, sig2):
-    """K10a (both emits) and K10b on K10a's streams against their twins."""
+    """K10a (both emits, bitwise) and K10b on K10a's streams against their
+    twins."""
     subs, kw = _magi_lanes(300, 96, act, cuda_device, sig2)
     paths = kw["ode_expand"](subs)
     q_const, _, R, x, m0 = fm._magi_operands(
@@ -905,8 +1006,10 @@ def test_magi_kernels_match_their_twins_on_the_card(cuda_device, act, sig2):
     assert torch.isfinite(ld).all()
     assert torch.equal(ld, out[0])
     assert _scaled_err(ld, fd._block_sum(plain[0])) <= TWIN_TOL
+    assert torch.equal(ld, fd._block_sum(plain[0]))
     for a, b in zip(out[1:], plain[1:]):
         assert _scaled_err(a, b) <= TWIN_TOL
+        assert torch.equal(a, b)
     streams = out[1:] if act < 3 else (*out[1:], None)
     for a, b in zip(fm.magi_adjoint_batch(*streams, q_const),
                     fm._magi_adjoint_batch_plain(*streams, q_const)):

@@ -1,7 +1,8 @@
 """
 The twins of the single-solve filter K3, of the smoother rows K2r, of the
 single-solve smoother K4, of fenrir's backward filter K7b and its tangent
-twin K11b, and of non-Gaussian DALTON's filter K9 against the JAX package
+twin K11b, of non-Gaussian DALTON's filter K9 and of MAGI's filter K10a
+against the JAX package
 at the edges that the kernels' designs have to mask, with the JAX
 package's Pallas kernels in interpret mode.
 
@@ -22,7 +23,11 @@ without (the twins, like K7b and K11b, skip the update at the latter).  K9
 runs one thread per (lane, block) in CTAs of a few lanes, the last lanes
 masked; ``_filter_nn_batch_plain`` is held to ``_filter_nn_kernel_batch``
 at 1 and 2 steps over 37 lanes, Lorenz63 with Gaussian data and
-FitzHugh-Nagumo with Poisson counts, EK1 and EK0 each.  K4 streams
+FitzHugh-Nagumo with Poisson counts, EK1 and EK0 each.  K10a streams x
+forward through the same ring in CTAs of 32 columns, its last stage holding
+the steps left over; ``_magi_batch_plain`` is held to
+``_magi_kernel_batch`` at 1, 2, 5 and 9 steps over 3 blocks of 37 lanes,
+n_active 1, 2 and 3, in both emits.  K4 streams
 slabs of 16 rows of the single layout (T, NB, D) through the same ring, the
 top stage holding the rows left over, in CTAs of 5 blocks, each block's row
 spread over 6 lanes; ``_smoother_single_plain`` is held to
@@ -49,12 +54,14 @@ from rodeo_tpu.models import fitzhugh as jfitzhugh, lorenz as jlorenz
 from rodeo_tpu.ops import pallas_daltonng as jd
 from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
+from rodeo_tpu.ops import pallas_magi as pm
 
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
 from rodeo_tpu_torch.models import obs as tobs
 from rodeo_tpu_torch.ops import fused_daltonng as fdn
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import fused_magi as fm
 
 SCALED_TOL = 1e-4
 JMODELS = {"lorenz": jlorenz, "fitzhugh": jfitzhugh}
@@ -293,6 +300,55 @@ def test_fenrir_backward_twin_matches_pallas_at_ragged_shapes(n_steps,
         # no data, no log-density: the seed's term alone
         assert torch.equal(port, torch.from_numpy(ch["ld0"]))
     assert _scaled_err(port, ref) <= SCALED_TOL
+
+
+@pytest.mark.parametrize("emit", ["ld", "adjoint"])
+@pytest.mark.parametrize("act", [1, 2, 3])
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 9])
+def test_magi_twin_matches_pallas_at_ragged_shapes(n_steps, act, emit):
+    """K10a's twin on seeded paths over 3 blocks x 37 lanes (the Lorenz63
+    prior's process noise x 1e-5, dt = 0.005, as in the MAGI tests), each
+    block's log-density sum added in block order by the wrapper against the
+    Pallas kernel's blocks added at every step, and in the adjoint emit its
+    streams z, S^{-1} and G, each within SCALED_TOL."""
+    rng = np.random.default_rng(170 + 10 * n_steps + act)
+    q, nb, B, dt = 3, 3, 37, 0.005
+    n_tri, n_tri_a = q * (q + 1) // 2, act * (act + 1) // 2
+    wgt, var = tlorenz.setup(n_steps=n_steps, t_max=dt * n_steps,
+                             dtype=torch.float32, device="cpu")["prior_pars"]
+    paths = torch.tensor(rng.standard_normal((B, n_steps + 1, nb, q)),
+                         dtype=torch.float32)
+    q_const, _, R, x, m0 = fm._magi_operands(paths, act, (wgt, var * 1e-5),
+                                             dt, None)
+    kern = functools.partial(pm._magi_kernel_batch, n_steps, q, act, nb,
+                             n_tri, q_const, emit, 1)
+    dims = (act, n_tri_a) + (((q - act) * act,) if q > act else ())
+    streams = dims if emit == "adjoint" else ()
+    ref = pl.pallas_call(
+        kern,
+        out_shape=[jax.ShapeDtypeStruct((1, B), jnp.float32)] + [
+            jax.ShapeDtypeStruct((n_steps, d, nb, B), jnp.float32)
+            for d in streams],
+        grid=(1,),
+        in_specs=[_vmem((n_steps, act, nb, B)), _vmem((n_tri, nb, 1)),
+                  _vmem((q, nb, B))],
+        out_specs=[_vmem((1, B))] + [_vmem((n_steps, d, nb, B))
+                                     for d in streams],
+        scratch_shapes=[pltpu.VMEM((q, nb, B), jnp.float32),
+                        pltpu.VMEM((n_tri, nb, B), jnp.float32),
+                        pltpu.VMEM((1, B), jnp.float32)],
+        interpret=True,
+    )(x.numpy(), R.numpy(), m0.numpy())
+    fm.LAUNCHES["magi_batch"] = 0
+    port = fm.magi_filter_batch(x, R, m0, q_const, emit=emit)
+    assert fm.LAUNCHES["magi_batch"] == 0
+    port = (port,) if emit == "ld" else port
+    assert len(port) == 1 + len(streams)
+    assert port[0].shape == (B,) and torch.isfinite(port[0]).all()
+    assert _scaled_err(port[0], ref[0][0]) <= SCALED_TOL
+    for a, b in zip(port[1:], ref[1:]):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _scaled_err(a, b) <= SCALED_TOL
 
 
 # non-Gaussian DALTON's observation models: the port's and the JAX

@@ -2,26 +2,27 @@
 The filter twins of DALTON and fenrir's backward twins skip the
 observation update at steps without data, and the launch of the split
 kernels K1, K3, K8, K9, K11a, K11c and K11d, and of the streams K6, K2r,
-K4, K7b and K11b, is the card's.
+K4, K7b, K11b, K7a and K10a, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
 and its log-density term, where the step's mask is 0, and so do their plain
 twins ``_dalton_filter_plain`` and ``_dalton_filter_tan_plain`` by default;
-K7b (``csrc/fenrir_backward_batch.cu``) and K11b
-(``csrc/fenrir_backward_batch_tan.cu``) and their twins
+K7b (``csrc/fenrir_backward_batch.cu``), K11b
+(``csrc/fenrir_backward_batch_tan.cu``) and K7a
+(``csrc/fenrir_backward_single.cu``) and their twins
 ``_fenrir_backward_plain`` (with ``skip_unobserved``, which K7b's wrapper
-passes; off for K7a) and ``_fenrir_backward_tan_plain`` do the same in
-fenrir's backward filter.  At such a step the update is
+passes), ``_fenrir_backward_tan_plain`` and ``_fenrir_backward_single_plain``
+do the same in fenrir's backward filter.  At such a step the update is
 an exact identity (the gain is 0 and the term enters as 0 x a finite
 number), so skipping it must change no bit: the tests hold each twin with
 the skip to the same twin running the full update, bitwise, on Lorenz63
 EK1 and FitzHugh-Nagumo EK0 with data (and fenrir's also on a grid without
 any), the values, the log-density and every tangent direction.  Sizes: 300
-steps x 3 lanes, 11 observations (every 30th step), float32 on the CPU.
-The launch geometry of K1, K3, K8, K9, K11a, K11c, K11d, K6, K2r, K4, K7b
-and K11b comes from the card alone (the card tests check it); here its
-queries must raise.
+steps x 3 lanes (one solve for K7a), 11 observations (every 30th step),
+float32 on the CPU.  The launch geometry of K1, K3, K8, K9, K11a, K11c,
+K11d, K6, K2r, K4, K7b, K11b, K7a and K10a comes from the card alone (the
+card tests check it); here its queries must raise.
 """
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from rodeo_tpu_torch.ops import fused_dalton as fd
 from rodeo_tpu_torch.ops import fused_daltonng as fdn
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import fused_magi as fm
 from rodeo_tpu_torch.ops import fused_sim as fs
 
 N_STEPS, N_LANE, N_OBS = 300, 3, 11
@@ -179,6 +181,47 @@ def test_fenrir_tan_twin_skip_is_the_full_update(model, with_obs):
         assert not skip.any()       # no data, no log-density
 
 
+def _fenrir_single_chain(model, with_obs):
+    """K7a's operands (the seed ``ld0`` last) for one solve of ``model`` at
+    :func:`_call`'s first theta, with its data; without data, on a grid with
+    none (d = 0, y = 0, om = 1, mask = 0)."""
+    c = _call(model)
+    ops, Qs = fk._single_operands(c["thetas"][0], c["ode_weight"],
+                                  c["ode_inits"][0], 0.0, c["t_max"],
+                                  N_STEPS, c["prior_pars"])
+    ops["q_const"] = ff._const_coefs(Qs)
+    ch = ff._fenrir_single_operands(
+        fk.resolve_model(model), N_STEPS, 0.0, c["t_max"], ops, Qs,
+        *[c[k] for k in ("obs_data", "obs_times", "obs_weight", "obs_var")],
+        c["interrogation"])
+    if not with_obs:
+        ch = (*ch[:3], torch.zeros_like(ch[3]), torch.zeros_like(ch[4]),
+              torch.ones_like(ch[5]), torch.zeros_like(ch[6]), *ch[7:])
+    return ch
+
+
+@pytest.mark.parametrize("with_obs", [True, False])
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh"])
+def test_fenrir_single_twin_skip_is_the_full_update(model, with_obs):
+    """K7a's twin: each block's log-density sum with the skip equals the
+    full update's bitwise, on one solve's chain; the CPU wrapper takes the
+    skip.  Without data both sum nothing."""
+    ch = _fenrir_single_chain(model, with_obs)
+    n_data = int((ch[6] != 0).sum())
+    assert 0 < n_data < N_STEPS if with_obs else n_data == 0
+    skip = ff._fenrir_backward_single_plain(*ch[:-1])
+    full = ff._fenrir_backward_single_plain(*ch[:-1], skip_unobserved=False)
+    assert skip.shape == (CASES[model][0].N_VARS,)
+    assert torch.isfinite(skip).all()
+    assert torch.equal(skip, full)
+    ld = ff.fenrir_backward_single(*ch)
+    assert torch.equal(ld, ch[-1] + fd._block_sum(full))
+    if with_obs:
+        assert skip.all()           # every block observes the data
+    else:
+        assert not skip.any()       # no data, no log-density
+
+
 @pytest.mark.parametrize("query,takes_mode", [
     (lambda **kw: fk._filter_batch_geometry("lorenz", 37, **kw), True),
     (lambda **kw: fd._dalton_filter_batch_geometry("fitzhugh", 37, **kw),
@@ -196,9 +239,12 @@ def test_fenrir_tan_twin_skip_is_the_full_update(model, with_obs):
     (lambda **kw: fk._smoother_single_geometry(7, **kw), False),
     (lambda **kw: ff._fenrir_backward_batch_tan_geometry(3, 37, 3, **kw),
      False),
-    (lambda **kw: ff._fenrir_backward_batch_geometry(3, 37, **kw), False)],
+    (lambda **kw: ff._fenrir_backward_batch_geometry(3, 37, **kw), False),
+    (lambda **kw: ff._fenrir_backward_single_geometry(7, **kw), False),
+    (lambda **kw: fm._magi_batch_geometry(3, 37, 2, "adjoint", **kw),
+     False)],
     ids=["K1", "K8", "K11a", "K11c", "K11d", "K9", "K6", "K3", "K2r", "K4",
-         "K11b", "K7b"])
+         "K11b", "K7b", "K7a", "K10a"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

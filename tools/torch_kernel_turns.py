@@ -5,13 +5,15 @@ checkouts' sources, on one NVIDIA GPU, in turns, on the same inputs: K1
 (filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K4
 (smoother_single), K6 (sampler_batch), K7b (fenrir_backward_batch), K7a
 (fenrir_backward_single), K9 (filter_nn_batch), K11b
-(fenrir_backward_batch_tan) and K11d (filter_nn_batch_tan).
+(fenrir_backward_batch_tan), K11d (filter_nn_batch_tan) and K10a
+(magi_batch, both emits).
 
     python3 tools/torch_kernel_turns.py --other DIR [DIR ...]
         [--kernels {filter_batch,smoother_batch_rows,filter_single,
                     smoother_single,sampler_batch,fenrir_backward_batch,
                     fenrir_backward_single,filter_nn_batch,
-                    fenrir_backward_batch_tan,filter_nn_batch_tan} ...]
+                    fenrir_backward_batch_tan,filter_nn_batch_tan,
+                    magi_batch} ...]
         [--out PATH]
 
 Each DIR is the root of another checkout of the repository (for example the
@@ -29,7 +31,9 @@ of the solve (``sim``); K7b and K11b on fenrir's chain at 4000 steps x
 (``likelihood``, ``grad``); K7a on one fenrir evaluation of that fixture
 (``single``); K9 and K11d on non-Gaussian DALTON's fixture, 4000 steps x
 2048 lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
-(``daltonng_kernels``).  Each kernel is timed in three rounds of this
+(``daltonng_kernels``); K10a, emits "ld" and "adjoint", on bench.py's MAGI
+fixture, the cached Lorenz63 path plus 1e-4 x lane, 4000 steps x 2048
+lanes, n_active 2 (``magi_kernels``).  Each kernel is timed in three rounds of this
 checkout's library, then each other's, each time the median device time
 of 5 launches by CUDA events (a sleep holds the stream while the host
 enqueues the wrapper), and every library's output must agree bitwise with
@@ -64,7 +68,8 @@ KERNELS = {"filter_batch": "19filter_batch_kernel",
            "fenrir_backward_single": "29fenrir_backward_single_kernel",
            "filter_nn_batch": "22filter_nn_batch_kernel",
            "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
-           "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
+           "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel",
+           "magi_batch": "11magi_kernel"}
 # the kernels whose step loop is printed
 SASS_KERNELS = ("filter_single", "smoother_single")
 
@@ -88,6 +93,7 @@ def main():
     from rodeo_tpu_torch.ops import fused_daltonng as fdn
     from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
+    from rodeo_tpu_torch.ops import fused_magi as fm
     from rodeo_tpu_torch.ops import fused_sim as fs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -356,6 +362,32 @@ def main():
                       lambda: ff.fenrir_backward_single(*chain),
                       nbytes(*chain) + 4 * 3, shape="4000 steps")]
 
+    def time_magi():
+        """K10a on bench.py's MAGI fixture, 4000 steps x 2048 lanes, in
+        both emits."""
+        n_m, b_m, dt = 4000, 2048, 20.0 / 4000
+        cfg = lorenz.setup(n_steps=n_m, t_max=20.0, dtype=torch.float32,
+                           device=dev)
+        mu = torch.tensor(np.load(REPO / ".bench_ref_v8.npz")["solve_mu_4k"],
+                          dtype=torch.float32, device=dev)
+        index = torch.arange(b_m, dtype=torch.float32, device=dev)
+        subs = mu[None, :n_m + 1, :, :2] + 1e-4 * index[:, None, None, None]
+        paths = torch.cat([subs, torch.zeros_like(subs[..., :1])], -1)
+        q_const, _, R, x, m0 = fm._magi_operands(paths, 2, cfg["prior_pars"],
+                                                 dt, None)
+        del subs, paths
+        out = []
+        for emit in ("ld", "adjoint"):
+            # ld (B,) and, with the adjoint, z, S^-1 and G: 2 + 3 + 2 rows
+            out_bytes = 4 * b_m + (n_m * 7 * 3 * b_m * 4
+                                   if emit == "adjoint" else 0)
+            out.append(turns(
+                "magi_batch", lambda: fm.magi_filter_batch(
+                    x, R, m0, q_const, emit=emit),
+                nbytes(x, R, m0) + out_bytes, shape=f"{n_m} x {b_m}",
+                emit=emit))
+        return out
+
     timed = {"filter_batch": time_filter_batch,
              "smoother_batch_rows": time_rows,
              "filter_single": time_single,
@@ -365,7 +397,8 @@ def main():
              "fenrir_backward_single": time_fenrir_single,
              "fenrir_backward_batch_tan": lambda: time_fenrir(True),
              "filter_nn_batch": lambda: [time_nn(False)],
-             "filter_nn_batch_tan": lambda: [time_nn(True)]}
+             "filter_nn_batch_tan": lambda: [time_nn(True)],
+             "magi_batch": time_magi}
     lines = [line for name in args.kernels for line in timed[name]()]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
