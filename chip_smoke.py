@@ -104,8 +104,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (mean_gain_single), K5b (mean_boundary_single) and K5c
              (mean_recovery_single) against their twins on the same CUDA
              inputs at 1000 steps, Lorenz63 EK1 and FitzHugh-Nagumo EK0, on
-             K3's exact prefix and its gains; and K5b + K5c against K5a with
-             the frozen gain from the same start, which must agree bitwise;
+             K3's exact prefix and its gains, K5b bitwise; and K5b + K5c
+             against K5a with the frozen gain from the same start, which
+             must agree bitwise;
 15. stationary  solve_mv_fused_stationary on the single phase's Lorenz63
              EK1 10 000-step solve: it must launch K3, K5b, K5c and K4 once
              each, stay finite and pass the t <= 4 audit; its time beside
@@ -115,7 +116,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              and K4 once each and pass the audit on its rows;
 16. stationary_kernels  K5a, K5b and K5c alone at their paths' shapes,
              timed and checked against their twins there, each with its
-             dependent-chain bound;
+             dependent-chain bound, K5b bitwise with its time per step, its
+             launch as the card reports it, ptxas' report and the SASS
+             instructions of its step loop;
 17. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
              and K10b (magi_adjoint_batch, on K10a's streams) against their
              twins on the same CUDA inputs, 1000 steps x 256 lanes of the
@@ -137,9 +140,9 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              per call of each and the gradient's ratio to the value call,
              and peak memory;
 19. magi_kernels  K10a (both emits) and K10b alone at the path's shapes,
-             timed and checked against their twins there, K10a bitwise with
-             its launch in each emit as the card reports it and ptxas'
-             report, each with its dependent-chain bound;
+             timed and checked against their twins there, both bitwise with
+             their launch (K10a's in each emit) as the card reports it and
+             ptxas' report, each with its dependent-chain bound;
 20. k9_twin  non-Gaussian DALTON's kernels K9 (filter_nn_batch) and K11d
              (filter_nn_batch_tan) against their twins on the same CUDA
              inputs, 1000 steps x 256 lanes, 21 observations (every 50th
@@ -291,23 +294,26 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
 # The kernels that run one thread per (lane, block), K1, K8 and K9, per
-# block of one solve, K3, or per (lane, direction, block), K11a, K11c and
-# K11d, bitwise against their twins, and the mangled names of their kernels.
+# block of one solve, K3 and K5b, or per (lane, direction, block), K11a,
+# K11c and K11d, bitwise against their twins, and the mangled names of their
+# kernels.
 SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "filter_single": "20filter_single_kernel",
+                 "mean_boundary_single": "20mean_boundary_kernel",
                  "dalton_filter_batch": "20dalton_filter_kernel",
                  "filter_nn_batch": "22filter_nn_batch_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
                  "dalton_filter_batch_tan": "24dalton_filter_tan_kernel",
                  "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel"}
-# K6, K2r, K7b, K11b and K10a, streams of 32 columns a CTA through a ring
-# of shared-memory stages, bitwise against their twins, and the mangled
-# names of their kernels.
+# K6, K2r, K7b, K11b, K10a and K10b, streams of 32 columns a CTA through a
+# ring of shared-memory stages, bitwise against their twins, and the
+# mangled names of their kernels.
 STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
                   "smoother_batch_rows": "26smoother_batch_rows_kernel",
                   "fenrir_backward_batch": "22fenrir_backward_kernel",
                   "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
-                  "magi_batch": "11magi_kernel"}
+                  "magi_batch": "11magi_kernel",
+                  "magi_adjoint_batch": "19magi_adjoint_kernel"}
 # K4 and K7a, streams of slabs of the single-solve layout through the same
 # ring, one CTA for their one solve's blocks, bitwise against their twins.
 SLAB_KERNELS = {"smoother_single": "22smoother_single_kernel",
@@ -671,9 +677,10 @@ def main():
         of the kernel whose mangled name holds symbol, from the build's
         log (a Compiling line, then its stack and spill line, then its
         registers).  A filter's instantiation is named by its model,
-        observation model, q, mode and with_obs; a stream's (K6, K2r, K4,
-        K7b, K11b, K7a) by q, K11b's directions and the floats a copy
-        moves; K10a's by q, n_active, the emit and the floats a copy
+        observation model, q, mode and with_obs; K5b's by its model and q;
+        a stream's (K6, K2r, K4, K7b, K11b, K7a) by q, K11b's directions
+        and the floats a copy moves; K10a's by q, n_active, the emit and
+        the floats a copy moves; K10b's by q, n_active and the floats a copy
         moves."""
         rows, entry = [], None
         for line in log.splitlines():
@@ -685,7 +692,17 @@ def main():
                                      r"ELi(\d+)E(?:Lb(\d)E)?", line)
                     magi = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)EE",
                                      line)
-                    if magi is not None:
+                    adjoint = re.search(r"19magi_adjoint_kernelILi(\d+)E"
+                                        r"Li(\d+)ELi(\d+)EE", line)
+                    boundary = re.search(r"20mean_boundary_kernelINS_\d+"
+                                         r"(\w+?)ELi(\d+)EE", line)
+                    if adjoint is not None:
+                        entry = {"q": int(adjoint[1]),
+                                 "n_active": int(adjoint[2]),
+                                 "floats_per_copy": int(adjoint[3])}
+                    elif boundary is not None:
+                        entry = {"model": boundary[1], "q": int(boundary[2])}
+                    elif magi is not None:
                         entry = {"q": int(magi[1]), "n_active": int(magi[2]),
                                  "emit_adjoint": bool(int(magi[3])),
                                  "floats_per_copy": int(magi[4])}
@@ -720,11 +737,12 @@ def main():
         instantiation; checks, under phase, that its CTAs are all resident
         at once and that no instantiation spills.  A tangent kernel (a grid
         row per direction) and a stream of columns (K6, K2r, K7b, K11b,
-        K10a) must also have at least one CTA per SM.  A value filter (K1,
-        K8, K9) has no direction axis: at 2048 lanes it runs 128 CTAs of 16
-        lanes (K1) or 64 of 32 (K8, K9), fewer than the card's 132 SMs, so
-        it is not held to that; nor are K3 and the slab streams K4 and K7a
-        (SLAB_KERNELS), one CTA for one solve, nor a stream at fewer columns
+        K10a, K10b) must also have at least one CTA per SM.  A value filter
+        (K1, K8, K9) has no direction axis: at 2048 lanes it runs 128 CTAs
+        of 16 lanes (K1) or 64 of 32 (K8, K9), fewer than the card's 132
+        SMs, so it is not held to that; nor are K3, K5b and the slab streams
+        K4 and K7a (SLAB_KERNELS), one CTA for one solve, nor a stream at
+        fewer columns
         than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
         x 2048 columns, 128 CTAs)."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
@@ -1897,7 +1915,8 @@ def main():
         bnd = fk.mean_boundary_chain(*args_5["boundary"])
         twin_report("k5_twin", f"{model}/{mode} mean_boundary_single",
                     ["bnd"], bnd,
-                    fk._mean_boundary_plain(*args_5["boundary"], 64))
+                    fk._mean_boundary_plain(*args_5["boundary"], 64),
+                    need_bitwise=True)
         rec = recovery_args(args_5["boundary"], bnd)
         rows = fk.mean_recovery_chain(*rec)
         twin_report("k5_twin", f"{model}/{mode} mean_recovery_single",
@@ -2002,6 +2021,14 @@ def main():
     short_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
                  for a in short_5]
     n_tail = long_5[6].shape[0]
+    # K5b's launch (a thread per block of the solve) and the SASS
+    # instructions of its step loop
+    sass_5 = _build.sass_loops(SPLIT_KERNELS["mean_boundary_single"])
+    k5b_record = {
+        **split_record("stationary_kernels", "mean_boundary_single",
+                       "mean_boundary_single lorenz",
+                       fk._mean_boundary_geometry("lorenz")),
+        "sass_loop": "not measured" if sass_5 is None else sass_5}
     bnd, at_stat["mean_boundary_single"] = at_path_shapes(
         "stationary_kernels", "mean_boundary_single", "pallas_kalman.py:2234",
         stat_launches, lambda: fk.mean_boundary_chain(*long_5),
@@ -2009,7 +2036,11 @@ def main():
         lambda n: fk._mean_boundary_plain(*long_cpu[:6], long_cpu[6][:n],
                                           long_cpu[7], 1),
         n_tail, tensors(dict(enumerate(long_5))),
-        source="mean_chain_single", shape=f"{n_tail} steps")
+        source="mean_chain_single", shape=f"{n_tail} steps", **k5b_record)
+    at_stat["mean_boundary_single"]["us_per_step"] = \
+        1e3 * at_stat["mean_boundary_single"]["ms"] / n_tail
+    check("stationary_kernels", "mean_boundary_single bitwise",
+          at_stat["mean_boundary_single"]["bitwise"])
     rec_5 = recovery_args(long_5, bnd[0])
     rec_cpu = recovery_args(long_cpu, bnd[0][:1].cpu())
     _, at_stat["mean_recovery_single"] = at_path_shapes(
@@ -2253,8 +2284,15 @@ def main():
         ["gx", "lam0"],
         lambda n: fm._magi_adjoint_batch_plain(
             *[t[:n] for t in streams_cpu], q_mg),
-        n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}")
+        n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}",
+        **split_record("magi_kernels", "magi_adjoint_batch",
+                       "magi_adjoint_batch",
+                       fm._magi_adjoint_batch_geometry(3, b_mg, 2)))
     chain_bound(at_magi["magi_adjoint_batch"], "magi_adjoint_batch", n_mg)
+    at_magi["magi_adjoint_batch"]["us_per_step"] = \
+        1e3 * at_magi["magi_adjoint_batch"]["ms"] / n_mg
+    check("magi_kernels", "magi_adjoint_batch bitwise",
+          at_magi["magi_adjoint_batch"]["bitwise"])
     del streams_mg, streams_cpu, x_mg, R_mg, m0_mg, subs_mg
     emit({"phase": "magi_kernels", "n_steps": n_mg, "n_lane": b_mg,
           "kernels": at_magi})

@@ -234,22 +234,29 @@ struct SharedExchange {
 };
 
 // The same exchange by warp shuffles, for a lane whose NB threads are lanes
-// 0 .. NB-1 of one warp (K3): no shared memory and no barrier of its own.
-// On K3, shared memory behind __syncwarp took 16 % longer (PERF.md).
-template <int NB, int Q>
+// 0 .. NB-1 of one warp (K3, K5b): no shared memory and no barrier of its
+// own.  On K3, shared memory behind __syncwarp took 16 % longer (PERF.md).
+// Only the first J entries of each block's mean are exchanged, the others
+// gathered as zeros: K5b passes J = 1, since the first-order vector fields
+// of models.cuh read x[b][0] alone and a shuffle's result is not left out
+// when unused.
+template <int NB, int Q, int J = Q>
 struct ShuffleExchange {
-  float xv[Q];
+  float xv[J];
   __device__ __forceinline__ void publish(int, int, const float (&mp)[Q],
                                           const float (&tv)[Q]) {
 #pragma unroll
-    for (int j = 0; j < Q; ++j) xv[j] = mp[j] * tv[j];
+    for (int j = 0; j < J; ++j) xv[j] = mp[j] * tv[j];
   }
   __device__ __forceinline__ void gather(int, float (&x)[NB][Q]) {
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
+    for (int b = 0; b < NB; ++b) {
 #pragma unroll
-      for (int j = 0; j < Q; ++j)
+      for (int j = 0; j < J; ++j)
         x[b][j] = __shfl_sync((1u << NB) - 1, xv[j], b);
+#pragma unroll
+      for (int j = J; j < Q; ++j) x[b][j] = 0.0f;
+    }
   }
 };
 

@@ -3,7 +3,8 @@
 // (smoother_batch_rows.cu), fenrir's backward filters K7b
 // (fenrir_backward_batch.cu), K11b (fenrir_backward_batch_tan.cu) and K7a
 // (fenrir_backward_single.cu), the single-solve smoother K4
-// (smoother_single.cu) and MAGI's filter K10a (magi_batch.cu) run.
+// (smoother_single.cu), MAGI's filter K10a (magi_batch.cu) and its adjoint
+// K10b (magi_adjoint_batch.cu) run.
 //
 // A CTA has W consumer warps, which carry the recursion's state in
 // registers from step T-1 down to 0 (K10a, a forward recursion: from step 0
@@ -22,7 +23,7 @@
 // the drain's at0 and step_of) and a copy or a store costs a multiply-add
 // (PERF.md).
 //
-// The column streams (K6, K2r, K7b, K11b, K10a): the recursion is
+// The column streams (K6, K2r, K7b, K11b, K10a, K10b): the recursion is
 // block-diagonal, so the n_col = NB x B (block, lane) columns run
 // independently; every operand is (T, D, n_col), columns innermost.  A CTA
 // owns kStreamCols = 32 neighbouring columns, a consumer thread each (a warp
@@ -311,8 +312,8 @@ __device__ __forceinline__ void ring_arrive(int id) {
 }
 
 // The ring's two sides, one ring for every stream of the port: the column
-// streams K6, K2r and K10a (stream_stages below), K7b, K11b and K10a's
-// "ld" emit, and the slab streams K4 and K7a.  The W consumer warps
+// streams K6, K2r, K10a and K10b (stream_stages below), K7b, K11b and
+// K10a's "ld" emit, and the slab streams K4 and K7a.  The W consumer warps
 // (threads 0 .. 32 W - 1) call ring_consume, the producer warp (the next
 // 32 threads) ring_produce, with the same n_stage stages and K slots.
 //

@@ -1735,7 +1735,8 @@ def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
     (kernel K5b), storing only each group's entry state.  Arguments as
     :func:`mean_gain_chain`, with ``m0 (n_block, q)`` the state before the
     first step, ``tgrid`` the times of ``64 n_group`` steps and ``k_star
-    (n_block, q)``.
+    (n_block, q)``.  The kernel takes a unit upper-triangular ``q_const``
+    only, as :func:`_static_scaled_qconst` gives.
 
     Returns:
         (Tensor(n_group, n_block, q)): Each group's entry state.
@@ -1756,6 +1757,15 @@ def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
             ctypes.addressof(qc), ode_weight, t_vec, m0, theta, tgrid, k_star,
             bnd)
     return bnd
+
+
+def _mean_boundary_geometry(model, device=None):
+    """The launch of kernel K5b (:func:`mean_boundary_chain`) on the card,
+    one CTA of a thread per block, as :func:`_launch_geometry` reports
+    it."""
+    model = resolve_model(model)
+    return _launch_geometry("mean_boundary_single", device,
+                            _FUNCTORS[model.cuda_functor])
 
 
 def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,

@@ -20,8 +20,9 @@ stores.
   ``G``;
 - **K10b** ``csrc/magi_adjoint_batch.cu`` replaces
   ``_magi_adjoint_kernel_batch``: the exact reverse adjoint over those
-  streams, giving the gradient in the active rows of steps 1..N and in the
-  whole seed row.
+  streams, a reverse stream of one thread per (block, lane) fed by a
+  producer warp, giving the gradient in the active rows of steps 1..N and
+  in the whole seed row.
 
 :class:`MagiLogdens` is the ``torch.autograd.Function`` over the expanded
 paths whose forward launches K10a and whose backward launches K10b;
@@ -271,6 +272,18 @@ def _magi_adjoint_batch_plain(z, s_inv, G, q_const):
         u = [v[a] - t[a] for a in range(act)] + lam[act:]
         lam = [zero if c is None else c for c in _matvec(q, q_t, u)]
     return gx, torch.stack(lam)
+
+
+def _magi_adjoint_batch_geometry(n_block, n_lane, n_active=2, device=None):
+    """The launch of kernel K10b (:func:`magi_adjoint_batch`) for
+    ``n_active`` over ``n_block x n_lane`` columns with aligned operands on
+    the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
+    (its shared memory dynamic), with the stages of its shared-memory ring,
+    the steps a stage holds and the columns a CTA holds."""
+    return _launch_geometry("magi_adjoint_batch", device, n_active, n_block,
+                            n_lane, extra=("stages", "steps_per_stage",
+                                           "columns_per_cta"))
 
 
 def magi_adjoint_batch(z, s_inv, G, q_const):

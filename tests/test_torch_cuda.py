@@ -11,11 +11,11 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 (magi_adjoint_batch), and non-Gaussian DALTON's K9 (filter_nn_batch) and
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
-geometry of K1, K8 and K9, which run one thread per (lane, block), of K3,
-which runs one thread per block of its one solve, of K11a, K11c and K11d,
-which run one thread per (lane, direction, block), and of K6, K2r, K7b,
-K11b, K10a, K4 and K7a, streams through a ring of shared-memory stages
-(``csrc/stream_ring.cuh``).
+geometry of K1, K8 and K9, which run one thread per (lane, block), of K3
+and K5b, which run one thread per block of their one solve, of K11a, K11c
+and K11d, which run one thread per (lane, direction, block), and of K6,
+K2r, K7b, K11b, K10a, K10b, K4 and K7a, streams through a ring of
+shared-memory stages (``csrc/stream_ring.cuh``).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -24,6 +24,7 @@ imports no JAX, so that it runs where only the port is installed:
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -941,6 +942,73 @@ def test_mean_chain_kernels_match_their_twins_on_the_card(cuda_device, model,
     assert torch.equal(rows, ref)
 
 
+def _boundary_at(chain, m0, theta, tgrid, k_star, k_group):
+    """K5b over groups of k_group steps, launched as mean_boundary_chain
+    launches it (its own groups are 64 steps)."""
+    fused, q_const, ode_weight, t_vec = chain
+    bnd = m0.new_empty((tgrid.shape[0] // k_group,) + m0.shape)
+    qc = fk._host_qconst(q_const)
+    fk._launch(fk.LAUNCHES, "mean_boundary_single", 3, m0.device,
+               fk._FUNCTORS[fused.cuda_functor], bnd.shape[0], k_group,
+               ctypes.addressof(qc), ode_weight, t_vec, m0, theta, tgrid,
+               k_star, bnd)
+    return bnd
+
+
+@pytest.mark.parametrize("model,mode,dt", [("lorenz", "kramer", 0.01),
+                                           ("fitzhugh", "rodeo", 0.05)])
+def test_mean_boundary_split_is_bitwise_its_twin_on_the_card(cuda_device,
+                                                             model, mode,
+                                                             dt):
+    """K5b, one thread per block of its solve meeting once a step by warp
+    shuffles, bitwise against its twin at 1, 2 and 3 groups of 1, 5 and 64
+    steps (64 through mean_boundary_chain) on the stationary path's tail
+    after a 64-step K3 prefix; K5b + K5c bitwise K5a with the frozen gain
+    from the same start; its launch as the card reports it: one CTA of a
+    thread per block, no local memory; a transition that is not unit
+    upper-triangular refused."""
+    n = 64 + 192
+    cfg = MODELS[model].setup(n_steps=n, t_max=dt * n, dtype=torch.float32,
+                              device=cuda_device)
+    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                 cfg["ode_init"], 0.0, dt * n, n,
+                                 cfg["prior_pars"])
+    fused = fk.resolve_model(model)
+    mfw, _, _, ppw = fk.fused_filter(
+        fused, 64, **{**ops, "tgrid": ops["tgrid"][:64]}, mode=mode)
+    k_star = fk._stationary_gains(fused, ops, ppw, mode, 0.0)[-1]
+    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+    m0, theta = mfw[-1], ops["theta"]
+    for n_group in (1, 2, 3):
+        for k_group in (1, 5, 64):
+            label = (n_group, k_group)
+            tgrid = ops["tgrid"][64:64 + n_group * k_group]
+            _reset_launches()
+            bnd = (fk.mean_boundary_chain(*chain, m0, theta, tgrid, k_star)
+                   if k_group == 64 else
+                   _boundary_at(chain, m0, theta, tgrid, k_star, k_group))
+            assert _launched() == {"mean_boundary_single": 1}, label
+            twin = fk._mean_boundary_plain(*chain, m0, theta, tgrid, k_star,
+                                           k_group)
+            assert bnd.is_cuda and torch.isfinite(bnd).all(), label
+            assert torch.equal(bnd, twin), label
+            rows = fk.mean_recovery_chain(*chain, bnd, theta, tgrid, k_star)
+            ref = fk.mean_gain_chain(
+                *chain, m0, theta, tgrid,
+                k_star.expand(tgrid.shape[0], *k_star.shape).contiguous())
+            assert torch.equal(rows, ref), label
+    geo = fk._mean_boundary_geometry(model, device=cuda_device)
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_x"], geo["grid_y"]) == \
+        (MODELS[model].N_VARS, 1, 1, 1), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    # K5b takes a unit upper-triangular transition only
+    q_other = [row[:] for row in ops["q_const"]]
+    q_other[1][0] = 0.5
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fk.mean_boundary_chain(fused, q_other, *chain[2:], m0, theta,
+                               ops["tgrid"][64:192], k_star)
+
+
 def test_stationary_entry_point_launches_its_kernels(cuda_device):
     """solve_mv_fused_stationary on both schedules launches exactly its
     kernels, and agrees with the same call on the CPU (the twins)."""
@@ -1015,6 +1083,46 @@ def test_magi_kernels_match_their_twins_on_the_card(cuda_device, act, sig2):
                     fm._magi_adjoint_batch_plain(*streams, q_const)):
         assert torch.isfinite(a).all()
         assert _scaled_err(a, b) <= TWIN_TOL
+
+
+@pytest.mark.parametrize("n_lane,offset", [(37, 0), (64, 1), (100, 0)])
+@pytest.mark.parametrize("act", [1, 2, 3])
+def test_magi_adjoint_stream_is_bitwise_its_twin_on_the_card(cuda_device,
+                                                             act, n_lane,
+                                                             offset):
+    """K10b, a reverse stream with a consumer and a producer warp, bitwise
+    against its twin on K10a's streams at 1, 2, 5, 9, 25, 49 and 300 steps
+    (within a stage of 24 steps, one step past one and past two, many
+    stages with a ragged last one), and at 4000 at 64 and 100 lanes; where the columns end inside a CTA (37 and 100 lanes of
+    3 blocks), where n_lane x 3 is no multiple of 4 (37) and where every
+    operand starts 4 bytes past a 16-byte boundary (offset 1): the last two
+    copy and store 4 bytes at a time.  Its launch as the card reports it:
+    CTAs of 64 threads, all resident, no local memory, at 2048 lanes at
+    least one CTA per SM."""
+    nb = 3
+    geo = fm._magi_adjoint_batch_geometry(nb, n_lane, act,
+                                          device=cuda_device)
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_y"]) == (64, 1, 1), geo
+    assert geo["grid_x"] == -(-nb * n_lane // geo["columns_per_cta"]), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    assert fm._magi_adjoint_batch_geometry(nb, 2048, act,
+                                           device=cuda_device)[
+        "ctas_at_least_sms"]
+    for n_steps in (1, 2, 5, 9, 25, 49, 300) + ((4000,) if n_lane != 37
+                                                else ()):
+        subs, kw = _magi_lanes(n_steps, n_lane, act, cuda_device)
+        q_const, _, R, x, m0 = fm._magi_operands(
+            kw["ode_expand"](subs), act, kw["prior_pars"], kw["dt"], None)
+        _, *streams = fm.magi_filter_batch(x, R, m0, q_const, emit="adjoint")
+        streams = [_put(t.cpu().numpy(), cuda_device, offset)
+                   for t in streams] + ([None] if act == 3 else [])
+        _reset_launches()
+        out = fm.magi_adjoint_batch(*streams, q_const)
+        assert _launched() == {"magi_adjoint_batch": 1}, n_steps
+        plain = fm._magi_adjoint_batch_plain(*streams, q_const)
+        for name, a, b in zip(["gx", "lam0"], out, plain):
+            assert torch.isfinite(a).all(), (name, n_steps)
+            assert torch.equal(a, b), (name, n_steps)
 
 
 def test_magi_entry_points_launch_their_kernels(cuda_device):

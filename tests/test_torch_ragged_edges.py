@@ -1,10 +1,10 @@
 """
 The twins of the single-solve filter K3, of the smoother rows K2r, of the
 single-solve smoother K4, of fenrir's backward filter K7b and its tangent
-twin K11b, of non-Gaussian DALTON's filter K9 and of MAGI's filter K10a
-against the JAX package
-at the edges that the kernels' designs have to mask, with the JAX
-package's Pallas kernels in interpret mode.
+twin K11b, of non-Gaussian DALTON's filter K9, of MAGI's filter K10a and
+its adjoint K10b and of the stationary solve's mean chain K5b against the
+JAX package at the edges that the kernels' designs have to mask, with the
+JAX package's Pallas kernels in interpret mode.
 
 K2r, K7b and K11b stream their operands through a ring of shared-memory
 stages of a few steps each (``csrc/stream_ring.cuh``), in CTAs of 32
@@ -27,7 +27,15 @@ FitzHugh-Nagumo with Poisson counts, EK1 and EK0 each.  K10a streams x
 forward through the same ring in CTAs of 32 columns, its last stage holding
 the steps left over; ``_magi_batch_plain`` is held to
 ``_magi_kernel_batch`` at 1, 2, 5 and 9 steps over 3 blocks of 37 lanes,
-n_active 1, 2 and 3, in both emits.  K4 streams
+n_active 1, 2 and 3, in both emits.  K10b streams K10a's adjoint
+streams backward through the same ring, the last step's stage first, so
+``_magi_adjoint_batch_plain`` is held to ``_magi_adjoint_kernel_batch`` at
+1, 2, 5 and 9 steps over the same 3 blocks of 37 lanes, n_active 1, 2 and
+3 (no G stream at 3), on the streams of K10a's twin.  K5b runs one thread
+per block of its solve through n_group groups of k_group steps, storing
+each group's entry state; ``_mean_boundary_plain`` is held to
+``_mean_boundary_kernel`` at 1, 2 and 3 groups of 1, 5 and 64 steps,
+Lorenz63 EK1 and FitzHugh-Nagumo EK0 (3 and 2 blocks).  K4 streams
 slabs of 16 rows of the single layout (T, NB, D) through the same ring, the
 top stage holding the rows left over, in CTAs of 5 blocks, each block's row
 spread over 6 lanes; ``_smoother_single_plain`` is held to
@@ -349,6 +357,100 @@ def test_magi_twin_matches_pallas_at_ragged_shapes(n_steps, act, emit):
     for a, b in zip(port[1:], ref[1:]):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _scaled_err(a, b) <= SCALED_TOL
+
+
+@pytest.mark.parametrize("act", [1, 2, 3])
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 9])
+def test_magi_adjoint_twin_matches_pallas_at_ragged_shapes(n_steps, act):
+    """K10b's twin on the streams of K10a's twin (seeded paths over 3
+    blocks x 37 lanes, the Lorenz63 prior's process noise x 1e-5, dt =
+    0.005), against the Pallas adjoint kernel on the same streams: the
+    gradient in the active rows of every step and in the seed row, each
+    within SCALED_TOL."""
+    rng = np.random.default_rng(230 + 10 * n_steps + act)
+    q, nb, B, dt = 3, 3, 37, 0.005
+    wgt, var = tlorenz.setup(n_steps=n_steps, t_max=dt * n_steps,
+                             dtype=torch.float32, device="cpu")["prior_pars"]
+    paths = torch.tensor(rng.standard_normal((B, n_steps + 1, nb, q)),
+                         dtype=torch.float32)
+    q_const, _, R, x, m0 = fm._magi_operands(paths, act, (wgt, var * 1e-5),
+                                             dt, None)
+    _, *streams = fm.magi_filter_batch(x, R, m0, q_const, emit="adjoint")
+    if act == q:
+        streams.append(None)
+    present = [t.numpy() for t in streams if t is not None]
+    ref = pl.pallas_call(
+        functools.partial(pm._magi_adjoint_kernel_batch, n_steps, q, act, nb,
+                          q_const),
+        out_shape=[jax.ShapeDtypeStruct((n_steps, act, nb, B), jnp.float32),
+                   jax.ShapeDtypeStruct((q, nb, B), jnp.float32)],
+        grid=(1,),
+        in_specs=[_vmem(a.shape) for a in present],
+        out_specs=[_vmem((n_steps, act, nb, B)), _vmem((q, nb, B))],
+        scratch_shapes=[pltpu.VMEM((q, nb, B), jnp.float32)],
+        interpret=True,
+    )(*present)
+    fm.LAUNCHES["magi_adjoint_batch"] = 0
+    port = fm.magi_adjoint_batch(*streams, q_const)
+    assert fm.LAUNCHES["magi_adjoint_batch"] == 0
+    for name, a, b in zip(["gx", "lam0"], port, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _scaled_err(a, b) <= SCALED_TOL, name
+
+
+@functools.lru_cache(maxsize=None)
+def _mean_chain_operands(model, mode, dt):
+    """The mean chain's operands as the stationary path builds them (the
+    port's CPU path): a 64-step exact prefix through K3's twin, its frozen
+    gain, and a 192-step tail after it."""
+    n = 64 + 192
+    cfg = TMODELS[model].setup(n_steps=n, t_max=dt * n, dtype=torch.float32,
+                               device="cpu")
+    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                 cfg["ode_init"], 0.0, dt * n, n,
+                                 cfg["prior_pars"])
+    fused = fk.resolve_model(model)
+    mfw, _, _, ppw = fk.fused_filter(
+        fused, 64, **{**ops, "tgrid": ops["tgrid"][:64]}, mode=mode)
+    k_star = fk._stationary_gains(fused, ops, ppw, mode, 0.0)[-1]
+    return fused, ops, mfw[-1], k_star, ops["tgrid"][64:]
+
+
+@pytest.mark.parametrize("k_group", [1, 5, 64])
+@pytest.mark.parametrize("n_group", [1, 2, 3])
+@pytest.mark.parametrize("model,mode,dt", [("lorenz", "kramer", 0.01),
+                                           ("fitzhugh", "rodeo", 0.05)])
+def test_mean_boundary_twin_matches_pallas_at_group_shapes(model, mode, dt,
+                                                           n_group, k_group):
+    """K5b's twin against the Pallas boundary kernel (a grid step a group)
+    on n_group groups of k_group steps of the stationary path's tail,
+    Lorenz63 EK1 (3 blocks) and FitzHugh-Nagumo EK0 (2): each group's entry
+    state within SCALED_TOL, the first the chain's start exactly."""
+    fused, ops, m0, k_star, tail = _mean_chain_operands(model, mode, dt)
+    tgrid = tail[:n_group * k_group]
+    n_block, q = m0.shape
+    th = ops["theta"][:, None].numpy()
+    ref = pl.pallas_call(
+        functools.partial(pk._mean_boundary_kernel,
+                          getattr(JMODELS[model], f"{model}_flat"), k_group,
+                          q, n_block, ops["q_const"]),
+        out_shape=jax.ShapeDtypeStruct((n_group, n_block, q), jnp.float32),
+        grid=(n_group,),
+        in_specs=[_vmem((n_block, q)), _vmem((n_block, q)),
+                  _vmem((n_block, q)), _vmem(th.shape),
+                  _vmem((n_group * k_group, 1)), _vmem((1, q))],
+        out_specs=pl.BlockSpec((1, n_block, q), lambda i: (i, 0, 0),
+                               memory_space=pltpu.VMEM),
+        scratch_shapes=[pltpu.VMEM((n_block, q), jnp.float32)],
+        interpret=True,
+    )(_f32(ops["ode_weight"]), _f32(k_star), _f32(m0), th,
+      _f32(tgrid)[:, None], _f32(ops["t_vec"])[None])
+    port = fk._mean_boundary_plain(fused, ops["q_const"], ops["ode_weight"],
+                                   ops["t_vec"], m0, ops["theta"], tgrid,
+                                   k_star, k_group)
+    assert port.shape == ref.shape == (n_group, n_block, q)
+    assert torch.isfinite(port).all() and torch.equal(port[0], m0)
+    assert _scaled_err(port, ref) <= SCALED_TOL
 
 
 # non-Gaussian DALTON's observation models: the port's and the JAX

@@ -1,8 +1,8 @@
 """
 The filter twins of DALTON and fenrir's backward twins skip the
 observation update at steps without data, and the launch of the split
-kernels K1, K3, K8, K9, K11a, K11c and K11d, and of the streams K6, K2r,
-K4, K7b, K11b, K7a and K10a, is the card's.
+kernels K1, K3, K5b, K8, K9, K11a, K11c and K11d, and of the streams K6,
+K2r, K4, K7b, K11b, K7a, K10a and K10b, is the card's.
 
 Kernels K8 (``csrc/dalton_filter_batch.cu``) and K11c
 (``csrc/dalton_filter_batch_tan.cu``) skip the masked observation update,
@@ -20,9 +20,9 @@ the skip to the same twin running the full update, bitwise, on Lorenz63
 EK1 and FitzHugh-Nagumo EK0 with data (and fenrir's also on a grid without
 any), the values, the log-density and every tangent direction.  Sizes: 300
 steps x 3 lanes (one solve for K7a), 11 observations (every 30th step),
-float32 on the CPU.  The launch geometry of K1, K3, K8, K9, K11a, K11c,
-K11d, K6, K2r, K4, K7b, K11b, K7a and K10a comes from the card alone (the
-card tests check it); here its queries must raise.
+float32 on the CPU.  The launch geometry of K1, K3, K5b, K8, K9, K11a,
+K11c, K11d, K6, K2r, K4, K7b, K11b, K7a, K10a and K10b comes from the card
+alone (the card tests check it); here its queries must raise.
 """
 import numpy as np
 import pytest
@@ -242,9 +242,11 @@ def test_fenrir_single_twin_skip_is_the_full_update(model, with_obs):
     (lambda **kw: ff._fenrir_backward_batch_geometry(3, 37, **kw), False),
     (lambda **kw: ff._fenrir_backward_single_geometry(7, **kw), False),
     (lambda **kw: fm._magi_batch_geometry(3, 37, 2, "adjoint", **kw),
-     False)],
+     False),
+    (lambda **kw: fm._magi_adjoint_batch_geometry(3, 37, 2, **kw), False),
+    (lambda **kw: fk._mean_boundary_geometry("fitzhugh", **kw), False)],
     ids=["K1", "K8", "K11a", "K11c", "K11d", "K9", "K6", "K3", "K2r", "K4",
-         "K11b", "K7b", "K7a", "K10a"])
+         "K11b", "K7b", "K7a", "K10a", "K10b", "K5b"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

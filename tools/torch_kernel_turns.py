@@ -5,15 +5,17 @@ checkouts' sources, on one NVIDIA GPU, in turns, on the same inputs: K1
 (filter_batch), K2r (smoother_batch_rows), K3 (filter_single), K4
 (smoother_single), K6 (sampler_batch), K7b (fenrir_backward_batch), K7a
 (fenrir_backward_single), K9 (filter_nn_batch), K11b
-(fenrir_backward_batch_tan), K11d (filter_nn_batch_tan) and K10a
-(magi_batch, both emits).
+(fenrir_backward_batch_tan), K11d (filter_nn_batch_tan), K10a
+(magi_batch, both emits), K10b (magi_adjoint_batch) and K5a, K5b and K5c
+(mean_gain_single, mean_boundary_single, mean_recovery_single).
 
     python3 tools/torch_kernel_turns.py --other DIR [DIR ...]
         [--kernels {filter_batch,smoother_batch_rows,filter_single,
                     smoother_single,sampler_batch,fenrir_backward_batch,
                     fenrir_backward_single,filter_nn_batch,
                     fenrir_backward_batch_tan,filter_nn_batch_tan,
-                    magi_batch} ...]
+                    magi_batch,magi_adjoint_batch,mean_gain_single,
+                    mean_boundary_single,mean_recovery_single} ...]
         [--out PATH]
 
 Each DIR is the root of another checkout of the repository (for example the
@@ -33,13 +35,16 @@ of the solve (``sim``); K7b and K11b on fenrir's chain at 4000 steps x
 2048 lanes, 21 observations of rng(1).normal x 5, Gaussian variance 0.005
 (``daltonng_kernels``); K10a, emits "ld" and "adjoint", on bench.py's MAGI
 fixture, the cached Lorenz63 path plus 1e-4 x lane, 4000 steps x 2048
-lanes, n_active 2 (``magi_kernels``).  Each kernel is timed in three rounds of this
+lanes, n_active 2, and K10b on K10a's adjoint streams there
+(``magi_kernels``); K5b and K5c on the 10 000-step stationary solve's
+9920-step tail after its 80-step K3 prefix, and K5a on its 150-step
+horizon (``stationary_kernels``).  Each kernel is timed in three rounds of this
 checkout's library, then each other's, each time the median device time
 of 5 launches by CUDA events (a sleep holds the stream while the host
 enqueues the wrapper), and every library's output must agree bitwise with
 this checkout's.  Prints the card's name and power limit, ptxas' report of
-the timed kernels in every library, the SASS instructions of K3's and K4's
-step loops in every library (``cuobjdump``, where the toolkit has it), and
+the timed kernels in every library, the SASS instructions of K3's, K4's and
+K5b's step loops in every library (``cuobjdump``, where the toolkit has it), and
 one JSON line per kernel and shape, also written to ``--out`` (default
 build/kernel_turns.jsonl).  Exits non-zero without a CUDA device, or if
 two outputs differ.
@@ -69,9 +74,13 @@ KERNELS = {"filter_batch": "19filter_batch_kernel",
            "filter_nn_batch": "22filter_nn_batch_kernel",
            "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
            "filter_nn_batch_tan": "26filter_nn_batch_tan_kernel",
-           "magi_batch": "11magi_kernel"}
+           "magi_batch": "11magi_kernel",
+           "magi_adjoint_batch": "19magi_adjoint_kernel",
+           "mean_gain_single": "16mean_gain_kernel",
+           "mean_boundary_single": "20mean_boundary_kernel",
+           "mean_recovery_single": "20mean_recovery_kernel"}
 # the kernels whose step loop is printed
-SASS_KERNELS = ("filter_single", "smoother_single")
+SASS_KERNELS = ("filter_single", "smoother_single", "mean_boundary_single")
 
 
 def main():
@@ -362,9 +371,8 @@ def main():
                       lambda: ff.fenrir_backward_single(*chain),
                       nbytes(*chain) + 4 * 3, shape="4000 steps")]
 
-    def time_magi():
-        """K10a on bench.py's MAGI fixture, 4000 steps x 2048 lanes, in
-        both emits."""
+    def magi_operands():
+        """The operands of K10a on bench.py's MAGI fixture."""
         n_m, b_m, dt = 4000, 2048, 20.0 / 4000
         cfg = lorenz.setup(n_steps=n_m, t_max=20.0, dtype=torch.float32,
                            device=dev)
@@ -373,9 +381,13 @@ def main():
         index = torch.arange(b_m, dtype=torch.float32, device=dev)
         subs = mu[None, :n_m + 1, :, :2] + 1e-4 * index[:, None, None, None]
         paths = torch.cat([subs, torch.zeros_like(subs[..., :1])], -1)
-        q_const, _, R, x, m0 = fm._magi_operands(paths, 2, cfg["prior_pars"],
-                                                 dt, None)
-        del subs, paths
+        return fm._magi_operands(paths, 2, cfg["prior_pars"], dt, None)
+
+    def time_magi():
+        """K10a on bench.py's MAGI fixture, 4000 steps x 2048 lanes, in
+        both emits."""
+        n_m, b_m = 4000, 2048
+        q_const, _, R, x, m0 = magi_operands()
         out = []
         for emit in ("ld", "adjoint"):
             # ld (B,) and, with the adjoint, z, S^-1 and G: 2 + 3 + 2 rows
@@ -388,6 +400,74 @@ def main():
                 emit=emit))
         return out
 
+    def time_magi_adjoint():
+        """K10b on K10a's adjoint streams of the MAGI fixture."""
+        q_const, _, R, x, m0 = magi_operands()
+        _, *streams = fm.magi_filter_batch(x, R, m0, q_const, emit="adjoint")
+        del R, x, m0
+        # gx (4000, 2, 3, 2048) and lam0 (3, 3, 2048)
+        out_bytes = nbytes(streams[0]) + 4 * 3 * 3 * 2048
+        line = turns("magi_adjoint_batch",
+                     lambda: fm.magi_adjoint_batch(*streams, q_const),
+                     nbytes(*streams) + out_bytes, shape="4000 x 2048")
+        del streams
+        torch.cuda.empty_cache()
+        return [line]
+
+    def mean_chain_operands(n_s, t_max):
+        """The mean chain's operands as solve_mv_fused_stationary builds
+        them for one Lorenz63 EK1 solve of n_s steps to t_max: K5a's over
+        the whole solve (the prefix's gains, then the frozen one), K5b's
+        over the tail after the exact prefix."""
+        cfg = lorenz.setup(n_steps=n_s, t_max=t_max, dtype=torch.float32,
+                           device=dev)
+        ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                     cfg["ode_init"], 0.0, t_max, n_s,
+                                     cfg["prior_pars"])
+        fused = fk.resolve_model("lorenz")
+        n_warm, _ = fk._stationary_schedule(n_s, 64, True)
+        mfw, _, _, ppw = fk.fused_filter(
+            fused, n_warm, **{**ops, "tgrid": ops["tgrid"][:n_warm]},
+            mode="kramer")
+        k_pre = fk._stationary_gains(fused, ops, ppw, "kramer", 0.0)
+        chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+        frozen = k_pre[-1].expand(n_s - n_warm, *k_pre[-1].shape)
+        return ((*chain, ops["x0"], ops["theta"], ops["tgrid"],
+                 torch.cat([k_pre, frozen])),
+                (*chain, mfw[-1], ops["theta"], ops["tgrid"][n_warm:],
+                 k_pre[-1]))
+
+    def operand_bytes(args):
+        return nbytes(*[a for a in args if isinstance(a, torch.Tensor)])
+
+    def time_mean_boundary():
+        """K5b on the 10 000-step solve's 9920-step tail."""
+        _, args = mean_chain_operands(10000, 20.0)
+        n_tail = args[6].shape[0]
+        line = turns("mean_boundary_single",
+                     lambda: fk.mean_boundary_chain(*args),
+                     operand_bytes(args) + 4 * (n_tail // 64) * 9,
+                     shape=f"{n_tail} steps")
+        line["us_per_step"] = {w: 1e3 * t / n_tail
+                               for w, t in line["median_ms"].items()}
+        return [line]
+
+    def time_mean_recovery():
+        """K5c on the groups of K5b's 9920-step tail."""
+        _, args = mean_chain_operands(10000, 20.0)
+        bnd = fk.mean_boundary_chain(*args)
+        rec = (*args[:4], bnd, *args[5:])
+        return [turns("mean_recovery_single",
+                      lambda: fk.mean_recovery_chain(*rec),
+                      operand_bytes(rec) + 4 * args[6].shape[0] * 9,
+                      shape=f"{bnd.shape[0]} groups of 64")]
+
+    def time_mean_gain():
+        """K5a on the 150-step horizon at the 10 000-step solve's step."""
+        args, _ = mean_chain_operands(150, 0.3)
+        return [turns("mean_gain_single", lambda: fk.mean_gain_chain(*args),
+                      operand_bytes(args) + 4 * 150 * 9, shape="150 steps")]
+
     timed = {"filter_batch": time_filter_batch,
              "smoother_batch_rows": time_rows,
              "filter_single": time_single,
@@ -398,7 +478,11 @@ def main():
              "fenrir_backward_batch_tan": lambda: time_fenrir(True),
              "filter_nn_batch": lambda: [time_nn(False)],
              "filter_nn_batch_tan": lambda: [time_nn(True)],
-             "magi_batch": time_magi}
+             "magi_batch": time_magi,
+             "magi_adjoint_batch": time_magi_adjoint,
+             "mean_gain_single": time_mean_gain,
+             "mean_boundary_single": time_mean_boundary,
+             "mean_recovery_single": time_mean_recovery}
     lines = [line for name in args.kernels for line in timed[name]()]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
