@@ -104,21 +104,28 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              (mean_gain_single), K5b (mean_boundary_single) and K5c
              (mean_recovery_single) against their twins on the same CUDA
              inputs at 1000 steps, Lorenz63 EK1 and FitzHugh-Nagumo EK0, on
-             K3's exact prefix and its gains, K5b bitwise; and K5b + K5c
-             against K5a with the frozen gain from the same start, which
-             must agree bitwise;
+             K3's exact prefix and its gains, all three bitwise; and K5b +
+             K5c against K5a with the frozen gain from the same start, which
+             must agree bitwise; both also on a block-constant prior that is
+             not IBM (its last diagonal weight x 0.9);
 15. stationary  solve_mv_fused_stationary on the single phase's Lorenz63
              EK1 10 000-step solve: it must launch K3, K5b, K5c and K4 once
              each, stay finite and pass the t <= 4 audit; its time beside
              solve_mv_fused's, in turns on the card, and peak memory; one
-             call with the JAX package's 64-step composed smoother; and a
+             call with the JAX package's 64-step composed smoother; a
              150-step horizon at the same step, which must launch K3, K5a
-             and K4 once each and pass the audit on its rows;
+             and K4 once each and pass the audit on its rows; and the
+             square-root form (the prior's variance as a factor): the
+             solve's means bitwise the standard form's on the squared
+             factor and its factors squaring to its covariances within
+             SQRT_GRAM_TOL, and DALTON's value on the likelihood
+             fixture's first 64 lanes (its observation variance a factor
+             too) bitwise the standard form's;
 16. stationary_kernels  K5a, K5b and K5c alone at their paths' shapes,
-             timed and checked against their twins there, each with its
-             dependent-chain bound, K5b bitwise with its time per step, its
-             launch as the card reports it, ptxas' report and the SASS
-             instructions of its step loop;
+             timed and checked against their twins there, all bitwise, each
+             with its dependent-chain bound, its launch as the card reports
+             it, ptxas' report and the SASS instructions of its step loop,
+             K5b with its time per step;
 17. k10_twin the MAGI kernels K10a (magi_batch, emits "ld" and "adjoint")
              and K10b (magi_adjoint_batch, on K10a's streams) against their
              twins on the same CUDA inputs, 1000 steps x 256 lanes of the
@@ -202,6 +209,10 @@ REPO = Path(__file__).resolve().parent
 # against logf) could still round differently.  Bound on max|kernel - twin|
 # / max|twin| per output, and per tangent direction.
 TWIN_TOL = 1e-5
+# The square-root form: the solve's factors F against the standard form's
+# covariances P on the squared prior factor, max|F F' - P| / max|P|, the
+# float32 rounding of the factorisation (1.1e-7 on the CPU at 200 steps).
+SQRT_GRAM_TOL = 1e-5
 # The solve audit of bench.py: max abs error of the solution path against
 # the float64 truth <= max(3 x the same error of float32 on the CPU, 0.05).
 AUDIT_FLOOR = 0.05
@@ -294,12 +305,13 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
 # The kernels that run one thread per (lane, block), K1, K8 and K9, per
-# block of one solve, K3 and K5b, or per (lane, direction, block), K11a,
-# K11c and K11d, bitwise against their twins, and the mangled names of their
-# kernels.
+# block of one solve, K3 and K5b, per (group, block), K5c, or per (lane,
+# direction, block), K11a, K11c and K11d, bitwise against their twins, and
+# the mangled names of their kernels.
 SPLIT_KERNELS = {"filter_batch": "19filter_batch_kernel",
                  "filter_single": "20filter_single_kernel",
                  "mean_boundary_single": "20mean_boundary_kernel",
+                 "mean_recovery_single": "20mean_recovery_kernel",
                  "dalton_filter_batch": "20dalton_filter_kernel",
                  "filter_nn_batch": "22filter_nn_batch_kernel",
                  "filter_batch_tan": "23filter_batch_tan_kernel",
@@ -314,10 +326,12 @@ STREAM_KERNELS = {"sampler_batch": "20sampler_batch_kernel",
                   "fenrir_backward_batch_tan": "26fenrir_backward_tan_kernel",
                   "magi_batch": "11magi_kernel",
                   "magi_adjoint_batch": "19magi_adjoint_kernel"}
-# K4 and K7a, streams of slabs of the single-solve layout through the same
-# ring, one CTA for their one solve's blocks, bitwise against their twins.
+# K4, K7a and K5a, streams of slabs of the single-solve layout through the
+# same ring, one CTA for their one solve's blocks, bitwise against their
+# twins.
 SLAB_KERNELS = {"smoother_single": "22smoother_single_kernel",
-                "fenrir_backward_single": "29fenrir_backward_single_kernel"}
+                "fenrir_backward_single": "29fenrir_backward_single_kernel",
+                "mean_gain_single": "16mean_gain_kernel"}
 # The dependent chain of the serial kernels: float32 operations on the
 # critical path of one step's (or row's) carry, counted from the code, each
 # at FP32_LATENCY_CYCLES, so that rows x ops x cycles / clock is the least
@@ -677,7 +691,8 @@ def main():
         of the kernel whose mangled name holds symbol, from the build's
         log (a Compiling line, then its stack and spill line, then its
         registers).  A filter's instantiation is named by its model,
-        observation model, q, mode and with_obs; K5b's by its model and q;
+        observation model, q, mode and with_obs; K5a's, K5b's and K5c's by
+        their model and q, K5a's and K5c's by the floats a copy moves;
         a stream's (K6, K2r, K4, K7b, K11b, K7a) by q, K11b's directions
         and the floats a copy moves; K10a's by q, n_active, the emit and
         the floats a copy moves; K10b's by q, n_active and the floats a copy
@@ -694,14 +709,16 @@ def main():
                                      line)
                     adjoint = re.search(r"19magi_adjoint_kernelILi(\d+)E"
                                         r"Li(\d+)ELi(\d+)EE", line)
-                    boundary = re.search(r"20mean_boundary_kernelINS_\d+"
-                                         r"(\w+?)ELi(\d+)EE", line)
+                    mean = re.search(r"mean_\w+?_kernelINS_\d+(\w+?)E"
+                                     r"Li(\d+)E(?:Li(\d+)E)?E", line)
                     if adjoint is not None:
                         entry = {"q": int(adjoint[1]),
                                  "n_active": int(adjoint[2]),
                                  "floats_per_copy": int(adjoint[3])}
-                    elif boundary is not None:
-                        entry = {"model": boundary[1], "q": int(boundary[2])}
+                    elif mean is not None:
+                        entry = {"model": mean[1], "q": int(mean[2])}
+                        if mean[3] is not None:
+                            entry["floats_per_copy"] = int(mean[3])
                     elif magi is not None:
                         entry = {"q": int(magi[1]), "n_active": int(magi[2]),
                                  "emit_adjoint": bool(int(magi[3])),
@@ -1591,13 +1608,15 @@ def main():
     # ---- 12. the single-solve kernels and K2r against their twins ---------
     k3_names = ["mf", "pf", "mp", "pp"]
 
-    def single_setup(mod, n, t_max_s, theta_of):
-        """One solve's K3 operands and its float32 scaled transition."""
+    def single_setup(mod, n, t_max_s, theta_of, prior_of=lambda p: p):
+        """One solve's K3 operands and its float32 scaled transition, on the
+        model's prior as prior_of changes it."""
         cfg_s1 = mod.setup(n_steps=n, t_max=t_max_s, dtype=torch.float32,
                            device=dev)
         return fk._single_operands(theta_of(cfg_s1["theta"]),
                                    cfg_s1["ode_weight"], cfg_s1["ode_init"],
-                                   0.0, t_max_s, n, cfg_s1["prior_pars"])
+                                   0.0, t_max_s, n,
+                                   prior_of(cfg_s1["prior_pars"]))
 
     def twin_report(phase, config, names, kernel_out, twin_out,
                     need_bitwise=False, **info):
@@ -1877,12 +1896,22 @@ def main():
     emit({"phase": "single_kernels", "kernels": at_single})
 
     # ---- 14. the stationary solve's mean chain against its twins ---------
-    def mean_chain_operands(mod, model, mode, n, t_max_s, theta_of):
+    def non_ibm(prior_pars):
+        """A block-constant prior that is not IBM: IBM's weight with its
+        last diagonal entry x 0.9 in every block, so that the scaled
+        transition is not unit upper-triangular."""
+        w, v = prior_pars
+        w = w.clone()
+        w[:, 2, 2] *= 0.9
+        return w, v
+
+    def mean_chain_operands(mod, model, mode, n, t_max_s, theta_of,
+                            prior_of=lambda p: p):
         """The operands of K5a, K5b and K5c as solve_mv_fused_stationary
         builds them at n steps (K3's exact prefix and its gains, the tail
         after it), and K5a's with the frozen gain from the prefix's end over
         the tail."""
-        ops_m, _ = single_setup(mod, n, t_max_s, theta_of)
+        ops_m, _ = single_setup(mod, n, t_max_s, theta_of, prior_of)
         fused_m = fk.resolve_model(model)
         n_warm, _ = fk._stationary_schedule(n, 64, True)
         mfw, _, _, ppw = fk.fused_filter(
@@ -1904,28 +1933,36 @@ def main():
         """K5c's operands: K5b's, its output in place of the start."""
         return (*boundary[:4], bnd, *boundary[5:])
 
-    for model, mode, t_max_tw, seed in (("lorenz", "kramer", 2.0, 10),
-                                        ("fitzhugh", "rodeo", 10.0, 11)):
+    # the scaled IBM prior (a unit upper-triangular transition) on both
+    # models, and Lorenz63 on a prior that is not IBM
+    for model, mode, t_max_tw, seed, prior in (
+            ("lorenz", "kramer", 2.0, 10, "ibm"),
+            ("fitzhugh", "rodeo", 10.0, 11, "ibm"),
+            ("lorenz", "kramer", 2.0, 12, "non_ibm")):
         mod = {"lorenz": lorenz, "fitzhugh": fitzhugh}[model]
-        args_5 = mean_chain_operands(mod, model, mode, n_tw, t_max_tw,
-                                     one_theta(seed))
-        twin_report("k5_twin", f"{model}/{mode} mean_gain_single", ["mf"],
+        args_5 = mean_chain_operands(
+            mod, model, mode, n_tw, t_max_tw, one_theta(seed),
+            non_ibm if prior == "non_ibm" else lambda p: p)
+        label = f"{model}/{mode}" + (" non_ibm" if prior == "non_ibm"
+                                     else "")
+        twin_report("k5_twin", f"{label} mean_gain_single", ["mf"],
                     fk.mean_gain_chain(*args_5["gain"]),
-                    fk._mean_gain_plain(*args_5["gain"]))
+                    fk._mean_gain_plain(*args_5["gain"]), need_bitwise=True)
         bnd = fk.mean_boundary_chain(*args_5["boundary"])
-        twin_report("k5_twin", f"{model}/{mode} mean_boundary_single",
+        twin_report("k5_twin", f"{label} mean_boundary_single",
                     ["bnd"], bnd,
                     fk._mean_boundary_plain(*args_5["boundary"], 64),
                     need_bitwise=True)
         rec = recovery_args(args_5["boundary"], bnd)
         rows = fk.mean_recovery_chain(*rec)
-        twin_report("k5_twin", f"{model}/{mode} mean_recovery_single",
-                    ["mf"], rows, fk._mean_recovery_plain(*rec))
+        twin_report("k5_twin", f"{label} mean_recovery_single",
+                    ["mf"], rows, fk._mean_recovery_plain(*rec),
+                    need_bitwise=True)
         # K5b + K5c are K5a with the frozen gain from the same start
         ref_5 = fk.mean_gain_chain(*args_5["constant"])
-        twin_report("k5_twin", f"{model}/{mode} K5b + K5c against K5a",
+        twin_report("k5_twin", f"{label} K5b + K5c against K5a",
                     ["mf"], rows, ref_5, n_group=bnd.shape[0])
-        check("k5_twin", f"{model}/{mode} K5b + K5c bitwise K5a",
+        check("k5_twin", f"{label} K5b + K5c bitwise K5a",
               torch.equal(rows, ref_5))
     del args_5, bnd, rec, rows, ref_5
 
@@ -1985,6 +2022,41 @@ def main():
     del mean_sh
     short_ms = cuda_ms(lambda: fk.solve_mv_fused_stationary(**short),
                        repeats=5)
+    # the square-root form: the prior's variance given as a factor, against
+    # the standard form on the squared factor (the operations then match)
+    w_1, v_1 = single["prior_pars"]
+    factor_1 = torch.linalg.cholesky(v_1.double()).float()
+    mean_q, fac_q = fk.solve_mv_fused_stationary(
+        **dict(single, prior_pars=(w_1, factor_1)), kalman_type="sqrt")
+    mean_e, var_e = fk.solve_mv_fused_stationary(**dict(
+        single, prior_pars=fk.normalize_prior_pars("sqrt", (w_1, factor_1))))
+    gram_err = ((fac_q @ fac_q.mT - var_e).abs().max()
+                / var_e.abs().max()).item()
+    sqrt_means = check("stationary", "sqrt means bitwise",
+                       torch.equal(mean_q, mean_e))
+    sqrt_factors = check("stationary", "sqrt factors",
+                         gram_err <= SQRT_GRAM_TOL and bool(
+                             (fac_q.triu(1) == 0).all()))
+    del mean_q, fac_q, mean_e, var_e
+    # and DALTON's value on the likelihood fixture's first 64 lanes, the
+    # observation variance a factor too
+    w_ll, v_ll = cfg_ll["prior_pars"]
+    factor_ll = torch.linalg.cholesky(v_ll.double()).float()
+    lanes_q = dict(lanes_ll, thetas=thetas_ll[:64], ode_inits=inits_ll[:64])
+    om_factor = obs_f["obs_var"].sqrt()
+    ll_q = fd.dalton_fused_batch(**dict(
+        lanes_q, prior_pars=(w_ll, factor_ll), obs_var=om_factor),
+        obs_data=obs_f["obs_data"], obs_times=obs_f["obs_times"],
+        obs_weight=obs_f["obs_weight"], kalman_type="sqrt")
+    ll_e = fd.dalton_fused_batch(**dict(
+        lanes_q, prior_pars=fk.normalize_prior_pars(
+            "sqrt", (w_ll, factor_ll)),
+        obs_var=fk.normalize_meas_var("sqrt", om_factor)),
+        obs_data=obs_f["obs_data"], obs_times=obs_f["obs_times"],
+        obs_weight=obs_f["obs_weight"])
+    sqrt_ll = check("stationary", "sqrt dalton value bitwise",
+                    torch.equal(ll_q, ll_e)
+                    and torch.isfinite(ll_q).all().item())
     emit({"phase": "stationary", "model": "lorenz", "interrogation": "kramer",
           "n_steps": n_steps, "t_max": t_max,
           "schedule": fk._stationary_schedule(n_steps, 64, True),
@@ -2006,7 +2078,10 @@ def main():
                                  if v},
                     "finite": finite_sh, "audit_max_abs_err": err_sh,
                     "audit_tol": tol_sh, "audit_ok": audit_sh,
-                    "call_ms": short_ms}})
+                    "call_ms": short_ms},
+          "sqrt": {"means_bitwise": sqrt_means, "gram_err": gram_err,
+                   "gram_tol": SQRT_GRAM_TOL, "factors_ok": sqrt_factors,
+                   "dalton_64_lanes_bitwise": sqrt_ll}})
 
     # ---- 16. the mean-chain kernels at their paths' shapes ----------------
     # (these launches come after the counts above were read): K5b and K5c on
@@ -2021,14 +2096,23 @@ def main():
     short_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
                  for a in short_5]
     n_tail = long_5[6].shape[0]
-    # K5b's launch (a thread per block of the solve) and the SASS
-    # instructions of its step loop
-    sass_5 = _build.sass_loops(SPLIT_KERNELS["mean_boundary_single"])
-    k5b_record = {
-        **split_record("stationary_kernels", "mean_boundary_single",
-                       "mean_boundary_single lorenz",
-                       fk._mean_boundary_geometry("lorenz")),
-        "sass_loop": "not measured" if sass_5 is None else sass_5}
+    n_group_5 = n_tail // 64
+
+    def k5_record(kernel, geometry):
+        """A mean-chain kernel's launch as the card reports it (K5b a thread
+        per block of the solve, K5c per (group, block), K5a a consumer and
+        a producer warp), ptxas' report and the SASS instructions of its
+        step loop."""
+        sass = _build.sass_loops({**SPLIT_KERNELS, **SLAB_KERNELS}[kernel])
+        return {**split_record("stationary_kernels", kernel,
+                               f"{kernel} lorenz", geometry),
+                "sass_loop": "not measured" if sass is None else sass}
+    k5b_record = k5_record("mean_boundary_single",
+                           fk._mean_boundary_geometry("lorenz"))
+    k5c_record = k5_record("mean_recovery_single",
+                           fk._mean_recovery_geometry("lorenz", n_group_5))
+    k5a_record = k5_record("mean_gain_single",
+                           fk._mean_gain_geometry("lorenz"))
     bnd, at_stat["mean_boundary_single"] = at_path_shapes(
         "stationary_kernels", "mean_boundary_single", "pallas_kalman.py:2234",
         stat_launches, lambda: fk.mean_boundary_chain(*long_5),
@@ -2051,7 +2135,7 @@ def main():
                                           rec_cpu[7]),
         n_tail, tensors(dict(enumerate(rec_5))),
         source="mean_chain_single",
-        shape=f"{bnd[0].shape[0]} groups of 64")
+        shape=f"{bnd[0].shape[0]} groups of 64", **k5c_record)
     _, at_stat["mean_gain_single"] = at_path_shapes(
         "stationary_kernels", "mean_gain_single", "pallas_kalman.py:2197",
         short_launches, lambda: fk.mean_gain_chain(*short_5),
@@ -2059,7 +2143,10 @@ def main():
         lambda n: fk._mean_gain_plain(*short_cpu[:6], short_cpu[6][:n],
                                       short_cpu[7][:n]),
         n_short, tensors(dict(enumerate(short_5))),
-        source="mean_chain_single", shape=f"{n_short} steps")
+        source="mean_chain_single", shape=f"{n_short} steps", **k5a_record)
+    for kernel in ("mean_recovery_single", "mean_gain_single"):
+        check("stationary_kernels", f"{kernel} bitwise",
+              at_stat[kernel]["bitwise"])
     # K5c's groups run in parallel: its chain is one group's steps
     k_group = n_tail // bnd[0].shape[0]
     for kernel, n_rows in (("mean_boundary_single", n_tail),

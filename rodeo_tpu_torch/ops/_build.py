@@ -65,13 +65,16 @@ _SIGNATURES = {
     "rodeo_fenrir_backward_batch_geometry": [_I, _I, _P],
     # of K4 and K7a: n_block, out; of K11b: n_block, n_lane, n_tan, out;
     # of K10a: act, emit_adjoint, n_block, n_lane, out; of K10b: act,
-    # n_block, n_lane, out; of K5b: model, out
+    # n_block, n_lane, out; of K5a and K5b: model, out; of K5c: model,
+    # n_group, out
     "rodeo_smoother_single_geometry": [_I, _P],
     "rodeo_fenrir_backward_single_geometry": [_I, _P],
     "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_magi_batch_geometry": [_I] * 4 + [_P],
     "rodeo_magi_adjoint_batch_geometry": [_I] * 3 + [_P],
+    "rodeo_mean_gain_single_geometry": [_I, _P],
     "rodeo_mean_boundary_single_geometry": [_I, _P],
+    "rodeo_mean_recovery_single_geometry": [_I, _I, _P],
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:

@@ -234,15 +234,20 @@ struct SharedExchange {
 };
 
 // The same exchange by warp shuffles, for a lane whose NB threads are lanes
-// 0 .. NB-1 of one warp (K3, K5b): no shared memory and no barrier of its
-// own.  On K3, shared memory behind __syncwarp took 16 % longer (PERF.md).
-// Only the first J entries of each block's mean are exchanged, the others
-// gathered as zeros: K5b passes J = 1, since the first-order vector fields
-// of models.cuh read x[b][0] alone and a shuffle's result is not left out
-// when unused.
+// base .. base + NB - 1 of one warp: no shared memory and no barrier of its
+// own.  K3 and K5b run one solve on lanes 0 .. NB-1 (the defaults); K5c
+// runs 8 groups a warp, group g' on lanes 4 g' + b, each thread's base its
+// group's first lane, and every lane of the warp in the mask.  On K3,
+// shared memory behind __syncwarp took 16 % longer (PERF.md).  Only the
+// first J entries of each block's mean are exchanged, the others gathered
+// as zeros: K5a-c pass J = 1, since the first-order vector fields of
+// models.cuh read x[b][0] alone and a shuffle's result is not left out when
+// unused.
 template <int NB, int Q, int J = Q>
 struct ShuffleExchange {
   float xv[J];
+  int base = 0;                    // the lane of block 0
+  unsigned mask = (1u << NB) - 1;  // the lanes that shuffle together
   __device__ __forceinline__ void publish(int, int, const float (&mp)[Q],
                                           const float (&tv)[Q]) {
 #pragma unroll
@@ -253,7 +258,7 @@ struct ShuffleExchange {
     for (int b = 0; b < NB; ++b) {
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        x[b][j] = __shfl_sync((1u << NB) - 1, xv[j], b);
+        x[b][j] = __shfl_sync(mask, xv[j], base + b);
 #pragma unroll
       for (int j = J; j < Q; ++j) x[b][j] = 0.0f;
     }

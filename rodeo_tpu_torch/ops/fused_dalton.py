@@ -33,7 +33,8 @@ from rodeo_tpu_torch.ops.fused_kalman import (
     _FUNCTORS, _LOG2PI, _MODES, _block_sum, _check, _check_mode,
     _fused_inputs, _host_qconst, _interrogate_update_cols, _kernel_operands,
     _launch, _launch_geometry, _masked_obs_update_cols, _pack_tri,
-    _predict_cols, _tri_idx, resolve_model)
+    _predict_cols, _tri_idx, normalize_meas_var, resolve_kalman_type,
+    resolve_model)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
 __all__ = ["dalton_fused_batch", "dalton_fused_batch_grad",
@@ -269,6 +270,7 @@ def dalton_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
         kalman_type, device)
+    obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     ops, obs, ld0 = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
         obs_data, obs_times, obs_weight, obs_var)
@@ -300,6 +302,7 @@ def dalton_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
         kalman_type, device)
+    obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     ops, obs, ld0 = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
         obs_data, obs_times, obs_weight, obs_var)

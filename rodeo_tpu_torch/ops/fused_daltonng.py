@@ -592,7 +592,10 @@ def daltonng_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         model: The ODE's name or model module, in place of the JAX
             package's ``ode_flat``/``jac_flat``.
         interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
-        kalman_type (str): ``"standard"``.
+        kalman_type (str): ``"standard"``, or ``"sqrt"`` with the prior's
+            variance given as a factor, squared at entry; the value does not
+            depend on the form.  The observation model's own variance is
+            not a factor in either.
         device: Where to run; ``None`` is the CUDA card, and raises without
             one.
 

@@ -50,7 +50,7 @@ from rodeo_tpu_torch.ops.fused_kalman import (
     _LOG2PI, _block_sum, _check, _fused_inputs, _kernel_operands, _launch,
     _launch_geometry, _masked_obs_update_cols, _pack_tri, _single_operands, _sym_quadform,
     _tri_idx, fused_filter, fused_filter_batch, fused_filter_batch_tan,
-    unpack_cov)
+    normalize_meas_var, resolve_kalman_type, unpack_cov)
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
@@ -356,7 +356,9 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
         obs_data (Tensor(n_obs, n_block, 1)): Observations.
         obs_times (Tensor(n_obs,)): Observation times, on grid points.
         obs_weight (Tensor(n_obs, n_block, 1, q)): Observation weights.
-        obs_var (Tensor(n_obs, n_block, 1, 1)): Observation variances.
+        obs_var (Tensor(n_obs, n_block, 1, 1)): Observation variances
+            (their factors where ``kalman_type`` is ``"sqrt"``, squared at
+            entry with the prior's; the value does not depend on the form).
         (other args as
         :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`)
 
@@ -366,6 +368,7 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
         kalman_type, device)
+    obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError("fenrir_fused_batch requires n_bobs == 1")
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
@@ -395,6 +398,7 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
         kalman_type, device)
+    obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError(
             "fenrir_fused_batch_grad requires n_bobs == 1")
@@ -490,6 +494,7 @@ def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
     fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
         theta, ode_weight, ode_init, prior_pars, model, interrogation,
         kalman_type, device)
+    obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError("fenrir_fused requires n_bobs == 1")
     ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,

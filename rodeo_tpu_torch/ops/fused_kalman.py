@@ -84,7 +84,8 @@ from rodeo_tpu_torch.models import FusedModel
 from rodeo_tpu_torch.ops import _build
 from rodeo_tpu_torch.ops.dual import Dual, constant, primal, seed_directions
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
-from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
+from rodeo_tpu_torch.ops.linalg import (chol_small, full_matmul_precision,
+                                        inv_small)
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 from rodeo_tpu_torch.ops.precond import taylor_scale, scale_prior
 
@@ -96,7 +97,8 @@ __all__ = ["fused_filter_batch", "smoother_recursion_batch_rows",
            "fused_smoother", "fused_smoother_composed", "solve_mv_fused",
            "mean_gain_chain", "mean_boundary_chain", "mean_recovery_chain",
            "solve_mv_fused_stationary", "resolve_kalman_type", "unpack_cov",
-           "LAUNCHES"]
+           "chol_packed", "unpack_chol", "normalize_prior_pars",
+           "normalize_meas_var", "LAUNCHES"]
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"filter_batch": 0, "smoother_batch_rows": 0,
@@ -421,9 +423,85 @@ def unpack_cov(packed):
     return torch.stack(rows, dim=-2)
 
 
+def chol_packed(packed, q, floor=1e-12, axis=-1):
+    r"""
+    Closed-form lower Cholesky factor of packed symmetric covariances, in
+    the packed layout (``chol_packed`` of the JAX package's
+    ``pallas_kalman``, formula for formula).
+
+    ``packed`` holds the upper-triangle pairs ``(i, j), i <= j`` of
+    :func:`_tri_idx` along ``axis``; the result has the same shape, entry
+    ``k = (i, j)`` holding the lower factor's ``L[j, i]``.  Normalised to
+    correlation form with a relative pivot floor; entries below a floored
+    pivot are zero, and an all-zero covariance factors to ~0.
+    """
+    pairs, where = _tri_idx(q)
+    cols = packed.unbind(axis)
+    tiny = torch.finfo(packed.dtype).tiny
+    d = [torch.sqrt(torch.clamp(cols[where[(i, i)]], min=tiny))
+         for i in range(q)]
+    L = [[None] * (i + 1) for i in range(q)]
+    ok = [None] * q
+    for i in range(q):
+        for j in range(i + 1):
+            s = cols[where[(j, i)]] / (d[i] * d[j])
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                ok[i] = s > floor
+                L[i][i] = torch.sqrt(torch.clamp(s, min=floor))
+            else:
+                L[i][j] = torch.where(ok[j], s / L[j][j],
+                                      torch.zeros_like(s))
+    return torch.stack([L[j][i] * d[j] for (i, j) in pairs], dim=axis)
+
+
+def unpack_chol(packed):
+    """Expand a packed lower Cholesky factor ``(..., n_tri)`` from
+    :func:`chol_packed` into a dense lower-triangular ``(..., q, q)``
+    matrix (for lane slices of the square-root form's
+    :func:`solve_mv_fused_batch` output)."""
+    n_tri = packed.shape[-1]
+    q = {1: 1, 3: 2, 6: 3, 10: 4, 15: 5}[n_tri]
+    _, where = _tri_idx(q)
+    zero = torch.zeros_like(packed[..., 0])
+    rows = [torch.stack([packed[..., where[(j, i)]] if j <= i else zero
+                         for j in range(q)], dim=-1) for i in range(q)]
+    return torch.stack(rows, dim=-2)
+
+
+@full_matmul_precision
+def _gram(v):
+    """``v v'`` over the trailing dims, in full float32 precision."""
+    return v @ v.transpose(-1, -2)
+
+
+def normalize_prior_pars(kalman_type, prior_pars):
+    """The covariance form of ``(prior_weight, prior_var)``: the
+    square-root form passes the variance as a factor, which is squared
+    here, since the fused kernels carry covariances.  ``kalman_type`` as
+    :func:`resolve_kalman_type` returns it."""
+    if kalman_type == "sqrt" and prior_pars is not None:
+        w, v = prior_pars
+        return (w, _gram(torch.as_tensor(v)))
+    return prior_pars
+
+
+def normalize_meas_var(kalman_type, var_meas):
+    """The covariance form of a Gaussian observation variance, which the
+    square-root form passes as a factor (see
+    :func:`normalize_prior_pars`)."""
+    if kalman_type == "sqrt" and var_meas is not None:
+        return _gram(torch.as_tensor(var_meas))
+    return var_meas
+
+
 def resolve_kalman_type(kalman_type):
     """Normalise the fused entry's ``kalman_type``: ``"standard"``, or
-    ``"sqrt"`` for any of its spellings."""
+    ``"sqrt"`` for any of its spellings.  Both ride the same kernels: the
+    square-root form's variances are factors, squared at entry
+    (:func:`normalize_prior_pars`), and a solve returns Cholesky factors
+    of its covariances."""
     valid = {"standard": "standard", "sqrt": "sqrt",
              "square-root": "sqrt", "square_root": "sqrt"}
     if kalman_type not in valid:
@@ -992,13 +1070,12 @@ def _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
 def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
                   interrogation, kalman_type, device):
     """Validate the arguments shared by the fused entry points and move the
-    tensor ones to ``device`` (``None``: the CUDA card).  Returns ``(fused
-    model, device, thetas, ode_weight, ode_inits, prior_pars)``."""
+    tensor ones to ``device`` (``None``: the CUDA card), the prior's
+    variance squared in the square-root form.  Returns ``(fused model,
+    device, thetas, ode_weight, ode_inits, prior_pars)``."""
     fused = resolve_model(model)
     n_block, n_bmeas, q = ode_weight.shape
-    if resolve_kalman_type(kalman_type) == "sqrt":
-        raise NotImplementedError(
-            "kalman_type='sqrt' is not ported to the fused path yet")
+    kalman_type = resolve_kalman_type(kalman_type)
     _check_mode(interrogation)
     if n_bmeas != 1:
         raise NotImplementedError("the fused kernels require n_bmeas == 1")
@@ -1008,7 +1085,8 @@ def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
     device = resolve_device(device)
     move = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return (fused, device, move(thetas), move(ode_weight), move(ode_inits),
-            tuple(move(p) for p in prior_pars))
+            normalize_prior_pars(kalman_type,
+                                 tuple(move(p) for p in prior_pars)))
 
 
 def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
@@ -1033,7 +1111,10 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
             :class:`~rodeo_tpu_torch.models.FusedModel`; it names both the
             plain right-hand side and the CUDA functor.
         interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
-        kalman_type (str): ``"standard"`` (packed covariances).
+        kalman_type (str): ``"standard"`` (packed covariances) or
+            ``"sqrt"`` (the prior's variance given as a factor; packed
+            Cholesky factors out, expand a lane with :func:`unpack_chol`);
+            see :func:`resolve_kalman_type`.
         device: Where to run; ``None`` is the CUDA card, and raises without
             one.  The tensor arguments are moved there.
 
@@ -1041,7 +1122,8 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         (tuple): float32 **mean** ``(N+1, n_block, q, B)`` and packed
         covariance **var_packed** ``(N+1, n_block, n_tri, B)`` in original
         coordinates, upper triangles in :func:`_tri_idx` order (expand a
-        lane with :func:`unpack_cov`).
+        lane with :func:`unpack_cov`); in the square-root form the lower
+        factors of the covariances, in the same layout.
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
@@ -1053,9 +1135,20 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     # entry 0 of the gains conditions on the exact initial state, which
     # the smoother does not need: its seed is the last filtered state
     t_vec = ops["t_vec"]
-    return smoother_recursion_batch_rows(
+    if resolve_kalman_type(kalman_type) == "standard":
+        return smoother_recursion_batch_rows(
+            b_k[1:], A_k[1:], C_k[1:], m_last, p_last, ops["x0_lanes"], t_vec,
+            _tri_scale(t_vec))
+    # the square-root form, as the JAX package forms it: the covariances
+    # factored in scaled coordinates (K2r's rows at unit scale), then the
+    # factor's rows scaled (entry k = (i, j) is row j)
+    mean_rows, packed_rows = smoother_recursion_batch_rows(
         b_k[1:], A_k[1:], C_k[1:], m_last, p_last, ops["x0_lanes"], t_vec,
-        _tri_scale(t_vec))
+        torch.ones_like(_tri_scale(t_vec)))
+    pairs, _ = _tri_idx(t_vec.shape[0])
+    row_scale = torch.stack([t_vec[j] for (_, j) in pairs])
+    return mean_rows, chol_packed(packed_rows, t_vec.shape[0],
+                                  axis=-2) * row_scale[:, None]
 
 
 def _tri_scale(t_vec):
@@ -1086,10 +1179,12 @@ def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     Returns:
         (tuple): **loglik** ``(B,)`` and **mean** ``(N+1, n_block, q, B)``.
     """
+    # squared once, here: the solve runs in the standard form
+    prior_pars = normalize_prior_pars(resolve_kalman_type(kalman_type),
+                                      prior_pars)
     mean_rows, _ = solve_mv_fused_batch(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
-        model, interrogation=interrogation, kalman_type=kalman_type,
-        device=device)
+        model, interrogation=interrogation, device=device)
     lls_of = _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times,
                           obs_loglik, params, mean_rows.device)
     return lls_of(mean_rows), mean_rows
@@ -1177,10 +1272,12 @@ def basic_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
         equal to :func:`basic_fused_batch`'s bitwise, between them **grad**
         ``(B, n_theta)``.
     """
+    # squared once, here: the solve runs in the standard form
+    prior_pars = normalize_prior_pars(resolve_kalman_type(kalman_type),
+                                      prior_pars)
     mean_rows, dmean = solve_mv_fused_batch_grad(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
-        model, interrogation=interrogation, kalman_type=kalman_type,
-        device=device)
+        model, interrogation=interrogation, device=device)
     lls_of = _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times,
                           obs_loglik, params, mean_rows.device)
     grads = [torch.func.jvp(lls_of, (mean_rows,), (dmean[k],))[1]
@@ -1532,7 +1629,9 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
             as the composed one, up to 50 000 steps
             (``tools/torch_smoother_drift.py``), at a tenth of its time, so
             it is the default here.
-        kalman_type (str): ``"standard"``.
+        kalman_type (str): ``"standard"``, or ``"sqrt"``: the prior's
+            variance given as a factor, and **var** the lower Cholesky
+            factors of the covariances (see :func:`resolve_kalman_type`).
         device: Where to run; ``None`` is the CUDA card, and raises without
             one.  The tensor arguments are moved there.
 
@@ -1553,14 +1652,18 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
     ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
                                n_steps, prior_pars)
     mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=interrogation)
-    return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose)
+    return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose,
+                          sqrt=resolve_kalman_type(kalman_type) == "sqrt")
 
 
-def _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose):
+def _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose, sqrt=False):
     """Rows ``0..N`` of one solve from the filtered and predicted moments
     of its steps ``1..N``: the exact initial state with zero variance,
     rows ``1..N-1`` smoothed (K4, plain or ``k_compose``-step composed),
-    row ``N`` filtered, in original coordinates."""
+    row ``N`` filtered, in original coordinates.  With ``sqrt``, the
+    variances are the lower Cholesky factors of the covariances, factored
+    in scaled coordinates and their rows scaled, as the JAX package's
+    ``solve_mv_fused`` forms them."""
     args = (ops["prior_var"], mf[:-1], pf[:-1], mp[1:], pp[1:], mf[-1],
             pf[-1])
     if k_compose is not None and k_compose > 1:
@@ -1571,6 +1674,9 @@ def _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose):
     t_vec = ops["t_vec"]
     mean = torch.cat([ops["x0"][None], ms, mf[-1:]]) * t_vec
     packed = torch.cat([ps.new_zeros((1,) + ps.shape[1:]), ps, pf[-1:]])
+    if sqrt:
+        return mean, unpack_chol(chol_packed(packed, t_vec.shape[0])) \
+            * t_vec[:, None]
     return mean, unpack_cov(packed) * (t_vec[:, None] * t_vec[None, :])
 
 
@@ -1735,8 +1841,8 @@ def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
     (kernel K5b), storing only each group's entry state.  Arguments as
     :func:`mean_gain_chain`, with ``m0 (n_block, q)`` the state before the
     first step, ``tgrid`` the times of ``64 n_group`` steps and ``k_star
-    (n_block, q)``.  The kernel takes a unit upper-triangular ``q_const``
-    only, as :func:`_static_scaled_qconst` gives.
+    (n_block, q)``.  The kernel takes any ``q_const``, the same for every
+    block.
 
     Returns:
         (Tensor(n_group, n_block, q)): Each group's entry state.
@@ -1759,6 +1865,16 @@ def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
     return bnd
 
 
+def _mean_gain_geometry(model, device=None):
+    """The launch of kernel K5a (:func:`mean_gain_chain`) on the card, a CTA
+    of a consumer and a producer warp, as :func:`_launch_geometry` reports
+    it, with the ring's stages and the steps a stage holds."""
+    model = resolve_model(model)
+    return _launch_geometry("mean_gain_single", device,
+                            _FUNCTORS[model.cuda_functor],
+                            extra=("stages", "rows_per_stage"))
+
+
 def _mean_boundary_geometry(model, device=None):
     """The launch of kernel K5b (:func:`mean_boundary_chain`) on the card,
     one CTA of a thread per block, as :func:`_launch_geometry` reports
@@ -1768,13 +1884,25 @@ def _mean_boundary_geometry(model, device=None):
                             _FUNCTORS[model.cuda_functor])
 
 
+def _mean_recovery_geometry(model, n_group, device=None):
+    """The launch of kernel K5c (:func:`mean_recovery_chain`) over
+    ``n_group`` groups on the card, a thread per (group, block), as
+    :func:`_launch_geometry` reports it, with the groups a CTA holds and
+    the most steps a group may have."""
+    model = resolve_model(model)
+    return _launch_geometry("mean_recovery_single", device,
+                            _FUNCTORS[model.cuda_functor], n_group,
+                            extra=("groups_per_cta", "max_group_steps"))
+
+
 def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,
                         k_star):
     r"""
     Every group's steps re-run from its entry state ``bnd`` with the frozen
     gain, the groups in parallel (kernel K5c).  Arguments as
     :func:`mean_boundary_chain`, with ``bnd (n_group, n_block, q)`` its
-    output.
+    output.  On the card a group holds at most 64 steps, the stationary
+    schedule's (``_K_GROUP``); the CPU twin takes any.
 
     Returns:
         (Tensor(n_group * k_group, n_block, q)): The filtered mean of each
@@ -1791,6 +1919,9 @@ def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,
     if device.type == "cpu":
         return _mean_recovery_plain(model, q_const, ode_weight, t_vec, bnd,
                                     theta, tgrid, k_star)
+    if k_group > _K_GROUP:
+        raise ValueError(f"kernel K5c runs groups of at most {_K_GROUP} "
+                         f"steps, not {k_group}")
     mf = bnd.new_empty((n_group * k_group, n_block, q))
     qc = _host_qconst(q_const)
     _launch(LAUNCHES, "mean_recovery_single", q, device,
@@ -1865,6 +1996,10 @@ def solve_mv_fused_stationary(theta, ode_weight, ode_init, t_min, t_max,
             prefix's.
         k_compose (int or None): As :func:`solve_mv_fused`: ``None`` runs
             the plain recursion; 64 is the JAX package's composition.
+        kalman_type (str): As :func:`solve_mv_fused`; in the square-root
+            form the variances are the lower Cholesky factors of the dense
+            covariances (:func:`~rodeo_tpu_torch.ops.linalg.chol_small`),
+            as the JAX package's.
         (other arguments as :func:`solve_mv_fused`)
 
     Returns:
@@ -1912,4 +2047,8 @@ def solve_mv_fused_stationary(theta, ode_weight, ode_init, t_min, t_max,
     frozen = (n_steps - n_warm,) + pfw.shape[1:]
     pf = torch.cat([pfw, pfw[-1].expand(frozen)])
     pp = torch.cat([ppw, ppw[-1].expand(frozen)])
-    return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose)
+    mean, var = _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose)
+    if resolve_kalman_type(kalman_type) == "sqrt":
+        # the JAX package factors the dense covariances here
+        var = chol_small(var)
+    return mean, var

@@ -131,6 +131,9 @@ def solve_sim_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         eps (Tensor(N-1, q, n_block, B)), eps_term (Tensor(q, n_block, B)):
             The standard normals of steps 1..N-1 and of the terminal draw,
             in place of the generator's (both or neither).
+        kalman_type (str): As the solve's; in the square-root form the
+            prior's variance is a factor, squared at entry, and the draws
+            are the same.
         (other args as
         :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`)
 

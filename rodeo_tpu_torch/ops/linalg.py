@@ -2,8 +2,9 @@ r"""
 Matmul precision guard (the port of
 :func:`rodeo_tpu.ops.linalg.full_matmul_precision`) and closed forms for
 tiny matrices: the inverse (:func:`inv_small`), the determinant
-(:func:`_det_small_normed`) and the symmetric eigendecomposition
-(:func:`sym_eigh_small`).
+(:func:`_det_small_normed`), the symmetric eigendecomposition
+(:func:`sym_eigh_small`) and the lower Cholesky factor
+(:func:`chol_small`).
 
 On a TPU the JAX package forces "highest" matmul precision because the
 default float32 ``dot_general`` runs bfloat16 passes, whose rounding the
@@ -17,7 +18,8 @@ import math
 
 import torch
 
-__all__ = ["full_matmul_precision", "inv_small", "sym_eigh_small"]
+__all__ = ["full_matmul_precision", "inv_small", "sym_eigh_small",
+           "chol_small"]
 
 
 def full_matmul_precision(fn):
@@ -244,3 +246,38 @@ def sym_eigh_small(a):
     v2 = torch.where(low_sep[..., None], other, anchor)
     v = torch.stack([v0, mid, v2], dim=-1)
     return w * scale[..., 0], v
+
+
+def chol_small(a, floor=1e-12):
+    r"""
+    Closed-form lower Cholesky factor over the trailing dims, up to 5 x 5
+    (batched), as :func:`rodeo_tpu.ops.linalg.chol_small` computes it.
+
+    Normalised to correlation form with a *relative* pivot floor, since
+    near-unit correlations cancel catastrophically in float32.  A floored
+    pivot marks a numerically null direction; the entries below it are set
+    to zero rather than divided by the floor, which would blow the later
+    columns up by ~1/floor.
+    """
+    n = a.shape[-1]
+    tiny = torch.finfo(a.dtype).tiny
+    d = torch.sqrt(torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1),
+                               min=tiny))                       # (..., n)
+    corr = a / (d[..., :, None] * d[..., None, :])
+    L = [[None] * n for _ in range(n)]
+    ok = [None] * n
+    for i in range(n):
+        for j in range(i + 1):
+            s = corr[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                ok[i] = s > floor
+                L[i][i] = torch.sqrt(torch.clamp(s, min=floor))
+            else:
+                L[i][j] = torch.where(ok[j], s / L[j][j],
+                                      torch.zeros_like(s))
+    zero = torch.zeros_like(corr[..., 0, 0])
+    rows = [torch.stack([L[i][j] if j <= i else zero for j in range(n)],
+                        dim=-1) for i in range(n)]
+    return torch.stack(rows, dim=-2) * d[..., :, None]

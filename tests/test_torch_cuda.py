@@ -12,10 +12,12 @@ single-solve kernels K3 (filter_single), K4 (smoother_single) and K7a
 K11d (filter_nn_batch_tan) against their plain PyTorch twins on the same
 CUDA inputs, the launch contract of each fused entry point, and the launch
 geometry of K1, K8 and K9, which run one thread per (lane, block), of K3
-and K5b, which run one thread per block of their one solve, of K11a, K11c
-and K11d, which run one thread per (lane, direction, block), and of K6,
-K2r, K7b, K11b, K10a, K10b, K4 and K7a, streams through a ring of
-shared-memory stages (``csrc/stream_ring.cuh``).
+and K5b, which run one thread per block of their one solve, of K5c, one
+thread per (group, block), of K11a, K11c and K11d, which run one thread
+per (lane, direction, block), and of K6, K2r, K7b, K11b, K10a, K10b, K4,
+K7a and K5a, streams through a ring of shared-memory stages
+(``csrc/stream_ring.cuh``).  The square-root form of the fused entries,
+and the stationary solve on a prior that is not IBM, run on the card too.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -955,58 +957,261 @@ def _boundary_at(chain, m0, theta, tgrid, k_star, k_group):
     return bnd
 
 
-@pytest.mark.parametrize("model,mode,dt", [("lorenz", "kramer", 0.01),
-                                           ("fitzhugh", "rodeo", 0.05)])
+def _non_ibm(prior_pars):
+    """A block-constant prior that is not IBM: IBM's weight with its last
+    diagonal entry scaled by 0.9 in every block, so that the scaled
+    transition is not unit upper-triangular."""
+    w, v = prior_pars
+    w = w.clone()
+    w[:, 2, 2] *= 0.9
+    return w, v
+
+
+def _tail_operands(model, mode, dt, n_tail, device, dense):
+    """The mean chain's operands as the stationary path builds them after a
+    64-step K3 prefix, for n_tail more steps of ``dt``, on the scaled IBM
+    transition or (``dense``) the one of :func:`_non_ibm`: the chain's
+    constants, the single-solve operands, the state after the prefix and
+    the prefix's gains."""
+    n = 64 + n_tail
+    cfg = MODELS[model].setup(n_steps=n, t_max=dt * n, dtype=torch.float32,
+                              device=device)
+    prior = _non_ibm(cfg["prior_pars"]) if dense else cfg["prior_pars"]
+    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
+                                 cfg["ode_init"], 0.0, dt * n, n, prior)
+    fused = fk.resolve_model(model)
+    mfw, _, _, ppw = fk.fused_filter(
+        fused, 64, **{**ops, "tgrid": ops["tgrid"][:64]}, mode=mode)
+    k_pre = fk._stationary_gains(fused, ops, ppw, mode, 0.0)
+    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+    return chain, ops, mfw[-1], k_pre
+
+
+_TAIL_MODELS = [("lorenz", "kramer", 0.01), ("fitzhugh", "rodeo", 0.05)]
+
+
+@pytest.mark.parametrize("model,mode,dt", _TAIL_MODELS)
 def test_mean_boundary_split_is_bitwise_its_twin_on_the_card(cuda_device,
                                                              model, mode,
                                                              dt):
     """K5b, one thread per block of its solve meeting once a step by warp
     shuffles, bitwise against its twin at 1, 2 and 3 groups of 1, 5 and 64
     steps (64 through mean_boundary_chain) on the stationary path's tail
-    after a 64-step K3 prefix; K5b + K5c bitwise K5a with the frozen gain
-    from the same start; its launch as the card reports it: one CTA of a
-    thread per block, no local memory; a transition that is not unit
-    upper-triangular refused."""
-    n = 64 + 192
-    cfg = MODELS[model].setup(n_steps=n, t_max=dt * n, dtype=torch.float32,
-                              device=cuda_device)
-    ops, _ = fk._single_operands(cfg["theta"], cfg["ode_weight"],
-                                 cfg["ode_init"], 0.0, dt * n, n,
-                                 cfg["prior_pars"])
-    fused = fk.resolve_model(model)
-    mfw, _, _, ppw = fk.fused_filter(
-        fused, 64, **{**ops, "tgrid": ops["tgrid"][:64]}, mode=mode)
-    k_star = fk._stationary_gains(fused, ops, ppw, mode, 0.0)[-1]
-    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
-    m0, theta = mfw[-1], ops["theta"]
-    for n_group in (1, 2, 3):
+    after a 64-step K3 prefix, on the scaled IBM transition and on a
+    block-constant one that is not unit upper-triangular; K5b + K5c bitwise
+    K5a with the frozen gain from the same start, and K5a and K5c bitwise
+    their twins, on both; its launch as the card reports it: one CTA of a
+    thread per block, no local memory."""
+    for dense in (False, True):
+        chain, ops, m0, k_pre = _tail_operands(model, mode, dt, 192,
+                                               cuda_device, dense)
+        k_star, theta = k_pre[-1], ops["theta"]
+        for n_group in (1, 2, 3):
+            for k_group in (1, 5, 64):
+                label = (dense, n_group, k_group)
+                tgrid = ops["tgrid"][64:64 + n_group * k_group]
+                _reset_launches()
+                bnd = (fk.mean_boundary_chain(*chain, m0, theta, tgrid,
+                                              k_star)
+                       if k_group == 64 else
+                       _boundary_at(chain, m0, theta, tgrid, k_star,
+                                    k_group))
+                assert _launched() == {"mean_boundary_single": 1}, label
+                twin = fk._mean_boundary_plain(*chain, m0, theta, tgrid,
+                                               k_star, k_group)
+                assert bnd.is_cuda and torch.isfinite(bnd).all(), label
+                assert torch.equal(bnd, twin), label
+                rows = fk.mean_recovery_chain(*chain, bnd, theta, tgrid,
+                                              k_star)
+                assert torch.equal(rows, fk._mean_recovery_plain(
+                    *chain, bnd, theta, tgrid, k_star)), label
+                gains = k_star.expand(tgrid.shape[0],
+                                      *k_star.shape).contiguous()
+                ref = fk.mean_gain_chain(*chain, m0, theta, tgrid, gains)
+                assert torch.equal(ref, fk._mean_gain_plain(
+                    *chain, m0, theta, tgrid, gains)), label
+                assert torch.equal(rows, ref), label
+    geo = fk._mean_boundary_geometry(model, device=cuda_device)
+    assert (geo["cta_x"], geo["cta_y"], geo["grid_x"], geo["grid_y"]) \
+        == (MODELS[model].N_VARS, 1, 1, 1), geo
+    assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+
+
+def _misaligned(t, offset):
+    """A copy of t whose data starts ``offset`` floats past a fresh
+    allocation, so that it is not 16-byte aligned for offset 1."""
+    buf = t.new_empty(t.numel() + offset)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("model,mode,dt", _TAIL_MODELS)
+def test_mean_recovery_split_is_bitwise_its_twin_on_the_card(
+        cuda_device, model, mode, dt, dense):
+    """K5c, a thread per (group, block), 8 groups a warp exchanging by
+    shuffles, bitwise against its twin at 1, 2, 5, 8, 9, 155 and 157 groups
+    (where the last CTA is full, holds one group, or holds five) of 1, 5
+    and 64 steps, from K5b's entry states, on either transition, into the
+    wrapper's output (16-byte stores) and into one a float off (4-byte
+    ones); K5b + K5c bitwise K5a with the frozen gain where the groups are
+    64 steps; groups of 65 steps refused on the card; its launch as the
+    card reports it."""
+    # a fifth of the step, so that 10 112 steps span what the 10 000-step
+    # stationary solve spans
+    chain, ops, m0, k_pre = _tail_operands(model, mode, dt / 5, 157 * 64,
+                                           cuda_device, dense)
+    k_star, theta = k_pre[-1], ops["theta"]
+    for n_group in (1, 2, 5, 8, 9, 155, 157):
         for k_group in (1, 5, 64):
             label = (n_group, k_group)
             tgrid = ops["tgrid"][64:64 + n_group * k_group]
+            bnd = _boundary_at(chain, m0, theta, tgrid, k_star, k_group)
             _reset_launches()
-            bnd = (fk.mean_boundary_chain(*chain, m0, theta, tgrid, k_star)
-                   if k_group == 64 else
-                   _boundary_at(chain, m0, theta, tgrid, k_star, k_group))
-            assert _launched() == {"mean_boundary_single": 1}, label
-            twin = fk._mean_boundary_plain(*chain, m0, theta, tgrid, k_star,
-                                           k_group)
-            assert bnd.is_cuda and torch.isfinite(bnd).all(), label
-            assert torch.equal(bnd, twin), label
             rows = fk.mean_recovery_chain(*chain, bnd, theta, tgrid, k_star)
-            ref = fk.mean_gain_chain(
-                *chain, m0, theta, tgrid,
-                k_star.expand(tgrid.shape[0], *k_star.shape).contiguous())
-            assert torch.equal(rows, ref), label
-    geo = fk._mean_boundary_geometry(model, device=cuda_device)
+            assert _launched() == {"mean_recovery_single": 1}, label
+            assert rows.is_cuda and torch.isfinite(rows).all(), label
+            twin = fk._mean_recovery_plain(*chain, bnd, theta, tgrid, k_star)
+            assert torch.equal(rows, twin), label
+            # the wrapper's output is fresh; launch into a misaligned one
+            off = _misaligned(torch.zeros_like(twin), 1)
+            qc = fk._host_qconst(chain[1])
+            fk._launch(fk.LAUNCHES, "mean_recovery_single", 3, m0.device,
+                       fk._FUNCTORS[chain[0].cuda_functor], n_group, k_group,
+                       ctypes.addressof(qc), chain[2], chain[3], bnd, theta,
+                       tgrid, k_star, off)
+            assert torch.equal(off, twin), label
+            if k_group == 64:
+                ref = fk.mean_gain_chain(
+                    *chain, m0, theta, tgrid,
+                    k_star.expand(tgrid.shape[0], *k_star.shape)
+                    .contiguous())
+                assert torch.equal(rows, ref), label
+        geo = fk._mean_recovery_geometry(model, n_group, device=cuda_device)
+        assert (geo["cta_x"], geo["cta_y"], geo["grid_x"], geo["grid_y"]) \
+            == (32, 1, -(-n_group // 8), 1), geo
+        assert (geo["groups_per_cta"], geo["max_group_steps"]) == (8, 64)
+        assert geo["local_bytes"] == 0 and geo["all_resident"], geo
+    tgrid = ops["tgrid"][64:64 + 2 * 65]
+    bnd = _boundary_at(chain, m0, theta, tgrid, k_star, 65)
+    with pytest.raises(ValueError, match="at most 64"):
+        fk.mean_recovery_chain(*chain, bnd, theta, tgrid, k_star)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("model,mode,dt", _TAIL_MODELS)
+def test_mean_gain_stream_is_bitwise_its_twin_on_the_card(
+        cuda_device, model, mode, dt, dense):
+    """K5a, a thread per block fed by a producer warp through a ring of
+    two stages of 256 steps, bitwise against its twin at 1 to 4000 steps (a
+    stage's edges, the ring's wrap) from the initial state, with the
+    prefix's gains and then the frozen one, on either transition; with
+    aligned operands (16-byte copies and stores) and with gains, times and
+    means one float off (4-byte ones); its launch as the card reports
+    it."""
+    chain, ops, _, k_pre = _tail_operands(model, mode, dt / 5, 4000 - 64,
+                                          cuda_device, dense)
+    gains_all = torch.cat([k_pre, k_pre[-1].expand(4000 - 64,
+                                                   *k_pre[-1].shape)])
+    x0, theta = ops["x0"], ops["theta"]
+    for n_steps in (1, 2, 63, 64, 65, 150, 255, 256, 257, 511, 512, 513,
+                    4000):
+        tgrid = ops["tgrid"][:n_steps].contiguous()
+        gains = gains_all[:n_steps].contiguous()
+        twin = fk._mean_gain_plain(*chain, x0, theta, tgrid, gains)
+        for offset in (0, 1):
+            label = (n_steps, offset)
+            t_k, g_k = _misaligned(tgrid, offset), _misaligned(gains, offset)
+            _reset_launches()
+            if offset:
+                # the wrapper's output is fresh; launch into a misaligned one
+                mf = _misaligned(torch.zeros_like(twin), offset)
+                qc = fk._host_qconst(chain[1])
+                fk._launch(fk.LAUNCHES, "mean_gain_single", 3, x0.device,
+                           fk._FUNCTORS[chain[0].cuda_functor], n_steps,
+                           ctypes.addressof(qc), chain[2], chain[3], x0,
+                           theta, t_k, g_k, mf)
+            else:
+                mf = fk.mean_gain_chain(*chain, x0, theta, t_k, g_k)
+            assert _launched() == {"mean_gain_single": 1}, label
+            assert mf.is_cuda and torch.isfinite(mf).all(), label
+            assert torch.equal(mf, twin), label
+    geo = fk._mean_gain_geometry(model, device=cuda_device)
     assert (geo["cta_x"], geo["cta_y"], geo["grid_x"], geo["grid_y"]) == \
-        (MODELS[model].N_VARS, 1, 1, 1), geo
+        (64, 1, 1, 1), geo
+    assert (geo["stages"], geo["rows_per_stage"]) == (2, 256), geo
     assert geo["local_bytes"] == 0 and geo["all_resident"], geo
-    # K5b takes a unit upper-triangular transition only
-    q_other = [row[:] for row in ops["q_const"]]
-    q_other[1][0] = 0.5
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        fk.mean_boundary_chain(fused, q_other, *chain[2:], m0, theta,
-                               ops["tgrid"][64:192], k_star)
+
+
+def test_stationary_solve_with_a_non_ibm_prior_on_the_card(cuda_device):
+    """solve_mv_fused_stationary with a block-constant prior that is not
+    IBM, two-phase (K3, K5b, K5c, K4) and on K5a, runs on the card and
+    agrees with the same call on the CPU (the twins)."""
+    for n_steps, expected in (
+            (600, {"filter_single": 1, "mean_boundary_single": 1,
+                   "mean_recovery_single": 1, "smoother_single": 1}),
+            (150, {"filter_single": 1, "mean_gain_single": 1,
+                   "smoother_single": 1})):
+        def call(device):
+            cfg = lorenz.setup(n_steps=n_steps, t_max=0.002 * n_steps,
+                               device=device)
+            return fk.solve_mv_fused_stationary(
+                cfg["theta"], cfg["ode_weight"], cfg["ode_init"], 0.0,
+                0.002 * n_steps, n_steps, _non_ibm(cfg["prior_pars"]),
+                model="lorenz", device=device)
+
+        _reset_launches()
+        out = call(cuda_device)
+        torch.cuda.synchronize()
+        assert _launched() == expected, n_steps
+        cpu = call(torch.device("cpu"))
+        for a, b in zip(out, cpu):
+            assert a.is_cuda and torch.isfinite(a).all(), n_steps
+            assert _scaled_err(a, b) <= ENTRY_TOL, n_steps
+
+
+def test_square_root_form_on_the_card(cuda_device):
+    """The square-root form on the card: the batched solve's packed factors
+    and the stationary solve's dense ones square to the standard form's
+    covariances (given the squared prior) within 1e-5 of the largest, and
+    a batched likelihood's value is the standard form's bitwise."""
+    cfg, thetas, inits = _lanes("lorenz", 200, 2.0, 4, 9, cuda_device)
+    w, v = cfg["prior_pars"]
+    factor = torch.linalg.cholesky(v.double()).float()
+    squared = (w, fk.normalize_prior_pars("sqrt", (w, factor))[1])
+    batch = dict(thetas=thetas, ode_weight=cfg["ode_weight"],
+                 ode_inits=inits, t_min=0.0, t_max=2.0, n_steps=200,
+                 model="lorenz")
+    mean_s, var_s = fk.solve_mv_fused_batch(prior_pars=squared, **batch)
+    mean_q, fac_q = fk.solve_mv_fused_batch(prior_pars=(w, factor),
+                                            kalman_type="sqrt", **batch)
+    assert torch.equal(mean_q, mean_s)
+    for b in range(thetas.shape[0]):
+        L = fk.unpack_chol(fac_q[..., b])
+        gram = L @ L.mT
+        ref = fk.unpack_cov(var_s[..., b])
+        assert (gram - ref).abs().max() <= 1e-5 * ref.abs().max(), b
+    single = dict(theta=cfg["theta"], ode_weight=cfg["ode_weight"],
+                  ode_init=cfg["ode_init"], t_min=0.0, t_max=2.0,
+                  n_steps=200, model="lorenz")
+    mean_s, var_s = fk.solve_mv_fused_stationary(prior_pars=squared,
+                                                 **single)
+    mean_q, fac_q = fk.solve_mv_fused_stationary(prior_pars=(w, factor),
+                                                 kalman_type="sqrt", **single)
+    assert torch.equal(mean_q, mean_s)
+    assert (fac_q @ fac_q.mT - var_s).abs().max() \
+        <= 1e-5 * var_s.abs().max()
+    obs = dict(obs_data=torch.ones(5, 3, 1, device=cuda_device),
+               obs_times=torch.linspace(0.0, 2.0, 5, device=cuda_device),
+               obs_weight=torch.zeros(5, 3, 1, 3, device=cuda_device)
+               .index_fill_(-1, torch.tensor([0], device=cuda_device), 1.0))
+    var = torch.full((5, 3, 1, 1), 0.1, device=cuda_device)
+    ll_s = fd.dalton_fused_batch(prior_pars=squared, obs_var=var * var,
+                                 **batch, **obs)
+    ll_q = fd.dalton_fused_batch(prior_pars=(w, factor), obs_var=var,
+                                 kalman_type="sqrt", **batch, **obs)
+    assert torch.equal(ll_q, ll_s)
 
 
 def test_stationary_entry_point_launches_its_kernels(cuda_device):

@@ -16,11 +16,13 @@ import jax
 import jax.numpy as jnp
 
 from rodeo_tpu.models import fitzhugh as jfitzhugh, lorenz as jlorenz
+from rodeo_tpu.ops import linalg as jlin
 from rodeo_tpu.ops import pallas_kalman as pk
 from rodeo_tpu.ops import precond as jprecond
 
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
 from rodeo_tpu_torch.ops import fused_kalman as fk
+from rodeo_tpu_torch.ops import linalg as lin
 
 SCALED_TOL = 1e-4
 JMODELS = {"lorenz": jlorenz, "fitzhugh": jfitzhugh}
@@ -188,10 +190,125 @@ def small_lorenz():
 
 @pytest.mark.parametrize("override", [
     {"interrogation": "schober"}, {"interrogation": "chkrebtii"},
-    {"kalman_type": "sqrt"}, {"model": "hes1"}, {"model": fk}])
+    {"model": "hes1"}, {"model": fk}])
 def test_fused_solve_raises_for_unported(small_lorenz, override):
     with pytest.raises(NotImplementedError):
         fk.solve_mv_fused_batch(**{**small_lorenz, **override})
+
+
+# --- the square-root form -------------------------------------------------------
+#
+# A square-root caller passes the prior's variance (and a Gaussian
+# observation variance) as a factor; the fused entries square it once at
+# entry and run the standard form's kernels, so a likelihood, gradient or
+# draw is bitwise the standard form's on the squared factor, and a solve
+# returns lower Cholesky factors of its covariances.  The float32 Gram of a
+# factor reproduces the covariance it factors within SQRT_GRAM_TOL of the
+# largest entry (1.4e-7 measured).
+SQRT_GRAM_TOL = 1e-5
+
+
+def _factor(v):
+    """A float32 lower factor of each (q, q) covariance, from float64."""
+    return torch.from_numpy(np.linalg.cholesky(
+        np.asarray(v, np.float64)).astype(np.float32))
+
+
+def _spd_packed(rng, shape, q, rank=None):
+    """Packed symmetric positive (semi-)definite matrices M M' of
+    ``shape``, float64, M of ``rank`` columns (q by default), scales spread
+    over 1e-6 .. 1e3 as the solve's covariances are."""
+    pairs, _ = fk._tri_idx(q)
+    M = rng.standard_normal(shape + (q, rank or q))
+    M = M * np.logspace(-3, 1.5, q)[:, None]
+    full = M @ np.swapaxes(M, -1, -2)
+    return np.stack([full[..., i, j] for i, j in pairs], axis=-1), full
+
+
+@pytest.mark.parametrize("rank", [3, 2, 1])
+def test_cholesky_helpers_are_the_jax_packages(rank):
+    """The port's chol_packed, unpack_chol and chol_small against the JAX
+    package's, float64, on seeded covariances of full rank and rank-
+    deficient ones (the floored pivots and the zeros below them), in the
+    trailing and the lanes-last (axis=-2) packed layouts, and an all-zero
+    covariance."""
+    rng = np.random.default_rng(20 + rank)
+    packed, full = _spd_packed(rng, (7, 2), 3, rank)
+    t_packed = torch.from_numpy(packed)
+    port = fk.chol_packed(t_packed, 3)
+    ref = pk.chol_packed(jnp.asarray(packed), 3)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12 * np.abs(packed).max())
+    dense = fk.unpack_chol(port)
+    np.testing.assert_array_equal(
+        dense.numpy(), np.asarray(pk.unpack_chol(jnp.asarray(port.numpy()))))
+    assert torch.equal(dense.triu(1), torch.zeros_like(dense))
+    lanes = fk.chol_packed(t_packed.movedim(0, -1), 3, axis=-2)
+    np.testing.assert_allclose(lanes.movedim(-1, 0).numpy(), port.numpy(),
+                               rtol=1e-14, atol=1e-14 * np.abs(packed).max())
+    small = lin.chol_small(torch.from_numpy(full))
+    small_ref = jlin.chol_small(jnp.asarray(full))
+    np.testing.assert_allclose(small.numpy(), np.asarray(small_ref),
+                               rtol=1e-12, atol=1e-12 * np.abs(full).max())
+    if rank == 3:
+        gram = small @ small.mT
+        np.testing.assert_allclose(gram.numpy(), full, rtol=1e-10,
+                                   atol=1e-10 * np.abs(full).max())
+    zero = fk.chol_packed(torch.zeros(6, dtype=torch.float64), 3)
+    np.testing.assert_allclose(zero.numpy(), 0.0, atol=1e-12)
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 1.0),
+                                              ("fitzhugh", "rodeo", 5.0)])
+def test_sqrt_batch_solve_matches_the_jax_package(model, mode, t_max):
+    """solve_mv_fused_batch(kalman_type="sqrt") on the CPU: the same means
+    as the standard form on the squared factor, bitwise, packed lower
+    factors whose Grams are that form's covariances within SQRT_GRAM_TOL;
+    and, against the JAX package's square-root batched solve on the same
+    float32 factor (its Pallas kernels in interpret mode), means and Grams
+    within SCALED_TOL."""
+    n_steps, B = 128, 3
+    jmod, tmod = JMODELS[model], TMODELS[model]
+    cfg = jmod.setup(n_steps=n_steps, t_max=t_max, dtype=jnp.float32)
+    theta = np.asarray(cfg.pop("theta"))
+    thetas = np.stack([theta * (1.0 + 0.01 * i) for i in range(B)]
+                      ).astype(np.float32)
+    inits = np.broadcast_to(np.asarray(cfg["ode_init"]),
+                            (B,) + cfg["ode_init"].shape).astype(np.float32)
+    w, v = (np.array(a, np.float32) for a in cfg["prior_pars"])
+    factor = _factor(v)
+    mean_j, fac_j = pk.solve_mv_fused_batch(
+        thetas=jnp.asarray(thetas), ode_weight=cfg["ode_weight"],
+        ode_inits=jnp.asarray(inits), t_min=0.0, t_max=t_max,
+        n_steps=n_steps, prior_pars=(jnp.asarray(w),
+                                     jnp.asarray(factor.numpy())),
+        ode_flat=getattr(jmod, f"{model}_flat"),
+        jac_flat=getattr(jmod, f"{model}_jac_flat"), interrogation=mode,
+        kalman_type="square-root", interpret=True)
+    tcfg = tmod.setup(n_steps=n_steps, t_max=t_max, dtype=torch.float32,
+                      device="cpu")
+    args = (torch.from_numpy(thetas), tcfg["ode_weight"],
+            torch.from_numpy(inits.copy()), 0.0, t_max, n_steps)
+    w_t = torch.from_numpy(w)
+    mean_q, fac_q = fk.solve_mv_fused_batch(
+        *args, (w_t, factor), model=model, interrogation=mode,
+        kalman_type="sqrt", device="cpu")
+    mean_s, var_s = fk.solve_mv_fused_batch(
+        *args, fk.normalize_prior_pars("sqrt", (w_t, factor)), model=model,
+        interrogation=mode, device="cpu")
+    assert torch.equal(mean_q, mean_s)
+    assert fac_q.shape == var_s.shape == fac_j.shape
+    for b in range(B):
+        L = fk.unpack_chol(fac_q[..., b])
+        gram = L @ L.mT
+        cov = fk.unpack_cov(var_s[..., b])
+        assert (gram - cov).abs().max() <= SQRT_GRAM_TOL * cov.abs().max(), b
+        L_j = pk.unpack_chol(fac_j[..., b])
+        gram_j = np.asarray(L_j @ jnp.swapaxes(L_j, -1, -2))
+        assert _scaled_err(gram, gram_j) <= SCALED_TOL, b
+    for d in range(3):
+        assert _scaled_err(mean_q[..., d, :], mean_j[..., d, :]) \
+            <= SCALED_TOL, d
 
 
 def test_fused_wrappers_check_their_operands():
@@ -210,3 +327,85 @@ def test_fused_wrappers_check_their_operands():
     bad_layout[5] = bad_layout[5].T.contiguous().T   # non-contiguous theta
     with pytest.raises(ValueError):
         fk.fused_filter_batch("lorenz", 8, *bad_layout)
+
+
+def _sqrt_entry_calls():
+    """Each batched likelihood, gradient and draw entry on Lorenz63 EK1 (40
+    steps to t = 0.4, 2 lanes, x, y and z observed at 5 grid times), as
+    ``call(prior_pars, obs_var, **kw)`` with the variances given in the
+    form ``kw`` names."""
+    from rodeo_tpu_torch.models import obs as tobs
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    from rodeo_tpu_torch.ops import fused_fenrir as ff
+    from rodeo_tpu_torch.ops import fused_sim as fs
+    n_steps, t_max, B, n_obs = 40, 0.4, 2, 5
+    cfg = tlorenz.setup(n_steps=n_steps, t_max=t_max, device="cpu")
+    rng = np.random.default_rng(30)
+    lanes = dict(thetas=cfg["theta"] * torch.tensor([[1.0], [1.01]]),
+                 ode_weight=cfg["ode_weight"],
+                 ode_inits=cfg["ode_init"].expand(B, 3, 3).contiguous(),
+                 t_min=0.0, t_max=t_max, n_steps=n_steps, model="lorenz")
+    obs_data = torch.tensor(rng.normal(size=(n_obs, 3, 1)),
+                            dtype=torch.float32)
+    obs_times = torch.tensor([0.0, 0.1, 0.2, 0.3, 0.35])
+    weight = torch.zeros(n_obs, 3, 1, 3)
+    weight[..., 0] = 1.0
+    gauss = dict(obs_data=obs_data, obs_times=obs_times, obs_weight=weight)
+    basic = dict(obs_data=obs_data, obs_times=obs_times,
+                 obs_loglik=lambda o, x: torch.sum(-0.5 * (o[..., 0]
+                                                           - x[..., 0]) ** 2))
+    eps = dict(eps=torch.tensor(rng.standard_normal((n_steps - 1, 3, 3, B)),
+                                dtype=torch.float32),
+               eps_term=torch.tensor(rng.standard_normal((3, 3, B)),
+                                     dtype=torch.float32))
+    ng = dict(obs_data=obs_data, obs_times=obs_times,
+              obs_model=tobs.gauss(0.005), obs_dims=(0,))
+    on_cpu = dict(lanes, device="cpu")
+    return cfg["prior_pars"], {
+        "basic": lambda p, v, **kw: fk.basic_fused_batch(
+            **on_cpu, prior_pars=p, **basic, **kw),
+        "basic_grad": lambda p, v, **kw: fk.basic_fused_batch_grad(
+            **on_cpu, prior_pars=p, **basic, **kw),
+        "solve_grad": lambda p, v, **kw: fk.solve_mv_fused_batch_grad(
+            **on_cpu, prior_pars=p, **kw),
+        "fenrir": lambda p, v, **kw: ff.fenrir_fused_batch(
+            **on_cpu, prior_pars=p, **gauss, obs_var=v, **kw),
+        "fenrir_grad": lambda p, v, **kw: ff.fenrir_fused_batch_grad(
+            **on_cpu, prior_pars=p, **gauss, obs_var=v, **kw),
+        "dalton": lambda p, v, **kw: fd.dalton_fused_batch(
+            **on_cpu, prior_pars=p, **gauss, obs_var=v, **kw),
+        "dalton_grad": lambda p, v, **kw: fd.dalton_fused_batch_grad(
+            **on_cpu, prior_pars=p, **gauss, obs_var=v, **kw),
+        "sim": lambda p, v, **kw: fs.solve_sim_fused_batch(
+            **on_cpu, prior_pars=p, **eps, **kw),
+        "daltonng": lambda p, v, **kw: fdn.daltonng_fused_batch(
+            **on_cpu, prior_pars=p, **ng, **kw),
+        "daltonng_grad": lambda p, v, **kw: fdn.daltonng_fused_batch_grad(
+            **on_cpu, prior_pars=p, **ng, **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["basic", "basic_grad", "solve_grad",
+                                   "fenrir", "fenrir_grad", "dalton",
+                                   "dalton_grad", "sim", "daltonng",
+                                   "daltonng_grad"])
+def test_sqrt_form_is_the_standard_form_on_squared_variances(entry):
+    """Every batched likelihood, gradient and draw entry in the square-root
+    form (the prior's variance, and fenrir's and DALTON's observation
+    variance, given as factors) returns the standard form's values on the
+    squared factors bitwise: the factors are squared once at entry, and the
+    same operations run (the draws from the same normals).  Non-Gaussian
+    DALTON's observation model keeps its own variance in both forms."""
+    (w, v), calls = _sqrt_entry_calls()
+    factor = _factor(v)
+    om_factor = torch.full((5, 3, 1, 1), 0.1)
+    sq = calls[entry]((w, factor), om_factor, kalman_type="sqrt")
+    std = calls[entry](fk.normalize_prior_pars("sqrt", (w, factor)),
+                       fk.normalize_meas_var("sqrt", om_factor))
+    sq, std = (o if isinstance(o, tuple) else (o,) for o in (sq, std))
+    assert len(sq) == len(std)
+    for a, b in zip(sq, std):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+

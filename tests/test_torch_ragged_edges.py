@@ -35,7 +35,12 @@ streams backward through the same ring, the last step's stage first, so
 per block of its solve through n_group groups of k_group steps, storing
 each group's entry state; ``_mean_boundary_plain`` is held to
 ``_mean_boundary_kernel`` at 1, 2 and 3 groups of 1, 5 and 64 steps,
-Lorenz63 EK1 and FitzHugh-Nagumo EK0 (3 and 2 blocks).  K4 streams
+Lorenz63 EK1 and FitzHugh-Nagumo EK0 (3 and 2 blocks).  K5c runs a
+thread per (group, block), 8 groups a warp, and K5a a thread per block fed
+through a ring of stages; ``_mean_recovery_plain`` is held to
+``_mean_recovery_kernel`` at 1 and 3 groups of 1, 5 and 64 steps, and
+``_mean_gain_plain`` to ``_mean_gain_kernel`` at 1, 2, 5, 64 and 129
+steps, on both models.  K4 streams
 slabs of 16 rows of the single layout (T, NB, D) through the same ring, the
 top stage holding the rows left over, in CTAs of 5 blocks, each block's row
 spread over 6 lanes; ``_smoother_single_plain`` is held to
@@ -450,6 +455,84 @@ def test_mean_boundary_twin_matches_pallas_at_group_shapes(model, mode, dt,
                                    k_star, k_group)
     assert port.shape == ref.shape == (n_group, n_block, q)
     assert torch.isfinite(port).all() and torch.equal(port[0], m0)
+    assert _scaled_err(port, ref) <= SCALED_TOL
+
+
+@pytest.mark.parametrize("k_group", [1, 5, 64])
+@pytest.mark.parametrize("n_group", [1, 3])
+@pytest.mark.parametrize("model,mode,dt", [("lorenz", "kramer", 0.01),
+                                           ("fitzhugh", "rodeo", 0.05)])
+def test_mean_recovery_twin_matches_pallas_at_group_shapes(model, mode, dt,
+                                                           n_group, k_group):
+    """K5c's twin against the Pallas recovery kernel (the groups on its
+    lanes) on n_group groups of k_group steps of the stationary path's
+    tail from K5b's twin's entry states, Lorenz63 EK1 (3 blocks) and
+    FitzHugh-Nagumo EK0 (2): every mean within SCALED_TOL, transposed from
+    the TPU's (k, q, NB, G) layout."""
+    fused, ops, m0, k_star, tail = _mean_chain_operands(model, mode, dt)
+    tgrid = tail[:n_group * k_group]
+    n_block, q = m0.shape
+    chain = (fused, ops["q_const"], ops["ode_weight"], ops["t_vec"])
+    bnd = fk._mean_boundary_plain(*chain, m0, ops["theta"], tgrid, k_star,
+                                  k_group)
+    th = ops["theta"][:, None].numpy()
+    ref = pl.pallas_call(
+        functools.partial(pk._mean_recovery_kernel,
+                          getattr(JMODELS[model], f"{model}_flat"), k_group,
+                          q, n_block, n_group, ops["q_const"]),
+        out_shape=jax.ShapeDtypeStruct((k_group, q, n_block, n_group),
+                                       jnp.float32),
+        grid=(1,),
+        in_specs=[_vmem((n_block, q)), _vmem((n_block, q)),
+                  _vmem((q, n_block, n_group)), _vmem(th.shape),
+                  _vmem((k_group, 1, n_group)), _vmem((1, q))],
+        out_specs=_vmem((k_group, q, n_block, n_group)),
+        interpret=True,
+    )(_f32(ops["ode_weight"]), _f32(k_star), _f32(bnd.permute(2, 1, 0)), th,
+      _f32(tgrid.reshape(n_group, k_group).T)[:, None, :],
+      _f32(ops["t_vec"])[None])
+    ref = np.transpose(np.asarray(ref), (3, 0, 2, 1)).reshape(
+        n_group * k_group, n_block, q)
+    port = fk._mean_recovery_plain(*chain, bnd, ops["theta"], tgrid, k_star)
+    assert port.shape == ref.shape and torch.isfinite(port).all()
+    assert _scaled_err(port, ref) <= SCALED_TOL
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 64, 129])
+@pytest.mark.parametrize("model,mode,dt", [("lorenz", "kramer", 0.01),
+                                           ("fitzhugh", "rodeo", 0.05)])
+def test_mean_gain_twin_matches_pallas_at_ragged_steps(model, mode, dt,
+                                                       n_steps):
+    """K5a's twin against the Pallas gain-chain kernel (one grid step of
+    n_steps) on the stationary path's tail from the prefix's end, with a
+    gain row per step (the frozen gain, each step's scaled by a seeded 1
+    %), Lorenz63 EK1 and FitzHugh-Nagumo EK0: every mean within
+    SCALED_TOL."""
+    fused, ops, m0, k_star, tail = _mean_chain_operands(model, mode, dt)
+    tgrid = tail[:n_steps]
+    n_block, q = m0.shape
+    rng = np.random.default_rng(n_steps)
+    gains = k_star * (1 + 0.01 * torch.tensor(
+        rng.standard_normal((n_steps, 1, 1)), dtype=torch.float32))
+    th = ops["theta"][:, None].numpy()
+    ref = pl.pallas_call(
+        functools.partial(pk._mean_gain_kernel,
+                          getattr(JMODELS[model], f"{model}_flat"), n_steps,
+                          q, n_block, ops["q_const"], False),
+        out_shape=jax.ShapeDtypeStruct((n_steps, n_block, q), jnp.float32),
+        grid=(1,),
+        in_specs=[_vmem((n_block, q)), _vmem((n_steps, n_block, q)),
+                  _vmem((n_block, q)), _vmem(th.shape),
+                  _vmem((n_steps, 1)), _vmem((1, q))],
+        out_specs=_vmem((n_steps, n_block, q)),
+        scratch_shapes=[pltpu.VMEM((n_block, q), jnp.float32)],
+        interpret=True,
+    )(_f32(ops["ode_weight"]), _f32(gains), _f32(m0), th,
+      _f32(tgrid)[:, None], _f32(ops["t_vec"])[None])
+    port = fk._mean_gain_plain(fused, ops["q_const"], ops["ode_weight"],
+                               ops["t_vec"], m0, ops["theta"], tgrid, gains)
+    assert port.shape == ref.shape == (n_steps, n_block, q)
+    assert torch.isfinite(port).all()
     assert _scaled_err(port, ref) <= SCALED_TOL
 
 

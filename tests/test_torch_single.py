@@ -338,7 +338,7 @@ def test_fenrir_backward_single_twin_matches_pallas():
 
 @pytest.mark.parametrize("override", [
     {"interrogation": "schober"}, {"interrogation": "chkrebtii"},
-    {"kalman_type": "sqrt"}, {"model": "hes1"}])
+    {"model": "hes1"}])
 @pytest.mark.parametrize("entry", ["solve_mv_fused", "fenrir_fused"])
 def test_single_entries_raise_for_unported(entry, override):
     cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
@@ -350,6 +350,84 @@ def test_single_entries_raise_for_unported(entry, override):
                      _fenrir_obs("lorenz", 0.1, 3, seed=0).items()})
     with pytest.raises(NotImplementedError):
         getattr(rt, entry)(**{**args, **override})
+
+
+# --- the square-root form of the single entries -------------------------------------
+#
+# The prior's variance (and fenrir's observation variance) given as a factor
+# is squared once at entry; solve_mv_fused returns lower Cholesky factors of
+# its covariances, which square back to the standard form's within
+# SQRT_GRAM_TOL of the largest entry (1.4e-7 measured in float32).
+SQRT_GRAM_TOL = 1e-5
+
+
+def _factor(v):
+    """A float32 lower factor of each (q, q) covariance, from float64."""
+    return np.linalg.cholesky(np.asarray(v, np.float64)).astype(np.float32)
+
+
+@pytest.mark.parametrize("model,mode,n_steps,t_max", [
+    ("lorenz", "kramer", 200, 2.0), ("fitzhugh", "rodeo", 200, 10.0)])
+def test_solve_mv_fused_sqrt_matches_the_jax_package(model, mode, n_steps,
+                                                     t_max):
+    """solve_mv_fused(kalman_type="sqrt") on the CPU: the standard form's
+    means on the squared factor, bitwise, and lower factors whose Grams are
+    its covariances within SQRT_GRAM_TOL; against the JAX package's
+    square-root solve on the same float32 factor (Pallas in interpret
+    mode), means and Grams within SCALED_TOL."""
+    jcfg, tcfg, theta = _problem(model, n_steps, t_max, seed=3)
+    jmod = JMODELS[model]
+    w, v = (np.array(a, np.float32) for a in jcfg.pop("prior_pars"))
+    factor = _factor(v)
+    fn = jax.jit(lambda th: pk.solve_mv_fused(
+        key=None, theta=th, ode_flat=getattr(jmod, f"{model}_flat"),
+        jac_flat=getattr(jmod, f"{model}_jac_flat"), interrogation=mode,
+        kalman_type="square-root",
+        prior_pars=(jnp.asarray(w), jnp.asarray(factor)), **jcfg))
+    mean_j, fac_j = fn(jnp.asarray(theta))
+    args = (torch.from_numpy(theta), tcfg["ode_weight"], tcfg["ode_init"],
+            0.0, t_max, n_steps)
+    pars_q = (torch.from_numpy(w), torch.from_numpy(factor))
+    _reset_launches()
+    mean_q, fac_q = fk.solve_mv_fused(*args, pars_q, model=model,
+                                      interrogation=mode, kalman_type="sqrt",
+                                      device="cpu")
+    mean_s, var_s = fk.solve_mv_fused(
+        *args, fk.normalize_prior_pars("sqrt", pars_q), model=model,
+        interrogation=mode, device="cpu")
+    assert _no_launches()
+    assert torch.equal(mean_q, mean_s)
+    assert fac_q.shape == var_s.shape == fac_j.shape
+    assert torch.equal(fac_q.triu(1), torch.zeros_like(fac_q))
+    gram = fac_q @ fac_q.mT
+    assert (gram - var_s).abs().max() <= SQRT_GRAM_TOL * var_s.abs().max()
+    gram_j = np.asarray(fac_j @ jnp.swapaxes(fac_j, -1, -2))
+    for d in range(3):
+        assert _scaled_err(mean_q[..., d], mean_j[..., d]) <= SCALED_TOL, d
+        assert _scaled_err(gram[..., d, :], gram_j[..., d, :]) \
+            <= SCALED_TOL, d
+
+
+def test_fenrir_fused_sqrt_is_the_standard_form():
+    """fenrir_fused with the prior's and the observations' variances given
+    as factors is the standard form's value on the squared factors,
+    bitwise."""
+    _, tcfg, theta = _problem("lorenz", 200, 2.0, seed=4)
+    obs = {k: torch.from_numpy(np.asarray(v)) for k, v in
+           _fenrir_obs("lorenz", 2.0, 21, seed=5).items()}
+    w, v = tcfg["prior_pars"]
+    pars_q = (w, torch.from_numpy(_factor(v)))
+    om_q = obs.pop("obs_var").sqrt()
+    args = dict(ode_weight=tcfg["ode_weight"], ode_init=tcfg["ode_init"],
+                t_min=0.0, t_max=2.0, n_steps=200, model="lorenz",
+                device="cpu", **obs)
+    ll_q = ff.fenrir_fused(torch.from_numpy(theta), prior_pars=pars_q,
+                           obs_var=om_q, kalman_type="sqrt", **args)
+    ll_s = ff.fenrir_fused(torch.from_numpy(theta),
+                           prior_pars=fk.normalize_prior_pars("sqrt", pars_q),
+                           obs_var=fk.normalize_meas_var("sqrt", om_q),
+                           **args)
+    assert torch.isfinite(ll_q) and torch.equal(ll_q, ll_s)
 
 
 # --- K2r: the rows-emitting batch smoother -----------------------------------------------

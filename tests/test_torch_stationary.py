@@ -282,13 +282,92 @@ def test_the_schedule_at_the_solve_length():
 
 
 @pytest.mark.parametrize("kwargs", [{"interrogation": "schober"},
-                                    {"interrogation": "chkrebtii"},
-                                    {"kalman_type": "sqrt"}])
+                                    {"interrogation": "chkrebtii"}])
 def test_stationary_raises_where_the_jax_package_does(kwargs):
     """schober and chkrebtii have no time-constant measurement row (the JAX
-    package's reason); the square-root form is not ported to any fused
-    entry yet."""
+    package's reason)."""
     _, tcfg, theta = _problem("lorenz", 8, 0.08, seed=8)
     with pytest.raises(NotImplementedError):
         rt.solve_mv_fused_stationary(*_port_args(tcfg, theta, 0.08, 8),
                                      model="lorenz", device="cpu", **kwargs)
+
+
+def _jax_stationary(jcfg, model, mode, theta, **kw):
+    """The JAX package's stationary solve of one configuration (Pallas in
+    interpret mode under jax.jit)."""
+    jmod = JMODELS[model]
+    jac = getattr(jmod, f"{model}_jac_flat") if mode == "kramer" else None
+    fn = jax.jit(lambda th: pk.solve_mv_fused_stationary(
+        key=None, theta=th, ode_flat=getattr(jmod, f"{model}_flat"),
+        jac_flat=jac, interrogation=mode, **{**jcfg, **kw}))
+    return tuple(np.asarray(a) for a in fn(jnp.asarray(theta)))
+
+
+# The square-root form's factors square back to the standard form's
+# covariances within SQRT_GRAM_TOL of the largest entry (float32).
+SQRT_GRAM_TOL = 1e-5
+
+
+def test_stationary_sqrt_matches_the_jax_package(twin_calls):
+    """solve_mv_fused_stationary(kalman_type="sqrt"), Lorenz63 EK1 at N =
+    200 (two-phase): the standard form's means on the squared factor,
+    bitwise, and the lower factors of its dense covariances (chol_small),
+    whose Grams are those covariances within SQRT_GRAM_TOL; against the
+    JAX package's square-root stationary solve on the same float32 factor,
+    means and Grams within SCALED_TOL."""
+    jcfg, tcfg, theta = _problem("lorenz", 200, 2.0, seed=3)
+    w, v = (np.array(a, np.float32) for a in jcfg.pop("prior_pars"))
+    factor = np.linalg.cholesky(v.astype(np.float64)).astype(np.float32)
+    mean_j, fac_j = _jax_stationary(
+        jcfg, "lorenz", "kramer", theta, kalman_type="square-root",
+        prior_pars=(jnp.asarray(w), jnp.asarray(factor)))
+    args = _port_args(tcfg, theta, 2.0, 200)[:-1]
+    pars_q = (torch.from_numpy(w), torch.from_numpy(factor))
+    mean_q, fac_q = rt.solve_mv_fused_stationary(
+        *args, pars_q, model="lorenz", kalman_type="sqrt", device="cpu")
+    mean_s, var_s = rt.solve_mv_fused_stationary(
+        *args, fk.normalize_prior_pars("sqrt", pars_q), model="lorenz",
+        device="cpu")
+    assert twin_calls["_mean_boundary_plain"] == 2
+    assert torch.equal(mean_q, mean_s)
+    assert fac_q.shape == var_s.shape == fac_j.shape
+    assert torch.equal(fac_q.triu(1), torch.zeros_like(fac_q))
+    gram = fac_q @ fac_q.mT
+    assert (gram - var_s).abs().max() <= SQRT_GRAM_TOL * var_s.abs().max()
+    gram_j = fac_j @ np.swapaxes(fac_j, -1, -2)
+    for d in range(3):
+        assert _scaled_err(mean_q[..., d], mean_j[..., d]) <= SCALED_TOL, d
+        assert _scaled_err(gram[..., d, :], gram_j[..., d, :]) \
+            <= SCALED_TOL, d
+
+
+@pytest.mark.parametrize("model,mode,t_max", [("lorenz", "kramer", 2.56),
+                                              ("fitzhugh", "rodeo", 12.8)])
+def test_stationary_non_ibm_prior_matches_the_jax_package(twin_calls, model,
+                                                          mode, t_max):
+    """A block-constant prior that is not IBM (IBM's weight with its last
+    diagonal entry x 0.9 in every block: a scaled transition that is not
+    unit upper-triangular), 256 steps: a 64-step prefix and three 64-step
+    tail groups through the twins of K5b and K5c, against the JAX package's
+    stationary solve on the same prior, within SCALED_TOL."""
+    jcfg, tcfg, theta = _problem(model, 256, t_max, seed=9)
+    w_j, v_j = jcfg.pop("prior_pars")
+    w_j = np.array(w_j, np.float32)
+    w_j[:, 2, 2] *= np.float32(0.9)
+    mean_j, var_j = _jax_stationary(jcfg, model, mode, theta,
+                                    prior_pars=(jnp.asarray(w_j), v_j))
+    w, v = tcfg["prior_pars"]
+    assert np.array_equal(w.numpy()[:, 2, 2] * np.float32(0.9),
+                          w_j[:, 2, 2])
+    assert fk._stationary_schedule(256, 64, True) == (64, 3)
+    mean_t, var_t = rt.solve_mv_fused_stationary(
+        *_port_args(tcfg, theta, t_max, 256)[:-1], (torch.from_numpy(w_j), v),
+        model=model, interrogation=mode, device="cpu")
+    assert twin_calls == {"_mean_gain_plain": 0, "_mean_boundary_plain": 1,
+                          "_mean_recovery_plain": 1}
+    assert torch.isfinite(mean_t).all() and torch.isfinite(var_t).all()
+    for d in range(3):
+        assert _scaled_err(mean_t[..., d], mean_j[..., d]) <= SCALED_TOL, d
+        assert _scaled_err(var_t[..., d, :], var_j[..., d, :]) \
+            <= SCALED_TOL, d
+

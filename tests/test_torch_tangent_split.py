@@ -244,9 +244,11 @@ def test_fenrir_single_twin_skip_is_the_full_update(model, with_obs):
     (lambda **kw: fm._magi_batch_geometry(3, 37, 2, "adjoint", **kw),
      False),
     (lambda **kw: fm._magi_adjoint_batch_geometry(3, 37, 2, **kw), False),
-    (lambda **kw: fk._mean_boundary_geometry("fitzhugh", **kw), False)],
+    (lambda **kw: fk._mean_boundary_geometry("fitzhugh", **kw), False),
+    (lambda **kw: fk._mean_gain_geometry("lorenz", **kw), False),
+    (lambda **kw: fk._mean_recovery_geometry("lorenz", 155, **kw), False)],
     ids=["K1", "K8", "K11a", "K11c", "K11d", "K9", "K6", "K3", "K2r", "K4",
-         "K11b", "K7b", "K7a", "K10a", "K10b", "K5b"])
+         "K11b", "K7b", "K7a", "K10a", "K10b", "K5b", "K5a", "K5c"])
 def test_launch_geometry_is_the_cards(query, takes_mode):
     """The kernels' launch geometry comes from the card's report of the
     kernel: on the CPU the query raises, as it does for a mode the filters

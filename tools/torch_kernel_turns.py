@@ -38,13 +38,14 @@ fixture, the cached Lorenz63 path plus 1e-4 x lane, 4000 steps x 2048
 lanes, n_active 2, and K10b on K10a's adjoint streams there
 (``magi_kernels``); K5b and K5c on the 10 000-step stationary solve's
 9920-step tail after its 80-step K3 prefix, and K5a on its 150-step
-horizon (``stationary_kernels``).  Each kernel is timed in three rounds of this
+horizon (``stationary_kernels``) and over all 10 000 steps (the
+``two_phase=False`` schedule).  Each kernel is timed in three rounds of this
 checkout's library, then each other's, each time the median device time
 of 5 launches by CUDA events (a sleep holds the stream while the host
 enqueues the wrapper), and every library's output must agree bitwise with
 this checkout's.  Prints the card's name and power limit, ptxas' report of
 the timed kernels in every library, the SASS instructions of K3's, K4's and
-K5b's step loops in every library (``cuobjdump``, where the toolkit has it), and
+K5a-c's step loops in every library (``cuobjdump``, where the toolkit has it), and
 one JSON line per kernel and shape, also written to ``--out`` (default
 build/kernel_turns.jsonl).  Exits non-zero without a CUDA device, or if
 two outputs differ.
@@ -80,7 +81,8 @@ KERNELS = {"filter_batch": "19filter_batch_kernel",
            "mean_boundary_single": "20mean_boundary_kernel",
            "mean_recovery_single": "20mean_recovery_kernel"}
 # the kernels whose step loop is printed
-SASS_KERNELS = ("filter_single", "smoother_single", "mean_boundary_single")
+SASS_KERNELS = ("filter_single", "smoother_single", "mean_gain_single",
+                "mean_boundary_single", "mean_recovery_single")
 
 
 def main():
@@ -463,10 +465,18 @@ def main():
                       shape=f"{bnd.shape[0]} groups of 64")]
 
     def time_mean_gain():
-        """K5a on the 150-step horizon at the 10 000-step solve's step."""
-        args, _ = mean_chain_operands(150, 0.3)
-        return [turns("mean_gain_single", lambda: fk.mean_gain_chain(*args),
-                      operand_bytes(args) + 4 * 150 * 9, shape="150 steps")]
+        """K5a on the 150-step horizon at the 10 000-step solve's step, and
+        over the whole 10 000-step solve."""
+        lines = []
+        for n_s, t_max in ((150, 0.3), (10000, 20.0)):
+            args, _ = mean_chain_operands(n_s, t_max)
+            lines.append(turns("mean_gain_single",
+                               lambda: fk.mean_gain_chain(*args),
+                               operand_bytes(args) + 4 * n_s * 9,
+                               shape=f"{n_s} steps"))
+            lines[-1]["us_per_step"] = {
+                w: 1e3 * t / n_s for w, t in lines[-1]["median_ms"].items()}
+        return lines
 
     timed = {"filter_batch": time_filter_batch,
              "smoother_batch_rows": time_rows,
