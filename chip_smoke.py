@@ -178,6 +178,23 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              kernels of
              the two calls (K2r, K1, K11a, K11e) timed there, for the time
              each call spends outside its kernels;
+23. torch_op the port's torch-op surface in float64 on the card, each call
+             on CUDA tensors and returning CUDA tensors: ops.precond.fenrir,
+             dalton and basic on the likelihood fixture, with their
+             torch.autograd gradients in theta, and basic on the
+             FitzHugh-Nagumo control (800 steps), against the cached float64
+             truth within TORCH_OP_TOL (tools/torch_op_reference.py runs the
+             same calls); lane 0 of the likelihood phase's fenrir, DALTON
+             and basic against these float64 values by the likelihood rule;
+             ops.precond.solve_sim on Lorenz63 at 10 000 steps, three draws
+             with each method, each finite and starting exactly at x0, and
+             SIM_F64_DRAWS eigh draws on FitzHugh-Nagumo at 800 steps, all
+             against the float64 posterior of ops.precond.solve_mv (the mean
+             of (x - mu)^2 / sigma^2 within SIM_F64_STAT_LORENZ and
+             SIM_F64_STAT; Lorenz63's posterior mean held to the cached one
+             over t <= 4 by the solve audit's rule); each call's time
+             (the median by CUDA events and by the wall clock) and peak
+             memory, and the phase's seconds;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
@@ -279,6 +296,36 @@ DALTONNG_FITZ_LANES = (1.0, 1.05, 0.95, 1.1)
 DALTONNG_FITZ_VAR = 0.04
 DALTONNG_FITZ_VALUE_TOL = 5.3e-2
 DALTONNG_FITZ_TOL = 8.7e-3
+# The torch_op phase: the port's float64 torch-ops on the card against the
+# cached float64 truth, relative error of each value and relative L2 error
+# of each gradient.  Each limit is 10 x the same error of the port on the
+# CPU in float64 (tools/torch_op_reference.py), and at least 1e-10.
+TORCH_OP_TOL = {
+    "fenrir": {"value": 1e-10, "grad": 8.1e-7},
+    "dalton": {"value": 1e-10, "grad": 1.2e-7},
+    "basic": {"value": 1.9e-8, "grad": 1.2e-6},
+    "basic_fitz": {"value": 1e-10},
+}
+# Calls of each float64 likelihood in the torch_op phase, timed and held
+# bitwise alike: two, not three, because its host-bound Python loops take
+# 20-41 s a call where the host is slow (with three the script's total
+# reached 1137 s on an NVIDIA H100 80GB HBM3 at 700 W whose host ran the
+# earlier phases 1.4 x slower than another's).
+TORCH_OP_CALLS = 2
+# The torch_op phase's draws against the float64 posterior of
+# ops.precond.solve_mv: the mean of (x - mu)^2 / sigma^2 over the draws and
+# the entries whose posterior variance exceeds SIM_VAR_MIN, 1 in
+# expectation.  SIM_F64_DRAWS draws on FitzHugh-Nagumo lie within
+# SIM_F64_STAT.  The three draws of each method on Lorenz63 (90 000 live
+# entries each) lie within SIM_F64_STAT_LORENZ: 1 +- 5 standard errors of
+# a three-draw mean, from the spread of one draw's statistic over 12 draws
+# (standard deviation 0.0948; tools/torch_op_costs.py --parts spread on the
+# CPU), so that variances off by 1.5 x in either direction fail.  A draw is
+# not held to the cached mean: over t <= 4 a Lorenz63 draw lies ~10-19 from
+# its posterior mean (the phase records it as max_abs_dev_t4).
+SIM_F64_DRAWS = 8
+SIM_F64_STAT = (0.5, 2.0)
+SIM_F64_STAT_LORENZ = (0.73, 1.27)
 # Clock cycles of the sleep that holds the stream while the host enqueues a
 # timed kernel (device_ms): ~10 ms at the H100's clocks, longer than any
 # wrapper's host work.
@@ -1147,6 +1194,8 @@ def main():
             expect(filter_batch=1, smoother_batch_rows=1)),
     }
     path_launches = {}
+    # lane 0 of each likelihood, for the torch_op phase's float64 check
+    fused_lane0 = {}
     # K8's launches on each path by with_obs, set to 0 with the other counts
     k8_by_obs = {}
     for name, (call, expected) in paths.items():
@@ -1170,6 +1219,7 @@ def main():
         ref = float(truth[f"{name}_ll"])
         control = abs(float(truth[f"{name}_ll_f32cpu"]) - ref)
         lane0 = float(ll[0])
+        fused_lane0[name] = lane0
         err = abs(lane0 - ref)
         tol = max(3 * control, LL_REL_FLOOR * abs(ref))
         audit_ok = check("likelihood", f"{name} audit", err <= tol)
@@ -2674,6 +2724,171 @@ def main():
                    "rest_ms": grad_ng_ms - grad_kernels_ms
                    if b_grad == b_ng else None}})
     del ops_ng, grid_ng, nn_cpu
+
+    # ---- 23. the torch-op surface in float64 ---------------------------
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_op_reference
+
+    def on_card(*outs):
+        return all(o.is_cuda for o in outs if isinstance(o, torch.Tensor))
+
+    def timed_calls(call, n):
+        """n calls of call(): their outputs, the median milliseconds by CUDA
+        events and by the wall clock, and the peak memory."""
+        outs, event_ms, wall_ms = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            outs.append(call())
+            end.record()
+            end.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t0))
+            event_ms.append(start.elapsed_time(end))
+        return (outs, statistics.median(event_ms), statistics.median(wall_ms),
+                torch.cuda.max_memory_allocated())
+
+    # the float64 likelihoods and their gradients against the cache, each
+    # called twice (TORCH_OP_CALLS)
+    f64_ll = {}
+    for name, call in torch_op_reference.likelihood_calls(dev).items():
+        outs, event_ms, wall_ms, peak = timed_calls(call, TORCH_OP_CALLS)
+        value, grad = outs[0]
+        cuda_ok = check("torch_op", f"{name} on the card",
+                        all(on_card(*o) for o in outs))
+        same = all(torch.equal(o[0], value) for o in outs)
+        errs = torch_op_reference.errors(name, value, grad, truth)
+        tol = TORCH_OP_TOL[name]
+        value_ok = check("torch_op", f"{name} value",
+                         errs["value_rel_err"] <= tol["value"])
+        grad_ok = (grad is None
+                   or check("torch_op", f"{name} gradient",
+                            errs["grad_rel_err"] <= tol["grad"]))
+        f64_ll[name] = float(value)
+        emit({"phase": "torch_op", "call": f"ops.precond.{name.split('_')[0]}"
+              + (" + torch.autograd" if grad is not None else ""),
+              "likelihood": name, "dtype": "float64", "on_card": cuda_ok,
+              "calls_agree": same, **errs, "tol": tol,
+              "value_ok": value_ok, "grad_ok": grad_ok,
+              "call_ms_events": event_ms, "call_ms_wall": wall_ms,
+              "peak_mem_bytes": peak})
+        del outs, value, grad
+
+    # lane 0 of the fused likelihoods against the port's float64 value, by
+    # the likelihood rule
+    for name in ("fenrir", "dalton", "basic"):
+        ref = f64_ll[name]
+        control = abs(float(truth[f"{name}_ll_f32cpu"])
+                      - float(truth[f"{name}_ll"]))
+        err = abs(fused_lane0[name] - ref)
+        tol = max(3 * control, LL_REL_FLOOR * abs(ref))
+        ok = check("torch_op", f"{name}_fused_batch against float64",
+                   err <= tol)
+        emit({"phase": "torch_op", "fused": f"{name}_fused_batch",
+              "lane0": fused_lane0[name], "torch_op_f64": ref,
+              "abs_err": err, "tol": tol, "control_f32cpu": control,
+              "ok": ok, "cache_ll": float(truth[f"{name}_ll"]),
+              "abs_err_against_cache": abs(fused_lane0[name]
+                                           - float(truth[f"{name}_ll"]))})
+
+    def draw_statistic(draws, mu, var):
+        """The mean of (x - mu)^2 / sigma^2 over the draws and the entries
+        whose posterior variance exceeds SIM_VAR_MIN: 1 in expectation."""
+        var_d = torch.diagonal(var, dim1=-2, dim2=-1)
+        live = var_d > SIM_VAR_MIN
+        z2 = (draws - mu) ** 2 / torch.where(live, var_d,
+                                             torch.ones_like(var_d))
+        return float(z2[..., live].mean()), int(live.sum())
+
+    def sim_posterior(mod, n_steps, t_max):
+        """A float64 configuration on the card and its posterior by
+        ops.precond.solve_mv."""
+        cfg64 = mod.setup(n_steps=n_steps, t_max=t_max, dtype=torch.float64,
+                          device=dev)
+        th64 = cfg64.pop("theta")
+        with torch.no_grad():
+            mu, var = tprecond.solve_mv(key=None,
+                                        interrogate=interrogate_kramer,
+                                        theta=th64, **cfg64)
+        return cfg64, th64, mu, var
+
+    # solve_sim on Lorenz63 at 10 000 steps: the float64 posterior (its
+    # t <= 4 prefix held to the cached mean by the solve audit's rule), and
+    # three draws by each method against it
+    cfg_sim, th_sim, mu_sim, var_sim = sim_posterior(lorenz, 10000, 20.0)
+    n_prefix = 10000 // 5
+    control = max_err_prefix(truth["solve_mu_10k_f32cpu"],
+                             truth["solve_mu_10k"], n_prefix)
+    tol = max(3 * control, AUDIT_FLOOR)
+    err = max_err_prefix(mu_sim.cpu().numpy(), truth["solve_mu_10k"],
+                         n_prefix)
+    mean_ok = check("torch_op", "solve_mv float64 audit",
+                    err <= tol and on_card(mu_sim, var_sim))
+    emit({"phase": "torch_op", "call": "ops.precond.solve_mv",
+          "model": "lorenz", "n_steps": 10000, "dtype": "float64",
+          "audit_max_abs_err_t4": err, "audit_tol": tol, "ok": mean_ok})
+    for method, seed in (("svd", 11), ("eigh", 12)):
+        gen = torch.Generator(dev).manual_seed(seed)
+        with torch.no_grad():
+            outs, event_ms, wall_ms, peak = timed_calls(
+                lambda: tprecond.solve_sim(
+                    key=gen, interrogate=interrogate_kramer, theta=th_sim,
+                    method=method, **cfg_sim), 3)
+        cuda_ok = check("torch_op", f"solve_sim {method} on the card",
+                        on_card(*outs))
+        finite = check("torch_op", f"solve_sim {method} finite",
+                       all(torch.isfinite(x).all().item()
+                           and tuple(x.shape) == (10001, 3, 3)
+                           for x in outs))
+        starts = check("torch_op", f"solve_sim {method} starts at x0",
+                       all(torch.equal(x[0], cfg_sim["ode_init"])
+                           for x in outs))
+        stat, n_live = draw_statistic(torch.stack(outs), mu_sim, var_sim)
+        stat_ok = check("torch_op", f"solve_sim {method} statistic",
+                        SIM_F64_STAT_LORENZ[0] <= stat
+                        <= SIM_F64_STAT_LORENZ[1])
+        emit({"phase": "torch_op", "call": "ops.precond.solve_sim",
+              "method": method, "model": "lorenz", "n_steps": 10000,
+              "dtype": "float64", "n_draws": len(outs), "on_card": cuda_ok,
+              "finite": finite, "starts_at_x0": starts,
+              "n_live_entries": n_live, "mean_sq_z": stat,
+              "range": SIM_F64_STAT_LORENZ, "ok": stat_ok,
+              "max_abs_dev_t4": [max_err_prefix(x.cpu().numpy(),
+                                                mu_sim.cpu().numpy(),
+                                                n_prefix) for x in outs],
+              "call_ms_events": event_ms, "call_ms_wall": wall_ms,
+              "peak_mem_bytes": peak})
+        del outs
+    del mu_sim, var_sim
+
+    # FitzHugh-Nagumo at 800 steps: SIM_F64_DRAWS eigh draws from one
+    # generator against the float64 posterior
+    cfg_fh64, th_fh64, mu_fh, var_fh = sim_posterior(fitzhugh, 800, 10.0)
+    gen = torch.Generator(dev).manual_seed(13)
+    with torch.no_grad():
+        outs, event_ms, wall_ms, peak = timed_calls(
+            lambda: tprecond.solve_sim(
+                key=gen, interrogate=interrogate_kramer, theta=th_fh64,
+                method="eigh", **cfg_fh64), SIM_F64_DRAWS)
+    draws = torch.stack(outs)
+    stat, n_live = draw_statistic(draws, mu_fh, var_fh)
+    cuda_ok = check("torch_op", "FitzHugh-Nagumo draws on the card",
+                    on_card(mu_fh, var_fh, *outs))
+    stat_ok = check("torch_op", "FitzHugh-Nagumo draws' statistic",
+                    SIM_F64_STAT[0] <= stat <= SIM_F64_STAT[1]
+                    and torch.isfinite(draws).all().item())
+    emit({"phase": "torch_op", "call": "ops.precond.solve_sim",
+          "method": "eigh", "model": "fitzhugh", "n_steps": 800,
+          "dtype": "float64", "n_draws": SIM_F64_DRAWS, "on_card": cuda_ok,
+          "n_live_entries": n_live, "mean_sq_z": stat,
+          "range": SIM_F64_STAT, "ok": stat_ok, "call_ms_events": event_ms,
+          "call_ms_wall": wall_ms, "peak_mem_bytes": peak})
+    del outs, draws, mu_fh, var_fh
+    emit({"phase": "torch_op", "seconds": time.perf_counter() - t_phase})
 
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end

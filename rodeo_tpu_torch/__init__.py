@@ -8,13 +8,21 @@ itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 ``torch`` and never ``jax``.
 
 Ported so far (the ``solve_mv`` slice, the lane-batched inference
-path and its gradients, the single-solve fused path, MAGI and
-non-Gaussian DALTON):
+path and its gradients, the single-solve fused path, MAGI, non-Gaussian
+DALTON and the torch-op surface):
 
-- :func:`rodeo_tpu_torch.solve_mv`, :mod:`rodeo_tpu_torch.prior`,
-  :mod:`rodeo_tpu_torch.interrogate`, :mod:`rodeo_tpu_torch.kalmantv`
-  (standard form), :mod:`rodeo_tpu_torch.utils`;
-- :mod:`rodeo_tpu_torch.ops.precond` (Taylor preconditioning);
+- the torch-ops, plain PyTorch on the tensors' device and differentiable
+  by ``torch.autograd``: :func:`rodeo_tpu_torch.solve_mv` and
+  :func:`rodeo_tpu_torch.solve_sim`, the likelihoods
+  :func:`rodeo_tpu_torch.inference.basic`, :func:`~rodeo_tpu_torch.
+  inference.fenrir` and :func:`~rodeo_tpu_torch.inference.dalton` with
+  their data-conditioned posteriors, :mod:`rodeo_tpu_torch.prior`
+  (``indep_init`` included), :mod:`rodeo_tpu_torch.interrogate`,
+  :mod:`rodeo_tpu_torch.kalmantv` (standard form),
+  :mod:`rodeo_tpu_torch.utils`, and :mod:`rodeo_tpu_torch.ops.linalg`'s
+  fast-linalg switch and closed forms;
+- :mod:`rodeo_tpu_torch.ops.precond` (Taylor preconditioning), every
+  wrapper but ``solve_mv_iterated``;
 - :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`, the
   lane-batched solve carried by two hand-written CUDA kernels
   (``ops/csrc/filter_batch.cu``, ``ops/csrc/smoother_batch_rows.cu``);
@@ -73,9 +81,9 @@ from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  solve_mv_fused_batch_grad,
                                  solve_mv_fused_stationary,
                                  solve_sim_fused_batch)
-from rodeo_tpu_torch.solve import solve_mv
+from rodeo_tpu_torch.solve import solve_mv, solve_sim
 
-__all__ = ["inference", "interrogate", "prior", "solve_mv",
+__all__ = ["inference", "interrogate", "prior", "solve_mv", "solve_sim",
            "solve_mv_fused_batch", "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
            "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fenrir_fused_batch_grad",

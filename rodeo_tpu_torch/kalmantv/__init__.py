@@ -16,7 +16,8 @@ def get_backend(kalman_type):
         return standard
     if kalman_type == "square-root":
         raise NotImplementedError(
-            "kalman_type='square-root' is not ported to rodeo_tpu_torch yet")
+            "kalman_type='square-root' waits for the port of "
+            "kalmantv/square_root.py")
     raise NotImplementedError(
         f"unknown kalman_type {kalman_type!r}; expected 'standard' "
         "('square-root' is not ported yet)")

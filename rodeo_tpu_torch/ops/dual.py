@@ -21,7 +21,12 @@ The rules (value ``a``, tangent ``da``; ``q = a / b``):
 - ``a * b``: ``da * b + a * db``;
 - ``a / b``: ``(da - q * db) / b``;  ``c / b`` for a constant ``c``:
   ``-(q * db) / b``;
-- ``log a``: ``da / a``;  ``exp a``: ``da * exp(a)``.
+- ``log a``: ``da / a``;  ``exp a``: ``da * exp(a)``;
+- ``a ** p`` for a number ``p``: ``da * (p a^{p-1})``.
+
+``torch.cat`` and ``torch.stack`` of Duals and constants stack values and
+tangents alike, so a block-form ODE written with them runs on Duals too
+(:func:`rodeo_tpu_torch.interrogate.interrogate_kramer`'s forward mode).
 """
 import torch
 
@@ -94,6 +99,11 @@ class Dual:
         q = o / self.v
         return Dual(q, -(q * self.d) / self.v)
 
+    def __pow__(self, p):
+        if isinstance(p, (Dual, torch.Tensor)):
+            return NotImplemented
+        return Dual(self.v ** p, self.d * (p * self.v ** (p - 1)))
+
     def log(self):
         return Dual(torch.log(self.v), self.d / self.v)
 
@@ -106,6 +116,8 @@ class Dual:
         kwargs = kwargs or {}
         if func is torch.cat:
             return _cat(*args, **kwargs)
+        if func is torch.stack:
+            return _stack(*args, **kwargs)
         if func is torch.log:
             return args[0].log()
         if func in (torch.ones_like, torch.zeros_like):
@@ -123,6 +135,16 @@ class Dual:
 # reflected rule for each
 _REFLECTED = {"add": "__radd__", "sub": "__rsub__", "mul": "__rmul__",
               "div": "__rtruediv__"}
+
+
+def _stack(tensors, dim=0):
+    """``torch.stack`` of Duals and constants on a new value axis."""
+    n_dir = next(x.n_dir for x in tensors if isinstance(x, Dual))
+    vs = [primal(x) for x in tensors]
+    ds = [torch.broadcast_to(x.d, (n_dir,) + x.v.shape) if isinstance(x, Dual)
+          else x.new_zeros((n_dir,) + x.shape) for x in tensors]
+    return Dual(torch.stack(vs, dim), torch.stack(ds, dim + 1 if dim >= 0
+                                                  else dim))
 
 
 def _cat(tensors, dim=0):

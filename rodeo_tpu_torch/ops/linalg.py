@@ -1,10 +1,13 @@
 r"""
 Matmul precision guard (the port of
-:func:`rodeo_tpu.ops.linalg.full_matmul_precision`) and closed forms for
-tiny matrices: the inverse (:func:`inv_small`), the determinant
-(:func:`_det_small_normed`), the symmetric eigendecomposition
-(:func:`sym_eigh_small`) and the lower Cholesky factor
-(:func:`chol_small`).
+:func:`rodeo_tpu.ops.linalg.full_matmul_precision`), the fast-linalg switch
+(:func:`fast_linalg`) and closed forms for tiny matrices: the inverse
+(:func:`inv_small`), the determinant (:func:`_det_small_normed`), the
+solves (:func:`solve_small`, :func:`solve_psd`, :func:`tri_solve_small`),
+the log-density (:func:`mvn_logpdf_small`), the symmetric
+eigendecomposition (:func:`sym_eigh_small`), the lower Cholesky factor
+(:func:`chol_small`) and the gradient-safe eigen factor
+(:func:`psd_factor_eigh`).
 
 On a TPU the JAX package forces "highest" matmul precision because the
 default float32 ``dot_general`` runs bfloat16 passes, whose rounding the
@@ -12,14 +15,25 @@ chaotic Lorenz63 filter amplifies catastrophically.  The GPU's analogue is
 TF32: PyTorch may run float32 matrix products (``allow_tf32`` on the cuBLAS
 side) and convolutions (cuDNN) with 10-bit mantissas.  The guard switches
 both off for the duration of a call and checks that they are off.
+
+The closed forms lose ``cond(A) * eps`` accuracy, so the solvers take them
+only inside :func:`fast_linalg`, which the Taylor-preconditioned wrappers of
+:mod:`rodeo_tpu_torch.ops.precond` enter (their matrices are
+:math:`O(1)`-conditioned); outside it the solves are LAPACK's, as in the
+JAX package.  The switch is read when a function runs, which in eager
+PyTorch plays the part of the JAX package's trace time.
 """
+import contextlib
+import contextvars
 import functools
 import math
 
 import torch
 
-__all__ = ["full_matmul_precision", "inv_small", "sym_eigh_small",
-           "chol_small"]
+__all__ = ["full_matmul_precision", "fast_linalg", "fast_linalg_enabled",
+           "inv_small", "mvn_logpdf_small", "solve_small", "solve_psd",
+           "psd_factor_eigh", "sym_eigh_small", "chol_small",
+           "tri_solve_small", "matmul_small"]
 
 
 def full_matmul_precision(fn):
@@ -42,6 +56,25 @@ def full_matmul_precision(fn):
              torch.backends.cudnn.allow_tf32) = saved
 
     return wrapped
+
+
+_FAST = contextvars.ContextVar("rodeo_tpu_torch_fast_linalg", default=False)
+
+
+@contextlib.contextmanager
+def fast_linalg(enable=True):
+    """Within the context, tiny solves take their closed forms and the
+    Kalman updates their Joseph forms (:func:`fast_linalg_enabled`)."""
+    token = _FAST.set(enable)
+    try:
+        yield
+    finally:
+        _FAST.reset(token)
+
+
+def fast_linalg_enabled():
+    """Whether :func:`fast_linalg` is on in the current context."""
+    return _FAST.get()
 
 
 def _det2(a):
@@ -134,6 +167,174 @@ def _det_small_normed(a):
         Cc, D = a[..., k:, :k], a[..., k:, k:]
         return _det2(A) * _det_small_normed(D - Cc @ _inv_small_normed(A) @ B)
     raise ValueError(f"_det_small_normed supports n <= 5, got {n}")
+
+
+def mvn_logpdf_small(x, mean, cov):
+    r"""
+    Multivariate-normal log-density by the closed-form determinant and
+    solve, over trailing dims up to 5 (batched), as
+    :func:`rodeo_tpu.ops.linalg.mvn_logpdf_small` computes it.
+    Scale-normalised; the covariance must be positive definite
+    (:func:`rodeo_tpu_torch.utils.multivariate_normal_logpdf` takes
+    singular ones).
+
+    Returns:
+        (Tensor(...)): Log-density values.
+    """
+    n = cov.shape[-1]
+    scale = torch.amax(torch.abs(cov), dim=(-1, -2), keepdim=True)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    det_n = _det_small_normed(cov / scale)
+    tiny = torch.finfo(cov.dtype).tiny
+    logdet = (n * torch.log(scale[..., 0, 0])
+              + torch.log(torch.clamp(det_n, min=tiny)))
+    z = x - mean
+    quad = torch.sum(z * solve_small(cov, z), dim=-1)
+    return -0.5 * (quad + logdet + n * 1.8378770664093453)
+
+
+def solve_small(a, b):
+    """
+    ``a^{-1} b``: the closed form when the trailing dimension of ``a`` is at
+    most 5 and :func:`fast_linalg` is on, an LU solve otherwise.  ``b`` is a
+    matrix ``(..., n, k)`` or a vector ``(..., n)``.
+    """
+    n = a.shape[-1]
+    vector = b.ndim == a.ndim - 1
+    if not _FAST.get() or n > 5:
+        if vector:
+            return torch.linalg.solve(a, b[..., None])[..., 0]
+        return torch.linalg.solve(a, b)
+    if vector:
+        if n == 1:
+            return b / a[..., 0]
+        return torch.einsum("...ij,...j->...i", inv_small(a), b)
+    if n == 1:
+        return b / a
+    return inv_small(a) @ b
+
+
+def _cholesky_or_nan(a):
+    """Lower Cholesky factor, NaN where ``a`` is not positive definite (as
+    the JAX package's factorisation returns, where PyTorch's raises)."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol,
+                       torch.full_like(chol, float("nan")))
+
+
+def solve_psd(a, b):
+    r"""
+    ``a^{-1} b`` for a symmetric positive-definite ``a``, dispatched as
+    :func:`rodeo_tpu.ops.linalg.solve_psd`: an LU solve with
+    :func:`fast_linalg` off, the closed form for :math:`n \le 5` with it
+    on, and a Cholesky factor with two triangular solves for :math:`n > 5`
+    with it on (NaN where ``a`` is not positive definite).
+
+    ``b`` is a matrix ``(..., n, k)`` or a vector ``(..., n)``.
+    """
+    n = a.shape[-1]
+    if not _FAST.get() or n <= 5:
+        return solve_small(a, b)
+    vector = b.ndim == a.ndim - 1
+    bb = b[..., None] if vector else b
+    chol = _cholesky_or_nan(a)
+    y = torch.linalg.solve_triangular(chol, bb, upper=False)
+    x = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+    return x[..., 0] if vector else x
+
+
+# Matrices per torch.linalg.eigh call in psd_factor_eigh.  On the H100 the
+# batched eigh's workspace grows with the batch: 16 GB for the 30 000
+# 3 x 3 float64 covariances of a 10 000-step Lorenz63 draw
+# (tools/torch_op_costs.py), so a whole time axis is factored in chunks.
+EIGH_CHUNK = 1024
+
+
+def _eigh(cov):
+    """``torch.linalg.eigh(cov)``, at most :data:`EIGH_CHUNK` matrices at a
+    time."""
+    flat = cov.reshape((-1,) + tuple(cov.shape[-2:]))
+    if flat.shape[0] <= EIGH_CHUNK:
+        return torch.linalg.eigh(cov)
+    w, v = zip(*(torch.linalg.eigh(c) for c in flat.split(EIGH_CHUNK)))
+    return (torch.cat(w).reshape(cov.shape[:-1]),
+            torch.cat(v).reshape(cov.shape))
+
+
+def _psd_factor_parts(cov):
+    """The eigen factor and what its derivative reuses."""
+    w, v = _eigh(cov)
+    sqw = torch.sqrt(torch.clamp(w, min=0.0))
+    eps = torch.finfo(w.dtype).eps
+    scale = torch.clamp(torch.abs(w[..., -1:]), min=1.0)      # (..., 1)
+    diff = w[..., None, :] - w[..., :, None]                  # l_j - l_i
+    f = diff / (diff * diff + (eps * scale[..., None]) ** 2)  # safe 1/(l_j - l_i)
+    f = f * (1.0 - torch.eye(w.shape[-1], dtype=w.dtype, device=w.device))
+    # directions clamped to zero: d sqrt(max(w, 0)) = 0 there
+    live = w > eps ** 0.5 * scale
+    c = torch.where(live, 1.0 / (2.0 * sqw + eps * scale),
+                    torch.zeros_like(w))
+    return v, sqw, f, c
+
+
+class _PsdFactorEigh(torch.autograd.Function):
+    r"""The eigen factor with the JAX package's clamped derivative
+    (``rodeo_tpu/ops/linalg.py``, ``_psd_factor_eigh_jvp``): with
+    :math:`M = V' dC V`, :math:`dL = V (f \circ M) S + V
+    \operatorname{diag}(c \circ \operatorname{diag} M)`, where
+    :math:`f_{ij}` is the safe :math:`1/(\lambda_j - \lambda_i)`,
+    :math:`S = \operatorname{diag}(\sqrt{\max(\lambda, 0)})` and
+    :math:`c` masks the clamped directions to zero.  ``backward`` is its
+    transpose, :math:`\bar C = V K V'` with :math:`K = f \circ (V' \bar L
+    S) + \operatorname{diag}(c \circ \operatorname{diag}(V' \bar L))`;
+    ``eigh``'s own derivative, NaN on repeated eigenvalues, is never
+    taken."""
+
+    @staticmethod
+    def forward(cov):
+        w, v = _eigh(cov)
+        return v * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (cov,) = ctx.saved_tensors
+        v, sqw, f, c = _psd_factor_parts(cov)
+        vg = v.mT @ g
+        k = f * (vg * sqw[..., None, :])
+        k = k + torch.diag_embed(c * torch.diagonal(vg, dim1=-2, dim2=-1))
+        return v @ k @ v.mT
+
+    @staticmethod
+    def jvp(ctx, dcov):
+        (cov,) = ctx.saved_tensors
+        v, sqw, f, c = _psd_factor_parts(cov)
+        m = v.mT @ dcov @ v
+        dv = v @ (f * m)
+        dsqw = c * torch.diagonal(m, dim1=-2, dim2=-1)
+        return dv * sqw[..., None, :] + v * dsqw[..., None, :]
+
+
+def psd_factor_eigh(cov):
+    r"""
+    PSD factor :math:`L = V \operatorname{diag}(\sqrt{\max(w, 0)})` with
+    :math:`L L' = \mathrm{cov}`, from a symmetric eigendecomposition, with
+    the gradient-safe derivative of
+    :func:`rodeo_tpu.ops.linalg.psd_factor_eigh` (see
+    :class:`_PsdFactorEigh`): exact where the eigensystem is simple, a
+    bounded surrogate on the degenerate set, zero along clamped directions.
+
+    Args:
+        cov (Tensor(..., n, n)): Symmetric PSD matrices.
+
+    Returns:
+        (Tensor(..., n, n)): The factors.
+    """
+    return _PsdFactorEigh.apply(cov)
 
 
 def sym_eigh_small(a):
@@ -281,3 +482,36 @@ def chol_small(a, floor=1e-12):
     rows = [torch.stack([L[i][j] if j <= i else zero for j in range(n)],
                         dim=-1) for i in range(n)]
     return torch.stack(rows, dim=-2) * d[..., :, None]
+
+
+def tri_solve_small(chol, b, lower=True, transpose=False):
+    r"""
+    Triangular solve by unrolled substitution over trailing dims up to 5
+    (batched; ``b`` is ``(..., n, k)``), as
+    :func:`rodeo_tpu.ops.linalg.tri_solve_small`; ``transpose=True`` solves
+    against ``chol'``.
+    """
+    n = chol.shape[-1]
+    if not lower:
+        return tri_solve_small(chol.mT, b, lower=True,
+                               transpose=not transpose)
+    out = [None] * n
+    order = range(n - 1, -1, -1) if transpose else range(n)
+    for i in order:
+        s = b[..., i, :]
+        for k in (range(i + 1, n) if transpose else range(i)):
+            entry = chol[..., k, i, None] if transpose else chol[..., i, k,
+                                                                 None]
+            s = s - entry * out[k]
+        out[i] = s / chol[..., i, i, None]
+    return torch.stack(out, dim=-2)
+
+
+def matmul_small(a, b):
+    """Batched matrix product as a broadcast product and sum under
+    :func:`fast_linalg` with both trailing dims at most 8, ``@``
+    otherwise (:func:`rodeo_tpu.ops.linalg.matmul_small`)."""
+    if (_FAST.get() and a.shape[-1] <= 8 and a.shape[-2] <= 8
+            and b.shape[-1] <= 8):
+        return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+    return a @ b

@@ -9,7 +9,8 @@ import math
 
 import torch
 
-__all__ = ["mtt", "mvdot", "quadform", "solve_var", "first_order_pad",
+__all__ = ["mtt", "matmul", "mvdot", "quadform", "add_sqrt", "solve_var", "mvncond",
+           "standard_normals", "first_order_pad",
            "multivariate_normal_logpdf"]
 
 
@@ -18,30 +19,117 @@ def mtt(mat):
     return mat.transpose(-1, -2)
 
 
+def matmul(a, b):
+    """``a @ b``, as one ``torch.bmm`` when both are 3-D with the same
+    leading dimension (the torch-ops' per-step operands): ``torch.matmul``
+    broadcasts through expand and view operations there, which the Python
+    loops of the torch-ops, forward and backward, pay per step."""
+    if a.dim() == 3 and b.dim() == 3 and a.shape[0] == b.shape[0]:
+        return torch.bmm(a, b)
+    return torch.matmul(a, b)
+
+
 def mvdot(mat, vec):
     """Batched matrix-vector product on trailing dims: ``mat @ vec``."""
-    return torch.einsum("...ij,...j->...i", mat, vec)
+    return matmul(mat, vec.unsqueeze(-1)).squeeze(-1)
 
 
 def quadform(wgt, var):
     """Batched quadratic form ``wgt @ var @ wgt.T`` on trailing dims, as two
-    two-operand contractions: a three-operand ``torch.einsum`` asks
-    opt_einsum for a contraction path on every call, which costs more than
-    the product at these sizes."""
-    return torch.einsum("...ik,...lk->...il",
-                        torch.einsum("...ij,...jk->...ik", wgt, var), wgt)
+    products (:func:`matmul`): an ``einsum`` dispatches several times as
+    many operations."""
+    return matmul(matmul(wgt, var), wgt.mT)
+
+
+def add_sqrt(sqrt_A, sqrt_B):
+    r"""
+    A factor :math:`L` with :math:`L L' = A + B`, given factors
+    :math:`A^{1/2}` and :math:`B^{1/2}` (port of
+    :func:`rodeo_tpu.utils.add_sqrt`): the transposed R of the QR
+    decomposition of the stacked transposed factors, or, under
+    :func:`rodeo_tpu_torch.ops.linalg.fast_linalg` with :math:`n \le 5`,
+    the closed-form Cholesky factor of the Gram sum
+    :math:`A^{1/2} A^{1/2\prime} + B^{1/2} B^{1/2\prime}`.  The two differ
+    by an orthogonal rotation: compare :math:`L L'`, not :math:`L`.
+
+    Args:
+        sqrt_A (Tensor(..., n, m_a)): Factor of ``A``.
+        sqrt_B (Tensor(..., n, m_b)): Factor of ``B``.
+
+    Returns:
+        (Tensor(..., n, n)): ``L``.
+    """
+    from rodeo_tpu_torch.ops.linalg import chol_small, fast_linalg_enabled
+    n = sqrt_A.shape[-2]
+    if fast_linalg_enabled() and n <= 5:
+        gram = ((sqrt_A[..., :, None, :] * sqrt_A[..., None, :, :]).sum(-1)
+                + (sqrt_B[..., :, None, :] * sqrt_B[..., None, :, :]).sum(-1))
+        return chol_small(gram)
+    stacked = torch.cat([mtt(sqrt_A), mtt(sqrt_B)], dim=-2)
+    _, r = torch.linalg.qr(stacked, mode="reduced")
+    return mtt(r)
 
 
 def solve_var(V, B):
     r"""
     :math:`X = V^{-1} B` for a variance (symmetric positive-definite) ``V``,
-    by a batched LU solve as the JAX package's default path.
+    through :func:`rodeo_tpu_torch.ops.linalg.solve_psd` as the JAX
+    package's: a batched LU solve, or under ``fast_linalg`` the closed form
+    (:math:`n \le 5`) or a Cholesky solve (:math:`n > 5`).
 
     ``B`` may be a matrix ``(..., n, k)`` or a vector ``(..., n)``.
     """
-    if B.ndim == V.ndim - 1:
-        return torch.linalg.solve(V, B[..., None])[..., 0]
-    return torch.linalg.solve(V, B)
+    from rodeo_tpu_torch.ops.linalg import solve_psd
+    return solve_psd(V, B)
+
+
+def mvncond(mu, Sigma, icond):
+    r"""
+    Gaussian conditional parameters (port of :func:`rodeo_tpu.utils.
+    mvncond`): for :math:`y \sim N(\mu, \Sigma)`, ``A``, ``b`` and ``V``
+    with :math:`y[\neg icond] \mid y[icond] \sim N(A\, y[icond] + b, V)`.
+
+    Args:
+        mu (Tensor(n,)): Mean of ``y``.
+        Sigma (Tensor(n, n)): Covariance of ``y``.
+        icond (Tensor(n,) of bool): Which entries are conditioned on.
+
+    Returns:
+        (tuple): ``A (n1, n2)``, ``b (n1,)`` and ``V (n1, n1)``, with
+        ``n2 = sum(icond)`` and ``n1 = n - n2``.
+    """
+    icond = torch.as_tensor(icond, dtype=torch.bool, device=mu.device)
+    free_idx = torch.nonzero(~icond)[:, 0]
+    cond_idx = torch.nonzero(icond)[:, 0]
+    S12 = Sigma[free_idx][:, cond_idx]
+    S22 = Sigma[cond_idx][:, cond_idx]
+    S21 = Sigma[cond_idx][:, free_idx]
+    S11 = Sigma[free_idx][:, free_idx]
+    eye = torch.eye(S22.shape[0], dtype=Sigma.dtype, device=Sigma.device)
+    A = S12 @ solve_var(S22, eye)
+    b = mu[~icond] - A @ mu[icond]
+    V = S11 - A @ S21
+    return A, b, V
+
+
+def standard_normals(key, shape, like):
+    r"""
+    Standard normals of ``shape`` in ``like``'s dtype and on its device,
+    from ``key``: a ``torch.Generator``, drawn from (on the generator's
+    device, then moved), or a tensor of normals already drawn, which must
+    have that shape.  This is the port's counterpart of a JAX key.
+    """
+    if isinstance(key, torch.Generator):
+        z = torch.randn(shape, generator=key, dtype=like.dtype,
+                        device=key.device)
+        return z.to(like.device)
+    if isinstance(key, torch.Tensor):
+        if tuple(key.shape) != tuple(shape):
+            raise ValueError(f"normals of shape {tuple(key.shape)} given "
+                             f"where {tuple(shape)} are drawn")
+        return key.to(dtype=like.dtype, device=like.device)
+    raise ValueError("a draw needs a torch.Generator or a tensor of "
+                     f"standard normals as its key, got {type(key)!r}")
 
 
 def first_order_pad(ode_fun, n_vars, n_deriv, dtype=None, device=None):

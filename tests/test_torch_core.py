@@ -29,6 +29,7 @@ from rodeo_tpu_torch.convert import from_numpy
 from rodeo_tpu_torch.kalmantv import get_backend, standard as tstandard
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
 from rodeo_tpu_torch.ops import precond as tprecond
+from rodeo_tpu_torch.ops.linalg import fast_linalg as tfast_linalg
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision
 from rodeo_tpu_torch.prior import ibm_init as tibm_init
 
@@ -162,8 +163,8 @@ def test_kalman_predict_update_forecast_match_jax(kalman_inputs):
 def test_update_joseph_forms_match_jax(kalman_inputs, joseph):
     """``update`` with the JAX package's ``joseph=`` keyword, called with the
     argument list of the JAX package's MAGI filter: True and False select
-    the Joseph and the subtractive form as there; the port's None is the
-    Joseph form (the JAX package's None defers to its fast-linalg switch).
+    the Joseph and the subtractive form as there, and None defers to the
+    fast-linalg switch in both packages (off here: the subtractive form).
     Both solve the same float64 system: 1e-10."""
     k = kalman_inputs
     kt = {n: _t(a) for n, a in k.items()}
@@ -180,13 +181,13 @@ def test_update_joseph_forms_match_jax(kalman_inputs, joseph):
     upd_j = jstandard.update(
         mean_state_pred=pred_j[0], var_state_pred=pred_j[1],
         x_meas=k["x_meas"], mean_meas=k["mean_meas"],
-        wgt_meas=k["wgt_meas"], var_meas=k["var_meas"],
-        joseph=True if joseph is None else joseph)
+        wgt_meas=k["wgt_meas"], var_meas=k["var_meas"], joseph=joseph)
     for a, b in zip(upd_t, upd_j):
         _close(a, b, rtol=1e-10)
     if joseph is False:     # the two forms differ by rounding only
         joseph_t = tstandard.update(*pred_t, kt["x_meas"], kt["mean_meas"],
-                                    kt["wgt_meas"], kt["var_meas"])
+                                    kt["wgt_meas"], kt["var_meas"],
+                                    joseph=True)
         assert not torch.equal(upd_t[1], joseph_t[1])
         _close(upd_t[1], joseph_t[1], rtol=1e-10)
 
@@ -195,16 +196,15 @@ def test_kalman_smoothers_match_jax(kalman_inputs):
     k = kalman_inputs
     kt = {n: _t(a) for n, a in k.items()}
     args = ("mean_filt", "var_filt", "mean_pred", "var_pred")
-    # JAX takes the Joseph form of the conditional variance under
-    # fast_linalg, whose closed-form inverse differs from the port's LU
-    # solve by rounding: 1e-10
-    with fast_linalg():
+    # both take the Joseph form of the conditional variance and the
+    # closed-form inverse under fast_linalg: 1e-10
+    with fast_linalg(), tfast_linalg():
         cond_j = jstandard.smooth_cond(*(k[a] for a in args),
                                        wgt_state=k["wgt_state"],
                                        var_state=k["var_state"])
-    cond_t = tstandard.smooth_cond(*(kt[a] for a in args),
-                                   wgt_state=kt["wgt_state"],
-                                   var_state=kt["var_state"])
+        cond_t = tstandard.smooth_cond(*(kt[a] for a in args),
+                                       wgt_state=kt["wgt_state"],
+                                       var_state=kt["var_state"])
     for a, b in zip(cond_t, cond_j):
         _close(a, b, rtol=1e-10, atol=1e-12)
     mv_t = tstandard.smooth_mv(kt["mean_next"], kt["var_next"],
@@ -241,6 +241,113 @@ def test_interrogations_match_jax(name, model):
     out_t = getattr(tinterrogate, f"interrogate_{name}")(
         key=None, ode_fun=tfun, ode_weight=_t(W), t=0.5, mean_state_pred=_t(mean),
         var_state_pred=_t(var), theta=_t(theta))
+    for a, b in zip(out_t, out_j):
+        _close(a, b, atol=1e-14)
+
+
+def _sine_fun(X_t, t, theta):
+    """An ODE with an operation (sin) that the Dual numbers do not have."""
+    return torch.stack([theta[0] * torch.sin(X_t[1, 0]),
+                        -theta[1] * X_t[0, 0] * X_t[1, 0]])[:, None]
+
+
+def _sine_fun_jax(X_t, t, theta):
+    return jnp.stack([theta[0] * jnp.sin(X_t[1, 0]),
+                      -theta[1] * X_t[0, 0] * X_t[1, 0]])[:, None]
+
+
+def _lorenz_rows(X_t, theta, stack):
+    x, y, z = X_t[0, 0], X_t[1, 0], X_t[2, 0]
+    return stack([theta[0] * (y - x), x * (theta[1] - z) - y,
+                  x * y - theta[2] * z])
+
+
+def _unsqueeze_fun(X_t, t, theta):
+    """Lorenz63 with a tensor method (``unsqueeze``) that Duals lack."""
+    return _lorenz_rows(X_t, theta, torch.stack).unsqueeze(-1)
+
+
+def _dtype_fun(X_t, t, theta):
+    """Lorenz63 reading the state's ``dtype``, which Duals lack."""
+    half = torch.tensor(0.5, dtype=X_t.dtype)
+    return _lorenz_rows(X_t, theta, torch.stack)[:, None] * half
+
+
+def _lorenz_rows_jax(X_t, t, theta, scale=1.0):
+    return _lorenz_rows(X_t, theta, jnp.stack)[:, None] * scale
+
+
+def _broadcast_fun(X_t, t, theta):
+    """A parameter ``theta (k, 3, 1)`` that broadcasts the state to a new
+    leading axis, summed over it: on a Dual the tangents raise (k = 2) or
+    come out short of one axis (k = 9, the state's entries)."""
+    y = theta * X_t[:, 1:2] * X_t[:, 0:1]
+    return sum(y[i] for i in range(len(theta)))
+
+
+_JACOBIAN_MODELS = {
+    "sine": (_sine_fun, _sine_fun_jax, lambda rng: np.array([0.7, 1.3]), 2),
+    "unsqueeze": (_unsqueeze_fun, _lorenz_rows_jax,
+                  lambda rng: np.array(jlorenz.THETA), 3),
+    "dtype": (_dtype_fun,
+              lambda X_t, t, theta: _lorenz_rows_jax(X_t, t, theta, 0.5),
+              lambda rng: np.array(jlorenz.THETA), 3),
+    "broadcast2": (_broadcast_fun, _broadcast_fun,
+                   lambda rng: rng.standard_normal((2, 3, 1)), 3),
+    "broadcast9": (_broadcast_fun, _broadcast_fun,
+                   lambda rng: rng.standard_normal((9, 3, 1)), 3),
+}
+
+
+@pytest.mark.parametrize("model", ["lorenz", "fitzhugh", "sine", "unsqueeze",
+                                   "dtype", "broadcast2", "broadcast9"])
+def test_kramer_jacobian_paths_agree(model):
+    """interrogate_kramer's Jacobian: forward mode on Duals where the Dual
+    pass carries the ODE (lorenz, fitzhugh), torch.func.jacfwd otherwise
+    (an operation, a tensor method or an attribute that Duals lack, a
+    parameter that broadcasts the state), each against torch.func.jacfwd
+    in value and in its torch.autograd gradient, and the interrogation
+    against the JAX package's."""
+    from rodeo_tpu_torch.interrogate import _dual_jacobian, _eval_and_jacobian
+    rng = np.random.default_rng(9)
+    if model in _JACOBIAN_MODELS:
+        tfun, jfun, make_theta, nb = _JACOBIAN_MODELS[model]
+        theta_np = make_theta(rng)
+    else:
+        jmod, tmod = {"lorenz": (jlorenz, tlorenz),
+                      "fitzhugh": (jfitzhugh, tfitzhugh)}[model]
+        jfun = getattr(jmod, f"{model}_fun")
+        tfun = getattr(tmod, f"{model}_fun")
+        theta_np, nb = np.array(jmod.THETA), jmod.N_VARS
+    mean = rng.standard_normal((nb, 3))
+    x = _t(mean).requires_grad_(True)
+    theta = _t(theta_np).requires_grad_(True)
+    dual = _dual_jacobian(tfun, x, 0.5, dict(theta=theta))
+    assert (dual is None) == (model in _JACOBIAN_MODELS)
+    ref = torch.func.jacfwd(lambda y: tfun(y, 0.5, theta=theta))(x)
+    assert ref.shape == (nb, 1, nb, 3)
+    (g_ref,) = torch.autograd.grad((ref ** 2).sum(), theta)
+    f_ref = tfun(x, 0.5, theta=theta)
+    (gf_ref,) = torch.autograd.grad(f_ref.sum(), theta)
+    for fun, jac in [_eval_and_jacobian(tfun, x, 0.5, dict(theta=theta))] + (
+            [] if dual is None else [dual]):
+        _close(fun.detach(), f_ref.detach())
+        _close(jac.detach(), ref.detach(), atol=1e-14)
+        (g,) = torch.autograd.grad((jac ** 2).sum(), theta,
+                                   retain_graph=True)
+        _close(g, g_ref, atol=1e-13)
+        (gf,) = torch.autograd.grad(fun.sum(), theta)
+        _close(gf, gf_ref, atol=1e-13)
+    W = np.zeros((nb, 1, 3))
+    W[:, :, 1] = 1.0
+    var = _psd(rng, nb, 3)
+    out_j = jinterrogate.interrogate_kramer(
+        key=None, ode_fun=jfun, ode_weight=W, t=0.5, mean_state_pred=mean,
+        var_state_pred=var, theta=theta_np)
+    out_t = tinterrogate.interrogate_kramer(
+        key=None, ode_fun=tfun, ode_weight=_t(W), t=0.5,
+        mean_state_pred=_t(mean), var_state_pred=_t(var),
+        theta=_t(theta_np))
     for a, b in zip(out_t, out_j):
         _close(a, b, atol=1e-14)
 
@@ -340,8 +447,15 @@ def test_port_imports_no_jax():
     import jax, jaxlib or the JAX package."""
     banned = ("jax", "jaxlib", "rodeo_tpu")
     files = sorted((REPO / "rodeo_tpu_torch").rglob("*.py"))
-    assert files
-    for path in files + [REPO / "chip_smoke.py"]:
+    names = {str(p.relative_to(REPO / "rodeo_tpu_torch")) for p in files}
+    assert {"solve.py", "interrogate.py", "inference/basic.py",
+            "inference/fenrir.py", "inference/dalton.py",
+            "prior/indep_init.py", "ops/linalg.py", "ops/precond.py"} <= names
+    # chip_smoke.py, the tool whose fixtures its torch_op phase runs, and
+    # the tool that times the torch-ops on the card
+    for path in files + [REPO / "chip_smoke.py",
+                         REPO / "tools" / "torch_op_reference.py",
+                         REPO / "tools" / "torch_op_costs.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -17,7 +17,10 @@ thread per (group, block), of K11a, K11c and K11d, which run one thread
 per (lane, direction, block), and of K6, K2r, K7b, K11b, K10a, K10b, K4,
 K7a and K5a, streams through a ring of shared-memory stages
 (``csrc/stream_ring.cuh``).  The square-root form of the fused entries,
-and the stationary solve on a prior that is not IBM, run on the card too.
+and the stationary solve on a prior that is not IBM, run on the card too,
+and so does the float64 torch-op surface: the likelihoods of
+``ops.precond`` with their gradients, ``ops.precond.solve_sim`` and the
+fast-linalg closed forms.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so that it runs where only the port is installed:
@@ -1438,3 +1441,100 @@ def test_daltonng_entry_points_launch_their_kernels(cuda_device):
     cos = (grad * grad_c).sum(1) / (grad.norm(dim=1) * grad_c.norm(dim=1))
     ratio = grad.norm(dim=1) / grad_c.norm(dim=1)
     assert (cos > 0.99).all() and ((ratio > 0.9) & (ratio < 1.1)).all()
+
+
+# --- the torch-op surface on the card, float64 ------------------------------
+
+
+def _torch_op_fixture(device, n_steps=100, t_max=1.0):
+    """Lorenz63 EK1 in float64 with 6 observations of x, y and z."""
+    cfg = lorenz.setup(n_steps=n_steps, t_max=t_max, dtype=torch.float64,
+                       device=device)
+    theta = cfg.pop("theta")
+    n_obs = 6
+    weight = torch.zeros((n_obs, 3, 1, 3), dtype=torch.float64,
+                         device=device)
+    weight[..., 0] = 1.0
+    data = np.random.default_rng(0).normal(size=(n_obs, 3, 1)) * 5
+    obs = dict(obs_data=torch.tensor(data, device=device),
+               obs_times=torch.tensor(np.arange(n_obs) * (t_max / 5)),
+               obs_weight=weight,
+               obs_var=torch.full((n_obs, 3, 1, 1), 0.005,
+                                  dtype=torch.float64, device=device))
+    return cfg, theta, obs
+
+
+def _b_loglik(obs_data, ode_data, **params):
+    return torch.sum(-0.5 * (obs_data[..., 0] - ode_data[..., 0]) ** 2)
+
+
+@pytest.mark.parametrize("name", ["fenrir", "dalton", "basic"])
+def test_torch_op_likelihoods_on_the_card(cuda_device, name):
+    """ops.precond.fenrir, dalton and basic in float64 on CUDA tensors
+    return CUDA tensors, and their values and torch.autograd gradients are
+    the CPU's to 1e-9 relative (the same float64 operations, cuBLAS's
+    sums against the CPU's)."""
+    from rodeo_tpu_torch.interrogate import interrogate_kramer
+    from rodeo_tpu_torch.ops import precond
+    out = {}
+    for device in ("cpu", cuda_device):
+        cfg, theta, obs = _torch_op_fixture(device)
+        th = theta.clone().requires_grad_(True)
+        if name == "basic":
+            val = precond.basic(key=None, interrogate=interrogate_kramer,
+                                theta=th, obs_data=obs["obs_data"],
+                                obs_times=obs["obs_times"],
+                                obs_loglik=_b_loglik, **cfg)[0]
+        else:
+            val = getattr(precond, name)(key=None,
+                                         interrogate=interrogate_kramer,
+                                         theta=th, **obs, **cfg)
+        (grad,) = torch.autograd.grad(val, th)
+        assert val.device.type == grad.device.type == torch.device(
+            device).type
+        out[str(device)] = (val.item(), grad.cpu())
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
+    assert abs(v_gpu - v_cpu) <= 1e-9 * abs(v_cpu)
+    assert torch.linalg.norm(g_gpu - g_cpu) <= 1e-9 * torch.linalg.norm(
+        g_cpu)
+
+
+@pytest.mark.parametrize("method", ["svd", "eigh"])
+def test_torch_op_solve_sim_on_the_card(cuda_device, method):
+    """ops.precond.solve_sim in float64 with a CUDA generator: a CUDA path,
+    finite, starting at x0; the same normals as a tensor give the same
+    path."""
+    from rodeo_tpu_torch.interrogate import interrogate_kramer
+    from rodeo_tpu_torch.ops import precond
+    cfg, theta, _ = _torch_op_fixture(cuda_device)
+    x = precond.solve_sim(key=torch.Generator(cuda_device).manual_seed(0),
+                          interrogate=interrogate_kramer, theta=theta,
+                          method=method, **cfg)
+    assert x.is_cuda and torch.isfinite(x).all()
+    assert torch.allclose(x[0], cfg["ode_init"], rtol=1e-15, atol=0)
+    z = torch.randn((100, 3, 3), dtype=torch.float64, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    y = precond.solve_sim(key=z, interrogate=interrogate_kramer, theta=theta,
+                          method=method, **cfg)
+    assert torch.equal(x, y)
+
+
+def test_torch_op_linalg_on_the_card(cuda_device):
+    """The switch's closed forms and the eigen factor on CUDA tensors
+    against the same calls on the CPU."""
+    from rodeo_tpu_torch.ops import linalg
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((50, 7, 7))
+    cov = a @ np.swapaxes(a, -1, -2) + 7 * np.eye(7)
+    b = rng.standard_normal((50, 7, 2))
+    for n in (3, 7):
+        args = [torch.tensor(cov[:, :n, :n]), torch.tensor(b[:, :n])]
+        with linalg.fast_linalg():
+            ref = linalg.solve_psd(*args)
+            got = linalg.solve_psd(*(x.to(cuda_device) for x in args))
+        assert got.is_cuda and _scaled_err(got, ref) <= 1e-12
+    c = torch.tensor(cov[:, :3, :3], device=cuda_device, requires_grad=True)
+    f = linalg.psd_factor_eigh(c)
+    assert _scaled_err(f @ f.mT, c) <= 1e-12
+    (g,) = torch.autograd.grad(f.sum(), c)
+    assert g.is_cuda and torch.isfinite(g).all()

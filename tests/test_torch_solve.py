@@ -47,8 +47,8 @@ def _fitz_torch(X, t, **params):
 @pytest.mark.parametrize("scheme", ["rodeo", "kramer"])
 def test_solve_mv_matches_jax_on_the_readme_fitzhugh(scheme):
     """The README walkthrough (FitzHugh-Nagumo, N=200, sigma=0.01).  Both
-    packages run the same float64 recursion; the port's Joseph-form update
-    and the JAX default's subtractive form differ by rounding only, well
+    packages run the same float64 recursion (the subtractive updates and
+    LU solves of their default paths), with LAPACKs that round apart, well
     inside atol=1e-10."""
     n_steps, theta, x0 = 200, [0.2, 0.2, 3.0], [-1.0, 1.0]
     Wj, padj = jfirst_order_pad(_fitz_jax, n_vars=2, n_deriv=3)
@@ -82,9 +82,9 @@ def test_solve_mv_matches_jax_on_the_readme_fitzhugh(scheme):
 
 def test_precond_solve_mv_matches_jax_on_lorenz():
     """Lorenz63 (prior_sigma=5e7, which overflows the plain recursion) at
-    N=200, t_max=2 through the preconditioned solver, float64.  JAX runs it
-    with closed-form tiny inverses, the port with LU solves; over 200
-    chaotic steps the rounding difference stays below 1e-8 relative."""
+    N=200, t_max=2 through the preconditioned solver, float64.  Both run
+    it under fast_linalg, with closed-form tiny inverses; over 200 chaotic
+    steps their rounding difference stays below 1e-8 relative."""
     cfg_j = jlorenz.setup(n_steps=200, t_max=2.0, dtype=jnp.float64)
     th_j = cfg_j.pop("theta")
     mu_j, var_j = jprecond.solve_mv(
