@@ -195,6 +195,29 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              over t <= 4 by the solve audit's rule); each call's time
              (the median by CUDA events and by the wall clock) and peak
              memory, and the phase's seconds;
+24. mcmc     the MCMC layer (rodeo_tpu_torch.parallel) on bench.py's MCMC
+             fixture (tools/torch_mcmc_reference.py: FitzHugh-Nagumo, 200
+             steps to t = 10, the 21 observations y_fitz_mcmc, sigma 0.2):
+             run_chains_fused, 512 chains x 100 random-walk steps at scale
+             0.01 (K1 and K6 exactly 101 launches each, finite, mean
+             acceptance in (0, 1)); MALA, HMC (5 leapfrog steps) and NUTS
+             (max_depth 4, 40 proposals) over fenrir_fused_batch_grad on 128
+             lanes, each after a short adapt_step_size (K11a and K11b 101,
+             501 and at most 1 + 15 x 40 launches, finite, the carried
+             log-density bitwise a fresh fenrir_fused_batch at the final
+             positions) and their theta means within AGREE_Z standard
+             errors of each other (the port's ess); run_chains_mala_fused
+             over DALTON, 128 lanes x 20 steps (K11c 42 launches, bitwise
+             against dalton_fused_batch); run_chains_magi_gibbs on phase
+             18's fixture, 4 sweeps of 2 MALA steps (K10a 21 and K10b 13
+             launches, sigma^2 draws finite and positive, finite
+             log-densities); and pseudo_marginal.normal_random_walk
+             through run_chains, 32 chains of bench.py's mcmc_xla
+             log-density (ops.precond.solve_sim, eigh) for 3 to 10 steps,
+             as many as MCMC_XLA_S allows (the reference path, no kernel).
+             Each runner's chain steps per second, ESS per second (of
+             theta_0; of sigma^2 for Gibbs), mean acceptance and peak
+             memory, and the phase's seconds, within MCMC_PHASE_S;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
@@ -312,6 +335,11 @@ TORCH_OP_TOL = {
 # reached 1137 s on an NVIDIA H100 80GB HBM3 at 700 W whose host ran the
 # earlier phases 1.4 x slower than another's).
 TORCH_OP_CALLS = 2
+# The mcmc phase: its time limit, and the seconds its reference path
+# (run_chains over the torch-op solve_sim, 32 chains) may take, which set
+# its number of steps between 3 and 10.
+MCMC_PHASE_S = 90.0
+MCMC_XLA_S = 20.0
 # The torch_op phase's draws against the float64 posterior of
 # ops.precond.solve_mv: the mean of (x - mu)^2 / sigma^2 over the draws and
 # the entries whose posterior variance exceeds SIM_VAR_MIN, 1 in
@@ -2889,6 +2917,219 @@ def main():
           "call_ms_wall": wall_ms, "peak_mem_bytes": peak})
     del outs, draws, mu_fh, var_fh
     emit({"phase": "torch_op", "seconds": time.perf_counter() - t_phase})
+
+    # ---- 24. MCMC ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    import torch_mcmc_reference as mcmc_ref
+    from rodeo_tpu_torch import parallel as tpar
+    from rodeo_tpu_torch.inference import pseudo_marginal as tpm
+
+    fix_mc = mcmc_ref.fixture(truth, dev)
+    cfg_mc, theta_mc = fix_mc["cfg"], fix_mc["theta"]
+    solver_mc = dict(ode_weight=cfg_mc["ode_weight"],
+                     ode_init=cfg_mc["ode_init"], t_min=0.0,
+                     t_max=mcmc_ref.T_MAX, n_steps=mcmc_ref.N_STEPS,
+                     prior_pars=cfg_mc["prior_pars"])
+    gen_mc = torch.Generator(dev).manual_seed(24)
+
+    def timed_run(run):
+        """run() once: its outputs, seconds on the wall clock to the end of
+        its device work, the kernel launches it made and its peak
+        memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, read_counts(),
+                torch.cuda.max_memory_allocated())
+
+    def rates(n_chain_steps, seconds, draws):
+        """Chain steps per second, and ESS per second of draws (n_samples,
+        n_chains) as bench.py's _ess_total (None under 4 samples)."""
+        x = draws.detach().double().cpu().numpy()
+        n_eff = tpar.ess(x) if x.shape[0] >= 4 else None
+        return {"chain_steps_per_s": n_chain_steps / seconds,
+                "ess": n_eff,
+                "ess_per_s": None if n_eff is None else n_eff / seconds}
+
+    def launched(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def finite(*tensors):
+        return all(torch.isfinite(t).all().item() for t in tensors)
+
+    # the lockstep random walk over posterior draws: 512 chains x 100
+    n_rw, s_rw = 512, 100
+    runner_rw = tpar.make_chain_runner(
+        mcmc_ref.path_loglik(fix_mc), n_rw, s_rw, 0.01, model="fitzhugh",
+        device=dev, **solver_mc)
+    init_rw = theta_mc.expand(n_rw, 3).contiguous()
+    (pos_rw, ll_rw, acc_rw), sec_rw, counts_rw, peak_rw = timed_run(
+        lambda: runner_rw(init_rw, gen_mc))
+    mean_acc_rw = acc_rw.mean().item()
+    rw_ok = [
+        check("mcmc", "fused random walk launches",
+              counts_rw == expect(filter_batch=s_rw + 1,
+                                  sampler_batch=s_rw + 1)),
+        check("mcmc", "fused random walk finite", finite(pos_rw, ll_rw)),
+        check("mcmc", "fused random walk acceptance in (0, 1)",
+              0.0 < mean_acc_rw < 1.0)]
+    emit({"phase": "mcmc", "runner": "run_chains_fused", "model": "fitzhugh",
+          "n_steps": mcmc_ref.N_STEPS, "n_chains": n_rw, "n_samples": s_rw,
+          "rw_scale": 0.01, "launches": launched(counts_rw),
+          "seconds": sec_rw, **rates(n_rw * s_rw, sec_rw, pos_rw[..., 0]),
+          "mean_accept": mean_acc_rw, "peak_mem_bytes": peak_rw,
+          "ok": all(rw_ok)})
+    del pos_rw, ll_rw, acc_rw
+
+    # MALA, HMC and NUTS over fenrir's value and gradient, 128 lanes, each
+    # after a short adapt_step_size, launches counted over the main run
+    n_g = mcmc_ref.GRAD_LANES
+    lpg_mc = mcmc_ref.logpost_grad(fix_mc, n_g)
+    init_g = theta_mc.expand(n_g, 3).contiguous()
+    obs_mc = fix_mc["obs"]
+    lanes_mc = dict(ode_weight=cfg_mc["ode_weight"],
+                    ode_inits=cfg_mc["ode_init"].expand(n_g, 2, 3),
+                    t_min=0.0, t_max=mcmc_ref.T_MAX,
+                    n_steps=mcmc_ref.N_STEPS, prior_pars=cfg_mc["prior_pars"],
+                    model="fitzhugh", **obs_mc)
+    summaries, steps_mc = {}, {}
+    for name, spec in mcmc_ref.SAMPLERS.items():
+        t_ad = time.perf_counter()
+        step, pos0, acc_ad = mcmc_ref.adapt(name, lpg_mc, n_g, init_g,
+                                            gen_mc)
+        t_ad = time.perf_counter() - t_ad
+        steps_mc[name] = step
+        runner = mcmc_ref.make_runner(name, lpg_mc, n_g, spec["n_samples"],
+                                      step)
+        (pos, ll, acc), sec, counts, peak = timed_run(
+            lambda: runner(pos0, gen_mc))
+        n_tan = counts["filter_batch_tan"]
+        if name == "nuts":
+            # at most 2**max_depth - 1 leaves a proposal, and one leaf
+            budget = 2 ** spec["extra"]["max_depth"] - 1
+            launches_ok = (1 + spec["n_samples"] <= n_tan
+                           <= 1 + budget * spec["n_samples"]
+                           and counts == expect(
+                               filter_batch_tan=n_tan,
+                               fenrir_backward_batch_tan=n_tan))
+        else:
+            per_step = spec["extra"].get("n_leapfrog", 1)
+            n_tan = 1 + per_step * spec["n_samples"]
+            launches_ok = counts == expect(filter_batch_tan=n_tan,
+                                           fenrir_backward_batch_tan=n_tan)
+        fresh = ff.fenrir_fused_batch(pos[-1], device=dev, **lanes_mc)
+        summaries[name] = mcmc_ref.summary(pos)
+        ok = [check("mcmc", f"{name} launches", launches_ok),
+              check("mcmc", f"{name} finite", finite(pos, ll)),
+              check("mcmc", f"{name} carried log-density bitwise",
+                    torch.equal(fresh, ll))]
+        emit({"phase": "mcmc", "runner": f"make_{name}_runner",
+              "likelihood": "fenrir", "model": "fitzhugh", "n_lane": n_g,
+              "n_samples": spec["n_samples"], **spec["extra"],
+              "step_size": float(step), "adapt_accept": acc_ad,
+              "adapt_seconds": t_ad, "launches": launched(counts),
+              "seconds": sec,
+              **rates(n_g * spec["n_samples"], sec, pos[..., 0]),
+              "mean_accept": acc.mean().item(), "peak_mem_bytes": peak,
+              "theta": summaries[name], "ok": all(ok)})
+        del pos, ll, acc, fresh
+    agree = mcmc_ref.agreement(summaries)
+    agree_ok = check("mcmc", "MALA, HMC and NUTS theta means agree",
+                     agree["ok"])
+    emit({"phase": "mcmc", "agreement": agree, "ok": agree_ok})
+
+    # MALA over DALTON's value and gradient: 128 lanes x 20 steps
+    s_dal = 20
+    (pos_d, ll_d, acc_d), sec_d, counts_d, peak_d = timed_run(
+        lambda: tpar.run_chains_mala_fused(
+            init_g, gen_mc, s_dal, steps_mc["mala"], model="fitzhugh",
+            likelihood="dalton", device=dev, **solver_mc, **obs_mc))
+    fresh_d = fd.dalton_fused_batch(pos_d[-1], device=dev, **lanes_mc)
+    dal_ok = [
+        check("mcmc", "DALTON MALA launches",
+              counts_d == expect(dalton_filter_batch_tan=2 * (s_dal + 1))),
+        check("mcmc", "DALTON MALA finite", finite(pos_d, ll_d)),
+        check("mcmc", "DALTON MALA carried log-density bitwise",
+              torch.equal(fresh_d, ll_d))]
+    emit({"phase": "mcmc", "runner": "run_chains_mala_fused",
+          "likelihood": "dalton", "model": "fitzhugh", "n_lane": n_g,
+          "n_samples": s_dal, "step_size": float(steps_mc["mala"]),
+          "launches": launched(counts_d), "seconds": sec_d,
+          **rates(n_g * s_dal, sec_d, pos_d[..., 0]),
+          "mean_accept": acc_d.mean().item(), "peak_mem_bytes": peak_d,
+          "ok": all(dal_ok)})
+    del pos_d, ll_d, acc_d, fresh_d
+
+    # MAGI's Gibbs sampler of the path and sigma^2 on phase 18's fixture
+    n_sw, n_in = 4, 2
+    subs_gb = mu4k[None, :n_mg + 1, :, :2] + \
+        1e-4 * torch.arange(b_mg, dtype=torch.float32,
+                            device=dev)[:, None, None, None]
+    (pos_gb, sig2_gb, ll_gb, acc_gb), sec_gb, counts_gb, peak_gb = \
+        timed_run(lambda: tpar.run_chains_magi_gibbs(
+            subs_gb, gen_mc, n_sw, 1e-6, magi_expand, 2,
+            cfg_mg["prior_pars"], dt_mg, sig2_init=1.0, n_inner=n_in,
+            device=dev))
+    # a gradient call a MALA step and a refresh a sweep, and the first;
+    # two value calls a sweep
+    n_grad_gb = 1 + n_sw * (n_in + 1)
+    gibbs_ok = [
+        check("mcmc", "Gibbs launches", counts_gb == expect(
+            magi_batch=n_grad_gb + 2 * n_sw, magi_adjoint_batch=n_grad_gb)),
+        check("mcmc", "Gibbs sigma^2 finite and positive",
+              finite(sig2_gb) and (sig2_gb > 0).all().item()),
+        check("mcmc", "Gibbs log-densities finite", finite(ll_gb, pos_gb))]
+    emit({"phase": "mcmc", "runner": "run_chains_magi_gibbs",
+          "model": "lorenz", "n_steps": n_mg, "n_lane": b_mg,
+          "n_sweeps": n_sw, "n_inner": n_in, "step_size": 1e-6,
+          "launches": launched(counts_gb), "seconds": sec_gb,
+          **rates(b_mg * n_sw, sec_gb, sig2_gb), "ess_of": "sigma^2",
+          "sig2_mean": sig2_gb.mean().item(),
+          "mean_accept": acc_gb.mean().item(), "peak_mem_bytes": peak_gb,
+          "ok": all(gibbs_ok)})
+    del subs_gb, pos_gb, sig2_gb, ll_gb, acc_gb
+
+    # the reference path: pseudo_marginal.normal_random_walk through
+    # run_chains, 32 chains of bench.py's mcmc_xla log-density (the
+    # torch-op solve_sim, eigh), as many steps (3 to 10) as fit MCMC_XLA_S
+    y_mc = fix_mc["y"]
+    idx_mc = torch.as_tensor(mcmc_ref.OBS_IDX, device=dev)
+
+    def logpost_xla(theta, rng):
+        xs = tprecond.solve_sim(key=rng, interrogate=interrogate_kramer,
+                                theta=theta, method="eigh", **cfg_mc)
+        resid = xs[idx_mc, :, 0] - y_mc
+        return -0.5 * torch.sum(resid * resid) / mcmc_ref.SIGMA_OBS ** 2, \
+            xs[-1]
+
+    n_xla = 32
+    _, t_call, _, _ = timed_run(lambda: logpost_xla(theta_mc, gen_mc))
+    s_xla = min(10, max(3, int(MCMC_XLA_S / (n_xla * t_call)) - 1))
+    alg_xla = tpm.normal_random_walk(
+        logpost_xla, 0.01 * torch.ones(3, device=dev))
+    (pos_x, state_x, acc_x), sec_x, counts_x, peak_x = timed_run(
+        lambda: tpar.run_chains(alg_xla, theta_mc.expand(n_xla, 3), gen_mc,
+                                s_xla))
+    xla_ok = [
+        check("mcmc", "run_chains finite",
+              finite(pos_x, state_x.logdensity, state_x.auxdata)),
+        check("mcmc", "run_chains launches no kernel",
+              counts_x == expect())]
+    emit({"phase": "mcmc", "runner": "run_chains",
+          "algorithm": "pseudo_marginal.normal_random_walk",
+          "logdensity": "ops.precond.solve_sim (eigh)", "model": "fitzhugh",
+          "n_chains": n_xla, "n_samples": s_xla, "sigma": 0.01,
+          "logdensity_call_s": t_call, "seconds": sec_x,
+          **rates(n_xla * s_xla, sec_x, pos_x[..., 0]),
+          "mean_accept": acc_x.mean().item(), "peak_mem_bytes": peak_x,
+          "ok": all(xla_ok)})
+    del pos_x, state_x, acc_x
+    mcmc_s = time.perf_counter() - t_phase
+    check("mcmc", f"phase within {MCMC_PHASE_S} s", mcmc_s <= MCMC_PHASE_S)
+    emit({"phase": "mcmc", "seconds": mcmc_s, "limit_s": MCMC_PHASE_S})
 
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end

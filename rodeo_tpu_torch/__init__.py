@@ -9,7 +9,7 @@ itself to the JAX package's numbers in ``tests/test_torch_*.py``.  It imports
 
 Ported so far (the ``solve_mv`` slice, the lane-batched inference
 path and its gradients, the single-solve fused path, MAGI, non-Gaussian
-DALTON and the torch-op surface):
+DALTON, the torch-op surface and the MCMC layer):
 
 - the torch-ops, plain PyTorch on the tensors' device and differentiable
   by ``torch.autograd``: :func:`rodeo_tpu_torch.solve_mv` and
@@ -58,7 +58,19 @@ DALTON and the torch-op surface):
   ``ops/csrc/filter_nn_batch.cu``, K2r and K1) with its forward-mode
   gradient :func:`daltonng_fused_batch_grad` (``ops/csrc/
   filter_nn_batch_tan.cu``, K11e and K11a), for the observation models of
-  :mod:`rodeo_tpu_torch.models.obs`.
+  :mod:`rodeo_tpu_torch.models.obs`;
+- MCMC: the pseudo-marginal random-walk kernels
+  :mod:`rodeo_tpu_torch.inference.pseudo_marginal` (with
+  ``save_state``/``load_state``, the JAX package's checkpoint format), and
+  :mod:`rodeo_tpu_torch.parallel`: the chains of any such algorithm
+  (:func:`~rodeo_tpu_torch.parallel.run_chains`), the lockstep runners
+  over the fused entry points in :mod:`rodeo_tpu_torch.parallel.chains`
+  (the random walk over posterior draws, K1 and K6; MALA and HMC over
+  fenrir, K11a and K11b, and DALTON, K11c; MAGI's MALA, HMC and Gibbs
+  sampler of the path and sigma^2, K10a and K10b; step-size adaptation)
+  and :mod:`rodeo_tpu_torch.parallel.nuts` (lockstep NUTS), and the
+  diagnostics ``ess`` and ``rhat`` (:mod:`rodeo_tpu_torch.parallel.
+  diagnostics`); :mod:`rodeo_tpu_torch.pytree` carries their pytrees.
 
 The fused entry points and the model setups run on the CUDA card unless
 they are given ``device="cpu"`` (:mod:`rodeo_tpu_torch.device`).
@@ -68,6 +80,7 @@ __version__ = "0.1.0"
 
 from rodeo_tpu_torch import inference
 from rodeo_tpu_torch import interrogate
+from rodeo_tpu_torch import parallel
 from rodeo_tpu_torch import prior
 from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  dalton_fused_batch, dalton_fused_batch_grad,
@@ -83,7 +96,7 @@ from rodeo_tpu_torch.ops import (basic_fused_batch, basic_fused_batch_grad,
                                  solve_sim_fused_batch)
 from rodeo_tpu_torch.solve import solve_mv, solve_sim
 
-__all__ = ["inference", "interrogate", "prior", "solve_mv", "solve_sim",
+__all__ = ["inference", "interrogate", "parallel", "prior", "solve_mv", "solve_sim",
            "solve_mv_fused_batch", "basic_fused_batch", "fenrir_fused_batch", "dalton_fused_batch",
            "solve_sim_fused_batch", "solve_mv_fused_batch_grad",
            "basic_fused_batch_grad", "fenrir_fused_batch_grad",

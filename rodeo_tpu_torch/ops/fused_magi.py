@@ -48,14 +48,13 @@ import math
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.utils._pytree import tree_flatten, tree_unflatten
-
 from rodeo_tpu_torch.device import resolve_device
 from rodeo_tpu_torch.ops.fused_kalman import (
     _LOG2PI, _acc, _block_sum, _check, _host_qconst, _launch,
     _launch_geometry, _matvec, _pack_tri, _static_scaled_qconst, _sym_inv,
     _sym_quadform, _tri_idx)
 from rodeo_tpu_torch.ops.precond import scale_prior, taylor_scale
+from rodeo_tpu_torch.pytree import tree_flatten, tree_unflatten
 
 __all__ = ["magi_fused_batch", "magi_fused_batch_grad", "MagiLogdens",
            "magi_filter_batch", "magi_adjoint_batch", "LAUNCHES"]
@@ -499,7 +498,7 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active, prior_pars,
         else:
             paths = torch.vmap(lambda u, th: ode_expand(u, theta=th,
                                                         **params))(
-                inputs[0], tree_unflatten(inputs[1:], spec))
+                inputs[0], tree_unflatten(spec, inputs[1:]))
         ld = MagiLogdens.apply(paths, int(n_active), prior_pars, float(dt),
                                sig2)
         grads = torch.autograd.grad(ld, inputs,
@@ -509,4 +508,4 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active, prior_pars,
              for g, x in zip(grads, inputs)]
     if theta_lanes is None:
         return ld.detach(), grads[0]
-    return ld.detach(), grads[0], tree_unflatten(grads[1:], spec)
+    return ld.detach(), grads[0], tree_unflatten(spec, grads[1:])
