@@ -218,6 +218,28 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              Each runner's chain steps per second, ESS per second (of
              theta_0; of sigma^2 for Gibbs), mean acceptance and peak
              memory, and the phase's seconds, within MCMC_PHASE_S;
+25. coverage the instances K1, K3, K2r and K4 took last: each new K1 and
+             K3 instance (schober and chkrebtii; Hes1 and SEIRAH at q = 3;
+             Chkrebtii's ODE at q = 4 and 5) bitwise against its twin on
+             37 lanes and on lane 0, with its registers and local bytes;
+             K2r and K4 at q = 4 and 5 bitwise on seeded rows and on
+             Chkrebtii's gains; Lorenz63 10 000 x 2048 under schober and
+             chkrebtii (the tool's prior sigma CHKREBTII_SIGMA): one K1 and
+             one K2r launch, finite, time per call, K1 and K2r alone, peak
+             memory, and K1 and K2r at 2048 lanes bitwise against their
+             twins over COVERAGE_TWIN_STEPS steps; the pointwise audits of
+             tools/torch_coverage_reference.py's fixtures (Chkrebtii's ODE
+             at q = 4 and 5, 1024 steps, 128 lanes, where K1, K2r, K3 and
+             K4 are also held bitwise to their twins over
+             COVERAGE_TWIN_STEPS steps at 128 lanes and one solve; Hes1
+             and SEIRAH at their setups' size, 2048 lanes; schober on
+             FitzHugh-Nagumo, 800 steps), one solve and a lane batch, x
+             held to the float64 torch-op solve on the card within max(3
+             x COVERAGE_F32_CPU_ERR, COVERAGE_FLOOR); chkrebtii's 2048
+             lanes on FitzHugh-Nagumo against 16 float64 torch-op
+             realizations (CHK_MEAN_TOL, CHK_SPREAD); chkrebtii's draws at
+             2048 lanes and a 512-chain x 20-step random walk (K1 and K6 a
+             step), and the phase's seconds, within COVERAGE_PHASE_S;
 
 Then the script's total seconds, one line {"kernels": [...]} with each
 kernel's launches on its path,
@@ -329,17 +351,48 @@ TORCH_OP_TOL = {
     "basic": {"value": 1.9e-8, "grad": 1.2e-6},
     "basic_fitz": {"value": 1e-10},
 }
-# Calls of each float64 likelihood in the torch_op phase, timed and held
-# bitwise alike: two, not three, because its host-bound Python loops take
-# 20-41 s a call where the host is slow (with three the script's total
-# reached 1137 s on an NVIDIA H100 80GB HBM3 at 700 W whose host ran the
-# earlier phases 1.4 x slower than another's).
-TORCH_OP_CALLS = 2
+# Calls of each float64 likelihood in the torch_op phase, timed (and held
+# bitwise alike where more than one): one, because its host-bound Python
+# loops take 20-46 s a call where the host is slow.  On an NVIDIA H100 80GB
+# HBM3 at 700 W the script's total reached 1137 s with three calls and the
+# earlier phases alone, and 1291 s with two, the coverage phase and its
+# larger build on a host that ran the kernels' plain twins 1.2 x slower
+# than another's; one call takes ~97 s off such a run.
+TORCH_OP_CALLS = 1
 # The mcmc phase: its time limit, and the seconds its reference path
 # (run_chains over the torch-op solve_sim, 32 chains) may take, which set
 # its number of steps between 3 and 10.
 MCMC_PHASE_S = 90.0
 MCMC_XLA_S = 20.0
+# The coverage phase (the instances of K1, K3, K2r and K4 taken last) stays
+# within COVERAGE_PHASE_S seconds.  Its pointwise audits hold x, every step
+# and block, of a fused solve to the float64 torch-op solve on the card
+# within max(3 x the float32 twin's error on the CPU, COVERAGE_FLOOR),
+# bench.py's FitzHugh-Nagumo rule (bench.py:1948-1956); the CPU errors are
+# those that tools/torch_coverage_reference.py prints on the CPU.
+# chkrebtii's realizations on FitzHugh-Nagumo agree with the float64
+# torch-op's in distribution as the JAX package's test holds its own
+# (tests/test_pallas_kalman.py:219-253): the largest difference of the
+# mean paths under CHK_MEAN_TOL, the ratio of the mean spreads within
+# CHK_SPREAD.  Lorenz63 runs chkrebtii at the tool's prior sigma
+# CHKREBTII_SIGMA (its INSTANCE_CHECKS say why).
+COVERAGE_PHASE_S = 60.0
+COVERAGE_FLOOR = 1e-3
+# The coverage phase holds K1, K2r, K3 and K4 bitwise to their twins at its
+# paths' widths (2048 lanes under schober and chkrebtii, 128 lanes and one
+# solve of Chkrebtii's ODE at q = 4 and 5) over their first
+# COVERAGE_TWIN_STEPS steps: the twins' Python loops take ~5 ms a step on
+# the card for Lorenz63 and ~38 ms for the four at q = 5, so their whole
+# 1000-1024 steps took 69 s of the phase's 60 on an NVIDIA H100 80GB HBM3
+# at 700 W.
+COVERAGE_TWIN_STEPS = 128
+COVERAGE_F32_CPU_ERR = {"chkrebtii_q4": 3.60294503021219e-06,
+                        "chkrebtii_q5": 7.612751023122755e-06,
+                        "hes1": 0.00020639555296497747,
+                        "seirah": 25.953269347548485,
+                        "fitz_schober": 1.077029389517925e-05}
+CHK_MEAN_TOL = 1e-2
+CHK_SPREAD = (0.5, 2.0)
 # The torch_op phase's draws against the float64 posterior of
 # ops.precond.solve_mv: the mean of (x - mu)^2 / sigma^2 over the draws and
 # the entries whose posterior variance exceeds SIM_VAR_MIN, 1 in
@@ -672,7 +725,7 @@ def main():
         (steps x lanes), or from n_ops operations where given.  Registers
         the kernel's entry of the kernels line under key (its name unless
         given); returns the kernel's outputs and the entry.  The source is
-        csrc/<name>.cu unless named."""
+        csrc/<name>.cu unless named (a file of csrc/)."""
         ms = device_ms(launch, repeats)
         call_ms = cuda_ms(launch, repeats)
         out = as_tuple(launch())
@@ -688,7 +741,7 @@ def main():
         max_abs, max_scaled = worst(errs)
         entry = {
             "name": name, "route": "cuda",
-            "source": f"rodeo_tpu_torch/ops/csrc/{source or name}.cu",
+            "source": f"rodeo_tpu_torch/ops/csrc/{source or name + '.cu'}",
             "replaces": f"rodeo_tpu/ops/{replaces}",
             "launches": launches[name], "max_abs_err": max_abs,
             "max_scaled_err": max_scaled, "tol_scaled": TWIN_TOL,
@@ -777,7 +830,8 @@ def main():
             if "Compiling entry function" in line:
                 entry = None
                 if symbol in line:
-                    args = re.search(r"(Lorenz63|FitzHughNagumo)E"
+                    args = re.search(r"(Lorenz63|FitzHughNagumo|Chkrebtii"
+                                     r"|Hes1|Seirah)E"
                                      r"(?:NS_\d+(Gauss|Poisson)E)?Li(\d+)"
                                      r"ELi(\d+)E(?:Lb(\d)E)?", line)
                     magi = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)EE",
@@ -821,6 +875,15 @@ def main():
                                                    line)[1])
         return rows
 
+    def earlier_scope(rows):
+        """The instantiations of ptxas_report that the phases before
+        coverage run: q = 3, Lorenz63 and FitzHugh-Nagumo, kramer and
+        rodeo (the coverage phase records the others)."""
+        return [r for r in rows if r.get("q") == 3
+                and r.get("model", "Lorenz63") in ("Lorenz63",
+                                                   "FitzHughNagumo")
+                and r.get("mode", 0) in (0, 1)]
+
     def split_record(phase, kernel, label, geometry, per_sm=True):
         """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
         or of a stream (STREAM_KERNELS) at its path's columns, as the card
@@ -837,8 +900,8 @@ def main():
         fewer columns
         than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
         x 2048 columns, 128 CTAs)."""
-        report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
-                               **SLAB_KERNELS}[kernel])
+        report = earlier_scope(ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
+                                             **SLAB_KERNELS}[kernel]))
         check(phase, f"{label} all resident", geometry["all_resident"])
         if per_sm and (geometry["grid_y"] > 1 or kernel in STREAM_KERNELS):
             check(phase, f"{label} at least one CTA per SM",
@@ -981,7 +1044,7 @@ def main():
         k1_names, lambda n: fk._filter_batch_plain(
             fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
             mode="kramer"),
-        n_steps * n_lane, tensors(ops), repeats=3,
+        n_steps * n_lane, tensors(ops), repeats=3, source="filter_batch.cuh",
         shape=f"{n_steps} x {n_lane}",
         **split_record("main", "filter_batch", "filter_batch lorenz",
                        fk._filter_batch_geometry("lorenz", n_lane)))
@@ -1908,7 +1971,7 @@ def main():
                 fused, n, **{**cpu_1, "tgrid": cpu_1["tgrid"][:n]},
                 mode="kramer"),
             n_1, tensors(ops_1), register=on_path, config=f"{n_1} steps",
-            shape=f"{n_1} steps", **k3_record)
+            source="filter_single.cuh", shape=f"{n_1} steps", **k3_record)
         entry_3 = at_single[f"filter_single/{n_1}"]
         entry_3["us_per_step"] = 1e3 * entry_3["ms"] / n_1
         chain_bound(entry_3, "filter_single", n_1)
@@ -2198,7 +2261,7 @@ def main():
         lambda n: fk._mean_boundary_plain(*long_cpu[:6], long_cpu[6][:n],
                                           long_cpu[7], 1),
         n_tail, tensors(dict(enumerate(long_5))),
-        source="mean_chain_single", shape=f"{n_tail} steps", **k5b_record)
+        source="mean_chain_single.cu", shape=f"{n_tail} steps", **k5b_record)
     at_stat["mean_boundary_single"]["us_per_step"] = \
         1e3 * at_stat["mean_boundary_single"]["ms"] / n_tail
     check("stationary_kernels", "mean_boundary_single bitwise",
@@ -2212,7 +2275,7 @@ def main():
         lambda n: fk._mean_recovery_plain(*rec_cpu[:6], rec_cpu[6][:n],
                                           rec_cpu[7]),
         n_tail, tensors(dict(enumerate(rec_5))),
-        source="mean_chain_single",
+        source="mean_chain_single.cu",
         shape=f"{bnd[0].shape[0]} groups of 64", **k5c_record)
     _, at_stat["mean_gain_single"] = at_path_shapes(
         "stationary_kernels", "mean_gain_single", "pallas_kalman.py:2197",
@@ -2221,7 +2284,7 @@ def main():
         lambda n: fk._mean_gain_plain(*short_cpu[:6], short_cpu[6][:n],
                                       short_cpu[7][:n]),
         n_short, tensors(dict(enumerate(short_5))),
-        source="mean_chain_single", shape=f"{n_short} steps", **k5a_record)
+        source="mean_chain_single.cu", shape=f"{n_short} steps", **k5a_record)
     for kernel in ("mean_recovery_single", "mean_gain_single"):
         check("stationary_kernels", f"{kernel} bitwise",
               at_stat[kernel]["bitwise"])
@@ -2781,7 +2844,7 @@ def main():
                 torch.cuda.max_memory_allocated())
 
     # the float64 likelihoods and their gradients against the cache, each
-    # called twice (TORCH_OP_CALLS)
+    # called TORCH_OP_CALLS times
     f64_ll = {}
     for name, call in torch_op_reference.likelihood_calls(dev).items():
         outs, event_ms, wall_ms, peak = timed_calls(call, TORCH_OP_CALLS)
@@ -3130,6 +3193,419 @@ def main():
     mcmc_s = time.perf_counter() - t_phase
     check("mcmc", f"phase within {MCMC_PHASE_S} s", mcmc_s <= MCMC_PHASE_S)
     emit({"phase": "mcmc", "seconds": mcmc_s, "limit_s": MCMC_PHASE_S})
+
+    # ---- 25. coverage: every instance of K1, K3, K2r and K4 -------------
+    t_phase = time.perf_counter()
+    import functools
+    import torch_coverage_reference as cov_ref
+    from rodeo_tpu_torch.interrogate import interrogate_chkrebtii
+    from rodeo_tpu_torch.models import chkrebtii, hes1, seirah
+    from rodeo_tpu_torch.ops import fused_sim as fs_cov
+
+    # (a) each instance that the kernels took in this slice, bitwise against
+    # its twin at a small shape: K1 on 37 lanes (a ragged lane group), K3 on
+    # lane 0, on tools/torch_coverage_reference.py's INSTANCE_CHECKS, short
+    # horizons on which every mode stays finite
+    t_part = time.perf_counter()
+    cov_rows, gains_q = [], {}
+    for functor, mode, q in cov_ref.new_filter_instances():
+        case = cov_ref.instance_case(functor, mode, q, 37, dev, seed=19)
+        outs_c = cov_ref.filter_instance_outputs(case, mode)
+        torch.cuda.synchronize()
+        row = dict(case["config"])
+        for name_k, (ko, po) in zip(("filter_batch", "filter_single"),
+                                    outs_c):
+            fin = all(torch.isfinite(a).all().item() for a in po)
+            bit = all(torch.equal(a, b) for a, b in zip(ko, po))
+            check("coverage", f"{name_k} {functor}/{mode}/q={q} finite", fin)
+            check("coverage", f"{name_k} {functor}/{mode}/q={q} bitwise",
+                  bit)
+            row[name_k] = {"bitwise": bit, "finite": fin,
+                           "max_scaled_err": worst(compare(
+                               [str(i) for i in range(len(ko))], ko,
+                               po))[1]}
+        for name_k, geo in (
+                ("filter_batch", fk._filter_batch_geometry(
+                    case["fused"], 2048, mode=mode, q=q)),
+                ("filter_single", fk._filter_single_geometry(
+                    case["fused"], mode=mode, q=q))):
+            row[name_k].update(registers=geo["registers"],
+                               local_bytes=geo["local_bytes"],
+                               shared_bytes=geo["shared_bytes"])
+        if functor == "Chkrebtii" and mode == "kramer":
+            gains_q[q] = (outs_c[0][0], case["batch"])
+        cov_rows.append(row)
+        del outs_c
+    emit({"phase": "coverage", "part": "instances", "rows": cov_rows,
+          "seconds": time.perf_counter() - t_part,
+          "ptxas": [r for sym in ("19filter_batch_kernel",
+                                  "20filter_single_kernel")
+                    for r in ptxas_report(sym)
+                    if r not in earlier_scope([r])]})
+
+    # K2r and K4 at q = 4 and 5: on seeded rows, and on K1's gains of
+    # Chkrebtii's ODE (K2r) and on K3's smoothing gains of it (K4)
+    t_part = time.perf_counter()
+    cov_rows = []
+    for q in (4, 5):
+        rng_c = np.random.default_rng(q)
+        pairs_c, _ = fk._tri_idx(q)
+        T_c, nb_c, B_c = 300, 3, 37
+        A_c = rng_c.standard_normal((T_c, nb_c, B_c, q, q))
+        Lf_c = A_c @ np.swapaxes(A_c, -1, -2)
+        sc_c = np.linspace(1.0, 0.1, q)
+        seeded_c = [torch.tensor(a, dtype=torch.float32,
+                                 device=dev).contiguous() for a in (
+            rng_c.standard_normal((T_c, q, nb_c, B_c)),
+            np.eye(q).reshape(1, q * q, 1, 1) * 0.5
+            + 0.1 * rng_c.standard_normal((T_c, q * q, nb_c, B_c)),
+            np.stack([Lf_c[..., i, j] for i, j in pairs_c], axis=1),
+            rng_c.standard_normal((q, nb_c, B_c)),
+            np.abs(rng_c.standard_normal((len(pairs_c), nb_c, B_c))),
+            rng_c.standard_normal((q, nb_c, B_c)), sc_c,
+            [sc_c[i] * sc_c[j] for i, j in pairs_c])]
+        (G_c, g_c, L_c, mN_c, pN_c), ops_c = gains_q[q]
+        k1_rows = (g_c[1:], G_c[1:], L_c[1:], mN_c, pN_c, ops_c["x0_lanes"],
+                   ops_c["t_vec"], fk._tri_scale(ops_c["t_vec"]))
+        for source, args_c in (("seeded", seeded_c), ("k1_gains", k1_rows)):
+            ko = fk.smoother_recursion_batch_rows(*args_c)
+            po = fk._smoother_batch_rows_plain(*args_c)
+            torch.cuda.synchronize()
+            bit = all(torch.equal(a, b) for a, b in zip(ko, po))
+            check("coverage", f"smoother_batch_rows q={q} {source} bitwise",
+                  bit)
+            cov_rows.append({"kernel": "smoother_batch_rows", "q": q,
+                             "inputs": source, "bitwise": bit})
+        case = cov_ref.instance_case("Chkrebtii", "kramer", q, 1, dev,
+                                     seed=19)
+        cfg_c, n_c = case["cfg"], case["n_steps"]
+        one, Qs_c = fk._single_operands(
+            torch.zeros(1, device=dev), cfg_c["ode_weight"],
+            cfg_c["ode_init"], 0.0, cfg_c["t_max"], n_c, cfg_c["prior_pars"])
+        mf_c, pf_c, mp_c, pp_c = fk.fused_filter(case["fused"], n_c, **one)
+        k4_gains = fk._smoother_gains(Qs_c, one["prior_var"], mf_c[:-1],
+                                      pf_c[:-1], mp_c[1:], pp_c[1:])
+        k4_seeded = [torch.tensor(a, dtype=torch.float32,
+                                  device=dev).contiguous() for a in (
+            rng_c.standard_normal((T_c, 7, q)),
+            np.eye(q).reshape(1, 1, q * q) * 0.5
+            + 0.1 * rng_c.standard_normal((T_c, 7, q * q)),
+            np.abs(rng_c.standard_normal((T_c, 7, len(pairs_c)))),
+            rng_c.standard_normal((7, q)),
+            np.abs(rng_c.standard_normal((7, len(pairs_c)))))]
+        for source, args_c in (("seeded", k4_seeded),
+                               ("k3_gains", (*k4_gains, mf_c[-1],
+                                             pf_c[-1]))):
+            ko = fk.smoother_recursion(*args_c)
+            po = fk._smoother_single_plain(*args_c)
+            torch.cuda.synchronize()
+            bit = all(torch.equal(a, b) for a, b in zip(ko, po))
+            check("coverage", f"smoother_single q={q} {source} bitwise", bit)
+            cov_rows.append({"kernel": "smoother_single", "q": q,
+                             "inputs": source, "n_block": args_c[0].shape[1],
+                             "bitwise": bit})
+        geo2 = fk._smoother_batch_rows_geometry(3, 2048, q=q)
+        geo4 = fk._smoother_single_geometry(1, q=q)
+        cov_rows.append({"q": q, "smoother_batch_rows_geometry": geo2,
+                         "smoother_single_geometry": geo4})
+    emit({"phase": "coverage", "part": "smoothers", "rows": cov_rows,
+          "seconds": time.perf_counter() - t_part,
+          "ptxas": [r for sym in ("26smoother_batch_rows_kernel",
+                                  "22smoother_single_kernel")
+                    for r in ptxas_report(sym) if r.get("q") != 3]})
+    del gains_q
+
+    def batch_kernels_ms(model_k, mode_k, thetas_k, inits_k, cfg_k, eps_k):
+        """K1 and K2r alone on a batched solve's operands: their device
+        milliseconds (device_ms, median of 3)."""
+        n_k = cfg_k["n_steps"]
+        ops_k = fk._kernel_operands(thetas_k, cfg_k["ode_weight"], inits_k,
+                                    cfg_k["t_min"], cfg_k["t_max"], n_k,
+                                    cfg_k["prior_pars"])
+        fused_k = fk.resolve_model(model_k)
+        k1 = functools.partial(fk.fused_filter_batch, fused_k, n_k, **ops_k,
+                               mode=mode_k, eps=eps_k)
+        G_k, g_k, L_k, mN_k, pN_k = k1()
+        t_k = ops_k["t_vec"]
+        rows_k = (g_k[1:], G_k[1:], L_k[1:], mN_k, pN_k, ops_k["x0_lanes"],
+                  t_k, fk._tri_scale(t_k))
+        return {"filter_batch": device_ms(k1, 3),
+                "smoother_batch_rows": device_ms(
+                    lambda: fk.smoother_recursion_batch_rows(*rows_k), 3)}
+
+    def single_kernels_ms(model_k, cfg_k, theta_k):
+        """K3 and K4 alone on one solve's operands (kramer), device
+        milliseconds."""
+        n_k = cfg_k["n_steps"]
+        one_k, Qs_k = fk._single_operands(
+            theta_k, cfg_k["ode_weight"], cfg_k["ode_init"], cfg_k["t_min"],
+            cfg_k["t_max"], n_k, cfg_k["prior_pars"])
+        fused_k = fk.resolve_model(model_k)
+        k3 = functools.partial(fk.fused_filter, fused_k, n_k, **one_k)
+        mf_k, pf_k, mp_k, pp_k = k3()
+        k4_args = (*fk._smoother_gains(Qs_k, one_k["prior_var"], mf_k[:-1],
+                                       pf_k[:-1], mp_k[1:], pp_k[1:]),
+                   mf_k[-1], pf_k[-1])
+        return {"filter_single": device_ms(k3, 3),
+                "smoother_single": device_ms(
+                    lambda: fk.smoother_recursion(*k4_args), 3)}
+
+    def prefix(cfg_k, n_k):
+        """cfg_k's first n_k steps: the same step size, t_max cut to the
+        n_k-th step."""
+        return {**cfg_k, "n_steps": n_k, "t_max": cfg_k["t_min"] + (
+            cfg_k["t_max"] - cfg_k["t_min"]) * n_k / cfg_k["n_steps"]}
+
+    def twin_row(label, ko, po):
+        """A kernel's outputs against its twin's on the same operands:
+        bitwise (checked) and the largest scaled error."""
+        bit = all(torch.equal(a, b) for a, b in zip(ko, po))
+        check("coverage", f"{label} bitwise", bit)
+        return {"bitwise": bit, "max_scaled_err": worst(compare(
+            [str(i) for i in range(len(ko))], ko, po))[1]}
+
+    def batch_twins(label, model_k, mode_k, thetas_k, inits_k, cfg_k,
+                    eps_k):
+        """K1 on a batched solve's operands and K2r on K1's gains, each
+        against its twin on the same operands (twin_row)."""
+        n_k = cfg_k["n_steps"]
+        ops_k = fk._kernel_operands(thetas_k, cfg_k["ode_weight"], inits_k,
+                                    cfg_k["t_min"], cfg_k["t_max"], n_k,
+                                    cfg_k["prior_pars"])
+        fused_k = fk.resolve_model(model_k)
+        k1_out = fk.fused_filter_batch(fused_k, n_k, **ops_k, mode=mode_k,
+                                       eps=eps_k)
+        k1_twin = fk._filter_batch_plain(fused_k, n_k, **ops_k, mode=mode_k,
+                                         eps=eps_k)
+        G_k, g_k, L_k, mN_k, pN_k = k1_out
+        t_k = ops_k["t_vec"]
+        rows_k = (g_k[1:], G_k[1:], L_k[1:], mN_k, pN_k, ops_k["x0_lanes"],
+                  t_k, fk._tri_scale(t_k))
+        k2_out = fk.smoother_recursion_batch_rows(*rows_k)
+        k2_twin = fk._smoother_batch_rows_plain(*rows_k)
+        torch.cuda.synchronize()
+        return {"filter_batch": twin_row(f"{label} filter_batch", k1_out,
+                                         k1_twin),
+                "smoother_batch_rows": twin_row(
+                    f"{label} smoother_batch_rows", k2_out, k2_twin)}
+
+    def single_twins(label, model_k, cfg_k, theta_k):
+        """K3 on one solve's operands (kramer) and K4 on its smoothing
+        gains, each against its twin on the same operands (twin_row)."""
+        n_k = cfg_k["n_steps"]
+        one_k, Qs_k = fk._single_operands(
+            theta_k, cfg_k["ode_weight"], cfg_k["ode_init"], cfg_k["t_min"],
+            cfg_k["t_max"], n_k, cfg_k["prior_pars"])
+        fused_k = fk.resolve_model(model_k)
+        k3_out = fk.fused_filter(fused_k, n_k, **one_k)
+        k3_twin = fk._filter_single_plain(fused_k, n_k, **one_k,
+                                          mode="kramer")
+        mf_k, pf_k, mp_k, pp_k = k3_out
+        k4_args = (*fk._smoother_gains(Qs_k, one_k["prior_var"], mf_k[:-1],
+                                       pf_k[:-1], mp_k[1:], pp_k[1:]),
+                   mf_k[-1], pf_k[-1])
+        k4_out = fk.smoother_recursion(*k4_args)
+        k4_twin = fk._smoother_single_plain(*k4_args)
+        torch.cuda.synchronize()
+        return {"filter_single": twin_row(f"{label} filter_single", k3_out,
+                                          k3_twin),
+                "smoother_single": twin_row(f"{label} smoother_single",
+                                            k4_out, k4_twin)}
+
+    # (b) the main path at full width under schober and chkrebtii: Lorenz63,
+    # 10 000 steps x 2048 lanes, chkrebtii at prior sigma CHKREBTII_SIGMA
+    # with normals drawn beforehand (the call's time is the solve's); K1 and
+    # K2r at the full 2048 lanes against their twins over the first
+    # COVERAGE_TWIN_STEPS steps
+    for mode in ("schober", "chkrebtii"):
+        t_part = time.perf_counter()
+        sigma_b = cov_ref.CHKREBTII_SIGMA if mode == "chkrebtii" else 5e7
+        cfg_b = lorenz.setup(n_steps=10000, t_max=20.0, prior_sigma=sigma_b,
+                             dtype=torch.float32, device=dev)
+        thetas_b = bench_thetas(cfg_b["theta"], 2048)
+        inits_b = cfg_b["ode_init"].expand(2048, 3, 3)
+        eps_b = torch.randn((10000, 3, 3, 2048),
+                            generator=torch.Generator(dev).manual_seed(25),
+                            device=dev) if mode == "chkrebtii" else None
+
+        def solve_b():
+            return fk.solve_mv_fused_batch(
+                thetas_b, cfg_b["ode_weight"], inits_b, 0.0, 20.0, 10000,
+                cfg_b["prior_pars"], model="lorenz", interrogation=mode,
+                eps=eps_b)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mean_b, var_b = solve_b()
+        torch.cuda.synchronize()
+        launches_b = read_counts()
+        peak_b = torch.cuda.max_memory_allocated()
+        ok_b = [check("coverage", f"{mode} full width launches",
+                      launches_b == expect(filter_batch=1,
+                                           smoother_batch_rows=1)),
+                check("coverage", f"{mode} full width finite",
+                      finite(mean_b, var_b))]
+        del mean_b, var_b
+        ms_b = cuda_ms(solve_b, repeats=3)
+        kernels_b = batch_kernels_ms("lorenz", mode, thetas_b, inits_b, cfg_b,
+                                     eps_b)
+        cfg_t = prefix(cfg_b, COVERAGE_TWIN_STEPS)
+        twins_b = batch_twins(
+            f"{mode} full width", "lorenz", mode, thetas_b, inits_b, cfg_t,
+            None if eps_b is None else eps_b[:COVERAGE_TWIN_STEPS])
+        emit({"phase": "coverage", "part": "full_width", "model": "lorenz",
+              "interrogation": mode, "prior_sigma": sigma_b,
+              "n_steps": 10000, "n_lane": 2048,
+              "launches": launched(launches_b), "solve_ms": ms_b,
+              "per_solve_us": 1e3 * ms_b / 2048, "peak_mem_bytes": peak_b,
+              "kernels_ms": kernels_b,
+              "twins": {"n_steps": cfg_t["n_steps"], "n_lane": 2048,
+                        **twins_b},
+              "seconds": time.perf_counter() - t_part,
+              "ok": all(ok_b) and all(r["bitwise"]
+                                      for r in twins_b.values())})
+        del eps_b
+
+    # (c)-(e) the pointwise audits: x of each fixture's fused solve, one
+    # solve (K3, K4) and a lane batch (K1, K2r, lane 0), against the
+    # float64 torch-op solve on the card
+    lanes_cov = {"chkrebtii_q4": 128, "chkrebtii_q5": 128, "hes1": 2048,
+                 "seirah": 2048, "fitz_schober": 128}
+    for name_f, n_lane_f in lanes_cov.items():
+        t_part = time.perf_counter()
+        mu64 = cov_ref.float64_solve(name_f, dev)
+        tol_f = max(3 * COVERAGE_F32_CPU_ERR[name_f], COVERAGE_FLOOR)
+        row = {"fixture": name_f, "config": cov_ref.FIXTURES[name_f],
+               "control_f32cpu": COVERAGE_F32_CPU_ERR[name_f], "tol": tol_f}
+        for how, n_l, kern in (("single", None, ("filter_single",
+                                                 "smoother_single")),
+                               ("batch", n_lane_f, ("filter_batch",
+                                                    "smoother_batch_rows"))):
+            call_f = cov_ref.float32_call(name_f, dev, n_lane=n_l)
+            reset_counts()
+            mu32 = call_f()
+            torch.cuda.synchronize()
+            launches_f = read_counts()
+            lane0 = mu32 if n_l is None else mu32[..., 0]
+            err_f = cov_ref.max_err_x(lane0, mu64)
+            check("coverage", f"{name_f} {how} launches",
+                  launches_f == expect(**{k: 1 for k in kern}))
+            check("coverage", f"{name_f} {how} finite", finite(mu32))
+            check("coverage", f"{name_f} {how} audit", err_f <= tol_f)
+            ms_f = cuda_ms(call_f, repeats=3)
+            row[how] = {"n_lane": n_l or 1, "max_abs_err_x": err_f,
+                        "ms": ms_f, "per_solve_ms": ms_f / (n_l or 1),
+                        "launches": launched(launches_f)}
+        if name_f.startswith("chkrebtii"):
+            cfg_k, theta_k = cov_ref.fixture_config(name_f, torch.float32,
+                                                    dev)
+            row["kernels_ms"] = {
+                "batch": batch_kernels_ms(
+                    "chkrebtii", "kramer", theta_k.expand(n_lane_f, 1),
+                    cfg_k["ode_init"].expand(
+                        (n_lane_f,) + cfg_k["ode_init"].shape), cfg_k, None),
+                "single": single_kernels_ms("chkrebtii", cfg_k, theta_k)}
+            # K1 and K2r over the fixture's lanes, K3 and K4 over one solve,
+            # against their twins on the same operands, over the first
+            # COVERAGE_TWIN_STEPS steps
+            cfg_t = prefix(cfg_k, COVERAGE_TWIN_STEPS)
+            row["twins"] = {
+                "n_steps": COVERAGE_TWIN_STEPS,
+                "batch": batch_twins(
+                    name_f, "chkrebtii", "kramer",
+                    theta_k.expand(n_lane_f, 1), cfg_k["ode_init"].expand(
+                        (n_lane_f,) + cfg_k["ode_init"].shape), cfg_t, None),
+                "single": single_twins(name_f, "chkrebtii", cfg_t, theta_k)}
+        emit({"phase": "coverage", "part": "audit", **row,
+              "seconds": time.perf_counter() - t_part,
+              "ok": all(row[h]["max_abs_err_x"] <= tol_f
+                        for h in ("single", "batch"))
+              and all(r["bitwise"] for h in ("batch", "single")
+                      for r in row.get("twins", {}).get(h, {}).values())})
+        del mu64, mu32
+
+    # (f) chkrebtii in distribution: FitzHugh-Nagumo, 100 steps to t = 5,
+    # 2048 fused lanes against 16 float64 torch-op realizations
+    cfg_f = fitzhugh.setup(n_steps=100, t_max=5.0, dtype=torch.float32,
+                           device=dev)
+    theta_f = cfg_f.pop("theta")
+    reset_counts()
+    mu_chk, _ = fk.solve_mv_fused_batch(
+        theta_f.expand(2048, 3), cfg_f["ode_weight"],
+        cfg_f["ode_init"].expand(2048, 2, 3), 0.0, 5.0, 100,
+        cfg_f["prior_pars"], model="fitzhugh", interrogation="chkrebtii",
+        generator=torch.Generator(dev).manual_seed(26))
+    launches_f = read_counts()
+    cfg_f64 = fitzhugh.setup(n_steps=100, t_max=5.0, dtype=torch.float64,
+                             device=dev)
+    theta_f64 = cfg_f64.pop("theta")
+    real = torch.stack([rodeo_tpu_torch.solve_mv(
+        key=torch.Generator(dev).manual_seed(100 + s_r),
+        interrogate=functools.partial(interrogate_chkrebtii,
+                                      kalman_type="standard"),
+        theta=theta_f64, **cfg_f64)[0][:, :, 0] for s_r in range(16)])
+    x_chk = mu_chk[:, :, 0, :].double()
+    mean_diff = (x_chk.mean(-1) - real.mean(0)).abs().max().item()
+    sd_ratio = (x_chk.std(-1).mean() / real.std(0).mean()).item()
+    dist_ok = [check("coverage", "chkrebtii launches",
+                     launches_f == expect(filter_batch=1,
+                                          smoother_batch_rows=1)),
+               check("coverage", "chkrebtii finite",
+                     finite(mu_chk) and finite(real)),
+               check("coverage", "chkrebtii mean paths",
+                     mean_diff < CHK_MEAN_TOL),
+               check("coverage", "chkrebtii spread",
+                     CHK_SPREAD[0] < sd_ratio < CHK_SPREAD[1])]
+    emit({"phase": "coverage", "part": "chkrebtii_distribution",
+          "model": "fitzhugh", "n_steps": 100, "t_max": 5.0, "n_lane": 2048,
+          "n_realizations": 16, "max_mean_diff": mean_diff,
+          "mean_tol": CHK_MEAN_TOL, "spread_ratio": sd_ratio,
+          "spread_range": CHK_SPREAD, "ok": all(dist_ok)})
+    del mu_chk, real, x_chk
+
+    # (g) chkrebtii draws: solve_sim_fused_batch at 2048 lanes and the
+    # lockstep random walk over it, 512 chains x 20 steps, on the MCMC
+    # phase's FitzHugh-Nagumo fixture
+    gen_cov = torch.Generator(dev).manual_seed(27)
+    reset_counts()
+    paths_chk = fs_cov.solve_sim_fused_batch(
+        theta_mc.expand(2048, 3), cfg_mc["ode_weight"],
+        cfg_mc["ode_init"].expand(2048, 2, 3), 0.0, mcmc_ref.T_MAX,
+        mcmc_ref.N_STEPS, cfg_mc["prior_pars"], model="fitzhugh",
+        interrogation="chkrebtii", generator=gen_cov)
+    torch.cuda.synchronize()
+    sim_ok = [check("coverage", "chkrebtii draw launches",
+                    read_counts() == expect(filter_batch=1,
+                                            sampler_batch=1)),
+              check("coverage", "chkrebtii draws finite", finite(paths_chk))]
+    del paths_chk
+    n_rw_c, s_rw_c = 512, 20
+    runner_c = tpar.make_chain_runner(
+        mcmc_ref.path_loglik(fix_mc), n_rw_c, s_rw_c, 0.01,
+        model="fitzhugh", interrogation="chkrebtii", device=dev,
+        **solver_mc)
+    (pos_c, ll_c, acc_c), sec_c, counts_c, peak_c = timed_run(
+        lambda: runner_c(theta_mc.expand(n_rw_c, 3).contiguous(), gen_cov))
+    rw_c_ok = [
+        check("coverage", "chkrebtii random walk launches",
+              counts_c == expect(filter_batch=s_rw_c + 1,
+                                 sampler_batch=s_rw_c + 1)),
+        check("coverage", "chkrebtii random walk finite",
+              finite(pos_c, ll_c))]
+    emit({"phase": "coverage", "part": "chkrebtii_draws",
+          "model": "fitzhugh", "n_steps": mcmc_ref.N_STEPS,
+          "sim_n_lane": 2048, "sim_ok": all(sim_ok), "n_chains": n_rw_c,
+          "n_samples": s_rw_c, "launches": launched(counts_c),
+          "seconds": sec_c, "chain_steps_per_s": n_rw_c * s_rw_c / sec_c,
+          "mean_accept": acc_c.mean().item(), "peak_mem_bytes": peak_c,
+          "ok": all(rw_c_ok)})
+    del pos_c, ll_c, acc_c
+    cov_s = time.perf_counter() - t_phase
+    check("coverage", f"phase within {COVERAGE_PHASE_S} s",
+          cov_s <= COVERAGE_PHASE_S)
+    emit({"phase": "coverage", "seconds": cov_s, "build_s": build_s,
+          "limit_s": COVERAGE_PHASE_S})
 
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end

@@ -1,6 +1,6 @@
 r"""
-Benchmark ODE systems (port of :mod:`rodeo_tpu.models`: Lorenz63 and
-FitzHugh-Nagumo so far).
+Benchmark ODE systems (port of :mod:`rodeo_tpu.models`): Lorenz63,
+FitzHugh-Nagumo, Chkrebtii's second-order ODE, Hes1 and SEIRAH.
 
 A model that the fused kernels can run carries a :class:`FusedModel`
 named ``FUSED``: its right-hand side in column form for the plain
@@ -10,7 +10,9 @@ thing inside the kernel (``ops/csrc/models.cuh``).
 import dataclasses
 from typing import Callable
 
-__all__ = ["FusedModel"]
+import torch
+
+__all__ = ["FusedModel", "own_block_jacobian"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,3 +34,30 @@ class FusedModel:
     cuda_functor: str
     n_block: int
     n_theta: int
+
+
+def own_block_jacobian(flat, x_cols, th, t):
+    r"""
+    Column 0 of the block-diagonal Jacobian of ``flat`` (a model's
+    right-hand side in column form), ``d f_b / d x_b`` for each block
+    ``b``: ``flat`` evaluated once on
+    :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers along ``n_block``
+    directions, direction ``b`` seeding block ``b``'s entry of column 0
+    alone, and direction ``b``'s tangent of block ``b`` kept.  A kernel's
+    thread evaluates its functor so on ``csrc/dual.cuh``'s Duals, seeding
+    its own block (``jac0_own`` of ``csrc/block_step.cuh``): the same
+    operations, so the same bits.  For models without a hand-written
+    Jacobian (Hes1, SEIRAH), as the JAX package takes ``jvp_jac_flat``.
+
+    Returns:
+        (Tensor(n_block, B)): The Jacobian's column 0.
+    """
+    from rodeo_tpu_torch.ops.dual import Dual
+
+    x0 = x_cols[0]
+    n_block = x0.shape[0]
+    seed = torch.eye(n_block, dtype=x0.dtype, device=x0.device)
+    seed = seed.reshape((n_block, n_block) + (1,) * (x0.ndim - 1))
+    out = flat([Dual(x0, seed.expand((n_block,) + tuple(x0.shape)))]
+               + list(x_cols[1:]), th, t)
+    return torch.diagonal(out.d, dim1=0, dim2=1).movedim(-1, 0)

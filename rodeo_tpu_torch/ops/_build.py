@@ -31,9 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # model, mode, n_steps, n_lane, q_const (host), R, W, t_vec, x0, theta,
-    # tgrid, G, g, L, m_last, p_last, stream
-    "rodeo_filter_batch": [_I, _I, _I, _I] + [_P] * 13,
+    # model, mode, q, n_steps, n_lane, q_const (host), R, W, t_vec, x0,
+    # theta, tgrid, eps (chkrebtii's normals, or NULL), G, g, L, m_last,
+    # p_last, stream
+    "rodeo_filter_batch": [_I] * 5 + [_P] * 14,
     # n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
     # ld_blocks, stream
     "rodeo_fenrir_backward_batch": [_I] * 3 + [_P] * 11,
@@ -43,31 +44,32 @@ _SIGNATURES = {
     # n_steps, n_col, c, G, xN, xs, stream
     "rodeo_sampler_batch": [_I, _I] + [_P] * 5,
     # the tangent kernels, with augmented (value + tangents) operands:
-    # as rodeo_filter_batch
+    # model, mode, n_steps, n_lane, q_const (host), R, W, t_vec, x0, theta,
+    # tgrid, A, b, C, m_last, p_last, stream
     "rodeo_filter_batch_tan": [_I, _I, _I, _I] + [_P] * 13,
     # n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
     "rodeo_fenrir_backward_batch_tan": [_I] * 4 + [_P] * 11,
     # as rodeo_dalton_filter_batch
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
-    # the launches of K1, K8, K11a and K11c: model, mode, (with_obs,)
-    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
-    # K6: n_col, out; of K3: model, mode, out; of K2r and K7b: n_block,
-    # n_lane, out
-    "rodeo_filter_batch_geometry": [_I] * 3 + [_P],
+    # the launches of K1: model, mode, q, n_lane, out; of K8, K11a and
+    # K11c: model, mode, (with_obs,) n_lane, out; of K9 and K11d: model,
+    # obs_model, mode, n_lane, out; of K6: n_col, out; of K3: model, mode,
+    # q, out; of K2r: q, n_block, n_lane, out; of K7b: n_block, n_lane, out
+    "rodeo_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_sampler_batch_geometry": [_I, _P],
-    "rodeo_filter_single_geometry": [_I, _I, _P],
-    "rodeo_smoother_batch_rows_geometry": [_I, _I, _P],
+    "rodeo_filter_single_geometry": [_I] * 3 + [_P],
+    "rodeo_smoother_batch_rows_geometry": [_I] * 3 + [_P],
     "rodeo_fenrir_backward_batch_geometry": [_I, _I, _P],
-    # of K4 and K7a: n_block, out; of K11b: n_block, n_lane, n_tan, out;
-    # of K10a: act, emit_adjoint, n_block, n_lane, out; of K10b: act,
-    # n_block, n_lane, out; of K5a and K5b: model, out; of K5c: model,
-    # n_group, out
-    "rodeo_smoother_single_geometry": [_I, _P],
+    # of K4: q, n_block, out; of K7a: n_block, out; of K11b: n_block,
+    # n_lane, n_tan, out; of K10a: act, emit_adjoint, n_block, n_lane, out;
+    # of K10b: act, n_block, n_lane, out; of K5a and K5b: model, out; of
+    # K5c: model, n_group, out
+    "rodeo_smoother_single_geometry": [_I, _I, _P],
     "rodeo_fenrir_backward_single_geometry": [_I, _P],
     "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_magi_batch_geometry": [_I] * 4 + [_P],
@@ -78,17 +80,17 @@ _SIGNATURES = {
     # n_steps, n_col, n_tan, g, G, mN, ms, stream
     "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:
-    # model, mode, n_steps, q_const (host), R, W, t_vec, x0, theta, tgrid,
-    # mf, pf, mp, pp, stream
-    "rodeo_filter_single": [_I] * 3 + [_P] * 12,
-    # n_steps, n_block, g, G, L, mN, pN, ms, ps, stream
-    "rodeo_smoother_single": [_I, _I] + [_P] * 8,
+    # model, mode, q, n_steps, q_const (host), R, W, t_vec, x0, theta,
+    # tgrid, eps (chkrebtii's normals, or NULL), mf, pf, mp, pp, stream
+    "rodeo_filter_single": [_I] * 4 + [_P] * 13,
+    # q, n_steps, n_block, g, G, L, mN, pN, ms, ps, stream
+    "rodeo_smoother_single": [_I] * 3 + [_P] * 8,
     # n_steps, n_block, A, b, C, d, y, om, mask, m_seed, p_seed, ld_blocks,
     # stream
     "rodeo_fenrir_backward_single": [_I, _I] + [_P] * 11,
-    # n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov,
+    # q, n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov,
     # stream
-    "rodeo_smoother_batch_rows": [_I] * 3 + [_P] * 10,
+    "rodeo_smoother_batch_rows": [_I] * 4 + [_P] * 10,
     # the MAGI kernels: act, emit_adjoint, n_steps, n_block, n_lane,
     # r_lane_stride, q_const (host), x, R, m0, ld_blocks, z, s_inv, G, stream
     "rodeo_magi_batch": [_I] * 6 + [_P] * 9,

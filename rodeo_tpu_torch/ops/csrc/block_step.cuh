@@ -139,15 +139,47 @@ __device__ __forceinline__ void gather_means(
     for (int j = 0; j < Q; ++j) x[b][j] = xs[n & 1][b][j][tx];
 }
 
-// Interrogate the ODE at the gathered predicted means x of all blocks and
-// update block b from (mp, pp) into (m, P) (the column step of
-// _interrogate_update_cols, ops/fused_kalman.py): x[b][0] is recomputed
-// from mp, as the gathered value was.  Returns the block's innovation z,
-// its variance S (doubled under EK0) and 1 / S, the terms of the forecast
-// log-density.  The measurement row is H = W - J diag(tv), where the
-// block-diagonal Jacobian J has only column 0: its entries j > 0 are W's
-// constants, and H[0] depends on theta under EK1 (type T) and is W's
-// constant under EK0, as in the twin.
+// Column 0 of block b's row of the block-diagonal Jacobian, d f_b / d x[b][0],
+// at the gathered means x: the functor's hand-written jac0, or, for a
+// functor without one (kDualJacobian), f evaluated on Duals with block b's
+// entry x[b][0] seeded alone, as the twin's jac_flat evaluates it
+// (own_block_jacobian of rodeo_tpu_torch/models/__init__.py).
+template <class Model, int Q, class T>
+__device__ __forceinline__ T jac0_own(const T (&x)[Model::NB][Q],
+                                      const T (&th)[Model::NTHETA], float t,
+                                      int b) {
+  constexpr int NB = Model::NB;
+  if constexpr (Model::kDualJacobian) {
+    static_assert(std::is_same_v<T, float>,
+                  "a Dual Jacobian is taken on float states only");
+    Dual xd[NB][Q];
+#pragma unroll
+    for (int k = 0; k < NB; ++k)
+#pragma unroll
+      for (int j = 0; j < Q; ++j)
+        xd[k][j] = Dual(x[k][j], (j == 0 && k == b) ? 1.0f : 0.0f);
+    Dual fd[NB];
+    Model::template f<Q>(xd, th, t, fd);
+    return own_block(fd, b).d;
+  } else {
+    T jd_all[NB];
+    Model::template jac0<Q>(x, th, t, jd_all);
+    return own_block(jd_all, b);
+  }
+}
+
+// Interrogate the ODE at the gathered points x of all blocks and update
+// block b from (mp, pp) into (m, P) (the column step of
+// _interrogate_update_cols, ops/fused_kalman.py).  x is the predicted mean
+// in original coordinates, except under chkrebtii, where it is the
+// predictive draw (draw_point); under EK1 x[b][0] is recomputed from mp,
+// as the gathered value was.  Returns the block's innovation z, its
+// variance S (doubled under rodeo and chkrebtii) and 1 / S, the terms of
+// the forecast log-density.  The measurement row is H = W - J diag(tv),
+// where the block-diagonal Jacobian J has only column 0: its entries j > 0
+// are W's constants, and H[0] depends on theta under EK1 (type T) and is
+// W's constant otherwise, as in the twin.  schober is rodeo without the
+// measurement noise: S not doubled and no K V K' term.
 template <class Model, int Q, int MODE, class T>
 __device__ __forceinline__ void interrogate_update_block(
     const BlockConsts<Q>& c, const T (&th)[Model::NTHETA], float t,
@@ -163,9 +195,7 @@ __device__ __forceinline__ void interrogate_update_block(
   TH H0;                       // H[0]
   T mm = -fx;
   if constexpr (MODE == kKramer) {
-    T jd_all[NB];
-    Model::template jac0<Q>(x, th, t, jd_all);
-    const T jd = own_block(jd_all, b);
+    const T jd = jac0_own<Model, Q>(x, th, t, b);
     H0 = W[0] - jd * c.tv[0];
     mm = mm + jd * (mp[0] * c.tv[0]);
   } else {
@@ -186,7 +216,8 @@ __device__ __forceinline__ void interrogate_update_block(
   T S = H0 * PH[0];
 #pragma unroll
   for (int i = 1; i < Q; ++i) S = S + W[i] * PH[i];
-  if constexpr (MODE == kRodeo) S = S + S;  // V = W Sigma_pred W' doubles S
+  constexpr bool kNoise = MODE == kRodeo || MODE == kChkrebtii;
+  if constexpr (kNoise) S = S + S;  // V = W Sigma_pred W' doubles S
   const T inv_S = 1.0f / S;
   T gain[Q], IKW[Q][Q];
 #pragma unroll
@@ -201,7 +232,7 @@ __device__ __forceinline__ void interrogate_update_block(
       IKW[i][j] = (i == j ? 1.0f : 0.0f) - gain[i] * W[j];
   }
   sym_quadform<Q>(IKW, pp, P);
-  if constexpr (MODE == kRodeo) {
+  if constexpr (kNoise) {
     const T V = S * 0.5f;
     int k = 0;
 #pragma unroll
@@ -265,6 +296,54 @@ struct ShuffleExchange {
   }
 };
 
+// The point at which step n interrogates the ODE, in scaled coordinates,
+// before the exchange: the predicted mean (xs = mp), or under chkrebtii the
+// draw xs = mp + L eps from the predictive distribution N(mp, pp), L the
+// lower Cholesky factor of pp (chol_cols) and eps the step's standard
+// normals for this block (the column step of _interrogate_update_cols).
+template <int Q>
+__device__ __forceinline__ void draw_point(const float (&mp)[Q],
+                                           const float (&pp)[Tri<Q>::N],
+                                           const float (&eps)[Q],
+                                           float (&xs)[Q]) {
+  float L[Q][Q], eta[Q];
+  chol_cols<Q>(pp, L);
+  chol_matvec<Q>(L, eps, eta);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) xs[j] = mp[j] + eta[j];
+}
+
+// The interrogation point of K1 and K3 for split_filter_steps: the
+// predicted mean, or under chkrebtii the draw with the normals that
+// eps_at(n, j) reads for this thread's block.
+template <int Q, int MODE, class EpsAt>
+__device__ __forceinline__ auto ode_point(EpsAt eps_at) {
+  return [eps_at](int n, const float (&mp)[Q], const float (&pp)[Tri<Q>::N],
+                  float (&xs)[Q]) {
+    if constexpr (MODE == kChkrebtii) {
+      float e[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) e[j] = eps_at(n, j);
+      draw_point<Q>(mp, pp, e, xs);
+    } else {
+#pragma unroll
+      for (int j = 0; j < Q; ++j) xs[j] = mp[j];
+    }
+  };
+}
+
+// The interrogation point of the filters that take the predicted mean
+// alone (K8, K9).
+struct AtMean {
+  template <int Q, int NT>
+  __device__ __forceinline__ void operator()(int, const float (&mp)[Q],
+                                             const float (&)[NT],
+                                             float (&xs)[Q]) const {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) xs[j] = mp[j];
+  }
+};
+
 // The update of K1 and K3 at step n: the ODE's alone
 // (interrogate_update_block), for split_filter_steps.
 template <class Model, int Q, int MODE>
@@ -281,25 +360,28 @@ __device__ __forceinline__ auto ode_update(const BlockConsts<Q>& c,
 }
 
 // The split filter's steps for block b of one lane, from the carry (m, P)
-// through n_steps steps: predict the block, publish its predicted mean,
-// predicted(n, m, P, mp, pp) with the carry (step n-1 filtered) and the
-// fresh prediction, gather all blocks' means (the step's one barrier),
-// update(n, t, x, mp, pp, m, P) of the block into (m, P) from the gathered
-// means x, then filtered(n, m, P).  K1 and K3 update by ode_update, K9 by
+// through n_steps steps: predict the block, publish its interrogation point
+// (point(n, mp, pp, xs): ode_point or AtMean), predicted(n, m, P, mp, pp)
+// with the carry (step n-1 filtered) and the fresh prediction, gather all
+// blocks' points (the step's one barrier), update(n, t, x, mp, pp, m, P)
+// of the block into (m, P) from the gathered points x, then
+// filtered(n, m, P).  K1 and K3 update by ode_update, K9 by
 // filter_nn_update_block; K1 stores the step's smoothing gains from
 // predicted, K3 and K9 the predicted and filtered moments.
-template <class Model, int Q, class Exchange, class Update, class Predicted,
-          class Filtered>
+template <class Model, int Q, class Exchange, class Point, class Update,
+          class Predicted, class Filtered>
 __device__ __forceinline__ void split_filter_steps(
     const BlockConsts<Q>& c, const float* __restrict__ tgrid, int n_steps,
     int b, Exchange& ex, float (&m)[Q], float (&P)[Tri<Q>::N],
-    Update&& update, Predicted&& predicted, Filtered&& filtered) {
+    Point&& point, Update&& update, Predicted&& predicted,
+    Filtered&& filtered) {
   constexpr int NB = Model::NB;
   constexpr int NT = Tri<Q>::N;
   for (int n = 0; n < n_steps; ++n) {
-    float mp[Q], pp[NT];
+    float mp[Q], pp[NT], xs[Q];
     predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
-    ex.publish(n, b, mp, c.tv);
+    point(n, mp, pp, xs);
+    ex.publish(n, b, xs, c.tv);
     predicted(n, m, P, mp, pp);
     float x[NB][Q];
     ex.gather(n, x);

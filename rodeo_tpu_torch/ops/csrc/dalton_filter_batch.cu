@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
+#include "dispatch.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
@@ -180,26 +181,12 @@ extern "C" int rodeo_dalton_filter_batch(
   auto* lp = static_cast<float*>(ld);
   auto s = static_cast<cudaStream_t>(stream);
   const bool obs = with_obs != 0;
-  switch (model * 2 + mode) {
-    case 0:
-      return dalton_launch_obs<Lorenz63, kKramer>(
-          obs, qc, n_steps, n_lane, r, w, t, x, th, tg, dp, yp, op, mk, l0,
-          lp, s);
-    case 1:
-      return dalton_launch_obs<Lorenz63, kRodeo>(
-          obs, qc, n_steps, n_lane, r, w, t, x, th, tg, dp, yp, op, mk, l0,
-          lp, s);
-    case 2:
-      return dalton_launch_obs<FitzHughNagumo, kKramer>(
-          obs, qc, n_steps, n_lane, r, w, t, x, th, tg, dp, yp, op, mk, l0,
-          lp, s);
-    case 3:
-      return dalton_launch_obs<FitzHughNagumo, kRodeo>(
-          obs, qc, n_steps, n_lane, r, w, t, x, th, tg, dp, yp, op, mk, l0,
-          lp, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_ek_instance(model, mode, [&](auto m, auto md) {
+    using Model = typename decltype(m)::type;
+    return dalton_launch_obs<Model, decltype(md)::value>(
+        obs, qc, n_steps, n_lane, r, w, t, x, th, tg, dp, yp, op, mk,
+        l0, lp, s);
+  });
 }
 
 // The launch rodeo_dalton_filter_batch makes for (model, mode, with_obs,
@@ -212,11 +199,9 @@ extern "C" int rodeo_dalton_filter_batch_geometry(int model, int mode,
   if (n_lane < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
   const bool obs = with_obs != 0;
-  switch (model * 2 + mode) {
-    case 0: return dalton_geometry<Lorenz63, kKramer>(obs, n_lane, o);
-    case 1: return dalton_geometry<Lorenz63, kRodeo>(obs, n_lane, o);
-    case 2: return dalton_geometry<FitzHughNagumo, kKramer>(obs, n_lane, o);
-    case 3: return dalton_geometry<FitzHughNagumo, kRodeo>(obs, n_lane, o);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_ek_instance(model, mode, [&](auto m, auto md) {
+    using Model = typename decltype(m)::type;
+    return dalton_geometry<Model, decltype(md)::value>(
+        obs, n_lane, o);
+  });
 }

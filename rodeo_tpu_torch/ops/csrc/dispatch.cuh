@@ -1,0 +1,85 @@
+// The C entry points pick a kernel's instance from run-time numbers -- a
+// model, an observation model, an interrogation mode, the state size q --
+// with these helpers: each number is matched against the list that the
+// kernel holds, one level per number, and any other value returns
+// cudaErrorInvalidValue without a launch.  A number never stands for a
+// combination of two, which would alias as soon as either list grew.  The
+// lists mirror the instance tables of ops/fused_kalman.py (_INSTANCES),
+// which refuse the same combinations in Python.
+#pragma once
+
+#include <type_traits>
+
+#include <cuda_runtime.h>
+
+#include "filter_step.cuh"
+#include "models.cuh"
+
+namespace rodeo {
+
+// a type as a value, for the generic lambdas the helpers call
+template <class M>
+struct Is {
+  using type = M;
+};
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Is<F>()) for the functor F among Fs whose kNumber is `number`
+// (models.cuh's models, obs_models.cuh's observation models)
+template <class... Fs, class Fn>
+cudaError_t with_functor(int number, Fn&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((number == Fs::kNumber ? (err = f(Is<Fs>()), true) : false) || ...);
+  return err;
+}
+
+// f(Int<V>()) for the V among Vs equal to `value` (a mode, a q)
+template <int... Vs, class Fn>
+cudaError_t with_value(int value, Fn&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((value == Vs ? (err = f(Int<Vs>()), true) : false) || ...);
+  return err;
+}
+
+// The interrogation modes of the filters that take every one, K1 and K3:
+// f(Int<MODE>()).
+template <class Fn>
+cudaError_t with_mode(int mode, Fn&& f) {
+  return with_value<kKramer, kRodeo, kSchober, kChkrebtii>(mode, f);
+}
+
+// The (model, q) of the filters that take every interrogation, K1
+// (filter_batch.cu) and K3 (filter_single.cu): f(Is<Model>(), Int<Q>())
+// for the first-order models at q = 3 and the second-order Chkrebtii at
+// q = 4 and 5; each holds the four modes (with_mode).
+template <class Fn>
+cudaError_t with_filter_instance(int model, int q, Fn&& f) {
+  if (model == Chkrebtii::kNumber)
+    return with_value<4, 5>(q, [&](auto qq) { return f(Is<Chkrebtii>(), qq); });
+  return with_functor<Lorenz63, FitzHughNagumo, Hes1, Seirah>(
+      model, [&](auto m) {
+        return with_value<3>(q, [&](auto qq) { return f(m, qq); });
+      });
+}
+
+// The instances of the filters that take Lorenz63 and FitzHugh-Nagumo at
+// q = 3 under kramer and rodeo (K8, K9, K11a, K11c, K11d):
+// f(Is<Model>(), Int<MODE>()).
+template <class Fn>
+cudaError_t with_ek_instance(int model, int mode, Fn&& f) {
+  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
+    return with_value<kKramer, kRodeo>(mode, [&](auto md) { return f(m, md); });
+  });
+}
+
+// The instances of the stationary solve's mean chains (K5a, K5b, K5c,
+// mean_chain_single.cu): Lorenz63 and FitzHugh-Nagumo at q = 3,
+// f(Is<Model>()).
+template <class Fn>
+cudaError_t with_mean_instance(int model, Fn&& f) {
+  return with_functor<Lorenz63, FitzHughNagumo>(model, f);
+}
+
+}  // namespace rodeo

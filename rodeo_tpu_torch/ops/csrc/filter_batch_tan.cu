@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
+#include "dispatch.cuh"
 #include "dual.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
@@ -173,22 +174,11 @@ extern "C" int rodeo_filter_batch_tan(int model, int mode, int n_steps,
   auto* mp = static_cast<float*>(m_last);
   auto* pp = static_cast<float*>(p_last);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (model * 2 + mode) {
-    case 0:
-      return filter_tan_launch<Lorenz63, kKramer>(
-          qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
-    case 1:
-      return filter_tan_launch<Lorenz63, kRodeo>(
-          qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
-    case 2:
-      return filter_tan_launch<FitzHughNagumo, kKramer>(
-          qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
-    case 3:
-      return filter_tan_launch<FitzHughNagumo, kRodeo>(
-          qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_ek_instance(model, mode, [&](auto m, auto md) {
+    using Model = typename decltype(m)::type;
+    return filter_tan_launch<Model, decltype(md)::value>(
+        qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
+  });
 }
 
 // The launch rodeo_filter_batch_tan makes for (model, mode, n_lane) on the
@@ -199,11 +189,9 @@ extern "C" int rodeo_filter_batch_tan_geometry(int model, int mode,
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
-  switch (model * 2 + mode) {
-    case 0: return filter_tan_geometry<Lorenz63, kKramer>(n_lane, o);
-    case 1: return filter_tan_geometry<Lorenz63, kRodeo>(n_lane, o);
-    case 2: return filter_tan_geometry<FitzHughNagumo, kKramer>(n_lane, o);
-    case 3: return filter_tan_geometry<FitzHughNagumo, kRodeo>(n_lane, o);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_ek_instance(model, mode, [&](auto m, auto md) {
+    using Model = typename decltype(m)::type;
+    return filter_tan_geometry<Model, decltype(md)::value>(
+        n_lane, o);
+  });
 }

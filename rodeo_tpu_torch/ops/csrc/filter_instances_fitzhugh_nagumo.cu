@@ -1,0 +1,11 @@
+// The instances of K1 (filter_batch.cuh) and K3 (filter_single.cuh) for
+// FitzHugh-Nagumo at q = 3, one in each interrogation mode.
+#include "filter_batch.cuh"
+#include "filter_single.cuh"
+
+namespace rodeo {
+
+template struct FilterBatchInstances<FitzHughNagumo, 3>;
+template struct FilterSingleInstances<FitzHughNagumo, 3>;
+
+}  // namespace rodeo

@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
+#include "dispatch.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
@@ -111,7 +112,7 @@ __global__ void __launch_bounds__(kNnLanes * Model::NB, 1)
   };
   SharedExchange<NB, Q, kNnLanes> ex{xs, tx};
   split_filter_steps<Model, Q>(
-      c, tgrid, n_steps, b, ex, m, P,
+      c, tgrid, n_steps, b, ex, m, P, AtMean{},
       [&](int n, float t, const float (&x)[NB][Q], const float (&mp)[Q],
           const float (&pp)[NT], float (&mv)[Q], float (&Pv)[NT]) {
         filter_nn_update_block<Model, Obs, Q, MODE>(c, th, n, t, x, b,
@@ -213,29 +214,15 @@ extern "C" int rodeo_filter_nn_batch(int model, int obs_model, int mode,
   auto* mpp = static_cast<float*>(mp);
   auto* ppp = static_cast<float*>(pp);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (model * 2 + obs_model) {
-    case 0:
-      return nn_launch_mode<Lorenz63, Gauss>(mode, qc, pars, obs_dims, n_steps,
-                                             n_lane, r, w, t, x, th, tg, yy,
-                                             io, mk, mfp, pfp, mpp, ppp, s);
-    case 1:
-      return nn_launch_mode<Lorenz63, Poisson>(mode, qc, pars, obs_dims,
-                                               n_steps, n_lane, r, w, t, x, th,
-                                               tg, yy, io, mk, mfp, pfp, mpp,
-                                               ppp, s);
-    case 2:
-      return nn_launch_mode<FitzHughNagumo, Gauss>(mode, qc, pars, obs_dims,
-                                                   n_steps, n_lane, r, w, t, x,
-                                                   th, tg, yy, io, mk, mfp,
-                                                   pfp, mpp, ppp, s);
-    case 3:
-      return nn_launch_mode<FitzHughNagumo, Poisson>(mode, qc, pars, obs_dims,
-                                                     n_steps, n_lane, r, w, t,
-                                                     x, th, tg, yy, io, mk,
-                                                     mfp, pfp, mpp, ppp, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
+    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
+      using Model = typename decltype(m)::type;
+      using Obs = typename decltype(ob)::type;
+      return nn_launch_mode<Model, Obs>(
+          mode, qc, pars, obs_dims, n_steps, n_lane, r, w, t, x, th,
+          tg, yy, io, mk, mfp, pfp, mpp, ppp, s);
+    });
+  });
 }
 
 // The launch rodeo_filter_nn_batch makes for (model, obs_model, mode,
@@ -247,11 +234,12 @@ extern "C" int rodeo_filter_nn_batch_geometry(int model, int obs_model,
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
-  switch (model * 2 + obs_model) {
-    case 0: return nn_geometry<Lorenz63, Gauss>(mode, n_lane, o);
-    case 1: return nn_geometry<Lorenz63, Poisson>(mode, n_lane, o);
-    case 2: return nn_geometry<FitzHughNagumo, Gauss>(mode, n_lane, o);
-    case 3: return nn_geometry<FitzHughNagumo, Poisson>(mode, n_lane, o);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
+    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
+      using Model = typename decltype(m)::type;
+      using Obs = typename decltype(ob)::type;
+      return nn_geometry<Model, Obs>(
+          mode, n_lane, o);
+    });
+  });
 }

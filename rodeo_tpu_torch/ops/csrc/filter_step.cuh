@@ -24,8 +24,12 @@
 
 namespace rodeo {
 
-constexpr int kKramer = 0;  // EK1, zero measurement noise
-constexpr int kRodeo = 1;   // EK0, measurement noise W Sigma_pred W'
+// The interrogations, numbered as _MODES in ops/fused_kalman.py numbers
+// them.  K1 and K3 take all four; the other filters kramer and rodeo.
+constexpr int kKramer = 0;     // EK1, zero measurement noise
+constexpr int kRodeo = 1;      // EK0, measurement noise W Sigma_pred W'
+constexpr int kSchober = 2;    // EK0, zero measurement noise
+constexpr int kChkrebtii = 3;  // rodeo's noise, the ODE at a predictive draw
 
 template <int Q>
 struct QConst {

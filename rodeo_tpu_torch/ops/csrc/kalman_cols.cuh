@@ -83,14 +83,15 @@ __device__ __forceinline__ void sym_quadform(const TA (&A)[Q][Q],
 // Closed-form inverse of a packed symmetric matrix (_sym_inv of
 // ops/fused_kalman.py): 1 / p for Q = 1; the adjugate over the determinant
 // for Q = 2; for Q = 3 the cofactor form, scale-normalised against float32
-// determinant overflow.  q = 4 and 5 need the Schur-split form of _sym_inv
-// ported first.  The scale rs is taken from the values alone: the inverse
-// does not depend on it, so it is a constant with a zero tangent, as in the
-// twin (differentiating fmaxf would split the tangent at ties).
+// determinant overflow; for Q = 4 and 5 one 2 + (Q - 2) Schur split of the
+// matrix scaled by its largest diagonal entry, recursing into the Q = 2 and
+// Q - 2 forms.  A scale is taken from the values alone: the inverse does
+// not depend on it, so it is a constant with a zero tangent, as in the twin
+// (differentiating fmaxf would split the tangent at ties).
 template <int Q, class T>
 __device__ __forceinline__ void sym_inv(const T (&p)[Tri<Q>::N],
                                         T (&out)[Tri<Q>::N]) {
-  static_assert(Q >= 1 && Q <= 3, "sym_inv: only q <= 3 is ported");
+  static_assert(Q >= 1 && Q <= 5, "sym_inv: q <= 5");
   if constexpr (Q == 1) {
     out[0] = 1.0f / p[0];
   } else if constexpr (Q == 2) {
@@ -98,7 +99,7 @@ __device__ __forceinline__ void sym_inv(const T (&p)[Tri<Q>::N],
     out[0] = p[2] * inv_det;
     out[1] = (-p[1]) * inv_det;
     out[2] = p[0] * inv_det;
-  } else {
+  } else if constexpr (Q == 3) {
     T a = p[0], b = p[1], c = p[2], d = p[3], e = p[4], f = p[5];
     const float s = fmaxf(fabsf(value(a)), fmaxf(fabsf(value(d)), fabsf(value(f))));
     const float rs = 1.0f / fmaxf(s, 1e-30f);
@@ -117,6 +118,129 @@ __device__ __forceinline__ void sym_inv(const T (&p)[Tri<Q>::N],
     out[3] = co11 * inv_det;
     out[4] = co12 * inv_det;
     out[5] = co22 * inv_det;
+  } else {
+    // M = [[A, B], [B', D]], A (K x K), B (K x M), D (M x M)
+    constexpr int K = 2, M = Q - 2;
+    float s = value(p[Tri<Q>::at(0, 0)]);
+#pragma unroll
+    for (int i = 1; i < Q; ++i)
+      s = fmaxf(fabsf(s), fabsf(value(p[Tri<Q>::at(i, i)])));
+    const float rs = 1.0f / fmaxf(s, 1e-30f);
+    T pc[Tri<Q>::N];
+#pragma unroll
+    for (int k = 0; k < Tri<Q>::N; ++k) pc[k] = p[k] * rs;
+    const T a_in[3] = {pc[Tri<Q>::at(0, 0)], pc[Tri<Q>::at(0, 1)],
+                       pc[Tri<Q>::at(1, 1)]};
+    T Ainv[3];
+    sym_inv<K>(a_in, Ainv);
+    // C = A^{-1} B
+    T C[K][M];
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        T acc = Ainv[Tri<K>::at(i, 0)] * pc[Tri<Q>::at(0, K + j)];
+#pragma unroll
+        for (int l = 1; l < K; ++l)
+          acc = acc + Ainv[Tri<K>::at(i, l)] * pc[Tri<Q>::at(l, K + j)];
+        C[i][j] = acc;
+      }
+    // the Schur complement S = D - B' C, packed
+    T S[Tri<M>::N];
+    int idx = 0;
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = i; j < M; ++j) {
+        T acc = pc[Tri<Q>::at(K + i, K + j)];
+#pragma unroll
+        for (int l = 0; l < K; ++l)
+          acc = acc - pc[Tri<Q>::at(l, K + i)] * C[l][j];
+        S[idx++] = acc;
+      }
+    T Sinv[Tri<M>::N];
+    sym_inv<M>(S, Sinv);
+    // the inverse's blocks: UL = A^{-1} + C S^{-1} C', UR = -C S^{-1},
+    // LR = S^{-1}
+    T UR[K][M];
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        T acc = C[i][0] * Sinv[Tri<M>::at(0, j)];
+#pragma unroll
+        for (int l = 1; l < M; ++l) acc = acc + C[i][l] * Sinv[Tri<M>::at(l, j)];
+        UR[i][j] = -acc;
+      }
+    idx = 0;
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+#pragma unroll
+      for (int j = i; j < Q; ++j, ++idx) {
+        if (j < K) {
+          T acc = Ainv[Tri<K>::at(i, j)];
+#pragma unroll
+          for (int l = 0; l < M; ++l) acc = acc - UR[i][l] * C[j][l];
+          out[idx] = acc * rs;
+        } else if (i < K) {
+          out[idx] = UR[i][j - K] * rs;
+        } else {
+          out[idx] = Sinv[Tri<M>::at(i - K, j - K)] * rs;
+        }
+      }
+  }
+}
+
+// Closed-form lower Cholesky factor L[i][j], j <= i, of a packed symmetric
+// matrix (_chol_cols of ops/fused_kalman.py): normalised to correlation form
+// (unit diagonal), factored with a relative pivot floor, and its rows
+// scaled back.  A floored pivot marks a numerically null direction: the
+// entries below it are zero, not divided by the floor.  Entries above the
+// diagonal are left unset.
+template <int Q>
+__device__ __forceinline__ void chol_cols(const float (&p)[Tri<Q>::N],
+                                          float (&L)[Q][Q]) {
+  constexpr float kFloor = 1e-12f;
+  float d[Q], rd[Q];
+  bool ok[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    d[i] = sqrtf(fmaxf(p[Tri<Q>::at(i, i)], 1e-38f));
+    rd[i] = 1.0f / d[i];
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = p[Tri<Q>::at(i, j)] * (rd[i] * rd[j]);
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
+      if (i == j) {
+        ok[i] = s > kFloor;
+        L[i][i] = sqrtf(fmaxf(s, kFloor));
+      } else {
+        const float r = s / L[j][j];
+        L[i][j] = ok[j] ? r : 0.0f;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) L[i][j] = L[i][j] * d[i];
+}
+
+// out = L e for a lower-triangular L (_chol_matvec of ops/fused_kalman.py,
+// whose sum starts from 0).
+template <int Q>
+__device__ __forceinline__ void chol_matvec(const float (&L)[Q][Q],
+                                            const float (&e)[Q],
+                                            float (&out)[Q]) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) acc = acc + L[i][j] * e[j];
+    out[i] = acc;
   }
 }
 

@@ -87,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
+#include "dispatch.cuh"
 #include "filter_step.cuh"
 #include "kalman_cols.cuh"
 #include "models.cuh"
@@ -333,20 +334,6 @@ inline SplitGeometry recovery_geometry(int n_group) {
   return {dim3((n_group + kRecoveryGroups - 1) / kRecoveryGroups), dim3(32)};
 }
 
-// f(Model()) for model number `model` (0 Lorenz63, 1 FitzHughNagumo, the
-// numbering of _FUNCTORS in ops/fused_kalman.py).
-template <class F>
-cudaError_t by_model(int model, F&& f) {
-  switch (model) {
-    case 0:
-      return f(Lorenz63());
-    case 1:
-      return f(FitzHughNagumo());
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace rodeo
 
 namespace {
@@ -378,8 +365,8 @@ extern "C" int rodeo_mean_gain_single(int model, int n_steps,
   auto s = static_cast<cudaStream_t>(stream);
   auto* out = static_cast<float*>(mf);
   const bool vec = aligned16(in(gains), in(tgrid), out);
-  return by_model(model, [&](auto m) {
-    using M = decltype(m);
+  return with_mean_instance(model, [&](auto m) {
+    using M = typename decltype(m)::type;
     const SplitGeometry geo = gain_geometry();
     if (vec)
       mean_gain_kernel<M, 3, 4><<<geo.grid, geo.block, 0, s>>>(
@@ -402,9 +389,10 @@ extern "C" int rodeo_mean_gain_single_geometry(int model, void* out) {
   auto* o = static_cast<int*>(out);
   o[9] = kGainStages;
   o[10] = kGainRows;
-  return by_model(model, [&](auto m) {
-    return report_geometry(mean_gain_kernel<decltype(m), 3, 4>,
-                           gain_geometry(), o);
+  return with_mean_instance(model, [&](auto m) {
+    return report_geometry(
+        mean_gain_kernel<typename decltype(m)::type, 3, 4>, gain_geometry(),
+        o);
   });
 }
 
@@ -419,8 +407,8 @@ extern "C" int rodeo_mean_boundary_single(int model, int n_group,
   const QConst<3> qc = host_qconst(q_host);
   auto s = static_cast<cudaStream_t>(stream);
   auto* out = static_cast<float*>(bnd);
-  return by_model(model, [&](auto m) {
-    using M = decltype(m);
+  return with_mean_instance(model, [&](auto m) {
+    using M = typename decltype(m)::type;
     const SplitGeometry geo = boundary_geometry<M>();
     mean_boundary_kernel<M, 3><<<geo.grid, geo.block, 0, s>>>(
         qc, n_group, k_group, in(W), in(tv), in(m0), in(theta), in(tg),
@@ -433,8 +421,8 @@ extern "C" int rodeo_mean_boundary_single(int model, int n_group,
 // device, as nine ints in out.  Returns a cudaError_t.
 extern "C" int rodeo_mean_boundary_single_geometry(int model, void* out) {
   using namespace rodeo;
-  return by_model(model, [&](auto m) {
-    using M = decltype(m);
+  return with_mean_instance(model, [&](auto m) {
+    using M = typename decltype(m)::type;
     return report_geometry(mean_boundary_kernel<M, 3>, boundary_geometry<M>(),
                            static_cast<int*>(out));
   });
@@ -454,8 +442,8 @@ extern "C" int rodeo_mean_recovery_single(int model, int n_group,
   auto s = static_cast<cudaStream_t>(stream);
   auto* out = static_cast<float*>(mf);
   const bool vec = aligned16(out);
-  return by_model(model, [&](auto m) {
-    using M = decltype(m);
+  return with_mean_instance(model, [&](auto m) {
+    using M = typename decltype(m)::type;
     const SplitGeometry geo = recovery_geometry(n_group);
     if (vec)
       mean_recovery_kernel<M, 3, 4><<<geo.grid, geo.block, 0, s>>>(
@@ -480,8 +468,9 @@ extern "C" int rodeo_mean_recovery_single_geometry(int model, int n_group,
   auto* o = static_cast<int*>(out);
   o[9] = kRecoveryGroups;
   o[10] = kRecoveryGroupSteps;
-  return by_model(model, [&](auto m) {
-    return report_geometry(mean_recovery_kernel<decltype(m), 3, 4>,
-                           recovery_geometry(n_group), o);
+  return with_mean_instance(model, [&](auto m) {
+    return report_geometry(
+        mean_recovery_kernel<typename decltype(m)::type, 3, 4>,
+        recovery_geometry(n_group), o);
   });
 }

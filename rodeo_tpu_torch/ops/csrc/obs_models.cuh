@@ -31,6 +31,7 @@ struct ObsPars {
 // rodeo_tpu_torch/models/obs.py: gauss_comp_flat, -0.5 (y - x)^2 / var as
 // a product with pars.p[0] = 1 / var
 struct Gauss {
+  static constexpr int kNumber = 0;  // _OBS_FUNCTORS in ops/fused_daltonng.py
   template <class J, class S, int NTH>
   __device__ __forceinline__ static J f(float y, const J& x, int j,
                                         const S (&th)[NTH], float iobs,
@@ -43,6 +44,7 @@ struct Gauss {
 // rodeo_tpu_torch/models/obs.py: poisson_comp_flat,
 // y (b0 + b1 x) - exp(b0 + b1 x)
 struct Poisson {
+  static constexpr int kNumber = 1;
   template <class J, class S, int NTH>
   __device__ __forceinline__ static J f(float y, const J& x, int j,
                                         const S (&th)[NTH], float iobs,

@@ -8,7 +8,8 @@
 // _smoother_kernel_batch (the bare recursion, whose rows the JAX package
 // assembles in XLA) and _smoother_kernel_batch_rows (the recursion writing
 // the rows, at fold = 1: the port never folds lanes).  Plain PyTorch twin:
-// _smoother_batch_rows_plain in ops/fused_kalman.py.
+// _smoother_batch_rows_plain in ops/fused_kalman.py.  Instantiated at q = 3,
+// 4 and 5 (the figures below are q = 3's).
 //
 // What bounds it on the card.  Device-memory bandwidth: 18 floats read (G
 // 9, g 3, L 6) and 9 written per step and column, plus the boundary rows
@@ -47,6 +48,7 @@
 
 #include "block_step.cuh"
 #include "chain_step.cuh"
+#include "dispatch.cuh"
 #include "kalman_cols.cuh"
 #include "stream_ring.cuh"
 
@@ -176,49 +178,51 @@ inline SplitGeometry rows_geometry(int n_col) {
 }
 
 // The kernel's dynamic shared memory may exceed 48 KB only once the kernel
-// is allowed it.
-template <int V>
+// is allowed it: 55 KB at q = 3, 90 KB at q = 4 and 133 KB at q = 5.
+template <int Q, int V>
 cudaError_t allow_rows_smem() {
-  return cudaFuncSetAttribute(smoother_batch_rows_kernel<3, V>,
+  return cudaFuncSetAttribute(smoother_batch_rows_kernel<Q, V>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(rows_smem_bytes<3>()));
+                              static_cast<int>(rows_smem_bytes<Q>()));
 }
 
-template <int V>
+template <int Q, int V>
 cudaError_t launch_rows(int n_steps, int n_block, int n_lane, const float* g,
                         const float* G, const float* L, const float* mN,
                         const float* pN, const float* m0, const float* scales,
                         float* mean, float* cov, cudaStream_t stream) {
-  const cudaError_t err = allow_rows_smem<V>();
+  const cudaError_t err = allow_rows_smem<Q, V>();
   if (err != cudaSuccess) return err;
   const SplitGeometry geo = rows_geometry(n_block * n_lane);
-  smoother_batch_rows_kernel<3, V>
-      <<<geo.grid, geo.block, rows_smem_bytes<3>(), stream>>>(
+  smoother_batch_rows_kernel<Q, V>
+      <<<geo.grid, geo.block, rows_smem_bytes<Q>(), stream>>>(
           n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov);
   return cudaGetLastError();
 }
 
-template <int V>
+template <int Q, int V>
 cudaError_t rows_geometry_report(int n_col, int* out) {
-  const cudaError_t err = allow_rows_smem<V>();
+  const cudaError_t err = allow_rows_smem<Q, V>();
   if (err != cudaSuccess) return err;
-  return report_geometry(smoother_batch_rows_kernel<3, V>,
-                         rows_geometry(n_col), out, rows_smem_bytes<3>());
+  return report_geometry(smoother_batch_rows_kernel<Q, V>,
+                         rows_geometry(n_col), out, rows_smem_bytes<Q>());
 }
 
 }  // namespace rodeo
 
-// n_steps counts the interior rows (T = N - 1); scales holds the q mean and
-// n_tri covariance scales.  Every pointer is device memory laid out as
-// smoother_recursion_batch_rows (ops/fused_kalman.py) documents.  Rows go
-// 16 bytes at a time where n_lane is a multiple of 4 and g, G, L, mean and
-// cov are 16-byte aligned, else 4 bytes at a time.  Returns a cudaError_t.
-extern "C" int rodeo_smoother_batch_rows(int n_steps, int n_block, int n_lane,
-                                         const void* g, const void* G,
-                                         const void* L, const void* mN,
-                                         const void* pN, const void* m0,
-                                         const void* scales, void* mean,
-                                         void* cov, void* stream) {
+// q: the derivatives per block, 3, 4 or 5 (any other returns
+// cudaErrorInvalidValue); n_steps counts the interior rows (T = N - 1);
+// scales holds the q mean and n_tri covariance scales.  Every pointer is
+// device memory laid out as smoother_recursion_batch_rows
+// (ops/fused_kalman.py) documents.  Rows go 16 bytes at a time where n_lane
+// is a multiple of 4 and g, G, L, mean and cov are 16-byte aligned, else 4
+// bytes at a time.  Returns a cudaError_t.
+extern "C" int rodeo_smoother_batch_rows(int q, int n_steps, int n_block,
+                                         int n_lane, const void* g,
+                                         const void* G, const void* L,
+                                         const void* mN, const void* pN,
+                                         const void* m0, const void* scales,
+                                         void* mean, void* cov, void* stream) {
   using namespace rodeo;
   if (n_steps < 0 || n_block < 1 || n_lane < 1) return cudaErrorInvalidValue;
   const bool vec = stream_aligned(n_lane, g, G, L, mean, cov);
@@ -232,25 +236,31 @@ extern "C" int rodeo_smoother_batch_rows(int n_steps, int n_block, int n_lane,
   auto* meanp = static_cast<float*>(mean);
   auto* covp = static_cast<float*>(cov);
   auto s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_rows<4>(n_steps, n_block, n_lane, gp, Gp, Lp, mNp, pNp,
-                              m0p, scp, meanp, covp, s)
-             : launch_rows<1>(n_steps, n_block, n_lane, gp, Gp, Lp, mNp, pNp,
-                              m0p, scp, meanp, covp, s);
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return vec ? launch_rows<Q, 4>(n_steps, n_block, n_lane, gp, Gp, Lp, mNp,
+                                   pNp, m0p, scp, meanp, covp, s)
+               : launch_rows<Q, 1>(n_steps, n_block, n_lane, gp, Gp, Lp, mNp,
+                                   pNp, m0p, scp, meanp, covp, s);
+  });
 }
 
-// The launch rodeo_smoother_batch_rows makes for n_block x n_lane columns
-// with aligned operands on the current device, as report_geometry's nine
-// ints (block_step.cuh; the shared memory is the ring's and the staged
+// The launch rodeo_smoother_batch_rows makes at q for n_block x n_lane
+// columns with aligned operands on the current device, as report_geometry's
+// nine ints (block_step.cuh; the shared memory is the ring's and the staged
 // rows', dynamic), then the ring's stages and the steps a stage holds, in
 // out.  Returns a cudaError_t.
-extern "C" int rodeo_smoother_batch_rows_geometry(int n_block, int n_lane,
-                                                  void* out) {
+extern "C" int rodeo_smoother_batch_rows_geometry(int q, int n_block,
+                                                  int n_lane, void* out) {
   using namespace rodeo;
   if (n_block < 1 || n_lane < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
   const int n_col = n_block * n_lane;
-  const cudaError_t err = n_lane % 4 == 0 ? rows_geometry_report<4>(n_col, o)
-                                          : rows_geometry_report<1>(n_col, o);
+  const cudaError_t err = with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return n_lane % 4 == 0 ? rows_geometry_report<Q, 4>(n_col, o)
+                           : rows_geometry_report<Q, 1>(n_col, o);
+  });
   o[9] = kRowsStages;
   o[10] = kRowsSteps;
   return err;

@@ -7,7 +7,9 @@
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_kalman.py:
 // _smoother_recursion_kernel.  Plain PyTorch twin: _smoother_single_plain
-// in ops/fused_kalman.py.
+// in ops/fused_kalman.py.  Instantiated at q = 3, 4 and 5 (a block's row
+// over Tri<Q>::N = 6, 10 and 15 lanes: 5, 3 and 2 blocks a CTA; the figures
+// below are q = 3's).
 //
 // What bounds it on the card.  The carry's dependent chain, row after row:
 // its bytes (27 floats per block and row, 3.2 MB at 10 000 rows, 1 us at
@@ -45,6 +47,7 @@
 
 #include "block_step.cuh"
 #include "chain_step.cuh"
+#include "dispatch.cuh"
 #include "kalman_cols.cuh"
 #include "stream_ring.cuh"
 
@@ -212,43 +215,46 @@ __global__ void __launch_bounds__(2 * 32)
       });
 }
 
-inline SplitGeometry single_geometry(int n_block) {
-  return {dim3((n_block + kCtaBlocks<3> - 1) / kCtaBlocks<3>), dim3(2 * 32)};
+template <int Q>
+SplitGeometry single_geometry(int n_block) {
+  return {dim3((n_block + kCtaBlocks<Q> - 1) / kCtaBlocks<Q>), dim3(2 * 32)};
 }
 
 // The kernel's dynamic shared memory may exceed 48 KB only once the kernel
 // is allowed it.
-template <int V>
+template <int Q, int V>
 cudaError_t allow_single_smem(int n_block) {
-  return cudaFuncSetAttribute(smoother_single_kernel<3, V>,
+  return cudaFuncSetAttribute(smoother_single_kernel<Q, V>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(single_smem_bytes<3>(n_block)));
+                              static_cast<int>(single_smem_bytes<Q>(n_block)));
 }
 
-template <int V>
+template <int Q, int V>
 cudaError_t launch_single(int n_steps, int n_block, const float* g,
                           const float* G, const float* L, const float* mN,
                           const float* pN, float* ms, float* ps,
                           cudaStream_t stream) {
-  const cudaError_t err = allow_single_smem<V>(n_block);
+  const cudaError_t err = allow_single_smem<Q, V>(n_block);
   if (err != cudaSuccess) return err;
-  const SplitGeometry geo = single_geometry(n_block);
-  smoother_single_kernel<3, V>
-      <<<geo.grid, geo.block, single_smem_bytes<3>(n_block), stream>>>(
+  const SplitGeometry geo = single_geometry<Q>(n_block);
+  smoother_single_kernel<Q, V>
+      <<<geo.grid, geo.block, single_smem_bytes<Q>(n_block), stream>>>(
           n_steps, n_block, g, G, L, mN, pN, ms, ps);
   return cudaGetLastError();
 }
 
 }  // namespace rodeo
 
-// Every pointer is device memory laid out as smoother_recursion
-// (ops/fused_kalman.py) documents.  Stages move 16 bytes at a time where one
-// CTA holds every block and g, G, L, ms and ps are 16-byte aligned, else 4
-// bytes at a time.  Returns a cudaError_t.
-extern "C" int rodeo_smoother_single(int n_steps, int n_block, const void* g,
-                                     const void* G, const void* L,
-                                     const void* mN, const void* pN, void* ms,
-                                     void* ps, void* stream) {
+// q: the derivatives per block, 3, 4 or 5 (any other returns
+// cudaErrorInvalidValue).  Every pointer is device memory laid out as
+// smoother_recursion (ops/fused_kalman.py) documents.  Stages move 16 bytes
+// at a time where one CTA holds every block and g, G, L, ms and ps are
+// 16-byte aligned, else 4 bytes at a time.  Returns a cudaError_t.
+extern "C" int rodeo_smoother_single(int q, int n_steps, int n_block,
+                                     const void* g, const void* G,
+                                     const void* L, const void* mN,
+                                     const void* pN, void* ms, void* ps,
+                                     void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_block < 1) return cudaErrorInvalidValue;
   const auto* gp = static_cast<const float*>(g);
@@ -259,35 +265,42 @@ extern "C" int rodeo_smoother_single(int n_steps, int n_block, const void* g,
   auto* msp = static_cast<float*>(ms);
   auto* psp = static_cast<float*>(ps);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = n_block <= kCtaBlocks<3> && aligned16(g, G, L, ms, ps);
-  return vec ? launch_single<4>(n_steps, n_block, gp, Gp, Lp, mNp, pNp, msp,
-                                psp, s)
-             : launch_single<1>(n_steps, n_block, gp, Gp, Lp, mNp, pNp, msp,
-                                psp, s);
+  const bool aligned = aligned16(g, G, L, ms, ps);
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return n_block <= kCtaBlocks<Q> && aligned
+               ? launch_single<Q, 4>(n_steps, n_block, gp, Gp, Lp, mNp, pNp,
+                                     msp, psp, s)
+               : launch_single<Q, 1>(n_steps, n_block, gp, Gp, Lp, mNp, pNp,
+                                     msp, psp, s);
+  });
 }
 
-// The launch rodeo_smoother_single makes for n_block blocks with aligned
-// operands on the current device, as report_geometry's nine ints
+// The launch rodeo_smoother_single makes at q for n_block blocks with
+// aligned operands on the current device, as report_geometry's nine ints
 // (block_step.cuh; the shared memory is the ring's and the staged rows',
 // dynamic), then the ring's stages, the rows a stage holds, the blocks a
 // CTA holds and the lanes of a block's row, in out.  Returns a cudaError_t.
-extern "C" int rodeo_smoother_single_geometry(int n_block, void* out) {
+extern "C" int rodeo_smoother_single_geometry(int q, int n_block, void* out) {
   using namespace rodeo;
   if (n_block < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
-  const bool vec = n_block <= kCtaBlocks<3>;
-  cudaError_t err = vec ? allow_single_smem<4>(n_block)
-                        : allow_single_smem<1>(n_block);
-  if (err == cudaSuccess)
-    err = vec ? report_geometry(smoother_single_kernel<3, 4>,
-                                single_geometry(n_block), o,
-                                single_smem_bytes<3>(n_block))
-              : report_geometry(smoother_single_kernel<3, 1>,
-                                single_geometry(n_block), o,
-                                single_smem_bytes<3>(n_block));
-  o[9] = kSingleStages;
-  o[10] = kSingleRows;
-  o[11] = kCtaBlocks<3>;
-  o[12] = Tri<3>::N;
-  return err;
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    const bool vec = n_block <= kCtaBlocks<Q>;
+    cudaError_t err = vec ? allow_single_smem<Q, 4>(n_block)
+                          : allow_single_smem<Q, 1>(n_block);
+    if (err == cudaSuccess)
+      err = vec ? report_geometry(smoother_single_kernel<Q, 4>,
+                                  single_geometry<Q>(n_block), o,
+                                  single_smem_bytes<Q>(n_block))
+                : report_geometry(smoother_single_kernel<Q, 1>,
+                                  single_geometry<Q>(n_block), o,
+                                  single_smem_bytes<Q>(n_block));
+    o[9] = kSingleStages;
+    o[10] = kSingleRows;
+    o[11] = kCtaBlocks<Q>;
+    o[12] = Tri<Q>::N;
+    return err;
+  });
 }

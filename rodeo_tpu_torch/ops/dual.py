@@ -26,7 +26,8 @@ The rules (value ``a``, tangent ``da``; ``q = a / b``):
 
 ``torch.cat`` and ``torch.stack`` of Duals and constants stack values and
 tangents alike, so a block-form ODE written with them runs on Duals too
-(:func:`rodeo_tpu_torch.interrogate.interrogate_kramer`'s forward mode).
+(:func:`rodeo_tpu_torch.interrogate.interrogate_kramer`'s forward mode,
+:func:`rodeo_tpu_torch.models.own_block_jacobian`).
 """
 import torch
 
@@ -120,6 +121,8 @@ class Dual:
             return _stack(*args, **kwargs)
         if func is torch.log:
             return args[0].log()
+        if func is torch.exp:
+            return args[0].exp()
         if func in (torch.ones_like, torch.zeros_like):
             x = args[0]
             return Dual(func(x.v), torch.zeros_like(x.d))

@@ -30,11 +30,10 @@ import torch
 
 from rodeo_tpu_torch.ops.dual import Dual, constant, rows, seed_directions
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _FUNCTORS, _LOG2PI, _MODES, _block_sum, _check, _check_mode,
-    _fused_inputs, _host_qconst, _interrogate_update_cols, _kernel_operands,
-    _launch, _launch_geometry, _masked_obs_update_cols, _pack_tri,
-    _predict_cols, _tri_idx, normalize_meas_var, resolve_kalman_type,
-    resolve_model)
+    _LOG2PI, _block_sum, _check, _check_mode, _fused_inputs, _host_qconst,
+    _interrogate_update_cols, _kernel_operands, _launch, _launch_geometry,
+    _masked_obs_update_cols, _pack_tri, _predict_cols, _tri_idx,
+    normalize_meas_var, resolve_kalman_type, resolve_model)
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
 
 __all__ = ["dalton_fused_batch", "dalton_fused_batch_grad",
@@ -158,11 +157,9 @@ def _dalton_filter_batch_geometry(model, n_lane, mode="kramer",
     lanes on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
-    model = resolve_model(model)
-    _check_mode(mode)
-    return _launch_geometry("dalton_filter_batch", device,
-                            _FUNCTORS[model.cuda_functor], _MODES[mode],
-                            int(with_obs), n_lane)
+    return _launch_geometry("dalton_filter_batch", device, int(with_obs), n_lane,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode)
 
 
 def _dalton_filter_batch_tan_geometry(model, n_lane, mode="kramer",
@@ -171,11 +168,9 @@ def _dalton_filter_batch_tan_geometry(model, n_lane, mode="kramer",
     ``n_lane`` lanes on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
-    model = resolve_model(model)
-    _check_mode(mode)
-    return _launch_geometry("dalton_filter_batch_tan", device,
-                            _FUNCTORS[model.cuda_functor], _MODES[mode],
-                            int(with_obs), n_lane)
+    return _launch_geometry("dalton_filter_batch_tan", device, int(with_obs), n_lane,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode)
 
 
 def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
@@ -186,6 +181,7 @@ def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
     model = resolve_model(model)
     _check_mode(mode)
     q, n_block, n_lane = x0_lanes.shape
+    kernel = "dalton_filter_batch_tan" if tangent else "dalton_filter_batch"
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
     device = x0_lanes.device
@@ -211,12 +207,10 @@ def _dalton_filter(tangent, model, n_steps, q_const, prior_var, ode_weight,
                 else _dalton_filter_plain)(*args)
     ld = torch.empty_like(ld0)
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES,
-            "dalton_filter_batch_tan" if tangent else "dalton_filter_batch",
-            q, device, _FUNCTORS[model.cuda_functor], _MODES[mode],
-            int(with_obs), n_steps, n_lane, ctypes.addressof(qc), R_packed,
-            ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, d, y, om, mask,
-            ld0, ld)
+    _launch(LAUNCHES, kernel, q, device, int(with_obs), n_steps, n_lane,
+            ctypes.addressof(qc), R_packed, ode_weight, t_vec, x0_lanes,
+            theta_lanes, tgrid, d, y, om, mask, ld0, ld,
+            model=model.cuda_functor, mode=mode)
     return ld
 
 
@@ -269,7 +263,7 @@ def dalton_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("dalton_filter_batch",))
     obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     ops, obs, ld0 = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
@@ -301,7 +295,7 @@ def dalton_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("dalton_filter_batch_tan",))
     obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     ops, obs, ld0 = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,

@@ -56,12 +56,12 @@ from rodeo_tpu_torch.ops.dual import (Dual, Jet2, constant, primal,
                                       seed_directions)
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _FUNCTORS, _LOG2PI, _MODES, _check, _check_mode, _fused_inputs,
-    _gain_cols_batched, _host_qconst, _interrogate_update_cols,
-    _kernel_operands, _launch, _launch_geometry, _pack_tri, _predict_cols,
-    _sym_quadform, _tri_idx, fused_filter_batch, fused_filter_batch_tan,
-    resolve_model, smoother_mean_recursion_batch_tan,
-    smoother_recursion_batch_rows, unpack_cov)
+    _LOG2PI, _check, _check_mode, _fused_inputs, _gain_cols_batched,
+    _host_qconst, _interrogate_update_cols, _kernel_operands, _launch,
+    _launch_geometry, _pack_tri, _predict_cols, _sym_quadform, _tri_idx,
+    fused_filter_batch, fused_filter_batch_tan, resolve_model,
+    smoother_mean_recursion_batch_tan, smoother_recursion_batch_rows,
+    unpack_cov)
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision, sym_eigh_small
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 
@@ -251,12 +251,10 @@ def filter_nn_batch_tan(model, obs_model, obs_dims, n_steps, q_const,
 
 
 def _filter_nn_geometry(kernel, model, obs_model, n_lane, mode, device):
-    model = resolve_model(model)
     obs = resolve_obs_model(obs_model)
-    _check_mode(mode)
-    return _launch_geometry(kernel, device, _FUNCTORS[model.cuda_functor],
-                            _OBS_FUNCTORS[obs.cuda_functor], _MODES[mode],
-                            n_lane)
+    return _launch_geometry(kernel, device, n_lane,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode, obs=_OBS_FUNCTORS[obs.cuda_functor])
 
 
 def _filter_nn_batch_geometry(model, obs_model, n_lane, mode="kramer",
@@ -288,6 +286,7 @@ def _filter_nn(tangent, model, obs_model, obs_dims, n_steps, q_const,
     obs = resolve_obs_model(obs_model)
     _check_mode(mode)
     q, n_block, n_lane = x0_lanes.shape
+    kernel = "filter_nn_batch_tan" if tangent else "filter_nn_batch"
     bits = _obs_bits(obs_dims, q)
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
@@ -315,12 +314,11 @@ def _filter_nn(tangent, model, obs_model, obs_dims, n_steps, q_const,
     qc = _host_qconst(q_const)
     pars = (ctypes.c_float * _OBS_PARS)(
         *(obs.pars + (0.0,) * (_OBS_PARS - len(obs.pars))))
-    _launch(LAUNCHES, "filter_nn_batch_tan" if tangent else "filter_nn_batch",
-            q, device, _FUNCTORS[model.cuda_functor],
-            _OBS_FUNCTORS[obs.cuda_functor], _MODES[mode], bits, n_steps,
-            n_lane, ctypes.addressof(qc), ctypes.addressof(pars), R_packed,
+    _launch(LAUNCHES, kernel, q, device, bits, n_steps, n_lane,
+            ctypes.addressof(qc), ctypes.addressof(pars), R_packed,
             ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, y, iobs, mask,
-            *outs)
+            *outs, model=model.cuda_functor, mode=mode,
+            obs=_OBS_FUNCTORS[obs.cuda_functor])
     return tuple(outs)
 
 
@@ -604,7 +602,8 @@ def daltonng_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_nn_batch", "smoother_batch_rows",
+                              "filter_batch"))
     obs = resolve_obs_model(obs_model)
     ops, grid, obs_ind, y_obs = _daltonng_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
@@ -652,7 +651,8 @@ def daltonng_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_nn_batch_tan", "smoother_mean_batch_tan",
+                              "filter_batch_tan"))
     obs = resolve_obs_model(obs_model)
     ops, grid, obs_ind, y_obs = _daltonng_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,

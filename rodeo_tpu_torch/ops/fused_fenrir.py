@@ -47,9 +47,10 @@ import torch
 from rodeo_tpu_torch.ops.dual import rows, split
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _LOG2PI, _block_sum, _check, _fused_inputs, _kernel_operands, _launch,
-    _launch_geometry, _masked_obs_update_cols, _pack_tri, _single_operands, _sym_quadform,
-    _tri_idx, fused_filter, fused_filter_batch, fused_filter_batch_tan,
+    _LOG2PI, _block_sum, _check, _fused_inputs, _interrogation_normals,
+    _kernel_operands, _launch, _launch_geometry, _masked_obs_update_cols,
+    _pack_tri, _single_operands, _sym_quadform, _tri_idx, fused_filter,
+    fused_filter_batch, fused_filter_batch_tan,
     normalize_meas_var, resolve_kalman_type, unpack_cov)
 from rodeo_tpu_torch.ops.linalg import full_matmul_precision, inv_small
 from rodeo_tpu_torch.ops.obs_grid import dense_obs_grid, obs_indices
@@ -313,21 +314,25 @@ def fenrir_backward_single(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
 
 
 def _fenrir_operands(fused, n_steps, t_min, t_max, ops, obs_data, obs_times,
-                     obs_weight, obs_var, mode, tangent=False):
-    """The operands of K7b for one evaluation: the forward filter (K1) on
-    ``ops`` (:func:`~rodeo_tpu_torch.ops.fused_kalman._kernel_operands`),
-    the observation grid of steps 0..N-1, and the masked observation update
-    at step N that seeds the chain.  Returns the arguments of
+                     obs_weight, obs_var, mode, tangent=False, eps=None):
+    """The operands of K7b for one evaluation: the forward filter (K1, with
+    chkrebtii's normals ``eps``) on ``ops``
+    (:func:`~rodeo_tpu_torch.ops.fused_kalman._kernel_operands`), the
+    observation grid of steps 0..N-1, and the masked observation update at
+    step N that seeds the chain.  Returns the arguments of
     :func:`fenrir_backward_batch` in order; with ``tangent``, those of
     :func:`fenrir_backward_batch_tan`, through K11a and the update on
     Duals."""
     q = ops["x0_lanes"].shape[0]
     pairs, where = _tri_idx(q)
     # all N gains: entry 0 is the zero-gain, zero-noise step onto x0
-    filt = fused_filter_batch_tan if tangent else fused_filter_batch
-    A, b, C, m_last, p_last = filt(fused, n_steps, **ops, mode=mode)
     if tangent:
+        A, b, C, m_last, p_last = fused_filter_batch_tan(fused, n_steps,
+                                                         **ops, mode=mode)
         m_last, p_last = split(m_last, q), split(p_last, len(pairs))
+    else:
+        A, b, C, m_last, p_last = fused_filter_batch(fused, n_steps, **ops,
+                                                     mode=mode, eps=eps)
     obs_ind = obs_indices(t_min, t_max, n_steps, obs_times)
     d, y, om, mask = dense_obs_grid(
         obs_ind, n_steps, ops["t_vec"], torch.as_tensor(obs_data),
@@ -346,7 +351,7 @@ def _fenrir_operands(fused, n_steps, t_min, t_max, ops, obs_data, obs_times,
 def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                        prior_pars, obs_data, obs_times, obs_weight, obs_var,
                        model, interrogation="kramer", kalman_type="standard",
-                       device=None):
+                       device=None, generator=None, eps=None):
     r"""
     Lane-batched fenrir log-likelihood: ``B`` evaluations (parameter
     candidates against the same observations) through kernels K1 and K7b
@@ -360,22 +365,27 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
             (their factors where ``kalman_type`` is ``"sqrt"``, squared at
             entry with the prior's; the value does not depend on the form).
         (other args as
-        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`)
+        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`, its
+        four interrogations at q = 3, ``generator`` and ``eps (N, q,
+        n_block, B)`` those of chkrebtii's draws in the key's place)
 
     Returns:
         (Tensor(B,)): Log-likelihood of each lane, float32.
     """
-    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+    fused, device, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_batch", "fenrir_backward_batch"))
     obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError("fenrir_fused_batch requires n_bobs == 1")
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
                            n_steps, prior_pars)
+    eps = _interrogation_normals(interrogation,
+                                 (n_steps,) + ops["x0_lanes"].shape,
+                                 generator, eps, device)
     return fenrir_backward_batch(*_fenrir_operands(
         fused, n_steps, t_min, t_max, ops, obs_data, obs_times, obs_weight,
-        obs_var, interrogation))
+        obs_var, interrogation, eps=eps))
 
 
 def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
@@ -397,7 +407,8 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_batch_tan",
+                              "fenrir_backward_batch_tan"))
     obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError(
@@ -425,7 +436,7 @@ def _const_coefs(prior_weight):
 
 @full_matmul_precision
 def _fenrir_single_operands(fused, n_steps, t_min, t_max, ops, Qs, obs_data,
-                            obs_times, obs_weight, obs_var, mode):
+                            obs_times, obs_weight, obs_var, mode, eps=None):
     """The operands of K7a for one evaluation, as ``pallas_fenrir.
     fenrir_fused`` builds them: the forward filter (K3) on ``ops``
     (:func:`~rodeo_tpu_torch.ops.fused_kalman._single_operands`); the chain
@@ -434,7 +445,7 @@ def _fenrir_single_operands(fused, n_steps, t_min, t_max, ops, Qs, obs_data,
     state; the observation grid; and the masked update at step N.  TF32
     stays off.  Returns the arguments of :func:`fenrir_backward_single` in
     order."""
-    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=mode)
+    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=mode, eps=eps)
     n_block, q = ops["x0"].shape
     pairs, _ = _tri_idx(q)
     Rs = ops["prior_var"]
@@ -471,7 +482,8 @@ def _fenrir_single_operands(fused, n_steps, t_min, t_max, ops, Qs, obs_data,
 
 def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
                  prior_pars, obs_data, obs_times, obs_weight, obs_var, model,
-                 interrogation="kramer", kalman_type="standard", device=None):
+                 interrogation="kramer", kalman_type="standard", device=None,
+                 generator=None, eps=None):
     r"""
     Fenrir log-likelihood of one parameter vector (the latency path),
     through kernels K3 (the filter) and K7a (the backward filter) on the
@@ -486,14 +498,16 @@ def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
         obs_data, obs_times, obs_weight, obs_var: As
             :func:`fenrir_fused_batch`.
         (other args as
-        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused`)
+        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused`, its four
+        interrogations at q = 3, ``generator`` and ``eps (N, n_block, q)``
+        those of chkrebtii's draws in the key's place)
 
     Returns:
         (Tensor()): The log-likelihood, float32.
     """
-    fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
+    fused, device, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
         theta, ode_weight, ode_init, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_single", "fenrir_backward_single"))
     obs_var = normalize_meas_var(resolve_kalman_type(kalman_type), obs_var)
     if obs_weight.shape[2] != 1:
         raise NotImplementedError("fenrir_fused requires n_bobs == 1")
@@ -504,6 +518,9 @@ def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
         raise NotImplementedError(
             "fenrir_fused requires the same transition for every block "
             "(e.g. ibm_init)")
+    eps = _interrogation_normals(interrogation,
+                                 (n_steps,) + ops["x0"].shape, generator,
+                                 eps, device)
     return fenrir_backward_single(*_fenrir_single_operands(
         fused, n_steps, t_min, t_max, ops, Qs, obs_data, obs_times,
-        obs_weight, obs_var, interrogation))
+        obs_weight, obs_var, interrogation, eps))

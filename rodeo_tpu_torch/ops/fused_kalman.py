@@ -11,11 +11,14 @@ algebra that the likelihood and sampling modules beside it share.
 ``B`` independent solves (parameter candidates, MCMC chains) ride one pair
 of kernels, batched along a trailing lane axis:
 
-- **K1** ``csrc/filter_batch.cu`` replaces ``_filter_kernel_batch``: the
-  whole forward EK1 / EK0 filter, the ODE right-hand side evaluated inside
-  the kernel, emitting the per-step smoothing gains ``(G, g, L)``; one
-  thread per (lane, block), the blocks of a lane meeting once a step in
-  shared memory (``csrc/block_step.cuh``);
+- **K1** ``csrc/filter_batch.cuh`` replaces ``_filter_kernel_batch``: the
+  whole forward filter under the interrogations kramer (EK1), rodeo (EK0),
+  schober and chkrebtii, the ODE right-hand side evaluated inside the
+  kernel, emitting the per-step smoothing gains ``(G, g, L)``; one thread
+  per (lane, block), the blocks of a lane meeting once a step in shared
+  memory (``csrc/block_step.cuh``); its C entry points are
+  ``csrc/filter_batch.cu``, its instances compiled one translation unit
+  per (model, q), ``csrc/filter_instances_*.cu``, with K3's;
 - **K2r** ``csrc/smoother_batch_rows.cu`` replaces
   ``_smoother_kernel_batch`` and ``_smoother_kernel_batch_rows``: the
   reverse affine recursion ``m_n = g_n + G_n m_{n+1}``,
@@ -32,8 +35,9 @@ of kernels, batched along a trailing lane axis:
 One solve (the latency path) runs two kernels in the JAX package's
 ``(N, n_block, d)`` layout:
 
-- **K3** ``csrc/filter_single.cu`` replaces ``_filter_kernel``: K1's step
-  on one solve, storing the filtered and predicted moments of every step;
+- **K3** ``csrc/filter_single.cuh`` replaces ``_filter_kernel``: K1's
+  step on one solve, storing the filtered and predicted moments of every
+  step (C entry points ``csrc/filter_single.cu``);
 - **K4** ``csrc/smoother_single.cu`` replaces
   ``_smoother_recursion_kernel``: the reverse recursion over gains computed
   in batched torch, over every step (``fused_smoother``) or over the
@@ -70,10 +74,15 @@ raises.  ``LAUNCHES`` counts the kernel launches.
 The kernels work in float32 in the Taylor-scaled coordinates of
 :mod:`rodeo_tpu_torch.ops.precond`, with the Joseph-form update, as the
 TPU kernels did.  Covariances are packed upper triangles in
-:func:`_tri_idx` order.
+:func:`_tri_idx` order.  Each kernel is instantiated for the (model
+functor, interrogation, q) listed in ``_INSTANCES``: K1 and K3 for every
+interrogation on the first-order models at q = 3 and on Chkrebtii's
+second-order ODE at q = 4 and 5, K2r and K4 for q = 3, 4 and 5, the others
+for kramer and rodeo on Lorenz63 and FitzHugh-Nagumo at q = 3.
 """
 import ctypes
 import importlib
+import itertools
 import math
 
 import numpy as np
@@ -107,12 +116,60 @@ LAUNCHES = {"filter_batch": 0, "smoother_batch_rows": 0,
             "mean_gain_single": 0, "mean_boundary_single": 0,
             "mean_recovery_single": 0}
 
-# interrogation modes and model functors, numbered as the C entry point
-# rodeo_filter_batch (csrc/filter_batch.cu) numbers them
-_MODES = {"kramer": 0, "rodeo": 1}
-_FUNCTORS = {"Lorenz63": 0, "FitzHughNagumo": 1}
-_KERNEL_Q = 3   # the state size per block the kernels are instantiated for
+# interrogation modes and model functors, numbered as the C entry points
+# number them (kKramer .. kChkrebtii of csrc/filter_step.cuh, kNumber of
+# csrc/models.cuh's functors)
+_MODES = {"kramer": 0, "rodeo": 1, "schober": 2, "chkrebtii": 3}
+_FUNCTORS = {"Lorenz63": 0, "FitzHughNagumo": 1, "Chkrebtii": 2, "Hes1": 3,
+             "Seirah": 4}
 _LOG2PI = 1.8378770664093453
+
+
+def _product(models, modes, qs):
+    return frozenset(itertools.product(models, modes, qs))
+
+
+# The instances each kernel holds, as (model functor, mode, q): None where
+# the kernel takes no model or no mode.  The C entry points dispatch over
+# the same lists (csrc/dispatch.cuh) and return an error for any other;
+# _launch and the geometry queries refuse them first.
+_EK = _product(("Lorenz63", "FitzHughNagumo"), ("kramer", "rodeo"), (3,))
+_EVERY_MODE = _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"),
+                       tuple(_MODES), (3,)) \
+    | _product(("Chkrebtii",), tuple(_MODES), (4, 5))
+_Q3 = _product((None,), (None,), (3,))
+_MEAN = _product(("Lorenz63", "FitzHughNagumo"), (None,), (3,))
+_INSTANCES = {
+    "filter_batch": _EVERY_MODE, "filter_single": _EVERY_MODE,
+    "smoother_batch_rows": _product((None,), (None,), (3, 4, 5)),
+    "smoother_single": _product((None,), (None,), (3, 4, 5)),
+    "filter_batch_tan": _EK, "dalton_filter_batch": _EK,
+    "dalton_filter_batch_tan": _EK, "filter_nn_batch": _EK,
+    "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q3,
+    "sampler_batch": _Q3, "fenrir_backward_batch": _Q3,
+    "fenrir_backward_batch_tan": _Q3, "fenrir_backward_single": _Q3,
+    "magi_batch": _Q3, "magi_adjoint_batch": _Q3,
+    "mean_gain_single": _MEAN, "mean_boundary_single": _MEAN,
+    "mean_recovery_single": _MEAN}
+
+
+def _check_instance(kernel, q, model=None, mode=None):
+    """Raise NotImplementedError unless ``kernel`` holds an instance for
+    (model functor, mode, q), naming the instances it holds; the model and
+    mode count only for a kernel that takes them."""
+    held = _INSTANCES[kernel]
+    key = (model if any(k[0] is not None for k in held) else None,
+           mode if any(k[1] is not None for k in held) else None, q)
+    if key not in held:
+        names = ("model", "mode", "q")
+        asked = ", ".join(f"{n}={v!r}" for n, v in zip(names, key)
+                          if v is not None or n == "q")
+        holds = "; ".join(
+            ", ".join(f"{n}={v!r}" for n, v in zip(names, k) if v is not None)
+            for k in sorted(held, key=lambda k: (k[2], str(k[0]), str(k[1]))))
+        raise NotImplementedError(
+            f"the {kernel} kernel holds no instance for {asked}; it holds "
+            f"({holds})")
 
 
 def _tri_idx(q):
@@ -541,22 +598,42 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(counts, kernel, q, device, *args):
+# the kernels whose C entry points take q (after the model's and the mode's
+# numbers)
+_TAKES_Q = frozenset({"filter_batch", "filter_single", "smoother_batch_rows",
+                      "smoother_single"})
+
+
+def _instance_args(kernel, q, model, mode, obs):
+    """Refuse (``model`` functor, ``mode``, ``q``) unless ``kernel`` holds
+    it (:func:`_check_instance`); else the leading integers of its C entry
+    point and geometry query: the model's number (``_FUNCTORS``), the
+    observation model's number ``obs`` (K9, K11d), the mode's (``_MODES``)
+    and q, each where the kernel takes it."""
+    _check_instance(kernel, q, model, mode)
+    return ([] if model is None else [_FUNCTORS[model]]) \
+        + ([] if obs is None else [obs]) \
+        + ([] if mode is None else [_MODES[mode]]) \
+        + ([q] if kernel in _TAKES_Q else [])
+
+
+def _launch(counts, kernel, q, device, *args, model=None, mode=None,
+            obs=None):
     """Launch the C entry point ``rodeo_<kernel>`` on ``device``'s current
-    stream, a tensor argument passed as its data pointer; raise if the
+    stream: the instance's numbers first (:func:`_instance_args`, which
+    refuses an instance the kernel does not hold), then ``args``, a tensor
+    passed as its data pointer (``None`` as a null pointer); raise if the
     launch failed, else add one to ``counts[kernel]``."""
+    lead = _instance_args(kernel, q, model, mode, obs)
     if device.type != "cuda":
         raise NotImplementedError(
             f"the fused kernels run on CUDA tensors (plain PyTorch on CPU "
             f"tensors); got a tensor on {device}")
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the {kernel} kernel is instantiated for q={_KERNEL_Q}, got {q}")
     lib = _build.load()
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         err = getattr(lib, f"rodeo_{kernel}")(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+            *lead, *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{_build.error_string(err)} (code {err})")
@@ -567,21 +644,26 @@ _GEOMETRY = ("cta_x", "cta_y", "grid_x", "grid_y", "registers",
              "local_bytes", "shared_bytes", "ctas_per_sm", "sms")
 
 
-def _launch_geometry(kernel, device, *args, extra=()):
+def _launch_geometry(kernel, device, *args, extra=(), q=3, model=None,
+                     mode=None, obs=None):
     """The launch of ``rodeo_<kernel>`` for these leading arguments, as its
     C query ``rodeo_<kernel>_geometry`` reports it on ``device``: the CTA
     shape and grid, registers and local memory bytes per thread, shared
     memory bytes per CTA (static, and dynamic where the launch asks for
     it), the CTAs an SM can hold, and the card's SMs, then the kernel's own
     fields named in ``extra``; with the CTAs, threads per CTA, and whether
-    the CTAs are at least the SMs and all resident at once."""
+    the CTAs are at least the SMs and all resident at once.  The instance's
+    numbers lead, as :func:`_launch` passes them, and an instance the kernel
+    does not hold is refused before the query."""
+    lead = _instance_args(kernel, q, model, mode, obs)
     device = resolve_device(device)
     if device.type != "cuda":
         raise NotImplementedError(f"{kernel} runs on the CUDA card only")
     names = _GEOMETRY + tuple(extra)
     out = (ctypes.c_int * len(names))()
     with torch.cuda.device(device):
-        err = getattr(_build.load(), f"rodeo_{kernel}_geometry")(*args, out)
+        err = getattr(_build.load(), f"rodeo_{kernel}_geometry")(
+            *lead, *args, out)
     if err != 0:
         raise RuntimeError(f"{kernel} geometry query failed: "
                            f"{_build.error_string(err)} (code {err})")
@@ -593,53 +675,52 @@ def _launch_geometry(kernel, device, *args, extra=()):
     return geo
 
 
-def _filter_batch_geometry(model, n_lane, mode="kramer", device=None):
+def _filter_batch_geometry(model, n_lane, mode="kramer", q=3, device=None):
     """The launch of kernel K1 (:func:`fused_filter_batch`) at ``n_lane``
-    lanes on the card, as :func:`_launch_geometry` reports it."""
-    model = resolve_model(model)
-    _check_mode(mode)
-    return _launch_geometry("filter_batch", device,
-                            _FUNCTORS[model.cuda_functor], _MODES[mode],
-                            n_lane)
+    lanes on the card, for the model, mode and q of one of its instances,
+    as :func:`_launch_geometry` reports it."""
+    return _launch_geometry("filter_batch", device, n_lane, q=q,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode)
 
 
 def _filter_batch_tan_geometry(model, n_lane, mode="kramer", device=None):
     """The launch of kernel K11a (:func:`fused_filter_batch_tan`) at
     ``n_lane`` lanes on the card, as :func:`_launch_geometry` reports it."""
-    model = resolve_model(model)
-    _check_mode(mode)
-    return _launch_geometry("filter_batch_tan", device,
-                            _FUNCTORS[model.cuda_functor], _MODES[mode],
-                            n_lane)
+    return _launch_geometry("filter_batch_tan", device, n_lane,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode)
 
 
-def _filter_single_geometry(model, mode="kramer", device=None):
+def _filter_single_geometry(model, mode="kramer", q=3, device=None):
     """The launch of kernel K3 (:func:`fused_filter`) on the card, one CTA
-    of a thread per block, as :func:`_launch_geometry` reports it."""
-    model = resolve_model(model)
-    _check_mode(mode)
-    return _launch_geometry("filter_single", device,
-                            _FUNCTORS[model.cuda_functor], _MODES[mode])
+    of a thread per block, for the model, mode and q of one of its
+    instances, as :func:`_launch_geometry` reports it."""
+    return _launch_geometry("filter_single", device, q=q,
+                            model=resolve_model(model).cuda_functor,
+                            mode=mode)
 
 
-def _smoother_batch_rows_geometry(n_block, n_lane, device=None):
-    """The launch of kernel K2r (:func:`smoother_recursion_batch_rows`)
-    over ``n_block x n_lane`` columns with aligned operands on the card, as
-    :func:`_launch_geometry` reports it (its shared memory dynamic), with
-    the stages of its shared-memory ring and the steps a stage holds."""
+def _smoother_batch_rows_geometry(n_block, n_lane, q=3, device=None):
+    """The launch of kernel K2r (:func:`smoother_recursion_batch_rows`) at
+    ``q`` over ``n_block x n_lane`` columns with aligned operands on the
+    card, as :func:`_launch_geometry` reports it (its shared memory
+    dynamic), with the stages of its shared-memory ring and the steps a
+    stage holds."""
     return _launch_geometry("smoother_batch_rows", device, n_block, n_lane,
-                            extra=("stages", "steps_per_stage"))
+                            extra=("stages", "steps_per_stage"), q=q)
 
 
-def _smoother_single_geometry(n_block, device=None):
-    """The launch of kernel K4 (:func:`smoother_recursion`) over
+def _smoother_single_geometry(n_block, q=3, device=None):
+    """The launch of kernel K4 (:func:`smoother_recursion`) at ``q`` over
     ``n_block`` blocks with aligned operands on the card, as
     :func:`_launch_geometry` reports it (its shared memory dynamic), with
     the stages of its shared-memory ring, the rows a stage holds, the
     blocks a CTA holds and the lanes of a block's row."""
     return _launch_geometry("smoother_single", device, n_block,
                             extra=("stages", "rows_per_stage",
-                                   "blocks_per_cta", "lanes_per_block"))
+                                   "blocks_per_cta", "lanes_per_block"),
+                            q=q)
 
 
 def _check_mode(mode):
@@ -661,16 +742,25 @@ def _predict_cols(q, where, q_const, R_cols, m_cols, p_cols):
 
 
 def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
-                             mp_cols, pp_cols, theta_lanes, t, mode):
-    """Interrogate the ODE at the predicted mean and do the scalar-innovation
-    Joseph update of every block (``interrogate_update_block`` of
-    ``csrc/block_step.cuh``, which the kernels K1, K3, K8 and K9 run per
-    block).
+                             mp_cols, pp_cols, theta_lanes, t, mode,
+                             eps_cols=None):
+    """Interrogate the ODE and do the scalar-innovation Joseph update of
+    every block (``interrogate_update_block`` of ``csrc/block_step.cuh``,
+    which the kernels K1, K3, K8 and K9 run per block).  The ODE is
+    evaluated at the predicted mean, or under chkrebtii at the draw ``mp +
+    L eps`` (``draw_point``), ``L`` the Cholesky factor of the predicted
+    covariance and ``eps_cols`` the step's ``q`` columns of standard
+    normals.  kramer linearises the ODE (EK1); rodeo and chkrebtii add the
+    noise ``W Pp W'`` (S doubled and ``K V K'``); schober adds none.
 
     Returns the updated mean and packed covariance columns, and the
-    innovation ``z``, its variance ``S`` (doubled under EK0) and ``1 / S``,
-    each ``(n_block, B)``."""
-    x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
+    innovation ``z``, its variance ``S`` and ``1 / S``, each ``(n_block,
+    B)``."""
+    if mode == "chkrebtii":
+        eta = _chol_matvec(q, _chol_cols(q, pp_cols, where), eps_cols)
+        x_cols = [(mp_cols[j] + eta[j]) * tv_cols[j] for j in range(q)]
+    else:
+        x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
     f0 = model.flat(x_cols, theta_lanes, t)
     jd_cols = model.jac_flat(x_cols, theta_lanes, t) \
         if mode == "kramer" else [None] * q
@@ -693,7 +783,8 @@ def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
     S = None
     for i in range(q):
         S = _acc(S, H_cols[i] * PH_cols[i])
-    if mode == "rodeo":
+    noise = mode in ("rodeo", "chkrebtii")
+    if noise:
         S = S + S                    # V = W Sigma_p W' doubles S
     inv_S = 1.0 / S
     gain = [PH_cols[i] * inv_S for i in range(q)]
@@ -701,7 +792,7 @@ def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
     IKW = [[(1.0 if i == j else 0.0) - gain[i] * H_cols[j]
             for j in range(q)] for i in range(q)]
     p_cols = _sym_quadform(q, IKW, pp_cols, where)
-    if mode == "rodeo":
+    if noise:
         V = S * 0.5
         p_cols = [p_cols[k] + gain[i] * gain[j] * V
                   for k, (i, j) in enumerate(pairs)]
@@ -709,8 +800,8 @@ def _interrogate_update_cols(model, q, pairs, where, W_cols, tv_cols,
 
 
 def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
-                        t_vec, x0_lanes, theta_lanes, tgrid, mode):
-    """Plain PyTorch twin of ``csrc/filter_batch.cu``: the same arithmetic
+                        t_vec, x0_lanes, theta_lanes, tgrid, mode, eps=None):
+    """Plain PyTorch twin of ``csrc/filter_batch.cuh``: the same arithmetic
     in the same order on ``(n_block, B)`` columns, one Python iteration per
     step.  Arguments and returns as :func:`fused_filter_batch` (``model``
     resolved).  With ``x0_lanes`` and ``theta_lanes`` as Duals it is the
@@ -742,7 +833,8 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
         L_out[n] = dual_stack(L)
         m_cols, p_cols, _, _, _ = _interrogate_update_cols(
             model, q, pairs, where, W_cols, tv_cols, mp_cols, pp_cols,
-            theta_lanes, tgrid[n], mode)
+            theta_lanes, tgrid[n], mode,
+            None if eps is None else list(eps[n]))
     return G_out, g_out, L_out, dual_stack(m_cols), dual_stack(p_cols)
 
 
@@ -760,7 +852,8 @@ def _filter_batch_tan_plain(model, n_steps, q_const, prior_var, ode_weight,
 
 
 def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
-                       t_vec, x0_lanes, theta_lanes, tgrid, mode="kramer"):
+                       t_vec, x0_lanes, theta_lanes, tgrid, mode="kramer",
+                       eps=None):
     r"""
     Lane-batched forward filter emitting per-step smoothing gains (kernel
     K1).  All tensors float32, in Taylor-scaled coordinates.
@@ -777,7 +870,16 @@ def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
         x0_lanes (Tensor(q, n_block, B)): Scaled initial states.
         theta_lanes (Tensor(n_theta, B)): Per-lane parameters.
         tgrid (Tensor(N,)): Time of each step.
-        mode (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
+        mode (str): The interrogation: ``"kramer"`` (EK1), ``"rodeo"``
+            (EK0 with the noise ``W Pp W'``), ``"schober"`` (EK0 without
+            noise) or ``"chkrebtii"`` (rodeo's noise, the ODE at a draw
+            from the predictive distribution).
+        eps (Tensor(N, q, n_block, B)): The standard normals of the
+            chkrebtii draws (the JAX package's layout); other modes take
+            none.
+
+    The kernel holds the first-order models at q = 3 and Chkrebtii at q =
+    4 and 5, each in every mode (``_INSTANCES``).
 
     Returns:
         (tuple): ``G (N, q*q, n_block, B)`` row-major gains, ``g (N, q,
@@ -788,7 +890,7 @@ def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
         written but the smoother does not use it.
     """
     return _filter(False, model, n_steps, q_const, prior_var, ode_weight,
-                   t_vec, x0_lanes, theta_lanes, tgrid, mode)
+                   t_vec, x0_lanes, theta_lanes, tgrid, mode, eps)
 
 
 def fused_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
@@ -814,12 +916,13 @@ def fused_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
 
 
 def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
-            x0_lanes, theta_lanes, tgrid, mode):
+            x0_lanes, theta_lanes, tgrid, mode, eps=None):
     """K1 (``tangent`` False) or K11a: check the operands, take the twin
     for CPU tensors, else launch the kernel."""
     model = resolve_model(model)
     _check_mode(mode)
     q, n_block, n_lane = x0_lanes.shape
+    kernel = "filter_batch_tan" if tangent else "filter_batch"
     pairs, _ = _tri_idx(q)
     n_tri = len(pairs)
     device = x0_lanes.device
@@ -830,13 +933,14 @@ def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
             ("t_vec", t_vec, (q,)),
             ("x0_lanes", x0_lanes, (q, model.n_block, n_lane)),
             ("theta_lanes", theta_lanes, (model.n_theta, n_lane)),
-            ("tgrid", tgrid, (n_steps,))):
+            ("tgrid", tgrid, (n_steps,)),
+            *_eps_operand(mode, eps, (n_steps, q, n_block, n_lane))):
         _check(name, t, shape, device)
     args = (model, n_steps, q_const, prior_var, ode_weight, t_vec, x0_lanes,
             theta_lanes, tgrid, mode)
     if device.type == "cpu":
-        return (_filter_batch_tan_plain if tangent
-                else _filter_batch_plain)(*args)
+        return _filter_batch_tan_plain(*args) if tangent \
+            else _filter_batch_plain(*args, eps=eps)
     n_aug = 1 + model.n_theta if tangent else 1
     G = x0_lanes.new_empty((n_steps, n_aug * q * q, n_block, n_lane))
     g = x0_lanes.new_empty((n_steps, n_aug * q, n_block, n_lane))
@@ -844,11 +948,24 @@ def _filter(tangent, model, n_steps, q_const, prior_var, ode_weight, t_vec,
     m_last = x0_lanes.new_empty((n_aug * q, n_block, n_lane))
     p_last = x0_lanes.new_empty((n_aug * n_tri, n_block, n_lane))
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES, "filter_batch_tan" if tangent else "filter_batch", q,
-            device, _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps,
-            n_lane, ctypes.addressof(qc), R_packed, ode_weight, t_vec,
-            x0_lanes, theta_lanes, tgrid, G, g, L, m_last, p_last)
+    # K1 reads the chkrebtii normals, K11a takes none
+    eps_arg = () if tangent else (eps if mode == "chkrebtii" else None,)
+    _launch(LAUNCHES, kernel, q, device, n_steps, n_lane,
+            ctypes.addressof(qc), R_packed, ode_weight, t_vec, x0_lanes,
+            theta_lanes, tgrid, *eps_arg, G, g, L, m_last, p_last,
+            model=model.cuda_functor, mode=mode)
     return G, g, L, m_last, p_last
+
+
+def _eps_operand(mode, eps, shape):
+    """The chkrebtii normals as an operand to check, ``(name, tensor,
+    shape)``, or none for another mode; raises where chkrebtii has none."""
+    if mode != "chkrebtii":
+        return ()
+    if eps is None:
+        raise ValueError("interrogation='chkrebtii' requires eps, the "
+                         "standard normals of its draws")
+    return (("eps", eps, shape),)
 
 
 def _host_qconst(q_const):
@@ -1068,10 +1185,12 @@ def _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
 
 
 def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
-                  interrogation, kalman_type, device):
+                  interrogation, kalman_type, device, kernels):
     """Validate the arguments shared by the fused entry points and move the
     tensor ones to ``device`` (``None``: the CUDA card), the prior's
-    variance squared in the square-root form.  Returns ``(fused model,
+    variance squared in the square-root form.  Each of ``kernels``, those
+    the entry runs, must hold the instance of (model, interrogation, q),
+    on the CPU too, where their twins run.  Returns ``(fused model,
     device, thetas, ode_weight, ode_inits, prior_pars)``."""
     fused = resolve_model(model)
     n_block, n_bmeas, q = ode_weight.shape
@@ -1079,9 +1198,8 @@ def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
     _check_mode(interrogation)
     if n_bmeas != 1:
         raise NotImplementedError("the fused kernels require n_bmeas == 1")
-    if q != _KERNEL_Q:
-        raise NotImplementedError(
-            f"the fused kernels are instantiated for q={_KERNEL_Q}, got {q}")
+    for kernel in kernels:
+        _check_instance(kernel, q, fused.cuda_functor, interrogation)
     device = resolve_device(device)
     move = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return (fused, device, move(thetas), move(ode_weight), move(ode_inits),
@@ -1089,9 +1207,27 @@ def _fused_inputs(thetas, ode_weight, ode_inits, prior_pars, model,
                                  tuple(move(p) for p in prior_pars)))
 
 
+def _interrogation_normals(interrogation, shape, generator, eps, device):
+    """The standard normals of the chkrebtii draws: ``eps`` as given (as
+    float32 on ``device``), or drawn from ``generator`` (``None``: PyTorch's
+    default generator) in ``shape``; ``None`` for another interrogation,
+    which draws nothing."""
+    if interrogation != "chkrebtii":
+        return None
+    if eps is None:
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device)
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=device)
+    if tuple(eps.shape) != tuple(shape):
+        raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
+                         f"{tuple(shape)}")
+    return eps.contiguous()
+
+
 def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
                          n_steps, prior_pars, model, interrogation="kramer",
-                         kalman_type="standard", device=None):
+                         kalman_type="standard", device=None, generator=None,
+                         eps=None):
     r"""
     Lane-batched fused solve: ``B`` independent solves of one model with
     per-lane parameters and initial states, through kernels K1 and K2r on
@@ -1107,16 +1243,26 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         prior_pars (tuple): ``(prior_weight, prior_var)``, each
             ``(n_block, q, q)``; the transition must be the same for every
             block (the IBM prior).
-        model: Model name (``"lorenz"``, ``"fitzhugh"``), model module or
-            :class:`~rodeo_tpu_torch.models.FusedModel`; it names both the
-            plain right-hand side and the CUDA functor.
-        interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
+        model: Model name (``"lorenz"``, ``"fitzhugh"``, ``"hes1"``,
+            ``"seirah"`` at q = 3; ``"chkrebtii"`` at q = 4 or 5), model
+            module or :class:`~rodeo_tpu_torch.models.FusedModel`; it names
+            both the plain right-hand side and the CUDA functor.
+        interrogation (str): ``"kramer"`` (EK1), ``"rodeo"`` (EK0),
+            ``"schober"`` (EK0 without measurement noise) or
+            ``"chkrebtii"`` (rodeo's noise, the ODE at a draw from the
+            predictive distribution).
         kalman_type (str): ``"standard"`` (packed covariances) or
             ``"sqrt"`` (the prior's variance given as a factor; packed
             Cholesky factors out, expand a lane with :func:`unpack_chol`);
             see :func:`resolve_kalman_type`.
         device: Where to run; ``None`` is the CUDA card, and raises without
             one.  The tensor arguments are moved there.
+        generator (torch.Generator): Source of the chkrebtii normals, on
+            ``device``; ``None`` takes PyTorch's default generator.
+        eps (Tensor(N, q, n_block, B)): The chkrebtii normals in place of
+            the generator's, in the JAX package's layout (its
+            ``jax.random.normal(key, (N, q, n_block, B))``).  The other
+            interrogations draw nothing and ignore both.
 
     Returns:
         (tuple): float32 **mean** ``(N+1, n_block, q, B)`` and packed
@@ -1124,14 +1270,20 @@ def solve_mv_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         coordinates, upper triangles in :func:`_tri_idx` order (expand a
         lane with :func:`unpack_cov`); in the square-root form the lower
         factors of the covariances, in the same layout.
+
+    The JAX package's entry takes ``key`` for chkrebtii's draws; the port's
+    takes ``generator`` or ``eps``.
     """
-    fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
+    fused, device, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_batch", "smoother_batch_rows"))
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
                            n_steps, prior_pars)
+    eps = _interrogation_normals(interrogation,
+                                (n_steps,) + ops["x0_lanes"].shape,
+                                generator, eps, device)
     A_k, b_k, C_k, m_last, p_last = fused_filter_batch(
-        fused, n_steps, **ops, mode=interrogation)
+        fused, n_steps, **ops, mode=interrogation, eps=eps)
     # entry 0 of the gains conditions on the exact initial state, which
     # the smoother does not need: its seed is the last filtered state
     t_vec = ops["t_vec"]
@@ -1161,7 +1313,7 @@ def _tri_scale(t_vec):
 def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                       prior_pars, obs_data, obs_times, obs_loglik, model,
                       interrogation="kramer", kalman_type="standard",
-                      device=None, **params):
+                      device=None, generator=None, eps=None, **params):
     r"""
     Lane-batched basic likelihood: the fused solve
     (:func:`solve_mv_fused_batch`, kernels K1 and K2r), then the user's
@@ -1174,7 +1326,8 @@ def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
         obs_loglik (Callable): ``obs_loglik(obs_data, ode_data, **params)``
             with ``ode_data (n_obs, n_block, q)`` one lane's posterior mean
             at the observation times; it must be vmappable.
-        (other args as :func:`solve_mv_fused_batch`)
+        (other args as :func:`solve_mv_fused_batch`, ``generator`` and
+        ``eps`` those of chkrebtii's draws)
 
     Returns:
         (tuple): **loglik** ``(B,)`` and **mean** ``(N+1, n_block, q, B)``.
@@ -1184,7 +1337,8 @@ def basic_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                                       prior_pars)
     mean_rows, _ = solve_mv_fused_batch(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
-        model, interrogation=interrogation, device=device)
+        model, interrogation=interrogation, device=device,
+        generator=generator, eps=eps)
     lls_of = _lane_loglik(t_min, t_max, n_steps, obs_data, obs_times,
                           obs_loglik, params, mean_rows.device)
     return lls_of(mean_rows), mean_rows
@@ -1228,7 +1382,7 @@ def solve_mv_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_batch_tan", "smoother_mean_batch_tan"))
     n_block, _, q = ode_weight.shape
     n_lane, n_tan = thetas.shape
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
@@ -1289,8 +1443,8 @@ def basic_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
 
 
 def _filter_single_plain(model, n_steps, q_const, prior_var, ode_weight,
-                         t_vec, x0, theta, tgrid, mode):
-    """Plain PyTorch twin of ``csrc/filter_single.cu``: K1's twin step
+                         t_vec, x0, theta, tgrid, mode, eps=None):
+    """Plain PyTorch twin of ``csrc/filter_single.cuh``: K1's twin step
     (:func:`_predict_cols`, :func:`_interrogate_update_cols`) on ``(n_block,
     1)`` columns, one Python iteration per step.  Arguments and returns as
     :func:`fused_filter` (``model`` resolved)."""
@@ -1311,7 +1465,8 @@ def _filter_single_plain(model, n_steps, q_const, prior_var, ode_weight,
                                          p_cols)
         m_cols, p_cols, _, _, _ = _interrogate_update_cols(
             model, q, pairs, where, W_cols, tv_cols, mp_cols, pp_cols,
-            theta_col, tgrid[n], mode)
+            theta_col, tgrid[n], mode,
+            None if eps is None else [eps[n, :, j:j + 1] for j in range(q)])
         mp[n] = torch.cat(mp_cols, dim=1)
         pp[n] = torch.cat(pp_cols, dim=1)
         mf[n] = torch.cat(m_cols, dim=1)
@@ -1320,7 +1475,7 @@ def _filter_single_plain(model, n_steps, q_const, prior_var, ode_weight,
 
 
 def fused_filter(model, n_steps, q_const, prior_var, ode_weight, t_vec, x0,
-                 theta, tgrid, mode="kramer"):
+                 theta, tgrid, mode="kramer", eps=None):
     r"""
     Single-solve forward filter (kernel K3): the filtered and predicted
     moments of steps ``1..N``.  All tensors float32, in Taylor-scaled
@@ -1331,6 +1486,10 @@ def fused_filter(model, n_steps, q_const, prior_var, ode_weight, t_vec, x0,
             As :func:`fused_filter_batch`.
         x0 (Tensor(n_block, q)): Scaled initial state.
         theta (Tensor(n_theta,)): Parameters.
+        eps (Tensor(N, n_block, q)): The standard normals of the chkrebtii
+            draws (the JAX package's layout); other modes take none.
+
+    The kernel holds the instances of K1 (:func:`fused_filter_batch`).
 
     Returns:
         (tuple): ``mf (N, n_block, q)``, packed ``pf (N, n_block, n_tri)``,
@@ -1349,18 +1508,20 @@ def fused_filter(model, n_steps, q_const, prior_var, ode_weight, t_vec, x0,
             ("t_vec", t_vec, (q,)),
             ("x0", x0, (model.n_block, q)),
             ("theta", theta, (model.n_theta,)),
-            ("tgrid", tgrid, (n_steps,))):
+            ("tgrid", tgrid, (n_steps,)),
+            *_eps_operand(mode, eps, (n_steps, n_block, q))):
         _check(name, t, shape, device)
     if device.type == "cpu":
         return _filter_single_plain(model, n_steps, q_const, prior_var,
-                                    ode_weight, t_vec, x0, theta, tgrid, mode)
+                                    ode_weight, t_vec, x0, theta, tgrid, mode,
+                                    eps)
     mf, mp = (x0.new_empty((n_steps, n_block, q)) for _ in range(2))
     pf, pp = (x0.new_empty((n_steps, n_block, n_tri)) for _ in range(2))
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES, "filter_single", q, device,
-            _FUNCTORS[model.cuda_functor], _MODES[mode], n_steps,
+    _launch(LAUNCHES, "filter_single", q, device, n_steps,
             ctypes.addressof(qc), R_packed, ode_weight, t_vec, x0, theta,
-            tgrid, mf, pf, mp, pp)
+            tgrid, eps if mode == "chkrebtii" else None, mf, pf, mp, pp,
+            model=model.cuda_functor, mode=mode)
     return mf, pf, mp, pp
 
 
@@ -1601,7 +1762,8 @@ def _single_operands(theta, ode_weight, ode_init, t_min, t_max, n_steps,
 
 def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
                    prior_pars, model, interrogation="kramer", k_compose=None,
-                   kalman_type="standard", device=None):
+                   kalman_type="standard", device=None, generator=None,
+                   eps=None):
     r"""
     Posterior mean and variance of one ODE solve (the latency path),
     through kernels K3 (the filter) and K4 (the smoother) on the CUDA card,
@@ -1617,9 +1779,10 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
         prior_pars (tuple): ``(prior_weight, prior_var)``, each
             ``(n_block, q, q)``; the transition must be the same for every
             block (the IBM prior).
-        model: Model name (``"lorenz"``, ``"fitzhugh"``), model module or
-            :class:`~rodeo_tpu_torch.models.FusedModel`.
-        interrogation (str): ``"kramer"`` (EK1) or ``"rodeo"`` (EK0).
+        model: Model name (as :func:`solve_mv_fused_batch` takes them),
+            model module or :class:`~rodeo_tpu_torch.models.FusedModel`.
+        interrogation (str): ``"kramer"``, ``"rodeo"``, ``"schober"`` or
+            ``"chkrebtii"``, as :func:`solve_mv_fused_batch` takes them.
         k_compose (int or None): Steps per group of the composed smoother
             (:func:`fused_smoother_composed`); ``None`` or 1 runs the plain
             recursion (:func:`fused_smoother`).  The JAX package composes 16
@@ -1634,6 +1797,9 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
             factors of the covariances (see :func:`resolve_kalman_type`).
         device: Where to run; ``None`` is the CUDA card, and raises without
             one.  The tensor arguments are moved there.
+        generator (torch.Generator), eps (Tensor(N, n_block, q)): The
+            source of chkrebtii's normals, or the normals in the JAX
+            package's layout, as :func:`solve_mv_fused_batch` takes them.
 
     Returns:
         (tuple): float32 **mean** ``(N+1, n_block, q)`` and dense **var**
@@ -1643,15 +1809,20 @@ def solve_mv_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
 
     The JAX package's entry takes ``(key, ode_fun, ...)`` and the model as
     the callables ``ode_flat`` / ``jac_flat``; the port's takes ``theta``
-    first and names a model with a CUDA functor (``model=``), a departure
-    that stands until the fused kernels compile a user's functor.
+    first, names a model with a CUDA functor (``model=``) and takes
+    chkrebtii's normals as ``generator`` or ``eps``, departures that stand
+    until the fused kernels compile a user's functor.
     """
-    fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
+    fused, device, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
         theta, ode_weight, ode_init, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_single", "smoother_single"))
     ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
                                n_steps, prior_pars)
-    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=interrogation)
+    eps = _interrogation_normals(interrogation,
+                                (n_steps,) + ops["x0"].shape, generator, eps,
+                                device)
+    mf, pf, mp, pp = fused_filter(fused, n_steps, **ops, mode=interrogation,
+                                  eps=eps)
     return _smoothed_rows(ops, Qs, mf, pf, mp, pp, k_compose,
                           sqrt=resolve_kalman_type(kalman_type) == "sqrt")
 
@@ -1821,9 +1992,9 @@ def mean_gain_chain(model, q_const, ode_weight, t_vec, x0, theta, tgrid,
                                 tgrid, gains)
     mf = x0.new_empty((n_steps, n_block, q))
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES, "mean_gain_single", q, device,
-            _FUNCTORS[model.cuda_functor], n_steps, ctypes.addressof(qc),
-            ode_weight, t_vec, x0, theta, tgrid, gains, mf)
+    _launch(LAUNCHES, "mean_gain_single", q, device, n_steps,
+            ctypes.addressof(qc), ode_weight, t_vec, x0, theta, tgrid, gains,
+            mf, model=model.cuda_functor)
     return mf
 
 
@@ -1858,10 +2029,9 @@ def mean_boundary_chain(model, q_const, ode_weight, t_vec, m0, theta, tgrid,
                                     theta, tgrid, k_star, k_group)
     bnd = m0.new_empty((n_group, n_block, q))
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES, "mean_boundary_single", q, device,
-            _FUNCTORS[model.cuda_functor], n_group, k_group,
+    _launch(LAUNCHES, "mean_boundary_single", q, device, n_group, k_group,
             ctypes.addressof(qc), ode_weight, t_vec, m0, theta, tgrid, k_star,
-            bnd)
+            bnd, model=model.cuda_functor)
     return bnd
 
 
@@ -1871,8 +2041,8 @@ def _mean_gain_geometry(model, device=None):
     it, with the ring's stages and the steps a stage holds."""
     model = resolve_model(model)
     return _launch_geometry("mean_gain_single", device,
-                            _FUNCTORS[model.cuda_functor],
-                            extra=("stages", "rows_per_stage"))
+                            extra=("stages", "rows_per_stage"),
+                            model=model.cuda_functor)
 
 
 def _mean_boundary_geometry(model, device=None):
@@ -1881,7 +2051,7 @@ def _mean_boundary_geometry(model, device=None):
     it."""
     model = resolve_model(model)
     return _launch_geometry("mean_boundary_single", device,
-                            _FUNCTORS[model.cuda_functor])
+                            model=model.cuda_functor)
 
 
 def _mean_recovery_geometry(model, n_group, device=None):
@@ -1890,9 +2060,9 @@ def _mean_recovery_geometry(model, n_group, device=None):
     :func:`_launch_geometry` reports it, with the groups a CTA holds and
     the most steps a group may have."""
     model = resolve_model(model)
-    return _launch_geometry("mean_recovery_single", device,
-                            _FUNCTORS[model.cuda_functor], n_group,
-                            extra=("groups_per_cta", "max_group_steps"))
+    return _launch_geometry("mean_recovery_single", device, n_group,
+                            extra=("groups_per_cta", "max_group_steps"),
+                            model=model.cuda_functor)
 
 
 def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,
@@ -1924,10 +2094,9 @@ def mean_recovery_chain(model, q_const, ode_weight, t_vec, bnd, theta, tgrid,
                          f"steps, not {k_group}")
     mf = bnd.new_empty((n_group * k_group, n_block, q))
     qc = _host_qconst(q_const)
-    _launch(LAUNCHES, "mean_recovery_single", q, device,
-            _FUNCTORS[model.cuda_functor], n_group, k_group,
+    _launch(LAUNCHES, "mean_recovery_single", q, device, n_group, k_group,
             ctypes.addressof(qc), ode_weight, t_vec, bnd, theta, tgrid,
-            k_star, mf)
+            k_star, mf, model=model.cuda_functor)
     return mf
 
 
@@ -2017,7 +2186,9 @@ def solve_mv_fused_stationary(theta, ode_weight, ode_init, t_min, t_max,
             "rodeo)")
     fused, _, theta, ode_weight, ode_init, prior_pars = _fused_inputs(
         theta, ode_weight, ode_init, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_single", "mean_gain_single",
+                              "mean_boundary_single", "mean_recovery_single",
+                              "smoother_single"))
     ops, Qs = _single_operands(theta, ode_weight, ode_init, t_min, t_max,
                                n_steps, prior_pars)
     n_block, q = ops["x0"].shape

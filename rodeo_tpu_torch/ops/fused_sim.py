@@ -23,8 +23,8 @@ K6's launches.
 import torch
 
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _check, _chol_cols, _chol_matvec, _fused_inputs, _kernel_operands,
-    _launch, _launch_geometry, _tri_idx, fused_filter_batch)
+    _check, _chol_cols, _chol_matvec, _fused_inputs, _interrogation_normals,
+    _kernel_operands, _launch, _launch_geometry, _tri_idx, fused_filter_batch)
 
 __all__ = ["solve_sim_fused_batch", "sampler_batch", "LAUNCHES"]
 
@@ -94,8 +94,10 @@ def _sampler_batch_geometry(n_col, device=None):
 # --- the sampler ---------------------------------------------------------------------
 
 
-def _draw_operands(fused, n_steps, ops, interrogation, eps, eps_term):
-    """The operands of K6 for one draw: the forward filter (K1) on ``ops``
+def _draw_operands(fused, n_steps, ops, interrogation, eps, eps_term,
+                   eps_int=None):
+    """The operands of K6 for one draw: the forward filter (K1, with
+    chkrebtii's normals ``eps_int``) on ``ops``
     (:func:`~rodeo_tpu_torch.ops.fused_kalman._kernel_operands`), the
     noise ``c = g + L^{1/2} eps`` of steps 1..N-1 and the terminal draw
     ``xN`` from the last filtered state.  Returns ``(c, G, xN)``."""
@@ -104,7 +106,7 @@ def _draw_operands(fused, n_steps, ops, interrogation, eps, eps_term):
     # entry 0 of the gains conditions onto the exact initial state and is
     # not drawn; the last filtered state seeds the terminal draw
     A, b, C, m_last, p_last = fused_filter_batch(
-        fused, n_steps, **ops, mode=interrogation)
+        fused, n_steps, **ops, mode=interrogation, eps=eps_int)
     Lc = _chol_cols(q, [C[1:, k] for k in range(len(pairs))], where)
     eta = _chol_matvec(q, Lc, [eps[:, j] for j in range(q)])
     c = torch.stack([b[1:, i] + eta[i] for i in range(q)], dim=1)
@@ -118,7 +120,7 @@ def _draw_operands(fused, n_steps, ops, interrogation, eps, eps_term):
 def solve_sim_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
                           n_steps, prior_pars, model, interrogation="kramer",
                           kalman_type="standard", generator=None, eps=None,
-                          eps_term=None, device=None):
+                          eps_term=None, device=None, eps_int=None):
     r"""
     Lane-batched posterior path sampling: ``B`` independent draws, one per
     lane, through kernels K1 and K6 on the CUDA card (their plain twins with
@@ -131,6 +133,11 @@ def solve_sim_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
         eps (Tensor(N-1, q, n_block, B)), eps_term (Tensor(q, n_block, B)):
             The standard normals of steps 1..N-1 and of the terminal draw,
             in place of the generator's (both or neither).
+        eps_int (Tensor(N, q, n_block, B)): Under chkrebtii, the standard
+            normals of the interrogations' draws in place of the
+            generator's, which draws them before the path's normals (the
+            JAX package splits ``key`` into ``(key, key_int)`` and draws
+            these from ``key_int``); the other interrogations ignore it.
         kalman_type (str): As the solve's; in the square-root form the
             prior's variance is a factor, squared at entry, and the draws
             are the same.
@@ -143,12 +150,15 @@ def solve_sim_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     """
     fused, device, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,
-        kalman_type, device)
+        kalman_type, device, ("filter_batch", "sampler_batch"))
     if (eps is None) != (eps_term is None):
         raise ValueError("pass both eps and eps_term, or neither")
     n_block, _, q = ode_weight.shape
     n_lane = thetas.shape[0]
     n_len = n_steps - 1
+    eps_int = _interrogation_normals(interrogation,
+                                     (n_steps, q, n_block, n_lane),
+                                     generator, eps_int, device)
     if eps is None:
         normal = dict(generator=generator, dtype=torch.float32,
                       device=device)
@@ -159,7 +169,7 @@ def solve_sim_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max,
     ops = _kernel_operands(thetas, ode_weight, ode_inits, t_min, t_max,
                            n_steps, prior_pars)
     c, G, xN = _draw_operands(fused, n_steps, ops, interrogation, eps,
-                              eps_term)
+                              eps_term, eps_int)
     xs = sampler_batch(c, G, xN)
     del c, G
     # assemble (N+1, nb, q, B) in original coordinates, lanes last

@@ -216,7 +216,7 @@ def sharded_loglik(loglik_fn, thetas, keys=None, mesh=None,
 def run_chains_fused(loglik_fn, init_positions, generator, n_samples,
                      rw_scale, ode_weight, ode_init, t_min, t_max, n_steps,
                      prior_pars, model, position_to_init=None, noise=None,
-                     device=None):
+                     device=None, interrogation="kramer"):
     r"""
     Pseudo-marginal random-walk MCMC with every chain riding the fused
     lane-batched sampler: all ``n_lane`` chains advance in lockstep, each
@@ -261,7 +261,8 @@ def run_chains_fused(loglik_fn, init_positions, generator, n_samples,
         n_samples=n_samples, rw_scale=rw_scale, ode_weight=ode_weight,
         ode_init=ode_init, t_min=t_min, t_max=t_max, n_steps=n_steps,
         prior_pars=prior_pars, model=model,
-        position_to_init=position_to_init, device=device)
+        position_to_init=position_to_init, interrogation=interrogation,
+        device=device)
     return runner(init_positions, generator, noise=noise)
 
 
@@ -282,18 +283,17 @@ def make_chain_runner(loglik_fn, n_lane, n_samples, rw_scale, ode_weight,
     solve_sim_fused_batch`'s ``eps`` and ``eps_term``); then per step
     ``"prop" (S, n_lane, n_theta)``, the proposal's normals, ``"eps" (S,
     N-1, q, n_block, n_lane)`` and ``"eps_term" (S, q, n_block, n_lane)``,
-    the draw's, and ``"u" (S, n_lane)``, the uniforms.
-
-    ``interrogation="chkrebtii"`` raises: the kernels hold kramer and
-    rodeo, and chkrebtii waits for ``ROADMAP.md`` queue 1 item 5.
+    the draw's, and ``"u" (S, n_lane)``, the uniforms.  Under
+    ``interrogation="chkrebtii"`` the estimates' interrogations draw too:
+    ``"init_eps_int" (N, q, n_block, n_lane)`` and ``"eps_int" (S, N, q,
+    n_block, n_lane)``, :func:`~rodeo_tpu_torch.ops.fused_sim.
+    solve_sim_fused_batch`'s ``eps_int`` (the JAX package draws them from
+    the ``key_int`` it splits off each estimate's key).
     """
     from rodeo_tpu_torch.ops.fused_sim import solve_sim_fused_batch
 
-    if interrogation == "chkrebtii":
-        raise NotImplementedError(
-            "the chkrebtii interrogation in the fused kernels waits for "
-            "ROADMAP.md queue 1 item 5 (kernel-path coverage)")
     device = resolve_device(device)
+    chkrebtii = interrogation == "chkrebtii"
     ode_init = torch.as_tensor(ode_init, device=device)
     n_block, _, q = ode_weight.shape
 
@@ -302,17 +302,29 @@ def make_chain_runner(loglik_fn, n_lane, n_samples, rw_scale, ode_weight,
             return position_to_init(positions)
         return ode_init.expand((n_lane,) + ode_init.shape)
 
-    def estimate(positions, eps, eps_term):
+    def estimate(positions, eps_int, eps, eps_term):
         paths = solve_sim_fused_batch(
             positions, ode_weight, inits_for(positions), t_min, t_max,
             n_steps, prior_pars, model, interrogation=interrogation,
-            eps=eps, eps_term=eps_term, device=device)
+            eps=eps, eps_term=eps_term, eps_int=eps_int, device=device)
         return loglik_fn(positions, paths)
 
     def path_normals(generator):
+        """An estimate's normals: the interrogations' (chkrebtii), then the
+        path's and the terminal draw's."""
         shape = (n_steps - 1, q, n_block, n_lane)
-        return (_normals(shape, device, generator),
+        eps_int = _normals((n_steps,) + shape[1:], device, generator) \
+            if chkrebtii else None
+        return (eps_int, _normals(shape, device, generator),
                 _normals(shape[1:], device, generator))
+
+    def given(noise, prefix, i=None):
+        """An estimate's normals from ``noise``: those of the initial
+        estimate (``prefix`` "init_") or of step ``i`` (prefix "")."""
+        keys = (prefix + "eps_int",) * chkrebtii + (prefix + "eps",
+                                                    prefix + "eps_term")
+        normals = tuple(noise[k] if i is None else noise[k][i] for k in keys)
+        return normals if chkrebtii else (None,) + normals
 
     def run(init_positions, generator=None, scale=None, noise=None):
         pos = torch.as_tensor(init_positions, device=device).float()
@@ -321,20 +333,20 @@ def make_chain_runner(loglik_fn, n_lane, n_samples, rw_scale, ode_weight,
         s = s.broadcast_to(pos.shape[-1:])
         noise = _noise_on(noise, device)
         ll = estimate(pos, *(path_normals(generator) if noise is None else
-                             (noise["init_eps"], noise["init_eps_term"])))
+                             given(noise, "init_")))
         positions = pos.new_empty((n_samples,) + pos.shape)
         accepted = torch.empty((n_samples, n_lane), dtype=torch.bool,
                                device=device)
         for i in range(n_samples):
             if noise is None:
                 z = _normals(pos.shape, device, generator)
-                eps, eps_term = path_normals(generator)
+                normals = path_normals(generator)
                 u = _uniforms(n_lane, device, generator)
             else:
-                z, eps, eps_term, u = (noise[k][i] for k in (
-                    "prop", "eps", "eps_term", "u"))
+                z, u = noise["prop"][i], noise["u"][i]
+                normals = given(noise, "", i)
             prop = pos + s * z
-            ll_prop = estimate(prop, eps, eps_term)
+            ll_prop = estimate(prop, *normals)
             accept = _accept(u, ll_prop - ll)
             pos = torch.where(accept[:, None], prop, pos)
             ll = torch.where(accept, ll_prop, ll)

@@ -57,23 +57,45 @@ def _path_normals(key, n_steps, q, n_block, n_lane):
                                      jnp.float32)))
 
 
-def chain_runner(key, n_samples, n_lane, n_theta, n_steps, q, n_block):
+def _interrogation_normals(key, n_steps, q, n_block, n_lane):
+    """Under chkrebtii, solve_sim_fused_batch first splits its key into
+    ``(key, key_int)`` and draws the interrogations' normals from
+    ``key_int`` (pallas_sim.py:154-158); returns the key left and them."""
+    key, key_int = _split(key, 2)
+    return key, np.array(jax.random.normal(
+        key_int, (n_steps, q, n_block, n_lane), jnp.float32))
+
+
+def chain_runner(key, n_samples, n_lane, n_theta, n_steps, q, n_block,
+                 interrogation="kramer"):
     """make_chain_runner (chains.py:189-194, :202-204): ``key_init`` for the
-    initial estimate, then per step ``k_prop, k_path, k_acc``."""
+    initial estimate, then per step ``k_prop, k_path, k_acc``; under
+    chkrebtii each estimate's key gives the interrogations' normals too
+    ("init_eps_int", "eps_int")."""
+    chkrebtii = interrogation == "chkrebtii"
     key_init, key_scan = _split(key, 2)
+    noise = {}
+    if chkrebtii:
+        key_init, noise["init_eps_int"] = _interrogation_normals(
+            key_init, n_steps, q, n_block, n_lane)
     init_eps, init_eps_term = _path_normals(key_init, n_steps, q, n_block,
                                             n_lane)
-    out = {k: [] for k in ("prop", "eps", "eps_term", "u")}
+    out = {k: [] for k in ("prop", "eps", "eps_term", "u")
+           + ("eps_int",) * chkrebtii}
     for step_key in _split(key_scan, n_samples):
         k_prop, k_path, k_acc = _split(step_key, 3)
         out["prop"].append(np.array(jax.random.normal(
             k_prop, (n_lane, n_theta), jnp.float32)))
+        if chkrebtii:
+            k_path, eps_int = _interrogation_normals(k_path, n_steps, q,
+                                                     n_block, n_lane)
+            out["eps_int"].append(eps_int)
         eps, eps_term = _path_normals(k_path, n_steps, q, n_block, n_lane)
         out["eps"].append(eps)
         out["eps_term"].append(eps_term)
         out["u"].append(np.array(jax.random.uniform(
             k_acc, (n_lane,), jnp.float32)))
-    noise = {k: np.stack(v) for k, v in out.items()}
+    noise.update({k: np.stack(v) for k, v in out.items()})
     noise.update(init_eps=init_eps, init_eps_term=init_eps_term)
     return noise
 

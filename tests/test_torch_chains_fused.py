@@ -23,9 +23,10 @@ from rodeo_tpu_torch.parallel import chains as tc
 import fused_chains as fc
 import mcmc_replay
 
-def test_chain_runner_replays_jax():
+def _replay_chain_runner(interrogation):
     """FitzHugh-Nagumo, 20 steps to t = 2, 16 lanes x 4 random-walk steps,
-    the log-likelihood of each drawn path against a fixed mean path."""
+    the log-likelihood of each drawn path against a fixed mean path, the
+    estimates under ``interrogation``."""
     n_steps, t_max, n_lane, n_samp, scale = 20, 2.0, 16, 4, 0.02
     jcfg, tcfg, theta = fc.fitz_cfgs(n_steps, t_max)
     mu_ref, _ = fk.solve_mv_fused_batch(
@@ -49,36 +50,53 @@ def test_chain_runner_replays_jax():
         ode_weight=jcfg["ode_weight"], ode_init=jcfg["ode_init"],
         t_min=0.0, t_max=t_max, n_steps=n_steps,
         prior_pars=jcfg["prior_pars"], ode_flat=jfitz.fitzhugh_flat,
-        jac_flat=jfitz.fitzhugh_jac_flat)
+        jac_flat=jfitz.fitzhugh_jac_flat, interrogation=interrogation)
     ref = j_run(jnp.asarray(init), key)
-    noise = mcmc_replay.chain_runner(key, n_samp, n_lane, 3, n_steps, 3, 2)
+    noise = mcmc_replay.chain_runner(key, n_samp, n_lane, 3, n_steps, 3, 2,
+                                     interrogation=interrogation)
     kw = dict(loglik_fn=tloglik, n_lane=n_lane, rw_scale=scale,
               ode_weight=tcfg["ode_weight"], ode_init=tcfg["ode_init"],
               t_min=0.0, t_max=t_max, n_steps=n_steps,
-              prior_pars=tcfg["prior_pars"], model="fitzhugh", device="cpu")
+              prior_pars=tcfg["prior_pars"], model="fitzhugh",
+              interrogation=interrogation, device="cpu")
     fk.LAUNCHES["filter_batch"] = fs.LAUNCHES["sampler_batch"] = 0
     port = tc.make_chain_runner(n_samples=n_samp, **kw)(
         torch.from_numpy(init), noise=noise)
     # the CPU takes the twins: no kernel is launched
     assert fk.LAUNCHES["filter_batch"] == fs.LAUNCHES["sampler_batch"] == 0
+    per_step = ("prop", "eps", "eps_term", "u", "eps_int")
 
     def margin_at(s, lane):
         pos_s, ll_s, _ = tc.make_chain_runner(n_samples=s, **kw)(
             torch.from_numpy(init), noise={
-                k: (v[:s] if k in ("prop", "eps", "eps_term", "u") else v)
+                k: (v[:s] if k in per_step else v)
                 for k, v in noise.items()})
         prev = pos_s[-1] if s else torch.from_numpy(init)
         prop = prev + scale * torch.from_numpy(noise["prop"][s])
         paths = fs.solve_sim_fused_batch(
             prop, tcfg["ode_weight"], tcfg["ode_init"].expand(n_lane, 2, 3),
             0.0, t_max, n_steps, tcfg["prior_pars"], "fitzhugh",
-            eps=noise["eps"][s], eps_term=noise["eps_term"][s],
+            interrogation=interrogation, eps=noise["eps"][s],
+            eps_term=noise["eps_term"][s],
+            eps_int=noise["eps_int"][s] if "eps_int" in noise else None,
             device="cpu")
         ratio = tloglik(prop, paths) - ll_s
         return abs(math.log(noise["u"][s][lane]) - float(ratio[lane]))
 
     dec = fc.check_lockstep(port, ref, init, margin_at)
     assert not dec.all()
+
+
+def test_chain_runner_replays_jax():
+    """FitzHugh-Nagumo under EK1 (kramer)."""
+    _replay_chain_runner("kramer")
+
+
+def test_chain_runner_chkrebtii_replays_jax():
+    """Under chkrebtii: each estimate's interrogation normals from the
+    ``key_int`` the JAX package splits off its key, the same accept
+    decisions as the JAX package's."""
+    _replay_chain_runner("chkrebtii")
 
 
 @pytest.mark.parametrize("likelihood,n_samp,step", [
@@ -90,11 +108,6 @@ def test_mala_replays_jax(likelihood, n_samp, step):
 
 def test_unported_options_raise():
     _, tcfg, theta = fc.fitz_cfgs(20, 2.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tc.make_chain_runner(
-            lambda p, x: p.sum(-1), 4, 2, 0.1, tcfg["ode_weight"],
-            tcfg["ode_init"], 0.0, 2.0, 20, tcfg["prior_pars"], "fitzhugh",
-            interrogation="chkrebtii", device="cpu")
     with pytest.raises(NotImplementedError, match="unknown likelihood"):
         tc.run_chains_mala_fused(
             torch.zeros((2, 3)), None, 1, 0.1, tcfg["ode_weight"],

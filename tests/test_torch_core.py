@@ -451,10 +451,11 @@ def test_port_imports_no_jax():
     assert {"solve.py", "interrogate.py", "inference/basic.py",
             "inference/fenrir.py", "inference/dalton.py",
             "prior/indep_init.py", "ops/linalg.py", "ops/precond.py"} <= names
-    # chip_smoke.py, the tool whose fixtures its torch_op phase runs, and
-    # the tool that times the torch-ops on the card
+    # chip_smoke.py, the tools whose fixtures its torch_op and coverage
+    # phases run, and the tool that times the torch-ops on the card
     for path in files + [REPO / "chip_smoke.py",
                          REPO / "tools" / "torch_op_reference.py",
+                         REPO / "tools" / "torch_coverage_reference.py",
                          REPO / "tools" / "torch_op_costs.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -30,6 +30,7 @@ imports no JAX, so that it runs where only the port is installed:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
 import ctypes
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +45,9 @@ from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 from rodeo_tpu_torch.ops import fused_magi as fm
 from rodeo_tpu_torch.ops import fused_sim as fs
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_coverage_reference as cov_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -217,7 +221,7 @@ def test_cuda_tensors_never_take_the_twin(cuda_device):
     """A CUDA operand the kernels cannot take raises; it is not handed to
     the plain twin."""
     rng = np.random.default_rng(6)
-    T, q, nb, B = 5, 4, 2, 3           # q = 4: no kernel instantiated
+    T, q, nb, B = 5, 6, 2, 3           # q = 6: no kernel instantiated
     n_tri = q * (q + 1) // 2
 
     def t(*shape):
@@ -954,9 +958,8 @@ def _boundary_at(chain, m0, theta, tgrid, k_star, k_group):
     bnd = m0.new_empty((tgrid.shape[0] // k_group,) + m0.shape)
     qc = fk._host_qconst(q_const)
     fk._launch(fk.LAUNCHES, "mean_boundary_single", 3, m0.device,
-               fk._FUNCTORS[fused.cuda_functor], bnd.shape[0], k_group,
-               ctypes.addressof(qc), ode_weight, t_vec, m0, theta, tgrid,
-               k_star, bnd)
+               bnd.shape[0], k_group, ctypes.addressof(qc), ode_weight, t_vec,
+               m0, theta, tgrid, k_star, bnd, model=fused.cuda_functor)
     return bnd
 
 
@@ -1081,9 +1084,9 @@ def test_mean_recovery_split_is_bitwise_its_twin_on_the_card(
             off = _misaligned(torch.zeros_like(twin), 1)
             qc = fk._host_qconst(chain[1])
             fk._launch(fk.LAUNCHES, "mean_recovery_single", 3, m0.device,
-                       fk._FUNCTORS[chain[0].cuda_functor], n_group, k_group,
-                       ctypes.addressof(qc), chain[2], chain[3], bnd, theta,
-                       tgrid, k_star, off)
+                       n_group, k_group, ctypes.addressof(qc), chain[2],
+                       chain[3], bnd, theta, tgrid, k_star, off,
+                       model=chain[0].cuda_functor)
             assert torch.equal(off, twin), label
             if k_group == 64:
                 ref = fk.mean_gain_chain(
@@ -1132,9 +1135,9 @@ def test_mean_gain_stream_is_bitwise_its_twin_on_the_card(
                 mf = _misaligned(torch.zeros_like(twin), offset)
                 qc = fk._host_qconst(chain[1])
                 fk._launch(fk.LAUNCHES, "mean_gain_single", 3, x0.device,
-                           fk._FUNCTORS[chain[0].cuda_functor], n_steps,
-                           ctypes.addressof(qc), chain[2], chain[3], x0,
-                           theta, t_k, g_k, mf)
+                           n_steps, ctypes.addressof(qc), chain[2], chain[3],
+                           x0, theta, t_k, g_k, mf,
+                           model=chain[0].cuda_functor)
             else:
                 mf = fk.mean_gain_chain(*chain, x0, theta, t_k, g_k)
             assert _launched() == {"mean_gain_single": 1}, label
@@ -1538,3 +1541,128 @@ def test_torch_op_linalg_on_the_card(cuda_device):
     assert _scaled_err(f @ f.mT, c) <= 1e-12
     (g,) = torch.autograd.grad(f.sum(), c)
     assert g.is_cuda and torch.isfinite(g).all()
+
+
+# --- the instances taken last: schober, chkrebtii, q = 4, 5, Chkrebtii's ODE,
+# Hes1 and SEIRAH ---------------------------------------------------------------
+
+_NEW_INSTANCES = cov_ref.new_filter_instances()
+
+
+@pytest.mark.parametrize("functor,mode,q", _NEW_INSTANCES,
+                         ids=["-".join(map(str, k)) for k in _NEW_INSTANCES])
+def test_new_filter_instances_are_bitwise_their_twins(cuda_device, functor,
+                                                      mode, q):
+    """Each instance of K1 and K3 that this slice added, bitwise against its
+    twin: K1 on 37 lanes (a ragged lane group), K3 on lane 0
+    (tools/torch_coverage_reference.py's INSTANCE_CHECKS)."""
+    case = cov_ref.instance_case(functor, mode, q, 37, cuda_device, seed=7)
+    outs = cov_ref.filter_instance_outputs(case, mode)
+    torch.cuda.synchronize()
+    for kernel_out, twin_out in outs:
+        for k, p in zip(kernel_out, twin_out):
+            assert torch.isfinite(p).all()
+            assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("q", [4, 5])
+def test_smoothers_at_q45_are_bitwise_their_twins(cuda_device, q):
+    """K2r and K4 at q = 4 and 5 on seeded rows, bitwise; their C entries
+    refuse q = 2 and 6, and K1's and K3's an instance they do not hold."""
+    rng = np.random.default_rng(q)
+    pairs, _ = fk._tri_idx(q)
+    T, nb, B = 200, 3, 37
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32,
+                            device=cuda_device).contiguous()
+
+    A = rng.standard_normal((T, nb, B, q, q))
+    Lf = A @ np.swapaxes(A, -1, -2)
+    sc = np.linspace(1.0, 0.1, q)
+    rows = [t(rng.standard_normal((T, q, nb, B))),
+            t(np.eye(q).reshape(1, q * q, 1, 1) * 0.5
+              + 0.1 * rng.standard_normal((T, q * q, nb, B))),
+            t(np.stack([Lf[..., i, j] for i, j in pairs], axis=1)),
+            t(rng.standard_normal((q, nb, B))),
+            t(np.abs(rng.standard_normal((len(pairs), nb, B)))),
+            t(rng.standard_normal((q, nb, B))), t(sc),
+            t([sc[i] * sc[j] for i, j in pairs])]
+    for a, b in zip(fk.smoother_recursion_batch_rows(*rows),
+                    fk._smoother_batch_rows_plain(*rows)):
+        assert torch.equal(a, b)
+    for n_block in (1, 3, 7):
+        single = [t(rng.standard_normal((T, n_block, q))),
+                  t(np.eye(q).reshape(1, 1, q * q) * 0.5
+                    + 0.1 * rng.standard_normal((T, n_block, q * q))),
+                  t(np.abs(rng.standard_normal((T, n_block, len(pairs))))),
+                  t(rng.standard_normal((n_block, q))),
+                  t(np.abs(rng.standard_normal((n_block, len(pairs)))))]
+        for a, b in zip(fk.smoother_recursion(*single),
+                        fk._smoother_single_plain(*single)):
+            assert torch.equal(a, b)
+    lib = fk._build.load()
+    qc = fk._host_qconst([[1.0] * 5] * 5)
+    for q_bad in (2, 6):
+        assert lib.rodeo_smoother_batch_rows(q_bad, 4, 1, 1, *([None] * 9),
+                                             None) != 0
+        assert lib.rodeo_smoother_single(q_bad, 4, 1, *([None] * 7),
+                                         None) != 0
+    for model, mode, q_k in ((0, 0, 4), (2, 0, 3), (5, 0, 3), (0, 4, 3),
+                             (3, 0, 5), (0, 3, 3)):
+        assert lib.rodeo_filter_batch(model, mode, q_k, 4, 2,
+                                      ctypes.addressof(qc), *([None] * 12),
+                                      None) != 0
+        assert lib.rodeo_filter_single(model, mode, q_k, 4,
+                                       ctypes.addressof(qc), *([None] * 11),
+                                       None) != 0
+
+
+@pytest.mark.parametrize("mode", ["schober", "chkrebtii"])
+def test_new_modes_launch_their_kernels(cuda_device, mode):
+    """solve_mv_fused_batch, solve_mv_fused, fenrir_fused_batch and
+    fenrir_fused under schober and chkrebtii launch K1 and K2r, K3 and K4,
+    K1 and K7b, K3 and K7a, once each, and agree with the same call on the
+    CPU given the same normals (ENTRY_TOL)."""
+    sigma = 10.0 if mode == "chkrebtii" else 5e7
+    cfg = lorenz.setup(n_steps=100, t_max=1.0, prior_sigma=sigma,
+                       dtype=torch.float32, device="cpu")
+    thetas = cfg["theta"].expand(5, 3).contiguous()
+    inits = cfg["ode_init"].expand(5, 3, 3).contiguous()
+    g = torch.Generator().manual_seed(3)
+    eps = torch.randn((100, 3, 3, 5), generator=g)
+    eps_one = eps[..., 0].permute(0, 2, 1).contiguous()
+    batch = (thetas, cfg["ode_weight"], inits, 0.0, 1.0, 100,
+             cfg["prior_pars"])
+    one = (cfg["theta"], cfg["ode_weight"], cfg["ode_init"], 0.0, 1.0, 100,
+           cfg["prior_pars"])
+    calls = {
+        "solve_mv_fused_batch": (
+            lambda dev: fk.solve_mv_fused_batch(
+                *batch, "lorenz", interrogation=mode, device=dev, eps=eps),
+            {"filter_batch": 1, "smoother_batch_rows": 1}),
+        "solve_mv_fused": (
+            lambda dev: fk.solve_mv_fused(
+                *one, "lorenz", interrogation=mode, device=dev, eps=eps_one),
+            {"filter_single": 1, "smoother_single": 1}),
+        "fenrir_fused_batch": (
+            lambda dev: (ff.fenrir_fused_batch(
+                *batch, **_obs("lorenz", 11, 1.0, dev), model="lorenz",
+                interrogation=mode, device=dev, eps=eps),),
+            {"filter_batch": 1, "fenrir_backward_batch": 1}),
+        "fenrir_fused": (
+            lambda dev: (ff.fenrir_fused(
+                *one, **_obs("lorenz", 11, 1.0, dev), model="lorenz",
+                interrogation=mode, device=dev, eps=eps_one),),
+            {"filter_single": 1, "fenrir_backward_single": 1})}
+    for name, (call, launched) in calls.items():
+        _reset_launches()
+        card = call(cuda_device)
+        torch.cuda.synchronize()
+        assert _launched() == launched, name
+        _reset_launches()
+        cpu = call("cpu")
+        assert not _launched(), name
+        for a, b in zip(card, cpu):
+            assert a.is_cuda and torch.isfinite(a).all(), name
+            assert _scaled_err(a, b) <= ENTRY_TOL, name

@@ -188,10 +188,24 @@ def small_lorenz():
                 prior_pars=cfg["prior_pars"], model="lorenz", device="cpu")
 
 
+def _q6(cfg):
+    """The solve's arguments at q = 6, which no kernel holds."""
+    prior = tuple(torch.eye(6, dtype=p.dtype).expand(3, 6, 6).contiguous()
+                  for p in cfg["prior_pars"])
+    W = torch.zeros((3, 1, 6), dtype=cfg["ode_weight"].dtype)
+    W[:, :, 1] = 1.0
+    inits = torch.zeros((cfg["ode_inits"].shape[0], 3, 6),
+                        dtype=cfg["ode_inits"].dtype)
+    return dict(ode_weight=W, ode_inits=inits, prior_pars=prior)
+
+
 @pytest.mark.parametrize("override", [
-    {"interrogation": "schober"}, {"interrogation": "chkrebtii"},
-    {"model": "hes1"}, {"model": fk}])
+    {"interrogation": "bogus"}, {"model": "heat"}, "q6", {"model": fk}])
 def test_fused_solve_raises_for_unported(small_lorenz, override):
+    """An interrogation no filter takes, a model without a CUDA functor, a
+    q no kernel holds, a module that is no model."""
+    if override == "q6":
+        override = _q6(small_lorenz)
     with pytest.raises(NotImplementedError):
         fk.solve_mv_fused_batch(**{**small_lorenz, **override})
 

@@ -31,6 +31,7 @@ from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
 
 import rodeo_tpu_torch as rt
+from rodeo_tpu_torch.models import chkrebtii as tchkrebtii
 from rodeo_tpu_torch.models import fitzhugh as tfitzhugh, lorenz as tlorenz
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
@@ -337,10 +338,13 @@ def test_fenrir_backward_single_twin_matches_pallas():
 
 
 @pytest.mark.parametrize("override", [
-    {"interrogation": "schober"}, {"interrogation": "chkrebtii"},
-    {"model": "hes1"}])
+    {"interrogation": "bogus"}, {"model": "heat"}, "q"])
 @pytest.mark.parametrize("entry", ["solve_mv_fused", "fenrir_fused"])
 def test_single_entries_raise_for_unported(entry, override):
+    """An interrogation no filter takes, a model without a CUDA functor,
+    and a q that the entry's kernels do not hold: Chkrebtii's ODE at q = 6
+    (K3 holds it at q = 4 and 5), and in fenrir_fused at q = 4 (K7a holds
+    q = 3 alone)."""
     cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
     args = dict(theta=cfg["theta"], ode_weight=cfg["ode_weight"],
                 ode_init=cfg["ode_init"], t_min=0.0, t_max=0.1, n_steps=8,
@@ -348,6 +352,17 @@ def test_single_entries_raise_for_unported(entry, override):
     if entry == "fenrir_fused":
         args.update({k: torch.from_numpy(np.asarray(v)) for k, v in
                      _fenrir_obs("lorenz", 0.1, 3, seed=0).items()})
+    if override == "q":
+        q = 4 if entry == "fenrir_fused" else 6
+        ccfg = tchkrebtii.setup(n_steps=8, t_max=0.1, device="cpu",
+                                n_deriv=q)
+        override = dict(theta=torch.zeros(1), ode_weight=ccfg["ode_weight"],
+                        ode_init=ccfg["ode_init"],
+                        prior_pars=ccfg["prior_pars"], model="chkrebtii")
+        if entry == "fenrir_fused":
+            override.update(obs_weight=torch.zeros((3, 1, 1, q)),
+                            obs_data=torch.zeros((3, 1, 1)),
+                            obs_var=torch.ones((3, 1, 1, 1)))
     with pytest.raises(NotImplementedError):
         getattr(rt, entry)(**{**args, **override})
 

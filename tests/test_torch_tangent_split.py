@@ -257,4 +257,4 @@ def test_launch_geometry_is_the_cards(query, takes_mode):
         query(device="cpu")
     if takes_mode:
         with pytest.raises(NotImplementedError):
-            query(mode="schober", device="cpu")
+            query(mode="bogus", device="cpu")
