@@ -5,7 +5,15 @@ Drive the PyTorch / CUDA port, rodeo_tpu_torch, on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Run it from a checkout: it imports the package beside it and builds the 19
-CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
+CUDA kernels from the checkout's sources.  Each phase prints JSON lines,
+each with its "seconds" (the time since the line before it).  Where a
+phase holds a kernel "at its path's shapes" against its twin, the kernel is
+timed on the whole path, and it and its twin run on PATH_TWIN_STEPS steps
+(or rows) of the path at the path's full width, on the same cut operands:
+a forward filter's first steps, whose per-step outputs are then also the
+whole path's, bitwise; a reverse recursion's last rows, from the path's
+own end, whose per-row outputs are then the whole path's last rows,
+bitwise.  The phases:
 
 1. device    the card, its power limit, TF32 off;
 2. build     nvcc of rodeo_tpu_torch/ops/csrc/*.cu: seconds, and ptxas'
@@ -240,11 +248,34 @@ CUDA kernels from the checkout's sources.  Each phase prints one JSON line:
              realizations (CHK_MEAN_TOL, CHK_SPREAD); chkrebtii's draws at
              2048 lanes and a 512-chain x 20-step random walk (K1 and K6 a
              step), and the phase's seconds, within COVERAGE_PHASE_S;
+26. coverage_value  the instances K6, K7a, K7b and K8 took last, through
+             the public entries at 2048 lanes on tools/
+             torch_coverage_reference.py's value fixtures (Chkrebtii's ODE
+             at q = 4 and 5, 1024 steps; Hes1, 120 steps; SEIRAH, 80
+             steps), each under kramer and rodeo: fenrir_fused_batch (K1,
+             K7b), dalton_fused_batch (K8 with and without data),
+             solve_sim_fused_batch (K1, K6) and one fenrir_fused (K3, K7a),
+             launches exact and finite, and Hes1's DALTON on lanes 1 %
+             apart (VALUE_WIDE_LANES), NaN in float32 on some under
+             kramer, exactly where K8 and its twin are (VALUE_NAN_LANES);
+             lane 0's likelihoods against the float64
+             torch-ops on the card (VALUE_F32_CPU_ERR,
+             VALUE_F32_UNUSABLE); the draws at the setup's parameters
+             against the fused posterior (SIM_SD_REL, SIM_UNRESOLVED), and
+             the float64 twins' on the same normals against theirs
+             (SIM_F64_WITNESS); each new instance of K8, and of K7b, K7a
+             and K6 once a q, alone at these shapes against its twin over
+             PATH_TWIN_STEPS steps, bitwise,
+             with its launch, ptxas' report (no spills) and bound; a
+             512-chain x 20-step random walk on Chkrebtii's ODE at q = 4;
+             the phase within COVERAGE_VALUE_PHASE_S;
 
-Then the script's total seconds, one line {"kernels": [...]} with each
-kernel's launches on its path,
+Then one line {"phase": "seconds", "phases": {...}, "total": ...} with
+each phase's seconds and the script's, one line {"kernels": [...]} with
+each kernel's launches on its path,
 error against its twin, time on the device (ms) and of its wrapper's call
-(call_ms), its plain twin's time and its bound (the
+(call_ms), its plain twin's time over plain_steps steps (plain_ms) and its
+bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations, counted
 from its twin, over 67 TFLOP/s; K7b's, K8's, K11b's and K11c's from the
 steps without and with data of their grid, since the twin skips the
@@ -255,6 +286,7 @@ Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
 """
 import contextlib
+import functools
 import json
 import re
 import statistics
@@ -393,6 +425,72 @@ COVERAGE_F32_CPU_ERR = {"chkrebtii_q4": 3.60294503021219e-06,
                         "fitz_schober": 1.077029389517925e-05}
 CHK_MEAN_TOL = 1e-2
 CHK_SPREAD = (0.5, 2.0)
+# The coverage_value phase (the value path of K6, K7a, K7b and K8 at the
+# instances they took last) stays within COVERAGE_VALUE_PHASE_S seconds.
+# Lane 0's fenrir (batched and single) and DALTON values are held to the
+# float64 torch-ops on the card by the likelihood rule, max(3 x the float32
+# twins' error on the CPU, LL_REL_FLOOR x |truth|), the CPU errors those
+# that tools/torch_coverage_reference.py prints (its "value"); where that
+# CPU error exceeds VALUE_F32_UNUSABLE of the truth, no float32 evaluation
+# resolves the value and it is recorded, not judged (the gradient rule's
+# GRAD_CONTROL_MAX): DALTON on Chkrebtii's ODE at q = 5, the difference of
+# two float32 sums of ~1e10 (ulp 1024) that is 23.9.
+COVERAGE_VALUE_PHASE_S = 60.0
+VALUE_F32_UNUSABLE = 0.1
+VALUE_F32_CPU_ERR = {
+    "chkrebtii_q4": {
+        "kramer": {"fenrir_batch": 0.00012321892352318287,
+                   "dalton_batch": 0.0024193006054247235,
+                   "fenrir_single": 2.7851491882557866e-05},
+        "rodeo": {"fenrir_batch": 1.6796901732618608e-05,
+                  "dalton_batch": 0.033966106598199985,
+                  "fenrir_single": 0.0002254363746345689}},
+    "chkrebtii_q5": {
+        "kramer": {"fenrir_batch": 0.00030747422161425675,
+                   "dalton_batch": 23.899905768240217,
+                   "fenrir_single": 0.00026932724895800675},
+        "rodeo": {"fenrir_batch": 2.1386948990453902e-05,
+                  "dalton_batch": 23.873298024863036,
+                  "fenrir_single": 7.58878312829836e-05}},
+    "hes1": {
+        "kramer": {"fenrir_batch": 0.0027485421820898637,
+                   "dalton_batch": 0.05046801196368733,
+                   "fenrir_single": 0.0027485421820898637},
+        "rodeo": {"fenrir_batch": 7.045598295007949e-06,
+                  "dalton_batch": 0.000422002831953705,
+                  "fenrir_single": 7.045598295007949e-06}},
+    "seirah": {
+        "kramer": {"fenrir_batch": 7577899722.8125,
+                   "dalton_batch": 9511319237.75,
+                   "fenrir_single": 11436659402.8125},
+        "rodeo": {"fenrir_batch": 41235283.96972656,
+                  "dalton_batch": 38281388.6875,
+                  "fenrir_single": 16069459.969726562}}}
+# The draws there are held to the sim phase's rule against the fused
+# solve's posterior at the same parameters (K1, K2r), on the entries whose
+# posterior variance exceeds SIM_VAR_MIN and whose standard deviation
+# exceeds SIM_SD_REL of the mean's magnitude (~800 float32 ulps): SEIRAH's
+# populations (~1e7) leave most entries' spread below float32's resolution
+# there.  Where float32 does not resolve the draws at all (SIM_UNRESOLVED),
+# their reading is recorded, not judged, and its witness is the same draws
+# by the twins in float64 on the same normals against their posterior, by
+# the sim rule on every entry above SIM_VAR_MIN: K6 and K1 are bitwise the
+# float32 twins, which are the float64 twins' arithmetic rounded.  At
+# 2048 lanes (tools/torch_coverage_reference.py, "lanes", on the CPU) the
+# float32 twins read z 11.3 on SEIRAH under kramer (4800 on all 1324
+# entries above SIM_VAR_MIN; rodeo 3.7 on 147 entries, 2346 on all 1440)
+# and 29-6.7e4 on Chkrebtii's ODE, whose 1024 steps (dt ~ 0.01) leave the
+# draw's conditional covariances numerically singular in float32 (the
+# JAX package's sampler returns NaN there); the float64 twins read z 3.5
+# (rodeo 3.0) on every entry and 3.4-3.7, variance ratios 0.90-1.11.  The
+# phase runs that witness on the card, judged, for SIM_F64_WITNESS
+# (SEIRAH, all of whose entries SIM_SD_REL would not judge), whose 80
+# steps of twins take about a second; Chkrebtii's 1024 steps would take
+# its phase past COVERAGE_VALUE_PHASE_S, and its witness is the tool's.
+SIM_SD_REL = 1e-4
+SIM_UNRESOLVED = {("chkrebtii", "kramer"), ("chkrebtii", "rodeo"),
+                  ("seirah", "kramer")}
+SIM_F64_WITNESS = {("seirah", "kramer"), ("seirah", "rodeo")}
 # The torch_op phase's draws against the float64 posterior of
 # ops.precond.solve_mv: the mean of (x - mu)^2 / sigma^2 over the draws and
 # the entries whose posterior variance exceeds SIM_VAR_MIN, 1 in
@@ -407,6 +505,23 @@ CHK_SPREAD = (0.5, 2.0)
 SIM_F64_DRAWS = 8
 SIM_F64_STAT = (0.5, 2.0)
 SIM_F64_STAT_LORENZ = (0.73, 1.27)
+# at_path_shapes holds each kernel, at its path's full lane width, to its
+# plain twin over PATH_TWIN_STEPS steps (or rows) of the path, a forward
+# filter's first and a reverse recursion's last (its seeds the path's own
+# end), on the same cut operands: the twins' Python loops over whole paths
+# took 276-336 s of the script on an NVIDIA H100 80GB HBM3 at 700 W (K1's
+# alone 44.8 s at 10 000 x 2048), ~6 us an ATen call.  513 is no multiple
+# of any ring's stage (4, 8, 24, 64, 128 or 256 steps), so a cut ends on a
+# ragged stage as a path may, and every ring wraps; K5b and K5c, which take
+# whole groups of 64 steps, keep the 512 steps of 8.  At 1001 the twins
+# took 65.4 s of the script; 513 keeps those of coverage_value, whose
+# Chkrebtii paths have 1024 steps and whose K8 twin makes 657 ATen calls a
+# step at q = 5, within that phase's COVERAGE_VALUE_PHASE_S.
+PATH_TWIN_STEPS = 513
+# the operands of K8 and K11c that hold a row a step, and those of K9 and
+# K11d
+GRID_KEYS = ("tgrid", "d", "y", "om", "mask")
+NN_GRID_KEYS = ("tgrid", "y", "iobs", "mask")
 # Clock cycles of the sleep that holds the stream while the host enqueues a
 # timed kernel (device_ms): ~10 ms at the H100's clocks, longer than any
 # wrapper's host work.
@@ -499,12 +614,27 @@ MAGI_KERNELS = ("magi_batch", "magi_adjoint_batch")
 NN_KERNELS = ("filter_nn_batch", "filter_nn_batch_tan")
 
 
+# the time of the last line printed, and the seconds of each phase: the
+# time before each of its lines since the line before it
+_CLOCK = {"last": time.perf_counter(), "phases": {}}
+
+
 def emit(obj):
+    """Print obj as one JSON line.  A phase's line gets "seconds", the time
+    since the line before it (the work it reports), unless it states its
+    own, and that time counts towards its phase's seconds."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        since = now - _CLOCK["last"]
+        obj = {**obj, "seconds": obj.get("seconds", since)}
+        phases = _CLOCK["phases"]
+        phases[obj["phase"]] = phases.get(obj["phase"], 0.0) + since
+    _CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
 
 
 def main():
-    t_start = time.perf_counter()
+    t_start = _CLOCK["last"] = time.perf_counter()
     if not (REPO / "rodeo_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: rodeo_tpu_torch not found beside the script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -710,29 +840,108 @@ def main():
                     else v.cpu() if isinstance(v, torch.Tensor) else v)
                 for k, v in operands.items()}
 
+    def steps_cut(kernel, twin, *lead, keys=("tgrid",), **operands):
+        """at_path_shapes' cut of a forward filter called as kernel(*lead,
+        n, **operands), whose operands named in keys hold a row a step: n
+        -> the kernel's call and its twin's on the first n steps, n, and
+        False (the cut is the path's start)."""
+        def cut(n):
+            cut_ops = {k: (v[:n] if k in keys else v)
+                       for k, v in operands.items()}
+            return (lambda: kernel(*lead, n, **cut_ops),
+                    lambda: twin(*lead, n, **cut_ops), n, False)
+        return cut
+
+    def rows_cut(kernel, twin, args, rows, from_end=False):
+        """at_path_shapes' cut of a kernel called as kernel(*args), whose
+        operands at the indices rows (its first rows operands where an
+        int) hold a row a step (None where absent): n -> the kernel's call
+        and its twin's on the first n rows, or on the last n where
+        from_end (a reverse recursion, its seeds the path's own end), n,
+        and from_end."""
+        idx = range(rows) if isinstance(rows, int) else rows
+
+        def cut(n):
+            cut_args = [(a[-n:] if from_end else a[:n])
+                        if i in idx and a is not None else a
+                        for i, a in enumerate(args)]
+            return (lambda: kernel(*cut_args), lambda: twin(*cut_args), n,
+                    from_end)
+        return cut
+
+    def groups_cut(kernel, twin, args, bnd_at=None):
+        """at_path_shapes' cut of a mean-chain kernel over groups of 64
+        steps (K5b; K5c, whose group entry states are operand bnd_at): the
+        whole groups in the first n steps, their times (operand 6) and
+        entry states; the cut also gives the steps it keeps."""
+        def cut(n):
+            n_group = n // 64
+            cut_args = list(args)
+            cut_args[6] = args[6][:64 * n_group]
+            if bnd_at is not None:
+                cut_args[bnd_at] = args[bnd_at][:n_group]
+            return (lambda: kernel(*cut_args), lambda: twin(*cut_args),
+                    64 * n_group, False)
+        return cut
+
+    def as_on_path(whole, part, n, from_end):
+        """Whether the rows of a cut's output part are the whole path's:
+        its first n (a forward cut), or its last ones (a reverse cut: the
+        n rows of the recursion and, where the output has more, the
+        terminal row K2r writes after them), bitwise."""
+        if not from_end:
+            return torch.equal(whole[:n], part)
+        m = min(part.shape[0], n + 1)
+        return torch.equal(whole[-m:], part[-m:])
+
+    def finite_part(a, b):
+        """a and b with their entries that are not finite set to zero,
+        where those lie at the same entries of both with the same values
+        (NaN, inf or -inf); None where they do not."""
+        for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(kind(a), kind(b)):
+                return None
+        fin = torch.isfinite(a)
+        return torch.where(fin, a, 0.0), torch.where(fin, b, 0.0)
+
     kernels = {}
 
-    def at_path_shapes(phase, name, replaces, launches, launch, twin, names,
-                       count_ops, n_work, inputs, split=None, out_bytes=None,
-                       repeats=5, register=True, config="", source=None,
-                       n_ops=None, key=None, **extra):
+    def at_path_shapes(phase, name, replaces, launches, cut, n_path,
+                       names, count_ops, n_work, inputs, split=None,
+                       out_bytes=None, repeats=5, register=True, config="",
+                       source=None, n_ops=None, key=None, step_outputs=(),
+                       **extra):
         """A kernel alone at its path's shapes: its median time on the
-        device (device_ms) and that of its wrapper's call (cuda_ms), its
-        twin's time and outputs on the same CUDA inputs, the error of each
-        output (twin_errors; checked against TWIN_TOL), and its bound from
-        the bytes of its inputs and outputs and from count_ops(n), which
-        runs the twin for n steps of one lane on the CPU, times n_work
-        (steps x lanes), or from n_ops operations where given.  Registers
-        the kernel's entry of the kernels line under key (its name unless
-        given); returns the kernel's outputs and the entry.  The source is
+        device (device_ms) and that of its wrapper's call (cuda_ms) on the
+        whole path, the kernel's call of cut(n_path); then, on n =
+        min(PATH_TWIN_STEPS, n_path) steps (or rows) of the path, cut(n)
+        gives the kernel's call and its twin's on the same cut CUDA
+        operands, whose outputs are compared (twin_errors, checked against
+        TWIN_TOL, and bitwise), with the twin's time over those steps
+        (plain_ms, plain_steps).  A cut is a forward filter's first steps
+        or a reverse recursion's last rows; its outputs named by their
+        indices in step_outputs, one row a step, are also held bitwise to
+        the whole path's rows there (as_on_path: prefix_bitwise or
+        suffix_bitwise).  Its bound comes from the bytes of the path's
+        inputs and outputs and from count_ops(n), which runs the twin for n
+        steps of one lane on the CPU, times n_work (steps x lanes), or from
+        n_ops operations where given.  Registers the kernel's entry of the
+        kernels line under key (its name unless given); returns the
+        kernel's outputs on the whole path and the entry.  The source is
         csrc/<name>.cu unless named (a file of csrc/)."""
+        launch = cut(n_path)[0]
         ms = device_ms(launch, repeats)
         call_ms = cuda_ms(launch, repeats)
         out = as_tuple(launch())
-        plain, plain_ms = cuda_once(lambda: as_tuple(twin()))
-        errs = twin_errors(names, out, plain, split)
-        bitwise = all(torch.equal(a, b) for a, b in zip(out, plain))
-        del plain
+        kernel_cut, twin_cut, n_cut, from_end = cut(
+            min(PATH_TWIN_STEPS, n_path))
+        out_cut = as_tuple(kernel_cut())
+        plain, plain_ms = cuda_once(lambda: as_tuple(twin_cut()))
+        on_path = all(as_on_path(out[i], out_cut[i], n_cut, from_end)
+                      for i in step_outputs)
+        errs = twin_errors(names, out_cut, plain, split)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out_cut, plain))
+        del plain, out_cut
         n_bytes = nbytes(*inputs) + (nbytes(*out) if out_bytes is None
                                      else out_bytes)
         bound_ms, bound_by, work = bound(
@@ -746,7 +955,8 @@ def main():
             "launches": launches[name], "max_abs_err": max_abs,
             "max_scaled_err": max_scaled, "tol_scaled": TWIN_TOL,
             "bitwise": bitwise, "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "plain_steps": n_cut, "path_steps": n_path,
+            "twin_cut": "last" if from_end else "first",
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work,
             "achieved_bytes_per_s": 1e3 * n_bytes / ms,
             "share_of_peak_bytes_per_s": 1e3 * n_bytes / ms
@@ -754,6 +964,11 @@ def main():
             "library_ms": None, **extra}
         label = f"{name} {config}".strip()
         entry["ok"] = check(phase, f"{label} vs twin", max_scaled <= TWIN_TOL)
+        if step_outputs:
+            where = "last" if from_end else "first"
+            entry["suffix_bitwise" if from_end else "prefix_bitwise"] = check(
+                phase, f"{label} over the {where} {n_cut} steps as on the "
+                "path", on_path)
         if register:
             kernels[key or name] = entry
         return out, entry
@@ -884,7 +1099,8 @@ def main():
                                                    "FitzHughNagumo")
                 and r.get("mode", 0) in (0, 1)]
 
-    def split_record(phase, kernel, label, geometry, per_sm=True):
+    def split_record(phase, kernel, label, geometry, per_sm=True,
+                     match=None):
         """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
         or of a stream (STREAM_KERNELS) at its path's columns, as the card
         reports it (CTA shape, CTAs, threads, registers, local memory, CTAs
@@ -899,9 +1115,12 @@ def main():
         K4 and K7a (SLAB_KERNELS), one CTA for one solve, nor a stream at
         fewer columns
         than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
-        x 2048 columns, 128 CTAs)."""
-        report = earlier_scope(ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
-                                             **SLAB_KERNELS}[kernel]))
+        x 2048 columns, 128 CTAs).  The instantiations reported are those
+        of the earlier phases (earlier_scope), or those match(row) keeps."""
+        report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
+                               **SLAB_KERNELS}[kernel])
+        report = earlier_scope(report) if match is None \
+            else [r for r in report if match(r)]
         check(phase, f"{label} all resident", geometry["all_resident"])
         if per_sm and (geometry["grid_y"] > 1 or kernel in STREAM_KERNELS):
             check(phase, f"{label} at least one CTA per SM",
@@ -1039,12 +1258,13 @@ def main():
     cpu_ops = cpu_lanes(ops, ("x0_lanes", "theta_lanes"))
     (G, g, L, mN, pN), entry = at_path_shapes(
         "main", "filter_batch", "pallas_kalman.py:1141", launches,
-        lambda: fk.fused_filter_batch(fused, n_steps, **ops, mode="kramer"),
-        lambda: fk._filter_batch_plain(fused, n_steps, **ops, mode="kramer"),
+        steps_cut(fk.fused_filter_batch, fk._filter_batch_plain, fused,
+                  **ops, mode="kramer"), n_steps,
         k1_names, lambda n: fk._filter_batch_plain(
             fused, n, **{**cpu_ops, "tgrid": cpu_ops["tgrid"][:n]},
             mode="kramer"),
         n_steps * n_lane, tensors(ops), repeats=3, source="filter_batch.cuh",
+        step_outputs=(0, 1, 2),
         shape=f"{n_steps} x {n_lane}",
         **split_record("main", "filter_batch", "filter_batch lorenz",
                        fk._filter_batch_geometry("lorenz", n_lane)))
@@ -1057,11 +1277,12 @@ def main():
                 + [a.cpu() for a in rows_args[6:]])
     _, entry = at_path_shapes(
         "main", "smoother_batch_rows", "pallas_kalman.py:1609", launches,
-        lambda: fk.smoother_recursion_batch_rows(*rows_args),
-        lambda: fk._smoother_batch_rows_plain(*rows_args), ["mean", "cov"],
+        rows_cut(fk.smoother_recursion_batch_rows,
+                 fk._smoother_batch_rows_plain, rows_args, 3, from_end=True),
+        n_steps - 1, ["mean", "cov"],
         lambda n: fk._smoother_batch_rows_plain(
             *[a[:n] for a in rows_cpu[:3]], *rows_cpu[3:]),
-        (n_steps - 1) * n_lane, rows_args, repeats=3,
+        (n_steps - 1) * n_lane, rows_args, repeats=3, step_outputs=(0, 1),
         also_replaces="rodeo_tpu/ops/pallas_kalman.py:1516",
         **split_record("main", "smoother_batch_rows", "smoother_batch_rows",
                        fk._smoother_batch_rows_geometry(3, n_lane)))
@@ -1124,6 +1345,11 @@ def main():
         """K7b's twin, which skips the update at steps without data."""
         return chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
             *chain[:-1], skip_unobserved=True))
+
+    def fenrir_single_plain(*chain):
+        """K7a's twin, its blocks' sums added as the wrapper adds them."""
+        return chain[-1] + fd._block_sum(
+            ff._fenrir_backward_single_plain(*chain[:-1]))
 
     n_tw, b_tw = 1000, 256
     cfg_tw, thetas_tw, inits_tw = lane_setup(lorenz, n_tw, 2.0, b_tw,
@@ -1381,8 +1607,10 @@ def main():
     chain_cpu = chain_on_cpu(chain)
     _, entry = at_path_shapes(
         "likelihood", "fenrir_backward_batch", "pallas_fenrir.py:291",
-        path_launches["fenrir"], lambda: ff.fenrir_backward_batch(*chain),
-        lambda: fenrir_plain(*chain), ["ld"], None, None, chain,
+        path_launches["fenrir"],
+        rows_cut(ff.fenrir_backward_batch, fenrir_plain, chain, 7,
+                 from_end=True), n_ll,
+        ["ld"], None, None, chain,
         n_ops=b_ll * fenrir_ops(chain_cpu), out_bytes=4 * 3 * b_ll,
         shape=f"{n_ll} x {b_ll}",
         **split_record("likelihood", "fenrir_backward_batch",
@@ -1404,8 +1632,8 @@ def main():
         _, entry = at_path_shapes(
             "likelihood", "dalton_filter_batch", "pallas_dalton.py:41",
             {"dalton_filter_batch": k8_dalton[with_obs]},
-            lambda: fd.dalton_filter_batch(fused, n_ll, **k8_args),
-            lambda: fd._dalton_filter_plain(fused, n_ll, **k8_args), ["ld"],
+            steps_cut(fd.dalton_filter_batch, fd._dalton_filter_plain, fused,
+                      keys=GRID_KEYS, **k8_args), n_ll, ["ld"],
             None, None, tensors(k8_args), n_ops=b_ll * dalton_ops(
                 k8_cpu, lambda n, a: fd._dalton_filter_plain(fused, n, **a)),
             key=f"dalton_filter_batch/{variant}",
@@ -1567,15 +1795,15 @@ def main():
         cpu_g = cpu_lanes(ops_g, ("x0_lanes", "theta_lanes"))
         out_a, at_grad[f"filter_batch_tan/{model}"] = at_path_shapes(
             "grad_kernels", "filter_batch_tan", "pallas_fenrir.py:614",
-            grad_launches[path], lambda: fk.fused_filter_batch_tan(
-                fused_g, n_g, **ops_g, mode="kramer"),
-            lambda: fk._filter_batch_tan_plain(fused_g, n_g, **ops_g,
-                                               mode="kramer"),
+            grad_launches[path],
+            steps_cut(fk.fused_filter_batch_tan, fk._filter_batch_tan_plain,
+                      fused_g, **ops_g, mode="kramer"), n_g,
             k1_names, lambda n: fk._filter_batch_tan_plain(
                 fused_g, n, **{**cpu_g, "tgrid": cpu_g["tgrid"][:n]},
                 mode="kramer"),
             n_g * b_ll, tensors(ops_g), split=k11a_split,
-            register=on_path, config=model, shape=f"{n_g} x {b_ll}",
+            step_outputs=(0, 1, 2), register=on_path, config=model,
+            shape=f"{n_g} x {b_ll}",
             **split_record("grad_kernels", "filter_batch_tan",
                            f"filter_batch_tan {model}",
                            fk._filter_batch_tan_geometry(model, b_ll)))
@@ -1594,11 +1822,14 @@ def main():
             _, at_grad["smoother_mean_batch_tan/lorenz"] = at_path_shapes(
                 "grad_kernels", "smoother_mean_batch_tan",
                 "pallas_kalman.py:1963", grad_launches["basic"],
-                lambda: fk.smoother_mean_recursion_batch_tan(*e_args, n_tan),
-                lambda: fk._smoother_mean_tan_plain(*e_args, n_tan), ["ms"],
+                rows_cut(fk.smoother_mean_recursion_batch_tan,
+                         fk._smoother_mean_tan_plain, (*e_args, n_tan), 2,
+                         from_end=True),
+                n_g - 1, ["ms"],
                 lambda n: fk._smoother_mean_tan_plain(
                     e_cpu[0][:n], e_cpu[1][:n], e_cpu[2], n_tan),
                 (n_g - 1) * b_ll, e_args, split=k11e_split, config=model,
+                step_outputs=(0,),
                 shape=f"{n_g - 1} x {b_ll}")
             del A, b, mN, e_args, e_cpu
         del out_a
@@ -1610,8 +1841,8 @@ def main():
         _, entry = at_path_shapes(
             "grad_kernels", "fenrir_backward_batch_tan",
             "pallas_fenrir.py:772", grad_launches[path],
-            lambda: ff.fenrir_backward_batch_tan(*chain),
-            lambda: fenrir_tan_plain(*chain), ["ld"], None, None, chain,
+            rows_cut(ff.fenrir_backward_batch_tan, fenrir_tan_plain, chain,
+                     7, from_end=True), n_g, ["ld"], None, None, chain,
             n_ops=b_ll * fenrir_tan_ops(chain_cpu), split=ld_split,
             out_bytes=4 * (1 + n_tan) * fused_g.n_block * b_ll,
             register=on_path, config=model, shape=f"{n_g} x {b_ll}",
@@ -1635,8 +1866,8 @@ def main():
             "grad_kernels", "dalton_filter_batch_tan",
             "pallas_dalton.py:246",
             {"dalton_filter_batch_tan": k11c_dalton[with_obs]},
-            lambda: fd.dalton_filter_batch_tan(fused, n_ll, **k11c_args),
-            lambda: fd._dalton_filter_tan_plain(fused, n_ll, **k11c_args),
+            steps_cut(fd.dalton_filter_batch_tan, fd._dalton_filter_tan_plain,
+                      fused, keys=GRID_KEYS, **k11c_args), n_ll,
             ["ld"], None, None, tensors(k11c_args), split=ld_split,
             n_ops=b_ll * dalton_ops(
                 k11c_cpu,
@@ -1698,11 +1929,11 @@ def main():
     n_col_s = k6_args[2].shape[1] * b_sim
     _, entry = at_path_shapes(
         "sim", "sampler_batch", "pallas_sim.py:51", sim_launches,
-        lambda: fs.sampler_batch(*k6_args),
-        lambda: fs._sampler_batch_plain(*k6_args), ["xs"],
+        rows_cut(fs.sampler_batch, fs._sampler_batch_plain, k6_args, 2,
+                 from_end=True), n_sim - 1, ["xs"],
         lambda n: fs._sampler_batch_plain(k6_cpu[0][:n], k6_cpu[1][:n],
                                           k6_cpu[2]),
-        (n_sim - 1) * b_sim, k6_args,
+        (n_sim - 1) * b_sim, k6_args, step_outputs=(0,),
         **split_record("sim", "sampler_batch", "sampler_batch",
                        fs._sampler_batch_geometry(n_col_s)))
     check("sim", "sampler_batch bitwise", entry["bitwise"])
@@ -1964,13 +2195,13 @@ def main():
                  for k, v in ops_1.items()}
         out_3, at_single[f"filter_single/{n_1}"] = at_path_shapes(
             "single", "filter_single", "pallas_kalman.py:333", launches_1,
-            lambda: fk.fused_filter(fused, n_1, **ops_1, mode="kramer"),
-            lambda: fk._filter_single_plain(fused, n_1, **ops_1,
-                                            mode="kramer"),
+            steps_cut(fk.fused_filter, fk._filter_single_plain, fused,
+                      **ops_1, mode="kramer"), n_1,
             k3_names, lambda n: fk._filter_single_plain(
                 fused, n, **{**cpu_1, "tgrid": cpu_1["tgrid"][:n]},
                 mode="kramer"),
             n_1, tensors(ops_1), register=on_path, config=f"{n_1} steps",
+            step_outputs=(0, 1, 2, 3),
             source="filter_single.cuh", shape=f"{n_1} steps", **k3_record)
         entry_3 = at_single[f"filter_single/{n_1}"]
         entry_3["us_per_step"] = 1e3 * entry_3["ms"] / n_1
@@ -1993,11 +2224,13 @@ def main():
                 n_rows = k4_args[0].shape[0]
                 _, entry_4 = at_path_shapes(
                     "single", "smoother_single", "pallas_kalman.py:763",
-                    launches_1, lambda: fk.smoother_recursion(*k4_args),
-                    lambda: fk._smoother_single_plain(*k4_args),
+                    launches_1,
+                    rows_cut(fk.smoother_recursion,
+                             fk._smoother_single_plain, k4_args, 3,
+                             from_end=True), n_rows,
                     ["ms", "ps"], lambda n: fk._smoother_single_plain(
                         *[a[:n] for a in k4_cpu[:3]], *k4_cpu[3:]),
-                    n_rows, k4_args, register=register,
+                    n_rows, k4_args, register=register, step_outputs=(0, 1),
                     config=f"{n_rows} {label}",
                     shape=f"{n_rows} {label}", **k4_record)
                 at_single[f"smoother_single/{n_rows}"] = entry_4
@@ -2017,10 +2250,10 @@ def main():
                     *[t[idx] for t in chain_cpu[:7]], *chain_cpu[7:])))
             _, entry_7 = at_path_shapes(
                 "single", "fenrir_backward_single", "pallas_fenrir.py:214",
-                launches_1, lambda: ff.fenrir_backward_single(*chain_1),
-                lambda: chain_1[-1] + fd._block_sum(
-                    ff._fenrir_backward_single_plain(*chain_1[:-1])),
-                ["ld"], None, None, chain_1, n_ops=ops_7, out_bytes=4 * 3,
+                launches_1,
+                rows_cut(ff.fenrir_backward_single, fenrir_single_plain,
+                         chain_1, 7, from_end=True), n_1, ["ld"], None,
+                None, chain_1, n_ops=ops_7, out_bytes=4 * 3,
                 shape=f"{n_1} steps",
                 **split_record("single", "fenrir_backward_single",
                                "fenrir_backward_single lorenz",
@@ -2256,8 +2489,10 @@ def main():
                            fk._mean_gain_geometry("lorenz"))
     bnd, at_stat["mean_boundary_single"] = at_path_shapes(
         "stationary_kernels", "mean_boundary_single", "pallas_kalman.py:2234",
-        stat_launches, lambda: fk.mean_boundary_chain(*long_5),
-        lambda: fk._mean_boundary_plain(*long_5, 64), ["bnd"],
+        stat_launches,
+        groups_cut(fk.mean_boundary_chain,
+                   lambda *a: fk._mean_boundary_plain(*a, 64), long_5),
+        n_tail, ["bnd"],
         lambda n: fk._mean_boundary_plain(*long_cpu[:6], long_cpu[6][:n],
                                           long_cpu[7], 1),
         n_tail, tensors(dict(enumerate(long_5))),
@@ -2270,8 +2505,9 @@ def main():
     rec_cpu = recovery_args(long_cpu, bnd[0][:1].cpu())
     _, at_stat["mean_recovery_single"] = at_path_shapes(
         "stationary_kernels", "mean_recovery_single", "pallas_kalman.py:2271",
-        stat_launches, lambda: fk.mean_recovery_chain(*rec_5),
-        lambda: fk._mean_recovery_plain(*rec_5), ["mf"],
+        stat_launches,
+        groups_cut(fk.mean_recovery_chain, fk._mean_recovery_plain, rec_5,
+                   bnd_at=4), n_tail, ["mf"],
         lambda n: fk._mean_recovery_plain(*rec_cpu[:6], rec_cpu[6][:n],
                                           rec_cpu[7]),
         n_tail, tensors(dict(enumerate(rec_5))),
@@ -2279,12 +2515,14 @@ def main():
         shape=f"{bnd[0].shape[0]} groups of 64", **k5c_record)
     _, at_stat["mean_gain_single"] = at_path_shapes(
         "stationary_kernels", "mean_gain_single", "pallas_kalman.py:2197",
-        short_launches, lambda: fk.mean_gain_chain(*short_5),
-        lambda: fk._mean_gain_plain(*short_5), ["mf"],
+        short_launches,
+        rows_cut(fk.mean_gain_chain, fk._mean_gain_plain, short_5, (6, 7)),
+        n_short, ["mf"],
         lambda n: fk._mean_gain_plain(*short_cpu[:6], short_cpu[6][:n],
                                       short_cpu[7][:n]),
         n_short, tensors(dict(enumerate(short_5))),
-        source="mean_chain_single.cu", shape=f"{n_short} steps", **k5a_record)
+        source="mean_chain_single.cu", shape=f"{n_short} steps",
+        step_outputs=(0,), **k5a_record)
     for kernel in ("mean_recovery_single", "mean_gain_single"):
         check("stationary_kernels", f"{kernel} bitwise",
               at_stat[kernel]["bitwise"])
@@ -2479,8 +2717,9 @@ def main():
                               ("ld", magi_launches)):
         out_mg, entry = at_path_shapes(
             "magi_kernels", "magi_batch", "pallas_magi.py:62", launches_mg,
-            lambda: fm.magi_filter_batch(x_mg, R_mg, m0_mg, q_mg, emit=mode),
-            lambda: magi_twin(x_mg, R_mg, m0_mg, q_mg, mode),
+            rows_cut(functools.partial(fm.magi_filter_batch, emit=mode),
+                     functools.partial(magi_twin, mode=mode),
+                     (x_mg, R_mg, m0_mg, q_mg), 1), n_mg,
             k10a_names[:4 if mode == "adjoint" else 1],
             lambda n: fm._magi_batch_plain(mg_cpu[0][:n], *mg_cpu[1:], q_mg,
                                            mode),
@@ -2507,12 +2746,12 @@ def main():
     _, at_magi["magi_adjoint_batch"] = at_path_shapes(
         "magi_kernels", "magi_adjoint_batch", "pallas_magi.py:319",
         magi_grad_launches,
-        lambda: fm.magi_adjoint_batch(*streams_mg, q_mg),
-        lambda: fm._magi_adjoint_batch_plain(*streams_mg, q_mg),
+        rows_cut(fm.magi_adjoint_batch, fm._magi_adjoint_batch_plain,
+                 (*streams_mg, q_mg), len(streams_mg), from_end=True), n_mg,
         ["gx", "lam0"],
         lambda n: fm._magi_adjoint_batch_plain(
             *[t[:n] for t in streams_cpu], q_mg),
-        n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}",
+        n_mg * b_mg, streams_mg, shape=f"{n_mg} x {b_mg}", step_outputs=(0,),
         **split_record("magi_kernels", "magi_adjoint_batch",
                        "magi_adjoint_batch",
                        fm._magi_adjoint_batch_geometry(3, b_mg, 2)))
@@ -2745,12 +2984,13 @@ def main():
     at_ng = {}
     out9, at_ng["filter_nn_batch"] = at_path_shapes(
         "daltonng_kernels", "filter_nn_batch", "pallas_daltonng.py:77",
-        ng_launches, lambda: fdn.filter_nn_batch(*nn_args, **nn_kw),
-        lambda: fdn._filter_nn_batch_plain(*nn_args, **nn_kw), nn_names,
+        ng_launches,
+        steps_cut(fdn.filter_nn_batch, fdn._filter_nn_batch_plain,
+                  *nn_args[:3], keys=NN_GRID_KEYS, **nn_kw), n_ng, nn_names,
         lambda n: fdn._filter_nn_batch_plain(fused_ng, gauss_ng, (0,), n,
                                              **nn_steps(n), mode="kramer"),
         n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), repeats=3,
-        shape=f"{n_ng} x {b_ng}",
+        shape=f"{n_ng} x {b_ng}", step_outputs=(0, 1, 2, 3),
         **split_record("daltonng_kernels", "filter_nn_batch",
                        "filter_nn_batch",
                        fdn._filter_nn_batch_geometry(
@@ -2783,12 +3023,13 @@ def main():
     torch.cuda.empty_cache()
     out11, at_ng["filter_nn_batch_tan"] = at_path_shapes(
         "daltonng_kernels", "filter_nn_batch_tan", "pallas_daltonng.py:269",
-        ng_grad_launches, lambda: fdn.filter_nn_batch_tan(*nn_args, **nn_kw),
-        lambda: fdn._filter_nn_batch_tan_plain(*nn_args, **nn_kw), nn_names,
+        ng_grad_launches,
+        steps_cut(fdn.filter_nn_batch_tan, fdn._filter_nn_batch_tan_plain,
+                  *nn_args[:3], keys=NN_GRID_KEYS, **nn_kw), n_ng, nn_names,
         lambda n: fdn._filter_nn_batch_tan_plain(
             fused_ng, gauss_ng, (0,), n, **nn_steps(n), mode="kramer"),
         n_ng * b_ng, tensors(ops_ng) + tensors(grid_ng), split=nn_split,
-        repeats=3, shape=f"{n_ng} x {b_ng}",
+        repeats=3, shape=f"{n_ng} x {b_ng}", step_outputs=(0, 1, 2, 3),
         **split_record("daltonng_kernels", "filter_nn_batch_tan",
                        "filter_nn_batch_tan",
                        fdn._filter_nn_batch_tan_geometry(
@@ -3196,7 +3437,6 @@ def main():
 
     # ---- 25. coverage: every instance of K1, K3, K2r and K4 -------------
     t_phase = time.perf_counter()
-    import functools
     import torch_coverage_reference as cov_ref
     from rodeo_tpu_torch.interrogate import interrogate_chkrebtii
     from rodeo_tpu_torch.models import chkrebtii, hes1, seirah
@@ -3472,9 +3712,12 @@ def main():
     # float64 torch-op solve on the card
     lanes_cov = {"chkrebtii_q4": 128, "chkrebtii_q5": 128, "hes1": 2048,
                  "seirah": 2048, "fitz_schober": 128}
+    mu64_value = {}     # the value fixtures' float64 solves, for phase 26
     for name_f, n_lane_f in lanes_cov.items():
         t_part = time.perf_counter()
         mu64 = cov_ref.float64_solve(name_f, dev)
+        if name_f in cov_ref.VALUE_FIXTURES:
+            mu64_value[name_f] = mu64
         tol_f = max(3 * COVERAGE_F32_CPU_ERR[name_f], COVERAGE_FLOOR)
         row = {"fixture": name_f, "config": cov_ref.FIXTURES[name_f],
                "control_f32cpu": COVERAGE_F32_CPU_ERR[name_f], "tol": tol_f}
@@ -3597,7 +3840,7 @@ def main():
           "model": "fitzhugh", "n_steps": mcmc_ref.N_STEPS,
           "sim_n_lane": 2048, "sim_ok": all(sim_ok), "n_chains": n_rw_c,
           "n_samples": s_rw_c, "launches": launched(counts_c),
-          "seconds": sec_c, "chain_steps_per_s": n_rw_c * s_rw_c / sec_c,
+          "walk_seconds": sec_c, "chain_steps_per_s": n_rw_c * s_rw_c / sec_c,
           "mean_accept": acc_c.mean().item(), "peak_mem_bytes": peak_c,
           "ok": all(rw_c_ok)})
     del pos_c, ll_c, acc_c
@@ -3607,10 +3850,373 @@ def main():
     emit({"phase": "coverage", "seconds": cov_s, "build_s": build_s,
           "limit_s": COVERAGE_PHASE_S})
 
+    # ---- 26. coverage_value: K6, K7a, K7b and K8 at every instance ------
+    t_phase = time.perf_counter()
+    from rodeo_tpu_torch.ops.obs_grid import obs_indices
+
+    def lane0_audit(label, value, truth_v, control):
+        """The likelihood rule on lane 0: |value - truth| within max(3 x
+        the float32 twin's CPU error, LL_REL_FLOOR x |truth|), unless the
+        float32 CPU control misses by more than VALUE_F32_UNUSABLE of the
+        truth, where no float32 evaluation resolves the value: recorded,
+        not judged."""
+        err = abs(value - truth_v)
+        tol = max(3 * control, LL_REL_FLOOR * abs(truth_v))
+        unusable = control > VALUE_F32_UNUSABLE * abs(truth_v)
+        ok = True if unusable else check("coverage_value",
+                                         f"{label} audit", err <= tol)
+        return {"lane0": value, "f64": truth_v, "abs_err": err,
+                "control_f32cpu": control, "tol": tol,
+                "f32_unusable": unusable, "ok": ok}
+
+    def sim_rule(stats):
+        """The sim phase's rule on cov_ref.draw_stats' reading."""
+        return (stats["entries_checked"] > 0 and stats["max_z"] <= SIM_Z
+                and SIM_VAR_RATIO[0] <= stats["var_ratio"][0]
+                and stats["var_ratio"][1] <= SIM_VAR_RATIO[1])
+
+    n_val = 2048
+    val_kernels = {}        # kernel key -> [instance entries]
+
+    def wide_dalton(name, mode, obs):
+        """DALTON of value fixture name under mode at n_val lanes
+        VALUE_WIDE_LANES apart, where float32 turns it NaN on
+        VALUE_NAN_LANES' lanes on the CPU: not finite on some lanes exactly
+        where K8's sums, with data or without, are (or finite on every lane
+        where the CPU's twins are), and K8 bitwise its twin over the whole
+        path, not finite where the twin is."""
+        model, _, n, t_max, _ = cov_ref.FIXTURES[name]
+        scale = cov_ref.VALUE_WIDE_LANES[name]
+        fused = fk.resolve_model(model)
+        cfg, _ = cov_ref.fixture_config(name, torch.float32, dev)
+        thetas, inits = cov_ref.value_lanes(name, n_val, dev, seed=28,
+                                            scale=scale)
+        lead = (thetas, cfg["ode_weight"], inits, 0.0, t_max, n,
+                cfg["prior_pars"])
+        ll = fd.dalton_fused_batch(*lead, model=model, interrogation=mode,
+                                   device=dev, **obs)
+        bad = ~torch.isfinite(ll)
+        stated = cov_ref.VALUE_NAN_LANES.get((model, mode), 0)
+        label = f"{name}/{mode} lanes {scale} apart"
+        out = {"scale": scale, "nonfinite_lanes": int(bad.sum()),
+               "nonfinite_lanes_cpu": stated}
+        if not stated:
+            out["ok"] = check("coverage_value", f"{label} DALTON finite",
+                              not bad.any())
+            return out
+        ops, grid, ld0 = fd._dalton_prepare(*lead, *obs.values())
+        k8_bad, same = torch.zeros_like(bad), True
+        for with_obs in (True, False):
+            k8 = dict(**ops, **grid, mode=mode, with_obs=with_obs,
+                      ld0=ld0 if with_obs else torch.zeros_like(ld0))
+            ld = fd.dalton_filter_batch(fused, n, **k8)
+            pair = finite_part(ld, fd._dalton_filter_plain(fused, n, **k8))
+            same = same and pair is not None and torch.equal(*pair)
+            k8_bad |= ~torch.isfinite(ld)
+        out["ok"] = all([
+            check("coverage_value", f"{label} K8 bitwise its twin, not "
+                  "finite where it is", same),
+            check("coverage_value", f"{label} DALTON not finite on some "
+                  "lanes, where K8 is", bad.any()
+                  and torch.equal(bad, k8_bad))])
+        return out
+    for name_v, every_v in cov_ref.VALUE_FIXTURES.items():
+        t_part = time.perf_counter()
+        model_v, q_v, n_v, t_v, _ = cov_ref.FIXTURES[name_v]
+        cfg_v, theta_v = cov_ref.fixture_config(name_v, torch.float32, dev)
+        fused_v = fk.resolve_model(model_v)
+        nb_v = fused_v.n_block
+        thetas_v, inits_v = cov_ref.value_lanes(name_v, n_val, dev, seed=28)
+        obs_v = cov_ref.value_obs(name_v, mu64_value[name_v], torch.float32,
+                                  dev, seed=29)
+        lead_v = (thetas_v, cfg_v["ode_weight"], inits_v, 0.0, t_v, n_v,
+                  cfg_v["prior_pars"])
+        for mode_v in cov_ref.VALUE_MODES:
+            row = {"fixture": name_v, "model": model_v, "q": q_v,
+                   "mode": mode_v, "n_steps": n_v, "n_lane": n_val,
+                   "n_obs": obs_v["obs_data"].shape[0]}
+            ref_v = cov_ref.value_float64(name_v, mode_v, thetas_v[0],
+                                          inits_v[0], obs_v, dev)
+            calls_v = cov_ref.value_float32_calls(name_v, mode_v, thetas_v,
+                                                  inits_v, obs_v, dev)
+            k8_obs = {}
+            for call_v, expected_v in (
+                    ("fenrir_batch", expect(filter_batch=1,
+                                            fenrir_backward_batch=1)),
+                    ("dalton_batch", expect(dalton_filter_batch=2)),
+                    ("fenrir_single", expect(filter_single=1,
+                                             fenrir_backward_single=1))):
+                label = f"{name_v}/{mode_v} {call_v}"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                with split_by_obs("dalton_filter_batch", k8_obs):
+                    ll_v = calls_v[call_v]()
+                torch.cuda.synchronize()
+                got_v = read_counts()
+                check("coverage_value", f"{label} launches",
+                      got_v == expected_v)
+                if call_v == "dalton_batch":
+                    k8_dalton_v = dict(k8_obs)
+                    check("coverage_value", f"{label} launches by with_obs",
+                          k8_dalton_v == {True: 1, False: 1})
+                check("coverage_value", f"{label} finite", finite(ll_v))
+                row[call_v] = {
+                    "launches": launched(got_v),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    **lane0_audit(label, float(ll_v.reshape(-1)[0]),
+                                  ref_v[call_v.split("_")[0]],
+                                  VALUE_F32_CPU_ERR[name_v][mode_v][call_v]),
+                    "call_ms": cuda_ms(calls_v[call_v], repeats=3)}
+                if call_v != "fenrir_single":
+                    row[call_v]["per_lane_us"] = \
+                        1e3 * row[call_v]["call_ms"] / n_val
+                del ll_v
+            # the draws at the lanes, then at the setup's parameters on
+            # every lane against the solve's posterior there (K1, K2r)
+            gen_v = torch.Generator(dev).manual_seed(30)
+            sim_v = functools.partial(fs.solve_sim_fused_batch, *lead_v,
+                                      model=model_v, interrogation=mode_v,
+                                      generator=gen_v, device=dev)
+            reset_counts()
+            path_v = sim_v()
+            torch.cuda.synchronize()
+            got_v = read_counts()
+            check("coverage_value", f"{name_v}/{mode_v} sim launches",
+                  got_v == expect(filter_batch=1, sampler_batch=1))
+            check("coverage_value", f"{name_v}/{mode_v} sim finite",
+                  finite(path_v) and tuple(path_v.shape)
+                  == (n_v + 1, nb_v, q_v, n_val))
+            del path_v
+            base_v = (theta_v.expand(n_val, theta_v.shape[0]),
+                      cfg_v["ode_weight"], cfg_v["ode_init"].expand(
+                          (n_val,) + cfg_v["ode_init"].shape), 0.0, t_v, n_v,
+                      cfg_v["prior_pars"])
+            eps_v, eps_t_v = cov_ref.draw_normals(name_v, n_val, gen_v, dev)
+            draws_v = fs.solve_sim_fused_batch(
+                *base_v, model=model_v, interrogation=mode_v, eps=eps_v,
+                eps_term=eps_t_v, device=dev)
+            mean_v, var_v = fk.solve_mv_fused_batch(
+                *[a[:1] if i in (0, 2) else a for i, a in enumerate(base_v)],
+                model=model_v, interrogation=mode_v, device=dev)
+            _, where_v = fk._tri_idx(q_v)
+            stats_v = cov_ref.draw_stats(
+                draws_v, mean_v[..., 0],
+                var_v[:, :, [where_v[(j, j)] for j in range(q_v)], 0],
+                SIM_VAR_MIN, SIM_SD_REL)
+            judged_v = (model_v, mode_v) not in SIM_UNRESOLVED
+            if judged_v:
+                stats_v["ok"] = check(
+                    "coverage_value", f"{name_v}/{mode_v} draws against the "
+                    "posterior", sim_rule(stats_v))
+            del draws_v, mean_v, var_v
+            if (model_v, mode_v) in SIM_F64_WITNESS:
+                # the same draws by the twins in float64 on the same
+                # normals, against their posterior by the sim rule
+                t_w = time.perf_counter()
+                stats_w = cov_ref.draw_stats(
+                    *cov_ref.float64_draws(name_v, mode_v, n_val, eps_v,
+                                           eps_t_v, dev), SIM_VAR_MIN)
+                stats_w["seconds"] = time.perf_counter() - t_w
+                stats_w["ok"] = check(
+                    "coverage_value", f"{name_v}/{mode_v} float64 twins' "
+                    "draws against their posterior", sim_rule(stats_w))
+                stats_v["float64_twins"] = stats_w
+            row["sim"] = {"launches": launched(got_v),
+                          "call_ms": cuda_ms(sim_v, repeats=3),
+                          "distribution": {**stats_v, "judged": judged_v,
+                                           "z_tol": SIM_Z,
+                                           "var_ratio_tol": SIM_VAR_RATIO}}
+            del eps_v, eps_t_v
+            if name_v in cov_ref.VALUE_WIDE_LANES:
+                row["wide_lanes"] = wide_dalton(name_v, mode_v, obs_v)
+            emit({"phase": "coverage_value", "part": "calls", **row})
+
+            # each new instance of K8 (this model, mode and q) and, once a
+            # q, of K7b, K7a and K6 alone at these shapes, against its twin
+            # over PATH_TWIN_STEPS steps at the full width
+            ops_v = fk._kernel_operands(thetas_v, cfg_v["ode_weight"],
+                                        inits_v, 0.0, t_v, n_v,
+                                        cfg_v["prior_pars"])
+            ops_d, obs_d, ld0_d = fd._dalton_prepare(*lead_v,
+                                                     *obs_v.values())
+            for with_obs in (True, False):
+                variant = "with_obs" if with_obs else "without_obs"
+                k8_v = dict(**ops_d, **obs_d, mode=mode_v, with_obs=with_obs,
+                            ld0=ld0_d if with_obs
+                            else torch.zeros_like(ld0_d))
+                k8_cpu = cpu_lanes(k8_v, ("x0_lanes", "theta_lanes", "ld0"))
+                geo = fd._dalton_filter_batch_geometry(
+                    model_v, n_val, mode_v, with_obs, q_v)
+                _, entry = at_path_shapes(
+                    "coverage_value", "dalton_filter_batch",
+                    "pallas_dalton.py:41",
+                    {"dalton_filter_batch": k8_dalton_v[with_obs]},
+                    steps_cut(fd.dalton_filter_batch, fd._dalton_filter_plain,
+                              fused_v, keys=GRID_KEYS, **k8_v), n_v, ["ld"],
+                    None, None, tensors(k8_v), repeats=3, register=False,
+                    n_ops=n_val * dalton_ops(
+                        k8_cpu, lambda n, a: fd._dalton_filter_plain(
+                            fused_v, n, **a)),
+                    config=f"{model_v}/{mode_v}/q={q_v} {variant}",
+                    shape=f"{n_v} x {n_val}", model=model_v, mode=mode_v,
+                    q=q_v, variant=variant, **split_record(
+                        "coverage_value", "dalton_filter_batch",
+                        f"dalton_filter_batch {model_v}/{mode_v}/q={q_v} "
+                        f"{variant}", geo, per_sm=False,
+                        match=lambda r: r.get("model") == fused_v.cuda_functor
+                        and r.get("q") == q_v
+                        and r.get("mode") == fk._MODES[mode_v]
+                        and r.get("with_obs") == with_obs))
+                check("coverage_value", f"dalton_filter_batch {model_v}/"
+                      f"{mode_v}/q={q_v} {variant} bitwise",
+                      entry["bitwise"])
+                val_kernels.setdefault(f"dalton_filter_batch/{variant}",
+                                       []).append(entry)
+            del ops_d, obs_d, ld0_d, k8_v, k8_cpu
+            if mode_v != "kramer":
+                continue
+            # K7b on the kramer fenrir's chain
+            chain_v = ff._fenrir_operands(fused_v, n_v, 0.0, t_v, ops_v,
+                                          *obs_v.values(), mode_v)
+            chain_cpu_v = chain_on_cpu(chain_v)
+            geo = ff._fenrir_backward_batch_geometry(nb_v, n_val, q_v)
+            _, entry = at_path_shapes(
+                "coverage_value", "fenrir_backward_batch",
+                "pallas_fenrir.py:291",
+                {"fenrir_backward_batch": row["fenrir_batch"]["launches"].get(
+                    "fenrir_backward_batch", 0)},
+                rows_cut(ff.fenrir_backward_batch, fenrir_plain, chain_v, 7,
+                         from_end=True), n_v, ["ld"], None, None, chain_v,
+                n_ops=n_val * fenrir_ops(chain_cpu_v),
+                out_bytes=4 * nb_v * n_val, repeats=3, register=False,
+                config=f"q={q_v}", shape=f"{n_v} x {n_val}", q=q_v,
+                model=model_v, **split_record(
+                    "coverage_value", "fenrir_backward_batch",
+                    f"fenrir_backward_batch q={q_v}", geo, per_sm=False,
+                    match=lambda r: r.get("q") == q_v))
+            check("coverage_value", f"fenrir_backward_batch q={q_v} bitwise",
+                  entry["bitwise"])
+            val_kernels.setdefault("fenrir_backward_batch", []).append(entry)
+            del chain_v, chain_cpu_v
+            # K7a on lane 0's single fenrir chain
+            one_v, Qs_v = fk._single_operands(
+                thetas_v[0], cfg_v["ode_weight"], inits_v[0], 0.0, t_v, n_v,
+                cfg_v["prior_pars"])
+            one_v["q_const"] = ff._const_coefs(Qs_v)
+            chain_1 = ff._fenrir_single_operands(
+                fused_v, n_v, 0.0, t_v, one_v, Qs_v, *obs_v.values(), mode_v)
+            chain_1_cpu = [t.cpu() for t in chain_1[:9]]
+            ops_7 = grid_ops(chain_1_cpu[6], lambda idx: op_count(
+                lambda: ff._fenrir_backward_single_plain(
+                    *[t[idx] for t in chain_1_cpu[:7]], *chain_1_cpu[7:])))
+            geo = ff._fenrir_backward_single_geometry(nb_v, q_v)
+            _, entry = at_path_shapes(
+                "coverage_value", "fenrir_backward_single",
+                "pallas_fenrir.py:214",
+                {"fenrir_backward_single": row["fenrir_single"][
+                    "launches"].get("fenrir_backward_single", 0)},
+                rows_cut(ff.fenrir_backward_single, fenrir_single_plain,
+                         chain_1, 7, from_end=True), n_v, ["ld"], None,
+                None, chain_1, n_ops=ops_7, out_bytes=4 * nb_v,
+                register=False,
+                config=f"q={q_v}", shape=f"{n_v} steps", q=q_v,
+                model=model_v, **split_record(
+                    "coverage_value", "fenrir_backward_single",
+                    f"fenrir_backward_single q={q_v}", geo, per_sm=False,
+                    match=lambda r: r.get("q") == q_v))
+            check("coverage_value", f"fenrir_backward_single q={q_v} "
+                  "bitwise", entry["bitwise"])
+            val_kernels.setdefault("fenrir_backward_single", []).append(entry)
+            del chain_1, chain_1_cpu, one_v, Qs_v
+            # K6 on the draw's operands
+            gen_k6 = torch.Generator(dev).manual_seed(31)
+            eps_v = torch.randn((n_v - 1, q_v, nb_v, n_val), generator=gen_k6,
+                                device=dev)
+            eps_t_v = torch.randn((q_v, nb_v, n_val), generator=gen_k6,
+                                  device=dev)
+            k6_v = fs._draw_operands(fused_v, n_v, ops_v, mode_v, eps_v,
+                                     eps_t_v)
+            k6_cpu = [cpu_lane(t) for t in k6_v]
+            geo = fs._sampler_batch_geometry(nb_v * n_val, q_v)
+            _, entry = at_path_shapes(
+                "coverage_value", "sampler_batch", "pallas_sim.py:51",
+                {"sampler_batch": row["sim"]["launches"].get(
+                    "sampler_batch", 0)},
+                rows_cut(fs.sampler_batch, fs._sampler_batch_plain, k6_v, 2,
+                         from_end=True), n_v - 1, ["xs"],
+                lambda n: fs._sampler_batch_plain(k6_cpu[0][:n],
+                                                  k6_cpu[1][:n], k6_cpu[2]),
+                (n_v - 1) * n_val, k6_v, register=False, config=f"q={q_v}",
+                step_outputs=(0,),
+                shape=f"{n_v - 1} x {n_val}", q=q_v, model=model_v,
+                **split_record("coverage_value", "sampler_batch",
+                               f"sampler_batch q={q_v}", geo, per_sm=False,
+                               match=lambda r: r.get("q") == q_v))
+            check("coverage_value", f"sampler_batch q={q_v} bitwise",
+                  entry["bitwise"])
+            val_kernels.setdefault("sampler_batch", []).append(entry)
+            del eps_v, eps_t_v, k6_v, k6_cpu
+        del ops_v
+        emit({"phase": "coverage_value", "part": "kernels",
+              "fixture": name_v,
+              "kernels": {k: [e for e in v if e["model"] == model_v
+                              and e["q"] == q_v]
+                          for k, v in val_kernels.items()},
+              "seconds": time.perf_counter() - t_part})
+
+    # the lockstep random walk over Chkrebtii's ODE at q = 4: 512 chains x
+    # 20 steps, each position scaling x0, its likelihood the Gaussian fit
+    # of x to the fixture's data (K1 and K6 a step)
+    cfg_w, _ = cov_ref.fixture_config("chkrebtii_q4", torch.float32, dev)
+    obs_w = cov_ref.value_obs("chkrebtii_q4", mu64_value["chkrebtii_q4"],
+                              torch.float32, dev, seed=29)
+    idx_w = obs_indices(0.0, cfg_w["t_max"], cfg_w["n_steps"],
+                        obs_w["obs_times"]).to(dev)
+    y_w = obs_w["obs_data"][:, 0, 0]
+
+    def walk_loglik(positions, paths):
+        return -0.5 * torch.sum((paths[idx_w, 0, 0] - y_w[:, None]) ** 2,
+                                dim=0) / cov_ref.VALUE_OBS_VAR \
+            - 0.5 * positions[:, 0] ** 2
+
+    n_rw_v, s_rw_v = 512, 20
+    runner_v = tpar.make_chain_runner(
+        walk_loglik, n_rw_v, s_rw_v, 1e-3, cfg_w["ode_weight"],
+        cfg_w["ode_init"], 0.0, cfg_w["t_max"], cfg_w["n_steps"],
+        cfg_w["prior_pars"], "chkrebtii",
+        position_to_init=lambda p: cfg_w["ode_init"] * (1 + p[:, :, None]),
+        device=dev)
+    (pos_v, ll_v, acc_v), sec_v, counts_v, peak_v = timed_run(
+        lambda: runner_v(torch.zeros((n_rw_v, 1), device=dev),
+                         torch.Generator(dev).manual_seed(32)))
+    walk_ok = [
+        check("coverage_value", "chkrebtii q=4 random walk launches",
+              counts_v == expect(filter_batch=s_rw_v + 1,
+                                 sampler_batch=s_rw_v + 1)),
+        check("coverage_value", "chkrebtii q=4 random walk finite",
+              finite(pos_v, ll_v))]
+    emit({"phase": "coverage_value", "part": "random_walk",
+          "model": "chkrebtii", "q": 4, "n_steps": cfg_w["n_steps"],
+          "n_chains": n_rw_v, "n_samples": s_rw_v,
+          "launches": launched(counts_v), "walk_seconds": sec_v,
+          "chain_steps_per_s": n_rw_v * s_rw_v / sec_v,
+          "mean_accept": acc_v.mean().item(), "peak_mem_bytes": peak_v,
+          "ok": all(walk_ok)})
+    del pos_v, ll_v, acc_v
+    for key_v, entries_v in val_kernels.items():
+        kernels[key_v]["instances"] = entries_v
+    val_s = time.perf_counter() - t_phase
+    check("coverage_value", f"phase within {COVERAGE_VALUE_PHASE_S} s",
+          val_s <= COVERAGE_VALUE_PHASE_S)
+    emit({"phase": "coverage_value", "seconds": val_s,
+          "limit_s": COVERAGE_VALUE_PHASE_S})
+
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end
     print(smi, flush=True)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "seconds", "phases": dict(_CLOCK["phases"]),
+          "total": time.perf_counter() - t_start})
     emit({"kernels": [kernels[name] for name in
                       VALUE_KERNELS + TAN_KERNELS + SINGLE_KERNELS
                       + MEAN_KERNELS + MAGI_KERNELS + NN_KERNELS]})

@@ -35,42 +35,43 @@ _SIGNATURES = {
     # theta, tgrid, eps (chkrebtii's normals, or NULL), G, g, L, m_last,
     # p_last, stream
     "rodeo_filter_batch": [_I] * 5 + [_P] * 14,
-    # n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
+    # q, n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
     # ld_blocks, stream
-    "rodeo_fenrir_backward_batch": [_I] * 3 + [_P] * 11,
-    # model, mode, with_obs, n_steps, n_lane, q_const (host), R, W, t_vec,
-    # x0, theta, tgrid, d, y, om, mask, ld0, ld, stream
-    "rodeo_dalton_filter_batch": [_I] * 5 + [_P] * 14,
-    # n_steps, n_col, c, G, xN, xs, stream
-    "rodeo_sampler_batch": [_I, _I] + [_P] * 5,
+    "rodeo_fenrir_backward_batch": [_I] * 4 + [_P] * 11,
+    # model, mode, q, with_obs, n_steps, n_lane, q_const (host), R, W,
+    # t_vec, x0, theta, tgrid, d, y, om, mask, ld0, ld, stream
+    "rodeo_dalton_filter_batch": [_I] * 6 + [_P] * 14,
+    # q, n_steps, n_col, c, G, xN, xs, stream
+    "rodeo_sampler_batch": [_I] * 3 + [_P] * 5,
     # the tangent kernels, with augmented (value + tangents) operands:
     # model, mode, n_steps, n_lane, q_const (host), R, W, t_vec, x0, theta,
     # tgrid, A, b, C, m_last, p_last, stream
     "rodeo_filter_batch_tan": [_I, _I, _I, _I] + [_P] * 13,
     # n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
     "rodeo_fenrir_backward_batch_tan": [_I] * 4 + [_P] * 11,
-    # as rodeo_dalton_filter_batch
+    # as rodeo_dalton_filter_batch, without q
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
-    # the launches of K1: model, mode, q, n_lane, out; of K8, K11a and
-    # K11c: model, mode, (with_obs,) n_lane, out; of K9 and K11d: model,
-    # obs_model, mode, n_lane, out; of K6: n_col, out; of K3: model, mode,
-    # q, out; of K2r: q, n_block, n_lane, out; of K7b: n_block, n_lane, out
+    # the launches of K1: model, mode, q, n_lane, out; of K8: model, mode,
+    # q, with_obs, n_lane, out; of K11a and K11c: model, mode, (with_obs,)
+    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
+    # K6: q, n_col, out; of K3: model, mode, q, out; of K2r: q, n_block,
+    # n_lane, out; of K7b: q, n_block, n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 4 + [_P],
-    "rodeo_dalton_filter_batch_geometry": [_I] * 4 + [_P],
+    "rodeo_dalton_filter_batch_geometry": [_I] * 5 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
-    "rodeo_sampler_batch_geometry": [_I, _P],
+    "rodeo_sampler_batch_geometry": [_I, _I, _P],
     "rodeo_filter_single_geometry": [_I] * 3 + [_P],
     "rodeo_smoother_batch_rows_geometry": [_I] * 3 + [_P],
-    "rodeo_fenrir_backward_batch_geometry": [_I, _I, _P],
-    # of K4: q, n_block, out; of K7a: n_block, out; of K11b: n_block,
+    "rodeo_fenrir_backward_batch_geometry": [_I] * 3 + [_P],
+    # of K4: q, n_block, out; of K7a: q, n_block, out; of K11b: n_block,
     # n_lane, n_tan, out; of K10a: act, emit_adjoint, n_block, n_lane, out;
     # of K10b: act, n_block, n_lane, out; of K5a and K5b: model, out; of
     # K5c: model, n_group, out
     "rodeo_smoother_single_geometry": [_I, _I, _P],
-    "rodeo_fenrir_backward_single_geometry": [_I, _P],
+    "rodeo_fenrir_backward_single_geometry": [_I, _I, _P],
     "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_magi_batch_geometry": [_I] * 4 + [_P],
     "rodeo_magi_adjoint_batch_geometry": [_I] * 3 + [_P],
@@ -85,9 +86,9 @@ _SIGNATURES = {
     "rodeo_filter_single": [_I] * 4 + [_P] * 13,
     # q, n_steps, n_block, g, G, L, mN, pN, ms, ps, stream
     "rodeo_smoother_single": [_I] * 3 + [_P] * 8,
-    # n_steps, n_block, A, b, C, d, y, om, mask, m_seed, p_seed, ld_blocks,
-    # stream
-    "rodeo_fenrir_backward_single": [_I, _I] + [_P] * 11,
+    # q, n_steps, n_block, A, b, C, d, y, om, mask, m_seed, p_seed,
+    # ld_blocks, stream
+    "rodeo_fenrir_backward_single": [_I] * 3 + [_P] * 11,
     # q, n_steps, n_block, n_lane, g, G, L, mN, pN, m0, scales, mean, cov,
     # stream
     "rodeo_smoother_batch_rows": [_I] * 4 + [_P] * 10,
@@ -201,18 +202,29 @@ def sass_loops(symbol, lib_path=None):
     if not tool.is_file():
         return None
     lib_path = _library_path() if lib_path is None else Path(lib_path)
-    text = subprocess.run([str(tool), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True).stdout
-    kernels, name = [], None
+    return [_largest_loop(name, body)
+            for name, body in _sass_functions(str(tool), str(lib_path))
+            if symbol in name]
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_functions(tool, lib_path):
+    """Each kernel of the library at ``lib_path`` and its SASS lines, from
+    one run of ``cuobjdump -sass`` (the dump of every instance, which takes
+    tens of seconds to produce and split, is done once a library)."""
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    functions, name, body = [], None, []
     for line in text.splitlines() + ["Function : "]:
-        head = re.search(r"Function : (\S*)", line)
+        head = re.search(r"Function : (\S*)", line) \
+            if "Function : " in line else None
         if head:
-            if name is not None and symbol in name:
-                kernels.append(_largest_loop(name, body))
+            if name is not None:
+                functions.append((name, tuple(body)))
             name, body = head[1], []
         elif name is not None:
             body.append(line)
-    return kernels
+    return tuple(functions)
 
 
 def _largest_loop(name, lines):

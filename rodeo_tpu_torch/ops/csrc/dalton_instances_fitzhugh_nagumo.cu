@@ -1,0 +1,9 @@
+// The instances of DALTON's filter K8 (dalton_filter_batch.cuh) for
+// FitzHugh-Nagumo at q = 3, under kramer and rodeo, with and without data.
+#include "dalton_filter_batch.cuh"
+
+namespace rodeo {
+
+template struct DaltonFilterInstances<FitzHughNagumo, 3>;
+
+}  // namespace rodeo

@@ -50,10 +50,11 @@ cudaError_t with_mode(int mode, Fn&& f) {
   return with_value<kKramer, kRodeo, kSchober, kChkrebtii>(mode, f);
 }
 
-// The (model, q) of the filters that take every interrogation, K1
-// (filter_batch.cu) and K3 (filter_single.cu): f(Is<Model>(), Int<Q>())
-// for the first-order models at q = 3 and the second-order Chkrebtii at
-// q = 4 and 5; each holds the four modes (with_mode).
+// The (model, q) of the filters that take every model: K1 (filter_batch.cu)
+// and K3 (filter_single.cu), which hold the four modes there (with_mode),
+// and DALTON's K8 (dalton_filter_batch.cu), which holds kramer and rodeo
+// (with_ek_mode): f(Is<Model>(), Int<Q>()) for the first-order models at
+// q = 3 and the second-order Chkrebtii at q = 4 and 5.
 template <class Fn>
 cudaError_t with_filter_instance(int model, int q, Fn&& f) {
   if (model == Chkrebtii::kNumber)
@@ -64,13 +65,20 @@ cudaError_t with_filter_instance(int model, int q, Fn&& f) {
       });
 }
 
+// The interrogation modes of the filters that take kramer and rodeo alone:
+// f(Int<MODE>()).
+template <class Fn>
+cudaError_t with_ek_mode(int mode, Fn&& f) {
+  return with_value<kKramer, kRodeo>(mode, f);
+}
+
 // The instances of the filters that take Lorenz63 and FitzHugh-Nagumo at
-// q = 3 under kramer and rodeo (K8, K9, K11a, K11c, K11d):
+// q = 3 under kramer and rodeo (K9, K11a, K11c, K11d):
 // f(Is<Model>(), Int<MODE>()).
 template <class Fn>
 cudaError_t with_ek_instance(int model, int mode, Fn&& f) {
   return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_value<kKramer, kRodeo>(mode, [&](auto md) { return f(m, md); });
+    return with_ek_mode(mode, [&](auto md) { return f(m, md); });
   });
 }
 

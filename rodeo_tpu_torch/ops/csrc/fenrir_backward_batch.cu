@@ -6,7 +6,8 @@
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_fenrir.py:
 // _fenrir_backward_kernel_batch.  Plain PyTorch twin: _fenrir_backward_plain
-// in ops/fused_fenrir.py, with skip_unobserved.
+// in ops/fused_fenrir.py, with skip_unobserved.  Instantiated at q = 3, 4
+// and 5 (the figures below are q = 3's).
 //
 // What bounds it on the card.  Each step reads 18 floats per (block, lane)
 // column (A 9, b 3, C 6) for ~100 float operations, and writes nothing: a
@@ -33,11 +34,15 @@
 // the cache.  Each consumer thread writes its block's sum to (NB, B); the
 // wrapper adds the blocks in block order.  The stream stages no output
 // rows, so it runs the ring's two sides itself, as K11b does.  The TPU
-// kernel's chunk grid and lane fold are gone.
+// kernel's chunk grid and lane fold are gone.  A step's rows grow to 30 at
+// q = 4 and 45 at q = 5, and the ring with them (15, 31 and 46 KB of
+// static shared memory at q = 3, 4 and 5), within the 48 KB a static
+// allocation may take.
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
 #include "chain_step.cuh"
+#include "dispatch.cuh"
 #include "fenrir_step.cuh"
 #include "kalman_cols.cuh"
 #include "stream_ring.cuh"
@@ -126,7 +131,7 @@ inline SplitGeometry fenrir_geometry(int n_col) {
   return {dim3((n_col + kStreamCols - 1) / kStreamCols), stream_cta()};
 }
 
-template <int V>
+template <int Q, int V>
 cudaError_t launch_fenrir(int n_steps, int n_block, int n_lane,
                           const float* A, const float* b, const float* C,
                           const float* d, const float* y, const float* om,
@@ -134,7 +139,7 @@ cudaError_t launch_fenrir(int n_steps, int n_block, int n_lane,
                           const float* p_seed, float* ld_blocks,
                           cudaStream_t stream) {
   const SplitGeometry geo = fenrir_geometry(n_block * n_lane);
-  fenrir_backward_kernel<3, V><<<geo.grid, geo.block, 0, stream>>>(
+  fenrir_backward_kernel<Q, V><<<geo.grid, geo.block, 0, stream>>>(
       n_steps, n_block, n_lane, A, b, C, d, y, om, mask, m_seed, p_seed,
       ld_blocks);
   return cudaGetLastError();
@@ -142,11 +147,13 @@ cudaError_t launch_fenrir(int n_steps, int n_block, int n_lane,
 
 }  // namespace rodeo
 
-// Every pointer is device memory laid out as fenrir_backward_batch
-// (ops/fused_fenrir.py) documents; ld_blocks is (n_block, B).  Rows go 16
-// bytes at a time where n_block x B is a multiple of 4 and A, b and C are
-// 16-byte aligned, else 4 bytes at a time.  Returns a cudaError_t.
-extern "C" int rodeo_fenrir_backward_batch(int n_steps, int n_block,
+// q: the derivatives per block, 3, 4 or 5 (any other returns
+// cudaErrorInvalidValue).  Every pointer is device memory laid out as
+// fenrir_backward_batch (ops/fused_fenrir.py) documents; ld_blocks is
+// (n_block, B).  Rows go 16 bytes at a time where n_block x B is a
+// multiple of 4 and A, b and C are 16-byte aligned, else 4 bytes at a
+// time.  Returns a cudaError_t.
+extern "C" int rodeo_fenrir_backward_batch(int q, int n_steps, int n_block,
                                            int n_lane, const void* A,
                                            const void* b, const void* C,
                                            const void* d, const void* y,
@@ -157,33 +164,38 @@ extern "C" int rodeo_fenrir_backward_batch(int n_steps, int n_block,
   using namespace rodeo;
   if (n_steps < 1 || n_block < 1 || n_lane < 1) return cudaErrorInvalidValue;
   const bool vec = stream_aligned(n_block * n_lane, A, b, C);
-  auto* launch = vec ? &launch_fenrir<4> : &launch_fenrir<1>;
-  return launch(n_steps, n_block, n_lane, static_cast<const float*>(A),
-                static_cast<const float*>(b), static_cast<const float*>(C),
-                static_cast<const float*>(d), static_cast<const float*>(y),
-                static_cast<const float*>(om),
-                static_cast<const float*>(mask),
-                static_cast<const float*>(m_seed),
-                static_cast<const float*>(p_seed),
-                static_cast<float*>(ld_blocks),
-                static_cast<cudaStream_t>(stream));
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    auto* launch = vec ? &launch_fenrir<Q, 4> : &launch_fenrir<Q, 1>;
+    return launch(n_steps, n_block, n_lane, static_cast<const float*>(A),
+                  static_cast<const float*>(b), static_cast<const float*>(C),
+                  static_cast<const float*>(d), static_cast<const float*>(y),
+                  static_cast<const float*>(om),
+                  static_cast<const float*>(mask),
+                  static_cast<const float*>(m_seed),
+                  static_cast<const float*>(p_seed),
+                  static_cast<float*>(ld_blocks),
+                  static_cast<cudaStream_t>(stream));
+  });
 }
 
-// The launch rodeo_fenrir_backward_batch makes for n_block x n_lane columns
-// with aligned operands on the current device, as report_geometry's nine
-// ints (block_step.cuh), then the ring's stages and the steps a stage
+// The launch rodeo_fenrir_backward_batch makes at q for n_block x n_lane
+// columns with aligned operands on the current device, as report_geometry's
+// nine ints (block_step.cuh), then the ring's stages and the steps a stage
 // holds, in out.  Returns a cudaError_t.
-extern "C" int rodeo_fenrir_backward_batch_geometry(int n_block, int n_lane,
-                                                    void* out) {
+extern "C" int rodeo_fenrir_backward_batch_geometry(int q, int n_block,
+                                                    int n_lane, void* out) {
   using namespace rodeo;
   if (n_block < 1 || n_lane < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
   const int n_col = n_block * n_lane;
   const SplitGeometry geo = fenrir_geometry(n_col);
-  const cudaError_t err =
-      n_col % 4 == 0
-          ? report_geometry(fenrir_backward_kernel<3, 4>, geo, o)
-          : report_geometry(fenrir_backward_kernel<3, 1>, geo, o);
+  const cudaError_t err = with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return n_col % 4 == 0
+               ? report_geometry(fenrir_backward_kernel<Q, 4>, geo, o)
+               : report_geometry(fenrir_backward_kernel<Q, 1>, geo, o);
+  });
   o[9] = kFenrirStages;
   o[10] = kFenrirSteps;
   return err;

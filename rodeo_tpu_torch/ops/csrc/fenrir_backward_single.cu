@@ -6,7 +6,8 @@
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_fenrir.py:
 // _backward_kernel_global_mask.  Plain PyTorch twin:
-// _fenrir_backward_single_plain in ops/fused_fenrir.py.
+// _fenrir_backward_single_plain in ops/fused_fenrir.py.  Instantiated at
+// q = 3, 4 and 5 (the figures below are q = 3's).
 //
 // What bounds it on the card.  The carry's dependent chain, step after step:
 // its bytes (19 floats per block and step, the chain's and the mask, 0.9 MB
@@ -21,7 +22,7 @@
 // Design.  A slab stream on stream_ring.cuh's ring, as K4's
 // (smoother_single.cu): a CTA of a consumer warp and a producer warp holds
 // up to kFenrirCtaBlocks neighbouring blocks (blocks are independent, so
-// more blocks take more CTAs).  A stage is kFenrirSingleRows steps; the
+// more blocks take more CTAs).  A stage is fenrir_single_rows<Q>() steps; the
 // producer copies its rows of A, b and C, in the single layout (N, NB, D)
 // one contiguous slab per operand where the CTA holds every block, and the
 // stage's mask, by cp.async into a ring of kFenrirSingleStages slots
@@ -42,23 +43,32 @@
 // drain.  K4's layout, each block's step spread over six lanes that trade
 // the carry through shared memory, took 32 % longer here (PERF.md): without
 // output rows to stage, the trade is pure latency on the chain.  Of rings of
-// 2 to 8 stages of 16 to 256 steps, kFenrirSingleStages x kFenrirSingleRows
+// 2 to 8 stages of 16 to 256 steps, kFenrirSingleStages x 256
 // was the fastest on the card, larger stages paying fewer hand-overs between
 // the warps (PERF.md).  Four blocks a CTA keep both models (3 and 2 blocks)
 // in one CTA of 16-byte copies and the ring inside the card's shared memory
-// (150 KB at 4 blocks).
+// (150 KB at 4 blocks).  A step's rows grow to 30 floats a block at q = 4
+// and 45 at q = 5, so there a stage holds 128 steps (fenrir_single_rows):
+// 121 and 181 KB at 4 blocks, 31 and 46 KB at Chkrebtii's one.
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
 #include "chain_step.cuh"
+#include "dispatch.cuh"
 #include "fenrir_step.cuh"
 #include "kalman_cols.cuh"
 #include "stream_ring.cuh"
 
 namespace rodeo {
 
-constexpr int kFenrirSingleRows = 256;   // steps per stage
 constexpr int kFenrirSingleStages = 2;   // stages in the ring
+
+// steps per stage: 256 at q = 3, 128 at q = 4 and 5, whose rows would take
+// the ring past the card's shared memory at 256
+template <int Q>
+__host__ __device__ constexpr int fenrir_single_rows() {
+  return Q == 3 ? 256 : 128;
+}
 
 // the blocks a CTA (a consumer thread each) holds
 constexpr int kFenrirCtaBlocks = 4;
@@ -67,7 +77,7 @@ constexpr int kFenrirCtaBlocks = 4;
 // then its mask
 template <int Q>
 __host__ __device__ constexpr int fenrir_slot_floats(int w) {
-  return kFenrirSingleRows * (w * (Q * Q + Q + Tri<Q>::N) + 1);
+  return fenrir_single_rows<Q>() * (w * (Q * Q + Q + Tri<Q>::N) + 1);
 }
 
 // dynamic shared memory of a CTA: the ring
@@ -91,7 +101,7 @@ __global__ void __launch_bounds__(2 * 32)
                                   const float* __restrict__ p_seed,
                                   float* __restrict__ ld_blocks) {
   constexpr int NT = Tri<Q>::N;
-  constexpr int S = kFenrirSingleRows, K = kFenrirSingleStages;
+  constexpr int S = fenrir_single_rows<Q>(), K = kFenrirSingleStages;
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * kFenrirCtaBlocks;
   const int width = min(kFenrirCtaBlocks, n_block - b0);
@@ -178,39 +188,51 @@ inline SplitGeometry fenrir_single_geometry(int n_block) {
 
 // The kernel's dynamic shared memory may exceed 48 KB only once the kernel
 // is allowed it.
-template <int V>
+template <int Q, int V>
 cudaError_t allow_fenrir_single_smem(int n_block) {
   return cudaFuncSetAttribute(
-      fenrir_backward_single_kernel<3, V>,
+      fenrir_backward_single_kernel<Q, V>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(fenrir_single_smem_bytes<3>(n_block)));
+      static_cast<int>(fenrir_single_smem_bytes<Q>(n_block)));
 }
 
-template <int V>
+template <int Q, int V>
 cudaError_t launch_fenrir_single(int n_steps, int n_block, const float* A,
                                  const float* b, const float* C,
                                  const float* d, const float* y,
                                  const float* om, const float* mask,
                                  const float* m_seed, const float* p_seed,
                                  float* ld_blocks, cudaStream_t stream) {
-  const cudaError_t err = allow_fenrir_single_smem<V>(n_block);
+  const cudaError_t err = allow_fenrir_single_smem<Q, V>(n_block);
   if (err != cudaSuccess) return err;
   const SplitGeometry geo = fenrir_single_geometry(n_block);
-  fenrir_backward_single_kernel<3, V>
-      <<<geo.grid, geo.block, fenrir_single_smem_bytes<3>(n_block), stream>>>(
+  fenrir_backward_single_kernel<Q, V>
+      <<<geo.grid, geo.block, fenrir_single_smem_bytes<Q>(n_block), stream>>>(
           n_steps, n_block, A, b, C, d, y, om, mask, m_seed, p_seed,
           ld_blocks);
   return cudaGetLastError();
 }
 
+template <int Q, int V>
+cudaError_t fenrir_single_geometry_report(int n_block, int* out) {
+  const cudaError_t err = allow_fenrir_single_smem<Q, V>(n_block);
+  if (err != cudaSuccess) return err;
+  out[10] = fenrir_single_rows<Q>();
+  return report_geometry(fenrir_backward_single_kernel<Q, V>,
+                         fenrir_single_geometry(n_block), out,
+                         fenrir_single_smem_bytes<Q>(n_block));
+}
+
 }  // namespace rodeo
 
-// Every pointer is device memory laid out as fenrir_backward_single
-// (ops/fused_fenrir.py) documents; ld_blocks is (n_block,).  Any n_block >= 1
-// runs, kFenrirCtaBlocks blocks a CTA.  Stages move 16 bytes at a time where
-// one CTA holds every block and A, b, C and mask are 16-byte aligned, else 4
-// bytes at a time.  Returns a cudaError_t.
-extern "C" int rodeo_fenrir_backward_single(int n_steps, int n_block,
+// q: the derivatives per block, 3, 4 or 5 (any other returns
+// cudaErrorInvalidValue).  Every pointer is device memory laid out as
+// fenrir_backward_single (ops/fused_fenrir.py) documents; ld_blocks is
+// (n_block,).  Any n_block >= 1 runs, kFenrirCtaBlocks blocks a CTA.
+// Stages move 16 bytes at a time where one CTA holds every block and A, b,
+// C and mask are 16-byte aligned, else 4 bytes at a time.  Returns a
+// cudaError_t.
+extern "C" int rodeo_fenrir_backward_single(int q, int n_steps, int n_block,
                                             const void* A, const void* b,
                                             const void* C, const void* d,
                                             const void* y, const void* om,
@@ -222,39 +244,39 @@ extern "C" int rodeo_fenrir_backward_single(int n_steps, int n_block,
   if (n_steps < 1 || n_block < 1) return cudaErrorInvalidValue;
   const bool vec =
       n_block <= kFenrirCtaBlocks && aligned16(A, b, C, mask);
-  auto* launch = vec ? &launch_fenrir_single<4> : &launch_fenrir_single<1>;
-  return launch(n_steps, n_block, static_cast<const float*>(A),
-                static_cast<const float*>(b), static_cast<const float*>(C),
-                static_cast<const float*>(d), static_cast<const float*>(y),
-                static_cast<const float*>(om),
-                static_cast<const float*>(mask),
-                static_cast<const float*>(m_seed),
-                static_cast<const float*>(p_seed),
-                static_cast<float*>(ld_blocks),
-                static_cast<cudaStream_t>(stream));
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    auto* launch =
+        vec ? &launch_fenrir_single<Q, 4> : &launch_fenrir_single<Q, 1>;
+    return launch(n_steps, n_block, static_cast<const float*>(A),
+                  static_cast<const float*>(b), static_cast<const float*>(C),
+                  static_cast<const float*>(d), static_cast<const float*>(y),
+                  static_cast<const float*>(om),
+                  static_cast<const float*>(mask),
+                  static_cast<const float*>(m_seed),
+                  static_cast<const float*>(p_seed),
+                  static_cast<float*>(ld_blocks),
+                  static_cast<cudaStream_t>(stream));
+  });
 }
 
-// The launch rodeo_fenrir_backward_single makes for n_block blocks with
-// aligned operands on the current device, as report_geometry's nine ints
-// (block_step.cuh; the shared memory is the ring's, dynamic), then the
+// The launch rodeo_fenrir_backward_single makes at q for n_block blocks
+// with aligned operands on the current device, as report_geometry's nine
+// ints (block_step.cuh; the shared memory is the ring's, dynamic), then the
 // ring's stages, the steps a stage holds and the blocks a CTA holds, in
 // out.  Returns a cudaError_t.
-extern "C" int rodeo_fenrir_backward_single_geometry(int n_block, void* out) {
+extern "C" int rodeo_fenrir_backward_single_geometry(int q, int n_block,
+                                                     void* out) {
   using namespace rodeo;
   if (n_block < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
   const bool vec = n_block <= kFenrirCtaBlocks;
-  const SplitGeometry geo = fenrir_single_geometry(n_block);
-  const size_t smem = fenrir_single_smem_bytes<3>(n_block);
-  cudaError_t err = vec ? allow_fenrir_single_smem<4>(n_block)
-                        : allow_fenrir_single_smem<1>(n_block);
-  if (err == cudaSuccess)
-    err = vec ? report_geometry(fenrir_backward_single_kernel<3, 4>, geo, o,
-                                smem)
-              : report_geometry(fenrir_backward_single_kernel<3, 1>, geo, o,
-                                smem);
+  const cudaError_t err = with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return vec ? fenrir_single_geometry_report<Q, 4>(n_block, o)
+               : fenrir_single_geometry_report<Q, 1>(n_block, o);
+  });
   o[9] = kFenrirSingleStages;
-  o[10] = kFenrirSingleRows;
   o[11] = kFenrirCtaBlocks;
   return err;
 }

@@ -5,7 +5,8 @@
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_sim.py:
 // _sampler_kernel_batch.  Plain PyTorch twin: _sampler_batch_plain in
-// ops/fused_sim.py.
+// ops/fused_sim.py.  Instantiated at q = 3, 4 and 5 (the figures below
+// are q = 3's).
 //
 // What bounds it on the card.  Each step reads 12 floats (c 3, G 9) and
 // writes 3 per column for 18 float operations: a pure stream, bound by
@@ -30,10 +31,14 @@
 // worth) and leave as coalesced 16-byte stores (4-byte copies and stores where n_col or an
 // operand is not 16-byte aligned).  The arithmetic is the twin's, sum for
 // sum.  Of 4 to 7 stages of 4 steps and 3 of 8, 6 of 4 was the fastest on
-// the card, measured with one warp per CTA (PERF.md).
+// the card, measured with one warp per CTA (PERF.md).  The ring and the
+// staged rows are dynamic shared memory sized from Q, as K2r's are: 39 KB
+// at q = 3, 64 KB at q = 4 (20 rows a step) and 95 KB at q = 5 (30 rows),
+// which keeps two CTAs an SM there.
 #include <cuda_runtime.h>
 
 #include "block_step.cuh"
+#include "dispatch.cuh"
 #include "stream_ring.cuh"
 
 namespace rodeo {
@@ -45,6 +50,14 @@ constexpr int kSamplerStages = 6;   // stages in the ring
 template <int Q>
 using SamplerRows = StreamRows<Q, Q * Q>;
 
+// dynamic shared memory of a CTA: the ring, then two stages of staged
+// output rows
+template <int Q>
+constexpr size_t sampler_smem_bytes() {
+  return sizeof(float) * kStreamCols * kSamplerSteps *
+         (kSamplerStages * SamplerRows<Q>::R + 2 * Q);
+}
+
 template <int Q, int V>
 __global__ void __launch_bounds__(2 * kStreamCols)
     sampler_batch_kernel(int n_steps, int n_col_i,
@@ -54,8 +67,10 @@ __global__ void __launch_bounds__(2 * kStreamCols)
                          float* __restrict__ xs) {
   using Rows = SamplerRows<Q>;
   constexpr int S = kSamplerSteps, K = kSamplerStages;
-  __shared__ __align__(16) float ring[K][S][Rows::R][kStreamCols];
-  __shared__ __align__(16) float out[2][S][Q][kStreamCols];
+  extern __shared__ __align__(16) float smem[];
+  auto ring = reinterpret_cast<float (*)[S][Rows::R][kStreamCols]>(smem);
+  auto& out = *reinterpret_cast<float (*)[2][S][Q][kStreamCols]>(
+      smem + K * S * Rows::R * kStreamCols);
   const int tx = threadIdx.x;
   const size_t n_col = n_col_i;
   const size_t col0 = static_cast<size_t>(blockIdx.x) * kStreamCols;
@@ -96,15 +111,45 @@ inline SplitGeometry sampler_geometry(int n_col) {
   return {dim3((n_col + kStreamCols - 1) / kStreamCols), stream_cta()};
 }
 
+// The kernel's dynamic shared memory may exceed 48 KB only once the kernel
+// is allowed it.
+template <int Q, int V>
+cudaError_t allow_sampler_smem() {
+  return cudaFuncSetAttribute(sampler_batch_kernel<Q, V>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sampler_smem_bytes<Q>()));
+}
+
+template <int Q, int V>
+cudaError_t launch_sampler(int n_steps, int n_col, const float* c,
+                           const float* G, const float* xN, float* xs,
+                           cudaStream_t stream) {
+  const cudaError_t err = allow_sampler_smem<Q, V>();
+  if (err != cudaSuccess) return err;
+  const SplitGeometry g = sampler_geometry(n_col);
+  sampler_batch_kernel<Q, V><<<g.grid, g.block, sampler_smem_bytes<Q>(),
+                               stream>>>(n_steps, n_col, c, G, xN, xs);
+  return cudaGetLastError();
+}
+
+template <int Q, int V>
+cudaError_t sampler_geometry_report(int n_col, int* out) {
+  const cudaError_t err = allow_sampler_smem<Q, V>();
+  if (err != cudaSuccess) return err;
+  return report_geometry(sampler_batch_kernel<Q, V>, sampler_geometry(n_col),
+                         out, sampler_smem_bytes<Q>());
+}
+
 }  // namespace rodeo
 
-// n_col = n_block * B; every pointer is device memory laid out as
-// sampler_batch (ops/fused_sim.py) documents.  Rows go 16 bytes at a time
-// where n_col is a multiple of 4 and c, G and xs are 16-byte aligned, else
-// 4 bytes at a time.  Returns a cudaError_t.
-extern "C" int rodeo_sampler_batch(int n_steps, int n_col, const void* c,
-                                   const void* G, const void* xN, void* xs,
-                                   void* stream) {
+// q: the derivatives per block, 3, 4 or 5 (any other returns
+// cudaErrorInvalidValue); n_col = n_block * B; every pointer is device
+// memory laid out as sampler_batch (ops/fused_sim.py) documents.  Rows go
+// 16 bytes at a time where n_col is a multiple of 4 and c, G and xs are
+// 16-byte aligned, else 4 bytes at a time.  Returns a cudaError_t.
+extern "C" int rodeo_sampler_batch(int q, int n_steps, int n_col,
+                                   const void* c, const void* G,
+                                   const void* xN, void* xs, void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_col < 1) return cudaErrorInvalidValue;
   const bool vec = stream_aligned(n_col, c, G, xs);
@@ -113,30 +158,27 @@ extern "C" int rodeo_sampler_batch(int n_steps, int n_col, const void* c,
   const auto* xNp = static_cast<const float*>(xN);
   auto* xsp = static_cast<float*>(xs);
   auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    const SplitGeometry g = sampler_geometry(n_col);
-    sampler_batch_kernel<3, 4><<<g.grid, g.block, 0, s>>>(n_steps, n_col, cp,
-                                                          Gp, xNp, xsp);
-  } else {
-    const SplitGeometry g = sampler_geometry(n_col);
-    sampler_batch_kernel<3, 1><<<g.grid, g.block, 0, s>>>(n_steps, n_col, cp,
-                                                          Gp, xNp, xsp);
-  }
-  return cudaGetLastError();
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return vec ? launch_sampler<Q, 4>(n_steps, n_col, cp, Gp, xNp, xsp, s)
+               : launch_sampler<Q, 1>(n_steps, n_col, cp, Gp, xNp, xsp, s);
+  });
 }
 
-// The launch rodeo_sampler_batch makes for n_col columns with aligned
+// The launch rodeo_sampler_batch makes at q for n_col columns with aligned
 // operands on the current device, as report_geometry's nine ints
-// (block_step.cuh), then the ring's stages and the steps a stage holds, in
-// out.  Returns a cudaError_t.
-extern "C" int rodeo_sampler_batch_geometry(int n_col, void* out) {
+// (block_step.cuh; the shared memory is the ring's and the staged rows',
+// dynamic), then the ring's stages and the steps a stage holds, in out.
+// Returns a cudaError_t.
+extern "C" int rodeo_sampler_batch_geometry(int q, int n_col, void* out) {
   using namespace rodeo;
   if (n_col < 1) return cudaErrorInvalidValue;
   auto* o = static_cast<int*>(out);
-  const cudaError_t err =
-      n_col % 4 == 0
-          ? report_geometry(sampler_batch_kernel<3, 4>, sampler_geometry(n_col), o)
-          : report_geometry(sampler_batch_kernel<3, 1>, sampler_geometry(n_col), o);
+  const cudaError_t err = with_value<3, 4, 5>(q, [&](auto qq) {
+    constexpr int Q = decltype(qq)::value;
+    return n_col % 4 == 0 ? sampler_geometry_report<Q, 4>(n_col, o)
+                          : sampler_geometry_report<Q, 1>(n_col, o);
+  });
   o[9] = kSamplerStages;
   o[10] = kSamplerSteps;
   return err;

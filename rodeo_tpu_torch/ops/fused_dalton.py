@@ -152,12 +152,13 @@ def dalton_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
 
 
 def _dalton_filter_batch_geometry(model, n_lane, mode="kramer",
-                                 with_obs=True, device=None):
+                                 with_obs=True, q=3, device=None):
     """The launch of kernel K8 (:func:`dalton_filter_batch`) at ``n_lane``
-    lanes on the card, as
-    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    lanes on the card, for the model, mode and q of one of its instances,
+    as :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
-    return _launch_geometry("dalton_filter_batch", device, int(with_obs), n_lane,
+    return _launch_geometry("dalton_filter_batch", device, int(with_obs),
+                            n_lane, q=q,
                             model=resolve_model(model).cuda_functor,
                             mode=mode)
 
@@ -259,7 +260,8 @@ def dalton_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     kernel K8 on the CUDA card (its plain twin with ``device="cpu"``).
 
     Args and return as
-    :func:`rodeo_tpu_torch.ops.fused_fenrir.fenrir_fused_batch`.
+    :func:`rodeo_tpu_torch.ops.fused_fenrir.fenrir_fused_batch`, under
+    kramer and rodeo alone (the JAX package's DALTON takes no other).
     """
     fused, _, thetas, ode_weight, ode_inits, prior_pars = _fused_inputs(
         thetas, ode_weight, ode_inits, prior_pars, model, interrogation,

@@ -120,14 +120,14 @@ def _fenrir_backward_tan_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
     return rows(ld)
 
 
-def _fenrir_backward_batch_geometry(n_block, n_lane, device=None):
-    """The launch of kernel K7b (:func:`fenrir_backward_batch`) over
+def _fenrir_backward_batch_geometry(n_block, n_lane, q=3, device=None):
+    """The launch of kernel K7b (:func:`fenrir_backward_batch`) at ``q`` over
     ``n_block x n_lane`` columns with aligned operands on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it,
     with the stages of its shared-memory ring and the steps a stage
     holds."""
     return _launch_geometry("fenrir_backward_batch", device, n_block, n_lane,
-                            extra=("stages", "steps_per_stage"))
+                            extra=("stages", "steps_per_stage"), q=q)
 
 
 def _fenrir_backward_batch_tan_geometry(n_block, n_lane, n_tan,
@@ -252,16 +252,16 @@ def _fenrir_backward_single_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
                                   skip_unobserved)[:, 0]
 
 
-def _fenrir_backward_single_geometry(n_block, device=None):
-    """The launch of kernel K7a (:func:`fenrir_backward_single`) over
-    ``n_block`` blocks with aligned operands on the card, as
+def _fenrir_backward_single_geometry(n_block, q=3, device=None):
+    """The launch of kernel K7a (:func:`fenrir_backward_single`) at ``q``
+    over ``n_block`` blocks with aligned operands on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
     (its shared memory dynamic), with the stages of its shared-memory ring,
     the steps a stage holds and the blocks a CTA holds (a consumer thread
     each)."""
     return _launch_geometry("fenrir_backward_single", device, n_block,
                             extra=("stages", "rows_per_stage",
-                                   "blocks_per_cta"))
+                                   "blocks_per_cta"), q=q)
 
 
 def fenrir_backward_single(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
@@ -365,9 +365,9 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
             (their factors where ``kalman_type`` is ``"sqrt"``, squared at
             entry with the prior's; the value does not depend on the form).
         (other args as
-        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`, its
-        four interrogations at q = 3, ``generator`` and ``eps (N, q,
-        n_block, B)`` those of chkrebtii's draws in the key's place)
+        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused_batch`: its
+        models and q, its four interrogations, ``generator`` and ``eps (N,
+        q, n_block, B)`` those of chkrebtii's draws in the key's place)
 
     Returns:
         (Tensor(B,)): Log-likelihood of each lane, float32.
@@ -498,9 +498,9 @@ def fenrir_fused(theta, ode_weight, ode_init, t_min, t_max, n_steps,
         obs_data, obs_times, obs_weight, obs_var: As
             :func:`fenrir_fused_batch`.
         (other args as
-        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused`, its four
-        interrogations at q = 3, ``generator`` and ``eps (N, n_block, q)``
-        those of chkrebtii's draws in the key's place)
+        :func:`rodeo_tpu_torch.ops.fused_kalman.solve_mv_fused`: its models
+        and q, its four interrogations, ``generator`` and ``eps (N,
+        n_block, q)`` those of chkrebtii's draws in the key's place)
 
     Returns:
         (Tensor()): The log-likelihood, float32.

@@ -134,20 +134,28 @@ def _product(models, modes, qs):
 # the same lists (csrc/dispatch.cuh) and return an error for any other;
 # _launch and the geometry queries refuse them first.
 _EK = _product(("Lorenz63", "FitzHughNagumo"), ("kramer", "rodeo"), (3,))
-_EVERY_MODE = _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"),
-                       tuple(_MODES), (3,)) \
-    | _product(("Chkrebtii",), tuple(_MODES), (4, 5))
+
+
+def _every_model(modes):
+    """The first-order models at q = 3 and the second-order Chkrebtii at
+    q = 4 and 5, under ``modes``."""
+    return _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"), modes,
+                    (3,)) | _product(("Chkrebtii",), modes, (4, 5))
+
+
+_EVERY_MODE = _every_model(tuple(_MODES))
 _Q3 = _product((None,), (None,), (3,))
+_Q345 = _product((None,), (None,), (3, 4, 5))
 _MEAN = _product(("Lorenz63", "FitzHughNagumo"), (None,), (3,))
 _INSTANCES = {
     "filter_batch": _EVERY_MODE, "filter_single": _EVERY_MODE,
-    "smoother_batch_rows": _product((None,), (None,), (3, 4, 5)),
-    "smoother_single": _product((None,), (None,), (3, 4, 5)),
-    "filter_batch_tan": _EK, "dalton_filter_batch": _EK,
+    "smoother_batch_rows": _Q345, "smoother_single": _Q345,
+    "filter_batch_tan": _EK,
+    "dalton_filter_batch": _every_model(("kramer", "rodeo")),
     "dalton_filter_batch_tan": _EK, "filter_nn_batch": _EK,
     "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q3,
-    "sampler_batch": _Q3, "fenrir_backward_batch": _Q3,
-    "fenrir_backward_batch_tan": _Q3, "fenrir_backward_single": _Q3,
+    "sampler_batch": _Q345, "fenrir_backward_batch": _Q345,
+    "fenrir_backward_batch_tan": _Q3, "fenrir_backward_single": _Q345,
     "magi_batch": _Q3, "magi_adjoint_batch": _Q3,
     "mean_gain_single": _MEAN, "mean_boundary_single": _MEAN,
     "mean_recovery_single": _MEAN}
@@ -601,7 +609,9 @@ def _check(name, t, shape, device):
 # the kernels whose C entry points take q (after the model's and the mode's
 # numbers)
 _TAKES_Q = frozenset({"filter_batch", "filter_single", "smoother_batch_rows",
-                      "smoother_single"})
+                      "smoother_single", "sampler_batch",
+                      "fenrir_backward_batch", "fenrir_backward_single",
+                      "dalton_filter_batch"})
 
 
 def _instance_args(kernel, q, model, mode, obs):

@@ -14,7 +14,7 @@ part left is the affine recursion :math:`x_n = c_n + G_n x_{n+1}`:
   here in torch;
 - **K6** ``csrc/sampler_batch.cu`` replaces ``_sampler_kernel_batch``: the
   reverse recursion over steps N-1..1, a stream whose loads go through a
-  ring of shared-memory stages filled asynchronously.
+  ring of shared-memory stages filled asynchronously, at q = 3, 4 and 5.
 
 The plain PyTorch twin of K6 is :func:`_sampler_batch_plain`; the wrapper
 :func:`sampler_batch` takes it only for CPU tensors.  ``LAUNCHES`` counts
@@ -81,14 +81,14 @@ def sampler_batch(c, G, xN):
     return xs
 
 
-def _sampler_batch_geometry(n_col, device=None):
-    """The launch of kernel K6 (:func:`sampler_batch`) over ``n_col = n_block
-    x B`` columns on the card, as
-    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it,
-    with the stages of its shared-memory ring and the steps a stage
-    holds."""
+def _sampler_batch_geometry(n_col, q=3, device=None):
+    """The launch of kernel K6 (:func:`sampler_batch`) at ``q`` over ``n_col
+    = n_block x B`` columns on the card, as
+    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
+    (its shared memory dynamic), with the stages of its shared-memory ring
+    and the steps a stage holds."""
     return _launch_geometry("sampler_batch", device, n_col,
-                            extra=("stages", "steps_per_stage"))
+                            extra=("stages", "steps_per_stage"), q=q)
 
 
 # --- the sampler ---------------------------------------------------------------------

@@ -410,8 +410,9 @@ def test_instances_not_held_raise(kernel):
 
 def test_entries_refuse_what_their_kernels_lack():
     """The gradient entries take kramer and rodeo alone, as the JAX
-    package's; the fenrir entries q = 3 alone (K7a, K7b); DALTON the two
-    models of K8; the stationary solve neither the new models nor q = 4."""
+    package's, and neither q = 4 nor the new models (K11a, K11c); DALTON
+    kramer and rodeo alone (K8); the stationary solve neither the new
+    models nor q = 4."""
     _, tcfg, thetas, inits = _lorenz("schober")
     batch = (_t(thetas), tcfg["ode_weight"], _t(inits), 0.0, T_MAX, N_STEPS,
              tcfg["prior_pars"])
@@ -435,9 +436,14 @@ def test_entries_refuse_what_their_kernels_lack():
                  obs_times=torch.tensor([0.0, 5.0, 10.0]),
                  obs_weight=torch.zeros((3, 1, 1, 4)),
                  obs_var=torch.ones((3, 1, 1, 1)))
-    with pytest.raises(NotImplementedError, match="fenrir_backward_batch"):
-        ff.fenrir_fused_batch(torch.zeros((2, 1)), ode_inits=ccfg[
-            "ode_init"].expand(2, 1, 4), **c_obs, **args)
+    c_inits = ccfg["ode_init"].expand(2, 1, 4)
+    with pytest.raises(NotImplementedError, match="the filter_batch_tan"):
+        ff.fenrir_fused_batch_grad(torch.zeros((2, 1)), ode_inits=c_inits,
+                                   **c_obs, **args)
+    with pytest.raises(NotImplementedError,
+                       match="the dalton_filter_batch_tan"):
+        fd.dalton_fused_batch_grad(torch.zeros((2, 1)), ode_inits=c_inits,
+                                   **c_obs, **args)
     with pytest.raises(NotImplementedError, match="mean_"):
         rt.solve_mv_fused_stationary(torch.zeros(1),
                                      ode_init=ccfg["ode_init"], **args)

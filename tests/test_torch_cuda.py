@@ -1666,3 +1666,305 @@ def test_new_modes_launch_their_kernels(cuda_device, mode):
         for a, b in zip(card, cpu):
             assert a.is_cuda and torch.isfinite(a).all(), name
             assert _scaled_err(a, b) <= ENTRY_TOL, name
+
+
+# --- the value path's instances taken last: K6, K7a, K7b and K8 at q = 4, 5
+# and on Hes1, SEIRAH and Chkrebtii's ODE -------------------------------------
+
+def _spills(*parts):
+    """ptxas' (spill stores, spill loads) in bytes of each instantiation
+    whose mangled name holds every one of ``parts``, from the build's log."""
+    import re
+    rows, hit = [], False
+    for line in (fk._build.build_log() or "").splitlines():
+        if "Compiling entry function" in line:
+            hit = all(p in line for p in parts)
+        elif hit and "spill stores" in line:
+            rows.append(tuple(int(v) for v in
+                              re.findall(r"(\d+) bytes spill", line)))
+    return rows
+
+
+@pytest.mark.parametrize("q", [4, 5])
+def test_value_streams_at_q45_are_bitwise_their_twins(cuda_device, q):
+    """K6, K7b and K7a at q = 4 and 5, bitwise against their twins on
+    seeded operands: K6 and K7b over 3 blocks x 37 lanes (the columns end
+    inside a CTA of 32, and 111 columns copy 4 bytes at a time) and 64
+    lanes with every operand 4 bytes past a 16-byte boundary, at 1, 2, the
+    ring and one, and 300 steps, K7b with data at every third step; K7a
+    at 1, 3 and 7 blocks (two CTAs) over 1, 2, 129 and 300 steps, across
+    its 128-step stages.  Their launches as the card reports them: all
+    resident, K6's and K7a's ring in dynamic shared memory sized from q,
+    no spills; the C entries refuse q = 2 and 6."""
+    rng = np.random.default_rng(200 + q)
+    nt = q * (q + 1) // 2
+    geo6 = fs._sampler_batch_geometry(3 * 2048, q, device=cuda_device)
+    geo7 = ff._fenrir_backward_batch_geometry(3, 2048, q, device=cuda_device)
+    for geo in (geo6, geo7):
+        assert (geo["cta_x"], geo["cta_y"]) == (64, 1), geo
+        assert geo["all_resident"] and geo["ctas_at_least_sms"], geo
+    assert geo6["shared_bytes"] == 4 * 32 * geo6["steps_per_stage"] * (
+        geo6["stages"] * (q + q * q) + 2 * q), geo6
+    for n_lane, offset in ((37, 0), (64, 1)):
+        step = geo6["steps_per_stage"]
+        for n_len in (1, 2, geo6["stages"] * step + 1, 300):
+            args = [_put(a, cuda_device, offset) for a in (
+                rng.standard_normal((n_len, q, 3, n_lane)),
+                np.eye(q).reshape(1, q * q, 1, 1) * 0.8
+                + 0.1 * rng.standard_normal((n_len, q * q, 3, n_lane)),
+                rng.standard_normal((q, 3, n_lane)))]
+            _reset_launches()
+            k6 = fs.sampler_batch(*args)
+            assert _launched() == {"sampler_batch": 1}
+            assert torch.equal(k6, fs._sampler_batch_plain(*args)), n_len
+        step = geo7["steps_per_stage"]
+        for n_steps in (1, 2, geo7["stages"] * step + 1, 300):
+            mask = (np.arange(n_steps) % 3 == 0).astype(np.float64)
+            chain = [_put(a, cuda_device, offset) for a in (
+                np.eye(q).reshape(1, q * q, 1, 1) * 0.8
+                + 0.1 * rng.standard_normal((n_steps, q * q, 3, n_lane)),
+                rng.standard_normal((n_steps, q, 3, n_lane)),
+                np.moveaxis(_packed_psd(rng, (n_steps, 3, n_lane), q, 0.3),
+                            -1, 1),
+                rng.standard_normal((n_steps, q, 3)) * mask[:, None, None],
+                rng.standard_normal((n_steps, 3)) * mask[:, None],
+                np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, 3)),
+                         1.0),
+                mask, rng.standard_normal((q, 3, n_lane)),
+                np.moveaxis(_packed_psd(rng, (3, n_lane), q), -1, 0),
+                rng.standard_normal(n_lane))]
+            _reset_launches()
+            k7 = ff.fenrir_backward_batch(*chain)
+            assert _launched() == {"fenrir_backward_batch": 1}
+            p7 = chain[-1] + fd._block_sum(ff._fenrir_backward_plain(
+                *chain[:-1], skip_unobserved=True))
+            assert torch.isfinite(k7).all() and torch.equal(k7, p7), n_steps
+    for n_block in (1, 3, 7):
+        geo = ff._fenrir_backward_single_geometry(n_block, q,
+                                                  device=cuda_device)
+        assert geo["rows_per_stage"] == 128 and geo["all_resident"], geo
+        for n_steps in (1, 2, 129, 300):
+            mask = (np.arange(n_steps) % 3 == 0).astype(np.float64)
+            chain = [_put(a, cuda_device, 0) for a in (
+                np.eye(q).reshape(1, 1, q * q) * 0.8
+                + 0.1 * rng.standard_normal((n_steps, n_block, q * q)),
+                rng.standard_normal((n_steps, n_block, q)),
+                _packed_psd(rng, (n_steps, n_block), q, 0.3),
+                rng.standard_normal((n_steps, q, n_block))
+                * mask[:, None, None],
+                rng.standard_normal((n_steps, n_block)) * mask[:, None],
+                np.where(mask[:, None] > 0,
+                         0.1 + rng.random((n_steps, n_block)), 1.0),
+                mask, rng.standard_normal((n_block, q)),
+                _packed_psd(rng, (n_block,), q), rng.standard_normal(1))]
+            chain[-1] = chain[-1][0]
+            _reset_launches()
+            k7 = ff.fenrir_backward_single(*chain)
+            assert _launched() == {"fenrir_backward_single": 1}
+            p7 = chain[-1] + fd._block_sum(
+                ff._fenrir_backward_single_plain(*chain[:-1]))
+            assert torch.isfinite(k7) and torch.equal(k7, p7), n_steps
+    for sym in ("20sampler_batch_kernel", "22fenrir_backward_kernel",
+                "29fenrir_backward_single_kernel"):
+        rows = _spills(sym, f"ILi{q}E")
+        assert rows and all(r == (0, 0) for r in rows), (sym, rows)
+    lib = fk._build.load()
+    for q_bad in (2, 6):
+        assert lib.rodeo_sampler_batch(q_bad, 4, 4, *([None] * 5)) != 0
+        assert lib.rodeo_fenrir_backward_batch(q_bad, 4, 1, 4,
+                                               *([None] * 11)) != 0
+        assert lib.rodeo_fenrir_backward_single(q_bad, 4, 1,
+                                                *([None] * 11)) != 0
+    qc = fk._host_qconst([[1.0] * 5] * 5)
+    for model, mode, q_k in ((0, 0, 4), (2, 0, 3), (3, 2, 3), (2, 3, 4),
+                             (5, 0, 3)):
+        assert lib.rodeo_dalton_filter_batch(
+            model, mode, q_k, 1, 4, 2, ctypes.addressof(qc),
+            *([None] * 13)) != 0
+
+
+_NEW_K8 = sorted(
+    fk._INSTANCES["dalton_filter_batch"]
+    - {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
+       for md in ("kramer", "rodeo")}, key=lambda k: (k[2], k[0], k[1]))
+
+
+@pytest.mark.parametrize("functor,mode,q", _NEW_K8,
+                         ids=["-".join(map(str, k)) for k in _NEW_K8])
+def test_new_dalton_instances_are_bitwise_their_twins(cuda_device, functor,
+                                                      mode, q):
+    """Each instance of K8 that this slice added, with and without data,
+    bitwise against its twin on 37 lanes (a ragged lane group) of the
+    functor's INSTANCE_CHECKS setup (tools/torch_coverage_reference.py),
+    observed in derivative 0 of every block at 5 times; at 2048 lanes all
+    resident, and ptxas spills nothing in it."""
+    case = cov_ref.instance_case(functor, mode, q, 37, cuda_device, seed=7)
+    cfg, n = case["cfg"], case["n_steps"]
+    thetas = case["batch"]["theta_lanes"].T.contiguous()
+    inits = cfg["ode_init"].expand((37,) + cfg["ode_init"].shape)
+    nb = case["fused"].n_block
+    rng = np.random.default_rng(q)
+    weight = torch.zeros((5, nb, 1, q), device=cuda_device)
+    weight[..., 0] = 1.0
+    x0 = cfg["ode_init"][:, 0]
+    obs = (x0[None, :, None] * (1 + 0.01 * torch.tensor(
+               rng.standard_normal((5, nb, 1)), dtype=torch.float32,
+               device=cuda_device)),
+           torch.linspace(0.0, case["config"]["t_max"], 5,
+                          dtype=torch.float64), weight,
+           torch.full((5, nb, 1, 1), 0.005, device=cuda_device))
+    ops, grid, ld0 = fd._dalton_prepare(thetas, cfg["ode_weight"], inits,
+                                        0.0, case["config"]["t_max"], n,
+                                        cfg["prior_pars"], *obs)
+    for with_obs in (True, False):
+        args = dict(**ops, **grid, mode=mode, with_obs=with_obs,
+                    ld0=ld0 if with_obs else torch.zeros_like(ld0))
+        _reset_launches()
+        k8 = fd.dalton_filter_batch(case["fused"], n, **args)
+        assert _launched() == {"dalton_filter_batch": 1}
+        p8 = fd._dalton_filter_plain(case["fused"], n, **args)
+        assert torch.isfinite(p8).all(), with_obs
+        assert torch.equal(k8, p8), with_obs
+        geo = fd._dalton_filter_batch_geometry(
+            case["fused"], 2048, mode, with_obs, q, device=cuda_device)
+        assert (geo["cta_x"], geo["cta_y"]) == (32, nb), geo
+        assert geo["all_resident"], geo
+        rows = _spills("20dalton_filter_kernel", f"{len(functor)}{functor}E",
+                       f"Li{q}ELi{fk._MODES[mode]}ELb{int(with_obs)}E")
+        assert rows and all(r == (0, 0) for r in rows), rows
+
+
+_VALUE_CASES = [(name, mode) for name in cov_ref.VALUE_FIXTURES
+                for mode in cov_ref.VALUE_MODES]
+
+
+@pytest.mark.parametrize("name,mode", _VALUE_CASES)
+def test_value_entries_at_new_instances_launch_their_kernels(cuda_device,
+                                                             name, mode):
+    """fenrir_fused_batch (K1, K7b), dalton_fused_batch (K8 twice),
+    solve_sim_fused_batch (K1, K6) and fenrir_fused (K3, K7a) on each value
+    fixture's model and q, at its INSTANCE_CHECKS horizon over 5 lanes:
+    their launches, finite, and the same call on the CPU within ENTRY_TOL
+    (DALTON at q = 5, rounding-bound, by its two sums);
+    the square-root form (the prior's and the data's variances as
+    factors) bitwise the standard form's on the squared factors; and on
+    Chkrebtii's ODE fenrir_fused_batch and solve_sim_fused_batch under
+    chkrebtii, given the interrogations' normals."""
+    model, q = cov_ref.FIXTURES[name][:2]
+    functor = fk.resolve_model(model).cuda_functor
+    _, n, t_max, sigma = cov_ref.INSTANCE_CHECKS[functor]
+    rng = np.random.default_rng(q)
+
+    def setup(dev):
+        import importlib
+        mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
+        cfg = mod.setup(n_steps=n, t_max=t_max, prior_sigma=sigma,
+                        dtype=torch.float32, device=dev,
+                        **({"n_deriv": q} if model == "chkrebtii" else {}))
+        theta = cfg.pop("theta")
+        theta = torch.zeros(1, device=dev) if theta is None else theta
+        noise = torch.tensor(np.random.default_rng(3).standard_normal(
+            (5, theta.shape[0])), dtype=torch.float32, device=dev)
+        thetas = theta * (1 + 0.01 * noise)
+        inits = cfg["ode_init"].expand((5,) + cfg["ode_init"].shape)
+        nb = inits.shape[1]
+        weight = torch.zeros((5, nb, 1, q), device=dev)
+        weight[..., 0] = 1.0
+        obs = dict(obs_data=cfg["ode_init"][None, :, 0:1].expand(5, nb, 1)
+                   .contiguous(),
+                   obs_times=torch.linspace(0.0, t_max, 5,
+                                            dtype=torch.float64),
+                   obs_weight=weight,
+                   obs_var=torch.full((5, nb, 1, 1), 0.005, device=dev))
+        return cfg, thetas, inits, obs
+
+    eps = torch.tensor(rng.standard_normal((n - 1, q, 1, 5)),
+                       dtype=torch.float32)
+    eps_term = torch.tensor(rng.standard_normal((q, 1, 5)),
+                            dtype=torch.float32)
+
+    def calls(dev):
+        cfg, thetas, inits, obs = setup(dev)
+        nb = inits.shape[1]
+        lead = (thetas, cfg["ode_weight"], inits, 0.0, t_max, n,
+                cfg["prior_pars"])
+        kw = dict(model=model, interrogation=mode, device=dev)
+        e = eps.expand(n - 1, q, nb, 5).contiguous()
+        et = eps_term.expand(q, nb, 5).contiguous()
+        return {
+            "fenrir_fused_batch": (lambda: ff.fenrir_fused_batch(
+                *lead, **obs, **kw), {"filter_batch": 1,
+                                      "fenrir_backward_batch": 1}),
+            "dalton_fused_batch": (lambda: fd.dalton_fused_batch(
+                *lead, **obs, **kw), {"dalton_filter_batch": 2}),
+            "solve_sim_fused_batch": (lambda: fs.solve_sim_fused_batch(
+                *lead, **kw, eps=e, eps_term=et), {"filter_batch": 1,
+                                                   "sampler_batch": 1}),
+            "fenrir_fused": (lambda: ff.fenrir_fused(
+                thetas[0], cfg["ode_weight"], inits[0], 0.0, t_max, n,
+                cfg["prior_pars"], **obs, **kw), {"filter_single": 1,
+                                                  "fenrir_backward_single": 1})}
+
+    def dalton_sums(dev):
+        """DALTON's two K8 sums, with data and without."""
+        cfg, thetas, inits, obs = setup(dev)
+        ops, grid, ld0 = fd._dalton_prepare(
+            thetas, cfg["ode_weight"], inits, 0.0, t_max, n,
+            cfg["prior_pars"], *obs.values())
+        return [fd.dalton_filter_batch(
+            model, n, **ops, **grid, ld0=ld0 if w else torch.zeros_like(ld0),
+            mode=mode, with_obs=w) for w in (True, False)]
+
+    card, cpu = calls(cuda_device), calls("cpu")
+    for entry, (call, launched) in card.items():
+        _reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        assert _launched() == launched, entry
+        assert out.is_cuda and torch.isfinite(out).all(), entry
+        _reset_launches()
+        ref = cpu[entry][0]()
+        assert not _launched(), entry
+        if entry == "dalton_fused_batch" and q == 5:
+            # the difference of two sums of ~9e5 whose float32 spacing
+            # (0.0625) the card's and the CPU's roundings move it by several
+            # times: each sum within ENTRY_TOL, and so the difference
+            sums = [(a, b) for a, b in zip(dalton_sums(cuda_device),
+                                           dalton_sums("cpu"))]
+            for a, b in sums:
+                assert _scaled_err(a, b) <= ENTRY_TOL, entry
+            scale = max(b.abs().max().item() for _, b in sums)
+            assert (out.cpu() - ref).abs().max().item() <= \
+                2 * ENTRY_TOL * scale, entry
+            continue
+        assert _scaled_err(out, ref) <= ENTRY_TOL, entry
+    # the square-root form on the squared factors
+    cfg, thetas, inits, obs = setup(cuda_device)
+    w, v = cfg["prior_pars"]
+    factor = torch.linalg.cholesky(v.double()).float()
+    squared = (w, fk._gram(factor))
+    lead = (thetas, cfg["ode_weight"], inits, 0.0, t_max, n)
+    sq_obs = {**obs, "obs_var": obs["obs_var"].sqrt()}
+    std_obs = {**obs, "obs_var": fk._gram(sq_obs["obs_var"])}
+    for fn in (ff.fenrir_fused_batch, fd.dalton_fused_batch):
+        a = fn(*lead, (w, factor), **sq_obs, model=model,
+               interrogation=mode, kalman_type="sqrt", device=cuda_device)
+        b = fn(*lead, squared, **std_obs, model=model, interrogation=mode,
+               device=cuda_device)
+        assert torch.equal(a, b), fn.__name__
+    if model == "chkrebtii" and mode == "kramer":
+        g = torch.Generator(cuda_device).manual_seed(5)
+        e_int = torch.randn((n, q, 1, 5), generator=g, device=cuda_device)
+        _reset_launches()
+        ll = ff.fenrir_fused_batch(*lead, cfg["prior_pars"], **obs,
+                                   model=model, interrogation="chkrebtii",
+                                   device=cuda_device, eps=e_int)
+        path = fs.solve_sim_fused_batch(
+            *lead, cfg["prior_pars"], model=model, interrogation="chkrebtii",
+            device=cuda_device, eps_int=e_int,
+            eps=eps.expand(n - 1, q, 1, 5).to(cuda_device),
+            eps_term=eps_term.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _launched() == {"filter_batch": 2, "fenrir_backward_batch": 1,
+                               "sampler_batch": 1}
+        assert torch.isfinite(ll).all() and torch.isfinite(path).all()

@@ -343,8 +343,7 @@ def test_fenrir_backward_single_twin_matches_pallas():
 def test_single_entries_raise_for_unported(entry, override):
     """An interrogation no filter takes, a model without a CUDA functor,
     and a q that the entry's kernels do not hold: Chkrebtii's ODE at q = 6
-    (K3 holds it at q = 4 and 5), and in fenrir_fused at q = 4 (K7a holds
-    q = 3 alone)."""
+    (K3 and K7a hold it at q = 4 and 5)."""
     cfg = tlorenz.setup(n_steps=8, t_max=0.1, device="cpu")
     args = dict(theta=cfg["theta"], ode_weight=cfg["ode_weight"],
                 ode_init=cfg["ode_init"], t_min=0.0, t_max=0.1, n_steps=8,
@@ -353,7 +352,7 @@ def test_single_entries_raise_for_unported(entry, override):
         args.update({k: torch.from_numpy(np.asarray(v)) for k, v in
                      _fenrir_obs("lorenz", 0.1, 3, seed=0).items()})
     if override == "q":
-        q = 4 if entry == "fenrir_fused" else 6
+        q = 6
         ccfg = tchkrebtii.setup(n_steps=8, t_max=0.1, device="cpu",
                                 n_deriv=q)
         override = dict(theta=torch.zeros(1), ode_weight=ccfg["ode_weight"],

@@ -4,7 +4,8 @@ The pointwise audits of chip_smoke.py's coverage phase: the fused solves of
 the configurations that the kernels K1, K3, K2r and K4 took last (the
 Chkrebtii ODE at q = 4 and 5, Hes1, SEIRAH, schober), held to the port's
 float64 torch-op solve (ops.precond.solve_mv), and their float32 errors on
-the CPU, which set the audits' tolerances.
+the CPU, which set the audits' tolerances; and the likelihood audits of its
+coverage_value phase, where K6, K7a, K7b and K8 took the same models.
 
     python3 tools/torch_coverage_reference.py [--device cpu] [--out FILE]
 
@@ -23,13 +24,31 @@ It also holds the bitwise checks of those instances at small shapes, which
 tests/test_torch_cuda.py and chip_smoke.py share: INSTANCE_CHECKS,
 new_filter_instances, instance_case and filter_instance_outputs.
 
+The value fixtures (VALUE_FIXTURES) observe the first four of those solves
+in derivative 0 of every block at steps on the grid, with data from the
+float64 torch-op solve plus noise (value_lanes, value_obs): fenrir through
+``fenrir_fused_batch`` (K1, K7b) and ``fenrir_fused`` (K3, K7a), DALTON
+through ``dalton_fused_batch`` (K8), under kramer and rodeo.
+
 Prints one JSON line: for each fixture, the largest error of the float32
 solve's x (the mean's 0th derivative, every step and block) against the
 float64 torch-op solve, the solve run by ``solve_mv_fused`` on ``--device``
 (the CPU: the kernels' plain twins).  chip_smoke.py holds the card's fused
 solves to the float64 torch-op on the card within max(3 x these CPU errors,
 1e-3), bench.py's rule for FitzHugh-Nagumo (``bench.py:1948-1956``), and
-keeps the errors as ``COVERAGE_F32_CPU_ERR``.
+keeps the errors as ``COVERAGE_F32_CPU_ERR``.  Under "value", for each
+value fixture and mode, the absolute error of lane 0's float32 fenrir
+(batched and single) and DALTON values on ``--device`` against the float64
+torch-ops ``ops.precond.fenrir`` and ``dalton`` at lane 0's parameters;
+chip_smoke.py holds the card's to the float64 torch-ops on the card within
+the likelihood rule, max(3 x these errors, 1e-4 x |the float64 value|),
+and keeps them as ``VALUE_F32_CPU_ERR``.  Under "lanes", for each value
+fixture and mode at chip_smoke.py's 2048 lanes: the draws
+at the setup's parameters against their posterior by the sim rule, in
+float32 and by the twins in float64 on the same normals (the witness where
+float32 does not resolve the draws), and the lanes on which float32 DALTON
+is not finite (``VALUE_NAN_LANES``; Hes1's lanes 1 % apart,
+``VALUE_WIDE_LANES``).
 """
 import argparse
 import json
@@ -192,6 +211,291 @@ def max_err_x(mu32, mu64):
     return float((mu32[:, :, 0].double() - mu64[:, :, 0]).abs().max())
 
 
+# The value fixtures of chip_smoke.py's coverage_value phase: FIXTURES' solve
+# of the same name, observed in derivative 0 of every block at every
+# every-th step (17 times on Chkrebtii's ODE, 21 on Hes1 and SEIRAH) with
+# variance VALUE_OBS_VAR; name -> every.
+VALUE_FIXTURES = {"chkrebtii_q4": 64, "chkrebtii_q5": 64, "hes1": 6,
+                  "seirah": 4}
+VALUE_OBS_VAR = 0.005
+VALUE_MODES = ("kramer", "rodeo")
+# The lanes' relative spread about the setup (value_lanes): 1 % of theta
+# for SEIRAH, as chip_smoke.py's seeded_thetas; 0.1 % of x0 for
+# Chkrebtii's ODE and of theta for Hes1, whose EK1 likelihoods at 1 %
+# (VALUE_WIDE_LANES) float32 does not resolve: on the CPU a one-ulp move of
+# one theta moves lane 0's fenrir by up to 0.16 and its DALTON by up to
+# 0.34, where the float64 values move by 3e-4 and 5e-3, and DALTON is NaN
+# on some lanes.
+VALUE_LANE_SCALE = {"chkrebtii_q4": 1e-3, "chkrebtii_q5": 1e-3,
+                    "hes1": 1e-3, "seirah": 1e-2}
+# The fixtures whose DALTON chip_smoke.py also runs on lanes this far
+# apart, and the lanes on which it is not finite there in float32, by
+# fixture and mode, as the twins count them on the CPU at 2048 lanes
+# (lane_readings): Hes1's EK1 DALTON, whose sum with data turns NaN on 441
+# (the JAX package's fused path too).  Every other mode is finite there.
+VALUE_WIDE_LANES = {"hes1": 1e-2}
+VALUE_NAN_LANES = {("hes1", "kramer"): 441}
+
+
+def value_lanes(name, n_lane, device, seed, scale=None):
+    """``n_lane`` float32 lanes of value fixture ``name`` on ``device``:
+    ``(thetas (B, n_theta), inits (B, n_block, q))``.  Chkrebtii's ODE has
+    no parameter: its lanes' initial values are the setup's x (1 + s x
+    normals); the other models' lanes take the setup's initial value and
+    its theta x (1 + s x normals), s ``scale`` (the fixture's
+    VALUE_LANE_SCALE unless given) and the normals from numpy seed
+    ``seed``."""
+    import numpy as np
+    cfg, theta = fixture_config(name, torch.float32, device)
+    rng = np.random.default_rng(seed)
+    s = VALUE_LANE_SCALE[name] if scale is None else scale
+    x0 = cfg["ode_init"]
+    if FIXTURES[name][0] == "chkrebtii":
+        noise = torch.tensor(rng.standard_normal((n_lane,) + x0.shape),
+                             dtype=torch.float32, device=device)
+        return (theta.expand(n_lane, theta.shape[0]).contiguous(),
+                x0 * (1 + s * noise))
+    noise = torch.tensor(rng.standard_normal((n_lane, theta.shape[0])),
+                         dtype=torch.float32, device=device)
+    return (theta * (1 + s * noise),
+            x0.expand((n_lane,) + x0.shape).contiguous())
+
+
+def value_obs(name, mu64, dtype, device, seed):
+    """The observations of value fixture ``name`` in ``dtype`` on
+    ``device`` (their times on the CPU, float64): derivative 0 of every
+    block at every VALUE_FIXTURES[name]-th step, variance VALUE_OBS_VAR,
+    the data ``mu64`` (the float64 torch-op solve's mean, float64_solve)
+    there plus normals of that variance from numpy seed ``seed``."""
+    import numpy as np
+    _, q, n_steps, t_max, _ = FIXTURES[name]
+    idx = np.arange(0, n_steps + 1, VALUE_FIXTURES[name])
+    nb = mu64.shape[1]
+    weight = torch.zeros((len(idx), nb, 1, q), dtype=dtype, device=device)
+    weight[..., 0] = 1.0
+    noise = np.random.default_rng(seed).standard_normal((len(idx), nb, 1))
+    data = mu64[torch.from_numpy(idx).to(mu64.device), :, 0:1].to(
+        "cpu", torch.float64) + torch.from_numpy(noise) * VALUE_OBS_VAR ** 0.5
+    return dict(obs_data=data.to(device, dtype),
+                obs_times=torch.from_numpy(np.linspace(0.0, t_max,
+                                                       n_steps + 1)[idx]),
+                obs_weight=weight,
+                obs_var=torch.full((len(idx), nb, 1, 1), VALUE_OBS_VAR,
+                                   dtype=dtype, device=device))
+
+
+def value_float64(name, mode, theta, init, obs, device):
+    """The float64 torch-ops ``ops.precond.fenrir`` and ``dalton`` of value
+    fixture ``name`` under ``mode`` at one lane's ``theta`` and ``init`` on
+    ``device``: ``{"fenrir": value, "dalton": value}``."""
+    from rodeo_tpu_torch import interrogate
+    from rodeo_tpu_torch.ops import precond
+    cfg, _ = fixture_config(name, torch.float64, device)
+    cfg["ode_init"] = init.to(device, torch.float64)
+    params = {} if FIXTURES[name][0] == "chkrebtii" else {
+        "theta": theta.to(device, torch.float64)}
+    obs64 = {k: v.to(torch.float64) if k == "obs_times" else v.to(
+        device, torch.float64) for k, v in obs.items()}
+    how = getattr(interrogate, f"interrogate_{mode}")
+    return {fn: float(getattr(precond, fn)(key=None, interrogate=how,
+                                            **cfg, **obs64, **params))
+            for fn in ("fenrir", "dalton")}
+
+
+def value_float32_calls(name, mode, thetas, inits, obs, device):
+    """The float32 fused likelihoods of value fixture ``name`` under
+    ``mode`` over the lanes ``thetas``, ``inits`` on ``device``:
+    ``{"fenrir_batch": fenrir_fused_batch (K1, K7b), "dalton_batch":
+    dalton_fused_batch (K8), "fenrir_single": fenrir_fused on lane 0 (K3,
+    K7a)}``, each a call returning its values."""
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_fenrir as ff
+    model = FIXTURES[name][0]
+    cfg, _ = fixture_config(name, torch.float32, device)
+    args = dict(t_min=cfg["t_min"], t_max=cfg["t_max"],
+                n_steps=cfg["n_steps"], prior_pars=cfg["prior_pars"],
+                model=model, interrogation=mode, device=device, **obs)
+    return {"fenrir_batch": lambda: ff.fenrir_fused_batch(
+                thetas, cfg["ode_weight"], inits, **args),
+            "dalton_batch": lambda: fd.dalton_fused_batch(
+                thetas, cfg["ode_weight"], inits, **args),
+            "fenrir_single": lambda: ff.fenrir_fused(
+                thetas[0], cfg["ode_weight"], inits[0], **args)}
+
+
+def value_errors(device, n_lane=4, seed=28):
+    """For each value fixture and mode, the absolute error of lane 0's
+    float32 likelihoods (value_float32_calls) against the float64 torch-ops
+    (value_float64) on ``device``, and those values."""
+    out = {}
+    for name in VALUE_FIXTURES:
+        obs = value_obs(name, float64_solve(name, device), torch.float32,
+                        device, seed + 1)
+        thetas, inits = value_lanes(name, n_lane, device, seed)
+        for mode in VALUE_MODES:
+            ref = value_float64(name, mode, thetas[0], inits[0], obs, device)
+            row = {"float64": ref}
+            for call, fn in value_float32_calls(name, mode, thetas, inits,
+                                                obs, device).items():
+                lane0 = float(fn().reshape(-1)[0])
+                row[call] = abs(lane0 - ref[call.split("_")[0]])
+            out[f"{name}/{mode}"] = row
+    return out
+
+
+def draw_stats(draws, post_mean, post_var, var_min, sd_rel=0.0):
+    """chip_smoke.py's sim rule on draws ``(N+1, nb, q, B)`` against a
+    posterior ``(N+1, nb, q)`` (row 0, the initial value, left out), on the
+    entries whose posterior variance exceeds ``var_min`` and whose standard
+    deviation exceeds ``sd_rel`` of the mean's magnitude: the largest z of
+    the lane mean (its distance from the posterior mean over the standard
+    error, the posterior variance / B) and the range of the lane variance
+    over the posterior's."""
+    d = draws[1:].double()
+    pm, pv = post_mean[1:].double(), post_var[1:].double()
+    keep = (pv > var_min) & (pv.sqrt() > sd_rel * pm.abs())
+    if not keep.any():
+        return {"entries_checked": 0, "entries": int(keep.numel())}
+    z = ((d.mean(-1) - pm).abs() / (pv / d.shape[-1]).sqrt())[keep]
+    ratio = (d.var(-1) / pv)[keep]
+    return {"entries_checked": int(keep.sum()),
+            "entries": int(keep.numel()), "max_z": z.max().item(),
+            "var_ratio": (ratio.min().item(), ratio.max().item())}
+
+
+def draw_normals(name, n_lane, generator, device):
+    """The standard normals of one ``solve_sim_fused_batch`` of value
+    fixture ``name`` over ``n_lane`` lanes, drawn from ``generator`` as the
+    entry draws them: ``(eps (N-1, q, n_block, B), eps_term (q, n_block,
+    B))``."""
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+    model, q, n_steps, _, _ = FIXTURES[name]
+    shape = (q, fk.resolve_model(model).n_block, n_lane)
+    normal = dict(generator=generator, dtype=torch.float32, device=device)
+    eps = torch.randn((n_steps - 1,) + shape, **normal)
+    return eps, torch.randn(shape, **normal)
+
+
+def float64_draws(name, mode, n_lane, eps, eps_term, device):
+    """The draws of value fixture ``name`` under ``mode`` at the setup's
+    parameters on ``n_lane`` lanes, given their normals, by the port's
+    plain twins in float64 on the float32 operands of
+    ``solve_sim_fused_batch`` (K1's twin, the draw's noise as
+    ``fused_sim._draw_operands`` forms it, K6's twin), and the posterior of
+    lane 0 by K1's and K2r's twins: ``(draws (N+1, n_block, q, B), mean
+    (N+1, n_block, q), variance (N+1, n_block, q))``, float64 on
+    ``device``.  The kernels are bitwise the float32 twins; this is the
+    same arithmetic without float32's rounding, the witness of the draws'
+    distribution where float32 does not resolve it."""
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+    from rodeo_tpu_torch.ops import fused_sim as fs
+    model, q, n_steps, t_max, _ = FIXTURES[name]
+    cfg, theta = fixture_config(name, torch.float32, device)
+    fused = fk.resolve_model(model)
+    inits = cfg["ode_init"].expand((n_lane,) + cfg["ode_init"].shape)
+    ops = fk._kernel_operands(theta.expand(n_lane, theta.shape[0]),
+                              cfg["ode_weight"], inits, 0.0, t_max, n_steps,
+                              cfg["prior_pars"])
+    ops = {k: v.double() if isinstance(v, torch.Tensor) else v
+           for k, v in ops.items()}
+    A, b, C, m_last, p_last = fk._filter_batch_plain(fused, n_steps, **ops,
+                                                     mode=mode)
+    pairs, where = fk._tri_idx(q)
+    Lc = fk._chol_cols(q, [C[1:, k] for k in range(len(pairs))], where)
+    eta = fk._chol_matvec(q, Lc, [eps.double()[:, j] for j in range(q)])
+    c = torch.stack([b[1:, i] + eta[i] for i in range(q)], dim=1)
+    LN = fk._chol_cols(q, list(p_last), where)
+    etaN = fk._chol_matvec(q, LN, list(eps_term.double()))
+    xN = torch.stack([m_last[j] + etaN[j] for j in range(q)])
+    xs = fs._sampler_batch_plain(c, A[1:], xN)
+    t_vec = ops["t_vec"]
+    draws = torch.cat([ops["x0_lanes"].permute(1, 0, 2)[None],
+                       xs.permute(0, 2, 1, 3), xN.permute(1, 0, 2)[None]])
+    draws *= t_vec[:, None]
+    lane0 = [a[..., :1] for a in (b[1:], A[1:], C[1:], m_last, p_last,
+                                  ops["x0_lanes"])]
+    mean, var = fk._smoother_batch_rows_plain(*lane0, t_vec,
+                                              fk._tri_scale(t_vec))
+    diag = [where[(j, j)] for j in range(q)]
+    return draws, mean[..., 0], var[:, :, diag, 0]
+
+
+def lane_readings(device, var_min, sd_rel, n_lane=2048, seed=30):
+    """For each value fixture and mode at chip_smoke.py's ``n_lane``
+    lanes on ``device``: the float32 draws of ``solve_sim_fused_batch`` at
+    the setup's parameters against its posterior (``solve_mv_fused_batch``)
+    by draw_stats, with ``sd_rel`` and without (``float32``,
+    ``float32_all``), the float64 twins' draws on the same normals against
+    their posterior without it (``float64``), and the lanes on which its
+    float32 DALTON (``dalton_fused_batch`` on value_lanes, as far apart as
+    VALUE_WIDE_LANES where it names the fixture) is not finite."""
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+    from rodeo_tpu_torch.ops import fused_sim as fs
+    out = {}
+    for name in VALUE_FIXTURES:
+        model, q, n_steps, t_max, _ = FIXTURES[name]
+        cfg, theta = fixture_config(name, torch.float32, device)
+        obs = value_obs(name, float64_solve(name, device), torch.float32,
+                        device, 29)
+        thetas, inits = value_lanes(name, n_lane, device, 28,
+                                    VALUE_WIDE_LANES.get(name))
+        base = (theta.expand(n_lane, theta.shape[0]), cfg["ode_weight"],
+                cfg["ode_init"].expand((n_lane,) + cfg["ode_init"].shape),
+                0.0, t_max, n_steps, cfg["prior_pars"])
+        _, where = fk._tri_idx(q)
+        diag = [where[(j, j)] for j in range(q)]
+        for mode in VALUE_MODES:
+            gen = torch.Generator(device).manual_seed(seed)
+            eps, eps_term = draw_normals(name, n_lane, gen, device)
+            kw = dict(model=model, interrogation=mode, device=device)
+            draws = fs.solve_sim_fused_batch(*base, **kw, eps=eps,
+                                             eps_term=eps_term)
+            mean, var = fk.solve_mv_fused_batch(
+                *[a[:1] if i in (0, 2) else a for i, a in enumerate(base)],
+                **kw)
+            post = (mean[..., 0], var[:, :, diag, 0])
+            d64 = float64_draws(name, mode, n_lane, eps, eps_term, device)
+            ld = fd.dalton_fused_batch(thetas, cfg["ode_weight"], inits, 0.0,
+                                       t_max, n_steps, cfg["prior_pars"],
+                                       **obs, **kw)
+            out[f"{name}/{mode}"] = {
+                "float32": draw_stats(draws, *post, var_min, sd_rel),
+                "float32_all": draw_stats(draws, *post, var_min),
+                "float64": draw_stats(*d64, var_min),
+                "dalton_nonfinite_lanes": int((~torch.isfinite(ld)).sum())}
+            if name in VALUE_WIDE_LANES:
+                out[f"{name}/{mode}"]["lane0_ulp_moves"] = ulp_moves(
+                    name, mode, thetas[:4], inits[:4], obs, device)
+    return out
+
+
+def ulp_moves(name, mode, thetas, inits, obs, device):
+    """The largest move of lane 0's float32 likelihoods
+    (value_float32_calls) and of the float64 torch-ops' (value_float64)
+    when one entry of lane 0's theta moves by one float32 ulp, up or down:
+    how far float32 resolves them there."""
+    import numpy as np
+
+    def values(ths):
+        v32 = {c: float(f().reshape(-1)[0]) for c, f in value_float32_calls(
+            name, mode, ths, inits, obs, device).items()}
+        return v32, value_float64(name, mode, ths[0], inits[0], obs, device)
+
+    base32, base64 = values(thetas)
+    moves = {k: 0.0 for k in (*base32, *base64)}
+    for k in range(thetas.shape[1]):
+        for way in (np.inf, -np.inf):
+            moved = thetas.clone()
+            moved[0, k] = float(np.nextafter(np.float32(thetas[0, k].item()),
+                                             np.float32(way)))
+            v32, v64 = values(moved)
+            for c, v in [*v32.items(), *v64.items()]:
+                ref = base32[c] if c in base32 else base64[c]
+                moves[c] = max(moves[c], abs(v - ref))
+    return moves
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cpu")
@@ -203,6 +507,9 @@ def main():
     for name in FIXTURES:
         out[name] = max_err_x(float32_call(name, args.device)(),
                               float64_solve(name, args.device))
+    out["value"] = value_errors(args.device)
+    # chip_smoke.py's SIM_VAR_MIN and SIM_SD_REL
+    out["lanes"] = lane_readings(args.device, 1e-8, 1e-4)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)
