@@ -265,10 +265,29 @@ bitwise.  The phases:
              the float64 twins' on the same normals against theirs
              (SIM_F64_WITNESS); each new instance of K8, and of K7b, K7a
              and K6 once a q, alone at these shapes against its twin over
-             PATH_TWIN_STEPS steps, bitwise,
+             COVERAGE_VALUE_TWIN_STEPS steps, bitwise,
              with its launch, ptxas' report (no spills) and bound; a
              512-chain x 20-step random walk on Chkrebtii's ODE at q = 4;
              the phase within COVERAGE_VALUE_PHASE_S;
+27. coverage_grad  the instances K11a, K11b and K11e took last, through
+             the public gradient entries at 2048 lanes on tools/
+             torch_coverage_reference.py's gradient fixtures (the value
+             fixtures, and FitzHugh-Nagumo at q = 4 and 5 on bench.py's
+             200-step gradient fixture), each under kramer and rodeo:
+             fenrir_fused_batch_grad (K11a, K11b), basic_fused_batch_grad
+             and solve_mv_fused_batch_grad (K11a, K11e), launches exact,
+             finite, the values bitwise the value calls' (K1 + K7b, K1 +
+             K2r), lane 0's fenrir and basic values and gradients against
+             the float64 torch-ops with torch.autograd on the card by
+             bench.py's rules (GRAD_F32_CPU_ERR), each call's time beside
+             its value call's; each new instance of K11a (and of K1 on
+             FitzHugh-Nagumo at q = 4 and 5), and of K11e and K11b once a
+             (q, directions), alone at these shapes against its twin over
+             COVERAGE_GRAD_TWIN_STEPS steps, bitwise, K11a's values K1's,
+             with its launch, ptxas' report (no spills) and bound; MALA over
+             fenrir on Hes1, 128 lanes x 20 steps (launches, finite, the
+             carried log-density bitwise a fresh value call, chain steps/s,
+             acceptance); the phase within COVERAGE_GRAD_PHASE_S;
 
 Then one line {"phase": "seconds", "phases": {...}, "total": ...} with
 each phase's seconds and the script's, one line {"kernels": [...]} with
@@ -514,10 +533,104 @@ SIM_F64_STAT_LORENZ = (0.73, 1.27)
 # of any ring's stage (4, 8, 24, 64, 128 or 256 steps), so a cut ends on a
 # ragged stage as a path may, and every ring wraps; K5b and K5c, which take
 # whole groups of 64 steps, keep the 512 steps of 8.  At 1001 the twins
-# took 65.4 s of the script; 513 keeps those of coverage_value, whose
-# Chkrebtii paths have 1024 steps and whose K8 twin makes 657 ATen calls a
-# step at q = 5, within that phase's COVERAGE_VALUE_PHASE_S.
+# took 65.4 s of the script.  The phases of the instances added last take
+# fewer (COVERAGE_VALUE_TWIN_STEPS, COVERAGE_GRAD_TWIN_STEPS).
 PATH_TWIN_STEPS = 513
+# The coverage_value phase holds its kernels to their twins over the first
+# (or last) COVERAGE_VALUE_TWIN_STEPS steps of its paths: over 513 the phase
+# took 53.2-66.1 s of its COVERAGE_VALUE_PHASE_S on NVIDIA H100 80GB HBM3
+# cards at 700 W, as the host's speed went (Chkrebtii's ODE's K8 twin makes
+# 657 ATen calls a step at q = 5; its fixtures took 56.7 s of the 66.1).
+# 257 is no multiple of any ring's stage either, and every ring wraps:
+# K7a's two stages of 128 steps at q = 4 and 5 too.
+COVERAGE_VALUE_TWIN_STEPS = 257
+# The coverage_grad phase (the gradient path of K11a, K11b and K11e at the
+# instances they took last) stays within COVERAGE_GRAD_PHASE_S seconds.
+# Lane 0's fenrir and basic values and gradients are held to the float64
+# torch-ops on the card (ops.precond.fenrir and basic with torch.autograd,
+# at lane 0's float32 parameters) by bench.py's rules: the value within
+# max(3 x the float32 twins' error on the CPU, LL_REL_FLOOR x |truth|),
+# the gradient's relative L2 error within max(3 x its CPU error,
+# GRAD_FLOOR) where that CPU error is at most GRAD_CONTROL_MAX, else
+# recorded as unusable in float32; the CPU errors are those that
+# tools/torch_coverage_reference.py prints (its "grad").  The truth is taken
+# at lane 0's own float32 parameters, so the move of the exact gradient
+# under float32 rounding of theta (GRAD_THETA_ROUNDING) is nil there.
+COVERAGE_GRAD_PHASE_S = 90.0
+# Its kernels are held to their twins over the first (a forward filter's)
+# or last (a reverse recursion's) COVERAGE_GRAD_TWIN_STEPS steps of their
+# paths at 2048 lanes.  The tangent twins' Python loops take 17-68 ms a
+# step on the card (K11a's on FitzHugh-Nagumo at q = 5: 68 ms, on
+# Chkrebtii's ODE at q = 5: 59 ms; ATen calls, whatever the lanes), so over
+# PATH_TWIN_STEPS they took 180 s of the phase's 209 s on an NVIDIA H100
+# 80GB HBM3 at 700 W, over 65 steps 38 s of 67.9-81.4 s, as the host's
+# speed went.  33 is no multiple of K11b's ring (3 stages of 2 steps) nor
+# of K11e's unroll (4, 2): each cut ends ragged and the ring wraps.
+COVERAGE_GRAD_TWIN_STEPS = 33
+GRAD_F32_CPU_ERR = {
+    "chkrebtii_q4/kramer": {
+        "fenrir": {"value": 0.00012321892352318287,
+                   "grad": 0.0},
+        "basic": {"value": 0.00012505028006959407,
+                  "grad": 0.0}},
+    "chkrebtii_q4/rodeo": {
+        "fenrir": {"value": 1.6796901732618608e-05,
+                   "grad": 0.0},
+        "basic": {"value": 6.265545325767619e-05,
+                  "grad": 0.0}},
+    "chkrebtii_q5/kramer": {
+        "fenrir": {"value": 0.00030747422161425675,
+                   "grad": 0.0},
+        "basic": {"value": 0.00030754987958836466,
+                  "grad": 0.0}},
+    "chkrebtii_q5/rodeo": {
+        "fenrir": {"value": 2.1386948990453902e-05,
+                   "grad": 0.0},
+        "basic": {"value": 1.1598800250922636e-05,
+                  "grad": 0.0}},
+    "hes1/kramer": {
+        "fenrir": {"value": 0.0027485421820898637,
+                   "grad": 0.013795188013278508},
+        "basic": {"value": 0.0003659344966777667,
+                  "grad": 0.006850327337272887}},
+    "hes1/rodeo": {
+        "fenrir": {"value": 7.045598295007949e-06,
+                   "grad": 1.2277533630862706e-05},
+        "basic": {"value": 6.309310670360446e-05,
+                  "grad": 8.397618105735186e-05}},
+    "seirah/kramer": {
+        "fenrir": {"value": 7577899722.8125,
+                   "grad": 7.130024152477184e-06},
+        "basic": {"value": 12745448892.0,
+                  "grad": 1.0570678830494094e-05}},
+    "seirah/rodeo": {
+        "fenrir": {"value": 41235283.96972656,
+                   "grad": 6.429328588431707e-07},
+        "basic": {"value": 40548681739.375,
+                  "grad": 2.3565836834115924e-05}},
+    "fitz_grad_q4/kramer": {
+        "fenrir": {"value": 6.7625833537476865e-06,
+                   "grad": 5.679384211282232e-06},
+        "basic": {"value": 4.233498543726455e-06,
+                  "grad": 5.900691584555457e-06}},
+    "fitz_grad_q4/rodeo": {
+        "fenrir": {"value": 6.0791217926237096e-05,
+                   "grad": 2.9790090732559288e-05},
+        "basic": {"value": 6.91343101664188e-05,
+                  "grad": 3.29323659138876e-05}},
+    "fitz_grad_q5/kramer": {
+        "fenrir": {"value": 1.7019152913633206e-05,
+                   "grad": 3.2781620612611706e-05},
+        "basic": {"value": 1.639740579051363e-05,
+                  "grad": 3.269724910351067e-05}},
+    "fitz_grad_q5/rodeo": {
+        "fenrir": {"value": 0.0013824775646789078,
+                   "grad": 5.680806195096802e-05},
+        "basic": {"value": 0.0013868248236796887,
+                  "grad": 5.600059019639166e-05}}}
+# MALA over fenrir on Hes1 (kramer, its Jacobian on nested Duals): 128
+# lanes x 20 steps from value_lanes' thetas at this step size
+GRAD_MALA_STEP = 1e-4
 # the operands of K8 and K11c that hold a row a step, and those of K9 and
 # K11d
 GRID_KEYS = ("tgrid", "d", "y", "om", "mask")
@@ -547,6 +660,13 @@ TAN_KERNELS = ("filter_batch_tan", "fenrir_backward_batch_tan",
                "dalton_filter_batch_tan/with_obs",
                "dalton_filter_batch_tan/without_obs",
                "smoother_mean_batch_tan")
+# The tangent kernels whose grid grows with the directions, K11a (a grid
+# row per direction) and K11b (a consumer warp per direction), and whose
+# CTAs never wait for each other: at the models of many parameters they
+# run in waves (K11a on SEIRAH's 6 x 2048 x 6 threads, K11b at 8 warps),
+# so split_record records their residency where it holds every other
+# kernel's CTAs to one wave.
+WAVE_KERNELS = frozenset({"filter_batch_tan", "fenrir_backward_batch_tan"})
 # The kernels that run one thread per (lane, block), K1, K8 and K9, per
 # block of one solve, K3 and K5b, per (group, block), K5c, or per (lane,
 # direction, block), K11a, K11c and K11d, bitwise against their twins, and
@@ -910,11 +1030,12 @@ def main():
                        names, count_ops, n_work, inputs, split=None,
                        out_bytes=None, repeats=5, register=True, config="",
                        source=None, n_ops=None, key=None, step_outputs=(),
-                       **extra):
+                       twin_steps=PATH_TWIN_STEPS, **extra):
         """A kernel alone at its path's shapes: its median time on the
         device (device_ms) and that of its wrapper's call (cuda_ms) on the
         whole path, the kernel's call of cut(n_path); then, on n =
-        min(PATH_TWIN_STEPS, n_path) steps (or rows) of the path, cut(n)
+        min(twin_steps, n_path) steps (or rows) of the path (twin_steps
+        PATH_TWIN_STEPS unless given), cut(n)
         gives the kernel's call and its twin's on the same cut CUDA
         operands, whose outputs are compared (twin_errors, checked against
         TWIN_TOL, and bitwise), with the twin's time over those steps
@@ -933,8 +1054,7 @@ def main():
         ms = device_ms(launch, repeats)
         call_ms = cuda_ms(launch, repeats)
         out = as_tuple(launch())
-        kernel_cut, twin_cut, n_cut, from_end = cut(
-            min(PATH_TWIN_STEPS, n_path))
+        kernel_cut, twin_cut, n_cut, from_end = cut(min(twin_steps, n_path))
         out_cut = as_tuple(kernel_cut())
         plain, plain_ms = cuda_once(lambda: as_tuple(twin_cut()))
         on_path = all(as_on_path(out[i], out_cut[i], n_cut, from_end)
@@ -1037,9 +1157,9 @@ def main():
         observation model, q, mode and with_obs; K5a's, K5b's and K5c's by
         their model and q, K5a's and K5c's by the floats a copy moves;
         a stream's (K6, K2r, K4, K7b, K11b, K7a) by q, K11b's directions
-        and the floats a copy moves; K10a's by q, n_active, the emit and
-        the floats a copy moves; K10b's by q, n_active and the floats a copy
-        moves."""
+        and the floats a copy moves; K11e's by q; K10a's by q, n_active,
+        the emit and the floats a copy moves; K10b's by q, n_active and the
+        floats a copy moves."""
         rows, entry = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -1067,6 +1187,10 @@ def main():
                         entry = {"q": int(magi[1]), "n_active": int(magi[2]),
                                  "emit_adjoint": bool(int(magi[3])),
                                  "floats_per_copy": int(magi[4])}
+                    elif args is None and re.search(r"kernelILi\d+EEEv",
+                                                    line):
+                        entry = {"q": int(re.search(r"kernelILi(\d+)EEEv",
+                                                    line)[1])}
                     elif args is None:
                         args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?Li(\d+)EE",
                                          line)
@@ -1116,12 +1240,14 @@ def main():
         fewer columns
         than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
         x 2048 columns, 128 CTAs).  The instantiations reported are those
-        of the earlier phases (earlier_scope), or those match(row) keeps."""
+        of the earlier phases (earlier_scope), or those match(row) keeps.
+        The residency of WAVE_KERNELS is recorded, not checked."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
                                **SLAB_KERNELS}[kernel])
         report = earlier_scope(report) if match is None \
             else [r for r in report if match(r)]
-        check(phase, f"{label} all resident", geometry["all_resident"])
+        if kernel not in WAVE_KERNELS:
+            check(phase, f"{label} all resident", geometry["all_resident"])
         if per_sm and (geometry["grid_y"] > 1 or kernel in STREAM_KERNELS):
             check(phase, f"{label} at least one CTA per SM",
                   geometry["ctas_at_least_sms"])
@@ -1803,7 +1929,7 @@ def main():
                 mode="kramer"),
             n_g * b_ll, tensors(ops_g), split=k11a_split,
             step_outputs=(0, 1, 2), register=on_path, config=model,
-            shape=f"{n_g} x {b_ll}",
+            source="filter_batch_tan.cuh", shape=f"{n_g} x {b_ll}",
             **split_record("grad_kernels", "filter_batch_tan",
                            f"filter_batch_tan {model}",
                            fk._filter_batch_tan_geometry(model, b_ll)))
@@ -1845,7 +1971,8 @@ def main():
                      7, from_end=True), n_g, ["ld"], None, None, chain,
             n_ops=b_ll * fenrir_tan_ops(chain_cpu), split=ld_split,
             out_bytes=4 * (1 + n_tan) * fused_g.n_block * b_ll,
-            register=on_path, config=model, shape=f"{n_g} x {b_ll}",
+            register=on_path, config=model,
+            source="fenrir_backward_batch_tan.cuh", shape=f"{n_g} x {b_ll}",
             **split_record("grad_kernels", "fenrir_backward_batch_tan",
                            f"fenrir_backward_batch_tan {model}",
                            ff._fenrir_backward_batch_tan_geometry(
@@ -4034,7 +4161,7 @@ def main():
 
             # each new instance of K8 (this model, mode and q) and, once a
             # q, of K7b, K7a and K6 alone at these shapes, against its twin
-            # over PATH_TWIN_STEPS steps at the full width
+            # over COVERAGE_VALUE_TWIN_STEPS steps at the full width
             ops_v = fk._kernel_operands(thetas_v, cfg_v["ode_weight"],
                                         inits_v, 0.0, t_v, n_v,
                                         cfg_v["prior_pars"])
@@ -4055,6 +4182,7 @@ def main():
                     steps_cut(fd.dalton_filter_batch, fd._dalton_filter_plain,
                               fused_v, keys=GRID_KEYS, **k8_v), n_v, ["ld"],
                     None, None, tensors(k8_v), repeats=3, register=False,
+                    twin_steps=COVERAGE_VALUE_TWIN_STEPS,
                     n_ops=n_val * dalton_ops(
                         k8_cpu, lambda n, a: fd._dalton_filter_plain(
                             fused_v, n, **a)),
@@ -4090,6 +4218,7 @@ def main():
                          from_end=True), n_v, ["ld"], None, None, chain_v,
                 n_ops=n_val * fenrir_ops(chain_cpu_v),
                 out_bytes=4 * nb_v * n_val, repeats=3, register=False,
+                twin_steps=COVERAGE_VALUE_TWIN_STEPS,
                 config=f"q={q_v}", shape=f"{n_v} x {n_val}", q=q_v,
                 model=model_v, **split_record(
                     "coverage_value", "fenrir_backward_batch",
@@ -4120,6 +4249,7 @@ def main():
                          chain_1, 7, from_end=True), n_v, ["ld"], None,
                 None, chain_1, n_ops=ops_7, out_bytes=4 * nb_v,
                 register=False,
+                twin_steps=COVERAGE_VALUE_TWIN_STEPS,
                 config=f"q={q_v}", shape=f"{n_v} steps", q=q_v,
                 model=model_v, **split_record(
                     "coverage_value", "fenrir_backward_single",
@@ -4147,7 +4277,8 @@ def main():
                          from_end=True), n_v - 1, ["xs"],
                 lambda n: fs._sampler_batch_plain(k6_cpu[0][:n],
                                                   k6_cpu[1][:n], k6_cpu[2]),
-                (n_v - 1) * n_val, k6_v, register=False, config=f"q={q_v}",
+                (n_v - 1) * n_val, k6_v, register=False,
+                twin_steps=COVERAGE_VALUE_TWIN_STEPS, config=f"q={q_v}",
                 step_outputs=(0,),
                 shape=f"{n_v - 1} x {n_val}", q=q_v, model=model_v,
                 **split_record("coverage_value", "sampler_batch",
@@ -4211,6 +4342,298 @@ def main():
           val_s <= COVERAGE_VALUE_PHASE_S)
     emit({"phase": "coverage_value", "seconds": val_s,
           "limit_s": COVERAGE_VALUE_PHASE_S})
+
+    # ---- 27. coverage_grad: K11a, K11b and K11e at every instance -------
+    t_phase = time.perf_counter()
+    n_cg = 2048
+    cg_kernels = {}         # kernel key -> [instance entries]
+    k11a_names = ["A", "b", "C", "m_last", "p_last"]
+
+    def cg_audit(label, lane0, truth_v, control):
+        """bench.py's rules on lane 0 against the float64 torch-op: the
+        value by the likelihood rule, or a gradient (lane0 and truth_v
+        lists) by audit_grad's relative L2 error, recorded as unusable in
+        float32 where its CPU control exceeds GRAD_CONTROL_MAX."""
+        if not isinstance(lane0, list):
+            err = abs(lane0 - truth_v)
+            tol = max(3 * control, LL_REL_FLOOR * abs(truth_v))
+            return {"lane0": lane0, "f64": truth_v, "abs_err": err,
+                    "control_f32cpu": control, "tol": tol,
+                    "ok": check("coverage_grad", f"{label} value audit",
+                                err <= tol)}
+        g, g64 = np.asarray(lane0), np.asarray(truth_v)
+        norm = np.linalg.norm(g64)
+        rel = float(np.linalg.norm(g - g64) / norm) if norm > 0 \
+            else float(np.linalg.norm(g))
+        unusable = control > GRAD_CONTROL_MAX
+        tol = max(3 * control, GRAD_FLOOR)
+        return {"lane0": lane0, "f64": truth_v, "rel_err": rel,
+                "control_f32cpu": control, "tol": tol,
+                "theta_rounding_rel": 0.0, "f32_unusable": unusable,
+                "within_rule": rel <= tol,
+                "ok": True if unusable else check(
+                    "coverage_grad", f"{label} gradient audit", rel <= tol)}
+
+    for name_g, (model_g, q_g, n_g, t_g) in cov_ref.GRAD_FIXTURES.items():
+        t_part = time.perf_counter()
+        cfg_g, (thetas_g, inits_g), obs_g, var_g = cov_ref.grad_fixture(
+            name_g, n_cg, torch.float32, dev, mu64=mu64_value.get(name_g))
+        fused_g = fk.resolve_model(model_g)
+        nb_g, n_tan_g = fused_g.n_block, thetas_g.shape[1]
+        nt_g = q_g * (q_g + 1) // 2
+        lead_g = (thetas_g, cfg_g["ode_weight"], inits_g, 0.0, t_g, n_g,
+                  cfg_g["prior_pars"])
+        ops_g = fk._kernel_operands(*lead_g)
+        cpu_g = cpu_lanes(ops_g, ("x0_lanes", "theta_lanes"))
+        split_a = [(q_g * q_g, 1), (q_g, 1), (nt_g, 1), (q_g, 0), (nt_g, 0)]
+        for mode_g in cov_ref.VALUE_MODES:
+            label_g = f"{name_g}/{mode_g}"
+            kw_g = dict(model=model_g, interrogation=mode_g, device=dev)
+            basic_g = dict(obs_data=obs_g["obs_data"],
+                           obs_times=obs_g["obs_times"],
+                           obs_loglik=cov_ref.gauss_loglik(var_g))
+            calls_g = cov_ref.grad_float32_calls(name_g, mode_g, thetas_g,
+                                                 inits_g, obs_g, var_g, dev)
+            values_g = {
+                "fenrir": lambda: ff.fenrir_fused_batch(*lead_g, **obs_g,
+                                                        **kw_g),
+                "basic": lambda: fk.basic_fused_batch(*lead_g, **basic_g,
+                                                      **kw_g),
+                "solve": lambda: fk.solve_mv_fused_batch(*lead_g, **kw_g)}
+            tan_e = expect(filter_batch_tan=1, smoother_mean_batch_tan=1)
+            expected_g = {"fenrir": expect(filter_batch_tan=1,
+                                           fenrir_backward_batch_tan=1),
+                          "basic": tan_e, "solve": tan_e}
+            ref_g = cov_ref.grad_float64(name_g, mode_g, thetas_g[0],
+                                         inits_g[0], obs_g, var_g, dev)
+            row = {"fixture": name_g, "model": model_g, "q": q_g,
+                   "mode": mode_g, "n_steps": n_g, "n_lane": n_cg,
+                   "n_theta": n_tan_g}
+            for entry_g in ("fenrir", "basic", "solve"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                out_g = calls_g[entry_g]()
+                torch.cuda.synchronize()
+                got_g = read_counts()
+                check("coverage_grad", f"{label_g} {entry_g} launches",
+                      got_g == expected_g[entry_g])
+                check("coverage_grad", f"{label_g} {entry_g} finite",
+                      finite(*out_g))
+                val_g = values_g[entry_g]()
+                same = {"fenrir": lambda: torch.equal(out_g[0], val_g),
+                        "basic": lambda: torch.equal(out_g[0], val_g[0])
+                        and torch.equal(out_g[2], val_g[1]),
+                        "solve": lambda: torch.equal(out_g[0],
+                                                     val_g[0])}[entry_g]()
+                rec = {"launches": launched(got_g),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "values_bitwise": check(
+                           "coverage_grad", f"{label_g} {entry_g} values "
+                           "bitwise the value call's", same)}
+                if entry_g != "solve":
+                    ctrl = GRAD_F32_CPU_ERR[label_g][entry_g]
+                    rec["value"] = cg_audit(
+                        f"{label_g} {entry_g}", float(out_g[0][0]),
+                        ref_g[entry_g][0], ctrl["value"])
+                    rec["grad"] = cg_audit(
+                        f"{label_g} {entry_g}",
+                        out_g[1][0].double().cpu().tolist(),
+                        ref_g[entry_g][1], ctrl["grad"])
+                del out_g, val_g
+                rec["call_ms"] = cuda_ms(calls_g[entry_g], repeats=3)
+                rec["value_call_ms"] = cuda_ms(values_g[entry_g], repeats=3)
+                rec["ratio_to_value_call"] = \
+                    rec["call_ms"] / rec["value_call_ms"]
+                rec["per_lane_us"] = 1e3 * rec["call_ms"] / n_cg
+                row[entry_g] = rec
+            emit({"phase": "coverage_grad", "part": "calls", **row})
+
+            # K11a's instance of this model, mode and q alone at these
+            # shapes, against its twin over COVERAGE_GRAD_TWIN_STEPS steps
+            geo = fk._filter_batch_tan_geometry(model_g, n_cg, mode_g, q_g)
+            out_a, entry = at_path_shapes(
+                "coverage_grad", "filter_batch_tan", "pallas_fenrir.py:614",
+                {"filter_batch_tan": row["fenrir"]["launches"].get(
+                    "filter_batch_tan", 0)},
+                steps_cut(fk.fused_filter_batch_tan,
+                          fk._filter_batch_tan_plain, fused_g, **ops_g,
+                          mode=mode_g), n_g, k11a_names,
+                lambda n: fk._filter_batch_tan_plain(
+                    fused_g, n, **{**cpu_g, "tgrid": cpu_g["tgrid"][:n]},
+                    mode=mode_g),
+                n_g * n_cg, tensors(ops_g), split=split_a,
+                step_outputs=(0, 1, 2), repeats=3, register=False,
+                twin_steps=COVERAGE_GRAD_TWIN_STEPS,
+                config=f"{model_g}/{mode_g}/q={q_g}",
+                source="filter_batch_tan.cuh", shape=f"{n_g} x {n_cg}",
+                model=model_g, mode=mode_g, q=q_g, n_tan=n_tan_g,
+                **split_record(
+                    "coverage_grad", "filter_batch_tan",
+                    f"filter_batch_tan {model_g}/{mode_g}/q={q_g}", geo,
+                    per_sm=False,
+                    match=lambda r: r.get("model") == fused_g.cuda_functor
+                    and r.get("q") == q_g
+                    and r.get("mode") == fk._MODES[mode_g]))
+            k1_g = fk.fused_filter_batch(fused_g, n_g, **ops_g, mode=mode_g)
+            entry["values_bitwise"] = all(
+                torch.equal(a.narrow(a.dim() - 3, 0, k), v)
+                for a, v, (k, _) in zip(out_a, k1_g, split_a))
+            check("coverage_grad", f"filter_batch_tan {model_g}/{mode_g}/"
+                  f"q={q_g} bitwise, values K1's",
+                  entry["bitwise"] and entry["values_bitwise"])
+            cg_kernels.setdefault("filter_batch_tan", []).append(entry)
+            del k1_g
+            if model_g == "fitzhugh":
+                # K1's instance of FitzHugh-Nagumo at this q and mode
+                geo = fk._filter_batch_geometry(model_g, n_cg, mode_g, q_g)
+                _, entry = at_path_shapes(
+                    "coverage_grad", "filter_batch", "pallas_kalman.py:1141",
+                    {"filter_batch": 1},
+                    steps_cut(fk.fused_filter_batch, fk._filter_batch_plain,
+                              fused_g, **ops_g, mode=mode_g), n_g, k1_names,
+                    lambda n: fk._filter_batch_plain(
+                        fused_g, n, **{**cpu_g, "tgrid": cpu_g["tgrid"][:n]},
+                        mode=mode_g),
+                    n_g * n_cg, tensors(ops_g), step_outputs=(0, 1, 2),
+                    repeats=3, register=False,
+                    twin_steps=COVERAGE_GRAD_TWIN_STEPS,
+                    config=f"{model_g}/{mode_g}/q={q_g}",
+                    source="filter_batch.cuh",
+                    shape=f"{n_g} x {n_cg}", model=model_g, mode=mode_g,
+                    q=q_g, **split_record(
+                        "coverage_grad", "filter_batch",
+                        f"filter_batch {model_g}/{mode_g}/q={q_g}", geo,
+                        per_sm=False, match=lambda r: r.get("model")
+                        == fused_g.cuda_functor and r.get("q") == q_g
+                        and r.get("mode") == fk._MODES[mode_g]))
+                check("coverage_grad", f"filter_batch {model_g}/{mode_g}/"
+                      f"q={q_g} bitwise", entry["bitwise"])
+                cg_kernels.setdefault("filter_batch", []).append(entry)
+            if mode_g != "kramer":
+                del out_a
+                continue
+            # once a (q, directions): K11e on K11a's chain, and K11b on the
+            # fenrir gradient's
+            A_g, b_g, _, mN_g, _ = out_a
+            e_args = (b_g[1:], A_g[1:], mN_g)
+            e_cpu = [cpu_lane(t) for t in e_args]
+            geo = fk._smoother_mean_batch_tan_geometry(nb_g * n_cg, n_tan_g,
+                                                       q_g)
+            _, entry = at_path_shapes(
+                "coverage_grad", "smoother_mean_batch_tan",
+                "pallas_kalman.py:1963",
+                {"smoother_mean_batch_tan": row["basic"]["launches"].get(
+                    "smoother_mean_batch_tan", 0)},
+                rows_cut(fk.smoother_mean_recursion_batch_tan,
+                         fk._smoother_mean_tan_plain, (*e_args, n_tan_g), 2,
+                         from_end=True), n_g - 1, ["ms"],
+                lambda n: fk._smoother_mean_tan_plain(
+                    e_cpu[0][:n], e_cpu[1][:n], e_cpu[2], n_tan_g),
+                (n_g - 1) * n_cg, e_args, split=[(q_g, 1)],
+                step_outputs=(0,), repeats=3, register=False,
+                twin_steps=COVERAGE_GRAD_TWIN_STEPS,
+                config=f"q={q_g} n_tan={n_tan_g}",
+                shape=f"{n_g - 1} x {n_cg}", model=model_g, q=q_g,
+                n_tan=n_tan_g, geometry=geo, ptxas=[
+                    r for r in ptxas_report("24smoother_mean_tan_kernel")
+                    if r.get("q") == q_g])
+            check("coverage_grad", f"smoother_mean_batch_tan q={q_g} "
+                  f"n_tan={n_tan_g} bitwise", entry["bitwise"])
+            check("coverage_grad", f"smoother_mean_batch_tan q={q_g} "
+                  "spills nothing", entry["ptxas"] and all(
+                      r.get("spill_stores") == 0 for r in entry["ptxas"]))
+            cg_kernels.setdefault("smoother_mean_batch_tan", []).append(entry)
+            del out_a, A_g, b_g, mN_g, e_args, e_cpu
+            chain_g = ff._fenrir_operands(fused_g, n_g, 0.0, t_g, ops_g,
+                                          *obs_g.values(), mode_g,
+                                          tangent=True)
+            chain_cpu_g = chain_on_cpu(chain_g)
+
+            def tan_plain_g(*chain, n_tan=n_tan_g):
+                return chain[-1] + fd._block_sum(
+                    ff._fenrir_backward_tan_plain(*chain[:-1], n_tan)
+                    .movedim(-2, 0))
+
+            n_ops_b = n_cg * grid_ops(chain_cpu_g[6], lambda idx: op_count(
+                lambda: ff._fenrir_backward_tan_plain(
+                    *[t[idx] for t in chain_cpu_g[:7]], *chain_cpu_g[7:],
+                    n_tan_g)))
+            geo = ff._fenrir_backward_batch_tan_geometry(nb_g, n_cg, n_tan_g,
+                                                         q_g)
+            _, entry = at_path_shapes(
+                "coverage_grad", "fenrir_backward_batch_tan",
+                "pallas_fenrir.py:772",
+                {"fenrir_backward_batch_tan": row["fenrir"]["launches"].get(
+                    "fenrir_backward_batch_tan", 0)},
+                rows_cut(ff.fenrir_backward_batch_tan, tan_plain_g, chain_g,
+                         7, from_end=True), n_g, ["ld"], None, None, chain_g,
+                n_ops=n_ops_b, split=[(1, 0)],
+                out_bytes=4 * (1 + n_tan_g) * nb_g * n_cg, repeats=3,
+                register=False, twin_steps=COVERAGE_GRAD_TWIN_STEPS,
+                config=f"q={q_g} n_tan={n_tan_g}",
+                source="fenrir_backward_batch_tan.cuh",
+                shape=f"{n_g} x {n_cg}", model=model_g, q=q_g,
+                n_tan=n_tan_g, **split_record(
+                    "coverage_grad", "fenrir_backward_batch_tan",
+                    f"fenrir_backward_batch_tan q={q_g} n_tan={n_tan_g}",
+                    geo, per_sm=False,
+                    match=lambda r: r.get("q") == q_g
+                    and r.get("n_tan") == n_tan_g))
+            check("coverage_grad", f"fenrir_backward_batch_tan q={q_g} "
+                  f"n_tan={n_tan_g} bitwise", entry["bitwise"])
+            cg_kernels.setdefault("fenrir_backward_batch_tan",
+                                  []).append(entry)
+            del chain_g, chain_cpu_g
+        del ops_g, cpu_g
+        emit({"phase": "coverage_grad", "part": "kernels",
+              "fixture": name_g,
+              "kernels": {k: [e for e in v if e["model"] == model_g
+                              and e["q"] == q_g]
+                          for k, v in cg_kernels.items()},
+              "seconds": time.perf_counter() - t_part})
+
+    # MALA over fenrir on Hes1 under kramer (K11a and K11b a step, its
+    # Jacobian on nested Duals): 128 lanes x 20 steps
+    cfg_h, (thetas_h, _), obs_h, _ = cov_ref.grad_fixture(
+        "hes1", 128, torch.float32, dev, mu64=mu64_value["hes1"])
+    n_mh, s_mh = 128, 20
+    solver_h = dict(ode_weight=cfg_h["ode_weight"],
+                    ode_init=cfg_h["ode_init"], t_min=0.0,
+                    t_max=cfg_h["t_max"], n_steps=cfg_h["n_steps"],
+                    prior_pars=cfg_h["prior_pars"])
+    (pos_h, ll_h, acc_h), sec_h, counts_h, peak_h = timed_run(
+        lambda: tpar.run_chains_mala_fused(
+            thetas_h, torch.Generator(dev).manual_seed(34), s_mh,
+            GRAD_MALA_STEP, model="hes1", likelihood="fenrir", device=dev,
+            **solver_h, **obs_h))
+    fresh_h = ff.fenrir_fused_batch(
+        pos_h[-1], cfg_h["ode_weight"],
+        cfg_h["ode_init"].expand((n_mh,) + cfg_h["ode_init"].shape), 0.0,
+        cfg_h["t_max"], cfg_h["n_steps"], cfg_h["prior_pars"], **obs_h,
+        model="hes1", device=dev)
+    mala_h_ok = [
+        check("coverage_grad", "Hes1 MALA launches",
+              counts_h == expect(filter_batch_tan=s_mh + 1,
+                                 fenrir_backward_batch_tan=s_mh + 1)),
+        check("coverage_grad", "Hes1 MALA finite", finite(pos_h, ll_h)),
+        check("coverage_grad", "Hes1 MALA carried log-density bitwise",
+              torch.equal(fresh_h, ll_h))]
+    emit({"phase": "coverage_grad", "runner": "run_chains_mala_fused",
+          "likelihood": "fenrir", "model": "hes1", "mode": "kramer",
+          "n_lane": n_mh, "n_samples": s_mh, "step_size": GRAD_MALA_STEP,
+          "launches": launched(counts_h), "seconds": sec_h,
+          **rates(n_mh * s_mh, sec_h, pos_h[..., 0]),
+          "mean_accept": acc_h.mean().item(), "peak_mem_bytes": peak_h,
+          "ok": all(mala_h_ok)})
+    del pos_h, ll_h, acc_h, fresh_h
+    for key_g, entries_g in cg_kernels.items():
+        kernels[key_g].setdefault("instances", []).extend(entries_g)
+    grad_s = time.perf_counter() - t_phase
+    check("coverage_grad", f"phase within {COVERAGE_GRAD_PHASE_S} s",
+          grad_s <= COVERAGE_GRAD_PHASE_S)
+    emit({"phase": "coverage_grad", "seconds": grad_s,
+          "limit_s": COVERAGE_GRAD_PHASE_S})
 
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end

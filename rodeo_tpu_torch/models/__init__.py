@@ -49,15 +49,34 @@ def own_block_jacobian(flat, x_cols, th, t):
     operations, so the same bits.  For models without a hand-written
     Jacobian (Hes1, SEIRAH), as the JAX package takes ``jvp_jac_flat``.
 
+    Where the columns are Duals already (K11a's twin, carrying theta's
+    tangents), the numbers nest: the seeds are constants along theta's
+    directions, as the kernel's ``DualT<Dual>`` seeds are, and the column
+    comes back a Dual carrying its own tangents along theta.
+
     Returns:
-        (Tensor(n_block, B)): The Jacobian's column 0.
+        (Tensor(n_block, B) or Dual): The Jacobian's column 0.
     """
-    from rodeo_tpu_torch.ops.dual import Dual
+    from rodeo_tpu_torch.ops.dual import Dual, constant, primal
 
     x0 = x_cols[0]
-    n_block = x0.shape[0]
-    seed = torch.eye(n_block, dtype=x0.dtype, device=x0.device)
-    seed = seed.reshape((n_block, n_block) + (1,) * (x0.ndim - 1))
-    out = flat([Dual(x0, seed.expand((n_block,) + tuple(x0.shape)))]
-               + list(x_cols[1:]), th, t)
-    return torch.diagonal(out.d, dim1=0, dim2=1).movedim(-1, 0)
+    x0v = primal(x0)
+    n_block = x0v.shape[0]
+    seed = torch.eye(n_block, dtype=x0v.dtype, device=x0v.device)
+    seed = seed.reshape((n_block, n_block) + (1,) * (x0v.ndim - 1)).expand(
+        (n_block,) + tuple(x0v.shape))
+    if isinstance(x0, Dual):
+        seed = constant(seed, x0.n_dir)
+    out = flat([Dual(x0, seed)] + list(x_cols[1:]), th, t)
+    return _own_blocks(out.d, 0)
+
+
+def _own_blocks(d, axis):
+    """Direction ``b``'s tangent of block ``b``: the diagonal of ``d``'s
+    axes ``axis`` (the directions) and ``axis + 1`` (the blocks), in the
+    blocks' place; of a Dual's value and tangents alike."""
+    from rodeo_tpu_torch.ops.dual import Dual
+
+    if isinstance(d, Dual):
+        return Dual(_own_blocks(d.v, axis), _own_blocks(d.d, axis + 1))
+    return torch.diagonal(d, dim1=axis, dim2=axis + 1).movedim(-1, axis)

@@ -51,7 +51,7 @@ def fitzhugh_jac_flat(x_cols, th, t):
     V = x_cols[0][0:1]
     b, c = th[1:2], th[2:3]
     col0 = torch.cat([c * (1.0 - V * V), -b / c])
-    return [col0] + [None] * (N_DERIV - 1)
+    return [col0] + [None] * (len(x_cols) - 1)
 
 
 FUSED = FusedModel(flat=fitzhugh_flat, jac_flat=fitzhugh_jac_flat,
@@ -59,16 +59,22 @@ FUSED = FusedModel(flat=fitzhugh_flat, jac_flat=fitzhugh_jac_flat,
 
 
 def setup(n_steps=250, t_min=0.0, t_max=10.0, prior_sigma=0.1,
-          dtype=torch.float64, device=None):
+          dtype=torch.float64, device=None, n_deriv=N_DERIV):
     """Solver configuration of the FitzHugh-Nagumo benchmark, built on the
-    CPU in ``dtype`` and moved to ``device`` (``None``: the CUDA card)."""
+    CPU in ``dtype`` and moved to ``device`` (``None``: the CUDA card).
+    ``n_deriv`` beyond 3 pads the weight and the initial state with zeros
+    past the third derivative, under the IBM prior of ``n_deriv``
+    derivatives."""
     device = resolve_device(device)
     theta = torch.tensor(THETA, dtype=dtype)
     W, pad = first_order_pad(fitzhugh_fun, N_VARS, N_DERIV, dtype=dtype)
     x0 = pad(torch.tensor(X0, dtype=dtype), t_min, theta=theta)
+    extra = n_deriv - N_DERIV
+    W = torch.nn.functional.pad(W, (0, extra))
+    x0 = torch.nn.functional.pad(x0, (0, extra))
     dt = (t_max - t_min) / n_steps
     prior_weight, prior_var = ibm_init(
-        dt, N_DERIV, torch.full((N_VARS,), prior_sigma, dtype=dtype))
+        dt, n_deriv, torch.full((N_VARS,), prior_sigma, dtype=dtype))
     return dict(
         ode_fun=fitzhugh_fun,
         ode_weight=W.to(device),

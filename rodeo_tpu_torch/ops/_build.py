@@ -44,21 +44,21 @@ _SIGNATURES = {
     # q, n_steps, n_col, c, G, xN, xs, stream
     "rodeo_sampler_batch": [_I] * 3 + [_P] * 5,
     # the tangent kernels, with augmented (value + tangents) operands:
-    # model, mode, n_steps, n_lane, q_const (host), R, W, t_vec, x0, theta,
-    # tgrid, A, b, C, m_last, p_last, stream
-    "rodeo_filter_batch_tan": [_I, _I, _I, _I] + [_P] * 13,
-    # n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
-    "rodeo_fenrir_backward_batch_tan": [_I] * 4 + [_P] * 11,
+    # model, mode, q, n_steps, n_lane, q_const (host), R, W, t_vec, x0,
+    # theta, tgrid, A, b, C, m_last, p_last, stream
+    "rodeo_filter_batch_tan": [_I] * 5 + [_P] * 13,
+    # q, n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
+    "rodeo_fenrir_backward_batch_tan": [_I] * 5 + [_P] * 11,
     # as rodeo_dalton_filter_batch, without q
     "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
     # the launches of K1: model, mode, q, n_lane, out; of K8: model, mode,
-    # q, with_obs, n_lane, out; of K11a and K11c: model, mode, (with_obs,)
-    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
+    # q, with_obs, n_lane, out; of K11a: model, mode, q, n_lane, out; of
+    # K11c: model, mode, with_obs, n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
     # K6: q, n_col, out; of K3: model, mode, q, out; of K2r: q, n_block,
     # n_lane, out; of K7b: q, n_block, n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 5 + [_P],
-    "rodeo_filter_batch_tan_geometry": [_I] * 3 + [_P],
+    "rodeo_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
@@ -66,20 +66,21 @@ _SIGNATURES = {
     "rodeo_filter_single_geometry": [_I] * 3 + [_P],
     "rodeo_smoother_batch_rows_geometry": [_I] * 3 + [_P],
     "rodeo_fenrir_backward_batch_geometry": [_I] * 3 + [_P],
-    # of K4: q, n_block, out; of K7a: q, n_block, out; of K11b: n_block,
-    # n_lane, n_tan, out; of K10a: act, emit_adjoint, n_block, n_lane, out;
+    # of K4: q, n_block, out; of K7a: q, n_block, out; of K11b: q, n_block,
+    # n_lane, n_tan, out; of K11e: q, n_col, n_tan, out; of K10a: act, emit_adjoint, n_block, n_lane, out;
     # of K10b: act, n_block, n_lane, out; of K5a and K5b: model, out; of
     # K5c: model, n_group, out
     "rodeo_smoother_single_geometry": [_I, _I, _P],
     "rodeo_fenrir_backward_single_geometry": [_I, _I, _P],
-    "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 3 + [_P],
+    "rodeo_fenrir_backward_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_smoother_mean_batch_tan_geometry": [_I] * 3 + [_P],
     "rodeo_magi_batch_geometry": [_I] * 4 + [_P],
     "rodeo_magi_adjoint_batch_geometry": [_I] * 3 + [_P],
     "rodeo_mean_gain_single_geometry": [_I, _P],
     "rodeo_mean_boundary_single_geometry": [_I, _P],
     "rodeo_mean_recovery_single_geometry": [_I, _I, _P],
-    # n_steps, n_col, n_tan, g, G, mN, ms, stream
-    "rodeo_smoother_mean_batch_tan": [_I] * 3 + [_P] * 5,
+    # q, n_steps, n_col, n_tan, g, G, mN, ms, stream
+    "rodeo_smoother_mean_batch_tan": [_I] * 4 + [_P] * 5,
     # the single-solve kernels and the rows-emitting smoother:
     # model, mode, q, n_steps, q_const (host), R, W, t_vec, x0, theta,
     # tgrid, eps (chkrebtii's normals, or NULL), mf, pf, mp, pp, stream

@@ -3,7 +3,7 @@
 // one (lane, direction) meeting once a step.  Run by the value kernels K1
 // (filter_batch.cu), K3 (filter_single.cu, one lane), K8
 // (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and by the
-// tangent kernels K11a (filter_batch_tan.cu), K11c
+// tangent kernels K11a (filter_batch_tan.cuh), K11c
 // (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
@@ -141,24 +141,26 @@ __device__ __forceinline__ void gather_means(
 
 // Column 0 of block b's row of the block-diagonal Jacobian, d f_b / d x[b][0],
 // at the gathered means x: the functor's hand-written jac0, or, for a
-// functor without one (kDualJacobian), f evaluated on Duals with block b's
-// entry x[b][0] seeded alone, as the twin's jac_flat evaluates it
-// (own_block_jacobian of rodeo_tpu_torch/models/__init__.py).
+// functor without one (kDualJacobian), f evaluated on DualT<T> with block
+// b's entry x[b][0] seeded alone, as the twin's jac_flat evaluates it
+// (own_block_jacobian of rodeo_tpu_torch/models/__init__.py).  On the
+// tangent kernel's Dual states (T = Dual) the numbers are nested: the
+// outer direction is the Jacobian's, each component carries theta's
+// tangent, and the seed is a constant to theta (DualT's T(1)).
 template <class Model, int Q, class T>
 __device__ __forceinline__ T jac0_own(const T (&x)[Model::NB][Q],
                                       const T (&th)[Model::NTHETA], float t,
                                       int b) {
   constexpr int NB = Model::NB;
   if constexpr (Model::kDualJacobian) {
-    static_assert(std::is_same_v<T, float>,
-                  "a Dual Jacobian is taken on float states only");
-    Dual xd[NB][Q];
+    using J = DualT<T>;
+    J xd[NB][Q];
 #pragma unroll
     for (int k = 0; k < NB; ++k)
 #pragma unroll
       for (int j = 0; j < Q; ++j)
-        xd[k][j] = Dual(x[k][j], (j == 0 && k == b) ? 1.0f : 0.0f);
-    Dual fd[NB];
+        xd[k][j] = J(x[k][j], T((j == 0 && k == b) ? 1.0f : 0.0f));
+    J fd[NB];
     Model::template f<Q>(xd, th, t, fd);
     return own_block(fd, b).d;
   } else {

@@ -5,8 +5,8 @@
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_dalton.py:
 // _dalton_filter_kernel, under kramer and rodeo on the first-order models at
-// q = 3 and the second-order Chkrebtii at q = 4 and 5 (K1's models,
-// dispatch.cuh's with_filter_instance).  Plain PyTorch twin:
+// q = 3 and the second-order Chkrebtii at q = 4 and 5 (dispatch.cuh's
+// with_dalton_instance).  Plain PyTorch twin:
 // _dalton_filter_plain in ops/fused_dalton.py.  The C entry points are
 // dalton_filter_batch.cu's; the instances are compiled in one translation
 // unit per (model, q), dalton_instances_*.cu, which nvcc builds in

@@ -50,13 +50,30 @@ cudaError_t with_mode(int mode, Fn&& f) {
   return with_value<kKramer, kRodeo, kSchober, kChkrebtii>(mode, f);
 }
 
-// The (model, q) of the filters that take every model: K1 (filter_batch.cu)
-// and K3 (filter_single.cu), which hold the four modes there (with_mode),
-// and DALTON's K8 (dalton_filter_batch.cu), which holds kramer and rodeo
-// (with_ek_mode): f(Is<Model>(), Int<Q>()) for the first-order models at
-// q = 3 and the second-order Chkrebtii at q = 4 and 5.
+// The (model, q) of the forward filters that take every model: K1
+// (filter_batch.cu) and K3 (filter_single.cu), which hold the four modes
+// there (with_mode), and the tangent filter K11a (filter_batch_tan.cu),
+// which holds kramer and rodeo (with_ek_mode): f(Is<Model>(), Int<Q>())
+// for the first-order models at q = 3, FitzHugh-Nagumo also at q = 4 and 5
+// (its weight and initial state padded with zeros past the third
+// derivative), and the second-order Chkrebtii at q = 4 and 5.
 template <class Fn>
 cudaError_t with_filter_instance(int model, int q, Fn&& f) {
+  if (model == Chkrebtii::kNumber)
+    return with_value<4, 5>(q, [&](auto qq) { return f(Is<Chkrebtii>(), qq); });
+  if (model == FitzHughNagumo::kNumber)
+    return with_value<3, 4, 5>(
+        q, [&](auto qq) { return f(Is<FitzHughNagumo>(), qq); });
+  return with_functor<Lorenz63, Hes1, Seirah>(model, [&](auto m) {
+    return with_value<3>(q, [&](auto qq) { return f(m, qq); });
+  });
+}
+
+// The (model, q) of DALTON's filter K8 (dalton_filter_batch.cu), which
+// holds kramer and rodeo there (with_ek_mode): those of
+// with_filter_instance but FitzHugh-Nagumo at q = 4 and 5.
+template <class Fn>
+cudaError_t with_dalton_instance(int model, int q, Fn&& f) {
   if (model == Chkrebtii::kNumber)
     return with_value<4, 5>(q, [&](auto qq) { return f(Is<Chkrebtii>(), qq); });
   return with_functor<Lorenz63, FitzHughNagumo, Hes1, Seirah>(
@@ -73,13 +90,22 @@ cudaError_t with_ek_mode(int mode, Fn&& f) {
 }
 
 // The instances of the filters that take Lorenz63 and FitzHugh-Nagumo at
-// q = 3 under kramer and rodeo (K9, K11a, K11c, K11d):
+// q = 3 under kramer and rodeo (K9, K11c, K11d):
 // f(Is<Model>(), Int<MODE>()).
 template <class Fn>
 cudaError_t with_ek_instance(int model, int mode, Fn&& f) {
   return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
     return with_ek_mode(mode, [&](auto md) { return f(m, md); });
   });
+}
+
+// The tangent directions of fenrir's tangent backward filter K11b
+// (fenrir_backward_batch_tan.cu): 1 to kMaxTan, the most parameters of a
+// model (Hes1's 7), f(Int<NTAN>()).
+constexpr int kMaxTan = 7;
+template <class Fn>
+cudaError_t with_n_tan(int n_tan, Fn&& f) {
+  return with_value<1, 2, 3, 4, 5, 6, 7>(n_tan, f);
 }
 
 // The instances of the stationary solve's mean chains (K5a, K5b, K5c,

@@ -18,7 +18,7 @@
 // that: 21 % of the bound on the card (PERF.md).
 //
 // Design.  A stream on stream_ring.cuh's ring, as its tangent twin K11b
-// (fenrir_backward_batch_tan.cu) is: CTAs of kStreamCols = 32 (block, lane)
+// (fenrir_backward_batch_tan.cuh) is: CTAs of kStreamCols = 32 (block, lane)
 // columns (192 CTAs at 3 x 2048), one consumer warp and a producer warp.
 // The producer fills a ring of kFenrirStages shared-memory stages of
 // kFenrirSteps steps with the chain's 18 rows of a step (A, b, C) by

@@ -2,7 +2,7 @@
 // lane) column: predict through the backward chain row (A_n, b_n, C_n), then
 // the masked scalar observation update of step n, adding the observation's
 // log-density.  Shared by K7b (fenrir_backward_batch.cu, on float) and its
-// tangent twin K11b (fenrir_backward_batch_tan.cu, on Dual); both skip the
+// tangent twin K11b (fenrir_backward_batch_tan.cuh, on Dual); both skip the
 // update at steps without data, so the values of K11b are K7b's bitwise.
 // The single-solve K7a (fenrir_backward_single.cu) runs the same two halves
 // (chain_step, fenrir_update) on the mask it stages with its chain.

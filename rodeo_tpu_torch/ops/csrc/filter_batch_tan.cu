@@ -1,197 +1,49 @@
-// K11a: the tangent twin of K1.  The lane-batched forward filter carries the
-// derivative of its state along each theta direction and emits the
-// smoothing gains (G, g, L) and the last filtered state with their
-// tangents, stacked on the d axis as the TPU kernel stacks them: A (N,
-// NAUG Q Q, NB, B), b (N, NAUG Q, ..), C (N, NAUG Tri, ..), m_last (NAUG Q,
-// NB, B), p_last (NAUG Tri, NB, B), NAUG = 1 + NTHETA.
-//
-// Replaces the TPU kernel rodeo_tpu/ops/pallas_fenrir.py:
-// _filter_kernel_batch_tan (emit="gains", interrogations kramer and rodeo).
-// Plain PyTorch twin: _filter_batch_tan_plain in ops/fused_kalman.py, which
-// runs K1's twin on Duals (ops/dual.py).
-//
-// Design.  K1's step on the forward-mode number Dual (dual.cuh), a value
-// and one tangent, with theta seeded along the thread's direction and the
-// initial state exact (zero tangent), split over the blocks of a lane
-// (block_step.cuh): one thread per (lane, direction, block), which predicts
-// its block, forms and stores its block's gains, and, after one barrier a
-// step with the other blocks of its (lane, direction), evaluates the ODE at
-// their gathered predicted means and updates its block.  The value part of
-// each Dual is K1's float arithmetic, so the values equal K1's bitwise; the
-// threads of direction 0 store them.  The earlier design ran one thread per
-// (lane, direction) with all NB blocks in its registers: at 2048 lanes 64
-// CTAs of 96 threads on 64 of the 132 SMs, 168 registers, and a chain of
-// ~3e3 dependent operations a step; the split gives NB times the threads,
-// each with a chain about 1/NB as long.
-//
-// What bounds it on the card.  A step stores 72 floats per (block, lane) at
-// NAUG = 4 (A 36, b 12, C 24): 7.08 GB at 4000 steps x 3 blocks x 2048
-// lanes, 2.11 ms at 3.35 TB/s.  The kernel is still bound by the latency of
-// each thread's chain (K1's step on one block and its tangent, and the ODE
-// at the gathered means): at 2048 lanes Lorenz63 runs grid (64, 3) = 192
-// CTAs of 32 x 3 = 96 threads, 18 432 threads, every CTA resident at once
-// and every SM with one or two.
-#include <cstring>
-
+// The C entry points of K11a, the tangent twin of K1
+// (filter_batch_tan.cuh): each picks the instance of (model, mode, q) and
+// calls its launch, compiled in filter_tan_instances_*.cu.
 #include <cuda_runtime.h>
 
-#include "block_step.cuh"
 #include "dispatch.cuh"
-#include "dual.cuh"
-#include "filter_step.cuh"
-#include "kalman_cols.cuh"
-#include "models.cuh"
+#include "filter_instances.cuh"
 
-namespace rodeo {
-
-// Lanes per CTA: 32, faster than 16 on the card (PERF.md)
-constexpr int kFilterTanLanes = 32;
-
-template <class Model, int Q, int MODE>
-__global__ void __launch_bounds__(kFilterTanLanes * Model::NB)
-    filter_batch_tan_kernel(QConst<Q> qc, int n_steps, int n_lane,
-                            const float* __restrict__ R_in,
-                            const float* __restrict__ W_in,
-                            const float* __restrict__ tv_in,
-                            const float* __restrict__ x0,
-                            const float* __restrict__ theta,
-                            const float* __restrict__ tgrid,
-                            float* __restrict__ A_out,
-                            float* __restrict__ b_out,
-                            float* __restrict__ C_out,
-                            float* __restrict__ m_last,
-                            float* __restrict__ p_last) {
-  constexpr int NB = Model::NB;
-  constexpr int NT = Tri<Q>::N;
-  constexpr int NTH = Model::NTHETA;
-  constexpr int NAUG = 1 + NTH;
-  __shared__ SharedMeans<Dual, NB, Q, kFilterTanLanes> xs;
-  const int tx = threadIdx.x;
-  const int b = threadIdx.y;
-  const int dir = blockIdx.y;
-  const int lane = blockIdx.x * kFilterTanLanes + tx;
-  // a lane beyond n_lane runs masked (it must reach every barrier): loads
-  // of the last lane, no stores
-  const bool live = lane < n_lane;
-  const size_t off = live ? lane : n_lane - 1;
-  const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t base = b * static_cast<size_t>(n_lane) + off;
-
-  BlockConsts<Q> c;
-  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
-  Dual th[NTH];
-#pragma unroll
-  for (int k = 0; k < NTH; ++k)
-    th[k] = Dual(theta[k * static_cast<size_t>(n_lane) + off], k == dir ? 1.0f : 0.0f);
-
-  Dual m[Q], P[NT];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) m[j] = Dual(x0[j * col + base]);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) P[k] = Dual(0.0f);
-
-  for (int n = 0; n < n_steps; ++n) {
-    Dual mp[Q], pp[NT];
-    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
-    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
-    Dual G[Q][Q], g[Q], L[NT];
-    gain_cols<Q>(c.Qm, c.R, m, P, mp, pp, G, g, L);
-    if (live) {
-#pragma unroll
-      for (int i = 0; i < Q; ++i)
-#pragma unroll
-        for (int j = 0; j < Q; ++j)
-          store_aug(A_out, n, Q * Q, NAUG, i * Q + j, col, base, dir, G[i][j]);
-#pragma unroll
-      for (int i = 0; i < Q; ++i) store_aug(b_out, n, Q, NAUG, i, col, base, dir, g[i]);
-#pragma unroll
-      for (int k = 0; k < NT; ++k) store_aug(C_out, n, NT, NAUG, k, col, base, dir, L[k]);
-    }
-    __syncthreads();
-    Dual x[NB][Q], z, S, inv_S;
-    gather_means<NB, Q>(xs, n, tx, x);
-    interrogate_update_block<Model, Q, MODE>(c, th, tgrid[n], x, b, mp, pp, m,
-                                             P, z, S, inv_S);
-  }
-
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < Q; ++j) store_aug(m_last, 0, Q, NAUG, j, col, base, dir, m[j]);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) store_aug(p_last, 0, NT, NAUG, k, col, base, dir, P[k]);
-  }
-}
-
-template <class Model, int MODE>
-cudaError_t filter_tan_launch(const QConst<3>& qc, int n_steps, int n_lane,
-                              const float* R, const float* W, const float* tv,
-                              const float* x0, const float* theta,
-                              const float* tgrid, float* A, float* b,
-                              float* C, float* m_last, float* p_last,
-                              cudaStream_t stream) {
-  const SplitGeometry g =
-      split_geometry<Model, kFilterTanLanes>(n_lane, Model::NTHETA);
-  filter_batch_tan_kernel<Model, 3, MODE><<<g.grid, g.block, 0, stream>>>(
-      qc, n_steps, n_lane, R, W, tv, x0, theta, tgrid, A, b, C, m_last,
-      p_last);
-  return cudaGetLastError();
-}
-
-template <class Model, int MODE>
-cudaError_t filter_tan_geometry(int n_lane, int* out) {
-  return report_geometry(
-      filter_batch_tan_kernel<Model, 3, MODE>,
-      split_geometry<Model, kFilterTanLanes>(n_lane, Model::NTHETA), out);
-}
-
-}  // namespace rodeo
-
-// The arguments of rodeo_filter_batch (filter_batch.cu), with the
+// The arguments of rodeo_filter_batch (filter_batch.cu) without eps, the
+// instances of with_filter_instance (dispatch.cuh) under kramer and rodeo
+// (any other (model, mode, q) returning cudaErrorInvalidValue), with the
 // augmented outputs A, b, C, m_last, p_last laid out as
 // fused_filter_batch_tan (ops/fused_kalman.py) documents; NTHETA tangent
 // directions, one per parameter of the model.  Returns a cudaError_t.
-extern "C" int rodeo_filter_batch_tan(int model, int mode, int n_steps,
-                                      int n_lane, const void* q_host,
-                                      const void* R, const void* W,
-                                      const void* tv, const void* x0,
-                                      const void* theta, const void* tgrid,
-                                      void* A, void* b, void* C,
-                                      void* m_last, void* p_last,
+extern "C" int rodeo_filter_batch_tan(int model, int mode, int q,
+                                      int n_steps, int n_lane,
+                                      const void* q_host, const void* R,
+                                      const void* W, const void* tv,
+                                      const void* x0, const void* theta,
+                                      const void* tgrid, void* A, void* b,
+                                      void* C, void* m_last, void* p_last,
                                       void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_lane < 1) return cudaErrorInvalidValue;
-  QConst<3> qc;
-  std::memcpy(qc.q, q_host, sizeof(qc.q));
-  const auto* r = static_cast<const float*>(R);
-  const auto* w = static_cast<const float*>(W);
-  const auto* t = static_cast<const float*>(tv);
-  const auto* x = static_cast<const float*>(x0);
-  const auto* th = static_cast<const float*>(theta);
-  const auto* tg = static_cast<const float*>(tgrid);
-  auto* Ap = static_cast<float*>(A);
-  auto* bp = static_cast<float*>(b);
-  auto* Cp = static_cast<float*>(C);
-  auto* mp = static_cast<float*>(m_last);
-  auto* pp = static_cast<float*>(p_last);
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  const FilterBatchTanArgs a{n_steps, n_lane, q_host, in(R), in(W), in(tv),
+                             in(x0), in(theta), in(tgrid), out(A), out(b),
+                             out(C), out(m_last), out(p_last)};
   auto s = static_cast<cudaStream_t>(stream);
-  return with_ek_instance(model, mode, [&](auto m, auto md) {
-    using Model = typename decltype(m)::type;
-    return filter_tan_launch<Model, decltype(md)::value>(
-        qc, n_steps, n_lane, r, w, t, x, th, tg, Ap, bp, Cp, mp, pp, s);
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return FilterBatchTanInstances<typename decltype(m)::type,
+                                   decltype(qq)::value>::launch(mode, a, s);
   });
 }
 
-// The launch rodeo_filter_batch_tan makes for (model, mode, n_lane) on the
-// current device, as nine ints in out (report_geometry in block_step.cuh).
-// Returns a cudaError_t.
-extern "C" int rodeo_filter_batch_tan_geometry(int model, int mode,
+// The launch rodeo_filter_batch_tan makes for (model, mode, q, n_lane) on
+// the current device, as nine ints in out (report_geometry in
+// block_step.cuh).  Returns a cudaError_t.
+extern "C" int rodeo_filter_batch_tan_geometry(int model, int mode, int q,
                                                int n_lane, void* out) {
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
-  auto* o = static_cast<int*>(out);
-  return with_ek_instance(model, mode, [&](auto m, auto md) {
-    using Model = typename decltype(m)::type;
-    return filter_tan_geometry<Model, decltype(md)::value>(
-        n_lane, o);
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return FilterBatchTanInstances<typename decltype(m)::type,
+                                   decltype(qq)::value>::geometry(
+        mode, n_lane, static_cast<int*>(out));
   });
 }

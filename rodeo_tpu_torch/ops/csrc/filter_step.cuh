@@ -6,7 +6,7 @@
 //
 // The filters K1 (filter_batch.cu), K3 (filter_single.cu), K8
 // (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and the
-// tangent kernels K11a (filter_batch_tan.cu), K11c
+// tangent kernels K11a (filter_batch_tan.cuh), K11c
 // (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on the
 // scalar type Dual (dual.cuh), run them inside the step split over the
 // blocks of a lane (block_step.cuh), which adds the ODE's update of a

@@ -1,0 +1,9 @@
+// The instances of K11a (filter_batch_tan.cuh) for FitzHugh-Nagumo at q = 3,
+// under kramer and rodeo.
+#include "filter_batch_tan.cuh"
+
+namespace rodeo {
+
+template struct FilterBatchTanInstances<FitzHughNagumo, 3>;
+
+}  // namespace rodeo

@@ -5,7 +5,8 @@
 // solution's sensitivities need means only.
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_kalman.py:
-// _smoother_mean_kernel_batch_tan.  Plain PyTorch twin:
+// _smoother_mean_kernel_batch_tan, at q = 3, 4 and 5 and 1 to kMaxTan = 7
+// tangent directions (dispatch.cuh).  Plain PyTorch twin:
 // _smoother_mean_tan_plain in ops/fused_kalman.py.
 //
 // Design.  One thread per (block, lane) column and tangent direction
@@ -18,18 +19,27 @@
 // (T, NAUG d, n_block, B) layout with lanes innermost; the thread of
 // direction 0 stores the values.
 //
-// What bounds it on the card.  Each step reads 48 floats and writes 12 per
-// column at NAUG = 4 (values and tangents of g, G, m): a streaming kernel
+// What bounds it on the card.  Each step reads NAUG (Q Q + Q) floats and
+// writes NAUG Q per column, 48 and 12 at q = 3 and NAUG = 4 (values and
+// tangents of g, G, m): a streaming kernel
 // bound by device-memory bandwidth (5.9 GB at 3999 steps x 3 blocks x 2048
-// lanes, 1.76 ms at 3.35 TB/s).  The loads of kTanUnroll steps are issued
-// before they are used, as in K4.
+// lanes, 1.76 ms at 3.35 TB/s).  The loads of tan_unroll<Q>() steps are
+// issued before they are used, as in K4: 4 at q = 3, 2 at q = 4 and 1 at
+// q = 5, whose rows of 4 steps (240 floats) would not fit the registers
+// that a CTA of 7 directions leaves a thread (at most 146).
 #include <cuda_runtime.h>
+
+#include "block_step.cuh"
+#include "dispatch.cuh"
 
 namespace rodeo {
 
 constexpr int kTanCols = 64;
-constexpr int kTanUnroll = 4;
-constexpr int kMaxTan = 4;
+
+template <int Q>
+__host__ __device__ constexpr int tan_unroll() {
+  return Q <= 3 ? 4 : (Q == 4 ? 2 : 1);
+}
 
 template <int Q>
 struct MeanRowTan {
@@ -110,14 +120,15 @@ __global__ void __launch_bounds__(kTanCols * kMaxTan)
     dm[j] = mN[((1 + dir) * Q + j) * n_col + c];
   }
 
+  constexpr int U = tan_unroll<Q>();
   int n = n_steps - 1;
-  for (; n >= kTanUnroll - 1; n -= kTanUnroll) {
-    MeanRowTan<Q> rows[kTanUnroll];
+  for (; n >= U - 1; n -= U) {
+    MeanRowTan<Q> rows[U];
 #pragma unroll
-    for (int u = 0; u < kTanUnroll; ++u)
+    for (int u = 0; u < U; ++u)
       load_mean_row_tan<Q>(n - u, n_aug, dir, n_col, c, g, G, rows[u]);
 #pragma unroll
-    for (int u = 0; u < kTanUnroll; ++u)
+    for (int u = 0; u < U; ++u)
       mean_step_tan<Q>(n - u, n_aug, dir, n_col, c, rows[u], m, dm, ms);
   }
   for (; n >= 0; --n) {
@@ -127,24 +138,46 @@ __global__ void __launch_bounds__(kTanCols * kMaxTan)
   }
 }
 
+inline SplitGeometry mean_tan_geometry(int n_col, int n_tan) {
+  return {dim3((n_col + kTanCols - 1) / kTanCols), dim3(kTanCols, n_tan)};
+}
+
 }  // namespace rodeo
 
-// n_col = n_block * B, n_tan tangent directions (1..4); g (T, NAUG q,
-// n_col), G (T, NAUG q q, n_col), mN (NAUG q, n_col) and ms (T, NAUG q,
-// n_col) in device memory, as smoother_mean_recursion_batch_tan
-// (ops/fused_kalman.py) documents.  Returns a cudaError_t.
-extern "C" int rodeo_smoother_mean_batch_tan(int n_steps, int n_col,
+// q: the derivatives per block, 3, 4 or 5; n_col = n_block * B, n_tan
+// tangent directions, 1 to kMaxTan (7); any other returns
+// cudaErrorInvalidValue.  g (T, NAUG q, n_col), G (T, NAUG q q, n_col), mN
+// (NAUG q, n_col) and ms (T, NAUG q, n_col) in device memory, as
+// smoother_mean_recursion_batch_tan (ops/fused_kalman.py) documents.
+// Returns a cudaError_t.
+extern "C" int rodeo_smoother_mean_batch_tan(int q, int n_steps, int n_col,
                                              int n_tan, const void* g,
                                              const void* G, const void* mN,
                                              void* ms, void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_col < 1 || n_tan < 1 || n_tan > kMaxTan)
     return cudaErrorInvalidValue;
-  const dim3 block(kTanCols, n_tan);
-  const dim3 grid((n_col + kTanCols - 1) / kTanCols);
-  smoother_mean_tan_kernel<3><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_steps, n_col, n_tan, static_cast<const float*>(g),
-      static_cast<const float*>(G), static_cast<const float*>(mN),
-      static_cast<float*>(ms));
-  return cudaGetLastError();
+  const SplitGeometry geo = mean_tan_geometry(n_col, n_tan);
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    smoother_mean_tan_kernel<decltype(qq)::value>
+        <<<geo.grid, geo.block, 0, static_cast<cudaStream_t>(stream)>>>(
+            n_steps, n_col, n_tan, static_cast<const float*>(g),
+            static_cast<const float*>(G), static_cast<const float*>(mN),
+            static_cast<float*>(ms));
+    return cudaGetLastError();
+  });
+}
+
+// The launch rodeo_smoother_mean_batch_tan makes at q for n_col columns
+// and n_tan directions on the current device, as report_geometry's nine
+// ints (block_step.cuh) in out.  Returns a cudaError_t.
+extern "C" int rodeo_smoother_mean_batch_tan_geometry(int q, int n_col,
+                                                      int n_tan, void* out) {
+  using namespace rodeo;
+  if (n_col < 1 || n_tan < 1 || n_tan > kMaxTan) return cudaErrorInvalidValue;
+  return with_value<3, 4, 5>(q, [&](auto qq) {
+    return report_geometry(smoother_mean_tan_kernel<decltype(qq)::value>,
+                           mean_tan_geometry(n_col, n_tan),
+                           static_cast<int*>(out));
+  });
 }

@@ -1,7 +1,7 @@
 // A recursion as a stream: the ring of shared-memory stages filled by
 // cp.async that the draw K6 (sampler_batch.cu), the smoother rows K2r
 // (smoother_batch_rows.cu), fenrir's backward filters K7b
-// (fenrir_backward_batch.cu), K11b (fenrir_backward_batch_tan.cu) and K7a
+// (fenrir_backward_batch.cu), K11b (fenrir_backward_batch_tan.cuh) and K7a
 // (fenrir_backward_single.cu), the single-solve smoother K4
 // (smoother_single.cu), MAGI's filter K10a (magi_batch.cu) and its adjoint
 // K10b (magi_adjoint_batch.cu) run.

@@ -24,6 +24,16 @@ The rules (value ``a``, tangent ``da``; ``q = a / b``):
 - ``log a``: ``da / a``;  ``exp a``: ``da * exp(a)``;
 - ``a ** p`` for a number ``p``: ``da * (p a^{p-1})``.
 
+A Dual's value and tangents may themselves be Duals (a nested Dual, of a
+higher :attr:`Dual.level`): K11a's twin takes the Jacobian of a model
+without a hand-written one (:func:`rodeo_tpu_torch.models.own_block_jacobian`)
+on states that already carry theta's tangents, as the kernel's
+``DualT<Dual>`` does.  A Dual of a lower level mixed with one of a higher
+level is a constant to it; where two Duals of one level have values of
+different ranks, the tangents of the lower-ranked one are aligned to the
+result's axes (the directions lead), as a nested Dual's tangent, of the
+direction's axis more, meets a value.
+
 ``torch.cat`` and ``torch.stack`` of Duals and constants stack values and
 tangents alike, so a block-form ODE written with them runs on Duals too
 (:func:`rodeo_tpu_torch.interrogate.interrogate_kramer`'s forward mode,
@@ -37,7 +47,8 @@ __all__ = ["Dual", "Jet2", "primal", "seed_directions", "constant", "rows",
 
 class Dual:
     """A value ``v`` with tangents ``d`` of shape ``(n_dir,) + v.shape``
-    (or broadcastable to it)."""
+    (or broadcastable to it); ``v`` and ``d`` are tensors, or Duals of one
+    level less."""
 
     __slots__ = ("v", "d")
 
@@ -48,6 +59,15 @@ class Dual:
     @property
     def shape(self):
         return self.v.shape
+
+    @property
+    def ndim(self):
+        return self.v.ndim
+
+    @property
+    def level(self):
+        """1 for a Dual of tensors, one more for each nesting."""
+        return 1 + (self.v.level if isinstance(self.v, Dual) else 0)
 
     @property
     def n_dir(self):
@@ -63,17 +83,38 @@ class Dual:
         idx = idx if isinstance(idx, tuple) else (idx,)
         return Dual(self.v[idx], self.d[(slice(None),) + idx])
 
+    def _same(self, o):
+        """True where ``o`` is a Dual of this level, False where it is a
+        constant to it (not a Dual, or one of a lower level), None where it
+        is a Dual of a higher level, whose reflected rule applies (called
+        directly: Python calls no reflected method between two operands of
+        one class)."""
+        if not isinstance(o, Dual):
+            return False
+        lo, ls = o.level, self.level
+        return True if lo == ls else (False if lo < ls else None)
+
     def __add__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v + o.v, self.d + o.d)
+        same = self._same(o)
+        if same is None:
+            return o.__radd__(self)
+        if same:
+            v = self.v + o.v
+            da, db = _tans(self, o, v)
+            return Dual(v, da + db)
         return Dual(self.v + o, self.d)
 
     def __radd__(self, o):
         return Dual(o + self.v, self.d)
 
     def __sub__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v - o.v, self.d - o.d)
+        same = self._same(o)
+        if same is None:
+            return o.__rsub__(self)
+        if same:
+            v = self.v - o.v
+            da, db = _tans(self, o, v)
+            return Dual(v, da - db)
         return Dual(self.v - o, self.d)
 
     def __rsub__(self, o):
@@ -83,17 +124,26 @@ class Dual:
         return Dual(-self.v, -self.d)
 
     def __mul__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v * o.v, self.d * o.v + self.v * o.d)
+        same = self._same(o)
+        if same is None:
+            return o.__rmul__(self)
+        if same:
+            v = self.v * o.v
+            da, db = _tans(self, o, v)
+            return Dual(v, da * o.v + self.v * db)
         return Dual(self.v * o, self.d * o)
 
     def __rmul__(self, o):
         return Dual(o * self.v, o * self.d)
 
     def __truediv__(self, o):
-        if isinstance(o, Dual):
+        same = self._same(o)
+        if same is None:
+            return o.__rtruediv__(self)
+        if same:
             q = self.v / o.v
-            return Dual(q, (self.d - q * o.d) / o.v)
+            da, db = _tans(self, o, q)
+            return Dual(q, (da - q * db) / o.v)
         return Dual(self.v / o, self.d / o)
 
     def __rtruediv__(self, o):
@@ -126,12 +176,43 @@ class Dual:
         if func in (torch.ones_like, torch.zeros_like):
             x = args[0]
             return Dual(func(x.v), torch.zeros_like(x.d))
+        if func is torch.broadcast_to:
+            x, shape = args[0], tuple(args[1])
+            return Dual(torch.broadcast_to(x.v, shape), torch.broadcast_to(
+                _lift(x.d, len(shape) - x.ndim), (x.n_dir,) + shape))
         # a plain tensor on the left of an operator: the Dual's reflected
         # rule
         reflected = _REFLECTED.get(getattr(func, "__name__", ""))
         if reflected and len(args) == 2 and isinstance(args[1], Dual):
             return getattr(args[1], reflected)(args[0])
         return NotImplemented
+
+
+def _expand(x, axis, k):
+    """``x`` with ``k`` axes of length 1 inserted at ``axis`` (of a Dual's
+    value; its tangents' one further)."""
+    if isinstance(x, Dual):
+        return Dual(_expand(x.v, axis, k), _expand(x.d, axis + 1, k))
+    return x.reshape(tuple(x.shape[:axis]) + (1,) * k
+                     + tuple(x.shape[axis:]))
+
+
+def _lift(d, k):
+    """Tangents ``d`` with ``k`` value axes of length 1 inserted after the
+    directions' axis."""
+    return _expand(d, 1, k) if k > 0 else d
+
+
+def _tans(a, b, result):
+    """The tangents of Duals ``a`` and ``b`` of one level, aligned to the
+    value ``result`` of a rule between them where both carry a tangent
+    axis per value axis (else as they are: a Dual whose tangents a
+    parameter broadcast short of an axis stays short, and
+    :func:`rodeo_tpu_torch.interrogate._dual_jacobian` sees it)."""
+    if a.d.ndim != a.ndim + 1 or b.d.ndim != b.ndim + 1:
+        return a.d, b.d
+    return (_lift(a.d, result.ndim - a.ndim),
+            _lift(b.d, result.ndim - b.ndim))
 
 
 # Tensor methods that meet a Dual as their second operand, and the Dual's

@@ -23,7 +23,7 @@ The gradient runs the same stages forward-mode: K11a
 (:func:`~rodeo_tpu_torch.ops.fused_kalman.fused_filter_batch_tan`) emits
 the chain with its tangents along each parameter, the terminal update runs
 on :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers in torch, and **K11b**
-``csrc/fenrir_backward_batch_tan.cu`` (replacing
+``csrc/fenrir_backward_batch_tan.cuh`` (replacing
 ``_fenrir_backward_kernel_batch_tan``) is K7b carrying the tangents, with
 the same skip.
 
@@ -47,7 +47,8 @@ import torch
 from rodeo_tpu_torch.ops.dual import rows, split
 from rodeo_tpu_torch.ops.dual import stack as dual_stack
 from rodeo_tpu_torch.ops.fused_kalman import (
-    _LOG2PI, _block_sum, _check, _fused_inputs, _interrogation_normals,
+    _LOG2PI, _block_sum, _check, _check_n_tan, _fused_inputs,
+    _interrogation_normals,
     _kernel_operands, _launch, _launch_geometry, _masked_obs_update_cols,
     _pack_tri, _single_operands, _sym_quadform, _tri_idx, fused_filter,
     fused_filter_batch, fused_filter_batch_tan,
@@ -105,7 +106,7 @@ def _fenrir_backward_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
 
 def _fenrir_backward_tan_plain(A, b, C, d, y, om, mask, m_seed, p_seed,
                                n_tan, skip_unobserved=True):
-    """Plain PyTorch twin of ``csrc/fenrir_backward_batch_tan.cu``: K7b's
+    """Plain PyTorch twin of ``csrc/fenrir_backward_batch_tan.cuh``: K7b's
     twin on the augmented chain and seeds read as Duals, skipping the
     observation update at steps without data as K11b does (unless
     ``skip_unobserved=False``).  Returns each block's log-density sum and
@@ -130,17 +131,18 @@ def _fenrir_backward_batch_geometry(n_block, n_lane, q=3, device=None):
                             extra=("stages", "steps_per_stage"), q=q)
 
 
-def _fenrir_backward_batch_tan_geometry(n_block, n_lane, n_tan,
+def _fenrir_backward_batch_tan_geometry(n_block, n_lane, n_tan, q=3,
                                         device=None):
-    """The launch of kernel K11b (:func:`fenrir_backward_batch_tan`) over
-    ``n_block x n_lane`` columns and ``n_tan`` directions with aligned
-    operands on the card, as
+    """The launch of kernel K11b (:func:`fenrir_backward_batch_tan`) at
+    ``q`` over ``n_block x n_lane`` columns and ``n_tan`` directions with
+    aligned operands on the card, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports it
     (its shared memory dynamic), with the stages of its shared-memory ring
     and the steps a stage holds."""
+    _check_n_tan("fenrir_backward_batch_tan", n_tan)
     return _launch_geometry("fenrir_backward_batch_tan", device, n_block,
                             n_lane, n_tan,
-                            extra=("stages", "steps_per_stage"))
+                            extra=("stages", "steps_per_stage"), q=q)
 
 
 def fenrir_backward_batch(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
@@ -185,6 +187,8 @@ def fenrir_backward_batch_tan(A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
         ld0 (Tensor(n_aug, B)): The log-density of step N's observation
             and its tangents.
 
+    The kernel holds q = 3, 4 and 5 at 1 to 7 directions.
+
     Returns:
         (Tensor(n_aug, B)): ``ld0`` plus the log-density of steps 0..N-1,
         and its tangents.
@@ -222,6 +226,8 @@ def _fenrir_backward(n_tan, A, b, C, d, y, om, mask, m_seed, p_seed, ld0):
                                                m_seed, p_seed,
                                                skip_unobserved=True)
     else:
+        if n_tan:
+            _check_n_tan("fenrir_backward_batch_tan", n_tan)
         ld_blocks = m_seed.new_empty(
             (n_aug, n_block, n_lane) if n_tan else (n_block, n_lane))
         sizes = (n_steps, n_block, n_lane) + ((n_tan,) if n_tan else ())

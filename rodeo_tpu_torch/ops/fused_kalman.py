@@ -26,7 +26,7 @@ of kernels, batched along a trailing lane axis:
   the boundary rows as synthetic elements.  The JAX package runs the bare
   recursion and assembles the rows in XLA, because its rows kernel does
   not lower well on the TPU; on the card one kernel does both;
-- **K11a** ``csrc/filter_batch_tan.cu`` replaces
+- **K11a** ``csrc/filter_batch_tan.cuh`` replaces
   ``pallas_fenrir._filter_kernel_batch_tan`` (``emit="gains"``): K1 carrying
   the tangents of its state along each theta direction (forward mode);
 - **K11e** ``csrc/smoother_mean_batch_tan.cu`` replaces
@@ -76,9 +76,13 @@ The kernels work in float32 in the Taylor-scaled coordinates of
 TPU kernels did.  Covariances are packed upper triangles in
 :func:`_tri_idx` order.  Each kernel is instantiated for the (model
 functor, interrogation, q) listed in ``_INSTANCES``: K1 and K3 for every
-interrogation on the first-order models at q = 3 and on Chkrebtii's
-second-order ODE at q = 4 and 5, K2r and K4 for q = 3, 4 and 5, the others
-for kramer and rodeo on Lorenz63 and FitzHugh-Nagumo at q = 3.
+interrogation on the first-order models at q = 3, on FitzHugh-Nagumo also
+at q = 4 and 5 (its weight and initial state padded with zeros past the
+third derivative) and on Chkrebtii's second-order ODE at q = 4 and 5, K11a
+for kramer and rodeo on the same (model, q), K2r, K4 and the tangent
+recursions K11e and K11b for q = 3, 4 and 5 (the tangent ones at 1 to
+``_MAX_TAN`` = 7 directions, Hes1's 7 parameters), the others as
+``_INSTANCES`` lists them.
 """
 import ctypes
 import importlib
@@ -132,30 +136,42 @@ def _product(models, modes, qs):
 # The instances each kernel holds, as (model functor, mode, q): None where
 # the kernel takes no model or no mode.  The C entry points dispatch over
 # the same lists (csrc/dispatch.cuh) and return an error for any other;
-# _launch and the geometry queries refuse them first.
+# _launch and the geometry queries refuse them first.  The tangent
+# recursions K11b and K11e also take 1 to _MAX_TAN directions
+# (_check_n_tan).
 _EK = _product(("Lorenz63", "FitzHughNagumo"), ("kramer", "rodeo"), (3,))
+_EK_MODES = ("kramer", "rodeo")
+_MAX_TAN = 7
 
 
 def _every_model(modes):
     """The first-order models at q = 3 and the second-order Chkrebtii at
-    q = 4 and 5, under ``modes``."""
+    q = 4 and 5, under ``modes`` (K8's instances)."""
     return _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"), modes,
                     (3,)) | _product(("Chkrebtii",), modes, (4, 5))
 
 
-_EVERY_MODE = _every_model(tuple(_MODES))
+def _filter_models(modes):
+    """K8's (model, q) and FitzHugh-Nagumo at q = 4 and 5, under ``modes``
+    (the instances of K1, K3 and K11a, csrc/dispatch.cuh's
+    with_filter_instance)."""
+    return _every_model(modes) | _product(("FitzHughNagumo",), modes,
+                                          (4, 5))
+
+
+_EVERY_MODE = _filter_models(tuple(_MODES))
 _Q3 = _product((None,), (None,), (3,))
 _Q345 = _product((None,), (None,), (3, 4, 5))
 _MEAN = _product(("Lorenz63", "FitzHughNagumo"), (None,), (3,))
 _INSTANCES = {
     "filter_batch": _EVERY_MODE, "filter_single": _EVERY_MODE,
     "smoother_batch_rows": _Q345, "smoother_single": _Q345,
-    "filter_batch_tan": _EK,
-    "dalton_filter_batch": _every_model(("kramer", "rodeo")),
+    "filter_batch_tan": _filter_models(_EK_MODES),
+    "dalton_filter_batch": _every_model(_EK_MODES),
     "dalton_filter_batch_tan": _EK, "filter_nn_batch": _EK,
-    "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q3,
+    "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q345,
     "sampler_batch": _Q345, "fenrir_backward_batch": _Q345,
-    "fenrir_backward_batch_tan": _Q3, "fenrir_backward_single": _Q345,
+    "fenrir_backward_batch_tan": _Q345, "fenrir_backward_single": _Q345,
     "magi_batch": _Q3, "magi_adjoint_batch": _Q3,
     "mean_gain_single": _MEAN, "mean_boundary_single": _MEAN,
     "mean_recovery_single": _MEAN}
@@ -178,6 +194,15 @@ def _check_instance(kernel, q, model=None, mode=None):
         raise NotImplementedError(
             f"the {kernel} kernel holds no instance for {asked}; it holds "
             f"({holds})")
+
+
+def _check_n_tan(kernel, n_tan):
+    """Raise NotImplementedError unless the tangent recursion ``kernel``
+    (K11b, K11e) holds ``n_tan`` directions: 1 to ``_MAX_TAN``."""
+    if not 1 <= n_tan <= _MAX_TAN:
+        raise NotImplementedError(
+            f"the {kernel} kernel holds 1 to {_MAX_TAN} tangent directions; "
+            f"got {n_tan}")
 
 
 def _tri_idx(q):
@@ -611,7 +636,9 @@ def _check(name, t, shape, device):
 _TAKES_Q = frozenset({"filter_batch", "filter_single", "smoother_batch_rows",
                       "smoother_single", "sampler_batch",
                       "fenrir_backward_batch", "fenrir_backward_single",
-                      "dalton_filter_batch"})
+                      "dalton_filter_batch", "filter_batch_tan",
+                      "fenrir_backward_batch_tan",
+                      "smoother_mean_batch_tan"})
 
 
 def _instance_args(kernel, q, model, mode, obs):
@@ -694,12 +721,23 @@ def _filter_batch_geometry(model, n_lane, mode="kramer", q=3, device=None):
                             mode=mode)
 
 
-def _filter_batch_tan_geometry(model, n_lane, mode="kramer", device=None):
+def _filter_batch_tan_geometry(model, n_lane, mode="kramer", q=3,
+                              device=None):
     """The launch of kernel K11a (:func:`fused_filter_batch_tan`) at
-    ``n_lane`` lanes on the card, as :func:`_launch_geometry` reports it."""
-    return _launch_geometry("filter_batch_tan", device, n_lane,
+    ``n_lane`` lanes on the card, for the model, mode and q of one of its
+    instances, as :func:`_launch_geometry` reports it."""
+    return _launch_geometry("filter_batch_tan", device, n_lane, q=q,
                             model=resolve_model(model).cuda_functor,
                             mode=mode)
+
+
+def _smoother_mean_batch_tan_geometry(n_col, n_tan, q=3, device=None):
+    """The launch of kernel K11e (:func:`smoother_mean_recursion_batch_tan`)
+    at ``q`` over ``n_col`` (block, lane) columns and ``n_tan`` directions
+    on the card, as :func:`_launch_geometry` reports it."""
+    _check_n_tan("smoother_mean_batch_tan", n_tan)
+    return _launch_geometry("smoother_mean_batch_tan", device, n_col, n_tan,
+                            q=q)
 
 
 def _filter_single_geometry(model, mode="kramer", q=3, device=None):
@@ -850,7 +888,7 @@ def _filter_batch_plain(model, n_steps, q_const, prior_var, ode_weight,
 
 def _filter_batch_tan_plain(model, n_steps, q_const, prior_var, ode_weight,
                             t_vec, x0_lanes, theta_lanes, tgrid, mode):
-    """Plain PyTorch twin of ``csrc/filter_batch_tan.cu``: K1's twin on
+    """Plain PyTorch twin of ``csrc/filter_batch_tan.cuh``: K1's twin on
     Duals, theta seeded along its ``n_theta`` basis directions and the
     initial state exact.  Arguments as :func:`fused_filter_batch`; returns
     as :func:`fused_filter_batch_tan`."""
@@ -888,8 +926,9 @@ def fused_filter_batch(model, n_steps, q_const, prior_var, ode_weight,
             chkrebtii draws (the JAX package's layout); other modes take
             none.
 
-    The kernel holds the first-order models at q = 3 and Chkrebtii at q =
-    4 and 5, each in every mode (``_INSTANCES``).
+    The kernel holds the first-order models at q = 3, FitzHugh-Nagumo also
+    at q = 4 and 5, and Chkrebtii at q = 4 and 5, each in every mode
+    (``_INSTANCES``).
 
     Returns:
         (tuple): ``G (N, q*q, n_block, B)`` row-major gains, ``g (N, q,
@@ -910,7 +949,9 @@ def fused_filter_batch_tan(model, n_steps, q_const, prior_var, ode_weight,
     Tangent-augmented lane-batched forward filter (kernel K11a): K1 and the
     derivative of everything it emits along each of the ``n_theta`` theta
     basis directions, the initial state held fixed.  Arguments as
-    :func:`fused_filter_batch`.
+    :func:`fused_filter_batch`; the kernel holds K1's models and q under
+    kramer and rodeo (``_INSTANCES``), Hes1's and SEIRAH's Jacobian under
+    kramer on nested Duals.
 
     Returns:
         (tuple): As :func:`fused_filter_batch`, each output with its
@@ -1143,7 +1184,8 @@ def smoother_mean_recursion_batch_tan(g_aug, G_aug, mN_aug, n_tan):
         G_aug (Tensor(T, n_aug*q*q, n_block, B)): Gains, row-major, and
             their tangents.
         mN_aug (Tensor(n_aug*q, n_block, B)): Terminal values and tangents.
-        n_tan (int): Number of tangent directions.
+        n_tan (int): Number of tangent directions; the kernel holds 1 to
+            ``_MAX_TAN`` = 7 at q = 3, 4 and 5.
 
     Returns:
         (Tensor(T, n_aug*q, n_block, B)): The means and their tangents.
@@ -1159,6 +1201,7 @@ def smoother_mean_recursion_batch_tan(g_aug, G_aug, mN_aug, n_tan):
         _check(name, t, shape, device)
     if device.type == "cpu":
         return _smoother_mean_tan_plain(g_aug, G_aug, mN_aug, n_tan)
+    _check_n_tan("smoother_mean_batch_tan", n_tan)
     ms = torch.empty_like(g_aug)
     _launch(LAUNCHES, "smoother_mean_batch_tan", q, device, n_len,
             n_block * n_lane, n_tan, g_aug, G_aug, mN_aug, ms)

@@ -10,18 +10,33 @@ at 5 steps of the grid.
 The JAX package's batched entries take Hes1's and SEIRAH's Jacobian from
 ``jvp_jac_flat``, whose seed columns hold one lane: under kramer they run
 one lane a call (``jax_lanes``), each lane against the port's.
+
+The gradient path's tests (``tests/test_torch_coverage_grad*.py``) take
+these cases and FitzHugh-Nagumo at q = 4 and 5 (``GRAD_CASES``), the JAX
+package's Hes1 and SEIRAH Jacobian for all lanes at once (``jac_lanes``),
+and share their tolerances, the tangent kernels' seeded chains and the
+solve's checks here.
 """
+import functools
+
+import jax
 import numpy as np
 import torch
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
-from rodeo_tpu.models import chkrebtii as jchk, hes1 as jhes1
-from rodeo_tpu.models import seirah as jseirah
+from rodeo_tpu import interrogate as jint
+from rodeo_tpu.models import chkrebtii as jchk, fitzhugh as jfitz
+from rodeo_tpu.models import hes1 as jhes1, seirah as jseirah
+from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
+from rodeo_tpu.ops import precond as jprecond
 from rodeo_tpu.prior import ibm_init as j_ibm_init
 
-from rodeo_tpu_torch.models import chkrebtii as tchk, hes1 as thes1
-from rodeo_tpu_torch.models import seirah as tseirah
+from rodeo_tpu_torch.models import chkrebtii as tchk, fitzhugh as tfitz
+from rodeo_tpu_torch.models import hes1 as thes1, seirah as tseirah
+from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
 
 # tests/test_torch_fused_kalman.py's tolerance, of the largest reference
@@ -37,6 +52,14 @@ Q5_TOL = 7.3e-3
 # the JAX package land one ulp apart on two of the 4 lanes (8.5e-3
 # relative), each within two ulps of the float64 torch-op.  3 x the gap.
 DALTON_Q5_TOL = 2.6e-2
+# tests/test_torch_grad.py's tolerance of each parameter's gradient (or
+# sensitivity), of its largest entry; at q = 5, where both packages'
+# float32 values are rounding-bound (Q5_TOL), GRAD_Q5_TOL: their fenrir
+# gradients on FitzHugh-Nagumo under rodeo lie up to 8.2e-4 (the port) and
+# 4.0e-4 (the JAX package) of the largest entry from the JAX package's
+# float64 plain reference, 1.2e-3 apart; 3 x the gap
+GRAD_RTOL = 1e-3
+GRAD_Q5_TOL = 3.7e-3
 N_STEPS, N_LANE, N_OBS = 40, 4, 5
 OBS_VAR = 0.005
 
@@ -48,12 +71,27 @@ CASES = {"chkrebtii_q4": ("chkrebtii", 4, "kramer"),
          "seirah_kramer": ("seirah", 3, "kramer"),
          "seirah_rodeo": ("seirah", 3, "rodeo")}
 _MODULES = {"chkrebtii": (jchk, tchk), "hes1": (jhes1, thes1),
-            "seirah": (jseirah, tseirah)}
+            "seirah": (jseirah, tseirah), "fitzhugh": (jfitz, tfitz)}
+# The gradient path's cases (tests/test_torch_coverage_grad*.py): those of
+# the value path and FitzHugh-Nagumo at q = 4 and 5, the JAX package's
+# setup with its weight and initial state padded with zeros past the third
+# derivative and the IBM prior of q derivatives (built in numpy, the same
+# arrays given to both packages), 40 steps to FITZ_T_MAX.
+GRAD_CASES = {**CASES,
+              "fitzhugh_q4_kramer": ("fitzhugh", 4, "kramer"),
+              "fitzhugh_q4_rodeo": ("fitzhugh", 4, "rodeo"),
+              "fitzhugh_q5_kramer": ("fitzhugh", 5, "kramer"),
+              "fitzhugh_q5_rodeo": ("fitzhugh", 5, "rodeo")}
+FITZ_T_MAX = 2.0
+# the gradient cases where the JAX package's fused gradient path misses its
+# own float64 plain reference (tests/test_torch_coverage_grad*.py measure
+# it): FitzHugh-Nagumo under kramer at q = 4 and 5
+JAX_FUSED_MISSES = ("fitzhugh_q4_kramer", "fitzhugh_q5_kramer")
 
 
 def tol(name, rtol=SCALED_TOL, q5_tol=Q5_TOL):
     """The tolerance of case ``name``: ``rtol``, or ``q5_tol`` at q = 5."""
-    return q5_tol if CASES[name][1] == 5 else rtol
+    return q5_tol if GRAD_CASES[name][1] == 5 else rtol
 
 
 def _t(a):
@@ -72,11 +110,32 @@ def case(name, seed=40):
     variance OBS_VAR, as chip_smoke.py's coverage_value phase makes them:
     every lane lies off them, as a parameter sweep's lanes do).
     Chkrebtii's ODE has no parameter: its lanes scale x0 by 1 + 1e-3 x
-    normals; the others scale theta by 1 + 0.01 x normals."""
-    model, q, mode = CASES[name]
+    normals; the others scale theta by 1 + 0.01 x normals.  ``name`` is one
+    of GRAD_CASES."""
+    model, q, mode = GRAD_CASES[name]
     jmod, tmod = _MODULES[model]
     rng = np.random.default_rng(seed)
-    if model == "chkrebtii":
+    if model == "fitzhugh":
+        t_max = FITZ_T_MAX
+        jcfg = jfitz.setup(n_steps=N_STEPS, t_max=t_max, dtype=jnp.float32)
+        theta = np.asarray(jcfg.pop("theta"), np.float32)
+        pad = ((0, 0), (0, 0), (0, q - 3))
+        W = np.pad(np.asarray(jcfg["ode_weight"], np.float32), pad)
+        x0 = np.pad(np.asarray(jcfg["ode_init"], np.float32), pad[1:])
+        prior = [np.asarray(a, np.float32) for a in j_ibm_init(
+            t_max / N_STEPS, q, jnp.array([0.1, 0.1], jnp.float32))]
+        jcfg.update(ode_weight=jnp.asarray(W), ode_init=jnp.asarray(x0),
+                    prior_pars=tuple(jnp.asarray(a) for a in prior))
+        tcfg = dict(ode_weight=_t(W), ode_init=_t(x0),
+                    prior_pars=tuple(_t(a) for a in prior))
+        jac = lambda x, th, t: jfitz.fitzhugh_jac_flat(x, th, t) + \
+            [None] * (q - 3)  # noqa: E731
+        thetas = (theta * (1 + 0.01 * rng.standard_normal(
+            (N_LANE, theta.shape[0])))).astype(np.float32)
+        inits = np.ascontiguousarray(np.broadcast_to(
+            x0, (N_LANE,) + x0.shape), np.float32)
+        per_lane = False
+    elif model == "chkrebtii":
         t_max = 10.0
         jcfg = jchk.setup(n_steps=N_STEPS, dtype=jnp.float32)
         jcfg.pop("theta")
@@ -133,6 +192,36 @@ def case(name, seed=40):
                 thetas=thetas, inits=inits, obs=obs)
 
 
+def jac_lanes(flat, n_block, q):
+    """Column 0 of a right-hand side's block-diagonal Jacobian by one
+    ``jax.jvp`` per block on lane-wide seeds, as ``pk.jvp_jac_flat``
+    takes it on one lane: the JAX package's fused entries take it for all
+    lanes at once (the tangent kernels nest it in their own ``jax.jvp``)."""
+    def jac_flat(x_cols, th, t):
+        col = None
+        for b in range(n_block):
+            seed = jnp.zeros_like(x_cols[0]).at[b].set(1.0)
+            seeds = [seed] + [jnp.zeros_like(c) for c in x_cols[1:]]
+            _, tang = jax.jvp(lambda cols: flat(cols, th, t), (x_cols,),
+                              (seeds,))
+            piece = tang[b:b + 1]
+            col = piece if col is None else jnp.concatenate([col, piece])
+        return [col] + [None] * (q - 1)
+
+    return jac_flat
+
+
+def jax_grad_case(name):
+    """case(name), the JAX package's Jacobian of Hes1 and SEIRAH under
+    kramer taken for all lanes at once (jac_lanes), as the gradient
+    tests run its fused gradient entries."""
+    c = case(name)
+    if c["mode"] == "kramer" and c["model"] in ("hes1", "seirah"):
+        nb = c["inits"].shape[1]
+        c.update(jjac=jac_lanes(c["jflat"], nb, c["q"]), per_lane=False)
+    return c
+
+
 def jax_lanes(c, call):
     """``call(thetas, inits)`` of the JAX package over the case's lanes: in
     one call, or where its batch takes one lane a call (``per_lane``) one
@@ -155,6 +244,24 @@ def port_args(c):
     return args, kw, {k: _t(v) for k, v in c["obs"].items()}
 
 
+def ulp_up(a):
+    """``a`` (float32) with every nonzero entry moved one ulp up."""
+    a = np.asarray(a, np.float32)
+    return np.where(a != 0, np.nextafter(a, np.float32(np.inf)), a)
+
+
+def ulp_case(c):
+    """Case ``c`` with its operands moved one float32 ulp (ulp_up): each
+    lane's theta and initial state and the prior variance.  The port's
+    outputs move by how far float32 resolves them (tests/test_torch_sim.py's
+    rule, which moves theta; under rodeo no covariance depends on theta)."""
+    tcfg = dict(c["tcfg"])
+    weight, var = tcfg["prior_pars"]
+    tcfg["prior_pars"] = (weight, _t(ulp_up(var)))
+    return dict(c, thetas=ulp_up(c["thetas"]), inits=ulp_up(c["inits"]),
+                tcfg=tcfg)
+
+
 def jax_common(c):
     """The JAX package's keywords shared by its fused entries for case
     ``c``."""
@@ -169,3 +276,302 @@ def scaled_err(port, ref):
     ref = np.asarray(ref, np.float64)
     assert np.isfinite(port).all() and np.isfinite(ref).all()
     return np.abs(port - ref).max() / np.abs(ref).max()
+
+
+# --- the gradient path's twins (tests/test_torch_coverage_grad*.py) --------
+
+
+def tan_err(port, ref):
+    """max|port - ref| / max|ref|; the absolute error where ref is all
+    zero (a tangent along a parameter the output does not depend on): the
+    tangent tests' scaled error."""
+    port = np.asarray(port, np.float64)
+    ref = np.asarray(ref, np.float64)
+    scale = np.abs(ref).max()
+    err = np.abs(port - ref).max()
+    return err / scale if scale > 0 else err
+
+
+def slice_errs(port, ref, k, axis):
+    """Scaled error of each of the n_aug slices of k entries along axis:
+    the values, then each tangent direction."""
+    port, ref = np.asarray(port), np.asarray(ref)
+    n_aug = ref.shape[axis] // k
+    return [tan_err(np.take(port, range(a * k, (a + 1) * k), axis),
+                        np.take(ref, range(a * k, (a + 1) * k), axis))
+            for a in range(n_aug)]
+
+
+def vmem(shape):
+    return pl.BlockSpec(shape, lambda i: tuple([0] * len(shape)),
+                        memory_space=pltpu.VMEM)
+
+
+def tan_chain(q, n_tan, n_steps, nb, B, seed):
+    """A seeded augmented backward chain (values and n_tan nonzero
+    tangents), observation grid and seeds, float32 numpy."""
+    rng = np.random.default_rng(seed)
+    pairs, _ = fk._tri_idx(q)
+    A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+        0.1 * rng.standard_normal((n_steps, q * q, nb, B))
+    M = 0.3 * rng.standard_normal((n_steps, nb, B, q, q))
+    Cf = M @ np.swapaxes(M, -1, -2)
+    C = np.stack([Cf[..., i, j] for i, j in pairs], axis=1)
+    Mp = rng.standard_normal((nb, B, q, q))
+    Pf = Mp @ np.swapaxes(Mp, -1, -2)
+    p_seed = np.stack([Pf[..., i, j] for i, j in pairs])
+
+    def aug(v, axis):
+        tans = [0.1 * rng.standard_normal(v.shape) for _ in range(n_tan)]
+        return np.concatenate([v] + tans, axis=axis)
+
+    mask = (rng.random(n_steps) < 0.3).astype(np.float64)
+    d = rng.standard_normal((n_steps, q, nb)) * mask[:, None, None]
+    y = rng.standard_normal((n_steps, nb)) * mask[:, None]
+    om = np.where(mask[:, None] > 0, 0.1 + rng.random((n_steps, nb)), 1.0)
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return dict(A=f32(aug(A, 1)),
+                b=f32(aug(rng.standard_normal((n_steps, q, nb, B)), 1)),
+                C=f32(aug(C, 1)), d=f32(d), y=f32(y), om=f32(om),
+                mask=f32(mask),
+                m_seed=f32(aug(rng.standard_normal((q, nb, B)), 0)),
+                p_seed=f32(aug(p_seed, 0)),
+                ld0=f32(rng.standard_normal((1 + n_tan, B))))
+
+
+# --- the solve's sensitivities and basic's gradient
+# (tests/test_torch_coverage_grad_solve*.py) ------------------------------
+
+
+def b_loglik_jax(obs_data, ode_data, **params):
+    """The basic likelihood's observation log-density of the gradient
+    cases, as the JAX package's obs_loglik (tests/test_torch_grad.py's)."""
+    return jnp.sum(-0.5 * (obs_data[..., 0] - ode_data[..., 0]) ** 2)
+
+
+def b_loglik_torch(obs_data, ode_data, **params):
+    """b_loglik_jax for the port."""
+    return torch.sum(-0.5 * (obs_data[..., 0] - ode_data[..., 0]) ** 2)
+
+
+def jax_basic(c, mean_rows, dmean):
+    """The JAX package's basic_fused_batch_grad after its solve
+    (pallas_kalman.py:2166-2177) on ``(mean_rows, dmean)``: the
+    lane-mapped obs_loglik at the observed steps and its jax.jvp along
+    each parameter's sensitivity."""
+    sim_times = jnp.linspace(0.0, c["t_max"], N_STEPS + 1)
+    obs_ind = jnp.searchsorted(sim_times, c["obs"]["obs_times"])
+    obs_data = jnp.asarray(c["obs"]["obs_data"], mean_rows.dtype)
+
+    def lls_of(rows):
+        return jax.vmap(lambda od: b_loglik_jax(obs_data, od),
+                        in_axes=-1)(rows[obs_ind])
+
+    grads = [jax.jvp(lls_of, (mean_rows,), (dmean[k],))[1]
+             for k in range(dmean.shape[0])]
+    return np.asarray(lls_of(mean_rows)), np.asarray(jnp.stack(grads, -1))
+
+
+def jax_solve_fused(c):
+    """The JAX package's solve_mv_fused_batch_grad over the case's lanes,
+    and its basic stage on it: ``(mean, dmean, loglik, grad)``."""
+    jcfg = c["jcfg"]
+    mean, dmean = jax.jit(lambda ts, x0: pk.solve_mv_fused_batch_grad(
+        thetas=ts, ode_weight=jcfg["ode_weight"], ode_inits=x0, t_min=0.0,
+        t_max=c["t_max"], n_steps=N_STEPS, prior_pars=jcfg["prior_pars"],
+        ode_flat=c["jflat"], jac_flat=c["jjac"], interpret=True))(
+        jnp.asarray(c["thetas"]), jnp.asarray(c["inits"]))
+    return (np.asarray(mean), np.asarray(dmean)) + jax_basic(c, mean, dmean)
+
+
+def jax_solve_plain_fitz(c):
+    """The JAX package's float64 plain reference of FitzHugh-Nagumo case
+    ``c``: ops.precond.solve_mv's posterior mean at each lane and its
+    jax.jvp along each parameter, in the fused layout, and the basic stage
+    on them: ``(mean, dmean, loglik, grad)``."""
+    f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)  # noqa: E731
+    jcfg = c["jcfg"]
+    how = getattr(jint, f"interrogate_{c['mode']}")
+
+    def mean_of(th, x0):
+        return jprecond.solve_mv(
+            None, jfitz.fitzhugh_fun, f64(jcfg["ode_weight"]), x0, 0.0,
+            c["t_max"], N_STEPS, how,
+            tuple(f64(p) for p in jcfg["prior_pars"]), theta=th)[0]
+
+    means_of = jax.jit(jax.vmap(mean_of, out_axes=-1))
+    # each parameter's sensitivity at every lane, (3, ..., B)
+    dmeans_of = jax.jit(jax.vmap(lambda th, x0: jax.vmap(
+        lambda e: jax.jvp(lambda t: mean_of(t, x0), (th,), (e,))[1])(
+            jnp.eye(3)), out_axes=-1))
+    ths, x0s = f64(c["thetas"]), f64(c["inits"])
+    mean, dmean = means_of(ths, x0s), dmeans_of(ths, x0s)
+    return (np.asarray(mean), np.asarray(dmean)) + jax_basic(c, mean, dmean)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_solve_of(name):
+    """The JAX package's jax_solve_fused of gradient case ``name`` and, on
+    FitzHugh-Nagumo, its jax_solve_plain_fitz (else None), computed once a
+    process: check_solve_case and jax_solve_misses share them."""
+    c = jax_grad_case(name)
+    plain = jax_solve_plain_fitz(c) if c["model"] == "fitzhugh" else None
+    return jax_solve_fused(c), plain
+
+
+def port_solve(c):
+    """The port's solve_mv_fused_batch_grad and basic_fused_batch_grad of
+    case ``c`` on the CPU (no launch; the means bitwise
+    solve_mv_fused_batch's): ``(mean, dmean, loglik, grad)``."""
+    args, kw, obs = port_args(c)
+    before = dict(fk.LAUNCHES)
+    mean, dmean = fk.solve_mv_fused_batch_grad(*args, **kw)
+    ll, grad, mean_b = fk.basic_fused_batch_grad(
+        *args, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+        obs_loglik=b_loglik_torch, **kw)
+    assert fk.LAUNCHES == before            # the CPU takes the twins
+    torch.testing.assert_close(mean, fk.solve_mv_fused_batch(*args, **kw)[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(mean_b, mean, rtol=0, atol=0)
+    return mean.numpy(), dmean.numpy(), ll.numpy(), grad.numpy()
+
+
+def held(port, moved, ref, plain, tol):
+    """Whether ``port`` holds to the JAX package's fused ``ref`` within
+    ``tol`` (tan_err) where ``ref`` lies within ``tol`` / 2 of its float64
+    plain reference ``plain`` (None: not computed); else to ``plain``
+    within the larger of ``tol`` and 3 x the port's own move under a
+    one-ulp move of its operands (``moved``: the port's output at
+    ulp_case), which exceeds ``tol`` only where float32 does not resolve
+    the output; with the distances."""
+    miss = None if plain is None else tan_err(ref, plain)
+    if miss is None or miss <= tol / 2:
+        err = tan_err(port, ref)
+        return err <= tol, (err, miss)
+    err, move = tan_err(port, plain), tan_err(moved, port)
+    return err <= max(tol, 3 * move), (err, miss, move)
+
+
+def check_solve_case(name):
+    """solve_mv_fused_batch_grad's means and sensitivities, and
+    basic_fused_batch_grad's values and gradient, against the JAX
+    package's fused path, per derivative, per parameter and derivative,
+    and per parameter.  On FitzHugh-Nagumo at q = 4 and 5 the JAX
+    package's float64 plain reference is computed too: where its fused
+    float32 output lies further than half the tolerance from it (the
+    derivatives past the third, padding, in both packages' float32 solves;
+    the sensitivities under kramer, JAX_FUSED_MISSES), the port is held to
+    that reference instead, within the tolerance or, where float32 does
+    not resolve the output, 3 x the port's own one-ulp move (held).  Row
+    0, the initial state, has no sensitivity."""
+    c = jax_grad_case(name)
+    q = c["q"]
+    mean, dmean, ll, grad = port = port_solve(c)
+    assert np.isfinite(dmean).all() and np.isfinite(grad).all()
+    assert (dmean[:, 0] == 0).all()
+    ref, plain = jax_solve_of(name)
+    moved = (None,) * 4 if plain is None else port_solve(ulp_case(c))
+    plain = plain or (None,) * 4
+    assert mean.shape == ref[0].shape and dmean.shape == ref[1].shape
+    pick = lambda a, *idx: None if a is None else a[idx]  # noqa: E731
+
+    def hold(i, idx, rtol):
+        ok, errs = held(port[i][idx], pick(moved[i], *idx), ref[i][idx],
+                        pick(plain[i], *idx), rtol)
+        assert ok, (i, idx, errs)
+
+    for d in range(q):
+        hold(0, (Ellipsis, d, slice(None)), tol(name))
+    g_rtol = tol(name, GRAD_RTOL, GRAD_Q5_TOL)
+    for k in range(dmean.shape[0]):
+        for d in range(q):
+            hold(1, (k, Ellipsis, d, slice(None)), g_rtol)
+    hold(2, (Ellipsis,), tol(name, LOGLIK_RTOL))
+    for k in range(grad.shape[1]):
+        hold(3, (slice(None), k), g_rtol)
+
+
+# --- fenrir's gradient (tests/test_torch_coverage_grad*.py) ------------------
+
+
+def jax_fenrir_fused(c):
+    """The JAX package's fenrir_fused_batch_grad over the case's lanes:
+    ``(loglik (B,), grad (B, n_theta))`` as numpy."""
+    fn = jax.jit(lambda ts, x0: pf.fenrir_fused_batch_grad(
+        thetas=ts, ode_inits=x0, **c["obs"], **jax_common(c)))
+    ll, g = fn(jnp.asarray(c["thetas"]), jnp.asarray(c["inits"]))
+    return np.asarray(ll), np.asarray(g)
+
+
+def jax_fenrir_plain_fitz(c):
+    """The JAX package's plain float64 reference of FitzHugh-Nagumo case
+    ``c``: ``ops.precond.fenrir`` and its jax.value_and_grad in theta at
+    each lane, ``(value (B,), grad (B, 3))``."""
+    f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)  # noqa: E731
+    jcfg = c["jcfg"]
+    how = getattr(jint, f"interrogate_{c['mode']}")
+    obs = {k: f64(v) for k, v in c["obs"].items()}
+
+    def value(th, x0):
+        return jprecond.fenrir(
+            None, jfitz.fitzhugh_fun, f64(jcfg["ode_weight"]), x0, 0.0,
+            c["t_max"], N_STEPS, how,
+            tuple(f64(p) for p in jcfg["prior_pars"]), **obs, theta=th)
+
+    vg = jax.jit(jax.value_and_grad(value))
+    out = [vg(f64(c["thetas"][b]), f64(c["inits"][b]))
+           for b in range(N_LANE)]
+    return (np.array([float(v) for v, _ in out]),
+            np.stack([np.asarray(g) for _, g in out]))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fenrir_of(name):
+    """The JAX package's jax_fenrir_fused of gradient case ``name`` and, at
+    JAX_FUSED_MISSES, its jax_fenrir_plain_fitz (else None), computed once a
+    process: check_fenrir_case and jax_fenrir_misses share them."""
+    c = jax_grad_case(name)
+    plain = jax_fenrir_plain_fitz(c) if name in JAX_FUSED_MISSES else None
+    return jax_fenrir_fused(c), plain
+
+
+def check_fenrir_case(name):
+    """fenrir_fused_batch_grad's values and gradient against the JAX
+    package's fused entry, the values within LOGLIK_RTOL relative and
+    each parameter's gradient within GRAD_RTOL of its largest entry (at
+    q = 5 Q5_TOL and GRAD_Q5_TOL); at JAX_FUSED_MISSES, where the fused
+    entry's gradient misses the JAX package's float64 plain reference
+    (jax_fenrir_misses), against that reference within the same
+    tolerances.  On the CPU no kernel launches."""
+    c = jax_grad_case(name)
+    args, kw, obs = port_args(c)
+    before = dict(fk.LAUNCHES, **ff.LAUNCHES)
+    ll_t, g_t = ff.fenrir_fused_batch_grad(*args, **obs, **kw)
+    assert dict(fk.LAUNCHES, **ff.LAUNCHES) == before
+    n_theta = c["thetas"].shape[1]
+    assert ll_t.shape == (N_LANE,) and g_t.shape == (N_LANE, n_theta)
+    assert torch.isfinite(ll_t).all() and torch.isfinite(g_t).all()
+    fused, plain = jax_fenrir_of(name)
+    ll_j, g_j = plain or fused
+    err = np.abs(ll_t.numpy() - ll_j) / np.abs(ll_j)
+    assert err.max() <= tol(name, LOGLIK_RTOL), err
+    g_rtol = tol(name, GRAD_RTOL, GRAD_Q5_TOL)
+    errs = [tan_err(g_t[:, k], g_j[:, k]) for k in range(n_theta)]
+    assert max(errs) <= g_rtol, errs
+
+
+def jax_fenrir_misses(name):
+    """How far the JAX package's fused gradient lies from its own float64
+    plain reference at JAX_FUSED_MISSES case ``name``: the tan_err of each
+    parameter's gradient (jax_fenrir_of)."""
+    (_, g_f), (_, g_p) = jax_fenrir_of(name)
+    return [tan_err(g_f[:, k], g_p[:, k]) for k in range(g_p.shape[1])]
+
+
+def jax_solve_misses(name):
+    """How far the JAX package's fused sensitivities lie from its own
+    float64 plain reference at FitzHugh-Nagumo case ``name``: the tan_err
+    of each parameter's sensitivity of each derivative (jax_solve_of)."""
+    (_, d_f, _, _), (_, d_p, _, _) = jax_solve_of(name)
+    return [tan_err(d_f[k, ..., d, :], d_p[k, ..., d, :])
+            for k in range(d_p.shape[0]) for d in range(d_p.shape[-2])]

@@ -1968,3 +1968,234 @@ def test_value_entries_at_new_instances_launch_their_kernels(cuda_device,
         assert _launched() == {"filter_batch": 2, "fenrir_backward_batch": 1,
                                "sampler_batch": 1}
         assert torch.isfinite(ll).all() and torch.isfinite(path).all()
+
+
+# --- the gradient path's instances taken last: K11a on every model of K1
+# under kramer and rodeo, K11b and K11e at q = 3, 4, 5 and 1-7 directions,
+# K1 and K3 on FitzHugh-Nagumo at q = 4 and 5 ---------------------------------
+
+_NEW_K11A = sorted(
+    fk._INSTANCES["filter_batch_tan"]
+    - {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
+       for md in ("kramer", "rodeo")}, key=lambda k: (k[2], k[0], k[1]))
+
+
+@pytest.mark.parametrize("functor,mode,q", _NEW_K11A,
+                         ids=["-".join(map(str, k)) for k in _NEW_K11A])
+def test_new_tangent_filter_instances_are_bitwise_their_twins(cuda_device,
+                                                              functor, mode,
+                                                              q):
+    """Each instance of K11a that this slice added (Hes1's and SEIRAH's
+    Jacobian under kramer on nested Duals), bitwise against its twin on 37
+    lanes (a ragged lane group) of the functor's INSTANCE_CHECKS setup
+    (tools/torch_coverage_reference.py), its values K1's; its launch at
+    2048 lanes (CTAs of 32 lanes x the blocks, a grid row per parameter,
+    resident on the SMs in waves: SEIRAH's 384 CTAs take two an SM), and
+    ptxas spills nothing in it."""
+    case = cov_ref.instance_case(functor, mode, q, 37, cuda_device, seed=7)
+    ops = {k: v for k, v in case["batch"].items() if k != "eps"}
+    fused, n = case["fused"], case["n_steps"]
+    _reset_launches()
+    k11 = fk.fused_filter_batch_tan(fused, n, **ops, mode=mode)
+    assert _launched() == {"filter_batch_tan": 1}
+    p11 = fk._filter_batch_tan_plain(fused, n, **ops, mode=mode)
+    k1 = fk.fused_filter_batch(fused, n, **ops, mode=mode)
+    for a, b, v in zip(k11, p11, k1):
+        assert torch.isfinite(b).all()
+        assert torch.equal(a, b)
+        assert torch.equal(a.narrow(a.dim() - 3, 0, v.shape[-3]), v)
+    geo = fk._filter_batch_tan_geometry(fused, 2048, mode, q,
+                                        device=cuda_device)
+    assert (geo["cta_x"], geo["cta_y"]) == (32, fused.n_block), geo
+    assert (geo["grid_x"], geo["grid_y"]) == (64, fused.n_theta), geo
+    assert geo["ctas_per_sm"] >= 1, geo
+    assert geo["all_resident"] == (functor != "Seirah"), geo
+    rows = _spills("23filter_batch_tan_kernel", f"{len(functor)}{functor}E",
+                   f"Li{q}ELi{fk._MODES[mode]}E")
+    assert rows and all(r == (0, 0) for r in rows), rows
+
+
+_RECURSION_INSTANCES = [(q, n_tan) for q in (3, 4, 5) for n_tan in range(1, 8)]
+
+
+@pytest.mark.parametrize("q,n_tan", _RECURSION_INSTANCES)
+def test_tangent_recursions_are_bitwise_their_twins(cuda_device, q, n_tan):
+    """K11b and K11e at q = 3, 4, 5 and 1 to 7 directions, bitwise against
+    their twins on seeded augmented chains over 3 blocks x 37 lanes (the
+    columns end inside a CTA of 32, and 111 columns copy 4 bytes at a time)
+    and 64 lanes with every operand 4 bytes past a 16-byte boundary, at 1
+    step, a stage, a stage and one, the ring and one, and 301 steps, data
+    at every third step.  Their launches: K11b n_tan consumer warps and a
+    producer warp, its ring of 3 stages in dynamic shared memory sized from
+    (q, n_tan) (2 steps a stage where that fits 227 KB, else 1); K11e a CTA
+    of 64 columns x n_tan directions; neither spills.  The C entries refuse
+    q = 2 and 6 and 0 or 8 directions."""
+    rng = np.random.default_rng(300 + 10 * q + n_tan)
+    nt, n_aug, nb = q * (q + 1) // 2, 1 + n_tan, 3
+    geo_b = ff._fenrir_backward_batch_tan_geometry(nb, 2048, n_tan, q,
+                                                    device=cuda_device)
+    step, stages = geo_b["steps_per_stage"], geo_b["stages"]
+    assert (geo_b["cta_x"], geo_b["grid_x"]) == (32 * n_aug, 192), geo_b
+    assert stages == 3 and step in (1, 2), geo_b
+    assert geo_b["shared_bytes"] == 4 * 32 * stages * step * n_aug * (
+        q * q + q + nt), geo_b
+    assert geo_b["shared_bytes"] <= 227 * 1024 and geo_b["ctas_per_sm"] >= 1
+    geo_e = fk._smoother_mean_batch_tan_geometry(nb * 2048, n_tan, q,
+                                                 device=cuda_device)
+    assert (geo_e["cta_x"], geo_e["cta_y"]) == (64, n_tan), geo_e
+    assert geo_e["all_resident"] and geo_e["local_bytes"] == 0, geo_e
+
+    def aug(v, axis):
+        return np.concatenate([v] + [0.1 * rng.standard_normal(v.shape)
+                                     for _ in range(n_tan)], axis=axis)
+
+    for n_lane, offset in ((37, 0), (64, 1)):
+        for n_steps in (1, step, step + 1, stages * step + 1, 301):
+            mask = (np.arange(n_steps) % 3 == 0).astype(np.float64)
+            A = np.eye(q).reshape(1, q * q, 1, 1) * 0.8 + \
+                0.1 * rng.standard_normal((n_steps, q * q, nb, n_lane))
+            chain = [_put(a, cuda_device, offset) for a in (
+                aug(A, 1),
+                aug(rng.standard_normal((n_steps, q, nb, n_lane)), 1),
+                aug(np.moveaxis(_packed_psd(rng, (n_steps, nb, n_lane), q,
+                                            0.3), -1, 1), 1),
+                rng.standard_normal((n_steps, q, nb)) * mask[:, None, None],
+                rng.standard_normal((n_steps, nb)) * mask[:, None],
+                np.where(mask[:, None] > 0,
+                         0.1 + rng.random((n_steps, nb)), 1.0),
+                mask, aug(rng.standard_normal((q, nb, n_lane)), 0),
+                aug(np.moveaxis(_packed_psd(rng, (nb, n_lane), q), -1, 0),
+                    0),
+                rng.standard_normal((n_aug, n_lane)))]
+            _reset_launches()
+            k11b = ff.fenrir_backward_batch_tan(*chain)
+            k11e = fk.smoother_mean_recursion_batch_tan(chain[1], chain[0],
+                                                        chain[7], n_tan)
+            assert _launched() == {"fenrir_backward_batch_tan": 1,
+                                   "smoother_mean_batch_tan": 1}
+            p11b = chain[-1] + fd._block_sum(ff._fenrir_backward_tan_plain(
+                *chain[:-1], n_tan).movedim(1, 0))
+            p11e = fk._smoother_mean_tan_plain(chain[1], chain[0], chain[7],
+                                               n_tan)
+            assert torch.isfinite(p11b).all() and torch.isfinite(p11e).all()
+            assert torch.equal(k11b, p11b), (n_lane, n_steps)
+            assert torch.equal(k11e, p11e), (n_lane, n_steps)
+    for sym, part in (("26fenrir_backward_tan_kernel", f"ILi{q}ELi{n_tan}E"),
+                      ("24smoother_mean_tan_kernel", f"ILi{q}EE")):
+        rows = _spills(sym, part)
+        assert rows and all(r == (0, 0) for r in rows), (sym, rows)
+    lib = fk._build.load()
+    for q_k, n_k in ((2, n_tan), (6, n_tan), (q, 0), (q, 8)):
+        assert lib.rodeo_fenrir_backward_batch_tan(
+            q_k, 4, 1, 4, n_k, *([None] * 11)) != 0
+        assert lib.rodeo_smoother_mean_batch_tan(q_k, 4, 4, n_k,
+                                                 *([None] * 5)) != 0
+
+
+_GRAD_CASES = [(name, mode) for name in cov_ref.GRAD_FIXTURES
+               for mode in cov_ref.VALUE_MODES]
+
+
+@pytest.mark.parametrize("name,mode", _GRAD_CASES)
+def test_gradient_entries_at_new_instances_launch_their_kernels(cuda_device,
+                                                                name, mode):
+    """fenrir_fused_batch_grad (K11a, K11b), basic_fused_batch_grad and
+    solve_mv_fused_batch_grad (K11a, K11e) on each gradient fixture's model
+    and q (tools/torch_coverage_reference.py's GRAD_FIXTURES) at its
+    INSTANCE_CHECKS horizon over 5 lanes: their launches, finite, the
+    values bitwise their value entries' (K1 + K7b, K1 + K2r) on the card,
+    and within ENTRY_TOL of the same calls on the CPU."""
+    model, q = cov_ref.GRAD_FIXTURES[name][:2]
+    functor = fk.resolve_model(model).cuda_functor
+    _, n, t_max, sigma = cov_ref.INSTANCE_CHECKS_Q.get(
+        (functor, q), cov_ref.INSTANCE_CHECKS[functor])
+
+    def calls(dev):
+        import importlib
+        mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
+        cfg = mod.setup(n_steps=n, t_max=t_max, prior_sigma=sigma,
+                        dtype=torch.float32, device=dev,
+                        **({"n_deriv": q} if model in cov_ref.PADDED
+                           else {}))
+        theta = cfg.pop("theta")
+        theta = torch.zeros(1, device=dev) if theta is None else theta
+        noise = torch.tensor(np.random.default_rng(3).standard_normal(
+            (5, theta.shape[0])), dtype=torch.float32, device=dev)
+        thetas = theta * (1 + 0.01 * noise)
+        inits = cfg["ode_init"].expand((5,) + cfg["ode_init"].shape)
+        nb = inits.shape[1]
+        weight = torch.zeros((5, nb, 1, q), device=dev)
+        weight[..., 0] = 1.0
+        obs = dict(obs_data=cfg["ode_init"][None, :, 0:1].expand(5, nb, 1)
+                   .contiguous(),
+                   obs_times=torch.linspace(0.0, t_max, 5,
+                                            dtype=torch.float64),
+                   obs_weight=weight,
+                   obs_var=torch.full((5, nb, 1, 1), 0.005, device=dev))
+        lead = (thetas, cfg["ode_weight"], inits, 0.0, t_max, n,
+                cfg["prior_pars"])
+        kw = dict(model=model, interrogation=mode, device=dev)
+        basic = dict(obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+                     obs_loglik=cov_ref.gauss_loglik(0.005))
+        tan_e = {"filter_batch_tan": 1, "smoother_mean_batch_tan": 1}
+        return {
+            "fenrir": (lambda: ff.fenrir_fused_batch_grad(*lead, **obs, **kw),
+                       lambda: ff.fenrir_fused_batch(*lead, **obs, **kw),
+                       {"filter_batch_tan": 1,
+                        "fenrir_backward_batch_tan": 1}),
+            "basic": (lambda: fk.basic_fused_batch_grad(*lead, **basic,
+                                                        **kw),
+                      lambda: fk.basic_fused_batch(*lead, **basic, **kw),
+                      tan_e),
+            "solve": (lambda: fk.solve_mv_fused_batch_grad(*lead, **kw),
+                      lambda: fk.solve_mv_fused_batch(*lead, **kw), tan_e)}
+
+    card, cpu = calls(cuda_device), calls("cpu")
+    for entry, (call, value, launched) in card.items():
+        _reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        assert _launched() == launched, entry
+        assert all(o.is_cuda and torch.isfinite(o).all() for o in out), entry
+        val = value()
+        assert torch.equal(out[0], val if entry == "fenrir" else val[0])
+        if entry == "basic":
+            assert torch.equal(out[2], val[1])
+        _reset_launches()
+        ref = cpu[entry][0]()
+        assert not _launched(), entry
+        for a, b in zip(out, ref):
+            # the absolute error where the CPU's is all zero (the gradient
+            # of Chkrebtii's ODE, which has no parameter)
+            scale = b.abs().max().item()
+            err = (a.cpu() - b).abs().max().item()
+            assert err <= ENTRY_TOL * (scale if scale > 0 else 1.0), entry
+
+
+def test_mala_over_fenrir_on_hes1_on_the_card(cuda_device):
+    """The lockstep MALA runner over fenrir_fused_batch_grad on Hes1 under
+    kramer (K11a, K11b a step, the Jacobian on nested Duals), 16 lanes x 3
+    steps on the card: its launches, finite, and its carried log-density
+    bitwise a fresh fenrir_fused_batch at the final positions."""
+    from rodeo_tpu_torch.models import hes1
+    from rodeo_tpu_torch.parallel import chains
+    cfg, (thetas, _), obs, _ = cov_ref.grad_fixture("hes1", 16,
+                                                    torch.float32,
+                                                    cuda_device)
+    solver = dict(ode_weight=cfg["ode_weight"], ode_init=cfg["ode_init"],
+                  t_min=0.0, t_max=cfg["t_max"], n_steps=cfg["n_steps"],
+                  prior_pars=cfg["prior_pars"])
+    _reset_launches()
+    pos, ll, acc = chains.run_chains_mala_fused(
+        thetas, torch.Generator(cuda_device).manual_seed(5), 3, 1e-4,
+        model=hes1, likelihood="fenrir", device=cuda_device, **solver, **obs)
+    torch.cuda.synchronize()
+    assert _launched() == {"filter_batch_tan": 4,
+                           "fenrir_backward_batch_tan": 4}
+    assert torch.isfinite(pos).all() and torch.isfinite(ll).all()
+    fresh = ff.fenrir_fused_batch(
+        pos[-1], cfg["ode_weight"],
+        cfg["ode_init"].expand((16,) + cfg["ode_init"].shape), 0.0,
+        cfg["t_max"], cfg["n_steps"], cfg["prior_pars"], **obs, model="hes1",
+        device=cuda_device)
+    assert torch.equal(fresh, ll)

@@ -8,6 +8,7 @@ the CPU, which set the audits' tolerances; and the likelihood audits of its
 coverage_value phase, where K6, K7a, K7b and K8 took the same models.
 
     python3 tools/torch_coverage_reference.py [--device cpu] [--out FILE]
+        [--parts solve,value,lanes,grad]
 
 Each fixture (FIXTURES) is one configuration of a model's setup and an
 interrogation:
@@ -30,6 +31,14 @@ float64 torch-op solve plus noise (value_lanes, value_obs): fenrir through
 ``fenrir_fused_batch`` (K1, K7b) and ``fenrir_fused`` (K3, K7a), DALTON
 through ``dalton_fused_batch`` (K8), under kramer and rodeo.
 
+The gradient fixtures (GRAD_FIXTURES) of chip_smoke.py's coverage_grad
+phase are the value fixtures and FitzHugh-Nagumo at q = 4 and 5 on
+bench.py's 200-step gradient fixture (``fenrir_fitz_grad``: 21
+observations of y_fitz_mcmc, variance 0.04), its weight and initial state
+padded with zeros past the third derivative: fenrir through
+``fenrir_fused_batch_grad`` (K11a, K11b) and basic through
+``basic_fused_batch_grad`` (K11a, K11e), under kramer and rodeo.
+
 Prints one JSON line: for each fixture, the largest error of the float32
 solve's x (the mean's 0th derivative, every step and block) against the
 float64 torch-op solve, the solve run by ``solve_mv_fused`` on ``--device``
@@ -48,7 +57,12 @@ at the setup's parameters against their posterior by the sim rule, in
 float32 and by the twins in float64 on the same normals (the witness where
 float32 does not resolve the draws), and the lanes on which float32 DALTON
 is not finite (``VALUE_NAN_LANES``; Hes1's lanes 1 % apart,
-``VALUE_WIDE_LANES``).
+``VALUE_WIDE_LANES``).  Under "grad", for each gradient fixture and
+mode, lane 0's float32 fenrir and basic values and gradients on
+``--device`` against the float64 torch-ops ``ops.precond.fenrir`` and
+``basic`` with ``torch.autograd`` at lane 0's parameters: the absolute
+error of the value and the relative L2 error of the gradient, which
+chip_smoke.py keeps as ``GRAD_F32_CPU_ERR`` (bench.py's gradient rule).
 """
 import argparse
 import json
@@ -82,12 +96,22 @@ INSTANCE_CHECKS = {"Lorenz63": ("lorenz", 64, 0.16, 5e7),
                    "Seirah": ("seirah", 40, 7.5, 0.1),
                    "Chkrebtii": ("chkrebtii", 40, 10.0, 0.1)}
 CHKREBTII_SIGMA = 10.0
+# FitzHugh-Nagumo at q = 4 and 5 (its weight and initial state padded with
+# zeros past the third derivative) steps at dt = 0.025: at the q = 3
+# check's dt = 0.1 schober (no measurement noise) diverges at q = 4 and 5,
+# in the float64 torch-op solve as in float32 (it overflows by step 18).
+INSTANCE_CHECKS_Q = {("FitzHughNagumo", 4): ("fitzhugh", 50, 1.25, 0.1),
+                     ("FitzHughNagumo", 5): ("fitzhugh", 50, 1.25, 0.1)}
+# the models whose setup takes n_deriv (q): Chkrebtii's ODE at q = 4 and 5,
+# FitzHugh-Nagumo padded with zeros past its third derivative
+PADDED = ("chkrebtii", "fitzhugh")
 
 
 def new_filter_instances():
     """The (model functor, mode, q) instances of K1 and K3 but the first
     four (kramer and rodeo on Lorenz63 and FitzHugh-Nagumo at q = 3), in
-    order of q, functor and mode."""
+    order of q, functor and mode: FitzHugh-Nagumo at q = 4 and 5 among
+    them."""
     from rodeo_tpu_torch.ops import fused_kalman as fk
     first = {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
              for md in ("kramer", "rodeo")}
@@ -99,7 +123,8 @@ def instance_case(functor, mode, q, n_lane, device, seed):
     """The operands of the bitwise check of one instance (``functor``,
     ``mode``, ``q``) on ``device``: ``n_lane`` lanes of the functor's
     INSTANCE_CHECKS setup, thetas 1 % apart, and under chkrebtii its
-    standard normals, drawn with numpy seed ``seed``.  Returns a dict:
+    standard normals, drawn with numpy seed ``seed`` (FitzHugh-Nagumo at
+    q = 4 and 5 on its INSTANCE_CHECKS_Q setup).  Returns a dict:
     ``fused`` (the FusedModel), ``n_steps``, ``cfg`` (the setup, theta
     popped out), ``config`` (the check's row for a report), ``batch`` (K1's
     operands as fused_filter_batch's keywords, ``eps`` included) and
@@ -109,13 +134,14 @@ def instance_case(functor, mode, q, n_lane, device, seed):
     import numpy as np
 
     from rodeo_tpu_torch.ops import fused_kalman as fk
-    model, n, t_max, sigma = INSTANCE_CHECKS[functor]
+    model, n, t_max, sigma = INSTANCE_CHECKS_Q.get((functor, q),
+                                                  INSTANCE_CHECKS[functor])
     if functor == "Lorenz63" and mode == "chkrebtii":
         sigma = CHKREBTII_SIGMA
     mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
     cfg = mod.setup(n_steps=n, t_max=t_max, prior_sigma=sigma,
                     dtype=torch.float32, device=device,
-                    **({"n_deriv": q} if model == "chkrebtii" else {}))
+                    **({"n_deriv": q} if model in PADDED else {}))
     theta = cfg.pop("theta")
     if theta is None:
         theta = torch.zeros(1, device=device)
@@ -496,20 +522,183 @@ def ulp_moves(name, mode, thetas, inits, obs, device):
     return moves
 
 
+# The gradient fixtures of chip_smoke.py's coverage_grad phase: the value
+# fixtures, and FitzHugh-Nagumo at q = 4 and 5 on bench.py's 200-step
+# gradient fixture (fenrir_fitz_grad: t in [0, 10], 21 observations of
+# y_fitz_mcmc in derivative 0 of both blocks, variance 0.04, theta x (1 +
+# 1e-6 x lane)), its weight and initial state padded with zeros past the
+# third derivative; name -> (model, q, n_steps, t_max).
+GRAD_FIXTURES = {**{k: FIXTURES[k][:4] for k in VALUE_FIXTURES},
+                 "fitz_grad_q4": ("fitzhugh", 4, 200, 10.0),
+                 "fitz_grad_q5": ("fitzhugh", 5, 200, 10.0)}
+FITZ_GRAD_VAR = 0.04
+
+
+def gauss_loglik(var):
+    """The basic likelihood's observation log-density of the gradient
+    fixtures: independent Gaussians of variance ``var`` in derivative 0
+    (an ``obs_loglik(obs_data, ode_data, **params)``)."""
+    def obs_loglik(obs_data, ode_data, **params):
+        r = obs_data[..., 0] - ode_data[..., 0]
+        return torch.sum(-0.5 * r * r / var)
+    return obs_loglik
+
+
+def grad_config(name, dtype, device):
+    """The setup of gradient fixture ``name`` in ``dtype`` on ``device``,
+    its theta popped out: a value fixture's (fixture_config), or
+    FitzHugh-Nagumo's padded to q derivatives."""
+    import importlib
+    if name in VALUE_FIXTURES:
+        return fixture_config(name, dtype, device)[0]
+    model, q, n_steps, t_max = GRAD_FIXTURES[name]
+    mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
+    cfg = mod.setup(n_steps=n_steps, t_max=t_max, dtype=dtype,
+                    device=device, n_deriv=q)
+    cfg.pop("theta")
+    return cfg
+
+
+def grad_fixture(name, n_lane, dtype, device, seed=28, mu64=None):
+    """Gradient fixture ``name`` in ``dtype`` on ``device``: ``(cfg, lanes,
+    obs, var)``, the setup (theta popped out), the lanes ``(thetas (B,
+    n_theta), inits (B, n_block, q))`` in float32, the observations as
+    fenrir_fused_batch takes them, and their variance.  A value fixture's
+    lanes and observations are value_lanes' and value_obs' (seeds ``seed``
+    and ``seed`` + 1, the data from ``mu64``, float64_solve's unless
+    given); FitzHugh-Nagumo's are bench.py's."""
+    import importlib
+
+    import numpy as np
+    model, q, n_steps, t_max = GRAD_FIXTURES[name]
+    cfg = grad_config(name, dtype, device)
+    if name in VALUE_FIXTURES:
+        lanes = value_lanes(name, n_lane, device, seed)
+        mu64 = float64_solve(name, device) if mu64 is None else mu64
+        obs = value_obs(name, mu64, dtype, device, seed + 1)
+        return cfg, lanes, obs, VALUE_OBS_VAR
+    mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
+    theta = torch.tensor(mod.THETA, dtype=torch.float32, device=device)
+    ref = np.load(REPO / ".bench_ref_v8.npz")
+    lane = torch.arange(n_lane, dtype=torch.float32, device=device)
+    thetas = theta.expand(n_lane, 3) * (1 + 1e-6 * lane[:, None])
+    inits = cfg["ode_init"].to(torch.float32).expand(
+        (n_lane,) + cfg["ode_init"].shape).contiguous()
+    weight = torch.zeros((21, 2, 1, q), dtype=dtype, device=device)
+    weight[..., 0] = 1.0
+    obs = dict(
+        obs_data=torch.tensor(ref["y_fitz_mcmc"], dtype=dtype,
+                              device=device)[:, :, None],
+        obs_times=torch.from_numpy((10.0 * np.arange(0, 201, 10) / 200)
+                                   .astype(np.float32)),
+        obs_weight=weight,
+        obs_var=torch.full((21, 2, 1, 1), FITZ_GRAD_VAR, dtype=dtype,
+                           device=device))
+    return cfg, (thetas, inits), obs, FITZ_GRAD_VAR
+
+
+def grad_float64(name, mode, theta, init, obs, var, device):
+    """The float64 torch-ops ``ops.precond.fenrir`` and ``basic`` of
+    gradient fixture ``name`` under ``mode`` at one lane's ``theta`` and
+    ``init`` on ``device``, with their ``torch.autograd`` gradients in
+    theta: ``{"fenrir": (value, grad), "basic": (value, grad)}``, grad a
+    list (zeros for Chkrebtii's ODE, which has no parameter)."""
+    from rodeo_tpu_torch import interrogate
+    from rodeo_tpu_torch.ops import precond
+    model = GRAD_FIXTURES[name][0]
+    cfg = grad_config(name, torch.float64, device)
+    cfg["ode_init"] = init.to(device, torch.float64)
+    obs64 = {k: v.to(torch.float64) if k == "obs_times" else v.to(
+        device, torch.float64) for k, v in obs.items()}
+    how = getattr(interrogate, f"interrogate_{mode}")
+    out = {}
+    for fn in ("fenrir", "basic"):
+        th = theta.to(device, torch.float64).clone().requires_grad_(True)
+        params = {} if model == "chkrebtii" else {"theta": th}
+        extra = dict(obs64) if fn == "fenrir" else dict(
+            obs_data=obs64["obs_data"], obs_times=obs64["obs_times"],
+            obs_loglik=gauss_loglik(var))
+        value = getattr(precond, fn)(key=None, interrogate=how, **cfg,
+                                     **extra, **params)
+        value = value[0] if fn == "basic" else value
+        if model == "chkrebtii":
+            out[fn] = (float(value.detach()), [0.0])
+            continue
+        value.backward()
+        out[fn] = (float(value.detach()), th.grad.tolist())
+    return out
+
+
+def grad_float32_calls(name, mode, thetas, inits, obs, var, device):
+    """The float32 fused gradient entries of gradient fixture ``name`` under
+    ``mode`` over the lanes ``thetas``, ``inits`` on ``device``:
+    ``{"fenrir": fenrir_fused_batch_grad (K11a, K11b), "basic":
+    basic_fused_batch_grad (K11a, K11e), "solve":
+    solve_mv_fused_batch_grad (K11a, K11e)}``, each a call returning its
+    outputs (fenrir's and basic's value and gradient first)."""
+    from rodeo_tpu_torch.ops import fused_fenrir as ff
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+    model = GRAD_FIXTURES[name][0]
+    cfg = grad_config(name, torch.float32, device)
+    args = (thetas, cfg["ode_weight"], inits, cfg["t_min"], cfg["t_max"],
+            cfg["n_steps"], cfg["prior_pars"])
+    kw = dict(model=model, interrogation=mode, device=device)
+    return {"fenrir": lambda: ff.fenrir_fused_batch_grad(*args, **obs, **kw),
+            "basic": lambda: fk.basic_fused_batch_grad(
+                *args, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
+                obs_loglik=gauss_loglik(var), **kw),
+            "solve": lambda: fk.solve_mv_fused_batch_grad(*args, **kw)}
+
+
+def grad_errors(device, n_lane=4):
+    """For each gradient fixture and mode, lane 0's float32 fenrir and basic
+    (grad_float32_calls) against the float64 torch-ops (grad_float64) on
+    ``device``: the absolute error of the value, the relative L2 error of
+    the gradient (bench.py's audit_grad), and the float64 values."""
+    import numpy as np
+    out = {}
+    for name in GRAD_FIXTURES:
+        cfg, (thetas, inits), obs, var = grad_fixture(name, n_lane,
+                                                      torch.float32, device)
+        for mode in VALUE_MODES:
+            ref = grad_float64(name, mode, thetas[0], inits[0], obs, var,
+                               device)
+            calls = grad_float32_calls(name, mode, thetas, inits, obs, var,
+                                       device)
+            row = {"float64": ref}
+            for fn in ("fenrir", "basic"):
+                ll, g = calls[fn]()[:2]
+                g64 = np.asarray(ref[fn][1], np.float64)
+                g32 = g[0].double().cpu().numpy()
+                norm = np.linalg.norm(g64)
+                row[fn] = {"value": abs(float(ll[0]) - ref[fn][0]),
+                           "grad": float(np.linalg.norm(g32 - g64) / norm)
+                           if norm > 0 else float(np.linalg.norm(g32))}
+            out[f"{name}/{mode}"] = row
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cpu")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--parts", default="solve,value,lanes,grad")
     args = parser.parse_args()
+    parts = args.parts.split(",")
     sys.path.insert(0, str(REPO))
     out = {"device": args.device}
     t0 = time.perf_counter()
-    for name in FIXTURES:
-        out[name] = max_err_x(float32_call(name, args.device)(),
-                              float64_solve(name, args.device))
-    out["value"] = value_errors(args.device)
-    # chip_smoke.py's SIM_VAR_MIN and SIM_SD_REL
-    out["lanes"] = lane_readings(args.device, 1e-8, 1e-4)
+    if "solve" in parts:
+        for name in FIXTURES:
+            out[name] = max_err_x(float32_call(name, args.device)(),
+                                  float64_solve(name, args.device))
+    if "value" in parts:
+        out["value"] = value_errors(args.device)
+    if "lanes" in parts:
+        # chip_smoke.py's SIM_VAR_MIN and SIM_SD_REL
+        out["lanes"] = lane_readings(args.device, 1e-8, 1e-4)
+    if "grad" in parts:
+        out["grad"] = grad_errors(args.device)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)
