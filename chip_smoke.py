@@ -288,6 +288,27 @@ bitwise.  The phases:
              fenrir on Hes1, 128 lanes x 20 steps (launches, finite, the
              carried log-density bitwise a fresh value call, chain steps/s,
              acceptance); the phase within COVERAGE_GRAD_PHASE_S;
+28. coverage_dalton  DALTON's gradient at every instance of K11a, through
+             dalton_fused_batch_grad at 2048 lanes on the gradient
+             fixtures of phase 27, each under kramer and rodeo: two K11c
+             launches (one with data, one without), finite wherever K8 is,
+             the values bitwise dalton_fused_batch's, lane 0's value and
+             gradient against the float64 torch-op ops.precond.dalton with
+             torch.autograd on the card (GRAD_F32_CPU_ERR's "dalton";
+             where float32 does not resolve them, on Chkrebtii's ODE at
+             q = 5 and FitzHugh-Nagumo at q = 4 and 5, recorded, and
+             K11c's twins in float64 on the same operands, run on the
+             host beside the phase, held to that truth instead),
+             Chkrebtii's gradient exactly zero, each call's time beside its
+             value call's; each new instance of K11c with and without
+             data, and of K8 on FitzHugh-Nagumo at q = 4 and 5, alone at
+             these shapes against its twin over COVERAGE_GRAD_TWIN_STEPS
+             steps (Chkrebtii's cut with data to its first step with
+             data, 65), bitwise, K11c's values K8's, with its launch,
+             ptxas' report (no spills) and bound; MALA over DALTON on Hes1,
+             128 lanes x 20 steps (42 K11c launches, finite, the carried
+             log-density bitwise a fresh value call, chain steps/s,
+             acceptance); the phase within COVERAGE_DALTON_PHASE_S;
 
 Then one line {"phase": "seconds", "phases": {...}, "total": ...} with
 each phase's seconds and the script's, one line {"kernels": [...]} with
@@ -553,7 +574,9 @@ COVERAGE_VALUE_TWIN_STEPS = 257
 # the gradient's relative L2 error within max(3 x its CPU error,
 # GRAD_FLOOR) where that CPU error is at most GRAD_CONTROL_MAX, else
 # recorded as unusable in float32; the CPU errors are those that
-# tools/torch_coverage_reference.py prints (its "grad").  The truth is taken
+# tools/torch_coverage_reference.py prints (its "grad", DALTON's for the
+# coverage_dalton phase, with its float64 twins' where float32 does not
+# resolve DALTON: "f64_twins").  The truth is taken
 # at lane 0's own float32 parameters, so the move of the exact gradient
 # under float32 rounding of theta (GRAD_THETA_ROUNDING) is nil there.
 COVERAGE_GRAD_PHASE_S = 90.0
@@ -572,65 +595,123 @@ GRAD_F32_CPU_ERR = {
         "fenrir": {"value": 0.00012321892352318287,
                    "grad": 0.0},
         "basic": {"value": 0.00012505028006959407,
-                  "grad": 0.0}},
+                  "grad": 0.0},
+        "dalton": {"value": 0.0024193006054247235,
+                   "grad": 0.0}},
     "chkrebtii_q4/rodeo": {
         "fenrir": {"value": 1.6796901732618608e-05,
                    "grad": 0.0},
         "basic": {"value": 6.265545325767619e-05,
-                  "grad": 0.0}},
+                  "grad": 0.0},
+        "dalton": {"value": 0.033966106598199985,
+                   "grad": 0.0}},
     "chkrebtii_q5/kramer": {
         "fenrir": {"value": 0.00030747422161425675,
                    "grad": 0.0},
         "basic": {"value": 0.00030754987958836466,
-                  "grad": 0.0}},
+                  "grad": 0.0},
+        "dalton": {"value": 23.899905768240217,
+                   "grad": 0.0,
+                   "f64_twins": {"value": 9.926950212957308e-06,
+                                 "grad": 0.0}}},
     "chkrebtii_q5/rodeo": {
         "fenrir": {"value": 2.1386948990453902e-05,
                    "grad": 0.0},
         "basic": {"value": 1.1598800250922636e-05,
-                  "grad": 0.0}},
+                  "grad": 0.0},
+        "dalton": {"value": 23.873298024863036,
+                   "grad": 0.0,
+                   "f64_twins": {"value": 0.00011029270288176463,
+                                 "grad": 0.0}}},
     "hes1/kramer": {
         "fenrir": {"value": 0.0027485421820898637,
                    "grad": 0.013795188013278508},
         "basic": {"value": 0.0003659344966777667,
-                  "grad": 0.006850327337272887}},
+                  "grad": 0.006850327337272887},
+        "dalton": {"value": 0.05046801196368733,
+                   "grad": 0.00026201097755028624}},
     "hes1/rodeo": {
         "fenrir": {"value": 7.045598295007949e-06,
                    "grad": 1.2277533630862706e-05},
         "basic": {"value": 6.309310670360446e-05,
-                  "grad": 8.397618105735186e-05}},
+                  "grad": 8.397618105735186e-05},
+        "dalton": {"value": 0.000422002831953705,
+                   "grad": 2.753289864598426e-05}},
     "seirah/kramer": {
         "fenrir": {"value": 7577899722.8125,
                    "grad": 7.130024152477184e-06},
         "basic": {"value": 12745448892.0,
-                  "grad": 1.0570678830494094e-05}},
+                  "grad": 1.0570678830494094e-05},
+        "dalton": {"value": 9511319237.75,
+                   "grad": 7.879083819784352e-06}},
     "seirah/rodeo": {
         "fenrir": {"value": 41235283.96972656,
                    "grad": 6.429328588431707e-07},
         "basic": {"value": 40548681739.375,
-                  "grad": 2.3565836834115924e-05}},
+                  "grad": 2.3565836834115924e-05},
+        "dalton": {"value": 38281388.6875,
+                   "grad": 9.21656959615569e-06}},
     "fitz_grad_q4/kramer": {
         "fenrir": {"value": 6.7625833537476865e-06,
                    "grad": 5.679384211282232e-06},
         "basic": {"value": 4.233498543726455e-06,
-                  "grad": 5.900691584555457e-06}},
+                  "grad": 5.900691584555457e-06},
+        "dalton": {"value": 436.74042181127726,
+                   "grad": 73.97514279503903,
+                   "f64_twins": {"value": 0.006792659098485032,
+                                 "grad": 0.005103480064770603}}},
     "fitz_grad_q4/rodeo": {
         "fenrir": {"value": 6.0791217926237096e-05,
                    "grad": 2.9790090732559288e-05},
         "basic": {"value": 6.91343101664188e-05,
-                  "grad": 3.29323659138876e-05}},
+                  "grad": 3.29323659138876e-05},
+        "dalton": {"value": 8.797718420624733,
+                   "grad": 0.01030749110868006,
+                   "f64_twins": {"value": 0.00014113634824752808,
+                                 "grad": 1.1045727728230106e-06}}},
     "fitz_grad_q5/kramer": {
         "fenrir": {"value": 1.7019152913633206e-05,
                    "grad": 3.2781620612611706e-05},
         "basic": {"value": 1.639740579051363e-05,
-                  "grad": 3.269724910351067e-05}},
+                  "grad": 3.269724910351067e-05},
+        "dalton": {"value": 12.72827171848835,
+                   "grad": 1.0,
+                   "f64_twins": {"value": 0.008788828386650849,
+                                 "grad": 0.01190640280133846}}},
     "fitz_grad_q5/rodeo": {
         "fenrir": {"value": 0.0013824775646789078,
                    "grad": 5.680806195096802e-05},
         "basic": {"value": 0.0013868248236796887,
-                  "grad": 5.600059019639166e-05}}}
+                  "grad": 5.600059019639166e-05},
+        "dalton": {"value": 9.776396930217743,
+                   "grad": 10.620192528939546,
+                   "f64_twins": {"value": 3.129243850708008e-05,
+                                 "grad": 1.2654847720503358e-07}}}}
 # MALA over fenrir on Hes1 (kramer, its Jacobian on nested Duals): 128
-# lanes x 20 steps from value_lanes' thetas at this step size
+# lanes x 20 steps from value_lanes' thetas at this step size; the
+# coverage_dalton phase's MALA over DALTON on Hes1 too
 GRAD_MALA_STEP = 1e-4
+# The coverage_dalton phase (DALTON's gradient K11c at every instance of
+# K11a, K8 on FitzHugh-Nagumo at q = 4 and 5) stays within
+# COVERAGE_DALTON_PHASE_S seconds.  Lane 0's DALTON value and gradient are
+# held to the float64 torch-op (ops.precond.dalton with torch.autograd) on
+# the card by coverage_grad's rules on GRAD_F32_CPU_ERR's "dalton" (the
+# value recorded, not judged, where its CPU control exceeds
+# VALUE_F32_UNUSABLE of the truth, as coverage_value's; the gradient where
+# its control exceeds GRAD_CONTROL_MAX).  Where either is unusable in
+# float32 (Chkrebtii's ODE at q = 5; FitzHugh-Nagumo at q = 4 and 5, whose
+# DALTON is the difference of two float32 sums of ~1e8 and ~1e12 that
+# rounds to whole numbers, to 0 at q = 5) the witness is the same
+# arithmetic in float64: K11c's twin (K8's on Chkrebtii's ODE, whose
+# gradient is exactly zero) on lane 0's float32 operands, held to that
+# truth within max(3 x its CPU error, the floors), the "f64_twins" entry.
+# Its ATen calls would take ~70 s on the card (200 and 1024 steps of
+# 700-1900 calls, twice a case): they run on the card's host instead, in
+# DALTON_WITNESS_WORKERS processes beside the phase's work on the card.
+# Chkrebtii's ODE observes every 64th step, so its cut with data runs
+# over the steps to the first with data and one more (65).
+COVERAGE_DALTON_PHASE_S = 60.0
+DALTON_WITNESS_WORKERS = 3
 # the operands of K8 and K11c that hold a row a step, and those of K9 and
 # K11d
 GRID_KEYS = ("tgrid", "d", "y", "om", "mask")
@@ -1224,7 +1305,7 @@ def main():
                 and r.get("mode", 0) in (0, 1)]
 
     def split_record(phase, kernel, label, geometry, per_sm=True,
-                     match=None):
+                     match=None, waves=False):
         """The launch of a split kernel (SPLIT_KERNELS) at its path's lanes,
         or of a stream (STREAM_KERNELS) at its path's columns, as the card
         reports it (CTA shape, CTAs, threads, registers, local memory, CTAs
@@ -1241,12 +1322,14 @@ def main():
         than 32 a CTA on every SM (per_sm False: K11b on FitzHugh-Nagumo's 2
         x 2048 columns, 128 CTAs).  The instantiations reported are those
         of the earlier phases (earlier_scope), or those match(row) keeps.
-        The residency of WAVE_KERNELS is recorded, not checked."""
+        The residency of WAVE_KERNELS, and of a launch that runs in waves
+        (waves: K11c on SEIRAH's 6 x 2048 x 6 threads), is recorded, not
+        checked."""
         report = ptxas_report({**SPLIT_KERNELS, **STREAM_KERNELS,
                                **SLAB_KERNELS}[kernel])
         report = earlier_scope(report) if match is None \
             else [r for r in report if match(r)]
-        if kernel not in WAVE_KERNELS:
+        if kernel not in WAVE_KERNELS and not waves:
             check(phase, f"{label} all resident", geometry["all_resident"])
         if per_sm and (geometry["grid_y"] > 1 or kernel in STREAM_KERNELS):
             check(phase, f"{label} at least one CTA per SM",
@@ -3981,7 +4064,7 @@ def main():
     t_phase = time.perf_counter()
     from rodeo_tpu_torch.ops.obs_grid import obs_indices
 
-    def lane0_audit(label, value, truth_v, control):
+    def lane0_audit(label, value, truth_v, control, phase="coverage_value"):
         """The likelihood rule on lane 0: |value - truth| within max(3 x
         the float32 twin's CPU error, LL_REL_FLOOR x |truth|), unless the
         float32 CPU control misses by more than VALUE_F32_UNUSABLE of the
@@ -3990,8 +4073,8 @@ def main():
         err = abs(value - truth_v)
         tol = max(3 * control, LL_REL_FLOOR * abs(truth_v))
         unusable = control > VALUE_F32_UNUSABLE * abs(truth_v)
-        ok = True if unusable else check("coverage_value",
-                                         f"{label} audit", err <= tol)
+        ok = True if unusable else check(phase, f"{label} audit",
+                                         err <= tol)
         return {"lane0": value, "f64": truth_v, "abs_err": err,
                 "control_f32cpu": control, "tol": tol,
                 "f32_unusable": unusable, "ok": ok}
@@ -4349,7 +4432,15 @@ def main():
     cg_kernels = {}         # kernel key -> [instance entries]
     k11a_names = ["A", "b", "C", "m_last", "p_last"]
 
-    def cg_audit(label, lane0, truth_v, control):
+    def grad_rel(g, g64):
+        """bench.py's audit_grad: the relative L2 error of the gradient g
+        against g64 (the norm of g where g64 is zero)."""
+        g, g64 = np.asarray(g, np.float64), np.asarray(g64, np.float64)
+        norm = np.linalg.norm(g64)
+        return float(np.linalg.norm(g - g64) / norm) if norm > 0 \
+            else float(np.linalg.norm(g))
+
+    def cg_audit(label, lane0, truth_v, control, phase="coverage_grad"):
         """bench.py's rules on lane 0 against the float64 torch-op: the
         value by the likelihood rule, or a gradient (lane0 and truth_v
         lists) by audit_grad's relative L2 error, recorded as unusable in
@@ -4359,12 +4450,8 @@ def main():
             tol = max(3 * control, LL_REL_FLOOR * abs(truth_v))
             return {"lane0": lane0, "f64": truth_v, "abs_err": err,
                     "control_f32cpu": control, "tol": tol,
-                    "ok": check("coverage_grad", f"{label} value audit",
-                                err <= tol)}
-        g, g64 = np.asarray(lane0), np.asarray(truth_v)
-        norm = np.linalg.norm(g64)
-        rel = float(np.linalg.norm(g - g64) / norm) if norm > 0 \
-            else float(np.linalg.norm(g))
+                    "ok": check(phase, f"{label} value audit", err <= tol)}
+        rel = grad_rel(lane0, truth_v)
         unusable = control > GRAD_CONTROL_MAX
         tol = max(3 * control, GRAD_FLOOR)
         return {"lane0": lane0, "f64": truth_v, "rel_err": rel,
@@ -4372,7 +4459,7 @@ def main():
                 "theta_rounding_rel": 0.0, "f32_unusable": unusable,
                 "within_rule": rel <= tol,
                 "ok": True if unusable else check(
-                    "coverage_grad", f"{label} gradient audit", rel <= tol)}
+                    phase, f"{label} gradient audit", rel <= tol)}
 
     for name_g, (model_g, q_g, n_g, t_g) in cov_ref.GRAD_FIXTURES.items():
         t_part = time.perf_counter()
@@ -4634,6 +4721,311 @@ def main():
           grad_s <= COVERAGE_GRAD_PHASE_S)
     emit({"phase": "coverage_grad", "seconds": grad_s,
           "limit_s": COVERAGE_GRAD_PHASE_S})
+
+    # ---- 28. coverage_dalton: K11c at every instance, K8 on FitzHugh-Nagumo
+    # at q = 4 and 5 -------------------------------------------------------
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    n_cd = 2048
+    cd_kernels = {}         # kernel key -> [instance entries]
+    cd_pending = []         # (label, witness future, truth, controls)
+
+    def cd_witness(label, result, truth, ctrl):
+        """The float64 witness of an unusable float32 result: K11c's (or
+        K8's) twins in float64 on lane 0's float32 operands, result =
+        (value, gradient or None), against the float64 truth, within
+        max(3 x the tool's CPU error of the same comparison, LL_REL_FLOOR
+        x |truth|) for the value and max(3 x it, GRAD_FLOOR) for the
+        gradient's relative L2 error."""
+        v64, g64 = result
+        v64 = float(v64[0])
+        err = abs(v64 - truth[0])
+        v_tol = max(3 * ctrl["value"], LL_REL_FLOOR * abs(truth[0]))
+        out = {"value": v64, "abs_err": err, "tol": v_tol,
+               "control_f64cpu": ctrl["value"],
+               "ok": check("coverage_dalton", f"{label} float64 twins' "
+                           "value against the truth", err <= v_tol)}
+        if g64 is not None:
+            rel = grad_rel(g64[0], truth[1])
+            g_tol = max(3 * ctrl["grad"], GRAD_FLOOR)
+            out.update(grad=g64[0].tolist(), grad_rel_err=rel,
+                       grad_tol=g_tol, grad_control_f64cpu=ctrl["grad"])
+            out["ok"] = check("coverage_dalton", f"{label} float64 twins' "
+                              "gradient against the truth",
+                              rel <= g_tol) and out["ok"]
+        return out
+
+    # the float64 witnesses first, on the host, beside the work on the card
+    fixtures_d = {}
+    pool = ProcessPoolExecutor(DALTON_WITNESS_WORKERS,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    try:
+        witnesses = {}
+        for name_d, (model_d, q_d, n_d, t_d) in cov_ref.GRAD_FIXTURES.items():
+            fix = cov_ref.grad_fixture(name_d, n_cd, torch.float32, dev,
+                                       mu64=mu64_value.get(name_d))
+            _, (thetas_d, inits_d), obs_d, _ = fix
+            prep = cov_ref.dalton_operands(name_d, thetas_d, inits_d, obs_d,
+                                           dev)
+            fixtures_d[name_d] = fix, prep
+            ops_d, grid_d, ld0_d = prep
+            for mode_d in cov_ref.VALUE_MODES:
+                if "f64_twins" not in GRAD_F32_CPU_ERR[
+                        f"{name_d}/{mode_d}"]["dalton"]:
+                    continue
+                witnesses[f"{name_d}/{mode_d}"] = pool.submit(
+                    cov_ref.dalton_float64_twins, model_d, mode_d, n_d,
+                    cpu_lanes(ops_d, ("x0_lanes", "theta_lanes")),
+                    {k: v.cpu() for k, v in grid_d.items()},
+                    cpu_lane(ld0_d), tangent=model_d != "chkrebtii")
+
+        for name_d, (model_d, q_d, n_d, t_d) in cov_ref.GRAD_FIXTURES.items():
+            t_part = time.perf_counter()
+            (cfg_d, (thetas_d, inits_d), obs_d, var_d), prep = \
+                fixtures_d.pop(name_d)
+            ops_d, grid_d, ld0_d = prep
+            fused_d = fk.resolve_model(model_d)
+            n_tan_d = fused_d.n_theta
+            lead_d = (thetas_d, cfg_d["ode_weight"], inits_d, 0.0, t_d, n_d,
+                      cfg_d["prior_pars"])
+            # the cut with data holds a step with data
+            first_data = int((grid_d["mask"] != 0).nonzero()[0])
+            twin_steps = {True: max(COVERAGE_GRAD_TWIN_STEPS,
+                                    first_data + 2),
+                          False: COVERAGE_GRAD_TWIN_STEPS}
+            for mode_d in cov_ref.VALUE_MODES:
+                label_d = f"{name_d}/{mode_d}"
+                ctrl_d = GRAD_F32_CPU_ERR[label_d]["dalton"]
+                call_d = cov_ref.grad_float32_calls(
+                    name_d, mode_d, thetas_d, inits_d, obs_d, var_d,
+                    dev)["dalton"]
+                value_d = functools.partial(
+                    fd.dalton_fused_batch, *lead_d, **obs_d, model=model_d,
+                    interrogation=mode_d, device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                k11c_obs = {}
+                with split_by_obs("dalton_filter_batch_tan", k11c_obs):
+                    ll_d, g_d = call_d()
+                torch.cuda.synchronize()
+                got_d = read_counts()
+                k11c_obs = dict(k11c_obs)
+                check("coverage_dalton", f"{label_d} launches",
+                      got_d == expect(dalton_filter_batch_tan=2))
+                check("coverage_dalton", f"{label_d} launches by with_obs",
+                      k11c_obs == {True: 1, False: 1})
+                val_d = value_d()
+                fin = torch.isfinite(val_d)
+                pair = finite_part(ll_d, val_d)
+                row = {"fixture": name_d, "model": model_d, "q": q_d,
+                       "mode": mode_d, "n_steps": n_d, "n_lane": n_cd,
+                       "n_theta": n_tan_d, "launches": launched(got_d),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "nonfinite_lanes": int((~fin).sum()),
+                       "finite_where_k8_is": check(
+                           "coverage_dalton", f"{label_d} finite wherever "
+                           "K8 is", bool(fin.any()) and torch.equal(
+                               torch.isfinite(ll_d), fin)
+                           and finite(g_d[fin])),
+                       "values_bitwise": check(
+                           "coverage_dalton", f"{label_d} values bitwise "
+                           "the value call's",
+                           pair is not None and torch.equal(*pair))}
+                truth_d = cov_ref.grad_float64(
+                    name_d, mode_d, thetas_d[0], inits_d[0], obs_d, var_d,
+                    dev, fns=("dalton",))["dalton"]
+                row["value"] = lane0_audit(label_d, float(ll_d[0]),
+                                           truth_d[0], ctrl_d["value"],
+                                           phase="coverage_dalton")
+                if model_d == "chkrebtii":
+                    # no parameter: the gradient is exactly zero
+                    row["grad"] = {"all_zero": check(
+                        "coverage_dalton", f"{label_d} gradient exactly "
+                        "zero", bool((g_d == 0).all()))}
+                else:
+                    row["grad"] = cg_audit(
+                        label_d, g_d[0].double().cpu().tolist(), truth_d[1],
+                        ctrl_d["grad"], phase="coverage_dalton")
+                if row["value"]["f32_unusable"] or \
+                        row["grad"].get("f32_unusable"):
+                    got = label_d in witnesses
+                    check("coverage_dalton", f"{label_d} float64 witness "
+                          "submitted", got)
+                    if got:
+                        cd_pending.append((label_d, witnesses.pop(label_d),
+                                           truth_d, ctrl_d["f64_twins"]))
+                del val_d, ll_d, g_d
+                row["call_ms"] = cuda_ms(call_d, repeats=3)
+                row["value_call_ms"] = cuda_ms(value_d, repeats=3)
+                row["ratio_to_value_call"] = \
+                    row["call_ms"] / row["value_call_ms"]
+                row["per_lane_us"] = 1e3 * row["call_ms"] / n_cd
+                emit({"phase": "coverage_dalton", "part": "calls", **row})
+
+                # K11c's instance of this model, mode and q alone at these
+                # shapes, with data and without, against its twin
+                for with_obs in (True, False):
+                    variant = "with_obs" if with_obs else "without_obs"
+                    seed = torch.cat([ld0_d[None], ld0_d.new_zeros(
+                        (n_tan_d, ld0_d.shape[0]))])
+                    k11c_d = dict(**ops_d, **grid_d, mode=mode_d,
+                                  with_obs=with_obs,
+                                  ld0=seed if with_obs
+                                  else torch.zeros_like(seed))
+                    k11c_cpu = cpu_lanes(k11c_d, ("x0_lanes", "theta_lanes",
+                                                  "ld0"))
+                    n_tw = min(twin_steps[with_obs], n_d)
+                    geo = fd._dalton_filter_batch_tan_geometry(
+                        model_d, n_cd, mode_d, with_obs, q_d)
+                    out_c, entry = at_path_shapes(
+                        "coverage_dalton", "dalton_filter_batch_tan",
+                        "pallas_dalton.py:246",
+                        {"dalton_filter_batch_tan": k11c_obs[with_obs]},
+                        steps_cut(fd.dalton_filter_batch_tan,
+                                  fd._dalton_filter_tan_plain, fused_d,
+                                  keys=GRID_KEYS, **k11c_d), n_d, ["ld"],
+                        None, None, tensors(k11c_d), split=[(1, 0)],
+                        n_ops=n_cd * dalton_ops(
+                            k11c_cpu, lambda n, a: fd._dalton_filter_tan_plain(
+                                fused_d, n, **a)),
+                        repeats=3, register=False, twin_steps=n_tw,
+                        config=f"{model_d}/{mode_d}/q={q_d} {variant}",
+                        source="dalton_filter_batch_tan.cuh",
+                        shape=f"{n_d} x {n_cd}", model=model_d, mode=mode_d,
+                        q=q_d, n_tan=n_tan_d, variant=variant,
+                        cut_holds_data=bool(
+                            (grid_d["mask"][:n_tw] != 0).any()),
+                        **split_record(
+                            "coverage_dalton", "dalton_filter_batch_tan",
+                            f"dalton_filter_batch_tan {model_d}/{mode_d}/"
+                            f"q={q_d} {variant}", geo, per_sm=False,
+                            waves=not geo["all_resident"]
+                            and model_d == "seirah",
+                            match=lambda r: r.get("model")
+                            == fused_d.cuda_functor and r.get("q") == q_d
+                            and r.get("mode") == fk._MODES[mode_d]
+                            and r.get("with_obs") == with_obs))
+                    k8_ld = fd.dalton_filter_batch(
+                        fused_d, n_d, **{**k11c_d, "ld0": k11c_d["ld0"][0]})
+                    entry["values_bitwise"] = torch.equal(out_c[0][0], k8_ld)
+                    check("coverage_dalton", f"dalton_filter_batch_tan "
+                          f"{model_d}/{mode_d}/q={q_d} {variant} bitwise, "
+                          "values K8's",
+                          entry["bitwise"] and entry["values_bitwise"])
+                    if with_obs:
+                        check("coverage_dalton", f"dalton_filter_batch_tan "
+                              f"{model_d}/{mode_d}/q={q_d} cut holds a step "
+                              "with data", entry["cut_holds_data"])
+                    cd_kernels.setdefault(
+                        f"dalton_filter_batch_tan/{variant}",
+                        []).append(entry)
+                    del out_c, k8_ld, k11c_d, k11c_cpu
+                    if model_d != "fitzhugh":
+                        continue
+                    # K8's instance of FitzHugh-Nagumo at this q and mode
+                    k8_d = dict(**ops_d, **grid_d, mode=mode_d,
+                                with_obs=with_obs,
+                                ld0=ld0_d if with_obs
+                                else torch.zeros_like(ld0_d))
+                    k8_cpu = cpu_lanes(k8_d, ("x0_lanes", "theta_lanes",
+                                              "ld0"))
+                    geo = fd._dalton_filter_batch_geometry(
+                        model_d, n_cd, mode_d, with_obs, q_d)
+                    _, entry = at_path_shapes(
+                        "coverage_dalton", "dalton_filter_batch",
+                        "pallas_dalton.py:41", {"dalton_filter_batch": 1},
+                        steps_cut(fd.dalton_filter_batch,
+                                  fd._dalton_filter_plain, fused_d,
+                                  keys=GRID_KEYS, **k8_d), n_d, ["ld"],
+                        None, None, tensors(k8_d), repeats=3,
+                        register=False, twin_steps=n_tw,
+                        n_ops=n_cd * dalton_ops(
+                            k8_cpu, lambda n, a: fd._dalton_filter_plain(
+                                fused_d, n, **a)),
+                        config=f"{model_d}/{mode_d}/q={q_d} {variant}",
+                        shape=f"{n_d} x {n_cd}", model=model_d, mode=mode_d,
+                        q=q_d, variant=variant,
+                        cut_holds_data=bool(
+                            (grid_d["mask"][:n_tw] != 0).any()),
+                        **split_record(
+                            "coverage_dalton", "dalton_filter_batch",
+                            f"dalton_filter_batch {model_d}/{mode_d}/"
+                            f"q={q_d} {variant}", geo, per_sm=False,
+                            match=lambda r: r.get("model")
+                            == fused_d.cuda_functor and r.get("q") == q_d
+                            and r.get("mode") == fk._MODES[mode_d]
+                            and r.get("with_obs") == with_obs))
+                    check("coverage_dalton", f"dalton_filter_batch "
+                          f"{model_d}/{mode_d}/q={q_d} {variant} bitwise",
+                          entry["bitwise"])
+                    cd_kernels.setdefault(f"dalton_filter_batch/{variant}",
+                                          []).append(entry)
+                    del k8_d, k8_cpu
+            del ops_d, grid_d, ld0_d, prep
+            emit({"phase": "coverage_dalton", "part": "kernels",
+                  "fixture": name_d,
+                  "kernels": {k: [e for e in v if e["model"] == model_d
+                                  and e["q"] == q_d]
+                              for k, v in cd_kernels.items()},
+                  "seconds": time.perf_counter() - t_part})
+
+        # MALA over DALTON on Hes1 under kramer (K11c a step with data and
+        # one without, its Jacobian on nested Duals): 128 lanes x 20 steps
+        cfg_h, (thetas_h, _), obs_h, _ = cov_ref.grad_fixture(
+            "hes1", 128, torch.float32, dev, mu64=mu64_value["hes1"])
+        n_mh, s_mh = 128, 20
+        solver_h = dict(ode_weight=cfg_h["ode_weight"],
+                        ode_init=cfg_h["ode_init"], t_min=0.0,
+                        t_max=cfg_h["t_max"], n_steps=cfg_h["n_steps"],
+                        prior_pars=cfg_h["prior_pars"])
+        (pos_h, ll_h, acc_h), sec_h, counts_h, peak_h = timed_run(
+            lambda: tpar.run_chains_mala_fused(
+                thetas_h, torch.Generator(dev).manual_seed(35), s_mh,
+                GRAD_MALA_STEP, model="hes1", likelihood="dalton",
+                device=dev, **solver_h, **obs_h))
+        fresh_h = fd.dalton_fused_batch(
+            pos_h[-1], cfg_h["ode_weight"],
+            cfg_h["ode_init"].expand((n_mh,) + cfg_h["ode_init"].shape),
+            0.0, cfg_h["t_max"], cfg_h["n_steps"], cfg_h["prior_pars"],
+            **obs_h, model="hes1", device=dev)
+        mala_d_ok = [
+            check("coverage_dalton", "Hes1 DALTON MALA launches",
+                  counts_h == expect(dalton_filter_batch_tan=2 * (s_mh + 1))),
+            check("coverage_dalton", "Hes1 DALTON MALA finite",
+                  finite(pos_h, ll_h)),
+            check("coverage_dalton", "Hes1 DALTON MALA carried log-density "
+                  "bitwise", torch.equal(fresh_h, ll_h))]
+        emit({"phase": "coverage_dalton", "runner": "run_chains_mala_fused",
+              "likelihood": "dalton", "model": "hes1", "mode": "kramer",
+              "n_lane": n_mh, "n_samples": s_mh,
+              "step_size": GRAD_MALA_STEP, "launches": launched(counts_h),
+              "seconds": sec_h, **rates(n_mh * s_mh, sec_h, pos_h[..., 0]),
+              "mean_accept": acc_h.mean().item(), "peak_mem_bytes": peak_h,
+              "ok": all(mala_d_ok)})
+        del pos_h, ll_h, acc_h, fresh_h
+
+        # the float64 witnesses, run on the host meanwhile
+        t_w = time.perf_counter()
+        witness_d = {label: cd_witness(label, fut.result(), truth, ctrl)
+                     for label, fut, truth, ctrl in cd_pending}
+        check("coverage_dalton", "every witness submitted is read",
+              not witnesses)
+        emit({"phase": "coverage_dalton", "part": "float64_witness",
+              "workers": DALTON_WITNESS_WORKERS,
+              "wait_s": time.perf_counter() - t_w, "witness": witness_d})
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for key_d, entries_d in cd_kernels.items():
+        kernels[key_d].setdefault("instances", []).extend(entries_d)
+    dalton_s = time.perf_counter() - t_phase
+    check("coverage_dalton", f"phase within {COVERAGE_DALTON_PHASE_S} s",
+          dalton_s <= COVERAGE_DALTON_PHASE_S)
+    emit({"phase": "coverage_dalton", "seconds": dalton_s,
+          "limit_s": COVERAGE_DALTON_PHASE_S})
 
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end

@@ -49,17 +49,17 @@ _SIGNATURES = {
     "rodeo_filter_batch_tan": [_I] * 5 + [_P] * 13,
     # q, n_steps, n_block, n_lane, n_tan, then as rodeo_fenrir_backward_batch
     "rodeo_fenrir_backward_batch_tan": [_I] * 5 + [_P] * 11,
-    # as rodeo_dalton_filter_batch, without q
-    "rodeo_dalton_filter_batch_tan": [_I] * 5 + [_P] * 14,
+    # as rodeo_dalton_filter_batch, ld0 and ld augmented
+    "rodeo_dalton_filter_batch_tan": [_I] * 6 + [_P] * 14,
     # the launches of K1: model, mode, q, n_lane, out; of K8: model, mode,
-    # q, with_obs, n_lane, out; of K11a: model, mode, q, n_lane, out; of
-    # K11c: model, mode, with_obs, n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
+    # q, with_obs, n_lane, out (K11c the same); of K11a: model, mode, q,
+    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
     # K6: q, n_col, out; of K3: model, mode, q, out; of K2r: q, n_block,
     # n_lane, out; of K7b: q, n_block, n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 5 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 4 + [_P],
-    "rodeo_dalton_filter_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_dalton_filter_batch_tan_geometry": [_I] * 5 + [_P],
     "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
     "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_sampler_batch_geometry": [_I, _I, _P],

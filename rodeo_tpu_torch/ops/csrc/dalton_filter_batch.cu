@@ -9,7 +9,7 @@
 // model: 0 Lorenz63, 1 FitzHughNagumo, 2 Chkrebtii, 3 Hes1, 4 Seirah;
 // mode: 0 kramer, 1 rodeo (the numbering of _FUNCTORS and _MODES in
 // ops/fused_kalman.py); q the derivatives per block: the (model, q) of
-// with_dalton_instance (dispatch.cuh) under with_ek_mode, any other (model,
+// with_filter_instance (dispatch.cuh) under with_ek_mode, any other (model,
 // mode, q) returning cudaErrorInvalidValue; with_obs: 0 or 1.  q_host
 // points to the q x q scaled transition in host memory; every other pointer
 // is device memory laid out as dalton_filter_batch (ops/fused_dalton.py)
@@ -28,7 +28,7 @@ extern "C" int rodeo_dalton_filter_batch(
                            in(d),     in(y),   in(om),    in(mask), in(ld0),
                            static_cast<float*>(ld)};
   auto s = static_cast<cudaStream_t>(stream);
-  return with_dalton_instance(model, q, [&](auto m, auto qq) {
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
     return DaltonFilterInstances<typename decltype(m)::type,
                                  decltype(qq)::value>::launch(mode,
                                                               with_obs != 0,
@@ -44,7 +44,7 @@ extern "C" int rodeo_dalton_filter_batch_geometry(int model, int mode, int q,
                                                   void* out) {
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
-  return with_dalton_instance(model, q, [&](auto m, auto qq) {
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
     return DaltonFilterInstances<typename decltype(m)::type,
                                  decltype(qq)::value>::geometry(
         mode, with_obs != 0, n_lane, static_cast<int*>(out));

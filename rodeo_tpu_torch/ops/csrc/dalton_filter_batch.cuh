@@ -4,9 +4,10 @@
 // ODE update.  Only the (B,) log-density leaves the kernel.
 //
 // Replaces the TPU kernel rodeo_tpu/ops/pallas_dalton.py:
-// _dalton_filter_kernel, under kramer and rodeo on the first-order models at
-// q = 3 and the second-order Chkrebtii at q = 4 and 5 (dispatch.cuh's
-// with_dalton_instance).  Plain PyTorch twin:
+// _dalton_filter_kernel, under kramer and rodeo on K1's (model, q): the
+// first-order models at q = 3, FitzHugh-Nagumo also at q = 4 and 5, and the
+// second-order Chkrebtii at q = 4 and 5 (dispatch.cuh's
+// with_filter_instance).  Plain PyTorch twin:
 // _dalton_filter_plain in ops/fused_dalton.py.  The C entry points are
 // dalton_filter_batch.cu's; the instances are compiled in one translation
 // unit per (model, q), dalton_instances_*.cu, which nvcc builds in

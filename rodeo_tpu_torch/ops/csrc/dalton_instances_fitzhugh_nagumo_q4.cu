@@ -1,0 +1,10 @@
+// The instances of DALTON's filter K8 (dalton_filter_batch.cuh) for
+// FitzHugh-Nagumo at q = 4 (its weight and initial state padded with zeros
+// past the third derivative), under kramer and rodeo, with and without data.
+#include "dalton_filter_batch.cuh"
+
+namespace rodeo {
+
+template struct DaltonFilterInstances<FitzHughNagumo, 4>;
+
+}  // namespace rodeo

@@ -53,10 +53,12 @@ cudaError_t with_mode(int mode, Fn&& f) {
 // The (model, q) of the forward filters that take every model: K1
 // (filter_batch.cu) and K3 (filter_single.cu), which hold the four modes
 // there (with_mode), and the tangent filter K11a (filter_batch_tan.cu),
-// which holds kramer and rodeo (with_ek_mode): f(Is<Model>(), Int<Q>())
-// for the first-order models at q = 3, FitzHugh-Nagumo also at q = 4 and 5
-// (its weight and initial state padded with zeros past the third
-// derivative), and the second-order Chkrebtii at q = 4 and 5.
+// DALTON's filter K8 (dalton_filter_batch.cu) and its tangent twin K11c
+// (dalton_filter_batch_tan.cu), which hold kramer and rodeo (with_ek_mode):
+// f(Is<Model>(), Int<Q>()) for the first-order models at q = 3,
+// FitzHugh-Nagumo also at q = 4 and 5 (its weight and initial state padded
+// with zeros past the third derivative), and the second-order Chkrebtii at
+// q = 4 and 5.
 template <class Fn>
 cudaError_t with_filter_instance(int model, int q, Fn&& f) {
   if (model == Chkrebtii::kNumber)
@@ -69,34 +71,11 @@ cudaError_t with_filter_instance(int model, int q, Fn&& f) {
   });
 }
 
-// The (model, q) of DALTON's filter K8 (dalton_filter_batch.cu), which
-// holds kramer and rodeo there (with_ek_mode): those of
-// with_filter_instance but FitzHugh-Nagumo at q = 4 and 5.
-template <class Fn>
-cudaError_t with_dalton_instance(int model, int q, Fn&& f) {
-  if (model == Chkrebtii::kNumber)
-    return with_value<4, 5>(q, [&](auto qq) { return f(Is<Chkrebtii>(), qq); });
-  return with_functor<Lorenz63, FitzHughNagumo, Hes1, Seirah>(
-      model, [&](auto m) {
-        return with_value<3>(q, [&](auto qq) { return f(m, qq); });
-      });
-}
-
 // The interrogation modes of the filters that take kramer and rodeo alone:
 // f(Int<MODE>()).
 template <class Fn>
 cudaError_t with_ek_mode(int mode, Fn&& f) {
   return with_value<kKramer, kRodeo>(mode, f);
-}
-
-// The instances of the filters that take Lorenz63 and FitzHugh-Nagumo at
-// q = 3 under kramer and rodeo (K9, K11c, K11d):
-// f(Is<Model>(), Int<MODE>()).
-template <class Fn>
-cudaError_t with_ek_instance(int model, int mode, Fn&& f) {
-  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_ek_mode(mode, [&](auto md) { return f(m, md); });
-  });
 }
 
 // The tangent directions of fenrir's tangent backward filter K11b

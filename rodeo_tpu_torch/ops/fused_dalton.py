@@ -15,9 +15,12 @@ meeting once a step in shared memory (``csrc/block_step.cuh``, as K1).
 Only the ``(B,)`` log-density leaves the kernel.
 
 The gradient runs two launches of **K11c**
-``csrc/dalton_filter_batch_tan.cu`` (replacing ``_dalton_filter_kernel_tan``):
+``csrc/dalton_filter_batch_tan.cuh`` (replacing ``_dalton_filter_kernel_tan``):
 K8 carrying the tangents of its state and log-density along each parameter
-(forward mode), one thread per (lane, direction, block).
+(forward mode), one thread per (lane, direction, block).  K8 and K11c hold
+kramer and rodeo on the instances of K1: Lorenz63, FitzHugh-Nagumo, Hes1
+and SEIRAH at q = 3, FitzHugh-Nagumo and Chkrebtii's ODE at q = 4 and 5
+(``fused_kalman._INSTANCES``).
 
 The plain PyTorch twin of K8 is :func:`_dalton_filter_plain`, and run on
 :class:`~rodeo_tpu_torch.ops.dual.Dual` numbers it is K11c's
@@ -164,12 +167,14 @@ def _dalton_filter_batch_geometry(model, n_lane, mode="kramer",
 
 
 def _dalton_filter_batch_tan_geometry(model, n_lane, mode="kramer",
-                                     with_obs=True, device=None):
+                                     with_obs=True, q=3, device=None):
     """The launch of kernel K11c (:func:`dalton_filter_batch_tan`) at
-    ``n_lane`` lanes on the card, as
+    ``n_lane`` lanes on the card, for the model, mode and q of one of its
+    instances, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
-    return _launch_geometry("dalton_filter_batch_tan", device, int(with_obs), n_lane,
+    return _launch_geometry("dalton_filter_batch_tan", device, int(with_obs),
+                            n_lane, q=q,
                             model=resolve_model(model).cuda_functor,
                             mode=mode)
 

@@ -144,19 +144,14 @@ _EK_MODES = ("kramer", "rodeo")
 _MAX_TAN = 7
 
 
-def _every_model(modes):
-    """The first-order models at q = 3 and the second-order Chkrebtii at
-    q = 4 and 5, under ``modes`` (K8's instances)."""
-    return _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"), modes,
-                    (3,)) | _product(("Chkrebtii",), modes, (4, 5))
-
-
 def _filter_models(modes):
-    """K8's (model, q) and FitzHugh-Nagumo at q = 4 and 5, under ``modes``
-    (the instances of K1, K3 and K11a, csrc/dispatch.cuh's
+    """The first-order models at q = 3, FitzHugh-Nagumo also at q = 4 and
+    5, and the second-order Chkrebtii at q = 4 and 5, under ``modes`` (the
+    instances of K1, K3, K11a, K8 and K11c, csrc/dispatch.cuh's
     with_filter_instance)."""
-    return _every_model(modes) | _product(("FitzHughNagumo",), modes,
-                                          (4, 5))
+    return _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"), modes,
+                    (3,)) | _product(("FitzHughNagumo", "Chkrebtii"), modes,
+                                     (4, 5))
 
 
 _EVERY_MODE = _filter_models(tuple(_MODES))
@@ -167,8 +162,9 @@ _INSTANCES = {
     "filter_batch": _EVERY_MODE, "filter_single": _EVERY_MODE,
     "smoother_batch_rows": _Q345, "smoother_single": _Q345,
     "filter_batch_tan": _filter_models(_EK_MODES),
-    "dalton_filter_batch": _every_model(_EK_MODES),
-    "dalton_filter_batch_tan": _EK, "filter_nn_batch": _EK,
+    "dalton_filter_batch": _filter_models(_EK_MODES),
+    "dalton_filter_batch_tan": _filter_models(_EK_MODES),
+    "filter_nn_batch": _EK,
     "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q345,
     "sampler_batch": _Q345, "fenrir_backward_batch": _Q345,
     "fenrir_backward_batch_tan": _Q345, "fenrir_backward_single": _Q345,
@@ -637,7 +633,7 @@ _TAKES_Q = frozenset({"filter_batch", "filter_single", "smoother_batch_rows",
                       "smoother_single", "sampler_batch",
                       "fenrir_backward_batch", "fenrir_backward_single",
                       "dalton_filter_batch", "filter_batch_tan",
-                      "fenrir_backward_batch_tan",
+                      "dalton_filter_batch_tan", "fenrir_backward_batch_tan",
                       "smoother_mean_batch_tan"})
 
 

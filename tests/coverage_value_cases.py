@@ -15,9 +15,16 @@ The gradient path's tests (``tests/test_torch_coverage_grad*.py``) take
 these cases and FitzHugh-Nagumo at q = 4 and 5 (``GRAD_CASES``), the JAX
 package's Hes1 and SEIRAH Jacobian for all lanes at once (``jac_lanes``),
 and share their tolerances, the tangent kernels' seeded chains and the
-solve's checks here.
+solve's checks here; so do DALTON's gradient tests
+(``tests/test_torch_coverage_dalton*.py``: check_dalton_case, the JAX
+package's plain float64 reference and its fused tangent kernel traced in
+float64, the witnesses where float32 does not resolve DALTON).
 """
 import functools
+import sys
+import types
+from pathlib import Path
+from unittest import mock
 
 import jax
 import numpy as np
@@ -29,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 from rodeo_tpu import interrogate as jint
 from rodeo_tpu.models import chkrebtii as jchk, fitzhugh as jfitz
 from rodeo_tpu.models import hes1 as jhes1, seirah as jseirah
+from rodeo_tpu.ops import pallas_dalton as pd
 from rodeo_tpu.ops import pallas_fenrir as pf
 from rodeo_tpu.ops import pallas_kalman as pk
 from rodeo_tpu.ops import precond as jprecond
@@ -36,8 +44,12 @@ from rodeo_tpu.prior import ibm_init as j_ibm_init
 
 from rodeo_tpu_torch.models import chkrebtii as tchk, fitzhugh as tfitz
 from rodeo_tpu_torch.models import hes1 as thes1, seirah as tseirah
+from rodeo_tpu_torch.ops import fused_dalton as fd
 from rodeo_tpu_torch.ops import fused_fenrir as ff
 from rodeo_tpu_torch.ops import fused_kalman as fk
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_coverage_reference as cov_ref  # noqa: E402
 
 # tests/test_torch_fused_kalman.py's tolerance, of the largest reference
 # entry; tests/test_torch_likelihood.py's for the likelihoods, relative
@@ -575,3 +587,277 @@ def jax_solve_misses(name):
     (_, d_f, _, _), (_, d_p, _, _) = jax_solve_of(name)
     return [tan_err(d_f[k, ..., d, :], d_p[k, ..., d, :])
             for k in range(d_p.shape[0]) for d in range(d_p.shape[-2])]
+
+
+# --- DALTON's gradient (tests/test_torch_coverage_dalton*.py) --------------
+
+# The gradient cases where float32 does not resolve DALTON in either
+# package, FitzHugh-Nagumo at q = 4 and 5: the difference of two float32
+# sums of ~6e7 (q = 4) or ~5e11 (q = 5), which rounds to whole numbers (to
+# 0 at q = 5), where DALTON is ~10 and its gradient ~5-60.
+DALTON_UNRESOLVED = ("fitzhugh_q4_kramer", "fitzhugh_q4_rodeo",
+                     "fitzhugh_q5_kramer", "fitzhugh_q5_rodeo")
+# Of those, the cases where the JAX package's plain float64 reference
+# (ops.precond.dalton, its joint forecast density eigen-masked at steps
+# with data) and the fused filters' sequential updates, float64 in both
+# packages, part by more than the gradient's tolerance (measured up to
+# 1.6e-3 of the value and 3-13 % of a parameter's largest gradient entry;
+# under rodeo 4e-7): under kramer
+DALTON_PLAIN_PARTS = ("fitzhugh_q4_kramer", "fitzhugh_q5_kramer")
+
+
+def jax_dalton_fused(c):
+    """The JAX package's dalton_fused_batch_grad over the case's lanes:
+    ``(loglik (B,), grad (B, n_theta))`` as numpy."""
+    fn = jax.jit(lambda ts, x0: pd.dalton_fused_batch_grad(
+        thetas=ts, ode_inits=x0, **c["obs"], **jax_common(c)))
+    ll, g = fn(jnp.asarray(c["thetas"]), jnp.asarray(c["inits"]))
+    return np.asarray(ll), np.asarray(g)
+
+
+def jax_dalton_plain(c):
+    """The JAX package's plain float64 reference of case ``c`` (FitzHugh-
+    Nagumo or Chkrebtii's ODE): ``ops.precond.dalton`` and its
+    jax.value_and_grad in theta at each lane, ``(value (B,), grad (B,
+    n_theta))``; Chkrebtii's ODE has no parameter, its gradient zeros."""
+    f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)  # noqa: E731
+    jcfg = c["jcfg"]
+    how = getattr(jint, f"interrogate_{c['mode']}")
+    obs = {k: f64(v) for k, v in c["obs"].items()}
+    chk = c["model"] == "chkrebtii"
+    fun = jchk.chkrebtii_fun if chk else jfitz.fitzhugh_fun
+
+    def value(th, x0):
+        return jprecond.dalton(
+            None, fun, f64(jcfg["ode_weight"]), x0, 0.0, c["t_max"],
+            N_STEPS, how, tuple(f64(p) for p in jcfg["prior_pars"]), **obs,
+            **({} if chk else {"theta": th}))
+
+    vg = jax.jit(jax.value_and_grad(value))
+    out = [vg(f64(c["thetas"][b]), f64(c["inits"][b]))
+           for b in range(N_LANE)]
+    grads = np.stack([np.asarray(g) for _, g in out])
+    return (np.array([float(v) for v, _ in out]),
+            np.zeros_like(grads) if chk else grads)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dalton_of(name):
+    """The JAX package's jax_dalton_fused of gradient case ``name`` and, at
+    DALTON_UNRESOLVED, its jax_dalton_plain (else None), computed once a
+    process: the value and gradient tests share them."""
+    c = jax_grad_case(name)
+    plain = jax_dalton_plain(c) if name in DALTON_UNRESOLVED else None
+    return jax_dalton_fused(c), plain
+
+
+def port_dalton(c):
+    """The port's dalton_fused_batch_grad of case ``c`` on the CPU (no
+    launch; the values bitwise dalton_fused_batch's): ``(loglik, grad)``
+    as numpy."""
+    args, kw, obs = port_args(c)
+    before = dict(fd.LAUNCHES)
+    ll, g = fd.dalton_fused_batch_grad(*args, **obs, **kw)
+    value = fd.dalton_fused_batch(*args, **obs, **kw)
+    assert fd.LAUNCHES == before            # the CPU takes the twins
+    np.testing.assert_array_equal(ll.numpy(), value.numpy())
+    return ll.numpy(), g.numpy()
+
+
+def port_dalton_f64(c, moved=False):
+    """The port's DALTON of case ``c`` by the twins in float64 on the
+    entry's float32 operands (tools/torch_coverage_reference.py's
+    dalton_float64_twins; with ``moved`` theta, x0 and the prior variance
+    then moved one float64 ulp up, how far the twins' float64 arithmetic
+    resolves DALTON): ``(loglik, grad)`` as numpy, the gradient zeros on
+    Chkrebtii's ODE."""
+    ops, grid, ld0 = dalton_operands(c, moved)
+    chk = c["model"] == "chkrebtii"
+    ll, g = cov_ref.dalton_float64_twins(c["model"], c["mode"], N_STEPS,
+                                         ops, grid, ld0, tangent=not chk)
+    return ll.numpy(), (np.zeros(c["thetas"].shape) if chk else g.numpy())
+
+
+def dalton_operands(c, moved=False):
+    """The float32 operands of DALTON's two launches for case ``c``
+    (``fused_dalton._dalton_prepare``: ``(ops, grid, ld0)``); with
+    ``moved`` theta, x0 and the prior variance widened to float64 and
+    moved one float64 ulp up."""
+    args, _, obs = port_args(c)
+    ops, grid, ld0 = fd._dalton_prepare(*args, *obs.values())
+    if moved:
+        up = lambda a: np.where(a != 0, np.nextafter(a, np.inf), a)  # noqa
+        ops = {k: (torch.from_numpy(up(v.double().numpy()))
+                   if k in ("theta_lanes", "x0_lanes", "prior_var") else v)
+               for k, v in ops.items()}
+    return ops, grid, ld0
+
+
+def jax_dalton_fused64(c, moved=False):
+    """The JAX package's fused DALTON formulation in float64: its tangent
+    kernel ``_dalton_filter_kernel_tan`` (a ``pallas_call`` in interpret
+    mode, every operand and scratch float64) with and without data on the
+    port's operands of case ``c`` (``fused_dalton._dalton_prepare``, the
+    float32 operands of both packages' fused entries, widened; with
+    ``moved`` theta, x0 and the prior variance then moved one float64 ulp
+    up): ``(loglik (B,), grad (B, n_theta))`` as numpy, the witness of the
+    fused filters where float32 does not resolve them."""
+    ops, grid, ld0 = dalton_operands(c, moved)
+    f64 = lambda t: np.asarray(t.numpy(), np.float64)  # noqa: E731
+    # the kernel initialises its scratch with float32 zeros: traced here
+    # with jax.numpy's float32 read as float64 (its module left as it is)
+    wide = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                    if not k.startswith("__")})
+    wide.float32 = jnp.float64
+    q, nb, B = ops["x0_lanes"].shape
+    n_tri = q * (q + 1) // 2
+    n_tan = ops["theta_lanes"].shape[0]
+    n_aug = 1 + n_tan
+    pairs, _ = fk._tri_idx(q)
+    spec = lambda shape: pl.BlockSpec(  # noqa: E731
+        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
+
+    def run(with_obs, seed):
+        kern = functools.partial(
+            pd._dalton_filter_kernel_tan, c["jflat"], c["jjac"], with_obs,
+            n_tan, N_STEPS, q, nb, n_tri, B, ops["q_const"])
+        return np.asarray(pl.pallas_call(
+            kern, out_shape=jax.ShapeDtypeStruct((n_aug, B), jnp.float64),
+            grid=(1,),
+            in_specs=[spec((nb, n_tri)), spec((nb, q)), spec((q, nb, B)),
+                      spec((n_tan, B)), spec((N_STEPS, 1)), spec((1, q)),
+                      spec((N_STEPS, q, nb, 1)), spec((N_STEPS, 1, nb, 1)),
+                      spec((N_STEPS, 1, nb, 1)), spec((N_STEPS, 1)),
+                      spec((n_aug, B))],
+            out_specs=spec((n_aug, B)),
+            scratch_shapes=[pltpu.VMEM((n_aug * q, nb, B), jnp.float64),
+                            pltpu.VMEM((n_aug * n_tri, nb, B), jnp.float64),
+                            pltpu.VMEM((n_aug, B), jnp.float64)],
+            interpret=True,
+        )(f64(fk._pack_tri(ops["prior_var"], pairs)), f64(ops["ode_weight"]),
+          f64(ops["x0_lanes"]), f64(ops["theta_lanes"]),
+          f64(ops["tgrid"])[:, None], f64(ops["t_vec"])[None],
+          f64(grid["d"])[..., None], f64(grid["y"])[:, None, :, None],
+          f64(grid["om"])[:, None, :, None], f64(grid["mask"])[:, None],
+          seed))
+
+    seed = np.zeros((n_aug, B))
+    joint = seed.copy()
+    joint[0] = f64(ld0)
+    with mock.patch.object(pd, "jnp", wide):
+        diff = run(True, joint) - run(False, seed)
+    return diff[0], diff[1:].T
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dalton_fused64_of(name, moved=False):
+    """jax_dalton_fused64 of gradient case ``name``, computed once a
+    process: check_dalton_case and jax_dalton_plain_parts share it."""
+    return jax_dalton_fused64(jax_grad_case(name), moved)
+
+
+def dalton_sums_spacing(c):
+    """The float32 spacing of the port's joint log-density sum and of each
+    of its tangents (K11c's twin with data, ``(n_aug, B)``) on case ``c``:
+    how finely float32 resolves DALTON, the difference of that sum and the
+    sum without data, and its gradient, lane by lane."""
+    ops, grid, ld0 = dalton_operands(c)
+    n_theta = ops["theta_lanes"].shape[0]
+    seed = torch.cat([ld0[None], ld0.new_zeros((n_theta, ld0.shape[0]))])
+    joint = fd.dalton_filter_batch_tan(c["model"], N_STEPS, **ops, **grid,
+                                       ld0=seed, mode=c["mode"])
+    return np.spacing(np.abs(joint.numpy()))
+
+
+def dalton_f32_held(port, moved, plain, spacing, tol):
+    """Whether the port's float32 output ``port`` (a value or one
+    parameter's gradient over the lanes) lies within the larger of ``tol``
+    of the float64 ``plain``'s largest entry, 3 x the port's own move
+    under a one-ulp move of its operands (``moved``: ulp_case's output) and
+    3 x the float32 spacing of the sums it is the difference of
+    (``spacing``, dalton_sums_spacing's row), where float32 does not
+    resolve DALTON (DALTON_UNRESOLVED: there the output rounds to whole
+    numbers, or to 0, and a one-ulp move need not move it); with the
+    distances."""
+    port, moved, plain, spacing = (np.asarray(a, np.float64) for a in (
+        port, moved, plain, spacing))
+    err = np.abs(port - plain).max()
+    move = np.abs(moved - port).max()
+    bound = max(tol * np.abs(plain).max(), 3 * move, 3 * spacing.max())
+    return err <= bound, (err, move, spacing.max(), bound)
+
+
+def check_dalton_case(name):
+    """dalton_fused_batch_grad on the CPU, its values bitwise
+    dalton_fused_batch's and its gradient exactly zero on Chkrebtii's ODE
+    (no parameter), against the JAX package's fused entry: the values
+    within DALTON_RTOL relative and each parameter's gradient within
+    GRAD_RTOL of its largest entry (DALTON_Q5_TOL and GRAD_Q5_TOL at
+    q = 5).  Where float32 does not resolve DALTON (DALTON_UNRESOLVED),
+    the float32 outputs within dalton_f32_held's bound of the JAX
+    package's float64 plain reference, and the twins in float64 (on the
+    same float32 operands, port_dalton_f64) within DALTON_RTOL and
+    GRAD_RTOL of it, but at DALTON_PLAIN_PARTS, where the two
+    formulations part, within those tolerances or 3 x the float64 twins'
+    own move under a one-ulp float64 move of their operands (the larger)
+    of the JAX package's fused formulation in float64
+    (jax_dalton_fused64; the moves of both, a one-ulp float64 move of
+    their operands, summed: at FitzHugh-Nagumo q = 5 under kramer float64
+    resolves the gradient to ~0.3-0.7 %, its sums being ~1e13)."""
+    c = jax_grad_case(name)
+    ll, g = port_dalton(c)
+    n_theta = c["thetas"].shape[1]
+    assert ll.shape == (N_LANE,) and g.shape == (N_LANE, n_theta)
+    assert np.isfinite(ll).all() and np.isfinite(g).all()
+    if c["model"] == "chkrebtii":
+        assert (g == 0).all()
+    (ll_j, g_j), plain = jax_dalton_of(name)
+    v_tol = tol(name, DALTON_RTOL, DALTON_Q5_TOL)
+    g_tol = tol(name, GRAD_RTOL, GRAD_Q5_TOL)
+    if name not in DALTON_UNRESOLVED:
+        err = np.abs(ll - ll_j) / np.abs(ll_j)
+        assert err.max() <= v_tol, err
+        errs = [tan_err(g[:, k], g_j[:, k]) for k in range(n_theta)]
+        assert max(errs) <= g_tol, errs
+        return
+    ll_m, g_m = port_dalton(ulp_case(c))
+    spacing = dalton_sums_spacing(c)
+    ok, d = dalton_f32_held(ll, ll_m, plain[0], spacing[0], v_tol)
+    assert ok, ("value", d)
+    for k in range(n_theta):
+        ok, d = dalton_f32_held(g[:, k], g_m[:, k], plain[1][:, k],
+                                spacing[1 + k], g_tol)
+        assert ok, (k, d)
+    ll64, g64 = port_dalton_f64(c)
+    if name not in DALTON_PLAIN_PARTS:
+        err = np.abs(ll64 - plain[0]) / np.abs(plain[0])
+        assert err.max() <= v_tol, err
+        errs = [tan_err(g64[:, k], plain[1][:, k]) for k in range(n_theta)]
+        assert max(errs) <= g_tol, errs
+        return
+    ll_w, g_w = jax_dalton_fused64_of(name)
+    ll_wm, g_wm = jax_dalton_fused64_of(name, moved=True)
+    ll_mv, g_mv = port_dalton_f64(c, moved=True)
+    err = np.abs(ll64 - ll_w) / np.abs(ll_w)
+    move = (np.abs(ll_mv - ll64) + np.abs(ll_wm - ll_w)) / np.abs(ll_w)
+    assert err.max() <= max(v_tol, 3 * move.max()), (err, move)
+    for k in range(n_theta):
+        err = tan_err(g64[:, k], g_w[:, k])
+        move = tan_err(g_mv[:, k], g64[:, k]) + tan_err(g_wm[:, k],
+                                                        g_w[:, k])
+        assert err <= max(g_tol, 3 * move), (k, err, move)
+
+
+def jax_dalton_plain_parts(name):
+    """How far the port's float64 twins (port_dalton_f64) lie from the JAX
+    package's float64 plain reference at DALTON_PLAIN_PARTS case ``name``,
+    and the JAX package's fused formulation in float64 (jax_dalton_fused64)
+    from it: ``(value's relative error, each parameter's gradient tan_err)``
+    for each."""
+    c = jax_grad_case(name)
+    _, (p_ll, p_g) = jax_dalton_of(name)
+    out = []
+    for ll, g in (port_dalton_f64(c), jax_dalton_fused64_of(name)):
+        out.append((float(np.max(np.abs(ll - p_ll) / np.abs(p_ll))),
+                    [tan_err(g[:, k], p_g[:, k]) for k in range(g.shape[1])]))
+    return out

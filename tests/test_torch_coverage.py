@@ -411,10 +411,10 @@ def test_instances_not_held_raise(kernel):
 
 def test_entries_refuse_what_their_kernels_lack():
     """The gradient entries take kramer and rodeo alone, as the JAX
-    package's (K11a), and no q beyond 5; DALTON's gradient neither the
-    models Hes1, SEIRAH and Chkrebtii nor q = 4 (K11c); DALTON kramer and
-    rodeo alone (K8); the stationary solve neither the new models nor
-    q = 4."""
+    package's (K11a), and no q beyond 5; DALTON and its gradient kramer and
+    rodeo alone and no q beyond 5 (K8, K11c, which take every model of
+    K11a: Hes1's and Chkrebtii's gradients run); the stationary solve
+    neither the new models nor q = 4."""
     _, tcfg, thetas, inits = _lorenz("schober")
     batch = (_t(thetas), tcfg["ode_weight"], _t(inits), 0.0, T_MAX, N_STEPS,
              tcfg["prior_pars"])
@@ -430,6 +430,12 @@ def test_entries_refuse_what_their_kernels_lack():
                 device="cpu"),
             lambda: fd.dalton_fused_batch(
                 *batch, **obs, model="lorenz", interrogation="schober",
+                device="cpu"),
+            lambda: fd.dalton_fused_batch_grad(
+                *batch, **obs, model="lorenz", interrogation="schober",
+                device="cpu"),
+            lambda: fd.dalton_fused_batch_grad(
+                *batch, **obs, model="lorenz", interrogation="chkrebtii",
                 device="cpu")):
         with pytest.raises(NotImplementedError):
             call()
@@ -442,35 +448,44 @@ def test_entries_refuse_what_their_kernels_lack():
                  obs_weight=torch.zeros((3, 1, 1, 4)),
                  obs_var=torch.ones((3, 1, 1, 1)))
     c_inits = ccfg["ode_init"].expand(2, 1, 4)
-    with pytest.raises(NotImplementedError,
-                       match="the dalton_filter_batch_tan"):
-        fd.dalton_fused_batch_grad(torch.zeros((2, 1)), ode_inits=c_inits,
-                                   **c_obs, **args)
+    # Chkrebtii's ODE has no parameter: its gradient is exactly zero
+    _, c_grad = fd.dalton_fused_batch_grad(torch.zeros((2, 1)),
+                                           ode_inits=c_inits, **c_obs,
+                                           **args)
+    assert c_grad.shape == (2, 1) and (c_grad == 0).all()
     hcfg = thes1.setup(n_steps=40, t_max=60.0, dtype=torch.float32,
                        device="cpu")
     h_obs = dict(obs_data=torch.zeros((3, 3, 1)),
                  obs_times=torch.tensor([0.0, 30.0, 60.0]),
                  obs_weight=torch.zeros((3, 3, 1, 3)),
                  obs_var=torch.ones((3, 3, 1, 1)))
-    with pytest.raises(NotImplementedError,
-                       match="the dalton_filter_batch_tan"):
-        fd.dalton_fused_batch_grad(
-            hcfg["theta"].expand(2, 7), hcfg["ode_weight"],
-            hcfg["ode_init"].expand(2, 3, 3), 0.0, 60.0, 40,
-            hcfg["prior_pars"], **h_obs, model="hes1", device="cpu")
+    h_ll, h_grad = fd.dalton_fused_batch_grad(
+        hcfg["theta"].expand(2, 7), hcfg["ode_weight"],
+        hcfg["ode_init"].expand(2, 3, 3), 0.0, 60.0, 40,
+        hcfg["prior_pars"], **h_obs, model="hes1", device="cpu")
+    assert torch.isfinite(h_ll).all() and h_grad.shape == (2, 7)
     # FitzHugh-Nagumo padded past its third derivative: q = 6 is no
-    # instance of the tangent filter (K11a holds q <= 5)
+    # instance of the tangent filter nor of DALTON's filters (K11a, K8 and
+    # K11c hold q <= 5)
     fcfg = tfitzhugh.setup(n_steps=40, t_max=2.0, dtype=torch.float32,
                            device="cpu", n_deriv=6)
     f_obs = dict(obs_data=torch.zeros((3, 2, 1)),
                  obs_times=torch.tensor([0.0, 1.0, 2.0]),
                  obs_weight=torch.zeros((3, 2, 1, 6)),
                  obs_var=torch.ones((3, 2, 1, 1)))
+    f_args = (fcfg["theta"].expand(2, 3), fcfg["ode_weight"],
+              fcfg["ode_init"].expand(2, 2, 6), 0.0, 2.0, 40,
+              fcfg["prior_pars"])
     with pytest.raises(NotImplementedError, match="the filter_batch_tan"):
-        ff.fenrir_fused_batch_grad(
-            fcfg["theta"].expand(2, 3), fcfg["ode_weight"],
-            fcfg["ode_init"].expand(2, 2, 6), 0.0, 2.0, 40,
-            fcfg["prior_pars"], **f_obs, model="fitzhugh", device="cpu")
+        ff.fenrir_fused_batch_grad(*f_args, **f_obs, model="fitzhugh",
+                                   device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="the dalton_filter_batch_tan"):
+        fd.dalton_fused_batch_grad(*f_args, **f_obs, model="fitzhugh",
+                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="the dalton_filter_batch "):
+        fd.dalton_fused_batch(*f_args, **f_obs, model="fitzhugh",
+                              device="cpu")
     with pytest.raises(NotImplementedError, match="mean_"):
         rt.solve_mv_fused_stationary(torch.zeros(1),
                                      ode_init=ccfg["ode_init"], **args)

@@ -84,11 +84,12 @@ def test_fenrir_fused_matches_jax(name):
 
 
 def test_instance_tables_hold_the_value_path():
-    """K6, K7a and K7b hold q = 3, 4 and 5; K8 kramer and rodeo on
-    Lorenz63, FitzHugh-Nagumo, Hes1 and SEIRAH at q = 3 and Chkrebtii's ODE
-    at q = 4 and 5; K11a kramer and rodeo on those and FitzHugh-Nagumo at
-    q = 4 and 5, K11b and K11e q = 3, 4 and 5 (the gradient path,
-    tests/test_torch_coverage_grad.py); K11c, daltonng, MAGI and the
+    """K6, K7a and K7b hold q = 3, 4 and 5; K8 and K11c kramer and rodeo
+    on Lorenz63, FitzHugh-Nagumo, Hes1 and SEIRAH at q = 3, Chkrebtii's ODE
+    at q = 4 and 5 and FitzHugh-Nagumo at q = 4 and 5, as K11a does; K11b
+    and K11e q = 3, 4 and 5 (the gradient path,
+    tests/test_torch_coverage_grad.py and
+    tests/test_torch_coverage_dalton*.py); daltonng, MAGI and the
     stationary solve what they held before."""
     q345 = {(None, None, q) for q in (3, 4, 5)}
     for kernel in ("sampler_batch", "fenrir_backward_batch",
@@ -96,17 +97,16 @@ def test_instance_tables_hold_the_value_path():
                    "smoother_mean_batch_tan"):
         assert fk._INSTANCES[kernel] == q345
     first = ("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah")
-    k8 = {(m, md, q) for md in ("kramer", "rodeo")
-          for m, q in [(m, 3) for m in first] + [("Chkrebtii", 4),
-                                                 ("Chkrebtii", 5)]}
-    assert fk._INSTANCES["dalton_filter_batch"] == k8
-    assert fk._INSTANCES["filter_batch_tan"] == k8 | {
-        ("FitzHughNagumo", md, q) for md in ("kramer", "rodeo")
-        for q in (4, 5)}
+    k11a = {(m, md, q) for md in ("kramer", "rodeo")
+            for m, q in [(m, 3) for m in first] + [
+                (m, q) for m in ("Chkrebtii", "FitzHughNagumo")
+                for q in (4, 5)]}
+    for kernel in ("filter_batch_tan", "dalton_filter_batch",
+                   "dalton_filter_batch_tan"):
+        assert fk._INSTANCES[kernel] == k11a
     ek = {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
           for md in ("kramer", "rodeo")}
-    for kernel in ("dalton_filter_batch_tan", "filter_nn_batch",
-                   "filter_nn_batch_tan"):
+    for kernel in ("filter_nn_batch", "filter_nn_batch_tan"):
         assert fk._INSTANCES[kernel] == ek
     for kernel in ("magi_batch", "magi_adjoint_batch"):
         assert fk._INSTANCES[kernel] == {(None, None, 3)}

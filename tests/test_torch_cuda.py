@@ -1789,6 +1789,34 @@ _NEW_K8 = sorted(
        for md in ("kramer", "rodeo")}, key=lambda k: (k[2], k[0], k[1]))
 
 
+def _dalton_instance_case(functor, mode, q, device):
+    """The K8 and K11c operands of the instance (functor, mode, q) on 37
+    lanes (a ragged lane group) of the functor's INSTANCE_CHECKS setup
+    (tools/torch_coverage_reference.py), observed in derivative 0 of every
+    block at 5 times from t = 0 to its end, so that the launch with data
+    holds steps with data: ``(case, ops, grid, ld0)``."""
+    case = cov_ref.instance_case(functor, mode, q, 37, device, seed=7)
+    cfg, n = case["cfg"], case["n_steps"]
+    thetas = case["batch"]["theta_lanes"].T.contiguous()
+    inits = cfg["ode_init"].expand((37,) + cfg["ode_init"].shape)
+    nb = case["fused"].n_block
+    rng = np.random.default_rng(q)
+    weight = torch.zeros((5, nb, 1, q), device=device)
+    weight[..., 0] = 1.0
+    x0 = cfg["ode_init"][:, 0]
+    obs = (x0[None, :, None] * (1 + 0.01 * torch.tensor(
+               rng.standard_normal((5, nb, 1)), dtype=torch.float32,
+               device=device)),
+           torch.linspace(0.0, case["config"]["t_max"], 5,
+                          dtype=torch.float64), weight,
+           torch.full((5, nb, 1, 1), 0.005, device=device))
+    ops, grid, ld0 = fd._dalton_prepare(thetas, cfg["ode_weight"], inits,
+                                        0.0, case["config"]["t_max"], n,
+                                        cfg["prior_pars"], *obs)
+    assert (grid["mask"] != 0).any()
+    return case, ops, grid, ld0
+
+
 @pytest.mark.parametrize("functor,mode,q", _NEW_K8,
                          ids=["-".join(map(str, k)) for k in _NEW_K8])
 def test_new_dalton_instances_are_bitwise_their_twins(cuda_device, functor,
@@ -1798,24 +1826,9 @@ def test_new_dalton_instances_are_bitwise_their_twins(cuda_device, functor,
     functor's INSTANCE_CHECKS setup (tools/torch_coverage_reference.py),
     observed in derivative 0 of every block at 5 times; at 2048 lanes all
     resident, and ptxas spills nothing in it."""
-    case = cov_ref.instance_case(functor, mode, q, 37, cuda_device, seed=7)
-    cfg, n = case["cfg"], case["n_steps"]
-    thetas = case["batch"]["theta_lanes"].T.contiguous()
-    inits = cfg["ode_init"].expand((37,) + cfg["ode_init"].shape)
-    nb = case["fused"].n_block
-    rng = np.random.default_rng(q)
-    weight = torch.zeros((5, nb, 1, q), device=cuda_device)
-    weight[..., 0] = 1.0
-    x0 = cfg["ode_init"][:, 0]
-    obs = (x0[None, :, None] * (1 + 0.01 * torch.tensor(
-               rng.standard_normal((5, nb, 1)), dtype=torch.float32,
-               device=cuda_device)),
-           torch.linspace(0.0, case["config"]["t_max"], 5,
-                          dtype=torch.float64), weight,
-           torch.full((5, nb, 1, 1), 0.005, device=cuda_device))
-    ops, grid, ld0 = fd._dalton_prepare(thetas, cfg["ode_weight"], inits,
-                                        0.0, case["config"]["t_max"], n,
-                                        cfg["prior_pars"], *obs)
+    case, ops, grid, ld0 = _dalton_instance_case(functor, mode, q,
+                                                 cuda_device)
+    n, nb = case["n_steps"], case["fused"].n_block
     for with_obs in (True, False):
         args = dict(**ops, **grid, mode=mode, with_obs=with_obs,
                     ld0=ld0 if with_obs else torch.zeros_like(ld0))
@@ -2194,6 +2207,183 @@ def test_mala_over_fenrir_on_hes1_on_the_card(cuda_device):
                            "fenrir_backward_batch_tan": 4}
     assert torch.isfinite(pos).all() and torch.isfinite(ll).all()
     fresh = ff.fenrir_fused_batch(
+        pos[-1], cfg["ode_weight"],
+        cfg["ode_init"].expand((16,) + cfg["ode_init"].shape), 0.0,
+        cfg["t_max"], cfg["n_steps"], cfg["prior_pars"], **obs, model="hes1",
+        device=cuda_device)
+    assert torch.equal(fresh, ll)
+
+
+# --- DALTON's gradient at every instance of K11a: K11c on every model of K1
+# under kramer and rodeo -----------------------------------------------------
+
+_NEW_K11C = sorted(
+    fk._INSTANCES["dalton_filter_batch_tan"]
+    - {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
+       for md in ("kramer", "rodeo")}, key=lambda k: (k[2], k[0], k[1]))
+
+
+@pytest.mark.parametrize("functor,mode,q", _NEW_K11C,
+                         ids=["-".join(map(str, k)) for k in _NEW_K11C])
+def test_new_dalton_tangent_instances_are_bitwise_their_twins(cuda_device,
+                                                              functor, mode,
+                                                              q):
+    """Each instance of K11c that this slice added (Hes1's and SEIRAH's
+    Jacobian under kramer on nested Duals), with and without data, bitwise
+    against its twin on the operands of test_new_dalton_instances_are_
+    bitwise_their_twins, every tangent seed of the log-density a nonzero
+    normal, its values K8's; its launch at 2048 lanes (CTAs of 32 lanes x
+    the blocks, a grid row per parameter), and ptxas spills nothing in it
+    (Chkrebtii's instances keep 32 bytes of stack, as K1's and K8's
+    do)."""
+    case, ops, grid, ld0 = _dalton_instance_case(functor, mode, q,
+                                                 cuda_device)
+    fused, n = case["fused"], case["n_steps"]
+    n_tan = fused.n_theta
+    gen = torch.Generator(cuda_device).manual_seed(q)
+    tans = torch.randn((n_tan, ld0.shape[0]), generator=gen,
+                       device=cuda_device)
+    for with_obs in (True, False):
+        seed = ld0 if with_obs else torch.zeros_like(ld0)
+        args = dict(**ops, **grid, mode=mode, with_obs=with_obs)
+        _reset_launches()
+        k11 = fd.dalton_filter_batch_tan(
+            fused, n, **args, ld0=torch.cat([seed[None], tans]))
+        assert _launched() == {"dalton_filter_batch_tan": 1}
+        p11 = fd._dalton_filter_tan_plain(
+            fused, n, **args, ld0=torch.cat([seed[None], tans]))
+        assert torch.isfinite(p11).all(), with_obs
+        assert torch.equal(k11, p11), with_obs
+        assert torch.equal(k11[0], fd.dalton_filter_batch(
+            fused, n, **args, ld0=seed)), with_obs
+        geo = fd._dalton_filter_batch_tan_geometry(
+            fused, 2048, mode, with_obs, q, device=cuda_device)
+        assert (geo["cta_x"], geo["cta_y"]) == (32, fused.n_block), geo
+        assert (geo["grid_x"], geo["grid_y"]) == (64, n_tan), geo
+        assert geo["ctas_per_sm"] >= 1, geo
+        rows = _spills("24dalton_filter_tan_kernel",
+                       f"{len(functor)}{functor}E",
+                       f"Li{q}ELi{fk._MODES[mode]}ELb{int(with_obs)}E")
+        assert rows and all(r == (0, 0) for r in rows), rows
+
+
+def test_dalton_entries_refuse_other_instances_on_the_card(cuda_device):
+    """The C entries of K8 and K11c return an error for any (model, mode,
+    q) that with_filter_instance and with_ek_mode do not list, and the
+    Python gate refuses it first on CUDA tensors."""
+    lib = fk._build.load()
+    qc = fk._host_qconst([[1.0] * 5] * 5)
+    for model, mode, q_k in ((0, 0, 4), (2, 0, 3), (3, 2, 3), (2, 3, 4),
+                             (1, 0, 6), (4, 1, 4), (5, 0, 3)):
+        for entry in (lib.rodeo_dalton_filter_batch,
+                      lib.rodeo_dalton_filter_batch_tan):
+            assert entry(model, mode, q_k, 1, 4, 2, ctypes.addressof(qc),
+                         *([None] * 13)) != 0, (model, mode, q_k)
+    cfg, thetas, inits = _lanes("lorenz", 8, 0.08, 4, 5, cuda_device)
+    obs = _obs("lorenz", 3, 0.08, cuda_device)
+    with pytest.raises(NotImplementedError, match="dalton_filter_batch_tan"):
+        fd.dalton_fused_batch_grad(thetas, cfg["ode_weight"], inits, 0.0,
+                                   0.08, 8, cfg["prior_pars"], **obs,
+                                   model="lorenz", interrogation="schober",
+                                   device=cuda_device)
+
+
+@pytest.mark.parametrize("name,mode", _GRAD_CASES)
+def test_dalton_gradient_at_new_instances_launches_its_kernels(cuda_device,
+                                                               name, mode):
+    """dalton_fused_batch_grad (K11c with and without data) on each
+    gradient fixture's model and q (tools/torch_coverage_reference.py's
+    GRAD_FIXTURES) at its INSTANCE_CHECKS horizon over 5 lanes, observed at
+    5 times: two K11c launches, finite, the values bitwise
+    dalton_fused_batch's on the card, the gradient exactly zero on
+    Chkrebtii's ODE, and the value and gradient within ENTRY_TOL of the
+    same call on the CPU; where float32 does not resolve DALTON
+    (DALTON_F32_UNRESOLVED: a difference of float32 sums that a library
+    function rounding otherwise on the card moves by whole ulps of the
+    sums) the twins in float64 on the same operands on the card within
+    ENTRY_TOL of the same on the CPU instead."""
+    import importlib
+    model, q = cov_ref.GRAD_FIXTURES[name][:2]
+    functor = fk.resolve_model(model).cuda_functor
+    _, n, t_max, sigma = cov_ref.INSTANCE_CHECKS_Q.get(
+        (functor, q), cov_ref.INSTANCE_CHECKS[functor])
+
+    def args(dev):
+        mod = importlib.import_module(f"rodeo_tpu_torch.models.{model}")
+        cfg = mod.setup(n_steps=n, t_max=t_max, prior_sigma=sigma,
+                        dtype=torch.float32, device=dev,
+                        **({"n_deriv": q} if model in cov_ref.PADDED
+                           else {}))
+        theta = cfg.pop("theta")
+        theta = torch.zeros(1, device=dev) if theta is None else theta
+        noise = torch.tensor(np.random.default_rng(3).standard_normal(
+            (5, theta.shape[0])), dtype=torch.float32, device=dev)
+        nb = cfg["ode_init"].shape[0]
+        weight = torch.zeros((5, nb, 1, q), device=dev)
+        weight[..., 0] = 1.0
+        return dict(thetas=theta * (1 + 0.01 * noise),
+                    ode_weight=cfg["ode_weight"],
+                    ode_inits=cfg["ode_init"].expand(
+                        (5,) + cfg["ode_init"].shape),
+                    t_min=0.0, t_max=t_max, n_steps=n,
+                    prior_pars=cfg["prior_pars"],
+                    obs_data=cfg["ode_init"][None, :, 0:1].expand(5, nb, 1)
+                    .contiguous(),
+                    obs_times=torch.linspace(0.0, t_max, 5,
+                                             dtype=torch.float64),
+                    obs_weight=weight,
+                    obs_var=torch.full((5, nb, 1, 1), 0.005, device=dev),
+                    model=model, interrogation=mode, device=dev)
+
+    def float64_twins(dev):
+        a = args(dev)
+        prep = fd._dalton_prepare(*[a[k] for k in (
+            "thetas", "ode_weight", "ode_inits", "t_min", "t_max", "n_steps",
+            "prior_pars", "obs_data", "obs_times", "obs_weight", "obs_var")])
+        return cov_ref.dalton_float64_twins(model, mode, n, *prep,
+                                            tangent=model != "chkrebtii")
+
+    _reset_launches()
+    ll, grad = fd.dalton_fused_batch_grad(**args(cuda_device))
+    torch.cuda.synchronize()
+    assert _launched() == {"dalton_filter_batch_tan": 2}
+    assert torch.isfinite(ll).all() and torch.isfinite(grad).all()
+    assert torch.equal(ll, fd.dalton_fused_batch(**args(cuda_device)))
+    if model == "chkrebtii":
+        assert (grad == 0).all()
+    _reset_launches()
+    ll_c, grad_c = fd.dalton_fused_batch_grad(**args("cpu"))
+    assert not _launched()
+    if name in cov_ref.DALTON_F32_UNRESOLVED:
+        ll, grad = float64_twins(cuda_device)
+        ll_c, grad_c = float64_twins("cpu")
+    assert _scaled_err(ll, ll_c) <= ENTRY_TOL
+    if model != "chkrebtii":
+        assert _scaled_err(grad, grad_c) <= ENTRY_TOL
+
+
+def test_mala_over_dalton_on_hes1_on_the_card(cuda_device):
+    """The lockstep MALA runner over dalton_fused_batch_grad on Hes1 under
+    kramer (K11c a step with data and one without, the Jacobian on nested
+    Duals), 16 lanes x 3 steps on the card: its launches, finite, and its
+    carried log-density bitwise a fresh dalton_fused_batch at the final
+    positions."""
+    from rodeo_tpu_torch.models import hes1
+    from rodeo_tpu_torch.parallel import chains
+    cfg, (thetas, _), obs, _ = cov_ref.grad_fixture("hes1", 16,
+                                                    torch.float32,
+                                                    cuda_device)
+    solver = dict(ode_weight=cfg["ode_weight"], ode_init=cfg["ode_init"],
+                  t_min=0.0, t_max=cfg["t_max"], n_steps=cfg["n_steps"],
+                  prior_pars=cfg["prior_pars"])
+    _reset_launches()
+    pos, ll, acc = chains.run_chains_mala_fused(
+        thetas, torch.Generator(cuda_device).manual_seed(5), 3, 1e-4,
+        model=hes1, likelihood="dalton", device=cuda_device, **solver, **obs)
+    torch.cuda.synchronize()
+    assert _launched() == {"dalton_filter_batch_tan": 8}
+    assert torch.isfinite(pos).all() and torch.isfinite(ll).all()
+    fresh = fd.dalton_fused_batch(
         pos[-1], cfg["ode_weight"],
         cfg["ode_init"].expand((16,) + cfg["ode_init"].shape), 0.0,
         cfg["t_max"], cfg["n_steps"], cfg["prior_pars"], **obs, model="hes1",

@@ -36,8 +36,10 @@ phase are the value fixtures and FitzHugh-Nagumo at q = 4 and 5 on
 bench.py's 200-step gradient fixture (``fenrir_fitz_grad``: 21
 observations of y_fitz_mcmc, variance 0.04), its weight and initial state
 padded with zeros past the third derivative: fenrir through
-``fenrir_fused_batch_grad`` (K11a, K11b) and basic through
-``basic_fused_batch_grad`` (K11a, K11e), under kramer and rodeo.
+``fenrir_fused_batch_grad`` (K11a, K11b), basic through
+``basic_fused_batch_grad`` (K11a, K11e) and DALTON through
+``dalton_fused_batch_grad`` (K11c, chip_smoke.py's coverage_dalton
+phase), under kramer and rodeo.
 
 Prints one JSON line: for each fixture, the largest error of the float32
 solve's x (the mean's 0th derivative, every step and block) against the
@@ -58,11 +60,15 @@ float32 and by the twins in float64 on the same normals (the witness where
 float32 does not resolve the draws), and the lanes on which float32 DALTON
 is not finite (``VALUE_NAN_LANES``; Hes1's lanes 1 % apart,
 ``VALUE_WIDE_LANES``).  Under "grad", for each gradient fixture and
-mode, lane 0's float32 fenrir and basic values and gradients on
-``--device`` against the float64 torch-ops ``ops.precond.fenrir`` and
-``basic`` with ``torch.autograd`` at lane 0's parameters: the absolute
-error of the value and the relative L2 error of the gradient, which
-chip_smoke.py keeps as ``GRAD_F32_CPU_ERR`` (bench.py's gradient rule).
+mode, lane 0's float32 fenrir, basic and DALTON values and gradients on
+``--device`` against the float64 torch-ops ``ops.precond.fenrir``,
+``basic`` and ``dalton`` with ``torch.autograd`` at lane 0's parameters:
+the absolute error of the value and the relative L2 error of the
+gradient, which chip_smoke.py keeps as ``GRAD_F32_CPU_ERR`` (bench.py's
+gradient rule); for DALTON also the float32 result's move under a one-ulp
+move of lane 0's theta and initial state, and the errors of K11c's twins
+in float64 on the same operands (``dalton_float64_twins``), the witness
+where float32 does not resolve DALTON (``DALTON_F32_UNRESOLVED``).
 """
 import argparse
 import json
@@ -532,6 +538,14 @@ GRAD_FIXTURES = {**{k: FIXTURES[k][:4] for k in VALUE_FIXTURES},
                  "fitz_grad_q4": ("fitzhugh", 4, 200, 10.0),
                  "fitz_grad_q5": ("fitzhugh", 5, 200, 10.0)}
 FITZ_GRAD_VAR = 0.04
+# The gradient fixtures on which float32 does not resolve DALTON (the
+# difference of two float32 sums, "grad"'s errors): Chkrebtii's ODE at
+# q = 5, whose value float32 loses (sums of ~1e10), and FitzHugh-Nagumo at
+# q = 4 and 5, whose value and, but under rodeo at q = 4, gradient it loses
+# (sums of ~1e8 and ~1e12 that round to whole numbers, to 0 at q = 5).
+# The twins in float64 on the same operands (dalton_float64_twins) are
+# their witness.
+DALTON_F32_UNRESOLVED = ("chkrebtii_q5", "fitz_grad_q4", "fitz_grad_q5")
 
 
 def gauss_loglik(var):
@@ -597,11 +611,12 @@ def grad_fixture(name, n_lane, dtype, device, seed=28, mu64=None):
     return cfg, (thetas, inits), obs, FITZ_GRAD_VAR
 
 
-def grad_float64(name, mode, theta, init, obs, var, device):
-    """The float64 torch-ops ``ops.precond.fenrir`` and ``basic`` of
-    gradient fixture ``name`` under ``mode`` at one lane's ``theta`` and
-    ``init`` on ``device``, with their ``torch.autograd`` gradients in
-    theta: ``{"fenrir": (value, grad), "basic": (value, grad)}``, grad a
+def grad_float64(name, mode, theta, init, obs, var, device,
+                 fns=("fenrir", "basic")):
+    """The float64 torch-ops ``ops.precond.<fn>`` for fn in ``fns`` (of
+    ``fenrir``, ``basic`` and ``dalton``) of gradient fixture ``name`` under
+    ``mode`` at one lane's ``theta`` and ``init`` on ``device``, with their
+    ``torch.autograd`` gradients in theta: ``{fn: (value, grad)}``, grad a
     list (zeros for Chkrebtii's ODE, which has no parameter)."""
     from rodeo_tpu_torch import interrogate
     from rodeo_tpu_torch.ops import precond
@@ -612,10 +627,10 @@ def grad_float64(name, mode, theta, init, obs, var, device):
         device, torch.float64) for k, v in obs.items()}
     how = getattr(interrogate, f"interrogate_{mode}")
     out = {}
-    for fn in ("fenrir", "basic"):
+    for fn in fns:
         th = theta.to(device, torch.float64).clone().requires_grad_(True)
         params = {} if model == "chkrebtii" else {"theta": th}
-        extra = dict(obs64) if fn == "fenrir" else dict(
+        extra = dict(obs64) if fn != "basic" else dict(
             obs_data=obs64["obs_data"], obs_times=obs64["obs_times"],
             obs_loglik=gauss_loglik(var))
         value = getattr(precond, fn)(key=None, interrogate=how, **cfg,
@@ -634,8 +649,10 @@ def grad_float32_calls(name, mode, thetas, inits, obs, var, device):
     ``mode`` over the lanes ``thetas``, ``inits`` on ``device``:
     ``{"fenrir": fenrir_fused_batch_grad (K11a, K11b), "basic":
     basic_fused_batch_grad (K11a, K11e), "solve":
-    solve_mv_fused_batch_grad (K11a, K11e)}``, each a call returning its
-    outputs (fenrir's and basic's value and gradient first)."""
+    solve_mv_fused_batch_grad (K11a, K11e), "dalton":
+    dalton_fused_batch_grad (K11c)}``, each a call returning its outputs
+    (fenrir's, basic's and DALTON's value and gradient first)."""
+    from rodeo_tpu_torch.ops import fused_dalton as fd
     from rodeo_tpu_torch.ops import fused_fenrir as ff
     from rodeo_tpu_torch.ops import fused_kalman as fk
     model = GRAD_FIXTURES[name][0]
@@ -647,33 +664,113 @@ def grad_float32_calls(name, mode, thetas, inits, obs, var, device):
             "basic": lambda: fk.basic_fused_batch_grad(
                 *args, obs_data=obs["obs_data"], obs_times=obs["obs_times"],
                 obs_loglik=gauss_loglik(var), **kw),
-            "solve": lambda: fk.solve_mv_fused_batch_grad(*args, **kw)}
+            "solve": lambda: fk.solve_mv_fused_batch_grad(*args, **kw),
+            "dalton": lambda: fd.dalton_fused_batch_grad(*args, **obs,
+                                                         **kw)}
+
+
+def dalton_operands(name, thetas, inits, obs, device):
+    """The operands of DALTON's two K11c launches for gradient fixture
+    ``name`` over the lanes ``thetas``, ``inits``, as
+    ``dalton_fused_batch_grad`` makes them on ``device`` (float32):
+    ``fused_dalton._dalton_prepare``'s ``(ops, grid, ld0)``."""
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    cfg = grad_config(name, torch.float32, device)
+    return fd._dalton_prepare(
+        thetas, cfg["ode_weight"], inits, cfg["t_min"], cfg["t_max"],
+        cfg["n_steps"], cfg["prior_pars"], *obs.values())
+
+
+def dalton_float64_twins(model, mode, n_steps, ops, grid, ld0,
+                         tangent=True):
+    """DALTON's log-likelihood and its gradient by the plain twins of K11c
+    (``_dalton_filter_tan_plain``, K8's twin on Duals) in float64, on the
+    float32 operands ``(ops, grid, ld0)`` of dalton_operands (on their
+    device): ``(value (B,), grad (B, n_theta))``, float64; with ``tangent``
+    False K8's twin alone and grad None.  The kernels are bitwise the
+    float32 twins; this is the same arithmetic without float32's rounding,
+    the witness of the result where float32 does not resolve it (a
+    difference of two sums that float32 rounds to whole numbers)."""
+    from rodeo_tpu_torch.ops import fused_dalton as fd
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+    fused = fk.resolve_model(model)
+    f64 = {k: v.double() if isinstance(v, torch.Tensor) else v
+           for k, v in {**ops, **grid}.items()}
+    ld0 = ld0.double()
+    if not tangent:
+        lds = [fd._dalton_filter_plain(fused, n_steps, **f64, ld0=seed,
+                                       mode=mode, with_obs=w)
+               for seed, w in ((ld0, True), (torch.zeros_like(ld0), False))]
+        return lds[0] - lds[1], None
+    zeros = ld0.new_zeros((fused.n_theta + 1, ld0.shape[0]))
+    seed = torch.cat([ld0[None], zeros[1:]])
+    diff = (fd._dalton_filter_tan_plain(fused, n_steps, **f64, ld0=seed,
+                                        mode=mode, with_obs=True)
+            - fd._dalton_filter_tan_plain(fused, n_steps, **f64, ld0=zeros,
+                                          mode=mode, with_obs=False))
+    return diff[0], diff[1:].T
+
+
+def _grad_errs(value, grad, ref):
+    """The absolute error of lane 0's ``value`` and the relative L2 error of
+    its ``grad`` (bench.py's audit_grad; the norm of grad where the
+    float64 gradient is zero) against the float64 ``(value, grad)``
+    ``ref``."""
+    import numpy as np
+    g64 = np.asarray(ref[1], np.float64)
+    g = np.asarray(grad, np.float64)
+    norm = np.linalg.norm(g64)
+    return {"value": abs(float(value) - ref[0]),
+            "grad": float(np.linalg.norm(g - g64) / norm) if norm > 0
+            else float(np.linalg.norm(g))}
 
 
 def grad_errors(device, n_lane=4):
-    """For each gradient fixture and mode, lane 0's float32 fenrir and basic
-    (grad_float32_calls) against the float64 torch-ops (grad_float64) on
-    ``device``: the absolute error of the value, the relative L2 error of
-    the gradient (bench.py's audit_grad), and the float64 values."""
+    """For each gradient fixture and mode, lane 0's float32 fenrir, basic
+    and DALTON (grad_float32_calls) against the float64 torch-ops
+    (grad_float64) on ``device``: the absolute error of the value, the
+    relative L2 error of the gradient (bench.py's audit_grad), and the
+    float64 values; for DALTON also the float64 twins' (dalton_float64_
+    twins, the value alone on Chkrebtii's ODE) and the float32 result's
+    move under a one-ulp move of lane 0's theta and initial state
+    (``ulp_move``: the largest change of the value, and of the gradient
+    relative to its norm)."""
     import numpy as np
     out = {}
     for name in GRAD_FIXTURES:
+        model, _, n_steps, _ = GRAD_FIXTURES[name]
         cfg, (thetas, inits), obs, var = grad_fixture(name, n_lane,
                                                       torch.float32, device)
         for mode in VALUE_MODES:
             ref = grad_float64(name, mode, thetas[0], inits[0], obs, var,
-                               device)
+                               device, fns=("fenrir", "basic", "dalton"))
             calls = grad_float32_calls(name, mode, thetas, inits, obs, var,
                                        device)
             row = {"float64": ref}
-            for fn in ("fenrir", "basic"):
+            for fn in ("fenrir", "basic", "dalton"):
                 ll, g = calls[fn]()[:2]
-                g64 = np.asarray(ref[fn][1], np.float64)
-                g32 = g[0].double().cpu().numpy()
-                norm = np.linalg.norm(g64)
-                row[fn] = {"value": abs(float(ll[0]) - ref[fn][0]),
-                           "grad": float(np.linalg.norm(g32 - g64) / norm)
-                           if norm > 0 else float(np.linalg.norm(g32))}
+                row[fn] = _grad_errs(ll[0], g[0].double().cpu(), ref[fn])
+            ll, g = calls["dalton"]()
+            moved = dict(zip(("thetas", "inits"), (
+                torch.where(a != 0, torch.nextafter(a, torch.full_like(
+                    a, float("inf"))), a) for a in (thetas, inits))))
+            ll_m, g_m = grad_float32_calls(name, mode, moved["thetas"],
+                                           moved["inits"], obs, var,
+                                           device)["dalton"]()
+            norm = float(np.linalg.norm(g[0].double().cpu().numpy()))
+            row["dalton"]["ulp_move"] = {
+                "value": abs(float(ll_m[0]) - float(ll[0])),
+                "grad": float(np.linalg.norm((g_m[0] - g[0]).double().cpu()
+                                             .numpy())) / norm
+                if norm > 0 else float(np.linalg.norm(
+                    g_m[0].double().cpu().numpy()))}
+            tangent = model != "chkrebtii"
+            v64, g64 = dalton_float64_twins(
+                model, mode, n_steps,
+                *dalton_operands(name, thetas, inits, obs, device),
+                tangent=tangent)
+            row["dalton"]["f64_twins"] = _grad_errs(
+                v64[0], g64[0].cpu() if tangent else [0.0], ref["dalton"])
             out[f"{name}/{mode}"] = row
     return out
 
