@@ -309,6 +309,29 @@ bitwise.  The phases:
              128 lanes x 20 steps (42 K11c launches, finite, the carried
              log-density bitwise a fresh value call, chain steps/s,
              acceptance); the phase within COVERAGE_DALTON_PHASE_S;
+29. coverage_daltonng  non-Gaussian DALTON at every instance of K1 under
+             kramer and rodeo, through daltonng_fused_batch and
+             daltonng_fused_batch_grad at 2048 lanes on the gradient
+             fixtures of phase 27 (Gaussian data in derivative 0): one
+             launch each of K9, K2r and K1, and of K11d, K11e and K11a,
+             finite (DALTONNG_NAN_LANES), the gradient call's values
+             bitwise the value call's, lane 0's value and gradient against
+             the float64 torch-op ops.precond.daltonng with torch.autograd
+             on the card (DALTONNG_F32_CPU_ERR; where float32 does not
+             resolve them, on Chkrebtii's ODE and FitzHugh-Nagumo at q = 4
+             and 5, recorded against the torch-op on the host, and the
+             entries' code with the kernels' twins in float64 on lane 0's
+             operands, run on the host beside the phase, held to that
+             truth instead), Chkrebtii's gradient
+             exactly zero, each call's time beside its value call's and the
+             share of each spent in torch.linalg.eigh; each new instance of
+             K9 and K11d under the path's data and, on Chkrebtii's ODE and
+             FitzHugh-Nagumo, Poisson counts, alone at these shapes
+             against its twin over COVERAGE_GRAD_TWIN_STEPS steps (65 on
+             Chkrebtii's ODE, so that the cut holds a step with data),
+             bitwise, K11d's values K9's, with its launch, ptxas' report
+             (no spills) and bound; the phase within
+             COVERAGE_DALTONNG_PHASE_S;
 
 Then one line {"phase": "seconds", "phases": {...}, "total": ...} with
 each phase's seconds and the script's, one line {"kernels": [...]} with
@@ -320,7 +343,8 @@ larger of its bytes over 3.35 TB/s and its float32 operations, counted
 from its twin, over 67 TFLOP/s; K7b's, K8's, K11b's and K11c's from the
 steps without and with data of their grid, since the twin skips the
 observation update where there is none; K8's and K11c's two launches are
-two entries each), and,
+two entries each; K9's and K11d's entries carry the instances of phase 29
+under "instances"), and,
 last, {"ok": true, "device": {...}}.
 Any failure exits non-zero without that last line; so does a host without
 CUDA: the port is never run on the CPU here.
@@ -712,6 +736,106 @@ GRAD_MALA_STEP = 1e-4
 # over the steps to the first with data and one more (65).
 COVERAGE_DALTON_PHASE_S = 60.0
 DALTON_WITNESS_WORKERS = 3
+# The coverage_daltonng phase (non-Gaussian DALTON's K9 and K11d at every
+# instance of K1 under kramer and rodeo) stays within
+# COVERAGE_DALTONNG_PHASE_S seconds.  It runs daltonng_fused_batch and its
+# gradient on the gradient fixtures of phase 27 at 2048 lanes, their data
+# Gaussian in derivative 0 (tools/torch_coverage_reference.py's
+# daltonng_args).  Lane 0's value and gradient are held to the float64
+# torch-op ops.precond.daltonng with torch.autograd by coverage_grad's
+# rules on DALTONNG_F32_CPU_ERR, the float32 twins' errors
+# on the CPU (tools/torch_coverage_reference.py --parts daltonng): the
+# value recorded, not judged, where its CPU error exceeds
+# VALUE_F32_UNUSABLE of the truth, the gradient where its CPU error exceeds
+# GRAD_CONTROL_MAX.  Float32 resolves neither at Chkrebtii's ODE (q = 4
+# and 5, sums of ~1e7 to 1e13 over 1024 steps) nor at FitzHugh-Nagumo at
+# q = 4 and 5; there the witness is the same arithmetic in float64: the
+# entries' code with every kernel replaced by its twin, on lane 0's float32
+# operands (cov_ref.daltonng_lane0_twins), held to the truth within max(3 x
+# its CPU error, the floors).  The truths and the witnesses run in one pool
+# of DALTONNG_WORKERS processes beside the phase's checked calls: first
+# those that judge lane 0 (Hes1, SEIRAH), on the card, which the phase's
+# timed work waits for, then those that a float32-unusable result is only
+# recorded against, on the host, each with its witness (~2-4 s a truth on
+# the card, host-bound Python loops; 0.5-2 s a truth and 0.8-6.3 s a
+# witness on the CPU): all twelve truths on the card took the phase to
+# 52.7 s of its 60 on an NVIDIA H100 80GB HBM3 at 700 W, their processes
+# and the phase's calls slowing each other on the card.  The pool starts
+# with the script, before the build, and phase 29 reports the seconds its
+# processes took to start (importing torch and the package: ~10 s of the
+# phase's own 46-52 s when they started within it).
+# The float32 lanes are finite at 2048 lanes on the CPU wherever
+# DALTONNG_NAN_LANES names no count.
+COVERAGE_DALTONNG_PHASE_S = 60.0
+DALTONNG_WORKERS = 6
+DALTONNG_NAN_LANES = {}
+DALTONNG_F32_CPU_ERR = {
+    "chkrebtii_q4/kramer": {
+        "float64": -5.51381816018511, "value": 18396194.48618184,
+        "grad": 0.0,
+        "f64_twins": {"value": 2.4632270651636645e-05,
+                      "grad": 0.0}},
+    "chkrebtii_q4/rodeo": {
+        "float64": -5.553790148955159, "value": 262027962.44620985,
+        "grad": 0.0,
+        "f64_twins": {"value": 2.500404661986977e-05,
+                      "grad": 0.0}},
+    "chkrebtii_q5/kramer": {
+        "float64": -5.533399799558538, "value": 92209701453818.47,
+        "grad": 0.0,
+        "f64_twins": {"value": 0.0004537355162028689,
+                      "grad": 0.0}},
+    "chkrebtii_q5/rodeo": {
+        "float64": -5.613022094228654, "value": 16282617380858.387,
+        "grad": 0.0,
+        "f64_twins": {"value": 0.019932303912355565,
+                      "grad": 0.0}},
+    "hes1/kramer": {
+        "float64": -6198.61087590412, "value": 2.6098993416198937,
+        "grad": 0.00047920790607968876,
+        "f64_twins": {"value": 0.0020740359814226395,
+                      "grad": 2.509137783302933e-06}},
+    "hes1/rodeo": {
+        "float64": -250.76608093833966, "value": 0.000764764785344596,
+        "grad": 0.0016183875742317004,
+        "f64_twins": {"value": 4.24678364652209e-06,
+                      "grad": 1.5845484223104436e-06}},
+    "seirah/kramer": {
+        "float64": -544512443899699.6, "value": 32728899379.625,
+        "grad": 3.026944996706382e-05,
+        "f64_twins": {"value": 2926943884.5625,
+                      "grad": 2.2299600975705477e-06}},
+    "seirah/rodeo": {
+        "float64": -2549614456855.0977, "value": 207278056.90234375,
+        "grad": 2.5534486982968365e-05,
+        "f64_twins": {"value": 2368444.564453125,
+                      "grad": 3.239712399711868e-06}},
+    "fitz_grad_q4/kramer": {
+        "float64": -16.267349662302877, "value": 11756.381087837697,
+        "grad": 49.418998063580084,
+        "f64_twins": {"value": 2.6321413315599784e-07,
+                      "grad": 5.144303688425577e-06}},
+    "fitz_grad_q4/rodeo": {
+        "float64": -15.668421829873296, "value": 21259.058140670128,
+        "grad": 136.60755680474762,
+        "f64_twins": {"value": 5.248266461421736e-07,
+                      "grad": 2.8031889569104065e-06}},
+    "fitz_grad_q5/kramer": {
+        "float64": -16.268006538186455, "value": 752833775.7319934,
+        "grad": 93854931.20604667,
+        "f64_twins": {"value": 3.5672746889758855e-07,
+                      "grad": 1.0052050516209132e-06}},
+    "fitz_grad_q5/rodeo": {
+        "float64": -15.56716751404474, "value": 405324496.4328325,
+        "grad": 35318814.3480051,
+        "f64_twins": {"value": 2.433534973533824e-08,
+                      "grad": 9.830397000118953e-08}}}
+# The kernels alone take the path's Gaussian data and, where the rate
+# exp(b0 + b1 x) stays finite on the fixture (DALTONNG_POISSON_MODELS),
+# Poisson counts at the same steps at tests/test_torch_daltonng.py's
+# (b0, b1) = DALTONNG_POISSON.
+DALTONNG_POISSON = (0.1, 0.05)
+DALTONNG_POISSON_MODELS = ("chkrebtii", "fitzhugh")
 # the operands of K8 and K11c that hold a row a step, and those of K9 and
 # K11d
 GRID_KEYS = ("tgrid", "d", "y", "om", "mask")
@@ -818,6 +942,8 @@ NN_KERNELS = ("filter_nn_batch", "filter_nn_batch_tan")
 # the time of the last line printed, and the seconds of each phase: the
 # time before each of its lines since the line before it
 _CLOCK = {"last": time.perf_counter(), "phases": {}}
+# worker pools that main() starts, shut down however it ends
+_POOLS = []
 
 
 def emit(obj):
@@ -1219,6 +1345,25 @@ def main():
           "nvidia_smi": smi, "max_sm_clock_mhz": max_clock_mhz,
           "tf32_off": tf32_off,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # phase 29's worker processes, started here so that their start
+    # (imports on the host; no work on the card until phase 29 submits it)
+    # runs beside the build; each reports when it is ready
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import wait as futures_wait
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_coverage_reference as cov_ref
+
+    spawn = multiprocessing.get_context("spawn")
+    t_pool = time.monotonic()
+    daltonng_pool = ProcessPoolExecutor(
+        DALTONNG_WORKERS, mp_context=spawn,
+        initializer=cov_ref.daltonng_worker_init)
+    _POOLS.append(daltonng_pool)
+    pool_ready = [daltonng_pool.submit(time.monotonic)
+                  for _ in range(DALTONNG_WORKERS)]
 
     # ---- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1785,13 +1930,14 @@ def main():
         per_data = ops_at([free, free, data[0]]) - base if data else 0
         return per_free * (len(mask) - len(data)) + per_data * len(data)
 
-    def dalton_ops(args_cpu, twin):
-        """K8's or K11c's float32 operations per lane over the grid of
-        args_cpu (its operands cut to one lane, on the CPU), as its twin,
-        twin(n, operands), does them (grid_ops)."""
+    def dalton_ops(args_cpu, twin, keys=GRID_KEYS):
+        """K8's or K11c's (with keys NN_GRID_KEYS, K9's or K11d's) float32
+        operations per lane over the grid of args_cpu (its operands cut to
+        one lane, on the CPU; those named in keys hold a row a step), as
+        its twin, twin(n, operands), does them (grid_ops)."""
         def at(idx):
-            rows = {k: (v[idx] if k in ("tgrid", "d", "y", "om", "mask")
-                        else v) for k, v in args_cpu.items()}
+            rows = {k: (v[idx] if k in keys else v)
+                    for k, v in args_cpu.items()}
             return op_count(lambda: twin(len(idx), rows))
 
         return grid_ops(args_cpu["mask"], at)
@@ -3269,7 +3415,6 @@ def main():
 
     # ---- 23. the torch-op surface in float64 ---------------------------
     t_phase = time.perf_counter()
-    sys.path.insert(0, str(REPO / "tools"))
     import torch_op_reference
 
     def on_card(*outs):
@@ -3647,7 +3792,6 @@ def main():
 
     # ---- 25. coverage: every instance of K1, K3, K2r and K4 -------------
     t_phase = time.perf_counter()
-    import torch_coverage_reference as cov_ref
     from rodeo_tpu_torch.interrogate import interrogate_chkrebtii
     from rodeo_tpu_torch.models import chkrebtii, hes1, seirah
     from rodeo_tpu_torch.ops import fused_sim as fs_cov
@@ -4724,44 +4868,39 @@ def main():
 
     # ---- 28. coverage_dalton: K11c at every instance, K8 on FitzHugh-Nagumo
     # at q = 4 and 5 -------------------------------------------------------
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     t_phase = time.perf_counter()
     n_cd = 2048
     cd_kernels = {}         # kernel key -> [instance entries]
     cd_pending = []         # (label, witness future, truth, controls)
 
-    def cd_witness(label, result, truth, ctrl):
+    def cd_witness(label, result, truth, ctrl, phase="coverage_dalton"):
         """The float64 witness of an unusable float32 result: K11c's (or
-        K8's) twins in float64 on lane 0's float32 operands, result =
-        (value, gradient or None), against the float64 truth, within
-        max(3 x the tool's CPU error of the same comparison, LL_REL_FLOOR
-        x |truth|) for the value and max(3 x it, GRAD_FLOOR) for the
-        gradient's relative L2 error."""
+        K8's, K9's and K11d's) twins in float64 on lane 0's float32
+        operands, result = (value, gradient or None), against the float64
+        truth, within max(3 x the tool's CPU error of the same comparison,
+        LL_REL_FLOOR x |truth|) for the value and max(3 x it, GRAD_FLOOR)
+        for the gradient's relative L2 error."""
         v64, g64 = result
         v64 = float(v64[0])
         err = abs(v64 - truth[0])
         v_tol = max(3 * ctrl["value"], LL_REL_FLOOR * abs(truth[0]))
         out = {"value": v64, "abs_err": err, "tol": v_tol,
                "control_f64cpu": ctrl["value"],
-               "ok": check("coverage_dalton", f"{label} float64 twins' "
+               "ok": check(phase, f"{label} float64 twins' "
                            "value against the truth", err <= v_tol)}
         if g64 is not None:
             rel = grad_rel(g64[0], truth[1])
             g_tol = max(3 * ctrl["grad"], GRAD_FLOOR)
             out.update(grad=g64[0].tolist(), grad_rel_err=rel,
                        grad_tol=g_tol, grad_control_f64cpu=ctrl["grad"])
-            out["ok"] = check("coverage_dalton", f"{label} float64 twins' "
+            out["ok"] = check(phase, f"{label} float64 twins' "
                               "gradient against the truth",
                               rel <= g_tol) and out["ok"]
         return out
 
     # the float64 witnesses first, on the host, beside the work on the card
     fixtures_d = {}
-    pool = ProcessPoolExecutor(DALTON_WITNESS_WORKERS,
-                               mp_context=multiprocessing.get_context(
-                                   "spawn"))
+    pool = ProcessPoolExecutor(DALTON_WITNESS_WORKERS, mp_context=spawn)
     try:
         witnesses = {}
         for name_d, (model_d, q_d, n_d, t_d) in cov_ref.GRAD_FIXTURES.items():
@@ -5027,6 +5166,323 @@ def main():
     emit({"phase": "coverage_dalton", "seconds": dalton_s,
           "limit_s": COVERAGE_DALTON_PHASE_S})
 
+    # ---- 29. coverage_daltonng: K9 and K11d at every instance -----------
+    t_phase = time.perf_counter()
+    n_cn = 2048
+    cn_kernels = {}         # kernel key -> [instance entries]
+    b0_pois, b1_pois = DALTONNG_POISSON
+
+    def cn_unusable(label):
+        """Whether the float32 twins' CPU error shows that float32 does not
+        resolve lane 0's value or gradient (lane0_audit's and cg_audit's
+        rules on DALTONNG_F32_CPU_ERR)."""
+        ctrl = DALTONNG_F32_CPU_ERR[label]
+        return (ctrl["value"] > VALUE_F32_UNUSABLE * abs(ctrl["float64"])
+                or ctrl["grad"] > GRAD_CONTROL_MAX)
+
+    def with_eigh_events(fn):
+        """fn(), the milliseconds on the device of the torch.linalg.eigh
+        calls it makes (daltonng's eigendecompositions at q = 4 and 5), by
+        CUDA events around each, and the matrices they take."""
+        events, eigh = [], torch.linalg.eigh
+
+        def timed(a, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = eigh(a, *args, **kw)
+            end.record()
+            events.append((start, end, a.shape[0]))
+            return out
+
+        torch.linalg.eigh = timed
+        try:
+            out = fn()
+        finally:
+            torch.linalg.eigh = eigh
+        torch.cuda.synchronize()
+        return (out, sum(s.elapsed_time(e) for s, e, _ in events),
+                sum(n for _, _, n in events))
+
+    # the float64 truths and the witnesses in the pool's processes beside
+    # the phase's checked calls: first the truths that judge lane 0, on the
+    # card, then those that a float32-unusable result is only recorded
+    # against, on the host, each with its witness
+    futures_wait(pool_ready)
+    emit({"phase": "coverage_daltonng", "part": "pool",
+          "workers": DALTONNG_WORKERS,
+          "start_s": max(f.result() for f in pool_ready) - t_pool})
+    try:
+        truths, witnesses, prep_n, host_jobs = {}, {}, {}, []
+        for name_n in cov_ref.GRAD_FIXTURES:
+            fix = cov_ref.grad_fixture(name_n, n_cn, torch.float32, dev,
+                                       mu64=mu64_value.get(name_n))
+            _, (thetas_n, inits_n), obs_n, var_n = fix
+            lane0 = (thetas_n[0].cpu(), inits_n[0].cpu(),
+                     {k: v.cpu() for k, v in obs_n.items()}, var_n)
+            for mode_n in cov_ref.VALUE_MODES:
+                label_n = f"{name_n}/{mode_n}"
+                if cn_unusable(label_n):
+                    host_jobs += [
+                        (truths, label_n, cov_ref.daltonng_float64,
+                         (name_n, mode_n, *lane0, "cpu")),
+                        (witnesses, label_n, cov_ref.daltonng_lane0_twins,
+                         (name_n, mode_n, *lane0))]
+                else:
+                    truths[label_n] = daltonng_pool.submit(
+                        cov_ref.daltonng_float64, name_n, mode_n, *lane0,
+                        "cuda")
+            prep_n[name_n] = fix
+        for into, label_n, fn, args in host_jobs:
+            into[label_n] = daltonng_pool.submit(fn, *args)
+
+        # the calls, checked, and the kernels' operations counted on the
+        # CPU (untimed, while the truths run)
+        rows_n, launches_n, grids_n, ops_count = {}, {}, {}, {}
+        t_checked = time.perf_counter()
+        for name_n, (model_n, q_n, n_n, t_n) in \
+                cov_ref.GRAD_FIXTURES.items():
+            cfg_n, (thetas_n, inits_n), obs_n, var_n = prep_n[name_n]
+            args_n = cov_ref.daltonng_args(name_n, thetas_n, inits_n, obs_n,
+                                           var_n)
+            n_tan_n = fk.resolve_model(model_n).n_theta
+            for mode_n in cov_ref.VALUE_MODES:
+                label_n = f"{name_n}/{mode_n}"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                ll_n, g_n = fdn.daltonng_fused_batch_grad(
+                    *args_n, interrogation=mode_n, device=dev)
+                torch.cuda.synchronize()
+                got_g = read_counts()
+                peak_g = torch.cuda.max_memory_allocated()
+                reset_counts()
+                val_n = fdn.daltonng_fused_batch(
+                    *args_n, interrogation=mode_n, device=dev)
+                torch.cuda.synchronize()
+                got_v = read_counts()
+                launches_n[label_n] = {**got_v, **{
+                    k: v for k, v in got_g.items() if v}}
+                check("coverage_daltonng", f"{label_n} value launches",
+                      got_v == expect(filter_nn_batch=1,
+                                      smoother_batch_rows=1,
+                                      filter_batch=1))
+                check("coverage_daltonng", f"{label_n} gradient launches",
+                      got_g == expect(filter_nn_batch_tan=1,
+                                      smoother_mean_batch_tan=1,
+                                      filter_batch_tan=1))
+                fin = torch.isfinite(val_n)
+                pair = finite_part(ll_n, val_n)
+                row = {"fixture": name_n, "model": model_n, "q": q_n,
+                       "mode": mode_n, "n_steps": n_n, "n_lane": n_cn,
+                       "n_theta": n_tan_n, "launches": launched(got_g),
+                       "value_launches": launched(got_v),
+                       "peak_mem_bytes": peak_g,
+                       "nonfinite_lanes": int((~fin).sum()),
+                       "finite": check(
+                           "coverage_daltonng", f"{label_n} finite but on "
+                           "DALTONNG_NAN_LANES' lanes",
+                           int((~fin).sum())
+                           == DALTONNG_NAN_LANES.get(label_n, 0)
+                           and torch.equal(torch.isfinite(ll_n), fin)
+                           and finite(g_n[fin])),
+                       "values_bitwise": check(
+                           "coverage_daltonng", f"{label_n} values bitwise "
+                           "the value call's",
+                           pair is not None and torch.equal(*pair)),
+                       "lane0": (float(ll_n[0]),
+                                 g_n[0].double().cpu().tolist())}
+                if model_n == "chkrebtii":
+                    # no parameter: the gradient is exactly zero
+                    row["grad"] = {"all_zero": check(
+                        "coverage_daltonng", f"{label_n} gradient exactly "
+                        "zero", bool((g_n == 0).all()))}
+                rows_n[label_n] = row
+                del val_n, ll_n, g_n
+        # then the work on the host, while the truths on the card run: the
+        # kernels alone take the path's Gaussian data and, where the rate
+        # stays finite, Poisson counts at the same steps
+        for name_n, (model_n, q_n, n_n, t_n) in \
+                cov_ref.GRAD_FIXTURES.items():
+            cfg_n, (thetas_n, inits_n), obs_n, var_n = prep_n[name_n]
+            ops_n, grid_n, _, _ = fdn._daltonng_prepare(
+                thetas_n, cfg_n["ode_weight"], inits_n, 0.0, t_n, n_n,
+                cfg_n["prior_pars"], obs_n["obs_data"], obs_n["obs_times"])
+            grids = {"Gauss": (obs_models.gauss(var_n), grid_n)}
+            if model_n in DALTONNG_POISSON_MODELS:
+                rng_n = np.random.default_rng(q_n)
+                counts = torch.tensor(rng_n.poisson(
+                    2.0, size=tuple(grid_n["y"].shape)), dtype=torch.float32,
+                    device=dev) * grid_n["mask"][:, None]
+                grids["Poisson"] = (obs_models.poisson(b0_pois, b1_pois),
+                                    {**grid_n, "y": counts.contiguous()})
+            grids_n[name_n] = ops_n, grids
+            fused_n = fk.resolve_model(model_n)
+            for mode_n in cov_ref.VALUE_MODES:
+                for obs_name, (obs_k, grid_k) in grids.items():
+                    nn_cpu = cpu_lanes({**ops_n, **grid_k},
+                                       ("x0_lanes", "theta_lanes"))
+                    for twin in (fdn._filter_nn_batch_plain,
+                                 fdn._filter_nn_batch_tan_plain):
+                        ops_count[name_n, mode_n, obs_name, twin] = \
+                            n_cn * dalton_ops(
+                                nn_cpu, lambda n, a, tw=twin: tw(
+                                    fused_n, obs_k, (0,), n, **a,
+                                    mode=mode_n), NN_GRID_KEYS)
+        checked_s = time.perf_counter() - t_checked
+        # the timed work waits for the truths on the card
+        t_wait = time.perf_counter()
+        futures_wait([truths[label] for label in rows_n
+                      if not cn_unusable(label)])
+        truth_wait_s = time.perf_counter() - t_wait
+
+        for name_n, (model_n, q_n, n_n, t_n) in \
+                cov_ref.GRAD_FIXTURES.items():
+            t_part = time.perf_counter()
+            cfg_n, (thetas_n, inits_n), obs_n, var_n = prep_n.pop(name_n)
+            args_n = cov_ref.daltonng_args(name_n, thetas_n, inits_n, obs_n,
+                                           var_n)
+            fused_n = fk.resolve_model(model_n)
+            n_tan_n = fused_n.n_theta
+            nt_n = q_n * (q_n + 1) // 2
+            for mode_n in cov_ref.VALUE_MODES:
+                label_n = f"{name_n}/{mode_n}"
+                row = rows_n[label_n]
+                # each call timed once, the checked call its warm-up, with
+                # the device time of its torch.linalg.eigh calls
+                for key, entry in (
+                        ("call", fdn.daltonng_fused_batch_grad),
+                        ("value_call", fdn.daltonng_fused_batch)):
+                    (_, eigh_ms, n_eigh), row[f"{key}_ms"] = cuda_once(
+                        lambda: with_eigh_events(lambda: entry(
+                            *args_n, interrogation=mode_n, device=dev)))
+                    row.update({f"{key}_eigh_ms": eigh_ms,
+                                f"{key}_eigh_matrices": n_eigh,
+                                f"{key}_eigh_share":
+                                    eigh_ms / row[f"{key}_ms"]})
+                row["ratio_to_value_call"] = \
+                    row["call_ms"] / row["value_call_ms"]
+                row["per_lane_us"] = 1e3 * row["call_ms"] / n_cn
+            ops_n, grids = grids_n.pop(name_n)
+            grid_n = grids["Gauss"][1]
+            # the cut holds a step with data (65 steps on Chkrebtii's ODE)
+            first_data = int((grid_n["mask"] != 0).nonzero()[0])
+            n_tw = min(max(COVERAGE_GRAD_TWIN_STEPS, first_data + 2), n_n)
+
+            # K9's and K11d's instances of this model and q alone at these
+            # shapes against their twins
+            for mode_n in cov_ref.VALUE_MODES:
+                for obs_name, (obs_k, grid_k) in grids.items():
+                    nn_kw = dict(**ops_n, **grid_k, mode=mode_n)
+                    config = f"{model_n}/{mode_n}/q={q_n}/{obs_name}"
+                    on_path = obs_name == "Gauss"
+                    outs = {}
+                    for kernel, twin, wrapper, geometry, split in (
+                            ("filter_nn_batch", fdn._filter_nn_batch_plain,
+                             fdn.filter_nn_batch,
+                             fdn._filter_nn_batch_geometry, None),
+                            ("filter_nn_batch_tan",
+                             fdn._filter_nn_batch_tan_plain,
+                             fdn.filter_nn_batch_tan,
+                             fdn._filter_nn_batch_tan_geometry,
+                             [(q_n, 1), (nt_n, 1), (q_n, 1), (nt_n, 1)])):
+                        geo = geometry(fused_n, obs_k, n_cn, mode_n, q_n)
+                        launches = launches_n[f"{name_n}/{mode_n}"] \
+                            if on_path else {kernel: 0}
+                        outs[kernel], entry = at_path_shapes(
+                            "coverage_daltonng", kernel,
+                            "pallas_daltonng.py:"
+                            + ("269" if kernel.endswith("tan") else "77"),
+                            launches,
+                            steps_cut(wrapper, twin, fused_n, obs_k, (0,),
+                                      keys=NN_GRID_KEYS, **nn_kw), n_n,
+                            nn_names, None, None,
+                            tensors(ops_n) + tensors(grid_k), split=split,
+                            n_ops=ops_count[name_n, mode_n, obs_name,
+                                            twin],
+                            repeats=3, register=False, twin_steps=n_tw,
+                            config=config, source=f"{kernel}.cuh",
+                            shape=f"{n_n} x {n_cn}", model=model_n,
+                            mode=mode_n, q=q_n, obs=obs_name,
+                            on_path=on_path, step_outputs=(0, 1, 2, 3),
+                            cut_holds_data=bool(
+                                (grid_k["mask"][:n_tw] != 0).any()),
+                            **split_record(
+                                "coverage_daltonng", kernel,
+                                f"{kernel} {config}", geo, per_sm=False,
+                                waves=not geo["all_resident"]
+                                and model_n == "seirah",
+                                match=lambda r: r.get("model")
+                                == fused_n.cuda_functor
+                                and r.get("q") == q_n
+                                and r.get("mode") == fk._MODES[mode_n]
+                                and r.get("obs") == obs_name))
+                        check("coverage_daltonng", f"{kernel} {config} "
+                              "bitwise", entry["bitwise"])
+                        check("coverage_daltonng", f"{kernel} {config} cut "
+                              "holds a step with data",
+                              entry["cut_holds_data"])
+                        cn_kernels.setdefault(kernel, []).append(entry)
+                    entry["values_bitwise"] = check(
+                        "coverage_daltonng", f"filter_nn_batch_tan {config} "
+                        "values K9's", all(
+                            torch.equal(a[:, :k], v) for a, v, k in zip(
+                                outs["filter_nn_batch_tan"],
+                                outs["filter_nn_batch"],
+                                (q_n, nt_n, q_n, nt_n))))
+                    del outs, nn_kw
+            del ops_n, grid_n, grids, args_n
+            emit({"phase": "coverage_daltonng", "part": "kernels",
+                  "fixture": name_n,
+                  "kernels": {k: [e for e in v if e["model"] == model_n
+                                  and e["q"] == q_n]
+                              for k, v in cn_kernels.items()},
+                  "seconds": time.perf_counter() - t_part})
+
+        # lane 0 against the float64 truths, and the float64 witnesses,
+        # computed meanwhile
+        t_w = time.perf_counter()
+        witness_n = {}
+        for label_n, row in rows_n.items():
+            ctrl_n = DALTONNG_F32_CPU_ERR[label_n]
+            truth_n = truths.pop(label_n).result()
+            value, grad = row.pop("lane0")
+            row["truth_device"] = "cpu" if cn_unusable(label_n) else "cuda"
+            row["value"] = lane0_audit(label_n, value, truth_n[0],
+                                       ctrl_n["value"],
+                                       phase="coverage_daltonng")
+            if "grad" not in row:
+                row["grad"] = cg_audit(label_n, grad, truth_n[1],
+                                       ctrl_n["grad"],
+                                       phase="coverage_daltonng")
+            if row["value"]["f32_unusable"] or \
+                    row["grad"].get("f32_unusable"):
+                got = label_n in witnesses
+                check("coverage_daltonng", f"{label_n} float64 witness "
+                      "submitted", got)
+                if got:
+                    witness_n[label_n] = cd_witness(
+                        label_n, witnesses.pop(label_n).result(), truth_n,
+                        ctrl_n["f64_twins"], phase="coverage_daltonng")
+            emit({"phase": "coverage_daltonng", "part": "calls", **row})
+        check("coverage_daltonng", "every witness submitted is read",
+              not witnesses)
+        emit({"phase": "coverage_daltonng", "part": "float64_witness",
+              "workers": DALTONNG_WORKERS,
+              "checked_calls_s": checked_s,
+              "truth_wait_s": truth_wait_s,
+              "wait_s": time.perf_counter() - t_w, "witness": witness_n})
+    finally:
+        daltonng_pool.shutdown(wait=True, cancel_futures=True)
+    for key_n, entries_n in cn_kernels.items():
+        kernels[key_n].setdefault("instances", []).extend(entries_n)
+    daltonng_s = time.perf_counter() - t_phase
+    check("coverage_daltonng",
+          f"phase within {COVERAGE_DALTONNG_PHASE_S} s",
+          daltonng_s <= COVERAGE_DALTONNG_PHASE_S)
+    emit({"phase": "coverage_daltonng", "seconds": daltonng_s,
+          "limit_s": COVERAGE_DALTONNG_PHASE_S})
+
     # ---- summary --------------------------------------------------------
     # the card and its power limit again, beside the numbers at the end
     print(smi, flush=True)
@@ -5045,4 +5501,9 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for started_pool in _POOLS:
+            started_pool.shutdown(wait=True, cancel_futures=True)
+    sys.exit(code)

@@ -53,15 +53,15 @@ _SIGNATURES = {
     "rodeo_dalton_filter_batch_tan": [_I] * 6 + [_P] * 14,
     # the launches of K1: model, mode, q, n_lane, out; of K8: model, mode,
     # q, with_obs, n_lane, out (K11c the same); of K11a: model, mode, q,
-    # n_lane, out; of K9 and K11d: model, obs_model, mode, n_lane, out; of
-    # K6: q, n_col, out; of K3: model, mode, q, out; of K2r: q, n_block,
+    # n_lane, out; of K9 and K11d: model, obs_model, mode, q, n_lane, out;
+    # of K6: q, n_col, out; of K3: model, mode, q, out; of K2r: q, n_block,
     # n_lane, out; of K7b: q, n_block, n_lane, out
     "rodeo_filter_batch_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_geometry": [_I] * 5 + [_P],
     "rodeo_filter_batch_tan_geometry": [_I] * 4 + [_P],
     "rodeo_dalton_filter_batch_tan_geometry": [_I] * 5 + [_P],
-    "rodeo_filter_nn_batch_geometry": [_I] * 4 + [_P],
-    "rodeo_filter_nn_batch_tan_geometry": [_I] * 4 + [_P],
+    "rodeo_filter_nn_batch_geometry": [_I] * 5 + [_P],
+    "rodeo_filter_nn_batch_tan_geometry": [_I] * 5 + [_P],
     "rodeo_sampler_batch_geometry": [_I, _I, _P],
     "rodeo_filter_single_geometry": [_I] * 3 + [_P],
     "rodeo_smoother_batch_rows_geometry": [_I] * 3 + [_P],
@@ -107,11 +107,11 @@ _SIGNATURES = {
     "rodeo_mean_boundary_single": [_I] * 3 + [_P] * 9,
     "rodeo_mean_recovery_single": [_I] * 3 + [_P] * 9,
     # non-Gaussian DALTON's Laplace-linearised filter and its tangent twin:
-    # model, obs_model, mode, obs_dims, n_steps, n_lane, q_const (host),
+    # model, obs_model, mode, q, obs_dims, n_steps, n_lane, q_const (host),
     # obs_pars (host), R, W, t_vec, x0, theta, tgrid, y, iobs, mask, mf, pf,
     # mp, pp, stream
-    "rodeo_filter_nn_batch": [_I] * 6 + [_P] * 16,
-    "rodeo_filter_nn_batch_tan": [_I] * 6 + [_P] * 16,
+    "rodeo_filter_nn_batch": [_I] * 7 + [_P] * 16,
+    "rodeo_filter_nn_batch_tan": [_I] * 7 + [_P] * 16,
 }
 
 

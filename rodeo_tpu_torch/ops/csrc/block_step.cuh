@@ -2,9 +2,9 @@
 // block), or per (lane, direction, block) in a tangent kernel, the threads of
 // one (lane, direction) meeting once a step.  Run by the value kernels K1
 // (filter_batch.cu), K3 (filter_single.cu, one lane), K8
-// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and by the
+// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cuh) on float, and by the
 // tangent kernels K11a (filter_batch_tan.cuh), K11c
-// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on Dual.
+// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cuh) on Dual.
 //
 // The blocks of a lane's state are independent in every part of the step
 // but one: the ODE is evaluated at the predicted mean of all blocks

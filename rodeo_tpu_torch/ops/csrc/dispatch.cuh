@@ -54,7 +54,10 @@ cudaError_t with_mode(int mode, Fn&& f) {
 // (filter_batch.cu) and K3 (filter_single.cu), which hold the four modes
 // there (with_mode), and the tangent filter K11a (filter_batch_tan.cu),
 // DALTON's filter K8 (dalton_filter_batch.cu) and its tangent twin K11c
-// (dalton_filter_batch_tan.cu), which hold kramer and rodeo (with_ek_mode):
+// (dalton_filter_batch_tan.cu), and non-Gaussian DALTON's Laplace filter K9
+// (filter_nn_batch.cu) and its tangent twin K11d (filter_nn_batch_tan.cu),
+// which hold kramer and rodeo (with_ek_mode; K9 and K11d each with the
+// observation functors Gauss and Poisson):
 // f(Is<Model>(), Int<Q>()) for the first-order models at q = 3,
 // FitzHugh-Nagumo also at q = 4 and 5 (its weight and initial state padded
 // with zeros past the third derivative), and the second-order Chkrebtii at

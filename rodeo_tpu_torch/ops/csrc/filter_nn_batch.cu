@@ -1,192 +1,25 @@
-// K9: the Laplace-linearised forward filter of non-Gaussian DALTON,
-// lane-batched, storing the filtered and predicted moments of every step.
-//
-// Replaces the TPU kernel rodeo_tpu/ops/pallas_daltonng.py:
-// _filter_nn_kernel_batch (interrogations kramer and rodeo).
-// Plain PyTorch twin: _filter_nn_batch_plain in ops/fused_daltonng.py.
-//
-// Design.  One thread per (lane, block) carries its block of one lane (one
-// parameter candidate) through all N steps in a single launch, on
-// block_step.cuh's step loop (split_filter_steps), as K1 and K3 are.  Each
-// step a thread predicts its block, stores its predicted moments, publishes
-// its predicted mean to shared memory and, after one barrier a step with
-// the other blocks of its lane, evaluates the ODE at their gathered means
-// and updates its block (filter_nn_update_block): K1's scalar-innovation
-// update, then, at a step with data, one masked scalar pseudo-observation
-// update per observed component.  The user's observation log-likelihood is
-// compiled in as a functor (obs_models.cuh) and linearised at the predicted
-// mean in original coordinates by evaluating it on a second-order forward
-// number (jet.cuh) -- the nested jax.jvp of the TPU kernel.  The TPU kernel
-// runs the masked update at every step; this one skips it where the mask is
-// 0, where it is an exact identity, and so does its twin.  The arithmetic
-// is the twin's operation for operation, so the outputs are the twin's
-// bitwise, and the tangent twin K11d (filter_nn_batch_tan.cu), which runs
-// the same block update on Duals, has K9's values bitwise.  Outputs are
-// laid out (N, d, NB, B) with lanes innermost: mf (N, Q, ..), pf (N, Tri,
-// ..), mp (N, Q, ..), pp (N, Tri, ..), the four streams the smoothing
-// passes read; each thread stores its block's entries, coalesced on the
-// lane axis.  Float32 throughout.
-//
-// What bounds it on the card.  A step is a chain of dependent float
-// operations on one block, with the ODE at the gathered means, against 18
-// floats stored per (block, lane): 1.77 GB at 4000 steps x 3 blocks x 2048
-// lanes, 0.53 ms at 3.35 TB/s, below the latency of the chain.  One thread
-// per lane with all NB blocks in its registers would pay the latency of
-// every block's chain (1.8x the time on the card, PERF.md); the split
-// gives NB times the threads, each with a chain about 1/NB as long.
-#include <cstring>
-
+// The C entry points of K9, non-Gaussian DALTON's Laplace filter
+// (filter_nn_batch.cuh): each picks the instance of (model, q) and calls
+// its launch, compiled in filter_nn_instances_*.cu, which picks the
+// observation functor and the mode.
 #include <cuda_runtime.h>
 
-#include "block_step.cuh"
 #include "dispatch.cuh"
-#include "filter_step.cuh"
-#include "kalman_cols.cuh"
-#include "models.cuh"
-#include "obs_models.cuh"
+#include "filter_nn_instances.cuh"
 
-namespace rodeo {
-
-// Lanes per CTA: 32, the fastest of 8, 16 and 32 on the card, by 1 %
-// (PERF.md): the time is each thread's chain through the steps, whether
-// its warps share SMs (64 CTAs of 96 threads at 2048 lanes) or not (256
-// of 24 at 8 lanes).
-constexpr int kNnLanes = 32;
-
-// One CTA per SM in the launch bounds, as K1's: ptxas spends registers on
-// the chain instead of spilling to fit more CTAs.
-template <class Model, class Obs, int Q, int MODE>
-__global__ void __launch_bounds__(kNnLanes * Model::NB, 1)
-    filter_nn_batch_kernel(QConst<Q> qc, ObsPars pars, int obs_dims,
-                           int n_steps, int n_lane,
-                           const float* __restrict__ R_in,
-                           const float* __restrict__ W_in,
-                           const float* __restrict__ tv_in,
-                           const float* __restrict__ x0,
-                           const float* __restrict__ theta,
-                           const float* __restrict__ tgrid,
-                           const float* __restrict__ y,
-                           const float* __restrict__ iobs,
-                           const float* __restrict__ mask,
-                           float* __restrict__ mf_out,
-                           float* __restrict__ pf_out,
-                           float* __restrict__ mp_out,
-                           float* __restrict__ pp_out) {
-  constexpr int NB = Model::NB;
-  constexpr int NT = Tri<Q>::N;
-  constexpr int NTH = Model::NTHETA;
-  __shared__ SharedMeans<float, NB, Q, kNnLanes> xs;
-  const int tx = threadIdx.x;
-  const int b = threadIdx.y;
-  const int lane = blockIdx.x * kNnLanes + tx;
-  // a lane beyond n_lane runs masked (it must reach every barrier): loads
-  // of the last lane, no stores
-  const bool live = lane < n_lane;
-  const size_t off = live ? lane : n_lane - 1;
-  // stride between consecutive rows of one (step, d) slab: NB blocks x B
-  const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t base = b * static_cast<size_t>(n_lane) + off;
-
-  BlockConsts<Q> c;
-  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
-  float th[NTH];
-#pragma unroll
-  for (int k = 0; k < NTH; ++k) th[k] = theta[k * static_cast<size_t>(n_lane) + off];
-
-  float m[Q], P[NT];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) m[j] = x0[j * col + base];
-#pragma unroll
-  for (int k = 0; k < NT; ++k) P[k] = 0.0f;
-
-  // block b's moments of step n
-  auto store = [&](float* mo, float* po, int n, const float (&mv)[Q],
-                   const float (&Pv)[NT]) {
-    if (!live) return;
-#pragma unroll
-    for (int i = 0; i < Q; ++i)
-      mo[(static_cast<size_t>(n) * Q + i) * col + base] = mv[i];
-#pragma unroll
-    for (int k = 0; k < NT; ++k)
-      po[(static_cast<size_t>(n) * NT + k) * col + base] = Pv[k];
-  };
-  SharedExchange<NB, Q, kNnLanes> ex{xs, tx};
-  split_filter_steps<Model, Q>(
-      c, tgrid, n_steps, b, ex, m, P, AtMean{},
-      [&](int n, float t, const float (&x)[NB][Q], const float (&mp)[Q],
-          const float (&pp)[NT], float (&mv)[Q], float (&Pv)[NT]) {
-        filter_nn_update_block<Model, Obs, Q, MODE>(c, th, n, t, x, b,
-                                                    obs_dims, pars, y, iobs,
-                                                    mask, mp, pp, mv, Pv);
-      },
-      [&](int n, const float (&)[Q], const float (&)[NT],
-          const float (&mp)[Q], const float (&pp)[NT]) {
-        store(mp_out, pp_out, n, mp, pp);
-      },
-      [&](int n, const float (&mv)[Q], const float (&Pv)[NT]) {
-        store(mf_out, pf_out, n, mv, Pv);
-      });
-}
-
-template <class Model, class Obs, int MODE>
-cudaError_t nn_launch(const QConst<3>& qc, const ObsPars& pars, int obs_dims,
-                      int n_steps, int n_lane, const float* R, const float* W,
-                      const float* tv, const float* x0, const float* theta,
-                      const float* tgrid, const float* y, const float* iobs,
-                      const float* mask, float* mf, float* pf, float* mp,
-                      float* pp, cudaStream_t stream) {
-  const SplitGeometry g = split_geometry<Model, kNnLanes>(n_lane, 1);
-  filter_nn_batch_kernel<Model, Obs, 3, MODE><<<g.grid, g.block, 0, stream>>>(
-      qc, pars, obs_dims, n_steps, n_lane, R, W, tv, x0, theta, tgrid, y,
-      iobs, mask, mf, pf, mp, pp);
-  return cudaGetLastError();
-}
-
-template <class Model, class Obs>
-cudaError_t nn_geometry(int mode, int n_lane, int* out) {
-  const SplitGeometry g = split_geometry<Model, kNnLanes>(n_lane, 1);
-  if (mode == kKramer)
-    return report_geometry(filter_nn_batch_kernel<Model, Obs, 3, kKramer>, g,
-                           out);
-  if (mode == kRodeo)
-    return report_geometry(filter_nn_batch_kernel<Model, Obs, 3, kRodeo>, g,
-                           out);
-  return cudaErrorInvalidValue;
-}
-
-template <class Model, class Obs>
-cudaError_t nn_launch_mode(int mode, const QConst<3>& qc, const ObsPars& pars,
-                           int obs_dims, int n_steps, int n_lane,
-                           const float* R, const float* W, const float* tv,
-                           const float* x0, const float* theta,
-                           const float* tgrid, const float* y,
-                           const float* iobs, const float* mask, float* mf,
-                           float* pf, float* mp, float* pp,
-                           cudaStream_t stream) {
-  if (mode == kKramer)
-    return nn_launch<Model, Obs, kKramer>(qc, pars, obs_dims, n_steps, n_lane,
-                                          R, W, tv, x0, theta, tgrid, y, iobs,
-                                          mask, mf, pf, mp, pp, stream);
-  if (mode == kRodeo)
-    return nn_launch<Model, Obs, kRodeo>(qc, pars, obs_dims, n_steps, n_lane,
-                                         R, W, tv, x0, theta, tgrid, y, iobs,
-                                         mask, mf, pf, mp, pp, stream);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace rodeo
-
-// model: 0 Lorenz63, 1 FitzHughNagumo; obs_model: 0 Gauss, 1 Poisson; mode:
-// 0 kramer, 1 rodeo (the numbering of _FUNCTORS, _OBS_FUNCTORS and _MODES
-// in ops/fused_kalman.py and ops/fused_daltonng.py); obs_dims: bit j set
-// for each observed component j.  q_host and pars_host point to the 3 x 3
-// scaled transition and the observation model's kObsPars parameters in
-// host memory; every other pointer is device memory laid out as
-// filter_nn_batch (ops/fused_daltonng.py) documents.  Returns a
-// cudaError_t.
+// model: the functor's kNumber (models.cuh; _FUNCTORS of
+// ops/fused_kalman.py); obs_model: 0 Gauss, 1 Poisson (_OBS_FUNCTORS of
+// ops/fused_daltonng.py); mode: 0 kramer, 1 rodeo (_MODES); q: the state
+// size of each block; the instances of with_filter_instance (dispatch.cuh)
+// under kramer and rodeo, any other (model, obs_model, mode, q) returning
+// cudaErrorInvalidValue; obs_dims: bit j set for each observed component j.
+// q_host and pars_host point to the q x q scaled transition and the
+// observation model's kObsPars parameters in host memory; every other
+// pointer is device memory laid out as filter_nn_batch
+// (ops/fused_daltonng.py) documents.  Returns a cudaError_t.
 extern "C" int rodeo_filter_nn_batch(int model, int obs_model, int mode,
-                                     int obs_dims, int n_steps, int n_lane,
-                                     const void* q_host,
+                                     int q, int obs_dims, int n_steps,
+                                     int n_lane, const void* q_host,
                                      const void* pars_host, const void* R,
                                      const void* W, const void* tv,
                                      const void* x0, const void* theta,
@@ -196,50 +29,31 @@ extern "C" int rodeo_filter_nn_batch(int model, int obs_model, int mode,
                                      void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_lane < 1) return cudaErrorInvalidValue;
-  QConst<3> qc;
-  std::memcpy(qc.q, q_host, sizeof(qc.q));
-  ObsPars pars;
-  std::memcpy(pars.p, pars_host, sizeof(pars.p));
-  const auto* r = static_cast<const float*>(R);
-  const auto* w = static_cast<const float*>(W);
-  const auto* t = static_cast<const float*>(tv);
-  const auto* x = static_cast<const float*>(x0);
-  const auto* th = static_cast<const float*>(theta);
-  const auto* tg = static_cast<const float*>(tgrid);
-  const auto* yy = static_cast<const float*>(y);
-  const auto* io = static_cast<const float*>(iobs);
-  const auto* mk = static_cast<const float*>(mask);
-  auto* mfp = static_cast<float*>(mf);
-  auto* pfp = static_cast<float*>(pf);
-  auto* mpp = static_cast<float*>(mp);
-  auto* ppp = static_cast<float*>(pp);
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  const NnFilterArgs a{obs_dims,  n_steps,  n_lane,   q_host,   pars_host,
+                       in(R),     in(W),    in(tv),   in(x0),   in(theta),
+                       in(tgrid), in(y),    in(iobs), in(mask), out(mf),
+                       out(pf),   out(mp),  out(pp)};
   auto s = static_cast<cudaStream_t>(stream);
-  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
-      using Model = typename decltype(m)::type;
-      using Obs = typename decltype(ob)::type;
-      return nn_launch_mode<Model, Obs>(
-          mode, qc, pars, obs_dims, n_steps, n_lane, r, w, t, x, th,
-          tg, yy, io, mk, mfp, pfp, mpp, ppp, s);
-    });
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return NnFilterInstances<typename decltype(m)::type,
+                             decltype(qq)::value>::launch(obs_model, mode, a,
+                                                          s);
   });
 }
 
-// The launch rodeo_filter_nn_batch makes for (model, obs_model, mode,
+// The launch rodeo_filter_nn_batch makes for (model, obs_model, mode, q,
 // n_lane) on the current device, as nine ints in out (report_geometry in
 // block_step.cuh).  Returns a cudaError_t.
 extern "C" int rodeo_filter_nn_batch_geometry(int model, int obs_model,
-                                              int mode, int n_lane,
+                                              int mode, int q, int n_lane,
                                               void* out) {
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
-  auto* o = static_cast<int*>(out);
-  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
-      using Model = typename decltype(m)::type;
-      using Obs = typename decltype(ob)::type;
-      return nn_geometry<Model, Obs>(
-          mode, n_lane, o);
-    });
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return NnFilterInstances<typename decltype(m)::type,
+                             decltype(qq)::value>::geometry(
+        obs_model, mode, n_lane, static_cast<int*>(out));
   });
 }

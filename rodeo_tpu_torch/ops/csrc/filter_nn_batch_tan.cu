@@ -1,191 +1,19 @@
-// K11d: the tangent twin of K9.  The Laplace-linearised filter of
-// non-Gaussian DALTON carries the derivative of its state along each theta
-// direction and stores the filtered and predicted moments with their
-// tangents, stacked on the d axis as the TPU kernel stacks them: mf (N,
-// NAUG Q, NB, B), pf (N, NAUG Tri, ..), mp (N, NAUG Q, ..), pp (N, NAUG
-// Tri, ..), NAUG = 1 + NTHETA.
-//
-// Replaces the TPU kernel rodeo_tpu/ops/pallas_daltonng.py:
-// _filter_nn_kernel_batch_tan (interrogations kramer and rodeo).
-// Plain PyTorch twin: _filter_nn_batch_tan_plain in ops/fused_daltonng.py,
-// which runs K9's twin on Duals (ops/dual.py).
-//
-// Design.  K9's step on the forward-mode number Dual (dual.cuh), with theta
-// seeded along the thread's direction and the initial state exact (zero
-// tangent), split over the blocks of a lane (block_step.cuh) as K11a splits
-// K1's: one thread per (lane, direction, block), which predicts its block,
-// publishes its predicted mean to shared memory, and after one barrier a
-// step with the other blocks of its (lane, direction) evaluates the ODE at
-// the gathered means, updates its block and, at a step with data, runs its
-// block's Laplace pseudo-observation updates (filter_nn_update_block).  The
-// Laplace derivatives come from the observation functor evaluated on a
-// Jet2 of Duals (jet.cuh), so the tangent of the Hessian -- the third
-// derivative of the observation log-likelihood -- needs no code of its
-// own.  The value part of each Dual is K9's float arithmetic on the same
-// split step, so the values equal K9's bitwise; the threads of direction 0
-// store them.  One thread per (lane, direction) with all NB blocks in its
-// registers (the design of both before each was split) put 64 CTAs of 96
-// threads on 64 of the 132 SMs at 2048 lanes, with a chain of ~3e3
-// dependent operations a step in 254 registers; the split gives NB times
-// the threads, each with a chain about 1/NB as long.
-//
-// What bounds it on the card.  A step stores 72 floats per (block, lane) at
-// NAUG = 4 (mf 12, pf 24, mp 12, pp 24): 7.08 GB at 4000 steps x 3 blocks x
-// 2048 lanes, 2.11 ms at 3.35 TB/s.  The kernel is still bound by the
-// latency of each thread's chain (K9's step on one block and its tangent,
-// and the ODE at the gathered means): at 2048 lanes Lorenz63 runs grid (64,
-// 3) = 192 CTAs of 32 x 3 = 96 threads, every CTA resident at once and
-// every SM with one or two.
-#include <cstring>
-
+// The C entry points of K11d, the tangent twin of K9
+// (filter_nn_batch_tan.cuh): each picks the instance of (model, q) and
+// calls its launch, compiled in filter_nn_tan_instances_*.cu, which picks
+// the observation functor and the mode.
 #include <cuda_runtime.h>
 
-#include "block_step.cuh"
 #include "dispatch.cuh"
-#include "dual.cuh"
-#include "filter_step.cuh"
-#include "kalman_cols.cuh"
-#include "models.cuh"
-#include "obs_models.cuh"
-
-namespace rodeo {
-
-// Lanes per CTA: 32, faster than 16 for every split tangent kernel (PERF.md)
-constexpr int kNnTanLanes = 32;
-
-template <class Model, class Obs, int Q, int MODE>
-__global__ void __launch_bounds__(kNnTanLanes * Model::NB)
-    filter_nn_batch_tan_kernel(QConst<Q> qc, ObsPars pars, int obs_dims,
-                               int n_steps, int n_lane,
-                               const float* __restrict__ R_in,
-                               const float* __restrict__ W_in,
-                               const float* __restrict__ tv_in,
-                               const float* __restrict__ x0,
-                               const float* __restrict__ theta,
-                               const float* __restrict__ tgrid,
-                               const float* __restrict__ y,
-                               const float* __restrict__ iobs,
-                               const float* __restrict__ mask,
-                               float* __restrict__ mf_out,
-                               float* __restrict__ pf_out,
-                               float* __restrict__ mp_out,
-                               float* __restrict__ pp_out) {
-  constexpr int NB = Model::NB;
-  constexpr int NT = Tri<Q>::N;
-  constexpr int NTH = Model::NTHETA;
-  constexpr int NAUG = 1 + NTH;
-  __shared__ SharedMeans<Dual, NB, Q, kNnTanLanes> xs;
-  const int tx = threadIdx.x;
-  const int b = threadIdx.y;
-  const int dir = blockIdx.y;
-  const int lane = blockIdx.x * kNnTanLanes + tx;
-  // a lane beyond n_lane runs masked (it must reach every barrier): loads
-  // of the last lane, no stores
-  const bool live = lane < n_lane;
-  const size_t off = live ? lane : n_lane - 1;
-  const size_t col = static_cast<size_t>(NB) * n_lane;
-  const size_t base = b * static_cast<size_t>(n_lane) + off;
-
-  BlockConsts<Q> c;
-  load_block_consts<Q>(qc, R_in, W_in, tv_in, b, c);
-  Dual th[NTH];
-#pragma unroll
-  for (int k = 0; k < NTH; ++k)
-    th[k] = Dual(theta[k * static_cast<size_t>(n_lane) + off], k == dir ? 1.0f : 0.0f);
-
-  Dual m[Q], P[NT];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) m[j] = Dual(x0[j * col + base]);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) P[k] = Dual(0.0f);
-
-  for (int n = 0; n < n_steps; ++n) {
-    Dual mp[Q], pp[NT];
-    predict_block<Q>(c.Qm, c.R, m, P, mp, pp);
-    publish_mean<NB, Q>(xs, n, b, tx, mp, c.tv);
-    __syncthreads();
-    Dual x[NB][Q];
-    gather_means<NB, Q>(xs, n, tx, x);
-    filter_nn_update_block<Model, Obs, Q, MODE>(c, th, n, tgrid[n], x, b,
-                                                obs_dims, pars, y, iobs, mask,
-                                                mp, pp, m, P);
-    if (live) {
-#pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        store_aug(mf_out, n, Q, NAUG, i, col, base, dir, m[i]);
-        store_aug(mp_out, n, Q, NAUG, i, col, base, dir, mp[i]);
-      }
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        store_aug(pf_out, n, NT, NAUG, k, col, base, dir, P[k]);
-        store_aug(pp_out, n, NT, NAUG, k, col, base, dir, pp[k]);
-      }
-    }
-  }
-}
-
-template <class Model, class Obs, int MODE>
-cudaError_t nn_tan_launch(const QConst<3>& qc, const ObsPars& pars,
-                          int obs_dims, int n_steps, int n_lane,
-                          const float* R, const float* W, const float* tv,
-                          const float* x0, const float* theta,
-                          const float* tgrid, const float* y,
-                          const float* iobs, const float* mask, float* mf,
-                          float* pf, float* mp, float* pp,
-                          cudaStream_t stream) {
-  const SplitGeometry g =
-      split_geometry<Model, kNnTanLanes>(n_lane, Model::NTHETA);
-  filter_nn_batch_tan_kernel<Model, Obs, 3, MODE><<<g.grid, g.block, 0,
-                                                    stream>>>(
-      qc, pars, obs_dims, n_steps, n_lane, R, W, tv, x0, theta, tgrid, y,
-      iobs, mask, mf, pf, mp, pp);
-  return cudaGetLastError();
-}
-
-template <class Model, class Obs>
-cudaError_t nn_tan_geometry(int mode, int n_lane, int* out) {
-  const SplitGeometry g =
-      split_geometry<Model, kNnTanLanes>(n_lane, Model::NTHETA);
-  if (mode == kKramer)
-    return report_geometry(filter_nn_batch_tan_kernel<Model, Obs, 3, kKramer>,
-                           g, out);
-  if (mode == kRodeo)
-    return report_geometry(filter_nn_batch_tan_kernel<Model, Obs, 3, kRodeo>,
-                           g, out);
-  return cudaErrorInvalidValue;
-}
-
-template <class Model, class Obs>
-cudaError_t nn_tan_launch_mode(int mode, const QConst<3>& qc,
-                               const ObsPars& pars, int obs_dims, int n_steps,
-                               int n_lane, const float* R, const float* W,
-                               const float* tv, const float* x0,
-                               const float* theta, const float* tgrid,
-                               const float* y, const float* iobs,
-                               const float* mask, float* mf, float* pf,
-                               float* mp, float* pp, cudaStream_t stream) {
-  if (mode == kKramer)
-    return nn_tan_launch<Model, Obs, kKramer>(qc, pars, obs_dims, n_steps,
-                                              n_lane, R, W, tv, x0, theta,
-                                              tgrid, y, iobs, mask, mf, pf,
-                                              mp, pp, stream);
-  if (mode == kRodeo)
-    return nn_tan_launch<Model, Obs, kRodeo>(qc, pars, obs_dims, n_steps,
-                                             n_lane, R, W, tv, x0, theta,
-                                             tgrid, y, iobs, mask, mf, pf, mp,
-                                             pp, stream);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace rodeo
+#include "filter_nn_instances.cuh"
 
 // The arguments of rodeo_filter_nn_batch (filter_nn_batch.cu), with the
 // augmented outputs mf, pf, mp, pp laid out as filter_nn_batch_tan
 // (ops/fused_daltonng.py) documents; NTHETA tangent directions, one per
 // parameter of the model.  Returns a cudaError_t.
 extern "C" int rodeo_filter_nn_batch_tan(int model, int obs_model, int mode,
-                                         int obs_dims, int n_steps, int n_lane,
-                                         const void* q_host,
+                                         int q, int obs_dims, int n_steps,
+                                         int n_lane, const void* q_host,
                                          const void* pars_host, const void* R,
                                          const void* W, const void* tv,
                                          const void* x0, const void* theta,
@@ -195,50 +23,31 @@ extern "C" int rodeo_filter_nn_batch_tan(int model, int obs_model, int mode,
                                          void* pp, void* stream) {
   using namespace rodeo;
   if (n_steps < 1 || n_lane < 1) return cudaErrorInvalidValue;
-  QConst<3> qc;
-  std::memcpy(qc.q, q_host, sizeof(qc.q));
-  ObsPars pars;
-  std::memcpy(pars.p, pars_host, sizeof(pars.p));
-  const auto* r = static_cast<const float*>(R);
-  const auto* w = static_cast<const float*>(W);
-  const auto* t = static_cast<const float*>(tv);
-  const auto* x = static_cast<const float*>(x0);
-  const auto* th = static_cast<const float*>(theta);
-  const auto* tg = static_cast<const float*>(tgrid);
-  const auto* yy = static_cast<const float*>(y);
-  const auto* io = static_cast<const float*>(iobs);
-  const auto* mk = static_cast<const float*>(mask);
-  auto* mfp = static_cast<float*>(mf);
-  auto* pfp = static_cast<float*>(pf);
-  auto* mpp = static_cast<float*>(mp);
-  auto* ppp = static_cast<float*>(pp);
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  const NnFilterArgs a{obs_dims,  n_steps,  n_lane,   q_host,   pars_host,
+                       in(R),     in(W),    in(tv),   in(x0),   in(theta),
+                       in(tgrid), in(y),    in(iobs), in(mask), out(mf),
+                       out(pf),   out(mp),  out(pp)};
   auto s = static_cast<cudaStream_t>(stream);
-  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
-      using Model = typename decltype(m)::type;
-      using Obs = typename decltype(ob)::type;
-      return nn_tan_launch_mode<Model, Obs>(
-          mode, qc, pars, obs_dims, n_steps, n_lane, r, w, t, x, th,
-          tg, yy, io, mk, mfp, pfp, mpp, ppp, s);
-    });
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return NnFilterTanInstances<typename decltype(m)::type,
+                                decltype(qq)::value>::launch(obs_model, mode,
+                                                             a, s);
   });
 }
 
 // The launch rodeo_filter_nn_batch_tan makes for (model, obs_model, mode,
-// n_lane) on the current device, as nine ints in out (report_geometry in
-// block_step.cuh).  Returns a cudaError_t.
+// q, n_lane) on the current device, as nine ints in out (report_geometry
+// in block_step.cuh).  Returns a cudaError_t.
 extern "C" int rodeo_filter_nn_batch_tan_geometry(int model, int obs_model,
-                                                  int mode, int n_lane,
+                                                  int mode, int q, int n_lane,
                                                   void* out) {
   using namespace rodeo;
   if (n_lane < 1) return cudaErrorInvalidValue;
-  auto* o = static_cast<int*>(out);
-  return with_functor<Lorenz63, FitzHughNagumo>(model, [&](auto m) {
-    return with_functor<Gauss, Poisson>(obs_model, [&](auto ob) {
-      using Model = typename decltype(m)::type;
-      using Obs = typename decltype(ob)::type;
-      return nn_tan_geometry<Model, Obs>(
-          mode, n_lane, o);
-    });
+  return with_filter_instance(model, q, [&](auto m, auto qq) {
+    return NnFilterTanInstances<typename decltype(m)::type,
+                                decltype(qq)::value>::geometry(
+        obs_model, mode, n_lane, static_cast<int*>(out));
   });
 }

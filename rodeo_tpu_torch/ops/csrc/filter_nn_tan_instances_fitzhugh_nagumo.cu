@@ -1,0 +1,9 @@
+// The instances of K11d (filter_nn_batch_tan.cuh) for FitzHugh-Nagumo at q =
+// 3, under kramer and rodeo, with the observation functors Gauss and Poisson.
+#include "filter_nn_batch_tan.cuh"
+
+namespace rodeo {
+
+template struct NnFilterTanInstances<FitzHughNagumo, 3>;
+
+}  // namespace rodeo

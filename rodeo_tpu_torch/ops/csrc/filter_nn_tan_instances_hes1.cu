@@ -1,0 +1,10 @@
+// The instances of K11d (filter_nn_batch_tan.cuh) for Hes1 at q = 3 (its
+// Jacobian on nested Duals under kramer), under kramer and rodeo,
+// with the observation functors Gauss and Poisson.
+#include "filter_nn_batch_tan.cuh"
+
+namespace rodeo {
+
+template struct NnFilterTanInstances<Hes1, 3>;
+
+}  // namespace rodeo

@@ -5,9 +5,9 @@
 // transition (QConst) that the filters take as a kernel argument.
 //
 // The filters K1 (filter_batch.cu), K3 (filter_single.cu), K8
-// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cu) on float, and the
+// (dalton_filter_batch.cu) and K9 (filter_nn_batch.cuh) on float, and the
 // tangent kernels K11a (filter_batch_tan.cuh), K11c
-// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cu) on the
+// (dalton_filter_batch_tan.cu) and K11d (filter_nn_batch_tan.cuh) on the
 // scalar type Dual (dual.cuh), run them inside the step split over the
 // blocks of a lane (block_step.cuh), which adds the ODE's update of a
 // block.  The plain PyTorch versions of the step are _filter_batch_plain

@@ -2,8 +2,8 @@
 // and its second derivative.  Evaluating a function on Jet2(x, 1, 0) gives
 // f(x), f'(x) and f''(x), the gradient and Hessian of an observation
 // model's Laplace linearisation (obs_models.cuh).  The component type T is
-// float in K9 (filter_nn_batch.cu), and Dual (dual.cuh) in its tangent
-// twin K11d (filter_nn_batch_tan.cu), where the tangent of f'' carries the
+// float in K9 (filter_nn_batch.cuh), and Dual (dual.cuh) in its tangent
+// twin K11d (filter_nn_batch_tan.cuh), where the tangent of f'' carries the
 // third derivative.
 //
 // The rules are those of Jet2 in ops/dual.py, written once here and once

@@ -1,6 +1,6 @@
 // Observation models of non-Gaussian DALTON as device functors, for the
-// Laplace-linearised filters K9 (filter_nn_batch.cu) and K11d
-// (filter_nn_batch_tan.cu).
+// Laplace-linearised filters K9 (filter_nn_batch.cuh) and K11d
+// (filter_nn_batch_tan.cuh).
 //
 // A functor has one static device function, the log-likelihood
 // contribution of one observed state component:

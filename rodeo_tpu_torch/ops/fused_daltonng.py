@@ -9,12 +9,14 @@ and the smoothing passes over their moments, in Taylor-scaled coordinates
 (the change-of-variables Jacobians of ``logx_z`` and ``logx_yhat``
 cancel):
 
-- **K9** ``csrc/filter_nn_batch.cu`` replaces ``_filter_nn_kernel_batch``:
+- **K9** ``csrc/filter_nn_batch.cuh`` replaces ``_filter_nn_kernel_batch``:
   the Laplace-linearised filter, K1's predict and ODE update followed, at a
   step with data, by masked pseudo-observation updates of the observed
   components, storing the filtered and predicted moments of every step;
   split over the blocks of a lane as K1 is, one thread per lane and
-  block;
+  block; its C entry points are ``csrc/filter_nn_batch.cu``, its instances
+  compiled one translation unit per (model, q),
+  ``csrc/filter_nn_instances_*.cu``;
 - the backward kernels ``(G, b, C)`` of those moments in batched torch
   (:func:`_cond_params_cols`), and the smoothed means through **K2r**
   (:func:`~rodeo_tpu_torch.ops.fused_kalman.smoother_recursion_batch_rows`
@@ -25,12 +27,15 @@ cancel):
 - the log-densities in batched torch: ``logx_yhat`` is a sum of masked
   log-determinants (its quadratic form vanishes at the smoothed mean),
   ``logx_z`` a masked log-density of the smoothed path, both through the
-  closed-form eigendecomposition :func:`_masked_eigh`, and ``logy_x`` the
-  observation model at the smoothed means of the observed steps.
+  masked eigendecomposition :func:`_masked_eigh` (closed form at q <= 3,
+  ``torch.linalg.eigh`` at q = 4 and 5, as the JAX package takes
+  ``jnp.linalg.eigh`` there), and ``logy_x`` the observation model at the
+  smoothed means of the observed steps.
 
-The gradient, forward mode, runs **K11d** ``csrc/filter_nn_batch_tan.cu``
+The gradient, forward mode, runs **K11d** ``csrc/filter_nn_batch_tan.cuh``
 (replacing ``_filter_nn_kernel_batch_tan``: K9's step on Dual numbers,
-split over the blocks of a lane, one thread per lane, direction and block)
+split over the blocks of a lane, one thread per lane, direction and block;
+instances ``csrc/filter_nn_tan_instances_*.cu``)
 for the Laplace filter and **K11a** with ``emit="gains"`` for the marginal
 one, the mean recursion **K11e** over the augmented ``(G, b)``, and
 ``torch.func.jvp`` of the torch stages along each parameter, the masked
@@ -45,7 +50,11 @@ tensors.  ``LAUNCHES`` counts the launches.
 The observation model is one of :mod:`rodeo_tpu_torch.models.obs`
 (``obs_model=``), each with a compiled CUDA functor, as the ODE is named by
 ``model=``: the JAX package's user callables (``obs_comp_flat``,
-``ode_flat``) cannot reach the kernels until user functors compile.
+``ode_flat``) cannot reach the kernels until user functors compile.  K9
+and K11d hold K1's (model, q) under kramer and rodeo, each with both
+observation functors: the first-order models at q = 3, FitzHugh-Nagumo
+also at q = 4 and 5, and Chkrebtii's second-order ODE at q = 4 and 5
+(``fused_kalman._INSTANCES``).
 """
 import ctypes
 
@@ -62,7 +71,8 @@ from rodeo_tpu_torch.ops.fused_kalman import (
     fused_filter_batch, fused_filter_batch_tan, resolve_model,
     smoother_mean_recursion_batch_tan, smoother_recursion_batch_rows,
     unpack_cov)
-from rodeo_tpu_torch.ops.linalg import full_matmul_precision, sym_eigh_small
+from rodeo_tpu_torch.ops.linalg import (_eigh, full_matmul_precision,
+                                        sym_eigh_small)
 from rodeo_tpu_torch.ops.obs_grid import obs_indices
 
 __all__ = ["daltonng_fused_batch", "daltonng_fused_batch_grad",
@@ -72,9 +82,17 @@ __all__ = ["daltonng_fused_batch", "daltonng_fused_batch_grad",
 LAUNCHES = {"filter_nn_batch": 0, "filter_nn_batch_tan": 0}
 
 # observation functors, numbered as the C entry point rodeo_filter_nn_batch
-# (csrc/filter_nn_batch.cu) numbers them, and their parameter slots
+# (csrc/filter_nn_batch.cu) numbers them (kNumber of csrc/obs_models.cuh),
+# and their parameter slots
 _OBS_FUNCTORS = {"Gauss": 0, "Poisson": 1}
 _OBS_PARS = 2
+
+# Matrices per torch.linalg.eigh call at q = 4 and 5 (_eigh_finite): on the
+# H100 cuSOLVER's batched eigensolver refuses 32 768 float32 4 x 4 or 5 x 5
+# matrices a call (CUSOLVER_STATUS_INVALID_VALUE from its workspace query)
+# and takes 16 384 fastest of 1024, 8192 and 16 384, at 41 and 35 million
+# matrices a second with 4.4 GB of workspace (tools/torch_eigh_costs.py)
+_EIGH_CHUNK = 16384
 
 # time rows per pass of the log-density stage: bounds its temporaries (a
 # (rows, n_block, B, 3, 3) float32 tensor is 885 MB at 4000 x 3 x 2048)
@@ -137,7 +155,7 @@ def _laplace_update_cols(obs, q, pairs, where, tv_cols, j, x, y_col, iobs,
 def _filter_nn_batch_plain(model, obs, obs_dims, n_steps, q_const, prior_var,
                            ode_weight, t_vec, x0_lanes, theta_lanes, tgrid, y,
                            iobs, mask, mode, skip_unobserved=True):
-    """Plain PyTorch twin of ``csrc/filter_nn_batch.cu``: K1's twin step
+    """Plain PyTorch twin of ``csrc/filter_nn_batch.cuh``: K1's twin step
     (:func:`~rodeo_tpu_torch.ops.fused_kalman._interrogate_update_cols`),
     then at a step with data :func:`_laplace_update_cols` of each observed
     component, in the kernel's order.  Arguments and returns as
@@ -189,7 +207,7 @@ def _filter_nn_batch_tan_plain(model, obs, obs_dims, n_steps, q_const,
                                prior_var, ode_weight, t_vec, x0_lanes,
                                theta_lanes, tgrid, y, iobs, mask, mode,
                                skip_unobserved=True):
-    """Plain PyTorch twin of ``csrc/filter_nn_batch_tan.cu``: K9's twin on
+    """Plain PyTorch twin of ``csrc/filter_nn_batch_tan.cuh``: K9's twin on
     Duals, theta seeded along its ``n_theta`` basis directions and the
     initial state exact.  Arguments as :func:`filter_nn_batch`; returns as
     :func:`filter_nn_batch_tan`."""
@@ -250,31 +268,31 @@ def filter_nn_batch_tan(model, obs_model, obs_dims, n_steps, q_const,
                       tgrid, y, iobs, mask, mode)
 
 
-def _filter_nn_geometry(kernel, model, obs_model, n_lane, mode, device):
+def _filter_nn_geometry(kernel, model, obs_model, n_lane, mode, q, device):
     obs = resolve_obs_model(obs_model)
-    return _launch_geometry(kernel, device, n_lane,
+    return _launch_geometry(kernel, device, n_lane, q=q,
                             model=resolve_model(model).cuda_functor,
                             mode=mode, obs=_OBS_FUNCTORS[obs.cuda_functor])
 
 
-def _filter_nn_batch_geometry(model, obs_model, n_lane, mode="kramer",
+def _filter_nn_batch_geometry(model, obs_model, n_lane, mode="kramer", q=3,
                               device=None):
     """The launch of kernel K9 (:func:`filter_nn_batch`) at ``n_lane`` lanes
-    on the card, as
+    on the card, for the model, mode and q of one of its instances, as
     :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
     return _filter_nn_geometry("filter_nn_batch", model, obs_model, n_lane,
-                               mode, device)
+                               mode, q, device)
 
 
 def _filter_nn_batch_tan_geometry(model, obs_model, n_lane, mode="kramer",
-                                  device=None):
+                                  q=3, device=None):
     """The launch of kernel K11d (:func:`filter_nn_batch_tan`) at ``n_lane``
-    lanes on the card, as
-    :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
+    lanes on the card, for the model, mode and q of one of its instances,
+    as :func:`~rodeo_tpu_torch.ops.fused_kalman._launch_geometry` reports
     it."""
     return _filter_nn_geometry("filter_nn_batch_tan", model, obs_model,
-                               n_lane, mode, device)
+                               n_lane, mode, q, device)
 
 
 def _filter_nn(tangent, model, obs_model, obs_dims, n_steps, q_const,
@@ -343,15 +361,30 @@ def _cond_params_cols(ops, mf, pf, mp, pp):
             torch.stack(g, 1), torch.stack(L, 1))
 
 
+def _eigh_finite(d):
+    """``torch.linalg.eigh`` of symmetric matrices ``d (..., q, q)``, in
+    chunks of ``_EIGH_CHUNK`` matrices (``ops.linalg._eigh``), NaN where a
+    matrix is not finite, as ``jnp.linalg.eigh`` returns it there
+    (``torch.linalg.eigh`` would raise for the whole batch): a lane that
+    float32 loses stays NaN and leaves the others as they are."""
+    ok = torch.isfinite(d).all(-1).all(-1)[..., None]
+    eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+    w, v = _eigh(torch.where(ok[..., None], d, eye), chunk=_EIGH_CHUNK)
+    nan = torch.tensor(float("nan"), dtype=d.dtype, device=d.device)
+    return torch.where(ok, w, nan), torch.where(ok[..., None], v, nan)
+
+
 def _masked_eigh(C):
     """Eigendecomposition of packed covariances ``C (T, n_tri, n_block, B)``
-    (q <= 3) with the JAX package's relative mask of degenerate directions
+    (q <= 5) with the JAX package's relative mask of degenerate directions
     (``pallas_daltonng._masked_eigh``), formula for formula: the closed form
-    :func:`~rodeo_tpu_torch.ops.linalg.sym_eigh_small`, a direction kept
-    where its eigenvalue clears 100 eps of the largest, and for q = 3 the
-    smallest eigenvalue refined as ``det / (lam_mid lam_hi)`` and kept where
-    the determinant clears 100 eps of the sum of its cofactor terms' sizes
-    and the refined value clears the relative screen.
+    :func:`~rodeo_tpu_torch.ops.linalg.sym_eigh_small` at q <= 3 and
+    :func:`_eigh_finite` above (the JAX package's ``jnp.linalg.eigh``), a
+    direction kept where its eigenvalue clears 100 eps of the
+    largest, and for q = 3 the smallest eigenvalue refined as ``det /
+    (lam_mid lam_hi)`` and kept where the determinant clears 100 eps of the
+    sum of its cofactor terms' sizes and the refined value clears the
+    relative screen.
 
     Returns:
         (tuple): ``w (T, n_block, B, q)`` ascending, ``v (..., q, q)``
@@ -359,7 +392,7 @@ def _masked_eigh(C):
     """
     d = unpack_cov(C.movedim(1, -1))                    # (T, nb, B, q, q)
     q = d.shape[-1]
-    w, v = sym_eigh_small(d)
+    w, v = sym_eigh_small(d) if q <= 3 else _eigh_finite(d)
     tol = 100.0 * torch.finfo(d.dtype).eps
     wmax = torch.clamp(torch.amax(torch.abs(w), dim=-1, keepdim=True),
                        min=1e-30)
@@ -673,8 +706,19 @@ def daltonng_fused_batch_grad(thetas, ode_weight, ode_inits, t_min, t_max,
 
     prims = [s[0] for s in split]
     G, b, C = pre(*prims)
-    tans = [torch.func.jvp(pre, tuple(prims), tuple(s[1 + k] for s in split))[1]
-            for k in range(n_tan)]
+
+    def pre_tangents(k):
+        # a direction that moves no moment of the Laplace filter (a
+        # parameter that the ODE does not read: Chkrebtii's placeholder)
+        # has exactly zero tangents here; its jvp would turn them into
+        # 0 x inf = NaN wherever float32 overflows 1 / det of a predicted
+        # covariance, so it is not run
+        dirs = tuple(s[1 + k] for s in split)
+        if not any(bool(d.any()) for d in dirs):
+            return tuple(torch.zeros_like(a) for a in (G, b, C))
+        return torch.func.jvp(pre, tuple(prims), dirs)[1]
+
+    tans = [pre_tangents(k) for k in range(n_tan)]
     del split, prims
     means = smoother_mean_recursion_batch_tan(
         torch.cat([b] + [t[1] for t in tans], 1),

@@ -139,7 +139,6 @@ def _product(models, modes, qs):
 # _launch and the geometry queries refuse them first.  The tangent
 # recursions K11b and K11e also take 1 to _MAX_TAN directions
 # (_check_n_tan).
-_EK = _product(("Lorenz63", "FitzHughNagumo"), ("kramer", "rodeo"), (3,))
 _EK_MODES = ("kramer", "rodeo")
 _MAX_TAN = 7
 
@@ -147,7 +146,7 @@ _MAX_TAN = 7
 def _filter_models(modes):
     """The first-order models at q = 3, FitzHugh-Nagumo also at q = 4 and
     5, and the second-order Chkrebtii at q = 4 and 5, under ``modes`` (the
-    instances of K1, K3, K11a, K8 and K11c, csrc/dispatch.cuh's
+    instances of K1, K3, K11a, K8, K11c, K9 and K11d, csrc/dispatch.cuh's
     with_filter_instance)."""
     return _product(("Lorenz63", "FitzHughNagumo", "Hes1", "Seirah"), modes,
                     (3,)) | _product(("FitzHughNagumo", "Chkrebtii"), modes,
@@ -164,8 +163,9 @@ _INSTANCES = {
     "filter_batch_tan": _filter_models(_EK_MODES),
     "dalton_filter_batch": _filter_models(_EK_MODES),
     "dalton_filter_batch_tan": _filter_models(_EK_MODES),
-    "filter_nn_batch": _EK,
-    "filter_nn_batch_tan": _EK, "smoother_mean_batch_tan": _Q345,
+    "filter_nn_batch": _filter_models(_EK_MODES),
+    "filter_nn_batch_tan": _filter_models(_EK_MODES),
+    "smoother_mean_batch_tan": _Q345,
     "sampler_batch": _Q345, "fenrir_backward_batch": _Q345,
     "fenrir_backward_batch_tan": _Q345, "fenrir_backward_single": _Q345,
     "magi_batch": _Q3, "magi_adjoint_batch": _Q3,
@@ -634,7 +634,8 @@ _TAKES_Q = frozenset({"filter_batch", "filter_single", "smoother_batch_rows",
                       "fenrir_backward_batch", "fenrir_backward_single",
                       "dalton_filter_batch", "filter_batch_tan",
                       "dalton_filter_batch_tan", "fenrir_backward_batch_tan",
-                      "smoother_mean_batch_tan"})
+                      "smoother_mean_batch_tan", "filter_nn_batch",
+                      "filter_nn_batch_tan"})
 
 
 def _instance_args(kernel, q, model, mode, obs):

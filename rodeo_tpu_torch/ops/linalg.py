@@ -250,13 +250,14 @@ def solve_psd(a, b):
 EIGH_CHUNK = 1024
 
 
-def _eigh(cov):
-    """``torch.linalg.eigh(cov)``, at most :data:`EIGH_CHUNK` matrices at a
-    time."""
+def _eigh(cov, chunk=None):
+    """``torch.linalg.eigh(cov)``, at most ``chunk`` (default
+    :data:`EIGH_CHUNK`) matrices at a time."""
+    chunk = EIGH_CHUNK if chunk is None else chunk
     flat = cov.reshape((-1,) + tuple(cov.shape[-2:]))
-    if flat.shape[0] <= EIGH_CHUNK:
+    if flat.shape[0] <= chunk:
         return torch.linalg.eigh(cov)
-    w, v = zip(*(torch.linalg.eigh(c) for c in flat.split(EIGH_CHUNK)))
+    w, v = zip(*(torch.linalg.eigh(c) for c in flat.split(chunk)))
     return (torch.cat(w).reshape(cov.shape[:-1]),
             torch.cat(v).reshape(cov.shape))
 

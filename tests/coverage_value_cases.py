@@ -861,3 +861,190 @@ def jax_dalton_plain_parts(name):
         out.append((float(np.max(np.abs(ll - p_ll) / np.abs(p_ll))),
                     [tan_err(g[:, k], p_g[:, k]) for k in range(g.shape[1])]))
     return out
+
+
+# --- non-Gaussian DALTON's gradient (tests/test_torch_coverage_daltonng*.py)
+# ------------------------------------------------------------------------------
+
+# tests/test_torch_daltonng.py's tolerances of the fused paths against each
+# other: the values relative, each parameter's gradient of its largest
+# entry (tan_err)
+FUSED_RTOL = 1e-5
+FUSED_GRAD_TOL = 1e-4
+
+
+def jax_gauss_comp_flat(y_cols, x_col, j, th, iobs):
+    """The JAX package's per-component observation log-likelihood of the
+    cases' Gaussian data of variance OBS_VAR (its ``obs_comp_flat``)."""
+    return -0.5 * (y_cols[0] - x_col) ** 2 / OBS_VAR
+
+
+def jax_daltonng_fused(c):
+    """The JAX package's daltonng_fused_batch_grad over the case's lanes
+    (its Pallas kernels in interpret mode), the data's derivative 0
+    observed: ``(loglik (B,), grad (B, n_theta))`` as numpy."""
+    from rodeo_tpu.ops import pallas_daltonng as pdn
+    jcfg = c["jcfg"]
+    fn = jax.jit(lambda ts, x0: pdn.daltonng_fused_batch_grad(
+        thetas=ts, ode_weight=jcfg["ode_weight"], ode_inits=x0, t_min=0.0,
+        t_max=c["t_max"], n_steps=N_STEPS, prior_pars=jcfg["prior_pars"],
+        obs_data=jnp.asarray(c["obs"]["obs_data"]),
+        obs_times=jnp.asarray(c["obs"]["obs_times"], jnp.float32),
+        obs_comp_flat=jax_gauss_comp_flat, obs_dims=(0,),
+        ode_flat=c["jflat"], jac_flat=c["jjac"], interpret=True))
+    ll, g = fn(jnp.asarray(c["thetas"]), jnp.asarray(c["inits"]))
+    return np.asarray(ll), np.asarray(g)
+
+
+def jax_daltonng_plain(c):
+    """The JAX package's plain float64 reference of case ``c``:
+    ``ops.precond.daltonng`` and its jax.value_and_grad in theta at each
+    lane, ``(value (B,), grad (B, n_theta))``; Chkrebtii's ODE has no
+    parameter, its gradient zeros."""
+    f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)  # noqa: E731
+    jcfg = c["jcfg"]
+    how = getattr(jint, f"interrogate_{c['mode']}")
+    chk = c["model"] == "chkrebtii"
+    fun = getattr(_MODULES[c["model"]][0], f"{c['model']}_fun")
+
+    def loglik(o, s, i, **params):
+        return jnp.sum(-0.5 * (o[:, 0] - s[:, 0]) ** 2 / OBS_VAR)
+
+    def value(th, x0):
+        return jprecond.daltonng(
+            None, fun, f64(jcfg["ode_weight"]), x0, 0.0, c["t_max"],
+            N_STEPS, how, tuple(f64(p) for p in jcfg["prior_pars"]),
+            f64(c["obs"]["obs_data"]), f64(c["obs"]["obs_times"]), loglik,
+            **({} if chk else {"theta": th}))
+
+    vg = jax.jit(jax.value_and_grad(value))
+    out = [vg(f64(c["thetas"][b]), f64(c["inits"][b]))
+           for b in range(N_LANE)]
+    grads = np.stack([np.asarray(g) for _, g in out])
+    return (np.array([float(v) for v, _ in out]),
+            np.zeros_like(grads) if chk else grads)
+
+
+def port_daltonng_args(c):
+    """The port's daltonng_fused_batch(_grad) arguments of case ``c`` on the
+    CPU (tools/torch_coverage_reference.py's daltonng_args)."""
+    from rodeo_tpu_torch.models import obs as obs_models
+    args, kw, obs = port_args(c)
+    return args + (obs["obs_data"], obs["obs_times"],
+                   obs_models.gauss(OBS_VAR), (0,), kw["model"])
+
+
+def port_daltonng(c):
+    """The port's daltonng_fused_batch_grad of case ``c`` on the CPU (no
+    launch; the values bitwise daltonng_fused_batch's): ``(loglik, grad)``
+    as numpy."""
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    args = port_daltonng_args(c)
+    before = dict(fdn.LAUNCHES, **fk.LAUNCHES)
+    ll, g = fdn.daltonng_fused_batch_grad(*args, interrogation=c["mode"],
+                                          device="cpu")
+    value = fdn.daltonng_fused_batch(*args, interrogation=c["mode"],
+                                     device="cpu")
+    assert dict(fdn.LAUNCHES, **fk.LAUNCHES) == before
+    np.testing.assert_array_equal(ll.numpy(), value.numpy())
+    return ll.numpy(), g.numpy()
+
+
+def port_daltonng_f64(c):
+    """The port's non-Gaussian DALTON of case ``c`` by its entries' code
+    with the kernels' twins in float64 on the entries' float32 operands
+    (tools/torch_coverage_reference.py's daltonng_float64_twins):
+    ``(loglik, grad)`` as numpy, the gradient zeros on Chkrebtii's ODE."""
+    chk = c["model"] == "chkrebtii"
+    ll, g = cov_ref.daltonng_float64_twins(port_daltonng_args(c), c["mode"],
+                                           tangent=not chk)
+    return ll.numpy(), (np.zeros(c["thetas"].shape) if chk else g.numpy())
+
+
+# The gradient cases where float32 does not resolve non-Gaussian DALTON, in
+# either package: Chkrebtii's ODE at q = 5 and FitzHugh-Nagumo at q = 4 and
+# 5, whose float32 values lie 44-1.6e8 times their size from the float64
+# plain reference, the port's own one-ulp move 0.03-1.5 of it
+# (tests/test_torch_coverage_daltonng_fitz.py records it).  There the
+# port's entries run in float64 on the same float32 operands
+# (port_daltonng_f64) and the JAX package's fused call is not made.
+DALTONNG_UNRESOLVED = ("chkrebtii_q5", "fitzhugh_q4_kramer",
+                       "fitzhugh_q4_rodeo", "fitzhugh_q5_kramer",
+                       "fitzhugh_q5_rodeo")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_daltonng_of(name):
+    """The JAX package's references of gradient case ``name``, computed once
+    a process: ``(fused, plain)``, its jax_daltonng_fused (None at
+    DALTONNG_UNRESOLVED, where float32 resolves nothing) and its
+    jax_daltonng_plain."""
+    c = jax_grad_case(name)
+    fused = None if name in DALTONNG_UNRESOLVED else jax_daltonng_fused(c)
+    return fused, jax_daltonng_plain(c)
+
+
+# The gradient cases where the two packages' float32 part by more than the
+# tolerances and 3 x the port's one-ulp move (Hes1 and SEIRAH under rodeo,
+# whose float32 sums lose up to 1e-3 of some parameters' gradients in both
+# packages, far beyond a one-ulp move; PERF.md records each reading): there
+# daltonng_held also takes the port's distance from the float64 plain
+# reference.
+DALTONNG_F32_PARTS = ("hes1_rodeo", "seirah_rodeo")
+
+
+def daltonng_held(port, moved, fused, plain, tol, parts):
+    """Whether the port's float32 output ``port`` (the values, or one
+    parameter's gradient over the lanes) holds to the JAX package: within
+    the larger of ``tol`` and 3 x the port's own move under a one-ulp move
+    of its operands (``moved``, ulp_case's output) of the JAX package's
+    fused float32 output ``fused``; or, where ``parts`` (a case of
+    DALTONNG_F32_PARTS) and the two part by more, no further from the JAX
+    package's float64 plain reference ``plain`` than the larger of that
+    and 3 x the JAX package's own float32 distance from it; with the
+    distances (tan_err)."""
+    move = tan_err(moved, port)
+    err = tan_err(port, fused)
+    if err <= max(tol, 3 * move) or not parts:
+        return err <= max(tol, 3 * move), (err, move)
+    miss, err_p = tan_err(fused, plain), tan_err(port, plain)
+    return err_p <= max(tol, 3 * move, 3 * miss), (err, move, err_p, miss)
+
+
+def check_daltonng_case(name):
+    """daltonng_fused_batch_grad on the CPU (the twins of K11d, K11e and
+    K11a), its values bitwise daltonng_fused_batch's and its gradient
+    exactly zero on Chkrebtii's ODE (no parameter), against the JAX
+    package: where float32 resolves the result, the values and each
+    parameter's gradient by daltonng_held with FUSED_RTOL and
+    FUSED_GRAD_TOL against its fused entry (Pallas kernels in interpret
+    mode), and at DALTONNG_F32_PARTS its float64 plain reference (the two
+    packages' float32 lie 3e-5 to 1e-3 apart on Hes1 and SEIRAH,
+    Chkrebtii's ODE at q = 4 up to 0.7 %); at DALTONNG_UNRESOLVED the
+    port's entries in float64 on the same float32 operands
+    (port_daltonng_f64) against the float64 plain reference within
+    FUSED_RTOL (values, relative) and FUSED_GRAD_TOL."""
+    c = jax_grad_case(name)
+    ll, g = port_daltonng(c)
+    n_theta = c["thetas"].shape[1]
+    assert ll.shape == (N_LANE,) and g.shape == (N_LANE, n_theta)
+    assert np.isfinite(ll).all() and np.isfinite(g).all()
+    if c["model"] == "chkrebtii":
+        assert (g == 0).all()
+    fused, plain = jax_daltonng_of(name)
+    if fused is not None:
+        parts = name in DALTONNG_F32_PARTS
+        ll_m, g_m = port_daltonng(ulp_case(c))
+        ok, errs = daltonng_held(ll, ll_m, fused[0], plain[0], FUSED_RTOL,
+                                 parts)
+        assert ok, ("value", errs)
+        for k in range(n_theta):
+            ok, errs = daltonng_held(g[:, k], g_m[:, k], fused[1][:, k],
+                                     plain[1][:, k], FUSED_GRAD_TOL, parts)
+            assert ok, (k, errs)
+        return
+    ll64, g64 = port_daltonng_f64(c)
+    err = np.abs(ll64 - plain[0]) / np.abs(plain[0])
+    assert err.max() <= FUSED_RTOL, err
+    errs = [tan_err(g64[:, k], plain[1][:, k]) for k in range(n_theta)]
+    assert max(errs) <= FUSED_GRAD_TOL, errs

@@ -84,13 +84,14 @@ def test_fenrir_fused_matches_jax(name):
 
 
 def test_instance_tables_hold_the_value_path():
-    """K6, K7a and K7b hold q = 3, 4 and 5; K8 and K11c kramer and rodeo
-    on Lorenz63, FitzHugh-Nagumo, Hes1 and SEIRAH at q = 3, Chkrebtii's ODE
-    at q = 4 and 5 and FitzHugh-Nagumo at q = 4 and 5, as K11a does; K11b
-    and K11e q = 3, 4 and 5 (the gradient path,
-    tests/test_torch_coverage_grad.py and
-    tests/test_torch_coverage_dalton*.py); daltonng, MAGI and the
-    stationary solve what they held before."""
+    """K6, K7a and K7b hold q = 3, 4 and 5; K8 and K11c, and daltonng's K9
+    and K11d, kramer and rodeo on Lorenz63, FitzHugh-Nagumo, Hes1 and
+    SEIRAH at q = 3, Chkrebtii's ODE at q = 4 and 5 and FitzHugh-Nagumo at
+    q = 4 and 5, as K11a does; K11b and K11e q = 3, 4 and 5 (the gradient
+    path, tests/test_torch_coverage_grad.py,
+    tests/test_torch_coverage_dalton*.py and
+    tests/test_torch_coverage_daltonng*.py); MAGI and the stationary solve
+    what they held before."""
     q345 = {(None, None, q) for q in (3, 4, 5)}
     for kernel in ("sampler_batch", "fenrir_backward_batch",
                    "fenrir_backward_single", "fenrir_backward_batch_tan",
@@ -102,15 +103,42 @@ def test_instance_tables_hold_the_value_path():
                 (m, q) for m in ("Chkrebtii", "FitzHughNagumo")
                 for q in (4, 5)]}
     for kernel in ("filter_batch_tan", "dalton_filter_batch",
-                   "dalton_filter_batch_tan"):
+                   "dalton_filter_batch_tan", "filter_nn_batch",
+                   "filter_nn_batch_tan"):
         assert fk._INSTANCES[kernel] == k11a
-    ek = {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
-          for md in ("kramer", "rodeo")}
-    for kernel in ("filter_nn_batch", "filter_nn_batch_tan"):
-        assert fk._INSTANCES[kernel] == ek
     for kernel in ("magi_batch", "magi_adjoint_batch"):
         assert fk._INSTANCES[kernel] == {(None, None, 3)}
     for kernel in ("mean_gain_single", "mean_boundary_single",
                    "mean_recovery_single"):
         assert fk._INSTANCES[kernel] == {
             (m, None, 3) for m in ("Lorenz63", "FitzHughNagumo")}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("how,q", [("kramer", 6), ("rodeo", 6),
+                                   ("schober", 3), ("chkrebtii", 3),
+                                   ("schober", 4)])
+def test_daltonng_refuses_other_instances(how, q, device):
+    """daltonng_fused_batch and its gradient refuse FitzHugh-Nagumo at
+    q = 6 (padded past q = 5) and the schober and chkrebtii interrogations,
+    naming the kernel that lacks the instance, on CPU tensors and for the
+    card too: the refusal comes before any tensor moves to the device, so
+    it needs no card here; the kernel wrappers refuse on the same gate."""
+    import torch
+
+    from rodeo_tpu_torch.models import fitzhugh
+    from rodeo_tpu_torch.models import obs as obs_models
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    cfg = fitzhugh.setup(n_steps=8, t_max=0.4, dtype=torch.float32,
+                         device="cpu", n_deriv=q)
+    args = (cfg["theta"][None], cfg["ode_weight"], cfg["ode_init"][None],
+            0.0, 0.4, 8, cfg["prior_pars"], torch.ones((2, 2, 1)),
+            torch.tensor([0.0, 0.4]), obs_models.gauss(0.005), (0,),
+            "fitzhugh")
+    for entry, kernel in ((fdn.daltonng_fused_batch, "filter_nn_batch"),
+                          (fdn.daltonng_fused_batch_grad,
+                           "filter_nn_batch_tan")):
+        with pytest.raises(NotImplementedError, match=kernel):
+            entry(*args, interrogation=how, device=device)
+        with pytest.raises(NotImplementedError, match=kernel):
+            fk._check_instance(kernel, q, "FitzHughNagumo", how)

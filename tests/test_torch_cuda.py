@@ -2389,3 +2389,125 @@ def test_mala_over_dalton_on_hes1_on_the_card(cuda_device):
         cfg["t_max"], cfg["n_steps"], cfg["prior_pars"], **obs, model="hes1",
         device=cuda_device)
     assert torch.equal(fresh, ll)
+
+
+# --- non-Gaussian DALTON at every instance of K1 under kramer and rodeo: K9
+# and K11d on every model and q, each with both observation functors --------
+
+_NEW_NN = sorted(
+    fk._INSTANCES["filter_nn_batch"]
+    - {(m, md, 3) for m in ("Lorenz63", "FitzHughNagumo")
+       for md in ("kramer", "rodeo")}, key=lambda k: (k[2], k[0], k[1]))
+# tests/test_torch_daltonng.py's Poisson rate exp(B0 + B1 x), B1 divided by
+# the largest initial value of a model above 1 (SEIRAH's populations reach
+# 6.4e7), so that the rate stays finite on every model
+_NN_B0, _NN_B1 = 0.1, 0.05
+
+
+def _nn_instance_case(functor, mode, q, obs_name, device):
+    """K9's and K11d's operands of the instance (functor, mode, q) on 37
+    lanes (a ragged lane group) of the functor's INSTANCE_CHECKS setup
+    (tools/torch_coverage_reference.py), derivative 0 of every block
+    observed at 5 times from t = 0 to its end, so that the run holds steps
+    with data: Gaussian data of variance 0.005 about the initial value, or
+    Poisson counts.  Returns ``(case, obs_model, ops, grid)``."""
+    case = cov_ref.instance_case(functor, mode, q, 37, device, seed=7)
+    cfg, n = case["cfg"], case["n_steps"]
+    thetas = case["batch"]["theta_lanes"].T.contiguous()
+    inits = cfg["ode_init"].expand((37,) + cfg["ode_init"].shape)
+    nb = case["fused"].n_block
+    rng = np.random.default_rng(q)
+    x0 = cfg["ode_init"][:, 0]
+    if obs_name == "gauss":
+        obs = obs_models.gauss(0.005)
+        data = x0[None, :, None] * (1 + 0.01 * torch.tensor(
+            rng.standard_normal((5, nb, 1)), dtype=torch.float32,
+            device=device))
+    else:
+        obs = obs_models.poisson(
+            _NN_B0, _NN_B1 / max(1.0, x0.abs().max().item()))
+        data = torch.tensor(rng.poisson(2.0, size=(5, nb, 1)),
+                            dtype=torch.float32, device=device)
+    ops, grid, _, _ = fdn._daltonng_prepare(
+        thetas, cfg["ode_weight"], inits, 0.0, case["config"]["t_max"], n,
+        cfg["prior_pars"], data,
+        torch.linspace(0.0, case["config"]["t_max"], 5, dtype=torch.float64))
+    assert (grid["mask"] != 0).any()
+    return case, obs, ops, grid
+
+
+@pytest.mark.parametrize("obs_name", ["gauss", "poisson"])
+@pytest.mark.parametrize("functor,mode,q", _NEW_NN,
+                         ids=["-".join(map(str, k)) for k in _NEW_NN])
+def test_new_daltonng_instances_are_bitwise_their_twins(cuda_device, functor,
+                                                        mode, q, obs_name):
+    """Each instance of K9 and K11d that this slice added (Hes1's and
+    SEIRAH's Jacobian under kramer on nested Duals in K11d), under Gauss
+    and Poisson data, bitwise against its twin on 37 lanes of the functor's
+    INSTANCE_CHECKS setup with 5 steps of data, every output finite and
+    K11d's values K9's; their launches at 2048 lanes (CTAs of 32 lanes x
+    the blocks, K11d a grid row per parameter), and ptxas spills nothing in
+    either."""
+    case, obs, ops, grid = _nn_instance_case(functor, mode, q, obs_name,
+                                             cuda_device)
+    fused, n = case["fused"], case["n_steps"]
+    n_tri = q * (q + 1) // 2
+    _reset_launches()
+    k9 = fdn.filter_nn_batch(fused, obs, (0,), n, **ops, **grid, mode=mode)
+    k11 = fdn.filter_nn_batch_tan(fused, obs, (0,), n, **ops, **grid,
+                                  mode=mode)
+    assert _launched() == {"filter_nn_batch": 1, "filter_nn_batch_tan": 1}
+    p9 = fdn._filter_nn_batch_plain(fused, obs, (0,), n, **ops, **grid,
+                                    mode=mode)
+    p11 = fdn._filter_nn_batch_tan_plain(fused, obs, (0,), n, **ops, **grid,
+                                         mode=mode)
+    for a, b, v, k in zip(k11, p11, k9, (q, n_tri, q, n_tri)):
+        assert torch.isfinite(b).all()
+        assert torch.equal(a, b)
+        assert torch.equal(a[:, :k], v)
+    assert all(torch.equal(a, b) for a, b in zip(k9, p9))
+    for geometry, kernel, n_dir in (
+            (fdn._filter_nn_batch_geometry, "22filter_nn_batch_kernel", 1),
+            (fdn._filter_nn_batch_tan_geometry,
+             "26filter_nn_batch_tan_kernel", fused.n_theta)):
+        geo = geometry(fused, obs, 2048, mode, q, device=cuda_device)
+        assert (geo["cta_x"], geo["cta_y"]) == (K9_LANES, fused.n_block), geo
+        assert (geo["grid_x"], geo["grid_y"]) == (2048 // K9_LANES,
+                                                  n_dir), geo
+        assert geo["ctas_per_sm"] >= 1, geo
+        name = obs.cuda_functor
+        rows = _spills(kernel, f"{len(functor)}{functor}E",
+                       f"{len(name)}{name}ELi{q}ELi{fk._MODES[mode]}E")
+        assert rows and all(r == (0, 0) for r in rows), rows
+
+
+def test_daltonng_entries_refuse_other_instances_on_the_card(cuda_device):
+    """The C entries of K9 and K11d return an error for any (model,
+    observation functor, mode, q) that with_filter_instance, with_ek_mode
+    and the Gauss and Poisson functors do not list, and the Python gate
+    refuses q = 6 and the schober and chkrebtii interrogations first on
+    CUDA tensors."""
+    lib = fk._build.load()
+    qc = fk._host_qconst([[1.0] * 5] * 5)
+    pars = (ctypes.c_float * 2)(1.0, 0.0)
+    for model, obs, mode, q_k in ((0, 0, 0, 4), (2, 1, 0, 3), (3, 0, 2, 3),
+                                  (2, 0, 3, 4), (1, 1, 0, 6), (4, 0, 1, 4),
+                                  (5, 0, 0, 3), (0, 2, 0, 3)):
+        for entry in (lib.rodeo_filter_nn_batch,
+                      lib.rodeo_filter_nn_batch_tan):
+            assert entry(model, obs, mode, q_k, 1, 4, 2,
+                         ctypes.addressof(qc), ctypes.addressof(pars),
+                         *([None] * 14)) != 0, (model, obs, mode, q_k)
+    for how, q_k in (("kramer", 6), ("schober", 3), ("chkrebtii", 3)):
+        cfg = fitzhugh.setup(n_steps=8, t_max=0.4, dtype=torch.float32,
+                             device=cuda_device, n_deriv=q_k)
+        args = (cfg["theta"][None], cfg["ode_weight"], cfg["ode_init"][None],
+                0.0, 0.4, 8, cfg["prior_pars"],
+                torch.ones((2, 2, 1), device=cuda_device),
+                torch.tensor([0.0, 0.4]), obs_models.gauss(0.005), (0,),
+                "fitzhugh")
+        for entry, kernel in ((fdn.daltonng_fused_batch, "filter_nn_batch"),
+                              (fdn.daltonng_fused_batch_grad,
+                               "filter_nn_batch_tan")):
+            with pytest.raises(NotImplementedError, match=kernel):
+                entry(*args, interrogation=how, device=cuda_device)

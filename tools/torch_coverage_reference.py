@@ -8,7 +8,7 @@ the CPU, which set the audits' tolerances; and the likelihood audits of its
 coverage_value phase, where K6, K7a, K7b and K8 took the same models.
 
     python3 tools/torch_coverage_reference.py [--device cpu] [--out FILE]
-        [--parts solve,value,lanes,grad]
+        [--parts solve,value,lanes,grad,daltonng]
 
 Each fixture (FIXTURES) is one configuration of a model's setup and an
 interrogation:
@@ -69,6 +69,15 @@ gradient rule); for DALTON also the float32 result's move under a one-ulp
 move of lane 0's theta and initial state, and the errors of K11c's twins
 in float64 on the same operands (``dalton_float64_twins``), the witness
 where float32 does not resolve DALTON (``DALTON_F32_UNRESOLVED``).
+Under "daltonng" (not among the default parts), for each gradient fixture
+and mode, lane 0's float32 non-Gaussian DALTON and its gradient
+(``daltonng_fused_batch_grad``, Gaussian data in derivative 0) on
+``--device`` against the float64 torch-op ``ops.precond.daltonng`` with
+``torch.autograd``, as under "grad", which chip_smoke.py keeps as
+``DALTONNG_F32_CPU_ERR``; the same of the entries' twins in float64 on
+the same operands (``daltonng_float64_twins``), the witness where float32
+does not resolve them; and the lanes on which the float32 value is not
+finite at 2048 lanes.
 """
 import argparse
 import json
@@ -775,6 +784,154 @@ def grad_errors(device, n_lane=4):
     return out
 
 
+
+# --- non-Gaussian DALTON on the gradient fixtures (chip_smoke.py's
+# coverage_daltonng phase) ----------------------------------------------------
+
+def daltonng_args(name, thetas, inits, obs, var):
+    """The leading arguments of ``daltonng_fused_batch(_grad)`` for gradient
+    fixture ``name`` over the lanes ``thetas``, ``inits`` (on their device):
+    its observations as one datum per block, Gaussian of variance ``var``
+    in derivative 0 (``obs_dims`` (0,))."""
+    from rodeo_tpu_torch.models import obs as obs_models
+    model = GRAD_FIXTURES[name][0]
+    cfg = grad_config(name, torch.float32, thetas.device)
+    return (thetas, cfg["ode_weight"], inits, cfg["t_min"], cfg["t_max"],
+            cfg["n_steps"], cfg["prior_pars"], obs["obs_data"],
+            obs["obs_times"], obs_models.gauss(var), (0,), model)
+
+
+def daltonng_float64(name, mode, theta, init, obs, var, device):
+    """The float64 torch-op ``ops.precond.daltonng`` of gradient fixture
+    ``name`` under ``mode`` at one lane's ``theta`` and ``init`` on
+    ``device``, with its ``torch.autograd`` gradient in theta: ``(value,
+    grad)``, grad a list (zeros for Chkrebtii's ODE, which has no
+    parameter)."""
+    from rodeo_tpu_torch import interrogate
+    from rodeo_tpu_torch.ops import precond
+    model = GRAD_FIXTURES[name][0]
+    cfg = grad_config(name, torch.float64, device)
+    cfg["ode_init"] = init.to(device, torch.float64)
+
+    def obs_loglik_i(o, s, i, **params):
+        return torch.sum(-0.5 * (o[:, 0] - s[:, 0]) ** 2 / var)
+
+    th = theta.to(device, torch.float64).clone().requires_grad_(True)
+    value = precond.daltonng(
+        key=None, interrogate=getattr(interrogate, f"interrogate_{mode}"),
+        obs_data=obs["obs_data"].to(device, torch.float64),
+        obs_times=obs["obs_times"].to(torch.float64),
+        obs_loglik_i=obs_loglik_i, **cfg,
+        **({} if model == "chkrebtii" else {"theta": th}))
+    if model == "chkrebtii":
+        return float(value.detach()), [0.0]
+    value.backward()
+    return float(value.detach()), th.grad.tolist()
+
+
+def daltonng_float64_twins(args, mode, tangent=True):
+    """Non-Gaussian DALTON's log-likelihood and its gradient by the entries'
+    own code with every kernel replaced by its plain twin (K9's or K11d's,
+    K2r's or K11e's, K1's or K11a's) and every operand widened to float64
+    after the entry forms its float32 operands: ``daltonng_fused_batch_grad``
+    (``daltonng_fused_batch`` with ``tangent`` False, grad None) on
+    daltonng_args' ``args``, on their device.  The kernels are bitwise the
+    float32 twins; this is the same arithmetic without float32's rounding,
+    the witness of the result where float32 does not resolve it."""
+    from unittest import mock
+
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    from rodeo_tpu_torch.ops import fused_kalman as fk
+
+    def wide(tree):
+        return {k: v.double() if isinstance(v, torch.Tensor)
+                and v.is_floating_point() else v for k, v in tree.items()}
+
+    float32_prepare = fdn._daltonng_prepare
+
+    def prepare(*a):
+        ops, grid, obs_ind, y_obs = float32_prepare(*a)
+        return wide(ops), wide(grid), obs_ind, y_obs.double()
+
+    with mock.patch.multiple(
+            fdn, _daltonng_prepare=prepare,
+            filter_nn_batch=fdn._filter_nn_batch_plain,
+            filter_nn_batch_tan=fdn._filter_nn_batch_tan_plain,
+            smoother_recursion_batch_rows=fk._smoother_batch_rows_plain,
+            fused_filter_batch=fk._filter_batch_plain,
+            smoother_mean_recursion_batch_tan=fk._smoother_mean_tan_plain,
+            fused_filter_batch_tan=fk._filter_batch_tan_plain):
+        if tangent:
+            return fdn.daltonng_fused_batch_grad(*args, interrogation=mode,
+                                                 device=args[0].device)
+        return fdn.daltonng_fused_batch(*args, interrogation=mode,
+                                        device=args[0].device), None
+
+
+def daltonng_worker_init():
+    """The start of a worker process that runs daltonng_float64 or
+    daltonng_lane0_twins: one intra-op thread (the processes run beside
+    each other and the caller) and the package's modules imported."""
+    torch.set_num_threads(1)
+    from rodeo_tpu_torch import interrogate  # noqa: F401
+    from rodeo_tpu_torch.ops import fused_daltonng, precond  # noqa: F401
+
+
+def daltonng_lane0_twins(name, mode, theta, init, obs, var):
+    """daltonng_float64_twins of gradient fixture ``name`` under ``mode`` on
+    one lane, ``theta`` and ``init`` (float32, on the CPU, with the
+    observations ``obs`` of variance ``var``), as a worker process runs it:
+    ``(value (1,), grad (1, n_theta))``, float64 (grad None on Chkrebtii's
+    ODE, which has no parameter)."""
+    chk = GRAD_FIXTURES[name][0] == "chkrebtii"
+    return daltonng_float64_twins(
+        daltonng_args(name, theta[None], init[None], obs, var), mode,
+        tangent=not chk)
+
+
+def daltonng_errors(device, n_lane=4, nan_lanes=2048):
+    """For each gradient fixture and mode, lane 0's float32
+    ``daltonng_fused_batch_grad`` on ``device`` against the float64 torch-op
+    (daltonng_float64): the absolute error of the value and the relative L2
+    error of the gradient (bench.py's audit_grad), which chip_smoke.py keeps
+    as ``DALTONNG_F32_CPU_ERR``; the same of the twins in float64 on lane
+    0's float32 operands (daltonng_float64_twins, the value alone on
+    Chkrebtii's ODE), the witness where float32 does not resolve the
+    result; the float64 values; and the lanes of the float32
+    ``daltonng_fused_batch`` at ``nan_lanes`` lanes that are not finite
+    (chip_smoke.py's lanes)."""
+    from rodeo_tpu_torch.ops import fused_daltonng as fdn
+    out = {}
+    for name in GRAD_FIXTURES:
+        model = GRAD_FIXTURES[name][0]
+        _, (thetas, inits), obs, var = grad_fixture(name, n_lane,
+                                                    torch.float32, device)
+        _, (thetas_w, inits_w), _, _ = grad_fixture(name, nan_lanes,
+                                                    torch.float32, device)
+        for mode in VALUE_MODES:
+            t0 = time.perf_counter()
+            ref = daltonng_float64(name, mode, thetas[0], inits[0], obs, var,
+                                   device)
+            ll, g = fdn.daltonng_fused_batch_grad(
+                *daltonng_args(name, thetas, inits, obs, var),
+                interrogation=mode, device=device)
+            v64, g64 = daltonng_lane0_twins(name, mode, thetas[0], inits[0],
+                                            obs, var)
+            wide_ll = fdn.daltonng_fused_batch(
+                *daltonng_args(name, thetas_w, inits_w, obs, var),
+                interrogation=mode, device=device)
+            out[f"{name}/{mode}"] = {
+                "float64": ref,
+                "float32": _grad_errs(ll[0], g[0].double().cpu(), ref),
+                "f64_twins": _grad_errs(v64[0], [0.0] if g64 is None
+                                        else g64[0].cpu(), ref),
+                "nonfinite_lanes": int((~torch.isfinite(wide_ll)).sum()),
+                "seconds": time.perf_counter() - t0}
+            print(json.dumps({f"{name}/{mode}": out[f"{name}/{mode}"]}),
+                  file=sys.stderr, flush=True)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cpu")
@@ -796,6 +953,8 @@ def main():
         out["lanes"] = lane_readings(args.device, 1e-8, 1e-4)
     if "grad" in parts:
         out["grad"] = grad_errors(args.device)
+    if "daltonng" in parts:
+        out["daltonng"] = daltonng_errors(args.device)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)
